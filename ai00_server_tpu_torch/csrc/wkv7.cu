@@ -1,0 +1,208 @@
+// RWKV-7 WKV kernels for Hopper (sm_90a), plain C interface for ctypes.
+//
+// Both kernels compute the v7 delta-rule recurrence on one head's state
+// S (N_v x N_k, f32, k contiguous):
+//
+//     S' = S diag(w) - (S kk)(kk * a)^T + v k^T,     y = S' r
+//
+// wkv7_t1_launch replaces ai00_server_tpu/ops/wkv_t1.py:wkv7_t1 (the
+// Pallas _v7_kernel): one decode step, row-masked — an inactive row keeps
+// S bit for bit and y reads the kept S.
+//
+// wkv7_chunk_launch replaces ai00_server_tpu/ops/wkv_pallas.py:wkv7_chunk
+// (the Pallas _wkv7_kernel): the same recurrence over a T-token chunk,
+// with the state resident on chip for the whole chunk.  A masked step
+// leaves S unchanged and y reads it (the JAX wrapper's identity fold
+// w=1, k=0, kk=0 gives the same numbers).
+//
+// What bounds them on an H100 at the serving shape (B=8, H=16, N=64):
+//  * t1: bytes.  The state is read once and written once (2 x 2.1 MB);
+//    each state element takes ~6 flops, far below the card's ~20
+//    flops/byte f32 balance point.  Design: one block per (b, h), four
+//    threads per state row; each thread holds 16 elements of its row in
+//    registers (float4 loads, four threads covering 64 contiguous floats
+//    -> coalesced), and the two row reductions (S kk and S' r) are two
+//    shuffle steps.  The state crosses HBM exactly once each way.
+//  * chunk: about even.  At T=256 it streams ~63 MB (state in/out, six
+//    inputs, y) and does ~1.2 GFLOP of f32 math on CUDA cores (no tensor
+//    cores: the recurrence is sequential in t).  Design: the state lives in
+//    registers for the whole chunk (16 floats per thread, 256 threads per
+//    (b, h)); inputs are staged TT steps at a time into shared memory with
+//    coalesced float4 loads straight from the (B, T, H, N) layout, so no
+//    transpose or padding is needed outside; y is staged per tile and
+//    written back coalesced.  The sequential dependence in t is the limit
+//    left for a later version (chunked WY form on tensor cores).
+//
+// Thread layout (both kernels): tid = row * 4 + q; thread q of a row owns
+// columns 16*j + 4*q + e (j, e in 0..3), so for each j the four threads
+// of a row read 64 contiguous bytes (no shared-memory bank conflicts, and
+// coalesced global loads).
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int N = 64;             // head size (RWKV-7 uses 64 throughout)
+constexpr int TPR = 4;            // threads per state row
+constexpr int THREADS = N * TPR;  // 256
+constexpr int J = N / (4 * TPR);  // float4 groups per thread (4)
+constexpr int TT = 16;            // time steps staged per tile (chunk)
+
+__device__ __forceinline__ float row_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  x += __shfl_xor_sync(0xffffffffu, x, 2);
+  return x;
+}
+
+__device__ __forceinline__ float dot4(const float4& a, const float4& b) {
+  return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
+}
+
+// One delta-rule update of a thread's 16 state elements; w_, k_, kk_, a_
+// are this step's vectors in shared memory (N floats each).
+__device__ __forceinline__ void update(float4 (&s)[J], const float* w_,
+                                       const float* k_, const float* kk_,
+                                       const float* a_, float v, int q) {
+  float part = 0.f;
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const float4 kk = reinterpret_cast<const float4*>(kk_)[4 * j + q];
+    part += dot4(s[j], kk);
+  }
+  const float skk = row_sum(part);
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const float4 w = reinterpret_cast<const float4*>(w_)[4 * j + q];
+    const float4 k = reinterpret_cast<const float4*>(k_)[4 * j + q];
+    const float4 kk = reinterpret_cast<const float4*>(kk_)[4 * j + q];
+    const float4 a = reinterpret_cast<const float4*>(a_)[4 * j + q];
+    s[j].x = s[j].x * w.x - skk * (kk.x * a.x) + v * k.x;
+    s[j].y = s[j].y * w.y - skk * (kk.y * a.y) + v * k.y;
+    s[j].z = s[j].z * w.z - skk * (kk.z * a.z) + v * k.z;
+    s[j].w = s[j].w * w.w - skk * (kk.w * a.w) + v * k.w;
+  }
+}
+
+__device__ __forceinline__ float readout(const float4 (&s)[J],
+                                         const float* r_, int q) {
+  float part = 0.f;
+#pragma unroll
+  for (int j = 0; j < J; ++j)
+    part += dot4(s[j], reinterpret_cast<const float4*>(r_)[4 * j + q]);
+  return row_sum(part);
+}
+
+__global__ void __launch_bounds__(THREADS)
+wkv7_t1_kernel(const float* __restrict__ S, const float* __restrict__ r,
+               const float* __restrict__ w, const float* __restrict__ k,
+               const float* __restrict__ v, const float* __restrict__ kk,
+               const float* __restrict__ a, const uint8_t* __restrict__ mask,
+               float* __restrict__ S_out, float* __restrict__ y, int H) {
+  __shared__ __align__(16) float sv[6][N];  // r, w, k, v, kk, a
+  const int bh = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int row = tid / TPR, q = tid % TPR;
+  const size_t vo = (size_t)bh * N;
+  if (tid < N) {
+    sv[0][tid] = r[vo + tid];
+    sv[1][tid] = w[vo + tid];
+    sv[2][tid] = k[vo + tid];
+    sv[3][tid] = v[vo + tid];
+    sv[4][tid] = kk[vo + tid];
+    sv[5][tid] = a[vo + tid];
+  }
+  const bool active = mask[bh / H] != 0;
+  const float4* src = reinterpret_cast<const float4*>(S + (vo + row) * N);
+  float4 s[J];
+#pragma unroll
+  for (int j = 0; j < J; ++j) s[j] = src[4 * j + q];
+  __syncthreads();
+  if (active) update(s, sv[1], sv[2], sv[4], sv[5], sv[3][row], q);
+  const float yv = readout(s, sv[0], q);
+  float4* dst = reinterpret_cast<float4*>(S_out + (vo + row) * N);
+#pragma unroll
+  for (int j = 0; j < J; ++j) dst[4 * j + q] = s[j];
+  if (q == 0) y[vo + row] = yv;
+}
+
+__global__ void __launch_bounds__(THREADS)
+wkv7_chunk_kernel(const float* __restrict__ S0, const float* __restrict__ r,
+                  const float* __restrict__ w, const float* __restrict__ k,
+                  const float* __restrict__ v, const float* __restrict__ kk,
+                  const float* __restrict__ a,
+                  const uint8_t* __restrict__ mask, float* __restrict__ S_out,
+                  float* __restrict__ y, int T, int H) {
+  __shared__ __align__(16) float stage[6][TT][N];  // r, w, k, v, kk, a
+  __shared__ float sy[TT][N];
+  __shared__ uint8_t sm[TT];
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H;
+  const int tid = threadIdx.x;
+  const int row = tid / TPR, q = tid % TPR;
+  const float* const ins[6] = {r, w, k, v, kk, a};
+
+  const float4* src = reinterpret_cast<const float4*>(S0 + ((size_t)bh * N + row) * N);
+  float4 s[J];
+#pragma unroll
+  for (int j = 0; j < J; ++j) s[j] = src[4 * j + q];
+
+  for (int t0 = 0; t0 < T; t0 += TT) {
+    const int nt = min(TT, T - t0);
+    // Stage nt steps of the six inputs: each (b, t, h) slice is N
+    // contiguous floats of the (B, T, H, N) layout.
+    for (int i = tid; i < 6 * nt * (N / 4); i += THREADS) {
+      const int arr = i / (nt * (N / 4));
+      const int rem = i % (nt * (N / 4));
+      const int tt = rem / (N / 4), c = rem % (N / 4);
+      const size_t off = (((size_t)b * T + t0 + tt) * H + h) * N;
+      reinterpret_cast<float4*>(stage[arr][tt])[c] =
+          reinterpret_cast<const float4*>(ins[arr] + off)[c];
+    }
+    if (tid < nt) sm[tid] = mask[(size_t)b * T + t0 + tid];
+    __syncthreads();
+    for (int tt = 0; tt < nt; ++tt) {
+      if (sm[tt])
+        update(s, stage[1][tt], stage[2][tt], stage[4][tt], stage[5][tt],
+               stage[3][tt][row], q);
+      const float yv = readout(s, stage[0][tt], q);
+      if (q == 0) sy[tt][row] = yv;
+    }
+    __syncthreads();
+    for (int i = tid; i < nt * N; i += THREADS) {
+      const int tt = i / N, c = i % N;
+      y[(((size_t)b * T + t0 + tt) * H + h) * N + c] = sy[tt][c];
+    }
+    // The next tile's staging overwrites stage only; sy is rewritten after
+    // the next __syncthreads, once every thread has finished this write.
+  }
+  float4* dst = reinterpret_cast<float4*>(S_out + ((size_t)bh * N + row) * N);
+#pragma unroll
+  for (int j = 0; j < J; ++j) dst[4 * j + q] = s[j];
+}
+
+}  // namespace
+
+extern "C" {
+
+int wkv7_t1_launch(const float* S, const float* r, const float* w,
+                   const float* k, const float* v, const float* kk,
+                   const float* a, const uint8_t* mask, float* S_out,
+                   float* y, int B, int H, int n, void* stream) {
+  if (n != N || B <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
+  wkv7_t1_kernel<<<B * H, THREADS, 0, (cudaStream_t)stream>>>(
+      S, r, w, k, v, kk, a, mask, S_out, y, H);
+  return (int)cudaGetLastError();
+}
+
+int wkv7_chunk_launch(const float* S, const float* r, const float* w,
+                      const float* k, const float* v, const float* kk,
+                      const float* a, const uint8_t* mask, float* S_out,
+                      float* y, int B, int T, int H, int n, void* stream) {
+  if (n != N || B <= 0 || H <= 0 || T <= 0) return (int)cudaErrorInvalidValue;
+  wkv7_chunk_kernel<<<B * H, THREADS, 0, (cudaStream_t)stream>>>(
+      S, r, w, k, v, kk, a, mask, S_out, y, T, H);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

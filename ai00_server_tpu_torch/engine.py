@@ -1,0 +1,331 @@
+"""Batched inference engine: merged steps and K-token decode over a state
+pool on one device.
+
+Port of ``ai00_server_tpu/engine.py`` for plain RWKV-7 on the
+layer-by-layer path:
+
+* All ``max_batch`` request slots live in ONE state pool on the device,
+  leading axes ``(L, B, ...)``.  :meth:`Engine.step` consumes a ``(B, T)``
+  token block (T = 1 for per-token decode, T = ``token_chunk_size`` when a
+  row prefills); :meth:`Engine.decode_chunk` runs K decode steps with
+  sampling on the device, feeding each sampled token back in, and only
+  the ``(K, B)`` tokens cross to the host.
+* Per-row logit bias is a device pool updated only when it changes.
+* Sampling uniforms come from a ``torch.Generator`` on the device.
+* A ring of pre-chunk snapshots backs :meth:`rollback_row` and
+  :meth:`restore_last_chunk`.
+
+Every method that reads or writes a pool holds the engine's lock (row
+reads included).  The scheduler (runtime.py) calls the engine from one
+worker thread; the engine itself is synchronous.
+"""
+
+from __future__ import annotations
+
+import threading
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from .device import resolve_device
+from .loader import LoadedModel
+from .models import get_version_module
+from .models.common import masked_select, take_last_valid
+from .ops import sampling
+
+
+def head_logits(params, x):
+    """``x @ head -> (..., V) f32 logits``: operands in the activation
+    dtype, products summed in f32 (a bf16 x bf16 product is exact in f32),
+    f32 result."""
+    return torch.matmul(x.float(), params["head"].to(x.dtype).float())
+
+
+@dataclass
+class StepResult:
+    tokens: np.ndarray          # (B,) int32, valid where sample_mask
+    logits: torch.Tensor | None  # (B, V) f32 on the device (want_logits)
+
+
+def to_host(tree):
+    """Tensor or dict of tensors -> numpy (a device->host copy)."""
+    if isinstance(tree, dict):
+        return {k: to_host(v) for k, v in tree.items()}
+    return tree.detach().cpu().numpy()
+
+
+class Engine:
+    """Owner of the device-resident pools for one loaded model."""
+
+    def __init__(self, model: LoadedModel, max_batch: int = 8,
+                 token_chunk_size: int = 128, device="cuda"):
+        self.device = resolve_device(device)
+        self.model = model
+        self.info = model.info
+        self.module = get_version_module(model.info.version)
+        self.max_batch = int(max_batch)
+        self.token_chunk_size = int(token_chunk_size)
+        self.vocab = model.info.num_vocab
+        first = model.params["emb"]
+        if first.device != self.device:
+            raise ValueError(f"params are on {first.device}, engine on "
+                             f"{self.device}")
+
+        B, V = self.max_batch, self.vocab
+        self.state_pool = self.module.init_state(self.info, B,
+                                                 device=self.device)
+        self.sampler_state = sampling.init_sampler_state(B, V, self.device)
+        self.sampler_params_host = sampling.make_params(B)
+        self.bias_pool = torch.zeros((B, V), dtype=torch.float32,
+                                     device=self.device)
+        self.bias_active = np.zeros(B, np.bool_)
+        self._gen = torch.Generator(device=self.device)
+        self._gen.seed()
+        self._lock = threading.Lock()
+        # Ring of (state, sampler state) pre-chunk snapshots: [-1] is the
+        # most recent chunk's pre-state (rollback_row), [-2] survives one
+        # speculative chunk (restore_last_chunk).
+        self._chunk_snaps: list = []
+        self._sparams_device = None
+
+    # ------------------------------------------------------------------
+    # State pool row management
+    # ------------------------------------------------------------------
+
+    def fresh_row_state(self) -> dict:
+        """A batch-1 initial state on the device."""
+        return self.module.init_state(self.info, 1, device=self.device)
+
+    def _write_row(self, row: dict, b: int) -> None:
+        for k, p in self.state_pool.items():
+            p[:, b] = torch.as_tensor(row[k], device=self.device)[:, 0].to(
+                p.dtype)
+
+    def _read_row(self, pool: dict, b: int) -> dict:
+        return {k: p[:, b:b + 1].clone() for k, p in pool.items()}
+
+    def load_row_state(self, b: int, row_state=None) -> None:
+        """Install a batch-1 state (tensors or numpy) in row b, or a fresh
+        initial state."""
+        with self._lock:
+            self._write_row(row_state if row_state is not None
+                            else self.fresh_row_state(), b)
+
+    def read_row_state(self, b: int) -> dict:
+        """Device->host copy of row b's state as a batch-1 numpy dict."""
+        return to_host(self.read_row_state_device(b))
+
+    def read_row_state_device(self, b: int) -> dict:
+        """Row b's state as a device copy, taken under the lock (later pool
+        writes cannot race it); the caller moves it to the host."""
+        with self._lock:
+            return self._read_row(self.state_pool, b)
+
+    # ------------------------------------------------------------------
+    # Sampler / bias row management
+    # ------------------------------------------------------------------
+
+    def _set_sampler_row(self, b, pen, seen, ms0) -> None:
+        ss = self.sampler_state
+        ss["penalties"][b] = torch.as_tensor(pen, device=self.device)
+        ss["seen"][b] = torch.as_tensor(seen, device=self.device)
+        ss["max_surprise"][b] = ms0
+
+    def set_row_sampler(self, b: int, params: dict, prompt_tokens=()) -> None:
+        """Configure row b's sampler params + penalty init from the
+        model-authored prompt tokens."""
+        with self._lock:
+            for k, v in params.items():
+                self.sampler_params_host[k][b] = v
+            self._sparams_device = None
+            hp = self.sampler_params_host
+            pen, seen = sampling.init_penalties_host(
+                list(prompt_tokens), self.vocab, float(hp["presence"][b]),
+                float(hp["frequency"][b]), float(hp["decay"][b]))
+            self._set_sampler_row(b, pen, seen,
+                                  2.0 * float(hp["miro_tau"][b]))
+
+    def reset_row_sampler_key(self, b: int) -> None:
+        """Reset row b's kind and top_k to the pool defaults after its
+        request finishes, so an idle row's values never widen the sampler
+        branches or the top-k width of the rows still running."""
+        with self._lock:
+            defaults = sampling.make_params(1)
+            self.sampler_params_host["kind"][b] = defaults["kind"][0]
+            self.sampler_params_host["top_k"][b] = defaults["top_k"][0]
+            self._sparams_device = None
+
+    def set_row_bias(self, b: int, bias: np.ndarray | None) -> None:
+        with self._lock:
+            if bias is None:
+                if not self.bias_active[b]:
+                    return  # row already zero: skip the (V,) upload
+                self.bias_active[b] = False
+                self.bias_pool[b] = 0.0
+                return
+            self.bias_active[b] = True
+            self.bias_pool[b] = torch.as_tensor(bias, dtype=torch.float32,
+                                                device=self.device)
+
+    def _sampler_key(self):
+        """(kinds present, top-k width) of the whole pool."""
+        hp = self.sampler_params_host
+        return (sampling.kinds_key(hp["kind"]),
+                sampling.k_cap_key(hp["top_k"], self.vocab))
+
+    def _sparams(self) -> dict:
+        if self._sparams_device is None:
+            self._sparams_device = {
+                k: torch.as_tensor(v, device=self.device)
+                for k, v in self.sampler_params_host.items()}
+        return self._sparams_device
+
+    def _sample(self, logits, active):
+        """Sample every row; rows outside ``active`` keep their sampler
+        state.  Returns (tokens, probs)."""
+        kinds, k_cap = self._sampler_key()
+        rand = torch.rand(logits.shape[0], generator=self._gen,
+                          device=self.device)
+        toks, sp, new_ss = sampling.sample_with_rand(
+            rand, logits, self._sparams(), self.sampler_state,
+            bias=self.bias_pool, kinds=kinds, k_cap=k_cap)
+        old = self.sampler_state
+        self.sampler_state = {k: masked_select(active, v, old[k])
+                              for k, v in new_ss.items()}
+        return toks, sp
+
+    # ------------------------------------------------------------------
+    # The step
+    # ------------------------------------------------------------------
+
+    def step(self, tokens: np.ndarray, lengths: np.ndarray,
+             sample_mask: np.ndarray, want_logits: bool = False) -> StepResult:
+        """Run one merged batch step.
+
+        tokens: (B, T) int32 (suffix-padded); lengths: (B,) valid counts
+        (0 = idle row); sample_mask: (B,) bool — rows that draw a token this
+        step (decode rows + prefill rows on their final chunk).
+        ``want_logits`` also returns the (B, V) raw logits on the device.
+        """
+        with self._lock:
+            B, T = tokens.shape
+            if B != self.max_batch:
+                raise ValueError(f"batch {B} != max_batch {self.max_batch}")
+            dev = self.device
+            lengths_t = torch.as_tensor(lengths, dtype=torch.int32,
+                                        device=dev)
+            hidden, self.state_pool = self.module.forward(
+                self.model.params, self.state_pool,
+                torch.as_tensor(tokens, dtype=torch.int32, device=dev),
+                lengths_t)
+            logits = head_logits(self.model.params,
+                                 take_last_valid(hidden, lengths_t))
+            toks, _ = self._sample(
+                logits, torch.as_tensor(sample_mask, device=dev))
+            return StepResult(tokens=toks.cpu().numpy(),
+                              logits=logits if want_logits else None)
+
+    # ------------------------------------------------------------------
+    # Multi-token decode: K tokens per host round-trip
+    # ------------------------------------------------------------------
+
+    def decode_chunk(self, first_tokens, active: np.ndarray, steps: int,
+                     sync: bool = True, host_first: tuple | None = None,
+                     budget: np.ndarray | None = None):
+        """Decode ``steps`` tokens for all ``active`` rows, feeding each
+        sampled token back in, with no host round-trip inside the chunk.
+
+        Inactive rows keep their state and sampler state frozen.  Returns
+        (tokens (steps, B), probs (steps, B)).  The pre-chunk state is
+        snapshotted on the device for :meth:`rollback_row`.
+
+        ``sync=False`` returns the tokens as a DEVICE tensor: a caller that
+        feeds ``tokens[-1]`` into the next chunk keeps the device busy
+        across chunks.  ``host_first=(mask, values)`` merges host-provided
+        first tokens into a device-resident ``first_tokens`` where ``mask``
+        is set.
+        ``budget`` (B,) freezes each row after it has drawn that many
+        tokens this chunk, so a LENGTH stop never over-consumes state.
+        """
+        with self._lock:
+            dev = self.device
+            B = self.max_batch
+            if budget is None:
+                budget = np.full(B, steps, np.int32)
+            if isinstance(first_tokens, torch.Tensor):
+                toks = first_tokens.to(device=dev, dtype=torch.int32)
+            else:
+                toks = torch.as_tensor(np.asarray(first_tokens, np.int32),
+                                       device=dev)
+            if host_first is not None:
+                hmask, hvals = host_first
+                toks = torch.where(
+                    torch.as_tensor(np.asarray(hmask, np.bool_), device=dev),
+                    torch.as_tensor(np.asarray(hvals, np.int32), device=dev),
+                    toks)
+            active_t = torch.as_tensor(np.asarray(active, np.bool_),
+                                       device=dev)
+            budget_t = torch.as_tensor(np.asarray(budget, np.int32),
+                                       device=dev)
+            if steps > 1:
+                self._chunk_snaps.append((
+                    {k: v.clone() for k, v in self.state_pool.items()},
+                    {k: v.clone() for k, v in self.sampler_state.items()}))
+                del self._chunk_snaps[:-2]
+            toks_seq, sp_seq = [], []
+            for i in range(steps):
+                act = active_t & (i < budget_t)
+                hidden, self.state_pool = self.module.forward(
+                    self.model.params, self.state_pool, toks[:, None],
+                    act.to(torch.int32))
+                logits = head_logits(self.model.params, hidden[:, 0])
+                t2, sp = self._sample(logits, act)
+                toks = torch.where(act, t2, toks)
+                toks_seq.append(toks)
+                sp_seq.append(sp)
+            toks_seq = torch.stack(toks_seq)
+            sp_seq = torch.stack(sp_seq)
+            return (toks_seq.cpu().numpy() if sync else toks_seq), sp_seq
+
+    def restore_last_chunk(self) -> None:
+        """Discard the most recent decode chunk entirely: the state pool and
+        sampler state return to their pre-chunk snapshots."""
+        with self._lock:
+            if not self._chunk_snaps:
+                raise RuntimeError("no chunk snapshot")
+            self.state_pool, self.sampler_state = self._chunk_snaps.pop()
+
+    def rollback_row(self, b: int, feed_tokens: list[int],
+                     depth: int = -1) -> None:
+        """Undo a row's over-decoded chunk suffix: restore row ``b`` from
+        the pre-chunk snapshot at ring position ``depth`` (-1 = most recent
+        launch, -2 = the chunk before it), then re-feed ``feed_tokens``
+        with a forward-only masked step.  Device-to-device only."""
+        with self._lock:
+            if not self._chunk_snaps:
+                raise RuntimeError("no chunk snapshot")
+            self._write_row(self._read_row(self._chunk_snaps[depth][0], b), b)
+        B, T = self.max_batch, self.token_chunk_size
+        no_sample = np.zeros(B, np.bool_)
+        for i in range(0, len(feed_tokens), T):
+            part = feed_tokens[i: i + T]
+            toks = np.zeros((B, T), np.int32)
+            toks[b, : len(part)] = part
+            lengths = np.zeros(B, np.int32)
+            lengths[b] = len(part)
+            self.step(toks, lengths, no_sample, False)
+
+    def sample_only(self, b: int, logits: np.ndarray) -> int:
+        """Sample row ``b`` from externally-provided logits (the exact-hit
+        prefix-cache fast path).  Updates row b's sampler state only."""
+        with self._lock:
+            B = self.max_batch
+            full = torch.zeros((B, self.vocab), dtype=torch.float32,
+                               device=self.device)
+            full[b] = torch.as_tensor(np.asarray(logits, np.float32),
+                                      device=self.device)
+            mask = torch.zeros(B, dtype=torch.bool, device=self.device)
+            mask[b] = True
+            toks, _ = self._sample(full, mask)
+            return int(toks[b].item())

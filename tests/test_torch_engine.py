@@ -1,0 +1,183 @@
+"""The port's Engine against the JAX package's Engine, greedy.
+
+Both engines hold the same tiny f32 v7 (the JAX params carried across with
+``params_from_numpy``) and get the same calls: a ragged merged prefill
+step, a K-token ``decode_chunk`` with per-row budgets and an inactive row,
+then ``rollback_row``.  Greedy tokens must be equal; row states agree to
+2e-4 of their scale (f32, different summation order, as in
+test_torch_models_v7).
+"""
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import torch
+
+from ai00_server_tpu.engine import Engine as JEngine
+from ai00_server_tpu.loader import LoadedModel as JLoaded
+from ai00_server_tpu.models import ModelVersion
+from ai00_server_tpu.ops import sampling as jsampling
+from ai00_server_tpu.testing import make_tiny_model
+
+from ai00_server_tpu_torch.engine import Engine as TEngine
+from ai00_server_tpu_torch.loader import LoadedModel as TLoaded
+from ai00_server_tpu_torch.loader import params_from_numpy
+
+B, CHUNK = 4, 8
+GREEDY = {"kind": jsampling.KIND_GREEDY, "presence": 0.3, "frequency": 0.3}
+
+
+def close(got, want, rtol=2e-4):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    scale = max(float(np.abs(want).max()), 1e-6)
+    assert float(np.abs(got - want).max()) <= rtol * scale
+
+
+@pytest.fixture()
+def engines():
+    info, _, params = make_tiny_model(ModelVersion.V7, seed=70,
+                                      dtype=np.float32, num_vocab=64)
+    j = JEngine(JLoaded(info=info, params=params, init_wkv=None),
+                max_batch=B, token_chunk_size=CHUNK)
+    tparams = params_from_numpy(jax.tree.map(np.asarray, params), "cpu")
+    t = TEngine(TLoaded(info=info, params=tparams), max_batch=B,
+                token_chunk_size=CHUNK, device="cpu")
+    prompts = [[1, 2, 3, 4, 5], [7, 8, 9], [3] * 8, []]
+    for eng in (j, t):
+        for b in range(B):
+            eng.load_row_state(b, None)
+            eng.set_row_sampler(b, GREEDY, prompt_tokens=prompts[b])
+            eng.set_row_bias(b, None)
+    eng_bias = np.zeros(64, np.float32)
+    eng_bias[5] = 2.0
+    j.set_row_bias(1, eng_bias)
+    t.set_row_bias(1, eng_bias)
+    return j, t, prompts
+
+
+def _prefill(eng, prompts):
+    toks = np.zeros((B, CHUNK), np.int32)
+    lens = np.zeros(B, np.int32)
+    for b, p in enumerate(prompts):
+        toks[b, :len(p)] = p
+        lens[b] = len(p)
+    return eng.step(toks, lens, lens > 0).tokens
+
+
+def _states_close(j, t):
+    for b in range(B):
+        jr, tr = j.read_row_state(b), t.read_row_state(b)
+        for k in jr:
+            close(tr[k], jr[k])
+
+
+def test_step_and_decode_chunk_equal_jax(engines):
+    j, t, prompts = engines
+    jf, tf = _prefill(j, prompts), _prefill(t, prompts)
+    np.testing.assert_array_equal(tf[:3], jf[:3])
+    _states_close(j, t)
+
+    active = np.array([True, True, True, False])
+    budget = np.array([6, 6, 3, 0], np.int32)
+    jt, _ = j.decode_chunk(jf, active, 6, budget=budget)
+    tt, _ = t.decode_chunk(tf, active, 6, budget=budget)
+    np.testing.assert_array_equal(tt[:, :3], jt[:, :3])
+    # Row 2 froze after its budget of 3; the idle row never moved.
+    assert (tt[3:, 2] == tt[2, 2]).all()
+    _states_close(j, t)
+    assert float(np.abs(t.read_row_state(3)["wkv"]).max()) == 0.0
+
+    # A speculative successor chained from the device-resident tokens.
+    hf = (np.array([False, False, False, True]), np.array([0, 0, 0, 9]))
+    active = np.ones(B, np.bool_)
+    jt2, _ = j.decode_chunk(jnp.asarray(jt[-1]), active, 4, host_first=hf)
+    tt2, _ = t.decode_chunk(torch.from_numpy(tt[-1]), active, 4,
+                            host_first=hf)
+    np.testing.assert_array_equal(tt2, jt2)
+    _states_close(j, t)
+
+
+def test_rollback_row_equals_jax(engines):
+    j, t, prompts = engines
+    jf, tf = _prefill(j, prompts), _prefill(t, prompts)
+    active = np.array([True, True, True, False])
+    jt, _ = j.decode_chunk(jf, active, 5)
+    tt, _ = t.decode_chunk(tf, active, 5)
+    np.testing.assert_array_equal(tt[:, :3], jt[:, :3])
+    # Row 0 stopped after its second token: restore it to the pre-chunk
+    # state and re-feed the two tokens the request consumed.
+    feed = [int(tf[0]), int(tt[0, 0])]
+    j.rollback_row(0, feed)
+    t.rollback_row(0, feed)
+    _states_close(j, t)
+
+    # Same state as feeding those two tokens one at a time.
+    t2 = TEngine(t.model, max_batch=B, token_chunk_size=CHUNK, device="cpu")
+    for b in range(B):
+        t2.load_row_state(b, None)
+        t2.set_row_sampler(b, GREEDY, prompt_tokens=prompts[b])
+    _prefill(t2, prompts)
+    for tok in feed:
+        toks = np.zeros((B, 1), np.int32)
+        toks[0, 0] = tok
+        t2.step(toks, np.array([1, 0, 0, 0], np.int32),
+                np.zeros(B, np.bool_))
+    for k, v in t2.read_row_state(0).items():
+        close(t.read_row_state(0)[k], v, rtol=1e-5)
+
+    # restore_last_chunk brings the whole pool back to its pre-chunk state.
+    before = t.read_row_state(1)
+    t.decode_chunk(tt[-1], active, 3)
+    t.restore_last_chunk()
+    for k, v in t.read_row_state(1).items():
+        np.testing.assert_array_equal(v, before[k])
+
+
+def test_runtime_keeps_requests_submitted_during_admission(engines):
+    """A request submitted while the drive loop is suspended inside an
+    admission (waiting on the engine thread) must still be served."""
+    import asyncio
+    import json as _json
+
+    from ai00_server_tpu_torch.runtime import GenerateRequest, Runtime
+    from ai00_server_tpu_torch.runtime import SamplerSpec
+    from ai00_server_tpu_torch.tokenizer import Tokenizer
+
+    _, t, _ = engines
+    tok = Tokenizer.from_json(_json.dumps(
+        {str(i): chr(64 + i) for i in range(1, 60)}))
+
+    def req():
+        return GenerateRequest(prompt="ABC", max_tokens=3, sampler=SamplerSpec(
+            kind=jsampling.KIND_GREEDY))
+
+    async def main():
+        rt = Runtime(t, tok, decode_chunk_size=4)
+        loop = asyncio.get_running_loop()
+        late = []
+        set_bias = t.set_row_bias
+
+        def hooked(b, bias):
+            if not late:  # first admission: submit another request now
+                late.append(asyncio.run_coroutine_threadsafe(
+                    rt.submit(req()), loop).result(timeout=10))
+            set_bias(b, bias)
+
+        t.set_row_bias = hooked
+        rt.start()
+        try:
+            first = await rt.submit(req())
+            done = []
+            for h in (first, None):
+                h = h or late[0]
+                async for msg in h:
+                    if msg[0] == "stop":
+                        done.append(msg[1])
+            assert len(done) == 2
+        finally:
+            t.set_row_bias = set_bias
+            await rt.stop()
+
+    asyncio.run(asyncio.wait_for(main(), timeout=60))

@@ -1,0 +1,202 @@
+"""HTTP flow of the port's server on the CPU (``device="cpu"``): the
+``tests/test_http.py`` site flow — completions, the v1 alias, greedy
+determinism, SSE ending in ``[DONE]``, chat, models and info — plus equal
+greedy text from the JAX server on the same model, and 501 answers for
+what later slices bring."""
+
+import asyncio
+import json
+
+import numpy as np
+import pytest
+from aiohttp.test_utils import TestClient, TestServer
+
+from ai00_server_tpu import loader as jloader
+from ai00_server_tpu.models import ModelVersion
+from ai00_server_tpu.server.app import Server as JServer
+from ai00_server_tpu.server.config import Config as JConfig
+from ai00_server_tpu.testing import make_tiny_model
+
+from ai00_server_tpu_torch.server.app import Server
+from ai00_server_tpu_torch.server.config import Config
+
+from test_loader import to_converted_layout
+
+GREEDY = {"type": "Nucleus", "top_k": 1}
+
+
+@pytest.fixture(scope="module")
+def site(tmp_path_factory):
+    root = tmp_path_factory.mktemp("site")
+    models = root / "assets" / "models"
+    tok_dir = root / "assets" / "tokenizer"
+    cfg_dir = root / "assets" / "configs"
+    for d in (models, tok_dir, cfg_dir):
+        d.mkdir(parents=True)
+    _, raw, _ = make_tiny_model(ModelVersion.V7, seed=21, dtype=np.float32,
+                                num_vocab=64)
+    jloader.save_safetensors(to_converted_layout(raw),
+                             str(models / "tiny.st"), dtype=np.float32)
+    vocab = {str(i): chr(64 + i) for i in range(1, 60)}
+    (tok_dir / "vocab.json").write_text(json.dumps(vocab))
+    (cfg_dir / "Config.toml").write_text(f"""
+[model]
+name = "tiny.st"
+path = "{models}"
+max_batch = 4
+token_chunk_size = 16
+precision = "Fp32"
+
+[tokenizer]
+path = "{tok_dir / 'vocab.json'}"
+
+[listen]
+port = 0
+""")
+    return root
+
+
+async def make_client(site, server_cls=Server, config_cls=Config, **kw):
+    config = config_cls.from_toml(str(site / "assets/configs/Config.toml"))
+    server = server_cls(config, **kw)
+    await server.middleware.reload(config.to_reload_request(sandbox=False))
+    client = TestClient(TestServer(server.app))
+    await client.start_server()
+    return client, server
+
+
+async def _complete(client, path="/api/oai/completions", **body):
+    r = await client.post(path, json={"prompt": "ABCAB", "max_tokens": 6,
+                                      "sampler": GREEDY, **body})
+    assert r.status == 200
+    return await r.json()
+
+
+def test_site_flow(site):
+    async def main():
+        client, server = await make_client(site, device="cpu")
+        try:
+            body = await _complete(client)
+            assert body["object"] == "text_completion"
+            assert body["choices"][0]["finish_reason"] in ("length", "stop")
+            assert body["usage"]["prompt"] == 5
+            text1 = body["choices"][0]["text"]
+            text2 = (await _complete(client, "/api/oai/v1/completions")
+                     )["choices"][0]["text"]
+            assert text1 == text2
+
+            # Concurrent identical greedy requests agree with each other.
+            many = await asyncio.gather(*[_complete(client)
+                                          for _ in range(3)])
+            assert {m["choices"][0]["text"] for m in many} == {text1}
+
+            r = await client.get("/api/oai/models")
+            assert (await r.json())["data"][0]["id"] == "tiny"
+            r = await client.get("/api/models/info")
+            info = await r.json()
+            assert info["state"] == "loaded"
+            assert info["model"]["version"] == "V7"
+            r = await client.get("/api/adapters")
+            assert "CPU (cpu)" in await r.json()
+        finally:
+            await client.close()
+            await server.middleware.unload()
+
+    asyncio.run(main())
+
+
+def test_streaming_sse_and_chat(site):
+    async def main():
+        client, server = await make_client(site, device="cpu")
+        try:
+            r = await client.post("/api/oai/completions", json={
+                "prompt": "ABC", "max_tokens": 4, "stream": True,
+                "sampler": GREEDY})
+            assert r.status == 200
+            assert r.headers["Content-Type"].startswith("text/event-stream")
+            events = [l[6:] for l in (await r.read()).decode().splitlines()
+                      if l.startswith("data: ")]
+            assert events[-1] == "[DONE]"
+            text = "".join(c.get("text", "") for e in events[:-1]
+                           for c in json.loads(e)["choices"])
+            assert text
+
+            r = await client.post("/api/oai/chat/completions", json={
+                "messages": [{"role": "user", "content": "ABC"}],
+                "max_tokens": 4, "stream": True, "sampler": GREEDY})
+            events = [l[6:] for l in (await r.read()).decode().splitlines()
+                      if l.startswith("data: ")]
+            assert events[-1] == "[DONE]"
+            first = json.loads(events[0])["choices"][0]["delta"]
+            assert first == {"role": "Assistant"}
+        finally:
+            await client.close()
+            await server.middleware.unload()
+
+    asyncio.run(main())
+
+
+def test_greedy_text_equals_jax_server(site):
+    async def texts(server_cls, config_cls, **kw):
+        client, server = await make_client(site, server_cls, config_cls,
+                                           **kw)
+        try:
+            out = [(await _complete(client, prompt=p, max_tokens=8)
+                    )["choices"][0]["text"] for p in ("ABCAB", "QRS")]
+            r = await client.post("/api/oai/chat/completions", json={
+                "messages": [{"role": "user", "content": "HELLO"}],
+                "max_tokens": 8, "sampler": GREEDY})
+            out.append((await r.json())["choices"][0]["message"]["content"])
+            return out
+        finally:
+            await client.close()
+            await server.middleware.unload()
+
+    port = asyncio.run(texts(Server, Config, device="cpu"))
+    ref = asyncio.run(texts(JServer, JConfig))
+    assert port == ref
+    assert all(port)
+
+
+def test_staggered_burst_all_complete(site):
+    """More requests than slots, arriving while earlier ones are being
+    admitted: every one completes, identical prompts agree, and a long
+    prompt (several prefill chunks, prefix-cached) matches its twin."""
+    async def main():
+        client, server = await make_client(site, device="cpu")
+        try:
+            prompts = ["ABCAB", "QRS", "ABCDEFGHIJKLMNOPQRSTUVWXYZ" * 3] * 3
+
+            async def one(i, p):
+                await asyncio.sleep(0.003 * i)
+                return (await _complete(client, prompt=p, max_tokens=10)
+                        )["choices"][0]["text"]
+
+            texts = await asyncio.wait_for(asyncio.gather(
+                *[one(i, p) for i, p in enumerate(prompts)]), timeout=120)
+            for p in set(prompts):
+                assert len({t for q, t in zip(prompts, texts) if q == p}) == 1
+        finally:
+            await client.close()
+            await server.middleware.unload()
+
+    asyncio.run(main())
+
+
+def test_later_slices_answer_501(site):
+    async def main():
+        client, server = await make_client(site, device="cpu")
+        try:
+            r = await client.post("/api/oai/embeddings", json={"input": "A"})
+            assert r.status == 501
+            assert "ROADMAP" in (await r.json())["error"]
+            r = await client.post("/api/oai/completions", json={
+                "prompt": "A", "bnf_schema": "start ::= 'A';"})
+            assert r.status == 501
+            r = await client.get("/admin/models/unload")
+            assert r.status == 501
+        finally:
+            await client.close()
+            await server.middleware.unload()
+
+    asyncio.run(main())
