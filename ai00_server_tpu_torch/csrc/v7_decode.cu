@@ -1,0 +1,561 @@
+// The RWKV-7 whole-network decode step (T = 1) for Hopper (sm_90a), plain C
+// interface for ctypes.
+//
+// Replaces ai00_server_tpu/ops/v7_decode_pallas.py:forward_t1 (the Pallas
+// _kernel): there one sequential grid over the layers keeps the residual in
+// on-chip scratch.  On this card blocks run in no order and every stage of a
+// layer needs the whole width of the stage before it, so a layer is a fixed
+// sequence of nine launches of three kernels:
+//
+//   ln_mix(6) -> matmul{r,k,v} -> matmul{LoRA down x4} -> matmul{LoRA up x4}
+//   -> wkv_gn -> matmul{Wo, += x} -> ln_mix(1) -> matmul{fkey} -> matmul{fval, += x}
+//
+// and the caller replays the whole stack from one CUDA graph.  Activations
+// are T (the weights' type: bf16 or f32); the residual, the state and every
+// sum are f32, and values round through T at the points of the Pallas
+// kernel.
+//
+// What bounds them on an H100 at the serving shape (B = 8, C = 1024,
+// F = 4096, bf16):
+//  * v7_skinny_matmul: bytes of the weight.  B <= 8 rows against a (K, N)
+//    weight is 2 B flops per weight element, far under the card's balance
+//    point, so the design streams each weight byte once for all rows.  A
+//    weight is a few MB - about what the card must have in flight to run
+//    at its memory rate - so the kernel is one round of loads and a chain
+//    of latencies after it, and the design keeps that chain short: a block
+//    owns 64 output columns (bf16; 32 in f32) and a 128-row slice of K; a
+//    warp reads one weight row as 128 contiguous bytes, 4 bytes a thread,
+//    and every thread asks for all 16 of its rows before it does anything
+//    else; the rows' inputs sit in shared memory as f32 and a thread keeps
+//    B x 2 sums in registers.  K is split over the warps of a block (one
+//    shared-memory reduction, no shuffles) and, so that a (1024, 1024)
+//    weight fills the card (128 blocks), over blocks:
+//    each block writes its partial sums to scratch and the block that
+//    arrives last at the tile's counter adds them IN SPLIT ORDER and runs
+//    the epilogue - one launch, and the same bits on every run (no float
+//    atomics).  Up to four products share one launch (r/k/v, the LoRAs).
+//  * v7_wkv_gn: bytes of the state (read once, written once for active
+//    rows), as wkv7_t1, with the vector prologue and the GroupNorm / bonus /
+//    gate epilogue fused around the same register layout.
+//  * v7_ln_mix: latency; B x C elements, one block of 1024 threads per
+//    row, so that at C = 1024 each pass is one round of independent loads.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "wkv7_common.cuh"
+
+using namespace wkv7;
+
+namespace {
+
+constexpr float LN_EPS = 1e-5f;
+constexpr float GN_EPS = 64e-5f;
+constexpr float W_SCALE = 0.6065306597126334f;  // exp(-0.5)
+
+// ---------------------------------------------------------------------------
+// Element types
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) {
+  return v;
+}
+template <> __device__ __forceinline__ __nv_bfloat16
+from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// Round through T and come back (the ".astype(cd).astype(f32)" points).
+template <typename T> __device__ __forceinline__ float rnd(float v) {
+  return to_f(from_f<T>(v));
+}
+
+__device__ __forceinline__ float sigmoidf(float x) {
+  return 1.f / (1.f + expf(-x));
+}
+
+// ---------------------------------------------------------------------------
+// v7_ln_mix: LayerNorm, token shift, n_mix mixed outputs, new shift state
+// ---------------------------------------------------------------------------
+
+constexpr int LN_THREADS = 1024;  // one element a thread at C = 1024
+
+// Sum over the block, in a fixed order; every thread gets the total.
+__device__ __forceinline__ float block_sum(float v, float* red) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  __syncthreads();  // the previous total has been read by every thread
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float t = 0.f;
+#pragma unroll
+  for (int i = 0; i < LN_THREADS / 32; ++i) t += red[i];
+  return t;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(LN_THREADS)
+ln_mix_kernel(const float* __restrict__ x, const T* __restrict__ ln,
+              float* __restrict__ shift, const T* __restrict__ mix,
+              const uint8_t* __restrict__ active, T* __restrict__ out, int B,
+              int C, int n_mix) {
+  __shared__ float red[LN_THREADS / 32];
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const float* xr = x + (size_t)b * C;
+  float* sh = shift + (size_t)b * C;
+
+  float s = 0.f;
+  for (int c = tid; c < C; c += LN_THREADS) s += xr[c];
+  const float mean = block_sum(s, red) / C;
+  float q = 0.f;
+  for (int c = tid; c < C; c += LN_THREADS) {
+    const float d = xr[c] - mean;
+    q += d * d;
+  }
+  const float rstd = rsqrtf(block_sum(q, red) / C + LN_EPS);
+  const bool act = active[b] != 0;
+
+  for (int c = tid; c < C; c += LN_THREADS) {
+    const float lnv = (xr[c] - mean) * rstd * to_f(ln[c]) + to_f(ln[C + c]);
+    const float prev = sh[c];
+    const float xa = rnd<T>(lnv);
+    const float dx = rnd<T>(prev - lnv);
+    for (int i = 0; i < n_mix; ++i) {
+      const float m = rnd<T>(dx * to_f(mix[(size_t)i * C + c]));
+      out[((size_t)i * B + b) * C + c] = from_f<T>(xa + m);
+    }
+    if (act) sh[c] = lnv;  // the f32 LayerNorm, not rounded through T
+  }
+}
+
+// ---------------------------------------------------------------------------
+// v7_skinny_matmul: up to four y = epilogue(x @ W) in one launch
+// ---------------------------------------------------------------------------
+
+constexpr int MM_NB = 8;       // batch rows per launch
+constexpr int MM_THREADS = 32 * MM_NB;  // a warp per batch row when staging
+constexpr int MM_UNROLL = 16;  // weight rows in flight per thread
+constexpr int MM_MAXP = 4;     // products per launch
+constexpr int MM_KB_MAX = 256; // rows of K per block
+
+enum Act { ACT_NONE = 0, ACT_TANH = 1, ACT_SIGMOID = 2, ACT_WDECAY = 3,
+           ACT_RELU2 = 4 };
+enum Out { OUT_T = 0, OUT_F32 = 1, OUT_ADD = 2 };
+
+struct MMProblem {
+  const void* x;      // (B, K) T
+  const void* W;      // (K, N) T, N contiguous
+  void* y;            // (B, N): T, f32, or the f32 residual added into
+  const float* bias;  // (N,) f32 or null, added before the activation
+  int K, N;
+  int act, round_t, out;
+  int ksplit, kb;     // K is cut into ksplit slices of kb rows
+  int blk0;           // first block of this product in the launch
+  int scr0, cnt0;     // offsets into the scratch floats / the counters
+};
+
+struct MMGroup {
+  MMProblem p[MM_MAXP];
+  int n;
+};
+
+template <typename T>
+__device__ __forceinline__ void epilogue(const MMProblem& P, int b, int c,
+                                         float s) {
+  if (P.bias != nullptr) s += P.bias[c];
+  switch (P.act) {
+    case ACT_TANH: s = tanhf(s); break;
+    case ACT_SIGMOID: s = sigmoidf(s); break;
+    case ACT_WDECAY: s = expf(-W_SCALE * sigmoidf(s)); break;
+    case ACT_RELU2: s = fmaxf(s, 0.f); s = s * s; break;
+    default: break;
+  }
+  const size_t i = (size_t)b * P.N + c;
+  if (P.out == OUT_ADD) {
+    static_cast<float*>(P.y)[i] += s;
+  } else if (P.out == OUT_F32) {
+    static_cast<float*>(P.y)[i] = P.round_t ? rnd<T>(s) : s;
+  } else {
+    static_cast<T*>(P.y)[i] = from_f<T>(s);
+  }
+}
+
+// 4 bytes of a weight row as floats: 2 bf16 columns or 1 f32 column.
+__device__ __forceinline__ void unpack4(uint32_t r, float (&w)[2],
+                                        __nv_bfloat16) {
+  w[0] = __uint_as_float(r << 16);  // a bf16 is the high half of an f32;
+  w[1] = __uint_as_float(r & 0xffff0000u);  // column 0 is the low half-word
+}
+__device__ __forceinline__ void unpack4(uint32_t r, float (&w)[1], float) {
+  w[0] = __uint_as_float(r);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(MM_THREADS)
+skinny_matmul_kernel(const MMGroup g, int B, float* scratch,
+                     unsigned int* counters) {
+  constexpr int CPT = 4 / sizeof(T);   // columns per thread: 2 bf16 / 1 f32
+  constexpr int TN = 32 * CPT;         // columns per block: a warp spans them
+  constexpr int WARPS = MM_THREADS / 32;
+  constexpr int UN = MM_UNROLL;
+  __shared__ __align__(16) float xs[MM_KB_MAX * MM_NB];  // [k][b]
+  __shared__ __align__(16) float red[WARPS][MM_NB][TN];
+  __shared__ bool is_last;
+
+  int pi = 0;
+  while (pi + 1 < g.n && (int)blockIdx.x >= g.p[pi + 1].blk0) ++pi;
+  const MMProblem& P = g.p[pi];
+  const int local = blockIdx.x - P.blk0;
+  const int tile = local / P.ksplit, ks = local % P.ksplit;
+  const int k0 = ks * P.kb, k1 = min(P.K, k0 + P.kb);
+  const int col0 = tile * TN;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int col = col0 + lane * CPT;
+  const bool col_ok = col < P.N;  // N is a multiple of CPT: all in or all out
+
+  // Warp w takes rows k0 + w, k0 + w + WARPS, ...: one row is 128
+  // contiguous bytes across the warp.  UN rows are in flight per thread;
+  // the first batch is asked for before anything else.
+  const uint32_t* W = reinterpret_cast<const uint32_t*>(
+      static_cast<const T*>(P.W) + col);
+  const size_t stride = (size_t)P.N * sizeof(T) / 4;  // row pitch in words
+  uint32_t raw[UN];
+  auto load = [&](int kbase) {
+#pragma unroll
+    for (int u = 0; u < UN; ++u) {
+      const int k = kbase + u * WARPS;
+      raw[u] = (col_ok && k < k1) ? __ldg(W + (size_t)k * stride) : 0u;
+    }
+  };
+  load(k0 + warp);
+
+  // This slice of every row's input, as f32, k-major.
+  const T* x = static_cast<const T*>(P.x);
+  const int klen = k1 - k0;
+  // Warp b stages row b: 32 consecutive inputs per load, all of a thread's
+  // loads in flight at once (WARPS == MM_NB).
+  constexpr int XPT = MM_KB_MAX / 32;
+  float xin[XPT];
+#pragma unroll
+  for (int u = 0; u < XPT; ++u) {
+    const int kk = lane + 32 * u;
+    xin[u] = (kk < klen && warp < B)
+                 ? to_f(x[(size_t)warp * P.K + k0 + kk]) : 0.f;
+  }
+#pragma unroll
+  for (int u = 0; u < XPT; ++u) {
+    const int kk = lane + 32 * u;
+    if (kk < klen) xs[kk * MM_NB + warp] = xin[u];
+  }
+  __syncthreads();
+
+  float acc[MM_NB][CPT];
+#pragma unroll
+  for (int b = 0; b < MM_NB; ++b)
+#pragma unroll
+    for (int e = 0; e < CPT; ++e) acc[b][e] = 0.f;
+
+  for (int kbase = k0 + warp; kbase < k1; kbase += UN * WARPS) {
+    if (kbase != k0 + warp) load(kbase);
+#pragma unroll
+    for (int u = 0; u < UN; ++u) {
+      const int k = kbase + u * WARPS;
+      if (k < k1) {  // uniform over the warp
+        float wv[CPT];
+        unpack4(raw[u], wv, T());
+        const float4 xa =
+            *reinterpret_cast<const float4*>(&xs[(k - k0) * MM_NB]);
+        const float4 xb =
+            *reinterpret_cast<const float4*>(&xs[(k - k0) * MM_NB + 4]);
+        const float xv[MM_NB] = {xa.x, xa.y, xa.z, xa.w,
+                                 xb.x, xb.y, xb.z, xb.w};
+#pragma unroll
+        for (int b = 0; b < MM_NB; ++b)
+#pragma unroll
+          for (int e = 0; e < CPT; ++e)
+            acc[b][e] = fmaf(xv[b], wv[e], acc[b][e]);
+      }
+    }
+  }
+
+  // Add the warps' sums through shared memory, in warp order.
+#pragma unroll
+  for (int b = 0; b < MM_NB; ++b)
+#pragma unroll
+    for (int e = 0; e < CPT; ++e) red[warp][b][lane * CPT + e] = acc[b][e];
+  __syncthreads();
+
+  constexpr int n_out = MM_NB * TN;
+  auto block_sum_of = [&](int o) {
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) s += red[w][o / TN][o % TN];
+    return s;
+  };
+  if (P.ksplit == 1) {
+    for (int o = tid; o < n_out; o += MM_THREADS) {
+      const int b = o / TN, c = col0 + o % TN;
+      if (b < B && c < P.N) epilogue<T>(P, b, c, block_sum_of(o));
+    }
+    return;
+  }
+
+  // K split over blocks: park this block's partial sums, and let the
+  // block that arrives last add all of them in split order.
+  float* part = scratch + P.scr0;
+  for (int o = tid; o < n_out; o += MM_THREADS) {
+    const int b = o / TN, c = col0 + o % TN;
+    if (b < B && c < P.N)
+      part[((size_t)ks * MM_NB + b) * P.N + c] = block_sum_of(o);
+  }
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    const unsigned int ticket = atomicAdd(&counters[P.cnt0 + tile], 1u);
+    is_last = ticket == (unsigned int)P.ksplit - 1;
+  }
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  for (int o = tid; o < n_out; o += MM_THREADS) {
+    const int b = o / TN, c = col0 + o % TN;
+    if (b >= B || c >= P.N) continue;
+    const float* src = part + (size_t)b * P.N + c;
+    const size_t pitch = (size_t)MM_NB * P.N;
+    float s = 0.f;
+    for (int j0 = 0; j0 < P.ksplit; j0 += 8) {  // 8 loads in flight
+      float v[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        v[j] = j0 + j < P.ksplit ? __ldcg(src + (j0 + j) * pitch) : 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s += v[j];
+    }
+    epilogue<T>(P, b, c, s);
+  }
+  if (tid == 0) counters[P.cnt0 + tile] = 0u;  // ready for the next launch
+}
+
+// ---------------------------------------------------------------------------
+// v7_wkv_gn: vector prologue, WKV step in place, GroupNorm, bonus, gate
+// ---------------------------------------------------------------------------
+
+// Sum over the head's N = 64 values held by threads 0..63 (the others pass
+// 0), in a fixed order; every thread gets the total.
+__device__ __forceinline__ float head_sum(float v, float* red) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  const int tid = threadIdx.x;
+  if (tid < N && (tid & 31) == 0) red[tid >> 5] = v;
+  __syncthreads();
+  const float t = red[0] + red[1];
+  __syncthreads();
+  return t;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+wkv_gn_kernel(const float* __restrict__ r, const float* __restrict__ k,
+              const float* __restrict__ v, const float* __restrict__ w,
+              const float* __restrict__ a, const float* __restrict__ g,
+              const float* __restrict__ vmix, float* __restrict__ v_first,
+              const float* __restrict__ vecs,
+              const uint8_t* __restrict__ active, float* __restrict__ S,
+              T* __restrict__ out, int H, int C, int is_first) {
+  __shared__ __align__(16) float sv[6][N];  // r, w, k2, v2, kk, a
+  __shared__ float ys[N];
+  __shared__ float red[2];
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H;
+  const int tid = threadIdx.x;
+  const int row = tid / TPR, q = tid % TPR;
+  const size_t vo = (size_t)bh * N;  // == b * C + h * N
+  const int c = h * N + tid;         // channel, for tid < N
+  const bool act = active[b] != 0;
+
+  float4* state = reinterpret_cast<float4*>(S + (vo + row) * N);
+  float4 s[J];
+#pragma unroll
+  for (int j = 0; j < J; ++j) s[j] = state[4 * j + q];
+
+  // vecs rows: w0 a0 v0 k_k k_a r_k lnx_w lnx_b
+  float rv = 0.f, wv = 0.f, av = 0.f, kk = 0.f, k2 = 0.f, v2 = 0.f, rk = 0.f;
+  float gv = 0.f, lnw = 0.f, lnb = 0.f;  // for the epilogue, fetched now
+  if (tid < N) {
+    gv = g[vo + tid];
+    lnw = vecs[6 * (size_t)C + c];
+    lnb = vecs[7 * (size_t)C + c];
+    rv = r[vo + tid];
+    const float kv = k[vo + tid];
+    const float vv = v[vo + tid];
+    av = a[vo + tid];
+    wv = w[vo + tid];
+    kk = kv * vecs[3 * (size_t)C + c];
+    k2 = kv * (1.f + (av - 1.f) * vecs[4 * (size_t)C + c]);
+    if (is_first) {
+      v2 = vv;
+      v_first[vo + tid] = vv;
+    } else {
+      v2 = vv + (v_first[vo + tid] - vv) * vmix[vo + tid];
+    }
+    rk = rv * k2 * vecs[5 * (size_t)C + c];  // the bonus reads the unmasked k2
+    if (!act) {
+      wv = 1.f;
+      k2 = 0.f;
+      kk = 0.f;
+    }
+  }
+  const float norm2 = head_sum(kk * kk, red);
+  const float bonus = head_sum(rk, red);
+  if (tid < N) {
+    kk = rnd<T>(kk / fmaxf(sqrtf(norm2), 1e-12f));
+    sv[0][tid] = rv;
+    sv[1][tid] = wv;
+    sv[2][tid] = k2;
+    sv[3][tid] = v2;
+    sv[4][tid] = kk;
+    sv[5][tid] = av;
+  }
+  __syncthreads();
+
+  // An inactive row keeps its state bit for bit (and is not written).
+  if (act) {
+    update(s, sv[1], sv[2], sv[4], sv[5], sv[3][row], q);
+#pragma unroll
+    for (int j = 0; j < J; ++j) state[4 * j + q] = s[j];
+  }
+  const float yv = readout(s, sv[0], q);
+  if (q == 0) ys[row] = yv;
+  __syncthreads();
+
+  // GroupNorm of the f32 y over the head, bonus, gate.
+  const float y = tid < N ? ys[tid] : 0.f;
+  const float mean = head_sum(y, red) / N;
+  const float d = tid < N ? y - mean : 0.f;
+  const float var = head_sum(d * d, red) / N;
+  if (tid < N) {
+    const float yn = d * rsqrtf(var + GN_EPS);
+    const float yf = (yn * lnw + lnb) + bonus * v2;
+    out[vo + tid] = from_f<T>(yf * gv);
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// dtype: 0 = f32, 1 = bf16 (the weights' and activations' type T).
+
+int v7_ln_mix_launch(const float* x, const void* ln, float* shift,
+                     const void* mix, const uint8_t* active, void* out, int B,
+                     int C, int n_mix, int dtype, void* stream) {
+  if (B <= 0 || C <= 0 || n_mix <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 1) {
+    typedef __nv_bfloat16 T;
+    ln_mix_kernel<T><<<B, LN_THREADS, 0, st>>>(
+        x, (const T*)ln, shift, (const T*)mix, active, (T*)out, B, C, n_mix);
+  } else if (dtype == 0) {
+    ln_mix_kernel<float><<<B, LN_THREADS, 0, st>>>(
+        x, (const float*)ln, shift, (const float*)mix, active, (float*)out, B,
+        C, n_mix);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// desc: n_prob rows of 8 int64 on the HOST: x, W, y, bias (pointers; bias
+// may be 0), K, N, act | round_t << 8 | out << 16, unused.  The rows'
+// inputs and outputs hold B rows; B above MM_NB runs as further launches
+// of MM_NB rows each.  scratch / counters: device work space of
+// scratch_floats floats and n_counters zeroed uint32 (left zeroed).
+int v7_skinny_matmul_launch(const int64_t* desc, int n_prob, int B, int dtype,
+                            float* scratch, int scratch_floats,
+                            unsigned int* counters, int n_counters,
+                            void* stream) {
+  if (n_prob <= 0 || n_prob > MM_MAXP || B <= 0 || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  const size_t tsize = dtype == 1 ? 2 : 4;
+  const int cpt = 4 / (int)tsize;  // columns per thread
+  const int tn = 32 * cpt;         // columns per block
+  cudaStream_t st = (cudaStream_t)stream;
+  for (int b0 = 0; b0 < B; b0 += MM_NB) {
+    MMGroup g;
+    g.n = n_prob;
+    int blocks = 0, scr = 0, cnt = 0;
+    for (int i = 0; i < n_prob; ++i) {
+      const int64_t* d = desc + 8 * i;
+      MMProblem& P = g.p[i];
+      P.K = (int)d[4];
+      P.N = (int)d[5];
+      if (P.K <= 0 || P.N <= 0 || P.N % cpt)
+        return (int)cudaErrorInvalidValue;
+      P.act = (int)(d[6] & 0xff);
+      P.round_t = (int)((d[6] >> 8) & 0xff);
+      P.out = (int)((d[6] >> 16) & 0xff);
+      const size_t ysize = P.out == OUT_T ? tsize : 4;
+      P.x = (const char*)(uintptr_t)d[0] + (size_t)b0 * P.K * tsize;
+      P.W = (const void*)(uintptr_t)d[1];
+      P.y = (char*)(uintptr_t)d[2] + (size_t)b0 * P.N * ysize;
+      P.bias = (const float*)(uintptr_t)d[3];
+      P.kb = P.K <= 1024 ? 128 : MM_KB_MAX;
+      P.ksplit = (P.K + P.kb - 1) / P.kb;
+      const int tiles = (P.N + tn - 1) / tn;
+      P.blk0 = blocks;
+      P.scr0 = scr;
+      P.cnt0 = cnt;
+      blocks += tiles * P.ksplit;
+      if (P.ksplit > 1) {
+        scr += P.ksplit * MM_NB * P.N;
+        cnt += tiles;
+      }
+    }
+    if (scr > scratch_floats || cnt > n_counters)
+      return (int)cudaErrorInvalidValue;
+    const int rows = B - b0 < MM_NB ? B - b0 : MM_NB;
+    if (dtype == 1)
+      skinny_matmul_kernel<__nv_bfloat16><<<blocks, MM_THREADS, 0, st>>>(
+          g, rows, scratch, counters);
+    else
+      skinny_matmul_kernel<float><<<blocks, MM_THREADS, 0, st>>>(
+          g, rows, scratch, counters);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
+}
+
+int v7_wkv_gn_launch(const float* r, const float* k, const float* v,
+                     const float* w, const float* a, const float* g,
+                     const float* vmix, float* v_first, const float* vecs,
+                     const uint8_t* active, float* S, void* out, int B, int H,
+                     int n, int is_first, int dtype, void* stream) {
+  if (n != N || B <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int C = H * N;
+  if (dtype == 1)
+    wkv_gn_kernel<__nv_bfloat16><<<B * H, THREADS, 0, st>>>(
+        r, k, v, w, a, g, vmix, v_first, vecs, active, S,
+        (__nv_bfloat16*)out, H, C, is_first);
+  else if (dtype == 0)
+    wkv_gn_kernel<float><<<B * H, THREADS, 0, st>>>(
+        r, k, v, w, a, g, vmix, v_first, vecs, active, S, (float*)out, H, C,
+        is_first);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

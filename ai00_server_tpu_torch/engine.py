@@ -1,15 +1,24 @@
 """Batched inference engine: merged steps and K-token decode over a state
 pool on one device.
 
-Port of ``ai00_server_tpu/engine.py`` for plain RWKV-7 on the
-layer-by-layer path:
+Port of ``ai00_server_tpu/engine.py`` for plain RWKV-7:
 
 * All ``max_batch`` request slots live in ONE state pool on the device,
-  leading axes ``(L, B, ...)``.  :meth:`Engine.step` consumes a ``(B, T)``
-  token block (T = 1 for per-token decode, T = ``token_chunk_size`` when a
-  row prefills); :meth:`Engine.decode_chunk` runs K decode steps with
-  sampling on the device, feeding each sampled token back in, and only
-  the ``(K, B)`` tokens cross to the host.
+  leading axes ``(L, B, ...)``.  Where the JAX engine replaces its pool
+  with each step's result, this one allocates the pool once and updates it
+  IN PLACE, so its tensors keep their addresses for the engine's lifetime:
+  the fused decode path writes into it, a prefill chunk's new state is
+  copied into it, and snapshots are clones that are copied back.
+* At construction the engine installs the fused decode layout
+  (``ops/v7_decode.make_fused_layout``) where the model allows it, and on
+  a CUDA device captures the whole T=1 layer stack once in a CUDA graph
+  (``ops/v7_decode.DecodeGraph``) that every decode step replays; the LM
+  head and sampling run eagerly after it.
+* :meth:`Engine.step` consumes a ``(B, T)`` token block (T = 1 for
+  per-token decode, T = ``token_chunk_size`` when a row prefills);
+  :meth:`Engine.decode_chunk` runs K decode steps with sampling on the
+  device, feeding each sampled token back in, and only the ``(K, B)``
+  tokens cross to the host.
 * Per-row logit bias is a device pool updated only when it changes.
 * Sampling uniforms come from a ``torch.Generator`` on the device.
 * A ring of pre-chunk snapshots backs :meth:`rollback_row` and
@@ -32,14 +41,20 @@ from .device import resolve_device
 from .loader import LoadedModel
 from .models import get_version_module
 from .models.common import masked_select, take_last_valid
-from .ops import sampling
+from .ops import fused_decode, sampling
 
 
 def head_logits(params, x):
-    """``x @ head -> (..., V) f32 logits``: operands in the activation
+    """``x @ head -> (B, V) f32 logits``: operands in the activation
     dtype, products summed in f32 (a bf16 x bf16 product is exact in f32),
-    f32 result."""
-    return torch.matmul(x.float(), params["head"].to(x.dtype).float())
+    f32 result.  On the card a bf16 head goes to one product with an f32
+    output type, so the head is read once as bf16 and never converted."""
+    head = params["head"]
+    if x.dtype == torch.float32 and head.dtype == torch.float32:
+        return torch.matmul(x, head)
+    if x.device.type == "cuda":
+        return torch.mm(x, head.to(x.dtype), out_dtype=torch.float32)
+    return torch.matmul(x.float(), head.to(x.dtype).float())
 
 
 @dataclass
@@ -75,6 +90,12 @@ class Engine:
         B, V = self.max_batch, self.vocab
         self.state_pool = self.module.init_state(self.info, B,
                                                  device=self.device)
+        fd = fused_decode.module_for(model.info.version.value)
+        if not fd.supports(model.params) and fd.can_fuse(model.params):
+            model.params[fd.FUSED_KEY] = fd.make_fused_layout(model.params)
+        self._graph = None
+        if self.device.type == "cuda" and fd.supports(model.params):
+            self._graph = fd.DecodeGraph(model.params, self.state_pool, B)
         self.sampler_state = sampling.init_sampler_state(B, V, self.device)
         self.sampler_params_host = sampling.make_params(B)
         self.bias_pool = torch.zeros((B, V), dtype=torch.float32,
@@ -96,6 +117,20 @@ class Engine:
     def fresh_row_state(self) -> dict:
         """A batch-1 initial state on the device."""
         return self.module.init_state(self.info, 1, device=self.device)
+
+    def _forward(self, tokens, lengths):
+        """Forward a (B, T) token block; the pool is updated in place.
+        Returns hidden (B, T, C).  A T=1 block replays the decode graph
+        where there is one (its hidden buffer is overwritten by the next
+        replay)."""
+        if tokens.shape[1] == 1 and self._graph is not None:
+            return self._graph.replay(tokens[:, 0], lengths)[:, None]
+        hidden, new = self.module.forward(self.model.params, self.state_pool,
+                                          tokens, lengths)
+        if new is not self.state_pool:
+            for k, p in self.state_pool.items():
+                p.copy_(new[k])
+        return hidden
 
     def _write_row(self, row: dict, b: int) -> None:
         for k, p in self.state_pool.items():
@@ -215,8 +250,7 @@ class Engine:
             dev = self.device
             lengths_t = torch.as_tensor(lengths, dtype=torch.int32,
                                         device=dev)
-            hidden, self.state_pool = self.module.forward(
-                self.model.params, self.state_pool,
+            hidden = self._forward(
                 torch.as_tensor(tokens, dtype=torch.int32, device=dev),
                 lengths_t)
             logits = head_logits(self.model.params,
@@ -276,9 +310,7 @@ class Engine:
             toks_seq, sp_seq = [], []
             for i in range(steps):
                 act = active_t & (i < budget_t)
-                hidden, self.state_pool = self.module.forward(
-                    self.model.params, self.state_pool, toks[:, None],
-                    act.to(torch.int32))
+                hidden = self._forward(toks[:, None], act.to(torch.int32))
                 logits = head_logits(self.model.params, hidden[:, 0])
                 t2, sp = self._sample(logits, act)
                 toks = torch.where(act, t2, toks)
@@ -294,7 +326,9 @@ class Engine:
         with self._lock:
             if not self._chunk_snaps:
                 raise RuntimeError("no chunk snapshot")
-            self.state_pool, self.sampler_state = self._chunk_snaps.pop()
+            state, self.sampler_state = self._chunk_snaps.pop()
+            for k, p in self.state_pool.items():
+                p.copy_(state[k])
 
     def rollback_row(self, b: int, feed_tokens: list[int],
                      depth: int = -1) -> None:

@@ -1,10 +1,13 @@
 """RWKV v7 ("Goose") forward pass in PyTorch.
 
 Port of ``ai00_server_tpu/models/v7.py`` (``init_state``, ``_att``,
-``_layer``, ``forward``) on the layer-by-layer path: a plain Python loop
-over layers, with the WKV recurrence in the hand-written CUDA kernels —
-``ops/wkv_t1`` for T=1 decode and ``ops/wkv_chunk`` for T>1 prefill
-chunks (their plain versions on CPU tensors).
+``_layer``, ``forward``).  ``forward`` at T=1 takes the fused decode path
+(``ops/v7_decode.forward_t1``, which updates the state in place) when the
+engine has installed its layout on the params.  Otherwise it runs the
+layer-by-layer path: a plain Python loop over layers, with the WKV
+recurrence in the hand-written CUDA kernels — ``ops/wkv_t1`` for T=1 decode
+and ``ops/wkv_chunk`` for T>1 prefill chunks (their plain versions on CPU
+tensors) — and returns a new state.
 
 time-mix (per head, state ``S`` of shape ``(N_v, N_k)``):
 
@@ -21,6 +24,7 @@ from __future__ import annotations
 
 import torch
 
+from ..ops import v7_decode as fd
 from ..ops.wkv_chunk import wkv7_chunk
 from ..ops.wkv_t1 import wkv7_t1
 from .common import (GN_EPS, acc_dtype, channel_mix_v7, group_norm,
@@ -127,8 +131,12 @@ def forward(params, state, tokens, lengths):
     """Forward a chunk of tokens.
 
     tokens: (B, T) int; lengths: (B,) — number of valid tokens per row
-    (suffix padding).  Returns (hidden (B, T, C) post-ln_out, new_state).
+    (suffix padding).  Returns (hidden (B, T, C) post-ln_out, new_state);
+    on the fused T=1 path ``new_state`` is ``state`` itself, updated in
+    place.
     """
+    if tokens.shape[1] == 1 and fd.supports(params):
+        return fd.forward_t1(params, state, tokens, lengths)
     x = params["emb"][tokens.long()]  # ln0 folded into emb at load
     v_first = torch.zeros_like(x)
     new = {"att_x": [], "wkv": [], "ffn_x": []}

@@ -2,10 +2,11 @@
 
 At first use each ``csrc/<name>.cu`` is compiled with ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface, cached under
-``ai00_server_tpu_torch/_build/`` (ignored by git) by a hash of the source
-and the flags, and loaded with ``ctypes``.  Each library's C functions take
-raw device pointers and the CUDA stream as ``void*`` and ints as ``int``,
-and return ``cudaGetLastError()`` after their launch.
+``ai00_server_tpu_torch/_build/`` (ignored by git) by a hash of the source,
+the shared headers (``csrc/*.cuh``) and the flags, and loaded with
+``ctypes``.  Each library's C functions take raw device pointers and the
+CUDA stream as ``void*`` and ints as ``int``, and return
+``cudaGetLastError()`` after their launch.
 
 Nothing here runs at import: the CPU tests import every module of the
 package on a machine without ``nvcc``.
@@ -36,6 +37,16 @@ SIGNATURES = {
         # S, r, w, k, v, kk, a, mask, S_out, y, B, T, H, N, stream
         "wkv7_chunk_launch": "ppppppppppiiiip",
     },
+    "v7_decode": {
+        # x, ln, shift, mix, active, out, B, C, n_mix, dtype, stream
+        "v7_ln_mix_launch": "ppppppiiiip",
+        # desc (host), n_prob, B, dtype, scratch, scratch_floats, counters,
+        # n_counters, stream
+        "v7_skinny_matmul_launch": "piiipipip",
+        # r, k, v, w, a, g, vmix, v_first, vecs, active, S, out, B, H, N,
+        # is_first, dtype, stream
+        "v7_wkv_gn_launch": "ppppppppppppiiiiip",
+    },
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -53,8 +64,10 @@ def _nvcc() -> str:
 
 def _compile(name: str) -> Path:
     src = CSRC / f"{name}.cu"
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        src.read_bytes() + headers
+        + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out = BUILD / f"lib{name}_{digest}.so"
     if out.exists():
         return out

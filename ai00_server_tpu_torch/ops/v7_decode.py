@@ -1,0 +1,583 @@
+"""The fused whole-network RWKV-7 decode step (T = 1) and its CUDA graph.
+
+Port of ``ai00_server_tpu/ops/v7_decode_pallas.py`` (``FUSED_KEY``,
+``supports``, ``can_fuse``, ``make_fused_layout``, ``forward_t1`` and the
+Pallas ``_kernel`` at its lines 140-270) for plain bf16 / f32 weights.  The
+Pallas kernel is one sequential grid over the layers; on the card a layer
+is nine launches of three hand-written kernels
+(``csrc/v7_decode.cu``; the note there says what bounds each and what its
+design does about it):
+
+* :func:`v7_ln_mix` — LayerNorm, token shift, the mixed inputs, the new
+  shift state;
+* :func:`v7_skinny_matmul` — up to four ``epilogue(x @ W)`` with at most a
+  few batch rows, the weight in its ``(in, out)`` layout, streamed once;
+* :func:`v7_wkv_gn` — the WKV step with its vector prologue and the
+  GroupNorm / bonus / gate epilogue.
+
+Beside each is its plain PyTorch version (``*_plain``), and
+:func:`forward_t1_plain` is the stack composed of those.  A wrapper runs the
+plain version only for CPU tensors; on a CUDA tensor it launches its kernel
+or raises.  Values round through the activation dtype at the Pallas
+kernel's points, which differ from the layer-by-layer path's
+(``models/v7.py``): the residual stays f32 across layers, the shift states
+keep the f32 LayerNorm, ``g`` and the WKV output stay f32 up to the gate.
+
+Where the JAX package is functional this module updates IN PLACE: the
+wrappers write the new shift state, WKV state, ``v_first`` and residual
+into the tensors they were given, and ``forward_t1`` returns the state
+dict it was passed.  Fixed addresses are what lets :class:`DecodeGraph`
+capture the whole stack once in a ``torch.cuda.CUDAGraph`` and replay it
+for every decode step.
+
+The quantized modes of the Pallas kernel (int8 / 4-bit codes) are not
+ported yet; no VMEM budget applies on the card, so every plain v7 model
+with head size 64 takes this path.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass
+
+import torch
+
+from ..models.common import GN_EPS, LN_EPS, layer_norm
+from . import _build
+
+W_SCALE = 0.6065306597126334  # exp(-0.5)
+
+FUSED_KEY = "_fused_t1"
+
+# The fused layout holds the Pallas kernel's entries under its names: the
+# stacks ``mix``, ``vecs``, ``ln1``, ``ln2``, ``fmix`` as (L, ...) tensors,
+# and every matmul weight as the list of the L per-layer tensors of the
+# params themselves (referenced, never copied).
+_VEC_NAMES = ("w0", "a0", "v0", "k_k", "k_a", "r_k", "lnx_w", "lnx_b")
+_VEC_IDX = {n: i for i, n in enumerate(_VEC_NAMES)}
+_BIG_SRC = {"Wr": ("att", "receptance"), "Wk": ("att", "key"),
+            "Wv": ("att", "value"), "Wo": ("att", "output"),
+            "fkey": ("ffn", "key"), "fval": ("ffn", "value")}
+_LORA = ("w1", "a1", "v1", "g1", "w2", "a2", "v2", "g2")
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_ACT_CODE = {"none": 0, "tanh": 1, "sigmoid": 2, "wdecay": 3, "relu2": 4}
+_OUT_CODE = {"cd": 0, "f32": 1, "add": 2}
+_MM_NB = 8  # batch rows per launch
+
+
+def supports(params) -> bool:
+    """True when the fused decode layout is installed on these params."""
+    return FUSED_KEY in params
+
+
+def can_fuse(params) -> bool:
+    """Whether a fused layout can be built: plain layers of one dtype
+    (bf16 or f32), ``C == H * N`` and head size 64 (the WKV kernels' register
+    layout)."""
+    layers = params.get("layers")
+    if not layers:
+        return False
+    att = layers[0]["att"]
+    H, N = att["r_k"].shape[-2:]
+    C = att["receptance"].shape[0]
+    dtype = att["receptance"].dtype
+    if C != H * N or N != 64 or dtype not in _DTYPE_CODE:
+        return False
+    return all(isinstance(p[part][key], torch.Tensor)
+               and p[part][key].dtype == dtype
+               for p in layers for part, key in _BIG_SRC.values())
+
+
+def make_fused_layout(params) -> dict:
+    """Decode weight stacks: only the per-channel vectors are re-packed into
+    a few stacked tensors; the matmul weights are the params' own tensors."""
+    layers = params["layers"]
+    atts = [p["att"] for p in layers]
+    C = atts[0]["receptance"].shape[0]
+
+    def stack(rows_of):
+        return torch.stack([torch.stack(rows_of(p)) for p in layers])
+
+    out = {
+        "mix": stack(lambda p: [p["att"][k] for k in
+                                ("x_r", "x_w", "x_k", "x_v", "x_a", "x_g")]),
+        "vecs": stack(lambda p: [
+            v.float() for v in (
+                *(p["att"][n] for n in ("w0", "a0", "v0", "k_k", "k_a")),
+                p["att"]["r_k"].reshape(C), p["att"]["ln_x_w"],
+                p["att"]["ln_x_b"])]),
+        "ln1": stack(lambda p: [p["ln1_w"], p["ln1_b"]]),
+        "ln2": stack(lambda p: [p["ln2_w"], p["ln2_b"]]),
+        "fmix": stack(lambda p: [p["ffn"]["x_k"]]),
+    }
+    for name in _LORA:
+        out[name] = [a[name] for a in atts]
+    for name, (part, key) in _BIG_SRC.items():
+        out[name] = [p[part][key] for p in layers]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# v7_ln_mix
+# ---------------------------------------------------------------------------
+
+
+def v7_ln_mix_plain(x, ln, shift, mix, active):
+    """The plain PyTorch version of :func:`v7_ln_mix`, functional:
+    returns ``(out (n_mix, B, C), new_shift (B, C))``."""
+    cd = mix.dtype
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    var = xf.var(-1, unbiased=False, keepdim=True)
+    lnv = (xf - mean) * torch.rsqrt(var + LN_EPS) * ln[0].float() \
+        + ln[1].float()
+    prev = shift.float()
+    xa = lnv.to(cd)
+    dx = (prev - lnv).to(cd)
+    out = xa[None] + dx[None] * mix[:, None, :]
+    new_shift = torch.where(active[:, None], lnv, prev).to(shift.dtype)
+    return out, new_shift
+
+
+def _ln_mix_inplace_plain(x, ln, shift, mix, active):
+    out, new_shift = v7_ln_mix_plain(x, ln, shift, mix, active)
+    shift.copy_(new_shift)
+    return out
+
+
+def _require(cond: bool, what: str) -> None:
+    if not cond:
+        raise ValueError(what)
+
+
+def _dense(t, shape, dtype, name: str) -> None:
+    _require(tuple(t.shape) == tuple(shape) and t.dtype == dtype
+             and t.is_contiguous(),
+             f"{name} must be contiguous {dtype} {tuple(shape)}, got "
+             f"{t.dtype} {tuple(t.shape)}")
+
+
+def _one_cuda_device(*tensors) -> torch.device:
+    dev = tensors[0].device
+    _require(dev.type == "cuda", f"unsupported device {dev}")
+    _require(all(t.device == dev for t in tensors),
+             "all operands must be on one device")
+    return dev
+
+
+def _stream(dev) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def v7_ln_mix(x, ln, shift, mix, active):
+    """LayerNorm of the f32 residual ``x`` (B, C) with ``ln`` (2, C: weight,
+    bias), token shift against ``shift`` (B, C) f32, and ``n_mix`` mixed
+    outputs ``ln + (shift - ln) * mix[i]`` in ``mix``'s dtype, returned as
+    (n_mix, B, C).  ``shift`` becomes the f32 LayerNorm IN PLACE where
+    ``active`` (B,) bool."""
+    if x.device.type == "cpu":
+        return _ln_mix_inplace_plain(x, ln, shift, mix, active)
+    dev = _one_cuda_device(x, ln, shift, mix, active)
+    B, C = x.shape
+    cd = mix.dtype
+    _require(cd in _DTYPE_CODE, f"unsupported activation dtype {cd}")
+    n_mix = mix.shape[0]
+    _dense(x, (B, C), torch.float32, "x")
+    _dense(shift, (B, C), torch.float32, "shift")
+    _dense(ln, (2, C), cd, "ln")
+    _dense(mix, (n_mix, C), cd, "mix")
+    _dense(active, (B,), torch.bool, "active")
+    out = torch.empty((n_mix, B, C), dtype=cd, device=dev)
+    status = _build.library("v7_decode").v7_ln_mix_launch(
+        x.data_ptr(), ln.data_ptr(), shift.data_ptr(), mix.data_ptr(),
+        active.data_ptr(), out.data_ptr(), B, C, n_mix, _DTYPE_CODE[cd],
+        _stream(dev))
+    _build.check(status, "v7_ln_mix")
+    v7_ln_mix.launches += 1
+    return out
+
+
+v7_ln_mix.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# v7_skinny_matmul
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class Product:
+    """One ``y = epilogue(x @ W)`` of a :func:`v7_skinny_matmul` launch.
+
+    x: (B, K) and W: (K, N), both in the activation dtype ``cd``; sums are
+    f32.  The epilogue adds ``bias`` ((N,) f32) if given, applies ``act``
+    (``none``, ``tanh``, ``sigmoid``, ``wdecay`` = exp(-W_SCALE * sigmoid),
+    ``relu2`` = relu squared), and then ``out`` says what is stored:
+    ``"cd"`` a cd tensor, ``"f32"`` an f32 tensor (rounded through cd first
+    if ``round_cd``), ``"add"`` nothing new — the result is added into the
+    f32 ``y`` (B, N) in place.
+    """
+
+    x: torch.Tensor
+    W: torch.Tensor
+    act: str = "none"
+    bias: torch.Tensor | None = None
+    round_cd: bool = False
+    out: str = "cd"
+    y: torch.Tensor | None = None
+
+
+def _ksplit(K: int) -> int:
+    """How many slices the kernel cuts K into (csrc/v7_decode.cu)."""
+    kb = 128 if K <= 1024 else 256
+    return -(-K // kb)
+
+
+def _scratch_need(shapes, dtype) -> tuple[int, int]:
+    """(scratch floats, counters) one launch over ``shapes`` [(K, N)] of
+    ``dtype`` weights needs: a block spans 32 threads x 4 bytes of a row."""
+    tile = 32 * (4 // dtype.itemsize)
+    floats = counters = 0
+    for K, N in shapes:
+        ks = _ksplit(K)
+        if ks > 1:
+            floats += ks * _MM_NB * N
+            counters += -(-N // tile)
+    return floats, counters
+
+
+class Workspace:
+    """Device scratch of :func:`v7_skinny_matmul`: the partial sums of the
+    blocks that share a column tile, and the tiles' arrival counters (zeroed
+    here, and left zeroed by every launch)."""
+
+    def __init__(self, device, floats: int, counters: int):
+        self.scratch = torch.empty(max(1, floats), dtype=torch.float32,
+                                   device=device)
+        self.counters = torch.zeros(max(1, counters), dtype=torch.int32,
+                                    device=device)
+
+
+def v7_skinny_matmul_plain(products):
+    """The plain PyTorch version of :func:`v7_skinny_matmul`, functional:
+    returns the list of results (for ``out="add"``, ``y + x @ W``)."""
+    outs = []
+    for p in products:
+        cd = p.W.dtype
+        s = torch.matmul(p.x.float(), p.W.float())
+        if p.bias is not None:
+            s = s + p.bias
+        if p.act == "tanh":
+            s = torch.tanh(s)
+        elif p.act == "sigmoid":
+            s = torch.sigmoid(s)
+        elif p.act == "wdecay":
+            s = torch.exp(-W_SCALE * torch.sigmoid(s))
+        elif p.act == "relu2":
+            s = torch.square(torch.relu(s))
+        elif p.act != "none":
+            raise ValueError(f"unknown activation {p.act!r}")
+        if p.out == "add":
+            outs.append(p.y + s)
+        elif p.out == "f32":
+            outs.append(s.to(cd).float() if p.round_cd else s)
+        elif p.out == "cd":
+            outs.append(s.to(cd))
+        else:
+            raise ValueError(f"unknown output kind {p.out!r}")
+    return outs
+
+
+def _matmul_inplace_plain(products, workspace=None):
+    outs = v7_skinny_matmul_plain(products)
+    for p, o in zip(products, outs):
+        if p.out == "add":
+            p.y.copy_(o)
+    return [p.y if p.out == "add" else o for p, o in zip(products, outs)]
+
+
+def v7_skinny_matmul(products, workspace: Workspace | None = None):
+    """Up to four :class:`Product` in one launch; returns their results in
+    order (for ``out="add"`` the tensor that was added into).  Every weight
+    byte is read once for all B rows; the sums' order is fixed, so equal
+    inputs give equal bits."""
+    if products[0].x.device.type == "cpu":
+        return _matmul_inplace_plain(products)
+    _require(1 <= len(products) <= 4, "1 to 4 products per launch")
+    dev = _one_cuda_device(*(t for p in products
+                             for t in (p.x, p.W, p.bias, p.y)
+                             if t is not None))
+    cd = products[0].W.dtype
+    _require(cd in _DTYPE_CODE, f"unsupported weight dtype {cd}")
+    vec = 4 // cd.itemsize  # a thread loads 4 bytes of a weight row
+    B = products[0].x.shape[0]
+    outs, desc = [], []
+    for p in products:
+        K, N = p.W.shape
+        _dense(p.W, (K, N), cd, "W")
+        _dense(p.x, (B, K), cd, "x")
+        _require(N % vec == 0 and p.W.data_ptr() % 4 == 0,
+                 f"W needs 4-byte aligned rows: N={N} a multiple of {vec}")
+        if p.bias is not None:
+            _dense(p.bias, (N,), torch.float32, "bias")
+        if p.out == "add":
+            _require(p.y is not None, 'out="add" needs y')
+            _dense(p.y, (B, N), torch.float32, "y")
+            y = p.y
+        else:
+            y = torch.empty((B, N), device=dev,
+                            dtype=cd if p.out == "cd" else torch.float32)
+        outs.append(y)
+        flags = (_ACT_CODE[p.act] | int(p.round_cd) << 8
+                 | _OUT_CODE[p.out] << 16)
+        desc += [p.x.data_ptr(), p.W.data_ptr(), y.data_ptr(),
+                 p.bias.data_ptr() if p.bias is not None else 0, K, N,
+                 flags, 0]
+    floats, counters = _scratch_need([p.W.shape for p in products], cd)
+    if workspace is None:
+        workspace = Workspace(dev, floats, counters)
+    _require(workspace.scratch.numel() >= floats
+             and workspace.counters.numel() >= counters
+             and workspace.scratch.device == dev,
+             "the workspace is too small for these products")
+    table = (ctypes.c_int64 * len(desc))(*desc)
+    status = _build.library("v7_decode").v7_skinny_matmul_launch(
+        ctypes.addressof(table), len(products), B, _DTYPE_CODE[cd],
+        workspace.scratch.data_ptr(), workspace.scratch.numel(),
+        workspace.counters.data_ptr(), workspace.counters.numel(),
+        _stream(dev))
+    _build.check(status, "v7_skinny_matmul")
+    v7_skinny_matmul.launches += -(-B // _MM_NB)
+    return outs
+
+
+v7_skinny_matmul.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# v7_wkv_gn
+# ---------------------------------------------------------------------------
+
+
+def v7_wkv_gn_plain(r, k, v, w, a, g, vmix, v_first, vecs, active, S,
+                    is_first: bool, dtype):
+    """The plain PyTorch version of :func:`v7_wkv_gn`, functional: returns
+    ``(out (B, C) dtype, S_new, v_first_new)``."""
+    B, H, N, _ = S.shape
+    C = H * N
+
+    def vec(name):
+        return vecs[_VEC_IDX[name]]
+
+    def heads(t):
+        return t.reshape(B, H, N)
+
+    kk = k * vec("k_k")
+    k2 = k * (1.0 + (a - 1.0) * vec("k_a"))
+    if is_first:
+        v_first, v2 = v, v
+    else:
+        v2 = v + (v_first - v) * vmix
+    rk = r * k2 * vec("r_k")
+    act = active[:, None]
+    w = torch.where(act, w, torch.ones_like(w))
+    k2 = torch.where(act, k2, torch.zeros_like(k2))
+    kk = torch.where(act, kk, torch.zeros_like(kk))
+
+    kk = heads(kk)
+    kk = kk / torch.clamp(
+        torch.sqrt(torch.sum(kk * kk, dim=-1, keepdim=True)), min=1e-12)
+    kk = kk.to(dtype).float()
+    skk = torch.sum(S * kk[:, :, None, :], dim=-1)
+    S_new = (S * heads(w)[:, :, None, :]
+             - skk[..., None] * (kk * heads(a))[:, :, None, :]
+             + heads(v2)[..., None] * heads(k2)[:, :, None, :])
+    y = torch.sum(S_new * heads(r)[:, :, None, :], dim=-1)     # (B, H, N)
+    mean = y.mean(-1, keepdim=True)
+    var = y.var(-1, unbiased=False, keepdim=True)
+    yn = ((y - mean) * torch.rsqrt(var + GN_EPS)).reshape(B, C)
+    bonus = (heads(rk).sum(-1, keepdim=True) * heads(v2)).reshape(B, C)
+    yf = (yn * vec("lnx_w") + vec("lnx_b")) + bonus
+    return (yf * g).to(dtype), S_new, v_first
+
+
+def _wkv_gn_inplace_plain(r, k, v, w, a, g, vmix, v_first, vecs, active, S,
+                          is_first, dtype):
+    out, S_new, vf = v7_wkv_gn_plain(r, k, v, w, a, g, vmix, v_first, vecs,
+                                     active, S, is_first, dtype)
+    S.copy_(S_new)
+    if is_first:
+        v_first.copy_(vf)
+    return out
+
+
+def v7_wkv_gn(r, k, v, w, a, g, vmix, v_first, vecs, active, S,
+              is_first: bool, dtype):
+    """The WKV stage of one layer's decode step, per (b, h).
+
+    r, k, v, w, a, g, vmix, v_first: (B, C) f32; vecs: (8, C) f32 (w0, a0,
+    v0, k_k, k_a, r_k, lnx_w, lnx_b); active: (B,) bool; S: (B, H, 64, 64)
+    f32.  Computes the removal key (L2-normalised ``k * k_k``, rounded
+    through ``dtype``), ``k2 = k (1 + (a - 1) k_a)``, the value residual
+    (layer 0 — ``is_first`` — writes ``v_first``, later layers read it),
+    the delta-rule update of ``S`` IN PLACE (an inactive row keeps its
+    state bit for bit), ``y = S' r``, GroupNorm of the f32 ``y`` per head,
+    the bonus ``sum(r k2 r_k) v2`` and the gate by ``g``.  Returns the
+    operand of the output projection, (B, C) in ``dtype``.
+    """
+    if S.device.type == "cpu":
+        return _wkv_gn_inplace_plain(r, k, v, w, a, g, vmix, v_first, vecs,
+                                     active, S, is_first, dtype)
+    f32s = (r, k, v, w, a, g, vmix, v_first)
+    dev = _one_cuda_device(S, *f32s, vecs, active)
+    B, H, N, N2 = S.shape
+    _require(N == 64 and N2 == 64,
+             f"the CUDA kernel takes head size 64, got {N}x{N2}")
+    _require(dtype in _DTYPE_CODE, f"unsupported activation dtype {dtype}")
+    C = H * N
+    _dense(S, (B, H, N, N), torch.float32, "S")
+    _require(S.data_ptr() % 16 == 0, "S must be 16-byte aligned")
+    for t in f32s:
+        _dense(t, (B, C), torch.float32, "r/k/v/w/a/g/vmix/v_first")
+    _dense(vecs, (8, C), torch.float32, "vecs")
+    _dense(active, (B,), torch.bool, "active")
+    out = torch.empty((B, C), dtype=dtype, device=dev)
+    status = _build.library("v7_decode").v7_wkv_gn_launch(
+        *(t.data_ptr() for t in f32s), vecs.data_ptr(), active.data_ptr(),
+        S.data_ptr(), out.data_ptr(), B, H, N, int(is_first),
+        _DTYPE_CODE[dtype], _stream(dev))
+    _build.check(status, "v7_wkv_gn")
+    v7_wkv_gn.launches += 1
+    return out
+
+
+v7_wkv_gn.launches = 0
+
+KERNELS = (v7_ln_mix, v7_skinny_matmul, v7_wkv_gn)
+_PLAIN_OPS = (_ln_mix_inplace_plain, _matmul_inplace_plain,
+              _wkv_gn_inplace_plain)
+
+
+# ---------------------------------------------------------------------------
+# The stack
+# ---------------------------------------------------------------------------
+
+
+def _forward(ops, params, state, tokens, lengths):
+    ln_mix, matmul, wkv_gn = ops
+    f = params[FUSED_KEY]
+    L, _, C = f["ln1"].shape
+    F = f["fkey"][0].shape[1]
+    cd = params["emb"].dtype
+    active = lengths > 0
+    ws = None
+    if tokens.device.type == "cuda":
+        need = [_scratch_need(s, cd)
+                for s in ([(C, C)] * 3, [(C, F)], [(F, C)])]
+        ws = Workspace(tokens.device, max(n[0] for n in need),
+                       max(n[1] for n in need))
+    # The f32 residual, carried across the layers without rounding.
+    x = params["emb"][tokens[:, 0].long()].float()
+    v_first = torch.empty_like(x)
+    P = Product
+    for l in range(L):
+        vec = f["vecs"][l]
+        xr, xw, xk, xv, xa, xg = ln_mix(x, f["ln1"][l], state["att_x"][l],
+                                        f["mix"][l], active)
+        r, k, v = matmul([
+            P(xr, f["Wr"][l], round_cd=True, out="f32"),
+            P(xk, f["Wk"][l], round_cd=True, out="f32"),
+            P(xv, f["Wv"][l], round_cd=True, out="f32")], ws)
+        hw, ha, hv, hg = matmul([
+            P(xw, f["w1"][l], act="tanh"), P(xa, f["a1"][l]),
+            P(xv, f["v1"][l]), P(xg, f["g1"][l], act="sigmoid")], ws)
+        w, a, vmix, g = matmul([
+            P(hw, f["w2"][l], act="wdecay", bias=vec[0], out="f32"),
+            P(ha, f["a2"][l], act="sigmoid", bias=vec[1], round_cd=True,
+              out="f32"),
+            P(hv, f["v2"][l], act="sigmoid", bias=vec[2], round_cd=True,
+              out="f32"),
+            P(hg, f["g2"][l], out="f32")], ws)
+        yg = wkv_gn(r, k, v, w, a, g, vmix, v_first, vec, active,
+                    state["wkv"][l], l == 0, cd)
+        matmul([P(yg, f["Wo"][l], out="add", y=x)], ws)
+        (fx,) = ln_mix(x, f["ln2"][l], state["ffn_x"][l], f["fmix"][l],
+                       active)
+        (hk,) = matmul([P(fx, f["fkey"][l], act="relu2")], ws)
+        matmul([P(hk, f["fval"][l], out="add", y=x)], ws)
+    hidden = layer_norm(x.to(cd), params["ln_out_w"], params["ln_out_b"])
+    return hidden[:, None, :], state
+
+
+def forward_t1(params, state, tokens, lengths):
+    """Single-token decode forward: drop-in for ``models/v7.forward`` at
+    T = 1, through the hand-written kernels on CUDA tensors.
+
+    Requires ``params[FUSED_KEY]`` (:func:`make_fused_layout`).  tokens:
+    (B, 1); lengths: (B,) in {0, 1}.  ``state`` is updated IN PLACE (rows
+    with length 0 keep theirs bit for bit) and returned beside the hidden
+    (B, 1, C) after ``ln_out``.  The embedding gather and ``ln_out`` are
+    plain PyTorch; everything between them is the kernels.
+    """
+    return _forward(KERNELS, params, state, tokens, lengths)
+
+
+def forward_t1_plain(params, state, tokens, lengths):
+    """:func:`forward_t1` composed of the kernels' plain versions, on
+    whatever device the tensors are on; same in-place contract."""
+    return _forward(_PLAIN_OPS, params, state, tokens, lengths)
+
+
+class DecodeGraph:
+    """:func:`forward_t1` captured once in a ``torch.cuda.CUDAGraph`` over
+    static buffers — ``tokens`` (B,) int32, ``lengths`` (B,) int32, the
+    state pool it was given, ``hidden`` (B, C) — and replayed per decode
+    step.  A failure to capture raises; there is no eager retry.
+
+    A replay launches every kernel the capture recorded, so it adds the
+    captured count to each wrapper's ``launches`` (the capture itself
+    launches nothing and leaves the counts as they were).
+    """
+
+    total_replays = 0
+
+    def __init__(self, params, state, batch: int):
+        dev = state["wkv"].device
+        if dev.type != "cuda":
+            raise ValueError(f"a CUDA graph needs CUDA tensors, got {dev}")
+        self.tokens = torch.zeros(batch, dtype=torch.int32, device=dev)
+        self.lengths = torch.zeros(batch, dtype=torch.int32, device=dev)
+
+        def run():
+            hidden, _ = forward_t1(params, state, self.tokens[:, None],
+                                   self.lengths)
+            return hidden[:, 0]
+
+        # Warm up on a side stream with every row idle (the state keeps
+        # its bits): builds and loads the kernels outside the capture.
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            run()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        before = [k.launches for k in KERNELS]
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.hidden = run()
+        self.launches_per_replay = [k.launches - n
+                                    for k, n in zip(KERNELS, before)]
+        for k, n in zip(KERNELS, before):
+            k.launches = n
+
+    def replay(self, tokens, lengths) -> torch.Tensor:
+        """One decode step: tokens (B,) int, lengths (B,) int or bool.
+        Returns the static ``hidden`` (B, C), overwritten by the next
+        replay."""
+        self.tokens.copy_(tokens)
+        self.lengths.copy_(lengths)
+        self.graph.replay()
+        for k, n in zip(KERNELS, self.launches_per_replay):
+            k.launches += n
+        DecodeGraph.total_replays += 1
+        return self.hidden

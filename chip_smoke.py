@@ -11,14 +11,25 @@ the card, in four phases, and exits non-zero at the first failure:
 2. Each kernel against its plain PyTorch version on the card, at the
    shapes the serving path gives it, with times from CUDA events and the
    least time the card could take (the larger of bytes over 3.35 TB/s and
-   f32 operations over 67 TFLOP/s, from this run's inputs).
+   operations over the peak for their type: 67 TFLOP/s f32, 989 TFLOP/s
+   bf16 products; from this run's inputs).  The WKV kernels, then the
+   three kernels of the fused decode step (``csrc/v7_decode.cu``) on
+   weights that rotate through more than the L2 cache holds, then three
+   ways to take the LM head's f32 logits.
 3. Model parity: the full-width RWKV-7 0.4B shape at 2 layers in f32 on
    the card (kernels) against the same weights on the CPU (plain
-   versions), after a ragged prefill and T=1 steps.
+   versions), after a ragged prefill and T=1 steps — on the
+   layer-by-layer path (where ``wkv7_t1`` is launched and counted), on the
+   fused decode path called eagerly, and on the fused path replayed from
+   its CUDA graph.  Then the fused kernels against ``forward_t1_plain`` on
+   the card in bf16.
 4. Serving: the 0.4B shape at all 24 layers in bf16 from a seed, with a
    synthetic 65,536-entry vocabulary, behind the port's HTTP server on
    localhost: concurrent greedy completions and a streamed chat.  The
-   kernels' launch counters are zeroed just before and read just after.
+   kernels' launch counters are zeroed just before and read just after;
+   every decode step there is one replay of the engine's CUDA graph.  Then
+   one request under the profiler, and the time of one replay of the
+   24-layer stack beside its bound.
 
 The last two lines of standard output are the card's
 ``name, power.limit`` and ``{"ok": true, "device": {...}}``.
@@ -46,8 +57,19 @@ SEED = 20261016
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores
+BF16_FLOPS = 989e12         # H100 SXM dense bf16 (the products' type)
 KERNEL_TOL = 1e-4           # max |kernel - plain| / max(1, max |plain|)
+# The same for a value rounded to bf16: one bf16 ulp of the largest value.
+# The kernel sums in another order than the plain version, which can move
+# an f32 sum across a bf16 rounding boundary.
+BF16_TOL = 2.0 ** -7
 MODEL_TOL = 1e-3            # max |card - cpu| / max |cpu|, f32, 2 layers
+# Fused kernels vs forward_t1_plain on the card in bf16, 2 layers, relative
+# to max |plain|: single-ulp flips (above) are carried through the next
+# LayerNorms and products, so a few ulps on the hidden; the f32 state sees
+# them through k, v and the decay.
+BF16_MODEL_TOL = 3e-2
+L2_BYTES = 50e6             # H100 L2: timed weights rotate through more
 
 
 def fail(msg: str) -> None:
@@ -112,9 +134,10 @@ def device_ms(fn, iters: int, replays: int = 5) -> float:
     return start.elapsed_time(end) / (iters * replays)
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
+def bound(nbytes: float, flops: float,
+          flops_per_s: float = F32_FLOPS) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -227,12 +250,256 @@ def phase_kernels(dev) -> dict:
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             }
     rows["wkv7_chunk"]["max_abs_err"] = worst
+    print_rows(rows)
+    return rows
+
+
+def print_rows(rows) -> None:
     for r in rows.values():
+        lib = ("" if r["library_ms"] is None
+               else f", library {r['library_ms']:.5f} ms")
         print(f"{r['name']}: {r['ms']:.5f} ms on the device (plain "
-              f"{r['plain_ms']:.5f} ms, bound {r['bound_ms']:.5f} ms by "
+              f"{r['plain_ms']:.5f} ms{lib}, bound {r['bound_ms']:.5f} ms by "
               f"{r['bound_by']}); {r['call_ms']:.5f} ms per call from "
               "Python", flush=True)
+
+
+def rotating(call, n: int):
+    """``call(i)`` with i cycling through range(n), one step per call."""
+    import itertools
+
+    it = itertools.count()
+    return lambda: call(next(it) % n)
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def phase_decode_kernels(dev) -> dict:
+    """The three kernels of the fused decode step at the 0.4B shape (B=8,
+    bf16, row 5 inactive), each against its plain version, timed on
+    weights and states that rotate through more than the L2 holds, as the
+    24-layer stack finds them."""
+    import torch
+
+    from ai00_server_tpu_torch.ops import v7_decode as fd
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 1)
+    B, H, N, cd = MAX_BATCH, C // HEAD, HEAD, torch.bfloat16
+    SRC = "ai00_server_tpu_torch/csrc/v7_decode.cu"
+    REPLACES = "ai00_server_tpu/ops/v7_decode_pallas.py:274"
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    def weight(K, Nout):
+        return (rnd(K, Nout) / K ** 0.5).to(cd)
+
+    def close(got, want, rounded, what):
+        err = float((got.float() - want.float()).abs().max())
+        tol = BF16_TOL if rounded else KERNEL_TOL
+        check(err <= tol * max(1.0, float(want.float().abs().max())),
+              f"{what} disagrees with its plain version: {err:.3e}")
+        return err
+
+    active = torch.ones(B, dtype=torch.bool, device=dev)
+    active[5] = False
+    rows = {}
+
+    # ---- v7_ln_mix: 6 mixes (time mix) and 1 (channel mix) ----
+    x, shift0 = rnd(B, C, scale=2.0), rnd(B, C)
+    ln = torch.stack([1 + rnd(C, scale=0.1), rnd(C, scale=0.1)]).to(cd)
+    mix = rnd(6, C, scale=0.3).to(cd)
+    worst = 0.0
+    for n_mix in (6, 1):
+        shift = shift0.clone()
+        want, want_shift = fd.v7_ln_mix_plain(x, ln, shift, mix[:n_mix],
+                                              active)
+        got = fd.v7_ln_mix(x, ln, shift, mix[:n_mix].contiguous(), active)
+        torch.cuda.synchronize()
+        worst = max(worst, close(got, want, True, f"v7_ln_mix({n_mix})"),
+                    close(shift, want_shift, False, "v7_ln_mix shift"))
+        check(torch.equal(shift[5], shift0[5]),
+              "v7_ln_mix changed an inactive row's shift state")
+    shift = shift0.clone()
+    b_ms, b_by = bound(nbytes(x, ln, mix, active) + 2 * nbytes(shift)
+                       + 6 * B * C * 2, 12 * B * C + 12 * B * C)
+    rows["v7_ln_mix"] = {
+        "name": "v7_ln_mix", "route": "cuda", "source": SRC,
+        "replaces": REPLACES, "max_abs_err": worst,
+        "ms": device_ms(lambda: fd.v7_ln_mix(x, ln, shift, mix, active), 100),
+        "plain_ms": device_ms(
+            lambda: fd.v7_ln_mix_plain(x, ln, shift, mix, active), 20),
+        "call_ms": call_ms(lambda: fd.v7_ln_mix(x, ln, shift, mix, active),
+                           200),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+    }
+    print(f"v7_ln_mix B={B} C={C} bf16, 6 and 1 mixes: max_abs_err "
+          f"{worst:.3e} (tolerance {BF16_TOL:.2e} x max(1, |plain|) on the "
+          f"bf16 mixes, {KERNEL_TOL} on the f32 shift); inactive row "
+          "bit-identical", flush=True)
+
+    # ---- v7_skinny_matmul: the six launches of a layer ----
+    D = LORA
+    shapes = {
+        "rkv": [(C, C, "none", False, True, "f32")] * 3,
+        "lora_down": [(C, D["w"], "tanh", False, False, "cd"),
+                      (C, D["a"], "none", False, False, "cd"),
+                      (C, D["v"], "none", False, False, "cd"),
+                      (C, D["g"], "sigmoid", False, False, "cd")],
+        "lora_up": [(D["w"], C, "wdecay", True, False, "f32"),
+                    (D["a"], C, "sigmoid", True, True, "f32"),
+                    (D["v"], C, "sigmoid", True, True, "f32"),
+                    (D["g"], C, "none", False, False, "f32")],
+        "wo": [(C, C, "none", False, False, "add")],
+        "fkey": [(C, FFN, "relu2", False, False, "cd")],
+        "fval": [(FFN, C, "none", False, False, "add")],
+    }
+    layer_bytes = sum(K * Nout * 2 for g in shapes.values()
+                      for K, Nout, *_ in g)
+    n_sets = int(2 * L2_BYTES // layer_bytes) + 1
+    ws = fd.Workspace(dev, 1 << 20, 1024)
+    total = {k: 0.0 for k in ("ms", "plain_ms", "library_ms", "call_ms")}
+    tot_bytes = tot_flops = 0.0
+    worst = 0.0
+    for gname, specs in shapes.items():
+        sets = []
+        for _ in range(n_sets):
+            sets.append([fd.Product(
+                rnd(B, K, scale=0.5).to(cd), weight(K, Nout), act=act,
+                bias=rnd(Nout) if bias else None, round_cd=round_cd, out=out,
+                y=rnd(B, Nout) if out == "add" else None)
+                for K, Nout, act, bias, round_cd, out in specs])
+        prods = sets[0]
+        want = fd.v7_skinny_matmul_plain(prods)
+        got = fd.v7_skinny_matmul(prods, ws)
+        torch.cuda.synchronize()
+        for g, w, pr in zip(got, want, prods):
+            worst = max(worst, close(g, w, pr.out == "cd" or pr.round_cd,
+                                     f"v7_skinny_matmul[{gname}]"))
+        gb = sum(nbytes(pr.x, pr.W, pr.bias) + B * pr.W.shape[1]
+                 * {"cd": 2, "f32": 4, "add": 8}[pr.out] for pr in prods)
+        gf = sum(2 * B * pr.W.shape[0] * pr.W.shape[1] for pr in prods)
+        tot_bytes += gb
+        tot_flops += gf
+        t = {
+            "ms": device_ms(rotating(
+                lambda i: fd.v7_skinny_matmul(sets[i], ws), n_sets), 40),
+            "plain_ms": device_ms(rotating(
+                lambda i: fd.v7_skinny_matmul_plain(sets[i]), n_sets), 8),
+            "library_ms": device_ms(rotating(
+                lambda i: [torch.matmul(pr.x, pr.W) for pr in sets[i]],
+                n_sets), 40),
+            "call_ms": call_ms(rotating(
+                lambda i: fd.v7_skinny_matmul(sets[i], ws), n_sets), 100),
+        }
+        gb_ms, _ = bound(gb, gf, BF16_FLOPS)
+        print(f"v7_skinny_matmul[{gname}] "
+              f"{[tuple(pr.W.shape) for pr in prods]}: {t['ms']:.5f} ms "
+              f"(plain {t['plain_ms']:.5f}, torch.matmul "
+              f"{t['library_ms']:.5f}, bound {gb_ms:.5f} by bytes; "
+              f"{gb / t['ms'] / 1e6:.0f} GB/s)", flush=True)
+        for k in total:
+            total[k] += t[k]
+        del sets
+    b_ms, b_by = bound(tot_bytes, tot_flops, BF16_FLOPS)
+    rows["v7_skinny_matmul"] = {
+        "name": "v7_skinny_matmul", "route": "cuda", "source": SRC,
+        "replaces": REPLACES, "max_abs_err": worst, **total,
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
+    print(f"v7_skinny_matmul B={B} bf16, the six launches of a layer (14 "
+          f"products, {layer_bytes / 1e6:.1f} MB of weights, {n_sets} "
+          f"rotating sets): max_abs_err {worst:.3e} (tolerance "
+          f"{BF16_TOL:.2e} x max(1, |plain|) on bf16-rounded results, "
+          f"{KERNEL_TOL} on f32 ones); times are the sum of the six",
+          flush=True)
+
+    # ---- v7_wkv_gn ----
+    r, k, v, g, vf = (rnd(B, C, scale=0.5) for _ in range(5))
+    w = torch.exp(-0.6065306597126334 * torch.sigmoid(rnd(B, C)))
+    a, vmix = torch.sigmoid(rnd(B, C)), torch.sigmoid(rnd(B, C))
+    vecs = rnd(8, C, scale=0.5)
+    n_states = int(L2_BYTES // (B * H * N * N * 4)) + 2
+    states = [rnd(B, H, N, N) for _ in range(n_states)]
+    worst = 0.0
+    for is_first in (True, False):
+        S = states[0].clone()
+        vf_k = vf.clone()
+        want, S_want, vf_want = fd.v7_wkv_gn_plain(
+            r, k, v, w, a, g, vmix, vf, vecs, active, S, is_first, cd)
+        got = fd.v7_wkv_gn(r, k, v, w, a, g, vmix, vf_k, vecs, active, S,
+                           is_first, cd)
+        torch.cuda.synchronize()
+        worst = max(worst, close(got, want, True, "v7_wkv_gn"),
+                    close(S, S_want, False, "v7_wkv_gn state"))
+        check(torch.equal(S[5], states[0][5]),
+              "v7_wkv_gn changed an inactive row's state")
+        check(torch.equal(vf_k, vf_want), "v7_wkv_gn v_first")
+    n_act = int(active.sum())
+    elems = H * N * N
+    b_ms, b_by = bound(
+        (B + n_act) * elems * 4 + nbytes(r, k, v, w, a, g, vmix, vf, active)
+        + 5 * C * 4 + B * C * 2,
+        elems * (9 * n_act + 2 * (B - n_act)) + 30 * B * C)
+
+    def wkv(i, fn):
+        return fn(r, k, v, w, a, g, vmix, vf, vecs, active, states[i],
+                  False, cd)
+
+    rows["v7_wkv_gn"] = {
+        "name": "v7_wkv_gn", "route": "cuda", "source": SRC,
+        "replaces": REPLACES, "max_abs_err": worst,
+        "ms": device_ms(rotating(lambda i: wkv(i, fd.v7_wkv_gn), n_states),
+                        100),
+        "plain_ms": device_ms(rotating(
+            lambda i: wkv(i, fd.v7_wkv_gn_plain), n_states), 20),
+        "call_ms": call_ms(rotating(lambda i: wkv(i, fd.v7_wkv_gn),
+                                    n_states), 200),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+    }
+    print(f"v7_wkv_gn B={B} H={H} N={N} bf16 ({n_states} rotating states): "
+          f"max_abs_err {worst:.3e} (tolerance {BF16_TOL:.2e} x max(1, "
+          f"|plain|) on the bf16 output, {KERNEL_TOL} on the f32 state); "
+          "inactive row bit-identical", flush=True)
+    print_rows(rows)
     return rows
+
+
+def phase_head(dev) -> None:
+    """Three ways to the LM head's f32-accumulated f32 logits from a bf16
+    head (B=8): converting the head every step, an f32 copy cached at
+    load, and one product with an f32 output type (engine.head_logits)."""
+    import torch
+
+    from ai00_server_tpu_torch.engine import head_logits
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 2)
+    x = torch.randn(MAX_BATCH, C, generator=gen, device=dev).bfloat16()
+    head = (torch.randn(C, VOCAB, generator=gen, device=dev)
+            / C ** 0.5).bfloat16()
+    head32 = head.float()
+    want = torch.matmul(x.float(), head32)
+    got = head_logits({"head": head}, x)
+    torch.cuda.synchronize()
+    check(got.dtype == torch.float32, "head_logits must return f32")
+    err, rel = rel_err(got, want)
+    check(rel <= KERNEL_TOL, f"head_logits disagrees with the f32 product: "
+          f"{rel:.3e}")
+    t_conv = device_ms(lambda: torch.matmul(x.float(), head.float()), 10)
+    t_f32 = device_ms(lambda: torch.matmul(x.float(), head32), 10)
+    t_out = device_ms(lambda: head_logits({"head": head}, x), 10)
+    b_ms, _ = bound(nbytes(head, x) + MAX_BATCH * VOCAB * 4,
+                    2 * MAX_BATCH * C * VOCAB, BF16_FLOPS)
+    print(f"LM head B={MAX_BATCH} C={C} V={VOCAB}, bf16 head -> f32 logits: "
+          f"converted every step {t_conv:.5f} ms; f32 head cached at load "
+          f"{t_f32:.5f} ms (+{nbytes(head32) / 1e6:.0f} MB of device "
+          f"memory); one product with an f32 output type {t_out:.5f} ms "
+          f"(no extra memory; bound {b_ms:.5f} ms by bytes); max_abs_err of "
+          f"the last against the f32 product {err:.3e}", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -247,7 +514,9 @@ def model_info(num_layer: int):
                      num_vocab=VOCAB, hidden_mult=FFN // C)
 
 
-def phase_parity(dev) -> None:
+def phase_parity(dev) -> dict:
+    """Returns ``wkv7_t1``'s launch count on the layer-by-layer path and
+    the fused path's worst absolute bf16 error on the hidden."""
     import numpy as np
     import torch
 
@@ -255,6 +524,8 @@ def phase_parity(dev) -> None:
     from ai00_server_tpu_torch.loader import stack_params
     from ai00_server_tpu_torch.models import v7
     from ai00_server_tpu_torch.models.common import take_last_valid
+    from ai00_server_tpu_torch.ops import v7_decode as fd
+    from ai00_server_tpu_torch.ops.wkv_t1 import wkv7_t1
     from ai00_server_tpu_torch.testing import make_raw_weights
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -264,38 +535,110 @@ def phase_parity(dev) -> None:
                             lora_dims=LORA)
     params = {d: stack_params(info, math, dtype=torch.float32, device=d)
               for d in (dev, "cpu")}
+    check(fd.can_fuse(params["cpu"]), "the 0.4B shape must take the fused "
+          "decode path")
+    fused = {d: {**p, fd.FUSED_KEY: fd.make_fused_layout(p)}
+             for d, p in params.items()}
     rng = np.random.default_rng(SEED)
     B, T = 4, 40
     lengths = np.array([40, 33, 1, 0], np.int32)
     steps = [(rng.integers(1, VOCAB, (B, T)), lengths)] + [
         (rng.integers(1, VOCAB, (B, 1)), np.array([1, 1, 0, 1], np.int32))
         for _ in range(3)]
-    state = {d: v7.init_state(info, B, device=d) for d in (dev, "cpu")}
-    worst = 0.0
-    for toks, lens in steps:
-        out = {}
-        for d in (dev, "cpu"):
+
+    def run(how, d):
+        """The steps on device d: 'layer' (no layout), 'fused' (eager
+        forward_t1 at T=1) or 'graph' (T=1 replayed from a DecodeGraph)."""
+        p = params[d] if how == "layer" else fused[d]
+        state = v7.init_state(info, B, device=d)
+        graph = fd.DecodeGraph(p, state, B) if how == "graph" else None
+        outs = []
+        for toks, lens in steps:
             lt = torch.as_tensor(lens, device=d)
-            h, state[d] = v7.forward(params[d], state[d],
-                                     torch.as_tensor(toks, device=d), lt)
-            logits = head_logits(params[d], take_last_valid(h, lt))
-            out[d] = (h.cpu(), logits.cpu())
-        m = torch.arange(toks.shape[1])[None, :] < torch.as_tensor(
-            lens)[:, None]
-        pairs = [(out[dev][0][m], out["cpu"][0][m]),
-                 (out[dev][1][lens > 0], out["cpu"][1][lens > 0])]
-        pairs += [(state[dev][k].cpu(), state["cpu"][k])
-                  for k in state["cpu"]]
-        for got, want in pairs:
-            check(bool(torch.isfinite(got).all()), "non-finite output")
-            err = float((got.double() - want.double()).abs().max())
-            rel = err / max(float(want.abs().max()), 1e-6)
-            worst = max(worst, rel)
-    check(worst <= MODEL_TOL,
-          f"card and CPU disagree: {worst:.3e} > {MODEL_TOL}")
-    print(f"model parity (C={C}, 2 layers, f32, ragged prefill T={T} + 3 "
-          f"decode steps): max |card - cpu| / max |cpu| = {worst:.3e} "
-          f"(tolerance {MODEL_TOL})", flush=True)
+            tt = torch.as_tensor(toks, device=d)
+            if graph is not None and toks.shape[1] == 1:
+                h = graph.replay(tt[:, 0], lt)[:, None]
+            else:
+                h, new = v7.forward(p, state, tt, lt)
+                if new is not state:
+                    for k, t in state.items():
+                        t.copy_(new[k])
+            logits = head_logits(p, take_last_valid(h, lt))
+            outs.append((h.cpu(), logits.cpu(),
+                         {k: t.cpu().clone() for k, t in state.items()}))
+        return outs
+
+    ref = {how: run(how, "cpu") for how in ("layer", "fused")}
+    result = {}
+    for how in ("layer", "fused", "graph"):
+        for k in (wkv7_t1, *fd.KERNELS):
+            k.launches = 0
+        got = run(how, dev)
+        torch.cuda.synchronize()
+        delta = [k.launches for k in (wkv7_t1, *fd.KERNELS)]
+        if how == "layer":
+            check(delta[0] > 0 and not any(delta[1:]),
+                  f"the layer-by-layer path launched {delta}")
+            result["wkv7_t1_launches"] = delta[0]
+        else:
+            check(delta[0] == 0 and all(delta[1:]),
+                  f"the fused path ({how}) launched {delta}")
+        worst = 0.0
+        for (toks, lens), (h, lg, st), (h_r, lg_r, st_r) in zip(
+                steps, got, ref["layer" if how == "layer" else "fused"]):
+            m = torch.arange(toks.shape[1])[None, :] < torch.as_tensor(
+                lens)[:, None]
+            pairs = [(h[m], h_r[m]), (lg[lens > 0], lg_r[lens > 0])]
+            pairs += [(st[k], st_r[k]) for k in st_r]
+            for a, b in pairs:
+                check(bool(torch.isfinite(a).all()), "non-finite output")
+                err = float((a.double() - b.double()).abs().max())
+                worst = max(worst, err / max(float(b.abs().max()), 1e-6))
+        check(worst <= MODEL_TOL,
+              f"card and CPU disagree on the {how} path: {worst:.3e} > "
+              f"{MODEL_TOL}")
+        print(f"model parity, {how} path (C={C}, 2 layers, f32, ragged "
+              f"prefill T={T} + 3 decode steps; launches wkv7_t1/ln_mix/"
+              f"skinny_matmul/wkv_gn {delta}): max |card - cpu| / max |cpu| "
+              f"= {worst:.3e} (tolerance {MODEL_TOL})", flush=True)
+
+    # bf16 on the card: the fused kernels against forward_t1_plain.
+    p16 = stack_params(info, math, dtype=torch.bfloat16, device=dev)
+    p16[fd.FUSED_KEY] = fd.make_fused_layout(p16)
+    toks, lens = steps[0]
+    _, s0 = v7.forward(p16, v7.init_state(info, B, device=dev),
+                       torch.as_tensor(toks, device=dev),
+                       torch.as_tensor(lens, device=dev))
+    state = {how: {k: t.clone() for k, t in s0.items()}
+             for how in ("kernels", "plain")}
+    worst_abs = worst = 0.0
+    for toks, lens in steps[1:]:
+        tt = torch.as_tensor(toks, device=dev)
+        lt = torch.as_tensor(lens, device=dev)
+        h_k, _ = fd.forward_t1(p16, state["kernels"], tt, lt)
+        h_p, _ = fd.forward_t1_plain(p16, state["plain"], tt, lt)
+        pairs = [(h_k[lens > 0].float(), h_p[lens > 0].float())]
+        pairs += [(state["kernels"][k], state["plain"][k]) for k in s0]
+        for i, (a, b) in enumerate(pairs):
+            check(bool(torch.isfinite(a).all()), "non-finite bf16 output")
+            err = float((a.double() - b.double()).abs().max())
+            if i == 0:  # the hidden; the states' scales differ widely
+                worst_abs = max(worst_abs, err)
+            worst = max(worst, err / max(float(b.abs().max()), 1e-6))
+        for k in s0:
+            check(torch.equal(state["kernels"][k][:, 2], s0[k][:, 2]),
+                  "the fused path changed an inactive row's state")
+    check(worst <= BF16_MODEL_TOL,
+          f"fused kernels and forward_t1_plain disagree in bf16: "
+          f"{worst:.3e} > {BF16_MODEL_TOL}")
+    print(f"fused decode in bf16 on the card (C={C}, 2 layers, 3 steps): "
+          f"max |kernels - plain| / max |plain| = {worst:.3e} over hidden "
+          f"and state, {worst_abs:.3e} absolute on the hidden (tolerance "
+          f"{BF16_MODEL_TOL}: the two sum in different orders, which flips "
+          "single bf16 roundings that later layers carry on); inactive row "
+          "bit-identical", flush=True)
+    result["fused_bf16_max_abs_err"] = worst_abs
+    return result
 
 
 # ---------------------------------------------------------------------------
@@ -388,18 +731,74 @@ async def profiled(coro) -> str:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     n = out["usage"]["completion"]
     return (f"{n} tokens in {wall_us / 1e6:.3f} s (profiled), "
-            f"{n_kernels} device kernels ({n_kernels / n:.0f} per token); "
+            f"{n_kernels} device kernels ({n_kernels / n:.1f} per token); "
             f"device busy {busy / 1e6:.4f} s = "
             f"{100 * busy / wall_us:.2f}% of wall; top kernels: "
             + "; ".join(f"{n[:60]} {t / 1e3:.2f} ms" for n, t in top))
+
+
+def time_stack(engine) -> dict:
+    """One decode step of the loaded 24-layer model, every row active:
+    the engine's CUDA graph replayed (device time between CUDA events), the
+    same stack launched eagerly from Python and composed of the plain
+    versions (host clock around a synchronise), and the least time the
+    card could take for the bytes the stack must move.  Runs after the
+    requests, on the idle engine, and leaves its rows' states advanced."""
+    import torch
+
+    from ai00_server_tpu_torch.ops import v7_decode as fd
+
+    params, B = engine.model.params, engine.max_batch
+    dev = engine.device
+    layout = params[fd.FUSED_KEY]
+    toks = torch.arange(1, B + 1, dtype=torch.int32, device=dev)
+    ones = torch.ones(B, dtype=torch.int32, device=dev)
+    with engine._lock:
+        graph = engine._graph
+        check(graph is not None, "the engine captured no decode graph")
+        graph.replay(toks, ones)
+        torch.cuda.synchronize()
+        n = 20
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            graph.replay(toks, ones)
+        end.record()
+        torch.cuda.synchronize()
+        replay_ms = start.elapsed_time(end) / n
+        state = {k: t.clone() for k, t in engine.state_pool.items()}
+
+        def host_ms(fwd, reps):
+            fwd(params, state, toks[:, None], ones)
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            for _ in range(reps):
+                fwd(params, state, toks[:, None], ones)
+            torch.cuda.synchronize()
+            return (time.monotonic() - t0) / reps * 1e3
+
+        eager_ms = host_ms(fd.forward_t1, 5)
+        plain_ms = host_ms(fd.forward_t1_plain, 2)
+    weights = [t for v in layout.values()
+               for t in (v if isinstance(v, list) else [v])]
+    n_bytes = (nbytes(*weights) + 2 * nbytes(*engine.state_pool.values())
+               + 2 * B * params["emb"].shape[1] * 2)
+    flops = 2 * B * sum(t.numel() for k, v in layout.items()
+                        if isinstance(v, list) for t in v)
+    b_ms, b_by = bound(n_bytes, flops, BF16_FLOPS)
+    return {"replay_ms": replay_ms, "eager_ms": eager_ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "bytes": n_bytes, "kernels_per_replay": sum(
+                graph.launches_per_replay)}
 
 
 async def serve(cfg: Path, device="cuda") -> dict:
     import aiohttp
     from aiohttp import web
 
+    from ai00_server_tpu_torch.ops import v7_decode as fd
     from ai00_server_tpu_torch.ops.wkv_chunk import wkv7_chunk
-    from ai00_server_tpu_torch.ops.wkv_t1 import wkv7_t1
     from ai00_server_tpu_torch.server.app import Server
     from ai00_server_tpu_torch.server.config import Config
 
@@ -453,15 +852,18 @@ async def serve(cfg: Path, device="cuda") -> dict:
 
             prompts = [PROMPT * 20, PROMPT * 20, PROMPT * 11 + "alpha",
                        PROMPT * 11 + "alpha"]
-            wkv7_t1.launches = 0
-            wkv7_chunk.launches = 0
+            counted = {"wkv7_chunk": wkv7_chunk,
+                       **{k.__name__: k for k in fd.KERNELS}}
+            for k in counted.values():
+                k.launches = 0
+            replays0 = fd.DecodeGraph.total_replays
             t0 = time.monotonic()
             *outs, (ttft_load, _chat) = await asyncio.gather(
                 *[completion(http, p, 128) for p in prompts],
                 streamed_chat(http, PROMPT * 8, 64))
             wall = time.monotonic() - t0
-            launches = {"wkv7_t1": wkv7_t1.launches,
-                        "wkv7_chunk": wkv7_chunk.launches}
+            launches = {name: k.launches for name, k in counted.items()}
+            burst_replays = fd.DecodeGraph.total_replays - replays0
             texts = [o["choices"][0]["text"] for o in outs]
             check(all(texts), "a completion returned no text")
             check(texts[0] == texts[1] and texts[2] == texts[3],
@@ -470,10 +872,16 @@ async def serve(cfg: Path, device="cuda") -> dict:
             prompt_tokens = sum(o["usage"]["prompt"] for o in outs)
             ttft_solo, _ = await streamed_chat(
                 http, "once more, " + PROMPT * 8, 16)
+            replays0 = fd.DecodeGraph.total_replays
             profile = await profiled(
                 completion(http, "and a profiled one: " + PROMPT * 8, 64))
+            profile += (f"; {fd.DecodeGraph.total_replays - replays0} graph "
+                        "replays for its 64 tokens")
+            stack = (time_stack(server.middleware.env.engine)
+                     if device != "cpu" else None)
         result = {
-            "launches": launches, "wall_s": wall,
+            "launches": launches, "burst_replays": burst_replays,
+            "stack": stack, "wall_s": wall,
             "completion_tokens": n_tokens, "prompt_tokens": prompt_tokens,
             "tokens_per_s": n_tokens / wall, "ttft_s_under_load": ttft_load,
             "ttft_s_alone": ttft_solo, "sample": texts[0][:60],
@@ -514,10 +922,12 @@ def main() -> None:
 
     t0 = time.monotonic()
     rows = phase_kernels(dev)
+    rows.update(phase_decode_kernels(dev))
+    phase_head(dev)
     print(f"phase 2 (kernels) {time.monotonic() - t0:.1f} s", flush=True)
 
     t0 = time.monotonic()
-    phase_parity(dev)
+    parity = phase_parity(dev)
     print(f"phase 3 (parity) {time.monotonic() - t0:.1f} s", flush=True)
 
     t0 = time.monotonic()
@@ -529,9 +939,36 @@ def main() -> None:
             served = asyncio.run(serve(cfg))
     finally:
         shutil.rmtree(tmp_root, ignore_errors=True)
+    # wkv7_t1 serves the layer-by-layer path, driven in phase 3; the burst's
+    # decode steps go through the fused kernels.
+    served["launches"]["wkv7_t1"] = parity["wkv7_t1_launches"]
     for name, n in served["launches"].items():
-        check(n > 0, f"the serving path never launched {name}")
+        check(n > 0, f"its path never launched {name}")
         rows[name]["launches"] = n
+    check(served["burst_replays"] > 0, "the burst replayed no decode graph")
+    stack = served["stack"]
+    rows["forward_t1"] = {
+        "name": f"forward_t1 ({L_FULL} layers, "
+                f"{stack['kernels_per_replay']} kernels in one CUDA graph)",
+        "route": "cuda",
+        "source": "ai00_server_tpu_torch/csrc/v7_decode.cu",
+        "replaces": "ai00_server_tpu/ops/v7_decode_pallas.py:274",
+        "launches": served["burst_replays"],
+        "max_abs_err": parity["fused_bf16_max_abs_err"],
+        "ms": stack["replay_ms"], "plain_ms": stack["plain_ms"],
+        "bound_ms": stack["bound_ms"], "bound_by": stack["bound_by"],
+        "library_ms": None,
+    }
+    print(f"forward_t1, {L_FULL} layers bf16 B={MAX_BATCH}, all rows active: "
+          f"{stack['replay_ms']:.5f} ms per graph replay "
+          f"({stack['kernels_per_replay']} kernels; "
+          f"{stack['bytes'] / stack['replay_ms'] / 1e6:.0f} GB/s), "
+          f"{stack['eager_ms']:.3f} ms launched eagerly from Python, "
+          f"{stack['plain_ms']:.3f} ms as plain versions; bound "
+          f"{stack['bound_ms']:.5f} ms by {stack['bound_by']} "
+          f"({stack['bytes'] / 1e6:.1f} MB)", flush=True)
+    print(f"launches in the burst: {served['launches']}; "
+          f"{served['burst_replays']} graph replays", flush=True)
     print(f"serving (24 layers, bf16, max_batch {MAX_BATCH}, chunk {CHUNK}) "
           f"on {card}: 4 greedy completions + 1 streamed chat in "
           f"{served['wall_s']:.2f} s, {served['completion_tokens']} "

@@ -181,3 +181,95 @@ def test_runtime_keeps_requests_submitted_during_admission(engines):
             await rt.stop()
 
     asyncio.run(asyncio.wait_for(main(), timeout=60))
+
+
+# ---------------------------------------------------------------------------
+# The fused decode path: layout installed, pool updated in place
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture()
+def fused_engines():
+    """Both engines on a tiny f32 v7 with head size 64, the width the
+    port's fused decode path takes."""
+    info, _, params = make_tiny_model(ModelVersion.V7, seed=71,
+                                      dtype=np.float32, num_layer=2,
+                                      num_emb=128, head_size=64,
+                                      num_vocab=64)
+    j = JEngine(JLoaded(info=info, params=params, init_wkv=None),
+                max_batch=B, token_chunk_size=CHUNK)
+    tparams = params_from_numpy(jax.tree.map(np.asarray, params), "cpu")
+    t = TEngine(TLoaded(info=info, params=tparams), max_batch=B,
+                token_chunk_size=CHUNK, device="cpu")
+    prompts = [[1, 2, 3, 4, 5], [7, 8, 9], [3] * 8, []]
+    for eng in (j, t):
+        for b in range(B):
+            eng.load_row_state(b, None)
+            eng.set_row_sampler(b, GREEDY, prompt_tokens=prompts[b])
+            eng.set_row_bias(b, None)
+    return j, t, prompts
+
+
+def test_engine_installs_the_fused_layout(fused_engines, engines):
+    from ai00_server_tpu_torch.ops import v7_decode as fd
+
+    _, t, _ = fused_engines
+    assert fd.supports(t.model.params)
+    layout = t.model.params[fd.FUSED_KEY]
+    assert layout["Wr"][0] is t.model.params["layers"][0]["att"]["receptance"]
+    assert t._graph is None  # a CUDA graph needs a CUDA device
+    # Head size 16 is not the kernels': that model keeps to the layer path.
+    assert not fd.supports(engines[1].model.params)
+
+
+def test_fused_engine_pool_keeps_its_addresses_and_equals_jax(
+        fused_engines, monkeypatch):
+    from ai00_server_tpu_torch.ops import v7_decode as fd
+
+    j, t, prompts = fused_engines
+    fused_steps = []
+    real = fd.forward_t1
+    monkeypatch.setattr(fd, "forward_t1",
+                        lambda *a: fused_steps.append(1) or real(*a))
+    ptrs = {k: (id(v), v.data_ptr()) for k, v in t.state_pool.items()}
+
+    def same_pool():
+        return all((id(v), v.data_ptr()) == ptrs[k]
+                   for k, v in t.state_pool.items())
+
+    jf, tf = _prefill(j, prompts), _prefill(t, prompts)   # T > 1
+    assert same_pool() and not fused_steps
+    np.testing.assert_array_equal(tf[:3], jf[:3])
+    _states_close(j, t)
+
+    one = np.zeros((B, 1), np.int32)                       # T = 1 step
+    one[:3, 0] = tf[:3]
+    lens = np.array([1, 1, 1, 0], np.int32)
+    js, ts = j.step(one, lens, lens > 0), t.step(one, lens, lens > 0)
+    assert same_pool() and len(fused_steps) == 1
+    np.testing.assert_array_equal(ts.tokens[:3], js.tokens[:3])
+
+    active = np.array([True, True, True, False])
+    budget = np.array([5, 5, 2, 0], np.int32)
+    before = t.read_row_state(1)
+    jt, _ = j.decode_chunk(js.tokens, active, 5, budget=budget)
+    tt, _ = t.decode_chunk(ts.tokens, active, 5, budget=budget)
+    assert same_pool() and len(fused_steps) == 6
+    np.testing.assert_array_equal(tt[:, :3], jt[:, :3])
+    _states_close(j, t)
+    assert float(np.abs(t.read_row_state(3)["wkv"]).max()) == 0.0
+
+    feed = [int(ts.tokens[0]), int(tt[0, 0])]
+    j.rollback_row(0, feed)
+    t.rollback_row(0, feed)
+    assert same_pool()
+    _states_close(j, t)
+
+    t.decode_chunk(tt[-1], active, 3)
+    t.restore_last_chunk()
+    assert same_pool()
+    _states_close(j, t)  # the speculative chunk left no trace
+    t.restore_last_chunk()  # and the chunk before it: back to `before`
+    assert same_pool()
+    for k, v in t.read_row_state(1).items():
+        np.testing.assert_array_equal(v, before[k])
