@@ -11,9 +11,12 @@
 //   -> wkv_gn -> matmul{Wo, += x} -> ln_mix(1) -> matmul{fkey} -> matmul{fval, += x}
 //
 // and the caller replays the whole stack from one CUDA graph.  Activations
-// are T (the weights' type: bf16 or f32); the residual, the state and every
-// sum are f32, and values round through T at the points of the Pallas
-// kernel.
+// are T (the plain weights' type: bf16 or f32); the residual, the state and
+// every sum are f32, and values round through T at the points of the Pallas
+// kernel.  The six big projections of a layer may arrive as int8 codes with
+// per-128-row-block scales (the Pallas kernel's int8 mode): the product then
+// dequantizes in T as it loads, w = round_T(float(q) * round_T(s)), the
+// scale applied per block before the f32 sum.
 //
 // What bounds them on an H100 at the serving shape (B = 8, C = 1024,
 // F = 4096, bf16):
@@ -34,6 +37,11 @@
 //    arrives last at the tile's counter adds them IN SPLIT ORDER and runs
 //    the epilogue - one launch, and the same bits on every run (no float
 //    atomics).  Up to four products share one launch (r/k/v, the LoRAs).
+//    With int8 codes the same 4 bytes a thread are 4 columns, so a block
+//    owns 128 columns and a thread keeps B x 4 sums; a slice of 128 rows
+//    is one scale block, a slice of 256 rows (K > 1024) two, and the
+//    scales are fetched with the first codes.  Half the bytes on half the
+//    blocks: the (1024, 1024) products run on 64 blocks.
 //  * v7_wkv_gn: bytes of the state (read once, written once for active
 //    rows), as wkv7_t1, with the vector prologue and the GroupNorm / bonus /
 //    gate epilogue fused around the same register layout.
@@ -153,7 +161,8 @@ enum Out { OUT_T = 0, OUT_F32 = 1, OUT_ADD = 2 };
 
 struct MMProblem {
   const void* x;      // (B, K) T
-  const void* W;      // (K, N) T, N contiguous
+  const void* W;      // (K, N) T, or int8 codes when scale is set
+  const float* scale; // (K / 128, N) f32 per-block scales, or null
   void* y;            // (B, N): T, f32, or the f32 residual added into
   const float* bias;  // (N,) f32 or null, added before the activation
   int K, N;
@@ -189,21 +198,38 @@ __device__ __forceinline__ void epilogue(const MMProblem& P, int b, int c,
   }
 }
 
-// 4 bytes of a weight row as floats: 2 bf16 columns or 1 f32 column.
+// 4 bytes of a weight row as floats: 2 bf16 columns, 1 f32 column, or 4
+// int8 codes dequantized in T with their block's scales (sv, rounded to T).
+template <typename T>
 __device__ __forceinline__ void unpack4(uint32_t r, float (&w)[2],
-                                        __nv_bfloat16) {
+                                        const float*) {
   w[0] = __uint_as_float(r << 16);  // a bf16 is the high half of an f32;
   w[1] = __uint_as_float(r & 0xffff0000u);  // column 0 is the low half-word
 }
-__device__ __forceinline__ void unpack4(uint32_t r, float (&w)[1], float) {
+template <typename T>
+__device__ __forceinline__ void unpack4(uint32_t r, float (&w)[1],
+                                        const float*) {
   w[0] = __uint_as_float(r);
 }
-
 template <typename T>
+__device__ __forceinline__ void unpack4(uint32_t r, float (&w)[4],
+                                        const float* sv) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int code = static_cast<int8_t>((r >> (8 * e)) & 0xffu);
+    w[e] = rnd<T>(static_cast<float>(code) * sv[e]);
+  }
+}
+
+constexpr int MM_QB = 128;  // rows per scale block of int8 codes
+
+// Q: the weights are int8 codes with per-block scales.
+template <typename T, bool Q>
 __global__ void __launch_bounds__(MM_THREADS)
 skinny_matmul_kernel(const MMGroup g, int B, float* scratch,
                      unsigned int* counters) {
-  constexpr int CPT = 4 / sizeof(T);   // columns per thread: 2 bf16 / 1 f32
+  // Columns per thread (4 bytes of a row): 4 codes / 2 bf16 / 1 f32.
+  constexpr int CPT = Q ? 4 : 4 / (int)sizeof(T);
   constexpr int TN = 32 * CPT;         // columns per block: a warp spans them
   constexpr int WARPS = MM_THREADS / 32;
   constexpr int UN = MM_UNROLL;
@@ -226,9 +252,10 @@ skinny_matmul_kernel(const MMGroup g, int B, float* scratch,
   // Warp w takes rows k0 + w, k0 + w + WARPS, ...: one row is 128
   // contiguous bytes across the warp.  UN rows are in flight per thread;
   // the first batch is asked for before anything else.
+  constexpr int WSIZE = Q ? 1 : (int)sizeof(T);  // bytes per weight
   const uint32_t* W = reinterpret_cast<const uint32_t*>(
-      static_cast<const T*>(P.W) + col);
-  const size_t stride = (size_t)P.N * sizeof(T) / 4;  // row pitch in words
+      static_cast<const char*>(P.W) + (size_t)col * WSIZE);
+  const size_t stride = (size_t)P.N * WSIZE / 4;  // row pitch in words
   uint32_t raw[UN];
   auto load = [&](int kbase) {
 #pragma unroll
@@ -238,6 +265,21 @@ skinny_matmul_kernel(const MMGroup g, int B, float* scratch,
     }
   };
   load(k0 + warp);
+  // The scales of this slice's one or two blocks, rounded to T (kb is 128
+  // or 256 and k0 a multiple of it).
+  float sc[2][4] = {};
+  if (Q && col_ok) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      if (k0 + j * MM_QB < k1) {
+        const float4 v = __ldg(reinterpret_cast<const float4*>(
+            P.scale + (size_t)(k0 / MM_QB + j) * P.N + col));
+        sc[j][0] = rnd<T>(v.x);
+        sc[j][1] = rnd<T>(v.y);
+        sc[j][2] = rnd<T>(v.z);
+        sc[j][3] = rnd<T>(v.w);
+      }
+  }
 
   // This slice of every row's input, as f32, k-major.
   const T* x = static_cast<const T*>(P.x);
@@ -267,12 +309,16 @@ skinny_matmul_kernel(const MMGroup g, int B, float* scratch,
 
   for (int kbase = k0 + warp; kbase < k1; kbase += UN * WARPS) {
     if (kbase != k0 + warp) load(kbase);
+    // UN * WARPS = 128 rows per pass: one scale block.
+    const bool hi = kbase - k0 >= MM_QB;
+    const float sv[4] = {hi ? sc[1][0] : sc[0][0], hi ? sc[1][1] : sc[0][1],
+                         hi ? sc[1][2] : sc[0][2], hi ? sc[1][3] : sc[0][3]};
 #pragma unroll
     for (int u = 0; u < UN; ++u) {
       const int k = kbase + u * WARPS;
       if (k < k1) {  // uniform over the warp
         float wv[CPT];
-        unpack4(raw[u], wv, T());
+        unpack4<T>(raw[u], wv, sv);
         const float4 xa =
             *reinterpret_cast<const float4*>(&xs[(k - k0) * MM_NB]);
         const float4 xb =
@@ -477,7 +523,9 @@ int v7_ln_mix_launch(const float* x, const void* ln, float* shift,
 }
 
 // desc: n_prob rows of 8 int64 on the HOST: x, W, y, bias (pointers; bias
-// may be 0), K, N, act | round_t << 8 | out << 16, unused.  The rows'
+// may be 0), K, N, act | round_t << 8 | out << 16, scale (pointer, or 0
+// for a plain weight; all of a launch's products or none).  With a scale W
+// holds int8 codes, K is a multiple of 128 and N of 4.  The rows'
 // inputs and outputs hold B rows; B above MM_NB runs as further launches
 // of MM_NB rows each.  scratch / counters: device work space of
 // scratch_floats floats and n_counters zeroed uint32 (left zeroed).
@@ -488,8 +536,9 @@ int v7_skinny_matmul_launch(const int64_t* desc, int n_prob, int B, int dtype,
   if (n_prob <= 0 || n_prob > MM_MAXP || B <= 0 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   const size_t tsize = dtype == 1 ? 2 : 4;
-  const int cpt = 4 / (int)tsize;  // columns per thread
-  const int tn = 32 * cpt;         // columns per block
+  const bool quant = desc[7] != 0;
+  const int cpt = quant ? 4 : 4 / (int)tsize;  // columns per thread
+  const int tn = 32 * cpt;                     // columns per block
   cudaStream_t st = (cudaStream_t)stream;
   for (int b0 = 0; b0 < B; b0 += MM_NB) {
     MMGroup g;
@@ -500,7 +549,9 @@ int v7_skinny_matmul_launch(const int64_t* desc, int n_prob, int B, int dtype,
       MMProblem& P = g.p[i];
       P.K = (int)d[4];
       P.N = (int)d[5];
-      if (P.K <= 0 || P.N <= 0 || P.N % cpt)
+      P.scale = (const float*)(uintptr_t)d[7];
+      if (P.K <= 0 || P.N <= 0 || P.N % cpt || (P.scale != nullptr) != quant ||
+          (quant && P.K % MM_QB))
         return (int)cudaErrorInvalidValue;
       P.act = (int)(d[6] & 0xff);
       P.round_t = (int)((d[6] >> 8) & 0xff);
@@ -525,11 +576,17 @@ int v7_skinny_matmul_launch(const int64_t* desc, int n_prob, int B, int dtype,
     if (scr > scratch_floats || cnt > n_counters)
       return (int)cudaErrorInvalidValue;
     const int rows = B - b0 < MM_NB ? B - b0 : MM_NB;
-    if (dtype == 1)
-      skinny_matmul_kernel<__nv_bfloat16><<<blocks, MM_THREADS, 0, st>>>(
+    if (dtype == 1 && quant)
+      skinny_matmul_kernel<__nv_bfloat16, true><<<blocks, MM_THREADS, 0, st>>>(
+          g, rows, scratch, counters);
+    else if (dtype == 1)
+      skinny_matmul_kernel<__nv_bfloat16, false>
+          <<<blocks, MM_THREADS, 0, st>>>(g, rows, scratch, counters);
+    else if (quant)
+      skinny_matmul_kernel<float, true><<<blocks, MM_THREADS, 0, st>>>(
           g, rows, scratch, counters);
     else
-      skinny_matmul_kernel<float><<<blocks, MM_THREADS, 0, st>>>(
+      skinny_matmul_kernel<float, false><<<blocks, MM_THREADS, 0, st>>>(
           g, rows, scratch, counters);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;

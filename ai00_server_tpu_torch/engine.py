@@ -1,7 +1,7 @@
 """Batched inference engine: merged steps and K-token decode over a state
 pool on one device.
 
-Port of ``ai00_server_tpu/engine.py`` for plain RWKV-7:
+Port of ``ai00_server_tpu/engine.py`` for RWKV-7, plain or int8:
 
 * All ``max_batch`` request slots live in ONE state pool on the device,
   leading axes ``(L, B, ...)``.  Where the JAX engine replaces its pool
@@ -13,7 +13,12 @@ Port of ``ai00_server_tpu/engine.py`` for plain RWKV-7:
   (``ops/v7_decode.make_fused_layout``) where the model allows it, and on
   a CUDA device captures the whole T=1 layer stack once in a CUDA graph
   (``ops/v7_decode.DecodeGraph``) that every decode step replays; the LM
-  head and sampling run eagerly after it.
+  head and sampling run eagerly after it.  A model whose layers are partly
+  int8 keeps to the layer-by-layer path and gets no graph.
+* A model with any quantized layer also stores the LM head int8
+  (``_head_q``, per-128-row-block scales, quantized on the device at
+  construction; the plain head is dropped) and takes its logits through
+  ``ops/quant_matmul.matmul_int8`` with the f32 sums un-rounded.
 * :meth:`Engine.step` consumes a ``(B, T)`` token block (T = 1 for
   per-token decode, T = ``token_chunk_size`` when a row prefills);
   :meth:`Engine.decode_chunk` runs K decode steps with sampling on the
@@ -41,14 +46,31 @@ from .device import resolve_device
 from .loader import LoadedModel
 from .models import get_version_module
 from .models.common import masked_select, take_last_valid
-from .ops import fused_decode, sampling
+from .ops import fused_decode, quant, sampling
+from .ops.quant_matmul import matmul_int8
 
 
 def head_logits(params, x):
-    """``x @ head -> (B, V) f32 logits``: operands in the activation
-    dtype, products summed in f32 (a bf16 x bf16 product is exact in f32),
-    f32 result.  On the card a bf16 head goes to one product with an f32
-    output type, so the head is read once as bf16 and never converted."""
+    """``x @ head -> (B, V) f32 logits``.
+
+    An int8 head (``_head_q``) goes through the dequant-in-matmul kernel at
+    decode shapes and is dequantized once at score shapes.  A plain head
+    has its operands in the activation dtype, products summed in f32 (a
+    bf16 x bf16 product is exact in f32) and an f32 result; on the card a
+    bf16 head goes to one product with an f32 output type, so the head is
+    read once as bf16 and never converted."""
+    hq = params.get("_head_q")
+    if hq is not None:
+        if x.shape[0] < 512:
+            # Decode shapes: the dequant-in-matmul kernel streams the int8
+            # codes once; operands in x's dtype, f32 sums returned as they
+            # are.
+            return matmul_int8(x, hq.q, hq.scale, out_dtype=torch.float32)
+        # Score shapes: dequantize once, one large product.
+        w = hq.dequant(torch.bfloat16)
+        if x.device.type == "cuda":
+            return torch.mm(x.bfloat16(), w, out_dtype=torch.float32)
+        return torch.matmul(x.bfloat16().float(), w.float())
     head = params["head"]
     if x.dtype == torch.float32 and head.dtype == torch.float32:
         return torch.matmul(x, head)
@@ -90,6 +112,7 @@ class Engine:
         B, V = self.max_batch, self.vocab
         self.state_pool = self.module.init_state(self.info, B,
                                                  device=self.device)
+        self._install_head_q()
         fd = fused_decode.module_for(model.info.version.value)
         if not fd.supports(model.params) and fd.can_fuse(model.params):
             model.params[fd.FUSED_KEY] = fd.make_fused_layout(model.params)
@@ -109,6 +132,18 @@ class Engine:
         # speculative chunk (restore_last_chunk).
         self._chunk_snaps: list = []
         self._sparams_device = None
+
+    def _install_head_q(self) -> None:
+        """Quantized models store the LM head int8 too: it is the largest
+        single stream of a decode step outside the layers.  Only where the
+        head's ``in`` dim is a multiple of the block; else it stays plain."""
+        params = self.model.params
+        if "_head_q" in params or "head" not in params \
+                or params["head"].shape[0] % quant.INT8_BLOCK:
+            return
+        if any(quant.is_quantized(leaf) for p in params["layers"]
+               for part in ("att", "ffn") for leaf in p[part].values()):
+            params["_head_q"] = quant.quantize_int8(params.pop("head"))
 
     # ------------------------------------------------------------------
     # State pool row management

@@ -2,7 +2,8 @@
 
 Port of ``ai00_server_tpu/loader.py`` (``load_safetensors``,
 ``save_safetensors``, ``to_math_layout``, ``load_model``, ``stack_params``
-at its lines 78-193 and 264-380) for plain bf16/f32 RWKV-7 checkpoints.
+at its lines 78-193 and 264-479) for RWKV-7 checkpoints, plain bf16/f32 or
+with the first N layers int8-quantized (``quant={i: "int8"}``).
 
 The numpy half (reading the file, undoing the converter's orientation) is
 this package's own copy.  The params are PyTorch tensors on one device:
@@ -13,8 +14,12 @@ this package's own copy.  The params are PyTorch tensors on one device:
 with every linear weight in math orientation ``(in, out)`` (``x @ W``), ln0
 folded into the embedding and zero ``v0/v1/v2`` for layer 0 — the same
 values the JAX package stacks, one dict per layer instead of ``lax.scan``
-layer groups.  :func:`params_from_numpy` carries the JAX package's loaded
-params (as numpy arrays) across into that form.
+layer groups.  The big projections of a quantized layer are
+``ops.quant.QuantizedLayerView``: an index into the codes of its layer
+group (a contiguous run of layers of one mode, the reference's group
+boundaries), which stay in one stacked tensor on the device.
+:func:`params_from_numpy` carries the JAX package's loaded params (as numpy
+arrays) across into that form.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import numpy as np
 import torch
 
 from .models.info import ModelInfo, ModelVersion, detect_info
+from .ops import quant as quant_ops
 
 # Keys (substring match, per the reference converter) that the converter
 # stores transposed relative to the torch parameter.
@@ -98,8 +104,11 @@ class LoadedModel:
 
 
 def load_model(path: str, dtype: torch.dtype = torch.bfloat16,
-               device: str | torch.device = "cuda") -> LoadedModel:
-    """Read a converted ``.st`` RWKV-7 checkpoint onto ``device``."""
+               device: str | torch.device = "cuda",
+               quant: dict | None = None) -> LoadedModel:
+    """Read a converted ``.st`` RWKV-7 checkpoint onto ``device``.
+
+    ``quant``: {layer_index: "int8"} per-layer quantization map."""
     if not path.endswith(".st"):
         raise NotImplementedError(
             f"{path!r}: this port loads converted .st checkpoints only; "
@@ -111,7 +120,7 @@ def load_model(path: str, dtype: torch.dtype = torch.bfloat16,
             "state-tuned checkpoints (embedded time_state) are the ROADMAP "
             "'.state files, LoRA and prefab' item")
     params = stack_params(info, to_math_layout(raw), dtype=dtype,
-                          device=device)
+                          device=device, quant=quant)
     return LoadedModel(info=info, params=params)
 
 
@@ -122,12 +131,47 @@ def _v7_only(info: ModelInfo) -> None:
             "this port serves V7")
 
 
+def _mode_runs(modes: list[str]) -> list[tuple[int, int]]:
+    """Contiguous runs of equal modes as (first layer, size)."""
+    runs, start = [], 0
+    for i in range(1, len(modes) + 1):
+        if i == len(modes) or modes[i] != modes[start]:
+            runs.append((start, i - start))
+            start = i
+    return runs
+
+
+def _quantize_runs(layers: list[dict], modes: list[str], device) -> None:
+    """Replace the big projections (numpy, still on the host) of every
+    quantized run of layers by views into the run's stacked codes: the
+    weights are stacked and quantized on the host, and only codes and scales
+    reach the device."""
+    big = (("att", quant_ops.QUANT_KEYS_ATT), ("ffn", quant_ops.QUANT_KEYS_FFN))
+    for start, size in _mode_runs(modes):
+        if modes[start] == "none":
+            continue
+        run = layers[start: start + size]
+        stacked = {part: {k: np.stack([p[part][k] for p in run])
+                          for k in keys if k in run[0][part]}
+                   for part, keys in big}
+        group = quant_ops.quantize_group(stacked, modes[start], device)
+        for part, _ in big:
+            for key, qlin in group[part].items():
+                for i, p in enumerate(run):
+                    p[part][key] = quant_ops.QuantizedLayerView(qlin, i)
+
+
 def stack_params(info: ModelInfo, math: dict[str, np.ndarray],
                  dtype: torch.dtype = torch.bfloat16,
-                 device: str | torch.device = "cuda") -> dict:
-    """Math-layout v7 weights -> the forward params (one dict per layer)."""
+                 device: str | torch.device = "cuda",
+                 quant: dict | None = None) -> dict:
+    """Math-layout v7 weights -> the forward params (one dict per layer).
+
+    ``quant``: {layer_index: "int8"}; the big projections of those layers
+    become int8 codes, grouped by contiguous runs of one mode."""
     _v7_only(info)
     C, L = info.num_emb, info.num_layer
+    modes = [(quant or {}).get(i, "none") for i in range(L)]
 
     def t(x):
         return torch.from_numpy(np.ascontiguousarray(x)).to(
@@ -162,15 +206,23 @@ def stack_params(info: ModelInfo, math: dict[str, np.ndarray],
             "ln_x_b": math[a + "ln_x.bias"],
         })
         layers.append({
-            "ln1_w": t(math[b + "ln1.weight"]),
-            "ln1_b": t(math[b + "ln1.bias"]),
-            "ln2_w": t(math[b + "ln2.weight"]),
-            "ln2_b": t(math[b + "ln2.bias"]),
-            "att": {k: t(v) for k, v in att.items()},
-            "ffn": {"x_k": t(math[f + "x_k"]),
-                    "key": t(math[f + "key.weight"]),
-                    "value": t(math[f + "value.weight"])},
+            "ln1_w": math[b + "ln1.weight"],
+            "ln1_b": math[b + "ln1.bias"],
+            "ln2_w": math[b + "ln2.weight"],
+            "ln2_b": math[b + "ln2.bias"],
+            "att": att,
+            "ffn": {"x_k": math[f + "x_k"],
+                    "key": math[f + "key.weight"],
+                    "value": math[f + "value.weight"]},
         })
+    _quantize_runs(layers, modes, device)
+
+    def place(node):
+        if isinstance(node, dict):
+            return {k: place(v) for k, v in node.items()}
+        return t(node) if isinstance(node, np.ndarray) else node
+
+    layers = [place(p) for p in layers]
     return {
         "emb": t(emb),
         "layers": layers,
@@ -192,26 +244,46 @@ def params_from_numpy(tree: dict, device: str | torch.device = "cuda") -> dict:
     """The JAX package's loaded v7 params, as numpy arrays
     (``jax.tree.map(np.asarray, model.params)``) -> this port's params on
     ``device``, dtypes kept.  Layer groups are unstacked into one dict per
-    layer; derived ``_``-prefixed keys (the JAX fused-decode layout) are
+    layer, except quantized leaves — any node with ``mode``, ``q``,
+    ``scale`` and ``shape`` attributes and numpy children — whose stacked
+    codes are moved once per group and viewed per layer.  The engine's int8
+    LM head (``_head_q``) is carried across; the JAX fused-decode layout is
     dropped."""
     layers = []
     for group in tree["groups"]:
         K = int(np.asarray(group["layer_index"]).shape[0])
+        stacked: dict[int, quant_ops.QuantizedLinear] = {}
 
         def take(node, i):
             if isinstance(node, dict):
                 return {k: take(v, i) for k, v in node.items()}
+            if _is_quantized_node(node):
+                if id(node) not in stacked:
+                    stacked[id(node)] = _quantized(node, device)
+                return quant_ops.QuantizedLayerView(stacked[id(node)], i)
             if not isinstance(node, np.ndarray):
-                raise NotImplementedError(
-                    f"{type(node).__name__} leaf: quantized layers are the "
-                    "ROADMAP int8/4-bit items")
+                raise TypeError(f"unsupported {type(node).__name__} leaf")
             return _tensor(node[i], device)
 
         layers.extend(take(group["layers"], i) for i in range(K))
-    return {
+    out = {
         "emb": _tensor(tree["emb"], device),
         "layers": layers,
         "ln_out_w": _tensor(tree["ln_out_w"], device),
         "ln_out_b": _tensor(tree["ln_out_b"], device),
-        "head": _tensor(tree["head"], device),
     }
+    if "head" in tree:
+        out["head"] = _tensor(tree["head"], device)
+    if "_head_q" in tree:
+        out["_head_q"] = _quantized(tree["_head_q"], device)
+    return out
+
+
+def _is_quantized_node(node) -> bool:
+    return all(hasattr(node, a) for a in ("mode", "q", "scale", "shape"))
+
+
+def _quantized(node, device) -> "quant_ops.QuantizedLinear":
+    return quant_ops.QuantizedLinear(
+        node.mode, _tensor(np.asarray(node.q), device),
+        _tensor(np.asarray(node.scale), device), node.shape)

@@ -1,15 +1,15 @@
 """Model lifecycle: load and unload one model environment.
 
-Port of ``ai00_server_tpu/middleware.py`` for plain ``.st`` RWKV-7
-checkpoints:
+Port of ``ai00_server_tpu/middleware.py`` for ``.st`` RWKV-7 checkpoints,
+plain or with the first ``quant`` layers int8 (``quant_type = "Int8"``):
 
 * ``reload(ReloadRequest)`` — read the checkpoint onto the device, load
   the tokenizer, build the kernels, start the engine and runtime.
 * ``unload()`` — drain the runtime and drop the environment.
 * ``info()`` — RuntimeInfo for ``/api/models/info``.
 
-Request fields for later slices (quantization, LoRA, ``.state`` files,
-BNF options, a device mesh) raise ``NotImplementedError`` naming their
+Request fields for later slices (4-bit quantization, LoRA, ``.state``
+files, BNF options, a device mesh) raise ``NotImplementedError`` naming their
 ROADMAP item.
 """
 
@@ -73,11 +73,21 @@ class ReloadRequest:
             "mesh": self.mesh,
         }
 
+    def quant_map(self) -> dict | None:
+        """{layer index: mode} for the first ``quant`` layers, or None."""
+        mode = self.quant_type.lower()
+        if self.quant > 0 and mode == "int8":
+            return {i: mode for i in range(self.quant)}
+        return None
+
     def check_supported(self) -> None:
         """Raise for what this slice does not serve yet."""
-        if self.quant:
+        if self.quant > 0 and self.quant_type.lower() in ("nf4", "sf4",
+                                                          "int4"):
             raise NotImplementedError(
-                "quantized layers are the ROADMAP int8 / 4-bit items")
+                f"quant_type {self.quant_type!r}: NF4 / SF4 / int4 are "
+                "ROADMAP queue 1 item 2 (4-bit and prefab); this port "
+                "serves Int8")
         if self.lora or self.state:
             raise NotImplementedError(
                 "LoRA and .state files are the ROADMAP '.state files, LoRA "
@@ -134,7 +144,8 @@ class Middleware:
                      else torch.bfloat16)
             model = await loop.run_in_executor(
                 None, lambda: load_model(request.model_path, dtype=dtype,
-                                         device=self.device))
+                                         device=self.device,
+                                         quant=request.quant_map()))
             tokenizer = await loop.run_in_executor(
                 None, Tokenizer.from_file, request.tokenizer_path)
             if self.device.type == "cuda":

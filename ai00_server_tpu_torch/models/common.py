@@ -1,10 +1,9 @@
 """Shared building blocks for the RWKV-7 forward pass.
 
-Port of ``ai00_server_tpu/models/common.py`` (the plain path; the quantized
-T=1 channel-mix kernel at its lines 128-141 is the ROADMAP int8 item).  The
-JAX package's rounding points are kept: norms and low-rank branches
-accumulate in f32; a plain ``linear`` accumulates in f32 and casts back to
-the activation dtype.
+Port of ``ai00_server_tpu/models/common.py``.  The JAX package's rounding
+points are kept: norms and low-rank branches accumulate in f32; a plain
+``linear`` accumulates in f32 and casts back to the activation dtype; a
+quantized weight (``ops/quant``) brings its own ``matmul``.
 """
 
 from __future__ import annotations
@@ -40,7 +39,10 @@ def group_norm(x, num_groups, w, b, eps=GN_EPS):
 
 def linear(x, w):
     """``x @ w`` (``w`` is ``(in, out)``): f32 accumulation, activation-dtype
-    result."""
+    result.  ``w`` is a plain tensor or a quantized weight from
+    ``ops/quant`` (which exposes ``matmul(x)``)."""
+    if not isinstance(w, torch.Tensor):
+        return w.matmul(x)
     return torch.matmul(x, w.to(x.dtype))
 
 
@@ -106,7 +108,16 @@ def lora_mix(x, w1, w2, activation=torch.tanh):
 
 def channel_mix_v7(p, shift, x, lengths):
     """v7 channel mix: squared-ReLU FFN with no receptance gate.
-    Returns (out, new_shift)."""
+    Returns (out, new_shift).  At T = 1 on a quantized layer the whole mix is
+    one op on the stacked codes (``ops/ffn.ffn7_t1_l``)."""
+    key, val = p["key"], p["value"]
+    if x.shape[1] == 1 and hasattr(key, "qlin") and hasattr(val, "qlin"):
+        from ..ops.ffn import ffn7_t1_l
+
+        out, new_shift = ffn7_t1_l(
+            x[:, 0].contiguous(), shift, p["x_k"], lengths > 0, key.qlin.q,
+            key.qlin.scale, val.qlin.q, val.qlin.scale, key.idx)
+        return out[:, None].to(x.dtype), new_shift
     xp = token_shift(shift, x)
     xk = x + (xp - x) * p["x_k"]
     k = torch.square(torch.relu(linear(xk, p["key"])))

@@ -47,6 +47,21 @@ SIGNATURES = {
         # is_first, dtype, stream
         "v7_wkv_gn_launch": "ppppppppppppiiiiip",
     },
+    "quant": {
+        # K, N -> the work space a product needs (not a status)
+        "matmul_int8_scratch_floats": "ii",
+        "matmul_int8_counters": "ii",
+        # x, q, s, y, R, K, N, dtype, out_f32, scratch, scratch_floats,
+        # counters, n_counters, stream
+        "matmul_int8_launch": "ppppiiiiipipip",
+        # x, q, s, l, y, R, K, N, dtype, out_f32, scratch, scratch_floats,
+        # counters, n_counters, stream
+        "matmul_int8_l_launch": "pppipiiiiipipip",
+        # xf, shift, mix_k, active, key_q, key_s, val_q, val_s, l, out,
+        # new_shift, hk, B, C, F, dtype, scratch, scratch_floats, counters,
+        # n_counters, stream
+        "ffn7_t1_l_launch": "ppppppppipppiiiipipip",
+    },
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

@@ -2,8 +2,10 @@
 
 Port of ``ai00_server_tpu/ops/v7_decode_pallas.py`` (``FUSED_KEY``,
 ``supports``, ``can_fuse``, ``make_fused_layout``, ``forward_t1`` and the
-Pallas ``_kernel`` at its lines 140-270) for plain bf16 / f32 weights.  The
-Pallas kernel is one sequential grid over the layers; on the card a layer
+Pallas ``_kernel`` at its lines 140-270) for plain bf16 / f32 weights and
+for its int8 mode (the six big projections of every layer as int8 codes with
+per-128-row-block scales, dequantized inside the product).  The Pallas
+kernel is one sequential grid over the layers; on the card a layer
 is nine launches of three hand-written kernels
 (``csrc/v7_decode.cu``; the note there says what bounds each and what its
 design does about it):
@@ -11,7 +13,8 @@ design does about it):
 * :func:`v7_ln_mix` — LayerNorm, token shift, the mixed inputs, the new
   shift state;
 * :func:`v7_skinny_matmul` — up to four ``epilogue(x @ W)`` with at most a
-  few batch rows, the weight in its ``(in, out)`` layout, streamed once;
+  few batch rows, the weight in its ``(in, out)`` layout — plain, or int8
+  codes and scales — streamed once;
 * :func:`v7_wkv_gn` — the WKV step with its vector prologue and the
   GroupNorm / bonus / gate epilogue.
 
@@ -30,9 +33,10 @@ dict it was passed.  Fixed addresses are what lets :class:`DecodeGraph`
 capture the whole stack once in a ``torch.cuda.CUDAGraph`` and replay it
 for every decode step.
 
-The quantized modes of the Pallas kernel (int8 / 4-bit codes) are not
-ported yet; no VMEM budget applies on the card, so every plain v7 model
-with head size 64 takes this path.
+The 4-bit modes of the Pallas kernel (nf4 / sf4 / int4 codes) are not
+ported yet (ROADMAP queue 1 item 2); no VMEM budget applies on the card, so
+every v7 model with head size 64 whose big projections are uniformly plain
+or uniformly int8 takes this path.
 """
 
 from __future__ import annotations
@@ -43,7 +47,8 @@ from dataclasses import dataclass
 import torch
 
 from ..models.common import GN_EPS, LN_EPS, layer_norm
-from . import _build
+from . import _build, fused_decode
+from .quant_matmul import INT8_BLOCK, dequant_cd
 
 W_SCALE = 0.6065306597126334  # exp(-0.5)
 
@@ -52,7 +57,9 @@ FUSED_KEY = "_fused_t1"
 # The fused layout holds the Pallas kernel's entries under its names: the
 # stacks ``mix``, ``vecs``, ``ln1``, ``ln2``, ``fmix`` as (L, ...) tensors,
 # and every matmul weight as the list of the L per-layer tensors of the
-# params themselves (referenced, never copied).
+# params themselves (referenced, never copied).  An int8 model has
+# ``name_q`` / ``name_s`` in place of each big ``name``: lists of the
+# per-layer VIEWS into the group's stacked codes and scales.
 _VEC_NAMES = ("w0", "a0", "v0", "k_k", "k_a", "r_k", "lnx_w", "lnx_b")
 _VEC_IDX = {n: i for i, n in enumerate(_VEC_NAMES)}
 _BIG_SRC = {"Wr": ("att", "receptance"), "Wk": ("att", "key"),
@@ -72,21 +79,24 @@ def supports(params) -> bool:
 
 
 def can_fuse(params) -> bool:
-    """Whether a fused layout can be built: plain layers of one dtype
-    (bf16 or f32), ``C == H * N`` and head size 64 (the WKV kernels' register
-    layout)."""
+    """Whether a fused layout can be built: activations of one dtype (bf16
+    or f32), the big projections of ALL layers uniformly plain in that dtype
+    or uniformly int8 (a mixed model keeps to the layer path), ``C == H *
+    N`` and head size 64 (the WKV kernels' register layout)."""
     layers = params.get("layers")
     if not layers:
         return False
     att = layers[0]["att"]
     H, N = att["r_k"].shape[-2:]
     C = att["receptance"].shape[0]
-    dtype = att["receptance"].dtype
+    dtype = att["w1"].dtype
     if C != H * N or N != 64 or dtype not in _DTYPE_CODE:
         return False
-    return all(isinstance(p[part][key], torch.Tensor)
-               and p[part][key].dtype == dtype
-               for p in layers for part, key in _BIG_SRC.values())
+    modes = {fused_decode.group_mode(p, _BIG_SRC) for p in layers}
+    if modes == {"none"}:
+        return all(p[part][key].dtype == dtype
+                   for p in layers for part, key in _BIG_SRC.values())
+    return modes == {"int8"}
 
 
 def make_fused_layout(params) -> dict:
@@ -113,8 +123,9 @@ def make_fused_layout(params) -> dict:
     }
     for name in _LORA:
         out[name] = [a[name] for a in atts]
-    for name, (part, key) in _BIG_SRC.items():
-        out[name] = [p[part][key] for p in layers]
+    for p in layers:
+        for name, t in fused_decode.big_layout_entries(p, _BIG_SRC).items():
+            out.setdefault(name, []).append(t)
     return out
 
 
@@ -210,8 +221,10 @@ v7_ln_mix.launches = 0
 class Product:
     """One ``y = epilogue(x @ W)`` of a :func:`v7_skinny_matmul` launch.
 
-    x: (B, K) and W: (K, N), both in the activation dtype ``cd``; sums are
-    f32.  The epilogue adds ``bias`` ((N,) f32) if given, applies ``act``
+    x: (B, K) in the activation dtype ``cd``; W: (K, N) in ``cd``, or —
+    with ``scale`` (K/128, 1, N) f32 — int8 codes (K/128, 128, N) that the
+    product dequantizes in ``cd`` per 128-row block (``ops/quant_matmul``);
+    sums are f32.  The epilogue adds ``bias`` ((N,) f32) if given, applies ``act``
     (``none``, ``tanh``, ``sigmoid``, ``wdecay`` = exp(-W_SCALE * sigmoid),
     ``relu2`` = relu squared), and then ``out`` says what is stored:
     ``"cd"`` a cd tensor, ``"f32"`` an f32 tensor (rounded through cd first
@@ -226,6 +239,11 @@ class Product:
     round_cd: bool = False
     out: str = "cd"
     y: torch.Tensor | None = None
+    scale: torch.Tensor | None = None
+
+    @property
+    def KN(self) -> tuple[int, int]:
+        return self.x.shape[1], self.W.shape[-1]
 
 
 def _ksplit(K: int) -> int:
@@ -236,7 +254,8 @@ def _ksplit(K: int) -> int:
 
 def _scratch_need(shapes, dtype) -> tuple[int, int]:
     """(scratch floats, counters) one launch over ``shapes`` [(K, N)] of
-    ``dtype`` weights needs: a block spans 32 threads x 4 bytes of a row."""
+    ``dtype`` weights (``torch.int8`` for codes) needs: a block spans 32
+    threads x 4 bytes of a row."""
     tile = 32 * (4 // dtype.itemsize)
     floats = counters = 0
     for K, N in shapes:
@@ -264,8 +283,9 @@ def v7_skinny_matmul_plain(products):
     returns the list of results (for ``out="add"``, ``y + x @ W``)."""
     outs = []
     for p in products:
-        cd = p.W.dtype
-        s = torch.matmul(p.x.float(), p.W.float())
+        cd = p.x.dtype
+        W = p.W if p.scale is None else dequant_cd(p.W, p.scale, cd)
+        s = torch.matmul(p.x.float(), W.float())
         if p.bias is not None:
             s = s + p.bias
         if p.act == "tanh":
@@ -306,16 +326,29 @@ def v7_skinny_matmul(products, workspace: Workspace | None = None):
         return _matmul_inplace_plain(products)
     _require(1 <= len(products) <= 4, "1 to 4 products per launch")
     dev = _one_cuda_device(*(t for p in products
-                             for t in (p.x, p.W, p.bias, p.y)
+                             for t in (p.x, p.W, p.bias, p.y, p.scale)
                              if t is not None))
-    cd = products[0].W.dtype
-    _require(cd in _DTYPE_CODE, f"unsupported weight dtype {cd}")
-    vec = 4 // cd.itemsize  # a thread loads 4 bytes of a weight row
+    cd = products[0].x.dtype
+    _require(cd in _DTYPE_CODE, f"unsupported activation dtype {cd}")
+    quant = products[0].scale is not None
+    _require(all((p.scale is not None) == quant for p in products),
+             "the products of a launch are all plain or all int8")
+    wd = torch.int8 if quant else cd
+    vec = 4 // wd.itemsize  # a thread loads 4 bytes of a weight row
     B = products[0].x.shape[0]
     outs, desc = [], []
     for p in products:
-        K, N = p.W.shape
-        _dense(p.W, (K, N), cd, "W")
+        K, N = p.KN
+        if quant:
+            _require(K % INT8_BLOCK == 0, f"K={K} must be a multiple of "
+                     f"{INT8_BLOCK} for int8 codes")
+            nb = K // INT8_BLOCK
+            _dense(p.W, (nb, INT8_BLOCK, N), wd, "W (codes)")
+            _dense(p.scale, (nb, 1, N), torch.float32, "scale")
+            _require(p.scale.data_ptr() % 16 == 0,
+                     "scale must be 16-byte aligned")
+        else:
+            _dense(p.W, (K, N), wd, "W")
         _dense(p.x, (B, K), cd, "x")
         _require(N % vec == 0 and p.W.data_ptr() % 4 == 0,
                  f"W needs 4-byte aligned rows: N={N} a multiple of {vec}")
@@ -333,8 +366,8 @@ def v7_skinny_matmul(products, workspace: Workspace | None = None):
                  | _OUT_CODE[p.out] << 16)
         desc += [p.x.data_ptr(), p.W.data_ptr(), y.data_ptr(),
                  p.bias.data_ptr() if p.bias is not None else 0, K, N,
-                 flags, 0]
-    floats, counters = _scratch_need([p.W.shape for p in products], cd)
+                 flags, p.scale.data_ptr() if quant else 0]
+    floats, counters = _scratch_need([p.KN for p in products], wd)
     if workspace is None:
         workspace = Workspace(dev, floats, counters)
     _require(workspace.scratch.numel() >= floats
@@ -349,10 +382,13 @@ def v7_skinny_matmul(products, workspace: Workspace | None = None):
         _stream(dev))
     _build.check(status, "v7_skinny_matmul")
     v7_skinny_matmul.launches += -(-B // _MM_NB)
+    if quant:
+        v7_skinny_matmul.int8_launches += -(-B // _MM_NB)
     return outs
 
 
 v7_skinny_matmul.launches = 0
+v7_skinny_matmul.int8_launches = 0  # those of them on int8 codes
 
 
 # ---------------------------------------------------------------------------
@@ -455,6 +491,9 @@ def v7_wkv_gn(r, k, v, w, a, g, vmix, v_first, vecs, active, S,
 v7_wkv_gn.launches = 0
 
 KERNELS = (v7_ln_mix, v7_skinny_matmul, v7_wkv_gn)
+# Every launch count a replayed graph has to keep up to date.
+_COUNTS = (*((k, "launches") for k in KERNELS),
+           (v7_skinny_matmul, "int8_launches"))
 _PLAIN_OPS = (_ln_mix_inplace_plain, _matmul_inplace_plain,
               _wkv_gn_inplace_plain)
 
@@ -468,12 +507,13 @@ def _forward(ops, params, state, tokens, lengths):
     ln_mix, matmul, wkv_gn = ops
     f = params[FUSED_KEY]
     L, _, C = f["ln1"].shape
-    F = f["fkey"][0].shape[1]
+    quant = "fkey_q" in f
+    F = f["fkey_q" if quant else "fkey"][0].shape[-1]
     cd = params["emb"].dtype
     active = lengths > 0
     ws = None
     if tokens.device.type == "cuda":
-        need = [_scratch_need(s, cd)
+        need = [_scratch_need(s, torch.int8 if quant else cd)
                 for s in ([(C, C)] * 3, [(C, F)], [(F, C)])]
         ws = Workspace(tokens.device, max(n[0] for n in need),
                        max(n[1] for n in need))
@@ -481,14 +521,21 @@ def _forward(ops, params, state, tokens, lengths):
     x = params["emb"][tokens[:, 0].long()].float()
     v_first = torch.empty_like(x)
     P = Product
+
+    def big(x_in, name, l, **kw):
+        """The product with big projection ``name`` of layer ``l``."""
+        if quant:
+            return P(x_in, f[name + "_q"][l], scale=f[name + "_s"][l], **kw)
+        return P(x_in, f[name][l], **kw)
+
     for l in range(L):
         vec = f["vecs"][l]
         xr, xw, xk, xv, xa, xg = ln_mix(x, f["ln1"][l], state["att_x"][l],
                                         f["mix"][l], active)
         r, k, v = matmul([
-            P(xr, f["Wr"][l], round_cd=True, out="f32"),
-            P(xk, f["Wk"][l], round_cd=True, out="f32"),
-            P(xv, f["Wv"][l], round_cd=True, out="f32")], ws)
+            big(xr, "Wr", l, round_cd=True, out="f32"),
+            big(xk, "Wk", l, round_cd=True, out="f32"),
+            big(xv, "Wv", l, round_cd=True, out="f32")], ws)
         hw, ha, hv, hg = matmul([
             P(xw, f["w1"][l], act="tanh"), P(xa, f["a1"][l]),
             P(xv, f["v1"][l]), P(xg, f["g1"][l], act="sigmoid")], ws)
@@ -501,11 +548,11 @@ def _forward(ops, params, state, tokens, lengths):
             P(hg, f["g2"][l], out="f32")], ws)
         yg = wkv_gn(r, k, v, w, a, g, vmix, v_first, vec, active,
                     state["wkv"][l], l == 0, cd)
-        matmul([P(yg, f["Wo"][l], out="add", y=x)], ws)
+        matmul([big(yg, "Wo", l, out="add", y=x)], ws)
         (fx,) = ln_mix(x, f["ln2"][l], state["ffn_x"][l], f["fmix"][l],
                        active)
-        (hk,) = matmul([P(fx, f["fkey"][l], act="relu2")], ws)
-        matmul([P(hk, f["fval"][l], out="add", y=x)], ws)
+        (hk,) = matmul([big(fx, "fkey", l, act="relu2")], ws)
+        matmul([big(hk, "fval", l, out="add", y=x)], ws)
     hidden = layer_norm(x.to(cd), params["ln_out_w"], params["ln_out_b"])
     return hidden[:, None, :], state
 
@@ -561,14 +608,15 @@ class DecodeGraph:
         with torch.cuda.stream(side):
             run()
         torch.cuda.current_stream(dev).wait_stream(side)
-        before = [k.launches for k in KERNELS]
+        before = [getattr(k, a) for k, a in _COUNTS]
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph):
             self.hidden = run()
-        self.launches_per_replay = [k.launches - n
-                                    for k, n in zip(KERNELS, before)]
-        for k, n in zip(KERNELS, before):
-            k.launches = n
+        self._per_replay = [getattr(k, a) - n
+                            for (k, a), n in zip(_COUNTS, before)]
+        self.launches_per_replay = self._per_replay[:len(KERNELS)]
+        for (k, a), n in zip(_COUNTS, before):
+            setattr(k, a, n)
 
     def replay(self, tokens, lengths) -> torch.Tensor:
         """One decode step: tokens (B,) int, lengths (B,) int or bool.
@@ -577,7 +625,7 @@ class DecodeGraph:
         self.tokens.copy_(tokens)
         self.lengths.copy_(lengths)
         self.graph.replay()
-        for k, n in zip(KERNELS, self.launches_per_replay):
-            k.launches += n
+        for (k, a), n in zip(_COUNTS, self._per_replay):
+            setattr(k, a, getattr(k, a) + n)
         DecodeGraph.total_replays += 1
         return self.hidden

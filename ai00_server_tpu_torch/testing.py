@@ -1,7 +1,7 @@
 """Random RWKV-7 weights in the math layout, from a seed.
 
-Port of ``ai00_server_tpu/testing.py:14-160`` (``tiny_info``,
-``make_raw_weights``) for v7, with the LoRA ranks as arguments so a caller
+Port of ``ai00_server_tpu/testing.py:14-161`` (``tiny_info``,
+``make_raw_weights``, ``make_params``) for v7, with the LoRA ranks as arguments so a caller
 can build the published widths (RWKV-7 World 0.4B: w 64, a 64, v 32,
 g 128).  For a given ``(info, seed, dtype)`` and the default ranks the
 arrays equal the JAX package's, so tests can feed one weight dict to both
@@ -96,6 +96,20 @@ def make_raw_weights(info: ModelInfo, seed=0, dtype=np.float64,
         w[f + "value.weight"] = rand(F, C)
         w[f + "x_k"] = rand(C, scale=0.3)
     return w
+
+
+def make_params(info: ModelInfo, raw: dict[str, np.ndarray], dtype=None,
+                quant: dict | None = None, device="cpu") -> dict:
+    """Raw math-oriented weights -> the forward params: a thin wrapper over
+    ``loader.stack_params``, so fixtures and the loader share one path.
+    ``quant``: {layer_index: "int8"}.  For equal seeds the codes, scales and
+    plain weights equal the JAX package's ``testing.make_params``."""
+    import torch
+
+    from .loader import stack_params
+
+    return stack_params(info, raw, dtype=dtype or torch.float32,
+                        device=device, quant=quant)
 
 
 def to_converted_layout(math: dict[str, np.ndarray]) -> dict[str, np.ndarray]:

@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Drives ``ai00_server_tpu_torch`` (never ``jax`` or ``ai00_server_tpu``) on
-the card, in four phases, and exits non-zero at the first failure:
+the card, in four phases, and exits non-zero at the first failure (every
+kernel's source is built first, one ``nvcc`` each, all started together):
 
 1. Card and build: the card's name and power limit, then ``nvcc`` builds
    every kernel of the port from ``ai00_server_tpu_torch/csrc/``.
@@ -15,21 +16,30 @@ the card, in four phases, and exits non-zero at the first failure:
    bf16 products; from this run's inputs).  The WKV kernels, then the
    three kernels of the fused decode step (``csrc/v7_decode.cu``) on
    weights that rotate through more than the L2 cache holds, then three
-   ways to take the LM head's f32 logits.
+   ways to take the LM head's f32 logits, then the int8 kernels
+   (``csrc/quant.cu``: ``matmul_int8`` on the LM head, ``matmul_int8_l`` and
+   ``ffn7_t1_l`` on stacked codes) and the int8 mode of
+   ``v7_skinny_matmul``, on codes that rotate the same way.
 3. Model parity: the full-width RWKV-7 0.4B shape at 2 layers in f32 on
    the card (kernels) against the same weights on the CPU (plain
    versions), after a ragged prefill and T=1 steps — on the
    layer-by-layer path (where ``wkv7_t1`` is launched and counted), on the
    fused decode path called eagerly, and on the fused path replayed from
    its CUDA graph.  Then the fused kernels against ``forward_t1_plain`` on
-   the card in bf16.
+   the card in bf16.  The same for an all-int8 model (fused, eager and
+   graphed, int8 LM head) and for a mixed one (layer 0 int8, layer 1 plain:
+   the layer path through ``matmul_int8_l``, ``ffn7_t1_l`` and ``wkv7_t1``).
 4. Serving: the 0.4B shape at all 24 layers in bf16 from a seed, with a
    synthetic 65,536-entry vocabulary, behind the port's HTTP server on
    localhost: concurrent greedy completions and a streamed chat.  The
    kernels' launch counters are zeroed just before and read just after;
    every decode step there is one replay of the engine's CUDA graph.  Then
    one request under the profiler, and the time of one replay of the
-   24-layer stack beside its bound.
+   24-layer stack beside its bound.  The same checkpoint is then served
+   with ``quant = 24, quant_type = "Int8"`` (the same burst, every decode
+   step a replay of the int8 stack's graph and an int8 LM head) and with
+   ``quant = 12`` (a short greedy completion on the layer-by-layer path),
+   each with the launch counts zeroed before and read after.
 
 The last two lines of standard output are the card's
 ``name, power.limit`` and ``{"ok": true, "device": {...}}``.
@@ -38,6 +48,7 @@ The last two lines of standard output are the card's
 from __future__ import annotations
 
 import asyncio
+import gc
 import json
 import shutil
 import subprocess
@@ -468,8 +479,8 @@ def phase_decode_kernels(dev) -> dict:
     return rows
 
 
-def phase_head(dev) -> None:
-    """Three ways to the LM head's f32-accumulated f32 logits from a bf16
+def phase_head(dev) -> float:
+    """Returns the time of the chosen (last) way.  Three ways to the LM head's f32-accumulated f32 logits from a bf16
     head (B=8): converting the head every step, an f32 copy cached at
     load, and one product with an f32 output type (engine.head_logits)."""
     import torch
@@ -500,6 +511,238 @@ def phase_head(dev) -> None:
           f"memory); one product with an f32 output type {t_out:.5f} ms "
           f"(no extra memory; bound {b_ms:.5f} ms by bytes); max_abs_err of "
           f"the last against the f32 product {err:.3e}", flush=True)
+    return t_out
+
+
+def phase_int8_kernels(dev, bf16_head_ms: float) -> dict:
+    """The int8 kernels at the 0.4B serving shape (B=8, bf16 activations,
+    row 5 inactive where there are rows to skip), each against its plain
+    version, timed on codes that rotate through more than the L2 holds:
+    ``matmul_int8`` as the LM head takes it (f32 logits), ``matmul_int8_l``
+    and ``ffn7_t1_l`` on stacked codes as the layer path takes them, and the
+    four int8 launches of a layer of the fused decode step."""
+    import torch
+
+    from ai00_server_tpu_torch.ops import quant
+    from ai00_server_tpu_torch.ops import v7_decode as fd
+    from ai00_server_tpu_torch.ops.ffn import ffn7_t1_l, ffn7_t1_l_plain
+    from ai00_server_tpu_torch.ops.quant_matmul import (
+        matmul_int8, matmul_int8_l, matmul_int8_l_plain, matmul_int8_plain)
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 3)
+    B, cd = MAX_BATCH, torch.bfloat16
+    SRC = "ai00_server_tpu_torch/csrc/quant.cu"
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    def codes(*shape):
+        """Random (..., K, N) weights quantized on the card, one leading
+        slice at a time (the f32 copy never exceeds one slice)."""
+        if len(shape) == 2:
+            return quant.quantize_int8(rnd(*shape) / shape[0] ** 0.5)
+        parts = [codes(*shape[1:]) for _ in range(shape[0])]
+        return quant.QuantizedLinear(
+            "int8", torch.stack([p.q for p in parts]),
+            torch.stack([p.scale for p in parts]), shape[-2:])
+
+    def close(got, want, rounded, what):
+        err = float((got.float() - want.float()).abs().max())
+        tol = BF16_TOL if rounded else KERNEL_TOL
+        check(err <= tol * max(1.0, float(want.float().abs().max())),
+              f"{what} disagrees with its plain version: {err:.3e}")
+        return err
+
+    def sets_over_l2(bytes_each: int) -> int:
+        return int(2 * L2_BYTES // bytes_each) + 1
+
+    rows = {}
+
+    # The quantizer on the card gives the host's codes and scales.
+    w = rnd(2, 256, 1024) / 16
+    on_card = quant.quantize_int8(w)
+    on_host = quant.quantize_int8(w.cpu().numpy(), device=dev)
+    check(torch.equal(on_card.q, on_host.q)
+          and torch.equal(on_card.scale, on_host.scale),
+          "quantize_int8 on the card and on the host disagree")
+
+    # ---- matmul_int8: the LM head, f32 logits ----
+    n = sets_over_l2(C * VOCAB)
+    heads = [codes(C, VOCAB) for _ in range(n)]
+    x = rnd(B, C, scale=0.5).to(cd)
+    want = matmul_int8_plain(x, heads[0].q, heads[0].scale, torch.float32)
+    got = matmul_int8(x, heads[0].q, heads[0].scale, torch.float32)
+    torch.cuda.synchronize()
+    check(got.dtype == torch.float32, "matmul_int8 must return f32 logits")
+    err = close(got, want, False, "matmul_int8")
+    check(torch.equal(got, matmul_int8(x, heads[0].q, heads[0].scale,
+                                       torch.float32)),
+          "matmul_int8 gave different bits for equal inputs")
+    b_ms, b_by = bound(nbytes(x, heads[0].q, heads[0].scale) + B * VOCAB * 4,
+                       2 * B * C * VOCAB, BF16_FLOPS)
+
+    def head(i, fn):
+        return fn(x, heads[i].q, heads[i].scale, torch.float32)
+
+    rows["matmul_int8"] = {
+        "name": "matmul_int8", "route": "cuda", "source": SRC,
+        "replaces": "ai00_server_tpu/ops/quant_pallas.py:118",
+        "max_abs_err": err,
+        "ms": device_ms(rotating(lambda i: head(i, matmul_int8), n), 10),
+        "plain_ms": device_ms(rotating(
+            lambda i: head(i, matmul_int8_plain), n), 2),
+        "call_ms": call_ms(rotating(lambda i: head(i, matmul_int8), n), 20),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+    }
+    print(f"matmul_int8 B={B} C={C} V={VOCAB}, bf16 x, f32 logits ({n} "
+          f"rotating heads of {nbytes(heads[0].q, heads[0].scale) / 1e6:.1f}"
+          f" MB): max_abs_err {err:.3e} (tolerance {KERNEL_TOL} x max(1, "
+          f"|plain|)); equal inputs give equal bits; the bf16 head's "
+          f"torch.mm in this run: {bf16_head_ms:.5f} ms", flush=True)
+    del heads
+
+    # ---- matmul_int8_l: the time mix's (C, C) products on stacked codes ----
+    n = sets_over_l2(C * C)
+    stack = codes(n, C, C)
+    x3 = rnd(B, 1, C, scale=0.5).to(cd)
+    worst = 0.0
+    for l in (0, n // 2, n - 1):
+        worst = max(worst, close(
+            matmul_int8_l(x3, stack.q, stack.scale, l),
+            matmul_int8_l_plain(x3, stack.q, stack.scale, l), True,
+            f"matmul_int8_l[{l}]"))
+    torch.cuda.synchronize()
+    b_ms, b_by = bound(nbytes(x3, stack.q[0], stack.scale[0]) + B * C * 2,
+                       2 * B * C * C, BF16_FLOPS)
+    rows["matmul_int8_l"] = {
+        "name": "matmul_int8_l", "route": "cuda", "source": SRC,
+        "replaces": "ai00_server_tpu/ops/quant_pallas.py:242",
+        "max_abs_err": worst,
+        "ms": device_ms(rotating(
+            lambda l: matmul_int8_l(x3, stack.q, stack.scale, l), n), 100),
+        "plain_ms": device_ms(rotating(
+            lambda l: matmul_int8_l_plain(x3, stack.q, stack.scale, l), n),
+            20),
+        "call_ms": call_ms(rotating(
+            lambda l: matmul_int8_l(x3, stack.q, stack.scale, l), n), 200),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+    }
+    print(f"matmul_int8_l B={B} ({C}, {C}) on layer l of {n} stacked layers, "
+          f"bf16: max_abs_err {worst:.3e} (tolerance {BF16_TOL:.2e} x max(1, "
+          "|plain|) on the bf16 result)", flush=True)
+    del stack
+
+    # ---- ffn7_t1_l: the channel mix on stacked codes ----
+    n = sets_over_l2(2 * C * FFN)
+    key, val = codes(n, C, FFN), codes(n, FFN, C)
+    xf, shift = rnd(B, C).to(cd), rnd(B, C)
+    mix = rnd(C, scale=0.3).to(cd)
+    active = torch.ones(B, dtype=torch.bool, device=dev)
+    active[5] = False
+
+    def ffn(l, fn):
+        return fn(xf, shift, mix, active, key.q, key.scale, val.q, val.scale,
+                  l)
+
+    worst = 0.0
+    for l in (0, n - 1):
+        (got, got_shift), (want, want_shift) = (ffn(l, ffn7_t1_l),
+                                                ffn(l, ffn7_t1_l_plain))
+        torch.cuda.synchronize()
+        # hk is rounded to bf16 between the two products, so a flipped ulp
+        # of hk reaches the f32 output: the bf16 tolerance.
+        worst = max(worst, close(got, want, True, f"ffn7_t1_l[{l}]"))
+        check(torch.equal(got_shift, want_shift)
+              and torch.equal(got_shift[5], shift[5]),
+              "ffn7_t1_l: wrong new shift state, or an inactive row moved")
+    b_ms, b_by = bound(
+        nbytes(xf, shift, mix, active, key.q[0], key.scale[0], val.q[0],
+               val.scale[0]) + 2 * B * C * 4, 4 * B * C * FFN, BF16_FLOPS)
+    rows["ffn7_t1_l"] = {
+        "name": "ffn7_t1_l", "route": "cuda", "source": SRC,
+        "replaces": "ai00_server_tpu/ops/ffn_pallas.py:76",
+        "max_abs_err": worst,
+        "ms": device_ms(rotating(lambda l: ffn(l, ffn7_t1_l), n), 40),
+        "plain_ms": device_ms(rotating(lambda l: ffn(l, ffn7_t1_l_plain), n),
+                              8),
+        "call_ms": call_ms(rotating(lambda l: ffn(l, ffn7_t1_l), n), 100),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+    }
+    print(f"ffn7_t1_l B={B} C={C} F={FFN} on layer l of {n} stacked layers, "
+          f"bf16 (two dependent launches): max_abs_err {worst:.3e} "
+          f"(tolerance {BF16_TOL:.2e} x max(1, |plain|)); new shift state "
+          "equal, inactive row bit-identical", flush=True)
+    del key, val
+
+    # ---- v7_skinny_matmul on int8 codes: the four big launches of a layer --
+    shapes = {
+        "rkv": [(C, C, "none", True, "f32")] * 3,
+        "wo": [(C, C, "none", False, "add")],
+        "fkey": [(C, FFN, "relu2", False, "cd")],
+        "fval": [(FFN, C, "none", False, "add")],
+    }
+    layer_bytes = sum(K * Nout for g in shapes.values() for K, Nout, *_ in g)
+    n = sets_over_l2(layer_bytes)
+    ws = fd.Workspace(dev, 1 << 20, 1024)
+    total = {k: 0.0 for k in ("ms", "plain_ms", "call_ms")}
+    tot_bytes = tot_flops = 0.0
+    worst = 0.0
+    for gname, specs in shapes.items():
+        sets = []
+        for _ in range(n):
+            prods = []
+            for K, Nout, act, round_cd, out in specs:
+                ql = codes(K, Nout)
+                prods.append(fd.Product(
+                    rnd(B, K, scale=0.5).to(cd), ql.q, scale=ql.scale,
+                    act=act, round_cd=round_cd, out=out,
+                    y=rnd(B, Nout) if out == "add" else None))
+            sets.append(prods)
+        prods = sets[0]
+        want = fd.v7_skinny_matmul_plain(prods)
+        got = fd.v7_skinny_matmul(prods, ws)
+        torch.cuda.synchronize()
+        for g, w, pr in zip(got, want, prods):
+            worst = max(worst, close(g, w, pr.out == "cd" or pr.round_cd,
+                                     f"v7_skinny_matmul int8 [{gname}]"))
+        gb = sum(nbytes(pr.x, pr.W, pr.scale) + B * pr.KN[1]
+                 * {"cd": 2, "f32": 4, "add": 8}[pr.out] for pr in prods)
+        gf = sum(2 * B * pr.KN[0] * pr.KN[1] for pr in prods)
+        tot_bytes += gb
+        tot_flops += gf
+        t = {
+            "ms": device_ms(rotating(
+                lambda i: fd.v7_skinny_matmul(sets[i], ws), n), 40),
+            "plain_ms": device_ms(rotating(
+                lambda i: fd.v7_skinny_matmul_plain(sets[i]), n), 8),
+            "call_ms": call_ms(rotating(
+                lambda i: fd.v7_skinny_matmul(sets[i], ws), n), 100),
+        }
+        gb_ms, _ = bound(gb, gf, BF16_FLOPS)
+        print(f"v7_skinny_matmul int8 [{gname}] "
+              f"{[pr.KN for pr in prods]}: {t['ms']:.5f} ms (plain "
+              f"{t['plain_ms']:.5f}, bound {gb_ms:.5f} by bytes; "
+              f"{gb / t['ms'] / 1e6:.0f} GB/s)", flush=True)
+        for k in total:
+            total[k] += t[k]
+        del sets
+    b_ms, b_by = bound(tot_bytes, tot_flops, BF16_FLOPS)
+    rows["v7_skinny_matmul (int8)"] = {
+        "name": "v7_skinny_matmul (int8)", "route": "cuda",
+        "source": "ai00_server_tpu_torch/csrc/v7_decode.cu",
+        "replaces": "ai00_server_tpu/ops/v7_decode_pallas.py:274",
+        "max_abs_err": worst, **total, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None,
+    }
+    print(f"v7_skinny_matmul B={B} bf16 activations on int8 codes, the four "
+          f"big launches of a layer (6 products, {layer_bytes / 1e6:.1f} MB "
+          f"of codes, {n} rotating sets): max_abs_err {worst:.3e} (tolerance "
+          f"{BF16_TOL:.2e} x max(1, |plain|) on bf16-rounded results, "
+          f"{KERNEL_TOL} on f32 ones); times are the sum of the four",
+          flush=True)
+    print_rows(rows)
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -514,9 +757,17 @@ def model_info(num_layer: int):
                      num_vocab=VOCAB, hidden_mult=FFN // C)
 
 
+PARITY_CASES = {
+    # weights: (quant map, the paths driven)
+    "plain": (None, ("layer", "fused", "graph")),
+    "int8": ({0: "int8", 1: "int8"}, ("fused", "graph")),
+    "mixed": ({0: "int8"}, ("layer",)),
+}
+
+
 def phase_parity(dev) -> dict:
-    """Returns ``wkv7_t1``'s launch count on the layer-by-layer path and
-    the fused path's worst absolute bf16 error on the hidden."""
+    """Returns the fused path's worst absolute bf16 error on the hidden,
+    for plain and for int8 weights."""
     import numpy as np
     import torch
 
@@ -524,7 +775,11 @@ def phase_parity(dev) -> dict:
     from ai00_server_tpu_torch.loader import stack_params
     from ai00_server_tpu_torch.models import v7
     from ai00_server_tpu_torch.models.common import take_last_valid
+    from ai00_server_tpu_torch.ops import quant
     from ai00_server_tpu_torch.ops import v7_decode as fd
+    from ai00_server_tpu_torch.ops.ffn import ffn7_t1_l
+    from ai00_server_tpu_torch.ops.quant_matmul import (matmul_int8,
+                                                        matmul_int8_l)
     from ai00_server_tpu_torch.ops.wkv_t1 import wkv7_t1
     from ai00_server_tpu_torch.testing import make_raw_weights
 
@@ -533,23 +788,29 @@ def phase_parity(dev) -> dict:
     info = model_info(2)
     math = make_raw_weights(info, seed=SEED, dtype=np.float32,
                             lora_dims=LORA)
-    params = {d: stack_params(info, math, dtype=torch.float32, device=d)
-              for d in (dev, "cpu")}
-    check(fd.can_fuse(params["cpu"]), "the 0.4B shape must take the fused "
-          "decode path")
-    fused = {d: {**p, fd.FUSED_KEY: fd.make_fused_layout(p)}
-             for d, p in params.items()}
     rng = np.random.default_rng(SEED)
     B, T = 4, 40
     lengths = np.array([40, 33, 1, 0], np.int32)
     steps = [(rng.integers(1, VOCAB, (B, T)), lengths)] + [
         (rng.integers(1, VOCAB, (B, 1)), np.array([1, 1, 0, 1], np.int32))
         for _ in range(3)]
+    counted = {"wkv7_t1": wkv7_t1, "matmul_int8": matmul_int8,
+               "matmul_int8_l": matmul_int8_l, "ffn7_t1_l": ffn7_t1_l,
+               **{k.__name__: k for k in fd.KERNELS}}
+    # Which kernels each (weights, path) must launch; the others must not.
+    expect = {
+        ("plain", "layer"): {"wkv7_t1"},
+        ("plain", "fused"): {k.__name__ for k in fd.KERNELS},
+        # (its prefill chunk, 160 rows, goes layer by layer)
+        ("int8", "fused"): {"matmul_int8", "matmul_int8_l"}
+        | {k.__name__ for k in fd.KERNELS},
+        ("mixed", "layer"): {"wkv7_t1", "matmul_int8", "matmul_int8_l",
+                             "ffn7_t1_l"},
+    }
 
-    def run(how, d):
+    def run(p, how, d):
         """The steps on device d: 'layer' (no layout), 'fused' (eager
         forward_t1 at T=1) or 'graph' (T=1 replayed from a DecodeGraph)."""
-        p = params[d] if how == "layer" else fused[d]
         state = v7.init_state(info, B, device=d)
         graph = fd.DecodeGraph(p, state, B) if how == "graph" else None
         outs = []
@@ -568,76 +829,100 @@ def phase_parity(dev) -> dict:
                          {k: t.cpu().clone() for k, t in state.items()}))
         return outs
 
-    ref = {how: run(how, "cpu") for how in ("layer", "fused")}
     result = {}
-    for how in ("layer", "fused", "graph"):
-        for k in (wkv7_t1, *fd.KERNELS):
-            k.launches = 0
-        got = run(how, dev)
-        torch.cuda.synchronize()
-        delta = [k.launches for k in (wkv7_t1, *fd.KERNELS)]
-        if how == "layer":
-            check(delta[0] > 0 and not any(delta[1:]),
-                  f"the layer-by-layer path launched {delta}")
-            result["wkv7_t1_launches"] = delta[0]
-        else:
-            check(delta[0] == 0 and all(delta[1:]),
-                  f"the fused path ({how}) launched {delta}")
-        worst = 0.0
-        for (toks, lens), (h, lg, st), (h_r, lg_r, st_r) in zip(
-                steps, got, ref["layer" if how == "layer" else "fused"]):
-            m = torch.arange(toks.shape[1])[None, :] < torch.as_tensor(
-                lens)[:, None]
-            pairs = [(h[m], h_r[m]), (lg[lens > 0], lg_r[lens > 0])]
-            pairs += [(st[k], st_r[k]) for k in st_r]
-            for a, b in pairs:
-                check(bool(torch.isfinite(a).all()), "non-finite output")
-                err = float((a.double() - b.double()).abs().max())
-                worst = max(worst, err / max(float(b.abs().max()), 1e-6))
-        check(worst <= MODEL_TOL,
-              f"card and CPU disagree on the {how} path: {worst:.3e} > "
-              f"{MODEL_TOL}")
-        print(f"model parity, {how} path (C={C}, 2 layers, f32, ragged "
-              f"prefill T={T} + 3 decode steps; launches wkv7_t1/ln_mix/"
-              f"skinny_matmul/wkv_gn {delta}): max |card - cpu| / max |cpu| "
-              f"= {worst:.3e} (tolerance {MODEL_TOL})", flush=True)
+    for label, (quant_map, hows) in PARITY_CASES.items():
+        params = {d: stack_params(info, math, dtype=torch.float32, device=d,
+                                  quant=quant_map) for d in (dev, "cpu")}
+        if quant_map:
+            # The int8 LM head, quantized where the params lie, as the
+            # engine does: the card gives the CPU's codes.
+            for p in params.values():
+                p["_head_q"] = quant.quantize_int8(p.pop("head"))
+            hq = {d: p["_head_q"] for d, p in params.items()}
+            check(torch.equal(hq[dev].q.cpu(), hq["cpu"].q)
+                  and torch.equal(hq[dev].scale.cpu(), hq["cpu"].scale),
+                  "the int8 head quantized on the card differs from the "
+                  "CPU's")
+        check(fd.can_fuse(params["cpu"]) == ("fused" in hows),
+              f"can_fuse is wrong for the {label} 0.4B-shape model")
+        fused = {d: {**p, fd.FUSED_KEY: fd.make_fused_layout(p)}
+                 for d, p in params.items()} if "fused" in hows else None
+        ref = {how: run(params["cpu"] if how == "layer" else fused["cpu"],
+                        how, "cpu") for how in hows if how != "graph"}
+        for how in hows:
+            for k in counted.values():
+                k.launches = 0
+            got = run(params[dev] if how == "layer" else fused[dev], how, dev)
+            torch.cuda.synchronize()
+            delta = {name: k.launches for name, k in counted.items()}
+            want = expect[label, "fused" if how == "graph" else how]
+            check(all((delta[name] > 0) == (name in want) for name in delta),
+                  f"the {label} {how} path launched {delta}")
+            worst = 0.0
+            for (toks, lens), (h, lg, st), (h_r, lg_r, st_r) in zip(
+                    steps, got, ref["layer" if how == "layer" else "fused"]):
+                m = torch.arange(toks.shape[1])[None, :] < torch.as_tensor(
+                    lens)[:, None]
+                pairs = [(h[m], h_r[m]), (lg[lens > 0], lg_r[lens > 0])]
+                pairs += [(st[k], st_r[k]) for k in st_r]
+                for a, b in pairs:
+                    check(bool(torch.isfinite(a).all()), "non-finite output")
+                    err = float((a.double() - b.double()).abs().max())
+                    worst = max(worst, err / max(float(b.abs().max()), 1e-6))
+            check(worst <= MODEL_TOL,
+                  f"card and CPU disagree on the {label} {how} path: "
+                  f"{worst:.3e} > {MODEL_TOL}")
+            # Row 2 sits out the three decode steps: its state keeps the
+            # bits the prefill left.
+            for k, t in got[0][2].items():
+                check(torch.equal(got[-1][2][k][:, 2], t[:, 2]),
+                      f"the {label} {how} path changed an inactive row's {k}")
+            print(f"model parity, {label} weights, {how} path (C={C}, 2 "
+                  f"layers, f32, ragged prefill T={T} + 3 decode steps; "
+                  f"launches {delta}): max |card - cpu| / max |cpu| = "
+                  f"{worst:.3e} (tolerance {MODEL_TOL}); inactive row "
+                  "bit-identical", flush=True)
 
-    # bf16 on the card: the fused kernels against forward_t1_plain.
-    p16 = stack_params(info, math, dtype=torch.bfloat16, device=dev)
-    p16[fd.FUSED_KEY] = fd.make_fused_layout(p16)
-    toks, lens = steps[0]
-    _, s0 = v7.forward(p16, v7.init_state(info, B, device=dev),
-                       torch.as_tensor(toks, device=dev),
-                       torch.as_tensor(lens, device=dev))
-    state = {how: {k: t.clone() for k, t in s0.items()}
-             for how in ("kernels", "plain")}
-    worst_abs = worst = 0.0
-    for toks, lens in steps[1:]:
-        tt = torch.as_tensor(toks, device=dev)
-        lt = torch.as_tensor(lens, device=dev)
-        h_k, _ = fd.forward_t1(p16, state["kernels"], tt, lt)
-        h_p, _ = fd.forward_t1_plain(p16, state["plain"], tt, lt)
-        pairs = [(h_k[lens > 0].float(), h_p[lens > 0].float())]
-        pairs += [(state["kernels"][k], state["plain"][k]) for k in s0]
-        for i, (a, b) in enumerate(pairs):
-            check(bool(torch.isfinite(a).all()), "non-finite bf16 output")
-            err = float((a.double() - b.double()).abs().max())
-            if i == 0:  # the hidden; the states' scales differ widely
-                worst_abs = max(worst_abs, err)
-            worst = max(worst, err / max(float(b.abs().max()), 1e-6))
-        for k in s0:
-            check(torch.equal(state["kernels"][k][:, 2], s0[k][:, 2]),
-                  "the fused path changed an inactive row's state")
-    check(worst <= BF16_MODEL_TOL,
-          f"fused kernels and forward_t1_plain disagree in bf16: "
-          f"{worst:.3e} > {BF16_MODEL_TOL}")
-    print(f"fused decode in bf16 on the card (C={C}, 2 layers, 3 steps): "
-          f"max |kernels - plain| / max |plain| = {worst:.3e} over hidden "
-          f"and state, {worst_abs:.3e} absolute on the hidden (tolerance "
-          f"{BF16_MODEL_TOL}: the two sum in different orders, which flips "
-          "single bf16 roundings that later layers carry on); inactive row "
-          "bit-identical", flush=True)
-    result["fused_bf16_max_abs_err"] = worst_abs
+        if "fused" not in hows:
+            continue
+        # bf16 on the card: the fused kernels against forward_t1_plain.
+        p16 = stack_params(info, math, dtype=torch.bfloat16, device=dev,
+                           quant=quant_map)
+        p16[fd.FUSED_KEY] = fd.make_fused_layout(p16)
+        toks, lens = steps[0]
+        _, s0 = v7.forward(p16, v7.init_state(info, B, device=dev),
+                           torch.as_tensor(toks, device=dev),
+                           torch.as_tensor(lens, device=dev))
+        state = {how: {k: t.clone() for k, t in s0.items()}
+                 for how in ("kernels", "plain")}
+        worst_abs = worst = 0.0
+        for toks, lens in steps[1:]:
+            tt = torch.as_tensor(toks, device=dev)
+            lt = torch.as_tensor(lens, device=dev)
+            h_k, _ = fd.forward_t1(p16, state["kernels"], tt, lt)
+            h_p, _ = fd.forward_t1_plain(p16, state["plain"], tt, lt)
+            pairs = [(h_k[lens > 0].float(), h_p[lens > 0].float())]
+            pairs += [(state["kernels"][k], state["plain"][k]) for k in s0]
+            for i, (a, b) in enumerate(pairs):
+                check(bool(torch.isfinite(a).all()), "non-finite bf16 output")
+                err = float((a.double() - b.double()).abs().max())
+                if i == 0:  # the hidden; the states' scales differ widely
+                    worst_abs = max(worst_abs, err)
+                worst = max(worst, err / max(float(b.abs().max()), 1e-6))
+            for k in s0:
+                check(torch.equal(state["kernels"][k][:, 2], s0[k][:, 2]),
+                      "the fused path changed an inactive row's state")
+        check(worst <= BF16_MODEL_TOL,
+              f"fused kernels and forward_t1_plain disagree in bf16 "
+              f"({label}): {worst:.3e} > {BF16_MODEL_TOL}")
+        print(f"fused decode in bf16 on the card, {label} weights (C={C}, 2 "
+              f"layers, 3 steps): max |kernels - plain| / max |plain| = "
+              f"{worst:.3e} over hidden and state, {worst_abs:.3e} absolute "
+              f"on the hidden (tolerance {BF16_MODEL_TOL}: the two sum in "
+              "different orders, which flips single bf16 roundings that "
+              "later layers carry on); inactive row bit-identical",
+              flush=True)
+        result[f"fused_{label}_bf16_max_abs_err"] = worst_abs
     return result
 
 
@@ -664,7 +949,12 @@ def synthetic_vocab() -> dict[str, str]:
     raise AssertionError("vocab too small")
 
 
-def write_site(tmp: Path) -> Path:
+SERVED = {"bf16": 0, "int8": L_FULL, "mixed": L_FULL // 2}  # quant = N
+
+
+def write_site(tmp: Path) -> dict:
+    """The checkpoint, the vocabulary and one config per served model:
+    plain bf16, ``quant = L`` (all int8) and ``quant = L / 2`` (mixed)."""
     import numpy as np
 
     from ai00_server_tpu_torch.loader import save_safetensors
@@ -677,14 +967,18 @@ def write_site(tmp: Path) -> Path:
     save_safetensors(to_converted_layout(raw), str(tmp / "rwkv7-0.4b.st"))
     del raw
     (tmp / "vocab.json").write_text(json.dumps(synthetic_vocab()))
-    cfg = tmp / "Config.toml"
-    cfg.write_text(f"""
+    cfgs = {}
+    for kind, quant in SERVED.items():
+        cfgs[kind] = tmp / f"Config-{kind}.toml"
+        cfgs[kind].write_text(f"""
 [model]
 name = "rwkv7-0.4b.st"
 path = "{tmp}"
 max_batch = {MAX_BATCH}
 token_chunk_size = {CHUNK}
 precision = "Fp16"
+quant = {quant}
+quant_type = "Int8"
 
 [tokenizer]
 path = "{tmp / 'vocab.json'}"
@@ -695,7 +989,7 @@ port = 0
 """)
     print(f"wrote the random 0.4B-shape checkpoint and vocabulary in "
           f"{time.monotonic() - t0:.1f} s", flush=True)
-    return cfg
+    return cfgs
 
 
 PROMPT = ("the quick brown fox jumps over the lazy dog while a model "
@@ -785,7 +1079,8 @@ def time_stack(engine) -> dict:
     n_bytes = (nbytes(*weights) + 2 * nbytes(*engine.state_pool.values())
                + 2 * B * params["emb"].shape[1] * 2)
     flops = 2 * B * sum(t.numel() for k, v in layout.items()
-                        if isinstance(v, list) for t in v)
+                        if isinstance(v, list) and not k.endswith("_s")
+                        for t in v)
     b_ms, b_by = bound(n_bytes, flops, BF16_FLOPS)
     return {"replay_ms": replay_ms, "eager_ms": eager_ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
@@ -793,26 +1088,43 @@ def time_stack(engine) -> dict:
                 graph.launches_per_replay)}
 
 
-async def serve(cfg: Path, device="cuda") -> dict:
+async def serve(cfg: Path, kind: str, device="cuda") -> dict:
+    """Serve one config over HTTP on localhost.  ``kind``: "bf16" and
+    "int8" get the burst (4 greedy completions of 128 tokens + 1 streamed
+    chat), a lone streamed chat and the time of one replay of the stack,
+    "bf16" also one request under the profiler; "mixed" gets one short
+    greedy completion, twice.  The launch counts are zeroed just before the
+    burst (the completion) and read just after."""
     import aiohttp
+    import torch
     from aiohttp import web
 
     from ai00_server_tpu_torch.ops import v7_decode as fd
+    from ai00_server_tpu_torch.ops.ffn import ffn7_t1_l
+    from ai00_server_tpu_torch.ops.quant_matmul import (matmul_int8,
+                                                        matmul_int8_l)
     from ai00_server_tpu_torch.ops.wkv_chunk import wkv7_chunk
+    from ai00_server_tpu_torch.ops.wkv_t1 import wkv7_t1
     from ai00_server_tpu_torch.server.app import Server
     from ai00_server_tpu_torch.server.config import Config
 
     config = Config.from_toml(str(cfg))
     server = Server(config, device=device)
+    gc.collect()  # the model served before this one is gone
+    mem0 = torch.cuda.memory_allocated() if device != "cpu" else 0
     t0 = time.monotonic()
     await server.middleware.reload(config.to_reload_request())
     load_s = time.monotonic() - t0
+    mem = torch.cuda.memory_allocated() - mem0 if device != "cpu" else 0
     runner = web.AppRunner(server.app)
     await runner.setup()
     await web.TCPSite(runner, "127.0.0.1", 0).start()
     port = runner.addresses[0][1]
     base = f"http://127.0.0.1:{port}"
-    print(f"model loaded in {load_s:.1f} s; serving on {base}", flush=True)
+    print(f"{kind} model (quant = {SERVED[kind]}) loaded in {load_s:.1f} s, "
+          f"{mem / 1e6:.1f} MB of device memory allocated by the load "
+          f"(weights, state pool, sampler pools, graph); "
+          f"serving on {base}", flush=True)
 
     async def completion(http, prompt, max_tokens):
         async with http.post(f"{base}/api/oai/completions", json={
@@ -845,48 +1157,82 @@ async def serve(cfg: Path, device="cuda") -> dict:
         check(bool(text), "the streamed chat returned no text")
         return ttft, text
 
-    result = {}
+    counted = {"wkv7_chunk": (wkv7_chunk, "launches")}
+    if kind == "mixed":
+        counted.update({k.__name__: (k, "launches") for k in (
+            wkv7_t1, matmul_int8_l, ffn7_t1_l, matmul_int8)})
+    else:
+        counted.update({k.__name__: (k, "launches") for k in fd.KERNELS})
+    if kind == "int8":
+        counted["matmul_int8"] = (matmul_int8, "launches")
+        counted["v7_skinny_matmul (int8)"] = (fd.v7_skinny_matmul,
+                                              "int8_launches")
+
+    def zero_counts():
+        for k, attr in counted.values():
+            setattr(k, attr, 0)
+        return fd.DecodeGraph.total_replays
+
+    def read_counts():
+        return {name: getattr(k, attr) for name, (k, attr) in counted.items()}
+
+    result = {"kind": kind, "load_s": load_s, "memory_bytes": mem}
     try:
         async with aiohttp.ClientSession() as http:
             await completion(http, "warm up", 8)  # first-call set-up
+            engine = server.middleware.env.engine
+            if kind == "mixed":
+                check(engine._graph is None,
+                      "a mixed model must not capture a decode graph")
+                replays0 = zero_counts()
+                t0 = time.monotonic()
+                outs = [await completion(http, PROMPT * 4, 32)
+                        for _ in range(2)]
+                wall = time.monotonic() - t0
+                result.update(
+                    launches=read_counts(),
+                    burst_replays=fd.DecodeGraph.total_replays - replays0)
+                texts = [o["choices"][0]["text"] for o in outs]
+                check(all(texts), "a completion returned no text")
+                check(texts[0] == texts[1],
+                      "identical greedy requests returned different text")
+                n_tokens = sum(o["usage"]["completion"] for o in outs)
+                result.update(wall_s=wall, completion_tokens=n_tokens,
+                              tokens_per_s=n_tokens / wall,
+                              sample=texts[0][:60])
+                return result
 
             prompts = [PROMPT * 20, PROMPT * 20, PROMPT * 11 + "alpha",
                        PROMPT * 11 + "alpha"]
-            counted = {"wkv7_chunk": wkv7_chunk,
-                       **{k.__name__: k for k in fd.KERNELS}}
-            for k in counted.values():
-                k.launches = 0
-            replays0 = fd.DecodeGraph.total_replays
+            replays0 = zero_counts()
             t0 = time.monotonic()
             *outs, (ttft_load, _chat) = await asyncio.gather(
                 *[completion(http, p, 128) for p in prompts],
                 streamed_chat(http, PROMPT * 8, 64))
             wall = time.monotonic() - t0
-            launches = {name: k.launches for name, k in counted.items()}
-            burst_replays = fd.DecodeGraph.total_replays - replays0
+            result.update(
+                launches=read_counts(),
+                burst_replays=fd.DecodeGraph.total_replays - replays0)
             texts = [o["choices"][0]["text"] for o in outs]
             check(all(texts), "a completion returned no text")
             check(texts[0] == texts[1] and texts[2] == texts[3],
                   "identical greedy requests returned different text")
             n_tokens = sum(o["usage"]["completion"] for o in outs)
-            prompt_tokens = sum(o["usage"]["prompt"] for o in outs)
             ttft_solo, _ = await streamed_chat(
                 http, "once more, " + PROMPT * 8, 16)
-            replays0 = fd.DecodeGraph.total_replays
-            profile = await profiled(
-                completion(http, "and a profiled one: " + PROMPT * 8, 64))
-            profile += (f"; {fd.DecodeGraph.total_replays - replays0} graph "
-                        "replays for its 64 tokens")
-            stack = (time_stack(server.middleware.env.engine)
-                     if device != "cpu" else None)
-        result = {
-            "launches": launches, "burst_replays": burst_replays,
-            "stack": stack, "wall_s": wall,
-            "completion_tokens": n_tokens, "prompt_tokens": prompt_tokens,
-            "tokens_per_s": n_tokens / wall, "ttft_s_under_load": ttft_load,
-            "ttft_s_alone": ttft_solo, "sample": texts[0][:60],
-            "profile": profile,
-        }
+            result.update(
+                wall_s=wall, completion_tokens=n_tokens,
+                prompt_tokens=sum(o["usage"]["prompt"] for o in outs),
+                tokens_per_s=n_tokens / wall, ttft_s_under_load=ttft_load,
+                ttft_s_alone=ttft_solo, sample=texts[0][:60])
+            if kind == "bf16":
+                replays0 = fd.DecodeGraph.total_replays
+                profile = await profiled(
+                    completion(http, "and a profiled one: " + PROMPT * 8, 64))
+                result["profile"] = profile + (
+                    f"; {fd.DecodeGraph.total_replays - replays0} graph "
+                    "replays for its 64 tokens")
+            result["stack"] = time_stack(engine) if device != "cpu" else None
     finally:
         await server.middleware.unload()
         await runner.cleanup()
@@ -923,7 +1269,8 @@ def main() -> None:
     t0 = time.monotonic()
     rows = phase_kernels(dev)
     rows.update(phase_decode_kernels(dev))
-    phase_head(dev)
+    bf16_head_ms = phase_head(dev)
+    rows.update(phase_int8_kernels(dev, bf16_head_ms))
     print(f"phase 2 (kernels) {time.monotonic() - t0:.1f} s", flush=True)
 
     t0 = time.monotonic()
@@ -935,50 +1282,75 @@ def main() -> None:
     tmp_root.mkdir(exist_ok=True)
     try:
         with tempfile.TemporaryDirectory(dir=tmp_root) as tmp:
-            cfg = write_site(Path(tmp))
-            served = asyncio.run(serve(cfg))
+            cfgs = write_site(Path(tmp))
+            served = {kind: asyncio.run(serve(cfgs[kind], kind))
+                      for kind in SERVED}
     finally:
         shutil.rmtree(tmp_root, ignore_errors=True)
-    # wkv7_t1 serves the layer-by-layer path, driven in phase 3; the burst's
-    # decode steps go through the fused kernels.
-    served["launches"]["wkv7_t1"] = parity["wkv7_t1_launches"]
-    for name, n in served["launches"].items():
-        check(n > 0, f"its path never launched {name}")
-        rows[name]["launches"] = n
-    check(served["burst_replays"] > 0, "the burst replayed no decode graph")
-    stack = served["stack"]
-    rows["forward_t1"] = {
-        "name": f"forward_t1 ({L_FULL} layers, "
-                f"{stack['kernels_per_replay']} kernels in one CUDA graph)",
-        "route": "cuda",
-        "source": "ai00_server_tpu_torch/csrc/v7_decode.cu",
-        "replaces": "ai00_server_tpu/ops/v7_decode_pallas.py:274",
-        "launches": served["burst_replays"],
-        "max_abs_err": parity["fused_bf16_max_abs_err"],
-        "ms": stack["replay_ms"], "plain_ms": stack["plain_ms"],
-        "bound_ms": stack["bound_ms"], "bound_by": stack["bound_by"],
-        "library_ms": None,
-    }
-    print(f"forward_t1, {L_FULL} layers bf16 B={MAX_BATCH}, all rows active: "
-          f"{stack['replay_ms']:.5f} ms per graph replay "
-          f"({stack['kernels_per_replay']} kernels; "
-          f"{stack['bytes'] / stack['replay_ms'] / 1e6:.0f} GB/s), "
-          f"{stack['eager_ms']:.3f} ms launched eagerly from Python, "
-          f"{stack['plain_ms']:.3f} ms as plain versions; bound "
-          f"{stack['bound_ms']:.5f} ms by {stack['bound_by']} "
-          f"({stack['bytes'] / 1e6:.1f} MB)", flush=True)
-    print(f"launches in the burst: {served['launches']}; "
-          f"{served['burst_replays']} graph replays", flush=True)
-    print(f"serving (24 layers, bf16, max_batch {MAX_BATCH}, chunk {CHUNK}) "
-          f"on {card}: 4 greedy completions + 1 streamed chat in "
-          f"{served['wall_s']:.2f} s, {served['completion_tokens']} "
-          f"completion tokens ({served['prompt_tokens']} prompt) -> "
-          f"{served['tokens_per_s']:.1f} tokens/s; TTFT "
-          f"{served['ttft_s_under_load']:.3f} s under load, "
-          f"{served['ttft_s_alone']:.3f} s alone; sample "
-          f"{served['sample']!r}", flush=True)
-    print(f"profile of one 64-token completion alone: {served['profile']}",
-          flush=True)
+
+    # Every kernel's launches on its main path: the bf16 burst for the WKV
+    # chunk and the fused decode kernels, the int8 burst for the int8 head
+    # and the int8 mode of the fused step, the mixed model's completion for
+    # the layer path's kernels.
+    for kind, names in (("bf16", ("wkv7_chunk", "v7_ln_mix",
+                                  "v7_skinny_matmul", "v7_wkv_gn")),
+                        ("int8", ("matmul_int8", "v7_skinny_matmul (int8)")),
+                        ("mixed", ("wkv7_t1", "matmul_int8_l",
+                                   "ffn7_t1_l"))):
+        for name in names:
+            rows[name]["launches"] = served[kind]["launches"][name]
+    for kind, run in served.items():
+        for name, n in run["launches"].items():
+            check(n > 0, f"the {kind} model's requests never launched {name}")
+        check((run["burst_replays"] > 0) == (kind != "mixed"),
+              f"the {kind} model replayed {run['burst_replays']} decode "
+              "graphs")
+    for kind, label in (("bf16", "plain"), ("int8", "int8")):
+        stack = served[kind]["stack"]
+        rows[f"forward_t1 {kind}"] = {
+            "name": f"forward_t1 ({'int8, ' if kind == 'int8' else ''}"
+                    f"{L_FULL} layers, {stack['kernels_per_replay']} kernels "
+                    "in one CUDA graph)",
+            "route": "cuda",
+            "source": "ai00_server_tpu_torch/csrc/v7_decode.cu",
+            "replaces": "ai00_server_tpu/ops/v7_decode_pallas.py:274",
+            "launches": served[kind]["burst_replays"],
+            "max_abs_err": parity[f"fused_{label}_bf16_max_abs_err"],
+            "ms": stack["replay_ms"], "plain_ms": stack["plain_ms"],
+            "bound_ms": stack["bound_ms"], "bound_by": stack["bound_by"],
+            "library_ms": None,
+        }
+        print(f"forward_t1, {L_FULL} layers {kind} B={MAX_BATCH}, all rows "
+              f"active: {stack['replay_ms']:.5f} ms per graph replay "
+              f"({stack['kernels_per_replay']} kernels; "
+              f"{stack['bytes'] / stack['replay_ms'] / 1e6:.0f} GB/s), "
+              f"{stack['eager_ms']:.3f} ms launched eagerly from Python, "
+              f"{stack['plain_ms']:.3f} ms as plain versions; bound "
+              f"{stack['bound_ms']:.5f} ms by {stack['bound_by']} "
+              f"({stack['bytes'] / 1e6:.1f} MB)", flush=True)
+    for kind, run in served.items():
+        print(f"launches on the {kind} model's requests: {run['launches']}; "
+              f"{run['burst_replays']} graph replays", flush=True)
+        if kind == "mixed":
+            print(f"serving ({L_FULL} layers, the first {SERVED[kind]} int8, "
+                  f"layer-by-layer path) on {card}: 2 greedy completions one "
+                  f"after the other in {run['wall_s']:.2f} s, "
+                  f"{run['completion_tokens']} completion tokens -> "
+                  f"{run['tokens_per_s']:.1f} tokens/s; "
+                  f"{run['memory_bytes'] / 1e6:.1f} MB allocated by the "
+                  f"load; sample {run['sample']!r}", flush=True)
+            continue
+        print(f"serving ({L_FULL} layers, {kind}, max_batch {MAX_BATCH}, "
+              f"chunk {CHUNK}) on {card}: 4 greedy completions + 1 streamed "
+              f"chat in {run['wall_s']:.2f} s, {run['completion_tokens']} "
+              f"completion tokens ({run['prompt_tokens']} prompt) -> "
+              f"{run['tokens_per_s']:.1f} tokens/s; TTFT "
+              f"{run['ttft_s_under_load']:.3f} s under load, "
+              f"{run['ttft_s_alone']:.3f} s alone; "
+              f"{run['memory_bytes'] / 1e6:.1f} MB allocated by the load; "
+              f"sample {run['sample']!r}", flush=True)
+    print("profile of one 64-token completion alone (bf16): "
+          f"{served['bf16']['profile']}", flush=True)
     print(f"phase 4 (serving) {time.monotonic() - t0:.1f} s", flush=True)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

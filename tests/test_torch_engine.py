@@ -273,3 +273,146 @@ def test_fused_engine_pool_keeps_its_addresses_and_equals_jax(
     assert same_pool()
     for k, v in t.read_row_state(1).items():
         np.testing.assert_array_equal(v, before[k])
+
+
+# ---------------------------------------------------------------------------
+# Int8 models: the int8 LM head, the fused int8 path, the mixed layer path
+# ---------------------------------------------------------------------------
+#
+# The JAX engine quantizes the head only on a TPU unless AI00_QUANT_HEAD=on
+# (set here for the JAX side alone), and off the TPU its ``head_logits``
+# casts x to bf16 and dequantizes to bf16 whatever the model's dtype.  The
+# port's head follows the Pallas kernel instead (operands in x's dtype, f32
+# sums), so:
+#
+# * ``head_logits`` is held against ``quant_pallas.matmul_int8(...,
+#   out_dtype=f32, interpret=True)`` on the same ``_head_q``: 2e-5 of scale
+#   (the sums' order);
+# * the two engines run f32 models end to end from the same codes (the JAX
+#   engine's params, ``_head_q`` included, carried across): the logits
+#   differ by the JAX side's bf16 rounding of x and of the head (a few
+#   2^-9), the greedy tokens are equal because the top two logits are
+#   further apart than that (asserted), and the states agree to 2e-4.
+
+QUANT_CASES = {"int8": {0: "int8", 1: "int8"}, "mixed": {0: "int8"}}
+
+
+def _quant_engines(monkeypatch, case):
+    from ai00_server_tpu.testing import make_params, make_raw_weights, tiny_info
+
+    monkeypatch.setenv("AI00_QUANT_HEAD", "on")
+    info = tiny_info(ModelVersion.V7, num_layer=2, num_emb=128, head_size=64,
+                     num_vocab=64)
+    raw = make_raw_weights(info, seed=72, dtype=np.float32)
+    params = make_params(info, raw, dtype=np.float32,
+                         quant=QUANT_CASES[case])
+    j = JEngine(JLoaded(info=info, params=params, init_wkv=None),
+                max_batch=B, token_chunk_size=CHUNK)
+    assert "_head_q" in j.model.params and "head" not in j.model.params
+    tparams = params_from_numpy(jax.tree.map(np.asarray, j.model.params),
+                                "cpu")
+    t = TEngine(TLoaded(info=info, params=tparams), max_batch=B,
+                token_chunk_size=CHUNK, device="cpu")
+    prompts = [[1, 2, 3, 4, 5], [7, 8, 9], [3] * 8, []]
+    for eng in (j, t):
+        for b in range(B):
+            eng.load_row_state(b, None)
+            eng.set_row_sampler(b, GREEDY, prompt_tokens=prompts[b])
+            eng.set_row_bias(b, None)
+    return j, t, prompts, raw
+
+
+@pytest.mark.parametrize("case", sorted(QUANT_CASES))
+def test_quantized_engine_equals_jax(monkeypatch, case):
+    from ai00_server_tpu_torch.ops import v7_decode as fd
+
+    j, t, prompts, _ = _quant_engines(monkeypatch, case)
+    hq, jhq = t.model.params["_head_q"], j.model.params["_head_q"]
+    np.testing.assert_array_equal(hq.q.numpy(), np.asarray(jhq.q))
+    np.testing.assert_array_equal(hq.scale.numpy(), np.asarray(jhq.scale))
+    assert "head" not in t.model.params
+    # Uniform int8 takes the fused path; a mixed model keeps to the layers.
+    assert fd.supports(t.model.params) == (case == "int8")
+    assert t._graph is None
+    fused_steps = []
+    real = fd.forward_t1
+    monkeypatch.setattr(fd, "forward_t1",
+                        lambda *a: fused_steps.append(1) or real(*a))
+
+    toks = np.zeros((B, CHUNK), np.int32)
+    lens = np.zeros(B, np.int32)
+    for b, p in enumerate(prompts):
+        toks[b, :len(p)] = p
+        lens[b] = len(p)
+    js = j.step(toks, lens, lens > 0, want_logits=True)
+    ts = t.step(toks, lens, lens > 0, want_logits=True)
+    jl, tl = np.asarray(js.logits)[:3], ts.logits.numpy()[:3]
+    gap = np.sort(tl, axis=-1)
+    gap = float((gap[:, -1] - gap[:, -2]).min())
+    assert float(np.abs(tl - jl).max()) <= 2.0 ** -6 * float(np.abs(jl).max())
+    assert gap > 4 * float(np.abs(tl - jl).max())  # well separated
+    np.testing.assert_array_equal(ts.tokens[:3], js.tokens[:3])
+    _states_close(j, t)
+    assert not fused_steps
+
+    active = np.array([True, True, True, False])
+    budget = np.array([5, 5, 2, 0], np.int32)
+    jt, _ = j.decode_chunk(js.tokens, active, 5, budget=budget)
+    tt, _ = t.decode_chunk(ts.tokens, active, 5, budget=budget)
+    np.testing.assert_array_equal(tt[:, :3], jt[:, :3])
+    _states_close(j, t)
+    assert len(fused_steps) == (5 if case == "int8" else 0)
+    assert float(np.abs(t.read_row_state(3)["wkv"]).max()) == 0.0
+
+    feed = [int(ts.tokens[0]), int(tt[0, 0])]
+    j.rollback_row(0, feed)
+    t.rollback_row(0, feed)
+    _states_close(j, t)
+
+
+@pytest.mark.parametrize("name", ["float32", "bfloat16"])
+def test_int8_head_logits_equal_pallas_kernel(monkeypatch, name):
+    from ai00_server_tpu.ops import quant_pallas
+
+    from ai00_server_tpu_torch.engine import head_logits
+
+    _, t, _, _ = _quant_engines(monkeypatch, "int8")
+    hq = t.model.params["_head_q"]
+    rng = np.random.default_rng(4)
+    jdt = jnp.float32 if name == "float32" else jnp.bfloat16
+    x = jnp.asarray(rng.standard_normal((3, 128)), jdt)
+    want = quant_pallas.matmul_int8(
+        x, jnp.asarray(hq.q.numpy()), jnp.asarray(hq.scale.numpy()),
+        out_dtype=jnp.float32, interpret=True)
+    tx = torch.from_numpy(np.array(x.astype(jnp.float32)))
+    got = head_logits(t.model.params, tx if name == "float32"
+                      else tx.bfloat16())
+    assert got.dtype == torch.float32 and got.shape == (3, 64)
+    close(got.numpy(), want, rtol=2e-5)
+
+
+def test_engine_quantizes_its_own_head_like_the_reference(monkeypatch):
+    """A port-loaded int8 model (no ``_head_q`` carried across): the engine
+    quantizes the head on its device to the reference quantizer's codes and
+    drops the plain head; a plain model keeps its head."""
+    from ai00_server_tpu.ops import quant as jquant
+
+    from ai00_server_tpu_torch.testing import make_params as tmake
+    from ai00_server_tpu_torch.testing import tiny_info as ttiny
+
+    _, _, _, raw = _quant_engines(monkeypatch, "int8")
+    info = ttiny(num_layer=2, num_emb=128, head_size=64, num_vocab=64)
+    for quant_map in (QUANT_CASES["mixed"], None):
+        params = tmake(info, raw, torch.bfloat16, quant=quant_map)
+        head = params["head"].clone()
+        TEngine(TLoaded(info=info, params=params), max_batch=2,
+                token_chunk_size=CHUNK, device="cpu")
+        if quant_map is None:
+            assert "_head_q" not in params and "head" in params
+            continue
+        want = jquant.quantize_int8(head.float().numpy())
+        assert "head" not in params
+        np.testing.assert_array_equal(params["_head_q"].q.numpy(),
+                                      np.asarray(want.q))
+        np.testing.assert_array_equal(params["_head_q"].scale.numpy(),
+                                      np.asarray(want.scale))

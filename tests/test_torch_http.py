@@ -200,3 +200,81 @@ def test_later_slices_answer_501(site):
             await server.middleware.unload()
 
     asyncio.run(main())
+
+
+# ---------------------------------------------------------------------------
+# Int8 models over HTTP: quant = N, quant_type = "Int8" in the model config
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def quant_site(tmp_path_factory):
+    """A 2-layer v7 of width 128 (int8 blocks are 128 rows), head size 64."""
+    root = tmp_path_factory.mktemp("qsite")
+    _, raw, _ = make_tiny_model(ModelVersion.V7, seed=22, dtype=np.float32,
+                                num_layer=2, num_emb=128, head_size=64,
+                                num_vocab=64)
+    jloader.save_safetensors(to_converted_layout(raw), str(root / "tiny.st"),
+                             dtype=np.float32)
+    vocab = {str(i): chr(64 + i) for i in range(1, 60)}
+    (root / "vocab.json").write_text(json.dumps(vocab))
+    return root
+
+
+def quant_config(root, quant, quant_type="Int8"):
+    return Config.from_dict({
+        "model": {"name": "tiny.st", "path": str(root), "max_batch": 4,
+                  "token_chunk_size": 16, "precision": "Fp32",
+                  "quant": quant, "quant_type": quant_type},
+        "tokenizer": {"path": str(root / "vocab.json")},
+        "listen": {"port": 0}})
+
+
+@pytest.mark.parametrize("quant", [2, 1])
+def test_int8_completion(quant_site, quant):
+    """``quant = L``: every layer int8, the fused decode path; ``0 < quant <
+    L``: the layer-by-layer path with ``matmul_int8_l`` and ``ffn7_t1_l``."""
+    from ai00_server_tpu_torch.ops import quant as tquant
+    from ai00_server_tpu_torch.ops import v7_decode as fd
+
+    async def main():
+        config = quant_config(quant_site, quant)
+        server = Server(config, device="cpu")
+        await server.middleware.reload(config.to_reload_request())
+        client = TestClient(TestServer(server.app))
+        await client.start_server()
+        try:
+            params = server.middleware.env.model.params
+            kinds = [tquant.is_quantized(p["ffn"]["key"])
+                     for p in params["layers"]]
+            assert kinds == [i < quant for i in range(2)]
+            assert fd.supports(params) == (quant == 2)
+            assert "_head_q" in params
+            texts = [(await _complete(client, max_tokens=8)
+                      )["choices"][0]["text"] for _ in range(2)]
+            assert texts[0] and texts[0] == texts[1]
+            r = await client.post("/api/oai/chat/completions", json={
+                "messages": [{"role": "user", "content": "HELLO"}],
+                "max_tokens": 4, "sampler": GREEDY})
+            assert r.status == 200
+            assert (await r.json())["choices"][0]["message"]["content"]
+            info = await (await client.get("/api/models/info")).json()
+            assert info["reload"]["quant"] == quant
+            assert info["reload"]["quant_type"] == "Int8"
+        finally:
+            await client.close()
+            await server.middleware.unload()
+
+    asyncio.run(main())
+
+
+@pytest.mark.parametrize("quant_type", ["NF4", "SF4", "Int4"])
+def test_4bit_quant_type_names_its_roadmap_item(quant_site, quant_type):
+    async def main():
+        config = quant_config(quant_site, 1, quant_type)
+        server = Server(config, device="cpu")
+        with pytest.raises(NotImplementedError, match="item 2"):
+            await server.middleware.reload(config.to_reload_request())
+        assert server.middleware.env is None
+
+    asyncio.run(main())

@@ -28,7 +28,10 @@ MODULES = [
     "ai00_server_tpu_torch.models.v7",
     "ai00_server_tpu_torch.ops",
     "ai00_server_tpu_torch.ops._build",
+    "ai00_server_tpu_torch.ops.ffn",
     "ai00_server_tpu_torch.ops.fused_decode",
+    "ai00_server_tpu_torch.ops.quant",
+    "ai00_server_tpu_torch.ops.quant_matmul",
     "ai00_server_tpu_torch.ops.sampling",
     "ai00_server_tpu_torch.ops.v7_decode",
     "ai00_server_tpu_torch.ops.wkv_chunk",

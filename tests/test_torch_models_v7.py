@@ -135,3 +135,106 @@ def test_port_testing_weights_equal_jax():
         assert got.keys() == want.keys()
         for k in want:
             np.testing.assert_array_equal(got[k], want[k])
+
+
+# ---------------------------------------------------------------------------
+# A mixed model: layers 0-1 int8, layer 2 plain, on the layer-by-layer path
+# ---------------------------------------------------------------------------
+#
+# f32, so that the two ways to dequantize agree (the kernels' plain versions
+# round the scale to the activation dtype first, ``dequant`` - which the JAX
+# package takes on the CPU - multiplies in f32: the same weight in f32).
+# Tolerance 2e-4 of each tensor's scale, as above.
+
+MIXED_QUANT = {0: "int8", 1: "int8"}
+
+
+@pytest.fixture(scope="module")
+def mixed(tmp_path_factory):
+    from ai00_server_tpu.testing import make_params, make_raw_weights, tiny_info
+
+    info = tiny_info(ModelVersion.V7, num_layer=3, num_emb=128, head_size=64,
+                     num_vocab=64)
+    raw = make_raw_weights(info, seed=12, dtype=np.float32)
+    jparams = make_params(info, raw, dtype=np.float32, quant=MIXED_QUANT)
+    path = str(tmp_path_factory.mktemp("q") / "tiny.st")
+    jloader.save_safetensors(to_converted_layout(raw), path,
+                             dtype=np.float32)
+    return info, raw, jparams, {
+        "file": tloader.load_model(path, dtype=torch.float32, device="cpu",
+                                   quant=MIXED_QUANT).params,
+        "carried": tloader.params_from_numpy(
+            jax.tree.map(np.asarray, jparams), device="cpu"),
+        "made": ttesting.make_params(ttesting.tiny_info(
+            num_layer=3, num_emb=128, head_size=64, num_vocab=64), raw,
+            torch.float32, quant=MIXED_QUANT),
+    }
+
+
+@pytest.mark.parametrize("how", ["file", "carried", "made"])
+def test_mixed_params_hold_the_jax_codes(mixed, how):
+    from ai00_server_tpu_torch.ops import quant as tquant
+
+    _, _, jparams, tparams = mixed
+    layers = tparams[how]["layers"]
+    jq = jparams["groups"][0]["layers"]
+    assert [g["layer_index"].shape[0] for g in jparams["groups"]] == [2, 1]
+    for part, key in (("att", "receptance"), ("att", "key"), ("att", "value"),
+                      ("att", "output"), ("ffn", "key"), ("ffn", "value")):
+        views = [layers[i][part][key] for i in range(2)]
+        assert all(isinstance(v, tquant.QuantizedLayerView) for v in views)
+        assert views[0].qlin is views[1].qlin  # one stacked tensor per group
+        assert [v.idx for v in views] == [0, 1]
+        np.testing.assert_array_equal(views[0].qlin.q.numpy(),
+                                      np.asarray(jq[part][key].q))
+        np.testing.assert_array_equal(views[0].qlin.scale.numpy(),
+                                      np.asarray(jq[part][key].scale))
+        assert isinstance(layers[2][part][key], torch.Tensor)
+    assert isinstance(layers[0]["att"]["w1"], torch.Tensor)
+
+
+@pytest.mark.parametrize("impl", ["generic", "pallas_interpret"])
+@pytest.mark.parametrize("how", ["file", "carried"])
+def test_mixed_ragged_prefill_then_decode(mixed, how, impl, monkeypatch):
+    """``impl``: the JAX side on its generic CPU path, or with its T=1
+    kernels (``ffn7_t1_l``, ``wkv7_t1``) and the chunk kernel in interpret
+    mode."""
+    from ai00_server_tpu_torch.ops import ffn, quant_matmul
+
+    if impl != "generic":
+        monkeypatch.setenv("AI00_WKV_IMPL", impl)
+    info, _, jparams, tparams = mixed
+    params = tparams[how]
+    calls = {"ffn": 0, "l": 0}
+    real_ffn, real_l = ffn.ffn7_t1_l_plain, quant_matmul.matmul_int8_l_plain
+    monkeypatch.setattr(ffn, "ffn7_t1_l_plain", lambda *a: (
+        calls.__setitem__("ffn", calls["ffn"] + 1), real_ffn(*a))[1])
+    monkeypatch.setattr(quant_matmul, "matmul_int8_l_plain", lambda *a: (
+        calls.__setitem__("l", calls["l"] + 1), real_l(*a))[1])
+    rng = np.random.default_rng(3)
+    B, T = 3, 7
+    toks = _tokens(rng, info, B, T)
+    lens = np.array([7, 4, 0], np.int32)
+    jh, js = _run_jax(jparams, jv7.init_state(info, B), toks, lens)
+    th, ts = _run_torch(params, tv7.init_state(info, B), toks, lens)
+    mask = np.arange(T)[None, :] < lens[:, None]
+    close(th[mask], jh[mask])
+    for k in js:
+        close(ts[k], js[k])
+    # 21 rows: under 512, so the int8 layers' 12 products took matmul_int8_l
+    # (4 of the time mix and 2 of the channel mix, per layer) and no fused
+    # channel mix ran at T > 1.
+    assert calls == {"ffn": 0, "l": 12}
+
+    for _ in range(2):
+        t1 = _tokens(rng, info, B, 1)
+        l1 = np.array([1, 1, 0], np.int32)
+        jh, js = _run_jax(jparams, js, t1, l1)
+        prev_idle = {k: v[:, 2].copy() for k, v in ts.items()}
+        th, ts = _run_torch(params, _torch_state(ts), t1, l1)
+        close(th[:2], jh[:2])
+        for k in js:
+            close(ts[k], js[k])
+            np.testing.assert_array_equal(ts[k][:, 2], prev_idle[k])
+    # T = 1: per int8 layer four matmul_int8_l and one ffn7_t1_l.
+    assert calls == {"ffn": 4, "l": 12 + 16}

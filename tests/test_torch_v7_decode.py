@@ -18,6 +18,12 @@ Tolerances, relative to each tensor's largest magnitude:
   none flips (measured 0 on the hidden, ~3e-7 on the state); a wrong
   rounding point shows as whole percents.
 
+The same in the kernel's int8 mode (``-int8`` cases): every layer's six big
+projections quantized by the JAX loader (``quant={i: "int8"}``), the codes
+and scales carried across with ``params_from_numpy``, so both sides compute
+from the same codes; same tolerances (measured: f32 ~2e-6; bf16 0 on the
+hidden).
+
 An inactive row's state must be bit-identical in every case.
 """
 
@@ -33,6 +39,7 @@ import torch
 from ai00_server_tpu.models import ModelVersion
 from ai00_server_tpu.models import v7 as jv7
 from ai00_server_tpu.models.common import GN_EPS, LN_EPS
+from ai00_server_tpu.ops import fused_decode as jfdc
 from ai00_server_tpu.ops import v7_decode_pallas as jfd
 from ai00_server_tpu.testing import make_params, make_raw_weights, tiny_info
 
@@ -57,13 +64,16 @@ def to_np(t):
 
 
 @functools.lru_cache(maxsize=None)
-def make_pair(name):
-    """(dtype name, info, JAX params with layout, port params with layout)."""
+def make_pair(case):
+    """(dtype name, info, JAX params with layout, port params with layout)
+    for a case ``"<dtype>"`` or ``"<dtype>-int8"``."""
+    name, _, mode = case.partition("-")
     info = tiny_info(ModelVersion.V7, num_layer=L, num_emb=C, head_size=N,
                      num_vocab=V)
     raw = make_raw_weights(info, seed=7, dtype=np.float32)
     jdt = jnp.float32 if name == "float32" else jnp.bfloat16
-    jparams = make_params(info, raw, dtype=jdt)
+    jparams = make_params(info, raw, dtype=jdt,
+                          quant={i: mode for i in range(L)} if mode else None)
     tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
     assert jfd.can_fuse(jparams) and tfd.can_fuse(tparams)
     jparams = dict(jparams)
@@ -72,7 +82,8 @@ def make_pair(name):
     return name, info, jparams, tparams
 
 
-@pytest.fixture(scope="module", params=["float32", "bfloat16"])
+@pytest.fixture(scope="module", params=["float32", "bfloat16",
+                                        "float32-int8", "bfloat16-int8"])
 def pair(request):
     return make_pair(request.param)
 
@@ -95,18 +106,28 @@ def test_layout_equals_jax_array_for_array(pair):
     _, _, jparams, tparams = pair
     jl, tl = jparams[jfd.FUSED_KEY], tparams[tfd.FUSED_KEY]
     assert set(jl) == set(tl)
-    for key in jfd._FUSED_KEYS:
+    quantized = "Wr_q" in jl
+    for key in jfdc.expand_keys(jfd._FUSED_KEYS, jfd._BIG, jl):
         want = np.asarray(jl[key].astype(jnp.float32))
         got = tl[key]
-        if isinstance(got, list):  # the params' own per-layer tensors
+        if isinstance(got, list):
             layer = [p["att" if key[0] in "Wwavg" else "ffn"]
                      for p in tparams["layers"]]
-            assert all(any(t is v for v in p.values())
-                       for t, p in zip(got, layer)), key
+            if key[-2:] in ("_q", "_s"):
+                # Views into the group's stacked codes / scales: no copy.
+                part, name = jfd._BIG_SRC[key[:-2]]
+                qlin = tparams["layers"][0][part][name].qlin
+                whole = qlin.q if key.endswith("_q") else qlin.scale
+                assert all(t.data_ptr() == whole[i].data_ptr()
+                           for i, t in enumerate(got)), key
+            else:  # the params' own per-layer tensors
+                assert all(any(t is v for v in p.values())
+                           for t, p in zip(got, layer)), key
             got = torch.stack(got)
         assert str(got.dtype) == "torch." + str(jl[key].dtype), key
         np.testing.assert_array_equal(to_np(got), want, err_msg=key)
     assert tl["vecs"].dtype == torch.float32
+    assert quantized == ("Wr" not in tl)
 
 
 def test_step_with_inactive_row_equals_jax(pair):
@@ -245,6 +266,42 @@ def test_skinny_matmul_plain_equals_kernel_lines(name, epi):
 
 
 @pytest.mark.parametrize("name", ["float32", "bfloat16"])
+@pytest.mark.parametrize("epi", ["rkv", "ffn_key", "residual"])
+def test_skinny_matmul_int8_plain_equals_kernel_lines(name, epi):
+    """The same epilogues on int8 codes: the weight is what
+    ``fused_decode.make_W`` hands the Pallas kernel (:106-117)."""
+    from ai00_server_tpu.ops import quant as jquant
+
+    act, _, round_cd, out = EPILOGUES[epi]
+    rng = np.random.default_rng(len(epi))
+    B, K, Nout, cd = 3, 256, 40, JDT[name]
+    x = jnp.asarray(rng.standard_normal((B, K)), cd)
+    jq = jquant.quantize_int8(
+        (0.2 * rng.standard_normal((K, Nout))).astype(np.float32))
+    y0 = rng.standard_normal((B, Nout)).astype(np.float32)
+
+    W = jfdc.make_W({"W_q": jq.q[None], "W_s": jq.scale[None]}, "int8", None,
+                    cd)("W")
+    assert W.dtype == cd and W.shape == (K, Nout)
+    s = jnp.dot(x, W, preferred_element_type=jnp.float32)
+    if act == "relu2":
+        s = jnp.square(jnp.maximum(s, 0.0))
+    if out == "add":
+        want = y0 + s
+    else:
+        want = s.astype(cd).astype(jnp.float32)
+
+    y = as_torch(y0)
+    (got,) = tfd.v7_skinny_matmul([tfd.Product(
+        as_torch(x, TDT[name]), torch.from_numpy(np.array(jq.q)),
+        scale=torch.from_numpy(np.array(jq.scale)), act=act,
+        round_cd=round_cd, out=out, y=y if out == "add" else None)])
+    assert got.dtype == (TDT[name] if out == "cd" else torch.float32)
+    rounded = name == "bfloat16" and out != "add"
+    assert rel(to_np(got), want) <= (2.0 ** -7 if rounded else 5e-6)
+
+
+@pytest.mark.parametrize("name", ["float32", "bfloat16"])
 @pytest.mark.parametrize("is_first", [True, False])
 def test_wkv_gn_plain_equals_kernel_lines(name, is_first):
     """v7_decode_pallas._kernel lines 204-248, head by head."""
@@ -357,3 +414,31 @@ def test_can_fuse_is_about_the_model():
     for version in ("V4", "V5", "V6"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tfused.module_for(version)
+
+
+def test_can_fuse_uniform_int8_but_not_mixed():
+    """As tests/test_fused_decode.py:81-93 holds the reference: uniformly
+    int8 fuses, a model whose layers are partly int8 does not."""
+    info = tiny_info(ModelVersion.V7, num_layer=L, num_emb=C, head_size=N,
+                     num_vocab=V)
+    raw = make_raw_weights(info, seed=1, dtype=np.float32)
+
+    def both(quant):
+        jp = make_params(info, raw, dtype=np.float32, quant=quant)
+        return jp, params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+
+    jp, tp = both({i: "int8" for i in range(L)})
+    assert jfd.can_fuse(jp) and tfd.can_fuse(tp)
+    assert tfused.group_mode(tp["layers"][0], tfd._BIG_SRC) == "int8"
+    jp, tp = both({0: "int8"})
+    assert not jfd.can_fuse(jp) and not tfd.can_fuse(tp)
+    assert tfused.group_mode(tp["layers"][0], tfd._BIG_SRC) == "int8"
+    assert tfused.group_mode(tp["layers"][1], tfd._BIG_SRC) == "none"
+    # One layer with only some of its projections quantized has no mode.
+    from ai00_server_tpu_torch.ops import quant as tquant
+
+    odd = {**tp["layers"][1], "att": dict(tp["layers"][1]["att"])}
+    odd["att"]["key"] = tquant.QuantizedLayerView(
+        tp["layers"][0]["att"]["key"].qlin, 0)
+    assert tfused.group_mode(odd, tfd._BIG_SRC) is None
+    assert not tfd.can_fuse({**tp, "layers": [odd]})
