@@ -14,9 +14,13 @@
 // are T (the plain weights' type: bf16 or f32); the residual, the state and
 // every sum are f32, and values round through T at the points of the Pallas
 // kernel.  The six big projections of a layer may arrive as int8 codes with
-// per-128-row-block scales (the Pallas kernel's int8 mode): the product then
-// dequantizes in T as it loads, w = round_T(float(q) * round_T(s)), the
-// scale applied per block before the f32 sum.
+// per-128-row-block scales (the Pallas kernel's int8 mode) or as packed
+// 4-bit codes with per-64-row-block scales (its nf4 / sf4 / int4 modes): the
+// product then dequantizes in T as it loads, w = round_T(level *
+// round_T(s)), the scale applied per block before the f32 sum.  An int8
+// code is its own level; a nibble's level comes from the 16-entry table of
+// its mode, which the caller passes and the block keeps in shared memory
+// (16 words in 16 banks: no lookup conflicts).
 //
 // What bounds them on an H100 at the serving shape (B = 8, C = 1024,
 // F = 4096, bf16):
@@ -42,6 +46,11 @@
 //    is one scale block, a slice of 256 rows (K > 1024) two, and the
 //    scales are fetched with the first codes.  Half the bytes on half the
 //    blocks: the (1024, 1024) products run on 64 blocks.
+//    With packed 4-bit codes a byte row is two rows of K (block row i in the
+//    low nibbles, row 32 + i in the high ones), so a thread's 4 bytes are
+//    4 columns x 2 rows and its slice half as many loads: 8 words for 128
+//    rows of K (two scale blocks), 16 for 256 (four); the same 128-column
+//    blocks and the same split of K as int8.
 //  * v7_wkv_gn: bytes of the state (read once, written once for active
 //    rows), as wkv7_t1, with the vector prologue and the GroupNorm / bonus /
 //    gate epilogue fused around the same register layout.
@@ -175,6 +184,7 @@ struct MMProblem {
 struct MMGroup {
   MMProblem p[MM_MAXP];
   int n;
+  float levels[16];  // 4-bit codes: what a nibble decodes to
 };
 
 template <typename T>
@@ -221,13 +231,16 @@ __device__ __forceinline__ void unpack4(uint32_t r, float (&w)[4],
   }
 }
 
-constexpr int MM_QB = 128;  // rows per scale block of int8 codes
+constexpr int MM_QB = 128;   // rows per scale block of int8 codes
+constexpr int MM_QB4 = 64;   // rows per scale block of 4-bit codes
 
-// Q: the weights are int8 codes with per-block scales.
-template <typename T, bool Q>
+// WQ: bits per weight code (8: int8 codes, 4: packed nibbles, each with
+// per-block scales), or 0 for plain weights of type T.
+template <typename T, int WQ>
 __global__ void __launch_bounds__(MM_THREADS)
 skinny_matmul_kernel(const MMGroup g, int B, float* scratch,
                      unsigned int* counters) {
+  constexpr bool Q = WQ != 0, Q4 = WQ == 4;
   // Columns per thread (4 bytes of a row): 4 codes / 2 bf16 / 1 f32.
   constexpr int CPT = Q ? 4 : 4 / (int)sizeof(T);
   constexpr int TN = 32 * CPT;         // columns per block: a warp spans them
@@ -235,8 +248,11 @@ skinny_matmul_kernel(const MMGroup g, int B, float* scratch,
   constexpr int UN = MM_UNROLL;
   __shared__ __align__(16) float xs[MM_KB_MAX * MM_NB];  // [k][b]
   __shared__ __align__(16) float red[WARPS][MM_NB][TN];
+  __shared__ float lut[16];
   __shared__ bool is_last;
 
+  if (Q4 && threadIdx.x < 16)  // visible after the barrier behind the staging
+    lut[threadIdx.x] = g.levels[threadIdx.x];
   int pi = 0;
   while (pi + 1 < g.n && (int)blockIdx.x >= g.p[pi + 1].blk0) ++pi;
   const MMProblem& P = g.p[pi];
@@ -249,31 +265,37 @@ skinny_matmul_kernel(const MMGroup g, int B, float* scratch,
   const int col = col0 + lane * CPT;
   const bool col_ok = col < P.N;  // N is a multiple of CPT: all in or all out
 
-  // Warp w takes rows k0 + w, k0 + w + WARPS, ...: one row is 128
-  // contiguous bytes across the warp.  UN rows are in flight per thread;
-  // the first batch is asked for before anything else.
-  constexpr int WSIZE = Q ? 1 : (int)sizeof(T);  // bytes per weight
+  // Warp w takes rows r0 + w, r0 + w + WARPS, ... of the weight as it is
+  // stored - rows of K, or byte rows of packed 4-bit codes, two rows of K
+  // each: one row is 128 contiguous bytes across the warp.  UN rows are in
+  // flight per thread; the first batch is asked for before anything else.
+  constexpr int WSIZE = Q ? 1 : (int)sizeof(T);  // bytes per stored element
+  constexpr int RPK = Q4 ? 2 : 1;                // rows of K per stored row
+  const int r0 = k0 / RPK, r1 = k1 / RPK;
   const uint32_t* W = reinterpret_cast<const uint32_t*>(
       static_cast<const char*>(P.W) + (size_t)col * WSIZE);
   const size_t stride = (size_t)P.N * WSIZE / 4;  // row pitch in words
   uint32_t raw[UN];
-  auto load = [&](int kbase) {
+  auto load = [&](int rbase) {
 #pragma unroll
     for (int u = 0; u < UN; ++u) {
-      const int k = kbase + u * WARPS;
-      raw[u] = (col_ok && k < k1) ? __ldg(W + (size_t)k * stride) : 0u;
+      const int r = rbase + u * WARPS;
+      raw[u] = (col_ok && r < r1) ? __ldg(W + (size_t)r * stride) : 0u;
     }
   };
-  load(k0 + warp);
-  // The scales of this slice's one or two blocks, rounded to T (kb is 128
-  // or 256 and k0 a multiple of it).
-  float sc[2][4] = {};
+  load(r0 + warp);
+  // The scales of this slice's blocks, rounded to T (kb is 128 or 256 and k0
+  // a multiple of it): one or two blocks of int8 codes, two or four of
+  // 4-bit codes.
+  constexpr int SQB = Q4 ? MM_QB4 : MM_QB;
+  constexpr int NSC = MM_KB_MAX / SQB;
+  float sc[NSC][4] = {};
   if (Q && col_ok) {
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
-      if (k0 + j * MM_QB < k1) {
+    for (int j = 0; j < NSC; ++j)
+      if (k0 + j * SQB < k1) {
         const float4 v = __ldg(reinterpret_cast<const float4*>(
-            P.scale + (size_t)(k0 / MM_QB + j) * P.N + col));
+            P.scale + (size_t)(k0 / SQB + j) * P.N + col));
         sc[j][0] = rnd<T>(v.x);
         sc[j][1] = rnd<T>(v.y);
         sc[j][2] = rnd<T>(v.z);
@@ -307,29 +329,62 @@ skinny_matmul_kernel(const MMGroup g, int B, float* scratch,
 #pragma unroll
     for (int e = 0; e < CPT; ++e) acc[b][e] = 0.f;
 
-  for (int kbase = k0 + warp; kbase < k1; kbase += UN * WARPS) {
-    if (kbase != k0 + warp) load(kbase);
-    // UN * WARPS = 128 rows per pass: one scale block.
-    const bool hi = kbase - k0 >= MM_QB;
-    const float sv[4] = {hi ? sc[1][0] : sc[0][0], hi ? sc[1][1] : sc[0][1],
-                         hi ? sc[1][2] : sc[0][2], hi ? sc[1][3] : sc[0][3]};
+  // Row k of the staged inputs: the batch rows' values, as floats.
+  auto inputs = [&](int k, float (&xv)[MM_NB]) {
+    const float4 xa = *reinterpret_cast<const float4*>(&xs[k * MM_NB]);
+    const float4 xb = *reinterpret_cast<const float4*>(&xs[k * MM_NB + 4]);
+    xv[0] = xa.x, xv[1] = xa.y, xv[2] = xa.z, xv[3] = xa.w;
+    xv[4] = xb.x, xv[5] = xb.y, xv[6] = xb.z, xv[7] = xb.w;
+  };
+
+  if constexpr (Q4) {
+    // One pass: UN * WARPS = 128 byte rows = 256 rows of K = MM_KB_MAX.
+    // Byte row warp + 8 u of the slice lies in scale block u / 4, at block
+    // byte row i = warp + 8 (u % 4): K rows 64 (u / 4) + i (low nibbles)
+    // and + 32 (high nibbles).
 #pragma unroll
     for (int u = 0; u < UN; ++u) {
-      const int k = kbase + u * WARPS;
-      if (k < k1) {  // uniform over the warp
-        float wv[CPT];
-        unpack4<T>(raw[u], wv, sv);
-        const float4 xa =
-            *reinterpret_cast<const float4*>(&xs[(k - k0) * MM_NB]);
-        const float4 xb =
-            *reinterpret_cast<const float4*>(&xs[(k - k0) * MM_NB + 4]);
-        const float xv[MM_NB] = {xa.x, xa.y, xa.z, xa.w,
-                                 xb.x, xb.y, xb.z, xb.w};
+      constexpr int HALF = MM_QB4 / 2;
+      const int j = u / 4;
+      const int klo = MM_QB4 * j + warp + WARPS * (u % 4);
+      if (r0 + warp + u * WARPS < r1) {  // uniform over the warp
+        float wlo[4], whi[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const uint32_t byte = (raw[u] >> (8 * e)) & 0xffu;
+          wlo[e] = rnd<T>(lut[byte & 15u] * sc[j][e]);
+          whi[e] = rnd<T>(lut[byte >> 4] * sc[j][e]);
+        }
+        float xl[MM_NB], xh[MM_NB];
+        inputs(klo, xl);
+        inputs(klo + HALF, xh);
 #pragma unroll
         for (int b = 0; b < MM_NB; ++b)
 #pragma unroll
-          for (int e = 0; e < CPT; ++e)
-            acc[b][e] = fmaf(xv[b], wv[e], acc[b][e]);
+          for (int e = 0; e < 4; ++e)
+            acc[b][e] = fmaf(xh[b], whi[e], fmaf(xl[b], wlo[e], acc[b][e]));
+      }
+    }
+  } else {
+    for (int kbase = k0 + warp; kbase < k1; kbase += UN * WARPS) {
+      if (kbase != k0 + warp) load(kbase);
+      // UN * WARPS = 128 rows per pass: one scale block of int8 codes.
+      const bool hi = kbase - k0 >= MM_QB;
+      const float sv[4] = {hi ? sc[1][0] : sc[0][0], hi ? sc[1][1] : sc[0][1],
+                           hi ? sc[1][2] : sc[0][2], hi ? sc[1][3] : sc[0][3]};
+#pragma unroll
+      for (int u = 0; u < UN; ++u) {
+        const int k = kbase + u * WARPS;
+        if (k < k1) {  // uniform over the warp
+          float wv[CPT], xv[MM_NB];
+          unpack4<T>(raw[u], wv, sv);
+          inputs(k - k0, xv);
+#pragma unroll
+          for (int b = 0; b < MM_NB; ++b)
+#pragma unroll
+            for (int e = 0; e < CPT; ++e)
+              acc[b][e] = fmaf(xv[b], wv[e], acc[b][e]);
+        }
       }
     }
   }
@@ -524,25 +579,33 @@ int v7_ln_mix_launch(const float* x, const void* ln, float* shift,
 
 // desc: n_prob rows of 8 int64 on the HOST: x, W, y, bias (pointers; bias
 // may be 0), K, N, act | round_t << 8 | out << 16, scale (pointer, or 0
-// for a plain weight; all of a launch's products or none).  With a scale W
-// holds int8 codes, K is a multiple of 128 and N of 4.  The rows'
+// for a plain weight).  wbits says what all of the launch's W hold: 0 plain
+// weights of type T (no scales); 8 int8 codes (K / 128, 128, N), K a
+// multiple of 128; 4 packed 4-bit codes (K / 64, 32, N), K a multiple of 64,
+// with levels = 16 int32 on the host, what a nibble decodes to.  With codes
+// N is a multiple of 4 and every product has its scale.  The rows'
 // inputs and outputs hold B rows; B above MM_NB runs as further launches
 // of MM_NB rows each.  scratch / counters: device work space of
 // scratch_floats floats and n_counters zeroed uint32 (left zeroed).
 int v7_skinny_matmul_launch(const int64_t* desc, int n_prob, int B, int dtype,
-                            float* scratch, int scratch_floats,
-                            unsigned int* counters, int n_counters,
-                            void* stream) {
-  if (n_prob <= 0 || n_prob > MM_MAXP || B <= 0 || (dtype != 0 && dtype != 1))
+                            int wbits, const int32_t* levels, float* scratch,
+                            int scratch_floats, unsigned int* counters,
+                            int n_counters, void* stream) {
+  if (n_prob <= 0 || n_prob > MM_MAXP || B <= 0 ||
+      (dtype != 0 && dtype != 1) || (wbits != 0 && wbits != 8 && wbits != 4) ||
+      (wbits == 4) != (levels != nullptr))
     return (int)cudaErrorInvalidValue;
   const size_t tsize = dtype == 1 ? 2 : 4;
-  const bool quant = desc[7] != 0;
+  const bool quant = wbits != 0;
+  const int qblock = wbits == 4 ? MM_QB4 : MM_QB;
   const int cpt = quant ? 4 : 4 / (int)tsize;  // columns per thread
   const int tn = 32 * cpt;                     // columns per block
   cudaStream_t st = (cudaStream_t)stream;
   for (int b0 = 0; b0 < B; b0 += MM_NB) {
     MMGroup g;
     g.n = n_prob;
+    for (int i = 0; i < 16; ++i)
+      g.levels[i] = levels != nullptr ? (float)levels[i] : 0.f;
     int blocks = 0, scr = 0, cnt = 0;
     for (int i = 0; i < n_prob; ++i) {
       const int64_t* d = desc + 8 * i;
@@ -551,7 +614,7 @@ int v7_skinny_matmul_launch(const int64_t* desc, int n_prob, int B, int dtype,
       P.N = (int)d[5];
       P.scale = (const float*)(uintptr_t)d[7];
       if (P.K <= 0 || P.N <= 0 || P.N % cpt || (P.scale != nullptr) != quant ||
-          (quant && P.K % MM_QB))
+          (quant && P.K % qblock))
         return (int)cudaErrorInvalidValue;
       P.act = (int)(d[6] & 0xff);
       P.round_t = (int)((d[6] >> 8) & 0xff);
@@ -576,17 +639,23 @@ int v7_skinny_matmul_launch(const int64_t* desc, int n_prob, int B, int dtype,
     if (scr > scratch_floats || cnt > n_counters)
       return (int)cudaErrorInvalidValue;
     const int rows = B - b0 < MM_NB ? B - b0 : MM_NB;
-    if (dtype == 1 && quant)
-      skinny_matmul_kernel<__nv_bfloat16, true><<<blocks, MM_THREADS, 0, st>>>(
+    if (dtype == 1 && wbits == 4)
+      skinny_matmul_kernel<__nv_bfloat16, 4><<<blocks, MM_THREADS, 0, st>>>(
+          g, rows, scratch, counters);
+    else if (dtype == 1 && wbits == 8)
+      skinny_matmul_kernel<__nv_bfloat16, 8><<<blocks, MM_THREADS, 0, st>>>(
           g, rows, scratch, counters);
     else if (dtype == 1)
-      skinny_matmul_kernel<__nv_bfloat16, false>
-          <<<blocks, MM_THREADS, 0, st>>>(g, rows, scratch, counters);
-    else if (quant)
-      skinny_matmul_kernel<float, true><<<blocks, MM_THREADS, 0, st>>>(
+      skinny_matmul_kernel<__nv_bfloat16, 0><<<blocks, MM_THREADS, 0, st>>>(
+          g, rows, scratch, counters);
+    else if (wbits == 4)
+      skinny_matmul_kernel<float, 4><<<blocks, MM_THREADS, 0, st>>>(
+          g, rows, scratch, counters);
+    else if (wbits == 8)
+      skinny_matmul_kernel<float, 8><<<blocks, MM_THREADS, 0, st>>>(
           g, rows, scratch, counters);
     else
-      skinny_matmul_kernel<float, false><<<blocks, MM_THREADS, 0, st>>>(
+      skinny_matmul_kernel<float, 0><<<blocks, MM_THREADS, 0, st>>>(
           g, rows, scratch, counters);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;

@@ -1,7 +1,8 @@
 """Batched inference engine: merged steps and K-token decode over a state
 pool on one device.
 
-Port of ``ai00_server_tpu/engine.py`` for RWKV-7, plain or int8:
+Port of ``ai00_server_tpu/engine.py`` for RWKV-7, plain or quantized (int8,
+nf4, sf4, int4):
 
 * All ``max_batch`` request slots live in ONE state pool on the device,
   leading axes ``(L, B, ...)``.  Where the JAX engine replaces its pool
@@ -13,9 +14,12 @@ Port of ``ai00_server_tpu/engine.py`` for RWKV-7, plain or int8:
   (``ops/v7_decode.make_fused_layout``) where the model allows it, and on
   a CUDA device captures the whole T=1 layer stack once in a CUDA graph
   (``ops/v7_decode.DecodeGraph``) that every decode step replays; the LM
-  head and sampling run eagerly after it.  A model whose layers are partly
-  int8 keeps to the layer-by-layer path and gets no graph.
-* A model with any quantized layer also stores the LM head int8
+  head and sampling run eagerly after it.  A model whose layers are only
+  partly quantized keeps to the layer-by-layer path and gets no graph.
+  4-bit models decode from their packed codes (the reference's int8
+  surrogate of them is not carried over).
+* A model with any quantized layer, in whatever mode, also stores the LM
+  head int8
   (``_head_q``, per-128-row-block scales, quantized on the device at
   construction; the plain head is dropped) and takes its logits through
   ``ops/quant_matmul.matmul_int8`` with the f32 sums un-rounded.

@@ -3,7 +3,8 @@
 Port of ``ai00_server_tpu/loader.py`` (``load_safetensors``,
 ``save_safetensors``, ``to_math_layout``, ``load_model``, ``stack_params``
 at its lines 78-193 and 264-479) for RWKV-7 checkpoints, plain bf16/f32 or
-with the first N layers int8-quantized (``quant={i: "int8"}``).
+with the first N layers quantized (``quant={i: "int8" | "nf4" | "sf4" |
+"int4"}``).
 
 The numpy half (reading the file, undoing the converter's orientation) is
 this package's own copy.  The params are PyTorch tensors on one device:
@@ -108,7 +109,8 @@ def load_model(path: str, dtype: torch.dtype = torch.bfloat16,
                quant: dict | None = None) -> LoadedModel:
     """Read a converted ``.st`` RWKV-7 checkpoint onto ``device``.
 
-    ``quant``: {layer_index: "int8"} per-layer quantization map."""
+    ``quant``: {layer_index: "int8" | "nf4" | "sf4" | "int4"} per-layer
+    quantization map."""
     if not path.endswith(".st"):
         raise NotImplementedError(
             f"{path!r}: this port loads converted .st checkpoints only; "
@@ -167,8 +169,9 @@ def stack_params(info: ModelInfo, math: dict[str, np.ndarray],
                  quant: dict | None = None) -> dict:
     """Math-layout v7 weights -> the forward params (one dict per layer).
 
-    ``quant``: {layer_index: "int8"}; the big projections of those layers
-    become int8 codes, grouped by contiguous runs of one mode."""
+    ``quant``: {layer_index: "int8" | "nf4" | "sf4" | "int4"}; the big
+    projections of those layers become codes of that mode, grouped by
+    contiguous runs of one mode."""
     _v7_only(info)
     C, L = info.num_emb, info.num_layer
     modes = [(quant or {}).get(i, "none") for i in range(L)]

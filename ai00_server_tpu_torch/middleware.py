@@ -1,16 +1,16 @@
 """Model lifecycle: load and unload one model environment.
 
 Port of ``ai00_server_tpu/middleware.py`` for ``.st`` RWKV-7 checkpoints,
-plain or with the first ``quant`` layers int8 (``quant_type = "Int8"``):
+plain or with the first ``quant`` layers quantized (``quant_type = "Int8"``,
+``"NF4"``, ``"SF4"`` or ``"Int4"``):
 
 * ``reload(ReloadRequest)`` — read the checkpoint onto the device, load
   the tokenizer, build the kernels, start the engine and runtime.
 * ``unload()`` — drain the runtime and drop the environment.
 * ``info()`` — RuntimeInfo for ``/api/models/info``.
 
-Request fields for later slices (4-bit quantization, LoRA, ``.state``
-files, BNF options, a device mesh) raise ``NotImplementedError`` naming their
-ROADMAP item.
+Request fields for later slices (LoRA, ``.state`` files, BNF options, a
+device mesh) raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ import torch
 from .device import resolve_device
 from .engine import Engine
 from .loader import LoadedModel, load_model
+from .ops.quant import MODES as QUANT_MODES
 from .runtime import Runtime
 from .tokenizer import Tokenizer
 
@@ -74,20 +75,21 @@ class ReloadRequest:
         }
 
     def quant_map(self) -> dict | None:
-        """{layer index: mode} for the first ``quant`` layers, or None."""
+        """{layer index: mode} for the first ``quant`` layers, or None.
+        An unknown ``quant_type`` raises: loading the model unquantized
+        instead would silently take several times the memory asked for."""
+        if self.quant <= 0:
+            return None
         mode = self.quant_type.lower()
-        if self.quant > 0 and mode == "int8":
-            return {i: mode for i in range(self.quant)}
-        return None
+        if mode not in QUANT_MODES:
+            raise ValueError(
+                f"quant_type {self.quant_type!r}: one of Int8, NF4, SF4, "
+                "Int4")
+        return {i: mode for i in range(self.quant)}
 
     def check_supported(self) -> None:
         """Raise for what this slice does not serve yet."""
-        if self.quant > 0 and self.quant_type.lower() in ("nf4", "sf4",
-                                                          "int4"):
-            raise NotImplementedError(
-                f"quant_type {self.quant_type!r}: NF4 / SF4 / int4 are "
-                "ROADMAP queue 1 item 2 (4-bit and prefab); this port "
-                "serves Int8")
+        self.quant_map()  # an unknown quant_type
         if self.lora or self.state:
             raise NotImplementedError(
                 "LoRA and .state files are the ROADMAP '.state files, LoRA "

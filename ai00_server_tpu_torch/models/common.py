@@ -116,7 +116,8 @@ def channel_mix_v7(p, shift, x, lengths):
 
         out, new_shift = ffn7_t1_l(
             x[:, 0].contiguous(), shift, p["x_k"], lengths > 0, key.qlin.q,
-            key.qlin.scale, val.qlin.q, val.qlin.scale, key.idx)
+            key.qlin.scale, val.qlin.q, val.qlin.scale, key.idx,
+            qmode=key.mode)
         return out[:, None].to(x.dtype), new_shift
     xp = token_shift(shift, x)
     xk = x + (xp - x) * p["x_k"]

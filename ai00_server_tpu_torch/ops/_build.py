@@ -40,9 +40,9 @@ SIGNATURES = {
     "v7_decode": {
         # x, ln, shift, mix, active, out, B, C, n_mix, dtype, stream
         "v7_ln_mix_launch": "ppppppiiiip",
-        # desc (host), n_prob, B, dtype, scratch, scratch_floats, counters,
-        # n_counters, stream
-        "v7_skinny_matmul_launch": "piiipipip",
+        # desc (host), n_prob, B, dtype, wbits, levels (host), scratch,
+        # scratch_floats, counters, n_counters, stream
+        "v7_skinny_matmul_launch": "piiiippipip",
         # r, k, v, w, a, g, vmix, v_first, vecs, active, S, out, B, H, N,
         # is_first, dtype, stream
         "v7_wkv_gn_launch": "ppppppppppppiiiiip",
@@ -57,10 +57,16 @@ SIGNATURES = {
         # x, q, s, l, y, R, K, N, dtype, out_f32, scratch, scratch_floats,
         # counters, n_counters, stream
         "matmul_int8_l_launch": "pppipiiiiipipip",
-        # xf, shift, mix_k, active, key_q, key_s, val_q, val_s, l, out,
-        # new_shift, hk, B, C, F, dtype, scratch, scratch_floats, counters,
-        # n_counters, stream
-        "ffn7_t1_l_launch": "ppppppppipppiiiipipip",
+        # x, q, s, levels (host), y, R, K, N, dtype, out_f32, scratch,
+        # scratch_floats, counters, n_counters, stream
+        "matmul_4bit_launch": "pppppiiiiipipip",
+        # x, q, s, levels (host), l, y, R, K, N, dtype, out_f32, scratch,
+        # scratch_floats, counters, n_counters, stream
+        "matmul_4bit_l_launch": "ppppipiiiiipipip",
+        # xf, shift, mix_k, active, key_q, key_s, val_q, val_s, levels (host,
+        # null for int8), l, out, new_shift, hk, B, C, F, dtype, scratch,
+        # scratch_floats, counters, n_counters, stream
+        "ffn7_t1_l_launch": "pppppppppipppiiiipipip",
     },
 }
 

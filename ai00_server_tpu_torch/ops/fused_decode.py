@@ -5,11 +5,14 @@ RWKV version, all with the same surface: ``FUSED_KEY``, ``can_fuse(params)``,
 ``make_fused_layout(params)``, ``supports(params)``, ``forward_t1(...)``.
 
 ``group_mode`` and ``big_layout_entries`` (the JAX module's lines 34 and 67)
-let a kernel module take the big projections as plain weights or as int8
-codes + scales; here they look at ONE layer's dict, since the port keeps a
-dict per layer.  The JAX module's ``make_W`` (the in-kernel dequantize) is
-the weight load of ``v7_skinny_matmul`` in ``csrc/v7_decode.cu``; the 4-bit
-tables (``mode_packs``) come with ROADMAP queue 1 item 2.
+let a kernel module take the big projections as plain weights or as codes +
+scales (int8, nf4, sf4, int4); here they look at ONE layer's dict, since the
+port keeps a dict per layer.  The JAX module's ``make_W`` (the in-kernel
+dequantize) is the weight load of ``v7_skinny_matmul`` in
+``csrc/v7_decode.cu``.  Its ``mode_packs`` hands the Pallas kernel a 4-bit
+mode's levels as four packed constants for a select tree; the card's kernel
+gathers from a 16-entry table in shared memory instead, so the counterpart
+is the plain tuple ``ops.quant.LEVELS[mode]``.
 """
 
 from __future__ import annotations
@@ -29,8 +32,9 @@ def module_for(version: str):
 
 
 def group_mode(layer: dict, big_src: dict):
-    """``"none"`` / ``"int8"`` when the layer's big projections are
-    uniformly plain or uniformly quantized in one mode; None otherwise."""
+    """``"none"`` / ``"int8"`` / ``"nf4"`` / ``"sf4"`` / ``"int4"`` when the
+    layer's big projections are uniformly plain or uniformly quantized in
+    one mode; None otherwise."""
     modes = {layer[part][key].mode if is_quantized(layer[part][key])
              else "none" for part, key in big_src.values()}
     return modes.pop() if len(modes) == 1 else None

@@ -1,32 +1,44 @@
-"""Int8 dequant-in-matmul: ``y = x @ (codes * per-block scale)``.
+"""Dequant-in-matmul: ``y = x @ (level(codes) * per-block scale)`` on int8
+codes and on packed 4-bit codes (nf4 / sf4 / int4).
 
-Port of ``ai00_server_tpu/ops/quant_pallas.py:matmul_int8`` and
-``matmul_int8_l`` (the int8 half of that module) onto one hand-written
-CUDA kernel with two entry points (``csrc/quant.cu``; the note there says
-what bounds it and what its design does about it).  The codes cross device
-memory once, as int8, for all rows; the second entry point takes the
-STACKED codes of a layer group and a layer index and offsets the base
-pointers, so no layer is ever sliced into a copy.
+Port of ``ai00_server_tpu/ops/quant_pallas.py`` (``matmul_int8``,
+``matmul_int8_l``, ``matmul_4bit``, ``matmul_4bit_l``, ``decode_nibble``,
+``dequant4_tile``) onto one hand-written CUDA kernel per code width, each
+with two entry points (``csrc/quant.cu``; the note there says what bounds
+them and what their design does about it).  The codes cross device memory
+once, as stored, for all rows; the ``_l`` entry points take the STACKED
+codes of a layer group and a layer index and offset the base pointers, so
+no layer is ever sliced into a copy.  The three 4-bit modes differ only in
+their 16 integer levels (``ops.quant.LEVELS``), which the kernel takes as a
+table: one kernel serves all three.
 
 Rounding follows the Pallas kernels: the weight is dequantized in the
-activation dtype ``cd`` — ``w = q.astype(cd) * s.astype(cd)``, so in bf16
-the scale is rounded first and the product again — and ``x . w`` is summed
-in f32.  (``QuantizedLinear.dequant`` multiplies in f32 and rounds once;
-that is the prefill form.)
+activation dtype ``cd`` — ``w = level.astype(cd) * s.astype(cd)``, so in
+bf16 the scale is rounded first and the product again (the levels are exact
+in bf16) — and ``x . w`` is summed in f32.  (``QuantizedLinear.dequant``
+multiplies in f32 and rounds once; that is the prefill form.)
 
-Beside the wrappers stands the plain PyTorch version,
-:func:`matmul_int8_plain`; a wrapper runs it only for CPU tensors, and on a
-CUDA tensor it launches the kernel or raises.
+The wrappers are for decode shapes: the codes are read once per 8 rows.
+``ops.quant`` sends 512 rows and more to ``dequant()`` and one large
+product for every mode; the reference keeps 4-bit on its kernel at all row
+counts only because its device has no fast table gather, which is not
+carried over.
+
+Beside the wrappers stand the plain PyTorch versions (``*_plain``); a
+wrapper runs one only for CPU tensors, and on a CUDA tensor it launches the
+kernel or raises.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
 
 from . import _build
-from .quant import INT8_BLOCK
+from .quant import (INT8_BLOCK, LEVELS, NF4_BLOCK, levels_tensor,
+                    unpack_codes)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -40,6 +52,27 @@ def dequant_cd(q, scale, cd):
                                             q.shape[-1]))
 
 
+def decode_nibble(codes, mode: str, cd):
+    """Nibbles (uint8 in [0, 16)) -> their integer levels in ``cd``."""
+    return levels_tensor(mode, cd, codes.device)[codes.long()]
+
+
+def dequant4_cd(q, scale, mode: str, cd):
+    """Packed codes ``(..., nb, 32, out)`` uint8 and scales ``(..., nb, 1,
+    out)`` -> the ``(..., in, out)`` weight in ``cd``, rounded as the
+    kernels round it: the scale to ``cd`` first, then level x scale."""
+    w = decode_nibble(unpack_codes(q), mode, cd) * scale.to(cd)
+    return w.reshape(tuple(q.shape[:-3]) + (q.shape[-3] * NF4_BLOCK,
+                                            q.shape[-1]))
+
+
+def dequant_mode_cd(q, scale, mode: str, cd):
+    """:func:`dequant_cd` or :func:`dequant4_cd` by ``mode``."""
+    if mode == "int8":
+        return dequant_cd(q, scale, cd)
+    return dequant4_cd(q, scale, mode, cd)
+
+
 def matmul_int8_plain(x, q, scale, out_dtype=None):
     """The plain PyTorch version of :func:`matmul_int8`."""
     w = dequant_cd(q, scale, x.dtype)
@@ -50,6 +83,17 @@ def matmul_int8_plain(x, q, scale, out_dtype=None):
 def matmul_int8_l_plain(x, q, scale, l: int):
     """The plain PyTorch version of :func:`matmul_int8_l`."""
     return matmul_int8_plain(x, q[l], scale[l])
+
+
+def matmul_4bit_plain(x, q, scale, mode: str = "nf4"):
+    """The plain PyTorch version of :func:`matmul_4bit`."""
+    w = dequant4_cd(q, scale, mode, x.dtype)
+    return torch.matmul(x.float(), w.float()).to(x.dtype)
+
+
+def matmul_4bit_l_plain(x, q, scale, l: int, mode: str = "nf4"):
+    """The plain PyTorch version of :func:`matmul_4bit_l`."""
+    return matmul_4bit_plain(x, q[l], scale[l], mode)
 
 
 def _require(cond: bool, what: str) -> None:
@@ -93,17 +137,34 @@ def workspace(dev, shapes) -> _Workspace:
     return ws.ensure(dev, max(n[0] for n in needs), max(n[1] for n in needs))
 
 
-def check_codes(q, scale, ndim: int, dev) -> tuple[int, int]:
-    """Validate codes ``(..., nb, 128, out)`` / scales ``(..., nb, 1,
-    out)`` for the kernels; returns ``(in, out)``."""
+def _require_4bit(mode: str) -> None:
+    _require(mode in LEVELS, f"unknown 4-bit mode {mode!r}: one of "
+             f"{', '.join(LEVELS)}")
+
+
+def levels_table(mode: str):
+    """The 16 levels of a 4-bit mode as a host ``int32[16]`` for a
+    launcher (keep it alive across the call)."""
+    _require_4bit(mode)
+    return (ctypes.c_int32 * 16)(*LEVELS[mode])
+
+
+def check_codes(q, scale, ndim: int, dev, mode: str = "int8") -> tuple[int,
+                                                                       int]:
+    """Validate codes / scales ``(..., nb, 1, out)`` for the kernels —
+    int8 codes ``(..., nb, 128, out)``, or for a 4-bit mode packed uint8
+    ``(..., nb, 32, out)`` (``in = nb * 64``); returns ``(in, out)``."""
     _require(q.ndim == ndim and scale.ndim == ndim,
              f"codes and scales must have {ndim} dims, got "
              f"{tuple(q.shape)} / {tuple(scale.shape)}")
     *lead, nb, blk, out = q.shape
-    _require(q.dtype == torch.int8 and blk == INT8_BLOCK
-             and q.is_contiguous(),
-             f"codes must be contiguous int8 (..., nb, {INT8_BLOCK}, out), "
-             f"got {q.dtype} {tuple(q.shape)}")
+    if mode == "int8":
+        dtype, rows, block = torch.int8, INT8_BLOCK, INT8_BLOCK
+    else:
+        dtype, rows, block = torch.uint8, NF4_BLOCK // 2, NF4_BLOCK
+    _require(q.dtype == dtype and blk == rows and q.is_contiguous(),
+             f"{mode} codes must be contiguous {dtype} (..., nb, {rows}, "
+             f"out), got {q.dtype} {tuple(q.shape)}")
     _require(scale.dtype == torch.float32 and scale.is_contiguous()
              and tuple(scale.shape) == (*lead, nb, 1, out),
              f"scales must be contiguous f32 {(*lead, nb, 1, out)}, got "
@@ -113,10 +174,11 @@ def check_codes(q, scale, ndim: int, dev) -> tuple[int, int]:
              "codes must be 4-byte and scales 16-byte aligned")
     _require(q.device == dev and scale.device == dev,
              "all operands must be on one device")
-    return nb * blk, out
+    return nb * block, out
 
 
-def _launch(x, q, scale, l: int, stacked: bool, out_dtype):
+def _launch(x, q, scale, l: int, stacked: bool, out_dtype,
+            mode: str = "int8"):
     dev = x.device
     _require(dev.type == "cuda", f"unsupported device {dev}")
     cd = x.dtype
@@ -124,7 +186,7 @@ def _launch(x, q, scale, l: int, stacked: bool, out_dtype):
     out_dtype = out_dtype or cd
     _require(out_dtype in (cd, torch.float32),
              f"out_dtype must be {cd} or float32, got {out_dtype}")
-    K, N = check_codes(q, scale, 4 if stacked else 3, dev)
+    K, N = check_codes(q, scale, 4 if stacked else 3, dev, mode)
     _require(x.shape[-1] == K, f"x has {x.shape[-1]} features, codes {K}")
     if stacked:
         _require(0 <= l < q.shape[0], f"layer {l} of {q.shape[0]}")
@@ -142,11 +204,16 @@ def _launch(x, q, scale, l: int, stacked: bool, out_dtype):
             ws.counters.data_ptr(), ws.counters.numel(),
             torch.cuda.current_stream(dev).cuda_stream)
     head = (xr.data_ptr(), q.data_ptr(), scale.data_ptr())
-    if stacked:
-        status = lib.matmul_int8_l_launch(*head, l, *tail)
+    if mode == "int8":
+        name = "matmul_int8_l" if stacked else "matmul_int8"
+        mid = (l,) if stacked else ()
     else:
-        status = lib.matmul_int8_launch(*head, *tail)
-    _build.check(status, "matmul_int8_l" if stacked else "matmul_int8")
+        name = "matmul_4bit_l" if stacked else "matmul_4bit"
+        table = levels_table(mode)
+        mid = (ctypes.addressof(table), l) if stacked else (
+            ctypes.addressof(table),)
+    status = getattr(lib, name + "_launch")(*head, *mid, *tail)
+    _build.check(status, name)
     return y.reshape(lead + (N,)), -(-R // 8)
 
 
@@ -180,3 +247,36 @@ def matmul_int8_l(x, q, scale, l: int):
 
 
 matmul_int8_l.launches = 0
+
+
+def matmul_4bit(x, q, scale, mode: str = "nf4"):
+    """``y = x @ dequant4(q, scale)``: x ``(..., in)`` f32 / bf16; q ``(nb,
+    32, out)`` uint8, two codes a byte, split-half (``ops.quant``); scale
+    ``(nb, 1, out)`` f32; ``mode`` nf4 / sf4 / int4.  Returns ``(..., out)``
+    in ``x.dtype``.  Right for any row count; the codes are read once per 8
+    rows.  The sums' order is fixed, so equal inputs give equal bits."""
+    _require_4bit(mode)
+    if x.device.type == "cpu":
+        return matmul_4bit_plain(x, q, scale, mode)
+    y, n = _launch(x, q, scale, 0, False, None, mode)
+    matmul_4bit.launches += n
+    return y
+
+
+matmul_4bit.launches = 0
+
+
+def matmul_4bit_l(x, q, scale, l: int, mode: str = "nf4"):
+    """``y = x @ dequant4(q[l], scale[l])`` with STACKED packed codes: q
+    ``(L, nb, 32, out)``, scale ``(L, nb, 1, out)``, ``l`` a host int.  The
+    kernel offsets its base pointers to layer ``l``; nothing is sliced or
+    copied.  Returns ``(..., out)`` in ``x.dtype``."""
+    _require_4bit(mode)
+    if x.device.type == "cpu":
+        return matmul_4bit_l_plain(x, q, scale, l, mode)
+    y, n = _launch(x, q, scale, int(l), True, None, mode)
+    matmul_4bit_l.launches += n
+    return y
+
+
+matmul_4bit_l.launches = 0

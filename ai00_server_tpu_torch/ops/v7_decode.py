@@ -3,8 +3,9 @@
 Port of ``ai00_server_tpu/ops/v7_decode_pallas.py`` (``FUSED_KEY``,
 ``supports``, ``can_fuse``, ``make_fused_layout``, ``forward_t1`` and the
 Pallas ``_kernel`` at its lines 140-270) for plain bf16 / f32 weights and
-for its int8 mode (the six big projections of every layer as int8 codes with
-per-128-row-block scales, dequantized inside the product).  The Pallas
+for its quantized modes: the six big projections of every layer as int8
+codes with per-128-row-block scales, or as packed nf4 / sf4 / int4 codes
+with per-64-row-block scales, dequantized inside the product.  The Pallas
 kernel is one sequential grid over the layers; on the card a layer
 is nine launches of three hand-written kernels
 (``csrc/v7_decode.cu``; the note there says what bounds each and what its
@@ -13,8 +14,8 @@ design does about it):
 * :func:`v7_ln_mix` — LayerNorm, token shift, the mixed inputs, the new
   shift state;
 * :func:`v7_skinny_matmul` — up to four ``epilogue(x @ W)`` with at most a
-  few batch rows, the weight in its ``(in, out)`` layout — plain, or int8
-  codes and scales — streamed once;
+  few batch rows, the weight in its ``(in, out)`` layout — plain, or int8 or
+  packed 4-bit codes and scales — streamed once;
 * :func:`v7_wkv_gn` — the WKV step with its vector prologue and the
   GroupNorm / bonus / gate epilogue.
 
@@ -33,10 +34,9 @@ dict it was passed.  Fixed addresses are what lets :class:`DecodeGraph`
 capture the whole stack once in a ``torch.cuda.CUDAGraph`` and replay it
 for every decode step.
 
-The 4-bit modes of the Pallas kernel (nf4 / sf4 / int4 codes) are not
-ported yet (ROADMAP queue 1 item 2); no VMEM budget applies on the card, so
-every v7 model with head size 64 whose big projections are uniformly plain
-or uniformly int8 takes this path.
+No VMEM budget applies on the card, so every v7 model with head size 64
+whose big projections are uniformly plain or uniformly quantized in one mode
+takes this path.
 """
 
 from __future__ import annotations
@@ -48,7 +48,9 @@ import torch
 
 from ..models.common import GN_EPS, LN_EPS, layer_norm
 from . import _build, fused_decode
-from .quant_matmul import INT8_BLOCK, dequant_cd
+from .quant import LEVELS, MODES
+from .quant_matmul import (INT8_BLOCK, NF4_BLOCK, dequant_mode_cd,
+                           levels_table)
 
 W_SCALE = 0.6065306597126334  # exp(-0.5)
 
@@ -57,7 +59,7 @@ FUSED_KEY = "_fused_t1"
 # The fused layout holds the Pallas kernel's entries under its names: the
 # stacks ``mix``, ``vecs``, ``ln1``, ``ln2``, ``fmix`` as (L, ...) tensors,
 # and every matmul weight as the list of the L per-layer tensors of the
-# params themselves (referenced, never copied).  An int8 model has
+# params themselves (referenced, never copied).  A quantized model has
 # ``name_q`` / ``name_s`` in place of each big ``name``: lists of the
 # per-layer VIEWS into the group's stacked codes and scales.
 _VEC_NAMES = ("w0", "a0", "v0", "k_k", "k_a", "r_k", "lnx_w", "lnx_b")
@@ -81,8 +83,9 @@ def supports(params) -> bool:
 def can_fuse(params) -> bool:
     """Whether a fused layout can be built: activations of one dtype (bf16
     or f32), the big projections of ALL layers uniformly plain in that dtype
-    or uniformly int8 (a mixed model keeps to the layer path), ``C == H *
-    N`` and head size 64 (the WKV kernels' register layout)."""
+    or uniformly quantized in ONE mode — int8, nf4, sf4 or int4 — (a mixed
+    model keeps to the layer path), ``C == H * N`` and head size 64 (the WKV
+    kernels' register layout)."""
     layers = params.get("layers")
     if not layers:
         return False
@@ -96,7 +99,7 @@ def can_fuse(params) -> bool:
     if modes == {"none"}:
         return all(p[part][key].dtype == dtype
                    for p in layers for part, key in _BIG_SRC.values())
-    return modes == {"int8"}
+    return len(modes) == 1 and modes <= set(MODES)
 
 
 def make_fused_layout(params) -> dict:
@@ -222,9 +225,13 @@ class Product:
     """One ``y = epilogue(x @ W)`` of a :func:`v7_skinny_matmul` launch.
 
     x: (B, K) in the activation dtype ``cd``; W: (K, N) in ``cd``, or —
-    with ``scale`` (K/128, 1, N) f32 — int8 codes (K/128, 128, N) that the
-    product dequantizes in ``cd`` per 128-row block (``ops/quant_matmul``);
-    sums are f32.  The epilogue adds ``bias`` ((N,) f32) if given, applies ``act``
+    with ``scale`` and ``mode`` — codes that the product dequantizes in
+    ``cd`` per scale block (``ops/quant_matmul``): ``mode="int8"`` int8
+    codes (K/128, 128, N) with ``scale`` (K/128, 1, N) f32; ``mode`` nf4 /
+    sf4 / int4 packed uint8 codes (K/64, 32, N) with ``scale`` (K/64, 1, N).
+    An empty ``mode`` means ``"int8"`` where a scale is given, else
+    ``"none"`` (:attr:`weight_mode`).
+    Sums are f32.  The epilogue adds ``bias`` ((N,) f32) if given, applies ``act``
     (``none``, ``tanh``, ``sigmoid``, ``wdecay`` = exp(-W_SCALE * sigmoid),
     ``relu2`` = relu squared), and then ``out`` says what is stored:
     ``"cd"`` a cd tensor, ``"f32"`` an f32 tensor (rounded through cd first
@@ -240,6 +247,12 @@ class Product:
     out: str = "cd"
     y: torch.Tensor | None = None
     scale: torch.Tensor | None = None
+    mode: str = ""
+
+    @property
+    def weight_mode(self) -> str:
+        """``"none"`` for a plain weight, else how the codes decode."""
+        return self.mode or ("none" if self.scale is None else "int8")
 
     @property
     def KN(self) -> tuple[int, int]:
@@ -254,8 +267,9 @@ def _ksplit(K: int) -> int:
 
 def _scratch_need(shapes, dtype) -> tuple[int, int]:
     """(scratch floats, counters) one launch over ``shapes`` [(K, N)] of
-    ``dtype`` weights (``torch.int8`` for codes) needs: a block spans 32
-    threads x 4 bytes of a row."""
+    ``dtype`` weights (``torch.int8`` for codes of any mode) needs: a block
+    spans 32 threads x 4 bytes of a row (of a byte row for packed 4-bit
+    codes: the same 128 columns)."""
     tile = 32 * (4 // dtype.itemsize)
     floats = counters = 0
     for K, N in shapes:
@@ -284,7 +298,9 @@ def v7_skinny_matmul_plain(products):
     outs = []
     for p in products:
         cd = p.x.dtype
-        W = p.W if p.scale is None else dequant_cd(p.W, p.scale, cd)
+        mode = p.weight_mode
+        W = p.W if mode == "none" else dequant_mode_cd(p.W, p.scale, mode,
+                                                       cd)
         s = torch.matmul(p.x.float(), W.float())
         if p.bias is not None:
             s = s + p.bias
@@ -330,20 +346,28 @@ def v7_skinny_matmul(products, workspace: Workspace | None = None):
                              if t is not None))
     cd = products[0].x.dtype
     _require(cd in _DTYPE_CODE, f"unsupported activation dtype {cd}")
-    quant = products[0].scale is not None
-    _require(all((p.scale is not None) == quant for p in products),
-             "the products of a launch are all plain or all int8")
-    wd = torch.int8 if quant else cd
+    mode = products[0].weight_mode
+    _require(mode == "none" or mode in MODES,
+             f"unknown weight mode {mode!r}")
+    _require(all(p.weight_mode == mode and (p.scale is not None)
+                 == (mode != "none") for p in products),
+             "the products of a launch are all plain or all int8 or all of "
+             "one 4-bit mode, each quantized one with its scale")
+    quant, four = mode != "none", mode in LEVELS
+    wd = torch.uint8 if four else torch.int8 if quant else cd
+    # Rows of K per scale block, and code rows a block is stored as.
+    qblock, qrows = (NF4_BLOCK, NF4_BLOCK // 2) if four else (INT8_BLOCK,
+                                                              INT8_BLOCK)
     vec = 4 // wd.itemsize  # a thread loads 4 bytes of a weight row
     B = products[0].x.shape[0]
     outs, desc = [], []
     for p in products:
         K, N = p.KN
         if quant:
-            _require(K % INT8_BLOCK == 0, f"K={K} must be a multiple of "
-                     f"{INT8_BLOCK} for int8 codes")
-            nb = K // INT8_BLOCK
-            _dense(p.W, (nb, INT8_BLOCK, N), wd, "W (codes)")
+            _require(K % qblock == 0, f"K={K} must be a multiple of "
+                     f"{qblock} for {mode} codes")
+            nb = K // qblock
+            _dense(p.W, (nb, qrows, N), wd, "W (codes)")
             _dense(p.scale, (nb, 1, N), torch.float32, "scale")
             _require(p.scale.data_ptr() % 16 == 0,
                      "scale must be 16-byte aligned")
@@ -375,20 +399,26 @@ def v7_skinny_matmul(products, workspace: Workspace | None = None):
              and workspace.scratch.device == dev,
              "the workspace is too small for these products")
     table = (ctypes.c_int64 * len(desc))(*desc)
+    levels = levels_table(mode) if four else None
     status = _build.library("v7_decode").v7_skinny_matmul_launch(
         ctypes.addressof(table), len(products), B, _DTYPE_CODE[cd],
+        4 if four else 8 if quant else 0,
+        ctypes.addressof(levels) if four else None,
         workspace.scratch.data_ptr(), workspace.scratch.numel(),
         workspace.counters.data_ptr(), workspace.counters.numel(),
         _stream(dev))
     _build.check(status, "v7_skinny_matmul")
     v7_skinny_matmul.launches += -(-B // _MM_NB)
-    if quant:
+    if four:
+        v7_skinny_matmul.q4_launches += -(-B // _MM_NB)
+    elif quant:
         v7_skinny_matmul.int8_launches += -(-B // _MM_NB)
     return outs
 
 
 v7_skinny_matmul.launches = 0
 v7_skinny_matmul.int8_launches = 0  # those of them on int8 codes
+v7_skinny_matmul.q4_launches = 0    # those of them on packed 4-bit codes
 
 
 # ---------------------------------------------------------------------------
@@ -493,7 +523,8 @@ v7_wkv_gn.launches = 0
 KERNELS = (v7_ln_mix, v7_skinny_matmul, v7_wkv_gn)
 # Every launch count a replayed graph has to keep up to date.
 _COUNTS = (*((k, "launches") for k in KERNELS),
-           (v7_skinny_matmul, "int8_launches"))
+           (v7_skinny_matmul, "int8_launches"),
+           (v7_skinny_matmul, "q4_launches"))
 _PLAIN_OPS = (_ln_mix_inplace_plain, _matmul_inplace_plain,
               _wkv_gn_inplace_plain)
 
@@ -509,6 +540,8 @@ def _forward(ops, params, state, tokens, lengths):
     L, _, C = f["ln1"].shape
     quant = "fkey_q" in f
     F = f["fkey_q" if quant else "fkey"][0].shape[-1]
+    # One mode for the whole stack (can_fuse); the codes do not name it.
+    mode = fused_decode.group_mode(params["layers"][0], _BIG_SRC)
     cd = params["emb"].dtype
     active = lengths > 0
     ws = None
@@ -525,7 +558,8 @@ def _forward(ops, params, state, tokens, lengths):
     def big(x_in, name, l, **kw):
         """The product with big projection ``name`` of layer ``l``."""
         if quant:
-            return P(x_in, f[name + "_q"][l], scale=f[name + "_s"][l], **kw)
+            return P(x_in, f[name + "_q"][l], scale=f[name + "_s"][l],
+                     mode=mode, **kw)
         return P(x_in, f[name][l], **kw)
 
     for l in range(L):

@@ -102,7 +102,8 @@ def make_params(info: ModelInfo, raw: dict[str, np.ndarray], dtype=None,
                 quant: dict | None = None, device="cpu") -> dict:
     """Raw math-oriented weights -> the forward params: a thin wrapper over
     ``loader.stack_params``, so fixtures and the loader share one path.
-    ``quant``: {layer_index: "int8"}.  For equal seeds the codes, scales and
+    ``quant``: {layer_index: "int8" | "nf4" | "sf4" | "int4"}.  For equal
+    seeds the codes, scales and
     plain weights equal the JAX package's ``testing.make_params``."""
     import torch
 

@@ -19,7 +19,10 @@ kernel's source is built first, one ``nvcc`` each, all started together):
    ways to take the LM head's f32 logits, then the int8 kernels
    (``csrc/quant.cu``: ``matmul_int8`` on the LM head, ``matmul_int8_l`` and
    ``ffn7_t1_l`` on stacked codes) and the int8 mode of
-   ``v7_skinny_matmul``, on codes that rotate the same way.
+   ``v7_skinny_matmul``, on codes that rotate the same way, then the 4-bit
+   kernels (``matmul_4bit`` on unstacked codes, ``matmul_4bit_l`` and the
+   4-bit mode of ``ffn7_t1_l`` on stacked codes, the 4-bit mode of
+   ``v7_skinny_matmul``) in nf4, sf4 and int4, f32 and bf16.
 3. Model parity: the full-width RWKV-7 0.4B shape at 2 layers in f32 on
    the card (kernels) against the same weights on the CPU (plain
    versions), after a ragged prefill and T=1 steps — on the
@@ -29,6 +32,10 @@ kernel's source is built first, one ``nvcc`` each, all started together):
    the card in bf16.  The same for an all-int8 model (fused, eager and
    graphed, int8 LM head) and for a mixed one (layer 0 int8, layer 1 plain:
    the layer path through ``matmul_int8_l``, ``ffn7_t1_l`` and ``wkv7_t1``).
+   Then 4-bit: all-nf4 (fused, eager and graphed), layer 0 nf4 (the layer
+   path through ``matmul_4bit_l`` and ``ffn7_t1_l``), the same with
+   unstacked per-layer codes (``linear`` reaches ``matmul_4bit``), and
+   all-int4 and all-sf4 on the fused path.
 4. Serving: the 0.4B shape at all 24 layers in bf16 from a seed, with a
    synthetic 65,536-entry vocabulary, behind the port's HTTP server on
    localhost: concurrent greedy completions and a streamed chat.  The
@@ -39,7 +46,10 @@ kernel's source is built first, one ``nvcc`` each, all started together):
    with ``quant = 24, quant_type = "Int8"`` (the same burst, every decode
    step a replay of the int8 stack's graph and an int8 LM head) and with
    ``quant = 12`` (a short greedy completion on the layer-by-layer path),
-   each with the launch counts zeroed before and read after.
+   and the same two ways with ``quant_type = "NF4"`` (packed 4-bit codes:
+   the fused stack in its 4-bit mode under the graph; ``matmul_4bit_l``,
+   ``ffn7_t1_l`` in its 4-bit mode and ``wkv7_t1`` on the layer path), each
+   with the launch counts zeroed before and read after.
 
 The last two lines of standard output are the card's
 ``name, power.limit`` and ``{"ok": true, "device": {...}}``.
@@ -745,6 +755,303 @@ def phase_int8_kernels(dev, bf16_head_ms: float) -> dict:
     return rows
 
 
+def phase_4bit_kernels(dev) -> dict:
+    """The 4-bit kernels at the 0.4B serving shape, in nf4, sf4 and int4,
+    each against its plain version in f32 and bf16 (B=8 with row 5 inactive
+    where there are rows to skip, and B=11: a second launch), equal bits on
+    a repeated call; timed at B=8 in bf16 on codes that rotate through more
+    than the L2 holds.  The timed codes are nf4-quantized; the other modes
+    are timed on the same bytes (a mode is a table, any byte decodes) and
+    printed beside; the rows carry nf4's times."""
+    import torch
+
+    from ai00_server_tpu_torch.ops import quant
+    from ai00_server_tpu_torch.ops import v7_decode as fd
+    from ai00_server_tpu_torch.ops.ffn import ffn7_t1_l, ffn7_t1_l_plain
+    from ai00_server_tpu_torch.ops.quant_matmul import (
+        matmul_4bit, matmul_4bit_l, matmul_4bit_l_plain, matmul_4bit_plain)
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 4)
+    B = MAX_BATCH
+    MODES = tuple(quant.LEVELS)
+    SRC = "ai00_server_tpu_torch/csrc/quant.cu"
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    def codes(mode, *shape):
+        """Random (..., K, N) weights quantized on the card, one leading
+        slice at a time (the f32 copy never exceeds one slice)."""
+        if len(shape) == 2:
+            return quant.quantize_4bit(rnd(*shape) / shape[0] ** 0.5, mode)
+        parts = [codes(mode, *shape[1:]) for _ in range(shape[0])]
+        return quant.QuantizedLinear(
+            mode, torch.stack([p.q for p in parts]),
+            torch.stack([p.scale for p in parts]), shape[-2:])
+
+    def close(got, want, rounded, what):
+        err = float((got.float() - want.float()).abs().max())
+        tol = BF16_TOL if rounded else KERNEL_TOL
+        check(err <= tol * max(1.0, float(want.float().abs().max())),
+              f"{what} disagrees with its plain version: {err:.3e}")
+        return err
+
+    def sets_over_l2(bytes_each: int) -> int:
+        return int(2 * L2_BYTES // bytes_each) + 1
+
+    def times(call, n, iters, plain_iters):
+        """nf4's device, plain and Python-call times of ``call(mode, fn
+        kind, i)``, and the device time of the other modes."""
+        t = {"ms": device_ms(rotating(
+                 lambda i: call("nf4", "kernel", i), n), iters),
+             "plain_ms": device_ms(rotating(
+                 lambda i: call("nf4", "plain", i), n), plain_iters),
+             "call_ms": call_ms(rotating(
+                 lambda i: call("nf4", "kernel", i), n), 2 * iters)}
+        others = {m: device_ms(rotating(
+            lambda i: call(m, "kernel", i), n), iters) for m in MODES[1:]}
+        return t, others
+
+    def others_text(others):
+        return ", ".join(f"{m} {t:.5f}" for m, t in others.items())
+
+    # The quantizers on the card give the host's codes and scales, ties and
+    # all-zero blocks included.
+    w = rnd(2, 256, 1024) / 16
+    w[:, :64, 7] = 0.0
+    for mode in MODES:
+        on_card = quant.quantize_4bit(w, mode)
+        on_host = quant.quantize_4bit(w.cpu().numpy(), mode, device=dev)
+        check(torch.equal(on_card.q, on_host.q)
+              and torch.equal(on_card.scale, on_host.scale),
+              f"quantize_{mode} on the card and on the host disagree")
+
+    rows = {}
+    cds = (torch.float32, torch.bfloat16)
+
+    # ---- matmul_4bit: an unstacked (C, FFN) weight ----
+    worst = 0.0
+    for mode in MODES:
+        ql = codes(mode, C, FFN)
+        for cd in cds:
+            for R in (B, 11):
+                x = rnd(R, C, scale=0.5).to(cd)
+                got = matmul_4bit(x, ql.q, ql.scale, mode=mode)
+                want = matmul_4bit_plain(x, ql.q, ql.scale, mode)
+                torch.cuda.synchronize()
+                worst = max(worst, close(got, want, cd == torch.bfloat16,
+                                         f"matmul_4bit {mode} {cd} R={R}"))
+                check(torch.equal(got, matmul_4bit(x, ql.q, ql.scale,
+                                                   mode=mode)),
+                      "matmul_4bit gave different bits for equal inputs")
+    n = sets_over_l2(C * FFN // 2)
+    sets = [codes("nf4", C, FFN) for _ in range(n)]
+    x = rnd(B, C, scale=0.5).to(torch.bfloat16)
+    b_ms, b_by = bound(nbytes(x, sets[0].q, sets[0].scale) + B * FFN * 2,
+                       2 * B * C * FFN, BF16_FLOPS)
+    t, others = times(
+        lambda m, kind, i: (matmul_4bit if kind == "kernel"
+                            else matmul_4bit_plain)(
+            x, sets[i].q, sets[i].scale, mode=m), n, 40, 8)
+    rows["matmul_4bit"] = {
+        "name": "matmul_4bit", "route": "cuda", "source": SRC,
+        "replaces": "ai00_server_tpu/ops/quant_pallas.py:167",
+        "max_abs_err": worst, **t, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None,
+    }
+    print(f"matmul_4bit B={B} and 11, ({C}, {FFN}) unstacked, {MODES}, f32 "
+          f"and bf16: max_abs_err {worst:.3e} (tolerance {KERNEL_TOL} x "
+          f"max(1, |plain|) in f32, {BF16_TOL:.2e} on bf16 results); equal "
+          f"inputs give equal bits; {n} rotating weights of "
+          f"{nbytes(sets[0].q, sets[0].scale) / 1e6:.1f} MB; ms on the same "
+          f"bytes in the other modes: {others_text(others)}", flush=True)
+    del sets
+
+    # ---- matmul_4bit_l: the time mix's (C, C) products on stacked codes ----
+    worst = 0.0
+    for mode in MODES:
+        stack = codes(mode, 3, C, C)
+        for cd in cds:
+            for R in (B, 11):
+                x3 = rnd(R, 1, C, scale=0.5).to(cd)
+                for l in (0, 2):
+                    got = matmul_4bit_l(x3, stack.q, stack.scale, l,
+                                        mode=mode)
+                    worst = max(worst, close(
+                        got, matmul_4bit_l_plain(x3, stack.q, stack.scale, l,
+                                                 mode),
+                        cd == torch.bfloat16,
+                        f"matmul_4bit_l[{l}] {mode} {cd} R={R}"))
+                    check(torch.equal(got, matmul_4bit_l(
+                        x3, stack.q, stack.scale, l, mode=mode)),
+                        "matmul_4bit_l gave different bits for equal inputs")
+    torch.cuda.synchronize()
+    n = sets_over_l2(C * C // 2)
+    stack = codes("nf4", n, C, C)
+    x3 = rnd(B, 1, C, scale=0.5).to(torch.bfloat16)
+    b_ms, b_by = bound(nbytes(x3, stack.q[0], stack.scale[0]) + B * C * 2,
+                       2 * B * C * C, BF16_FLOPS)
+    t, others = times(
+        lambda m, kind, l: (matmul_4bit_l if kind == "kernel"
+                            else matmul_4bit_l_plain)(
+            x3, stack.q, stack.scale, l, mode=m), n, 100, 20)
+    rows["matmul_4bit_l"] = {
+        "name": "matmul_4bit_l", "route": "cuda", "source": SRC,
+        "replaces": "ai00_server_tpu/ops/quant_pallas.py:292",
+        "max_abs_err": worst, **t, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None,
+    }
+    print(f"matmul_4bit_l B={B} and 11, ({C}, {C}) on layer l of stacked "
+          f"codes, {MODES}, f32 and bf16: max_abs_err {worst:.3e} (same "
+          f"tolerances); timed over {n} stacked layers; ms in the other "
+          f"modes: {others_text(others)}", flush=True)
+    del stack
+
+    # ---- ffn7_t1_l on stacked 4-bit codes ----
+    worst = 0.0
+    for mode in MODES:
+        key, val = codes(mode, 2, C, FFN), codes(mode, 2, FFN, C)
+        for cd in cds:
+            for R in (B, 11):
+                xf, shift = rnd(R, C).to(cd), rnd(R, C)
+                mix = rnd(C, scale=0.3).to(cd)
+                active = torch.ones(R, dtype=torch.bool, device=dev)
+                active[5] = False
+                args = (xf, shift, mix, active, key.q, key.scale, val.q,
+                        val.scale, 1)
+                got, got_shift = ffn7_t1_l(*args, qmode=mode)
+                want, want_shift = ffn7_t1_l_plain(*args, qmode=mode)
+                torch.cuda.synchronize()
+                # hk is rounded to cd between the two products, so in bf16 a
+                # flipped ulp of hk reaches the f32 output.
+                worst = max(worst, close(got, want, cd == torch.bfloat16,
+                                         f"ffn7_t1_l {mode} {cd} R={R}"))
+                check(torch.equal(got_shift, want_shift)
+                      and torch.equal(got_shift[5], shift[5]),
+                      "ffn7_t1_l (4-bit): wrong new shift state, or an "
+                      "inactive row moved")
+                check(torch.equal(got, ffn7_t1_l(*args, qmode=mode)[0]),
+                      "ffn7_t1_l (4-bit) gave different bits for equal "
+                      "inputs")
+    n = sets_over_l2(C * FFN)
+    key, val = codes("nf4", n, C, FFN), codes("nf4", n, FFN, C)
+    xf, shift = rnd(B, C).to(torch.bfloat16), rnd(B, C)
+    mix = rnd(C, scale=0.3).to(torch.bfloat16)
+    active = torch.ones(B, dtype=torch.bool, device=dev)
+    active[5] = False
+    b_ms, b_by = bound(
+        nbytes(xf, shift, mix, active, key.q[0], key.scale[0], val.q[0],
+               val.scale[0]) + 2 * B * C * 4, 4 * B * C * FFN, BF16_FLOPS)
+    t, others = times(
+        lambda m, kind, l: (ffn7_t1_l if kind == "kernel"
+                            else ffn7_t1_l_plain)(
+            xf, shift, mix, active, key.q, key.scale, val.q, val.scale, l,
+            qmode=m), n, 40, 8)
+    rows["ffn7_t1_l (4-bit)"] = {
+        "name": "ffn7_t1_l (4-bit)", "route": "cuda", "source": SRC,
+        "replaces": "ai00_server_tpu/ops/ffn_pallas.py:76",
+        "max_abs_err": worst, **t, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None,
+    }
+    print(f"ffn7_t1_l B={B} and 11, C={C} F={FFN} on layer l of stacked "
+          f"4-bit codes, {MODES}, f32 and bf16 (two dependent launches): "
+          f"max_abs_err {worst:.3e} (same tolerances); new shift state "
+          f"equal, inactive row bit-identical, equal bits on a repeated "
+          f"call; timed over {n} stacked layers; ms in the other modes: "
+          f"{others_text(others)}", flush=True)
+    del key, val
+
+    # ---- v7_skinny_matmul on 4-bit codes: the four big launches of a layer -
+    shapes = {
+        "rkv": [(C, C, "none", True, "f32")] * 3,
+        "wo": [(C, C, "none", False, "add")],
+        "fkey": [(C, FFN, "relu2", False, "cd")],
+        "fval": [(FFN, C, "none", False, "add")],
+    }
+    layer_bytes = sum(K * Nout // 2 for g in shapes.values()
+                      for K, Nout, *_ in g)
+    n = sets_over_l2(layer_bytes)
+    ws = fd.Workspace(dev, 1 << 20, 1024)
+
+    def products(mode, specs, cd, R):
+        prods = []
+        for K, Nout, act, round_cd, out in specs:
+            ql = codes(mode, K, Nout)
+            prods.append(fd.Product(
+                rnd(R, K, scale=0.5).to(cd), ql.q, scale=ql.scale, mode=mode,
+                act=act, round_cd=round_cd, out=out,
+                y=rnd(R, Nout) if out == "add" else None))
+        return prods
+
+    def in_mode(prods, mode):
+        return [fd.Product(**{**pr.__dict__, "mode": mode}) for pr in prods]
+
+    total = {k: 0.0 for k in ("ms", "plain_ms", "call_ms")}
+    total_others = {m: 0.0 for m in MODES[1:]}
+    tot_bytes = tot_flops = 0.0
+    worst = 0.0
+    for gname, specs in shapes.items():
+        for mode in MODES:
+            for cd in cds:
+                for R in (B, 11):
+                    prods = products(mode, specs, cd, R)
+                    again = [fd.Product(**{
+                        **pr.__dict__, "y": None if pr.y is None
+                        else pr.y.clone()}) for pr in prods]
+                    want = fd.v7_skinny_matmul_plain(prods)
+                    got = fd.v7_skinny_matmul(prods, ws)
+                    torch.cuda.synchronize()
+                    for g, w, pr in zip(got, want, prods):
+                        worst = max(worst, close(
+                            g, w, cd == torch.bfloat16
+                            and (pr.out == "cd" or pr.round_cd),
+                            f"v7_skinny_matmul {mode} {cd} [{gname}]"))
+                    for g, g2 in zip(got, fd.v7_skinny_matmul(again, ws)):
+                        check(torch.equal(g, g2), "v7_skinny_matmul (4-bit) "
+                              "gave different bits for equal inputs")
+        sets = [products("nf4", specs, torch.bfloat16, B) for _ in range(n)]
+        by_mode = {m: [in_mode(prods, m) for prods in sets] for m in MODES}
+        prods = sets[0]
+        gb = sum(nbytes(pr.x, pr.W, pr.scale) + B * pr.KN[1]
+                 * {"cd": 2, "f32": 4, "add": 8}[pr.out] for pr in prods)
+        gf = sum(2 * B * pr.KN[0] * pr.KN[1] for pr in prods)
+        tot_bytes += gb
+        tot_flops += gf
+        t, others = times(
+            lambda m, kind, i: (
+                fd.v7_skinny_matmul(by_mode[m][i], ws) if kind == "kernel"
+                else fd.v7_skinny_matmul_plain(by_mode[m][i])), n, 40, 8)
+        gb_ms, _ = bound(gb, gf, BF16_FLOPS)
+        print(f"v7_skinny_matmul 4-bit [{gname}] "
+              f"{[pr.KN for pr in prods]}: nf4 {t['ms']:.5f} ms (plain "
+              f"{t['plain_ms']:.5f}, bound {gb_ms:.5f} by bytes; "
+              f"{gb / t['ms'] / 1e6:.0f} GB/s), {others_text(others)}",
+              flush=True)
+        for k in total:
+            total[k] += t[k]
+        for m in others:
+            total_others[m] += others[m]
+        del sets, by_mode
+    b_ms, b_by = bound(tot_bytes, tot_flops, BF16_FLOPS)
+    rows["v7_skinny_matmul (4-bit)"] = {
+        "name": "v7_skinny_matmul (4-bit)", "route": "cuda",
+        "source": "ai00_server_tpu_torch/csrc/v7_decode.cu",
+        "replaces": "ai00_server_tpu/ops/v7_decode_pallas.py:274",
+        "max_abs_err": worst, **total, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None,
+    }
+    print(f"v7_skinny_matmul B={B} and 11 on 4-bit codes, {MODES}, f32 and "
+          f"bf16, the four big launches of a layer (6 products, "
+          f"{layer_bytes / 1e6:.1f} MB of codes, {n} rotating sets): "
+          f"max_abs_err {worst:.3e} (tolerance {BF16_TOL:.2e} x max(1, "
+          f"|plain|) on bf16-rounded results, {KERNEL_TOL} on f32 ones); "
+          f"equal inputs give equal bits; times are nf4's, the sum of the "
+          f"four; the other modes: {others_text(total_others)}", flush=True)
+    print_rows(rows)
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: model parity, card (kernels) vs CPU (plain versions)
 # ---------------------------------------------------------------------------
@@ -762,12 +1069,35 @@ PARITY_CASES = {
     "plain": (None, ("layer", "fused", "graph")),
     "int8": ({0: "int8", 1: "int8"}, ("fused", "graph")),
     "mixed": ({0: "int8"}, ("layer",)),
+    "nf4": ({0: "nf4", 1: "nf4"}, ("fused", "graph")),
+    "mixed nf4": ({0: "nf4"}, ("layer",)),
+    # The same with per-layer QuantizedLinear nodes in place of the views
+    # into stacked codes: linear() reaches matmul_4bit.
+    "unstacked nf4": ({0: "nf4"}, ("layer",)),
+    "int4": ({0: "int4", 1: "int4"}, ("fused",)),
+    "sf4": ({0: "sf4", 1: "sf4"}, ("fused",)),
 }
 
 
+def unstack_codes(node):
+    """A copy of the params tree with every view into stacked codes
+    replaced by an unstacked QuantizedLinear of that layer's codes."""
+    from ai00_server_tpu_torch.ops import quant
+
+    if isinstance(node, dict):
+        return {k: unstack_codes(v) for k, v in node.items()}
+    if isinstance(node, list):
+        return [unstack_codes(v) for v in node]
+    if isinstance(node, quant.QuantizedLayerView):
+        return quant.QuantizedLinear(node.mode, node.q, node.scale,
+                                     node.shape)
+    return node
+
+
 def phase_parity(dev) -> dict:
-    """Returns the fused path's worst absolute bf16 error on the hidden,
-    for plain and for int8 weights."""
+    """Returns the fused path's worst absolute bf16 error on the hidden per
+    kind of weights, and the launches of ``matmul_4bit`` on its model path
+    (the unstacked nf4 case)."""
     import numpy as np
     import torch
 
@@ -778,7 +1108,9 @@ def phase_parity(dev) -> dict:
     from ai00_server_tpu_torch.ops import quant
     from ai00_server_tpu_torch.ops import v7_decode as fd
     from ai00_server_tpu_torch.ops.ffn import ffn7_t1_l
-    from ai00_server_tpu_torch.ops.quant_matmul import (matmul_int8,
+    from ai00_server_tpu_torch.ops.quant_matmul import (matmul_4bit,
+                                                        matmul_4bit_l,
+                                                        matmul_int8,
                                                         matmul_int8_l)
     from ai00_server_tpu_torch.ops.wkv_t1 import wkv7_t1
     from ai00_server_tpu_torch.testing import make_raw_weights
@@ -796,17 +1128,24 @@ def phase_parity(dev) -> dict:
         for _ in range(3)]
     counted = {"wkv7_t1": wkv7_t1, "matmul_int8": matmul_int8,
                "matmul_int8_l": matmul_int8_l, "ffn7_t1_l": ffn7_t1_l,
+               "matmul_4bit": matmul_4bit, "matmul_4bit_l": matmul_4bit_l,
                **{k.__name__: k for k in fd.KERNELS}}
-    # Which kernels each (weights, path) must launch; the others must not.
-    expect = {
-        ("plain", "layer"): {"wkv7_t1"},
-        ("plain", "fused"): {k.__name__ for k in fd.KERNELS},
-        # (its prefill chunk, 160 rows, goes layer by layer)
-        ("int8", "fused"): {"matmul_int8", "matmul_int8_l"}
-        | {k.__name__ for k in fd.KERNELS},
-        ("mixed", "layer"): {"wkv7_t1", "matmul_int8", "matmul_int8_l",
-                             "ffn7_t1_l"},
-    }
+
+    def expect(label, quant_map, path) -> set:
+        """Which kernels a (weights, path) must launch; the others must
+        not.  Any quantized model has the int8 LM head (matmul_int8)."""
+        if not quant_map:
+            return ({"wkv7_t1"} if path == "layer"
+                    else {k.__name__ for k in fd.KERNELS})
+        by_layer = ("matmul_int8_l" if quant_map[0] == "int8"
+                    else "matmul_4bit_l")
+        if path == "fused":
+            # (its prefill chunk, 160 rows, goes layer by layer)
+            return {"matmul_int8", by_layer} | {k.__name__
+                                                for k in fd.KERNELS}
+        if label.startswith("unstacked"):
+            return {"wkv7_t1", "matmul_int8", "matmul_4bit"}
+        return {"wkv7_t1", "matmul_int8", by_layer, "ffn7_t1_l"}
 
     def run(p, how, d):
         """The steps on device d: 'layer' (no layout), 'fused' (eager
@@ -833,6 +1172,8 @@ def phase_parity(dev) -> dict:
     for label, (quant_map, hows) in PARITY_CASES.items():
         params = {d: stack_params(info, math, dtype=torch.float32, device=d,
                                   quant=quant_map) for d in (dev, "cpu")}
+        if label.startswith("unstacked"):
+            params = {d: unstack_codes(p) for d, p in params.items()}
         if quant_map:
             # The int8 LM head, quantized where the params lie, as the
             # engine does: the card gives the CPU's codes.
@@ -855,9 +1196,12 @@ def phase_parity(dev) -> dict:
             got = run(params[dev] if how == "layer" else fused[dev], how, dev)
             torch.cuda.synchronize()
             delta = {name: k.launches for name, k in counted.items()}
-            want = expect[label, "fused" if how == "graph" else how]
+            want = expect(label, quant_map,
+                          "fused" if how == "graph" else how)
             check(all((delta[name] > 0) == (name in want) for name in delta),
                   f"the {label} {how} path launched {delta}")
+            if label.startswith("unstacked"):
+                result["matmul_4bit_launches"] = delta["matmul_4bit"]
             worst = 0.0
             for (toks, lens), (h, lg, st), (h_r, lg_r, st_r) in zip(
                     steps, got, ref["layer" if how == "layer" else "fused"]):
@@ -949,12 +1293,18 @@ def synthetic_vocab() -> dict[str, str]:
     raise AssertionError("vocab too small")
 
 
-SERVED = {"bf16": 0, "int8": L_FULL, "mixed": L_FULL // 2}  # quant = N
+# kind: (quant = N, quant_type).  "bf16", "int8" and "nf4" take the fused
+# path under its graph and get the burst; the mixed ones the layer path.
+SERVED = {"bf16": (0, "Int8"), "int8": (L_FULL, "Int8"),
+          "mixed": (L_FULL // 2, "Int8"), "nf4": (L_FULL, "NF4"),
+          "mixed nf4": (L_FULL // 2, "NF4")}
+MIXED_TOKENS = 16  # per completion on the (eager, host-bound) layer path
 
 
 def write_site(tmp: Path) -> dict:
     """The checkpoint, the vocabulary and one config per served model:
-    plain bf16, ``quant = L`` (all int8) and ``quant = L / 2`` (mixed)."""
+    plain bf16, then ``quant = L`` and ``quant = L / 2`` (mixed) in int8 and
+    in nf4."""
     import numpy as np
 
     from ai00_server_tpu_torch.loader import save_safetensors
@@ -968,8 +1318,8 @@ def write_site(tmp: Path) -> dict:
     del raw
     (tmp / "vocab.json").write_text(json.dumps(synthetic_vocab()))
     cfgs = {}
-    for kind, quant in SERVED.items():
-        cfgs[kind] = tmp / f"Config-{kind}.toml"
+    for kind, (quant, quant_type) in SERVED.items():
+        cfgs[kind] = tmp / f"Config-{kind.replace(' ', '-')}.toml"
         cfgs[kind].write_text(f"""
 [model]
 name = "rwkv7-0.4b.st"
@@ -978,7 +1328,7 @@ max_batch = {MAX_BATCH}
 token_chunk_size = {CHUNK}
 precision = "Fp16"
 quant = {quant}
-quant_type = "Int8"
+quant_type = "{quant_type}"
 
 [tokenizer]
 path = "{tmp / 'vocab.json'}"
@@ -1089,19 +1439,20 @@ def time_stack(engine) -> dict:
 
 
 async def serve(cfg: Path, kind: str, device="cuda") -> dict:
-    """Serve one config over HTTP on localhost.  ``kind``: "bf16" and
-    "int8" get the burst (4 greedy completions of 128 tokens + 1 streamed
+    """Serve one config over HTTP on localhost.  ``kind``: "bf16", "int8"
+    and "nf4" get the burst (4 greedy completions of 128 tokens + 1 streamed
     chat), a lone streamed chat and the time of one replay of the stack,
-    "bf16" also one request under the profiler; "mixed" gets one short
-    greedy completion, twice.  The launch counts are zeroed just before the
-    burst (the completion) and read just after."""
+    "bf16" also one request under the profiler; the mixed kinds get one
+    short greedy completion, twice.  The launch counts are zeroed just
+    before the burst (the completions) and read just after."""
     import aiohttp
     import torch
     from aiohttp import web
 
     from ai00_server_tpu_torch.ops import v7_decode as fd
     from ai00_server_tpu_torch.ops.ffn import ffn7_t1_l
-    from ai00_server_tpu_torch.ops.quant_matmul import (matmul_int8,
+    from ai00_server_tpu_torch.ops.quant_matmul import (matmul_4bit_l,
+                                                        matmul_int8,
                                                         matmul_int8_l)
     from ai00_server_tpu_torch.ops.wkv_chunk import wkv7_chunk
     from ai00_server_tpu_torch.ops.wkv_t1 import wkv7_t1
@@ -1121,7 +1472,8 @@ async def serve(cfg: Path, kind: str, device="cuda") -> dict:
     await web.TCPSite(runner, "127.0.0.1", 0).start()
     port = runner.addresses[0][1]
     base = f"http://127.0.0.1:{port}"
-    print(f"{kind} model (quant = {SERVED[kind]}) loaded in {load_s:.1f} s, "
+    print(f"{kind} model (quant = {SERVED[kind][0]}, quant_type = "
+          f"{SERVED[kind][1]}) loaded in {load_s:.1f} s, "
           f"{mem / 1e6:.1f} MB of device memory allocated by the load "
           f"(weights, state pool, sampler pools, graph); "
           f"serving on {base}", flush=True)
@@ -1157,16 +1509,22 @@ async def serve(cfg: Path, kind: str, device="cuda") -> dict:
         check(bool(text), "the streamed chat returned no text")
         return ttft, text
 
+    mixed = kind.startswith("mixed")
     counted = {"wkv7_chunk": (wkv7_chunk, "launches")}
-    if kind == "mixed":
+    if mixed:
+        by_layer = matmul_int8_l if kind == "mixed" else matmul_4bit_l
         counted.update({k.__name__: (k, "launches") for k in (
-            wkv7_t1, matmul_int8_l, ffn7_t1_l, matmul_int8)})
+            wkv7_t1, by_layer, ffn7_t1_l, matmul_int8)})
     else:
         counted.update({k.__name__: (k, "launches") for k in fd.KERNELS})
-    if kind == "int8":
+    if kind in ("int8", "nf4"):
         counted["matmul_int8"] = (matmul_int8, "launches")
+    if kind == "int8":
         counted["v7_skinny_matmul (int8)"] = (fd.v7_skinny_matmul,
                                               "int8_launches")
+    if kind == "nf4":
+        counted["v7_skinny_matmul (4-bit)"] = (fd.v7_skinny_matmul,
+                                               "q4_launches")
 
     def zero_counts():
         for k, attr in counted.values():
@@ -1181,12 +1539,12 @@ async def serve(cfg: Path, kind: str, device="cuda") -> dict:
         async with aiohttp.ClientSession() as http:
             await completion(http, "warm up", 8)  # first-call set-up
             engine = server.middleware.env.engine
-            if kind == "mixed":
+            if mixed:
                 check(engine._graph is None,
                       "a mixed model must not capture a decode graph")
                 replays0 = zero_counts()
                 t0 = time.monotonic()
-                outs = [await completion(http, PROMPT * 4, 32)
+                outs = [await completion(http, PROMPT * 4, MIXED_TOKENS)
                         for _ in range(2)]
                 wall = time.monotonic() - t0
                 result.update(
@@ -1271,6 +1629,7 @@ def main() -> None:
     rows.update(phase_decode_kernels(dev))
     bf16_head_ms = phase_head(dev)
     rows.update(phase_int8_kernels(dev, bf16_head_ms))
+    rows.update(phase_4bit_kernels(dev))
     print(f"phase 2 (kernels) {time.monotonic() - t0:.1f} s", flush=True)
 
     t0 = time.monotonic()
@@ -1289,26 +1648,40 @@ def main() -> None:
         shutil.rmtree(tmp_root, ignore_errors=True)
 
     # Every kernel's launches on its main path: the bf16 burst for the WKV
-    # chunk and the fused decode kernels, the int8 burst for the int8 head
-    # and the int8 mode of the fused step, the mixed model's completion for
-    # the layer path's kernels.
-    for kind, names in (("bf16", ("wkv7_chunk", "v7_ln_mix",
-                                  "v7_skinny_matmul", "v7_wkv_gn")),
-                        ("int8", ("matmul_int8", "v7_skinny_matmul (int8)")),
-                        ("mixed", ("wkv7_t1", "matmul_int8_l",
-                                   "ffn7_t1_l"))):
-        for name in names:
-            rows[name]["launches"] = served[kind]["launches"][name]
+    # chunk and the fused decode kernels, the int8 / nf4 burst for the int8
+    # head and the int8 / 4-bit mode of the fused step, the mixed models'
+    # completions for the layer path's kernels.  Serving keeps codes
+    # stacked, so matmul_4bit's model path is the parity phase's unstacked
+    # model: its count comes from there.
+    for kind, names in (("bf16", {"wkv7_chunk": "wkv7_chunk",
+                                  "v7_ln_mix": "v7_ln_mix",
+                                  "v7_skinny_matmul": "v7_skinny_matmul",
+                                  "v7_wkv_gn": "v7_wkv_gn"}),
+                        ("int8", {"matmul_int8": "matmul_int8",
+                                  "v7_skinny_matmul (int8)":
+                                  "v7_skinny_matmul (int8)"}),
+                        ("mixed", {"wkv7_t1": "wkv7_t1",
+                                   "matmul_int8_l": "matmul_int8_l",
+                                   "ffn7_t1_l": "ffn7_t1_l"}),
+                        ("nf4", {"v7_skinny_matmul (4-bit)":
+                                 "v7_skinny_matmul (4-bit)"}),
+                        ("mixed nf4", {"matmul_4bit_l": "matmul_4bit_l",
+                                       "ffn7_t1_l (4-bit)": "ffn7_t1_l"})):
+        for row, counter in names.items():
+            rows[row]["launches"] = served[kind]["launches"][counter]
+    rows["matmul_4bit"]["launches"] = parity["matmul_4bit_launches"]
+    check(parity["matmul_4bit_launches"] > 0,
+          "no model path launched matmul_4bit")
     for kind, run in served.items():
         for name, n in run["launches"].items():
             check(n > 0, f"the {kind} model's requests never launched {name}")
-        check((run["burst_replays"] > 0) == (kind != "mixed"),
+        check((run["burst_replays"] > 0) == (not kind.startswith("mixed")),
               f"the {kind} model replayed {run['burst_replays']} decode "
               "graphs")
-    for kind, label in (("bf16", "plain"), ("int8", "int8")):
+    for kind, label in (("bf16", "plain"), ("int8", "int8"), ("nf4", "nf4")):
         stack = served[kind]["stack"]
         rows[f"forward_t1 {kind}"] = {
-            "name": f"forward_t1 ({'int8, ' if kind == 'int8' else ''}"
+            "name": f"forward_t1 ({'' if kind == 'bf16' else kind + ', '}"
                     f"{L_FULL} layers, {stack['kernels_per_replay']} kernels "
                     "in one CUDA graph)",
             "route": "cuda",
@@ -1331,9 +1704,10 @@ def main() -> None:
     for kind, run in served.items():
         print(f"launches on the {kind} model's requests: {run['launches']}; "
               f"{run['burst_replays']} graph replays", flush=True)
-        if kind == "mixed":
-            print(f"serving ({L_FULL} layers, the first {SERVED[kind]} int8, "
-                  f"layer-by-layer path) on {card}: 2 greedy completions one "
+        if kind.startswith("mixed"):
+            print(f"serving ({L_FULL} layers, the first {SERVED[kind][0]} "
+                  f"{SERVED[kind][1]}, layer-by-layer path) on {card}: 2 "
+                  f"greedy completions of {MIXED_TOKENS} tokens one "
                   f"after the other in {run['wall_s']:.2f} s, "
                   f"{run['completion_tokens']} completion tokens -> "
                   f"{run['tokens_per_s']:.1f} tokens/s; "

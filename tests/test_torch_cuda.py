@@ -477,3 +477,219 @@ def test_int8_kernels_refuse_what_they_do_not_take(dev):
         fd.v7_skinny_matmul([
             fd.Product(x, ql.q, scale=ql.scale),
             fd.Product(x, torch.zeros(128, 64, device=dev))])
+
+
+# ---------------------------------------------------------------------------
+# The 4-bit kernels (csrc/quant.cu) and the 4-bit mode of v7_skinny_matmul
+# ---------------------------------------------------------------------------
+#
+# As for int8: kernel and plain version dequantize identically (the scale
+# rounded to the activation dtype, then level x scale) and differ in the
+# order of the f32 sums: 1e-4 of max(1, |plain|) on f32 results, one bf16 ulp
+# (2^-7) on results rounded to bf16.
+
+from ai00_server_tpu_torch.ops.quant_matmul import (  # noqa: E402
+    matmul_4bit, matmul_4bit_l, matmul_4bit_l_plain, matmul_4bit_plain)
+
+MODES4 = ["nf4", "sf4", "int4"]
+
+
+def _codes4(gen, dev, mode, *shape):
+    """Random weights (..., K, N) quantized to 4 bits on the card."""
+    K = shape[-2]
+    w = torch.randn(*shape, generator=gen, device=dev) / K ** 0.5
+    return quant.quantize_4bit(w, mode)
+
+
+@pytest.mark.parametrize("mode", MODES4)
+def test_quantize_4bit_on_the_card_equals_the_host(dev, mode):
+    gen = torch.Generator(device=dev).manual_seed(0)
+    w = torch.randn(3, 256, 72, generator=gen, device=dev)
+    w[:, :64, 5] = 0.0  # an all-zero block: the floor of the absmax
+    on_card = quant.quantize_4bit(w, mode)
+    on_host = quant.quantize_4bit(w.cpu().numpy(), mode, device=dev)
+    assert on_card.q.dtype == torch.uint8
+    assert torch.equal(on_card.q, on_host.q)
+    assert torch.equal(on_card.scale, on_host.scale)
+    assert on_card.shape == on_host.shape == (256, 72)
+    assert torch.equal(on_card.dequant(), on_host.dequant())
+
+
+@pytest.mark.parametrize("mode", MODES4)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("R,K,N", [(1, 64, 128), (3, 192, 384),
+                                   (8, 1024, 1024), (8, 1024, 4096),
+                                   (8, 4096, 1024), (11, 320, 200),
+                                   (29, 1024, 8192)])
+def test_matmul_4bit_kernel_matches_plain(dev, mode, dtype, R, K, N):
+    gen = torch.Generator(device=dev).manual_seed(R + K)
+    ql = _codes4(gen, dev, mode, K, N)
+    x = (torch.randn(R, K, generator=gen, device=dev) * 0.5).to(dtype)
+    want = matmul_4bit_plain(x, ql.q, ql.scale, mode)
+    before = matmul_4bit.launches
+    got = matmul_4bit(x, ql.q, ql.scale, mode=mode)
+    assert matmul_4bit.launches == before + -(-R // 8)
+    assert got.dtype == want.dtype == dtype and got.shape == (R, N)
+    _close_t(got, want, dtype)
+    assert torch.equal(got, matmul_4bit(x, ql.q, ql.scale, mode=mode))
+    assert torch.equal(ql.matmul(x), got)  # the weight's own dispatch
+
+
+@pytest.mark.parametrize("mode", MODES4)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("R", [1, 5, 13])
+def test_matmul_4bit_l_kernel_matches_plain(dev, mode, dtype, R):
+    gen = torch.Generator(device=dev).manual_seed(R)
+    L, K, N = 3, 256, 320
+    ql = _codes4(gen, dev, mode, L, K, N)
+    x = (torch.randn(R, 1, K, generator=gen, device=dev) * 0.5).to(dtype)
+    for l in range(L):
+        want = matmul_4bit_l_plain(x, ql.q, ql.scale, l, mode)
+        before = matmul_4bit_l.launches
+        got = matmul_4bit_l(x, ql.q, ql.scale, l, mode=mode)
+        assert matmul_4bit_l.launches == before + -(-R // 8)
+        assert got.shape == (R, 1, N) and got.dtype == dtype
+        _close_t(got, want, dtype)
+        view = quant.QuantizedLayerView(ql, l)
+        assert torch.equal(view.matmul(x), got)
+        assert view.q.data_ptr() == ql.q[l].data_ptr()  # a view, no copy
+
+
+@pytest.mark.parametrize("mode", MODES4)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,C,F", [(8, 1024, 4096), (3, 128, 512),
+                                   (11, 192, 640)])
+def test_ffn7_t1_l_4bit_kernel_matches_plain(dev, mode, dtype, B, C, F):
+    gen = torch.Generator(device=dev).manual_seed(B)
+    L, l = 2, 1
+    key = _codes4(gen, dev, mode, L, C, F)
+    val = _codes4(gen, dev, mode, L, F, C)
+    xf = torch.randn(B, C, generator=gen, device=dev).to(dtype)
+    shift = torch.randn(B, C, generator=gen, device=dev)
+    mix = (torch.randn(C, generator=gen, device=dev) * 0.3).to(dtype)
+    active = torch.ones(B, dtype=torch.bool, device=dev)
+    active[1] = False
+    args = (xf, shift, mix, active, key.q, key.scale, val.q, val.scale, l)
+    want, want_shift = ffn7_t1_l_plain(*args, qmode=mode)
+    kept = shift.clone()
+    before = ffn7_t1_l.launches
+    got, got_shift = ffn7_t1_l(*args, qmode=mode)
+    assert ffn7_t1_l.launches == before + -(-B // 8)
+    assert got.dtype == torch.float32 and got_shift.dtype == torch.float32
+    if dtype == torch.bfloat16:  # hk is rounded between the two products
+        _close_t(got, want, dtype)
+    else:
+        _close(got, want)
+    assert torch.equal(got_shift, want_shift)
+    assert torch.equal(got_shift[1], kept[1]) and torch.equal(shift, kept)
+    assert torch.equal(got, ffn7_t1_l(*args, qmode=mode)[0])
+
+
+Q4_GROUPS = {
+    **{k: v for k, v in INT8_GROUPS.items() if k != "ragged"},
+    "ragged": [(192, 72, "tanh", True, False, "f32"),
+               (1600, 44, "none", False, False, "add")],
+}
+
+
+@pytest.mark.parametrize("mode", MODES4)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B", [8, 3, 11])
+@pytest.mark.parametrize("group", sorted(Q4_GROUPS))
+def test_v7_skinny_matmul_4bit_matches_plain(dev, mode, dtype, B, group):
+    gen = torch.Generator(device=dev).manual_seed(B)
+    prods = _products(gen, dev, dtype, B, Q4_GROUPS[group])
+    for p in prods:
+        ql = quant.quantize_4bit(p.W.float(), mode)
+        p.W, p.scale, p.mode = ql.q, ql.scale, mode
+    want = fd.v7_skinny_matmul_plain(prods)
+    again = [fd.Product(**{**p.__dict__, "y": None if p.y is None
+                           else p.y.clone()}) for p in prods]
+    ws = fd.Workspace(dev, 1 << 20, 256)
+    before = (fd.v7_skinny_matmul.q4_launches,
+              fd.v7_skinny_matmul.int8_launches)
+    got = fd.v7_skinny_matmul(prods, ws)
+    assert fd.v7_skinny_matmul.q4_launches == before[0] + -(-B // 8)
+    assert fd.v7_skinny_matmul.int8_launches == before[1]
+    for g, w, p in zip(got, want, prods):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        _close_t(g, w, dtype, rounded=p.out == "cd" or p.round_cd)
+    for g, g2 in zip(got, fd.v7_skinny_matmul(again, ws)):
+        assert torch.equal(g, g2)
+    assert int(ws.counters.abs().sum()) == 0
+
+
+@pytest.mark.parametrize("mode", MODES4)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_forward_t1_4bit_kernels_graph_and_plain_agree(dev, mode, dtype):
+    import numpy as np
+
+    from ai00_server_tpu_torch.models import v7
+    from ai00_server_tpu_torch.testing import (make_params, make_raw_weights,
+                                               tiny_info)
+
+    L, B = 2, 4
+    info = tiny_info(num_layer=L, num_emb=128, head_size=64, num_vocab=64)
+    params = make_params(info, make_raw_weights(info, 5, np.float32), dtype,
+                         quant={i: mode for i in range(L)}, device=dev)
+    assert fd.can_fuse(params)
+    params[fd.FUSED_KEY] = fd.make_fused_layout(params)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    base = v7.init_state(info, B, device=dev)
+    for t in base.values():
+        t.copy_(torch.randn(t.shape, generator=gen, device=dev) * 0.3)
+    steps = [(torch.randint(0, 64, (B,), generator=gen, device=dev),
+              torch.tensor(l, device=dev))
+             for l in ([1, 1, 0, 1], [1, 0, 1, 1])]
+    runs = {}
+    for how in ("plain", "eager", "graph"):
+        state = {k: t.clone() for k, t in base.items()}
+        graph = fd.DecodeGraph(params, state, B) if how == "graph" else None
+        hs = []
+        for toks, lens in steps:
+            if how == "graph":
+                hs.append(graph.replay(toks, lens).clone())
+            else:
+                fwd = fd.forward_t1 if how == "eager" else fd.forward_t1_plain
+                hs.append(fwd(params, state, toks[:, None], lens)[0][:, 0])
+        runs[how] = (hs, state)
+    (h_e, s_e), (h_g, s_g), (h_p, s_p) = (runs[k] for k in
+                                          ("eager", "graph", "plain"))
+    for a, b in zip(h_e, h_g):
+        assert torch.equal(a, b)
+    tol = 1e-4 if dtype == torch.float32 else 5e-2
+    for k in s_e:
+        assert torch.equal(s_e[k], s_g[k])
+        err = float((s_e[k] - s_p[k]).abs().max())
+        assert err <= tol * max(1.0, float(s_p[k].abs().max())), (k, err)
+    for a, b in zip(h_e, h_p):
+        err = float((a.float() - b.float()).abs().max())
+        assert err <= tol * max(1.0, float(b.float().abs().max())), err
+    state = {k: t.clone() for k, t in base.items()}
+    fd.forward_t1(params, state, steps[0][0][:, None], steps[0][1])
+    for k in state:
+        assert torch.equal(state[k][:, 2], base[k][:, 2])
+
+
+def test_4bit_kernels_refuse_what_they_do_not_take(dev):
+    ql = _codes4(torch.Generator(device=dev).manual_seed(0), dev, "nf4", 128,
+                 64)
+    x = torch.zeros(2, 128, device=dev)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        matmul_4bit(x, ql.q[..., :63].contiguous(),
+                    ql.scale[..., :63].contiguous())
+    with pytest.raises(ValueError, match="unknown 4-bit mode"):
+        matmul_4bit(x, ql.q, ql.scale, mode="int8")
+    with pytest.raises(ValueError, match="nf4 codes must be contiguous"):
+        matmul_4bit(x, ql.q.to(torch.int8), ql.scale)
+    with pytest.raises(ValueError, match="features"):
+        matmul_4bit(x[:, :64].contiguous(), ql.q, ql.scale)
+    i8 = _codes(torch.Generator(device=dev).manual_seed(0), dev, 128, 64)
+    with pytest.raises(ValueError, match="one 4-bit mode"):
+        fd.v7_skinny_matmul([
+            fd.Product(x, ql.q, scale=ql.scale, mode="nf4"),
+            fd.Product(x, i8.q, scale=i8.scale)])
+    with pytest.raises(ValueError, match="one 4-bit mode"):
+        fd.v7_skinny_matmul([
+            fd.Product(x, ql.q, scale=ql.scale, mode="nf4"),
+            fd.Product(x, ql.q, scale=ql.scale, mode="sf4")])

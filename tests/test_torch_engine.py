@@ -294,7 +294,11 @@ def test_fused_engine_pool_keeps_its_addresses_and_equals_jax(
 #   2^-9), the greedy tokens are equal because the top two logits are
 #   further apart than that (asserted), and the states agree to 2e-4.
 
-QUANT_CASES = {"int8": {0: "int8", 1: "int8"}, "mixed": {0: "int8"}}
+QUANT_CASES = {"int8": {0: "int8", 1: "int8"}, "mixed": {0: "int8"},
+               # 4-bit: packed codes on both sides (off its own device the
+               # JAX engine keeps them packed, no int8 surrogate).
+               "nf4": {0: "nf4", 1: "nf4"}, "int4": {0: "int4", 1: "int4"},
+               "sf4": {0: "sf4", 1: "sf4"}, "mixed-sf4": {0: "sf4"}}
 
 
 def _quant_engines(monkeypatch, case):
@@ -331,8 +335,12 @@ def test_quantized_engine_equals_jax(monkeypatch, case):
     np.testing.assert_array_equal(hq.q.numpy(), np.asarray(jhq.q))
     np.testing.assert_array_equal(hq.scale.numpy(), np.asarray(jhq.scale))
     assert "head" not in t.model.params
-    # Uniform int8 takes the fused path; a mixed model keeps to the layers.
-    assert fd.supports(t.model.params) == (case == "int8")
+    # A uniform mode takes the fused path; a mixed model keeps to the layers.
+    fused = not case.startswith("mixed")
+    assert fd.supports(t.model.params) == fused
+    mode = QUANT_CASES[case][0]
+    assert t.model.params["layers"][0]["ffn"]["key"].mode == mode
+    assert hq.mode == "int8"  # the head is int8 whatever the layers' mode
     assert t._graph is None
     fused_steps = []
     real = fd.forward_t1
@@ -361,7 +369,7 @@ def test_quantized_engine_equals_jax(monkeypatch, case):
     tt, _ = t.decode_chunk(ts.tokens, active, 5, budget=budget)
     np.testing.assert_array_equal(tt[:, :3], jt[:, :3])
     _states_close(j, t)
-    assert len(fused_steps) == (5 if case == "int8" else 0)
+    assert len(fused_steps) == (5 if fused else 0)
     assert float(np.abs(t.read_row_state(3)["wkv"]).max()) == 0.0
 
     feed = [int(ts.tokens[0]), int(tt[0, 0])]

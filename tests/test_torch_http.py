@@ -9,6 +9,7 @@ import json
 
 import numpy as np
 import pytest
+import torch
 from aiohttp.test_utils import TestClient, TestServer
 
 from ai00_server_tpu import loader as jloader
@@ -270,11 +271,82 @@ def test_int8_completion(quant_site, quant):
 
 @pytest.mark.parametrize("quant_type", ["NF4", "SF4", "Int4"])
 def test_4bit_quant_type_names_its_roadmap_item(quant_site, quant_type):
+    """The server loads and answers with a 4-bit ``quant_type`` (it used to
+    name a ROADMAP item): layer 0 holds packed codes of that mode, the LM
+    head is int8, the layer path decodes."""
+    from ai00_server_tpu_torch.ops import quant as tquant
+    from ai00_server_tpu_torch.ops import v7_decode as fd
+
     async def main():
         config = quant_config(quant_site, 1, quant_type)
         server = Server(config, device="cpu")
-        with pytest.raises(NotImplementedError, match="item 2"):
+        await server.middleware.reload(config.to_reload_request())
+        client = TestClient(TestServer(server.app))
+        await client.start_server()
+        try:
+            params = server.middleware.env.model.params
+            key = params["layers"][0]["ffn"]["key"]
+            assert tquant.is_quantized(key)
+            assert key.mode == quant_type.lower()
+            assert key.q.dtype == torch.uint8
+            assert not tquant.is_quantized(params["layers"][1]["ffn"]["key"])
+            assert params["_head_q"].mode == "int8"
+            assert not fd.supports(params)
+            texts = [(await _complete(client, max_tokens=6)
+                      )["choices"][0]["text"] for _ in range(2)]
+            assert texts[0] and texts[0] == texts[1]
+            info = await (await client.get("/api/models/info")).json()
+            assert info["reload"]["quant_type"] == quant_type
+        finally:
+            await client.close()
+            await server.middleware.unload()
+
+    asyncio.run(main())
+
+
+def test_nf4_completion_on_the_fused_path(quant_site):
+    """``quant = L, quant_type = "NF4"``: every layer 4-bit, the fused decode
+    path on packed codes; identical greedy requests give identical text."""
+    from ai00_server_tpu_torch.ops import quant as tquant
+    from ai00_server_tpu_torch.ops import v7_decode as fd
+
+    async def main():
+        config = quant_config(quant_site, 2, "NF4")
+        server = Server(config, device="cpu")
+        await server.middleware.reload(config.to_reload_request())
+        client = TestClient(TestServer(server.app))
+        await client.start_server()
+        try:
+            params = server.middleware.env.model.params
+            assert all(p["att"]["output"].mode == "nf4"
+                       for p in params["layers"])
+            assert fd.supports(params) and "Wo_q" in params[fd.FUSED_KEY]
+            assert params[fd.FUSED_KEY]["Wo_q"][0].dtype == torch.uint8
+            texts = [(await _complete(client, max_tokens=8)
+                      )["choices"][0]["text"] for _ in range(2)]
+            assert texts[0] and texts[0] == texts[1]
+            r = await client.post("/api/oai/chat/completions", json={
+                "messages": [{"role": "user", "content": "HELLO"}],
+                "max_tokens": 4, "sampler": GREEDY})
+            assert r.status == 200
+            assert (await r.json())["choices"][0]["message"]["content"]
+        finally:
+            await client.close()
+            await server.middleware.unload()
+
+    asyncio.run(main())
+
+
+def test_unknown_quant_type_is_refused(quant_site):
+    """An unknown ``quant_type`` raises instead of loading unquantized."""
+    async def main():
+        config = quant_config(quant_site, 1, "Fp4")
+        server = Server(config, device="cpu")
+        with pytest.raises(ValueError, match="Int8, NF4, SF4, Int4"):
             await server.middleware.reload(config.to_reload_request())
         assert server.middleware.env is None
+        # quant = 0 asks for no quantization: the type is not looked at.
+        assert quant_config(quant_site, 0, "Fp4").to_reload_request() \
+            .quant_map() is None
 
     asyncio.run(main())

@@ -238,3 +238,142 @@ def test_mixed_ragged_prefill_then_decode(mixed, how, impl, monkeypatch):
             np.testing.assert_array_equal(ts[k][:, 2], prev_idle[k])
     # T = 1: per int8 layer four matmul_int8_l and one ffn7_t1_l.
     assert calls == {"ffn": 4, "l": 12 + 16}
+
+
+# ---------------------------------------------------------------------------
+# The same with 4-bit layers: layers 0-1 nf4 / sf4 / int4, layer 2 plain
+# ---------------------------------------------------------------------------
+#
+# f32 again, so ``dequant`` (the JAX package's generic CPU path and both
+# packages' prefill) and the kernels' dequantize give the same weight.
+# Tolerance 2e-4 of each tensor's scale, as above.
+
+
+@pytest.fixture(scope="module", params=["nf4", "sf4", "int4"])
+def mixed4(request, tmp_path_factory):
+    from ai00_server_tpu.testing import make_params, make_raw_weights, tiny_info
+
+    mode = request.param
+    quant = {0: mode, 1: mode}
+    info = tiny_info(ModelVersion.V7, num_layer=3, num_emb=128, head_size=64,
+                     num_vocab=64)
+    raw = make_raw_weights(info, seed=13, dtype=np.float32)
+    jparams = make_params(info, raw, dtype=np.float32, quant=quant)
+    path = str(tmp_path_factory.mktemp("q4") / "tiny.st")
+    jloader.save_safetensors(to_converted_layout(raw), path,
+                             dtype=np.float32)
+    return mode, info, jparams, {
+        "file": tloader.load_model(path, dtype=torch.float32, device="cpu",
+                                   quant=quant).params,
+        "carried": tloader.params_from_numpy(
+            jax.tree.map(np.asarray, jparams), device="cpu"),
+        "made": ttesting.make_params(ttesting.tiny_info(
+            num_layer=3, num_emb=128, head_size=64, num_vocab=64), raw,
+            torch.float32, quant=quant),
+    }
+
+
+@pytest.mark.parametrize("how", ["file", "carried", "made"])
+def test_4bit_params_hold_the_jax_codes(mixed4, how):
+    from ai00_server_tpu_torch.ops import quant as tquant
+
+    mode, _, jparams, tparams = mixed4
+    layers = tparams[how]["layers"]
+    jq = jparams["groups"][0]["layers"]
+    assert [g["layer_index"].shape[0] for g in jparams["groups"]] == [2, 1]
+    for part, key in (("att", "receptance"), ("att", "key"), ("att", "value"),
+                      ("att", "output"), ("ffn", "key"), ("ffn", "value")):
+        views = [layers[i][part][key] for i in range(2)]
+        assert all(isinstance(v, tquant.QuantizedLayerView) for v in views)
+        assert views[0].qlin is views[1].qlin  # one stacked tensor per group
+        assert views[0].mode == mode and views[0].q.dtype == torch.uint8
+        assert views[0].shape == tuple(jq[part][key].shape)
+        np.testing.assert_array_equal(views[0].qlin.q.numpy(),
+                                      np.asarray(jq[part][key].q))
+        np.testing.assert_array_equal(views[0].qlin.scale.numpy(),
+                                      np.asarray(jq[part][key].scale))
+        assert isinstance(layers[2][part][key], torch.Tensor)
+    assert isinstance(layers[0]["att"]["w1"], torch.Tensor)
+
+
+@pytest.mark.parametrize("impl", ["generic", "pallas_interpret"])
+def test_4bit_ragged_prefill_then_decode(mixed4, impl, monkeypatch):
+    """``impl``: the JAX side on its generic CPU path, or with its T=1
+    kernels (``ffn7_t1_l`` in the 4-bit mode, ``wkv7_t1``) and the chunk
+    kernel in interpret mode."""
+    from ai00_server_tpu_torch.ops import ffn, quant_matmul
+
+    if impl != "generic":
+        monkeypatch.setenv("AI00_WKV_IMPL", impl)
+    mode, info, jparams, tparams = mixed4
+    params = tparams["file"]
+    calls = {"ffn": [], "l": []}
+    real_ffn, real_l = ffn.ffn7_t1_l_plain, quant_matmul.matmul_4bit_l_plain
+    monkeypatch.setattr(ffn, "ffn7_t1_l_plain", lambda *a: (
+        calls["ffn"].append(a[-1]), real_ffn(*a))[1])
+    monkeypatch.setattr(quant_matmul, "matmul_4bit_l_plain", lambda *a: (
+        calls["l"].append(a[-1]), real_l(*a))[1])
+    rng = np.random.default_rng(3)
+    B, T = 3, 7
+    toks = _tokens(rng, info, B, T)
+    lens = np.array([7, 4, 0], np.int32)
+    jh, js = _run_jax(jparams, jv7.init_state(info, B), toks, lens)
+    th, ts = _run_torch(params, tv7.init_state(info, B), toks, lens)
+    mask = np.arange(T)[None, :] < lens[:, None]
+    close(th[mask], jh[mask])
+    for k in js:
+        close(ts[k], js[k])
+    # 21 rows: under 512, so the 4-bit layers' 12 products took
+    # matmul_4bit_l and no fused channel mix ran at T > 1.
+    assert len(calls["ffn"]) == 0 and len(calls["l"]) == 12
+
+    for _ in range(2):
+        t1 = _tokens(rng, info, B, 1)
+        l1 = np.array([1, 1, 0], np.int32)
+        jh, js = _run_jax(jparams, js, t1, l1)
+        prev_idle = {k: v[:, 2].copy() for k, v in ts.items()}
+        th, ts = _run_torch(params, _torch_state(ts), t1, l1)
+        close(th[:2], jh[:2])
+        for k in js:
+            close(ts[k], js[k])
+            np.testing.assert_array_equal(ts[k][:, 2], prev_idle[k])
+    # T = 1: per 4-bit layer four matmul_4bit_l and one ffn7_t1_l, each told
+    # the mode.
+    assert len(calls["ffn"]) == 4 and len(calls["l"]) == 12 + 16
+    assert set(calls["ffn"]) == set(calls["l"]) == {mode}
+
+
+def test_unstacked_4bit_codes_take_matmul_4bit(mixed4, monkeypatch):
+    """A layer whose big projections are unstacked ``QuantizedLinear`` nodes
+    (no ``qlin``): ``linear`` sends every product to ``matmul_4bit`` and the
+    channel mix takes its generic form; the result equals the stacked
+    model's to 2e-4."""
+    from ai00_server_tpu_torch.ops import quant as tquant
+    from ai00_server_tpu_torch.ops import quant_matmul
+
+    mode, info, _, tparams = mixed4
+    params = tparams["made"]
+
+    def unstack(node):
+        if isinstance(node, dict):
+            return {k: unstack(v) for k, v in node.items()}
+        if isinstance(node, tquant.QuantizedLayerView):
+            return tquant.QuantizedLinear(node.mode, node.q, node.scale,
+                                          node.shape)
+        return node
+
+    flat = {**params, "layers": [unstack(p) for p in params["layers"]]}
+    calls = []
+    real = quant_matmul.matmul_4bit
+    monkeypatch.setattr(quant_matmul, "matmul_4bit", lambda *a, mode: (
+        calls.append(mode), real(*a, mode=mode))[1])
+    rng = np.random.default_rng(8)
+    B = 3
+    toks, lens = _tokens(rng, info, B, 1), np.array([1, 0, 1], np.int32)
+    h_ref, s_ref = _run_torch(params, tv7.init_state(info, B), toks, lens)
+    assert not calls
+    h, s = _run_torch(flat, tv7.init_state(info, B), toks, lens)
+    assert calls == [mode] * 12  # six products in each of the two layers
+    close(h[lens > 0], h_ref[lens > 0])
+    for k in s_ref:
+        close(s[k], s_ref[k])

@@ -143,10 +143,27 @@ def test_quantize_group_replaces_the_big_projections():
 
 @pytest.mark.parametrize("mode", ["nf4", "sf4", "int4"])
 def test_4bit_modes_name_their_roadmap_item(mode):
-    with pytest.raises(NotImplementedError, match="item 2"):
-        tquant.quantize_group({"att": {}, "ffn": {}}, mode)
-    with pytest.raises(NotImplementedError, match="item 2"):
-        tquant.QuantizedLinear(mode, None, None, (128, 8))
+    """The 4-bit modes quantize (they used to name a ROADMAP item): a group
+    comes back with packed uint8 codes of that mode, equal to the JAX
+    package's, and an unknown mode is a ValueError naming the four."""
+    w = {"att": {"key": weights(1, 2, 128, 64)},
+         "ffn": {"value": weights(2, 2, 256, 128)}}
+    got = tquant.quantize_group(w, mode)
+    want = jquant.quantize_group(
+        {part: dict(leaves) for part, leaves in w.items()}, mode)
+    for part, key in (("att", "key"), ("ffn", "value")):
+        leaf = got[part][key]
+        assert leaf.mode == mode and leaf.q.dtype == torch.uint8
+        assert leaf.q.shape[-2] == 32 and leaf.shape == w[part][key].shape[1:]
+        np.testing.assert_array_equal(leaf.q.numpy(),
+                                      np.asarray(want[part][key].q))
+        np.testing.assert_array_equal(leaf.scale.numpy(),
+                                      np.asarray(want[part][key].scale))
+    node = tquant.QuantizedLinear(mode, got["att"]["key"].q,
+                                  got["att"]["key"].scale, (128, 64))
+    assert node.dequant().shape == (2, 128, 64)
+    with pytest.raises(ValueError, match="int8, nf4, sf4, int4"):
+        tquant.QuantizedLinear(mode + "x", None, None, (128, 8))
 
 
 # ---------------------------------------------------------------------------

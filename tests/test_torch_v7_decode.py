@@ -24,6 +24,16 @@ and scales carried across with ``params_from_numpy``, so both sides compute
 from the same codes; same tolerances (measured: f32 ~2e-6; bf16 0 on the
 hidden).
 
+The same in the kernel's 4-bit modes (``-nf4``, ``-int4`` cases; ``sf4``
+differs from ``nf4`` only in its 16 levels and is held at the level of the
+products, ``test_skinny_matmul_4bit_plain_equals_kernel_lines``): packed
+codes from the JAX loader, carried across.  f32 as above.  In bf16 the first
+step agrees exactly (measured 0 on hidden and state: the rounding points
+are the kernel's), but from the second step of the chain single bf16 ulps
+do flip (the two frameworks sum the products in different orders), so the
+state's tolerance is one bf16 ulp of an activation per step, 2^-8 (measured
+9.3e-3 after three steps), and the hidden's stays 2^-7.
+
 An inactive row's state must be bit-identical in every case.
 """
 
@@ -51,6 +61,15 @@ from ai00_server_tpu_torch.ops import v7_decode as tfd
 L, C, N, V = 3, 128, 64, 64
 TOL = {"float32": {"hidden": 2e-5, "state": 2e-5},
        "bfloat16": {"hidden": 2.0 ** -7, "state": 2e-3}}
+TOL_4BIT_BF16 = {"hidden": 2.0 ** -7, "state": 2.0 ** -8}
+
+
+def tol(name, tparams):
+    """The case's tolerances (module docstring)."""
+    codes = tparams[tfd.FUSED_KEY].get("Wr_q")
+    if name == "bfloat16" and codes and codes[0].dtype == torch.uint8:
+        return TOL_4BIT_BF16
+    return TOL[name]
 
 
 def rel(got, want):
@@ -66,7 +85,7 @@ def to_np(t):
 @functools.lru_cache(maxsize=None)
 def make_pair(case):
     """(dtype name, info, JAX params with layout, port params with layout)
-    for a case ``"<dtype>"`` or ``"<dtype>-int8"``."""
+    for a case ``"<dtype>"`` or ``"<dtype>-<mode>"`` (int8, nf4, int4)."""
     name, _, mode = case.partition("-")
     info = tiny_info(ModelVersion.V7, num_layer=L, num_emb=C, head_size=N,
                      num_vocab=V)
@@ -83,7 +102,9 @@ def make_pair(case):
 
 
 @pytest.fixture(scope="module", params=["float32", "bfloat16",
-                                        "float32-int8", "bfloat16-int8"])
+                                        "float32-int8", "bfloat16-int8",
+                                        "float32-nf4", "bfloat16-nf4",
+                                        "float32-int4", "bfloat16-int4"])
 def pair(request):
     return make_pair(request.param)
 
@@ -146,9 +167,9 @@ def test_step_with_inactive_row_equals_jax(pair):
     assert th.shape == (B, 1, C) and str(th.dtype) == "torch." + name
     act = l1 > 0
     assert rel(to_np(th)[act], np.asarray(jh.astype(jnp.float32))[act]) \
-        <= TOL[name]["hidden"]
+        <= tol(name, tparams)["hidden"]
     for k in state:
-        assert rel(ts[k].numpy(), js[k]) <= TOL[name]["state"], k
+        assert rel(ts[k].numpy(), js[k]) <= tol(name, tparams)["state"], k
         np.testing.assert_array_equal(ts[k].numpy()[:, 2], state[k][:, 2])
         assert not np.array_equal(ts[k].numpy()[:, 0], state[k][:, 0])
 
@@ -168,9 +189,9 @@ def test_three_step_chain_equals_jax(pair):
         th, _ = tfd.forward_t1_plain(tparams, ts, torch.from_numpy(t1),
                                      torch.from_numpy(ones))
         assert rel(to_np(th), np.asarray(jh.astype(jnp.float32))) \
-            <= 3 * TOL[name]["hidden"]
+            <= 3 * tol(name, tparams)["hidden"]
     for k in state:
-        assert rel(ts[k].numpy(), js[k]) <= 3 * TOL[name]["state"], k
+        assert rel(ts[k].numpy(), js[k]) <= 3 * tol(name, tparams)["state"], k
 
 
 # ---------------------------------------------------------------------------
@@ -299,6 +320,60 @@ def test_skinny_matmul_int8_plain_equals_kernel_lines(name, epi):
     assert got.dtype == (TDT[name] if out == "cd" else torch.float32)
     rounded = name == "bfloat16" and out != "add"
     assert rel(to_np(got), want) <= (2.0 ** -7 if rounded else 5e-6)
+
+
+@pytest.mark.parametrize("name", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", ["nf4", "sf4", "int4"])
+@pytest.mark.parametrize("epi", ["rkv", "ffn_key", "residual"])
+def test_skinny_matmul_4bit_plain_equals_kernel_lines(name, mode, epi):
+    """The same epilogues on packed 4-bit codes: the weight is what
+    ``fused_decode.make_W`` hands the Pallas kernel (:118-121), with the
+    table ``mode_packs`` gives it (:94-103)."""
+    from ai00_server_tpu.ops import quant as jquant
+
+    act, _, round_cd, out = EPILOGUES[epi]
+    rng = np.random.default_rng(len(epi))
+    B, K, Nout, cd = 3, 192, 40, JDT[name]
+    x = jnp.asarray(rng.standard_normal((B, K)), cd)
+    jq = jquant.QUANTIZERS[mode](
+        (0.2 * rng.standard_normal((K, Nout))).astype(np.float32))
+    y0 = rng.standard_normal((B, Nout)).astype(np.float32)
+
+    packs = (jquant.pack_table8(jquant.NF4_TABLE8 if mode == "nf4"
+                                else jquant.SF4_TABLE8)
+             if mode != "int4" else None)
+    W = jfdc.make_W({"W_q": jq.q[None], "W_s": jq.scale[None]}, mode, packs,
+                    cd)("W")
+    assert W.dtype == cd and W.shape == (K, Nout)
+    s = jnp.dot(x, W, preferred_element_type=jnp.float32)
+    if act == "relu2":
+        s = jnp.square(jnp.maximum(s, 0.0))
+    if out == "add":
+        want = y0 + s
+    else:
+        want = s.astype(cd).astype(jnp.float32)
+
+    y = as_torch(y0)
+    prod = tfd.Product(
+        as_torch(x, TDT[name]), torch.from_numpy(np.array(jq.q)),
+        scale=torch.from_numpy(np.array(jq.scale)), mode=mode, act=act,
+        round_cd=round_cd, out=out, y=y if out == "add" else None)
+    assert prod.KN == (K, Nout)
+    (got,) = tfd.v7_skinny_matmul([prod])
+    assert got.dtype == (TDT[name] if out == "cd" else torch.float32)
+    rounded = name == "bfloat16" and out != "add"
+    assert rel(to_np(got), want) <= (2.0 ** -7 if rounded else 5e-6)
+
+
+def test_product_mode_defaults():
+    x, w = torch.zeros(1, 128), torch.zeros(128, 8)
+    assert tfd.Product(x, w).weight_mode == "none"
+    q, s = torch.zeros(1, 128, 8, dtype=torch.int8), torch.ones(1, 1, 8)
+    assert tfd.Product(x, q, scale=s).weight_mode == "int8"
+    assert tfd.Product(x, q, scale=s, mode="nf4").weight_mode == "nf4"
+    late = tfd.Product(x, w)
+    late.W, late.scale = q, s  # codes put in after construction
+    assert late.weight_mode == "int8"
 
 
 @pytest.mark.parametrize("name", ["float32", "bfloat16"])
@@ -442,3 +517,31 @@ def test_can_fuse_uniform_int8_but_not_mixed():
         tp["layers"][0]["att"]["key"].qlin, 0)
     assert tfused.group_mode(odd, tfd._BIG_SRC) is None
     assert not tfd.can_fuse({**tp, "layers": [odd]})
+
+
+@pytest.mark.parametrize("mode", ["nf4", "sf4", "int4"])
+def test_can_fuse_uniform_4bit_but_not_mixed(mode):
+    """Uniformly nf4 / sf4 / int4 fuses, as in the reference; a model whose
+    layers are partly 4-bit, or 4-bit in two modes, does not."""
+    info = tiny_info(ModelVersion.V7, num_layer=L, num_emb=C, head_size=N,
+                     num_vocab=V)
+    raw = make_raw_weights(info, seed=1, dtype=np.float32)
+
+    def both(quant):
+        jp = make_params(info, raw, dtype=np.float32, quant=quant)
+        return jp, params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+
+    jp, tp = both({i: mode for i in range(L)})
+    assert jfd.can_fuse(jp) and tfd.can_fuse(tp)
+    assert tfused.group_mode(tp["layers"][0], tfd._BIG_SRC) == mode
+    layout = tfd.make_fused_layout(tp)
+    assert layout["fkey_q"][1].dtype == torch.uint8
+    assert tuple(layout["fkey_q"][1].shape) == (C // 64, 32, 4 * C)
+    assert tuple(layout["fval_s"][1].shape) == (4 * C // 64, 1, C)
+    jp, tp = both({0: mode})
+    assert not jfd.can_fuse(jp) and not tfd.can_fuse(tp)
+    other = "int4" if mode != "int4" else "sf4"
+    jp, tp = both({0: mode, 1: other, 2: other})
+    assert not jfd.can_fuse(jp) and not tfd.can_fuse(tp)
+    assert [tfused.group_mode(p, tfd._BIG_SRC) for p in tp["layers"]] == [
+        mode, other, other]
