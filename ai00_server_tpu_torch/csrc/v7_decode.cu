@@ -40,7 +40,13 @@
 //    each block writes its partial sums to scratch and the block that
 //    arrives last at the tile's counter adds them IN SPLIT ORDER and runs
 //    the epilogue - one launch, and the same bits on every run (no float
-//    atomics).  Up to four products share one launch (r/k/v, the LoRAs).
+//    atomics).  Up to five products share one launch (r/k/v, the LoRAs,
+//    RWKV-6's five token-shift offsets).  The epilogue covers both stacks:
+//    besides v7's activations, SiLU and RWKV-6's decay exp(-exp(s)); besides
+//    storing, adding into the f32 residual, adding gated by an f32 vector
+//    (v6's receptance-gated channel mix) and v6's token-shift combine
+//    xa + dx * (mix + s) in T.  A product's input rows may be a strided view
+//    (v6 reads its five low-rank stages out of one (B, 5D) product).
 //    With int8 codes the same 4 bytes a thread are 4 columns, so a block
 //    owns 128 columns and a thread keeps B x 4 sums; a slice of 128 rows
 //    is one scale block, a slice of 256 rows (K > 1024) two, and the
@@ -54,127 +60,49 @@
 //  * v7_wkv_gn: bytes of the state (read once, written once for active
 //    rows), as wkv7_t1, with the vector prologue and the GroupNorm / bonus /
 //    gate epilogue fused around the same register layout.
-//  * v7_ln_mix: latency; B x C elements, one block of 1024 threads per
-//    row, so that at C = 1024 each pass is one round of independent loads.
+//  * v7_ln_mix: latency (decode_common.cuh).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "decode_common.cuh"
 #include "wkv7_common.cuh"
 
+using namespace decode;
 using namespace wkv7;
 
 namespace {
 
-constexpr float LN_EPS = 1e-5f;
-constexpr float GN_EPS = 64e-5f;
 constexpr float W_SCALE = 0.6065306597126334f;  // exp(-0.5)
 
 // ---------------------------------------------------------------------------
-// Element types
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) {
-  return v;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// Round through T and come back (the ".astype(cd).astype(f32)" points).
-template <typename T> __device__ __forceinline__ float rnd(float v) {
-  return to_f(from_f<T>(v));
-}
-
-__device__ __forceinline__ float sigmoidf(float x) {
-  return 1.f / (1.f + expf(-x));
-}
-
-// ---------------------------------------------------------------------------
-// v7_ln_mix: LayerNorm, token shift, n_mix mixed outputs, new shift state
-// ---------------------------------------------------------------------------
-
-constexpr int LN_THREADS = 1024;  // one element a thread at C = 1024
-
-// Sum over the block, in a fixed order; every thread gets the total.
-__device__ __forceinline__ float block_sum(float v, float* red) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  __syncthreads();  // the previous total has been read by every thread
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float t = 0.f;
-#pragma unroll
-  for (int i = 0; i < LN_THREADS / 32; ++i) t += red[i];
-  return t;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(LN_THREADS)
-ln_mix_kernel(const float* __restrict__ x, const T* __restrict__ ln,
-              float* __restrict__ shift, const T* __restrict__ mix,
-              const uint8_t* __restrict__ active, T* __restrict__ out, int B,
-              int C, int n_mix) {
-  __shared__ float red[LN_THREADS / 32];
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const float* xr = x + (size_t)b * C;
-  float* sh = shift + (size_t)b * C;
-
-  float s = 0.f;
-  for (int c = tid; c < C; c += LN_THREADS) s += xr[c];
-  const float mean = block_sum(s, red) / C;
-  float q = 0.f;
-  for (int c = tid; c < C; c += LN_THREADS) {
-    const float d = xr[c] - mean;
-    q += d * d;
-  }
-  const float rstd = rsqrtf(block_sum(q, red) / C + LN_EPS);
-  const bool act = active[b] != 0;
-
-  for (int c = tid; c < C; c += LN_THREADS) {
-    const float lnv = (xr[c] - mean) * rstd * to_f(ln[c]) + to_f(ln[C + c]);
-    const float prev = sh[c];
-    const float xa = rnd<T>(lnv);
-    const float dx = rnd<T>(prev - lnv);
-    for (int i = 0; i < n_mix; ++i) {
-      const float m = rnd<T>(dx * to_f(mix[(size_t)i * C + c]));
-      out[((size_t)i * B + b) * C + c] = from_f<T>(xa + m);
-    }
-    if (act) sh[c] = lnv;  // the f32 LayerNorm, not rounded through T
-  }
-}
-
-// ---------------------------------------------------------------------------
-// v7_skinny_matmul: up to four y = epilogue(x @ W) in one launch
+// v7_skinny_matmul: up to five y = epilogue(x @ W) in one launch
 // ---------------------------------------------------------------------------
 
 constexpr int MM_NB = 8;       // batch rows per launch
 constexpr int MM_THREADS = 32 * MM_NB;  // a warp per batch row when staging
 constexpr int MM_UNROLL = 16;  // weight rows in flight per thread
-constexpr int MM_MAXP = 4;     // products per launch
+constexpr int MM_MAXP = 5;     // products per launch
 constexpr int MM_KB_MAX = 256; // rows of K per block
 
 enum Act { ACT_NONE = 0, ACT_TANH = 1, ACT_SIGMOID = 2, ACT_WDECAY = 3,
-           ACT_RELU2 = 4 };
-enum Out { OUT_T = 0, OUT_F32 = 1, OUT_ADD = 2 };
+           ACT_RELU2 = 4, ACT_SILU = 5, ACT_EXPEXP = 6 };
+// OUT_MIX: y (T) = xa + dx * (mix + round_T(s)), each step rounded through T
+// (e0 = xa, e1 = dx: (B, N) T; e2 = mix: (N,) T).  OUT_GADD: y (the f32
+// residual) += gate * s (e0 = gate: (B, N) f32).
+enum Out { OUT_T = 0, OUT_F32 = 1, OUT_ADD = 2, OUT_MIX = 3, OUT_GADD = 4 };
 
 struct MMProblem {
-  const void* x;      // (B, K) T
+  const void* x;      // (B, K) T, rows ldx elements apart
   const void* W;      // (K, N) T, or int8 codes when scale is set
   const float* scale; // (K / 128, N) f32 per-block scales, or null
   void* y;            // (B, N): T, f32, or the f32 residual added into
   const float* bias;  // (N,) f32 or null, added before the activation
-  int K, N;
+  const void* e0;     // epilogue operands of OUT_MIX / OUT_GADD, or null
+  const void* e1;
+  const void* e2;
+  int K, N, ldx;
   int act, round_t, out;
   int ksplit, kb;     // K is cut into ksplit slices of kb rows
   int blk0;           // first block of this product in the launch
@@ -196,11 +124,20 @@ __device__ __forceinline__ void epilogue(const MMProblem& P, int b, int c,
     case ACT_SIGMOID: s = sigmoidf(s); break;
     case ACT_WDECAY: s = expf(-W_SCALE * sigmoidf(s)); break;
     case ACT_RELU2: s = fmaxf(s, 0.f); s = s * s; break;
+    case ACT_SILU: s = s * sigmoidf(s); break;
+    case ACT_EXPEXP: s = expf(-expf(s)); break;
     default: break;
   }
   const size_t i = (size_t)b * P.N + c;
   if (P.out == OUT_ADD) {
     static_cast<float*>(P.y)[i] += s;
+  } else if (P.out == OUT_GADD) {
+    static_cast<float*>(P.y)[i] += static_cast<const float*>(P.e0)[i] * s;
+  } else if (P.out == OUT_MIX) {
+    const float t = rnd<T>(to_f(static_cast<const T*>(P.e2)[c]) + rnd<T>(s));
+    const float d = rnd<T>(to_f(static_cast<const T*>(P.e1)[i]) * t);
+    static_cast<T*>(P.y)[i] =
+        from_f<T>(to_f(static_cast<const T*>(P.e0)[i]) + d);
   } else if (P.out == OUT_F32) {
     static_cast<float*>(P.y)[i] = P.round_t ? rnd<T>(s) : s;
   } else {
@@ -314,7 +251,7 @@ skinny_matmul_kernel(const MMGroup g, int B, float* scratch,
   for (int u = 0; u < XPT; ++u) {
     const int kk = lane + 32 * u;
     xin[u] = (kk < klen && warp < B)
-                 ? to_f(x[(size_t)warp * P.K + k0 + kk]) : 0.f;
+                 ? to_f(x[(size_t)warp * P.ldx + k0 + kk]) : 0.f;
   }
 #pragma unroll
   for (int u = 0; u < XPT; ++u) {
@@ -451,20 +388,6 @@ skinny_matmul_kernel(const MMGroup g, int B, float* scratch,
 // v7_wkv_gn: vector prologue, WKV step in place, GroupNorm, bonus, gate
 // ---------------------------------------------------------------------------
 
-// Sum over the head's N = 64 values held by threads 0..63 (the others pass
-// 0), in a fixed order; every thread gets the total.
-__device__ __forceinline__ float head_sum(float v, float* red) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  const int tid = threadIdx.x;
-  if (tid < N && (tid & 31) == 0) red[tid >> 5] = v;
-  __syncthreads();
-  const float t = red[0] + red[1];
-  __syncthreads();
-  return t;
-}
-
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 wkv_gn_kernel(const float* __restrict__ r, const float* __restrict__ k,
@@ -558,28 +481,32 @@ extern "C" {
 
 // dtype: 0 = f32, 1 = bf16 (the weights' and activations' type T).
 
+// out: (base + n_mix, B, C) T; base is 0, or 2 to put xa and dx first.
 int v7_ln_mix_launch(const float* x, const void* ln, float* shift,
                      const void* mix, const uint8_t* active, void* out, int B,
-                     int C, int n_mix, int dtype, void* stream) {
-  if (B <= 0 || C <= 0 || n_mix <= 0) return (int)cudaErrorInvalidValue;
+                     int C, int n_mix, int base, int dtype, void* stream) {
+  if (B <= 0 || C <= 0 || n_mix <= 0 || (base != 0 && base != 2))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 1) {
     typedef __nv_bfloat16 T;
     ln_mix_kernel<T><<<B, LN_THREADS, 0, st>>>(
-        x, (const T*)ln, shift, (const T*)mix, active, (T*)out, B, C, n_mix);
+        x, (const T*)ln, shift, (const T*)mix, active, (T*)out, B, C, n_mix,
+        base);
   } else if (dtype == 0) {
     ln_mix_kernel<float><<<B, LN_THREADS, 0, st>>>(
         x, (const float*)ln, shift, (const float*)mix, active, (float*)out, B,
-        C, n_mix);
+        C, n_mix, base);
   } else {
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }
 
-// desc: n_prob rows of 8 int64 on the HOST: x, W, y, bias (pointers; bias
+// desc: n_prob rows of 12 int64 on the HOST: x, W, y, bias (pointers; bias
 // may be 0), K, N, act | round_t << 8 | out << 16, scale (pointer, or 0
-// for a plain weight).  wbits says what all of the launch's W hold: 0 plain
+// for a plain weight), ldx (elements between rows of x, >= K), e0, e1, e2
+// (the epilogue's operands, pointers or 0).  wbits says what all of the launch's W hold: 0 plain
 // weights of type T (no scales); 8 int8 codes (K / 128, 128, N), K a
 // multiple of 128; 4 packed 4-bit codes (K / 64, 32, N), K a multiple of 64,
 // with levels = 16 int32 on the host, what a nibble decodes to.  With codes
@@ -608,22 +535,31 @@ int v7_skinny_matmul_launch(const int64_t* desc, int n_prob, int B, int dtype,
       g.levels[i] = levels != nullptr ? (float)levels[i] : 0.f;
     int blocks = 0, scr = 0, cnt = 0;
     for (int i = 0; i < n_prob; ++i) {
-      const int64_t* d = desc + 8 * i;
+      const int64_t* d = desc + 12 * i;
       MMProblem& P = g.p[i];
       P.K = (int)d[4];
       P.N = (int)d[5];
       P.scale = (const float*)(uintptr_t)d[7];
-      if (P.K <= 0 || P.N <= 0 || P.N % cpt || (P.scale != nullptr) != quant ||
-          (quant && P.K % qblock))
-        return (int)cudaErrorInvalidValue;
+      P.ldx = (int)d[8];
       P.act = (int)(d[6] & 0xff);
       P.round_t = (int)((d[6] >> 8) & 0xff);
       P.out = (int)((d[6] >> 16) & 0xff);
-      const size_t ysize = P.out == OUT_T ? tsize : 4;
-      P.x = (const char*)(uintptr_t)d[0] + (size_t)b0 * P.K * tsize;
+      if (P.K <= 0 || P.N <= 0 || P.N % cpt || (P.scale != nullptr) != quant ||
+          (quant && P.K % qblock) || P.ldx < P.K || P.out > OUT_GADD ||
+          ((P.out == OUT_MIX || P.out == OUT_GADD) && d[9] == 0) ||
+          (P.out == OUT_MIX && (d[10] == 0 || d[11] == 0)))
+        return (int)cudaErrorInvalidValue;
+      // T for what is stored in T (OUT_T, OUT_MIX and its xa / dx), else f32.
+      const size_t ysize = P.out == OUT_T || P.out == OUT_MIX ? tsize : 4;
+      P.x = (const char*)(uintptr_t)d[0] + (size_t)b0 * P.ldx * tsize;
       P.W = (const void*)(uintptr_t)d[1];
       P.y = (char*)(uintptr_t)d[2] + (size_t)b0 * P.N * ysize;
       P.bias = (const float*)(uintptr_t)d[3];
+      P.e0 = d[9] ? (const char*)(uintptr_t)d[9] + (size_t)b0 * P.N * ysize
+                  : nullptr;
+      P.e1 = d[10] ? (const char*)(uintptr_t)d[10] + (size_t)b0 * P.N * ysize
+                   : nullptr;
+      P.e2 = (const void*)(uintptr_t)d[11];
       P.kb = P.K <= 1024 ? 128 : MM_KB_MAX;
       P.ksplit = (P.K + P.kb - 1) / P.kb;
       const int tiles = (P.N + tn - 1) / tn;

@@ -2,9 +2,9 @@
 
 Port of ``ai00_server_tpu/loader.py`` (``load_safetensors``,
 ``save_safetensors``, ``to_math_layout``, ``load_model``, ``stack_params``
-at its lines 78-193 and 264-479) for RWKV-7 checkpoints, plain bf16/f32 or
-with the first N layers quantized (``quant={i: "int8" | "nf4" | "sf4" |
-"int4"}``).
+at its lines 78-193 and 264-479) for RWKV-7 and RWKV-6 checkpoints, plain
+bf16/f32 or with the first N layers quantized (``quant={i: "int8" | "nf4" |
+"sf4" | "int4"}``).
 
 The numpy half (reading the file, undoing the converter's orientation) is
 this package's own copy.  The params are PyTorch tensors on one device:
@@ -13,9 +13,10 @@ this package's own copy.  The params are PyTorch tensors on one device:
      "ln_out_w": (C,), "ln_out_b": (C,), "head": (C, V)}
 
 with every linear weight in math orientation ``(in, out)`` (``x @ W``), ln0
-folded into the embedding and zero ``v0/v1/v2`` for layer 0 — the same
-values the JAX package stacks, one dict per layer instead of ``lax.scan``
-layer groups.  The big projections of a quantized layer are
+folded into the embedding, zero ``v0/v1/v2`` for a v7 layer 0 and the v6
+keys of the JAX package (``mix_*``, ``mix_w1`` (C, 5D), ``mix_w2`` (5, D,
+C), ``decay`` (C,), ``first`` (H, N), ...) — the same values the JAX package
+stacks, one dict per layer instead of ``lax.scan`` layer groups.  The big projections of a quantized layer are
 ``ops.quant.QuantizedLayerView``: an index into the codes of its layer
 group (a contiguous run of layers of one mode, the reference's group
 boundaries), which stay in one stacked tensor on the device.
@@ -30,6 +31,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .models import require_supported
 from .models.info import ModelInfo, ModelVersion, detect_info
 from .ops import quant as quant_ops
 
@@ -107,7 +109,7 @@ class LoadedModel:
 def load_model(path: str, dtype: torch.dtype = torch.bfloat16,
                device: str | torch.device = "cuda",
                quant: dict | None = None) -> LoadedModel:
-    """Read a converted ``.st`` RWKV-7 checkpoint onto ``device``.
+    """Read a converted ``.st`` RWKV-7 or RWKV-6 checkpoint onto ``device``.
 
     ``quant``: {layer_index: "int8" | "nf4" | "sf4" | "int4"} per-layer
     quantization map."""
@@ -124,13 +126,6 @@ def load_model(path: str, dtype: torch.dtype = torch.bfloat16,
     params = stack_params(info, to_math_layout(raw), dtype=dtype,
                           device=device, quant=quant)
     return LoadedModel(info=info, params=params)
-
-
-def _v7_only(info: ModelInfo) -> None:
-    if info.version != ModelVersion.V7:
-        raise NotImplementedError(
-            f"RWKV {info.version.value} is the ROADMAP 'v6/v5/v4' item; "
-            "this port serves V7")
 
 
 def _mode_runs(modes: list[str]) -> list[tuple[int, int]]:
@@ -163,16 +158,67 @@ def _quantize_runs(layers: list[dict], modes: list[str], device) -> None:
                     p[part][key] = quant_ops.QuantizedLayerView(qlin, i)
 
 
+def _v7_layer(math: dict, i: int, C: int) -> dict:
+    a, f = f"blocks.{i}.att.", f"blocks.{i}.ffn."
+    att = {k: math[a + k] for k in V7_ATT_VECTORS}
+    if a + "v0" in math:
+        att.update({k: math[a + k] for k in ("v0", "v1", "v2")})
+    else:  # layer 0 has no value residual
+        D = att["a1"].shape[-1]
+        att.update({"v0": np.zeros(C, np.float32),
+                    "v1": np.zeros((C, D), np.float32),
+                    "v2": np.zeros((D, C), np.float32)})
+    att.update({
+        "receptance": math[a + "receptance.weight"],
+        "key": math[a + "key.weight"],
+        "value": math[a + "value.weight"],
+        "output": math[a + "output.weight"],
+        "ln_x_w": math[a + "ln_x.weight"],
+        "ln_x_b": math[a + "ln_x.bias"],
+    })
+    return {"att": att,
+            "ffn": {"x_k": math[f + "x_k"],
+                    "key": math[f + "key.weight"],
+                    "value": math[f + "value.weight"]}}
+
+
+def _v6_layer(math: dict, i: int, info: ModelInfo) -> dict:
+    a, f = f"blocks.{i}.att.", f"blocks.{i}.ffn."
+    att = {"mix_" + k: math[a + "time_mix_" + k]
+           for k in ("x", "w", "k", "v", "r", "g", "w1", "w2")}
+    att.update({
+        "decay": math[a + "time_decay"].reshape(-1),
+        "decay_w1": math[a + "time_decay_w1"],
+        "decay_w2": math[a + "time_decay_w2"],
+        "first": math[a + "time_first"].reshape(info.num_head,
+                                                info.head_size),
+        "receptance": math[a + "receptance.weight"],
+        "key": math[a + "key.weight"],
+        "value": math[a + "value.weight"],
+        "gate": math[a + "gate.weight"],
+        "output": math[a + "output.weight"],
+        "ln_x_w": math[a + "ln_x.weight"],
+        "ln_x_b": math[a + "ln_x.bias"],
+    })
+    return {"att": att,
+            "ffn": {"mix_k": math[f + "time_mix_k"],
+                    "mix_r": math[f + "time_mix_r"],
+                    "key": math[f + "key.weight"],
+                    "receptance": math[f + "receptance.weight"],
+                    "value": math[f + "value.weight"]}}
+
+
 def stack_params(info: ModelInfo, math: dict[str, np.ndarray],
                  dtype: torch.dtype = torch.bfloat16,
                  device: str | torch.device = "cuda",
                  quant: dict | None = None) -> dict:
-    """Math-layout v7 weights -> the forward params (one dict per layer).
+    """Math-layout v7 or v6 weights -> the forward params (one dict per
+    layer).
 
     ``quant``: {layer_index: "int8" | "nf4" | "sf4" | "int4"}; the big
     projections of those layers become codes of that mode, grouped by
     contiguous runs of one mode."""
-    _v7_only(info)
+    require_supported(info.version)
     C, L = info.num_emb, info.num_layer
     modes = [(quant or {}).get(i, "none") for i in range(L)]
 
@@ -190,33 +236,14 @@ def stack_params(info: ModelInfo, math: dict[str, np.ndarray],
     layers = []
     for i in range(L):
         b = f"blocks.{i}."
-        a = b + "att."
-        f = b + "ffn."
-        att = {k: math[a + k] for k in V7_ATT_VECTORS}
-        if a + "v0" in math:
-            att.update({k: math[a + k] for k in ("v0", "v1", "v2")})
-        else:  # layer 0 has no value residual
-            D = att["a1"].shape[-1]
-            att.update({"v0": np.zeros(C, np.float32),
-                        "v1": np.zeros((C, D), np.float32),
-                        "v2": np.zeros((D, C), np.float32)})
-        att.update({
-            "receptance": math[a + "receptance.weight"],
-            "key": math[a + "key.weight"],
-            "value": math[a + "value.weight"],
-            "output": math[a + "output.weight"],
-            "ln_x_w": math[a + "ln_x.weight"],
-            "ln_x_b": math[a + "ln_x.bias"],
-        })
+        layer = (_v7_layer(math, i, C) if info.version == ModelVersion.V7
+                 else _v6_layer(math, i, info))
         layers.append({
             "ln1_w": math[b + "ln1.weight"],
             "ln1_b": math[b + "ln1.bias"],
             "ln2_w": math[b + "ln2.weight"],
             "ln2_b": math[b + "ln2.bias"],
-            "att": att,
-            "ffn": {"x_k": math[f + "x_k"],
-                    "key": math[f + "key.weight"],
-                    "value": math[f + "value.weight"]},
+            **layer,
         })
     _quantize_runs(layers, modes, device)
 
@@ -244,7 +271,7 @@ def _tensor(x: np.ndarray, device) -> torch.Tensor:
 
 
 def params_from_numpy(tree: dict, device: str | torch.device = "cuda") -> dict:
-    """The JAX package's loaded v7 params, as numpy arrays
+    """The JAX package's loaded v7 or v6 params, as numpy arrays
     (``jax.tree.map(np.asarray, model.params)``) -> this port's params on
     ``device``, dtypes kept.  Layer groups are unstacked into one dict per
     layer, except quantized leaves — any node with ``mode``, ``q``,

@@ -1,8 +1,8 @@
 """Model lifecycle: load and unload one model environment.
 
-Port of ``ai00_server_tpu/middleware.py`` for ``.st`` RWKV-7 checkpoints,
-plain or with the first ``quant`` layers quantized (``quant_type = "Int8"``,
-``"NF4"``, ``"SF4"`` or ``"Int4"``):
+Port of ``ai00_server_tpu/middleware.py`` for ``.st`` RWKV-7 and RWKV-6
+checkpoints, plain or with the first ``quant`` layers quantized
+(``quant_type = "Int8"``, ``"NF4"``, ``"SF4"`` or ``"Int4"``):
 
 * ``reload(ReloadRequest)`` — read the checkpoint onto the device, load
   the tokenizer, build the kernels, start the engine and runtime.

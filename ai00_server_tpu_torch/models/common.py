@@ -1,4 +1,4 @@
-"""Shared building blocks for the RWKV-7 forward pass.
+"""Shared building blocks for the RWKV-7 and RWKV-6 forward passes.
 
 Port of ``ai00_server_tpu/models/common.py``.  The JAX package's rounding
 points are kept: norms and low-rank branches accumulate in f32; a plain

@@ -37,15 +37,25 @@ SIGNATURES = {
         # S, r, w, k, v, kk, a, mask, S_out, y, B, T, H, N, stream
         "wkv7_chunk_launch": "ppppppppppiiiip",
     },
+    "wkv56": {
+        # S, r, k, v, w, u, mask, S_out, y, B, H, N, stream
+        "wkv56_t1_launch": "pppppppppiiip",
+        # S, r, k, v, w, u, mask, S_out, y, B, T, H, N, stream
+        "wkv56_chunk_launch": "pppppppppiiiip",
+    },
     "v7_decode": {
-        # x, ln, shift, mix, active, out, B, C, n_mix, dtype, stream
-        "v7_ln_mix_launch": "ppppppiiiip",
+        # x, ln, shift, mix, active, out, B, C, n_mix, base, dtype, stream
+        "v7_ln_mix_launch": "ppppppiiiiip",
         # desc (host), n_prob, B, dtype, wbits, levels (host), scratch,
         # scratch_floats, counters, n_counters, stream
         "v7_skinny_matmul_launch": "piiiippipip",
         # r, k, v, w, a, g, vmix, v_first, vecs, active, S, out, B, H, N,
         # is_first, dtype, stream
         "v7_wkv_gn_launch": "ppppppppppppiiiiip",
+    },
+    "v6_decode": {
+        # r, k, v, w, g, vecs, active, S, out, B, H, N, dtype, stream
+        "v6_wkv_gn_launch": "pppppppppiiiip",
     },
     "quant": {
         # K, N -> the work space a product needs (not a status)

@@ -2,7 +2,9 @@
 
 Port of ``ai00_server_tpu/ops/fused_decode.py:module_for``.  One module per
 RWKV version, all with the same surface: ``FUSED_KEY``, ``can_fuse(params)``,
-``make_fused_layout(params)``, ``supports(params)``, ``forward_t1(...)``.
+``make_fused_layout(params)``, ``supports(params)``, ``forward_t1(...)`` and
+``DecodeGraph``, a subclass of :class:`DecodeGraph` here that names the
+module's ``forward_t1`` and launch counters.
 
 ``group_mode`` and ``big_layout_entries`` (the JAX module's lines 34 and 67)
 let a kernel module take the big projections as plain weights or as codes +
@@ -17,6 +19,8 @@ is the plain tuple ``ops.quant.LEVELS[mode]``.
 
 from __future__ import annotations
 
+import torch
+
 from .quant import is_quantized
 
 
@@ -26,9 +30,13 @@ def module_for(version: str):
         from . import v7_decode as fd
 
         return fd
+    if version == "V6":
+        from . import v6_decode as fd
+
+        return fd
     raise NotImplementedError(
-        f"fused decode for RWKV {version} is the ROADMAP 'v6/v5/v4' item; "
-        "this port fuses V7")
+        f"fused decode for RWKV {version} is the ROADMAP 'v5/v4' item; "
+        "this port fuses V7 and V6")
 
 
 def group_mode(layer: dict, big_src: dict):
@@ -53,3 +61,66 @@ def big_layout_entries(layer: dict, big_src: dict) -> dict:
         else:
             out[name] = leaf
     return out
+
+
+class DecodeGraph:
+    """A version's ``forward_t1`` captured once in a ``torch.cuda.CUDAGraph``
+    over static buffers — ``tokens`` (B,) int32, ``lengths`` (B,) int32, the
+    state pool it was given, ``hidden`` (B, C) — and replayed per decode
+    step.  A failure to capture raises; there is no eager retry.
+
+    A subclass names what it captures: ``forward`` (the module's
+    ``forward_t1``), ``kernels`` (its wrappers, in the order of
+    :attr:`launches_per_replay`) and ``counts`` (every ``(wrapper,
+    attribute)`` launch count a replay has to keep up to date).  A replay
+    launches every kernel the capture recorded, so it adds the captured
+    count to each of them (the capture itself launches nothing and leaves
+    the counts as they were).
+    """
+
+    total_replays = 0
+    forward = None
+    kernels: tuple = ()
+    counts: tuple = ()
+
+    def __init__(self, params, state, batch: int):
+        dev = state["wkv"].device
+        if dev.type != "cuda":
+            raise ValueError(f"a CUDA graph needs CUDA tensors, got {dev}")
+        self.tokens = torch.zeros(batch, dtype=torch.int32, device=dev)
+        self.lengths = torch.zeros(batch, dtype=torch.int32, device=dev)
+        forward = type(self).forward
+
+        def run():
+            hidden, _ = forward(params, state, self.tokens[:, None],
+                                self.lengths)
+            return hidden[:, 0]
+
+        # Warm up on a side stream with every row idle (the state keeps
+        # its bits): builds and loads the kernels outside the capture.
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            run()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        before = [getattr(k, a) for k, a in self.counts]
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.hidden = run()
+        self._per_replay = [getattr(k, a) - n
+                            for (k, a), n in zip(self.counts, before)]
+        self.launches_per_replay = self._per_replay[:len(self.kernels)]
+        for (k, a), n in zip(self.counts, before):
+            setattr(k, a, n)
+
+    def replay(self, tokens, lengths) -> torch.Tensor:
+        """One decode step: tokens (B,) int, lengths (B,) int or bool.
+        Returns the static ``hidden`` (B, C), overwritten by the next
+        replay."""
+        self.tokens.copy_(tokens)
+        self.lengths.copy_(lengths)
+        self.graph.replay()
+        for (k, a), n in zip(self.counts, self._per_replay):
+            setattr(k, a, getattr(k, a) + n)
+        DecodeGraph.total_replays += 1
+        return self.hidden

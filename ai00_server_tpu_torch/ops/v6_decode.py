@@ -1,0 +1,302 @@
+"""The fused whole-network RWKV-6 decode step (T = 1) and its CUDA graph.
+
+Port of ``ai00_server_tpu/ops/v6_decode_pallas.py`` (``FUSED_KEY``,
+``supports``, ``can_fuse``, ``make_fused_layout``, ``forward_t1`` and the
+Pallas ``_kernel`` at its lines 126-232) for plain bf16 / f32 weights and
+for its quantized modes: the eight big projections of every layer (``Wr``,
+``Wk``, ``Wv``, ``Wg``, ``Wo``, ``fkey``, ``frec``, ``fval``) as int8 or
+packed nf4 / sf4 / int4 codes, dequantized inside the product.  The Pallas
+kernel is one sequential grid over the layers; on the card a layer is
+eleven launches of three hand-written kernels (``csrc/v6_decode.cu`` says
+what bounds each and what its design does about it):
+
+* ``v7_ln_mix`` (``ops/v7_decode``) — LayerNorm 1 and the token shift:
+  ``xa``, ``dx`` and ``xxx = xa + dx * mix_x`` (``with_xa_dx``), the new
+  shift state; LayerNorm 2 and the channel mix's two mixed inputs;
+* ``v7_skinny_matmul`` (``ops/v7_decode``) — every product, with the
+  RWKV-6 epilogues: the token-shift combine ``xa + dx * (mix_f + m_f)``,
+  SiLU, the decay ``exp(-exp(.))`` and the receptance-gated residual add;
+* :func:`v6_wkv_gn` — the WKV step with the ``u`` bonus on the k-major
+  state, GroupNorm, ``ln_x`` and the gate by ``g``.
+
+Beside the new kernel is its plain PyTorch version (``*_plain``), and
+:func:`forward_t1_plain` is the stack composed of the plain versions.  A
+wrapper runs the plain version only for CPU tensors; on a CUDA tensor it
+launches its kernel or raises.  Values round through the activation dtype
+at the Pallas kernel's points, which differ from the layer-by-layer path's
+(``models/v6.py``): ``r``, ``k``, ``v`` round through it and are used in
+f32, ``g`` stays f32 up to the gate, the residual stays f32 across layers
+and the shift states keep the f32 LayerNorm.
+
+The TPU kernel splits the (C, 5D) token-shift LoRA into five (C, D) stages
+so that it never slices lanes at non-tile offsets; here it is one (C, 5D)
+product whose output the five (D, C) products read as strided views.  Like
+``ops/v7_decode`` this module updates the state IN PLACE and returns the
+dict it was passed, so :class:`DecodeGraph` can capture the stack once.  No
+VMEM budget applies on the card: every v6 model with head size 64 whose big
+projections are uniformly plain or uniformly quantized in one mode takes
+this path.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..models.common import GN_EPS, layer_norm
+from . import _build, fused_decode
+from . import v7_decode as v7d
+from .quant import MODES
+from .v7_decode import (_DTYPE_CODE, Product, Workspace, _dense,
+                        _one_cuda_device, _require, _scratch_need, _stream,
+                        v7_ln_mix, v7_skinny_matmul)
+
+FUSED_KEY = "_fused_t1_v6"
+
+# The fused layout holds the stacks ``mix`` (L, 6, C: mix_x, mix_w, mix_k,
+# mix_v, mix_r, mix_g), ``vecs`` (L, 4, C) f32 (the JAX layout's rows
+# without its f32 copies of the channel mix's mixes, which nothing here
+# reads), ``ln1``, ``ln2`` (L, 2, C) and ``fmix`` (L, 2, C: the channel
+# mix's mix_k, mix_r, in the activation dtype), and every matmul
+# weight as the list of the L per-layer tensors of the params themselves:
+# ``mw1`` (C, 5D), ``mw2`` (5, D, C), ``dw1`` (C, Dw), ``dw2`` (Dw, C) and
+# the big projections (``name``, or ``name_q`` / ``name_s`` for codes).
+_VEC_NAMES = ("decay", "first", "lnx_w", "lnx_b")
+_VEC_IDX = {n: i for i, n in enumerate(_VEC_NAMES)}
+_BIG_SRC = {"Wr": ("att", "receptance"), "Wk": ("att", "key"),
+            "Wv": ("att", "value"), "Wg": ("att", "gate"),
+            "Wo": ("att", "output"), "fkey": ("ffn", "key"),
+            "frec": ("ffn", "receptance"), "fval": ("ffn", "value")}
+_LORA = {"mw1": "mix_w1", "mw2": "mix_w2", "dw1": "decay_w1",
+         "dw2": "decay_w2"}
+_MIXES = ("mix_x", "mix_w", "mix_k", "mix_v", "mix_r", "mix_g")
+
+
+def supports(params) -> bool:
+    """True when the fused decode layout is installed on these params."""
+    return FUSED_KEY in params
+
+
+def can_fuse(params) -> bool:
+    """Whether a fused layout can be built: activations of one dtype (bf16
+    or f32), the big projections of ALL layers uniformly plain in that dtype
+    or uniformly quantized in ONE mode (a mixed model keeps to the layer
+    path, as a model of several layer groups does in the reference),
+    ``C == H * N`` and head size 64 (the WKV kernel's register layout)."""
+    layers = params.get("layers")
+    if not layers or "first" not in layers[0]["att"]:
+        return False
+    att = layers[0]["att"]
+    H, N = att["first"].shape[-2:]
+    C = att["mix_w1"].shape[0]
+    dtype = att["mix_w1"].dtype
+    if C != H * N or N != 64 or dtype not in _DTYPE_CODE:
+        return False
+    modes = {fused_decode.group_mode(p, _BIG_SRC) for p in layers}
+    if modes == {"none"}:
+        return all(p[part][key].dtype == dtype
+                   for p in layers for part, key in _BIG_SRC.values())
+    return len(modes) == 1 and modes <= set(MODES)
+
+
+def make_fused_layout(params) -> dict:
+    """Decode weight stacks: only the per-channel vectors are re-packed into
+    a few stacked tensors; the matmul weights are the params' own tensors."""
+    layers = params["layers"]
+    C = layers[0]["att"]["mix_w1"].shape[0]
+
+    def stack(rows_of):
+        return torch.stack([torch.stack(rows_of(p)) for p in layers])
+
+    out = {
+        "mix": stack(lambda p: [p["att"][k] for k in _MIXES]),
+        "vecs": stack(lambda p: [v.float() for v in (
+            p["att"]["decay"], p["att"]["first"].reshape(C),
+            p["att"]["ln_x_w"], p["att"]["ln_x_b"])]),
+        "ln1": stack(lambda p: [p["ln1_w"], p["ln1_b"]]),
+        "ln2": stack(lambda p: [p["ln2_w"], p["ln2_b"]]),
+        "fmix": stack(lambda p: [p["ffn"]["mix_k"], p["ffn"]["mix_r"]]),
+    }
+    for name, key in _LORA.items():
+        out[name] = [p["att"][key] for p in layers]
+    for p in layers:
+        for name, t in fused_decode.big_layout_entries(p, _BIG_SRC).items():
+            out.setdefault(name, []).append(t)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# v6_wkv_gn
+# ---------------------------------------------------------------------------
+
+
+def v6_wkv_gn_plain(r, k, v, w, g, vecs, active, S, dtype):
+    """The plain PyTorch version of :func:`v6_wkv_gn`, functional: returns
+    ``(out (B, C) dtype, S_new)``."""
+    B, H, N, _ = S.shape
+    C = H * N
+
+    def heads(t):
+        return t.reshape(B, H, N)
+
+    u = vecs[_VEC_IDX["first"]].reshape(H, N)
+    a = heads(k)[..., :, None] * heads(v)[..., None, :]   # (B, H, N_k, N_v)
+    y = torch.einsum("bhk,bhkv->bhv", heads(r), S + u[None, :, :, None] * a)
+    S_new = torch.where(active[:, None, None, None],
+                        heads(w)[..., None] * S + a, S)
+    mean = y.mean(-1, keepdim=True)
+    var = y.var(-1, unbiased=False, keepdim=True)
+    yn = ((y - mean) * torch.rsqrt(var + GN_EPS)).reshape(B, C)
+    yf = (yn * vecs[_VEC_IDX["lnx_w"]] + vecs[_VEC_IDX["lnx_b"]]).to(
+        dtype).float()
+    return (yf * g).to(dtype), S_new
+
+
+def _wkv_gn_inplace_plain(r, k, v, w, g, vecs, active, S, dtype):
+    out, S_new = v6_wkv_gn_plain(r, k, v, w, g, vecs, active, S, dtype)
+    S.copy_(S_new)
+    return out
+
+
+def v6_wkv_gn(r, k, v, w, g, vecs, active, S, dtype):
+    """The WKV stage of one v6 layer's decode step, per (b, h).
+
+    r, k, v, w, g: (B, C) f32 (``w`` the decay ``exp(-exp(.))``, ``g`` the
+    SiLU gate); vecs: (4, C) f32 (decay, first, lnx_w, lnx_b; ``first`` is
+    the bonus ``u``); active: (B,) bool; S: (B, H, 64,
+    64) f32 (k-dim, v-dim).  Computes ``y = r (S + u k v^T)`` from the state
+    before the step for every row, ``S = w S + k v^T`` IN PLACE for active
+    rows (an inactive row keeps its state bit for bit), GroupNorm of the f32
+    ``y`` per head, ``ln_x``, rounding through ``dtype`` and the gate by
+    ``g``.  Returns the operand of the output projection, (B, C) in
+    ``dtype``."""
+    if S.device.type == "cpu":
+        return _wkv_gn_inplace_plain(r, k, v, w, g, vecs, active, S, dtype)
+    f32s = (r, k, v, w, g)
+    dev = _one_cuda_device(S, *f32s, vecs, active)
+    B, H, N, N2 = S.shape
+    _require(N == 64 and N2 == 64,
+             f"the CUDA kernel takes head size 64, got {N}x{N2}")
+    _require(dtype in _DTYPE_CODE, f"unsupported activation dtype {dtype}")
+    C = H * N
+    _dense(S, (B, H, N, N), torch.float32, "S")
+    for t in f32s:
+        _dense(t, (B, C), torch.float32, "r/k/v/w/g")
+    _dense(vecs, (len(_VEC_NAMES), C), torch.float32, "vecs")
+    _dense(active, (B,), torch.bool, "active")
+    out = torch.empty((B, C), dtype=dtype, device=dev)
+    status = _build.library("v6_decode").v6_wkv_gn_launch(
+        *(t.data_ptr() for t in f32s), vecs.data_ptr(), active.data_ptr(),
+        S.data_ptr(), out.data_ptr(), B, H, N, _DTYPE_CODE[dtype],
+        _stream(dev))
+    _build.check(status, "v6_wkv_gn")
+    v6_wkv_gn.launches += 1
+    return out
+
+
+v6_wkv_gn.launches = 0
+
+KERNELS = (v7_ln_mix, v7_skinny_matmul, v6_wkv_gn)
+# Every launch count a replayed graph has to keep up to date.
+_COUNTS = (*((k, "launches") for k in KERNELS),
+           (v7_skinny_matmul, "int8_launches"),
+           (v7_skinny_matmul, "q4_launches"))
+_PLAIN_OPS = (v7d._ln_mix_inplace_plain, v7d._matmul_inplace_plain,
+              _wkv_gn_inplace_plain)
+
+
+# ---------------------------------------------------------------------------
+# The stack
+# ---------------------------------------------------------------------------
+
+
+def _workspace(f, quant: bool, cd, device) -> Workspace:
+    """Scratch for the largest launch of the stack."""
+    C = f["ln1"].shape[-1]
+    F = f["fkey_q" if quant else "fkey"][0].shape[-1]
+    D5, Dw = f["mw1"][0].shape[-1], f["dw1"][0].shape[-1]
+    big = torch.int8 if quant else cd
+    need = [_scratch_need(s, big) for s in
+            ([(C, C)] * 4, [(C, F), (C, C)], [(F, C)])]
+    need += [_scratch_need(s, cd) for s in
+             ([(C, D5)], [(D5 // 5, C)] * 5, [(C, Dw)], [(Dw, C)])]
+    return Workspace(device, max(n[0] for n in need),
+                     max(n[1] for n in need))
+
+
+def _forward(ops, params, state, tokens, lengths):
+    ln_mix, matmul, wkv_gn = ops
+    f = params[FUSED_KEY]
+    L = f["ln1"].shape[0]
+    quant = "fkey_q" in f
+    # One mode for the whole stack (can_fuse); the codes do not name it.
+    mode = fused_decode.group_mode(params["layers"][0], _BIG_SRC)
+    cd = params["emb"].dtype
+    D = f["mw2"][0].shape[1]
+    active = lengths > 0
+    ws = (_workspace(f, quant, cd, tokens.device)
+          if tokens.device.type == "cuda" else None)
+    # The f32 residual, carried across the layers without rounding.
+    x = params["emb"][tokens[:, 0].long()].float()
+    P = Product
+
+    def big(x_in, name, l, **kw):
+        """The product with big projection ``name`` of layer ``l``."""
+        if quant:
+            return P(x_in, f[name + "_q"][l], scale=f[name + "_s"][l],
+                     mode=mode, **kw)
+        return P(x_in, f[name][l], **kw)
+
+    for l in range(L):
+        vec, mix = f["vecs"][l], f["mix"][l]
+        xa, dx, xxx = ln_mix(x, f["ln1"][l], state["att_x"][l], mix[0:1],
+                             active, with_xa_dx=True)
+        # The five data-dependent token-shift offsets (w, k, v, r, g).
+        (h,) = matmul([P(xxx, f["mw1"][l], act="tanh")], ws)
+        xw, xk, xv, xr, xg = matmul([
+            P(h[:, i * D:(i + 1) * D], f["mw2"][l][i], out="mix", xa=xa,
+              dx=dx, mix=mix[1 + i]) for i in range(5)], ws)
+        (hd,) = matmul([P(xw, f["dw1"][l], act="tanh")], ws)
+        r, k, v, g = matmul([
+            big(xr, "Wr", l, round_cd=True, out="f32"),
+            big(xk, "Wk", l, round_cd=True, out="f32"),
+            big(xv, "Wv", l, round_cd=True, out="f32"),
+            big(xg, "Wg", l, act="silu", out="f32")], ws)
+        (w,) = matmul([P(hd, f["dw2"][l], act="expexp",
+                         bias=vec[_VEC_IDX["decay"]], out="f32")], ws)
+        yg = wkv_gn(r, k, v, w, g, vec, active, state["wkv"][l], cd)
+        matmul([big(yg, "Wo", l, out="add", y=x)], ws)
+        fxk, fxr = ln_mix(x, f["ln2"][l], state["ffn_x"][l], f["fmix"][l],
+                          active)
+        hk, rf = matmul([big(fxk, "fkey", l, act="relu2"),
+                         big(fxr, "frec", l, act="sigmoid", out="f32")], ws)
+        matmul([big(hk, "fval", l, out="gadd", y=x, gate=rf)], ws)
+    hidden = layer_norm(x.to(cd), params["ln_out_w"], params["ln_out_b"])
+    return hidden[:, None, :], state
+
+
+def forward_t1(params, state, tokens, lengths):
+    """Single-token decode forward: drop-in for ``models/v6.forward`` at
+    T = 1, through the hand-written kernels on CUDA tensors.
+
+    Requires ``params[FUSED_KEY]`` (:func:`make_fused_layout`).  tokens:
+    (B, 1); lengths: (B,) in {0, 1}.  ``state`` is updated IN PLACE (rows
+    with length 0 keep theirs bit for bit) and returned beside the hidden
+    (B, 1, C) after ``ln_out``.  The embedding gather and ``ln_out`` are
+    plain PyTorch; everything between them is the kernels.
+    """
+    return _forward(KERNELS, params, state, tokens, lengths)
+
+
+def forward_t1_plain(params, state, tokens, lengths):
+    """:func:`forward_t1` composed of the kernels' plain versions, on
+    whatever device the tensors are on; same in-place contract."""
+    return _forward(_PLAIN_OPS, params, state, tokens, lengths)
+
+
+class DecodeGraph(fused_decode.DecodeGraph):
+    """:func:`forward_t1` captured once in a CUDA graph and replayed per
+    decode step (:class:`fused_decode.DecodeGraph`)."""
+
+    forward = staticmethod(forward_t1)
+    kernels = KERNELS
+    counts = _COUNTS

@@ -13,9 +13,10 @@ design does about it):
 
 * :func:`v7_ln_mix` — LayerNorm, token shift, the mixed inputs, the new
   shift state;
-* :func:`v7_skinny_matmul` — up to four ``epilogue(x @ W)`` with at most a
+* :func:`v7_skinny_matmul` — up to five ``epilogue(x @ W)`` with at most a
   few batch rows, the weight in its ``(in, out)`` layout — plain, or int8 or
-  packed 4-bit codes and scales — streamed once;
+  packed 4-bit codes and scales — streamed once (the RWKV-6 stack,
+  ``ops/v6_decode.py``, runs its products through it too);
 * :func:`v7_wkv_gn` — the WKV step with its vector prologue and the
   GroupNorm / bonus / gate epilogue.
 
@@ -70,9 +71,12 @@ _BIG_SRC = {"Wr": ("att", "receptance"), "Wk": ("att", "key"),
 _LORA = ("w1", "a1", "v1", "g1", "w2", "a2", "v2", "g2")
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_ACT_CODE = {"none": 0, "tanh": 1, "sigmoid": 2, "wdecay": 3, "relu2": 4}
-_OUT_CODE = {"cd": 0, "f32": 1, "add": 2}
+_ACT_CODE = {"none": 0, "tanh": 1, "sigmoid": 2, "wdecay": 3, "relu2": 4,
+             "silu": 5, "expexp": 6}
+_OUT_CODE = {"cd": 0, "f32": 1, "add": 2, "mix": 3, "gadd": 4}
+_MM_MAXP = 5  # products per launch
 _MM_NB = 8  # batch rows per launch
+_ADDS = ("add", "gadd")  # outputs added into the f32 y in place
 
 
 def supports(params) -> bool:
@@ -137,25 +141,34 @@ def make_fused_layout(params) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def v7_ln_mix_plain(x, ln, shift, mix, active):
-    """The plain PyTorch version of :func:`v7_ln_mix`, functional:
-    returns ``(out (n_mix, B, C), new_shift (B, C))``."""
-    cd = mix.dtype
+def ln_shift_plain(x, ln, shift, active, cd):
+    """LayerNorm of the f32 residual and the token shift, as the decode
+    kernels compute them: ``(xa, dx, new_shift)`` with ``xa = ln`` and
+    ``dx = shift - ln`` rounded through ``cd`` and ``new_shift`` the f32
+    LayerNorm where ``active``."""
     xf = x.float()
     mean = xf.mean(-1, keepdim=True)
     var = xf.var(-1, unbiased=False, keepdim=True)
     lnv = (xf - mean) * torch.rsqrt(var + LN_EPS) * ln[0].float() \
         + ln[1].float()
     prev = shift.float()
-    xa = lnv.to(cd)
-    dx = (prev - lnv).to(cd)
-    out = xa[None] + dx[None] * mix[:, None, :]
     new_shift = torch.where(active[:, None], lnv, prev).to(shift.dtype)
+    return lnv.to(cd), (prev - lnv).to(cd), new_shift
+
+
+def v7_ln_mix_plain(x, ln, shift, mix, active, with_xa_dx=False):
+    """The plain PyTorch version of :func:`v7_ln_mix`, functional:
+    returns ``(out (n_mix, B, C) or (2 + n_mix, B, C), new_shift (B,
+    C))``."""
+    xa, dx, new_shift = ln_shift_plain(x, ln, shift, active, mix.dtype)
+    out = xa[None] + dx[None] * mix[:, None, :]
+    if with_xa_dx:
+        out = torch.cat([xa[None], dx[None], out])
     return out, new_shift
 
 
-def _ln_mix_inplace_plain(x, ln, shift, mix, active):
-    out, new_shift = v7_ln_mix_plain(x, ln, shift, mix, active)
+def _ln_mix_inplace_plain(x, ln, shift, mix, active, with_xa_dx=False):
+    out, new_shift = v7_ln_mix_plain(x, ln, shift, mix, active, with_xa_dx)
     shift.copy_(new_shift)
     return out
 
@@ -184,14 +197,16 @@ def _stream(dev) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def v7_ln_mix(x, ln, shift, mix, active):
+def v7_ln_mix(x, ln, shift, mix, active, with_xa_dx=False):
     """LayerNorm of the f32 residual ``x`` (B, C) with ``ln`` (2, C: weight,
     bias), token shift against ``shift`` (B, C) f32, and ``n_mix`` mixed
     outputs ``ln + (shift - ln) * mix[i]`` in ``mix``'s dtype, returned as
-    (n_mix, B, C).  ``shift`` becomes the f32 LayerNorm IN PLACE where
+    (n_mix, B, C); ``with_xa_dx`` puts ``xa = ln`` and ``dx = shift - ln``
+    first (RWKV-6 mixes its token shift after a LoRA on them), returning
+    (2 + n_mix, B, C).  ``shift`` becomes the f32 LayerNorm IN PLACE where
     ``active`` (B,) bool."""
     if x.device.type == "cpu":
-        return _ln_mix_inplace_plain(x, ln, shift, mix, active)
+        return _ln_mix_inplace_plain(x, ln, shift, mix, active, with_xa_dx)
     dev = _one_cuda_device(x, ln, shift, mix, active)
     B, C = x.shape
     cd = mix.dtype
@@ -202,11 +217,12 @@ def v7_ln_mix(x, ln, shift, mix, active):
     _dense(ln, (2, C), cd, "ln")
     _dense(mix, (n_mix, C), cd, "mix")
     _dense(active, (B,), torch.bool, "active")
-    out = torch.empty((n_mix, B, C), dtype=cd, device=dev)
+    base = 2 if with_xa_dx else 0
+    out = torch.empty((base + n_mix, B, C), dtype=cd, device=dev)
     status = _build.library("v7_decode").v7_ln_mix_launch(
         x.data_ptr(), ln.data_ptr(), shift.data_ptr(), mix.data_ptr(),
-        active.data_ptr(), out.data_ptr(), B, C, n_mix, _DTYPE_CODE[cd],
-        _stream(dev))
+        active.data_ptr(), out.data_ptr(), B, C, n_mix, base,
+        _DTYPE_CODE[cd], _stream(dev))
     _build.check(status, "v7_ln_mix")
     v7_ln_mix.launches += 1
     return out
@@ -224,7 +240,8 @@ v7_ln_mix.launches = 0
 class Product:
     """One ``y = epilogue(x @ W)`` of a :func:`v7_skinny_matmul` launch.
 
-    x: (B, K) in the activation dtype ``cd``; W: (K, N) in ``cd``, or —
+    x: (B, K) in the activation dtype ``cd`` (rows may be a strided view,
+    elements contiguous); W: (K, N) in ``cd``, or —
     with ``scale`` and ``mode`` — codes that the product dequantizes in
     ``cd`` per scale block (``ops/quant_matmul``): ``mode="int8"`` int8
     codes (K/128, 128, N) with ``scale`` (K/128, 1, N) f32; ``mode`` nf4 /
@@ -233,10 +250,14 @@ class Product:
     ``"none"`` (:attr:`weight_mode`).
     Sums are f32.  The epilogue adds ``bias`` ((N,) f32) if given, applies ``act``
     (``none``, ``tanh``, ``sigmoid``, ``wdecay`` = exp(-W_SCALE * sigmoid),
-    ``relu2`` = relu squared), and then ``out`` says what is stored:
+    ``relu2`` = relu squared, ``silu`` = s sigmoid(s), ``expexp`` =
+    exp(-exp(s)), RWKV-6's decay), and then ``out`` says what is stored:
     ``"cd"`` a cd tensor, ``"f32"`` an f32 tensor (rounded through cd first
     if ``round_cd``), ``"add"`` nothing new — the result is added into the
-    f32 ``y`` (B, N) in place.
+    f32 ``y`` (B, N) in place; ``"gadd"`` the same, times the f32 ``gate``
+    (B, N); ``"mix"`` a cd tensor ``xa + dx * (mix + s)`` with ``xa``, ``dx``
+    (B, N) and ``mix`` (N,) in cd, every step rounded through cd (RWKV-6's
+    token-shift combine).
     """
 
     x: torch.Tensor
@@ -248,6 +269,10 @@ class Product:
     y: torch.Tensor | None = None
     scale: torch.Tensor | None = None
     mode: str = ""
+    gate: torch.Tensor | None = None
+    xa: torch.Tensor | None = None
+    dx: torch.Tensor | None = None
+    mix: torch.Tensor | None = None
 
     @property
     def weight_mode(self) -> str:
@@ -312,10 +337,18 @@ def v7_skinny_matmul_plain(products):
             s = torch.exp(-W_SCALE * torch.sigmoid(s))
         elif p.act == "relu2":
             s = torch.square(torch.relu(s))
+        elif p.act == "silu":
+            s = s * torch.sigmoid(s)
+        elif p.act == "expexp":
+            s = torch.exp(-torch.exp(s))
         elif p.act != "none":
             raise ValueError(f"unknown activation {p.act!r}")
         if p.out == "add":
             outs.append(p.y + s)
+        elif p.out == "gadd":
+            outs.append(p.y + p.gate * s)
+        elif p.out == "mix":  # each op rounds through cd
+            outs.append(p.xa + p.dx * (p.mix + s.to(cd)))
         elif p.out == "f32":
             outs.append(s.to(cd).float() if p.round_cd else s)
         elif p.out == "cd":
@@ -328,21 +361,23 @@ def v7_skinny_matmul_plain(products):
 def _matmul_inplace_plain(products, workspace=None):
     outs = v7_skinny_matmul_plain(products)
     for p, o in zip(products, outs):
-        if p.out == "add":
+        if p.out in _ADDS:
             p.y.copy_(o)
-    return [p.y if p.out == "add" else o for p, o in zip(products, outs)]
+    return [p.y if p.out in _ADDS else o for p, o in zip(products, outs)]
 
 
 def v7_skinny_matmul(products, workspace: Workspace | None = None):
-    """Up to four :class:`Product` in one launch; returns their results in
-    order (for ``out="add"`` the tensor that was added into).  Every weight
-    byte is read once for all B rows; the sums' order is fixed, so equal
-    inputs give equal bits."""
+    """Up to five :class:`Product` in one launch; returns their results in
+    order (for ``out="add"`` / ``"gadd"`` the tensor that was added into).
+    Every weight byte is read once for all B rows; the sums' order is fixed,
+    so equal inputs give equal bits."""
     if products[0].x.device.type == "cpu":
         return _matmul_inplace_plain(products)
-    _require(1 <= len(products) <= 4, "1 to 4 products per launch")
+    _require(1 <= len(products) <= _MM_MAXP,
+             f"1 to {_MM_MAXP} products per launch")
     dev = _one_cuda_device(*(t for p in products
-                             for t in (p.x, p.W, p.bias, p.y, p.scale)
+                             for t in (p.x, p.W, p.bias, p.y, p.scale,
+                                       p.gate, p.xa, p.dx, p.mix)
                              if t is not None))
     cd = products[0].x.dtype
     _require(cd in _DTYPE_CODE, f"unsupported activation dtype {cd}")
@@ -373,24 +408,40 @@ def v7_skinny_matmul(products, workspace: Workspace | None = None):
                      "scale must be 16-byte aligned")
         else:
             _dense(p.W, (K, N), wd, "W")
-        _dense(p.x, (B, K), cd, "x")
+        _require(tuple(p.x.shape) == (B, K) and p.x.dtype == cd
+                 and p.x.stride(1) == 1 and p.x.stride(0) >= K,
+                 f"x must be {cd} {(B, K)} with contiguous rows, got "
+                 f"{p.x.dtype} {tuple(p.x.shape)} strides {p.x.stride()}")
         _require(N % vec == 0 and p.W.data_ptr() % 4 == 0,
                  f"W needs 4-byte aligned rows: N={N} a multiple of {vec}")
         if p.bias is not None:
             _dense(p.bias, (N,), torch.float32, "bias")
-        if p.out == "add":
-            _require(p.y is not None, 'out="add" needs y')
+        ops = [None, None, None]
+        if p.out in _ADDS:
+            _require(p.y is not None, f'out="{p.out}" needs y')
             _dense(p.y, (B, N), torch.float32, "y")
             y = p.y
+            if p.out == "gadd":
+                _require(p.gate is not None, 'out="gadd" needs gate')
+                _dense(p.gate, (B, N), torch.float32, "gate")
+                ops[0] = p.gate
         else:
-            y = torch.empty((B, N), device=dev,
-                            dtype=cd if p.out == "cd" else torch.float32)
+            y = torch.empty((B, N), device=dev, dtype=torch.float32
+                            if p.out == "f32" else cd)
+            if p.out == "mix":
+                _require(all(t is not None for t in (p.xa, p.dx, p.mix)),
+                         'out="mix" needs xa, dx and mix')
+                _dense(p.xa, (B, N), cd, "xa")
+                _dense(p.dx, (B, N), cd, "dx")
+                _dense(p.mix, (N,), cd, "mix")
+                ops = [p.xa, p.dx, p.mix]
         outs.append(y)
         flags = (_ACT_CODE[p.act] | int(p.round_cd) << 8
                  | _OUT_CODE[p.out] << 16)
         desc += [p.x.data_ptr(), p.W.data_ptr(), y.data_ptr(),
                  p.bias.data_ptr() if p.bias is not None else 0, K, N,
-                 flags, p.scale.data_ptr() if quant else 0]
+                 flags, p.scale.data_ptr() if quant else 0, p.x.stride(0),
+                 *(t.data_ptr() if t is not None else 0 for t in ops)]
     floats, counters = _scratch_need([p.KN for p in products], wd)
     if workspace is None:
         workspace = Workspace(dev, floats, counters)
@@ -610,56 +661,10 @@ def forward_t1_plain(params, state, tokens, lengths):
     return _forward(_PLAIN_OPS, params, state, tokens, lengths)
 
 
-class DecodeGraph:
-    """:func:`forward_t1` captured once in a ``torch.cuda.CUDAGraph`` over
-    static buffers — ``tokens`` (B,) int32, ``lengths`` (B,) int32, the
-    state pool it was given, ``hidden`` (B, C) — and replayed per decode
-    step.  A failure to capture raises; there is no eager retry.
+class DecodeGraph(fused_decode.DecodeGraph):
+    """:func:`forward_t1` captured once in a CUDA graph and replayed per
+    decode step (:class:`fused_decode.DecodeGraph`)."""
 
-    A replay launches every kernel the capture recorded, so it adds the
-    captured count to each wrapper's ``launches`` (the capture itself
-    launches nothing and leaves the counts as they were).
-    """
-
-    total_replays = 0
-
-    def __init__(self, params, state, batch: int):
-        dev = state["wkv"].device
-        if dev.type != "cuda":
-            raise ValueError(f"a CUDA graph needs CUDA tensors, got {dev}")
-        self.tokens = torch.zeros(batch, dtype=torch.int32, device=dev)
-        self.lengths = torch.zeros(batch, dtype=torch.int32, device=dev)
-
-        def run():
-            hidden, _ = forward_t1(params, state, self.tokens[:, None],
-                                   self.lengths)
-            return hidden[:, 0]
-
-        # Warm up on a side stream with every row idle (the state keeps
-        # its bits): builds and loads the kernels outside the capture.
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            run()
-        torch.cuda.current_stream(dev).wait_stream(side)
-        before = [getattr(k, a) for k, a in _COUNTS]
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            self.hidden = run()
-        self._per_replay = [getattr(k, a) - n
-                            for (k, a), n in zip(_COUNTS, before)]
-        self.launches_per_replay = self._per_replay[:len(KERNELS)]
-        for (k, a), n in zip(_COUNTS, before):
-            setattr(k, a, n)
-
-    def replay(self, tokens, lengths) -> torch.Tensor:
-        """One decode step: tokens (B,) int, lengths (B,) int or bool.
-        Returns the static ``hidden`` (B, C), overwritten by the next
-        replay."""
-        self.tokens.copy_(tokens)
-        self.lengths.copy_(lengths)
-        self.graph.replay()
-        for (k, a), n in zip(_COUNTS, self._per_replay):
-            setattr(k, a, getattr(k, a) + n)
-        DecodeGraph.total_replays += 1
-        return self.hidden
+    forward = staticmethod(forward_t1)
+    kernels = KERNELS
+    counts = _COUNTS

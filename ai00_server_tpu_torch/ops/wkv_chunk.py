@@ -1,16 +1,17 @@
-"""The RWKV-7 WKV recurrence over a prefill chunk: CUDA kernel and its
-plain PyTorch version.
+"""The WKV recurrence over a prefill chunk, RWKV-7 and RWKV-5/6: CUDA kernels
+and their plain PyTorch versions.
 
-Port of ``ai00_server_tpu/ops/wkv_pallas.py:wkv7_chunk`` (the Pallas
-``_wkv7_kernel`` and its wrapper, lines 76-116 and 173-205), renamed
-because nothing here is Pallas.  The kernel is
-``csrc/wkv7.cu:wkv7_chunk_launch``: the state stays in registers for the
-whole chunk and the inputs are read straight from the ``(B, T, H, N)``
-layout, so the wrapper needs no transpose, no mask folding and no padding
-of T.
+Port of ``ai00_server_tpu/ops/wkv_pallas.py``: ``wkv7_chunk`` (the Pallas
+``_wkv7_kernel`` and its wrapper, lines 76-116 and 173-205) and
+``wkv56_chunk`` (``_wkv56_kernel``, lines 119-157 and 208-239), renamed
+because nothing here is Pallas.  The kernels are
+``csrc/wkv7.cu:wkv7_chunk_launch`` and ``csrc/wkv56.cu:wkv56_chunk_launch``:
+the state stays in registers for the whole chunk and the inputs are read
+straight from the ``(B, T, H, N)`` layout, so the wrappers need no
+transpose, no mask folding and no padding of T.
 
-``wkv7_chunk`` launches the kernel for CUDA tensors and runs
-:func:`wkv7_chunk_plain` only for CPU tensors.
+Each wrapper launches its kernel for CUDA tensors and runs its plain version
+only for CPU tensors.
 """
 
 from __future__ import annotations
@@ -90,3 +91,52 @@ def wkv7_chunk(S, r, w, k, v, kk, a, mask):
 
 
 wkv7_chunk.launches = 0
+
+
+def wkv56_chunk_plain(S, r, k, v, w, u, mask):
+    """The plain PyTorch version (the JAX package's ``models/v5.wkv_scan``):
+    same contract as :func:`wkv56_chunk`."""
+    S = S.float()
+    r, k, v, w = (t.float() for t in (r, k, v, w))
+    u = u.float()[None, :, :, None]
+    ys = []
+    for t in range(r.shape[1]):
+        a = k[:, t, :, :, None] * v[:, t, :, None, :]   # (B, H, N_k, N_v)
+        ys.append(torch.einsum("bhk,bhkv->bhv", r[:, t], S + u * a))
+        S = masked_select(mask[:, t], w[:, t, :, :, None] * S + a, S)
+    return S, torch.stack(ys, dim=1)
+
+
+def wkv56_chunk(S, r, k, v, w, u, mask):
+    """v5/v6 WKV over a chunk.  S: (B, H, N, N) f32 (k-dim, v-dim);
+    r, k, v, w: (B, T, H, N) (cast to f32); u: (H, N); mask: (B, T) bool.
+    Returns (new_S, y (B, T, H, N) f32).  Every step's y reads the state
+    before it plus the ``u`` bonus; a masked step leaves S unchanged (its y
+    differs from the JAX Pallas kernel's, which folds the mask into w=1,
+    k=0: compare y at valid steps only)."""
+    if S.device.type == "cpu":
+        return wkv56_chunk_plain(S, r, k, v, w, u, mask)
+    if S.device.type != "cuda":
+        raise ValueError(f"unsupported device {S.device}")
+    seqs = [t.float().contiguous() for t in (r, k, v, w)]
+    mask = mask.contiguous()
+    _check(S, seqs, mask)
+    B, H, N, _ = S.shape
+    T = seqs[0].shape[1]
+    u = u.float().contiguous()
+    if tuple(u.shape) != (H, N) or u.device != S.device:
+        raise ValueError(f"u must be {(H, N)} on {S.device}, got "
+                         f"{tuple(u.shape)} on {u.device}")
+    S_out = torch.empty_like(S)
+    y = torch.empty((B, T, H, N), device=S.device, dtype=torch.float32)
+    lib = _build.library("wkv56")
+    status = lib.wkv56_chunk_launch(
+        S.data_ptr(), *(t.data_ptr() for t in seqs), u.data_ptr(),
+        mask.data_ptr(), S_out.data_ptr(), y.data_ptr(), B, T, H, N,
+        torch.cuda.current_stream(S.device).cuda_stream)
+    _build.check(status, "wkv56_chunk")
+    wkv56_chunk.launches += 1
+    return S_out, y
+
+
+wkv56_chunk.launches = 0

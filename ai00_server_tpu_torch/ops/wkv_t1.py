@@ -1,12 +1,14 @@
-"""One RWKV-7 WKV decode step: CUDA kernel and its plain PyTorch version.
+"""One WKV decode step, RWKV-7 and RWKV-5/6: CUDA kernels and their plain
+PyTorch versions.
 
-Port of ``ai00_server_tpu/ops/wkv_t1.py:wkv7_t1`` (the Pallas
-``_v7_kernel``, lines 29-48 and 107-119).  The kernel is
-``csrc/wkv7.cu:wkv7_t1_launch``; the note there says what bounds it on the
-card and how its design answers that.
+Port of ``ai00_server_tpu/ops/wkv_t1.py``: ``wkv7_t1`` (the Pallas
+``_v7_kernel``, lines 29-48 and 107-119) and ``wkv56_t1`` (``_v56_kernel``,
+lines 51-67 and 122-134).  The kernels are ``csrc/wkv7.cu:wkv7_t1_launch``
+and ``csrc/wkv56.cu:wkv56_t1_launch``; the notes there say what bounds
+them on the card and how their designs answer that.
 
-``wkv7_t1`` launches the kernel for CUDA tensors and runs
-:func:`wkv7_t1_plain` only for CPU tensors.
+Each wrapper launches its kernel for CUDA tensors and runs its plain version
+only for CPU tensors.
 """
 
 from __future__ import annotations
@@ -80,3 +82,47 @@ def wkv7_t1(S, r, w, k, v, kk, a, mask):
 
 
 wkv7_t1.launches = 0
+
+
+def wkv56_t1_plain(S, r, k, v, w, u, mask):
+    """The plain PyTorch version (the JAX package's ``models/v5.wkv_scan``
+    at T = 1): same contract as :func:`wkv56_t1`."""
+    S = S.float()
+    r, k, v, w = (t.float() for t in (r, k, v, w))
+    a = k[..., :, None] * v[..., None, :]             # (B, H, N_k, N_v)
+    y = torch.einsum("bhk,bhkv->bhv", r, S + u.float()[None, :, :, None] * a)
+    S_new = masked_select(mask, w[..., None] * S + a, S)
+    return S_new, y
+
+
+def wkv56_t1(S, r, k, v, w, u, mask):
+    """One v5/v6 step.  S: (B, H, N, N) f32 (k-dim, v-dim); r/k/v/w:
+    (B, H, N) (cast to f32); u: (H, N); mask: (B,) bool.
+    Returns (S_new, y (B, H, N) f32): ``y`` reads the OLD state plus the
+    ``u`` bonus for every row, ``S_new = w S + k v^T`` where ``mask``; an
+    inactive row keeps S bit for bit."""
+    if S.device.type == "cpu":
+        return wkv56_t1_plain(S, r, k, v, w, u, mask)
+    if S.device.type != "cuda":
+        raise ValueError(f"unsupported device {S.device}")
+    vecs = [t.float().contiguous() for t in (r, k, v, w)]
+    mask = mask.contiguous()
+    _check(S, vecs, mask)
+    B, H, N, _ = S.shape
+    u = u.float().contiguous()
+    if tuple(u.shape) != (H, N) or u.device != S.device:
+        raise ValueError(f"u must be {(H, N)} on {S.device}, got "
+                         f"{tuple(u.shape)} on {u.device}")
+    S_out = torch.empty_like(S)
+    y = torch.empty((B, H, N), device=S.device, dtype=torch.float32)
+    lib = _build.library("wkv56")
+    status = lib.wkv56_t1_launch(
+        S.data_ptr(), *(t.data_ptr() for t in vecs), u.data_ptr(),
+        mask.data_ptr(), S_out.data_ptr(), y.data_ptr(), B, H, N,
+        torch.cuda.current_stream(S.device).cuda_stream)
+    _build.check(status, "wkv56_t1")
+    wkv56_t1.launches += 1
+    return S_out, y
+
+
+wkv56_t1.launches = 0

@@ -1,28 +1,27 @@
-"""Random RWKV-7 weights in the math layout, from a seed.
+"""Random RWKV-7 and RWKV-6 weights in the math layout, from a seed.
 
 Port of ``ai00_server_tpu/testing.py:14-161`` (``tiny_info``,
-``make_raw_weights``, ``make_params``) for v7, with the LoRA ranks as arguments so a caller
-can build the published widths (RWKV-7 World 0.4B: w 64, a 64, v 32,
-g 128).  For a given ``(info, seed, dtype)`` and the default ranks the
-arrays equal the JAX package's, so tests can feed one weight dict to both
-packages.
+``make_raw_weights``, ``make_params``) for v7 and v6, with the LoRA ranks as
+arguments so a caller can build the published widths (RWKV-7 World 0.4B:
+w 64, a 64, v 32, g 128; RWKV-6 World 1B6: token-shift ``tm`` 32, decay
+``td`` 64).  For a given ``(info, seed, dtype)`` and the default ranks the
+arrays equal the JAX package's — the draws come in its order — so tests can
+feed one weight dict to both packages.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from .models.info import ModelInfo, ModelVersion
+from .models import ModelInfo, ModelVersion, require_supported
 
-LORA_DIMS = {"w": 8, "a": 8, "v": 8, "g": 8}
+LORA_DIMS = {"w": 8, "a": 8, "v": 8, "g": 8, "tm": 8, "td": 8}
 
 
 def tiny_info(version: ModelVersion = ModelVersion.V7, num_layer=3,
               num_emb=32, head_size=16, num_vocab=64,
               hidden_mult=4) -> ModelInfo:
-    if version != ModelVersion.V7:
-        raise NotImplementedError(
-            f"RWKV {version.value} is the ROADMAP 'v6/v5/v4' item")
+    require_supported(version)
     return ModelInfo(
         version=version,
         num_layer=num_layer,
@@ -36,11 +35,10 @@ def tiny_info(version: ModelVersion = ModelVersion.V7, num_layer=3,
 
 def make_raw_weights(info: ModelInfo, seed=0, dtype=np.float64,
                      lora_dims: dict | None = None) -> dict[str, np.ndarray]:
-    """Random v7 weights keyed like a converted checkpoint, oriented like
-    the math layout (every linear ``(in, out)``)."""
-    if info.version != ModelVersion.V7:
-        raise NotImplementedError(
-            f"RWKV {info.version.value} is the ROADMAP 'v6/v5/v4' item")
+    """Random v7 or v6 weights keyed like a converted checkpoint, oriented
+    like the math layout (every linear ``(in, out)``)."""
+    require_supported(info.version)
+    v7 = info.version == ModelVersion.V7
     rng = np.random.default_rng(seed)
     D = {**LORA_DIMS, **(lora_dims or {})}
     C, V, F, L = info.num_emb, info.num_vocab, info.num_hidden, info.num_layer
@@ -71,30 +69,48 @@ def make_raw_weights(info: ModelInfo, seed=0, dtype=np.float64,
         w[a + "key.weight"] = rand(C, C)
         w[a + "value.weight"] = rand(C, C)
         w[a + "output.weight"] = rand(C, C)
-        for nm in ("x_r", "x_w", "x_k", "x_v", "x_a", "x_g"):
-            w[a + nm] = rand(C, scale=0.3)
-        w[a + "w0"] = rand(C, scale=0.5)
-        w[a + "w1"] = rand(C, D["w"])
-        w[a + "w2"] = rand(D["w"], C)
-        w[a + "a0"] = rand(C, scale=0.3)
-        w[a + "a1"] = rand(C, D["a"])
-        w[a + "a2"] = rand(D["a"], C)
-        if i > 0:
-            w[a + "v0"] = rand(C, scale=0.3)
-            w[a + "v1"] = rand(C, D["v"])
-            w[a + "v2"] = rand(D["v"], C)
-        w[a + "g1"] = rand(C, D["g"])
-        w[a + "g2"] = rand(D["g"], C)
-        w[a + "k_k"] = 0.5 + rand(C, scale=0.2)
-        w[a + "k_a"] = 0.5 + rand(C, scale=0.2)
-        w[a + "r_k"] = rand(H, N, scale=0.3)
+        if v7:
+            for nm in ("x_r", "x_w", "x_k", "x_v", "x_a", "x_g"):
+                w[a + nm] = rand(C, scale=0.3)
+            w[a + "w0"] = rand(C, scale=0.5)
+            w[a + "w1"] = rand(C, D["w"])
+            w[a + "w2"] = rand(D["w"], C)
+            w[a + "a0"] = rand(C, scale=0.3)
+            w[a + "a1"] = rand(C, D["a"])
+            w[a + "a2"] = rand(D["a"], C)
+            if i > 0:
+                w[a + "v0"] = rand(C, scale=0.3)
+                w[a + "v1"] = rand(C, D["v"])
+                w[a + "v2"] = rand(D["v"], C)
+            w[a + "g1"] = rand(C, D["g"])
+            w[a + "g2"] = rand(D["g"], C)
+            w[a + "k_k"] = 0.5 + rand(C, scale=0.2)
+            w[a + "k_a"] = 0.5 + rand(C, scale=0.2)
+            w[a + "r_k"] = rand(H, N, scale=0.3)
+        else:
+            w[a + "time_mix_x"] = rand(C, scale=0.3)
+            for nm in ("time_mix_w", "time_mix_k", "time_mix_v",
+                       "time_mix_r", "time_mix_g"):
+                w[a + nm] = rand(C, scale=0.3)
+            w[a + "time_mix_w1"] = rand(C, 5 * D["tm"])
+            w[a + "time_mix_w2"] = rand(5, D["tm"], C)
+            w[a + "time_decay"] = rand(C, scale=0.5)
+            w[a + "time_decay_w1"] = rand(C, D["td"])
+            w[a + "time_decay_w2"] = rand(D["td"], C)
+            w[a + "time_first"] = rand(H, N, scale=0.5)
+            w[a + "gate.weight"] = rand(C, C)
         w[a + "ln_x.weight"] = 1.0 + rand(C, scale=0.1)
         w[a + "ln_x.bias"] = rand(C, scale=0.1)
 
         f = b + "ffn."
         w[f + "key.weight"] = rand(C, F)
         w[f + "value.weight"] = rand(F, C)
-        w[f + "x_k"] = rand(C, scale=0.3)
+        if v7:
+            w[f + "x_k"] = rand(C, scale=0.3)
+        else:
+            w[f + "time_mix_k"] = rand(C, scale=0.3)
+            w[f + "time_mix_r"] = rand(C, scale=0.3)
+            w[f + "receptance.weight"] = rand(C, C)
     return w
 
 

@@ -22,7 +22,13 @@ kernel's source is built first, one ``nvcc`` each, all started together):
    ``v7_skinny_matmul``, on codes that rotate the same way, then the 4-bit
    kernels (``matmul_4bit`` on unstacked codes, ``matmul_4bit_l`` and the
    4-bit mode of ``ffn7_t1_l`` on stacked codes, the 4-bit mode of
-   ``v7_skinny_matmul``) in nf4, sf4 and int4, f32 and bf16.
+   ``v7_skinny_matmul``) in nf4, sf4 and int4, f32 and bf16.  Then
+   RWKV-6 at the 1B6 width (C=2048, H=32, F=7168): ``wkv56_t1`` and
+   ``wkv56_chunk`` (``csrc/wkv56.cu``), and the kernels of the fused v6
+   step: ``v6_wkv_gn`` (``csrc/v6_decode.cu``), the two ``v7_ln_mix``
+   launches of a v6 layer (the first also writes ``xa`` and ``dx``), and
+   the eight ``v7_skinny_matmul`` launches of a v6 layer with its
+   epilogues.
 3. Model parity: the full-width RWKV-7 0.4B shape at 2 layers in f32 on
    the card (kernels) against the same weights on the CPU (plain
    versions), after a ragged prefill and T=1 steps — on the
@@ -35,7 +41,14 @@ kernel's source is built first, one ``nvcc`` each, all started together):
    Then 4-bit: all-nf4 (fused, eager and graphed), layer 0 nf4 (the layer
    path through ``matmul_4bit_l`` and ``ffn7_t1_l``), the same with
    unstacked per-layer codes (``linear`` reaches ``matmul_4bit``), and
-   all-int4 and all-sf4 on the fused path.
+   all-int4 and all-sf4 on the fused path.  Then RWKV-6 at the 1B6 width,
+   2 layers: plain (layer path with ``wkv56_t1``, fused eagerly and under
+   its graph), all-int8 and all-nf4 fused, layer 0 int8 (the layer path
+   through ``matmul_int8_l`` and ``wkv56_t1``; the plain layer path once
+   more with the prefill's WKV through ``wkv56_chunk_plain``), and the bf16
+   fused kernels against ``forward_t1_plain`` on the card, with two
+   known-wrong plain stacks that the same check must reject.  The v6
+   matrices are scaled by their fan-in (``fan_in_scaled``).
 4. Serving: the 0.4B shape at all 24 layers in bf16 from a seed, with a
    synthetic 65,536-entry vocabulary, behind the port's HTTP server on
    localhost: concurrent greedy completions and a streamed chat.  The
@@ -49,7 +62,10 @@ kernel's source is built first, one ``nvcc`` each, all started together):
    and the same two ways with ``quant_type = "NF4"`` (packed 4-bit codes:
    the fused stack in its 4-bit mode under the graph; ``matmul_4bit_l``,
    ``ffn7_t1_l`` in its 4-bit mode and ``wkv7_t1`` on the layer path), each
-   with the launch counts zeroed before and read after.
+   with the launch counts zeroed before and read after.  Last, a random
+   24-layer RWKV-6 checkpoint of the 1B6 shape (f16 on disk) served in bf16
+   with the same burst: prefill through ``wkv56_chunk``, every decode step
+   one replay of the fused v6 stack's graph.
 
 The last two lines of standard output are the card's
 ``name, power.limit`` and ``{"ok": true, "device": {...}}``.
@@ -58,6 +74,7 @@ The last two lines of standard output are the card's
 from __future__ import annotations
 
 import asyncio
+import functools
 import gc
 import json
 import shutil
@@ -75,6 +92,11 @@ L_FULL, C, HEAD, FFN, VOCAB = 24, 1024, 64, 4096, 65536
 LORA = {"w": 64, "a": 64, "v": 32, "g": 128}
 MAX_BATCH, CHUNK = 8, 256
 SEED = 20261016
+# RWKV-6 World 1B6 (RWKV-x060-World-1B6-v2.1, RWKV-LM's RWKV_Tmix_x060): L=24,
+# C=2048, head 64 (H=32), FFN int(3.5 C) // 32 * 32 = 7168, vocab 65536,
+# token-shift LoRA rank 32 (time_mix_w1 is (C, 160)), decay LoRA rank 64.
+L6, C6, F6 = 24, 2048, 7168
+LORA6 = {"tm": 32, "td": 64}
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores
@@ -1052,16 +1074,408 @@ def phase_4bit_kernels(dev) -> dict:
     return rows
 
 
+def phase_v6_kernels(dev) -> dict:
+    """The RWKV-6 kernels at the 1B6 serving shape (B=8, C=2048, H=32,
+    N=64, F=7168, bf16 activations, row 5 inactive), each against its plain
+    version: ``wkv56_t1`` and ``wkv56_chunk`` (T=256, and ragged), then the
+    kernels of the fused v6 step — the two ``v7_ln_mix`` launches of a layer
+    (with ``xa``, ``dx`` and one mix; with the channel mix's two mixes), the
+    eight ``v7_skinny_matmul`` launches with the v6 epilogues, ``v6_wkv_gn``
+    — timed on weights and states that rotate through more than the L2
+    holds."""
+    import torch
+
+    from ai00_server_tpu_torch.ops import v6_decode as fd6
+    from ai00_server_tpu_torch.ops import v7_decode as fd
+    from ai00_server_tpu_torch.ops.wkv_chunk import (wkv56_chunk,
+                                                     wkv56_chunk_plain)
+    from ai00_server_tpu_torch.ops.wkv_t1 import wkv56_t1, wkv56_t1_plain
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 5)
+    B, C, H, N, F, cd = MAX_BATCH, C6, C6 // HEAD, HEAD, F6, torch.bfloat16
+    D, Dw = LORA6["tm"], LORA6["td"]
+    WKV_SRC = "ai00_server_tpu_torch/csrc/wkv56.cu"
+    SRC = "ai00_server_tpu_torch/csrc/v6_decode.cu"
+    REPLACES = "ai00_server_tpu/ops/v6_decode_pallas.py:236"
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    def close(got, want, rounded, what):
+        err = float((got.float() - want.float()).abs().max())
+        tol = BF16_TOL if rounded else KERNEL_TOL
+        check(err <= tol * max(1.0, float(want.float().abs().max())),
+              f"{what} disagrees with its plain version: {err:.3e}")
+        return err
+
+    def sets_over_l2(bytes_each: int) -> int:
+        return int(2 * L2_BYTES // bytes_each) + 1
+
+    def inputs(T):
+        r, k, v = (rnd(B, T, H, N, scale=0.3) for _ in range(3))
+        w = torch.exp(-torch.exp(rnd(B, T, H, N, scale=0.5)))
+        return r, k, v, w
+
+    active = torch.ones(B, dtype=torch.bool, device=dev)
+    active[5] = False
+    n_act = int(active.sum())
+    elems = H * N * N
+    u = rnd(H, N, scale=0.5)
+    n_states = max(3, sets_over_l2(B * elems * 4))
+    states = [rnd(B, H, N, N) for _ in range(n_states)]
+    rows = {}
+
+    # ---- wkv56_t1 at the decode shape, row 5 inactive ----
+    vecs = [t[:, 0].contiguous() for t in inputs(1)]
+    S_k, y_k = wkv56_t1(states[0], *vecs, u, active)
+    S_p, y_p = wkv56_t1_plain(states[0], *vecs, u, active)
+    torch.cuda.synchronize()
+    err = max(close(S_k, S_p, False, "wkv56_t1 state"),
+              close(y_k, y_p, False, "wkv56_t1 y"))
+    check(torch.equal(S_k[5], states[0][5]), "wkv56_t1 changed an inactive row")
+    b_ms, b_by = bound(2 * B * elems * 4 + 5 * B * H * N * 4 + H * N * 4 + B,
+                       elems * (7 * n_act + 5 * (B - n_act)))
+
+    def t1(i, fn):
+        return fn(states[i], *vecs, u, active)
+
+    rows["wkv56_t1"] = {
+        "name": "wkv56_t1", "route": "cuda", "source": WKV_SRC,
+        "replaces": "ai00_server_tpu/ops/wkv_t1.py:123", "max_abs_err": err,
+        "ms": device_ms(rotating(lambda i: t1(i, wkv56_t1), n_states), 100),
+        "plain_ms": device_ms(rotating(lambda i: t1(i, wkv56_t1_plain),
+                                       n_states), 20),
+        "call_ms": call_ms(rotating(lambda i: t1(i, wkv56_t1), n_states), 200),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+    }
+    print(f"wkv56_t1 B={B} H={H} N={N} ({n_states} rotating states): "
+          f"max_abs_err {err:.3e} (tolerance {KERNEL_TOL} x max(1, |plain|)); "
+          "inactive row bit-identical", flush=True)
+
+    # ---- wkv56_chunk at the prefill shape (T = token_chunk_size), ragged ----
+    worst = 0.0
+    for T, lengths in ((CHUNK, [CHUNK] * B),
+                       (23, [23, 17, 1, 0, 23, 5, 12, 23])):
+        seqs = inputs(T)
+        S = states[1]
+        lens = torch.tensor(lengths, device=dev)
+        mask = torch.arange(T, device=dev)[None, :] < lens[:, None]
+        S_k, y_k = wkv56_chunk(S, *seqs, u, mask)
+        S_p, y_p = wkv56_chunk_plain(S, *seqs, u, mask)
+        torch.cuda.synchronize()
+        worst = max(worst, close(S_k, S_p, False, f"wkv56_chunk T={T} state"),
+                    close(y_k, y_p, False, f"wkv56_chunk T={T} y"))
+        if lengths[3] == 0:
+            check(torch.equal(S_k[3], S[3]), "wkv56_chunk changed an idle row")
+        if T == CHUNK:
+            n_valid = int(mask.sum())
+            b_ms, b_by = bound(2 * B * elems * 4 + 5 * B * T * H * N * 4
+                               + H * N * 4 + B * T,
+                               elems * (7 * n_valid + 5 * (B * T - n_valid)))
+            args = (S, *seqs, u, mask)
+            rows["wkv56_chunk"] = {
+                "name": "wkv56_chunk", "route": "cuda", "source": WKV_SRC,
+                "replaces": "ai00_server_tpu/ops/wkv_pallas.py:209",
+                "ms": device_ms(lambda: wkv56_chunk(*args), 20),
+                "plain_ms": device_ms(lambda: wkv56_chunk_plain(*args), 1,
+                                      replays=3),
+                "call_ms": call_ms(lambda: wkv56_chunk(*args), 50),
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            }
+    rows["wkv56_chunk"]["max_abs_err"] = worst
+    print(f"wkv56_chunk B={B} H={H} N={N}, T={CHUNK} and ragged T=23: "
+          f"max_abs_err {worst:.3e} (tolerance {KERNEL_TOL} x max(1, "
+          "|plain|), y at every step: the same masked semantics); idle row "
+          "bit-identical", flush=True)
+
+    # ---- v7_ln_mix: the two launches of a v6 layer ----
+    # LayerNorm 1 with xa, dx and xxx (with_xa_dx), LayerNorm 2 with the
+    # channel mix's two mixes; the row's times are the sum of the two.
+    x, shift0 = rnd(B, C, scale=2.0), rnd(B, C)
+    ln = torch.stack([1 + rnd(C, scale=0.1), rnd(C, scale=0.1)]).to(cd)
+    total = {k: 0.0 for k in ("ms", "plain_ms", "call_ms")}
+    tot_bytes = tot_flops = worst = 0.0
+    for n_mix, with_xa_dx in ((1, True), (2, False)):
+        mix = rnd(n_mix, C, scale=0.3).to(cd)
+        kw = {"with_xa_dx": with_xa_dx}
+        shift = shift0.clone()
+        want, want_shift = fd.v7_ln_mix_plain(x, ln, shift, mix, active, **kw)
+        got = fd.v7_ln_mix(x, ln, shift, mix, active, **kw)
+        torch.cuda.synchronize()
+        what = f"v7_ln_mix (v6, {got.shape[0]} outputs)"
+        err = max(close(got, want, True, what),
+                  close(shift, want_shift, False, f"{what} shift"))
+        worst = max(worst, err)
+        check(torch.equal(shift[5], shift0[5]),
+              f"{what} changed an inactive row's shift state")
+        tot_bytes += nbytes(x, ln, mix, active) + 2 * nbytes(shift) \
+            + got.numel() * 2
+        tot_flops += 12 * B * C + 4 * got.numel()
+        t = {"ms": device_ms(
+                 lambda: fd.v7_ln_mix(x, ln, shift, mix, active, **kw), 100),
+             "plain_ms": device_ms(
+                 lambda: fd.v7_ln_mix_plain(x, ln, shift, mix, active, **kw),
+                 20),
+             "call_ms": call_ms(
+                 lambda: fd.v7_ln_mix(x, ln, shift, mix, active, **kw), 200)}
+        for k in total:
+            total[k] += t[k]
+        print(f"{what} B={B} C={C} bf16: {t['ms']:.5f} ms (plain "
+              f"{t['plain_ms']:.5f}); max_abs_err {err:.3e} (tolerance "
+              f"{BF16_TOL:.2e} x max(1, |plain|) on the bf16 outputs, "
+              f"{KERNEL_TOL} on the f32 shift); inactive row bit-identical",
+              flush=True)
+    b_ms, b_by = bound(tot_bytes, tot_flops)
+    rows["v7_ln_mix (v6)"] = {
+        "name": "v7_ln_mix (v6)", "route": "cuda",
+        "source": "ai00_server_tpu_torch/csrc/decode_common.cuh",
+        "replaces": REPLACES, "max_abs_err": worst, **total,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+    }
+
+    # ---- v7_skinny_matmul: the eight launches of a v6 layer ----
+    def weight(K, Nout):
+        return (rnd(K, Nout) / K ** 0.5).to(cd)
+
+    def launch(gname):
+        """One set of a launch's products, fresh weights and inputs."""
+        xa, dx = rnd(B, C).to(cd), rnd(B, C).to(cd)
+        xs = rnd(B, max(C, F), scale=0.5).to(cd)
+        P = fd.Product
+        if gname == "maa_down":
+            return [P(xs[:, :C], weight(C, 5 * D), act="tanh")]
+        if gname == "maa_up":
+            h, mix = rnd(B, 5 * D).to(cd), rnd(5, C, scale=0.3).to(cd)
+            return [P(h[:, i * D:(i + 1) * D], weight(D, C), out="mix",
+                      xa=xa, dx=dx, mix=mix[i]) for i in range(5)]
+        if gname == "decay_down":
+            return [P(xs[:, :C].contiguous(), weight(C, Dw), act="tanh")]
+        if gname == "rkvg":
+            return [P(xs[:, :C].contiguous(), weight(C, C), round_cd=True,
+                      out="f32") for _ in range(3)] + [
+                P(xs[:, :C].contiguous(), weight(C, C), act="silu",
+                  out="f32")]
+        if gname == "decay_up":
+            return [P(rnd(B, Dw).to(cd), weight(Dw, C), act="expexp",
+                      bias=rnd(C, scale=0.5), out="f32")]
+        if gname == "wo":
+            return [P(xs[:, :C].contiguous(), weight(C, C), out="add",
+                      y=rnd(B, C))]
+        if gname == "fkey_frec":
+            return [P(xs[:, :C].contiguous(), weight(C, F), act="relu2"),
+                    P(xs[:, :C].contiguous(), weight(C, C), act="sigmoid",
+                      out="f32")]
+        return [P(xs[:, :F].contiguous(), weight(F, C), out="gadd",
+                  y=rnd(B, C), gate=torch.sigmoid(rnd(B, C)))]
+
+    groups = ("maa_down", "maa_up", "decay_down", "rkvg", "decay_up", "wo",
+              "fkey_frec", "fval")
+    ws = fd.Workspace(dev, 1 << 21, 1024)
+    total = {k: 0.0 for k in ("ms", "plain_ms", "library_ms", "call_ms")}
+    tot_bytes = tot_flops = layer_bytes = 0.0
+    worst = 0.0
+    for gname in groups:
+        prods = launch(gname)
+        gbytes = sum(nbytes(p.W) for p in prods)
+        layer_bytes += gbytes
+        n = sets_over_l2(gbytes)
+        sets = [prods] + [launch(gname) for _ in range(n - 1)]
+        want = fd.v7_skinny_matmul_plain(prods)
+        ys = [p.y.clone() if p.y is not None else None for p in prods]
+        got = fd.v7_skinny_matmul(prods, ws)
+        torch.cuda.synchronize()
+        for g, w, p in zip(got, want, prods):
+            worst = max(worst, close(g, w, p.out in ("cd", "mix")
+                                     or p.round_cd,
+                                     f"v7_skinny_matmul[v6 {gname}]"))
+        for p, y in zip(prods, ys):
+            if y is not None:
+                p.y.copy_(y)
+        gb = sum(nbytes(p.x, p.W, p.bias, p.gate, p.xa, p.dx, p.mix)
+                 + B * p.W.shape[1] * {"cd": 2, "mix": 2, "f32": 4, "add": 8,
+                                       "gadd": 8}[p.out] for p in prods)
+        gf = sum(2 * B * p.W.shape[0] * p.W.shape[1] for p in prods)
+        tot_bytes += gb
+        tot_flops += gf
+        t = {
+            "ms": device_ms(rotating(
+                lambda i: fd.v7_skinny_matmul(sets[i], ws), n), 40),
+            "plain_ms": device_ms(rotating(
+                lambda i: fd.v7_skinny_matmul_plain(sets[i]), n), 8),
+            "library_ms": device_ms(rotating(
+                lambda i: [torch.matmul(p.x, p.W) for p in sets[i]], n), 40),
+            "call_ms": call_ms(rotating(
+                lambda i: fd.v7_skinny_matmul(sets[i], ws), n), 100),
+        }
+        gb_ms, _ = bound(gb, gf, BF16_FLOPS)
+        print(f"v7_skinny_matmul[v6 {gname}] "
+              f"{[tuple(p.W.shape) for p in prods]} ({n} rotating sets): "
+              f"{t['ms']:.5f} ms (plain {t['plain_ms']:.5f}, torch.matmul "
+              f"{t['library_ms']:.5f}, bound {gb_ms:.5f} by bytes; "
+              f"{gb / t['ms'] / 1e6:.0f} GB/s)", flush=True)
+        for k in total:
+            total[k] += t[k]
+        del sets
+    b_ms, b_by = bound(tot_bytes, tot_flops, BF16_FLOPS)
+    rows["v7_skinny_matmul (v6)"] = {
+        "name": "v7_skinny_matmul (v6)", "route": "cuda",
+        "source": "ai00_server_tpu_torch/csrc/v7_decode.cu",
+        "replaces": REPLACES, "max_abs_err": worst, **total,
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
+    print(f"v7_skinny_matmul B={B} bf16, the eight launches of a v6 layer "
+          f"(sixteen products, {layer_bytes / 1e6:.1f} MB of weights): "
+          f"max_abs_err {worst:.3e} (tolerance {BF16_TOL:.2e} x max(1, "
+          f"|plain|) on bf16-rounded results, {KERNEL_TOL} on f32 ones); "
+          "times are the sum of the launches (maa_down and decay_down are "
+          "one launch each, maa_up one of five products)", flush=True)
+
+    # ---- v6_wkv_gn ----
+    r, k, v = (rnd(B, C, scale=0.5) for _ in range(3))
+    g = torch.nn.functional.silu(rnd(B, C))
+    w = torch.exp(-torch.exp(rnd(B, C, scale=0.5)))
+    vecs6 = rnd(4, C, scale=0.5)
+    S = states[2].clone()
+    want, S_want = fd6.v6_wkv_gn_plain(r, k, v, w, g, vecs6, active, S, cd)
+    got = fd6.v6_wkv_gn(r, k, v, w, g, vecs6, active, S, cd)
+    torch.cuda.synchronize()
+    err = max(close(got, want, True, "v6_wkv_gn"),
+              close(S, S_want, False, "v6_wkv_gn state"))
+    check(torch.equal(S[5], states[2][5]),
+          "v6_wkv_gn changed an inactive row's state")
+    b_ms, b_by = bound((B + n_act) * elems * 4 + nbytes(r, k, v, w, g, active)
+                       + 3 * C * 4 + B * C * 2,
+                       elems * (7 * n_act + 5 * (B - n_act)) + 12 * B * C)
+
+    def wkv(i, fn):
+        return fn(r, k, v, w, g, vecs6, active, states[i], cd)
+
+    rows["v6_wkv_gn"] = {
+        "name": "v6_wkv_gn", "route": "cuda", "source": SRC,
+        "replaces": REPLACES, "max_abs_err": err,
+        "ms": device_ms(rotating(lambda i: wkv(i, fd6.v6_wkv_gn), n_states),
+                        100),
+        "plain_ms": device_ms(rotating(
+            lambda i: wkv(i, fd6.v6_wkv_gn_plain), n_states), 20),
+        "call_ms": call_ms(rotating(lambda i: wkv(i, fd6.v6_wkv_gn),
+                                    n_states), 200),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+    }
+    print(f"v6_wkv_gn B={B} H={H} N={N} bf16 ({n_states} rotating states): "
+          f"max_abs_err {err:.3e} (tolerance {BF16_TOL:.2e} x max(1, "
+          f"|plain|) on the bf16 output, {KERNEL_TOL} on the f32 state); "
+          "inactive row bit-identical", flush=True)
+    print_rows(rows)
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: model parity, card (kernels) vs CPU (plain versions)
 # ---------------------------------------------------------------------------
 
 
-def model_info(num_layer: int):
-    from ai00_server_tpu_torch.testing import tiny_info
+def model_info(num_layer: int, version: str = "v7"):
+    from ai00_server_tpu_torch.models.info import ModelInfo, ModelVersion
 
-    return tiny_info(num_layer=num_layer, num_emb=C, head_size=HEAD,
-                     num_vocab=VOCAB, hidden_mult=FFN // C)
+    width, ffn = (C, FFN) if version == "v7" else (C6, F6)
+    return ModelInfo(version=ModelVersion(version.upper()),
+                     num_layer=num_layer, num_emb=width, num_hidden=ffn,
+                     num_vocab=VOCAB, num_head=width // HEAD, head_size=HEAD)
+
+
+def lora_dims(version: str) -> dict:
+    return LORA if version == "v7" else LORA6
+
+
+def fan_in_scaled(raw: dict) -> dict:
+    """RWKV-6 weights with every matrix but the embedding (and the per-head
+    bonus ``time_first``) divided IN PLACE by the square root of its fan-in,
+    the second-last axis in the math layout.  Drawn at std 0.4 and left so,
+    a product at C = 2048 spreads ~0.4 sqrt(C) = 18 wide: the decay
+    exp(-exp(.)) and the sigmoids saturate, single bf16 ulps move the decay
+    far, and no bf16 stack can be held to its plain version."""
+    import numpy as np
+
+    for k, v in raw.items():
+        if v.ndim >= 2 and k != "emb.weight" and not k.endswith("time_first"):
+            v /= np.sqrt(v.shape[-2]).astype(v.dtype)
+    return raw
+
+
+def wrong_v6_stacks() -> dict:
+    """Known-wrong plain v6 decode stacks, each one slip a kernel could
+    make, as ``ops`` for ``v6_decode._forward``: the bf16 checks must tell
+    them from the plain stack."""
+    import dataclasses
+
+    import torch
+
+    from ai00_server_tpu_torch.ops import v6_decode as fd6
+
+    ln_mix, matmul, wkv_gn = fd6._PLAIN_OPS
+
+    def g_rounded_first(products, workspace=None):
+        silu = [p.act == "silu" for p in products]
+        outs = matmul([dataclasses.replace(p, act="none", round_cd=True)
+                       if g else p for p, g in zip(products, silu)])
+        return [torch.nn.functional.silu(o) if g else o
+                for o, g in zip(outs, silu)]
+
+    def r_k_swapped(products, workspace=None):
+        outs = matmul(products)
+        if products[-1].act == "silu":  # the r, k, v, g launch
+            outs[0], outs[1] = outs[1], outs[0]
+        return outs
+
+    return {"g rounded before its SiLU": (ln_mix, g_rounded_first, wkv_gn),
+            "r and k swapped": (ln_mix, r_k_swapped, wkv_gn)}
+
+
+def lockstep(kernels, plains, worst: dict) -> tuple:
+    """The ops (ln_mix, matmul, wkv_gn) of a fused stack that run the plain
+    versions and, on copies of the same inputs, ``kernels``: every launch's
+    results against the plain ones, as phase 2 holds them (``BF16_TOL`` on a
+    value rounded to bf16, ``KERNEL_TOL`` on f32, both x max(1, |plain|)),
+    the worst error / tolerance per op kept in ``worst`` (above 1: out of
+    tolerance).  The plain results drive the stack, so the two never drift
+    apart and one slip in one launch shows at its own size."""
+    import dataclasses
+
+    import torch
+
+    def ratio(got, want, rounded):
+        tol = BF16_TOL if rounded else KERNEL_TOL
+        err = float((got.float() - want.float()).abs().max())
+        return err / (tol * max(1.0, float(want.float().abs().max())))
+
+    def wrap(name, kernel, plain):
+        def op(*args, **kw):
+            if name == "matmul":
+                prods = args[0]
+                k_args = ([dataclasses.replace(
+                    p, y=None if p.y is None else p.y.clone())
+                    for p in prods], *args[1:])
+            else:
+                k_args = [a.clone() if isinstance(a, torch.Tensor) else a
+                          for a in args]
+            got = kernel(*k_args, **kw)
+            want = plain(*args, **kw)
+            if name == "matmul":
+                pairs = [(g, w, p.out in ("cd", "mix") or p.round_cd)
+                         for g, w, p in zip(got, want, prods)]
+            else:  # the output, then every f32 operand (the state in place)
+                pairs = [(got, want, want.dtype != torch.float32)] + [
+                    (a, b, False) for a, b in zip(k_args, args)
+                    if isinstance(b, torch.Tensor)
+                    and b.dtype == torch.float32]
+            worst[name] = max([worst.get(name, 0.0)]
+                              + [ratio(*pair) for pair in pairs])
+            return want
+        return op
+
+    return tuple(wrap(name, k, p) for name, k, p in
+                 zip(("ln_mix", "matmul", "wkv_gn"), kernels, plains))
 
 
 PARITY_CASES = {
@@ -1076,6 +1490,14 @@ PARITY_CASES = {
     "unstacked nf4": ({0: "nf4"}, ("layer",)),
     "int4": ({0: "int4", 1: "int4"}, ("fused",)),
     "sf4": ({0: "sf4", 1: "sf4"}, ("fused",)),
+}
+# The RWKV-6 cases: the 1B6 width; the mixed one runs wkv56_t1 on its layer
+# path.
+PARITY_CASES_V6 = {
+    "plain": (None, ("layer", "fused", "graph")),
+    "int8": ({0: "int8", 1: "int8"}, ("fused", "graph")),
+    "nf4": ({0: "nf4", 1: "nf4"}, ("fused", "graph")),
+    "mixed": ({0: "int8"}, ("layer",)),
 }
 
 
@@ -1094,63 +1516,74 @@ def unstack_codes(node):
     return node
 
 
-def phase_parity(dev) -> dict:
+def phase_parity(dev, version: str = "v7") -> dict:
     """Returns the fused path's worst absolute bf16 error on the hidden per
-    kind of weights, and the launches of ``matmul_4bit`` on its model path
-    (the unstacked nf4 case)."""
+    kind of weights, and the launches of ``matmul_4bit`` (v7: the unstacked
+    nf4 case) or of ``wkv56_t1`` (v6: the mixed case) on their model
+    path."""
     import numpy as np
     import torch
 
     from ai00_server_tpu_torch.engine import head_logits
     from ai00_server_tpu_torch.loader import stack_params
-    from ai00_server_tpu_torch.models import v7
+    from ai00_server_tpu_torch.models import get_version_module
     from ai00_server_tpu_torch.models.common import take_last_valid
-    from ai00_server_tpu_torch.ops import quant
-    from ai00_server_tpu_torch.ops import v7_decode as fd
+    from ai00_server_tpu_torch.ops import fused_decode, quant
+    from ai00_server_tpu_torch.ops import v6_decode as fd6
+    from ai00_server_tpu_torch.ops import v7_decode as fd7
     from ai00_server_tpu_torch.ops.ffn import ffn7_t1_l
     from ai00_server_tpu_torch.ops.quant_matmul import (matmul_4bit,
                                                         matmul_4bit_l,
                                                         matmul_int8,
                                                         matmul_int8_l)
-    from ai00_server_tpu_torch.ops.wkv_t1 import wkv7_t1
+    from ai00_server_tpu_torch.ops.wkv_chunk import wkv56_chunk_plain
+    from ai00_server_tpu_torch.ops.wkv_t1 import wkv7_t1, wkv56_t1
     from ai00_server_tpu_torch.testing import make_raw_weights
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    info = model_info(2)
+    info = model_info(2, version)
+    module = get_version_module(info.version)
+    fd = fused_decode.module_for(info.version.value)
+    C_, t1 = info.num_emb, wkv7_t1 if version == "v7" else wkv56_t1
     math = make_raw_weights(info, seed=SEED, dtype=np.float32,
-                            lora_dims=LORA)
+                            lora_dims=lora_dims(version))
+    if version == "v6":
+        math = fan_in_scaled(math)
     rng = np.random.default_rng(SEED)
     B, T = 4, 40
     lengths = np.array([40, 33, 1, 0], np.int32)
     steps = [(rng.integers(1, VOCAB, (B, T)), lengths)] + [
         (rng.integers(1, VOCAB, (B, 1)), np.array([1, 1, 0, 1], np.int32))
         for _ in range(3)]
-    counted = {"wkv7_t1": wkv7_t1, "matmul_int8": matmul_int8,
+    counted = {"wkv7_t1": wkv7_t1, "wkv56_t1": wkv56_t1,
+               "matmul_int8": matmul_int8,
                "matmul_int8_l": matmul_int8_l, "ffn7_t1_l": ffn7_t1_l,
                "matmul_4bit": matmul_4bit, "matmul_4bit_l": matmul_4bit_l,
-               **{k.__name__: k for k in fd.KERNELS}}
+               **{k.__name__: k for k in fd7.KERNELS + fd6.KERNELS}}
+    fused_names = {k.__name__ for k in fd.KERNELS}
 
     def expect(label, quant_map, path) -> set:
         """Which kernels a (weights, path) must launch; the others must
         not.  Any quantized model has the int8 LM head (matmul_int8)."""
         if not quant_map:
-            return ({"wkv7_t1"} if path == "layer"
-                    else {k.__name__ for k in fd.KERNELS})
+            return {t1.__name__} if path == "layer" else fused_names
         by_layer = ("matmul_int8_l" if quant_map[0] == "int8"
                     else "matmul_4bit_l")
         if path == "fused":
             # (its prefill chunk, 160 rows, goes layer by layer)
-            return {"matmul_int8", by_layer} | {k.__name__
-                                                for k in fd.KERNELS}
+            return {"matmul_int8", by_layer} | fused_names
         if label.startswith("unstacked"):
             return {"wkv7_t1", "matmul_int8", "matmul_4bit"}
-        return {"wkv7_t1", "matmul_int8", by_layer, "ffn7_t1_l"}
+        # v7's quantized channel mix at T=1 is ffn7_t1_l; v6's goes through
+        # linear (matmul_*_l).
+        return {t1.__name__, "matmul_int8", by_layer} | (
+            {"ffn7_t1_l"} if version == "v7" else set())
 
     def run(p, how, d):
         """The steps on device d: 'layer' (no layout), 'fused' (eager
         forward_t1 at T=1) or 'graph' (T=1 replayed from a DecodeGraph)."""
-        state = v7.init_state(info, B, device=d)
+        state = module.init_state(info, B, device=d)
         graph = fd.DecodeGraph(p, state, B) if how == "graph" else None
         outs = []
         for toks, lens in steps:
@@ -1159,7 +1592,7 @@ def phase_parity(dev) -> dict:
             if graph is not None and toks.shape[1] == 1:
                 h = graph.replay(tt[:, 0], lt)[:, None]
             else:
-                h, new = v7.forward(p, state, tt, lt)
+                h, new = module.forward(p, state, tt, lt)
                 if new is not state:
                     for k, t in state.items():
                         t.copy_(new[k])
@@ -1168,8 +1601,30 @@ def phase_parity(dev) -> dict:
                          {k: t.cpu().clone() for k, t in state.items()}))
         return outs
 
+    def errors(got, ref) -> dict:
+        """Per tensor, max |got - ref| / max |ref| over the steps."""
+        per = {}
+        for (toks, lens), (h, lg, st), (h_r, lg_r, st_r) in zip(steps, got,
+                                                                 ref):
+            m = torch.arange(toks.shape[1])[None, :] < torch.as_tensor(
+                lens)[:, None]
+            pairs = [("hidden", h[m], h_r[m]),
+                     ("logits", lg[lens > 0], lg_r[lens > 0])]
+            pairs += [(k, st[k], st_r[k]) for k in st_r]
+            for name, a, b in pairs:
+                check(bool(torch.isfinite(a).all()), "non-finite output")
+                err = float((a.double() - b.double()).abs().max())
+                per[name] = max(per.get(name, 0.0),
+                                err / max(float(b.abs().max()), 1e-6))
+        return per
+
+    def fmt(per) -> str:
+        return str({k: f"{v:.2e}" for k, v in per.items()})
+
     result = {}
-    for label, (quant_map, hows) in PARITY_CASES.items():
+    cases = PARITY_CASES if version == "v7" else PARITY_CASES_V6
+    shape = "0.4B" if version == "v7" else "v6 1B6"
+    for label, (quant_map, hows) in cases.items():
         params = {d: stack_params(info, math, dtype=torch.float32, device=d,
                                   quant=quant_map) for d in (dev, "cpu")}
         if label.startswith("unstacked"):
@@ -1185,7 +1640,7 @@ def phase_parity(dev) -> dict:
                   "the int8 head quantized on the card differs from the "
                   "CPU's")
         check(fd.can_fuse(params["cpu"]) == ("fused" in hows),
-              f"can_fuse is wrong for the {label} 0.4B-shape model")
+              f"can_fuse is wrong for the {label} {shape}-shape model")
         fused = {d: {**p, fd.FUSED_KEY: fd.make_fused_layout(p)}
                  for d, p in params.items()} if "fused" in hows else None
         ref = {how: run(params["cpu"] if how == "layer" else fused["cpu"],
@@ -1202,30 +1657,40 @@ def phase_parity(dev) -> dict:
                   f"the {label} {how} path launched {delta}")
             if label.startswith("unstacked"):
                 result["matmul_4bit_launches"] = delta["matmul_4bit"]
-            worst = 0.0
-            for (toks, lens), (h, lg, st), (h_r, lg_r, st_r) in zip(
-                    steps, got, ref["layer" if how == "layer" else "fused"]):
-                m = torch.arange(toks.shape[1])[None, :] < torch.as_tensor(
-                    lens)[:, None]
-                pairs = [(h[m], h_r[m]), (lg[lens > 0], lg_r[lens > 0])]
-                pairs += [(st[k], st_r[k]) for k in st_r]
-                for a, b in pairs:
-                    check(bool(torch.isfinite(a).all()), "non-finite output")
-                    err = float((a.double() - b.double()).abs().max())
-                    worst = max(worst, err / max(float(b.abs().max()), 1e-6))
+            if version == "v6" and label == "mixed":
+                result["wkv56_t1_launches"] = delta["wkv56_t1"]
+            ref_how = ref["layer" if how == "layer" else "fused"]
+            per = errors(got, ref_how)
+            worst = max(per.values())
             check(worst <= MODEL_TOL,
                   f"card and CPU disagree on the {label} {how} path: "
-                  f"{worst:.3e} > {MODEL_TOL}")
+                  f"{worst:.3e} > {MODEL_TOL} ({fmt(per)})")
+            if version == "v6" and label == "plain" and how == "layer":
+                # A second witness: the same run with the prefill's WKV
+                # through wkv56_chunk_plain on the card.  What stays is the
+                # products' (torch.matmul on both sides), not the kernel's.
+                chunk, module.wkv56_chunk = (module.wkv56_chunk,
+                                             wkv56_chunk_plain)
+                try:
+                    per_w = errors(run(params[dev], how, dev), ref_how)
+                finally:
+                    module.wkv56_chunk = chunk
+                print(f"model parity, {shape} {label} weights, layer path "
+                      "with the prefill's WKV through wkv56_chunk_plain on "
+                      f"the card: max |card - cpu| / max |cpu| = "
+                      f"{max(per_w.values()):.3e} (per tensor {fmt(per_w)}; "
+                      f"through the kernel {fmt(per)})", flush=True)
             # Row 2 sits out the three decode steps: its state keeps the
             # bits the prefill left.
             for k, t in got[0][2].items():
                 check(torch.equal(got[-1][2][k][:, 2], t[:, 2]),
                       f"the {label} {how} path changed an inactive row's {k}")
-            print(f"model parity, {label} weights, {how} path (C={C}, 2 "
+            print(f"model parity, {shape} {label} weights, {how} path "
+                  f"(C={C_}, 2 "
                   f"layers, f32, ragged prefill T={T} + 3 decode steps; "
                   f"launches {delta}): max |card - cpu| / max |cpu| = "
-                  f"{worst:.3e} (tolerance {MODEL_TOL}); inactive row "
-                  "bit-identical", flush=True)
+                  f"{worst:.3e} (tolerance {MODEL_TOL}; per tensor "
+                  f"{fmt(per)}); inactive row bit-identical", flush=True)
 
         if "fused" not in hows:
             continue
@@ -1234,38 +1699,84 @@ def phase_parity(dev) -> dict:
                            quant=quant_map)
         p16[fd.FUSED_KEY] = fd.make_fused_layout(p16)
         toks, lens = steps[0]
-        _, s0 = v7.forward(p16, v7.init_state(info, B, device=dev),
-                           torch.as_tensor(toks, device=dev),
-                           torch.as_tensor(lens, device=dev))
-        state = {how: {k: t.clone() for k, t in s0.items()}
-                 for how in ("kernels", "plain")}
-        worst_abs = worst = 0.0
-        for toks, lens in steps[1:]:
-            tt = torch.as_tensor(toks, device=dev)
-            lt = torch.as_tensor(lens, device=dev)
-            h_k, _ = fd.forward_t1(p16, state["kernels"], tt, lt)
-            h_p, _ = fd.forward_t1_plain(p16, state["plain"], tt, lt)
-            pairs = [(h_k[lens > 0].float(), h_p[lens > 0].float())]
-            pairs += [(state["kernels"][k], state["plain"][k]) for k in s0]
-            for i, (a, b) in enumerate(pairs):
-                check(bool(torch.isfinite(a).all()), "non-finite bf16 output")
-                err = float((a.double() - b.double()).abs().max())
-                if i == 0:  # the hidden; the states' scales differ widely
-                    worst_abs = max(worst_abs, err)
-                worst = max(worst, err / max(float(b.abs().max()), 1e-6))
-            for k in s0:
-                check(torch.equal(state["kernels"][k][:, 2], s0[k][:, 2]),
-                      "the fused path changed an inactive row's state")
+        _, s0 = module.forward(p16, module.init_state(info, B, device=dev),
+                               torch.as_tensor(toks, device=dev),
+                               torch.as_tensor(lens, device=dev))
+
+        def decode(fwd) -> list:
+            """The three decode steps through ``fwd`` from the prefill's
+            state: per step the active rows' hidden (f32), then the state."""
+            state = {k: t.clone() for k, t in s0.items()}
+            outs = []
+            for toks, lens in steps[1:]:
+                h = fwd(p16, state, torch.as_tensor(toks, device=dev),
+                        torch.as_tensor(lens, device=dev))[0]
+                outs.append([h[lens > 0].float()]
+                            + [state[k].clone() for k in s0])
+            return outs
+
+        def rel_steps(outs, ref) -> list:
+            """Per step, max over hidden and state of max |out - ref| /
+            max |ref|."""
+            return [max(float((a.double() - b.double()).abs().max())
+                        / max(float(b.abs().max()), 1e-6)
+                        for a, b in zip(o, r)) for o, r in zip(outs, ref)]
+
+        got, plain = decode(fd.forward_t1), decode(fd.forward_t1_plain)
+        for o in got:
+            check(all(bool(torch.isfinite(a).all()) for a in o),
+                  "non-finite bf16 output")
+        for i, k in enumerate(s0):
+            check(torch.equal(got[-1][1 + i][:, 2], s0[k][:, 2]),
+                  "the fused path changed an inactive row's state")
+        per_step = rel_steps(got, plain)
+        worst = max(per_step)
+        worst_abs = max(float((o[0].double() - r[0].double()).abs().max())
+                        for o, r in zip(got, plain))
         check(worst <= BF16_MODEL_TOL,
               f"fused kernels and forward_t1_plain disagree in bf16 "
-              f"({label}): {worst:.3e} > {BF16_MODEL_TOL}")
-        print(f"fused decode in bf16 on the card, {label} weights (C={C}, 2 "
-              f"layers, 3 steps): max |kernels - plain| / max |plain| = "
-              f"{worst:.3e} over hidden and state, {worst_abs:.3e} absolute "
-              f"on the hidden (tolerance {BF16_MODEL_TOL}: the two sum in "
-              "different orders, which flips single bf16 roundings that "
-              "later layers carry on); inactive row bit-identical",
-              flush=True)
+              f"({shape} {label}): {worst:.3e} > {BF16_MODEL_TOL}")
+        # Every launch of the stack on the stack's own inputs, in lockstep.
+        lock = {}
+        decode(functools.partial(fd._forward,
+                                 lockstep(fd.KERNELS, fd._PLAIN_OPS, lock)))
+        check(max(lock.values()) <= 1.0,
+              f"a launch of the bf16 {shape} {label} stack disagrees with "
+              f"its plain version on the stack's inputs: error / tolerance "
+              f"{lock}")
+        wrong = ""
+        if version == "v6" and label == "plain":
+            # The checks' bite: known-wrong stacks against the same plain.
+            # End to end a rounding slip sits in the noise of the summation
+            # order; in lockstep it shows at once.
+            for name, ops in wrong_v6_stacks().items():
+                e = rel_steps(decode(functools.partial(fd6._forward, ops)),
+                              plain)
+                lock_w = {}
+                decode(functools.partial(fd6._forward, lockstep(
+                    ops, fd6._PLAIN_OPS, lock_w)))
+                check(lock_w["matmul"] > 1.0,
+                      f"the lockstep check cannot tell a known-wrong stack "
+                      f"({name}: {lock_w}) from the plain one")
+                if name.startswith("r and k"):
+                    check(max(e) > BF16_MODEL_TOL,
+                          f"the bf16 check cannot tell a known-wrong stack "
+                          f"({name}: {max(e):.3e}) from the plain one")
+                wrong += (f"; known-wrong '{name}': end to end "
+                          + " / ".join(f"{x:.3e}" for x in e)
+                          + f", in lockstep {lock_w['matmul']:.3g} x its "
+                          "tolerance")
+        print(f"fused decode in bf16 on the card, {shape} {label} weights "
+              f"(C={C_}, 2 layers, 3 steps): max |kernels - plain| / max "
+              f"|plain| over hidden and state = {worst:.3e} (per step "
+              + " / ".join(f"{x:.3e}" for x in per_step)
+              + f"; tolerance {BF16_MODEL_TOL}: the two sum in different "
+              "orders, which flips single bf16 roundings that later layers "
+              f"carry on), {worst_abs:.3e} absolute on the hidden; in "
+              "lockstep every launch within its tolerance of its plain "
+              "version (worst error / tolerance "
+              + ", ".join(f"{k} {v:.3g}" for k, v in lock.items())
+              + f"){wrong}; inactive row bit-identical", flush=True)
         result[f"fused_{label}_bf16_max_abs_err"] = worst_abs
     return result
 
@@ -1298,6 +1809,9 @@ def synthetic_vocab() -> dict[str, str]:
 SERVED = {"bf16": (0, "Int8"), "int8": (L_FULL, "Int8"),
           "mixed": (L_FULL // 2, "Int8"), "nf4": (L_FULL, "NF4"),
           "mixed nf4": (L_FULL // 2, "NF4")}
+# RWKV-6: the 1B6 shape at full depth, bf16, with the burst.
+SERVED_V6 = {"v6 bf16": (0, "Int8")}
+ALL_SERVED = {**SERVED, **SERVED_V6}
 MIXED_TOKENS = 16  # per completion on the (eager, host-bound) layer path
 
 
@@ -1338,6 +1852,51 @@ ip = "127.0.0.1"
 port = 0
 """)
     print(f"wrote the random 0.4B-shape checkpoint and vocabulary in "
+          f"{time.monotonic() - t0:.1f} s", flush=True)
+    return cfgs
+
+
+def write_site_v6(tmp: Path) -> dict:
+    """The random 24-layer RWKV-6 1B6-shape checkpoint (f16 on disk, as
+    ``write_site`` writes v7's; the matrices scaled by their fan-in, as in
+    the parity phase) and its config, beside the vocabulary ``write_site``
+    left in ``tmp``."""
+    import numpy as np
+
+    from ai00_server_tpu_torch.loader import save_safetensors
+    from ai00_server_tpu_torch.testing import (make_raw_weights,
+                                               to_converted_layout)
+
+    t0 = time.monotonic()
+    raw = fan_in_scaled(make_raw_weights(model_info(L6, "v6"), seed=SEED,
+                                         dtype=np.float32, lora_dims=LORA6))
+    conv = to_converted_layout(raw)
+    del raw
+    path = tmp / "rwkv6-1b6.st"
+    save_safetensors(conv, str(path))
+    del conv
+    cfgs = {}
+    for kind, (quant, quant_type) in SERVED_V6.items():
+        cfgs[kind] = tmp / f"Config-{kind.replace(' ', '-')}.toml"
+        cfgs[kind].write_text(f"""
+[model]
+name = "{path.name}"
+path = "{tmp}"
+max_batch = {MAX_BATCH}
+token_chunk_size = {CHUNK}
+precision = "Fp16"
+quant = {quant}
+quant_type = "{quant_type}"
+
+[tokenizer]
+path = "{tmp / 'vocab.json'}"
+
+[listen]
+ip = "127.0.0.1"
+port = 0
+""")
+    print(f"wrote the random {L6}-layer v6 1B6-shape checkpoint "
+          f"({path.stat().st_size / 1e9:.2f} GB) in "
           f"{time.monotonic() - t0:.1f} s", flush=True)
     return cfgs
 
@@ -1390,8 +1949,9 @@ def time_stack(engine) -> dict:
     requests, on the idle engine, and leaves its rows' states advanced."""
     import torch
 
-    from ai00_server_tpu_torch.ops import v7_decode as fd
+    from ai00_server_tpu_torch.ops import fused_decode
 
+    fd = fused_decode.module_for(engine.info.version.value)
     params, B = engine.model.params, engine.max_batch
     dev = engine.device
     layout = params[fd.FUSED_KEY]
@@ -1439,8 +1999,8 @@ def time_stack(engine) -> dict:
 
 
 async def serve(cfg: Path, kind: str, device="cuda") -> dict:
-    """Serve one config over HTTP on localhost.  ``kind``: "bf16", "int8"
-    and "nf4" get the burst (4 greedy completions of 128 tokens + 1 streamed
+    """Serve one config over HTTP on localhost.  ``kind``: "bf16", "int8",
+    "nf4" and "v6 bf16" get the burst (4 greedy completions of 128 tokens + 1 streamed
     chat), a lone streamed chat and the time of one replay of the stack,
     "bf16" also one request under the profiler; the mixed kinds get one
     short greedy completion, twice.  The launch counts are zeroed just
@@ -1449,12 +2009,13 @@ async def serve(cfg: Path, kind: str, device="cuda") -> dict:
     import torch
     from aiohttp import web
 
+    from ai00_server_tpu_torch.ops import v6_decode as fd6
     from ai00_server_tpu_torch.ops import v7_decode as fd
     from ai00_server_tpu_torch.ops.ffn import ffn7_t1_l
     from ai00_server_tpu_torch.ops.quant_matmul import (matmul_4bit_l,
                                                         matmul_int8,
                                                         matmul_int8_l)
-    from ai00_server_tpu_torch.ops.wkv_chunk import wkv7_chunk
+    from ai00_server_tpu_torch.ops.wkv_chunk import wkv7_chunk, wkv56_chunk
     from ai00_server_tpu_torch.ops.wkv_t1 import wkv7_t1
     from ai00_server_tpu_torch.server.app import Server
     from ai00_server_tpu_torch.server.config import Config
@@ -1472,8 +2033,8 @@ async def serve(cfg: Path, kind: str, device="cuda") -> dict:
     await web.TCPSite(runner, "127.0.0.1", 0).start()
     port = runner.addresses[0][1]
     base = f"http://127.0.0.1:{port}"
-    print(f"{kind} model (quant = {SERVED[kind][0]}, quant_type = "
-          f"{SERVED[kind][1]}) loaded in {load_s:.1f} s, "
+    print(f"{kind} model (quant = {ALL_SERVED[kind][0]}, quant_type = "
+          f"{ALL_SERVED[kind][1]}) loaded in {load_s:.1f} s, "
           f"{mem / 1e6:.1f} MB of device memory allocated by the load "
           f"(weights, state pool, sampler pools, graph); "
           f"serving on {base}", flush=True)
@@ -1511,7 +2072,10 @@ async def serve(cfg: Path, kind: str, device="cuda") -> dict:
 
     mixed = kind.startswith("mixed")
     counted = {"wkv7_chunk": (wkv7_chunk, "launches")}
-    if mixed:
+    if kind.startswith("v6"):
+        counted = {"wkv56_chunk": (wkv56_chunk, "launches"),
+                   **{k.__name__: (k, "launches") for k in fd6.KERNELS}}
+    elif mixed:
         by_layer = matmul_int8_l if kind == "mixed" else matmul_4bit_l
         counted.update({k.__name__: (k, "launches") for k in (
             wkv7_t1, by_layer, ffn7_t1_l, matmul_int8)})
@@ -1630,10 +2194,12 @@ def main() -> None:
     bf16_head_ms = phase_head(dev)
     rows.update(phase_int8_kernels(dev, bf16_head_ms))
     rows.update(phase_4bit_kernels(dev))
+    rows.update(phase_v6_kernels(dev))
     print(f"phase 2 (kernels) {time.monotonic() - t0:.1f} s", flush=True)
 
     t0 = time.monotonic()
     parity = phase_parity(dev)
+    parity_v6 = phase_parity(dev, "v6")
     print(f"phase 3 (parity) {time.monotonic() - t0:.1f} s", flush=True)
 
     t0 = time.monotonic()
@@ -1644,6 +2210,10 @@ def main() -> None:
             cfgs = write_site(Path(tmp))
             served = {kind: asyncio.run(serve(cfgs[kind], kind))
                       for kind in SERVED}
+            (Path(tmp) / "rwkv7-0.4b.st").unlink()
+            cfgs = write_site_v6(Path(tmp))
+            served.update({kind: asyncio.run(serve(cfgs[kind], kind))
+                           for kind in SERVED_V6})
     finally:
         shutil.rmtree(tmp_root, ignore_errors=True)
 
@@ -1666,29 +2236,45 @@ def main() -> None:
                         ("nf4", {"v7_skinny_matmul (4-bit)":
                                  "v7_skinny_matmul (4-bit)"}),
                         ("mixed nf4", {"matmul_4bit_l": "matmul_4bit_l",
-                                       "ffn7_t1_l (4-bit)": "ffn7_t1_l"})):
+                                       "ffn7_t1_l (4-bit)": "ffn7_t1_l"}),
+                        ("v6 bf16", {"wkv56_chunk": "wkv56_chunk",
+                                     "v7_ln_mix (v6)": "v7_ln_mix",
+                                     "v7_skinny_matmul (v6)":
+                                     "v7_skinny_matmul",
+                                     "v6_wkv_gn": "v6_wkv_gn"})):
         for row, counter in names.items():
             rows[row]["launches"] = served[kind]["launches"][counter]
     rows["matmul_4bit"]["launches"] = parity["matmul_4bit_launches"]
     check(parity["matmul_4bit_launches"] > 0,
           "no model path launched matmul_4bit")
+    # wkv56_t1's model path is the layer path of a partly quantized v6: the
+    # parity phase's mixed v6 model.
+    rows["wkv56_t1"]["launches"] = parity_v6["wkv56_t1_launches"]
+    check(parity_v6["wkv56_t1_launches"] > 0,
+          "no model path launched wkv56_t1")
     for kind, run in served.items():
         for name, n in run["launches"].items():
             check(n > 0, f"the {kind} model's requests never launched {name}")
         check((run["burst_replays"] > 0) == (not kind.startswith("mixed")),
               f"the {kind} model replayed {run['burst_replays']} decode "
               "graphs")
-    for kind, label in (("bf16", "plain"), ("int8", "int8"), ("nf4", "nf4")):
+    for kind, label in (("bf16", "plain"), ("int8", "int8"), ("nf4", "nf4"),
+                        ("v6 bf16", "plain")):
         stack = served[kind]["stack"]
+        v6 = kind.startswith("v6")
         rows[f"forward_t1 {kind}"] = {
             "name": f"forward_t1 ({'' if kind == 'bf16' else kind + ', '}"
-                    f"{L_FULL} layers, {stack['kernels_per_replay']} kernels "
+                    f"{L6 if v6 else L_FULL} layers, "
+                    f"{stack['kernels_per_replay']} kernels "
                     "in one CUDA graph)",
             "route": "cuda",
-            "source": "ai00_server_tpu_torch/csrc/v7_decode.cu",
-            "replaces": "ai00_server_tpu/ops/v7_decode_pallas.py:274",
+            "source": ("ai00_server_tpu_torch/csrc/v6_decode.cu" if v6
+                       else "ai00_server_tpu_torch/csrc/v7_decode.cu"),
+            "replaces": ("ai00_server_tpu/ops/v6_decode_pallas.py:236" if v6
+                         else "ai00_server_tpu/ops/v7_decode_pallas.py:274"),
             "launches": served[kind]["burst_replays"],
-            "max_abs_err": parity[f"fused_{label}_bf16_max_abs_err"],
+            "max_abs_err": (parity_v6 if v6 else parity)[
+                f"fused_{label}_bf16_max_abs_err"],
             "ms": stack["replay_ms"], "plain_ms": stack["plain_ms"],
             "bound_ms": stack["bound_ms"], "bound_by": stack["bound_by"],
             "library_ms": None,

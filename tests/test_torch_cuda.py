@@ -693,3 +693,253 @@ def test_4bit_kernels_refuse_what_they_do_not_take(dev):
         fd.v7_skinny_matmul([
             fd.Product(x, ql.q, scale=ql.scale, mode="nf4"),
             fd.Product(x, ql.q, scale=ql.scale, mode="sf4")])
+
+
+# ---------------------------------------------------------------------------
+# RWKV-6: the v5/v6 WKV kernels (csrc/wkv56.cu), the fused v6 step's own
+# kernels (csrc/v6_decode.cu) and the v6 epilogues of v7_skinny_matmul
+# ---------------------------------------------------------------------------
+#
+# Tolerances as above: 1e-4 of max(1, |plain|) on f32 results, one bf16 ulp
+# (2^-7) on results rounded to bf16.
+
+from ai00_server_tpu_torch.ops import v6_decode as fd6  # noqa: E402
+from ai00_server_tpu_torch.ops.wkv_chunk import (  # noqa: E402
+    wkv56_chunk, wkv56_chunk_plain)
+from ai00_server_tpu_torch.ops.wkv_t1 import (  # noqa: E402
+    wkv56_t1, wkv56_t1_plain)
+
+
+def _inputs56(gen, dev, B, T, H, N=64):
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    S = rnd(B, H, N, N)
+    r, k, v = (rnd(B, T, H, N, scale=0.3) for _ in range(3))
+    w = torch.exp(-torch.exp(rnd(B, T, H, N, scale=0.5)))
+    return S, (r, k, v, w), rnd(H, N, scale=0.5)
+
+
+def test_wkv56_t1_kernel_matches_plain(dev):
+    gen = torch.Generator(device=dev).manual_seed(11)
+    S, seqs, u = _inputs56(gen, dev, 5, 1, 3)
+    vecs = [x[:, 0].contiguous() for x in seqs]
+    mask = torch.tensor([True, False, True, True, False], device=dev)
+    before = wkv56_t1.launches
+    S_k, y_k = wkv56_t1(S, *vecs, u, mask)
+    S_p, y_p = wkv56_t1_plain(S, *vecs, u, mask)
+    assert wkv56_t1.launches == before + 1
+    _close(S_k, S_p)
+    _close(y_k, y_p)  # every row gets its y, inactive ones included
+    assert torch.equal(S_k[1], S[1]) and torch.equal(S_k[4], S[4])
+
+
+@pytest.mark.parametrize("T", [1, 16, 37])
+def test_wkv56_chunk_kernel_matches_plain(dev, T):
+    gen = torch.Generator(device=dev).manual_seed(100 + T)
+    S, seqs, u = _inputs56(gen, dev, 3, T, 2)
+    lens = torch.tensor([T, T // 2, 0], device=dev)
+    mask = torch.arange(T, device=dev)[None, :] < lens[:, None]
+    before = wkv56_chunk.launches
+    S_k, y_k = wkv56_chunk(S, *seqs, u, mask)
+    S_p, y_p = wkv56_chunk_plain(S, *seqs, u, mask)
+    assert wkv56_chunk.launches == before + 1
+    _close(S_k, S_p)
+    _close(y_k, y_p)  # masked steps follow wkv_scan in both
+    assert torch.equal(S_k[2], S[2])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_v6_ln_mix_kernel_matches_plain(dev, dtype):
+    gen = torch.Generator(device=dev).manual_seed(6)
+    B, C = 5, 2048
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    x, shift = rnd(B, C, scale=2.0), rnd(B, C)
+    ln = torch.stack([1 + rnd(C, scale=0.1), rnd(C, scale=0.1)]).to(dtype)
+    mix = rnd(1, C, scale=0.3).to(dtype)
+    active = torch.tensor([True, False, True, True, False], device=dev)
+    want, want_shift = fd.v7_ln_mix_plain(x, ln, shift, mix, active,
+                                          with_xa_dx=True)
+    kept = shift.clone()
+    before = fd.v7_ln_mix.launches
+    got = fd.v7_ln_mix(x, ln, shift, mix, active, with_xa_dx=True)
+    assert fd.v7_ln_mix.launches == before + 1
+    assert got.shape == (3, B, C)
+    _close_t(got, want, dtype)
+    _close(shift, want_shift)
+    assert torch.equal(shift[1], kept[1]) and torch.equal(shift[4], kept[4])
+
+
+def _v6_products(gen, dev, dtype, B, kind, C=2048, D=32):
+    """The v6 launches of a layer that use the new epilogues: the five
+    token-shift combines on strided stages, r/k/v/g (SiLU), the decay,
+    the gated residual."""
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    def weight(K, N):
+        return (rnd(K, N) / K ** 0.5).to(dtype)
+
+    if kind == "shift_combine":
+        h = rnd(B, 5 * D).to(dtype)
+        xa, dx = rnd(B, C).to(dtype), rnd(B, C).to(dtype)
+        mix = rnd(5, C, scale=0.3).to(dtype)
+        return [fd.Product(h[:, i * D:(i + 1) * D], weight(D, C), out="mix",
+                           xa=xa, dx=dx, mix=mix[i]) for i in range(5)]
+    x = rnd(B, C, scale=0.5).to(dtype)
+    if kind == "rkvg":
+        return [fd.Product(x, weight(C, C), round_cd=True, out="f32")] * 3 \
+            + [fd.Product(x, weight(C, C), act="silu", out="f32")]
+    if kind == "decay":
+        return [fd.Product(rnd(B, 64).to(dtype), weight(64, C),
+                           act="expexp", bias=rnd(C, scale=0.5), out="f32")]
+    return [fd.Product(rnd(B, 7168, scale=0.5).to(dtype), weight(7168, C),
+                       out="gadd", y=rnd(B, C),
+                       gate=torch.sigmoid(rnd(B, C)))]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B", [8, 3, 11])
+@pytest.mark.parametrize("kind", ["shift_combine", "rkvg", "decay",
+                                  "gated_residual"])
+def test_v7_skinny_matmul_v6_epilogues_match_plain(dev, dtype, B, kind):
+    gen = torch.Generator(device=dev).manual_seed(B)
+    prods = _v6_products(gen, dev, dtype, B, kind)
+    want = fd.v7_skinny_matmul_plain(prods)
+    ws = fd.Workspace(dev, 1 << 20, 256)
+    got = fd.v7_skinny_matmul(prods, ws)
+    for g, w, p in zip(got, want, prods):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        _close_t(g, w, dtype, rounded=p.out in ("cd", "mix") or p.round_cd)
+    assert int(ws.counters.abs().sum()) == 0
+
+
+@pytest.mark.parametrize("mode", ["int8", "nf4"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_v7_skinny_matmul_v6_epilogues_on_codes(dev, mode, dtype):
+    """SiLU and the gated residual on quantized big projections."""
+    from ai00_server_tpu_torch.ops.quant import QUANTIZERS
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    B, C, F = 8, 2048, 7168
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    qg = QUANTIZERS[mode](rnd(C, C) / C ** 0.5)
+    qv = QUANTIZERS[mode](rnd(F, C) / F ** 0.5)
+    y = rnd(B, C)
+    prods = [fd.Product(rnd(B, C).to(dtype), qg.q, scale=qg.scale, mode=mode,
+                        act="silu", out="f32"),
+             fd.Product(rnd(B, F).to(dtype), qv.q, scale=qv.scale, mode=mode,
+                        out="gadd", y=y, gate=torch.sigmoid(rnd(B, C)))]
+    want = fd.v7_skinny_matmul_plain(prods)
+    got = fd.v7_skinny_matmul(prods[:1]) + fd.v7_skinny_matmul(prods[1:])
+    for g, w in zip(got, want):
+        _close(g, w)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_v6_wkv_gn_kernel_matches_plain(dev, dtype):
+    gen = torch.Generator(device=dev).manual_seed(8)
+    B, H, N = 5, 3, 64
+    C = H * N
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    r, k, v = (rnd(B, C, scale=0.5) for _ in range(3))
+    g = torch.nn.functional.silu(rnd(B, C))
+    w = torch.exp(-torch.exp(rnd(B, C, scale=0.5)))
+    vecs, S = rnd(4, C, scale=0.5), rnd(B, H, N, N)
+    active = torch.tensor([True, False, True, True, False], device=dev)
+    want, S_want = fd6.v6_wkv_gn_plain(r, k, v, w, g, vecs, active, S, dtype)
+    S_k = S.clone()
+    before = fd6.v6_wkv_gn.launches
+    got = fd6.v6_wkv_gn(r, k, v, w, g, vecs, active, S_k, dtype)
+    assert fd6.v6_wkv_gn.launches == before + 1
+    _close_t(got, want, dtype)
+    _close(S_k, S_want)
+    assert torch.equal(S_k[1], S[1]) and torch.equal(S_k[4], S[4])
+
+
+@pytest.mark.parametrize("quant", [None, "int8", "nf4"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_v6_forward_t1_kernels_graph_and_plain_agree(dev, dtype, quant):
+    import numpy as np
+
+    from ai00_server_tpu_torch.loader import stack_params
+    from ai00_server_tpu_torch.models import ModelVersion, v6
+    from ai00_server_tpu_torch.testing import make_raw_weights, tiny_info
+
+    info = tiny_info(ModelVersion.V6, num_layer=2, num_emb=128, head_size=64,
+                     num_vocab=64)
+    params = stack_params(info, make_raw_weights(info, 5, np.float32),
+                          dtype=dtype, device=dev,
+                          quant={0: quant, 1: quant} if quant else None)
+    assert fd6.can_fuse(params)
+    params[fd6.FUSED_KEY] = fd6.make_fused_layout(params)
+    B = 4
+    gen = torch.Generator(device=dev).manual_seed(3)
+    base = v6.init_state(info, B, device=dev)
+    for t in base.values():
+        t.copy_(torch.randn(t.shape, generator=gen, device=dev) * 0.3)
+    steps = [(torch.randint(0, 64, (B,), generator=gen, device=dev),
+              torch.tensor(l, device=dev))
+             for l in ([1, 1, 0, 1], [1, 0, 1, 1], [1, 1, 1, 1])]
+    runs = {}
+    for how in ("plain", "eager", "graph"):
+        state = {k: t.clone() for k, t in base.items()}
+        graph = fd6.DecodeGraph(params, state, B) if how == "graph" else None
+        hs = []
+        for toks, lens in steps:
+            if how == "graph":
+                hs.append(graph.replay(toks, lens).clone())
+            else:
+                fwd = (fd6.forward_t1 if how == "eager"
+                       else fd6.forward_t1_plain)
+                hs.append(fwd(params, state, toks[:, None], lens)[0][:, 0])
+        runs[how] = (hs, state)
+        if graph is not None:
+            assert sum(graph.launches_per_replay) == 11 * 2
+    (h_e, s_e), (h_g, s_g), (h_p, s_p) = (runs[k] for k in
+                                          ("eager", "graph", "plain"))
+    for a, b in zip(h_e, h_g):  # the graph replays the same kernels
+        assert torch.equal(a, b)
+    for k in s_e:
+        assert torch.equal(s_e[k], s_g[k])
+        tol = 1e-4 if dtype == torch.float32 else 2e-2
+        err = float((s_e[k] - s_p[k]).abs().max())
+        assert err <= tol * max(1.0, float(s_p[k].abs().max())), (k, err)
+    tol = 1e-4 if dtype == torch.float32 else 5e-2
+    for a, b in zip(h_e, h_p):
+        err = float((a.float() - b.float()).abs().max())
+        assert err <= tol * max(1.0, float(b.float().abs().max())), err
+    state = {k: t.clone() for k, t in base.items()}
+    fd6.forward_t1(params, state, steps[0][0][:, None], steps[0][1])
+    for k in state:
+        assert torch.equal(state[k][:, 2], base[k][:, 2])
+
+
+def test_v6_kernels_refuse_what_they_do_not_take(dev):
+    z = torch.zeros(2, 32, device=dev)
+    act = torch.ones(2, dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="head size 64"):
+        fd6.v6_wkv_gn(z, z, z, z, z, torch.zeros(6, 32, device=dev), act,
+                      torch.zeros(2, 1, 32, 32, device=dev), torch.float32)
+    S = torch.zeros(1, 1, 32, 32, device=dev)
+    v = torch.zeros(1, 1, 32, device=dev)
+    with pytest.raises(ValueError, match="head size 64"):
+        wkv56_t1(S, v, v, v, v, torch.zeros(1, 32, device=dev), act[:1])
+    x = torch.zeros(2, 64, device=dev, dtype=torch.bfloat16)
+    W = torch.zeros(64, 64, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="needs xa, dx and mix"):
+        fd.v7_skinny_matmul([fd.Product(x, W, out="mix")])
+    with pytest.raises(ValueError, match="needs gate"):
+        fd.v7_skinny_matmul([fd.Product(x, W, out="gadd",
+                                        y=torch.zeros(2, 64, device=dev))])
+    with pytest.raises(ValueError, match="1 to 5 products"):
+        fd.v7_skinny_matmul([fd.Product(x, W)] * 6)

@@ -424,3 +424,101 @@ def test_engine_quantizes_its_own_head_like_the_reference(monkeypatch):
                                       np.asarray(want.q))
         np.testing.assert_array_equal(params["_head_q"].scale.numpy(),
                                       np.asarray(want.scale))
+
+
+# ---------------------------------------------------------------------------
+# RWKV-6: the same engine, unchanged, on v6 models
+# ---------------------------------------------------------------------------
+#
+# Tiny f32 v6 models through both engines, as above: head size 16 keeps to
+# the layer path (``wkv56_chunk`` / ``wkv56_t1``'s plain versions), head
+# size 64 takes the fused v6 path for T=1 (``ops/v6_decode``), all-int8 and
+# all-nf4 models the fused path on codes, a layer-0-int8 model the layer
+# path with ``matmul_int8_l``.  Quantized models get the int8 LM head on
+# both sides (``AI00_QUANT_HEAD=on`` for the JAX engine), with the logits'
+# tolerance of the int8 cases above.  Greedy tokens equal; states within
+# 2e-4 of their scale (f32, another summation order).
+
+V6_CASES = {"layer": (16, None), "fused": (64, None),
+            "int8": (64, {0: "int8", 1: "int8"}),
+            "mixed": (64, {0: "int8"}), "nf4": (64, {0: "nf4", 1: "nf4"})}
+
+
+def _v6_engines(monkeypatch, case):
+    from ai00_server_tpu.testing import make_params, make_raw_weights, tiny_info
+
+    head, quant_map = V6_CASES[case]
+    if quant_map:
+        monkeypatch.setenv("AI00_QUANT_HEAD", "on")
+    info = tiny_info(ModelVersion.V6, num_layer=2, num_emb=128,
+                     head_size=head, num_vocab=64)
+    params = make_params(info, make_raw_weights(info, seed=73,
+                                                dtype=np.float32),
+                         dtype=np.float32, quant=quant_map)
+    j = JEngine(JLoaded(info=info, params=params, init_wkv=None),
+                max_batch=B, token_chunk_size=CHUNK)
+    tparams = params_from_numpy(jax.tree.map(np.asarray, j.model.params),
+                                "cpu")
+    t = TEngine(TLoaded(info=info, params=tparams), max_batch=B,
+                token_chunk_size=CHUNK, device="cpu")
+    prompts = [[1, 2, 3, 4, 5], [7, 8, 9], [3] * 8, []]
+    for eng in (j, t):
+        for b in range(B):
+            eng.load_row_state(b, None)
+            eng.set_row_sampler(b, GREEDY, prompt_tokens=prompts[b])
+            eng.set_row_bias(b, None)
+    return j, t, prompts
+
+
+@pytest.mark.parametrize("case", sorted(V6_CASES))
+def test_v6_engine_equals_jax(monkeypatch, case):
+    from ai00_server_tpu_torch.models import v6 as tv6
+    from ai00_server_tpu_torch.ops import v6_decode as fd6
+
+    j, t, prompts = _v6_engines(monkeypatch, case)
+    fused = case in ("fused", "int8", "nf4")
+    assert t.module is tv6 and fd6.supports(t.model.params) == fused
+    assert ("_head_q" in t.model.params) == (V6_CASES[case][1] is not None)
+    assert t.state_pool["wkv"].shape == (2, B, 128 // V6_CASES[case][0],
+                                         V6_CASES[case][0],
+                                         V6_CASES[case][0])
+    fused_steps = []
+    real = fd6.forward_t1
+    monkeypatch.setattr(fd6, "forward_t1",
+                        lambda *a: fused_steps.append(1) or real(*a))
+    ptrs = {k: v.data_ptr() for k, v in t.state_pool.items()}
+
+    toks = np.zeros((B, CHUNK), np.int32)
+    lens = np.zeros(B, np.int32)
+    for b, p in enumerate(prompts):
+        toks[b, :len(p)] = p
+        lens[b] = len(p)
+    js = j.step(toks, lens, lens > 0, want_logits=True)
+    ts = t.step(toks, lens, lens > 0, want_logits=True)
+    jl, tl = np.asarray(js.logits)[:3], ts.logits.numpy()[:3]
+    if V6_CASES[case][1]:  # the JAX side's bf16 head (see above)
+        gap = np.sort(tl, axis=-1)
+        gap = float((gap[:, -1] - gap[:, -2]).min())
+        assert float(np.abs(tl - jl).max()) <= 2.0 ** -6 * float(
+            np.abs(jl).max())
+        assert gap > 4 * float(np.abs(tl - jl).max())
+    else:
+        close(tl, jl)
+    np.testing.assert_array_equal(ts.tokens[:3], js.tokens[:3])
+    _states_close(j, t)
+    assert not fused_steps
+
+    active = np.array([True, True, True, False])
+    budget = np.array([5, 5, 2, 0], np.int32)
+    jt, _ = j.decode_chunk(js.tokens, active, 5, budget=budget)
+    tt, _ = t.decode_chunk(ts.tokens, active, 5, budget=budget)
+    np.testing.assert_array_equal(tt[:, :3], jt[:, :3])
+    _states_close(j, t)
+    assert len(fused_steps) == (5 if fused else 0)
+    assert float(np.abs(t.read_row_state(3)["wkv"]).max()) == 0.0
+
+    feed = [int(ts.tokens[0]), int(tt[0, 0])]
+    j.rollback_row(0, feed)
+    t.rollback_row(0, feed)
+    _states_close(j, t)
+    assert {k: v.data_ptr() for k, v in t.state_pool.items()} == ptrs

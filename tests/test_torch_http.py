@@ -350,3 +350,137 @@ def test_unknown_quant_type_is_refused(quant_site):
             .quant_map() is None
 
     asyncio.run(main())
+
+
+# ---------------------------------------------------------------------------
+# RWKV-6 over HTTP: the same routes on a v6 checkpoint
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def v6_site(tmp_path_factory):
+    """A 2-layer v6 of width 128 with head size 64 (the fused v6 path)."""
+    root = tmp_path_factory.mktemp("v6site")
+    _, raw, _ = make_tiny_model(ModelVersion.V6, seed=23, dtype=np.float32,
+                                num_layer=2, num_emb=128, head_size=64,
+                                num_vocab=64)
+    jloader.save_safetensors(to_converted_layout(raw), str(root / "tiny.st"),
+                             dtype=np.float32)
+    vocab = {str(i): chr(64 + i) for i in range(1, 60)}
+    (root / "vocab.json").write_text(json.dumps(vocab))
+    return root
+
+
+async def _v6_client(root, quant=0, quant_type="Int8", server_cls=Server,
+                     config_cls=Config, **kw):
+    config = config_cls.from_dict({
+        "model": {"name": "tiny.st", "path": str(root), "max_batch": 4,
+                  "token_chunk_size": 16, "precision": "Fp32",
+                  "quant": quant, "quant_type": quant_type},
+        "tokenizer": {"path": str(root / "vocab.json")},
+        "listen": {"port": 0}})
+    server = server_cls(config, **kw)
+    await server.middleware.reload(config.to_reload_request())
+    client = TestClient(TestServer(server.app))
+    await client.start_server()
+    return client, server
+
+
+def test_v6_completion_and_sse_chat(v6_site):
+    from ai00_server_tpu_torch.ops import v6_decode as fd6
+
+    async def main():
+        client, server = await _v6_client(v6_site, device="cpu")
+        try:
+            assert fd6.supports(server.middleware.env.model.params)
+            body = await _complete(client, max_tokens=8)
+            text = body["choices"][0]["text"]
+            assert text and body["usage"]["prompt"] == 5
+            assert (await _complete(client, "/api/oai/v1/completions",
+                                    max_tokens=8))["choices"][0]["text"] \
+                == text
+            r = await client.post("/api/oai/v1/chat/completions", json={
+                "messages": [{"role": "user", "content": "ABC"}],
+                "max_tokens": 4, "stream": True, "sampler": GREEDY})
+            assert r.status == 200
+            assert r.headers["Content-Type"].startswith("text/event-stream")
+            events = [l[6:] for l in (await r.read()).decode().splitlines()
+                      if l.startswith("data: ")]
+            assert events[-1] == "[DONE]"
+            assert json.loads(events[0])["choices"][0]["delta"] == {
+                "role": "Assistant"}
+            assert "".join(json.loads(e)["choices"][0].get(
+                "delta", {}).get("content", "") for e in events[1:-1])
+            info = await (await client.get("/api/models/info")).json()
+            assert info["model"]["version"] == "V6"
+        finally:
+            await client.close()
+            await server.middleware.unload()
+
+    asyncio.run(main())
+
+
+def test_v6_greedy_text_equals_jax_server(v6_site):
+    async def texts(server_cls, config_cls, **kw):
+        client, server = await _v6_client(
+            v6_site, server_cls=server_cls, config_cls=config_cls, **kw)
+        try:
+            out = [(await _complete(client, prompt=p, max_tokens=8)
+                    )["choices"][0]["text"] for p in ("ABCAB", "QRS")]
+            r = await client.post("/api/oai/chat/completions", json={
+                "messages": [{"role": "user", "content": "HELLO"}],
+                "max_tokens": 8, "sampler": GREEDY})
+            out.append((await r.json())["choices"][0]["message"]["content"])
+            return out
+        finally:
+            await client.close()
+            await server.middleware.unload()
+
+    port = asyncio.run(texts(Server, Config, device="cpu"))
+    ref = asyncio.run(texts(JServer, JConfig))
+    assert port == ref
+    assert all(port)
+
+
+@pytest.mark.parametrize("quant,quant_type", [(2, "Int8"), (2, "NF4"),
+                                              (1, "Int8")])
+def test_v6_quantized_completion(v6_site, quant, quant_type):
+    """``quant = L``: every layer's eight big projections as codes, the
+    fused v6 path; ``quant = 1``: the layer path."""
+    from ai00_server_tpu_torch.ops import quant as tquant
+    from ai00_server_tpu_torch.ops import v6_decode as fd6
+
+    async def main():
+        client, server = await _v6_client(v6_site, quant, quant_type,
+                                          device="cpu")
+        try:
+            params = server.middleware.env.model.params
+            kinds = [tquant.is_quantized(p["att"]["gate"])
+                     and tquant.is_quantized(p["ffn"]["receptance"])
+                     for p in params["layers"]]
+            assert kinds == [i < quant for i in range(2)]
+            assert params["layers"][0]["att"]["gate"].mode == \
+                quant_type.lower()
+            assert fd6.supports(params) == (quant == 2)
+            assert "_head_q" in params
+            texts = [(await _complete(client, max_tokens=8)
+                      )["choices"][0]["text"] for _ in range(2)]
+            assert texts[0] and texts[0] == texts[1]
+        finally:
+            await client.close()
+            await server.middleware.unload()
+
+    asyncio.run(main())
+
+
+def test_v5_checkpoint_names_its_roadmap_item(tmp_path):
+    _, raw, _ = make_tiny_model(ModelVersion.V5, seed=24, dtype=np.float32)
+    jloader.save_safetensors(to_converted_layout(raw),
+                             str(tmp_path / "tiny.st"), dtype=np.float32)
+    (tmp_path / "vocab.json").write_text(json.dumps({"1": "A"}))
+
+    async def main():
+        with pytest.raises(NotImplementedError, match="ROADMAP 'v5/v4'"):
+            await _v6_client(tmp_path, device="cpu")
+
+    asyncio.run(main())
