@@ -26,7 +26,10 @@
 // This file holds v6_wkv_gn: the WKV step with the u bonus on the k-major
 // state IN PLACE (an inactive row keeps its state bit for bit; every row
 // gets its y), GroupNorm of the f32 y per head, ln_x, rounding through T and
-// the gate by g: the operand of Wo.  Bounded by the bytes of the state (read
+// the gate by g: the operand of Wo.  The decay w is read with a batch stride:
+// C for v6's per-token (B, C) decay, 0 for RWKV-5's static decay, which the
+// v5 stack (ops/v5_decode.py) passes as its vecs row 0 (exp(-exp(time_decay)),
+// the row the Pallas v5 kernel reads, ops/v5_decode_pallas.py:163).  Bounded by the bytes of the state (read
 // once, written once for active rows); one block of 64 threads per (b, h),
 // thread v holding column v of the state in registers, the device code
 // shared with wkv56_t1 (wkv56_common.cuh); the GroupNorm's two sums over the
@@ -44,7 +47,8 @@ using namespace wkv56;
 
 namespace {
 
-// vecs rows: decay, first, lnx_w, lnx_b
+// vecs rows: decay (v6: the LoRA's bias, not read here; v5: the static
+// decay itself), first, lnx_w, lnx_b
 constexpr int VEC_FIRST = 1, VEC_LNX_W = 2, VEC_LNX_B = 3;
 
 template <typename T>
@@ -53,7 +57,7 @@ v6_wkv_gn_kernel(const float* __restrict__ r, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ w,
                  const float* __restrict__ g, const float* __restrict__ vecs,
                  const uint8_t* __restrict__ active, float* __restrict__ S,
-                 T* __restrict__ out, int H, int C) {
+                 T* __restrict__ out, int H, int C, int w_stride) {
   __shared__ __align__(16) float sv[4][N];  // r, k, w, u
   __shared__ float red[2];
   const int bh = blockIdx.x;
@@ -67,7 +71,7 @@ v6_wkv_gn_kernel(const float* __restrict__ r, const float* __restrict__ k,
   load_col(s, state, tid);
   sv[0][tid] = r[vo + tid];
   sv[1][tid] = k[vo + tid];
-  sv[2][tid] = w[vo + tid];
+  sv[2][tid] = w[(size_t)b * w_stride + h * N + tid];
   sv[3][tid] = vecs[VEC_FIRST * (size_t)C + c];
   const float vv = v[vo + tid];
   const float gv = g[vo + tid];
@@ -96,16 +100,18 @@ extern "C" {
 int v6_wkv_gn_launch(const float* r, const float* k, const float* v,
                      const float* w, const float* g, const float* vecs,
                      const uint8_t* active, float* S, void* out, int B, int H,
-                     int n, int dtype, void* stream) {
-  if (n != N || B <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
+                     int n, int w_stride, int dtype, void* stream) {
+  if (n != N || B <= 0 || H <= 0 || (w_stride != 0 && w_stride != H * N))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int C = H * N;
   if (dtype == 1)
     v6_wkv_gn_kernel<__nv_bfloat16><<<B * H, N, 0, st>>>(
-        r, k, v, w, g, vecs, active, S, (__nv_bfloat16*)out, H, C);
+        r, k, v, w, g, vecs, active, S, (__nv_bfloat16*)out, H, C,
+        w_stride);
   else if (dtype == 0)
     v6_wkv_gn_kernel<float><<<B * H, N, 0, st>>>(
-        r, k, v, w, g, vecs, active, S, (float*)out, H, C);
+        r, k, v, w, g, vecs, active, S, (float*)out, H, C, w_stride);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

@@ -9,6 +9,11 @@
 // Pallas _v56_kernel): one decode step, row-masked - every row gets its y
 // from the state before the step; an inactive row keeps S bit for bit.
 //
+// Both take the decay w dense, one vector per (b, [t,] h) as RWKV-6 makes it,
+// or, with w_static, as one (H, N) array for every row and step: RWKV-5's
+// static exp(-exp(time_decay)), read from there with a batch (and time)
+// stride of 0, so the layer path never writes the broadcast out.
+//
 // wkv56_chunk_launch replaces ai00_server_tpu/ops/wkv_pallas.py:wkv56_chunk
 // (the Pallas _wkv56_kernel): the same recurrence over a T-token chunk, with
 // the state resident on chip for the whole chunk.  A masked step leaves S
@@ -53,7 +58,7 @@ wkv56_t1_kernel(const float* __restrict__ S, const float* __restrict__ r,
                 const float* __restrict__ k, const float* __restrict__ v,
                 const float* __restrict__ w, const float* __restrict__ u,
                 const uint8_t* __restrict__ mask, float* __restrict__ S_out,
-                float* __restrict__ y, int H) {
+                float* __restrict__ y, int H, int w_static) {
   __shared__ __align__(16) float sv[4][N];  // r, k, w, u
   const int bh = blockIdx.x;
   const int tid = threadIdx.x;
@@ -62,7 +67,7 @@ wkv56_t1_kernel(const float* __restrict__ S, const float* __restrict__ r,
   load_col(s, S + vo * N, tid);
   sv[0][tid] = r[vo + tid];
   sv[1][tid] = k[vo + tid];
-  sv[2][tid] = w[vo + tid];
+  sv[2][tid] = w[(w_static ? (size_t)(bh % H) * N : vo) + tid];
   sv[3][tid] = u[(size_t)(bh % H) * N + tid];
   const float vv = v[vo + tid];
   const bool active = mask[bh / H] != 0;
@@ -76,9 +81,9 @@ wkv56_chunk_kernel(const float* __restrict__ S0, const float* __restrict__ r,
                    const float* __restrict__ k, const float* __restrict__ v,
                    const float* __restrict__ w, const float* __restrict__ u,
                    const uint8_t* __restrict__ mask, float* __restrict__ S_out,
-                   float* __restrict__ y, int T, int H) {
+                   float* __restrict__ y, int T, int H, int w_static) {
   __shared__ __align__(16) float stage[4][TT][N];  // r, k, v, w
-  __shared__ __align__(16) float su[N];
+  __shared__ __align__(16) float su[N], sw[N];     // u, the static w
   __shared__ uint8_t sm[TT];
   const int bh = blockIdx.x;
   const int b = bh / H, h = bh % H;
@@ -87,6 +92,7 @@ wkv56_chunk_kernel(const float* __restrict__ S0, const float* __restrict__ r,
   float s[N];
   load_col(s, S0 + (size_t)bh * N * N, tid);
   su[tid] = u[(size_t)h * N + tid];
+  if (w_static) sw[tid] = w[(size_t)h * N + tid];
 
   for (int t0 = 0; t0 < T; t0 += TT) {
     const int nt = min(TT, T - t0);
@@ -102,13 +108,15 @@ wkv56_chunk_kernel(const float* __restrict__ S0, const float* __restrict__ r,
           reinterpret_cast<const float4*>(k + off)[c];
       reinterpret_cast<float4*>(stage[2][tt])[c] =
           reinterpret_cast<const float4*>(v + off)[c];
-      reinterpret_cast<float4*>(stage[3][tt])[c] =
-          reinterpret_cast<const float4*>(w + off)[c];
+      if (!w_static)
+        reinterpret_cast<float4*>(stage[3][tt])[c] =
+            reinterpret_cast<const float4*>(w + off)[c];
     }
     if (tid < nt) sm[tid] = mask[(size_t)b * T + t0 + tid];
     __syncthreads();
     for (int tt = 0; tt < nt; ++tt) {
-      const float yv = step(s, stage[0][tt], stage[1][tt], stage[3][tt], su,
+      const float yv = step(s, stage[0][tt], stage[1][tt],
+                            w_static ? sw : stage[3][tt], su,
                             stage[2][tt][tid], sm[tt] != 0);
       y[(((size_t)b * T + t0 + tt) * H + h) * N + tid] = yv;
     }
@@ -123,20 +131,20 @@ extern "C" {
 int wkv56_t1_launch(const float* S, const float* r, const float* k,
                     const float* v, const float* w, const float* u,
                     const uint8_t* mask, float* S_out, float* y, int B, int H,
-                    int n, void* stream) {
+                    int n, int w_static, void* stream) {
   if (n != N || B <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
   wkv56_t1_kernel<<<B * H, N, 0, (cudaStream_t)stream>>>(
-      S, r, k, v, w, u, mask, S_out, y, H);
+      S, r, k, v, w, u, mask, S_out, y, H, w_static);
   return (int)cudaGetLastError();
 }
 
 int wkv56_chunk_launch(const float* S, const float* r, const float* k,
                        const float* v, const float* w, const float* u,
                        const uint8_t* mask, float* S_out, float* y, int B,
-                       int T, int H, int n, void* stream) {
+                       int T, int H, int n, int w_static, void* stream) {
   if (n != N || B <= 0 || H <= 0 || T <= 0) return (int)cudaErrorInvalidValue;
   wkv56_chunk_kernel<<<B * H, N, 0, (cudaStream_t)stream>>>(
-      S, r, k, v, w, u, mask, S_out, y, T, H);
+      S, r, k, v, w, u, mask, S_out, y, T, H, w_static);
   return (int)cudaGetLastError();
 }
 

@@ -1,7 +1,7 @@
 """Batched inference engine: merged steps and K-token decode over a state
 pool on one device.
 
-Port of ``ai00_server_tpu/engine.py`` for RWKV-7 and RWKV-6, plain or
+Port of ``ai00_server_tpu/engine.py`` for RWKV-7, -6, -5 and -4, plain or
 quantized (int8, nf4, sf4, int4):
 
 * All ``max_batch`` request slots live in ONE state pool on the device,
@@ -11,8 +11,9 @@ quantized (int8, nf4, sf4, int4):
   the fused decode path writes into it, a prefill chunk's new state is
   copied into it, and snapshots are clones that are copied back.
 * At construction the engine installs the fused decode layout of the
-  model's version (``ops/fused_decode.module_for``: ``ops/v7_decode`` or
-  ``ops/v6_decode``, ``make_fused_layout``) where the model allows it, and
+  model's version (``ops/fused_decode.module_for``: ``ops/v7_decode``,
+  ``v6_decode``, ``v5_decode`` or ``v4_decode``, ``make_fused_layout``)
+  where the model allows it, and
   on a CUDA device captures the whole T=1 layer stack once in a CUDA graph
   (that module's ``DecodeGraph``) that every decode step replays; the LM
   head and sampling run eagerly after it.  A model whose layers are only

@@ -2,8 +2,8 @@
 
 Port of ``ai00_server_tpu/loader.py`` (``load_safetensors``,
 ``save_safetensors``, ``to_math_layout``, ``load_model``, ``stack_params``
-at its lines 78-193 and 264-479) for RWKV-7 and RWKV-6 checkpoints, plain
-bf16/f32 or with the first N layers quantized (``quant={i: "int8" | "nf4" |
+at its lines 78-193 and 264-479) for RWKV-7, -6, -5 and -4 checkpoints,
+plain bf16/f32 or with the first N layers quantized (``quant={i: "int8" | "nf4" |
 "sf4" | "int4"}``).
 
 The numpy half (reading the file, undoing the converter's orientation) is
@@ -13,10 +13,12 @@ this package's own copy.  The params are PyTorch tensors on one device:
      "ln_out_w": (C,), "ln_out_b": (C,), "head": (C, V)}
 
 with every linear weight in math orientation ``(in, out)`` (``x @ W``), ln0
-folded into the embedding, zero ``v0/v1/v2`` for a v7 layer 0 and the v6
-keys of the JAX package (``mix_*``, ``mix_w1`` (C, 5D), ``mix_w2`` (5, D,
-C), ``decay`` (C,), ``first`` (H, N), ...) — the same values the JAX package
-stacks, one dict per layer instead of ``lax.scan`` layer groups.  The big projections of a quantized layer are
+folded into the embedding, zero ``v0/v1/v2`` for a v7 layer 0, the v6 keys
+of the JAX package (``mix_*``, ``mix_w1`` (C, 5D), ``mix_w2`` (5, D, C),
+``decay`` (C,), ``first`` (H, N), ...) and its v5 / v4 keys (``time_mix_*``,
+``time_decay`` and ``time_first`` (H, N) for v5, (C,) for v4) — the same
+values the JAX package stacks, one dict per layer instead of ``lax.scan``
+layer groups.  The big projections of a quantized layer are
 ``ops.quant.QuantizedLayerView``: an index into the codes of its layer
 group (a contiguous run of layers of one mode, the reference's group
 boundaries), which stay in one stacked tensor on the device.
@@ -31,7 +33,6 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .models import require_supported
 from .models.info import ModelInfo, ModelVersion, detect_info
 from .ops import quant as quant_ops
 
@@ -109,7 +110,7 @@ class LoadedModel:
 def load_model(path: str, dtype: torch.dtype = torch.bfloat16,
                device: str | torch.device = "cuda",
                quant: dict | None = None) -> LoadedModel:
-    """Read a converted ``.st`` RWKV-7 or RWKV-6 checkpoint onto ``device``.
+    """Read a converted ``.st`` RWKV checkpoint onto ``device``.
 
     ``quant``: {layer_index: "int8" | "nf4" | "sf4" | "int4"} per-layer
     quantization map."""
@@ -158,8 +159,9 @@ def _quantize_runs(layers: list[dict], modes: list[str], device) -> None:
                     p[part][key] = quant_ops.QuantizedLayerView(qlin, i)
 
 
-def _v7_layer(math: dict, i: int, C: int) -> dict:
+def _v7_layer(math: dict, i: int, info: ModelInfo) -> dict:
     a, f = f"blocks.{i}.att.", f"blocks.{i}.ffn."
+    C = info.num_emb
     att = {k: math[a + k] for k in V7_ATT_VECTORS}
     if a + "v0" in math:
         att.update({k: math[a + k] for k in ("v0", "v1", "v2")})
@@ -208,18 +210,49 @@ def _v6_layer(math: dict, i: int, info: ModelInfo) -> dict:
                     "value": math[f + "value.weight"]}}
 
 
+def _v54_layer(math: dict, i: int, info: ModelInfo) -> dict:
+    """A v5 or v4 layer (JAX ``loader.py:398-440``): the mixes, decay and
+    bonus under their checkpoint names; v5 adds the gate and ``ln_x``."""
+    a, f = f"blocks.{i}.att.", f"blocks.{i}.ffn."
+    v5 = info.version == ModelVersion.V5
+    shape = (info.num_head, info.head_size) if v5 else (-1,)
+    att = {k: math[a + k] for k in ("time_mix_k", "time_mix_v",
+                                    "time_mix_r") + (("time_mix_g",) if v5
+                                                     else ())}
+    att.update({
+        "time_decay": math[a + "time_decay"].reshape(shape),
+        "time_first": math[a + "time_first"].reshape(shape),
+        "receptance": math[a + "receptance.weight"],
+        "key": math[a + "key.weight"],
+        "value": math[a + "value.weight"],
+        "output": math[a + "output.weight"],
+    })
+    if v5:
+        att.update({"gate": math[a + "gate.weight"],
+                    "ln_x_w": math[a + "ln_x.weight"],
+                    "ln_x_b": math[a + "ln_x.bias"]})
+    return {"att": att,
+            "ffn": {"time_mix_k": math[f + "time_mix_k"],
+                    "time_mix_r": math[f + "time_mix_r"],
+                    "key": math[f + "key.weight"],
+                    "receptance": math[f + "receptance.weight"],
+                    "value": math[f + "value.weight"]}}
+
+
+_LAYER = {ModelVersion.V7: _v7_layer, ModelVersion.V6: _v6_layer,
+          ModelVersion.V5: _v54_layer, ModelVersion.V4: _v54_layer}
+
+
 def stack_params(info: ModelInfo, math: dict[str, np.ndarray],
                  dtype: torch.dtype = torch.bfloat16,
                  device: str | torch.device = "cuda",
                  quant: dict | None = None) -> dict:
-    """Math-layout v7 or v6 weights -> the forward params (one dict per
-    layer).
+    """Math-layout weights -> the forward params (one dict per layer).
 
     ``quant``: {layer_index: "int8" | "nf4" | "sf4" | "int4"}; the big
     projections of those layers become codes of that mode, grouped by
     contiguous runs of one mode."""
-    require_supported(info.version)
-    C, L = info.num_emb, info.num_layer
+    L = info.num_layer
     modes = [(quant or {}).get(i, "none") for i in range(L)]
 
     def t(x):
@@ -236,8 +269,7 @@ def stack_params(info: ModelInfo, math: dict[str, np.ndarray],
     layers = []
     for i in range(L):
         b = f"blocks.{i}."
-        layer = (_v7_layer(math, i, C) if info.version == ModelVersion.V7
-                 else _v6_layer(math, i, info))
+        layer = _LAYER[info.version](math, i, info)
         layers.append({
             "ln1_w": math[b + "ln1.weight"],
             "ln1_b": math[b + "ln1.bias"],
@@ -271,7 +303,7 @@ def _tensor(x: np.ndarray, device) -> torch.Tensor:
 
 
 def params_from_numpy(tree: dict, device: str | torch.device = "cuda") -> dict:
-    """The JAX package's loaded v7 or v6 params, as numpy arrays
+    """The JAX package's loaded params, as numpy arrays
     (``jax.tree.map(np.asarray, model.params)``) -> this port's params on
     ``device``, dtypes kept.  Layer groups are unstacked into one dict per
     layer, except quantized leaves — any node with ``mode``, ``q``,

@@ -1,6 +1,6 @@
 """Model lifecycle: load and unload one model environment.
 
-Port of ``ai00_server_tpu/middleware.py`` for ``.st`` RWKV-7 and RWKV-6
+Port of ``ai00_server_tpu/middleware.py`` for ``.st`` RWKV-7, -6, -5 and -4
 checkpoints, plain or with the first ``quant`` layers quantized
 (``quant_type = "Int8"``, ``"NF4"``, ``"SF4"`` or ``"Int4"``):
 

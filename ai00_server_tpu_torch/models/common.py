@@ -1,4 +1,4 @@
-"""Shared building blocks for the RWKV-7 and RWKV-6 forward passes.
+"""Shared building blocks for the RWKV-7, -6, -5 and -4 forward passes.
 
 Port of ``ai00_server_tpu/models/common.py``.  The JAX package's rounding
 points are kept: norms and low-rank branches accumulate in f32; a plain
@@ -104,6 +104,29 @@ def lora_mix(x, w1, w2, activation=torch.tanh):
 
     h = activation(torch.matmul(x.to(acc), up(w1)))
     return torch.matmul(up(h), up(w2))
+
+
+def gated_channel_mix(p, shift, x, lengths, mix_k, mix_r):
+    """The receptance-gated squared-ReLU channel mix of v4, v5 and v6:
+    ``xk = x + dx * mix_k``, ``xr = x + dx * mix_r`` (``dx = x_prev - x``),
+    ``sigmoid(xr @ receptance) * (relu(xk @ key)^2 @ value)``.  Returns
+    (out, new_shift)."""
+    xp = token_shift(shift, x)
+    dx = xp - x
+    xk = x + dx * mix_k
+    xr = x + dx * mix_r
+    k = torch.square(torch.relu(linear(xk, p["key"])))
+    r = torch.sigmoid(linear(xr, p["receptance"]))
+    out = r * linear(k, p["value"])
+    return out, update_shift_state(shift, x, lengths)
+
+
+def channel_mix_v4(p, shift, x, lengths):
+    """v4/v5 channel mix: the official ``x * mix + x_prev * (1 - mix)``,
+    i.e. :func:`gated_channel_mix` with ``1 - time_mix_{k,r}`` (v6 stores
+    its mixes in the other convention and passes them as they are)."""
+    return gated_channel_mix(p, shift, x, lengths, 1.0 - p["time_mix_k"],
+                             1.0 - p["time_mix_r"])
 
 
 def channel_mix_v7(p, shift, x, lengths):

@@ -1,9 +1,10 @@
 """RWKV v6 ("Finch") forward pass in PyTorch.
 
 Port of ``ai00_server_tpu/models/v6.py`` (``init_state``, ``_att``,
-``_channel_mix``, ``_layer``, ``forward``).  ``forward`` at T=1 takes the
-fused decode path (``ops/v6_decode.forward_t1``, which updates the state in
-place) when the engine has installed its layout on the params.  Otherwise
+``_channel_mix`` - here ``common.gated_channel_mix`` -, ``_layer``,
+``forward``).  ``forward`` at T=1 takes the fused decode path
+(``ops/v6_decode.forward_t1``, which updates the state in place) when the
+engine has installed its layout on the params.  Otherwise
 it runs the layer-by-layer path: a plain Python loop over layers, with the
 WKV recurrence in the hand-written CUDA kernels — ``ops/wkv_t1.wkv56_t1``
 for T=1 decode and ``ops/wkv_chunk.wkv56_chunk`` for T>1 prefill chunks
@@ -31,8 +32,9 @@ import torch
 from ..ops import v6_decode as fd
 from ..ops.wkv_chunk import wkv56_chunk
 from ..ops.wkv_t1 import wkv56_t1
-from .common import (GN_EPS, acc_dtype, group_norm, layer_norm, length_mask,
-                     linear, token_shift, update_shift_state)
+from .common import (GN_EPS, acc_dtype, gated_channel_mix, group_norm,
+                     layer_norm, length_mask, linear, token_shift,
+                     update_shift_state)
 
 
 def init_state(info, batch: int, dtype=torch.float32, device="cpu"):
@@ -100,25 +102,15 @@ def _att(p, att_x, wkv, x, lengths):
             new_wkv.to(wkv.dtype))
 
 
-def _channel_mix(p, shift, x, lengths):
-    """v6 channel mix: ``x + dx * mix`` convention, receptance-gated."""
-    xp = token_shift(shift, x)
-    dx = xp - x
-    xk = x + dx * p["mix_k"]
-    xr = x + dx * p["mix_r"]
-    k = torch.square(torch.relu(linear(xk, p["key"])))
-    r = torch.sigmoid(linear(xr, p["receptance"]))
-    out = r * linear(k, p["value"])
-    return out, update_shift_state(shift, x, lengths)
-
-
 def _layer(p, state, x, lengths):
     att_x, wkv, ffn_x = state
     xa = layer_norm(x, p["ln1_w"], p["ln1_b"])
     att_out, new_att_x, new_wkv = _att(p["att"], att_x, wkv, xa, lengths)
     x = x + att_out
     xf = layer_norm(x, p["ln2_w"], p["ln2_b"])
-    ffn_out, new_ffn_x = _channel_mix(p["ffn"], ffn_x, xf, lengths)
+    ffn_out, new_ffn_x = gated_channel_mix(p["ffn"], ffn_x, xf, lengths,
+                                           p["ffn"]["mix_k"],
+                                           p["ffn"]["mix_r"])
     x = x + ffn_out
     return x, (new_att_x, new_wkv, new_ffn_x)
 

@@ -38,10 +38,10 @@ SIGNATURES = {
         "wkv7_chunk_launch": "ppppppppppiiiip",
     },
     "wkv56": {
-        # S, r, k, v, w, u, mask, S_out, y, B, H, N, stream
-        "wkv56_t1_launch": "pppppppppiiip",
-        # S, r, k, v, w, u, mask, S_out, y, B, T, H, N, stream
-        "wkv56_chunk_launch": "pppppppppiiiip",
+        # S, r, k, v, w, u, mask, S_out, y, B, H, N, w_static, stream
+        "wkv56_t1_launch": "pppppppppiiiip",
+        # S, r, k, v, w, u, mask, S_out, y, B, T, H, N, w_static, stream
+        "wkv56_chunk_launch": "pppppppppiiiiip",
     },
     "v7_decode": {
         # x, ln, shift, mix, active, out, B, C, n_mix, base, dtype, stream
@@ -53,9 +53,17 @@ SIGNATURES = {
         # is_first, dtype, stream
         "v7_wkv_gn_launch": "ppppppppppppiiiiip",
     },
+    "wkv4": {
+        # r, k, v, vecs, active, aa, bb, pp, out, B, C, dtype, stream
+        "v4_wkv_launch": "pppppppppiiip",
+        # aa, bb, pp, k, v, w, u, mask, aa_out, bb_out, pp_out, y, B, T, C,
+        # dtype, stream
+        "wkv4_chunk_launch": "ppppppppppppiiiip",
+    },
     "v6_decode": {
-        # r, k, v, w, g, vecs, active, S, out, B, H, N, dtype, stream
-        "v6_wkv_gn_launch": "pppppppppiiiip",
+        # r, k, v, w, g, vecs, active, S, out, B, H, N, w_stride, dtype,
+        # stream
+        "v6_wkv_gn_launch": "pppppppppiiiiip",
     },
     "quant": {
         # K, N -> the work space a product needs (not a status)

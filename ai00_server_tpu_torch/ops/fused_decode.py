@@ -9,9 +9,9 @@ module's ``forward_t1`` and launch counters.
 ``group_mode`` and ``big_layout_entries`` (the JAX module's lines 34 and 67)
 let a kernel module take the big projections as plain weights or as codes +
 scales (int8, nf4, sf4, int4); here they look at ONE layer's dict, since the
-port keeps a dict per layer.  The JAX module's ``make_W`` (the in-kernel
-dequantize) is the weight load of ``v7_skinny_matmul`` in
-``csrc/v7_decode.cu``.  Its ``mode_packs`` hands the Pallas kernel a 4-bit
+port keeps a dict per layer, and ``uniform_mode`` asks it of every layer.
+The JAX module's ``make_W`` (the in-kernel dequantize) is the weight load
+of ``v7_skinny_matmul`` in ``csrc/v7_decode.cu``.  Its ``mode_packs`` hands the Pallas kernel a 4-bit
 mode's levels as four packed constants for a select tree; the card's kernel
 gathers from a 16-entry table in shared memory instead, so the counterpart
 is the plain tuple ``ops.quant.LEVELS[mode]``.
@@ -21,22 +21,18 @@ from __future__ import annotations
 
 import torch
 
-from .quant import is_quantized
+from .quant import MODES, is_quantized
 
 
 def module_for(version: str):
     """The fused-decode module for a ModelVersion value string."""
-    if version == "V7":
-        from . import v7_decode as fd
+    from . import v4_decode, v5_decode, v6_decode, v7_decode
 
-        return fd
-    if version == "V6":
-        from . import v6_decode as fd
-
-        return fd
-    raise NotImplementedError(
-        f"fused decode for RWKV {version} is the ROADMAP 'v5/v4' item; "
-        "this port fuses V7 and V6")
+    modules = {"V7": v7_decode, "V6": v6_decode, "V5": v5_decode,
+               "V4": v4_decode}
+    if version not in modules:
+        raise ValueError(f"unknown model version {version!r}")
+    return modules[version]
 
 
 def group_mode(layer: dict, big_src: dict):
@@ -46,6 +42,18 @@ def group_mode(layer: dict, big_src: dict):
     modes = {layer[part][key].mode if is_quantized(layer[part][key])
              else "none" for part, key in big_src.values()}
     return modes.pop() if len(modes) == 1 else None
+
+
+def uniform_mode(layers: list, big_src: dict, dtype) -> bool:
+    """Whether the big projections of ALL layers are plain in ``dtype`` or
+    quantized in ONE mode: what a fused stack takes (a model whose layers
+    are partly quantized keeps to the layer path, as a model of several
+    layer groups does in the reference)."""
+    modes = {group_mode(p, big_src) for p in layers}
+    if modes == {"none"}:
+        return all(p[part][key].dtype == dtype
+                   for p in layers for part, key in big_src.values())
+    return len(modes) == 1 and modes <= set(MODES)
 
 
 def big_layout_entries(layer: dict, big_src: dict) -> dict:
@@ -61,6 +69,55 @@ def big_layout_entries(layer: dict, big_src: dict) -> dict:
         else:
             out[name] = leaf
     return out
+
+
+def big_products(f: dict, layer: dict, big_src: dict):
+    """``big(x, name, l, **kw)``: the ``ops.v7_decode.Product`` of big
+    projection ``name`` of layer ``l`` in the fused layout ``f``: the plain
+    weight, or its codes and scales in the stack's one mode (read off
+    ``layer``, one of the model's layers; the codes do not name it)."""
+    from .v7_decode import Product
+
+    mode = group_mode(layer, big_src)
+    quant = mode != "none"
+
+    def big(x, name, l, **kw):
+        if quant:
+            return Product(x, f[name + "_q"][l], scale=f[name + "_s"][l],
+                           mode=mode, **kw)
+        return Product(x, f[name][l], **kw)
+
+    return big
+
+
+def workspace(f: dict, quant: bool, cd, device, extra_shapes=()):
+    """The ``ops.v7_decode.Workspace`` of the largest ``v7_skinny_matmul``
+    launch of a v6 / v5 / v4 stack: the time mix's four (C, C) products
+    (v4's three fit), the channel mix's key and receptance, and its value;
+    ``extra_shapes`` lists further launches of ``cd`` weights (v6's LoRA
+    products), each a list of (K, N)."""
+    from .v7_decode import Workspace, _scratch_need
+
+    C = f["ln1"].shape[-1]
+    F = f["fkey_q" if quant else "fkey"][0].shape[-1]
+    big = torch.int8 if quant else cd
+    need = [_scratch_need(s, big) for s in
+            ([(C, C)] * 4, [(C, F), (C, C)], [(F, C)])]
+    need += [_scratch_need(s, cd) for s in extra_shapes]
+    return Workspace(device, max(n[0] for n in need),
+                     max(n[1] for n in need))
+
+
+def gated_channel_mix(ln_mix, matmul, big, f, x, shift, l, active, ws):
+    """The receptance-gated channel mix of a v6 / v5 / v4 layer in three
+    launches: LayerNorm 2 with the layout's two ``fmix`` rows (``shift``
+    updated in place), the key (squared ReLU) and receptance (sigmoid,
+    f32) products, and the value gated by the receptance and added into the
+    f32 residual ``x``."""
+    fxk, fxr = ln_mix(x, f["ln2"][l], shift, f["fmix"][l], active)
+    hk, rf = matmul([big(fxk, "fkey", l, act="relu2"),
+                     big(fxr, "frec", l, act="sigmoid", out="f32")], ws)
+    matmul([big(hk, "fval", l, out="gadd", y=x, gate=rf)], ws)
 
 
 class DecodeGraph:
@@ -84,7 +141,7 @@ class DecodeGraph:
     counts: tuple = ()
 
     def __init__(self, params, state, batch: int):
-        dev = state["wkv"].device
+        dev = next(iter(state.values())).device
         if dev.type != "cuda":
             raise ValueError(f"a CUDA graph needs CUDA tensors, got {dev}")
         self.tokens = torch.zeros(batch, dtype=torch.int32, device=dev)

@@ -45,10 +45,8 @@ import torch
 from ..models.common import GN_EPS, layer_norm
 from . import _build, fused_decode
 from . import v7_decode as v7d
-from .quant import MODES
-from .v7_decode import (_DTYPE_CODE, Product, Workspace, _dense,
-                        _one_cuda_device, _require, _scratch_need, _stream,
-                        v7_ln_mix, v7_skinny_matmul)
+from .v7_decode import (_DTYPE_CODE, Product, _dense, _one_cuda_device,
+                        _require, _stream, v7_ln_mix, v7_skinny_matmul)
 
 FUSED_KEY = "_fused_t1_v6"
 
@@ -91,11 +89,7 @@ def can_fuse(params) -> bool:
     dtype = att["mix_w1"].dtype
     if C != H * N or N != 64 or dtype not in _DTYPE_CODE:
         return False
-    modes = {fused_decode.group_mode(p, _BIG_SRC) for p in layers}
-    if modes == {"none"}:
-        return all(p[part][key].dtype == dtype
-                   for p in layers for part, key in _BIG_SRC.values())
-    return len(modes) == 1 and modes <= set(MODES)
+    return fused_decode.uniform_mode(layers, _BIG_SRC, dtype)
 
 
 def make_fused_layout(params) -> dict:
@@ -138,6 +132,8 @@ def v6_wkv_gn_plain(r, k, v, w, g, vecs, active, S, dtype):
     def heads(t):
         return t.reshape(B, H, N)
 
+    if w is None:  # RWKV-5's static decay, the same for every row
+        w = vecs[_VEC_IDX["decay"]].expand(B, C)
     u = vecs[_VEC_IDX["first"]].reshape(H, N)
     a = heads(k)[..., :, None] * heads(v)[..., None, :]   # (B, H, N_k, N_v)
     y = torch.einsum("bhk,bhkv->bhv", heads(r), S + u[None, :, :, None] * a)
@@ -158,20 +154,24 @@ def _wkv_gn_inplace_plain(r, k, v, w, g, vecs, active, S, dtype):
 
 
 def v6_wkv_gn(r, k, v, w, g, vecs, active, S, dtype):
-    """The WKV stage of one v6 layer's decode step, per (b, h).
+    """The WKV stage of one v6 (or v5) layer's decode step, per (b, h).
 
     r, k, v, w, g: (B, C) f32 (``w`` the decay ``exp(-exp(.))``, ``g`` the
     SiLU gate); vecs: (4, C) f32 (decay, first, lnx_w, lnx_b; ``first`` is
-    the bonus ``u``); active: (B,) bool; S: (B, H, 64,
-    64) f32 (k-dim, v-dim).  Computes ``y = r (S + u k v^T)`` from the state
-    before the step for every row, ``S = w S + k v^T`` IN PLACE for active
-    rows (an inactive row keeps its state bit for bit), GroupNorm of the f32
-    ``y`` per head, ``ln_x``, rounding through ``dtype`` and the gate by
-    ``g``.  Returns the operand of the output projection, (B, C) in
-    ``dtype``."""
+    the bonus ``u``); active: (B,) bool; S: (B, H, 64, 64) f32 (k-dim,
+    v-dim).  Computes ``y = r (S + u k v^T)`` from the state before the step
+    for every row, ``S = w S + k v^T`` IN PLACE for active rows (an
+    inactive row keeps its state bit for bit), GroupNorm of the f32 ``y``
+    per head, ``ln_x``, rounding through ``dtype`` and the gate by ``g``.
+    Returns the operand of the output projection, (B, C) in ``dtype``.
+
+    ``w=None`` is RWKV-5's static-decay mode: every row decays by vecs row
+    0, which then holds ``exp(-exp(time_decay))`` (the kernel reads it with
+    a batch stride of 0)."""
     if S.device.type == "cpu":
         return _wkv_gn_inplace_plain(r, k, v, w, g, vecs, active, S, dtype)
-    f32s = (r, k, v, w, g)
+    static = w is None
+    f32s = (r, k, v, vecs if static else w, g)
     dev = _one_cuda_device(S, *f32s, vecs, active)
     B, H, N, N2 = S.shape
     _require(N == 64 and N2 == 64,
@@ -179,15 +179,15 @@ def v6_wkv_gn(r, k, v, w, g, vecs, active, S, dtype):
     _require(dtype in _DTYPE_CODE, f"unsupported activation dtype {dtype}")
     C = H * N
     _dense(S, (B, H, N, N), torch.float32, "S")
-    for t in f32s:
+    for t in (r, k, v, g) if static else (r, k, v, w, g):
         _dense(t, (B, C), torch.float32, "r/k/v/w/g")
     _dense(vecs, (len(_VEC_NAMES), C), torch.float32, "vecs")
     _dense(active, (B,), torch.bool, "active")
     out = torch.empty((B, C), dtype=dtype, device=dev)
     status = _build.library("v6_decode").v6_wkv_gn_launch(
         *(t.data_ptr() for t in f32s), vecs.data_ptr(), active.data_ptr(),
-        S.data_ptr(), out.data_ptr(), B, H, N, _DTYPE_CODE[dtype],
-        _stream(dev))
+        S.data_ptr(), out.data_ptr(), B, H, N, 0 if static else C,
+        _DTYPE_CODE[dtype], _stream(dev))
     _build.check(status, "v6_wkv_gn")
     v6_wkv_gn.launches += 1
     return out
@@ -209,43 +209,24 @@ _PLAIN_OPS = (v7d._ln_mix_inplace_plain, v7d._matmul_inplace_plain,
 # ---------------------------------------------------------------------------
 
 
-def _workspace(f, quant: bool, cd, device) -> Workspace:
-    """Scratch for the largest launch of the stack."""
-    C = f["ln1"].shape[-1]
-    F = f["fkey_q" if quant else "fkey"][0].shape[-1]
-    D5, Dw = f["mw1"][0].shape[-1], f["dw1"][0].shape[-1]
-    big = torch.int8 if quant else cd
-    need = [_scratch_need(s, big) for s in
-            ([(C, C)] * 4, [(C, F), (C, C)], [(F, C)])]
-    need += [_scratch_need(s, cd) for s in
-             ([(C, D5)], [(D5 // 5, C)] * 5, [(C, Dw)], [(Dw, C)])]
-    return Workspace(device, max(n[0] for n in need),
-                     max(n[1] for n in need))
-
-
 def _forward(ops, params, state, tokens, lengths):
     ln_mix, matmul, wkv_gn = ops
     f = params[FUSED_KEY]
     L = f["ln1"].shape[0]
     quant = "fkey_q" in f
-    # One mode for the whole stack (can_fuse); the codes do not name it.
-    mode = fused_decode.group_mode(params["layers"][0], _BIG_SRC)
     cd = params["emb"].dtype
     D = f["mw2"][0].shape[1]
+    C = f["ln1"].shape[-1]
+    D5, Dw = f["mw1"][0].shape[-1], f["dw1"][0].shape[-1]
     active = lengths > 0
-    ws = (_workspace(f, quant, cd, tokens.device)
-          if tokens.device.type == "cuda" else None)
+    ws = (fused_decode.workspace(
+        f, quant, cd, tokens.device,
+        ([(C, D5)], [(D5 // 5, C)] * 5, [(C, Dw)], [(Dw, C)]))
+        if tokens.device.type == "cuda" else None)
     # The f32 residual, carried across the layers without rounding.
     x = params["emb"][tokens[:, 0].long()].float()
     P = Product
-
-    def big(x_in, name, l, **kw):
-        """The product with big projection ``name`` of layer ``l``."""
-        if quant:
-            return P(x_in, f[name + "_q"][l], scale=f[name + "_s"][l],
-                     mode=mode, **kw)
-        return P(x_in, f[name][l], **kw)
-
+    big = fused_decode.big_products(f, params["layers"][0], _BIG_SRC)
     for l in range(L):
         vec, mix = f["vecs"][l], f["mix"][l]
         xa, dx, xxx = ln_mix(x, f["ln1"][l], state["att_x"][l], mix[0:1],
@@ -265,11 +246,8 @@ def _forward(ops, params, state, tokens, lengths):
                          bias=vec[_VEC_IDX["decay"]], out="f32")], ws)
         yg = wkv_gn(r, k, v, w, g, vec, active, state["wkv"][l], cd)
         matmul([big(yg, "Wo", l, out="add", y=x)], ws)
-        fxk, fxr = ln_mix(x, f["ln2"][l], state["ffn_x"][l], f["fmix"][l],
-                          active)
-        hk, rf = matmul([big(fxk, "fkey", l, act="relu2"),
-                         big(fxr, "frec", l, act="sigmoid", out="f32")], ws)
-        matmul([big(hk, "fval", l, out="gadd", y=x, gate=rf)], ws)
+        fused_decode.gated_channel_mix(ln_mix, matmul, big, f, x,
+                                       state["ffn_x"][l], l, active, ws)
     hidden = layer_norm(x.to(cd), params["ln_out_w"], params["ln_out_b"])
     return hidden[:, None, :], state
 

@@ -99,11 +99,7 @@ def can_fuse(params) -> bool:
     dtype = att["w1"].dtype
     if C != H * N or N != 64 or dtype not in _DTYPE_CODE:
         return False
-    modes = {fused_decode.group_mode(p, _BIG_SRC) for p in layers}
-    if modes == {"none"}:
-        return all(p[part][key].dtype == dtype
-                   for p in layers for part, key in _BIG_SRC.values())
-    return len(modes) == 1 and modes <= set(MODES)
+    return fused_decode.uniform_mode(layers, _BIG_SRC, dtype)
 
 
 def make_fused_layout(params) -> dict:
@@ -591,8 +587,6 @@ def _forward(ops, params, state, tokens, lengths):
     L, _, C = f["ln1"].shape
     quant = "fkey_q" in f
     F = f["fkey_q" if quant else "fkey"][0].shape[-1]
-    # One mode for the whole stack (can_fuse); the codes do not name it.
-    mode = fused_decode.group_mode(params["layers"][0], _BIG_SRC)
     cd = params["emb"].dtype
     active = lengths > 0
     ws = None
@@ -605,14 +599,7 @@ def _forward(ops, params, state, tokens, lengths):
     x = params["emb"][tokens[:, 0].long()].float()
     v_first = torch.empty_like(x)
     P = Product
-
-    def big(x_in, name, l, **kw):
-        """The product with big projection ``name`` of layer ``l``."""
-        if quant:
-            return P(x_in, f[name + "_q"][l], scale=f[name + "_s"][l],
-                     mode=mode, **kw)
-        return P(x_in, f[name][l], **kw)
-
+    big = fused_decode.big_products(f, params["layers"][0], _BIG_SRC)
     for l in range(L):
         vec = f["vecs"][l]
         xr, xw, xk, xv, xa, xg = ln_mix(x, f["ln1"][l], state["att_x"][l],

@@ -20,6 +20,7 @@ import torch
 
 from ..models.common import masked_select
 from . import _build
+from .wkv_t1 import head_vector
 
 
 def wkv7_chunk_plain(S, r, w, k, v, kk, a, mask):
@@ -101,15 +102,18 @@ def wkv56_chunk_plain(S, r, k, v, w, u, mask):
     u = u.float()[None, :, :, None]
     ys = []
     for t in range(r.shape[1]):
+        w_t = w if w.dim() == 2 else w[:, t]  # static (H, N) or (B, H, N)
         a = k[:, t, :, :, None] * v[:, t, :, None, :]   # (B, H, N_k, N_v)
         ys.append(torch.einsum("bhk,bhkv->bhv", r[:, t], S + u * a))
-        S = masked_select(mask[:, t], w[:, t, :, :, None] * S + a, S)
+        S = masked_select(mask[:, t], w_t[..., None] * S + a, S)
     return S, torch.stack(ys, dim=1)
 
 
 def wkv56_chunk(S, r, k, v, w, u, mask):
     """v5/v6 WKV over a chunk.  S: (B, H, N, N) f32 (k-dim, v-dim);
-    r, k, v, w: (B, T, H, N) (cast to f32); u: (H, N); mask: (B, T) bool.
+    r, k, v: (B, T, H, N) (cast to f32); w: (B, T, H, N), or (H, N) for
+    RWKV-5's static decay (the kernel reads it for every row and step);
+    u: (H, N); mask: (B, T) bool.
     Returns (new_S, y (B, T, H, N) f32).  Every step's y reads the state
     before it plus the ``u`` bonus; a masked step leaves S unchanged (its y
     differs from the JAX Pallas kernel's, which folds the mask into w=1,
@@ -118,22 +122,21 @@ def wkv56_chunk(S, r, k, v, w, u, mask):
         return wkv56_chunk_plain(S, r, k, v, w, u, mask)
     if S.device.type != "cuda":
         raise ValueError(f"unsupported device {S.device}")
-    seqs = [t.float().contiguous() for t in (r, k, v, w)]
+    static = w.dim() == 2
+    seqs = [t.float().contiguous() for t in (r, k, v)]
+    w = head_vector(w, S, "w") if static else w.float().contiguous()
     mask = mask.contiguous()
-    _check(S, seqs, mask)
+    _check(S, seqs if static else [*seqs, w], mask)
     B, H, N, _ = S.shape
     T = seqs[0].shape[1]
-    u = u.float().contiguous()
-    if tuple(u.shape) != (H, N) or u.device != S.device:
-        raise ValueError(f"u must be {(H, N)} on {S.device}, got "
-                         f"{tuple(u.shape)} on {u.device}")
+    u = head_vector(u, S, "u")
     S_out = torch.empty_like(S)
     y = torch.empty((B, T, H, N), device=S.device, dtype=torch.float32)
     lib = _build.library("wkv56")
     status = lib.wkv56_chunk_launch(
-        S.data_ptr(), *(t.data_ptr() for t in seqs), u.data_ptr(),
+        S.data_ptr(), *(t.data_ptr() for t in (*seqs, w, u)),
         mask.data_ptr(), S_out.data_ptr(), y.data_ptr(), B, T, H, N,
-        torch.cuda.current_stream(S.device).cuda_stream)
+        int(static), torch.cuda.current_stream(S.device).cuda_stream)
     _build.check(status, "wkv56_chunk")
     wkv56_chunk.launches += 1
     return S_out, y

@@ -88,16 +88,28 @@ def wkv56_t1_plain(S, r, k, v, w, u, mask):
     """The plain PyTorch version (the JAX package's ``models/v5.wkv_scan``
     at T = 1): same contract as :func:`wkv56_t1`."""
     S = S.float()
-    r, k, v, w = (t.float() for t in (r, k, v, w))
+    r, k, v, w = (t.float() for t in (r, k, v, w))  # w (B, H, N) or (H, N)
     a = k[..., :, None] * v[..., None, :]             # (B, H, N_k, N_v)
     y = torch.einsum("bhk,bhkv->bhv", r, S + u.float()[None, :, :, None] * a)
     S_new = masked_select(mask, w[..., None] * S + a, S)
     return S_new, y
 
 
+def head_vector(t, S, name):
+    """``t`` as the contiguous f32 (H, N) array the RWKV-5/6 kernels read
+    for every row (``u``, or RWKV-5's static decay)."""
+    H, N = S.shape[1:3]
+    t = t.float().contiguous()
+    if tuple(t.shape) != (H, N) or t.device != S.device:
+        raise ValueError(f"{name} must be {(H, N)} on {S.device}, got "
+                         f"{tuple(t.shape)} on {t.device}")
+    return t
+
+
 def wkv56_t1(S, r, k, v, w, u, mask):
-    """One v5/v6 step.  S: (B, H, N, N) f32 (k-dim, v-dim); r/k/v/w:
-    (B, H, N) (cast to f32); u: (H, N); mask: (B,) bool.
+    """One v5/v6 step.  S: (B, H, N, N) f32 (k-dim, v-dim); r/k/v: (B, H,
+    N) (cast to f32); w: (B, H, N), or (H, N) for RWKV-5's static decay
+    (the kernel reads it for every row); u: (H, N); mask: (B,) bool.
     Returns (S_new, y (B, H, N) f32): ``y`` reads the OLD state plus the
     ``u`` bonus for every row, ``S_new = w S + k v^T`` where ``mask``; an
     inactive row keeps S bit for bit."""
@@ -105,21 +117,20 @@ def wkv56_t1(S, r, k, v, w, u, mask):
         return wkv56_t1_plain(S, r, k, v, w, u, mask)
     if S.device.type != "cuda":
         raise ValueError(f"unsupported device {S.device}")
-    vecs = [t.float().contiguous() for t in (r, k, v, w)]
+    static = w.dim() == 2
+    vecs = [t.float().contiguous() for t in (r, k, v)]
+    w = head_vector(w, S, "w") if static else w.float().contiguous()
     mask = mask.contiguous()
-    _check(S, vecs, mask)
+    _check(S, vecs if static else [*vecs, w], mask)
     B, H, N, _ = S.shape
-    u = u.float().contiguous()
-    if tuple(u.shape) != (H, N) or u.device != S.device:
-        raise ValueError(f"u must be {(H, N)} on {S.device}, got "
-                         f"{tuple(u.shape)} on {u.device}")
+    u = head_vector(u, S, "u")
     S_out = torch.empty_like(S)
     y = torch.empty((B, H, N), device=S.device, dtype=torch.float32)
     lib = _build.library("wkv56")
     status = lib.wkv56_t1_launch(
-        S.data_ptr(), *(t.data_ptr() for t in vecs), u.data_ptr(),
+        S.data_ptr(), *(t.data_ptr() for t in (*vecs, w, u)),
         mask.data_ptr(), S_out.data_ptr(), y.data_ptr(), B, H, N,
-        torch.cuda.current_stream(S.device).cuda_stream)
+        int(static), torch.cuda.current_stream(S.device).cuda_stream)
     _build.check(status, "wkv56_t1")
     wkv56_t1.launches += 1
     return S_out, y

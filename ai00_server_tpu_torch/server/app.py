@@ -58,6 +58,7 @@ LATER_ROUTES = {
         "/admin/profile/stop")},
     ("GET", "/api-docs/openapi.json"): "admin, profile and file routes",
     ("GET", "/api-docs"): "admin, profile and file routes",
+    ("GET", "/api-docs/"): "admin, profile and file routes",
     ("GET", "/"): "admin, profile and file routes",
 }
 

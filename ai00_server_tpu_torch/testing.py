@@ -1,7 +1,7 @@
-"""Random RWKV-7 and RWKV-6 weights in the math layout, from a seed.
+"""Random RWKV-7, -6, -5 and -4 weights in the math layout, from a seed.
 
 Port of ``ai00_server_tpu/testing.py:14-161`` (``tiny_info``,
-``make_raw_weights``, ``make_params``) for v7 and v6, with the LoRA ranks as
+``make_raw_weights``, ``make_params``), with the LoRA ranks as
 arguments so a caller can build the published widths (RWKV-7 World 0.4B:
 w 64, a 64, v 32, g 128; RWKV-6 World 1B6: token-shift ``tm`` 32, decay
 ``td`` 64).  For a given ``(info, seed, dtype)`` and the default ranks the
@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from .models import ModelInfo, ModelVersion, require_supported
+from .models import ModelInfo, ModelVersion
 
 LORA_DIMS = {"w": 8, "a": 8, "v": 8, "g": 8, "tm": 8, "td": 8}
 
@@ -21,24 +21,26 @@ LORA_DIMS = {"w": 8, "a": 8, "v": 8, "g": 8, "tm": 8, "td": 8}
 def tiny_info(version: ModelVersion = ModelVersion.V7, num_layer=3,
               num_emb=32, head_size=16, num_vocab=64,
               hidden_mult=4) -> ModelInfo:
-    require_supported(version)
+    if version == ModelVersion.V4:  # one scalar WKV per channel
+        num_head, head_size = num_emb, 1
+    else:
+        num_head = num_emb // head_size
     return ModelInfo(
         version=version,
         num_layer=num_layer,
         num_emb=num_emb,
         num_hidden=num_emb * hidden_mult,
         num_vocab=num_vocab,
-        num_head=num_emb // head_size,
+        num_head=num_head,
         head_size=head_size,
     )
 
 
 def make_raw_weights(info: ModelInfo, seed=0, dtype=np.float64,
                      lora_dims: dict | None = None) -> dict[str, np.ndarray]:
-    """Random v7 or v6 weights keyed like a converted checkpoint, oriented
-    like the math layout (every linear ``(in, out)``)."""
-    require_supported(info.version)
-    v7 = info.version == ModelVersion.V7
+    """Random weights keyed like a converted checkpoint, oriented like the
+    math layout (every linear ``(in, out)``)."""
+    ver = info.version
     rng = np.random.default_rng(seed)
     D = {**LORA_DIMS, **(lora_dims or {})}
     C, V, F, L = info.num_emb, info.num_vocab, info.num_hidden, info.num_layer
@@ -69,7 +71,7 @@ def make_raw_weights(info: ModelInfo, seed=0, dtype=np.float64,
         w[a + "key.weight"] = rand(C, C)
         w[a + "value.weight"] = rand(C, C)
         w[a + "output.weight"] = rand(C, C)
-        if v7:
+        if ver == ModelVersion.V7:
             for nm in ("x_r", "x_w", "x_k", "x_v", "x_a", "x_g"):
                 w[a + nm] = rand(C, scale=0.3)
             w[a + "w0"] = rand(C, scale=0.5)
@@ -87,7 +89,7 @@ def make_raw_weights(info: ModelInfo, seed=0, dtype=np.float64,
             w[a + "k_k"] = 0.5 + rand(C, scale=0.2)
             w[a + "k_a"] = 0.5 + rand(C, scale=0.2)
             w[a + "r_k"] = rand(H, N, scale=0.3)
-        else:
+        elif ver == ModelVersion.V6:
             w[a + "time_mix_x"] = rand(C, scale=0.3)
             for nm in ("time_mix_w", "time_mix_k", "time_mix_v",
                        "time_mix_r", "time_mix_g"):
@@ -99,17 +101,34 @@ def make_raw_weights(info: ModelInfo, seed=0, dtype=np.float64,
             w[a + "time_decay_w2"] = rand(D["td"], C)
             w[a + "time_first"] = rand(H, N, scale=0.5)
             w[a + "gate.weight"] = rand(C, C)
-        w[a + "ln_x.weight"] = 1.0 + rand(C, scale=0.1)
-        w[a + "ln_x.bias"] = rand(C, scale=0.1)
+        elif ver == ModelVersion.V5:
+            for nm in ("time_mix_k", "time_mix_v", "time_mix_r",
+                       "time_mix_g"):
+                w[a + nm] = 0.5 + rand(C, scale=0.2)
+            w[a + "time_decay"] = rand(H, N, scale=0.5)
+            w[a + "time_first"] = rand(H, N, scale=0.5)
+            w[a + "gate.weight"] = rand(C, C)
+        else:  # V4: no heads, no GroupNorm
+            for nm in ("time_mix_k", "time_mix_v", "time_mix_r"):
+                w[a + nm] = 0.5 + rand(C, scale=0.2)
+            w[a + "time_decay"] = rand(C, scale=0.5)
+            w[a + "time_first"] = rand(C, scale=0.5)
+        if ver != ModelVersion.V4:
+            w[a + "ln_x.weight"] = 1.0 + rand(C, scale=0.1)
+            w[a + "ln_x.bias"] = rand(C, scale=0.1)
 
         f = b + "ffn."
         w[f + "key.weight"] = rand(C, F)
         w[f + "value.weight"] = rand(F, C)
-        if v7:
+        if ver == ModelVersion.V7:
             w[f + "x_k"] = rand(C, scale=0.3)
-        else:
+        elif ver == ModelVersion.V6:
             w[f + "time_mix_k"] = rand(C, scale=0.3)
             w[f + "time_mix_r"] = rand(C, scale=0.3)
+            w[f + "receptance.weight"] = rand(C, C)
+        else:
+            w[f + "time_mix_k"] = 0.5 + rand(C, scale=0.2)
+            w[f + "time_mix_r"] = 0.5 + rand(C, scale=0.2)
             w[f + "receptance.weight"] = rand(C, C)
     return w
 

@@ -28,7 +28,11 @@ kernel's source is built first, one ``nvcc`` each, all started together):
    step: ``v6_wkv_gn`` (``csrc/v6_decode.cu``), the two ``v7_ln_mix``
    launches of a v6 layer (the first also writes ``xa`` and ``dx``), and
    the eight ``v7_skinny_matmul`` launches of a v6 layer with its
-   epilogues.
+   epilogues.  Then RWKV-5 and RWKV-4 at the 0.4B width (C=1024, F=3584 /
+   4096): ``v6_wkv_gn`` in its static-decay mode, ``wkv56_t1`` and
+   ``wkv56_chunk`` on v5's static (H, N) decay, ``v4_wkv`` and
+   ``wkv4_chunk`` (``csrc/wkv4.cu``, on bf16 k and v), and each stack's two
+   ``v7_ln_mix`` and four ``v7_skinny_matmul`` launches of a layer.
 3. Model parity: the full-width RWKV-7 0.4B shape at 2 layers in f32 on
    the card (kernels) against the same weights on the CPU (plain
    versions), after a ragged prefill and T=1 steps — on the
@@ -47,8 +51,10 @@ kernel's source is built first, one ``nvcc`` each, all started together):
    through ``matmul_int8_l`` and ``wkv56_t1``; the plain layer path once
    more with the prefill's WKV through ``wkv56_chunk_plain``), and the bf16
    fused kernels against ``forward_t1_plain`` on the card, with two
-   known-wrong plain stacks that the same check must reject.  The v6
-   matrices are scaled by their fan-in (``fan_in_scaled``).
+   known-wrong plain stacks that the same check must reject.  The same
+   cases for RWKV-5 and RWKV-4 at the 0.4B width (v5's mixed model runs
+   ``wkv56_t1``, v4's ``wkv4_chunk`` at T=1).  The v6, v5 and v4 matrices
+   are scaled by their fan-in (``fan_in_scaled``).
 4. Serving: the 0.4B shape at all 24 layers in bf16 from a seed, with a
    synthetic 65,536-entry vocabulary, behind the port's HTTP server on
    localhost: concurrent greedy completions and a streamed chat.  The
@@ -65,7 +71,11 @@ kernel's source is built first, one ``nvcc`` each, all started together):
    with the launch counts zeroed before and read after.  Last, a random
    24-layer RWKV-6 checkpoint of the 1B6 shape (f16 on disk) served in bf16
    with the same burst: prefill through ``wkv56_chunk``, every decode step
-   one replay of the fused v6 stack's graph.
+   one replay of the fused v6 stack's graph; its stack is also timed with
+   every layer quantized int8 and nf4 on the card.  Then random 24-layer
+   RWKV-5 and RWKV-4 checkpoints of the 0.4B shape, served the same way
+   (prefill through ``wkv56_chunk`` / ``wkv4_chunk``, decode one replay of
+   the fused v5 / v4 stack).  Each phase prints its seconds.
 
 The last two lines of standard output are the card's
 ``name, power.limit`` and ``{"ok": true, "device": {...}}``.
@@ -97,6 +107,11 @@ SEED = 20261016
 # token-shift LoRA rank 32 (time_mix_w1 is (C, 160)), decay LoRA rank 64.
 L6, C6, F6 = 24, 2048, 7168
 LORA6 = {"tm": 32, "td": 64}
+# RWKV-5 World 0.4B (RWKV-5-World-0.4B-v2; RWKV-LM x052: dim_ffn =
+# int(3.5 C) // 32 * 32) and RWKV-4 World 0.4B (RWKV-4-World-0.4B-v1: dim_ffn
+# = 4 C): L=24, C=1024, vocab 65536; v5 head 64 (H=16), v4 one WKV per
+# channel.  The v7 smoke model's width, so their rows compare with its rows.
+L54, F5, F4 = 24, 3584, 4096
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores
@@ -1074,6 +1089,124 @@ def phase_4bit_kernels(dev) -> dict:
     return rows
 
 
+def ln_mix_row(fd, rnd, close, active, C, cd, launches, name, replaces):
+    """The ``v7_ln_mix`` launches of one layer of a stack, ``launches`` =
+    [(n_mix, with_xa_dx)], each against its plain version (row 5 inactive);
+    the row's times, bytes and operations are the sums over the launches."""
+    import torch
+
+    B = active.shape[0]
+    x, shift0 = rnd(B, C, scale=2.0), rnd(B, C)
+    ln = torch.stack([1 + rnd(C, scale=0.1), rnd(C, scale=0.1)]).to(cd)
+    total = {k: 0.0 for k in ("ms", "plain_ms", "call_ms")}
+    tot_bytes = tot_flops = worst = 0.0
+    for n_mix, with_xa_dx in launches:
+        mix = rnd(n_mix, C, scale=0.3).to(cd)
+        kw = {"with_xa_dx": with_xa_dx}
+        shift = shift0.clone()
+        want, want_shift = fd.v7_ln_mix_plain(x, ln, shift, mix, active, **kw)
+        got = fd.v7_ln_mix(x, ln, shift, mix, active, **kw)
+        torch.cuda.synchronize()
+        what = f"{name} ({got.shape[0]} outputs)"
+        err = max(close(got, want, True, what),
+                  close(shift, want_shift, False, f"{what} shift"))
+        worst = max(worst, err)
+        check(torch.equal(shift[5], shift0[5]),
+              f"{what} changed an inactive row's shift state")
+        tot_bytes += nbytes(x, ln, mix, active) + 2 * nbytes(shift) \
+            + got.numel() * 2
+        tot_flops += 12 * B * C + 4 * got.numel()
+        t = {"ms": device_ms(
+                 lambda: fd.v7_ln_mix(x, ln, shift, mix, active, **kw), 100),
+             "plain_ms": device_ms(
+                 lambda: fd.v7_ln_mix_plain(x, ln, shift, mix, active, **kw),
+                 20),
+             "call_ms": call_ms(
+                 lambda: fd.v7_ln_mix(x, ln, shift, mix, active, **kw), 200)}
+        for k in total:
+            total[k] += t[k]
+        print(f"{what} B={B} C={C} bf16: {t['ms']:.5f} ms (plain "
+              f"{t['plain_ms']:.5f}); max_abs_err {err:.3e} (tolerance "
+              f"{BF16_TOL:.2e} x max(1, |plain|) on the bf16 outputs, "
+              f"{KERNEL_TOL} on the f32 shift); inactive row bit-identical",
+              flush=True)
+    b_ms, b_by = bound(tot_bytes, tot_flops)
+    return {"name": name, "route": "cuda",
+            "source": "ai00_server_tpu_torch/csrc/decode_common.cuh",
+            "replaces": replaces, "max_abs_err": worst, **total,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def skinny_row(fd, launch, groups, close, name, replaces, tag):
+    """The ``v7_skinny_matmul`` launches of one layer of a stack, each of
+    ``groups`` built by ``launch(group)`` (fresh weights and inputs a
+    call), against its plain version, timed on sets of weights rotating
+    through more than the L2 holds, beside ``torch.matmul`` of the same
+    products; the row's times, bytes and operations are the sums."""
+    import torch
+
+    ws = None
+    total = {k: 0.0 for k in ("ms", "plain_ms", "library_ms", "call_ms")}
+    tot_bytes = tot_flops = layer_bytes = worst = 0.0
+    n_products = 0
+    for gname in groups:
+        prods = launch(gname)
+        B, dev = prods[0].x.shape[0], prods[0].x.device
+        ws = ws or fd.Workspace(dev, 1 << 21, 1024)
+        n_products += len(prods)
+        gbytes = sum(nbytes(p.W) for p in prods)
+        layer_bytes += gbytes
+        n = int(2 * L2_BYTES // gbytes) + 1
+        sets = [prods] + [launch(gname) for _ in range(n - 1)]
+        want = fd.v7_skinny_matmul_plain(prods)
+        ys = [p.y.clone() if p.y is not None else None for p in prods]
+        got = fd.v7_skinny_matmul(prods, ws)
+        torch.cuda.synchronize()
+        for g, w, p in zip(got, want, prods):
+            worst = max(worst, close(g, w, p.out in ("cd", "mix")
+                                     or p.round_cd,
+                                     f"v7_skinny_matmul[{tag} {gname}]"))
+        for p, y in zip(prods, ys):
+            if y is not None:
+                p.y.copy_(y)
+        gb = sum(nbytes(p.x, p.W, p.bias, p.gate, p.xa, p.dx, p.mix)
+                 + B * p.W.shape[1] * {"cd": 2, "mix": 2, "f32": 4, "add": 8,
+                                       "gadd": 8}[p.out] for p in prods)
+        gf = sum(2 * B * p.W.shape[0] * p.W.shape[1] for p in prods)
+        tot_bytes += gb
+        tot_flops += gf
+        t = {
+            "ms": device_ms(rotating(
+                lambda i: fd.v7_skinny_matmul(sets[i], ws), n), 40),
+            "plain_ms": device_ms(rotating(
+                lambda i: fd.v7_skinny_matmul_plain(sets[i]), n), 8),
+            "library_ms": device_ms(rotating(
+                lambda i: [torch.matmul(p.x, p.W) for p in sets[i]], n), 40),
+            "call_ms": call_ms(rotating(
+                lambda i: fd.v7_skinny_matmul(sets[i], ws), n), 100),
+        }
+        gb_ms, _ = bound(gb, gf, BF16_FLOPS)
+        print(f"v7_skinny_matmul[{tag} {gname}] "
+              f"{[tuple(p.W.shape) for p in prods]} ({n} rotating sets): "
+              f"{t['ms']:.5f} ms (plain {t['plain_ms']:.5f}, torch.matmul "
+              f"{t['library_ms']:.5f}, bound {gb_ms:.5f} by bytes; "
+              f"{gb / t['ms'] / 1e6:.0f} GB/s)", flush=True)
+        for k in total:
+            total[k] += t[k]
+        del sets
+    b_ms, b_by = bound(tot_bytes, tot_flops, BF16_FLOPS)
+    print(f"v7_skinny_matmul B={B} bf16, the {len(groups)} launches of a "
+          f"{tag} layer ({n_products} products, {layer_bytes / 1e6:.1f} MB "
+          f"of weights): max_abs_err {worst:.3e} (tolerance "
+          f"{BF16_TOL:.2e} x max(1, |plain|) on bf16-rounded results, "
+          f"{KERNEL_TOL} on f32 ones); times are the sum of the launches",
+          flush=True)
+    return {"name": name, "route": "cuda",
+            "source": "ai00_server_tpu_torch/csrc/v7_decode.cu",
+            "replaces": replaces, "max_abs_err": worst, **total,
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
 def phase_v6_kernels(dev) -> dict:
     """The RWKV-6 kernels at the 1B6 serving shape (B=8, C=2048, H=32,
     N=64, F=7168, bf16 activations, row 5 inactive), each against its plain
@@ -1191,48 +1324,10 @@ def phase_v6_kernels(dev) -> dict:
 
     # ---- v7_ln_mix: the two launches of a v6 layer ----
     # LayerNorm 1 with xa, dx and xxx (with_xa_dx), LayerNorm 2 with the
-    # channel mix's two mixes; the row's times are the sum of the two.
-    x, shift0 = rnd(B, C, scale=2.0), rnd(B, C)
-    ln = torch.stack([1 + rnd(C, scale=0.1), rnd(C, scale=0.1)]).to(cd)
-    total = {k: 0.0 for k in ("ms", "plain_ms", "call_ms")}
-    tot_bytes = tot_flops = worst = 0.0
-    for n_mix, with_xa_dx in ((1, True), (2, False)):
-        mix = rnd(n_mix, C, scale=0.3).to(cd)
-        kw = {"with_xa_dx": with_xa_dx}
-        shift = shift0.clone()
-        want, want_shift = fd.v7_ln_mix_plain(x, ln, shift, mix, active, **kw)
-        got = fd.v7_ln_mix(x, ln, shift, mix, active, **kw)
-        torch.cuda.synchronize()
-        what = f"v7_ln_mix (v6, {got.shape[0]} outputs)"
-        err = max(close(got, want, True, what),
-                  close(shift, want_shift, False, f"{what} shift"))
-        worst = max(worst, err)
-        check(torch.equal(shift[5], shift0[5]),
-              f"{what} changed an inactive row's shift state")
-        tot_bytes += nbytes(x, ln, mix, active) + 2 * nbytes(shift) \
-            + got.numel() * 2
-        tot_flops += 12 * B * C + 4 * got.numel()
-        t = {"ms": device_ms(
-                 lambda: fd.v7_ln_mix(x, ln, shift, mix, active, **kw), 100),
-             "plain_ms": device_ms(
-                 lambda: fd.v7_ln_mix_plain(x, ln, shift, mix, active, **kw),
-                 20),
-             "call_ms": call_ms(
-                 lambda: fd.v7_ln_mix(x, ln, shift, mix, active, **kw), 200)}
-        for k in total:
-            total[k] += t[k]
-        print(f"{what} B={B} C={C} bf16: {t['ms']:.5f} ms (plain "
-              f"{t['plain_ms']:.5f}); max_abs_err {err:.3e} (tolerance "
-              f"{BF16_TOL:.2e} x max(1, |plain|) on the bf16 outputs, "
-              f"{KERNEL_TOL} on the f32 shift); inactive row bit-identical",
-              flush=True)
-    b_ms, b_by = bound(tot_bytes, tot_flops)
-    rows["v7_ln_mix (v6)"] = {
-        "name": "v7_ln_mix (v6)", "route": "cuda",
-        "source": "ai00_server_tpu_torch/csrc/decode_common.cuh",
-        "replaces": REPLACES, "max_abs_err": worst, **total,
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-    }
+    # channel mix's two mixes.
+    rows["v7_ln_mix (v6)"] = ln_mix_row(fd, rnd, close, active, C, cd,
+                                        ((1, True), (2, False)),
+                                        "v7_ln_mix (v6)", REPLACES)
 
     # ---- v7_skinny_matmul: the eight launches of a v6 layer ----
     def weight(K, Nout):
@@ -1269,67 +1364,10 @@ def phase_v6_kernels(dev) -> dict:
         return [P(xs[:, :F].contiguous(), weight(F, C), out="gadd",
                   y=rnd(B, C), gate=torch.sigmoid(rnd(B, C)))]
 
-    groups = ("maa_down", "maa_up", "decay_down", "rkvg", "decay_up", "wo",
-              "fkey_frec", "fval")
-    ws = fd.Workspace(dev, 1 << 21, 1024)
-    total = {k: 0.0 for k in ("ms", "plain_ms", "library_ms", "call_ms")}
-    tot_bytes = tot_flops = layer_bytes = 0.0
-    worst = 0.0
-    for gname in groups:
-        prods = launch(gname)
-        gbytes = sum(nbytes(p.W) for p in prods)
-        layer_bytes += gbytes
-        n = sets_over_l2(gbytes)
-        sets = [prods] + [launch(gname) for _ in range(n - 1)]
-        want = fd.v7_skinny_matmul_plain(prods)
-        ys = [p.y.clone() if p.y is not None else None for p in prods]
-        got = fd.v7_skinny_matmul(prods, ws)
-        torch.cuda.synchronize()
-        for g, w, p in zip(got, want, prods):
-            worst = max(worst, close(g, w, p.out in ("cd", "mix")
-                                     or p.round_cd,
-                                     f"v7_skinny_matmul[v6 {gname}]"))
-        for p, y in zip(prods, ys):
-            if y is not None:
-                p.y.copy_(y)
-        gb = sum(nbytes(p.x, p.W, p.bias, p.gate, p.xa, p.dx, p.mix)
-                 + B * p.W.shape[1] * {"cd": 2, "mix": 2, "f32": 4, "add": 8,
-                                       "gadd": 8}[p.out] for p in prods)
-        gf = sum(2 * B * p.W.shape[0] * p.W.shape[1] for p in prods)
-        tot_bytes += gb
-        tot_flops += gf
-        t = {
-            "ms": device_ms(rotating(
-                lambda i: fd.v7_skinny_matmul(sets[i], ws), n), 40),
-            "plain_ms": device_ms(rotating(
-                lambda i: fd.v7_skinny_matmul_plain(sets[i]), n), 8),
-            "library_ms": device_ms(rotating(
-                lambda i: [torch.matmul(p.x, p.W) for p in sets[i]], n), 40),
-            "call_ms": call_ms(rotating(
-                lambda i: fd.v7_skinny_matmul(sets[i], ws), n), 100),
-        }
-        gb_ms, _ = bound(gb, gf, BF16_FLOPS)
-        print(f"v7_skinny_matmul[v6 {gname}] "
-              f"{[tuple(p.W.shape) for p in prods]} ({n} rotating sets): "
-              f"{t['ms']:.5f} ms (plain {t['plain_ms']:.5f}, torch.matmul "
-              f"{t['library_ms']:.5f}, bound {gb_ms:.5f} by bytes; "
-              f"{gb / t['ms'] / 1e6:.0f} GB/s)", flush=True)
-        for k in total:
-            total[k] += t[k]
-        del sets
-    b_ms, b_by = bound(tot_bytes, tot_flops, BF16_FLOPS)
-    rows["v7_skinny_matmul (v6)"] = {
-        "name": "v7_skinny_matmul (v6)", "route": "cuda",
-        "source": "ai00_server_tpu_torch/csrc/v7_decode.cu",
-        "replaces": REPLACES, "max_abs_err": worst, **total,
-        "bound_ms": b_ms, "bound_by": b_by,
-    }
-    print(f"v7_skinny_matmul B={B} bf16, the eight launches of a v6 layer "
-          f"(sixteen products, {layer_bytes / 1e6:.1f} MB of weights): "
-          f"max_abs_err {worst:.3e} (tolerance {BF16_TOL:.2e} x max(1, "
-          f"|plain|) on bf16-rounded results, {KERNEL_TOL} on f32 ones); "
-          "times are the sum of the launches (maa_down and decay_down are "
-          "one launch each, maa_up one of five products)", flush=True)
+    rows["v7_skinny_matmul (v6)"] = skinny_row(
+        fd, launch, ("maa_down", "maa_up", "decay_down", "rkvg", "decay_up",
+                     "wo", "fkey_frec", "fval"), close,
+        "v7_skinny_matmul (v6)", REPLACES, "v6")
 
     # ---- v6_wkv_gn ----
     r, k, v = (rnd(B, C, scale=0.5) for _ in range(3))
@@ -1370,6 +1408,254 @@ def phase_v6_kernels(dev) -> dict:
     return rows
 
 
+def phase_v54_kernels(dev) -> dict:
+    """The RWKV-5 and RWKV-4 kernels at the 0.4B serving shape (B=8,
+    C=1024, v5 H=16 N=64, bf16 activations, row 5 inactive), each against
+    its plain version: ``v6_wkv_gn`` in its static-decay mode (v5),
+    ``v4_wkv`` and ``wkv4_chunk`` (T=256, and ragged; a fresh PP_INIT row
+    in each), then each stack's two ``v7_ln_mix`` launches of a layer and
+    its four ``v7_skinny_matmul`` launches, timed on weights, states and
+    chunk inputs that rotate through more than the L2 holds (v4's per-layer
+    state is 96 KB, so ``v4_wkv`` rotates through about a thousand, one a
+    call, as a replay finds them after its weights have streamed through
+    the L2)."""
+    import torch
+
+    from ai00_server_tpu_torch.models.v4 import PP_INIT
+    from ai00_server_tpu_torch.ops import v4_decode as fd4
+    from ai00_server_tpu_torch.ops import v6_decode as fd6
+    from ai00_server_tpu_torch.ops import v7_decode as fd
+    from ai00_server_tpu_torch.ops.wkv4 import wkv4_chunk, wkv4_chunk_plain
+    from ai00_server_tpu_torch.ops.wkv_chunk import (wkv56_chunk,
+                                                     wkv56_chunk_plain)
+    from ai00_server_tpu_torch.ops.wkv_t1 import wkv56_t1, wkv56_t1_plain
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 6)
+    B, H, N, cd = MAX_BATCH, C // HEAD, HEAD, torch.bfloat16
+    REPLACES = {"v5": "ai00_server_tpu/ops/v5_decode_pallas.py:213",
+                "v4": "ai00_server_tpu/ops/v4_decode_pallas.py:190"}
+    SRC4 = "ai00_server_tpu_torch/csrc/wkv4.cu"
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    def close(got, want, rounded, what):
+        got, want = off_pp_init(got, want, what)
+        err = float((got.float() - want.float()).abs().max())
+        tol = BF16_TOL if rounded else KERNEL_TOL
+        check(err <= tol * max(1.0, float(want.float().abs().max())),
+              f"{what} disagrees with its plain version: {err:.3e}")
+        return err
+
+    def sets_over_l2(bytes_each: int) -> int:
+        return int(2 * L2_BYTES // bytes_each) + 1
+
+    def timed(kernel, plain, n, iters=100, plain_iters=20):
+        return {"ms": device_ms(rotating(kernel, n), iters),
+                "plain_ms": device_ms(rotating(plain, n), plain_iters),
+                "call_ms": call_ms(rotating(kernel, n), 200)}
+
+    active = torch.ones(B, dtype=torch.bool, device=dev)
+    active[5] = False
+    n_act = int(active.sum())
+    rows = {}
+
+    # ---- v6_wkv_gn in its static-decay mode (v5) ----
+    elems = H * N * N
+    n_states = max(3, sets_over_l2(B * elems * 4))
+    states = [rnd(B, H, N, N) for _ in range(n_states)]
+    r, k, v = (rnd(B, C, scale=0.5) for _ in range(3))
+    g = torch.nn.functional.silu(rnd(B, C))
+    vecs5 = rnd(4, C, scale=0.5)
+    vecs5[0] = torch.exp(-torch.exp(vecs5[0]))
+    S = states[0].clone()
+    want, S_want = fd6.v6_wkv_gn_plain(r, k, v, None, g, vecs5, active, S,
+                                       cd)
+    got = fd6.v6_wkv_gn(r, k, v, None, g, vecs5, active, S, cd)
+    torch.cuda.synchronize()
+    err = max(close(got, want, True, "v6_wkv_gn (v5)"),
+              close(S, S_want, False, "v6_wkv_gn (v5) state"))
+    check(torch.equal(S[5], states[0][5]),
+          "v6_wkv_gn (v5) changed an inactive row's state")
+    b_ms, b_by = bound((B + n_act) * elems * 4 + nbytes(r, k, v, g, active)
+                       + 4 * C * 4 + B * C * 2,
+                       elems * (7 * n_act + 5 * (B - n_act)) + 12 * B * C)
+    rows["v6_wkv_gn (v5)"] = {
+        "name": "v6_wkv_gn (v5, static decay)", "route": "cuda",
+        "source": "ai00_server_tpu_torch/csrc/v6_decode.cu",
+        "replaces": REPLACES["v5"], "max_abs_err": err,
+        **timed(lambda i: fd6.v6_wkv_gn(r, k, v, None, g, vecs5, active,
+                                        states[i], cd),
+                lambda i: fd6.v6_wkv_gn_plain(r, k, v, None, g, vecs5,
+                                              active, states[i], cd),
+                n_states),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+    }
+    print(f"v6_wkv_gn (v5, static decay) B={B} H={H} N={N} bf16 "
+          f"({n_states} rotating states): max_abs_err {err:.3e} (tolerance "
+          f"{BF16_TOL:.2e} x max(1, |plain|) on the bf16 output, "
+          f"{KERNEL_TOL} on the f32 state); inactive row bit-identical",
+          flush=True)
+
+    # ---- wkv56_t1 / wkv56_chunk on v5's static (H, N) decay ----
+    # The v5 layer path's WKV (prefill, and T=1 for a partly quantized
+    # model); the kernels' rows are timed on the v6 shape above.
+    w5, u5 = vecs5[0].reshape(H, N), vecs5[1].reshape(H, N)
+    err56 = 0.0
+    for T in (1, CHUNK):
+        r_, k_, v_ = (rnd(B, T, H, N, scale=0.3) for _ in range(3))
+        mask = active[:, None].expand(B, T).contiguous()
+        if T == 1:
+            args = (states[0], r_[:, 0], k_[:, 0], v_[:, 0], w5, u5,
+                    mask[:, 0])
+            got, want = wkv56_t1(*args), wkv56_t1_plain(*args)
+        else:
+            args = (states[0], r_, k_, v_, w5, u5, mask)
+            got, want = wkv56_chunk(*args), wkv56_chunk_plain(*args)
+        torch.cuda.synchronize()
+        err56 = max(err56, *(close(a, b_, False, f"wkv56 static decay T={T}")
+                             for a, b_ in zip(got, want)))
+        check(torch.equal(got[0][5], states[0][5]),
+              f"wkv56 static decay T={T} changed an inactive row's state")
+    print(f"wkv56_t1 (T=1) and wkv56_chunk (T={CHUNK}) on v5's static "
+          f"(H, N) decay, B={B} H={H} N={N}: max_abs_err {err56:.3e} "
+          f"(tolerance {KERNEL_TOL} x max(1, |plain|)); inactive row "
+          "bit-identical", flush=True)
+
+    # ---- v4_wkv ----
+    def v4_state(fresh_row):
+        aa, pp = rnd(B, C), rnd(B, C)
+        bb = torch.rand(B, C, generator=gen, device=dev) + 0.5
+        aa[fresh_row], bb[fresh_row], pp[fresh_row] = 0.0, 0.0, PP_INIT
+        return aa, bb, pp
+
+    r4 = torch.sigmoid(rnd(B, C))
+    k4, v4 = rnd(B, C), rnd(B, C)
+    vecs4 = torch.stack([-torch.exp(rnd(C, scale=0.5)), rnd(C, scale=0.5)])
+    n_states4 = sets_over_l2(3 * B * C * 4)
+    states4 = [v4_state(2) for _ in range(n_states4)]
+    state = [t.clone() for t in states4[0]]
+    want, *want_state = fd4.v4_wkv_plain(r4, k4, v4, vecs4, active, *state,
+                                         cd)
+    got = fd4.v4_wkv(r4, k4, v4, vecs4, active, *state, cd)
+    torch.cuda.synchronize()
+    err = close(got, want, True, "v4_wkv")
+    for name, g_, w_, s_ in zip(("aa", "bb", "pp"), state, want_state,
+                                states4[0]):
+        err = max(err, close(g_, w_, False, f"v4_wkv {name}"))
+        check(torch.equal(g_[5], s_[5]),
+              f"v4_wkv changed an inactive row's {name}")
+    b_ms, b_by = bound(nbytes(r4, k4, v4, vecs4, active) + 3 * B * C * 4
+                       + 3 * n_act * C * 4 + B * C * 2, 25 * B * C)
+    rows["v4_wkv"] = {
+        "name": "v4_wkv", "route": "cuda", "source": SRC4,
+        "replaces": REPLACES["v4"], "max_abs_err": err,
+        **timed(lambda i: fd4.v4_wkv(r4, k4, v4, vecs4, active,
+                                     *states4[i], cd),
+                lambda i: fd4.v4_wkv_plain(r4, k4, v4, vecs4, active,
+                                           *states4[i], cd), n_states4,
+                iters=n_states4),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+    }
+    print(f"v4_wkv B={B} C={C} bf16 ({n_states4} rotating states, row 2 "
+          "fresh at "
+          f"PP_INIT): max_abs_err {err:.3e} (tolerance {BF16_TOL:.2e} x "
+          f"max(1, |plain|) on the bf16 output, {KERNEL_TOL} on the f32 "
+          "state); inactive row bit-identical", flush=True)
+
+    # ---- wkv4_chunk at the prefill shape, and ragged ----
+    # k and v in bf16, as the path's projections give them.
+    w4, u4 = vecs4[0].contiguous(), vecs4[1].contiguous()
+    worst = 0.0
+    for T, lengths in ((CHUNK, [CHUNK] * B),
+                       (23, [23, 17, 1, 0, 23, 5, 12, 23])):
+        lens = torch.tensor(lengths, device=dev)
+        mask = torch.arange(T, device=dev)[None, :] < lens[:, None]
+        one = 2 * 3 * B * C * 4 + 2 * B * T * C * 2 + B * T * C * 4
+        n_sets = sets_over_l2(one) if T == CHUNK else 1
+        sets = [(v4_state(3 if T == CHUNK else 2), rnd(B, T, C).to(cd),
+                 rnd(B, T, C).to(cd)) for _ in range(n_sets)]
+        st, k_, v_ = sets[0]
+        got, y_k = wkv4_chunk(*st, k_, v_, w4, u4, mask)
+        want, y_p = wkv4_chunk_plain(*st, k_, v_, w4, u4, mask)
+        torch.cuda.synchronize()
+        worst = max(worst, close(y_k, y_p, False, f"wkv4_chunk T={T} y"),
+                    *(close(a, b_, False, f"wkv4_chunk T={T} state")
+                      for a, b_ in zip(got, want)))
+        if lengths[3] == 0:
+            check(all(torch.equal(a[3], b_[3]) for a, b_ in zip(got, st)),
+                  "wkv4_chunk changed an idle row")
+        if T == CHUNK:
+            n_valid = int(mask.sum())
+            # State in and out, bf16 k and v, f32 y, w, u, mask.
+            b_ms, b_by = bound(one + 2 * C * 4 + B * T,
+                               C * (25 * n_valid + 13 * (B * T - n_valid)))
+
+            def call(i, fn=wkv4_chunk):
+                st_, k_i, v_i = sets[i]
+                return fn(*st_, k_i, v_i, w4, u4, mask)
+
+            rows["wkv4_chunk"] = {
+                "name": "wkv4_chunk", "route": "cuda", "source": SRC4,
+                "replaces": "ai00_server_tpu/models/v4.py:49 (_wkv_scan, "
+                            "a lax.scan: no Pallas kernel)",
+                "ms": device_ms(rotating(call, n_sets), 4 * n_sets),
+                "plain_ms": device_ms(
+                    lambda: call(0, wkv4_chunk_plain), 1, replays=3),
+                "call_ms": call_ms(rotating(call, n_sets), 50),
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            }
+    rows["wkv4_chunk"]["max_abs_err"] = worst
+    print(f"wkv4_chunk B={B} C={C} bf16 k and v, T={CHUNK} (rotating "
+          "inputs) and ragged T=23 (a fresh PP_INIT row in each): "
+          f"max_abs_err {worst:.3e} (tolerance "
+          f"{KERNEL_TOL} x max(1, |plain|), y at every step); idle row "
+          "bit-identical", flush=True)
+
+    # ---- each stack's v7_ln_mix and v7_skinny_matmul launches ----
+    def weight(K, Nout):
+        return (rnd(K, Nout) / K ** 0.5).to(cd)
+
+    def launch(F, gname):
+        """One set of a launch's products, fresh weights and inputs."""
+        xs = rnd(B, max(C, F), scale=0.5).to(cd)
+        P = fd.Product
+
+        def x_(K):
+            return xs[:, :K].contiguous()
+
+        if gname == "rkvg":  # v5: r, k, v rounded, g SiLU
+            return [P(x_(C), weight(C, C), round_cd=True, out="f32")
+                    for _ in range(3)] + [
+                P(x_(C), weight(C, C), act="silu", out="f32")]
+        if gname == "rkv":  # v4: sigmoid(r), k, v rounded
+            return [P(x_(C), weight(C, C), act="sigmoid", out="f32")] + [
+                P(x_(C), weight(C, C), round_cd=True, out="f32")
+                for _ in range(2)]
+        if gname == "wo":
+            return [P(x_(C), weight(C, C), out="add", y=rnd(B, C))]
+        if gname == "fkey_frec":
+            return [P(x_(C), weight(C, F), act="relu2"),
+                    P(x_(C), weight(C, C), act="sigmoid", out="f32")]
+        return [P(x_(F), weight(F, C), out="gadd", y=rnd(B, C),
+                  gate=torch.sigmoid(rnd(B, C)))]
+
+    for version, F, n_mix, first in (("v5", F5, 4, "rkvg"),
+                                     ("v4", F4, 3, "rkv")):
+        # LayerNorm 1 with the time mix's mixes, LayerNorm 2 with the
+        # channel mix's two.
+        rows[f"v7_ln_mix ({version})"] = ln_mix_row(
+            fd, rnd, close, active, C, cd, ((n_mix, False), (2, False)),
+            f"v7_ln_mix ({version})", REPLACES[version])
+        rows[f"v7_skinny_matmul ({version})"] = skinny_row(
+            fd, functools.partial(launch, F),
+            (first, "wo", "fkey_frec", "fval"), close,
+            f"v7_skinny_matmul ({version})", REPLACES[version], version)
+    print_rows(rows)
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: model parity, card (kernels) vs CPU (plain versions)
 # ---------------------------------------------------------------------------
@@ -1378,10 +1664,12 @@ def phase_v6_kernels(dev) -> dict:
 def model_info(num_layer: int, version: str = "v7"):
     from ai00_server_tpu_torch.models.info import ModelInfo, ModelVersion
 
-    width, ffn = (C, FFN) if version == "v7" else (C6, F6)
+    width, ffn = {"v7": (C, FFN), "v6": (C6, F6), "v5": (C, F5),
+                  "v4": (C, F4)}[version]
+    head = 1 if version == "v4" else HEAD
     return ModelInfo(version=ModelVersion(version.upper()),
                      num_layer=num_layer, num_emb=width, num_hidden=ffn,
-                     num_vocab=VOCAB, num_head=width // HEAD, head_size=HEAD)
+                     num_vocab=VOCAB, num_head=width // head, head_size=head)
 
 
 def lora_dims(version: str) -> dict:
@@ -1389,16 +1677,18 @@ def lora_dims(version: str) -> dict:
 
 
 def fan_in_scaled(raw: dict) -> dict:
-    """RWKV-6 weights with every matrix but the embedding (and the per-head
-    bonus ``time_first``) divided IN PLACE by the square root of its fan-in,
-    the second-last axis in the math layout.  Drawn at std 0.4 and left so,
-    a product at C = 2048 spreads ~0.4 sqrt(C) = 18 wide: the decay
-    exp(-exp(.)) and the sigmoids saturate, single bf16 ulps move the decay
-    far, and no bf16 stack can be held to its plain version."""
+    """RWKV-6 / -5 / -4 weights with every matrix but the embedding (and
+    the per-head bonus ``time_first`` and v5's per-head ``time_decay``)
+    divided IN PLACE by the square root of its fan-in, the second-last axis
+    in the math layout.  Drawn at std 0.4 and left so, a product at C = 2048
+    spreads ~0.4 sqrt(C) = 18 wide: the decay exp(-exp(.)) and the sigmoids
+    saturate, single bf16 ulps move the decay far, and no bf16 stack can be
+    held to its plain version."""
     import numpy as np
 
     for k, v in raw.items():
-        if v.ndim >= 2 and k != "emb.weight" and not k.endswith("time_first"):
+        if v.ndim >= 2 and k != "emb.weight" \
+                and not k.endswith(("time_first", "time_decay")):
             v /= np.sqrt(v.shape[-2]).astype(v.dtype)
     return raw
 
@@ -1432,6 +1722,17 @@ def wrong_v6_stacks() -> dict:
             "r and k swapped": (ln_mix, r_k_swapped, wkv_gn)}
 
 
+def off_pp_init(got, want, what: str):
+    """``(got, want)`` without the entries where ``want`` holds v4's
+    ``PP_INIT`` (-1e30: a row that has not yet taken a token), which must
+    be equal in ``got``: a relative error scaled by them would say
+    nothing."""
+    init = want.abs() >= 1e29
+    check(bool((got[init] == want[init]).all()),
+          f"{what}: PP_INIT entries changed")
+    return got[~init], want[~init]
+
+
 def lockstep(kernels, plains, worst: dict) -> tuple:
     """The ops (ln_mix, matmul, wkv_gn) of a fused stack that run the plain
     versions and, on copies of the same inputs, ``kernels``: every launch's
@@ -1446,6 +1747,7 @@ def lockstep(kernels, plains, worst: dict) -> tuple:
 
     def ratio(got, want, rounded):
         tol = BF16_TOL if rounded else KERNEL_TOL
+        got, want = off_pp_init(got, want, "lockstep")
         err = float((got.float() - want.float()).abs().max())
         return err / (tol * max(1.0, float(want.float().abs().max())))
 
@@ -1492,7 +1794,8 @@ PARITY_CASES = {
     "sf4": ({0: "sf4", 1: "sf4"}, ("fused",)),
 }
 # The RWKV-6 cases: the 1B6 width; the mixed one runs wkv56_t1 on its layer
-# path.
+# path.  RWKV-5 and RWKV-4 (the 0.4B width) take the same cases: v5's mixed
+# model runs wkv56_t1, v4's wkv4_chunk at T=1.
 PARITY_CASES_V6 = {
     "plain": (None, ("layer", "fused", "graph")),
     "int8": ({0: "int8", 1: "int8"}, ("fused", "graph")),
@@ -1519,7 +1822,7 @@ def unstack_codes(node):
 def phase_parity(dev, version: str = "v7") -> dict:
     """Returns the fused path's worst absolute bf16 error on the hidden per
     kind of weights, and the launches of ``matmul_4bit`` (v7: the unstacked
-    nf4 case) or of ``wkv56_t1`` (v6: the mixed case) on their model
+    nf4 case) or of ``wkv56_t1`` (v6 and v5: the mixed case) on their model
     path."""
     import numpy as np
     import torch
@@ -1529,6 +1832,7 @@ def phase_parity(dev, version: str = "v7") -> dict:
     from ai00_server_tpu_torch.models import get_version_module
     from ai00_server_tpu_torch.models.common import take_last_valid
     from ai00_server_tpu_torch.ops import fused_decode, quant
+    from ai00_server_tpu_torch.ops import v4_decode as fd4
     from ai00_server_tpu_torch.ops import v6_decode as fd6
     from ai00_server_tpu_torch.ops import v7_decode as fd7
     from ai00_server_tpu_torch.ops.ffn import ffn7_t1_l
@@ -1536,6 +1840,7 @@ def phase_parity(dev, version: str = "v7") -> dict:
                                                         matmul_4bit_l,
                                                         matmul_int8,
                                                         matmul_int8_l)
+    from ai00_server_tpu_torch.ops.wkv4 import wkv4_chunk
     from ai00_server_tpu_torch.ops.wkv_chunk import wkv56_chunk_plain
     from ai00_server_tpu_torch.ops.wkv_t1 import wkv7_t1, wkv56_t1
     from ai00_server_tpu_torch.testing import make_raw_weights
@@ -1545,10 +1850,12 @@ def phase_parity(dev, version: str = "v7") -> dict:
     info = model_info(2, version)
     module = get_version_module(info.version)
     fd = fused_decode.module_for(info.version.value)
-    C_, t1 = info.num_emb, wkv7_t1 if version == "v7" else wkv56_t1
+    # The WKV kernel of the layer path at T=1: v4's serves every T.
+    C_, t1 = info.num_emb, {"v7": wkv7_t1, "v4": wkv4_chunk}.get(version,
+                                                                 wkv56_t1)
     math = make_raw_weights(info, seed=SEED, dtype=np.float32,
                             lora_dims=lora_dims(version))
-    if version == "v6":
+    if version != "v7":
         math = fan_in_scaled(math)
     rng = np.random.default_rng(SEED)
     B, T = 4, 40
@@ -1557,11 +1864,14 @@ def phase_parity(dev, version: str = "v7") -> dict:
         (rng.integers(1, VOCAB, (B, 1)), np.array([1, 1, 0, 1], np.int32))
         for _ in range(3)]
     counted = {"wkv7_t1": wkv7_t1, "wkv56_t1": wkv56_t1,
-               "matmul_int8": matmul_int8,
+               "wkv4_chunk": wkv4_chunk, "matmul_int8": matmul_int8,
                "matmul_int8_l": matmul_int8_l, "ffn7_t1_l": ffn7_t1_l,
                "matmul_4bit": matmul_4bit, "matmul_4bit_l": matmul_4bit_l,
-               **{k.__name__: k for k in fd7.KERNELS + fd6.KERNELS}}
-    fused_names = {k.__name__ for k in fd.KERNELS}
+               **{k.__name__: k for k in fd7.KERNELS + fd6.KERNELS
+                  + fd4.KERNELS}}
+    # (v4's prefill chunk launches wkv4_chunk on every path)
+    fused_names = {k.__name__ for k in fd.KERNELS} | (
+        {"wkv4_chunk"} if version == "v4" else set())
 
     def expect(label, quant_map, path) -> set:
         """Which kernels a (weights, path) must launch; the others must
@@ -1613,6 +1923,7 @@ def phase_parity(dev, version: str = "v7") -> dict:
             pairs += [(k, st[k], st_r[k]) for k in st_r]
             for name, a, b in pairs:
                 check(bool(torch.isfinite(a).all()), "non-finite output")
+                a, b = off_pp_init(a, b, name)
                 err = float((a.double() - b.double()).abs().max())
                 per[name] = max(per.get(name, 0.0),
                                 err / max(float(b.abs().max()), 1e-6))
@@ -1623,7 +1934,8 @@ def phase_parity(dev, version: str = "v7") -> dict:
 
     result = {}
     cases = PARITY_CASES if version == "v7" else PARITY_CASES_V6
-    shape = "0.4B" if version == "v7" else "v6 1B6"
+    shape = {"v7": "0.4B", "v6": "v6 1B6", "v5": "v5 0.4B",
+             "v4": "v4 0.4B"}[version]
     for label, (quant_map, hows) in cases.items():
         params = {d: stack_params(info, math, dtype=torch.float32, device=d,
                                   quant=quant_map) for d in (dev, "cpu")}
@@ -1657,7 +1969,7 @@ def phase_parity(dev, version: str = "v7") -> dict:
                   f"the {label} {how} path launched {delta}")
             if label.startswith("unstacked"):
                 result["matmul_4bit_launches"] = delta["matmul_4bit"]
-            if version == "v6" and label == "mixed":
+            if version in ("v6", "v5") and label == "mixed":
                 result["wkv56_t1_launches"] = delta["wkv56_t1"]
             ref_how = ref["layer" if how == "layer" else "fused"]
             per = errors(got, ref_how)
@@ -1720,7 +2032,9 @@ def phase_parity(dev, version: str = "v7") -> dict:
             max |ref|."""
             return [max(float((a.double() - b.double()).abs().max())
                         / max(float(b.abs().max()), 1e-6)
-                        for a, b in zip(o, r)) for o, r in zip(outs, ref)]
+                        for a, b in (off_pp_init(*ab, "bf16 decode")
+                                     for ab in zip(o, r)))
+                    for o, r in zip(outs, ref)]
 
         got, plain = decode(fd.forward_t1), decode(fd.forward_t1_plain)
         for o in got:
@@ -1809,9 +2123,11 @@ def synthetic_vocab() -> dict[str, str]:
 SERVED = {"bf16": (0, "Int8"), "int8": (L_FULL, "Int8"),
           "mixed": (L_FULL // 2, "Int8"), "nf4": (L_FULL, "NF4"),
           "mixed nf4": (L_FULL // 2, "NF4")}
-# RWKV-6: the 1B6 shape at full depth, bf16, with the burst.
-SERVED_V6 = {"v6 bf16": (0, "Int8")}
-ALL_SERVED = {**SERVED, **SERVED_V6}
+# RWKV-6 (the 1B6 shape), RWKV-5 and RWKV-4 (the 0.4B shapes): full depth,
+# bf16, with the burst.
+SERVED_FAMILIES = {"v6 bf16": (0, "Int8"), "v5 bf16": (0, "Int8"),
+                   "v4 bf16": (0, "Int8")}
+ALL_SERVED = {**SERVED, **SERVED_FAMILIES}
 MIXED_TOKENS = 16  # per completion on the (eager, host-bound) layer path
 
 
@@ -1856,11 +2172,11 @@ port = 0
     return cfgs
 
 
-def write_site_v6(tmp: Path) -> dict:
-    """The random 24-layer RWKV-6 1B6-shape checkpoint (f16 on disk, as
-    ``write_site`` writes v7's; the matrices scaled by their fan-in, as in
-    the parity phase) and its config, beside the vocabulary ``write_site``
-    left in ``tmp``."""
+def write_site_family(tmp: Path, version: str) -> dict:
+    """The random 24-layer checkpoint of the RWKV-6 1B6 shape or the
+    RWKV-5 / RWKV-4 0.4B shape (f16 on disk, as ``write_site`` writes v7's;
+    the matrices scaled by their fan-in, as in the parity phase) and its
+    config, beside the vocabulary ``write_site`` left in ``tmp``."""
     import numpy as np
 
     from ai00_server_tpu_torch.loader import save_safetensors
@@ -1868,17 +2184,20 @@ def write_site_v6(tmp: Path) -> dict:
                                                to_converted_layout)
 
     t0 = time.monotonic()
-    raw = fan_in_scaled(make_raw_weights(model_info(L6, "v6"), seed=SEED,
-                                         dtype=np.float32, lora_dims=LORA6))
+    layers = L6 if version == "v6" else L54
+    shape = "1b6" if version == "v6" else "0.4b"
+    raw = fan_in_scaled(make_raw_weights(
+        model_info(layers, version), seed=SEED, dtype=np.float32,
+        lora_dims=lora_dims(version)))
     conv = to_converted_layout(raw)
     del raw
-    path = tmp / "rwkv6-1b6.st"
+    path = tmp / f"rwkv{version[1]}-{shape}.st"
     save_safetensors(conv, str(path))
     del conv
-    cfgs = {}
-    for kind, (quant, quant_type) in SERVED_V6.items():
-        cfgs[kind] = tmp / f"Config-{kind.replace(' ', '-')}.toml"
-        cfgs[kind].write_text(f"""
+    kind = f"{version} bf16"
+    quant, quant_type = SERVED_FAMILIES[kind]
+    cfg = tmp / f"Config-{kind.replace(' ', '-')}.toml"
+    cfg.write_text(f"""
 [model]
 name = "{path.name}"
 path = "{tmp}"
@@ -1895,10 +2214,10 @@ path = "{tmp / 'vocab.json'}"
 ip = "127.0.0.1"
 port = 0
 """)
-    print(f"wrote the random {L6}-layer v6 1B6-shape checkpoint "
-          f"({path.stat().st_size / 1e9:.2f} GB) in "
+    print(f"wrote the random {layers}-layer {version} {shape}-shape "
+          f"checkpoint ({path.stat().st_size / 1e9:.2f} GB) in "
           f"{time.monotonic() - t0:.1f} s", flush=True)
-    return cfgs
+    return {kind: cfg}, path
 
 
 PROMPT = ("the quick brown fox jumps over the lazy dog while a model "
@@ -1940,53 +2259,45 @@ async def profiled(coro) -> str:
             + "; ".join(f"{n[:60]} {t / 1e3:.2f} ms" for n, t in top))
 
 
-def time_stack(engine) -> dict:
-    """One decode step of the loaded 24-layer model, every row active:
-    the engine's CUDA graph replayed (device time between CUDA events), the
-    same stack launched eagerly from Python and composed of the plain
-    versions (host clock around a synchronise), and the least time the
-    card could take for the bytes the stack must move.  Runs after the
-    requests, on the idle engine, and leaves its rows' states advanced."""
+def time_replay(fd, params, state, graph, B: int) -> dict:
+    """One decode step of a loaded stack, every row active: its CUDA graph
+    replayed (device time between CUDA events), the same stack launched
+    eagerly from Python and composed of the plain versions (host clock
+    around a synchronise), and the least time the card could take for the
+    bytes the stack must move.  Leaves ``state`` advanced."""
     import torch
 
-    from ai00_server_tpu_torch.ops import fused_decode
-
-    fd = fused_decode.module_for(engine.info.version.value)
-    params, B = engine.model.params, engine.max_batch
-    dev = engine.device
+    dev = state[next(iter(state))].device
     layout = params[fd.FUSED_KEY]
     toks = torch.arange(1, B + 1, dtype=torch.int32, device=dev)
     ones = torch.ones(B, dtype=torch.int32, device=dev)
-    with engine._lock:
-        graph = engine._graph
-        check(graph is not None, "the engine captured no decode graph")
+    graph.replay(toks, ones)
+    torch.cuda.synchronize()
+    n = 20
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
         graph.replay(toks, ones)
-        torch.cuda.synchronize()
-        n = 20
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(n):
-            graph.replay(toks, ones)
-        end.record()
-        torch.cuda.synchronize()
-        replay_ms = start.elapsed_time(end) / n
-        state = {k: t.clone() for k, t in engine.state_pool.items()}
+    end.record()
+    torch.cuda.synchronize()
+    replay_ms = start.elapsed_time(end) / n
+    state = {k: t.clone() for k, t in state.items()}
 
-        def host_ms(fwd, reps):
+    def host_ms(fwd, reps):
+        fwd(params, state, toks[:, None], ones)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for _ in range(reps):
             fwd(params, state, toks[:, None], ones)
-            torch.cuda.synchronize()
-            t0 = time.monotonic()
-            for _ in range(reps):
-                fwd(params, state, toks[:, None], ones)
-            torch.cuda.synchronize()
-            return (time.monotonic() - t0) / reps * 1e3
+        torch.cuda.synchronize()
+        return (time.monotonic() - t0) / reps * 1e3
 
-        eager_ms = host_ms(fd.forward_t1, 5)
-        plain_ms = host_ms(fd.forward_t1_plain, 2)
+    eager_ms = host_ms(fd.forward_t1, 5)
+    plain_ms = host_ms(fd.forward_t1_plain, 2)
     weights = [t for v in layout.values()
                for t in (v if isinstance(v, list) else [v])]
-    n_bytes = (nbytes(*weights) + 2 * nbytes(*engine.state_pool.values())
+    n_bytes = (nbytes(*weights) + 2 * nbytes(*state.values())
                + 2 * B * params["emb"].shape[1] * 2)
     flops = 2 * B * sum(t.numel() for k, v in layout.items()
                         if isinstance(v, list) and not k.endswith("_s")
@@ -1998,23 +2309,79 @@ def time_stack(engine) -> dict:
                 graph.launches_per_replay)}
 
 
+def time_stack(engine) -> dict:
+    """:func:`time_replay` of the engine's own graph over its state pool.
+    Runs after the requests, on the idle engine, and leaves its rows'
+    states advanced."""
+    from ai00_server_tpu_torch.ops import fused_decode
+
+    fd = fused_decode.module_for(engine.info.version.value)
+    with engine._lock:
+        check(engine._graph is not None,
+              "the engine captured no decode graph")
+        return time_replay(fd, engine.model.params, engine.state_pool,
+                           engine._graph, engine.max_batch)
+
+
+def time_quant_stack(engine, mode: str) -> dict:
+    """The engine's model with the big projections of every layer
+    quantized in ``mode`` on the card (one stacked group, as the loader
+    builds it from a checkpoint), its fused layout and a graph of its own
+    over a copy of the state pool: :func:`time_replay`.  The codes are
+    dropped after."""
+    import torch
+
+    from ai00_server_tpu_torch.ops import fused_decode, quant
+
+    fd = fused_decode.module_for(engine.info.version.value)
+    params = engine.model.params
+    layers = [{**p, "att": dict(p["att"]), "ffn": dict(p["ffn"])}
+              for p in params["layers"]]
+    for part, keys in (("att", quant.QUANT_KEYS_ATT),
+                       ("ffn", quant.QUANT_KEYS_FFN)):
+        for key in keys:
+            if key not in layers[0][part]:
+                continue
+            qlin = quant.QUANTIZERS[mode](torch.stack(
+                [p[part][key] for p in params["layers"]]))
+            for i, p in enumerate(layers):
+                p[part][key] = quant.QuantizedLayerView(qlin, i)
+    qparams = {k: v for k, v in params.items()
+               if k not in (fd.FUSED_KEY, "layers")}
+    qparams["layers"] = layers
+    check(fd.can_fuse(qparams), f"the {mode} stack cannot fuse")
+    qparams[fd.FUSED_KEY] = fd.make_fused_layout(qparams)
+    state = {k: t.clone() for k, t in engine.state_pool.items()}
+    B = engine.max_batch
+    with engine._lock:
+        out = time_replay(fd, qparams, state, fd.DecodeGraph(qparams, state,
+                                                             B), B)
+    del qparams, layers, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 async def serve(cfg: Path, kind: str, device="cuda") -> dict:
     """Serve one config over HTTP on localhost.  ``kind``: "bf16", "int8",
-    "nf4" and "v6 bf16" get the burst (4 greedy completions of 128 tokens + 1 streamed
-    chat), a lone streamed chat and the time of one replay of the stack,
-    "bf16" also one request under the profiler; the mixed kinds get one
-    short greedy completion, twice.  The launch counts are zeroed just
-    before the burst (the completions) and read just after."""
+    "nf4", "v6 bf16", "v5 bf16" and "v4 bf16" get the burst (4 greedy
+    completions of 128 tokens + 1 streamed chat), a lone streamed chat and
+    the time of one replay of the stack, "bf16" also one request under the
+    profiler, "v6 bf16" also the time of its stack quantized int8 and nf4
+    on the card; the mixed kinds get one short greedy completion, twice.
+    The launch counts are zeroed just before the burst (the completions)
+    and read just after."""
     import aiohttp
     import torch
     from aiohttp import web
 
-    from ai00_server_tpu_torch.ops import v6_decode as fd6
+    from ai00_server_tpu_torch.ops import fused_decode
     from ai00_server_tpu_torch.ops import v7_decode as fd
     from ai00_server_tpu_torch.ops.ffn import ffn7_t1_l
     from ai00_server_tpu_torch.ops.quant_matmul import (matmul_4bit_l,
                                                         matmul_int8,
                                                         matmul_int8_l)
+    from ai00_server_tpu_torch.ops.wkv4 import wkv4_chunk
     from ai00_server_tpu_torch.ops.wkv_chunk import wkv7_chunk, wkv56_chunk
     from ai00_server_tpu_torch.ops.wkv_t1 import wkv7_t1
     from ai00_server_tpu_torch.server.app import Server
@@ -2072,9 +2439,12 @@ async def serve(cfg: Path, kind: str, device="cuda") -> dict:
 
     mixed = kind.startswith("mixed")
     counted = {"wkv7_chunk": (wkv7_chunk, "launches")}
-    if kind.startswith("v6"):
-        counted = {"wkv56_chunk": (wkv56_chunk, "launches"),
-                   **{k.__name__: (k, "launches") for k in fd6.KERNELS}}
+    family = kind.split()[0] if kind[:2] in ("v6", "v5", "v4") else None
+    if family:
+        chunk = wkv4_chunk if family == "v4" else wkv56_chunk
+        counted = {chunk.__name__: (chunk, "launches"),
+                   **{k.__name__: (k, "launches") for k in
+                      fused_decode.module_for(family.upper()).KERNELS}}
     elif mixed:
         by_layer = matmul_int8_l if kind == "mixed" else matmul_4bit_l
         counted.update({k.__name__: (k, "launches") for k in (
@@ -2155,6 +2525,10 @@ async def serve(cfg: Path, kind: str, device="cuda") -> dict:
                     f"; {fd.DecodeGraph.total_replays - replays0} graph "
                     "replays for its 64 tokens")
             result["stack"] = time_stack(engine) if device != "cpu" else None
+            if kind == "v6 bf16" and device != "cpu":
+                result["quant_stacks"] = {
+                    mode: time_quant_stack(engine, mode)
+                    for mode in ("int8", "nf4")}
     finally:
         await server.middleware.unload()
         await runner.cleanup()
@@ -2195,11 +2569,13 @@ def main() -> None:
     rows.update(phase_int8_kernels(dev, bf16_head_ms))
     rows.update(phase_4bit_kernels(dev))
     rows.update(phase_v6_kernels(dev))
+    rows.update(phase_v54_kernels(dev))
     print(f"phase 2 (kernels) {time.monotonic() - t0:.1f} s", flush=True)
 
     t0 = time.monotonic()
-    parity = phase_parity(dev)
-    parity_v6 = phase_parity(dev, "v6")
+    parities = {version: phase_parity(dev, version)
+                for version in ("v7", "v6", "v5", "v4")}
+    parity, parity_v6 = parities["v7"], parities["v6"]
     print(f"phase 3 (parity) {time.monotonic() - t0:.1f} s", flush=True)
 
     t0 = time.monotonic()
@@ -2211,9 +2587,11 @@ def main() -> None:
             served = {kind: asyncio.run(serve(cfgs[kind], kind))
                       for kind in SERVED}
             (Path(tmp) / "rwkv7-0.4b.st").unlink()
-            cfgs = write_site_v6(Path(tmp))
-            served.update({kind: asyncio.run(serve(cfgs[kind], kind))
-                           for kind in SERVED_V6})
+            for version in ("v6", "v5", "v4"):
+                cfgs, path = write_site_family(Path(tmp), version)
+                served.update({kind: asyncio.run(serve(cfgs[kind], kind))
+                               for kind in cfgs})
+                path.unlink()
     finally:
         shutil.rmtree(tmp_root, ignore_errors=True)
 
@@ -2241,7 +2619,16 @@ def main() -> None:
                                      "v7_ln_mix (v6)": "v7_ln_mix",
                                      "v7_skinny_matmul (v6)":
                                      "v7_skinny_matmul",
-                                     "v6_wkv_gn": "v6_wkv_gn"})):
+                                     "v6_wkv_gn": "v6_wkv_gn"}),
+                        ("v5 bf16", {"v7_ln_mix (v5)": "v7_ln_mix",
+                                     "v7_skinny_matmul (v5)":
+                                     "v7_skinny_matmul",
+                                     "v6_wkv_gn (v5)": "v6_wkv_gn"}),
+                        ("v4 bf16", {"wkv4_chunk": "wkv4_chunk",
+                                     "v7_ln_mix (v4)": "v7_ln_mix",
+                                     "v7_skinny_matmul (v4)":
+                                     "v7_skinny_matmul",
+                                     "v4_wkv": "v4_wkv"})):
         for row, counter in names.items():
             rows[row]["launches"] = served[kind]["launches"][counter]
     rows["matmul_4bit"]["launches"] = parity["matmul_4bit_launches"]
@@ -2258,35 +2645,48 @@ def main() -> None:
         check((run["burst_replays"] > 0) == (not kind.startswith("mixed")),
               f"the {kind} model replayed {run['burst_replays']} decode "
               "graphs")
+    # v5's mixed model launches wkv56_t1 on its layer path as well.
+    check(parities["v5"]["wkv56_t1_launches"] > 0,
+          "the mixed v5 model's layer path never launched wkv56_t1")
+    stack_src = {"v7": ("ai00_server_tpu_torch/csrc/v7_decode.cu",
+                        "ai00_server_tpu/ops/v7_decode_pallas.py:274"),
+                 "v6": ("ai00_server_tpu_torch/csrc/v6_decode.cu",
+                        "ai00_server_tpu/ops/v6_decode_pallas.py:236"),
+                 "v5": ("ai00_server_tpu_torch/csrc/v6_decode.cu",
+                        "ai00_server_tpu/ops/v5_decode_pallas.py:213"),
+                 "v4": ("ai00_server_tpu_torch/csrc/wkv4.cu",
+                        "ai00_server_tpu/ops/v4_decode_pallas.py:190")}
     for kind, label in (("bf16", "plain"), ("int8", "int8"), ("nf4", "nf4"),
-                        ("v6 bf16", "plain")):
+                        ("v6 bf16", "plain"), ("v5 bf16", "plain"),
+                        ("v4 bf16", "plain")):
         stack = served[kind]["stack"]
-        v6 = kind.startswith("v6")
+        version = kind.split()[0] if kind[:2] in ("v6", "v5", "v4") else "v7"
+        source, replaces = stack_src[version]
         rows[f"forward_t1 {kind}"] = {
             "name": f"forward_t1 ({'' if kind == 'bf16' else kind + ', '}"
-                    f"{L6 if v6 else L_FULL} layers, "
+                    f"{L6 if version == 'v6' else L_FULL} layers, "
                     f"{stack['kernels_per_replay']} kernels "
                     "in one CUDA graph)",
-            "route": "cuda",
-            "source": ("ai00_server_tpu_torch/csrc/v6_decode.cu" if v6
-                       else "ai00_server_tpu_torch/csrc/v7_decode.cu"),
-            "replaces": ("ai00_server_tpu/ops/v6_decode_pallas.py:236" if v6
-                         else "ai00_server_tpu/ops/v7_decode_pallas.py:274"),
+            "route": "cuda", "source": source, "replaces": replaces,
             "launches": served[kind]["burst_replays"],
-            "max_abs_err": (parity_v6 if v6 else parity)[
+            "max_abs_err": parities[version][
                 f"fused_{label}_bf16_max_abs_err"],
             "ms": stack["replay_ms"], "plain_ms": stack["plain_ms"],
             "bound_ms": stack["bound_ms"], "bound_by": stack["bound_by"],
             "library_ms": None,
         }
-        print(f"forward_t1, {L_FULL} layers {kind} B={MAX_BATCH}, all rows "
-              f"active: {stack['replay_ms']:.5f} ms per graph replay "
-              f"({stack['kernels_per_replay']} kernels; "
-              f"{stack['bytes'] / stack['replay_ms'] / 1e6:.0f} GB/s), "
-              f"{stack['eager_ms']:.3f} ms launched eagerly from Python, "
-              f"{stack['plain_ms']:.3f} ms as plain versions; bound "
-              f"{stack['bound_ms']:.5f} ms by {stack['bound_by']} "
-              f"({stack['bytes'] / 1e6:.1f} MB)", flush=True)
+        stacks = [(kind, stack)] + [
+            (f"v6 {mode} (codes built on the card, not served)", st)
+            for mode, st in served[kind].get("quant_stacks", {}).items()]
+        for what, st in stacks:
+            print(f"forward_t1, {L_FULL} layers {what} B={MAX_BATCH}, all "
+                  f"rows active: {st['replay_ms']:.5f} ms per graph replay "
+                  f"({st['kernels_per_replay']} kernels; "
+                  f"{st['bytes'] / st['replay_ms'] / 1e6:.0f} GB/s), "
+                  f"{st['eager_ms']:.3f} ms launched eagerly from Python, "
+                  f"{st['plain_ms']:.3f} ms as plain versions; bound "
+                  f"{st['bound_ms']:.5f} ms by {st['bound_by']} "
+                  f"({st['bytes'] / 1e6:.1f} MB)", flush=True)
     for kind, run in served.items():
         print(f"launches on the {kind} model's requests: {run['launches']}; "
               f"{run['burst_replays']} graph replays", flush=True)

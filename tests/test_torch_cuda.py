@@ -749,6 +749,31 @@ def test_wkv56_chunk_kernel_matches_plain(dev, T):
     assert torch.equal(S_k[2], S[2])
 
 
+@pytest.mark.parametrize("T", [1, 16, 37])
+def test_wkv56_static_decay_matches_dense(dev, T):
+    """RWKV-5's static (H, N) decay, read with a stride of 0, against the
+    plain version and against the kernel given the broadcast written out."""
+    gen = torch.Generator(device=dev).manual_seed(300 + T)
+    S, (r, k, v, _), u = _inputs56(gen, dev, 3, T, 2)
+    w = torch.exp(-torch.exp(torch.randn(2, 64, generator=gen, device=dev)))
+    lens = torch.tensor([T, T // 2, 0], device=dev)
+    mask = torch.arange(T, device=dev)[None, :] < lens[:, None]
+    dense = w[None, None].expand(3, T, 2, 64).contiguous()
+    if T == 1:
+        args = (r[:, 0], k[:, 0], v[:, 0])
+        S_k, y_k = wkv56_t1(S, *args, w, u, mask[:, 0])
+        S_p, y_p = wkv56_t1_plain(S, *args, w, u, mask[:, 0])
+        S_d, y_d = wkv56_t1(S, *args, dense[:, 0], u, mask[:, 0])
+    else:
+        S_k, y_k = wkv56_chunk(S, r, k, v, w, u, mask)
+        S_p, y_p = wkv56_chunk_plain(S, r, k, v, w, u, mask)
+        S_d, y_d = wkv56_chunk(S, r, k, v, dense, u, mask)
+    _close(S_k, S_p)
+    _close(y_k, y_p)
+    assert torch.equal(S_k, S_d) and torch.equal(y_k, y_d)
+    assert torch.equal(S_k[2], S[2])
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_v6_ln_mix_kernel_matches_plain(dev, dtype):
     gen = torch.Generator(device=dev).manual_seed(6)
@@ -943,3 +968,204 @@ def test_v6_kernels_refuse_what_they_do_not_take(dev):
                                         y=torch.zeros(2, 64, device=dev))])
     with pytest.raises(ValueError, match="1 to 5 products"):
         fd.v7_skinny_matmul([fd.Product(x, W)] * 6)
+
+
+# ---------------------------------------------------------------------------
+# RWKV-5 and RWKV-4: v6_wkv_gn's static-decay mode, v4_wkv, wkv4_chunk and
+# the two fused stacks
+# ---------------------------------------------------------------------------
+
+from ai00_server_tpu_torch.ops import v4_decode as fd4  # noqa: E402
+from ai00_server_tpu_torch.ops import v5_decode as fd5  # noqa: E402
+from ai00_server_tpu_torch.ops.wkv4 import (  # noqa: E402
+    wkv4_chunk, wkv4_chunk_plain)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_v6_wkv_gn_static_decay_matches_plain(dev, dtype):
+    """``w=None``: every row decays by vecs row 0 (RWKV-5)."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    B, H, N = 5, 3, 64
+    C = H * N
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    r, k, v = (rnd(B, C, scale=0.5) for _ in range(3))
+    g = torch.nn.functional.silu(rnd(B, C))
+    vecs, S = rnd(4, C, scale=0.5), rnd(B, H, N, N)
+    vecs[0] = torch.exp(-torch.exp(vecs[0]))
+    active = torch.tensor([True, False, True, True, False], device=dev)
+    want, S_want = fd6.v6_wkv_gn_plain(r, k, v, None, g, vecs, active, S,
+                                       dtype)
+    dense, _ = fd6.v6_wkv_gn_plain(r, k, v, vecs[0].expand(B, C).clone(), g,
+                                   vecs, active, S, dtype)
+    assert torch.equal(want, dense)  # the mode is the broadcast decay
+    S_k = S.clone()
+    before = fd6.v6_wkv_gn.launches
+    got = fd6.v6_wkv_gn(r, k, v, None, g, vecs, active, S_k, dtype)
+    assert fd6.v6_wkv_gn.launches == before + 1
+    _close_t(got, want, dtype)
+    _close(S_k, S_want)
+    assert torch.equal(S_k[1], S[1]) and torch.equal(S_k[4], S[4])
+
+
+def _v4_state(gen, dev, B, C, fresh_rows=()):
+    """An advanced-looking (aa, bb, pp); ``fresh_rows`` start at PP_INIT."""
+    from ai00_server_tpu_torch.models.v4 import PP_INIT
+
+    aa = torch.randn(B, C, generator=gen, device=dev)
+    bb = torch.rand(B, C, generator=gen, device=dev) + 0.5
+    pp = torch.randn(B, C, generator=gen, device=dev)
+    for b in fresh_rows:
+        aa[b], bb[b], pp[b] = 0.0, 0.0, PP_INIT
+    return aa, bb, pp
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_v4_wkv_kernel_matches_plain(dev, dtype):
+    gen = torch.Generator(device=dev).manual_seed(10)
+    B, C = 5, 1000  # a ragged last block
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    r = torch.sigmoid(rnd(B, C))
+    k, v = rnd(B, C), rnd(B, C)
+    vecs = torch.stack([-torch.exp(rnd(C, scale=0.5)), rnd(C, scale=0.5)])
+    active = torch.tensor([True, False, True, True, False], device=dev)
+    state = _v4_state(gen, dev, B, C, fresh_rows=(2,))
+    want, *want_state = fd4.v4_wkv_plain(r, k, v, vecs, active, *state,
+                                         dtype)
+    got_state = [t.clone() for t in state]
+    before = fd4.v4_wkv.launches
+    got = fd4.v4_wkv(r, k, v, vecs, active, *got_state, dtype)
+    assert fd4.v4_wkv.launches == before + 1
+    assert got.dtype == dtype
+    _close_t(got, want, dtype)
+    for g, w, s in zip(got_state, want_state, state):
+        _close(g, w)
+        assert torch.equal(g[1], s[1]) and torch.equal(g[4], s[4])
+        assert bool(torch.isfinite(g).all())
+
+
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T", [1, 16, 37, 256])
+def test_wkv4_chunk_kernel_matches_plain(dev, T, kv_dtype):
+    """k and v in either activation dtype: the kernel widens them in
+    registers, the plain version with ``.float()``."""
+    gen = torch.Generator(device=dev).manual_seed(T)
+    B, C = 4, 320
+    k = torch.randn(B, T, C, generator=gen, device=dev).to(kv_dtype)
+    v = torch.randn(B, T, C, generator=gen, device=dev).to(kv_dtype)
+    w = -torch.exp(torch.randn(C, generator=gen, device=dev) * 0.5)
+    u = torch.randn(C, generator=gen, device=dev) * 0.5
+    state = _v4_state(gen, dev, B, C, fresh_rows=(0, 3))
+    lens = torch.tensor([T, max(T // 2, 1), 0, T], device=dev)
+    mask = torch.arange(T, device=dev)[None, :] < lens[:, None]
+    before = wkv4_chunk.launches
+    got, y_k = wkv4_chunk(*state, k, v, w, u, mask)
+    assert wkv4_chunk.launches == before + 1
+    want, y_p = wkv4_chunk_plain(*state, k, v, w, u, mask)
+    _close(y_k, y_p)  # masked steps read the kept state in both
+    for g, p, s in zip(got, want, state):
+        _close(g, p)
+        assert torch.equal(g[2], s[2])  # the idle row keeps its bits
+        assert bool(torch.isfinite(g).all())
+
+
+def _fused_agree(dev, version, dtype, quant, per_layer):
+    """The fused v5 / v4 stack on the card: kernels called eagerly, the
+    same replayed from its CUDA graph, and the plain stack, over three steps
+    from a random state (an idle row in the first two)."""
+    import numpy as np
+
+    from ai00_server_tpu_torch.loader import stack_params
+    from ai00_server_tpu_torch.models import ModelVersion, get_version_module
+    from ai00_server_tpu_torch.testing import make_raw_weights, tiny_info
+
+    ver = ModelVersion(version)
+    mod = get_version_module(ver)
+    f = fd5 if version == "V5" else fd4
+    info = tiny_info(ver, num_layer=2, num_emb=128, head_size=64,
+                     num_vocab=64)
+    params = stack_params(info, make_raw_weights(info, 5, np.float32),
+                          dtype=dtype, device=dev,
+                          quant={0: quant, 1: quant} if quant else None)
+    assert f.can_fuse(params)
+    params[f.FUSED_KEY] = f.make_fused_layout(params)
+    B = 4
+    gen = torch.Generator(device=dev).manual_seed(3)
+    base = mod.init_state(info, B, device=dev)
+    for name, t in base.items():
+        t.copy_(torch.randn(t.shape, generator=gen, device=dev) * 0.3)
+    if version == "V4":
+        base["bb"].abs_().add_(0.5)
+    steps = [(torch.randint(0, 64, (B,), generator=gen, device=dev),
+              torch.tensor(l, device=dev))
+             for l in ([1, 1, 0, 1], [1, 0, 1, 1], [1, 1, 1, 1])]
+    runs = {}
+    for how in ("plain", "eager", "graph"):
+        state = {k: t.clone() for k, t in base.items()}
+        graph = f.DecodeGraph(params, state, B) if how == "graph" else None
+        hs = []
+        for toks, lens in steps:
+            if how == "graph":
+                hs.append(graph.replay(toks, lens).clone())
+            else:
+                fwd = f.forward_t1 if how == "eager" else f.forward_t1_plain
+                hs.append(fwd(params, state, toks[:, None], lens)[0][:, 0])
+        runs[how] = (hs, state)
+        if graph is not None:
+            assert sum(graph.launches_per_replay) == per_layer * 2
+    (h_e, s_e), (h_g, s_g), (h_p, s_p) = (runs[k] for k in
+                                          ("eager", "graph", "plain"))
+    for a, b in zip(h_e, h_g):  # the graph replays the same kernels
+        assert torch.equal(a, b)
+    for k in s_e:
+        assert torch.equal(s_e[k], s_g[k])
+        tol = 1e-4 if dtype == torch.float32 else 2e-2
+        err = float((s_e[k] - s_p[k]).abs().max())
+        assert err <= tol * max(1.0, float(s_p[k].abs().max())), (k, err)
+    tol = 1e-4 if dtype == torch.float32 else 5e-2
+    for a, b in zip(h_e, h_p):
+        err = float((a.float() - b.float()).abs().max())
+        assert err <= tol * max(1.0, float(b.float().abs().max())), err
+    state = {k: t.clone() for k, t in base.items()}
+    f.forward_t1(params, state, steps[0][0][:, None], steps[0][1])
+    for k in state:
+        assert torch.equal(state[k][:, 2], base[k][:, 2])
+
+
+@pytest.mark.parametrize("quant", [None, "int8", "nf4"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_v5_forward_t1_kernels_graph_and_plain_agree(dev, dtype, quant):
+    _fused_agree(dev, "V5", dtype, quant, per_layer=7)
+
+
+@pytest.mark.parametrize("quant", [None, "int8", "nf4"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_v4_forward_t1_kernels_graph_and_plain_agree(dev, dtype, quant):
+    _fused_agree(dev, "V4", dtype, quant, per_layer=7)
+
+
+def test_v4_kernels_refuse_what_they_do_not_take(dev):
+    z = torch.zeros(2, 32, device=dev)
+    act = torch.ones(2, dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="vecs must be contiguous"):
+        fd4.v4_wkv(z, z, z, torch.zeros(3, 32, device=dev), act, z.clone(),
+                   z.clone(), z.clone(), torch.float32)
+    with pytest.raises(ValueError, match="unsupported activation dtype"):
+        fd4.v4_wkv(z, z, z, torch.zeros(2, 32, device=dev), act, z.clone(),
+                   z.clone(), z.clone(), torch.float16)
+    k = torch.zeros(2, 3, 32, device=dev)
+    mask = torch.ones(2, 3, dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="w must be contiguous"):
+        wkv4_chunk(z, z, z, k, k, torch.zeros(16, device=dev),
+                   torch.zeros(32, device=dev), mask)
+    with pytest.raises(ValueError, match="v must be contiguous"):
+        wkv4_chunk(z, z, z, k, k.bfloat16(), torch.zeros(32, device=dev),
+                   torch.zeros(32, device=dev), mask)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        wkv4_chunk(z, z, z, k.half(), k.half(), torch.zeros(32, device=dev),
+                   torch.zeros(32, device=dev), mask)

@@ -444,15 +444,14 @@ V6_CASES = {"layer": (16, None), "fused": (64, None),
             "mixed": (64, {0: "int8"}), "nf4": (64, {0: "nf4", 1: "nf4"})}
 
 
-def _v6_engines(monkeypatch, case):
+def _version_engines(monkeypatch, version, head, quant_map, seed):
     from ai00_server_tpu.testing import make_params, make_raw_weights, tiny_info
 
-    head, quant_map = V6_CASES[case]
     if quant_map:
         monkeypatch.setenv("AI00_QUANT_HEAD", "on")
-    info = tiny_info(ModelVersion.V6, num_layer=2, num_emb=128,
-                     head_size=head, num_vocab=64)
-    params = make_params(info, make_raw_weights(info, seed=73,
+    info = tiny_info(version, num_layer=2, num_emb=128, head_size=head,
+                     num_vocab=64)
+    params = make_params(info, make_raw_weights(info, seed=seed,
                                                 dtype=np.float32),
                          dtype=np.float32, quant=quant_map)
     j = JEngine(JLoaded(info=info, params=params, init_wkv=None),
@@ -470,21 +469,18 @@ def _v6_engines(monkeypatch, case):
     return j, t, prompts
 
 
-@pytest.mark.parametrize("case", sorted(V6_CASES))
-def test_v6_engine_equals_jax(monkeypatch, case):
-    from ai00_server_tpu_torch.models import v6 as tv6
-    from ai00_server_tpu_torch.ops import v6_decode as fd6
-
-    j, t, prompts = _v6_engines(monkeypatch, case)
-    fused = case in ("fused", "int8", "nf4")
-    assert t.module is tv6 and fd6.supports(t.model.params) == fused
-    assert ("_head_q" in t.model.params) == (V6_CASES[case][1] is not None)
-    assert t.state_pool["wkv"].shape == (2, B, 128 // V6_CASES[case][0],
-                                         V6_CASES[case][0],
-                                         V6_CASES[case][0])
+def _engine_equals_jax(monkeypatch, j, t, prompts, quantized, fused,
+                       fd, fresh_row):
+    """A ragged merged prefill, a 5-token decode_chunk with an idle row and
+    a rollback through both engines: greedy tokens equal, states within
+    2e-4 of their scale, the T=1 steps through ``fd.forward_t1`` exactly
+    when ``fused``, the idle row as ``fresh_row`` says and the pool at its
+    addresses."""
+    assert fd.supports(t.model.params) == fused
+    assert ("_head_q" in t.model.params) == quantized
     fused_steps = []
-    real = fd6.forward_t1
-    monkeypatch.setattr(fd6, "forward_t1",
+    real = fd.forward_t1
+    monkeypatch.setattr(fd, "forward_t1",
                         lambda *a: fused_steps.append(1) or real(*a))
     ptrs = {k: v.data_ptr() for k, v in t.state_pool.items()}
 
@@ -496,7 +492,7 @@ def test_v6_engine_equals_jax(monkeypatch, case):
     js = j.step(toks, lens, lens > 0, want_logits=True)
     ts = t.step(toks, lens, lens > 0, want_logits=True)
     jl, tl = np.asarray(js.logits)[:3], ts.logits.numpy()[:3]
-    if V6_CASES[case][1]:  # the JAX side's bf16 head (see above)
+    if quantized:  # the JAX side's bf16 head (see above)
         gap = np.sort(tl, axis=-1)
         gap = float((gap[:, -1] - gap[:, -2]).min())
         assert float(np.abs(tl - jl).max()) <= 2.0 ** -6 * float(
@@ -515,10 +511,73 @@ def test_v6_engine_equals_jax(monkeypatch, case):
     np.testing.assert_array_equal(tt[:, :3], jt[:, :3])
     _states_close(j, t)
     assert len(fused_steps) == (5 if fused else 0)
-    assert float(np.abs(t.read_row_state(3)["wkv"]).max()) == 0.0
+    fresh_row(t.read_row_state(3))
 
     feed = [int(ts.tokens[0]), int(tt[0, 0])]
     j.rollback_row(0, feed)
     t.rollback_row(0, feed)
     _states_close(j, t)
     assert {k: v.data_ptr() for k, v in t.state_pool.items()} == ptrs
+
+
+@pytest.mark.parametrize("case", sorted(V6_CASES))
+def test_v6_engine_equals_jax(monkeypatch, case):
+    from ai00_server_tpu_torch.models import v6 as tv6
+    from ai00_server_tpu_torch.ops import v6_decode as fd6
+
+    head, quant_map = V6_CASES[case]
+    j, t, prompts = _version_engines(monkeypatch, ModelVersion.V6, head,
+                                     quant_map, seed=73)
+    assert t.module is tv6
+    assert t.state_pool["wkv"].shape == (2, B, 128 // head, head, head)
+
+    def fresh_row(row):
+        assert float(np.abs(row["wkv"]).max()) == 0.0
+
+    _engine_equals_jax(monkeypatch, j, t, prompts, quant_map is not None,
+                       case in ("fused", "int8", "nf4"), fd6, fresh_row)
+
+
+# ---------------------------------------------------------------------------
+# RWKV-5 and RWKV-4: the same engine, unchanged
+# ---------------------------------------------------------------------------
+#
+# As the v6 cases: a v5 of head size 16 keeps to the layer path, head size
+# 64 takes ops/v5_decode; every v4 fuses (ops/v4_decode: no head-size rule)
+# unless its layers are partly quantized.  A fresh v4 row starts at pp =
+# PP_INIT (models/v4.init_state), never at zeros.  The weights' seed (77)
+# is one where every quantized case's top two logits lie further apart than
+# 4x the JAX side's bf16-head error, which the test asserts before it
+# compares greedy tokens (seeds 74-76 give one case a closer pair).
+
+V54_CASES = {"v5-layer": ("V5", 16, None), "v5-fused": ("V5", 64, None),
+             "v5-int8": ("V5", 64, {0: "int8", 1: "int8"}),
+             "v5-mixed": ("V5", 64, {0: "int8"}),
+             "v4-fused": ("V4", 1, None),
+             "v4-nf4": ("V4", 1, {0: "nf4", 1: "nf4"}),
+             "v4-mixed": ("V4", 1, {0: "nf4"})}
+
+
+@pytest.mark.parametrize("case", sorted(V54_CASES))
+def test_v5_v4_engine_equals_jax(monkeypatch, case):
+    from ai00_server_tpu_torch.models import get_version_module
+    from ai00_server_tpu_torch.models.v4 import PP_INIT
+    from ai00_server_tpu_torch.ops import fused_decode
+
+    version, head, quant_map = V54_CASES[case]
+    ver = ModelVersion(version)
+    j, t, prompts = _version_engines(monkeypatch, ver, head, quant_map,
+                                     seed=77)
+    assert t.module is get_version_module(t.info.version)
+    assert set(t.state_pool) == set(j.state_pool)
+    fused = not case.endswith(("layer", "mixed"))
+
+    def fresh_row(row):
+        if version == "V5":
+            assert float(np.abs(row["wkv"]).max()) == 0.0
+        else:
+            assert (row["pp"] == np.float32(PP_INIT)).all()
+            assert float(np.abs(row["aa"]).max()) == 0.0
+
+    _engine_equals_jax(monkeypatch, j, t, prompts, quant_map is not None,
+                       fused, fused_decode.module_for(version), fresh_row)

@@ -474,13 +474,149 @@ def test_v6_quantized_completion(v6_site, quant, quant_type):
 
 
 def test_v5_checkpoint_names_its_roadmap_item(tmp_path):
+    """A v5 checkpoint, once refused by name, now loads and answers (at
+    head size 16: the layer path)."""
     _, raw, _ = make_tiny_model(ModelVersion.V5, seed=24, dtype=np.float32)
     jloader.save_safetensors(to_converted_layout(raw),
                              str(tmp_path / "tiny.st"), dtype=np.float32)
-    (tmp_path / "vocab.json").write_text(json.dumps({"1": "A"}))
+    (tmp_path / "vocab.json").write_text(json.dumps(
+        {str(i): chr(64 + i) for i in range(1, 60)}))
 
     async def main():
-        with pytest.raises(NotImplementedError, match="ROADMAP 'v5/v4'"):
-            await _v6_client(tmp_path, device="cpu")
+        client, server = await _v6_client(tmp_path, device="cpu")
+        try:
+            assert server.middleware.env.engine.info.version.value == "V5"
+            body = await _complete(client, max_tokens=4)
+            assert body["choices"][0]["text"]
+        finally:
+            await client.close()
+            await server.middleware.unload()
+
+    asyncio.run(main())
+
+
+@pytest.mark.parametrize("path", ["/api-docs", "/api-docs/"])
+def test_api_docs_answer_501(site, path):
+    """The reference routes both forms (its server/app.py:232-233)."""
+    async def main():
+        client, server = await make_client(site, device="cpu")
+        try:
+            r = await client.get(path)
+            assert r.status == 501
+            assert "admin, profile and file routes" in (
+                await r.json())["error"]
+        finally:
+            await client.close()
+            await server.middleware.unload()
+
+    asyncio.run(main())
+
+
+# ---------------------------------------------------------------------------
+# RWKV-5 and RWKV-4 over HTTP: the same routes
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module", params=["V5", "V4"])
+def v54_site(request, tmp_path_factory):
+    """A 2-layer v5 (head size 64: the fused v5 path) or v4 (the fused v4
+    path) of width 128."""
+    root = tmp_path_factory.mktemp(request.param)
+    _, raw, _ = make_tiny_model(ModelVersion(request.param), seed=25,
+                                dtype=np.float32, num_layer=2, num_emb=128,
+                                head_size=64, num_vocab=64)
+    jloader.save_safetensors(to_converted_layout(raw), str(root / "tiny.st"),
+                             dtype=np.float32)
+    (root / "vocab.json").write_text(json.dumps(
+        {str(i): chr(64 + i) for i in range(1, 60)}))
+    return request.param, root
+
+
+def test_v5_v4_completion_and_sse_chat(v54_site):
+    from ai00_server_tpu_torch.ops import fused_decode
+
+    version, root = v54_site
+
+    async def main():
+        client, server = await _v6_client(root, device="cpu")
+        try:
+            fd = fused_decode.module_for(version)
+            assert fd.supports(server.middleware.env.model.params)
+            body = await _complete(client, max_tokens=8)
+            text = body["choices"][0]["text"]
+            assert text and body["usage"]["prompt"] == 5
+            assert (await _complete(client, "/api/oai/v1/completions",
+                                    max_tokens=8))["choices"][0]["text"] \
+                == text
+            r = await client.post("/api/oai/chat/completions", json={
+                "messages": [{"role": "user", "content": "ABC"}],
+                "max_tokens": 4, "stream": True, "sampler": GREEDY})
+            assert r.status == 200
+            assert r.headers["Content-Type"].startswith("text/event-stream")
+            events = [l[6:] for l in (await r.read()).decode().splitlines()
+                      if l.startswith("data: ")]
+            assert events[-1] == "[DONE]"
+            assert "".join(json.loads(e)["choices"][0].get(
+                "delta", {}).get("content", "") for e in events[1:-1])
+            info = await (await client.get("/api/models/info")).json()
+            assert info["model"]["version"] == version
+        finally:
+            await client.close()
+            await server.middleware.unload()
+
+    asyncio.run(main())
+
+
+def test_v5_v4_greedy_text_equals_jax_server(v54_site):
+    _, root = v54_site
+
+    async def texts(server_cls, config_cls, **kw):
+        client, server = await _v6_client(
+            root, server_cls=server_cls, config_cls=config_cls, **kw)
+        try:
+            out = [(await _complete(client, prompt=p, max_tokens=8)
+                    )["choices"][0]["text"] for p in ("ABCAB", "QRS")]
+            r = await client.post("/api/oai/chat/completions", json={
+                "messages": [{"role": "user", "content": "HELLO"}],
+                "max_tokens": 8, "sampler": GREEDY})
+            out.append((await r.json())["choices"][0]["message"]["content"])
+            return out
+        finally:
+            await client.close()
+            await server.middleware.unload()
+
+    port = asyncio.run(texts(Server, Config, device="cpu"))
+    ref = asyncio.run(texts(JServer, JConfig))
+    assert port == ref
+    assert all(port)
+
+
+@pytest.mark.parametrize("quant,quant_type", [(2, "Int8"), (1, "NF4")])
+def test_v5_v4_quantized_completion(v54_site, quant, quant_type):
+    """``quant = L``: the fused path on codes; ``quant = 1``: the layer
+    path."""
+    from ai00_server_tpu_torch.ops import fused_decode
+    from ai00_server_tpu_torch.ops import quant as tquant
+
+    version, root = v54_site
+
+    async def main():
+        client, server = await _v6_client(root, quant, quant_type,
+                                          device="cpu")
+        try:
+            params = server.middleware.env.model.params
+            kinds = [tquant.is_quantized(p["att"]["receptance"])
+                     and tquant.is_quantized(p["ffn"]["value"])
+                     for p in params["layers"]]
+            assert kinds == [i < quant for i in range(2)]
+            fd = fused_decode.module_for(version)
+            assert fd.supports(params) == (quant == 2)
+            assert "_head_q" in params
+            texts = [(await _complete(client, max_tokens=8)
+                      )["choices"][0]["text"] for _ in range(2)]
+            assert texts[0] and texts[0] == texts[1]
+        finally:
+            await client.close()
+            await server.middleware.unload()
 
     asyncio.run(main())

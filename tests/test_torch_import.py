@@ -25,6 +25,9 @@ MODULES = [
     "ai00_server_tpu_torch.models",
     "ai00_server_tpu_torch.models.common",
     "ai00_server_tpu_torch.models.info",
+    "ai00_server_tpu_torch.models.v4",
+    "ai00_server_tpu_torch.models.v5",
+    "ai00_server_tpu_torch.models.v6",
     "ai00_server_tpu_torch.models.v7",
     "ai00_server_tpu_torch.ops",
     "ai00_server_tpu_torch.ops._build",
@@ -33,7 +36,11 @@ MODULES = [
     "ai00_server_tpu_torch.ops.quant",
     "ai00_server_tpu_torch.ops.quant_matmul",
     "ai00_server_tpu_torch.ops.sampling",
+    "ai00_server_tpu_torch.ops.v4_decode",
+    "ai00_server_tpu_torch.ops.v5_decode",
+    "ai00_server_tpu_torch.ops.v6_decode",
     "ai00_server_tpu_torch.ops.v7_decode",
+    "ai00_server_tpu_torch.ops.wkv4",
     "ai00_server_tpu_torch.ops.wkv_chunk",
     "ai00_server_tpu_torch.ops.wkv_t1",
     "ai00_server_tpu_torch.runtime",

@@ -243,15 +243,28 @@ def test_mixed_quantized_layer_path(mode):
 
 
 def test_versions_served_and_refused():
+    """Every version is served now: v5 and v4, once refused by name, get
+    their modules, tiny infos, raw weights (the JAX draws), params and the
+    JAX state's keys."""
+    from ai00_server_tpu.models import v4 as jv4
+    from ai00_server_tpu.models import v5 as jv5
+
+    from ai00_server_tpu_torch.models import v4 as tv4
+    from ai00_server_tpu_torch.models import v5 as tv5
+
     assert get_version_module(V6) is tv6
-    for version in (ModelVersion.V5, ModelVersion.V4):
-        with pytest.raises(NotImplementedError, match="ROADMAP 'v5/v4'"):
-            get_version_module(version)
-        with pytest.raises(NotImplementedError, match="ROADMAP 'v5/v4'"):
-            ttesting.tiny_info(version)
-        info = jtesting.tiny_info(version)
-        with pytest.raises(NotImplementedError, match="ROADMAP 'v5/v4'"):
-            ttesting.make_raw_weights(info)
-        with pytest.raises(NotImplementedError, match="ROADMAP 'v5/v4'"):
-            tloader.stack_params(info, jtesting.make_raw_weights(info),
-                                 device="cpu")
+    for version, module, jmodule in ((ModelVersion.V5, tv5, jv5),
+                                     (ModelVersion.V4, tv4, jv4)):
+        assert get_version_module(version) is module
+        info = ttesting.tiny_info(version)
+        jinfo = jtesting.tiny_info(version)
+        assert (info.num_head, info.head_size) == (jinfo.num_head,
+                                                   jinfo.head_size)
+        raw = ttesting.make_raw_weights(info)
+        assert list(raw) == list(jtesting.make_raw_weights(jinfo))
+        params = tloader.stack_params(info, raw, device="cpu")
+        assert len(params["layers"]) == info.num_layer
+        assert set(module.init_state(info, 1)) == set(
+            jmodule.init_state(jinfo, 1))
+    with pytest.raises(ValueError, match="unknown model version"):
+        get_version_module("V3")

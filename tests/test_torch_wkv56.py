@@ -86,6 +86,31 @@ def test_wkv56_chunk_matches_jax(T):
     np.testing.assert_array_equal(S_t[2].numpy(), S[2])
 
 
+@pytest.mark.parametrize("T", [1, 9])
+def test_wkv56_static_decay_matches_jax(T):
+    """RWKV-5's static (H, N) decay, taken as it is, against the JAX scan on
+    the decay broadcast to (B, T, H, N) as the JAX model feeds it."""
+    rng = np.random.default_rng(300 + T)
+    B, H, N = 3, 2, 16
+    S, (r, k, v, _), u = _inputs(rng, B, T, H, N)
+    w = np.exp(-np.exp(rng.standard_normal((H, N)) * 0.5)).astype(np.float32)
+    lengths = np.array([T, T // 2, 0])
+    mask = np.arange(T)[None, :] < lengths[:, None]
+    dense = np.broadcast_to(w, (B, T, H, N))
+
+    S_s, y_s = jv5.wkv_scan(*map(jnp.asarray, (S, r, k, v, dense, u, mask)))
+    t = torch.from_numpy
+    if T == 1:
+        S_t, y_t = wkv56_t1(t(S), t(r[:, 0]), t(k[:, 0]), t(v[:, 0]), t(w),
+                            t(u), t(mask[:, 0]))
+        y_t = y_t[:, None]
+    else:
+        S_t, y_t = wkv56_chunk(t(S), t(r), t(k), t(v), t(w), t(u), t(mask))
+    np.testing.assert_allclose(S_t.numpy(), np.asarray(S_s), **TOL)
+    np.testing.assert_allclose(y_t.numpy(), np.asarray(y_s), **TOL)
+    np.testing.assert_array_equal(S_t[2].numpy(), S[2])
+
+
 def test_wkv56_wrappers_refuse_other_devices():
     S = torch.zeros((1, 1, 64, 64), device="meta")
     v = torch.zeros((1, 1, 64), device="meta")
