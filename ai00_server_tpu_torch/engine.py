@@ -34,6 +34,15 @@ quantized (int8, nf4, sf4, int4):
 * Sampling uniforms come from a ``torch.Generator`` on the device.
 * A ring of pre-chunk snapshots backs :meth:`rollback_row` and
   :meth:`restore_last_chunk`.
+* Embedding and scoring reads: :meth:`Engine.step` adds the masked final
+  hidden states of the rows loaded with ``hidden_sums=True`` into
+  ``hsum_pool`` (the mean-hidden ``/embeddings`` readout, zeroed when a
+  row is loaded; other traffic adds nothing, and a step with no such row
+  runs no extra work; ``decode_chunk`` does not add, as in the JAX
+  engine), :meth:`read_row_embed` pools a
+  row's state, :meth:`mean_hidden_embed` is the offline recipe, and
+  :meth:`position_logps` scores tokens from a copy of a row's state
+  (``/chooses``) without advancing the pool.
 
 Every method that reads or writes a pool holds the engine's lock (row
 reads included).  The scheduler (runtime.py) calls the engine from one
@@ -130,6 +139,15 @@ class Engine:
         self.bias_pool = torch.zeros((B, V), dtype=torch.float32,
                                      device=self.device)
         self.bias_active = np.zeros(B, np.bool_)
+        # Per-row running sum of the final hidden states over every valid
+        # position fed through step() since the row was loaded, for the
+        # rows loaded with hidden_sums=True (hsum_rows): the mean-hidden
+        # embedding is one prefill, not prefill + re-forward.  hsum_serial
+        # counts its changes (coalesced whole-pool reads).
+        self.hsum_pool = torch.zeros((B, self.info.num_emb),
+                                     dtype=torch.float32, device=self.device)
+        self.hsum_rows = np.zeros(B, np.bool_)
+        self.hsum_serial = 0
         self._gen = torch.Generator(device=self.device)
         self._gen.seed()
         self._lock = threading.Lock()
@@ -181,12 +199,18 @@ class Engine:
     def _read_row(self, pool: dict, b: int) -> dict:
         return {k: p[:, b:b + 1].clone() for k, p in pool.items()}
 
-    def load_row_state(self, b: int, row_state=None) -> None:
+    def load_row_state(self, b: int, row_state=None,
+                       hidden_sums: bool = False) -> None:
         """Install a batch-1 state (tensors or numpy) in row b, or a fresh
-        initial state."""
+        initial state.  Zeroes the row's hidden sums; with ``hidden_sums``
+        step() adds the row's hidden states to them until the row is loaded
+        again."""
         with self._lock:
             self._write_row(row_state if row_state is not None
                             else self.fresh_row_state(), b)
+            self.hsum_pool[b] = 0.0
+            self.hsum_rows[b] = hidden_sums
+            self.hsum_serial += 1
 
     def read_row_state(self, b: int) -> dict:
         """Device->host copy of row b's state as a batch-1 numpy dict."""
@@ -197,6 +221,96 @@ class Engine:
         writes cannot race it); the caller moves it to the host."""
         with self._lock:
             return self._read_row(self.state_pool, b)
+
+    # ------------------------------------------------------------------
+    # Embedding reads
+    # ------------------------------------------------------------------
+
+    def read_row_hidden_sum(self, b: int) -> np.ndarray:
+        """Row b's masked hidden-state sum (f32, C) accumulated by step()
+        since ``load_row_state(b, ..., hidden_sums=True)``; divided by the
+        fed token count it is the mean-hidden embedding.  Valid when the
+        row's whole prompt went through step() from a fresh state (the
+        runtime ensures that for pooled embed requests)."""
+        with self._lock:
+            return to_host(self.hsum_pool[b])
+
+    def read_hidden_sums(self) -> np.ndarray:
+        """The whole (B, C) hidden-sum pool in one device->host copy, read
+        under the lock (the JAX engine reads it outside its lock)."""
+        with self._lock:
+            return to_host(self.hsum_pool)
+
+    def read_row_embed(self, b: int) -> np.ndarray:
+        """Row b's pooled state embedding (``pooling="state"``): the means
+        over layers of ``att_x`` and ``ffn_x``, and where the state has a
+        ``wkv``, its uniform-query readout ``sum_k S[.., v, k]`` meaned over
+        layers; each part unit-normalized, the concatenation again."""
+        with self._lock:
+            pool = self.state_pool
+            parts = [pool["att_x"][:, b].float().mean(0),
+                     pool["ffn_x"][:, b].float().mean(0)]
+            if "wkv" in pool:
+                parts.append(pool["wkv"][:, b].float().sum(-1).mean(0)
+                             .reshape(-1))
+            vec = torch.cat([p / torch.clamp(torch.linalg.vector_norm(p),
+                                              min=1e-12) for p in parts])
+            vec = vec / torch.clamp(torch.linalg.vector_norm(vec), min=1e-12)
+            return to_host(vec)
+
+    def mean_hidden_embed(self, token_ids, chunk: int | None = None
+                          ) -> np.ndarray:
+        """Masked mean over all positions of the final (post-``ln_out``)
+        hidden states, L2-normalized: the reference recipe of the
+        mean-hidden embedding, as a batch-1 chunked forward from a fresh
+        state off the pool.  The serving path reads ``hsum_pool`` instead
+        (one prefill per embed, batched across rows)."""
+        chunk = int(chunk or self.token_chunk_size)
+        dev = self.device
+        acc = np.zeros(self.info.num_emb, np.float64)
+        cnt = 0
+        with self._lock:
+            state = self.fresh_row_state()
+            for off in range(0, max(len(token_ids), 1), chunk):
+                part = list(token_ids[off:off + chunk])
+                toks = np.zeros((1, chunk), np.int32)
+                toks[0, :len(part)] = part
+                h, state = self.module.forward(
+                    self.model.params, state,
+                    torch.as_tensor(toks, device=dev),
+                    torch.tensor([len(part)], dtype=torch.int32, device=dev))
+                mask = (torch.arange(chunk, device=dev) < len(part))[None, :,
+                                                                     None]
+                acc += to_host((h.float() * mask).sum(1)[0]).astype(
+                    np.float64)
+                cnt += len(part)
+        v = acc / max(cnt, 1)
+        return (v / max(float(np.linalg.norm(v)), 1e-12)).astype(np.float32)
+
+    def position_logps(self, tokens: list[int], b: int | None = None,
+                       state=None) -> np.ndarray:
+        """``ln p(tokens[i] | tokens[:i])`` for i in 1..n-1: log-softmax of
+        the raw logits at every position (no sampler transforms), fed from a
+        copy of row ``b``'s state or from an explicit batch-1 ``state``
+        (tensors or numpy).  The pool is never advanced."""
+        dev = self.device
+        with self._lock:
+            if state is None:
+                state = self._read_row(self.state_pool, b)
+            else:
+                state = {k: torch.as_tensor(
+                    state[k] if isinstance(state[k], torch.Tensor)
+                    else np.array(state[k]), device=dev).to(p.dtype).clone()
+                    for k, p in self.state_pool.items()}
+            t = torch.as_tensor(np.asarray(tokens, np.int32)[None],
+                                device=dev)
+            hidden, _ = self.module.forward(
+                self.model.params, state, t,
+                torch.tensor([len(tokens)], dtype=torch.int32, device=dev))
+            logp = torch.log_softmax(
+                head_logits(self.model.params, hidden[0]), dim=-1)
+            lp = torch.gather(logp[:-1], 1, t[0, 1:, None].long())[:, 0]
+            return to_host(lp)
 
     # ------------------------------------------------------------------
     # Sampler / bias row management
@@ -291,9 +405,21 @@ class Engine:
             dev = self.device
             lengths_t = torch.as_tensor(lengths, dtype=torch.int32,
                                         device=dev)
+            summed = bool(self.hsum_rows.any())
+            if summed:  # copied before the forward is queued: no stall
+                n = torch.as_tensor(np.where(self.hsum_rows, lengths, 0),
+                                    dtype=torch.int32, device=dev)
             hidden = self._forward(
                 torch.as_tensor(tokens, dtype=torch.int32, device=dev),
                 lengths_t)
+            if summed:
+                # Masked hidden sums of the tracked rows (idle rows have
+                # length 0), read before a graph replay overwrites the
+                # hidden buffer.
+                pos = torch.arange(T, device=dev)[None, :, None]
+                self.hsum_pool += (hidden.float()
+                                   * (pos < n[:, None, None])).sum(1)
+                self.hsum_serial += 1
             logits = head_logits(self.model.params,
                                  take_last_valid(hidden, lengths_t))
             toks, _ = self._sample(

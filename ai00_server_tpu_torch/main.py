@@ -7,9 +7,10 @@ Port of ``ai00_server_tpu/main.py``.  Usage::
 
 The model named in ``[model]`` loads in the background while the HTTP
 endpoints come up.  ``--device`` defaults to ``cuda`` and raises without a
-usable card; ``cpu`` runs the plain versions of the kernels.  TLS, ACME,
-the WebUI and the embedding sidecar are the ROADMAP "admin, profile and
-file routes" item.
+usable card; ``cpu`` runs the plain versions of the kernels.  An ``[embed]``
+section loads the external encoder behind ``/api/oai/embeds``
+(``server/embed.py``) onto the same device.  TLS, ACME and the WebUI are
+the ROADMAP "admin, profile and file routes" item.
 """
 
 from __future__ import annotations
@@ -67,6 +68,20 @@ async def amain(argv=None):
 
     load_task = (asyncio.get_event_loop().create_task(autoload())
                  if config.model.get("name") else None)
+
+    if config.embed:
+        from .server import embed as embed_mod
+
+        try:
+            server.embedder = await embed_mod.load_embedder(
+                config.embed, device=server.middleware.device)
+        except Exception:
+            log.exception("[embed] configured but the encoder failed to "
+                          "load; /api/oai/embeds answers 400")
+        else:
+            if server.embedder is not None:
+                log.info("external embedding model loaded: %s",
+                         server.embedder.name)
 
     ip = args.ip or config.listen.ip
     port = args.port or config.listen.port

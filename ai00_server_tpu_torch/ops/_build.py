@@ -86,6 +86,13 @@ SIGNATURES = {
         # scratch_floats, counters, n_counters, stream
         "ffn7_t1_l_launch": "pppppppppipppiiiipipip",
     },
+    "ivf": {
+        # -> the largest D the kernel takes (not a status)
+        "ivf_max_d": "",
+        # q, probe, packed, packed_ids, pscale (null: none), scores, ids, Q,
+        # nprobe, nlist, cap, D, dtype, stream
+        "ivf_score_launch": "pppppppiiiiiip",
+    },
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

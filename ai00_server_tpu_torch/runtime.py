@@ -1,8 +1,9 @@
 """Batched generation runtime: slots, prefix cache, generation loop.
 
-Port of ``ai00_server_tpu/runtime.py`` for plain completion and chat
-requests (BNF grammars, the device token DFA, choose, state extraction,
-embeddings and custom initial states are later ROADMAP items):
+Port of ``ai00_server_tpu/runtime.py`` for completion and chat requests,
+choose (perplexity ranking) and pooled state requests (embeddings); BNF
+grammars, the device token DFA and custom initial states are later
+ROADMAP items:
 
 * Continuous batching over ``max_batch`` slots: ONE async drive loop
   gathers the runnable slots each iteration, builds a merged fixed-shape
@@ -20,6 +21,12 @@ embeddings and custom initial states are later ROADMAP items):
   concurrent identical prompts await one prefill.
 * Per-token post-processing: UTF-8-safe streaming, incremental stop-word
   hold-back, max_tokens / EOS handling, token/duration accounting.
+* CHOOSE and STATE requests exit after their prefill: a choose scores each
+  choice from a copy of the row's state (``Engine.position_logps``); a
+  pooled STATE request returns its embedding, the mean-hidden readout of
+  the hidden sums its own prefill accumulated (its whole prompt runs from
+  a fresh state: no prefix-cache checkout, no resident continue) or the
+  pooled state (``pooling="state"``).
 """
 
 from __future__ import annotations
@@ -48,6 +55,12 @@ END_OF_TEXT = 0
 # ---------------------------------------------------------------------------
 # Request/response types
 # ---------------------------------------------------------------------------
+
+
+class GenerateKind(Enum):
+    GENERATE = "generate"
+    CHOOSE = "choose"
+    STATE = "state"
 
 
 @dataclass
@@ -86,6 +99,18 @@ class GenerateRequest:
     stop: list[str] = field(default_factory=list)
     bias: dict[int, float] = field(default_factory=dict)
     sampler: SamplerSpec = field(default_factory=SamplerSpec)
+    kind: GenerateKind = GenerateKind.GENERATE
+    choices: list[str] = field(default_factory=list)
+    calibrate: bool = False
+    # STATE requests: return the pooled embedding vector instead of the
+    # full state.
+    pooled: bool = False
+    # Pooled readout: "mean_hidden" (C dims, the masked mean of the final
+    # hidden states; the default) or "state" (3C dims, the pooled state).
+    pooling: Optional[str] = None
+
+    def effective_pooling(self) -> str:
+        return self.pooling or "mean_hidden"
 
 
 class FinishReason(str, Enum):
@@ -109,7 +134,8 @@ class TokenCounter:
 class GenerateHandle:
     """Per-request message stream.
 
-    Messages: ("start",) ("content", str) ("stop", FinishReason,
+    Messages: ("start",) ("content", str) ("choose", perplexities)
+    ("embed_vec", vector) ("embed", state) ("stop", FinishReason,
     TokenCounter) ("done",)
     """
 
@@ -341,6 +367,9 @@ class Runtime:
         # device work is issued in the order the drive loop decided it.
         self._device_pool = concurrent.futures.ThreadPoolExecutor(
             max_workers=1, thread_name_prefix="engine-drive")
+        # (hsum_serial, (B, C) numpy): the coalesced embed readout, only
+        # touched from the engine's worker thread.
+        self._hsum_snap = None
 
     # ------------------------------------------------------------------
     # Public API
@@ -499,7 +528,8 @@ class Runtime:
                 lengths[s.index] = n
                 if n == len(ctx.remaining):
                     completing.append(s)
-                    sample_mask[s.index] = True
+                    sample_mask[s.index] = (
+                        ctx.request.kind == GenerateKind.GENERATE)
             else:  # DECODE
                 tokens[s.index, 0] = ctx.all_tokens[-1]
                 lengths[s.index] = 1
@@ -686,8 +716,19 @@ class Runtime:
         loop = asyncio.get_event_loop()
         pool = self._device_pool
 
+        # Mean-hidden embeds read the hidden sums step() accumulates for
+        # rows loaded with hidden_sums=True, so their whole prompt runs
+        # through step() from a fresh state: no resident continue, no
+        # prefix-cache checkout.
+        mean_hidden = (ctx.request.pooled
+                       and ctx.request.kind == GenerateKind.STATE
+                       and ctx.request.effective_pooling() == "mean_hidden")
+
         reused = 0
-        if (slot.resident_tokens
+        if mean_hidden:
+            await loop.run_in_executor(
+                pool, lambda: eng.load_row_state(b, None, hidden_sums=True))
+        elif (slot.resident_tokens
                 and len(slot.resident_tokens) < len(ctx.prompt_tokens)
                 and ctx.prompt_tokens[: len(slot.resident_tokens)]
                 == slot.resident_tokens):
@@ -707,10 +748,12 @@ class Runtime:
                     item = None  # gave up waiting: treat as a cache miss
             if (isinstance(item, CachedItem)
                     and plen == len(ctx.prompt_tokens)
-                    and item.logits is None):
+                    and item.logits is None
+                    and ctx.request.kind != GenerateKind.STATE):
                 # Exact hit without prompt-end logits (a Back-cached
-                # item): back off to a strict prefix so the last token is
-                # re-fed and the logits regenerate.
+                # item): generation samples from them and choose reads its
+                # head term from them, so back off to a strict prefix; the
+                # last token is re-fed and the logits regenerate.
                 plen, item = self.cache.longest_prefix(
                     ctx.prompt_tokens, strict=True)
                 if isinstance(item, asyncio.Future):
@@ -745,6 +788,7 @@ class Runtime:
 
         # In-flight cache future for this prompt.
         if (len(ctx.prompt_tokens) >= MIN_PROMPT_CACHE_TOKENS
+                and ctx.request.kind == GenerateKind.GENERATE
                 and exact_item is None and ctx.remaining):
             fut = loop.create_future()
             self.cache.insert(ctx.prompt_tokens, fut)
@@ -754,18 +798,29 @@ class Runtime:
         await ctx.handle.queue.put(("start",))
 
         if exact_item is not None:
-            # Exact-hit fast path: sample from the cached prompt-end logits.
+            # The cached prompt-end logits serve the sample fast path
+            # (generate) and the head log-prob term (choose).
             ctx.prefill_logits = exact_item.logits
+        if exact_item is not None \
+                and ctx.request.kind == GenerateKind.GENERATE:
+            # Exact-hit fast path: sample from the cached prompt-end logits.
             slot.phase = _SlotPhase.DECODE
             token = await loop.run_in_executor(
                 pool, eng.sample_only, b, exact_item.logits)
             await self._accept_token(slot, token)
         elif not ctx.remaining:
-            # The resident state covers the whole prompt but without
-            # logits: redo the prompt from a fresh state.
-            ctx.remaining = list(ctx.prompt_tokens)
-            await loop.run_in_executor(pool, eng.load_row_state, b, None)
-            slot.phase = _SlotPhase.PREFILL
+            # The state covers the whole prompt: state and choose requests
+            # are answered from it; a generation without logits redoes the
+            # prompt from a fresh state.
+            if ctx.request.kind == GenerateKind.STATE:
+                await self._emit_state(slot)
+            elif ctx.request.kind == GenerateKind.CHOOSE:
+                await self._run_choose(slot)
+            else:
+                ctx.remaining = list(ctx.prompt_tokens)
+                await loop.run_in_executor(pool, eng.load_row_state, b,
+                                           None)
+                slot.phase = _SlotPhase.PREFILL
         else:
             slot.phase = _SlotPhase.PREFILL
         return True
@@ -795,6 +850,12 @@ class Runtime:
                 return  # still prefilling
             if ctx.cache_future is not None and not ctx.prefill_cached:
                 await self._store_prefill(slot, ctx)
+            if ctx.request.kind == GenerateKind.STATE:
+                await self._emit_state(slot)
+                return
+            if ctx.request.kind == GenerateKind.CHOOSE:
+                await self._run_choose(slot)
+                return
             slot.phase = _SlotPhase.DECODE
 
         await self._accept_token(slot, int(result.tokens[b]))
@@ -900,7 +961,8 @@ class Runtime:
         loop = asyncio.get_event_loop()
 
         # Back: cache the final state keyed by the consumed tokens.
-        if (reason in (FinishReason.STOP, FinishReason.LENGTH)
+        if (ctx.request.kind == GenerateKind.GENERATE
+                and reason in (FinishReason.STOP, FinishReason.LENGTH)
                 and len(consumed) >= MIN_PROMPT_CACHE_TOKENS):
             row = await loop.run_in_executor(
                 self._device_pool, self.engine.read_row_state_device, b)
@@ -929,6 +991,84 @@ class Runtime:
         slot.phase = _SlotPhase.IDLE
         slot.ctx = None
         self._wake.set()
+
+    async def _emit_state(self, slot: _Slot) -> None:
+        """Answer a STATE request after its prefill and finish it."""
+        ctx = slot.ctx
+        loop = asyncio.get_event_loop()
+        if not ctx.request.pooled:
+            state = await loop.run_in_executor(
+                self._device_pool, self.engine.read_row_state, slot.index)
+            await ctx.handle.queue.put(("embed", state))
+        elif ctx.request.effective_pooling() == "mean_hidden":
+            # The mean of the hidden sums this row's own prefill added (the
+            # install forced a fresh-state, whole-prompt prefill).  Rows
+            # finishing in the same step share one whole-pool read, keyed
+            # by the engine's hsum_serial.
+            def _mean(b=slot.index, n=len(ctx.prompt_tokens)):
+                snap = self._hsum_snap
+                serial = self.engine.hsum_serial
+                if snap is None or snap[0] != serial:
+                    snap = (serial, self.engine.read_hidden_sums())
+                    self._hsum_snap = snap
+                v = (snap[1][b] / max(n, 1)).astype(np.float64)
+                return (v / max(float(np.linalg.norm(v)), 1e-12)).astype(
+                    np.float32)
+
+            vec = await loop.run_in_executor(self._device_pool, _mean)
+            await ctx.handle.queue.put(("embed_vec", vec))
+        else:
+            vec = await loop.run_in_executor(
+                self._device_pool, self.engine.read_row_embed, slot.index)
+            await ctx.handle.queue.put(("embed_vec", vec))
+        await self._finalize(slot, FinishReason.STOP)
+
+    async def _run_choose(self, slot: _Slot) -> None:
+        """Perplexity of each choice after the prompt: ``-(ln p(first token
+        | prompt) + sum ln p(next | ...)) / len(choice)``, scored from a
+        copy of the row's state.  ``calibrate`` adds each choice's mean
+        log-prob from the initial state after an end-of-text token."""
+        loop = asyncio.get_event_loop()
+        eng = self.engine
+        ctx = slot.ctx
+        b = slot.index
+        choices_tokens = [tuple(self.tokenizer.encode(c))
+                          for c in ctx.request.choices]
+        ppl = [float("inf")] * len(choices_tokens)
+
+        if ctx.request.calibrate:
+            init = await loop.run_in_executor(self._device_pool,
+                                              eng.fresh_row_state)
+            for i, toks in enumerate(choices_tokens):
+                if not toks:
+                    continue
+                fed = (END_OF_TEXT,) + toks
+                lp = await loop.run_in_executor(
+                    self._device_pool, lambda f=fed: eng.position_logps(
+                        list(f), state=init))
+                ppl[i] = float(np.sum(lp)) / len(fed)
+
+        head_logp = None
+        if ctx.prefill_logits is not None:
+            raw = ctx.prefill_logits
+            if isinstance(raw, _LazyLogitsRow):
+                raw = await loop.run_in_executor(None, raw.get)
+            x = np.asarray(raw, np.float64)
+            x = x - x.max()
+            head_logp = x - np.log(np.exp(x).sum())
+
+        for i, toks in enumerate(choices_tokens):
+            if not toks:
+                continue
+            lp = await loop.run_in_executor(
+                self._device_pool, lambda t=toks: eng.position_logps(
+                    list(t), b=b))
+            h = float(head_logp[toks[0]]) if head_logp is not None else 0.0
+            p = -(h + float(np.sum(lp))) / len(toks)
+            ppl[i] = (ppl[i] + p) if ctx.request.calibrate else p
+
+        await ctx.handle.queue.put(("choose", ppl))
+        await self._finalize(slot, FinishReason.STOP)
 
     async def flush_cache_stores(self) -> None:
         """Await all in-flight cache-store transfers."""

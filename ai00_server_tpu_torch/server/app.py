@@ -2,30 +2,39 @@
 
 Port of ``ai00_server_tpu/server/app.py`` for this slice:
 
-  POST /api/oai/[v1/]chat/completions   chat, stream + non-stream
+  POST /api/oai/[v1/]chat/completions   chat, stream + non-stream, with
+                                        retrieval-augmented context
   POST /api/oai/[v1/]completions        completions, stream + non-stream
+  POST /api/oai/[v1/]chooses            perplexity ranking
+  POST /api/oai/[v1/]embeddings         model-derived embeddings
+  POST /api/oai/[v1/]embeds             the ``[embed]`` sidecar encoder
+  POST /api/retrieval/index|add|search|build|drop, GET /api/retrieval/list
   GET  /api/oai/[v1/]models             current model id
   GET  /api/adapters                    device list (torch.cuda)
   GET  /api/models/info                 RuntimeInfo
 
 Every other route of the JAX server, and every request field outside the
-slice (``bnf_schema``, ``state``, ``retrieval``), answers 501 with the
-ROADMAP item that brings it.
+slice (``bnf_schema``, ``state``), answers 501 with the ROADMAP item that
+brings it.
 """
 
 from __future__ import annotations
 
 import asyncio
+import functools
 import json
 import os
 import re
 
+import numpy as np
 import torch
 from aiohttp import web
 
 from ..middleware import MAX_TOKENS, Middleware
 from ..ops import sampling
-from ..runtime import FinishReason, GenerateRequest, SamplerSpec
+from ..retrieval_store import RetrievalStore
+from ..runtime import (FinishReason, GenerateKind, GenerateRequest,
+                       SamplerSpec)
 from .config import Config
 
 _WS_RE = re.compile(r"\n(\s*\n)+")
@@ -38,14 +47,9 @@ ROLE_NAMES = {
 # Routes of the JAX server that later slices bring: (method, path) ->
 # ROADMAP item.
 LATER_ROUTES = {
-    **{("POST", p): "embeddings and /chooses" for p in (
-        "/api/oai/chooses", "/api/oai/v1/chooses", "/api/oai/embeddings",
-        "/api/oai/v1/embeddings", "/api/oai/embeds", "/api/oai/v1/embeds")},
+    # The raw state (unpooled) is flattened by ``models/packing``.
     ("POST", "/api/oai/states"): ".state files, LoRA and prefab",
     ("POST", "/api/oai/v1/states"): ".state files, LoRA and prefab",
-    **{("POST", f"/api/retrieval/{p}"): "retrieval"
-       for p in ("index", "add", "search", "build", "drop")},
-    ("GET", "/api/retrieval/list"): "retrieval",
     ("GET", "/api/models/state"): "admin, profile and file routes",
     ("GET", "/api/models/list"): "admin, profile and file routes",
     ("GET", "/api/metrics"): "admin, profile and file routes",
@@ -66,7 +70,6 @@ LATER_ROUTES = {
 LATER_FIELDS = {
     "bnf_schema": "BNF and the device token DFA",
     "state": ".state files, LoRA and prefab",
-    "retrieval": "retrieval",
 }
 
 
@@ -166,6 +169,8 @@ class Server:
     def __init__(self, config: Config, device="cuda"):
         self.config = config
         self.middleware = Middleware(device=device)
+        self.retrieval = RetrievalStore(device=self.middleware.device)
+        self.embedder = None  # the optional [embed] sidecar (server/embed)
         self.app = web.Application(client_max_size=1 << 30,
                                    middlewares=[cors_middleware,
                                                 bad_request_middleware])
@@ -189,6 +194,18 @@ class Server:
             r.add_post(p, self.chat_completions)
         for p in ("/api/oai/completions", "/api/oai/v1/completions"):
             r.add_post(p, self.completions)
+        for p in ("/api/oai/chooses", "/api/oai/v1/chooses"):
+            r.add_post(p, self.chooses)
+        for p in ("/api/oai/embeddings", "/api/oai/v1/embeddings"):
+            r.add_post(p, self.embeddings)
+        for p in ("/api/oai/embeds", "/api/oai/v1/embeds"):
+            r.add_post(p, self.embeds)
+        r.add_post("/api/retrieval/index", self.retrieval_index)
+        r.add_post("/api/retrieval/add", self.retrieval_add)
+        r.add_post("/api/retrieval/search", self.retrieval_search)
+        r.add_post("/api/retrieval/build", self.retrieval_build)
+        r.add_get("/api/retrieval/list", self.retrieval_list)
+        r.add_post("/api/retrieval/drop", self.retrieval_drop)
         for p in ("/api/oai/models", "/api/oai/v1/models"):
             r.add_get(p, self.oai_models)
         r.add_get("/api/adapters", self.adapters)
@@ -238,6 +255,32 @@ class Server:
         prefix = prefix_tpl.replace(
             "{assistant}", names.get("assistant", "Assistant")).replace(
             "{user}", names.get("user", "User"))
+
+        # Retrieval-augmented chat: embed the last user turn, search a
+        # named index, prepend the hits as a system record.
+        rag = body.get("retrieval")
+        if rag and messages:
+            last_user = next(
+                (str(m.get("content", "")) for m in reversed(messages)
+                 if str(m.get("role", "")).lower() == "user"), None)
+            if last_user:
+                q = await self._embed_texts(env, [last_user])
+                search = functools.partial(
+                    self.retrieval.search, rag["index"], q,
+                    top_k=int(rag.get("top_k", 4)),
+                    nprobe=int(rag.get("nprobe", 8)))
+                _, _, texts = await asyncio.get_event_loop().run_in_executor(
+                    None, search)
+                docs = [t for t in texts[0] if t]
+                if docs:
+                    tpl = rag.get("template",
+                                  "Relevant information:\n{documents}")
+                    block = tpl.replace("{documents}", "\n".join(docs))
+                    parts.insert(0, record_tpl
+                                 .replace("{role}",
+                                          names.get("system", "System"))
+                                 .replace("{content}", block))
+
         req = _generate_request(body, sep.join(parts) + sep + prefix,
                                 model_text=sep.join(model_parts))
         request["parsed"] = True
@@ -332,6 +375,199 @@ class Server:
             raise
         await resp.write_eof()
         return resp
+
+    async def chooses(self, request: web.Request):
+        body = await request.json()
+        refused = self._later_field(body)
+        if refused is not None:
+            return refused
+        env = await self._env()
+        choices = [str(c) for c in _array(body.get("choices"))]
+        req = GenerateRequest(
+            prompt="".join(_array(body.get("input"))),
+            max_tokens=1,
+            kind=GenerateKind.CHOOSE,
+            choices=choices,
+            calibrate=bool(body.get("calibrate", False)),
+        )
+        request["parsed"] = True
+        handle = await env.runtime.submit(req)
+        ppls = None
+        async for msg in handle:
+            if msg[0] == "choose":
+                ppls = msg[1]
+        if ppls is None:
+            return web.json_response({"error": "choose aborted"},
+                                     status=500)
+        order = sorted(range(len(choices)), key=lambda i: ppls[i])
+        data = [{
+            "object": "choice",
+            "index": i,
+            "rank": rank,
+            "choice": choices[i],
+            "perplexity": ppls[i],
+        } for rank, i in enumerate(order)]
+        return web.json_response({
+            "object": "list", "model": self._model_name(), "data": data,
+        })
+
+    async def _embed_texts(self, env, texts: list[str],
+                           pooling: str | None = None) -> np.ndarray:
+        """Model-derived sentence embeddings, L2-normalized, one pooled
+        STATE request a text (batched across slots).
+
+        ``pooling="mean_hidden"`` (the default): the masked mean over all
+        positions of the final hidden states (C dims), read from the
+        hidden sums the serving prefill accumulates.  ``pooling="state"``:
+        the pooled state (3C dims: mean ``att_x`` | mean ``ffn_x`` | the
+        ``wkv`` uniform-query readout, each part unit-normalized; 2C for
+        RWKV-4).  The two are not comparable."""
+        handles = []
+        for text in texts:
+            req = GenerateRequest(prompt=str(text), max_tokens=1,
+                                  kind=GenerateKind.STATE, pooled=True,
+                                  pooling=pooling)
+            handles.append(await env.runtime.submit(req))
+        vecs = []
+        for handle in handles:
+            vec = None
+            async for msg in handle:
+                if msg[0] == "embed_vec":
+                    vec = np.asarray(msg[1], np.float32)
+            if vec is None:
+                raise RuntimeError("embedding aborted before its readout")
+            vecs.append(vec)
+        return np.stack(vecs) if vecs else np.zeros((0, 0), np.float32)
+
+    async def embeddings(self, request: web.Request):
+        body = await request.json()
+        refused = self._later_field(body)
+        if refused is not None:
+            return refused
+        env = await self._env()
+        inputs = [str(t) for t in _array(body.get("input"))]
+        pooling = body.get("pooling")
+        if pooling is not None and pooling not in ("mean_hidden", "state"):
+            return web.json_response(
+                {"error": "pooling must be 'mean_hidden' (C dims) or "
+                          "'state' (3C dims)"}, status=400)
+        request["parsed"] = True
+        vecs = await self._embed_texts(env, inputs, pooling=pooling)
+        data = [{"object": "embedding", "index": i, "embedding": v.tolist()}
+                for i, v in enumerate(vecs)]
+        return web.json_response({
+            "object": "list", "model": self._model_name(), "data": data,
+            # Vectors of the two poolings are not comparable: echo which
+            # one (and its dimensionality) this response used.
+            "pooling": pooling or "mean_hidden",
+            "dimensions": int(vecs.shape[-1]) if len(data) else 0,
+            "usage": {"prompt_tokens": 0, "total_tokens": 0},
+        })
+
+    async def embeds(self, request: web.Request):
+        """The external embedding sidecar: chunk the input by token budget
+        and embed each chunk.  Needs the ``[embed]`` model (400 without)."""
+        body = await request.json()
+        if self.embedder is None:
+            return web.json_response(
+                {"error": "no [embed] model configured"}, status=400)
+        text = str(body.get("input") or "")
+        if not text:
+            return web.json_response({"error": "empty input"}, status=400)
+        max_tokens = int(body.get("max_tokens", 510))
+        prefix = str(body.get("prefix", "query:"))
+        emb = self.embedder
+
+        def work():
+            return [{"chunk": chunk,
+                     "embed": emb.embed([prefix + chunk]).tolist()}
+                    for chunk in emb.split_chunks(text, max_tokens)]
+
+        chunk_data = await asyncio.get_event_loop().run_in_executor(
+            None, work)
+        return web.json_response({
+            "object": "embeds", "model": emb.name,
+            "data": [{"object": "embed", "index": 0, "chunks": chunk_data}],
+        })
+
+    # -- retrieval (RAG) -------------------------------------------------------
+
+    async def retrieval_index(self, request: web.Request):
+        body = await request.json()
+        name = body["name"]
+        texts = [str(t) for t in _array(body.get("texts"))]
+        vectors = body.get("vectors")
+        if vectors is not None:
+            vecs = np.asarray(vectors, np.float32)
+            self.retrieval.create(name, int(vecs.shape[-1]))
+            self.retrieval.add(name, vecs, texts or None)
+        elif texts:
+            env = await self._env()
+            vecs = await self._embed_texts(env, texts)
+            self.retrieval.create(name, int(vecs.shape[-1]))
+            self.retrieval.add(name, vecs, texts)
+        else:
+            self.retrieval.create(name, int(body.get("dim", 0)))
+        if body.get("nlist"):
+            await asyncio.get_event_loop().run_in_executor(
+                None, self.retrieval.build_ivf, name, int(body["nlist"]))
+        idx = self.retrieval.get(name)
+        return web.json_response({"name": name, "size": idx.size,
+                                  "dim": idx.dim})
+
+    async def retrieval_add(self, request: web.Request):
+        body = await request.json()
+        name = body["name"]
+        texts = [str(t) for t in _array(body.get("texts"))]
+        if body.get("vectors") is not None:
+            size = self.retrieval.add(
+                name, np.asarray(body["vectors"], np.float32), texts or None)
+        else:
+            env = await self._env()
+            vecs = await self._embed_texts(env, texts)
+            size = self.retrieval.add(name, vecs, texts)
+        return web.json_response({"name": name, "size": size})
+
+    async def retrieval_build(self, request: web.Request):
+        body = await request.json()
+        await asyncio.get_event_loop().run_in_executor(
+            None, lambda: self.retrieval.build_ivf(
+                body["name"], int(body.get("nlist", 64)),
+                int(body.get("iters", 10))))
+        return web.json_response({"state": "built"})
+
+    async def retrieval_search(self, request: web.Request):
+        body = await request.json()
+        name = body["name"]
+        if body.get("vectors") is not None:
+            q = np.asarray(body["vectors"], np.float32)
+        else:
+            env = await self._env()
+            queries = [str(t) for t in
+                       _array(body.get("query") or body.get("queries"))]
+            q = await self._embed_texts(env, queries)
+        scores, ids, texts = await asyncio.get_event_loop().run_in_executor(
+            None, lambda: self.retrieval.search(
+                name, q, top_k=int(body.get("top_k", 10)),
+                nprobe=int(body.get("nprobe", 8)),
+                exact=body.get("exact")))
+        return web.json_response({
+            "object": "list",
+            "data": [{
+                "index": qi,
+                "hits": [{"id": int(i), "score": float(s), "text": t}
+                         for i, s, t in zip(ids[qi], scores[qi], texts[qi])
+                         if i >= 0],
+            } for qi in range(len(ids))],
+        })
+
+    async def retrieval_list(self, request: web.Request):
+        return web.json_response(self.retrieval.list())
+
+    async def retrieval_drop(self, request: web.Request):
+        body = await request.json()
+        self.retrieval.drop(body["name"])
+        return web.json_response({"state": "dropped"})
 
     async def oai_models(self, request: web.Request):
         env = await self._env()

@@ -48,6 +48,7 @@ class Config:
     bnf: dict = field(default_factory=dict)
     adapter: Any = field(default_factory=dict)
     listen: ListenerOption = field(default_factory=ListenerOption)
+    embed: dict | None = None   # the [embed] sidecar (server/embed.py)
 
     @classmethod
     def from_toml(cls, path: str) -> "Config":
@@ -63,6 +64,7 @@ class Config:
         c.tokenizer = raw.get("tokenizer", {})
         c.bnf = raw.get("bnf", {})
         c.adapter = raw.get("adapter", {"Auto": {}})
+        c.embed = raw.get("embed")
         lst = raw.get("listen", {})
         lo = ListenerOption()
         for k in ("domain", "ip", "port", "acme", "tls"):

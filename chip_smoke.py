@@ -32,7 +32,13 @@ kernel's source is built first, one ``nvcc`` each, all started together):
    4096): ``v6_wkv_gn`` in its static-decay mode, ``wkv56_t1`` and
    ``wkv56_chunk`` on v5's static (H, N) decay, ``v4_wkv`` and
    ``wkv4_chunk`` (``csrc/wkv4.cu``, on bf16 k and v), and each stack's two
-   ``v7_ln_mix`` and four ``v7_skinny_matmul`` launches of a layer.
+   ``v7_ln_mix`` and four ``v7_skinny_matmul`` launches of a layer.  Last,
+   the IVF probe ``ivf_score`` (``csrc/ivf.cu``) on an int8 index of 2^20
+   vectors of D = 1024 (a mixture of 16,384 unit modes made on the card,
+   balanced k-means with nlist = 1024, the streamed builder), held against
+   its plain version there and on bf16 and f32 indexes of 65,536 vectors,
+   timed at 64 queries with nprobe 8 and 16, with recall@10 against exact
+   search printed as a reading.
 3. Model parity: the full-width RWKV-7 0.4B shape at 2 layers in f32 on
    the card (kernels) against the same weights on the CPU (plain
    versions), after a ragged prefill and T=1 steps — on the
@@ -72,8 +78,13 @@ kernel's source is built first, one ``nvcc`` each, all started together):
    24-layer RWKV-6 checkpoint of the 1B6 shape (f16 on disk) served in bf16
    with the same burst: prefill through ``wkv56_chunk``, every decode step
    one replay of the fused v6 stack's graph; its stack is also timed with
-   every layer quantized int8 and nf4 on the card.  Then random 24-layer
-   RWKV-5 and RWKV-4 checkpoints of the 0.4B shape, served the same way
+   every layer quantized int8 and nf4 on the card.  The bf16 v7 server
+   also answers a batch of ``/embeddings`` (each held against the
+   mean-hidden recipe computed in the serving shape), ``pooling="state"``,
+   ``/chooses``, the retrieval routes (an IVF index built from texts on the
+   card, searched by text and by vector, the hits held against the plain
+   version on the CPU) and a RAG chat, with ``ivf_score``'s count zeroed
+   before and read after.  Then random 24-layer RWKV-5 and RWKV-4 checkpoints of the 0.4B shape, served the same way
    (prefill through ``wkv56_chunk`` / ``wkv4_chunk``, decode one replay of
    the fused v5 / v4 stack).  Each phase prints its seconds.
 
@@ -127,6 +138,14 @@ MODEL_TOL = 1e-3            # max |card - cpu| / max |cpu|, f32, 2 layers
 # LayerNorms and products, so a few ulps on the hidden; the f32 state sees
 # them through k, v and the decay.
 BF16_MODEL_TOL = 3e-2
+# A served mean-hidden /embeddings vector against the recipe (the masked
+# mean of the final hidden states from a fresh state) computed in the
+# serving prefill's shape, (MAX_BATCH, CHUNK): the same products and sums,
+# so max abs over a unit vector of C = 1024 (typical component ~0.03) is
+# ~1e-7.  The recipe at batch 1 (mean_hidden_embed) takes other GEMM
+# shapes, whose bf16 roundings 24 random layers carry to ~2.5e-2: held to
+# BF16_MODEL_TOL only.
+EMBED_TOL = 1e-4
 L2_BYTES = 50e6             # H100 L2: timed weights rotate through more
 
 
@@ -1656,6 +1675,175 @@ def phase_v54_kernels(dev) -> dict:
     return rows
 
 
+# The retrieval north star's shape cut to about a minute on one H100
+# (BASELINE.json's "Full RAG serve", bench.py:bench_ivf): a mixture of IVF_MODES unit modes
+# with noise of norm IVF_SIGMA, D = 1024, int8 codes in nlist = 1024
+# clusters, 2^20 vectors (the TPU bench's 10M cut to 1/10).
+IVF_N, IVF_D, IVF_CHUNK = 1 << 20, 1024, 1 << 16
+IVF_MODES, IVF_SIGMA, IVF_NLIST, IVF_TRAIN = 16384, 0.35, 1024, 4
+IVF_Q, IVF_CHECK_Q, IVF_RECALL_Q = 64, 16, 256
+IVF_SMALL_N, IVF_SMALL_NLIST = 1 << 16, 64  # the bf16 and f32 indexes
+
+
+def ivf_bound(ivf, probe, elem: int, D: int) -> dict:
+    """The least time of one ``ivf_score`` call: the filled rows of each
+    DISTINCT probed cluster read once (ids and scales of all its slots),
+    the queries, the probe table and the (Q, nprobe, cap) outputs, over
+    3.35 TB/s; or its multiply-adds over 67 TFLOP/s f32.  Beside it the
+    bytes the grid reads, every (query, probe) block with its ids and
+    scales: Q * nprobe * cap * (D * elem + 8)."""
+    import torch
+
+    Q, nprobe = probe.shape
+    cap = ivf.cap
+    fill = (ivf.packed_ids >= 0).sum(-1)
+    distinct = torch.unique(probe.long())
+    filled = int(fill[distinct].sum())
+    out_bytes = Q * nprobe * cap * 8
+    n_bytes = (filled * D * elem + len(distinct) * cap * 8 + Q * D * 4
+               + Q * nprobe * 4 + out_bytes)
+    flops = 2 * D * int(fill[probe.long()].sum())
+    b_ms, b_by = bound(n_bytes, flops)
+    grid = Q * nprobe * cap * (D * elem + 8) + out_bytes + Q * D * 4
+    return {"bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes,
+            "distinct": len(distinct), "grid_bytes": grid,
+            "grid_ms": grid / HBM_BYTES_PER_S * 1e3}
+
+
+def ivf_data(dev):
+    """The bf16 corpus (IVF_N, IVF_D) made on the card from SEED, one
+    IVF_CHUNK-row chunk at a time (as bench_ivf makes it), and queries:
+    perturbed copies of its first IVF_RECALL_Q rows (noise norm 0.1)."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    modes = torch.randn(IVF_MODES, IVF_D, generator=gen, device=dev)
+    modes /= modes.norm(dim=-1, keepdim=True)
+    data = torch.empty((IVF_N, IVF_D), dtype=torch.bfloat16, device=dev)
+    for i in range(0, IVF_N, IVF_CHUNK):
+        cid = torch.randint(0, IVF_MODES, (IVF_CHUNK,), generator=gen,
+                            device=dev)
+        x = modes[cid] + (IVF_SIGMA / IVF_D ** 0.5) * torch.randn(
+            IVF_CHUNK, IVF_D, generator=gen, device=dev)
+        data[i:i + IVF_CHUNK] = (x / x.norm(dim=-1, keepdim=True)).bfloat16()
+    q = data[:IVF_RECALL_Q].float() + (0.1 / IVF_D ** 0.5) * torch.randn(
+        IVF_RECALL_Q, IVF_D, generator=gen, device=dev)
+    return data, q, gen
+
+
+def phase_ivf_kernels(dev) -> dict:
+    """Row 16, ``ivf_score`` (``csrc/ivf.cu``): an int8 IVF of IVF_N
+    vectors built on the card (``kmeans_blocked(balance=True)`` on an
+    IVF_TRAIN-chunk sample, then ``StreamedIVFBuilder`` chunk by chunk,
+    spill 8, the placement bias kept), the kernel against
+    ``ivf_score_plain`` on IVF_CHECK_Q queries at full index size, then on
+    bf16 and f32 indexes of IVF_SMALL_N vectors (``build_ivf``); timed at
+    IVF_Q queries with nprobe 8 (the row) and 16; recall@10 of
+    ``ivf_search`` against ``exact_search`` on the bf16 corpus, printed as a
+    reading."""
+    import torch
+
+    from ai00_server_tpu_torch.ops import retrieval as R
+
+    t0 = time.monotonic()
+    data, q, gen = ivf_data(dev)
+    cent, cbias = R.kmeans_blocked(data[:IVF_TRAIN * IVF_CHUNK], IVF_NLIST,
+                                   iters=8, blk=IVF_CHUNK, balance=True,
+                                   generator=gen)
+    mean = IVF_N / IVF_NLIST
+    cap = int(mean + 8.0 * mean ** 0.5 + 16)
+    builder = R.StreamedIVFBuilder(cent, cap=cap, dim=IVF_D, spill=8,
+                                   cbias=cbias)
+    for i in range(0, IVF_N, IVF_CHUNK):
+        builder.add(data[i:i + IVF_CHUNK], i)
+    ivf = builder.finish()
+    torch.cuda.synchronize()
+    dropped = int(builder.dropped)
+    print(f"IVF: {IVF_N} x {IVF_D} bf16 corpus ({IVF_MODES} modes, sigma "
+          f"{IVF_SIGMA}) made, balanced k-means (nlist {IVF_NLIST}) and the "
+          f"streamed int8 build (cap {cap}, {ivf.packed.numel() / 1e9:.2f} "
+          f"GB of codes, {dropped} dropped) in "
+          f"{time.monotonic() - t0:.1f} s", flush=True)
+    check(dropped < IVF_N // 100, f"the IVF build dropped {dropped} rows")
+
+    worst = 0.0
+
+    def held(index, qs, nprobe, what):
+        nonlocal worst
+        qf, probe = R._ivf_probe(index.centroids, qs, nprobe, index.cbias)
+        s_k, i_k = R.ivf_score(index.packed, index.packed_ids, index.pscale,
+                               qf, probe)
+        s_p, i_p = R.ivf_score_plain(index.packed, index.packed_ids,
+                                     index.pscale, qf, probe)
+        torch.cuda.synchronize()
+        check(torch.equal(i_k, i_p), f"ivf_score {what}: ids differ")
+        fin = torch.isfinite(s_p)
+        check(torch.equal(torch.isfinite(s_k), fin),
+              f"ivf_score {what}: empty slots differ")
+        err, rel = rel_err(s_k[fin], s_p[fin])
+        check(rel <= KERNEL_TOL, f"ivf_score {what} disagrees with its "
+              f"plain version: {rel}")
+        worst = max(worst, err)
+        print(f"ivf_score {what} Q={qs.shape[0]} nprobe={nprobe} "
+              f"cap={index.cap} D={qs.shape[1]}: max_abs_err {err:.3e} "
+              f"(tolerance {KERNEL_TOL} x max(1, |plain|)); ids and empty "
+              "slots equal", flush=True)
+
+    held(ivf, q[:IVF_CHECK_Q], 16, "int8")
+    small = data[:IVF_SMALL_N].float().cpu().numpy()
+    for dtype, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        index = R.build_ivf(small, nlist=IVF_SMALL_NLIST, iters=4,
+                            seed=SEED, dtype=dtype, device=dev)
+        held(index, q[:IVF_CHECK_Q], 8, name)
+        del index
+    del small
+
+    # Times at IVF_Q queries, nprobe 8 (the row) and 16.
+    row = None
+    for nprobe in (8, 16):
+        qf, probe = R._ivf_probe(ivf.centroids, q[:IVF_Q], nprobe, ivf.cbias)
+        args = (ivf.packed, ivf.packed_ids, ivf.pscale, qf, probe)
+        ms = device_ms(lambda: R.ivf_score(*args), 10)
+        b = ivf_bound(ivf, probe, 1, IVF_D)
+        print(f"ivf_score int8 Q={IVF_Q} nprobe={nprobe}: {ms:.5f} ms; bound "
+              f"{b['bound_ms']:.5f} ms by {b['bound_by']} ({b['distinct']} "
+              f"distinct clusters, {b['bytes'] / 1e6:.1f} MB); the grid "
+              f"reads {b['grid_bytes'] / 1e6:.1f} MB ({b['grid_ms']:.5f} ms "
+              "at 3.35 TB/s)", flush=True)
+        if nprobe == 8:
+            row = {
+                "name": "ivf_score", "route": "cuda",
+                "source": "ai00_server_tpu_torch/csrc/ivf.cu",
+                "replaces": "ai00_server_tpu/ops/retrieval.py:289",
+                "ms": ms,
+                "plain_ms": device_ms(lambda: R.ivf_score_plain(*args), 1,
+                                      replays=3),
+                "call_ms": call_ms(lambda: R.ivf_score(*args), 20),
+                "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+                "library_ms": None,
+            }
+
+    # recall@10 against exact search on the bf16 corpus (a reading).
+    _, gt = R.exact_search(data, q.bfloat16(), k=10)
+    gt = gt.cpu().numpy()
+    for nprobe in sorted({min(n, IVF_NLIST) for n in (8, 16, 32)}):
+        ids = torch.cat([R.ivf_search(
+            ivf.centroids, ivf.packed, ivf.packed_ids, q[j:j + IVF_Q], k=10,
+            nprobe=nprobe, pscale=ivf.pscale, cbias=ivf.cbias)[1]
+            for j in range(0, IVF_RECALL_Q, IVF_Q)]).cpu().numpy()
+        recall = sum(len(set(ids[r]) & set(gt[r]))
+                     for r in range(IVF_RECALL_Q)) / (10 * IVF_RECALL_Q)
+        print(f"IVF recall@10 against exact search, nprobe={nprobe}: "
+              f"{recall:.4f} ({IVF_RECALL_Q} queries)", flush=True)
+    row["max_abs_err"] = worst
+    del data, ivf, builder
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows = {"ivf_score": row}
+    print_rows(rows)
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: model parity, card (kernels) vs CPU (plain versions)
 # ---------------------------------------------------------------------------
@@ -2225,6 +2413,169 @@ PROMPT = ("the quick brown fox jumps over the lazy dog while a model "
 NO_EOS = {"0": -1e4}  # random weights: keep end-of-text out of greedy picks
 
 
+RAG_WORDS = ("river stone lamp orbit cedar violet harbor quartz ember meadow "
+             "falcon copper lantern glacier tundra saffron willow basalt "
+             "comet thistle").split()
+
+
+def rag_texts(n: int) -> list[str]:
+    """n distinct short documents from a fixed word list."""
+    import random
+
+    rs = random.Random(SEED)
+    return [f"note {i}: " + " ".join(rs.choice(RAG_WORDS) for _ in range(12))
+            for i in range(n)]
+
+
+def embed_recipe(engine, token_lists):
+    """Mean-hidden vectors of up to ``max_batch`` texts from ONE (B, CHUNK)
+    forward from fresh states, the shape of the serving prefill step: the
+    masked mean of the final hidden states, L2-normalized.  Independent of
+    the runtime's install, the engine's hidden sums and the HTTP path."""
+    import numpy as np
+    import torch
+
+    B, T, dev = engine.max_batch, engine.token_chunk_size, engine.device
+    toks = np.zeros((B, T), np.int32)
+    lens = np.zeros(B, np.int32)
+    for i, t in enumerate(token_lists):
+        toks[i, :len(t)], lens[i] = t, len(t)
+    lens_t = torch.as_tensor(lens, device=dev)
+    with engine._lock:
+        hidden, _ = engine.module.forward(
+            engine.model.params,
+            engine.module.init_state(engine.info, B, device=dev),
+            torch.as_tensor(toks, device=dev), lens_t)
+        mask = torch.arange(T, device=dev)[None, :, None] < lens_t[:, None,
+                                                                   None]
+        sums = (hidden.float() * mask).sum(1).cpu().numpy()
+    n = len(token_lists)
+    v = sums[:n].astype(np.float64) / np.maximum(lens[:n, None], 1)
+    return (v / np.linalg.norm(v, axis=1, keepdims=True)).astype(np.float32)
+
+
+async def rag_flow(http, base, server) -> dict:
+    """Embeddings, /chooses, retrieval and a RAG chat on a served model:
+    a batch of ``/embeddings`` (timed), each held against
+    ``embed_recipe`` of its own text, and the ``pooling="state"`` readout;
+    ``/chooses`` both ways; ``/api/retrieval/index`` from texts with
+    ``nlist`` (an IVF built on the card), ``add`` and ``search`` by text and
+    by vector (the IVF hits held against ``ivf_search`` on CPU copies of
+    the index: the kernel's plain version); a RAG chat beside the same chat
+    without retrieval.  ``ivf_score``'s count is zeroed just before and
+    read just after."""
+    import numpy as np
+    import torch
+
+    from ai00_server_tpu_torch.ops import retrieval as R
+
+    env = server.middleware.env
+    C = env.model.info.num_emb
+    texts = rag_texts(64)
+
+    async def post(path, **body):
+        async with http.post(f"{base}{path}", json=body) as r:
+            check(r.status == 200, f"{path} answered {r.status}: "
+                  f"{await r.text()}")
+            return await r.json()
+
+    R.ivf_score.launches = 0
+    t0 = time.monotonic()
+    emb = await post("/api/oai/embeddings", input=texts[:32])
+    emb_s = time.monotonic() - t0
+    vecs = np.array([d["embedding"] for d in emb["data"]], np.float32)
+    check(vecs.shape == (32, C) and emb["dimensions"] == C,
+          f"/embeddings gave shape {vecs.shape}")
+    check(bool(np.isfinite(vecs).all()), "/embeddings gave non-finite values")
+    check(bool(np.allclose(np.linalg.norm(vecs, axis=1), 1.0, atol=1e-4)),
+          "/embeddings vectors are not unit vectors")
+    # Every served vector against the recipe in the serving shape; what a
+    # fault would read: the text without its last token, or the next row's
+    # text.  The limit must sit between the two.
+    eng, B = env.engine, env.engine.max_batch
+    enc = [env.tokenizer.encode(t) for t in texts[:32]]
+    check(max(map(len, enc)) <= eng.token_chunk_size,
+          "an /embeddings text is longer than one prefill chunk")
+    ref = np.concatenate([embed_recipe(eng, enc[i:i + B])
+                          for i in range(0, 32, B)])
+    short = np.concatenate([embed_recipe(eng, [e[:-1] for e in enc[i:i + B]])
+                            for i in range(0, 32, B)])
+    own = np.abs(vecs - ref).max(1)
+    emb_err = float(own.max())
+    wrong = float(min(np.abs(vecs - short).max(1).min(),
+                      np.abs(vecs - np.roll(ref, 1, 0)).max(1).min()))
+    check(emb_err <= EMBED_TOL, f"a served embedding is {emb_err} off the "
+          f"recipe in the serving shape (per text: {own})")
+    check(wrong > EMBED_TOL, f"a wrong vector reads {wrong}, inside the "
+          f"limit {EMBED_TOL}: the check cannot tell it")
+    solo = max(float(np.abs(vecs[i] - eng.mean_hidden_embed(enc[i])).max())
+               for i in (0, 1, 7))
+    check(solo <= BF16_MODEL_TOL, f"a served embedding is {solo} off the "
+          "engine's batch-1 mean_hidden_embed")
+    st = await post("/api/oai/embeddings", input=texts[:2], pooling="state")
+    svec = np.array([d["embedding"] for d in st["data"]], np.float32)
+    check(svec.shape == (2, 3 * C) and bool(np.isfinite(svec).all()),
+          f"pooling='state' gave shape {svec.shape}")
+
+    ppl = {}
+    for calibrate in (False, True):
+        out = await post("/api/oai/chooses", input=PROMPT,
+                         choices=[" the", " a", " dog", " card"],
+                         calibrate=calibrate)
+        p = [d["perplexity"] for d in out["data"]]
+        check(len(p) == 4 and all(np.isfinite(p)) and p == sorted(p),
+              f"/chooses gave {p}")
+        ppl[calibrate] = p
+
+    made = await post("/api/retrieval/index", name="kb", texts=texts[:48],
+                      nlist=8)
+    check(made["size"] == 48 and made["dim"] == C,
+          f"/api/retrieval/index gave {made}")
+    added = await post("/api/retrieval/add", name="kb", texts=texts[48:])
+    check(added["size"] == 64, f"/api/retrieval/add gave {added}")
+    by_text = await post("/api/retrieval/search", name="kb",
+                         queries=texts[:4], top_k=3, nprobe=4)
+    check(all(len(d["hits"]) == 3 for d in by_text["data"]),
+          "a text search returned fewer than 3 hits")
+    by_vec = await post("/api/retrieval/search", name="kb",
+                        vectors=vecs[:8].tolist(), top_k=5, nprobe=4)
+    ivf = server.retrieval.get("kb").ivf
+    cpu = R.IVFIndex(**{k: (v.cpu() if isinstance(v, torch.Tensor) else v)
+                        for k, v in vars(ivf).items()})
+    s_ref, i_ref = R.ivf_search(cpu.centroids, cpu.packed, cpu.packed_ids,
+                                torch.as_tensor(vecs[:8]), k=5, nprobe=4,
+                                pscale=cpu.pscale)
+    for d, s_r, i_r in zip(by_vec["data"], s_ref.numpy(), i_ref.numpy()):
+        got = [h["id"] for h in d["hits"]]
+        check(np.allclose([h["score"] for h in d["hits"]], s_r[:len(got)],
+                          atol=1e-4), "IVF scores on the card differ from "
+              "the plain version's on the CPU")
+        distinct = [i for j, i in enumerate(i_r[:len(got)])
+                    if np.sum(np.abs(s_r - s_r[j]) < 1e-4) == 1]
+        check(all(i in got for i in distinct),
+              f"IVF hits {got} differ from the plain version's {i_r}")
+
+    chat = {"messages": [{"role": "user", "content": texts[5]}],
+            "max_tokens": 16, "sampler": {"type": "Nucleus", "top_k": 1},
+            "logit_bias": NO_EOS}
+    rag = await post("/api/oai/chat/completions",
+                     retrieval={"index": "kb", "top_k": 2, "nprobe": 4},
+                     **chat)
+    plain = await post("/api/oai/chat/completions", **chat)
+    check(bool(rag["choices"][0]["message"]["content"]),
+          "the RAG chat returned no text")
+    check(rag["usage"]["prompt"] > plain["usage"]["prompt"],
+          "the RAG chat's prompt holds no retrieved document")
+    launches = R.ivf_score.launches
+    check(launches > 0, "the retrieval requests never launched ivf_score")
+    return {"embed_s": emb_s, "embeddings_per_s": 32 / emb_s,
+            "embed_err": emb_err, "embed_wrong": wrong, "embed_solo": solo,
+            "ppl": ppl, "ivf_launches": launches,
+            "rag_prompt": rag["usage"]["prompt"],
+            "plain_prompt": plain["usage"]["prompt"],
+            "rag_text": rag["choices"][0]["message"]["content"][:60]}
+
+
 async def profiled(coro) -> str:
     """Await one request under torch.profiler: the device's busy share of
     the request's wall time and the kernels that took most of it."""
@@ -2524,6 +2875,9 @@ async def serve(cfg: Path, kind: str, device="cuda") -> dict:
                 result["profile"] = profile + (
                     f"; {fd.DecodeGraph.total_replays - replays0} graph "
                     "replays for its 64 tokens")
+                t0 = time.monotonic()
+                result["rag"] = await rag_flow(http, base, server)
+                result["rag"]["seconds"] = time.monotonic() - t0
             result["stack"] = time_stack(engine) if device != "cpu" else None
             if kind == "v6 bf16" and device != "cpu":
                 result["quant_stacks"] = {
@@ -2570,6 +2924,7 @@ def main() -> None:
     rows.update(phase_4bit_kernels(dev))
     rows.update(phase_v6_kernels(dev))
     rows.update(phase_v54_kernels(dev))
+    rows.update(phase_ivf_kernels(dev))
     print(f"phase 2 (kernels) {time.monotonic() - t0:.1f} s", flush=True)
 
     t0 = time.monotonic()
@@ -2631,6 +2986,21 @@ def main() -> None:
                                      "v4_wkv": "v4_wkv"})):
         for row, counter in names.items():
             rows[row]["launches"] = served[kind]["launches"][counter]
+    # ivf_score's main path: the retrieval requests of the bf16 server.
+    rag = served["bf16"]["rag"]
+    rows["ivf_score"]["launches"] = rag["ivf_launches"]
+    print(f"RAG on the bf16 server ({rag['seconds']:.1f} s): 32 "
+          f"/embeddings in {rag['embed_s']:.3f} s "
+          f"({rag['embeddings_per_s']:.1f} embeddings/s; max |served - "
+          f"recipe| over the 32 {rag['embed_err']:.3e}, limit {EMBED_TOL}; "
+          f"a dropped token or the next row's text reads "
+          f"{rag['embed_wrong']:.3e} or more; against the batch-1 "
+          f"mean_hidden_embed {rag['embed_solo']:.3e}); /chooses "
+          f"perplexities {rag['ppl'][False]} (calibrated "
+          f"{rag['ppl'][True]}); ivf_score launched {rag['ivf_launches']} "
+          f"times; RAG chat prompt {rag['rag_prompt']} tokens against "
+          f"{rag['plain_prompt']} without retrieval, text "
+          f"{rag['rag_text']!r}", flush=True)
     rows["matmul_4bit"]["launches"] = parity["matmul_4bit_launches"]
     check(parity["matmul_4bit_launches"] > 0,
           "no model path launched matmul_4bit")

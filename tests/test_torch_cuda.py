@@ -1169,3 +1169,160 @@ def test_v4_kernels_refuse_what_they_do_not_take(dev):
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         wkv4_chunk(z, z, z, k.half(), k.half(), torch.zeros(32, device=dev),
                    torch.zeros(32, device=dev), mask)
+
+
+# ---------------------------------------------------------------------------
+# The IVF probe kernel (csrc/ivf.cu)
+# ---------------------------------------------------------------------------
+
+from ai00_server_tpu_torch.ops import _build  # noqa: E402
+from ai00_server_tpu_torch.ops import retrieval as R  # noqa: E402
+
+
+def _ivf_operands(dev, dtype, nlist, cap, D, Q, nprobe, seed, pad_cluster):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(nlist, cap, D, generator=gen, device=dev)
+    if dtype == torch.int8:
+        packed = torch.randint(-127, 128, (nlist, cap, D), generator=gen,
+                               device=dev, dtype=torch.int32).to(torch.int8)
+        pscale = torch.rand(nlist, cap, generator=gen, device=dev) / 127
+    else:
+        packed, pscale = x.to(dtype), None
+    ids = torch.arange(nlist * cap, device=dev, dtype=torch.int32).reshape(
+        nlist, cap)
+    ids[:, cap - cap // 3:] = -1                    # ragged fill
+    if pad_cluster:
+        ids[1] = -1                                 # a cluster of pads
+    q = torch.randn(Q, D, generator=gen, device=dev)
+    probe = torch.randint(0, nlist, (Q, nprobe), generator=gen, device=dev,
+                          dtype=torch.int32)
+    probe[0, 0] = 1
+    return packed, ids, pscale, q, probe
+
+
+@pytest.mark.parametrize("D", [64, 37, 1024, 3072, 40003])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16, torch.float32])
+def test_ivf_score_kernel_matches_plain(dev, dtype, D):
+    """Aligned rows (D = 64, 1024, 3072: a pooling="state" vector at
+    C = 1024) take the 16-byte loads; D = 37 has a scalar tail and, for
+    bf16 and int8, unaligned rows; D = 40003 (a ragged tail past the vector
+    part, near the limit of the one query copy in shared memory).  Cluster
+    1 is all pads; a third of every cluster is empty slots."""
+    packed, ids, pscale, q, probe = _ivf_operands(
+        dev, dtype, nlist=6, cap=45, D=D, Q=5, nprobe=3, seed=D,
+        pad_cluster=True)
+    before = R.ivf_score.launches
+    s_k, i_k = R.ivf_score(packed, ids, pscale, q, probe)
+    assert R.ivf_score.launches == before + 1
+    s_p, i_p = R.ivf_score_plain(packed, ids, pscale, q, probe)
+    torch.cuda.synchronize()
+    assert torch.equal(i_k, i_p)
+    fin = torch.isfinite(s_p)
+    assert torch.equal(torch.isfinite(s_k), fin)
+    assert not fin[0, 0].any()  # the pad cluster
+    _close(s_k[fin], s_p[fin])
+
+
+def test_ivf_search_launches_the_kernel_for_any_shape(dev):
+    """cap and D off the TPU's 128 tiling still take the kernel."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    packed, ids, pscale, q, _ = _ivf_operands(
+        dev, torch.int8, nlist=7, cap=13, D=50, Q=4, nprobe=2, seed=5,
+        pad_cluster=False)
+    cent = torch.randn(7, 50, generator=gen, device=dev)
+    before = R.ivf_score.launches
+    s, i = R.ivf_search(cent, packed, ids, q, k=30, nprobe=2, pscale=pscale)
+    assert R.ivf_score.launches == before + 1
+    s_c, i_c = R.ivf_search(cent.cpu(), packed.cpu(), ids.cpu(), q.cpu(),
+                            k=30, nprobe=2, pscale=pscale.cpu())
+    assert s.shape == (4, 30)
+    assert torch.equal(torch.isfinite(s).cpu(), torch.isfinite(s_c))
+    assert torch.equal((i == -1).cpu(), i_c == -1)
+
+
+def test_ivf_score_refuses_what_it_does_not_take(dev):
+    ids = torch.zeros(2, 3, dtype=torch.int32, device=dev)
+    probe = torch.zeros(1, 1, dtype=torch.int32, device=dev)
+    big = _build.library("ivf").ivf_max_d() + 1
+    with pytest.raises(ValueError, match="D <="):
+        R.ivf_score(torch.zeros(2, 3, big, device=dev), ids, None,
+                    torch.zeros(1, big, device=dev), probe)
+    with pytest.raises(ValueError, match="int8, bfloat16 or float32"):
+        R.ivf_score(torch.zeros(2, 3, 8, device=dev).half(), ids, None,
+                    torch.zeros(1, 8, device=dev), probe)
+    with pytest.raises(ValueError, match="q must be contiguous"):
+        R.ivf_score(torch.zeros(2, 3, 8, device=dev), ids, None,
+                    torch.zeros(1, 8, device=dev).bfloat16(), probe)
+
+
+# ---------------------------------------------------------------------------
+# The [embed] sidecar on the server's device (server/embed.py)
+# ---------------------------------------------------------------------------
+
+from ai00_server_tpu_torch.server import embed as embed_mod  # noqa: E402
+
+
+class _CharTokenizer:
+    """A stand-in tokenizer: one id a character, padded, as CPU tensors
+    (what a HuggingFace tokenizer returns)."""
+
+    def __call__(self, texts, **_):
+        n = max(len(t) for t in texts)
+        ids = torch.tensor([[ord(c) % 64 for c in t] + [0] * (n - len(t))
+                            for t in texts])
+        mask = torch.tensor([[1] * len(t) + [0] * (n - len(t))
+                             for t in texts])
+        return {"input_ids": ids, "attention_mask": mask}
+
+
+class _Encoder(torch.nn.Module):
+    def __init__(self):
+        super().__init__()
+        self.emb = torch.nn.Embedding(64, 24)
+        self.proj = torch.nn.Linear(24, 24)
+
+    def forward(self, input_ids, attention_mask):
+        from types import SimpleNamespace
+
+        assert input_ids.device == self.emb.weight.device
+        return SimpleNamespace(
+            last_hidden_state=torch.tanh(self.proj(self.emb(input_ids))))
+
+
+def test_text_embedder_runs_on_the_card(dev):
+    """The encoder and the tokenizer's tensors go to the server's device;
+    the vectors equal the same encoder's on the CPU."""
+    torch.manual_seed(0)
+    enc, texts = _Encoder(), ["hello world", "ab"]
+    want = embed_mod.TextEmbedder(enc, _CharTokenizer(), "x",
+                                  device="cpu").embed(texts)
+    emb = embed_mod.TextEmbedder(enc, _CharTokenizer(), "x", device=dev)
+    assert {p.device.type for p in emb.model.parameters()} == {"cuda"}
+    got = emb.embed(texts)
+    assert got.shape == (2, 24)
+    _close(torch.as_tensor(got), torch.as_tensor(want))
+
+
+def test_embed_sidecar_bert_on_the_card(dev, tmp_path):
+    """A tiny random BertModel through load_embedder onto the card, against
+    the same checkpoint on the CPU."""
+    tf = pytest.importorskip("transformers")
+    vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + \
+        list("abcdefghijklmnopqrstuvwxyz") + ["hello", "world"]
+    (tmp_path / "vocab.txt").write_text("\n".join(vocab))
+    torch.manual_seed(1)
+    tf.BertModel(tf.BertConfig(
+        vocab_size=len(vocab), hidden_size=16, num_hidden_layers=1,
+        num_attention_heads=2, intermediate_size=32,
+        max_position_embeddings=64)).save_pretrained(str(tmp_path))
+    tf.BertTokenizer(str(tmp_path / "vocab.txt")).save_pretrained(
+        str(tmp_path))
+    import asyncio
+
+    cfg = {"model": str(tmp_path)}
+    emb = asyncio.run(embed_mod.load_embedder(cfg, device=dev))
+    cpu = asyncio.run(embed_mod.load_embedder(cfg, device="cpu"))
+    assert {p.device.type for p in emb.model.parameters()} == {"cuda"}
+    texts = ["hello world", "abc z"]
+    _close(torch.as_tensor(emb.embed(texts)),
+           torch.as_tensor(cpu.embed(texts)))

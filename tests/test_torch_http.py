@@ -188,7 +188,7 @@ def test_later_slices_answer_501(site):
     async def main():
         client, server = await make_client(site, device="cpu")
         try:
-            r = await client.post("/api/oai/embeddings", json={"input": "A"})
+            r = await client.post("/api/oai/states", json={"input": "A"})
             assert r.status == 501
             assert "ROADMAP" in (await r.json())["error"]
             r = await client.post("/api/oai/completions", json={

@@ -35,6 +35,7 @@ MODULES = [
     "ai00_server_tpu_torch.ops.fused_decode",
     "ai00_server_tpu_torch.ops.quant",
     "ai00_server_tpu_torch.ops.quant_matmul",
+    "ai00_server_tpu_torch.ops.retrieval",
     "ai00_server_tpu_torch.ops.sampling",
     "ai00_server_tpu_torch.ops.v4_decode",
     "ai00_server_tpu_torch.ops.v5_decode",
@@ -43,10 +44,12 @@ MODULES = [
     "ai00_server_tpu_torch.ops.wkv4",
     "ai00_server_tpu_torch.ops.wkv_chunk",
     "ai00_server_tpu_torch.ops.wkv_t1",
+    "ai00_server_tpu_torch.retrieval_store",
     "ai00_server_tpu_torch.runtime",
     "ai00_server_tpu_torch.server",
     "ai00_server_tpu_torch.server.app",
     "ai00_server_tpu_torch.server.config",
+    "ai00_server_tpu_torch.server.embed",
     "ai00_server_tpu_torch.testing",
     "ai00_server_tpu_torch.tokenizer",
 ]
