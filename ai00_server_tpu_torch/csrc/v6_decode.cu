@@ -25,8 +25,9 @@
 //
 // This file holds v6_wkv_gn: the WKV step with the u bonus on the k-major
 // state IN PLACE (an inactive row keeps its state bit for bit; every row
-// gets its y), GroupNorm of the f32 y per head, ln_x, rounding through T and
-// the gate by g: the operand of Wo.  The decay w is read with a batch stride:
+// gets its y), GroupNorm of the f32 y per head, ln_x, rounding through T
+// (the fused stacks; the phased ones of v56_phased keep it f32) and the
+// gate by g: the operand of Wo.  The decay w is read with a batch stride:
 // C for v6's per-token (B, C) decay, 0 for RWKV-5's static decay, which the
 // v5 stack (ops/v5_decode.py) passes as its vecs row 0 (exp(-exp(time_decay)),
 // the row the Pallas v5 kernel reads, ops/v5_decode_pallas.py:163).  Bounded by the bytes of the state (read
@@ -57,7 +58,8 @@ v6_wkv_gn_kernel(const float* __restrict__ r, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ w,
                  const float* __restrict__ g, const float* __restrict__ vecs,
                  const uint8_t* __restrict__ active, float* __restrict__ S,
-                 T* __restrict__ out, int H, int C, int w_stride) {
+                 T* __restrict__ out, int H, int C, int w_stride,
+                 int round_yf) {
   __shared__ __align__(16) float sv[4][N];  // r, k, w, u
   __shared__ float red[2];
   const int bh = blockIdx.x;
@@ -87,8 +89,8 @@ v6_wkv_gn_kernel(const float* __restrict__ r, const float* __restrict__ k,
   const float mean = head_sum(y, red) / N;
   const float d = y - mean;
   const float var = head_sum(d * d, red) / N;
-  const float yf = rnd<T>(d * rsqrtf(var + GN_EPS) * lnw + lnb);
-  out[vo + tid] = from_f<T>(yf * gv);
+  const float yf = d * rsqrtf(var + GN_EPS) * lnw + lnb;
+  out[vo + tid] = from_f<T>((round_yf ? rnd<T>(yf) : yf) * gv);
 }
 
 }  // namespace
@@ -96,11 +98,14 @@ v6_wkv_gn_kernel(const float* __restrict__ r, const float* __restrict__ k,
 extern "C" {
 
 // dtype: 0 = f32, 1 = bf16 (the weights' and activations' type T).
+// round_yf: 1 rounds the f32 ln_x output through T before the gate (the
+// fused stacks), 0 gates it in f32 (the phased ones).
 
 int v6_wkv_gn_launch(const float* r, const float* k, const float* v,
                      const float* w, const float* g, const float* vecs,
                      const uint8_t* active, float* S, void* out, int B, int H,
-                     int n, int w_stride, int dtype, void* stream) {
+                     int n, int w_stride, int round_yf, int dtype,
+                     void* stream) {
   if (n != N || B <= 0 || H <= 0 || (w_stride != 0 && w_stride != H * N))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
@@ -108,10 +113,11 @@ int v6_wkv_gn_launch(const float* r, const float* k, const float* v,
   if (dtype == 1)
     v6_wkv_gn_kernel<__nv_bfloat16><<<B * H, N, 0, st>>>(
         r, k, v, w, g, vecs, active, S, (__nv_bfloat16*)out, H, C,
-        w_stride);
+        w_stride, round_yf);
   else if (dtype == 0)
     v6_wkv_gn_kernel<float><<<B * H, N, 0, st>>>(
-        r, k, v, w, g, vecs, active, S, (float*)out, H, C, w_stride);
+        r, k, v, w, g, vecs, active, S, (float*)out, H, C, w_stride,
+        round_yf);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

@@ -67,14 +67,13 @@
 #include <stdint.h>
 
 #include "decode_common.cuh"
+#include "matmul_common.cuh"
 #include "wkv7_common.cuh"
 
 using namespace decode;
 using namespace wkv7;
 
 namespace {
-
-constexpr float W_SCALE = 0.6065306597126334f;  // exp(-0.5)
 
 // ---------------------------------------------------------------------------
 // v7_skinny_matmul: up to five y = epilogue(x @ W) in one launch
@@ -86,64 +85,12 @@ constexpr int MM_UNROLL = 16;  // weight rows in flight per thread
 constexpr int MM_MAXP = 5;     // products per launch
 constexpr int MM_KB_MAX = 256; // rows of K per block
 
-enum Act { ACT_NONE = 0, ACT_TANH = 1, ACT_SIGMOID = 2, ACT_WDECAY = 3,
-           ACT_RELU2 = 4, ACT_SILU = 5, ACT_EXPEXP = 6 };
-// OUT_MIX: y (T) = xa + dx * (mix + round_T(s)), each step rounded through T
-// (e0 = xa, e1 = dx: (B, N) T; e2 = mix: (N,) T).  OUT_GADD: y (the f32
-// residual) += gate * s (e0 = gate: (B, N) f32).
-enum Out { OUT_T = 0, OUT_F32 = 1, OUT_ADD = 2, OUT_MIX = 3, OUT_GADD = 4 };
-
-struct MMProblem {
-  const void* x;      // (B, K) T, rows ldx elements apart
-  const void* W;      // (K, N) T, or int8 codes when scale is set
-  const float* scale; // (K / 128, N) f32 per-block scales, or null
-  void* y;            // (B, N): T, f32, or the f32 residual added into
-  const float* bias;  // (N,) f32 or null, added before the activation
-  const void* e0;     // epilogue operands of OUT_MIX / OUT_GADD, or null
-  const void* e1;
-  const void* e2;
-  int K, N, ldx;
-  int act, round_t, out;
-  int ksplit, kb;     // K is cut into ksplit slices of kb rows
-  int blk0;           // first block of this product in the launch
-  int scr0, cnt0;     // offsets into the scratch floats / the counters
-};
-
+// The products (MMProblem) and their epilogue are matmul_common.cuh's.
 struct MMGroup {
   MMProblem p[MM_MAXP];
   int n;
   float levels[16];  // 4-bit codes: what a nibble decodes to
 };
-
-template <typename T>
-__device__ __forceinline__ void epilogue(const MMProblem& P, int b, int c,
-                                         float s) {
-  if (P.bias != nullptr) s += P.bias[c];
-  switch (P.act) {
-    case ACT_TANH: s = tanhf(s); break;
-    case ACT_SIGMOID: s = sigmoidf(s); break;
-    case ACT_WDECAY: s = expf(-W_SCALE * sigmoidf(s)); break;
-    case ACT_RELU2: s = fmaxf(s, 0.f); s = s * s; break;
-    case ACT_SILU: s = s * sigmoidf(s); break;
-    case ACT_EXPEXP: s = expf(-expf(s)); break;
-    default: break;
-  }
-  const size_t i = (size_t)b * P.N + c;
-  if (P.out == OUT_ADD) {
-    static_cast<float*>(P.y)[i] += s;
-  } else if (P.out == OUT_GADD) {
-    static_cast<float*>(P.y)[i] += static_cast<const float*>(P.e0)[i] * s;
-  } else if (P.out == OUT_MIX) {
-    const float t = rnd<T>(to_f(static_cast<const T*>(P.e2)[c]) + rnd<T>(s));
-    const float d = rnd<T>(to_f(static_cast<const T*>(P.e1)[i]) * t);
-    static_cast<T*>(P.y)[i] =
-        from_f<T>(to_f(static_cast<const T*>(P.e0)[i]) + d);
-  } else if (P.out == OUT_F32) {
-    static_cast<float*>(P.y)[i] = P.round_t ? rnd<T>(s) : s;
-  } else {
-    static_cast<T*>(P.y)[i] = from_f<T>(s);
-  }
-}
 
 // 4 bytes of a weight row as floats: 2 bf16 columns, 1 f32 column, or 4
 // int8 codes dequantized in T with their block's scales (sv, rounded to T).
@@ -537,29 +484,8 @@ int v7_skinny_matmul_launch(const int64_t* desc, int n_prob, int B, int dtype,
     for (int i = 0; i < n_prob; ++i) {
       const int64_t* d = desc + 12 * i;
       MMProblem& P = g.p[i];
-      P.K = (int)d[4];
-      P.N = (int)d[5];
-      P.scale = (const float*)(uintptr_t)d[7];
-      P.ldx = (int)d[8];
-      P.act = (int)(d[6] & 0xff);
-      P.round_t = (int)((d[6] >> 8) & 0xff);
-      P.out = (int)((d[6] >> 16) & 0xff);
-      if (P.K <= 0 || P.N <= 0 || P.N % cpt || (P.scale != nullptr) != quant ||
-          (quant && P.K % qblock) || P.ldx < P.K || P.out > OUT_GADD ||
-          ((P.out == OUT_MIX || P.out == OUT_GADD) && d[9] == 0) ||
-          (P.out == OUT_MIX && (d[10] == 0 || d[11] == 0)))
+      if (!parse_problem(d, b0, tsize, quant, qblock, cpt, P))
         return (int)cudaErrorInvalidValue;
-      // T for what is stored in T (OUT_T, OUT_MIX and its xa / dx), else f32.
-      const size_t ysize = P.out == OUT_T || P.out == OUT_MIX ? tsize : 4;
-      P.x = (const char*)(uintptr_t)d[0] + (size_t)b0 * P.ldx * tsize;
-      P.W = (const void*)(uintptr_t)d[1];
-      P.y = (char*)(uintptr_t)d[2] + (size_t)b0 * P.N * ysize;
-      P.bias = (const float*)(uintptr_t)d[3];
-      P.e0 = d[9] ? (const char*)(uintptr_t)d[9] + (size_t)b0 * P.N * ysize
-                  : nullptr;
-      P.e1 = d[10] ? (const char*)(uintptr_t)d[10] + (size_t)b0 * P.N * ysize
-                   : nullptr;
-      P.e2 = (const void*)(uintptr_t)d[11];
       P.kb = P.K <= 1024 ? 128 : MM_KB_MAX;
       P.ksplit = (P.K + P.kb - 1) / P.kb;
       const int tiles = (P.N + tn - 1) / tn;

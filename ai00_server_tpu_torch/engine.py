@@ -15,9 +15,13 @@ quantized (int8, nf4, sf4, int4):
   ``v6_decode``, ``v5_decode`` or ``v4_decode``, ``make_fused_layout``)
   where the model allows it, and
   on a CUDA device captures the whole T=1 layer stack once in a CUDA graph
-  (that module's ``DecodeGraph``) that every decode step replays; the LM
-  head and sampling run eagerly after it.  A model whose layers are only
-  partly quantized keeps to the layer-by-layer path and gets no graph.
+  that every decode step replays; the LM head and sampling run eagerly
+  after it.  The stack is ``ops/fused_decode.stack_for(version, params,
+  max_batch)``'s: above 8 rows the phased one (``ops/v7_phased``,
+  ``ops/v56_phased``: every weight read once for up to 64 rows) where the
+  weights are plain, int8 or int4, else the fused one.  A model whose
+  layers are only partly quantized keeps to the layer-by-layer path and
+  gets no graph.
   4-bit models decode from their packed codes (the reference's int8
   surrogate of them is not carried over).
 * A model with any quantized layer, in whatever mode, also stores the LM
@@ -128,12 +132,14 @@ class Engine:
         self.state_pool = self.module.init_state(self.info, B,
                                                  device=self.device)
         self._install_head_q()
-        fd = fused_decode.module_for(model.info.version.value)
-        if not fd.supports(model.params) and fd.can_fuse(model.params):
+        version = model.info.version.value
+        fd = fused_decode.module_for(version)
+        stack = fused_decode.stack_for(version, model.params, B)
+        if stack is not None and not fd.supports(model.params):
             model.params[fd.FUSED_KEY] = fd.make_fused_layout(model.params)
         self._graph = None
-        if self.device.type == "cuda" and fd.supports(model.params):
-            self._graph = fd.DecodeGraph(model.params, self.state_pool, B)
+        if self.device.type == "cuda" and stack is not None:
+            self._graph = stack.DecodeGraph(model.params, self.state_pool, B)
         self.sampler_state = sampling.init_sampler_state(B, V, self.device)
         self.sampler_params_host = sampling.make_params(B)
         self.bias_pool = torch.zeros((B, V), dtype=torch.float32,

@@ -13,7 +13,9 @@ mix is v4's (``common.channel_mix_v4``).
 
 ``forward`` at T=1 takes the fused decode path (``ops/v5_decode.forward_t1``,
 which updates the state in place) when the engine has installed its layout
-on the params.  Otherwise it runs the layer-by-layer path with the WKV in
+on the params, or on a batch above 8 the phased one
+(``ops/v56_phased.forward_t1``) where its ``can_phase`` holds (plain, int8 or
+int4 weights).  Otherwise it runs the layer-by-layer path with the WKV in
 the RWKV-5/6 kernels: ``ops/wkv_t1.wkv56_t1`` at T=1, ``ops/wkv_chunk.
 wkv56_chunk`` for prefill chunks (their plain versions on CPU tensors).
 The JAX model broadcasts the static (H, N) decay to (B, T, H, N); here the
@@ -26,6 +28,7 @@ from __future__ import annotations
 import torch
 
 from ..ops import v5_decode as fd
+from ..ops import v56_phased as pd
 from ..ops.wkv_chunk import wkv56_chunk
 from ..ops.wkv_t1 import wkv56_t1
 from .common import (GN_EPS, acc_dtype, channel_mix_v4, group_norm,
@@ -92,6 +95,8 @@ def forward(params, state, tokens, lengths):
     place.
     """
     if tokens.shape[1] == 1 and fd.supports(params):
+        if pd.can_phase(params, tokens.shape[0], "V5"):
+            return pd.forward_t1(params, state, tokens, lengths)
         return fd.forward_t1(params, state, tokens, lengths)
     x = params["emb"][tokens.long()]  # ln0 folded into emb at load
     new = {"att_x": [], "wkv": [], "ffn_x": []}

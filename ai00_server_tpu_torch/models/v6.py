@@ -4,8 +4,9 @@ Port of ``ai00_server_tpu/models/v6.py`` (``init_state``, ``_att``,
 ``_channel_mix`` - here ``common.gated_channel_mix`` -, ``_layer``,
 ``forward``).  ``forward`` at T=1 takes the fused decode path
 (``ops/v6_decode.forward_t1``, which updates the state in place) when the
-engine has installed its layout on the params.  Otherwise
-it runs the layer-by-layer path: a plain Python loop over layers, with the
+engine has installed its layout on the params, or on a batch above 8 the
+phased one (``ops/v56_phased.forward_t1``) where its ``can_phase`` holds
+(plain, int8 or int4 weights).  Otherwise it runs the layer-by-layer path: a plain Python loop over layers, with the
 WKV recurrence in the hand-written CUDA kernels — ``ops/wkv_t1.wkv56_t1``
 for T=1 decode and ``ops/wkv_chunk.wkv56_chunk`` for T>1 prefill chunks
 (their plain versions on CPU tensors) — and returns a new state.
@@ -30,6 +31,7 @@ from __future__ import annotations
 import torch
 
 from ..ops import v6_decode as fd
+from ..ops import v56_phased as pd
 from ..ops.wkv_chunk import wkv56_chunk
 from ..ops.wkv_t1 import wkv56_t1
 from .common import (GN_EPS, acc_dtype, gated_channel_mix, group_norm,
@@ -124,6 +126,8 @@ def forward(params, state, tokens, lengths):
     place.
     """
     if tokens.shape[1] == 1 and fd.supports(params):
+        if pd.can_phase(params, tokens.shape[0], "V6"):
+            return pd.forward_t1(params, state, tokens, lengths)
         return fd.forward_t1(params, state, tokens, lengths)
     x = params["emb"][tokens.long()]  # ln0 folded into emb at load
     new = {"att_x": [], "wkv": [], "ffn_x": []}

@@ -53,6 +53,10 @@ SIGNATURES = {
         # is_first, dtype, stream
         "v7_wkv_gn_launch": "ppppppppppppiiiiip",
     },
+    "phased": {
+        # desc (host), n_prob, B, dtype, wbits, stream
+        "phased_matmul_launch": "piiiip",
+    },
     "wkv4": {
         # r, k, v, vecs, active, aa, bb, pp, out, B, C, dtype, stream
         "v4_wkv_launch": "pppppppppiiip",
@@ -61,9 +65,9 @@ SIGNATURES = {
         "wkv4_chunk_launch": "ppppppppppppiiiip",
     },
     "v6_decode": {
-        # r, k, v, w, g, vecs, active, S, out, B, H, N, w_stride, dtype,
-        # stream
-        "v6_wkv_gn_launch": "pppppppppiiiiip",
+        # r, k, v, w, g, vecs, active, S, out, B, H, N, w_stride, round_yf,
+        # dtype, stream
+        "v6_wkv_gn_launch": "pppppppppiiiiiip",
     },
     "quant": {
         # K, N -> the work space a product needs (not a status)

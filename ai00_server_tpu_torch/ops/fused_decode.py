@@ -35,6 +35,27 @@ def module_for(version: str):
     return modules[version]
 
 
+def stack_for(version: str, params, batch: int):
+    """The module whose ``forward_t1`` / ``DecodeGraph`` a T=1 step of
+    ``batch`` rows takes, mirroring the JAX engine's "phased where fused
+    does not apply": the phased stack (``ops/v7_phased``,
+    ``ops/v56_phased``) when its ``can_phase`` holds (a batch above the 8
+    rows of the fused products, plain / int8 / int4 weights), else the
+    fused one (:func:`module_for`) when its ``can_fuse`` holds, else None
+    (the layer-by-layer path).  Either stack reads the fused module's
+    layout.  RWKV-4 has no phased stack and keeps its fused one at any
+    batch."""
+    from . import v56_phased, v7_phased
+
+    fd = module_for(version)
+    if version == "V7" and v7_phased.can_phase(params, batch):
+        return v7_phased
+    if version in ("V6", "V5") and v56_phased.can_phase(params, batch,
+                                                         version):
+        return v56_phased
+    return fd if fd.can_fuse(params) else None
+
+
 def group_mode(layer: dict, big_src: dict):
     """``"none"`` / ``"int8"`` / ``"nf4"`` / ``"sf4"`` / ``"int4"`` when the
     layer's big projections are uniformly plain or uniformly quantized in

@@ -127,7 +127,11 @@ def make_fused_layout(params) -> dict:
     return out
 
 
-def _forward(ops, params, state, tokens, lengths):
+def _forward(ops, params, state, tokens, lengths, skinny=True):
+    """The stack over ``ops`` = (ln_mix, matmul, wkv_gn), the kernels or
+    their plain versions; ``skinny``: ``matmul`` is ``v7_skinny_matmul``'s,
+    which takes a work space on the card (``ops/v56_phased`` runs this
+    stack with ``phased_matmul``, which takes none)."""
     ln_mix, matmul, wkv_gn = ops
     f = params[FUSED_KEY]
     L = f["ln1"].shape[0]
@@ -135,7 +139,7 @@ def _forward(ops, params, state, tokens, lengths):
     cd = params["emb"].dtype
     active = lengths > 0
     ws = (fused_decode.workspace(f, quant, cd, tokens.device)
-          if tokens.device.type == "cuda" else None)
+          if tokens.device.type == "cuda" and skinny else None)
     # The f32 residual, carried across the layers without rounding.
     x = params["emb"][tokens[:, 0].long()].float()
     big = fused_decode.big_products(f, params["layers"][0], _BIG_SRC)

@@ -123,7 +123,7 @@ def make_fused_layout(params) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def v6_wkv_gn_plain(r, k, v, w, g, vecs, active, S, dtype):
+def v6_wkv_gn_plain(r, k, v, w, g, vecs, active, S, dtype, round_yf=True):
     """The plain PyTorch version of :func:`v6_wkv_gn`, functional: returns
     ``(out (B, C) dtype, S_new)``."""
     B, H, N, _ = S.shape
@@ -142,18 +142,21 @@ def v6_wkv_gn_plain(r, k, v, w, g, vecs, active, S, dtype):
     mean = y.mean(-1, keepdim=True)
     var = y.var(-1, unbiased=False, keepdim=True)
     yn = ((y - mean) * torch.rsqrt(var + GN_EPS)).reshape(B, C)
-    yf = (yn * vecs[_VEC_IDX["lnx_w"]] + vecs[_VEC_IDX["lnx_b"]]).to(
-        dtype).float()
+    yf = yn * vecs[_VEC_IDX["lnx_w"]] + vecs[_VEC_IDX["lnx_b"]]
+    if round_yf:
+        yf = yf.to(dtype).float()
     return (yf * g).to(dtype), S_new
 
 
-def _wkv_gn_inplace_plain(r, k, v, w, g, vecs, active, S, dtype):
-    out, S_new = v6_wkv_gn_plain(r, k, v, w, g, vecs, active, S, dtype)
+def _wkv_gn_inplace_plain(r, k, v, w, g, vecs, active, S, dtype,
+                          round_yf=True):
+    out, S_new = v6_wkv_gn_plain(r, k, v, w, g, vecs, active, S, dtype,
+                                 round_yf)
     S.copy_(S_new)
     return out
 
 
-def v6_wkv_gn(r, k, v, w, g, vecs, active, S, dtype):
+def v6_wkv_gn(r, k, v, w, g, vecs, active, S, dtype, round_yf=True):
     """The WKV stage of one v6 (or v5) layer's decode step, per (b, h).
 
     r, k, v, w, g: (B, C) f32 (``w`` the decay ``exp(-exp(.))``, ``g`` the
@@ -162,14 +165,17 @@ def v6_wkv_gn(r, k, v, w, g, vecs, active, S, dtype):
     v-dim).  Computes ``y = r (S + u k v^T)`` from the state before the step
     for every row, ``S = w S + k v^T`` IN PLACE for active rows (an
     inactive row keeps its state bit for bit), GroupNorm of the f32 ``y``
-    per head, ``ln_x``, rounding through ``dtype`` and the gate by ``g``.
-    Returns the operand of the output projection, (B, C) in ``dtype``.
+    per head, ``ln_x``, rounding through ``dtype`` (the fused stacks' point;
+    the phased ones, ``round_yf=False``, keep the f32 ``ln_x`` up to the
+    gate) and the gate by ``g``.  Returns the operand of the output
+    projection, (B, C) in ``dtype``.
 
     ``w=None`` is RWKV-5's static-decay mode: every row decays by vecs row
     0, which then holds ``exp(-exp(time_decay))`` (the kernel reads it with
     a batch stride of 0)."""
     if S.device.type == "cpu":
-        return _wkv_gn_inplace_plain(r, k, v, w, g, vecs, active, S, dtype)
+        return _wkv_gn_inplace_plain(r, k, v, w, g, vecs, active, S, dtype,
+                                     round_yf)
     static = w is None
     f32s = (r, k, v, vecs if static else w, g)
     dev = _one_cuda_device(S, *f32s, vecs, active)
@@ -187,7 +193,7 @@ def v6_wkv_gn(r, k, v, w, g, vecs, active, S, dtype):
     status = _build.library("v6_decode").v6_wkv_gn_launch(
         *(t.data_ptr() for t in f32s), vecs.data_ptr(), active.data_ptr(),
         S.data_ptr(), out.data_ptr(), B, H, N, 0 if static else C,
-        _DTYPE_CODE[dtype], _stream(dev))
+        int(round_yf), _DTYPE_CODE[dtype], _stream(dev))
     _build.check(status, "v6_wkv_gn")
     v6_wkv_gn.launches += 1
     return out
@@ -209,7 +215,11 @@ _PLAIN_OPS = (v7d._ln_mix_inplace_plain, v7d._matmul_inplace_plain,
 # ---------------------------------------------------------------------------
 
 
-def _forward(ops, params, state, tokens, lengths):
+def _forward(ops, params, state, tokens, lengths, skinny=True):
+    """The stack over ``ops`` = (ln_mix, matmul, wkv_gn), the kernels or
+    their plain versions; ``skinny``: ``matmul`` is ``v7_skinny_matmul``'s,
+    which takes a work space on the card (``ops/v56_phased`` runs this
+    stack with ``phased_matmul``, which takes none)."""
     ln_mix, matmul, wkv_gn = ops
     f = params[FUSED_KEY]
     L = f["ln1"].shape[0]
@@ -222,7 +232,7 @@ def _forward(ops, params, state, tokens, lengths):
     ws = (fused_decode.workspace(
         f, quant, cd, tokens.device,
         ([(C, D5)], [(D5 // 5, C)] * 5, [(C, Dw)], [(Dw, C)]))
-        if tokens.device.type == "cuda" else None)
+        if tokens.device.type == "cuda" and skinny else None)
     # The f32 residual, carried across the layers without rounding.
     x = params["emb"][tokens[:, 0].long()].float()
     P = Product

@@ -313,64 +313,73 @@ class Workspace:
                                     device=device)
 
 
+def epilogue_plain(p: Product, s):
+    """What the product kernels store for ``p`` from its f32 sums ``s``
+    (B, N): the bias, the activation and the output kind of
+    :class:`Product`, functional (for ``out="add"``, ``y + s``)."""
+    cd = p.x.dtype
+    if p.bias is not None:
+        s = s + p.bias
+    if p.act == "tanh":
+        s = torch.tanh(s)
+    elif p.act == "sigmoid":
+        s = torch.sigmoid(s)
+    elif p.act == "wdecay":
+        s = torch.exp(-W_SCALE * torch.sigmoid(s))
+    elif p.act == "relu2":
+        s = torch.square(torch.relu(s))
+    elif p.act == "silu":
+        s = s * torch.sigmoid(s)
+    elif p.act == "expexp":
+        s = torch.exp(-torch.exp(s))
+    elif p.act != "none":
+        raise ValueError(f"unknown activation {p.act!r}")
+    if p.out == "add":
+        return p.y + s
+    if p.out == "gadd":
+        return p.y + p.gate * s
+    if p.out == "mix":  # each op rounds through cd
+        return p.xa + p.dx * (p.mix + s.to(cd))
+    if p.out == "f32":
+        return s.to(cd).float() if p.round_cd else s
+    if p.out == "cd":
+        return s.to(cd)
+    raise ValueError(f"unknown output kind {p.out!r}")
+
+
 def v7_skinny_matmul_plain(products):
     """The plain PyTorch version of :func:`v7_skinny_matmul`, functional:
     returns the list of results (for ``out="add"``, ``y + x @ W``)."""
     outs = []
     for p in products:
-        cd = p.x.dtype
         mode = p.weight_mode
         W = p.W if mode == "none" else dequant_mode_cd(p.W, p.scale, mode,
-                                                       cd)
-        s = torch.matmul(p.x.float(), W.float())
-        if p.bias is not None:
-            s = s + p.bias
-        if p.act == "tanh":
-            s = torch.tanh(s)
-        elif p.act == "sigmoid":
-            s = torch.sigmoid(s)
-        elif p.act == "wdecay":
-            s = torch.exp(-W_SCALE * torch.sigmoid(s))
-        elif p.act == "relu2":
-            s = torch.square(torch.relu(s))
-        elif p.act == "silu":
-            s = s * torch.sigmoid(s)
-        elif p.act == "expexp":
-            s = torch.exp(-torch.exp(s))
-        elif p.act != "none":
-            raise ValueError(f"unknown activation {p.act!r}")
-        if p.out == "add":
-            outs.append(p.y + s)
-        elif p.out == "gadd":
-            outs.append(p.y + p.gate * s)
-        elif p.out == "mix":  # each op rounds through cd
-            outs.append(p.xa + p.dx * (p.mix + s.to(cd)))
-        elif p.out == "f32":
-            outs.append(s.to(cd).float() if p.round_cd else s)
-        elif p.out == "cd":
-            outs.append(s.to(cd))
-        else:
-            raise ValueError(f"unknown output kind {p.out!r}")
+                                                       p.x.dtype)
+        outs.append(epilogue_plain(p, torch.matmul(p.x.float(), W.float())))
     return outs
 
 
-def _matmul_inplace_plain(products, workspace=None):
-    outs = v7_skinny_matmul_plain(products)
+def store_adds(products, outs):
+    """The in-place contract of the product kernels on the results of a
+    plain version: ``add`` / ``gadd`` results are copied into their ``y``,
+    which is what the launch returns for them."""
     for p, o in zip(products, outs):
         if p.out in _ADDS:
             p.y.copy_(o)
     return [p.y if p.out in _ADDS else o for p, o in zip(products, outs)]
 
 
-def v7_skinny_matmul(products, workspace: Workspace | None = None):
-    """Up to five :class:`Product` in one launch; returns their results in
-    order (for ``out="add"`` / ``"gadd"`` the tensor that was added into).
-    Every weight byte is read once for all B rows; the sums' order is fixed,
-    so equal inputs give equal bits."""
-    if products[0].x.device.type == "cpu":
-        return _matmul_inplace_plain(products)
-    _require(1 <= len(products) <= _MM_MAXP,
-             f"1 to {_MM_MAXP} products per launch")
+def _matmul_inplace_plain(products, workspace=None):
+    return store_adds(products, v7_skinny_matmul_plain(products))
+
+
+def launch_table(products, modes):
+    """Check the :class:`Product` of one launch of a product kernel and lay
+    them out as its descriptor table (``csrc/matmul_common.cuh``,
+    ``parse_problem``).  ``modes``: the weight modes the kernel takes.
+    Returns ``(table, outs, mode, B, dev)``: the ctypes int64 table, the
+    output tensors in order (allocated here, or the ``y`` added into), the
+    launch's one weight mode, its rows and its device."""
     dev = _one_cuda_device(*(t for p in products
                              for t in (p.x, p.W, p.bias, p.y, p.scale,
                                        p.gate, p.xa, p.dx, p.mix)
@@ -378,8 +387,7 @@ def v7_skinny_matmul(products, workspace: Workspace | None = None):
     cd = products[0].x.dtype
     _require(cd in _DTYPE_CODE, f"unsupported activation dtype {cd}")
     mode = products[0].weight_mode
-    _require(mode == "none" or mode in MODES,
-             f"unknown weight mode {mode!r}")
+    _require(mode in modes, f"weight mode {mode!r} is not one of {modes}")
     _require(all(p.weight_mode == mode and (p.scale is not None)
                  == (mode != "none") for p in products),
              "the products of a launch are all plain or all int8 or all of "
@@ -438,6 +446,21 @@ def v7_skinny_matmul(products, workspace: Workspace | None = None):
                  p.bias.data_ptr() if p.bias is not None else 0, K, N,
                  flags, p.scale.data_ptr() if quant else 0, p.x.stride(0),
                  *(t.data_ptr() if t is not None else 0 for t in ops)]
+    return (ctypes.c_int64 * len(desc))(*desc), outs, mode, B, dev
+
+
+def v7_skinny_matmul(products, workspace: Workspace | None = None):
+    """Up to five :class:`Product` in one launch; returns their results in
+    order (for ``out="add"`` / ``"gadd"`` the tensor that was added into).
+    Every weight byte is read once for all B rows; the sums' order is fixed,
+    so equal inputs give equal bits."""
+    if products[0].x.device.type == "cpu":
+        return _matmul_inplace_plain(products)
+    _require(1 <= len(products) <= _MM_MAXP,
+             f"1 to {_MM_MAXP} products per launch")
+    table, outs, mode, B, dev = launch_table(products, ("none", *MODES))
+    quant, four = mode != "none", mode in LEVELS
+    wd = torch.int8 if quant else products[0].x.dtype
     floats, counters = _scratch_need([p.KN for p in products], wd)
     if workspace is None:
         workspace = Workspace(dev, floats, counters)
@@ -445,11 +468,10 @@ def v7_skinny_matmul(products, workspace: Workspace | None = None):
              and workspace.counters.numel() >= counters
              and workspace.scratch.device == dev,
              "the workspace is too small for these products")
-    table = (ctypes.c_int64 * len(desc))(*desc)
     levels = levels_table(mode) if four else None
     status = _build.library("v7_decode").v7_skinny_matmul_launch(
-        ctypes.addressof(table), len(products), B, _DTYPE_CODE[cd],
-        4 if four else 8 if quant else 0,
+        ctypes.addressof(table), len(products), B,
+        _DTYPE_CODE[products[0].x.dtype], 4 if four else 8 if quant else 0,
         ctypes.addressof(levels) if four else None,
         workspace.scratch.data_ptr(), workspace.scratch.numel(),
         workspace.counters.data_ptr(), workspace.counters.numel(),
@@ -581,7 +603,11 @@ _PLAIN_OPS = (_ln_mix_inplace_plain, _matmul_inplace_plain,
 # ---------------------------------------------------------------------------
 
 
-def _forward(ops, params, state, tokens, lengths):
+def _forward(ops, params, state, tokens, lengths, skinny=True):
+    """The stack over ``ops`` = (ln_mix, matmul, wkv_gn), the kernels or
+    their plain versions; ``skinny``: ``matmul`` is ``v7_skinny_matmul``'s,
+    which takes a work space on the card (``ops/v7_phased`` runs this
+    stack with ``phased_matmul``, which takes none)."""
     ln_mix, matmul, wkv_gn = ops
     f = params[FUSED_KEY]
     L, _, C = f["ln1"].shape
@@ -590,7 +616,7 @@ def _forward(ops, params, state, tokens, lengths):
     cd = params["emb"].dtype
     active = lengths > 0
     ws = None
-    if tokens.device.type == "cuda":
+    if tokens.device.type == "cuda" and skinny:
         need = [_scratch_need(s, torch.int8 if quant else cd)
                 for s in ([(C, C)] * 3, [(C, F)], [(F, C)])]
         ws = Workspace(tokens.device, max(n[0] for n in need),

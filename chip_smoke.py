@@ -32,7 +32,11 @@ kernel's source is built first, one ``nvcc`` each, all started together):
    4096): ``v6_wkv_gn`` in its static-decay mode, ``wkv56_t1`` and
    ``wkv56_chunk`` on v5's static (H, N) decay, ``v4_wkv`` and
    ``wkv4_chunk`` (``csrc/wkv4.cu``, on bf16 k and v), and each stack's two
-   ``v7_ln_mix`` and four ``v7_skinny_matmul`` launches of a layer.  Last,
+   ``v7_ln_mix`` and four ``v7_skinny_matmul`` launches of a layer.  Then
+   the wide-batch products, ``phased_matmul`` (``csrc/phased.cu``), on a
+   v7 layer's four big launches at the 0.4B and the RWKV-7 2.9B widths in
+   bf16, int8 and int4 and on a v5 layer's in bf16, at B = 16 and 64,
+   beside ``torch.matmul`` and the 8-row ``v7_skinny_matmul``.  Last,
    the IVF probe ``ivf_score`` (``csrc/ivf.cu``) on an int8 index of 2^20
    vectors of D = 1024 (a mixture of 16,384 unit modes made on the card,
    balanced k-means with nlist = 1024, the streamed builder), held against
@@ -60,7 +64,11 @@ kernel's source is built first, one ``nvcc`` each, all started together):
    known-wrong plain stacks that the same check must reject.  The same
    cases for RWKV-5 and RWKV-4 at the 0.4B width (v5's mixed model runs
    ``wkv56_t1``, v4's ``wkv4_chunk`` at T=1).  The v6, v5 and v4 matrices
-   are scaled by their fan-in (``fan_in_scaled``).
+   are scaled by their fan-in (``fan_in_scaled``).  Then the phased stacks
+   (``ops/v7_phased``, ``ops/v56_phased``) at 2 layers and B = 16 and 64:
+   v7 at the 2.9B widths (bf16, int8, int4), v6 at 1B6 (bf16, int8), v5 at
+   0.4B, each against ``forward_t1_plain``, in lockstep and under its CUDA
+   graph, launching ``phased_matmul`` and no ``v7_skinny_matmul``.
 4. Serving: the 0.4B shape at all 24 layers in bf16 from a seed, with a
    synthetic 65,536-entry vocabulary, behind the port's HTTP server on
    localhost: concurrent greedy completions and a streamed chat.  The
@@ -75,7 +83,7 @@ kernel's source is built first, one ``nvcc`` each, all started together):
    the fused stack in its 4-bit mode under the graph; ``matmul_4bit_l``,
    ``ffn7_t1_l`` in its 4-bit mode and ``wkv7_t1`` on the layer path), each
    with the launch counts zeroed before and read after.  Last, a random
-   24-layer RWKV-6 checkpoint of the 1B6 shape (f16 on disk) served in bf16
+   12-layer RWKV-6 checkpoint of the 1B6 shape (f16 on disk) served in bf16
    with the same burst: prefill through ``wkv56_chunk``, every decode step
    one replay of the fused v6 stack's graph; its stack is also timed with
    every layer quantized int8 and nf4 on the card.  The bf16 v7 server
@@ -86,7 +94,13 @@ kernel's source is built first, one ``nvcc`` each, all started together):
    version on the CPU) and a RAG chat, with ``ivf_score``'s count zeroed
    before and read after.  Then random 24-layer RWKV-5 and RWKV-4 checkpoints of the 0.4B shape, served the same way
    (prefill through ``wkv56_chunk`` / ``wkv4_chunk``, decode one replay of
-   the fused v5 / v4 stack).  Each phase prints its seconds.
+   the fused v5 / v4 stack).  The 0.4B v7 checkpoint at ``quant = 24``
+   Int8 and the v5 one in bf16 are also served at ``max_batch = 64`` with
+   64 concurrent completions (every step one replay of the phased stack's
+   graph; ``v7_skinny_matmul`` must launch 0 times), and the phased and
+   fused stacks are timed at B = 16 and 64 on those models, on the v6
+   model and on the 32-layer RWKV-7 2.9B shape built on the card in bf16
+   and int8.  Each phase prints its seconds.
 
 The last two lines of standard output are the card's
 ``name, power.limit`` and ``{"ok": true, "device": {...}}``.
@@ -116,13 +130,28 @@ SEED = 20261016
 # RWKV-6 World 1B6 (RWKV-x060-World-1B6-v2.1, RWKV-LM's RWKV_Tmix_x060): L=24,
 # C=2048, head 64 (H=32), FFN int(3.5 C) // 32 * 32 = 7168, vocab 65536,
 # token-shift LoRA rank 32 (time_mix_w1 is (C, 160)), decay LoRA rank 64.
-L6, C6, F6 = 24, 2048, 7168
+# Served at 12 of the 24 layers: the 3.2 GB checkpoint's write and load
+# were the script's longest step, and the whole script passed ~700 s once
+# the wide-batch phases came.
+L6, C6, F6 = 12, 2048, 7168
 LORA6 = {"tm": 32, "td": 64}
 # RWKV-5 World 0.4B (RWKV-5-World-0.4B-v2; RWKV-LM x052: dim_ffn =
 # int(3.5 C) // 32 * 32) and RWKV-4 World 0.4B (RWKV-4-World-0.4B-v1: dim_ffn
 # = 4 C): L=24, C=1024, vocab 65536; v5 head 64 (H=16), v4 one WKV per
 # channel.  The v7 smoke model's width, so their rows compare with its rows.
 L54, F5, F4 = 24, 3584, 4096
+# RWKV-7 World 2.9B (BlinkDL's RWKV-x070-World-2.9B): L=32, C=2560, head 64
+# (H=40), FFN 4 C = 10240, vocab 65536; LoRA ranks w 96, a 96, v 64, g 320,
+# as RWKV-LM's v7 model.py sizes them for C=2560.  The wide-batch phases'
+# large shape (the LoRA ranks are under 1% of its bytes).
+L29, C29, F29 = 32, 2560, 10240
+LORA29 = {"w": 96, "a": 96, "v": 64, "g": 320}
+# Wide batches: the phased stacks (ops/v7_phased, ops/v56_phased) serve
+# max_batch above the 8 rows of the fused products; 64 is the third
+# configuration the repo was built for (BASELINE.json "configs"[2]).
+WIDE_BATCH = 64
+PHASED_BS = (16, WIDE_BATCH)
+PHASED_VOCAB = 4096  # the parity models' vocabulary: no T=1 stack reads it
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores
@@ -133,6 +162,14 @@ KERNEL_TOL = 1e-4           # max |kernel - plain| / max(1, max |plain|)
 # an f32 sum across a bf16 rounding boundary.
 BF16_TOL = 2.0 ** -7
 MODEL_TOL = 1e-3            # max |card - cpu| / max |cpu|, f32, 2 layers
+# The v7 WKV state in lockstep at the wide shapes: v7_wkv_gn rounds the
+# L2-normalised removal key kk to bf16, and at B = 64 and C = 2560 some of
+# those roundings flip when kk's norm is summed in another order, moving
+# whole state rows (two plain versions that differ only in the order of
+# their 64-term sums over a head read 1.06 x KERNEL_TOL on the state of
+# the 2.9B int4 case).  16 x KERNEL_TOL there; a wrong update reads
+# thousands.
+V7_WIDE_STATE_TOL = 16 * KERNEL_TOL
 # Fused kernels vs forward_t1_plain on the card in bf16, 2 layers, relative
 # to max |plain|: single-ulp flips (above) are carried through the next
 # LayerNorms and products, so a few ulps on the hidden; the f32 state sees
@@ -1685,6 +1722,161 @@ IVF_Q, IVF_CHECK_Q, IVF_RECALL_Q = 64, 16, 256
 IVF_SMALL_N, IVF_SMALL_NLIST = 1 << 16, 64  # the bf16 and f32 indexes
 
 
+def phase_phased_kernels(dev) -> dict:
+    """``phased_matmul`` (``csrc/phased.cu``) against its plain version on
+    the four big launches of a v7 layer (r/k/v, Wo, fkey, fval) at the 0.4B
+    and the 2.9B widths, B = 16 and 64, on bf16 weights and on int8 and
+    int4 codes, and on a v5 0.4B layer's four in bf16, each launch timed on
+    weights that rotate through more than the L2 holds; beside it
+    ``torch.matmul`` on the same bf16 products and ``v7_skinny_matmul`` (8
+    rows a launch) on the same weights.  Returns the kernels line's rows:
+    the served shapes (v7 0.4B per mode, v5 0.4B bf16) at B = 64."""
+    import torch
+
+    from ai00_server_tpu_torch.ops import phased_matmul as pm
+    from ai00_server_tpu_torch.ops import quant
+    from ai00_server_tpu_torch.ops import v7_decode as fd
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 8)
+    cd = torch.bfloat16
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    def close(got, want, rounded, what):
+        err = float((got.float() - want.float()).abs().max())
+        tol = BF16_TOL if rounded else KERNEL_TOL
+        check(err <= tol * max(1.0, float(want.float().abs().max())),
+              f"{what} disagrees with its plain version: {err:.3e}")
+        return err
+
+    def v7_layer(Cw, Fw):
+        return {"rkv": [(Cw, Cw, "f32")] * 3, "wo": [(Cw, Cw, "add")],
+                "fkey": [(Cw, Fw, "relu2")], "fval": [(Fw, Cw, "add")]}
+
+    # (width, the big launches of a layer, weight modes, the kernels line's
+    # row per mode at B = WIDE_BATCH): the served shapes give the rows.
+    cases = [
+        ("0.4B", v7_layer(C, FFN), ("bf16", "int8", "int4"),
+         {"bf16": "phased_matmul", "int8": "phased_matmul (int8)",
+          "int4": "phased_matmul (int4)"}),
+        ("2.9B", v7_layer(C29, F29), ("bf16", "int8", "int4"), {}),
+        # v5's layer: r, k, v, g; Wo; the channel mix's key and receptance;
+        # its value.
+        ("v5 0.4B", {"rkvg": [(C, C, "f32")] * 4, "wo": [(C, C, "add")],
+                     "fkey_frec": [(C, F5, "relu2"), (C, C, "f32")],
+                     "fval": [(F5, C, "add")]}, ("bf16",),
+         {"bf16": "phased_matmul (v5)"}),
+    ]
+    rows = {}
+    for width, groups, modes, row_names in cases:
+        for mode in modes:
+            total = {B: dict.fromkeys(("ms", "plain_ms", "library_ms",
+                                       "skinny_ms", "bytes", "flops"), 0.0)
+                     for B in PHASED_BS}
+            worst = 0.0
+            for gname, specs in groups.items():
+                wbytes = sum(K * Nout * 2 for K, Nout, _ in specs)
+                n_sets = int(2 * L2_BYTES // wbytes) + 1
+                sets = []  # [(bf16 weights, codes or None)] per set
+                for _ in range(n_sets):
+                    ws_ = [(rnd(K, Nout) / K ** 0.5).to(cd)
+                           for K, Nout, _ in specs]
+                    codes = ([quant.QUANTIZERS[mode](w) for w in ws_]
+                             if mode != "bf16" else None)
+                    sets.append((ws_, codes))
+                for B in PHASED_BS:
+                    xs = [rnd(B, K, scale=0.5).to(cd) for K, _, _ in specs]
+                    ys = [rnd(B, Nout) for _, Nout, _ in specs]
+
+                    def prods(i, y=None, _xs=xs, _ys=ys):
+                        ws_, codes = sets[i]
+                        out = []
+                        for j, (x, (_, _, kind)) in enumerate(zip(_xs,
+                                                                  specs)):
+                            w = dict(W=ws_[j]) if codes is None else dict(
+                                W=codes[j].q, scale=codes[j].scale,
+                                mode=mode)
+                            out.append(fd.Product(
+                                x, act="relu2" if kind == "relu2" else
+                                "none", round_cd=kind == "f32",
+                                out="cd" if kind == "relu2" else
+                                "add" if kind == "add" else "f32",
+                                y=(_ys[j] if y is None else y[j])
+                                if kind == "add" else None, **w))
+                        return out
+
+                    shapes = [(K, Nout) for K, Nout, _ in specs]
+                    pmode = "none" if mode == "bf16" else mode
+                    wsk = fd.Workspace(dev, *fd._scratch_need(
+                        shapes, cd if pmode == "none" else torch.int8))
+                    want = pm.phased_matmul_plain(prods(0))
+                    got = pm.phased_matmul(
+                        prods(0, [y.clone() for y in ys]))
+                    torch.cuda.synchronize()
+                    for g, w, (_, _, kind) in zip(got, want, specs):
+                        worst = max(worst, close(
+                            g, w, kind in ("f32", "relu2"),
+                            f"phased_matmul[{width} {mode} {gname} B={B}]"))
+                    t = total[B]
+                    ms = device_ms(rotating(
+                        lambda i: pm.phased_matmul(prods(i)), n_sets), 20)
+                    t["ms"] += ms
+                    t.setdefault("per_launch", {})[gname] = ms
+                    t["plain_ms"] += device_ms(rotating(
+                        lambda i: pm.phased_matmul_plain(prods(i)), n_sets),
+                        3)
+                    t["library_ms"] += device_ms(rotating(
+                        lambda i: [torch.matmul(x, w) for x, w in
+                                   zip(xs, sets[i][0])], n_sets), 20)
+                    t["skinny_ms"] += device_ms(rotating(
+                        lambda i: fd.v7_skinny_matmul(prods(i), wsk),
+                        n_sets), 20)
+                    code = sets[0][1]
+                    t["bytes"] += sum(
+                        nbytes(x) + (nbytes(c.q, c.scale) if code else
+                                     nbytes(w)) + B * Nout * (
+                            8 if kind == "add" else 4 if kind == "f32"
+                            else 2)
+                        for x, w, c, (_, Nout, kind) in zip(
+                            xs, sets[0][0], code or sets[0][0], specs))
+                    t["flops"] += sum(2 * B * K * Nout
+                                      for K, Nout, _ in specs)
+                del sets
+            for B in PHASED_BS:
+                t = total[B]
+                b_ms, b_by = bound(t["bytes"], t["flops"], BF16_FLOPS)
+                print(f"phased_matmul {width} {mode} B={B}, the four big "
+                      f"launches of a layer: {t['ms']:.5f} ms ("
+                      + ", ".join(f"{g} {v:.5f}"
+                                  for g, v in t["per_launch"].items())
+                      + f"; {t['bytes'] / t['ms'] / 1e6:.0f} GB/s; plain "
+                      f"{t['plain_ms']:.5f}, torch.matmul on the bf16 "
+                      f"products {t['library_ms']:.5f}, v7_skinny_matmul "
+                      f"(8 rows a launch) {t['skinny_ms']:.5f}; bound "
+                      f"{b_ms:.5f} by {b_by})", flush=True)
+                if mode in row_names and B == WIDE_BATCH:
+                    name = row_names[mode]
+                    rows[name] = {
+                        "name": name, "route": "cuda",
+                        "source": "ai00_server_tpu_torch/csrc/phased.cu",
+                        "replaces": (
+                            "ai00_server_tpu/ops/v56_phased_pallas.py:439"
+                            if width.startswith("v5") else
+                            "ai00_server_tpu/ops/v7_phased_pallas.py:780"),
+                        "max_abs_err": worst, "ms": t["ms"],
+                        "plain_ms": t["plain_ms"],
+                        "library_ms": t["library_ms"],
+                        "bound_ms": b_ms,
+                        "bound_by": b_by}
+            print(f"phased_matmul {width} {mode}: max_abs_err {worst:.3e} "
+                  f"(tolerance {BF16_TOL:.2e} x max(1, |plain|) on "
+                  f"bf16-rounded results, {KERNEL_TOL} on f32 ones)",
+                  flush=True)
+    return rows
+
+
 def ivf_bound(ivf, probe, elem: int, D: int) -> dict:
     """The least time of one ``ivf_score`` call: the filled rows of each
     DISTINCT probed cluster read once (ids and scales of all its slots),
@@ -1921,20 +2113,23 @@ def off_pp_init(got, want, what: str):
     return got[~init], want[~init]
 
 
-def lockstep(kernels, plains, worst: dict) -> tuple:
+def lockstep(kernels, plains, worst: dict,
+             state_tol: dict | None = None) -> tuple:
     """The ops (ln_mix, matmul, wkv_gn) of a fused stack that run the plain
     versions and, on copies of the same inputs, ``kernels``: every launch's
     results against the plain ones, as phase 2 holds them (``BF16_TOL`` on a
-    value rounded to bf16, ``KERNEL_TOL`` on f32, both x max(1, |plain|)),
-    the worst error / tolerance per op kept in ``worst`` (above 1: out of
-    tolerance).  The plain results drive the stack, so the two never drift
-    apart and one slip in one launch shows at its own size."""
+    value rounded to bf16, ``KERNEL_TOL`` on f32, both x max(1, |plain|);
+    ``state_tol[op]`` in place of ``KERNEL_TOL`` on the f32 operands an op
+    updates in place), the worst error / tolerance per op kept in ``worst``
+    (above 1: out of tolerance).  The plain results drive the stack, so the
+    two never drift apart and one slip in one launch shows at its own
+    size."""
     import dataclasses
 
     import torch
 
-    def ratio(got, want, rounded):
-        tol = BF16_TOL if rounded else KERNEL_TOL
+    def ratio(got, want, rounded, f32_tol=KERNEL_TOL):
+        tol = BF16_TOL if rounded else f32_tol
         got, want = off_pp_init(got, want, "lockstep")
         err = float((got.float() - want.float()).abs().max())
         return err / (tol * max(1.0, float(want.float().abs().max())))
@@ -1956,7 +2151,8 @@ def lockstep(kernels, plains, worst: dict) -> tuple:
                          for g, w, p in zip(got, want, prods)]
             else:  # the output, then every f32 operand (the state in place)
                 pairs = [(got, want, want.dtype != torch.float32)] + [
-                    (a, b, False) for a, b in zip(k_args, args)
+                    (a, b, False, (state_tol or {}).get(name, KERNEL_TOL))
+                    for a, b in zip(k_args, args)
                     if isinstance(b, torch.Tensor)
                     and b.dtype == torch.float32]
             worst[name] = max([worst.get(name, 0.0)]
@@ -2283,6 +2479,160 @@ def phase_parity(dev, version: str = "v7") -> dict:
     return result
 
 
+# The phased stacks' parity cases: (version, width, weight mode).
+PHASED_CASES = [("v7", "2.9B", None), ("v7", "2.9B", "int8"),
+                ("v7", "2.9B", "int4"), ("v6", "1B6", None),
+                ("v6", "1B6", "int8"), ("v5", "0.4B", None)]
+
+
+def phased_info(version: str, width: str, num_layer: int,
+                vocab: int = PHASED_VOCAB):
+    from ai00_server_tpu_torch.models.info import ModelInfo, ModelVersion
+
+    Cw, Fw = {"2.9B": (C29, F29), "1B6": (C6, F6), "0.4B": (C, F5)}[width]
+    return ModelInfo(version=ModelVersion(version.upper()),
+                     num_layer=num_layer, num_emb=Cw, num_hidden=Fw,
+                     num_vocab=vocab, num_head=Cw // HEAD, head_size=HEAD)
+
+
+def phase_phased_parity(dev) -> dict:
+    """The phased stacks on the card at 2 layers, bf16, B = 16 and 64: v7 at
+    the 2.9B widths (plain, int8, int4), v6 at the 1B6 widths (plain,
+    int8), v5 at the 0.4B widths (plain), the matrices scaled by their
+    fan-in.  From a ragged 8-token prefill (one row idle), three decode
+    steps through ``forward_t1`` against ``forward_t1_plain`` on the card
+    (``BF16_MODEL_TOL``), every launch in lockstep with its plain version,
+    and the same steps replayed from the stack's CUDA graph (equal to the
+    eager kernels bit for bit); ``stack_for`` must pick the phased stack at
+    B and the fused one at 8, and the eager steps must launch
+    ``phased_matmul`` and no ``v7_skinny_matmul``.  Returns per case the
+    worst absolute error on the hidden and the launches per replay, and
+    the int4 launches of ``phased_matmul``."""
+    import numpy as np
+    import torch
+
+    from ai00_server_tpu_torch.loader import stack_params
+    from ai00_server_tpu_torch.models import get_version_module
+    from ai00_server_tpu_torch.ops import fused_decode
+    from ai00_server_tpu_torch.ops import phased_matmul as pm
+    from ai00_server_tpu_torch.ops import v7_decode as fd7
+    from ai00_server_tpu_torch.testing import make_raw_weights
+
+    result = {"int4_launches": 0}
+    lora = {"v7": LORA29, "v6": LORA6, "v5": LORA6}
+    for version, width, mode in PHASED_CASES:
+        info = phased_info(version, width, 2)
+        tag = f"{version} {width} {mode or 'bf16'}"
+        module = get_version_module(info.version)
+        fd = fused_decode.module_for(info.version.value)
+        math = fan_in_scaled(make_raw_weights(
+            info, seed=SEED + 9, dtype=np.float32,
+            lora_dims=lora[version]))
+        p16 = stack_params(info, math, dtype=torch.bfloat16, device=dev,
+                           quant={0: mode, 1: mode} if mode else None)
+        del math
+        p16[fd.FUSED_KEY] = fd.make_fused_layout(p16)
+        check(fused_decode.stack_for(info.version.value, p16, 8) is fd,
+              f"the {tag} model does not take its fused "
+              "stack at 8 rows")
+        for B in PHASED_BS:
+            pd = fused_decode.stack_for(info.version.value, p16, B)
+            check(pd is not fd and pd is not None,
+                  f"the {tag} model does not take a "
+                  f"phased stack at B={B}")
+            rng = np.random.default_rng(SEED + B)
+            lens = rng.integers(1, 9, B).astype(np.int32)
+            lens[2] = 0
+            toks = rng.integers(1, info.num_vocab, (B, 8))
+            _, s0 = module.forward(
+                p16, module.init_state(info, B, device=dev),
+                torch.as_tensor(toks, device=dev),
+                torch.as_tensor(lens, device=dev))
+            steps = []
+            for _ in range(3):
+                l1 = np.ones(B, np.int32)
+                l1[2] = 0
+                steps.append((rng.integers(1, info.num_vocab, (B, 1)), l1))
+
+            def decode(fwd, graph_state=None) -> list:
+                state = graph_state or {k: t.clone() for k, t in s0.items()}
+                outs = []
+                for t1, l1 in steps:
+                    h = fwd(p16, state, torch.as_tensor(t1, device=dev),
+                            torch.as_tensor(l1, device=dev))[0]
+                    outs.append([h[l1 > 0].float().clone()]
+                                + [state[k].clone() for k in s0])
+                return outs
+
+            for k in (pm.phased_matmul, fd7.v7_skinny_matmul):
+                k.launches = 0
+            pm.phased_matmul.int4_launches = 0
+            got = decode(pd.forward_t1)
+            torch.cuda.synchronize()
+            check(pm.phased_matmul.launches > 0
+                  and fd7.v7_skinny_matmul.launches == 0,
+                  f"the {tag} phased stack at B={B} "
+                  f"launched phased_matmul {pm.phased_matmul.launches} "
+                  f"and v7_skinny_matmul {fd7.v7_skinny_matmul.launches} "
+                  "times")
+            result["int4_launches"] += pm.phased_matmul.int4_launches
+            plain = decode(pd.forward_t1_plain)
+            for o in got:
+                check(all(bool(torch.isfinite(a).all()) for a in o),
+                      "non-finite bf16 output")
+            for i, k in enumerate(s0):
+                check(torch.equal(got[-1][1 + i][:, 2], s0[k][:, 2]),
+                      f"the phased {version} stack changed an inactive "
+                      "row's state")
+            per_step = [max(float((a.double() - b.double()).abs().max())
+                            / max(float(b.abs().max()), 1e-6)
+                            for a, b in zip(o, r))
+                        for o, r in zip(got, plain)]
+            worst_abs = max(float((o[0].double() - r[0].double()).abs()
+                                  .max()) for o, r in zip(got, plain))
+            check(max(per_step) <= BF16_MODEL_TOL,
+                  f"the phased {tag} stack at B={B} and "
+                  f"forward_t1_plain disagree: {per_step}")
+            lock = {}
+            decode(functools.partial(pd._forward, lockstep(
+                pd._OPS, pd._PLAIN_OPS, lock,
+                {"wkv_gn": V7_WIDE_STATE_TOL} if version == "v7" else {})))
+            check(max(lock.values()) <= 1.0,
+                  f"a launch of the phased {tag} stack "
+                  f"at B={B} disagrees with its plain version: {lock}")
+            gstate = {k: t.clone() for k, t in s0.items()}
+            graph = pd.DecodeGraph(p16, gstate, B)
+
+            def replay(params, state, t1, lengths, _g=graph):
+                return _g.replay(t1[:, 0], lengths)[:, None], state
+
+            replayed = decode(replay, gstate)
+            check(all(torch.equal(a, b) for o, r in zip(replayed, got)
+                      for a, b in zip(o, r)),
+                  f"the phased {tag} stack's graph "
+                  f"replays differ from its eager launches at B={B}")
+            label = f"{tag} B={B}"
+            result[label] = {"max_abs_err": worst_abs,
+                             "per_replay": graph.launches_per_replay}
+            print(f"phased decode in bf16 on the card, {label} (2 layers, "
+                  f"3 steps, row 2 idle): max |kernels - plain| / max "
+                  f"|plain| over hidden and state per step "
+                  + " / ".join(f"{x:.3e}" for x in per_step)
+                  + f" (tolerance {BF16_MODEL_TOL}), {worst_abs:.3e} "
+                  "absolute on the hidden; in lockstep worst error / "
+                  "tolerance " + ", ".join(f"{k} {v:.3g}"
+                                           for k, v in lock.items())
+                  + f"; graph replays equal the eager launches bit for bit; "
+                  f"launches per replay {graph.launches_per_replay} "
+                  "(v7_ln_mix, phased_matmul, WKV), no v7_skinny_matmul; "
+                  "inactive row bit-identical", flush=True)
+            del graph, gstate, s0
+        del p16
+        gc.collect()
+        torch.cuda.empty_cache()
+    return result
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: serving at full width
 # ---------------------------------------------------------------------------
@@ -2311,11 +2661,15 @@ def synthetic_vocab() -> dict[str, str]:
 SERVED = {"bf16": (0, "Int8"), "int8": (L_FULL, "Int8"),
           "mixed": (L_FULL // 2, "Int8"), "nf4": (L_FULL, "NF4"),
           "mixed nf4": (L_FULL // 2, "NF4")}
-# RWKV-6 (the 1B6 shape), RWKV-5 and RWKV-4 (the 0.4B shapes): full depth,
-# bf16, with the burst.
+# RWKV-6 (the 1B6 shape, L6 layers), RWKV-5 and RWKV-4 (the 0.4B shapes,
+# full depth): bf16, with the burst.
 SERVED_FAMILIES = {"v6 bf16": (0, "Int8"), "v5 bf16": (0, "Int8"),
                    "v4 bf16": (0, "Int8")}
-ALL_SERVED = {**SERVED, **SERVED_FAMILIES}
+# max_batch = WIDE_BATCH: the phased stacks under their graphs, with a burst
+# of WIDE_BATCH concurrent completions.  v7 with every layer int8, v5 bf16.
+SERVED_WIDE = {"int8 wide": (L_FULL, "Int8"), "v5 bf16 wide": (0, "Int8")}
+ALL_SERVED = {**SERVED, **SERVED_FAMILIES, **SERVED_WIDE}
+WIDE_TOKENS = 48  # per completion of the wide burst
 MIXED_TOKENS = 16  # per completion on the (eager, host-bound) layer path
 
 
@@ -2336,13 +2690,14 @@ def write_site(tmp: Path) -> dict:
     del raw
     (tmp / "vocab.json").write_text(json.dumps(synthetic_vocab()))
     cfgs = {}
-    for kind, (quant, quant_type) in SERVED.items():
+    for kind in (*SERVED, "int8 wide"):
+        quant, quant_type = ALL_SERVED[kind]
         cfgs[kind] = tmp / f"Config-{kind.replace(' ', '-')}.toml"
         cfgs[kind].write_text(f"""
 [model]
 name = "rwkv7-0.4b.st"
 path = "{tmp}"
-max_batch = {MAX_BATCH}
+max_batch = {WIDE_BATCH if kind.endswith('wide') else MAX_BATCH}
 token_chunk_size = {CHUNK}
 precision = "Fp16"
 quant = {quant}
@@ -2361,7 +2716,7 @@ port = 0
 
 
 def write_site_family(tmp: Path, version: str) -> dict:
-    """The random 24-layer checkpoint of the RWKV-6 1B6 shape or the
+    """The random checkpoint of the RWKV-6 1B6 shape (``L6`` layers) or the
     RWKV-5 / RWKV-4 0.4B shape (f16 on disk, as ``write_site`` writes v7's;
     the matrices scaled by their fan-in, as in the parity phase) and its
     config, beside the vocabulary ``write_site`` left in ``tmp``."""
@@ -2382,14 +2737,17 @@ def write_site_family(tmp: Path, version: str) -> dict:
     path = tmp / f"rwkv{version[1]}-{shape}.st"
     save_safetensors(conv, str(path))
     del conv
-    kind = f"{version} bf16"
-    quant, quant_type = SERVED_FAMILIES[kind]
-    cfg = tmp / f"Config-{kind.replace(' ', '-')}.toml"
-    cfg.write_text(f"""
+    cfgs = {}
+    for kind in (f"{version} bf16", f"{version} bf16 wide"):
+        if kind not in ALL_SERVED:
+            continue
+        quant, quant_type = ALL_SERVED[kind]
+        cfgs[kind] = tmp / f"Config-{kind.replace(' ', '-')}.toml"
+        cfgs[kind].write_text(f"""
 [model]
 name = "{path.name}"
 path = "{tmp}"
-max_batch = {MAX_BATCH}
+max_batch = {WIDE_BATCH if kind.endswith('wide') else MAX_BATCH}
 token_chunk_size = {CHUNK}
 precision = "Fp16"
 quant = {quant}
@@ -2405,7 +2763,7 @@ port = 0
     print(f"wrote the random {layers}-layer {version} {shape}-shape "
           f"checkpoint ({path.stat().st_size / 1e9:.2f} GB) in "
           f"{time.monotonic() - t0:.1f} s", flush=True)
-    return {kind: cfg}, path
+    return cfgs, path
 
 
 PROMPT = ("the quick brown fox jumps over the lazy dog while a model "
@@ -2610,16 +2968,18 @@ async def profiled(coro) -> str:
             + "; ".join(f"{n[:60]} {t / 1e3:.2f} ms" for n, t in top))
 
 
-def time_replay(fd, params, state, graph, B: int) -> dict:
+def time_replay(fd, params, state, graph, B: int, key=None) -> dict:
     """One decode step of a loaded stack, every row active: its CUDA graph
     replayed (device time between CUDA events), the same stack launched
     eagerly from Python and composed of the plain versions (host clock
     around a synchronise), and the least time the card could take for the
-    bytes the stack must move.  Leaves ``state`` advanced."""
+    bytes the stack must move.  ``fd``: the stack's module; ``key``: its
+    layout's (the fused module's ``FUSED_KEY``, which the phased stacks
+    read).  Leaves ``state`` advanced."""
     import torch
 
     dev = state[next(iter(state))].device
-    layout = params[fd.FUSED_KEY]
+    layout = params[key or fd.FUSED_KEY]
     toks = torch.arange(1, B + 1, dtype=torch.int32, device=dev)
     ones = torch.ones(B, dtype=torch.int32, device=dev)
     graph.replay(toks, ones)
@@ -2666,26 +3026,26 @@ def time_stack(engine) -> dict:
     states advanced."""
     from ai00_server_tpu_torch.ops import fused_decode
 
-    fd = fused_decode.module_for(engine.info.version.value)
+    version = engine.info.version.value
+    stack = fused_decode.stack_for(version, engine.model.params,
+                                   engine.max_batch)
     with engine._lock:
         check(engine._graph is not None,
               "the engine captured no decode graph")
-        return time_replay(fd, engine.model.params, engine.state_pool,
-                           engine._graph, engine.max_batch)
+        return time_replay(stack, engine.model.params, engine.state_pool,
+                           engine._graph, engine.max_batch,
+                           fused_decode.module_for(version).FUSED_KEY)
 
 
-def time_quant_stack(engine, mode: str) -> dict:
-    """The engine's model with the big projections of every layer
+def quantized_params(params, version: str, mode: str) -> dict:
+    """A copy of ``params`` with the big projections of every layer
     quantized in ``mode`` on the card (one stacked group, as the loader
-    builds it from a checkpoint), its fused layout and a graph of its own
-    over a copy of the state pool: :func:`time_replay`.  The codes are
-    dropped after."""
+    builds it from a checkpoint) and the fused layout installed."""
     import torch
 
     from ai00_server_tpu_torch.ops import fused_decode, quant
 
-    fd = fused_decode.module_for(engine.info.version.value)
-    params = engine.model.params
+    fd = fused_decode.module_for(version)
     layers = [{**p, "att": dict(p["att"]), "ffn": dict(p["ffn"])}
               for p in params["layers"]]
     for part, keys in (("att", quant.QUANT_KEYS_ATT),
@@ -2702,15 +3062,125 @@ def time_quant_stack(engine, mode: str) -> dict:
     qparams["layers"] = layers
     check(fd.can_fuse(qparams), f"the {mode} stack cannot fuse")
     qparams[fd.FUSED_KEY] = fd.make_fused_layout(qparams)
+    return qparams
+
+
+def time_quant_stack(engine, mode: str) -> dict:
+    """The engine's model quantized in ``mode`` on the card
+    (:func:`quantized_params`) and a graph of its fused stack over a copy
+    of the state pool: :func:`time_replay`.  The codes are dropped
+    after."""
+    import torch
+
+    from ai00_server_tpu_torch.ops import fused_decode
+
+    fd = fused_decode.module_for(engine.info.version.value)
+    qparams = quantized_params(engine.model.params,
+                               engine.info.version.value, mode)
     state = {k: t.clone() for k, t in engine.state_pool.items()}
     B = engine.max_batch
     with engine._lock:
         out = time_replay(fd, qparams, state, fd.DecodeGraph(qparams, state,
                                                              B), B)
-    del qparams, layers, state
+    del qparams, state
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+def time_wide_stacks(params, version: str, pool) -> dict:
+    """The phased stack and, beside it, the fused one (8-row products: every
+    weight read again for each 8 rows) of a model with its fused layout,
+    each captured in its own graph over a copy of the first B rows of
+    ``pool`` and timed by :func:`time_replay`, at B = 16 and 64.  Keys
+    ``"phased B=16"`` ... ``"fused B=64"``."""
+    import torch
+
+    from ai00_server_tpu_torch.ops import fused_decode
+
+    fd = fused_decode.module_for(version)
+    out = {}
+    for B in PHASED_BS:
+        pd = fused_decode.stack_for(version, params, B)
+        check(pd is not fd and pd is not None,
+              f"no phased stack for the {version} model at B={B}")
+        for name, stack in (("phased", pd), ("fused", fd)):
+            state = {k: t[:, :B].clone() for k, t in pool.items()}
+            out[f"{name} B={B}"] = time_replay(
+                stack, params, state, stack.DecodeGraph(params, state, B), B,
+                fd.FUSED_KEY)
+            del state
+            gc.collect()
+            torch.cuda.empty_cache()
+    return out
+
+
+def wide_v7_params(dev):
+    """The RWKV-7 2.9B shape at full depth (``L29`` layers) in bf16 on the
+    card, with its fused layout: one layer of random fan-in-scaled weights
+    from the seed (vocabulary ``PHASED_VOCAB``: no T=1 stack reads it) whose
+    six big projections are drawn anew on the card for every layer.
+    Returns (info, params)."""
+    import numpy as np
+    import torch
+
+    from ai00_server_tpu_torch.loader import stack_params
+    from ai00_server_tpu_torch.ops import v7_decode as fd
+    from ai00_server_tpu_torch.testing import make_raw_weights
+
+    one = phased_info("v7", "2.9B", 1)
+    params = stack_params(one, fan_in_scaled(make_raw_weights(
+        one, seed=SEED + 10, dtype=np.float32, lora_dims=LORA29)),
+        dtype=torch.bfloat16, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 10)
+    base = params["layers"][0]
+    layers = []
+    for _ in range(L29):
+        layer = {**base, "att": dict(base["att"]), "ffn": dict(base["ffn"])}
+        for part, key in fd._BIG_SRC.values():
+            K, Nout = layer[part][key].shape
+            layer[part][key] = (torch.randn(K, Nout, generator=gen,
+                                            device=dev)
+                                / K ** 0.5).to(torch.bfloat16)
+        layers.append(layer)
+    params["layers"] = layers
+    params[fd.FUSED_KEY] = fd.make_fused_layout(params)
+    return phased_info("v7", "2.9B", L29), params
+
+
+def phase_wide_stacks(dev) -> dict:
+    """The full-depth 2.9B v7 stacks on the card, bf16 and int8 (codes
+    quantized on the card), phased beside fused at B = 16 and 64
+    (:func:`time_wide_stacks` over a fresh state pool of 64 rows)."""
+    import torch
+
+    from ai00_server_tpu_torch.models import v7
+
+    info, params = wide_v7_params(dev)
+    pool = v7.init_state(info, WIDE_BATCH, device=dev)
+    out = {"bf16": time_wide_stacks(params, "V7", pool)}
+    qparams = quantized_params(params, "V7", "int8")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["int8"] = time_wide_stacks(qparams, "V7", pool)
+    del qparams, pool
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def print_wide(label: str, stacks: dict) -> None:
+    for name, st in stacks.items():
+        print(f"forward_t1 {label}, {name} (all rows active): "
+              f"{st['replay_ms']:.5f} ms per graph replay "
+              f"({st['kernels_per_replay']} kernels; "
+              f"{st['bytes'] / st['replay_ms'] / 1e6:.0f} GB/s), "
+              f"{st['eager_ms']:.3f} ms launched eagerly, "
+              f"{st['plain_ms']:.3f} ms as plain versions; bound "
+              f"{st['bound_ms']:.5f} ms by {st['bound_by']} "
+              f"({st['bytes'] / 1e6:.1f} MB)", flush=True)
 
 
 async def serve(cfg: Path, kind: str, device="cuda") -> dict:
@@ -2726,9 +3196,10 @@ async def serve(cfg: Path, kind: str, device="cuda") -> dict:
     import torch
     from aiohttp import web
 
-    from ai00_server_tpu_torch.ops import fused_decode
+    from ai00_server_tpu_torch.ops import fused_decode, v7_phased, v56_phased
     from ai00_server_tpu_torch.ops import v7_decode as fd
     from ai00_server_tpu_torch.ops.ffn import ffn7_t1_l
+    from ai00_server_tpu_torch.ops.phased_matmul import phased_matmul
     from ai00_server_tpu_torch.ops.quant_matmul import (matmul_4bit_l,
                                                         matmul_int8,
                                                         matmul_int8_l)
@@ -2789,21 +3260,31 @@ async def serve(cfg: Path, kind: str, device="cuda") -> dict:
         return ttft, text
 
     mixed = kind.startswith("mixed")
+    wide = kind.endswith("wide")
     counted = {"wkv7_chunk": (wkv7_chunk, "launches")}
     family = kind.split()[0] if kind[:2] in ("v6", "v5", "v4") else None
+    version = (family or "v7").upper()
     if family:
         chunk = wkv4_chunk if family == "v4" else wkv56_chunk
-        counted = {chunk.__name__: (chunk, "launches"),
-                   **{k.__name__: (k, "launches") for k in
-                      fused_decode.module_for(family.upper()).KERNELS}}
+        counted = {chunk.__name__: (chunk, "launches")}
+    if wide:
+        # The phased stack's kernels, and v7_skinny_matmul apart: a wide
+        # step must run none of its 8-row launches.
+        stack = v56_phased if family else v7_phased
+        counted.update({k.__name__: (k, "launches") for k in stack.KERNELS})
+    elif family:
+        counted.update({k.__name__: (k, "launches") for k in
+                        fused_decode.module_for(version).KERNELS})
     elif mixed:
         by_layer = matmul_int8_l if kind == "mixed" else matmul_4bit_l
         counted.update({k.__name__: (k, "launches") for k in (
             wkv7_t1, by_layer, ffn7_t1_l, matmul_int8)})
     else:
         counted.update({k.__name__: (k, "launches") for k in fd.KERNELS})
-    if kind in ("int8", "nf4"):
+    if kind in ("int8", "nf4", "int8 wide"):
         counted["matmul_int8"] = (matmul_int8, "launches")
+    if kind == "int8 wide":
+        counted["phased_matmul (int8)"] = (phased_matmul, "int8_launches")
     if kind == "int8":
         counted["v7_skinny_matmul (int8)"] = (fd.v7_skinny_matmul,
                                               "int8_launches")
@@ -2814,6 +3295,7 @@ async def serve(cfg: Path, kind: str, device="cuda") -> dict:
     def zero_counts():
         for k, attr in counted.values():
             setattr(k, attr, 0)
+        fd.v7_skinny_matmul.launches = 0
         return fd.DecodeGraph.total_replays
 
     def read_counts():
@@ -2834,7 +3316,8 @@ async def serve(cfg: Path, kind: str, device="cuda") -> dict:
                 wall = time.monotonic() - t0
                 result.update(
                     launches=read_counts(),
-                    burst_replays=fd.DecodeGraph.total_replays - replays0)
+                    burst_replays=fd.DecodeGraph.total_replays - replays0,
+                    skinny_launches=fd.v7_skinny_matmul.launches)
                 texts = [o["choices"][0]["text"] for o in outs]
                 check(all(texts), "a completion returned no text")
                 check(texts[0] == texts[1],
@@ -2845,20 +3328,38 @@ async def serve(cfg: Path, kind: str, device="cuda") -> dict:
                               sample=texts[0][:60])
                 return result
 
-            prompts = [PROMPT * 20, PROMPT * 20, PROMPT * 11 + "alpha",
-                       PROMPT * 11 + "alpha"]
+            if wide:
+                check(isinstance(engine._graph, stack.DecodeGraph),
+                      f"the {kind} engine did not capture the phased stack")
+                # WIDE_BATCH completions, every two alike, of 2 to 13
+                # prompt repeats; the streamed chat waits for a free row.
+                prompts = [PROMPT * (2 + (i // 2) % 12) + f"request {i // 2}"
+                           for i in range(WIDE_BATCH)]
+                max_tokens = WIDE_TOKENS
+            else:
+                prompts = [PROMPT * 20, PROMPT * 20, PROMPT * 11 + "alpha",
+                           PROMPT * 11 + "alpha"]
+                max_tokens = 128
             replays0 = zero_counts()
             t0 = time.monotonic()
             *outs, (ttft_load, _chat) = await asyncio.gather(
-                *[completion(http, p, 128) for p in prompts],
+                *[completion(http, p, max_tokens) for p in prompts],
                 streamed_chat(http, PROMPT * 8, 64))
             wall = time.monotonic() - t0
             result.update(
                 launches=read_counts(),
-                burst_replays=fd.DecodeGraph.total_replays - replays0)
+                burst_replays=fd.DecodeGraph.total_replays - replays0,
+                skinny_launches=fd.v7_skinny_matmul.launches,
+                burst=f"{len(prompts)} greedy completions of {max_tokens} "
+                      "tokens + 1 streamed chat")
+            if wide:
+                check(fd.v7_skinny_matmul.launches == 0,
+                      f"the {kind} burst ran {fd.v7_skinny_matmul.launches} "
+                      "8-row v7_skinny_matmul launches")
             texts = [o["choices"][0]["text"] for o in outs]
             check(all(texts), "a completion returned no text")
-            check(texts[0] == texts[1] and texts[2] == texts[3],
+            check(all(texts[i] == texts[i + 1]
+                      for i in range(0, len(texts), 2)),
                   "identical greedy requests returned different text")
             n_tokens = sum(o["usage"]["completion"] for o in outs)
             ttft_solo, _ = await streamed_chat(
@@ -2879,10 +3380,21 @@ async def serve(cfg: Path, kind: str, device="cuda") -> dict:
                 result["rag"] = await rag_flow(http, base, server)
                 result["rag"]["seconds"] = time.monotonic() - t0
             result["stack"] = time_stack(engine) if device != "cpu" else None
+            if wide and device != "cpu":
+                with engine._lock:
+                    result["wide_stacks"] = time_wide_stacks(
+                        engine.model.params, version, engine.state_pool)
             if kind == "v6 bf16" and device != "cpu":
                 result["quant_stacks"] = {
                     mode: time_quant_stack(engine, mode)
                     for mode in ("int8", "nf4")}
+                # The served model's phased stack beside its fused one at
+                # wide batches, over a fresh state pool of WIDE_BATCH rows.
+                with engine._lock:
+                    result["wide_stacks"] = time_wide_stacks(
+                        engine.model.params, version,
+                        engine.module.init_state(engine.info, WIDE_BATCH,
+                                                 device=engine.device))
     finally:
         await server.middleware.unload()
         await runner.cleanup()
@@ -2924,6 +3436,7 @@ def main() -> None:
     rows.update(phase_4bit_kernels(dev))
     rows.update(phase_v6_kernels(dev))
     rows.update(phase_v54_kernels(dev))
+    rows.update(phase_phased_kernels(dev))
     rows.update(phase_ivf_kernels(dev))
     print(f"phase 2 (kernels) {time.monotonic() - t0:.1f} s", flush=True)
 
@@ -2931,6 +3444,7 @@ def main() -> None:
     parities = {version: phase_parity(dev, version)
                 for version in ("v7", "v6", "v5", "v4")}
     parity, parity_v6 = parities["v7"], parities["v6"]
+    phased = phase_phased_parity(dev)
     print(f"phase 3 (parity) {time.monotonic() - t0:.1f} s", flush=True)
 
     t0 = time.monotonic()
@@ -2940,7 +3454,7 @@ def main() -> None:
         with tempfile.TemporaryDirectory(dir=tmp_root) as tmp:
             cfgs = write_site(Path(tmp))
             served = {kind: asyncio.run(serve(cfgs[kind], kind))
-                      for kind in SERVED}
+                      for kind in cfgs}
             (Path(tmp) / "rwkv7-0.4b.st").unlink()
             for version in ("v6", "v5", "v4"):
                 cfgs, path = write_site_family(Path(tmp), version)
@@ -2949,6 +3463,7 @@ def main() -> None:
                 path.unlink()
     finally:
         shutil.rmtree(tmp_root, ignore_errors=True)
+    wide_29 = phase_wide_stacks(dev)
 
     # Every kernel's launches on its main path: the bf16 burst for the WKV
     # chunk and the fused decode kernels, the int8 / nf4 burst for the int8
@@ -2983,9 +3498,22 @@ def main() -> None:
                                      "v7_ln_mix (v4)": "v7_ln_mix",
                                      "v7_skinny_matmul (v4)":
                                      "v7_skinny_matmul",
-                                     "v4_wkv": "v4_wkv"})):
+                                     "v4_wkv": "v4_wkv"}),
+                        ("v5 bf16 wide", {"phased_matmul (v5)":
+                                          "phased_matmul"}),
+                        ("int8 wide", {"phased_matmul (int8)":
+                                       "phased_matmul (int8)"})):
         for row, counter in names.items():
             rows[row]["launches"] = served[kind]["launches"][counter]
+    # phased_matmul on bf16 weights at v7's widths: the int8 burst's LoRA
+    # launches.  On int4 codes: no served model holds them; its model path
+    # is the parity phase's int4 2.9B phased stacks.
+    wide_int8 = served["int8 wide"]["launches"]
+    rows["phased_matmul"]["launches"] = (wide_int8["phased_matmul"]
+                                         - wide_int8["phased_matmul (int8)"])
+    rows["phased_matmul (int4)"]["launches"] = phased["int4_launches"]
+    check(phased["int4_launches"] > 0,
+          "no model path launched phased_matmul on int4 codes")
     # ivf_score's main path: the retrieval requests of the bf16 server.
     rag = served["bf16"]["rag"]
     rows["ivf_score"]["launches"] = rag["ivf_launches"]
@@ -3049,7 +3577,8 @@ def main() -> None:
             (f"v6 {mode} (codes built on the card, not served)", st)
             for mode, st in served[kind].get("quant_stacks", {}).items()]
         for what, st in stacks:
-            print(f"forward_t1, {L_FULL} layers {what} B={MAX_BATCH}, all "
+            print(f"forward_t1, {L6 if version == 'v6' else L_FULL} layers "
+                  f"{what} B={MAX_BATCH}, all "
                   f"rows active: {st['replay_ms']:.5f} ms per graph replay "
                   f"({st['kernels_per_replay']} kernels; "
                   f"{st['bytes'] / st['replay_ms'] / 1e6:.0f} GB/s), "
@@ -3057,9 +3586,37 @@ def main() -> None:
                   f"{st['plain_ms']:.3f} ms as plain versions; bound "
                   f"{st['bound_ms']:.5f} ms by {st['bound_by']} "
                   f"({st['bytes'] / 1e6:.1f} MB)", flush=True)
+    # The phased stacks served at max_batch = WIDE_BATCH; their bf16 error
+    # is the parity phase's at the same B (v7: the 2.9B int8 stack).
+    for kind, version, label, replaces in (
+            ("int8 wide", "v7", "v7 2.9B int8 B=64",
+             "ai00_server_tpu/ops/v7_phased_pallas.py:780"),
+            ("v5 bf16 wide", "v5", "v5 0.4B bf16 B=64",
+             "ai00_server_tpu/ops/v56_phased_pallas.py:439")):
+        stack = served[kind]["stack"]
+        rows[f"forward_t1 {kind}"] = {
+            "name": f"forward_t1 (phased, {kind[:-5]}, {L_FULL} layers, "
+                    f"B={WIDE_BATCH}, {stack['kernels_per_replay']} kernels "
+                    "in one CUDA graph)",
+            "route": "cuda", "source": "ai00_server_tpu_torch/csrc/phased.cu",
+            "replaces": replaces, "launches": served[kind]["burst_replays"],
+            "max_abs_err": phased[label]["max_abs_err"],
+            "ms": stack["replay_ms"], "plain_ms": stack["plain_ms"],
+            "bound_ms": stack["bound_ms"], "bound_by": stack["bound_by"],
+            "library_ms": None,
+        }
+        print_wide(f"{L_FULL} layers, {kind} model served",
+                   served[kind]["wide_stacks"])
+    print_wide(f"{L6} layers, v6 bf16 model served at max_batch {MAX_BATCH}",
+               served["v6 bf16"]["wide_stacks"])
+    for mode, stacks in wide_29.items():
+        print_wide(f"{L29} layers 2.9B {mode} (built on the card, not "
+                   "served)", stacks)
     for kind, run in served.items():
         print(f"launches on the {kind} model's requests: {run['launches']}; "
-              f"{run['burst_replays']} graph replays", flush=True)
+              f"{run['burst_replays']} graph replays; "
+              f"{run['skinny_launches']} v7_skinny_matmul launches",
+              flush=True)
         if kind.startswith("mixed"):
             print(f"serving ({L_FULL} layers, the first {SERVED[kind][0]} "
                   f"{SERVED[kind][1]}, layer-by-layer path) on {card}: 2 "
@@ -3070,9 +3627,11 @@ def main() -> None:
                   f"{run['memory_bytes'] / 1e6:.1f} MB allocated by the "
                   f"load; sample {run['sample']!r}", flush=True)
             continue
-        print(f"serving ({L_FULL} layers, {kind}, max_batch {MAX_BATCH}, "
-              f"chunk {CHUNK}) on {card}: 4 greedy completions + 1 streamed "
-              f"chat in {run['wall_s']:.2f} s, {run['completion_tokens']} "
+        print(f"serving ({L6 if kind.startswith('v6') else L_FULL} layers, "
+              f"{kind}, max_batch "
+              f"{WIDE_BATCH if kind.endswith('wide') else MAX_BATCH}, chunk "
+              f"{CHUNK}) on {card}: {run['burst']} in {run['wall_s']:.2f} s, "
+              f"{run['completion_tokens']} "
               f"completion tokens ({run['prompt_tokens']} prompt) -> "
               f"{run['tokens_per_s']:.1f} tokens/s; TTFT "
               f"{run['ttft_s_under_load']:.3f} s under load, "

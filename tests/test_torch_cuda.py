@@ -1326,3 +1326,56 @@ def test_embed_sidecar_bert_on_the_card(dev, tmp_path):
     texts = ["hello world", "abc z"]
     _close(torch.as_tensor(emb.embed(texts)),
            torch.as_tensor(cpu.embed(texts)))
+
+
+# ---------------------------------------------------------------------------
+# phased_matmul (csrc/phased.cu): the wide-batch products
+# ---------------------------------------------------------------------------
+
+from ai00_server_tpu_torch.ops import phased_matmul as pm  # noqa: E402
+
+PHASED_GROUPS = {k: GROUPS[k] for k in ("rkv", "lora_down", "lora_up", "wo",
+                                        "fkey", "fval")}
+
+
+@pytest.mark.parametrize("mode,group", [
+    (mode, group) for group in sorted(PHASED_GROUPS)
+    for mode in ("none", "int8", "int4")
+    # codes take K in whole scale blocks
+    if mode == "none" or all(K % 128 == 0 for K, *_ in PHASED_GROUPS[group])])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B", [16, 64, 100])
+def test_phased_matmul_kernel_matches_plain(dev, mode, group, dtype, B):
+    """One launch per 64 rows; equal inputs give equal bits."""
+    shapes = PHASED_GROUPS[group]
+    gen = torch.Generator(device=dev).manual_seed(B)
+    prods = _products(gen, dev, dtype, B, shapes)
+    if mode != "none":
+        prods = [fd.Product(**{**p.__dict__, "mode": mode,
+                               "W": q.q, "scale": q.scale})
+                 for p, q in ((p, quant.QUANTIZERS[mode](p.W.float()))
+                              for p in prods)]
+    want = pm.phased_matmul_plain(prods)
+    again = [fd.Product(**{**p.__dict__, "y": None if p.y is None
+                           else p.y.clone()}) for p in prods]
+    before = pm.phased_matmul.launches
+    got = pm.phased_matmul(prods)
+    assert pm.phased_matmul.launches == before + -(-B // pm.ROWS)
+    for g, w, p in zip(got, want, prods):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        _close_t(g, w, dtype, rounded=p.out == "cd" or p.round_cd)
+    for g, g2 in zip(got, pm.phased_matmul(again)):
+        assert torch.equal(g, g2)
+
+
+def test_phased_matmul_kernel_refuses_what_it_does_not_take(dev):
+    gen = torch.Generator(device=dev).manual_seed(0)
+    (p,) = _products(gen, dev, torch.bfloat16, 16,
+                     [(1024, 1024, "none", False, False, "cd")])
+    q = quant.QUANTIZERS["nf4"](p.W.float())
+    with pytest.raises(ValueError, match="weight mode"):
+        pm.phased_matmul([fd.Product(p.x, q.q, scale=q.scale, mode="nf4")])
+    (odd,) = _products(gen, dev, torch.bfloat16, 16,
+                       [(1024, 40, "none", False, False, "cd")])
+    with pytest.raises(ValueError, match="multiple of 16"):
+        pm.phased_matmul([odd])
