@@ -38,10 +38,33 @@ struct MMProblem {
   int scr0, cnt0;     // offsets into the scratch floats / the counters
 };
 
+// What the epilogue of output (b, c) reads besides the sum, read apart from
+// its stores so that a caller can read several outputs' operands before
+// writing any (the loads then overlap).
+struct EpiIn {
+  float bias, y, e0, e1, e2;
+};
+
 template <typename T>
-__device__ __forceinline__ void epilogue(const MMProblem& P, int b, int c,
-                                         float s) {
-  if (P.bias != nullptr) s += P.bias[c];
+__device__ __forceinline__ EpiIn epilogue_in(const MMProblem& P, int b,
+                                             int c) {
+  const size_t i = (size_t)b * P.N + c;
+  EpiIn in = {P.bias != nullptr ? P.bias[c] : 0.f, 0.f, 0.f, 0.f, 0.f};
+  if (P.out == OUT_ADD || P.out == OUT_GADD)
+    in.y = static_cast<const float*>(P.y)[i];
+  if (P.out == OUT_GADD) in.e0 = static_cast<const float*>(P.e0)[i];
+  if (P.out == OUT_MIX) {
+    in.e0 = to_f(static_cast<const T*>(P.e0)[i]);
+    in.e1 = to_f(static_cast<const T*>(P.e1)[i]);
+    in.e2 = to_f(static_cast<const T*>(P.e2)[c]);
+  }
+  return in;
+}
+
+template <typename T>
+__device__ __forceinline__ void epilogue_out(const MMProblem& P, int b, int c,
+                                             float s, const EpiIn& in) {
+  if (P.bias != nullptr) s += in.bias;
   switch (P.act) {
     case ACT_TANH: s = tanhf(s); break;
     case ACT_SIGMOID: s = sigmoidf(s); break;
@@ -53,19 +76,24 @@ __device__ __forceinline__ void epilogue(const MMProblem& P, int b, int c,
   }
   const size_t i = (size_t)b * P.N + c;
   if (P.out == OUT_ADD) {
-    static_cast<float*>(P.y)[i] += s;
+    static_cast<float*>(P.y)[i] = in.y + s;
   } else if (P.out == OUT_GADD) {
-    static_cast<float*>(P.y)[i] += static_cast<const float*>(P.e0)[i] * s;
+    static_cast<float*>(P.y)[i] = in.y + in.e0 * s;
   } else if (P.out == OUT_MIX) {
-    const float t = rnd<T>(to_f(static_cast<const T*>(P.e2)[c]) + rnd<T>(s));
-    const float d = rnd<T>(to_f(static_cast<const T*>(P.e1)[i]) * t);
-    static_cast<T*>(P.y)[i] =
-        from_f<T>(to_f(static_cast<const T*>(P.e0)[i]) + d);
+    const float t = rnd<T>(in.e2 + rnd<T>(s));
+    const float d = rnd<T>(in.e1 * t);
+    static_cast<T*>(P.y)[i] = from_f<T>(in.e0 + d);
   } else if (P.out == OUT_F32) {
     static_cast<float*>(P.y)[i] = P.round_t ? rnd<T>(s) : s;
   } else {
     static_cast<T*>(P.y)[i] = from_f<T>(s);
   }
+}
+
+template <typename T>
+__device__ __forceinline__ void epilogue(const MMProblem& P, int b, int c,
+                                         float s) {
+  epilogue_out<T>(P, b, c, s, epilogue_in<T>(P, b, c));
 }
 
 // One row d of a launch's descriptor table - 12 int64: x, W, y, bias

@@ -21,37 +21,63 @@
 // code - 8), each code block with its (1, N) f32 scales.
 //
 // What bounds it on an H100 at the shapes of the wide-batch step (B = 16 to
-// 64 rows, K and N 1024 to 10240): the bytes of the weight, at 2 B flops per
-// weight element (128 at B = 64 against int8 codes, under the card's 295
-// bf16 flops per byte), if the products run on the tensor cores and the
-// weight streams with enough bytes in flight.  In bf16:
-//  * a block owns 128 output columns and a slice of K; its eight warps each
-//    take 16 columns for all rows with mma.sync.m16n8k16 (bf16 in, f32
-//    sums: int8 codes and code - 8 are exact in bf16, so the tensor core
-//    computes the TPU kernel's sub-dots), up to four 16-row tiles, the
-//    fragments read with ldmatrix (the weight's with .trans, so it stays in
-//    its (k, n) order);
-//  * a pass is 64 rows of K: cp.async copies the pass's weight rows as
-//    stored and the 64 x rows into a ring of four stages, three passes
-//    ahead, so the loads never wait on the arithmetic; codes are converted
-//    to a bf16 tile once per pass (rows padded by 16 bytes: no bank
-//    conflicts in the stores or in ldmatrix);
-//  * a scale block's sums stay apart until it ends and are then scaled and
-//    added, in block order;
-//  * K is split over the blocks of a thread block cluster (up to 8, chosen
-//    so that a launch has about two blocks per SM): each block leaves its
+// 64 rows, K and N 1024 to 10240): the bytes of the weight (2 B flops per
+// weight element: 128 at B = 64 against int8 codes, under the card's 295
+// bf16 flops per byte) - if the products run on the tensor cores, the
+// codes are decoded off the critical path and the weight streams with
+// enough bytes in flight.  In bf16 (phased_tc_kernel):
+//  * the weight is the A operand and the batch rows are N ("swap AB"): a
+//    consumer warpgroup runs wgmma.m64nNk16 (N = the rows rounded up to 16,
+//    32 or 64) on two 64-column tiles, 128 output columns; x^T is the
+//    shared-memory B operand in its natural K-major layout (128-byte
+//    swizzle).  A block is two consumer warpgroups, 256 columns, and one
+//    producer warp;
+//  * the producer keeps a ring of stages in flight (64 rows of K each: the
+//    weight rows as stored, as TMA 2-D boxes of 128 bytes a row, 128-byte
+//    swizzle, and the stage's x box; 5 to 12 stages, about 200 KB), one
+//    mbarrier pair per stage; the weights stay in the layout the fused
+//    module holds;
+//  * A's register fragments come from shared memory: bf16 weights by
+//    ldmatrix.trans (one instruction per 64 x 16 tile, so all three modes
+//    share one wgmma form); codes as 32-bit words - four columns of one row
+//    of K - decoded in registers (int8 as 128 + low 7 bits minus 128 or 256
+//    by its sign bit, int4 as 128 + nibble minus 136, both exact in bf16x2
+//    arithmetic), so a decoded tile never goes back to shared memory.  A
+//    code word's four columns are rows of two m64 tiles, so the tiles' rows
+//    are a permutation of the columns, undone when the sums are stored;
+//  * the fragments are double-buffered: a k-step's decode overlaps the
+//    wgmma of the one before (deeper buffers and batched k-steps measured
+//    slower at 64 rows);
+//  * a scale block restarts the wgmma accumulator (scale-d = 0); its f32
+//    sub-sum then joins the running sum times its column's scale, blocks in
+//    order;
+//  * K is split over the blocks of a thread block cluster (up to 8), as far
+//    as filling the card needs, in as few waves of clusters as the card
+//    holds (a cluster stays in one GPC: 15 clusters of 8 at once, 39 of 3;
+//    the launch plan is ops/phased_matmul.py `plan`): each block leaves its
 //    partial sums in its shared memory, and after a cluster barrier each
-//    block adds one share of the outputs over the cluster's blocks IN
-//    RANK ORDER through distributed shared memory and runs the epilogue.
-//    The partial sums never leave the SMs, and equal inputs give equal
-//    bits (no float atomics).
-// In f32 (the parity models) the same slices and reduction run on FMA,
-// 32 rows of K a pass: a thread keeps one column of 32 rows.  Up to five
-// products share a launch; more than 64 rows run as further launches.
+//    block adds one share of the outputs over the cluster's blocks IN RANK
+//    ORDER through distributed shared memory (explicit shared::cluster
+//    loads, four columns at a time) and runs the epilogue.  The partial
+//    sums never leave the SMs, and equal inputs give equal bits (no float
+//    atomics);
+//  * x is staged once per 256 output columns: its bytes are 2 B / (256 w)
+//    of the weight's (w bytes per weight element): 0.25 bf16, 0.5 int8 and
+//    1.0 int4 at B = 64, a quarter of that at B = 16.
+// Measured (PERF.md, Findings): a launch pays a fixed ~5 us (the launch, the
+// first loads, two cluster barriers, the epilogue), and at 64 rows a pass
+// of codes costs the consumer about as much as its loads, so the 2.9B
+// launches sit at 1.7-5x their bytes bound.
+// In f32 (the parity models, phased_fma_kernel) the same plan's slices and
+// reduction run on FMA in 128-column tiles, 32 rows of K a pass: a thread
+// keeps one column of 32 rows.  Up to five products share a launch; more
+// than 64 rows run as further launches.
 
 #include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
 #include <stdint.h>
 
 #include "decode_common.cuh"
@@ -62,262 +88,551 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int PM_ROWS = 64;      // batch rows per launch: four 16-row tiles
-constexpr int PM_THREADS = 256;  // eight warps
-constexpr int PM_BN = 128;       // output columns per block, 16 a warp
+constexpr int PM_ROWS = 64;      // batch rows per launch
 constexpr int PM_MAXP = 5;       // products per launch
 constexpr int MAX_CLUSTER = 8;   // blocks that split one tile's K
-constexpr int FILL = 264;        // blocks a launch aims for: two per SM
+constexpr int PLAN_COLS = 4 + 2 * PM_MAXP;  // b0, rows, cs, clusters, (blk0, kb)
 constexpr int QB8 = 128;         // rows of K per scale block: int8 codes
 constexpr int QB4 = 64;          //                            packed int4
-constexpr int KC16 = 64;         // rows of K per pass: bf16 (4 mma steps)
-constexpr int KC32 = 32;         //                     f32
-constexpr int STAGES = 4;        // bf16: passes in the cp.async ring
-constexpr int XLD = KC16 + 8;    // bf16 pitch of a staged x row (144 B)
-constexpr int WLD = PM_BN + 8;   // bf16 pitch of a staged weight row (272 B)
+
+// ---------------------------------------------------------------------------
+// bf16: wgmma on TMA-fed stages
+// ---------------------------------------------------------------------------
+
+constexpr int TC_BN = 256;                     // output columns per block
+constexpr int TC_CONSUMERS = 256;              // two consumer warpgroups
+constexpr int TC_THREADS = TC_CONSUMERS + 32;  // and one producer warp
+constexpr int KC = 64;                         // rows of K per stage
+constexpr int TC_TP = TC_BN + 4;               // f32 pitch of the partial tile
+constexpr int RING_BUDGET = 200 * 1024;
+constexpr int ABUF = 2;  // A fragment buffers: k-steps a decode runs ahead
+
+// Shared memory of a block for weight kind WQ (0 bf16, 8 int8, 4 packed
+// int4) and NR padded rows: STAGES stages, each the weight boxes (128-byte
+// rows, 128-byte swizzle: bf16 64 columns x 64 rows, codes 128 columns x 64
+// rows or 32 byte rows) and the x box (NR rows x 64 of K), then the
+// stages' full / empty barriers.  The partial tile takes the ring's place
+// once the slice is summed.
+template <int WQ, int NR>
+struct TC {
+  static constexpr int WBOX_COLS = WQ == 0 ? 64 : 128;
+  static constexpr int WBOX_ROWS = WQ == 4 ? KC / 2 : KC;
+  static constexpr int WBOXES = TC_BN / WBOX_COLS;
+  static constexpr int WBOX = WBOX_ROWS * 128;
+  static constexpr int XBOX = NR * 128;
+  static constexpr int STAGE = WBOXES * WBOX + XBOX;
+  static constexpr int STAGES =
+      RING_BUDGET / STAGE < 12 ? RING_BUDGET / STAGE : 12;
+  static constexpr int RING = STAGES * STAGE;
+  static constexpr int TILE = NR * TC_TP * 4;
+  static constexpr int SMEM = RING + 2 * STAGES * 8 + 1024;  // + alignment
+  static_assert(RING >= TILE, "the partial tile must fit in the ring");
+};
+
+struct TCArgs {
+  CUtensorMap wmap[PM_MAXP];  // the weights (codes) as stored, 2-D
+  CUtensorMap xmap[PM_MAXP];  // x: (rows, K) with row stride ldx
+  MMProblem p[PM_MAXP];
+  int n, rows;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+// A K-major operand of 128-byte rows with the 128-byte swizzle (TMA's):
+// 8-row groups 1024 bytes apart; a k-step of 16 bf16 advances the start
+// address by 32 bytes.
+__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keeps the compiler from moving an accumulator across the asynchronous
+// wgmma that owns it.
+template <int M>
+__device__ __forceinline__ void pin(float (&d)[M]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define PM_F8(d, o)                                                        \
+  "+f"(d[o]), "+f"(d[o + 1]), "+f"(d[o + 2]), "+f"(d[o + 3]),             \
+      "+f"(d[o + 4]), "+f"(d[o + 5]), "+f"(d[o + 6]), "+f"(d[o + 7])
+
+// D (64 x N, f32) (+)= A (64 x 16, bf16 registers) x B (16 x N, bf16 in
+// shared memory, K-major, descriptor b); scale_d = 0 starts a new sum.
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t b,
+                                         int scale_d);
+template <>
+__device__ __forceinline__ void wgmma_rs<16>(float (&d)[8],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      : PM_F8(d, 0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : PM_F8(d, 0), PM_F8(d, 8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : PM_F8(d, 0), PM_F8(d, 8), PM_F8(d, 16), PM_F8(d, 24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t a) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+__device__ __forceinline__ uint32_t lds32(uint32_t a) {
+  uint32_t v;
+  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(a));
+  return v;
+}
+
+__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b,
+                                         uint32_t sel) {
+  uint32_t d;
+  asm("prmt.b32 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(sel));
+  return d;
+}
+__device__ __forceinline__ uint32_t bf16x2_sub(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("sub.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+// Byte X of words a (row k) and b (row k + 1) as [a.X, a.X, b.X, b.X]: one
+// bf16x2 lane per row of K once decoded.
+template <int X>
+__device__ __forceinline__ uint32_t pair(uint32_t a, uint32_t b) {
+  return prmt(a, b, X | X << 4 | (4 + X) << 8 | (4 + X) << 12);
+}
+// Signed int8 code c in each lane's low byte -> bf16 c: 128 + (c & 127),
+// minus 256 where c < 0 (its bit 7 set) and 128 where not; all exact.
+__device__ __forceinline__ uint32_t dec8(uint32_t t) {
+  return bf16x2_sub((t & 0x007F007Fu) | 0x43004300u,
+                    (t & 0x00800080u) | 0x43004300u);
+}
+// Nibble n (low, or high when HI) of each lane's low byte -> bf16 n - 8:
+// 128 + n minus 136, exact.
+template <bool HI>
+__device__ __forceinline__ uint32_t dec4(uint32_t t) {
+  return bf16x2_sub(((HI ? t >> 4 : t) & 0x000F000Fu) | 0x43004300u,
+                    0x43084308u);
+}
+
+// Four f32 of a cluster block's shared memory (a shared::cluster address).
+__device__ __forceinline__ float4 ld_cluster4(uint32_t a) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(a));
+  return v;
+}
+
+// After every block of the cluster has left its slice's sums in `tile`
+// ([row][TP] f32, BN columns from col0), each block adds one share of the
+// tile's outputs over the cluster's tiles IN RANK ORDER through
+// distributed shared memory and runs the epilogue: a thread takes four
+// neighbouring columns at a time, reads them from each rank with one
+// explicit shared::cluster load, and reads the epilogue operands of all
+// four before it stores any.  The second barrier keeps every block's tile
+// alive until all have read it.
+template <typename T, int BN, int TP, int THREADS>
+__device__ __forceinline__ void reduce_tile(const MMProblem& P,
+                                            float* tile, int col0, int rows) {
+  static_assert(BN % 4 == 0 && TP % 4 == 0, "float4 reads of the tile");
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  cluster.sync();
+  uint32_t parts[MAX_CLUSTER];  // registers only: the rank loops unrolled
+#pragma unroll
+  for (int j = 0; j < MAX_CLUSTER; ++j) {
+    parts[j] = 0;
+    if (j < cs)
+      asm("mapa.shared::cluster.u32 %0, %1, %2;\n"
+          : "=r"(parts[j])
+          : "r"(smem_u32(tile)), "r"(j));
+  }
+  const int quads = rows * (BN / 4);
+  for (int q = rank * THREADS + (int)threadIdx.x; q < quads;
+       q += cs * THREADS) {
+    const int b = q / (BN / 4), c = 4 * (q % (BN / 4));
+    if (col0 + c >= P.N) continue;  // N is a multiple of 16: all 4 or none
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int j = 0; j < MAX_CLUSTER; ++j)
+      if (j < cs) {
+        const float4 t = ld_cluster4(parts[j] + 4 * (b * TP + c));
+        v.x += t.x;
+        v.y += t.y;
+        v.z += t.z;
+        v.w += t.w;
+      }
+    EpiIn in[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) in[e] = epilogue_in<T>(P, b, col0 + c + e);
+    epilogue_out<T>(P, b, col0 + c, v.x, in[0]);
+    epilogue_out<T>(P, b, col0 + c + 1, v.y, in[1]);
+    epilogue_out<T>(P, b, col0 + c + 2, v.z, in[2]);
+    epilogue_out<T>(P, b, col0 + c + 3, v.w, in[3]);
+  }
+  cluster.sync();
+}
+
+template <typename T, int WQ, int NR>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+phased_tc_kernel(const __grid_constant__ TCArgs args) {
+  using G = TC<WQ, NR>;
+  constexpr bool Q = WQ != 0, Q4 = WQ == 4;
+  constexpr int ND = NR / 2;  // accumulator floats per m64 tile
+  extern __shared__ unsigned char tc_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(tc_raw) + 1023) & ~(uintptr_t)1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + G::RING);
+  uint64_t* empty = full + G::STAGES;
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int cid = blockIdx.x / cs;  // the cluster: one tile of a product
+  int pi = 0;
+  while (pi + 1 < args.n && cid >= args.p[pi + 1].blk0) ++pi;
+  const MMProblem P = args.p[pi];  // in registers (see reduce_tile)
+  const int col0 = (cid - P.blk0) * TC_BN;
+  const int k0 = rank * P.kb, k1 = min(P.K, k0 + P.kb);
+  const int passes = k1 > k0 ? (k1 - k0 + KC - 1) / KC : 0;
+  const int tid = threadIdx.x;
+  float* tile = reinterpret_cast<float*>(smem);  // [row][TC_TP]
+
+  if (tid == 0) {
+#pragma unroll 1
+    for (int s = 0; s < G::STAGES; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, TC_CONSUMERS / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= TC_CONSUMERS) {
+    // The producer: one thread keeps the ring full.
+    if (tid == TC_CONSUMERS) {
+      const CUtensorMap* wm = &args.wmap[pi];
+      const CUtensorMap* xm = &args.xmap[pi];
+#pragma unroll 1
+      for (int pass = 0; pass < passes; ++pass) {
+        const int s = pass % G::STAGES;
+        if (pass >= G::STAGES) mbar_wait(empty + s, (pass / G::STAGES - 1) & 1);
+        mbar_expect_tx(full + s, G::STAGE);
+        unsigned char* st = smem + s * G::STAGE;
+        const int kc = k0 + pass * KC;
+#pragma unroll
+        for (int b = 0; b < G::WBOXES; ++b)
+          tma_load(st + b * G::WBOX, wm, col0 + b * G::WBOX_COLS,
+                   Q4 ? kc / 2 : kc, full + s);
+        tma_load(st + G::WBOXES * G::WBOX, xm, kc, 0, full + s);
+      }
+    }
+  } else {
+    const int g = tid >> 7;  // the consumer warpgroup: columns 128 g ..
+    const int w = (tid >> 5) & 3, lane = tid & 31;
+    const int gq = lane >> 2, tq = lane & 3;
+    // The warpgroup's columns hold something (uniform over it).
+    const bool live = col0 + g * 128 < P.N;
+    // Output column of accumulator row lo / hi (+8) of m64 tile mt.
+    auto col_of = [&](int mt, int hi) {
+      return Q ? g * 128 + 32 * w + 4 * gq + 2 * mt + hi
+               : g * 128 + 64 * mt + 16 * w + gq + 8 * hi;
+    };
+    float acc[2][ND], sub[2][ND];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int i = 0; i < ND; ++i) acc[mt][i] = sub[mt][i] = 0.f;
+    // [buffer][m64 tile][fragment register]: a k-step's decode waits only
+    // for the wgmma ABUF k-steps back.
+    uint32_t afr[ABUF][2][4];
+    int first = 1;          // the next wgmma starts a new sum
+
+    // One k-step: the fragments in buffer `buf`, x rows kx .. kx + 15 of
+    // the stage.  Before the k-step at position `pos` of a pass writes its
+    // buffer, the ABUF - 1 k-steps after that buffer's last use stay in
+    // flight; from position ABUF - 1 on, all of the previous pass's wgmmas
+    // are done and its stage goes back to the producer.
+    auto mma = [&](int buf, uint64_t xd, int kx) {
+      wgmma_fence();
+      const uint64_t b = xd + (uint64_t)((kx * 2) >> 4);
+      if constexpr (Q) {
+        pin(sub[0]);
+        pin(sub[1]);
+        wgmma_rs<NR>(sub[0], afr[buf][0], b, !first);
+        wgmma_rs<NR>(sub[1], afr[buf][1], b, !first);
+        pin(sub[0]);
+        pin(sub[1]);
+      } else {
+        pin(acc[0]);
+        pin(acc[1]);
+        wgmma_rs<NR>(acc[0], afr[buf][0], b, !first);
+        wgmma_rs<NR>(acc[1], afr[buf][1], b, !first);
+        pin(acc[0]);
+        pin(acc[1]);
+      }
+      wgmma_commit();
+      first = 0;
+    };
+    // The stage of the pass before `pass` back to the producer, one arrival
+    // a warp.
+    auto release = [&](int pass) {
+      if (pass > 0 && lane == 0) mbar_arrive(empty + (pass - 1) % G::STAGES);
+    };
+    auto step_wait = [&](int pass, int pos) {
+      wgmma_wait<ABUF - 1>();
+      if (pos == ABUF - 1) release(pass);
+    };
+
+#pragma unroll 1
+    for (int pass = 0; pass < passes; ++pass) {
+      const int s = pass % G::STAGES;
+      const int kc = k0 + pass * KC;
+      unsigned char* st = smem + s * G::STAGE;
+      const uint64_t xd = sw128_desc(st + G::WBOXES * G::WBOX);
+      // This pass ends a scale block: its scales, loaded early.
+      const bool ends = Q && (Q4 || ((kc - k0) / KC) % 2 == 1 ||
+                              kc + KC >= k1);
+      float sc[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+      if (ends && live) {
+        const int j = kc / (Q4 ? QB4 : QB8);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int hi = 0; hi < 2; ++hi) {
+            const int c = col0 + col_of(mt, hi);
+            sc[mt][hi] = c < P.N ? __ldg(P.scale + (size_t)j * P.N + c) : 0.f;
+          }
+      }
+      mbar_wait(full + s, (pass / G::STAGES) & 1);
+      if (live) {
+        const uint32_t wb = smem_u32(st + (Q ? g : 2 * g) * G::WBOX);
+        if constexpr (!Q) {
+          // ldmatrix.trans: lane l addresses row (l & 7) of matrix l >> 3
+          // (m 0-7 / 8-15 by l >> 3 & 1, k 0-7 / 8-15 by l >> 4).
+          const int r = lane & 7, mi = (lane >> 3) & 1, ki = lane >> 4;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            step_wait(pass, j);
+            const int k = 16 * j + 8 * ki + r;
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt)
+              ldsm_x4_trans(afr[j % ABUF][mt],
+                            wb + mt * G::WBOX + k * 128 +
+                                (((2 * w + mi) ^ r) << 4));
+            mma(j % ABUF, xd, 16 * j);
+          }
+        } else if constexpr (!Q4) {
+          // int8: rows 16 j + 2 tq, + 1, + 8, + 9; this thread's four
+          // columns 32 w + 4 gq .. + 3 of the warpgroup's box.
+          const int ch = 2 * w + (gq >> 2), off = 4 * (gq & 3);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            uint32_t wd[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int k = 16 * j + 2 * tq + (e & 1) + 8 * (e >> 1);
+              wd[e] = lds32(wb + k * 128 + ((ch ^ (k & 7)) << 4) + off);
+            }
+            step_wait(pass, j);
+            uint32_t (&a)[2][4] = afr[j % ABUF];
+            a[0][0] = dec8(pair<0>(wd[0], wd[1]));
+            a[0][1] = dec8(pair<1>(wd[0], wd[1]));
+            a[0][2] = dec8(pair<0>(wd[2], wd[3]));
+            a[0][3] = dec8(pair<1>(wd[2], wd[3]));
+            a[1][0] = dec8(pair<2>(wd[0], wd[1]));
+            a[1][1] = dec8(pair<3>(wd[0], wd[1]));
+            a[1][2] = dec8(pair<2>(wd[2], wd[3]));
+            a[1][3] = dec8(pair<3>(wd[2], wd[3]));
+            mma(j % ABUF, xd, 16 * j);
+          }
+        } else {
+          // int4: byte rows 16 h + 2 tq, + 1, + 8, + 9 hold K rows 16 h ..
+          // (low nibbles: k-step h) and 32 + 16 h .. (high: k-step h + 2).
+          const int ch = 2 * w + (gq >> 2), off = 4 * (gq & 3);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            uint32_t wd[4], t[2][4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int k = 16 * h + 2 * tq + (e & 1) + 8 * (e >> 1);
+              wd[e] = lds32(wb + k * 128 + ((ch ^ (k & 7)) << 4) + off);
+            }
+            t[0][0] = pair<0>(wd[0], wd[1]);
+            t[0][1] = pair<1>(wd[0], wd[1]);
+            t[0][2] = pair<0>(wd[2], wd[3]);
+            t[0][3] = pair<1>(wd[2], wd[3]);
+            t[1][0] = pair<2>(wd[0], wd[1]);
+            t[1][1] = pair<3>(wd[0], wd[1]);
+            t[1][2] = pair<2>(wd[2], wd[3]);
+            t[1][3] = pair<3>(wd[2], wd[3]);
+            // Issued in the order k-step 0, 2, 1, 3: positions 2 h, 2 h + 1.
+            step_wait(pass, 2 * h);
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                afr[(2 * h) % ABUF][mt][e] = dec4<false>(t[mt][e]);
+            mma((2 * h) % ABUF, xd, 16 * h);
+            step_wait(pass, 2 * h + 1);
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                afr[(2 * h + 1) % ABUF][mt][e] = dec4<true>(t[mt][e]);
+            mma((2 * h + 1) % ABUF, xd, 32 + 16 * h);
+          }
+        }
+        if constexpr (Q) {
+          if (ends) {
+            // The block's f32 sub-sums times their columns' scales join
+            // the running sums.
+            wgmma_wait<0>();
+            pin(sub[0]);
+            pin(sub[1]);
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+              for (int i = 0; i < ND; ++i)
+                acc[mt][i] += sub[mt][i] * sc[mt][(i >> 1) & 1];
+            first = 1;
+          }
+        }
+      } else {
+        release(pass);
+      }
+    }
+    wgmma_wait<0>();
+    pin(acc[0]);
+    pin(acc[1]);
+    // Both warpgroups are done with the ring: the partial tile takes its
+    // place.
+    asm volatile("bar.sync 1, %0;\n" ::"n"(TC_CONSUMERS) : "memory");
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int i = 0; i < ND; ++i) {
+        const int b = 8 * (i >> 2) + 2 * tq + (i & 1);
+        tile[b * TC_TP + col_of(mt, (i >> 1) & 1)] = acc[mt][i];
+      }
+  }
+
+  reduce_tile<T, TC_BN, TC_TP, TC_THREADS>(P, tile, col0, args.rows);
+}
+
+// ---------------------------------------------------------------------------
+// f32: FMA (the parity models)
+// ---------------------------------------------------------------------------
+
+constexpr int PM_THREADS = 256;  // eight warps
+constexpr int PM_BN = 128;       // output columns per block
+constexpr int KC32 = 32;         // rows of K per pass
 constexpr int TLD = PM_BN + 4;   // f32 pitch of the partial-sum tile
 constexpr int TILE_BYTES = PM_ROWS * TLD * 4;
 constexpr int LD32 = PM_ROWS + 4;  // f32 pitch of the staged x, [k][row]
+constexpr int FMA_SMEM = KC32 * LD32 * 4 + KC32 * PM_BN * 4 > TILE_BYTES
+                             ? KC32 * LD32 * 4 + KC32 * PM_BN * 4
+                             : TILE_BYTES;
 
 struct PMGroup {
   MMProblem p[PM_MAXP];  // blk0: first cluster (tile) of the product;
-  int n;                 // ksplit: the cluster's size; kb: its slices
+  int n;                 // kb: rows of K a cluster rank sums
 };
 
-// Shared memory of a bf16 block, per weight kind WQ (0 plain, 8 int8, 4
-// packed int4): a ring of STAGES passes, each the weight rows as stored
-// (bf16 rows padded to WLD, read by ldmatrix in place; code rows as they
-// come) and the x rows, then the bf16 tile the codes are converted into.
-template <int WQ>
-struct Ring {
-  static constexpr int RAW_ROWS = WQ == 4 ? KC16 / 2 : KC16;
-  static constexpr int RAW_PITCH = WQ == 0 ? WLD * 2 : PM_BN;
-  static constexpr int RAW = RAW_ROWS * RAW_PITCH;
-  static constexpr int X = PM_ROWS * XLD * 2;
-  static constexpr int STAGE = RAW + X;
-  static constexpr int WSB = WQ == 0 ? 0 : KC16 * WLD * 2;
-  static constexpr int RING = STAGES * STAGE + WSB;
-  static constexpr int BYTES = RING > TILE_BYTES ? RING : TILE_BYTES;
-};
-
-template <typename T, int WQ>
-constexpr int smem_bytes() {
-  if constexpr (sizeof(T) == 2) {
-    return Ring<WQ>::BYTES;
-  } else {
-    constexpr int stage = KC32 * LD32 * 4 + KC32 * PM_BN * 4;
-    return stage > TILE_BYTES ? stage : TILE_BYTES;
-  }
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void cp16(void* dst, const void* src, bool ok) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(ok ? 16 : 0));
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p,
-                                        bool trans) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  if (trans)
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-        "[%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(a));
-  else
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(a));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// One slice [k0, k1) of K for the PM_BN columns from col0, bf16, on the
-// tensor cores; the slice's sums go to `tile` ([row][TLD] f32, in `smem`,
-// which the ring occupies until then).
-template <int WQ>
-__device__ __forceinline__ void mma_slice(const MMProblem& P, int k0, int k1,
-                                          int col0, int rows,
-                                          unsigned char* smem, float* tile) {
-  using R = Ring<WQ>;
-  constexpr bool Q = WQ != 0, Q4 = WQ == 4;
-  constexpr int QB = Q4 ? QB4 : QB8;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int gq = lane >> 2, tq = lane & 3;  // the fragments' row / pair
-  const int mtiles = (rows + 15) / 16;
-  const int passes = k1 > k0 ? (k1 - k0 + KC16 - 1) / KC16 : 0;
-  const size_t pitch = Q ? (size_t)P.N : (size_t)P.N * 2;  // bytes a row
-  const char* Wb = static_cast<const char*>(P.W);
-  const char* xb = static_cast<const char*>(P.x);
-  __nv_bfloat16* wsb =
-      reinterpret_cast<__nv_bfloat16*>(smem + STAGES * R::STAGE);
-
-  // Copy pass `pass` into its stage; every thread commits one group per
-  // call, a pass past the slice an empty one.  A chunk is 16 bytes: 8
-  // bf16 columns or 16 codes of a stored row, 8 values of an x row.  The
-  // rows of a slice come in eights and N in sixteens, so a chunk is in or
-  // out as a whole; an out chunk is zeros.
-  auto issue = [&](int pass) {
-    if (pass < passes) {
-      const int kc0 = k0 + pass * KC16;
-      unsigned char* st = smem + (pass % STAGES) * R::STAGE;
-      constexpr int CPR = (Q ? PM_BN : PM_BN * 2) / 16;  // chunks a row
-      const int sr0 = Q4 ? kc0 / 2 : kc0;
-      for (int u = tid; u < R::RAW_ROWS * CPR; u += PM_THREADS) {
-        const int r = u / CPR, q = u % CPR;
-        const int c = col0 + q * (Q ? 16 : 8);
-        const bool ok = c < P.N && (Q4 || kc0 + r < k1);
-        cp16(st + r * R::RAW_PITCH + q * 16,
-             ok ? Wb + (size_t)(sr0 + r) * pitch + (size_t)c * (Q ? 1 : 2)
-                : Wb,
-             ok);
-      }
-      for (int u = tid; u < PM_ROWS * (KC16 / 8); u += PM_THREADS) {
-        const int m = u / (KC16 / 8), q = u % (KC16 / 8);
-        const bool ok = m < rows && kc0 + 8 * q < k1;
-        cp16(st + R::RAW + (m * XLD + 8 * q) * 2,
-             ok ? xb + ((size_t)m * P.ldx + kc0 + 8 * q) * 2 : xb, ok);
-      }
-    }
-    cp_commit();
-  };
-  // Codes of a stage -> the bf16 tile [k][WLD]: a thread converts 4 codes
-  // (one 32-bit word) at a time.  A packed int4 byte row i gives rows i
-  // (low nibbles) and 32 + i (high nibbles); a column past N gives zeros
-  // (a zero byte would decode to -8).
-  auto convert = [&](const unsigned char* st) {
-    for (int u = tid; u < R::RAW_ROWS * (PM_BN / 4); u += PM_THREADS) {
-      const int r = u / (PM_BN / 4), w = u % (PM_BN / 4);
-      const uint32_t v =
-          *reinterpret_cast<const uint32_t*>(st + r * PM_BN + 4 * w);
-      if constexpr (!Q4) {
-        uint2 o;
-        o.x = pack_bf16((float)static_cast<int8_t>(v & 0xffu),
-                        (float)static_cast<int8_t>((v >> 8) & 0xffu));
-        o.y = pack_bf16((float)static_cast<int8_t>((v >> 16) & 0xffu),
-                        (float)static_cast<int8_t>(v >> 24));
-        *reinterpret_cast<uint2*>(wsb + r * WLD + 4 * w) = o;
-      } else {
-        const bool ok = col0 + 4 * w < P.N;
-        uint2 lo = make_uint2(0u, 0u), hi = make_uint2(0u, 0u);
-        if (ok) {
-          lo.x = pack_bf16((float)((int)(v & 15u) - 8),
-                           (float)((int)((v >> 8) & 15u) - 8));
-          lo.y = pack_bf16((float)((int)((v >> 16) & 15u) - 8),
-                           (float)((int)((v >> 24) & 15u) - 8));
-          hi.x = pack_bf16((float)((int)((v >> 4) & 15u) - 8),
-                           (float)((int)((v >> 12) & 15u) - 8));
-          hi.y = pack_bf16((float)((int)((v >> 20) & 15u) - 8),
-                           (float)((int)(v >> 28) - 8));
-        }
-        *reinterpret_cast<uint2*>(wsb + r * WLD + 4 * w) = lo;
-        *reinterpret_cast<uint2*>(wsb + (KC16 / 2 + r) * WLD + 4 * w) = hi;
-      }
-    }
-  };
-
-  float acc[4][2][4], sub[4][2][4];
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = sub[mt][nt][e] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) issue(s);
-  for (int pass = 0; pass < passes; ++pass) {
-    const int kc0 = k0 + pass * KC16;
-    const unsigned char* st = smem + (pass % STAGES) * R::STAGE;
-    cp_wait<STAGES - 2>();  // this thread's copies of the pass landed
-    __syncthreads();        // everyone's; the previous pass is consumed
-    issue(pass + STAGES - 1);
-    if constexpr (Q) {
-      convert(st);
-      __syncthreads();
-    }
-    const __nv_bfloat16* xs =
-        reinterpret_cast<const __nv_bfloat16*>(st + R::RAW);
-    const __nv_bfloat16* ws =
-        Q ? wsb : reinterpret_cast<const __nv_bfloat16*>(st);
-#pragma unroll
-    for (int kk = 0; kk < KC16; kk += 16) {
-      // Both 8-column tiles of the warp, k 0-7 and 8-15 each.
-      uint32_t b[4];
-      ldsm_x4(b, ws + (kk + (lane & 15)) * WLD + warp * 16 + (lane >> 4) * 8,
-              true);
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        if (mt >= mtiles) break;  // uniform over the block
-        uint32_t a[4];
-        ldsm_x4(a, xs + (mt * 16 + (lane & 15)) * XLD + kk + (lane >> 4) * 8,
-                false);
-        mma_bf16(sub[mt][0], a, b[0], b[1]);
-        mma_bf16(sub[mt][1], a, b[2], b[3]);
-      }
-    }
-    // A scale block ends with this pass: its f32 sums times its scales
-    // join the slice's sums (plain weights: one block, the whole slice).
-    const int kend = min(k1, kc0 + KC16);
-    if (Q ? (kend - k0) % QB == 0 || kend == k1 : kend == k1) {
-      const int j = (kend - 1) / QB;
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int c = col0 + warp * 16 + nt * 8 + 2 * tq + h;
-          const float s =
-              !Q ? 1.f
-                 : (c < P.N ? __ldg(P.scale + (size_t)j * P.N + c) : 0.f);
-#pragma unroll
-          for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-            for (int e = h; e < 4; e += 2) {
-              acc[mt][nt][e] += sub[mt][nt][e] * s;
-              sub[mt][nt][e] = 0.f;
-            }
-        }
-    }
-  }
-  cp_wait<0>();
-  __syncthreads();  // the ring is free: the tile takes its place
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int b = mt * 16 + gq + 8 * h;
-        const int c = warp * 16 + nt * 8 + 2 * tq;
-        *reinterpret_cast<float2*>(tile + b * TLD + c) =
-            make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
-      }
-}
-
-// The same slice in f32 on FMA: thread t sums column t % 128 of the tile
-// for rows 32 (t / 128) .. + 31, 32 rows of K a pass, the next pass's
-// weight words in registers while this one is summed.
+// One slice [k0, k1) of K for the PM_BN columns from col0: thread t sums
+// column t % 128 of the tile for rows 32 (t / 128) .. + 31, 32 rows of K a
+// pass, the next pass's weight words in registers while this one is
+// summed; the slice's sums go to `tile` ([row][TLD] f32, in `smem`).
 template <int WQ>
 __device__ __forceinline__ void fma_slice(const MMProblem& P, int k0, int k1,
                                           int col0, int rows,
@@ -437,9 +752,9 @@ __device__ __forceinline__ void fma_slice(const MMProblem& P, int k0, int k1,
   for (int i = 0; i < 32; ++i) tile[(r0 + i) * TLD + cl] = acc[i];
 }
 
-template <typename T, int WQ>
+template <int WQ>
 __global__ void __launch_bounds__(PM_THREADS, 2)
-phased_matmul_kernel(const PMGroup g, int rows) {
+phased_fma_kernel(const PMGroup g, int rows) {
   extern __shared__ __align__(16) unsigned char pm_smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int cs = (int)cluster.num_blocks();
@@ -447,55 +762,25 @@ phased_matmul_kernel(const PMGroup g, int rows) {
   const int cid = blockIdx.x / cs;  // the cluster: one tile of a product
   int pi = 0;
   while (pi + 1 < g.n && cid >= g.p[pi + 1].blk0) ++pi;
-  const MMProblem& P = g.p[pi];
+  const MMProblem P = g.p[pi];
   const int col0 = (cid - P.blk0) * PM_BN;
   const int k0 = rank * P.kb, k1 = min(P.K, k0 + P.kb);
   float* tile = reinterpret_cast<float*>(pm_smem);  // [row][TLD]
 
-  if constexpr (sizeof(T) == 2)
-    mma_slice<WQ>(P, k0, k1, col0, rows, pm_smem, tile);
-  else
-    fma_slice<WQ>(P, k0, k1, col0, rows, pm_smem, tile);
+  fma_slice<WQ>(P, k0, k1, col0, rows, pm_smem, tile);
 
-  // Each block adds its share of the tile's outputs over the cluster's
-  // slices, in rank order, and runs the epilogue; the second barrier keeps
-  // every block's tile alive until all have read it.
-  cluster.sync();
-  const float* parts[MAX_CLUSTER];
-#pragma unroll
-  for (int j = 0; j < MAX_CLUSTER; ++j)
-    parts[j] = j < cs ? cluster.map_shared_rank(tile, j) : tile;
-  for (int o = rank * PM_THREADS + threadIdx.x; o < rows * PM_BN;
-       o += cs * PM_THREADS) {
-    const int b = o / PM_BN, c = o % PM_BN;
-    if (col0 + c >= P.N) continue;
-    float v[MAX_CLUSTER];
-#pragma unroll
-    for (int j = 0; j < MAX_CLUSTER; ++j)
-      v[j] = j < cs ? parts[j][b * TLD + c] : 0.f;
-    float s = 0.f;
-#pragma unroll
-    for (int j = 0; j < MAX_CLUSTER; ++j) s += v[j];
-    epilogue<T>(P, b, col0 + c, s);
-  }
-  cluster.sync();
+  reduce_tile<float, PM_BN, TLD, PM_THREADS>(P, tile, col0, rows);
 }
 
-template <typename T, int WQ>
-cudaError_t launch(const PMGroup& g, int rows, int blocks, int cs,
-                   cudaStream_t st) {
-  constexpr int smem = smem_bytes<T, WQ>();
-  static bool sized = false;  // the opt-in above 48 KB, once per kernel
-  if (!sized) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        phased_matmul_kernel<T, WQ>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
-    sized = true;
-  }
+// ---------------------------------------------------------------------------
+// Host side
+// ---------------------------------------------------------------------------
+
+cudaError_t launch_cfg(const void* kernel, int smem, int blocks, int threads,
+                       int cs, cudaStream_t st, void** params) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(blocks, 1, 1);
-  cfg.blockDim = dim3(PM_THREADS, 1, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
   cudaLaunchAttribute attr[1];
@@ -505,7 +790,89 @@ cudaError_t launch(const PMGroup& g, int rows, int blocks, int cs,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, phased_matmul_kernel<T, WQ>, g, rows);
+  return cudaLaunchKernelExC(&cfg, kernel, params);
+}
+
+// The opt-in above 48 KB of shared memory, once per kernel.
+cudaError_t size_once(const void* kernel, int smem, bool& sized) {
+  if (sized) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess) sized = true;
+  return e;
+}
+
+template <int WQ>
+cudaError_t launch_fma(const PMGroup& g, int rows, int blocks, int cs,
+                       cudaStream_t st) {
+  static bool sized = false;
+  const void* k = (const void*)phased_fma_kernel<WQ>;
+  cudaError_t e = size_once(k, FMA_SMEM, sized);
+  if (e != cudaSuccess) return e;
+  PMGroup gc = g;
+  int r = rows;
+  void* params[] = {&gc, &r};
+  return launch_cfg(k, FMA_SMEM, blocks, PM_THREADS, cs, st, params);
+}
+
+// The bf16 kernel for weight kind WQ and NR padded rows, its shared
+// memory, sized once.
+template <int WQ, int NR>
+cudaError_t tc_kernel(const void** k, int* smem) {
+  static bool sized = false;
+  *k = (const void*)phased_tc_kernel<__nv_bfloat16, WQ, NR>;
+  *smem = TC<WQ, NR>::SMEM;
+  return size_once(*k, *smem, sized);
+}
+
+template <int WQ>
+cudaError_t tc_kernel_rows(int rows, const void** k, int* smem) {
+  if (rows <= 16) return tc_kernel<WQ, 16>(k, smem);
+  if (rows <= 32) return tc_kernel<WQ, 32>(k, smem);
+  return tc_kernel<WQ, 64>(k, smem);
+}
+
+cudaError_t tc_kernel_for(int wbits, int rows, const void** k, int* smem) {
+  if (wbits == 4) return tc_kernel_rows<4>(rows, k, smem);
+  if (wbits == 8) return tc_kernel_rows<8>(rows, k, smem);
+  return tc_kernel_rows<0>(rows, k, smem);
+}
+
+// cuTensorMapEncodeTiled from libcuda, which the process has already loaded.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* h = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (h == nullptr) h = dlopen("libcuda.so.1", RTLD_NOW);
+    if (h != nullptr)
+      fn = reinterpret_cast<EncodeTiled>(dlsym(h, "cuTensorMapEncodeTiled"));
+  }
+  return fn;
+}
+
+// A 2-D map of `rows` rows of `cols` elements, `pitch` bytes apart, read
+// in boxes of box_cols x box_rows with the 128-byte swizzle; elements out
+// of bounds read as zeros.
+bool encode(CUtensorMap* map, const void* base, CUtensorMapDataType type,
+            uint64_t cols, uint64_t rows, uint64_t pitch, uint32_t box_cols,
+            uint32_t box_rows) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {pitch};
+  const cuuint32_t box[2] = {box_cols, box_rows};
+  const cuuint32_t estr[2] = {1, 1};
+  return fn(map, type, 2, const_cast<void*>(base), dims, strides, box, estr,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace
@@ -513,64 +880,117 @@ cudaError_t launch(const PMGroup& g, int rows, int blocks, int cs,
 extern "C" {
 
 // desc: n_prob rows of the descriptor table on the HOST (parse_problem,
-// matmul_common.cuh).  dtype: 0 = f32, 1 = bf16.  wbits: 0 plain weights
+// matmul_common.cuh).  plan: n_launch rows of PLAN_COLS int64 on the HOST,
+// one per launch, from ops/phased_matmul.py `plan`: b0 (first batch row),
+// rows (at most 64), cs (cluster size: the blocks that split a tile's K),
+// clusters (the launch's tiles: 256 columns in bf16, 128 in f32), then per
+// product blk0 (its first tile) and kb (the rows of K a cluster rank sums,
+// whole scale blocks).  dtype: 0 = f32, 1 = bf16.  wbits: 0 plain weights
 // of type T, 8 int8 codes (K / 128, 128, N), 4 packed int4 codes (K / 64,
 // 32, N), every product with its scales.  W and x 16-byte aligned; N a
-// multiple of 16; K and ldx multiples of 8.  The rows' inputs and outputs
-// hold B rows; B above 64 runs as further launches of 64 rows each.  No
-// work space: the partial sums stay in the clusters' shared memory.
-int phased_matmul_launch(const int64_t* desc, int n_prob, int B, int dtype,
-                         int wbits, void* stream) {
-  if (n_prob <= 0 || n_prob > PM_MAXP || B <= 0 ||
+// multiple of 16; K and ldx multiples of 8.  No work space: the partial
+// sums stay in the clusters' shared memory.
+int phased_matmul_launch(const int64_t* desc, int n_prob, const int64_t* plan,
+                         int n_launch, int dtype, int wbits, void* stream) {
+  if (n_prob <= 0 || n_prob > PM_MAXP || n_launch <= 0 ||
       (dtype != 0 && dtype != 1) || (wbits != 0 && wbits != 8 && wbits != 4))
     return (int)cudaErrorInvalidValue;
-  const size_t tsize = dtype == 1 ? 2 : 4;
+  const bool tc = dtype == 1;
+  const size_t tsize = tc ? 2 : 4;
   const bool quant = wbits != 0;
   const int qblock = wbits == 4 ? QB4 : QB8;
   const int cpt = quant ? 4 : 4 / (int)tsize;  // columns per 32-bit word
-  const int step = wbits == 8 ? QB8 : KC16;     // slices: whole passes, blocks
+  const int step = wbits == 8 ? QB8 : KC;       // kb: a multiple of this
+  const int bn = tc ? TC_BN : PM_BN;
   cudaStream_t st = (cudaStream_t)stream;
-  for (int b0 = 0; b0 < B; b0 += PM_ROWS) {
-    const int rows = B - b0 < PM_ROWS ? B - b0 : PM_ROWS;
+  for (int l = 0; l < n_launch; ++l) {
+    const int64_t* pl = plan + (size_t)l * PLAN_COLS;
+    const int b0 = (int)pl[0], rows = (int)pl[1], cs = (int)pl[2],
+              clusters = (int)pl[3];
+    if (b0 < 0 || rows <= 0 || rows > PM_ROWS || cs < 1 ||
+        cs > MAX_CLUSTER || clusters < 1)
+      return (int)cudaErrorInvalidValue;
+    TCArgs a;
     PMGroup g;
-    g.n = n_prob;
-    int tiles = 0, steps = 1;
+    a.n = g.n = n_prob;
+    a.rows = rows;
+    int tiles = 0;
     for (int i = 0; i < n_prob; ++i) {
       MMProblem& P = g.p[i];
       if (!parse_problem(desc + 12 * i, b0, tsize, quant, qblock, cpt, P) ||
           P.N % 16 || P.K % 8 || P.ldx % 8)
         return (int)cudaErrorInvalidValue;
-      P.blk0 = tiles;
-      tiles += (P.N + PM_BN - 1) / PM_BN;
-      steps = max(steps, (P.K + step - 1) / step);
+      P.blk0 = (int)pl[4 + 2 * i];
+      P.kb = (int)pl[5 + 2 * i];
+      // The plan covers the product: its tiles follow the previous ones,
+      // and cs slices of kb rows (whole steps) cover K.
+      if (P.blk0 != tiles || P.kb <= 0 || P.kb % step ||
+          (int64_t)P.kb * cs < P.K)
+        return (int)cudaErrorInvalidValue;
+      tiles += (P.N + bn - 1) / bn;
+      a.p[i] = P;
+      if (tc) {
+        const bool ok =
+            encode(&a.xmap[i], P.x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, P.K,
+                   rows, (uint64_t)P.ldx * 2, 64, rows <= 16   ? 16
+                                                  : rows <= 32 ? 32
+                                                               : 64) &&
+            (wbits == 0
+                 ? encode(&a.wmap[i], P.W, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                          P.N, P.K, (uint64_t)P.N * 2, 64, KC)
+                 : encode(&a.wmap[i], P.W, CU_TENSOR_MAP_DATA_TYPE_UINT8, P.N,
+                          wbits == 4 ? P.K / 2 : P.K, P.N, 128,
+                          wbits == 4 ? KC / 2 : KC));
+        if (!ok) return (int)cudaErrorInvalidValue;
+      }
     }
-    // Cluster size: about FILL blocks, at most MAX_CLUSTER, and no more
-    // slices than the longest K has steps.
-    const int cs = min(min(MAX_CLUSTER, steps), max(1, (FILL + tiles - 1) /
-                                                          tiles));
-    for (int i = 0; i < n_prob; ++i) {
-      MMProblem& P = g.p[i];
-      P.ksplit = cs;
-      P.kb = ((P.K + cs - 1) / cs + step - 1) / step * step;
-    }
+    if (tiles != clusters) return (int)cudaErrorInvalidValue;
     cudaError_t err;
-    const int blocks = tiles * cs;
-    if (dtype == 1 && wbits == 4)
-      err = launch<__nv_bfloat16, 4>(g, rows, blocks, cs, st);
-    else if (dtype == 1 && wbits == 8)
-      err = launch<__nv_bfloat16, 8>(g, rows, blocks, cs, st);
-    else if (dtype == 1)
-      err = launch<__nv_bfloat16, 0>(g, rows, blocks, cs, st);
-    else if (wbits == 4)
-      err = launch<float, 4>(g, rows, blocks, cs, st);
+    const int blocks = clusters * cs;
+    if (tc) {
+      const void* k;
+      int smem;
+      err = tc_kernel_for(wbits, rows, &k, &smem);
+      void* params[] = {&a};
+      if (err == cudaSuccess)
+        err = launch_cfg(k, smem, blocks, TC_THREADS, cs, st, params);
+    } else if (wbits == 4)
+      err = launch_fma<4>(g, rows, blocks, cs, st);
     else if (wbits == 8)
-      err = launch<float, 8>(g, rows, blocks, cs, st);
+      err = launch_fma<8>(g, rows, blocks, cs, st);
     else
-      err = launch<float, 0>(g, rows, blocks, cs, st);
+      err = launch_fma<0>(g, rows, blocks, cs, st);
     if (err == cudaSuccess) err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   return 0;
+}
+
+// How many clusters of cs blocks of the bf16 kernel for wbits codes and
+// `rows` rows the card holds at once (ops/phased_matmul.py plans with it);
+// a negative cudaError_t on failure.
+int phased_max_clusters(int wbits, int rows, int cs) {
+  if ((wbits != 0 && wbits != 8 && wbits != 4) || rows <= 0 || cs < 1 ||
+      cs > MAX_CLUSTER)
+    return -(int)cudaErrorInvalidValue;
+  const void* k;
+  int smem;
+  cudaError_t e = tc_kernel_for(wbits, rows, &k, &smem);
+  if (e != cudaSuccess) return -(int)e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cs * MAX_CLUSTER, 1, 1);
+  cfg.blockDim = dim3(TC_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  e = cudaOccupancyMaxActiveClusters(&n, k, &cfg);
+  return e == cudaSuccess ? n : -(int)e;
 }
 
 }  // extern "C"

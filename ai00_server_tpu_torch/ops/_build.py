@@ -54,8 +54,10 @@ SIGNATURES = {
         "v7_wkv_gn_launch": "ppppppppppppiiiiip",
     },
     "phased": {
-        # desc (host), n_prob, B, dtype, wbits, stream
-        "phased_matmul_launch": "piiiip",
+        # desc (host), n_prob, plan (host), n_launch, dtype, wbits, stream
+        "phased_matmul_launch": "pipiiip",
+        # wbits, rows, cluster size -> clusters the card holds at once
+        "phased_max_clusters": "iii",
     },
     "wkv4": {
         # r, k, v, vecs, active, aa, bb, pp, out, B, C, dtype, stream

@@ -9,9 +9,12 @@ so the stacks swap one op for the other (``ops/v7_phased``,
 ``ops/v56_phased``).  Where ``v7_skinny_matmul`` holds 8 batch rows and
 reads a weight again for every 8 rows, this kernel
 (``csrc/phased.cu``; the note there says what bounds it and what its design
-does about it) holds up to 64 rows, on the tensor cores in bf16, and adds
-the slices of K in the shared memory of a thread block cluster: it needs
-no work space.
+does about it) holds up to 64 rows, on the tensor cores (``wgmma``, the
+weights fed by TMA) in bf16, and adds the slices of K in the shared memory
+of a thread block cluster: it needs no work space.  :func:`plan` splits a
+launch's work — tiles of output columns, K slices in whole scale blocks,
+the cluster size and the order of the tiles — and the kernel reads it from
+its descriptor table.
 
 The arithmetic is the TPU kernel's, which differs from the fused stacks'
 for codes: the x tile and the weight are cast to the activation dtype, the
@@ -33,6 +36,8 @@ kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 
 import torch
 
@@ -43,6 +48,147 @@ from .v7_decode import (_DTYPE_CODE, _require, _stream, epilogue_plain,
 ROWS = 64          # batch rows per launch
 MAXP = 5           # products per launch
 MODES = ("none", "int8", "int4")
+MAX_CLUSTER = 8    # blocks of a cluster: the portable limit
+TILE = {torch.bfloat16: 256, torch.float32: 128}  # output columns a block
+KC = 64            # rows of K a bf16 stage holds (four wgmma k-steps)
+H100_SMS = 132
+# Clusters of 1..8 bf16 blocks (one an SM) an H100 SXM holds at once, from
+# cudaOccupancyMaxActiveClusters (``phased_max_clusters``): a cluster stays
+# inside one GPC, so 8-block clusters fill 120 of the 132 SMs.  The wrapper
+# asks the card; this is the default of :func:`plan`.
+H100_CLUSTERS = {1: 132, 2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15}
+FIXED_PASSES = 4   # a launch's fixed cost, counted in stages a block sums
+
+
+@dataclass(frozen=True)
+class Launch:
+    """One launch of :func:`phased_matmul`: batch rows ``b0 .. b0 + rows``;
+    ``cs`` blocks a cluster (each sums one K slice of the cluster's tile);
+    per product its first tile ``blk0`` and the rows of K a slice holds
+    ``kb``.  Cluster ``c`` takes tile ``c - blk0[p]`` of the product ``p``
+    whose tiles hold it, and its rank ``r`` rows ``r kb[p] .. (r + 1)
+    kb[p]`` of K (``csrc/phased.cu`` reads the same)."""
+
+    b0: int
+    rows: int
+    cs: int
+    clusters: int
+    blk0: tuple
+    kb: tuple
+
+
+def step_rows(mode: str) -> int:
+    """The rows of K a slice holds a multiple of: whole scale blocks (128
+    rows of int8 codes, 64 of packed int4) and whole bf16 stages (64)."""
+    return 128 if mode == "int8" else KC
+
+
+def plan(shapes, B: int, mode: str, dtype=torch.bfloat16,
+         sms: int = H100_SMS, clusters=None) -> list:
+    """The launches of one :func:`phased_matmul` call over ``shapes`` [(K,
+    N)] in weight mode ``mode`` at ``B`` rows: one per 64 rows.  Tiles are
+    ``TILE[dtype]`` columns, in the products' order, one cluster each.
+
+    bf16: K is split over ``cs`` blocks a cluster, 1 to ``MAX_CLUSTER`` (and
+    no more than the longest K has steps), chosen to minimise the waves of
+    clusters the card runs (``clusters[cs]`` at once; default
+    ``H100_CLUSTERS``) times the stages a block sums plus the launch's fixed
+    cost (``FIXED_PASSES``; at equal cost the fewer waves, then the finer
+    split): a second wave costs a whole block's time, and a finer split
+    fills more SMs.  f32 (the parity models): blocks fit two
+    an SM, so about ``2 sms`` of them, as many slices as that takes.  Each
+    slice holds whole steps (:func:`step_rows`)."""
+    tile, step = TILE[dtype], step_rows(mode)
+    tiles = [-(-N // tile) for _, N in shapes]
+    total = sum(tiles)
+    steps = max(-(-K // step) for K, _ in shapes)
+
+    def rows_of(cs):
+        return tuple(-(-K // (cs * step)) * step for K, _ in shapes)
+
+    if dtype == torch.float32:
+        cs = max(1, min(MAX_CLUSTER, steps, -(-2 * sms // total)))
+    else:
+        held = clusters or H100_CLUSTERS
+
+        def cost(cs):
+            waves = -(-total // max(1, held[cs]))
+            passes = max(-(-kb // KC) for kb in rows_of(cs))
+            return waves * (passes + FIXED_PASSES), waves, -cs
+
+        cs = min(range(1, min(MAX_CLUSTER, steps) + 1), key=cost)
+    blk0 = tuple(sum(tiles[:i]) for i in range(len(shapes)))
+    return [Launch(b0, min(ROWS, B - b0), cs, total, blk0, rows_of(cs))
+            for b0 in range(0, B, ROWS)]
+
+
+def work_items(launch: Launch, shapes, dtype=torch.bfloat16):
+    """The (product, first column, end column, first K row, end K row) of
+    every block of ``launch`` that sums something, as the kernel reads the
+    plan."""
+    tile = TILE[dtype]
+    items = []
+    for c in range(launch.clusters):
+        p = max(i for i, b in enumerate(launch.blk0) if b <= c)
+        K, N = shapes[p]
+        col0 = (c - launch.blk0[p]) * tile
+        for r in range(launch.cs):
+            k0 = r * launch.kb[p]
+            k1 = min(K, k0 + launch.kb[p])
+            if k1 > k0:
+                items.append((p, col0, min(N, col0 + tile), k0, k1))
+    return items
+
+
+def padded_rows(rows: int) -> int:
+    """The rows the bf16 kernel computes for ``rows``: wgmma's N, 16, 32
+    or 64."""
+    return 16 if rows <= 16 else 32 if rows <= 32 else 64
+
+
+def staged_bytes(launch: Launch, shapes, mode: str) -> tuple:
+    """(x bytes, weight bytes) the bf16 kernel's TMA boxes move into shared
+    memory over ``launch``: every block stages a 64-row box of x (the rows
+    padded to 16, 32 or 64) beside each stage of weight boxes of its 256
+    columns."""
+    nr = padded_rows(launch.rows)
+    per_row = {"none": 2 * TILE[torch.bfloat16], "int8": TILE[torch.bfloat16],
+               "int4": TILE[torch.bfloat16] // 2}[mode]
+    x = w = 0
+    for _, _, _, k0, k1 in work_items(launch, shapes):
+        passes = -(-(k1 - k0) // KC)
+        x += passes * nr * KC * 2
+        w += passes * KC * per_row
+    return x, w
+
+
+def plan_table(launches) -> ctypes.Array:
+    """``launches`` as the kernel's plan table: per launch b0, rows, cs,
+    clusters, then (blk0, kb) for each of ``MAXP`` products."""
+    rows = []
+    for ln in launches:
+        pairs = [v for i in range(MAXP) for v in (
+            (ln.blk0[i], ln.kb[i]) if i < len(ln.blk0) else (0, 0))]
+        rows += [ln.b0, ln.rows, ln.cs, ln.clusters, *pairs]
+    return (ctypes.c_int64 * len(rows))(*rows)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _clusters(index: int, wbits: int, rows: int) -> dict:
+    """{cs: clusters of the bf16 kernel for ``rows`` padded rows the card
+    ``index`` holds at once}."""
+    lib = _build.library("phased")
+    with torch.cuda.device(index):
+        held = {cs: lib.phased_max_clusters(wbits, rows, cs)
+                for cs in range(1, MAX_CLUSTER + 1)}
+    for cs, n in held.items():
+        _build.check(min(n, 0), f"phased_max_clusters({cs})")
+    return held
 
 
 def block_sums_plain(x, W, scale, mode: str):
@@ -103,12 +249,18 @@ def phased_matmul(products, workspace=None):
                  and p.x.data_ptr() % 16 == 0,
                  "x needs 16-byte aligned rows: K and its row stride "
                  "multiples of 8")
+    cd = products[0].x.dtype
+    wbits = {"none": 0, "int8": 8, "int4": 4}[mode]
+    held = (_clusters(dev.index, wbits, padded_rows(min(B, ROWS)))
+            if cd == torch.bfloat16 else None)
+    launches = plan([p.KN for p in products], B, mode, cd, _sms(dev.index),
+                    held)
+    ptab = plan_table(launches)
     status = _build.library("phased").phased_matmul_launch(
-        ctypes.addressof(table), len(products), B,
-        _DTYPE_CODE[products[0].x.dtype],
-        {"none": 0, "int8": 8, "int4": 4}[mode], _stream(dev))
+        ctypes.addressof(table), len(products), ctypes.addressof(ptab),
+        len(launches), _DTYPE_CODE[cd], wbits, _stream(dev))
     _build.check(status, "phased_matmul")
-    n = -(-B // ROWS)
+    n = len(launches)
     phased_matmul.launches += n
     if mode == "int8":
         phased_matmul.int8_launches += n

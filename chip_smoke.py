@@ -1726,11 +1726,15 @@ def phase_phased_kernels(dev) -> dict:
     """``phased_matmul`` (``csrc/phased.cu``) against its plain version on
     the four big launches of a v7 layer (r/k/v, Wo, fkey, fval) at the 0.4B
     and the 2.9B widths, B = 16 and 64, on bf16 weights and on int8 and
-    int4 codes, and on a v5 0.4B layer's four in bf16, each launch timed on
-    weights that rotate through more than the L2 holds; beside it
-    ``torch.matmul`` on the same bf16 products and ``v7_skinny_matmul`` (8
-    rows a launch) on the same weights.  Returns the kernels line's rows:
-    the served shapes (v7 0.4B per mode, v5 0.4B bf16) at B = 64."""
+    int4 codes, on a v5 0.4B layer's four in the same modes, and on all
+    eight launches of a v6 1B6 layer (its four LoRA launches - the five
+    strided token-shift offsets among them - on bf16 weights, the four big
+    ones in every mode), each launch timed on weights that rotate through
+    more than the L2 holds; beside it ``torch.matmul`` on the same bf16
+    products, ``v7_skinny_matmul`` (8 rows a launch) on the same weights,
+    and the x and weight bytes the kernel's TMA boxes stage.  Returns the
+    kernels line's rows: the served shapes (v7 0.4B per mode, v5 0.4B
+    bf16) at B = 64."""
     import torch
 
     from ai00_server_tpu_torch.ops import phased_matmul as pm
@@ -1755,60 +1759,97 @@ def phase_phased_kernels(dev) -> dict:
         return {"rkv": [(Cw, Cw, "f32")] * 3, "wo": [(Cw, Cw, "add")],
                 "fkey": [(Cw, Fw, "relu2")], "fval": [(Fw, Cw, "add")]}
 
-    # (width, the big launches of a layer, weight modes, the kernels line's
+    def v56_layer(Cw, Fw, out_ffn):
+        # r, k, v, g; Wo; the channel mix's key and receptance; its value.
+        return {"rkvg": [(Cw, Cw, "f32")] * 4, "wo": [(Cw, Cw, "add")],
+                "fkey_frec": [(Cw, Fw, "relu2"), (Cw, Cw, "f32")],
+                "fval": [(Fw, Cw, out_ffn)]}
+
+    # Epilogue of each kind: (act, out, round_cd), and its output bytes a
+    # row and column (what it writes, and reads besides the sum).
+    kinds = {"f32": ("none", "f32", True, 4), "add": ("none", "add", False, 8),
+             "relu2": ("relu2", "cd", False, 2),
+             "tanh": ("tanh", "cd", False, 2),
+             "expexp": ("expexp", "f32", False, 4),
+             "gadd": ("none", "gadd", False, 12),
+             "mix": ("none", "mix", False, 6)}
+    tm, td = LORA6["tm"], LORA6["td"]
+    # (width, the launches of a layer, weight modes, the kernels line's
     # row per mode at B = WIDE_BATCH): the served shapes give the rows.
+    # `lora` launches hold bf16 weights in every mode: timed in bf16 only.
     cases = [
         ("0.4B", v7_layer(C, FFN), ("bf16", "int8", "int4"),
          {"bf16": "phased_matmul", "int8": "phased_matmul (int8)",
           "int4": "phased_matmul (int4)"}),
         ("2.9B", v7_layer(C29, F29), ("bf16", "int8", "int4"), {}),
-        # v5's layer: r, k, v, g; Wo; the channel mix's key and receptance;
-        # its value.
-        ("v5 0.4B", {"rkvg": [(C, C, "f32")] * 4, "wo": [(C, C, "add")],
-                     "fkey_frec": [(C, F5, "relu2"), (C, C, "f32")],
-                     "fval": [(F5, C, "add")]}, ("bf16",),
+        ("v5 0.4B", v56_layer(C, F5, "add"), ("bf16", "int8", "int4"),
          {"bf16": "phased_matmul (v5)"}),
+        ("v6 1B6", {"lora_mw1": [(C6, 5 * tm, "tanh")],
+                    "lora_mw2": [(tm, C6, "mix")] * 5,
+                    "lora_dw1": [(C6, td, "tanh")],
+                    "lora_dw2": [(td, C6, "expexp")],
+                    **v56_layer(C6, F6, "gadd")},
+         ("bf16", "int8", "int4"), {}),
     ]
     rows = {}
     for width, groups, modes, row_names in cases:
         for mode in modes:
             total = {B: dict.fromkeys(("ms", "plain_ms", "library_ms",
-                                       "skinny_ms", "bytes", "flops"), 0.0)
+                                       "skinny_ms", "bytes", "flops",
+                                       "x_staged", "w_staged"), 0.0)
                      for B in PHASED_BS}
             worst = 0.0
-            for gname, specs in groups.items():
+            timed = [g for g in groups
+                     if mode == "bf16" or not g.startswith("lora")]
+            for gname in timed:
+                specs = groups[gname]
+                lora = gname.startswith("lora")
+                pmode = "none" if mode == "bf16" or lora else mode
                 wbytes = sum(K * Nout * 2 for K, Nout, _ in specs)
                 n_sets = int(2 * L2_BYTES // wbytes) + 1
                 sets = []  # [(bf16 weights, codes or None)] per set
                 for _ in range(n_sets):
                     ws_ = [(rnd(K, Nout) / K ** 0.5).to(cd)
                            for K, Nout, _ in specs]
-                    codes = ([quant.QUANTIZERS[mode](w) for w in ws_]
-                             if mode != "bf16" else None)
+                    codes = ([quant.QUANTIZERS[pmode](w) for w in ws_]
+                             if pmode != "none" else None)
                     sets.append((ws_, codes))
                 for B in PHASED_BS:
-                    xs = [rnd(B, K, scale=0.5).to(cd) for K, _, _ in specs]
+                    if gname == "lora_mw2":
+                        # The five offsets read strided views of one
+                        # (B, 5 tm) tensor, as the v6 stack gives them.
+                        h = rnd(B, 5 * tm, scale=0.5).to(cd)
+                        xs = [h[:, i * tm:(i + 1) * tm] for i in range(5)]
+                    else:
+                        xs = [rnd(B, K, scale=0.5).to(cd)
+                              for K, _, _ in specs]
                     ys = [rnd(B, Nout) for _, Nout, _ in specs]
+                    # gadd's gate, mix's xa, dx and mix.
+                    ops = [(rnd(B, Nout), rnd(B, Nout).to(cd),
+                            rnd(B, Nout).to(cd), rnd(Nout).to(cd))
+                           for _, Nout, _ in specs]
 
-                    def prods(i, y=None, _xs=xs, _ys=ys):
+                    def prods(i, y=None, _xs=xs, _ys=ys, _ops=ops):
                         ws_, codes = sets[i]
                         out = []
-                        for j, (x, (_, _, kind)) in enumerate(zip(_xs,
-                                                                  specs)):
+                        for j, (x, (_, Nout, kind)) in enumerate(zip(
+                                _xs, specs)):
                             w = dict(W=ws_[j]) if codes is None else dict(
                                 W=codes[j].q, scale=codes[j].scale,
-                                mode=mode)
+                                mode=pmode)
+                            act, to, round_cd, _ = kinds[kind]
+                            gate, xa, dx, mix = _ops[j]
                             out.append(fd.Product(
-                                x, act="relu2" if kind == "relu2" else
-                                "none", round_cd=kind == "f32",
-                                out="cd" if kind == "relu2" else
-                                "add" if kind == "add" else "f32",
+                                x, act=act, round_cd=round_cd, out=to,
                                 y=(_ys[j] if y is None else y[j])
-                                if kind == "add" else None, **w))
+                                if to in ("add", "gadd") else None,
+                                gate=gate if to == "gadd" else None,
+                                xa=xa if to == "mix" else None,
+                                dx=dx if to == "mix" else None,
+                                mix=mix if to == "mix" else None, **w))
                         return out
 
                     shapes = [(K, Nout) for K, Nout, _ in specs]
-                    pmode = "none" if mode == "bf16" else mode
                     wsk = fd.Workspace(dev, *fd._scratch_need(
                         shapes, cd if pmode == "none" else torch.int8))
                     want = pm.phased_matmul_plain(prods(0))
@@ -1816,8 +1857,9 @@ def phase_phased_kernels(dev) -> dict:
                         prods(0, [y.clone() for y in ys]))
                     torch.cuda.synchronize()
                     for g, w, (_, _, kind) in zip(got, want, specs):
+                        _, to, round_cd, _ = kinds[kind]
                         worst = max(worst, close(
-                            g, w, kind in ("f32", "relu2"),
+                            g, w, round_cd or to in ("cd", "mix"),
                             f"phased_matmul[{width} {mode} {gname} B={B}]"))
                     t = total[B]
                     ms = device_ms(rotating(
@@ -1836,26 +1878,32 @@ def phase_phased_kernels(dev) -> dict:
                     code = sets[0][1]
                     t["bytes"] += sum(
                         nbytes(x) + (nbytes(c.q, c.scale) if code else
-                                     nbytes(w)) + B * Nout * (
-                            8 if kind == "add" else 4 if kind == "f32"
-                            else 2)
+                                     nbytes(w)) + B * Nout * kinds[kind][3]
                         for x, w, c, (_, Nout, kind) in zip(
                             xs, sets[0][0], code or sets[0][0], specs))
                     t["flops"] += sum(2 * B * K * Nout
                                       for K, Nout, _ in specs)
+                    for ln in pm.plan(shapes, B, pmode):
+                        x_st, w_st = pm.staged_bytes(ln, shapes, pmode)
+                        t["x_staged"] += x_st
+                        t["w_staged"] += w_st
                 del sets
             for B in PHASED_BS:
                 t = total[B]
                 b_ms, b_by = bound(t["bytes"], t["flops"], BF16_FLOPS)
-                print(f"phased_matmul {width} {mode} B={B}, the four big "
-                      f"launches of a layer: {t['ms']:.5f} ms ("
+                print(f"phased_matmul {width} {mode} B={B}, the "
+                      f"{len(timed)} launches of a layer: {t['ms']:.5f} ms ("
                       + ", ".join(f"{g} {v:.5f}"
                                   for g, v in t["per_launch"].items())
                       + f"; {t['bytes'] / t['ms'] / 1e6:.0f} GB/s; plain "
                       f"{t['plain_ms']:.5f}, torch.matmul on the bf16 "
                       f"products {t['library_ms']:.5f}, v7_skinny_matmul "
                       f"(8 rows a launch) {t['skinny_ms']:.5f}; bound "
-                      f"{b_ms:.5f} by {b_by})", flush=True)
+                      f"{b_ms:.5f} by {b_by}; TMA stages "
+                      f"{t['x_staged'] / 1e6:.2f} MB of x beside "
+                      f"{t['w_staged'] / 1e6:.2f} MB of weight boxes, "
+                      f"{t['x_staged'] / t['w_staged']:.3f} of them)",
+                      flush=True)
                 if mode in row_names and B == WIDE_BATCH:
                     name = row_names[mode]
                     rows[name] = {

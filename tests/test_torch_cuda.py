@@ -1334,8 +1334,27 @@ def test_embed_sidecar_bert_on_the_card(dev, tmp_path):
 
 from ai00_server_tpu_torch.ops import phased_matmul as pm  # noqa: E402
 
-PHASED_GROUPS = {k: GROUPS[k] for k in ("rkv", "lora_down", "lora_up", "wo",
-                                        "fkey", "fval")}
+PHASED_GROUPS = {
+    **{k: GROUPS[k] for k in ("rkv", "lora_down", "lora_up", "wo", "fkey",
+                              "fval")},
+    # N below one 256-column tile of the bf16 kernel, one of them ragged.
+    "narrow": [(1024, 32, "tanh", False, False, "cd"),
+               (1024, 96, "none", True, True, "f32"),
+               (512, 320, "sigmoid", False, False, "cd")],
+    # v5's channel-mix key and receptance: one launch, two widths.
+    "v5_ffn": [(1024, 3584, "relu2", False, False, "cd"),
+               (1024, 1024, "sigmoid", False, False, "f32")],
+}
+
+
+def _coded(prods, mode):
+    """``prods`` with their weights as ``mode`` codes and scales."""
+    if mode == "none":
+        return prods
+    return [fd.Product(**{**p.__dict__, "mode": mode,
+                          "W": q.q, "scale": q.scale})
+            for p, q in ((p, quant.QUANTIZERS[mode](p.W.float()))
+                         for p in prods)]
 
 
 @pytest.mark.parametrize("mode,group", [
@@ -1344,17 +1363,12 @@ PHASED_GROUPS = {k: GROUPS[k] for k in ("rkv", "lora_down", "lora_up", "wo",
     # codes take K in whole scale blocks
     if mode == "none" or all(K % 128 == 0 for K, *_ in PHASED_GROUPS[group])])
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("B", [16, 64, 100])
+@pytest.mark.parametrize("B", [9, 16, 64, 100, 128])
 def test_phased_matmul_kernel_matches_plain(dev, mode, group, dtype, B):
     """One launch per 64 rows; equal inputs give equal bits."""
     shapes = PHASED_GROUPS[group]
     gen = torch.Generator(device=dev).manual_seed(B)
-    prods = _products(gen, dev, dtype, B, shapes)
-    if mode != "none":
-        prods = [fd.Product(**{**p.__dict__, "mode": mode,
-                               "W": q.q, "scale": q.scale})
-                 for p, q in ((p, quant.QUANTIZERS[mode](p.W.float()))
-                              for p in prods)]
+    prods = _coded(_products(gen, dev, dtype, B, shapes), mode)
     want = pm.phased_matmul_plain(prods)
     again = [fd.Product(**{**p.__dict__, "y": None if p.y is None
                            else p.y.clone()}) for p in prods]
@@ -1366,6 +1380,30 @@ def test_phased_matmul_kernel_matches_plain(dev, mode, group, dtype, B):
         _close_t(g, w, dtype, rounded=p.out == "cd" or p.round_cd)
     for g, g2 in zip(got, pm.phased_matmul(again)):
         assert torch.equal(g, g2)
+
+
+@pytest.mark.parametrize("mode", ["none", "int8", "int4"])
+@pytest.mark.parametrize("B", [9, 64, 128])
+def test_phased_matmul_graph_replay_equals_eager(dev, mode, B):
+    """Two eager launches and a CUDA graph's replay give equal bits."""
+    gen = torch.Generator(device=dev).manual_seed(B + 1)
+    prods = _coded(_products(gen, dev, torch.bfloat16, B,
+                             PHASED_GROUPS["v5_ffn"]), mode)
+    eager = pm.phased_matmul(prods)
+    for a, b in zip(eager, pm.phased_matmul(prods)):
+        assert torch.equal(a, b)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        pm.phased_matmul(prods)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = pm.phased_matmul(prods)
+    graph.replay()
+    torch.cuda.synchronize()
+    for o, e in zip(outs, eager):
+        assert torch.equal(o, e)
 
 
 def test_phased_matmul_kernel_refuses_what_it_does_not_take(dev):
