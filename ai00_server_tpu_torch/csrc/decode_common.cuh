@@ -2,14 +2,23 @@
 // the activation types and their rounding, and the LayerNorm / token-shift
 // kernel both stacks launch.
 //
-// ln_mix_kernel (launched as v7_ln_mix by both stacks): LayerNorm of the f32
-// residual, token shift against the f32 shift state, n_mix mixed outputs
-// xa + round_T(dx * mix[i]) with xa = round_T(ln) and dx = round_T(shift -
-// ln), and the new shift state (the f32 LayerNorm) for active rows.  With
-// base = 2 the first two outputs are xa and dx themselves (RWKV-6 mixes its
-// token shift with data-dependent offsets later in the layer).  Bounded by
-// latency: B x C elements, one block of 1024 threads per row, so that at
-// C = 1024 each pass is one round of independent loads.
+// ln_mix_kernel (launched as v7_ln_mix by every stack): LayerNorm of the
+// f32 residual, token shift against the f32 shift state, n_mix mixed
+// outputs xa + round_T(dx * mix[i]) with xa = round_T(ln) and dx =
+// round_T(shift - ln), and the new shift state (the f32 LayerNorm) for
+// active rows.  With base = 2 the first two outputs are xa and dx
+// themselves (RWKV-6 mixes its token shift with data-dependent offsets
+// later in the layer).  Replaces the LayerNorm and token-shift lines of the
+// Pallas decode kernels (ai00_server_tpu/ops/v7_decode_pallas.py:174-185).
+// Bounded by latency (B x C elements: 32 KB at the 0.4B shape), so the
+// design keeps the chain short: a row is cut into chunks of columns, one
+// block each (B x chunks blocks: 64 at B = 8, C = 1024, not 8), every block
+// reads its whole row once with 16-byte loads into registers, takes the
+// mean and then the variance from the registers (two passes over
+// registers, one barrier each: warp shuffles and one shared-memory
+// exchange), and writes its chunk.  It fetches its LayerNorm and mix
+// parameters before it waits for the kernel before it (programmatic
+// dependent launch), and lets the next kernel start at once.
 
 #pragma once
 
@@ -51,17 +60,60 @@ __device__ __forceinline__ float sigmoidf(float x) {
 }
 
 // ---------------------------------------------------------------------------
+// Programmatic dependent launch
+// ---------------------------------------------------------------------------
+
+// Lets the next kernel of the stream start its blocks (launched with the
+// programmatic-serialization attribute, it reads nothing this kernel writes
+// before its grid_wait).
+__device__ __forceinline__ void grid_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+// Waits until the kernel before this one in the stream has finished and
+// its writes are visible; a no-op in a kernel launched without the
+// attribute.
+__device__ __forceinline__ void grid_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+// ---------------------------------------------------------------------------
 // ln_mix_kernel
 // ---------------------------------------------------------------------------
 
-constexpr int LN_THREADS = 1024;  // one element a thread at C = 1024
+constexpr int LN_THREADS = 256;
+constexpr int LN_MAXC = 4096;  // the row a block stages: 16 KB of f32
 
-// Sum over the block, in a fixed order; every thread gets the total.
+// Four T of p (8-byte aligned for bf16, 16 for f32) as floats, and back.
+__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
+  const float4 t = *reinterpret_cast<const float4*>(p);
+  v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p,
+                                      float (&v)[4]) {
+  const uint2 t = *reinterpret_cast<const uint2*>(p);
+  v[0] = __uint_as_float(t.x << 16), v[1] = __uint_as_float(t.x & 0xffff0000u);
+  v[2] = __uint_as_float(t.y << 16), v[3] = __uint_as_float(t.y & 0xffff0000u);
+}
+__device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p,
+                                       const float (&v)[4]) {
+  const __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
+  const __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
+  uint2 t;
+  t.x = *reinterpret_cast<const uint32_t*>(&a);
+  t.y = *reinterpret_cast<const uint32_t*>(&b);
+  *reinterpret_cast<uint2*>(p) = t;
+}
+
+// Sum over the block's LN_THREADS threads, in a fixed order (lanes by
+// shuffles, then the warps in order through red); every thread gets the
+// total.  One barrier: red is not reused.
 __device__ __forceinline__ float block_sum(float v, float* red) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     v += __shfl_xor_sync(0xffffffffu, v, off);
-  __syncthreads();  // the previous total has been read by every thread
   if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
   __syncthreads();
   float t = 0.f;
@@ -70,45 +122,82 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return t;
 }
 
-// out: (base + n_mix, B, C); base is 0 or 2 (xa and dx first).
+// Block (s, b): row b's statistics from the whole row (every block of the
+// row reads it: 4-16 KB from L2), then the outputs of its `chunk` groups of
+// four columns from 4 s chunk, one group a thread.  out: (base + n_mix, B,
+// C); base is 0 or 2 (xa and dx first).  C a multiple of 4, at most
+// LN_MAXC; chunk at most LN_THREADS.
 template <typename T>
 __global__ void __launch_bounds__(LN_THREADS)
 ln_mix_kernel(const float* __restrict__ x, const T* __restrict__ ln,
               float* __restrict__ shift, const T* __restrict__ mix,
               const uint8_t* __restrict__ active, T* __restrict__ out, int B,
-              int C, int n_mix, int base) {
-  __shared__ float red[LN_THREADS / 32];
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const float* xr = x + (size_t)b * C;
+              int C, int n_mix, int base, int chunk) {
+  constexpr int U = LN_MAXC / 4 / LN_THREADS;  // float4s of the row a thread
+  __shared__ __align__(16) float4 xs[LN_MAXC / 4];
+  __shared__ float red[2][LN_THREADS / 32];
+  grid_launch_dependents();
+  const int b = blockIdx.y, tid = threadIdx.x;
+  const int C4 = C / 4;
+  const int j = blockIdx.x * chunk + tid;  // this thread's group of 4
+  const bool mine = tid < chunk && j < C4;
+  // The parameters first: nothing earlier in the stream writes them.
+  float w[4], bias[4], m[6][4];
+  if (mine) {
+    load4(ln + 4 * j, w);
+    load4(ln + C + 4 * j, bias);
+#pragma unroll
+    for (int i = 0; i < 6; ++i)
+      if (i < n_mix) load4(mix + (size_t)i * C + 4 * j, m[i]);
+  }
+  grid_wait();
+  const float4* xr = reinterpret_cast<const float4*>(x + (size_t)b * C);
   float* sh = shift + (size_t)b * C;
-
-  float s = 0.f;
-  for (int c = tid; c < C; c += LN_THREADS) s += xr[c];
-  const float mean = block_sum(s, red) / C;
-  float q = 0.f;
-  for (int c = tid; c < C; c += LN_THREADS) {
-    const float d = xr[c] - mean;
-    q += d * d;
-  }
-  const float rstd = rsqrtf(block_sum(q, red) / C + LN_EPS);
+  float prev[4];
+  if (mine) load4(sh + 4 * j, prev);
   const bool act = active[b] != 0;
-
-  for (int c = tid; c < C; c += LN_THREADS) {
-    const float lnv = (xr[c] - mean) * rstd * to_f(ln[c]) + to_f(ln[C + c]);
-    const float prev = sh[c];
-    const float xa = rnd<T>(lnv);
-    const float dx = rnd<T>(prev - lnv);
-    if (base) {
-      out[(size_t)b * C + c] = from_f<T>(xa);
-      out[((size_t)B + b) * C + c] = from_f<T>(dx);
-    }
-    for (int i = 0; i < n_mix; ++i) {
-      const float m = rnd<T>(dx * to_f(mix[(size_t)i * C + c]));
-      out[((size_t)(base + i) * B + b) * C + c] = from_f<T>(xa + m);
-    }
-    if (act) sh[c] = lnv;  // the f32 LayerNorm, not rounded through T
+  float4 v[U];
+  float s = 0.f;
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int q = tid + LN_THREADS * u;
+    v[u] = q < C4 ? xr[q] : make_float4(0.f, 0.f, 0.f, 0.f);
+    if (q < C4) xs[q] = v[u];
+    s += (v[u].x + v[u].y) + (v[u].z + v[u].w);
   }
+  const float mean = block_sum(s, red[0]) / C;
+  float d2 = 0.f;
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+    if (tid + LN_THREADS * u < C4) {
+      const float a = v[u].x - mean, c = v[u].y - mean;
+      const float e = v[u].z - mean, f = v[u].w - mean;
+      d2 += (a * a + c * c) + (e * e + f * f);
+    }
+  const float rstd = rsqrtf(block_sum(d2, red[1]) / C + LN_EPS);
+  if (!mine) return;
+  const float4 xv = xs[j];
+  const float xe[4] = {xv.x, xv.y, xv.z, xv.w};
+  float lnv[4], xa[4], dx[4], o[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    lnv[e] = (xe[e] - mean) * rstd * w[e] + bias[e];
+    xa[e] = rnd<T>(lnv[e]);
+    dx[e] = rnd<T>(prev[e] - lnv[e]);
+  }
+  const size_t row = (size_t)b * C + 4 * j;
+  if (base) {
+    store4(out + row, xa);
+    store4(out + (size_t)B * C + row, dx);
+  }
+#pragma unroll
+  for (int i = 0; i < 6; ++i)
+    if (i < n_mix) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[e] = xa[e] + rnd<T>(dx[e] * m[i][e]);
+      store4(out + (size_t)(base + i) * B * C + row, o);
+    }
+  if (act) store4(sh + 4 * j, lnv);  // the f32 LayerNorm, not rounded
 }
 
 // Sum over a head's HEAD = 64 values held by threads 0..63 (the others pass

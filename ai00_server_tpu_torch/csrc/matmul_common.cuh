@@ -1,10 +1,14 @@
 // Shared code of the decode steps' product kernels (v7_decode.cu's
 // v7_skinny_matmul, phased.cu's phased_matmul): one product of a launch as
 // the launchers describe it, the epilogue every output element goes
-// through, and the host-side reading of a launch's descriptor table.
+// through, the host-side reading of a launch's descriptor table and plan,
+// the exact bf16 decodes of int8 and int4 codes, the sum of a tile's K
+// slices over a thread block cluster, and the launch with cluster and
+// programmatic-dependent-launch attributes.
 
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -33,10 +37,15 @@ struct MMProblem {
   const void* e2;
   int K, N, ldx;
   int act, round_t, out;
-  int ksplit, kb;     // K is cut into ksplit slices of kb rows
-  int blk0;           // first block of this product in the launch
-  int scr0, cnt0;     // offsets into the scratch floats / the counters
+  int kb;             // rows of K a cluster rank sums
+  int blk0;           // first tile (cluster) of this product in the launch
 };
+
+constexpr int MM_MAXP = 5;       // products per launch
+constexpr int MAX_CLUSTER = 8;   // blocks that split one tile's K
+// A launch's row of the plan table: b0, rows, cs, clusters, then (blk0,
+// kb) per product.
+constexpr int PLAN_COLS = 4 + 2 * MM_MAXP;
 
 // What the epilogue of output (b, c) reads besides the sum, read apart from
 // its stores so that a caller can read several outputs' operands before
@@ -130,6 +139,148 @@ inline bool parse_problem(const int64_t* d, int b0, size_t tsize, bool quant,
                : nullptr;
   P.e2 = (const void*)(uintptr_t)d[11];
   return true;
+}
+
+// ---------------------------------------------------------------------------
+// Register decodes (bf16x2 lanes, exact)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b,
+                                         uint32_t sel) {
+  uint32_t d;
+  asm("prmt.b32 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(sel));
+  return d;
+}
+__device__ __forceinline__ uint32_t bf16x2_sub(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("sub.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+// Byte X of words a (row k) and b (row k + 1) as [a.X, a.X, b.X, b.X]: one
+// bf16x2 lane per row of K once decoded.
+template <int X>
+__device__ __forceinline__ uint32_t pair(uint32_t a, uint32_t b) {
+  return prmt(a, b, X | X << 4 | (4 + X) << 8 | (4 + X) << 12);
+}
+// Signed int8 code c in each lane's low byte -> bf16 c: 128 + (c & 127),
+// minus 256 where c < 0 (its bit 7 set) and 128 where not; all exact.
+__device__ __forceinline__ uint32_t dec8(uint32_t t) {
+  return bf16x2_sub((t & 0x007F007Fu) | 0x43004300u,
+                    (t & 0x00800080u) | 0x43004300u);
+}
+// Nibble n (low, or high when HI) of each lane's low byte -> bf16 n - 8:
+// 128 + n minus 136, exact.
+template <bool HI>
+__device__ __forceinline__ uint32_t dec4(uint32_t t) {
+  return bf16x2_sub(((HI ? t >> 4 : t) & 0x000F000Fu) | 0x43004300u,
+                    0x43084308u);
+}
+
+// ---------------------------------------------------------------------------
+// The K slices of a tile summed over a thread block cluster
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Four f32 of a cluster block's shared memory (a shared::cluster address).
+__device__ __forceinline__ float4 ld_cluster4(uint32_t a) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(a));
+  return v;
+}
+
+// After every block of the cluster has left its slice's sums in `tile`
+// ([row][TP] f32, BN columns from col0), each block adds one share of the
+// tile's outputs over the cluster's tiles IN RANK ORDER through
+// distributed shared memory and runs the epilogue: a thread takes four
+// neighbouring columns at a time, reads them from each rank with one
+// explicit shared::cluster load, and reads the epilogue operands of all
+// four before it stores any.  The second barrier keeps every block's tile
+// alive until all have read it.
+template <typename T, int BN, int TP, int THREADS>
+__device__ __forceinline__ void reduce_tile(const MMProblem& P,
+                                            float* tile, int col0, int rows) {
+  static_assert(BN % 4 == 0 && TP % 4 == 0, "float4 reads of the tile");
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  cluster.sync();
+  uint32_t parts[MAX_CLUSTER];  // registers only: the rank loops unrolled
+#pragma unroll
+  for (int j = 0; j < MAX_CLUSTER; ++j) {
+    parts[j] = 0;
+    if (j < cs)
+      asm("mapa.shared::cluster.u32 %0, %1, %2;\n"
+          : "=r"(parts[j])
+          : "r"(smem_u32(tile)), "r"(j));
+  }
+  const int quads = rows * (BN / 4);
+  for (int q = rank * THREADS + (int)threadIdx.x; q < quads;
+       q += cs * THREADS) {
+    const int b = q / (BN / 4), c = 4 * (q % (BN / 4));
+    if (col0 + c >= P.N) continue;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int j = 0; j < MAX_CLUSTER; ++j)
+      if (j < cs) {
+        const float4 t = ld_cluster4(parts[j] + 4 * (b * TP + c));
+        v.x += t.x;
+        v.y += t.y;
+        v.z += t.z;
+        v.w += t.w;
+      }
+    const float s[4] = {v.x, v.y, v.z, v.w};
+    const int ne = min(4, P.N - col0 - c);  // a ragged N's last quad
+    EpiIn in[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (e < ne) in[e] = epilogue_in<T>(P, b, col0 + c + e);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (e < ne) epilogue_out<T>(P, b, col0 + c + e, s[e], in[e]);
+  }
+  cluster.sync();
+}
+
+// ---------------------------------------------------------------------------
+// Host: the launch
+// ---------------------------------------------------------------------------
+
+// `kernel` over `blocks` blocks of `threads`, in clusters of cs blocks (0:
+// no cluster attribute) and, with pdl, as a programmatic dependent launch:
+// its blocks may start once every block of the kernel before it in the
+// stream has run griddepcontrol.launch_dependents (or exited), and each
+// waits in griddepcontrol.wait before it reads what that kernel writes.
+inline cudaError_t launch_ex(const void* kernel, dim3 grid, int threads,
+                             int smem, int cs, bool pdl, cudaStream_t st,
+                             void** params) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[2];
+  int n = 0;
+  if (cs > 0) {
+    attr[n].id = cudaLaunchAttributeClusterDimension;
+    attr[n].val.clusterDim.x = cs;
+    attr[n].val.clusterDim.y = 1;
+    attr[n].val.clusterDim.z = 1;
+    ++n;
+  }
+  if (pdl) {
+    attr[n].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[n].val.programmaticStreamSerializationAllowed = 1;
+    ++n;
+  }
+  cfg.attrs = attr;
+  cfg.numAttrs = n;
+  return cudaLaunchKernelExC(&cfg, kernel, params);
 }
 
 }  // namespace decode

@@ -89,9 +89,7 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int PM_ROWS = 64;      // batch rows per launch
-constexpr int PM_MAXP = 5;       // products per launch
-constexpr int MAX_CLUSTER = 8;   // blocks that split one tile's K
-constexpr int PLAN_COLS = 4 + 2 * PM_MAXP;  // b0, rows, cs, clusters, (blk0, kb)
+constexpr int PM_MAXP = MM_MAXP; // products per launch
 constexpr int QB8 = 128;         // rows of K per scale block: int8 codes
 constexpr int QB4 = 64;          //                            packed int4
 
@@ -135,10 +133,6 @@ struct TCArgs {
   MMProblem p[PM_MAXP];
   int n, rows;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
@@ -270,97 +264,6 @@ __device__ __forceinline__ uint32_t lds32(uint32_t a) {
   uint32_t v;
   asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(a));
   return v;
-}
-
-__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b,
-                                         uint32_t sel) {
-  uint32_t d;
-  asm("prmt.b32 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(sel));
-  return d;
-}
-__device__ __forceinline__ uint32_t bf16x2_sub(uint32_t a, uint32_t b) {
-  uint32_t d;
-  asm("sub.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
-  return d;
-}
-// Byte X of words a (row k) and b (row k + 1) as [a.X, a.X, b.X, b.X]: one
-// bf16x2 lane per row of K once decoded.
-template <int X>
-__device__ __forceinline__ uint32_t pair(uint32_t a, uint32_t b) {
-  return prmt(a, b, X | X << 4 | (4 + X) << 8 | (4 + X) << 12);
-}
-// Signed int8 code c in each lane's low byte -> bf16 c: 128 + (c & 127),
-// minus 256 where c < 0 (its bit 7 set) and 128 where not; all exact.
-__device__ __forceinline__ uint32_t dec8(uint32_t t) {
-  return bf16x2_sub((t & 0x007F007Fu) | 0x43004300u,
-                    (t & 0x00800080u) | 0x43004300u);
-}
-// Nibble n (low, or high when HI) of each lane's low byte -> bf16 n - 8:
-// 128 + n minus 136, exact.
-template <bool HI>
-__device__ __forceinline__ uint32_t dec4(uint32_t t) {
-  return bf16x2_sub(((HI ? t >> 4 : t) & 0x000F000Fu) | 0x43004300u,
-                    0x43084308u);
-}
-
-// Four f32 of a cluster block's shared memory (a shared::cluster address).
-__device__ __forceinline__ float4 ld_cluster4(uint32_t a) {
-  float4 v;
-  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
-               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
-               : "r"(a));
-  return v;
-}
-
-// After every block of the cluster has left its slice's sums in `tile`
-// ([row][TP] f32, BN columns from col0), each block adds one share of the
-// tile's outputs over the cluster's tiles IN RANK ORDER through
-// distributed shared memory and runs the epilogue: a thread takes four
-// neighbouring columns at a time, reads them from each rank with one
-// explicit shared::cluster load, and reads the epilogue operands of all
-// four before it stores any.  The second barrier keeps every block's tile
-// alive until all have read it.
-template <typename T, int BN, int TP, int THREADS>
-__device__ __forceinline__ void reduce_tile(const MMProblem& P,
-                                            float* tile, int col0, int rows) {
-  static_assert(BN % 4 == 0 && TP % 4 == 0, "float4 reads of the tile");
-  cg::cluster_group cluster = cg::this_cluster();
-  const int cs = (int)cluster.num_blocks();
-  const int rank = (int)cluster.block_rank();
-  cluster.sync();
-  uint32_t parts[MAX_CLUSTER];  // registers only: the rank loops unrolled
-#pragma unroll
-  for (int j = 0; j < MAX_CLUSTER; ++j) {
-    parts[j] = 0;
-    if (j < cs)
-      asm("mapa.shared::cluster.u32 %0, %1, %2;\n"
-          : "=r"(parts[j])
-          : "r"(smem_u32(tile)), "r"(j));
-  }
-  const int quads = rows * (BN / 4);
-  for (int q = rank * THREADS + (int)threadIdx.x; q < quads;
-       q += cs * THREADS) {
-    const int b = q / (BN / 4), c = 4 * (q % (BN / 4));
-    if (col0 + c >= P.N) continue;  // N is a multiple of 16: all 4 or none
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-    for (int j = 0; j < MAX_CLUSTER; ++j)
-      if (j < cs) {
-        const float4 t = ld_cluster4(parts[j] + 4 * (b * TP + c));
-        v.x += t.x;
-        v.y += t.y;
-        v.z += t.z;
-        v.w += t.w;
-      }
-    EpiIn in[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) in[e] = epilogue_in<T>(P, b, col0 + c + e);
-    epilogue_out<T>(P, b, col0 + c, v.x, in[0]);
-    epilogue_out<T>(P, b, col0 + c + 1, v.y, in[1]);
-    epilogue_out<T>(P, b, col0 + c + 2, v.z, in[2]);
-    epilogue_out<T>(P, b, col0 + c + 3, v.w, in[3]);
-  }
-  cluster.sync();
 }
 
 template <typename T, int WQ, int NR>
@@ -776,23 +679,6 @@ phased_fma_kernel(const PMGroup g, int rows) {
 // Host side
 // ---------------------------------------------------------------------------
 
-cudaError_t launch_cfg(const void* kernel, int smem, int blocks, int threads,
-                       int cs, cudaStream_t st, void** params) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(blocks, 1, 1);
-  cfg.blockDim = dim3(threads, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cs;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cudaLaunchKernelExC(&cfg, kernel, params);
-}
-
 // The opt-in above 48 KB of shared memory, once per kernel.
 cudaError_t size_once(const void* kernel, int smem, bool& sized) {
   if (sized) return cudaSuccess;
@@ -812,7 +698,8 @@ cudaError_t launch_fma(const PMGroup& g, int rows, int blocks, int cs,
   PMGroup gc = g;
   int r = rows;
   void* params[] = {&gc, &r};
-  return launch_cfg(k, FMA_SMEM, blocks, PM_THREADS, cs, st, params);
+  return launch_ex(k, dim3(blocks), PM_THREADS, FMA_SMEM, cs, false, st,
+                   params);
 }
 
 // The bf16 kernel for weight kind WQ and NR padded rows, its shared
@@ -953,7 +840,8 @@ int phased_matmul_launch(const int64_t* desc, int n_prob, const int64_t* plan,
       err = tc_kernel_for(wbits, rows, &k, &smem);
       void* params[] = {&a};
       if (err == cudaSuccess)
-        err = launch_cfg(k, smem, blocks, TC_THREADS, cs, st, params);
+        err = launch_ex(k, dim3(blocks), TC_THREADS, smem, cs, false, st,
+                        params);
     } else if (wbits == 4)
       err = launch_fma<4>(g, rows, blocks, cs, st);
     else if (wbits == 8)

@@ -62,6 +62,7 @@ v6_wkv_gn_kernel(const float* __restrict__ r, const float* __restrict__ k,
                  int round_yf) {
   __shared__ __align__(16) float sv[4][N];  // r, k, w, u
   __shared__ float red[2];
+  grid_launch_dependents();
   const int bh = blockIdx.x;
   const int b = bh / H, h = bh % H;
   const int tid = threadIdx.x;

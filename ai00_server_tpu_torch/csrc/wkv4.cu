@@ -78,6 +78,7 @@ v4_wkv_kernel(const float* __restrict__ r, const float* __restrict__ k,
               const uint8_t* __restrict__ active, float* __restrict__ aa,
               float* __restrict__ bb, float* __restrict__ pp,
               T* __restrict__ out, int B, int C) {
+  grid_launch_dependents();
   const size_t i = (size_t)blockIdx.x * THREADS + threadIdx.x;
   if (i >= (size_t)B * C) return;
   const int b = (int)(i / C), c = (int)(i % C);

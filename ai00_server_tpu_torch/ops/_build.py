@@ -46,9 +46,9 @@ SIGNATURES = {
     "v7_decode": {
         # x, ln, shift, mix, active, out, B, C, n_mix, base, dtype, stream
         "v7_ln_mix_launch": "ppppppiiiiip",
-        # desc (host), n_prob, B, dtype, wbits, levels (host), scratch,
-        # scratch_floats, counters, n_counters, stream
-        "v7_skinny_matmul_launch": "piiiippipip",
+        # desc (host), n_prob, plan (host), n_launch, dtype, wbits, levels
+        # (host), stream
+        "v7_skinny_matmul_launch": "pipiiipp",
         # r, k, v, w, a, g, vmix, v_first, vecs, active, S, out, B, H, N,
         # is_first, dtype, stream
         "v7_wkv_gn_launch": "ppppppppppppiiiiip",

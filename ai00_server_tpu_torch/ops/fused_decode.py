@@ -10,11 +10,12 @@ module's ``forward_t1`` and launch counters.
 let a kernel module take the big projections as plain weights or as codes +
 scales (int8, nf4, sf4, int4); here they look at ONE layer's dict, since the
 port keeps a dict per layer, and ``uniform_mode`` asks it of every layer.
-The JAX module's ``make_W`` (the in-kernel dequantize) is the weight load
-of ``v7_skinny_matmul`` in ``csrc/v7_decode.cu``.  Its ``mode_packs`` hands the Pallas kernel a 4-bit
-mode's levels as four packed constants for a select tree; the card's kernel
-gathers from a 16-entry table in shared memory instead, so the counterpart
-is the plain tuple ``ops.quant.LEVELS[mode]``.
+The JAX module's ``make_W`` (the in-kernel dequantize) is the weight decode
+of ``v7_skinny_matmul`` in ``csrc/v7_decode.cu``.  Its ``mode_packs`` hands
+the Pallas kernel a 4-bit mode's levels as four packed constants for a
+select tree; the card's kernel gathers from a 16-entry table in shared
+memory instead, so the counterpart is the plain tuple
+``ops.quant.LEVELS[mode]``.
 """
 
 from __future__ import annotations
@@ -111,25 +112,7 @@ def big_products(f: dict, layer: dict, big_src: dict):
     return big
 
 
-def workspace(f: dict, quant: bool, cd, device, extra_shapes=()):
-    """The ``ops.v7_decode.Workspace`` of the largest ``v7_skinny_matmul``
-    launch of a v6 / v5 / v4 stack: the time mix's four (C, C) products
-    (v4's three fit), the channel mix's key and receptance, and its value;
-    ``extra_shapes`` lists further launches of ``cd`` weights (v6's LoRA
-    products), each a list of (K, N)."""
-    from .v7_decode import Workspace, _scratch_need
-
-    C = f["ln1"].shape[-1]
-    F = f["fkey_q" if quant else "fkey"][0].shape[-1]
-    big = torch.int8 if quant else cd
-    need = [_scratch_need(s, big) for s in
-            ([(C, C)] * 4, [(C, F), (C, C)], [(F, C)])]
-    need += [_scratch_need(s, cd) for s in extra_shapes]
-    return Workspace(device, max(n[0] for n in need),
-                     max(n[1] for n in need))
-
-
-def gated_channel_mix(ln_mix, matmul, big, f, x, shift, l, active, ws):
+def gated_channel_mix(ln_mix, matmul, big, f, x, shift, l, active):
     """The receptance-gated channel mix of a v6 / v5 / v4 layer in three
     launches: LayerNorm 2 with the layout's two ``fmix`` rows (``shift``
     updated in place), the key (squared ReLU) and receptance (sigmoid,
@@ -137,8 +120,8 @@ def gated_channel_mix(ln_mix, matmul, big, f, x, shift, l, active, ws):
     f32 residual ``x``."""
     fxk, fxr = ln_mix(x, f["ln2"][l], shift, f["fmix"][l], active)
     hk, rf = matmul([big(fxk, "fkey", l, act="relu2"),
-                     big(fxr, "frec", l, act="sigmoid", out="f32")], ws)
-    matmul([big(hk, "fval", l, out="gadd", y=x, gate=rf)], ws)
+                     big(fxr, "frec", l, act="sigmoid", out="f32")])
+    matmul([big(hk, "fval", l, out="gadd", y=x, gate=rf)])
 
 
 class DecodeGraph:

@@ -37,44 +37,25 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from dataclasses import dataclass
 
 import torch
 
 from . import _build
-from .v7_decode import (_DTYPE_CODE, _require, _stream, epilogue_plain,
-                        launch_table, store_adds)
+from .v7_decode import (_DTYPE_CODE, H100_SMS, MAX_CLUSTER, Launch, _require,
+                        _sms, _stream, epilogue_plain, launch_table,
+                        plan_table, store_adds)
 
 ROWS = 64          # batch rows per launch
 MAXP = 5           # products per launch
 MODES = ("none", "int8", "int4")
-MAX_CLUSTER = 8    # blocks of a cluster: the portable limit
 TILE = {torch.bfloat16: 256, torch.float32: 128}  # output columns a block
 KC = 64            # rows of K a bf16 stage holds (four wgmma k-steps)
-H100_SMS = 132
 # Clusters of 1..8 bf16 blocks (one an SM) an H100 SXM holds at once, from
 # cudaOccupancyMaxActiveClusters (``phased_max_clusters``): a cluster stays
 # inside one GPC, so 8-block clusters fill 120 of the 132 SMs.  The wrapper
 # asks the card; this is the default of :func:`plan`.
 H100_CLUSTERS = {1: 132, 2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15}
 FIXED_PASSES = 4   # a launch's fixed cost, counted in stages a block sums
-
-
-@dataclass(frozen=True)
-class Launch:
-    """One launch of :func:`phased_matmul`: batch rows ``b0 .. b0 + rows``;
-    ``cs`` blocks a cluster (each sums one K slice of the cluster's tile);
-    per product its first tile ``blk0`` and the rows of K a slice holds
-    ``kb``.  Cluster ``c`` takes tile ``c - blk0[p]`` of the product ``p``
-    whose tiles hold it, and its rank ``r`` rows ``r kb[p] .. (r + 1)
-    kb[p]`` of K (``csrc/phased.cu`` reads the same)."""
-
-    b0: int
-    rows: int
-    cs: int
-    clusters: int
-    blk0: tuple
-    kb: tuple
 
 
 def step_rows(mode: str) -> int:
@@ -162,22 +143,6 @@ def staged_bytes(launch: Launch, shapes, mode: str) -> tuple:
     return x, w
 
 
-def plan_table(launches) -> ctypes.Array:
-    """``launches`` as the kernel's plan table: per launch b0, rows, cs,
-    clusters, then (blk0, kb) for each of ``MAXP`` products."""
-    rows = []
-    for ln in launches:
-        pairs = [v for i in range(MAXP) for v in (
-            (ln.blk0[i], ln.kb[i]) if i < len(ln.blk0) else (0, 0))]
-        rows += [ln.b0, ln.rows, ln.cs, ln.clusters, *pairs]
-    return (ctypes.c_int64 * len(rows))(*rows)
-
-
-@functools.lru_cache(maxsize=None)
-def _sms(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 @functools.lru_cache(maxsize=None)
 def _clusters(index: int, wbits: int, rows: int) -> dict:
     """{cs: clusters of the bf16 kernel for ``rows`` padded rows the card
@@ -223,23 +188,21 @@ def phased_matmul_plain(products):
             for p in products]
 
 
-def _matmul_inplace_plain(products, workspace=None):
+def _matmul_inplace_plain(products):
     return store_adds(products, phased_matmul_plain(products))
 
 
-def phased_matmul(products, workspace=None):
+def phased_matmul(products):
     """Up to five :class:`ops.v7_decode.Product` in one launch per 64 rows;
     returns their results in order (for ``out="add"`` / ``"gadd"`` the
     tensor that was added into).  Every weight byte is read once for up to
     64 rows; the sums' order is fixed, so equal inputs give equal bits.
     ``W`` and the rows of ``x`` must be 16-byte aligned, N a multiple of 16,
-    K and the row stride of ``x`` multiples of 8.  ``workspace`` is the
-    stacks' calling convention (``v7_skinny_matmul``'s) and must be None:
-    the kernel's partial sums stay in shared memory."""
+    K and the row stride of ``x`` multiples of 8.  No work space: the
+    kernel's partial sums stay in shared memory."""
     if products[0].x.device.type == "cpu":
         return _matmul_inplace_plain(products)
     _require(1 <= len(products) <= MAXP, f"1 to {MAXP} products per launch")
-    _require(workspace is None, "phased_matmul takes no work space")
     table, outs, mode, B, dev = launch_table(products, MODES)
     for p in products:
         K, N = p.KN

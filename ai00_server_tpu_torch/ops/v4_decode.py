@@ -183,11 +183,8 @@ def _forward(ops, params, state, tokens, lengths):
     ln_mix, matmul, wkv = ops
     f = params[FUSED_KEY]
     L = f["ln1"].shape[0]
-    quant = "fkey_q" in f
     cd = params["emb"].dtype
     active = lengths > 0
-    ws = (fused_decode.workspace(f, quant, cd, tokens.device)
-          if tokens.device.type == "cuda" else None)
     # The f32 residual, carried across the layers without rounding.
     x = params["emb"][tokens[:, 0].long()].float()
     big = fused_decode.big_products(f, params["layers"][0], _BIG_SRC)
@@ -197,12 +194,12 @@ def _forward(ops, params, state, tokens, lengths):
         r, k, v = matmul([
             big(xr, "Wr", l, act="sigmoid", out="f32"),
             big(xk, "Wk", l, round_cd=True, out="f32"),
-            big(xv, "Wv", l, round_cd=True, out="f32")], ws)
+            big(xv, "Wv", l, round_cd=True, out="f32")])
         rv = wkv(r, k, v, f["vecs"][l], active, state["aa"][l],
                  state["bb"][l], state["pp"][l], cd)
-        matmul([big(rv, "Wo", l, out="add", y=x)], ws)
+        matmul([big(rv, "Wo", l, out="add", y=x)])
         fused_decode.gated_channel_mix(ln_mix, matmul, big, f, x,
-                                       state["ffn_x"][l], l, active, ws)
+                                       state["ffn_x"][l], l, active)
     hidden = layer_norm(x.to(cd), params["ln_out_w"], params["ln_out_b"])
     return hidden[:, None, :], state
 

@@ -64,7 +64,7 @@ def can_phase(params, batch: int, version: str) -> bool:
 
 def _forward(ops, params, state, tokens, lengths):
     fd = v6_decode if v6_decode.FUSED_KEY in params else v5_decode
-    return fd._forward(ops, params, state, tokens, lengths, skinny=False)
+    return fd._forward(ops, params, state, tokens, lengths)
 
 
 def forward_t1(params, state, tokens, lengths):

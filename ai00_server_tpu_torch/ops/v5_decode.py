@@ -127,19 +127,15 @@ def make_fused_layout(params) -> dict:
     return out
 
 
-def _forward(ops, params, state, tokens, lengths, skinny=True):
+def _forward(ops, params, state, tokens, lengths):
     """The stack over ``ops`` = (ln_mix, matmul, wkv_gn), the kernels or
-    their plain versions; ``skinny``: ``matmul`` is ``v7_skinny_matmul``'s,
-    which takes a work space on the card (``ops/v56_phased`` runs this
-    stack with ``phased_matmul``, which takes none)."""
+    their plain versions (``ops/v56_phased`` runs it with
+    ``phased_matmul``)."""
     ln_mix, matmul, wkv_gn = ops
     f = params[FUSED_KEY]
     L = f["ln1"].shape[0]
-    quant = "fkey_q" in f
     cd = params["emb"].dtype
     active = lengths > 0
-    ws = (fused_decode.workspace(f, quant, cd, tokens.device)
-          if tokens.device.type == "cuda" and skinny else None)
     # The f32 residual, carried across the layers without rounding.
     x = params["emb"][tokens[:, 0].long()].float()
     big = fused_decode.big_products(f, params["layers"][0], _BIG_SRC)
@@ -150,13 +146,13 @@ def _forward(ops, params, state, tokens, lengths, skinny=True):
             big(xr, "Wr", l, round_cd=True, out="f32"),
             big(xk, "Wk", l, round_cd=True, out="f32"),
             big(xv, "Wv", l, round_cd=True, out="f32"),
-            big(xg, "Wg", l, act="silu", out="f32")], ws)
+            big(xg, "Wg", l, act="silu", out="f32")])
         # w=None: the static decay, vecs row 0.
         yg = wkv_gn(r, k, v, None, g, f["vecs"][l], active,
                     state["wkv"][l], cd)
-        matmul([big(yg, "Wo", l, out="add", y=x)], ws)
+        matmul([big(yg, "Wo", l, out="add", y=x)])
         fused_decode.gated_channel_mix(ln_mix, matmul, big, f, x,
-                                       state["ffn_x"][l], l, active, ws)
+                                       state["ffn_x"][l], l, active)
     hidden = layer_norm(x.to(cd), params["ln_out_w"], params["ln_out_b"])
     return hidden[:, None, :], state
 

@@ -215,24 +215,16 @@ _PLAIN_OPS = (v7d._ln_mix_inplace_plain, v7d._matmul_inplace_plain,
 # ---------------------------------------------------------------------------
 
 
-def _forward(ops, params, state, tokens, lengths, skinny=True):
+def _forward(ops, params, state, tokens, lengths):
     """The stack over ``ops`` = (ln_mix, matmul, wkv_gn), the kernels or
-    their plain versions; ``skinny``: ``matmul`` is ``v7_skinny_matmul``'s,
-    which takes a work space on the card (``ops/v56_phased`` runs this
-    stack with ``phased_matmul``, which takes none)."""
+    their plain versions (``ops/v56_phased`` runs it with
+    ``phased_matmul``)."""
     ln_mix, matmul, wkv_gn = ops
     f = params[FUSED_KEY]
     L = f["ln1"].shape[0]
-    quant = "fkey_q" in f
     cd = params["emb"].dtype
     D = f["mw2"][0].shape[1]
-    C = f["ln1"].shape[-1]
-    D5, Dw = f["mw1"][0].shape[-1], f["dw1"][0].shape[-1]
     active = lengths > 0
-    ws = (fused_decode.workspace(
-        f, quant, cd, tokens.device,
-        ([(C, D5)], [(D5 // 5, C)] * 5, [(C, Dw)], [(Dw, C)]))
-        if tokens.device.type == "cuda" and skinny else None)
     # The f32 residual, carried across the layers without rounding.
     x = params["emb"][tokens[:, 0].long()].float()
     P = Product
@@ -242,22 +234,22 @@ def _forward(ops, params, state, tokens, lengths, skinny=True):
         xa, dx, xxx = ln_mix(x, f["ln1"][l], state["att_x"][l], mix[0:1],
                              active, with_xa_dx=True)
         # The five data-dependent token-shift offsets (w, k, v, r, g).
-        (h,) = matmul([P(xxx, f["mw1"][l], act="tanh")], ws)
+        (h,) = matmul([P(xxx, f["mw1"][l], act="tanh")])
         xw, xk, xv, xr, xg = matmul([
             P(h[:, i * D:(i + 1) * D], f["mw2"][l][i], out="mix", xa=xa,
-              dx=dx, mix=mix[1 + i]) for i in range(5)], ws)
-        (hd,) = matmul([P(xw, f["dw1"][l], act="tanh")], ws)
+              dx=dx, mix=mix[1 + i]) for i in range(5)])
+        (hd,) = matmul([P(xw, f["dw1"][l], act="tanh")])
         r, k, v, g = matmul([
             big(xr, "Wr", l, round_cd=True, out="f32"),
             big(xk, "Wk", l, round_cd=True, out="f32"),
             big(xv, "Wv", l, round_cd=True, out="f32"),
-            big(xg, "Wg", l, act="silu", out="f32")], ws)
+            big(xg, "Wg", l, act="silu", out="f32")])
         (w,) = matmul([P(hd, f["dw2"][l], act="expexp",
-                         bias=vec[_VEC_IDX["decay"]], out="f32")], ws)
+                         bias=vec[_VEC_IDX["decay"]], out="f32")])
         yg = wkv_gn(r, k, v, w, g, vec, active, state["wkv"][l], cd)
-        matmul([big(yg, "Wo", l, out="add", y=x)], ws)
+        matmul([big(yg, "Wo", l, out="add", y=x)])
         fused_decode.gated_channel_mix(ln_mix, matmul, big, f, x,
-                                       state["ffn_x"][l], l, active, ws)
+                                       state["ffn_x"][l], l, active)
     hidden = layer_norm(x.to(cd), params["ln_out_w"], params["ln_out_b"])
     return hidden[:, None, :], state
 

@@ -43,6 +43,7 @@ takes this path.
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
 
 import torch
@@ -76,7 +77,13 @@ _ACT_CODE = {"none": 0, "tanh": 1, "sigmoid": 2, "wdecay": 3, "relu2": 4,
 _OUT_CODE = {"cd": 0, "f32": 1, "add": 2, "mix": 3, "gadd": 4}
 _MM_MAXP = 5  # products per launch
 _MM_NB = 8  # batch rows per launch
+MAX_CLUSTER = 8  # blocks of a cluster: the portable limit
+H100_SMS = 132
+SKINNY_WARPS = 8  # a block's warps, each a run of steps of its K slice
+SKINNY_STEP = 16  # stored rows (4-bit: byte rows, two rows of K) a step
+SKINNY_DEEP = 8  # a warp's steps that justify a second block on an SM
 _ADDS = ("add", "gadd")  # outputs added into the f32 y in place
+_LN_MAXC = 4096  # the widest row v7_ln_mix stages (csrc/decode_common.cuh)
 
 
 def supports(params) -> bool:
@@ -213,6 +220,9 @@ def v7_ln_mix(x, ln, shift, mix, active, with_xa_dx=False):
     _dense(ln, (2, C), cd, "ln")
     _dense(mix, (n_mix, C), cd, "mix")
     _dense(active, (B,), torch.bool, "active")
+    _require(C % 4 == 0 and C <= _LN_MAXC and n_mix <= 6,
+             f"the kernel takes C a multiple of 4 up to {_LN_MAXC} and up to "
+             f"6 mixes, got C={C}, {n_mix}")
     base = 2 if with_xa_dx else 0
     out = torch.empty((base + n_mix, B, C), dtype=cd, device=dev)
     status = _build.library("v7_decode").v7_ln_mix_launch(
@@ -280,37 +290,178 @@ class Product:
         return self.x.shape[1], self.W.shape[-1]
 
 
-def _ksplit(K: int) -> int:
-    """How many slices the kernel cuts K into (csrc/v7_decode.cu)."""
-    kb = 128 if K <= 1024 else 256
-    return -(-K // kb)
+@dataclass(frozen=True)
+class Launch:
+    """One launch of a product kernel (``v7_skinny_matmul``,
+    ``phased_matmul``): batch rows ``b0 .. b0 + rows``; ``cs`` blocks a
+    cluster (each sums one K slice of the cluster's tile); per product its
+    first tile ``blk0`` and the rows of K a slice holds ``kb``.  Cluster
+    ``c`` takes tile ``c - blk0[p]`` of the product ``p`` whose tiles hold
+    it, and its rank ``r`` rows ``r kb[p] .. (r + 1) kb[p]`` of K (the
+    kernels read the same)."""
+
+    b0: int
+    rows: int
+    cs: int
+    clusters: int
+    blk0: tuple
+    kb: tuple
 
 
-def _scratch_need(shapes, dtype) -> tuple[int, int]:
-    """(scratch floats, counters) one launch over ``shapes`` [(K, N)] of
-    ``dtype`` weights (``torch.int8`` for codes of any mode) needs: a block
-    spans 32 threads x 4 bytes of a row (of a byte row for packed 4-bit
-    codes: the same 128 columns)."""
-    tile = 32 * (4 // dtype.itemsize)
-    floats = counters = 0
-    for K, N in shapes:
-        ks = _ksplit(K)
-        if ks > 1:
-            floats += ks * _MM_NB * N
-            counters += -(-N // tile)
-    return floats, counters
+def plan_table(launches) -> ctypes.Array:
+    """``launches`` as the kernels' plan table: per launch b0, rows, cs,
+    clusters, then (blk0, kb) for each of ``_MM_MAXP`` products."""
+    rows = []
+    for ln in launches:
+        pairs = [v for i in range(_MM_MAXP) for v in (
+            (ln.blk0[i], ln.kb[i]) if i < len(ln.blk0) else (0, 0))]
+        rows += [ln.b0, ln.rows, ln.cs, ln.clusters, *pairs]
+    return (ctypes.c_int64 * len(rows))(*rows)
 
 
-class Workspace:
-    """Device scratch of :func:`v7_skinny_matmul`: the partial sums of the
-    blocks that share a column tile, and the tiles' arrival counters (zeroed
-    here, and left zeroed by every launch)."""
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
-    def __init__(self, device, floats: int, counters: int):
-        self.scratch = torch.empty(max(1, floats), dtype=torch.float32,
-                                   device=device)
-        self.counters = torch.zeros(max(1, counters), dtype=torch.int32,
-                                    device=device)
+
+def uses_tensor_cores(shapes, dtype, mode: str) -> bool:
+    """Whether a :func:`v7_skinny_matmul` launch over ``shapes`` [(K, N)]
+    runs on the tensor-core kernel: bf16 with every N a multiple of 8 (16
+    for codes: whole 16-byte loads) and K even; else on the FMA kernel (f32,
+    and ragged bf16 shapes)."""
+    vec = 8 if mode == "none" else 16
+    return dtype == torch.bfloat16 and all(N % vec == 0 and K % 2 == 0
+                                           for K, N in shapes)
+
+
+def skinny_tile(shapes, dtype, mode: str) -> int:
+    """Output columns a ``v7_skinny_matmul`` block owns: on the tensor
+    cores 64 of bf16 weights and 128 of codes (a 16-byte load a thread, 8
+    threads a row), on the FMA kernel 128 (4 columns a lane)."""
+    plain_tc = mode == "none" and uses_tensor_cores(shapes, dtype, mode)
+    return 64 if plain_tc else 128
+
+
+def slice_rows(mode: str) -> int:
+    """The rows of K a cluster rank's slice holds a multiple of: whole
+    scale blocks of codes (128 rows int8, 64 packed 4-bit, whose byte rows
+    pair row i with row 32 + i), else a step."""
+    if mode == "int8":
+        return INT8_BLOCK
+    return NF4_BLOCK if mode in LEVELS else SKINNY_STEP
+
+
+def _rows_per_stored(mode: str) -> int:
+    return 2 if mode in LEVELS else 1
+
+
+def plan(shapes, B: int, mode: str, dtype=torch.bfloat16,
+         sms: int = H100_SMS) -> list:
+    """The launches of one :func:`v7_skinny_matmul` call over ``shapes``
+    [(K, N)] in weight mode ``mode``: one per 8 rows.  Tiles are
+    :func:`skinny_tile` columns, in the products' order, one cluster each;
+    K is split over ``cs`` blocks a cluster in slices of whole
+    :func:`slice_rows`, and each block's slice over its ``SKINNY_WARPS``
+    warps in steps.  ``cs`` is at most ``MAX_CLUSTER``, no more than K has
+    slices, and leaves every warp of the longest product a step (a step of
+    4-bit codes counts twice: it decodes twice the values).  Within that,
+    the finest split whose blocks fit one an SM (``sms``).  Where that is
+    no split at all, the finest that leaves every warp ``SKINNY_DEEP``
+    steps with up to two blocks an SM.  (On the card a second block on an
+    SM slowed the short 0.4B launches, whose fixed part dominates,
+    1.4-1.6x, and the v6 ones already split over 4 blocks 1.25x, and sped
+    up the long unsplit v6 ones 1.15-1.9x: ``tools/torch_skinny_ab.py``.)
+    """
+    tile, align = skinny_tile(shapes, dtype, mode), slice_rows(mode)
+    rpk = _rows_per_stored(mode)
+    weight = 2 if mode in LEVELS else 1
+    tiles = [-(-N // tile) for _, N in shapes]
+    total = sum(tiles)
+    k_max = max(K for K, _ in shapes)
+
+    def rows_of(cs):
+        return tuple(-(-K // (cs * align)) * align for K, _ in shapes)
+
+    def warp_steps(cs):  # a warp's steps in the longest block, weighted
+        return weight * max(-(-(-(-kb // (rpk * SKINNY_STEP)))
+                               // SKINNY_WARPS) for kb in rows_of(cs))
+
+    top = max(1, min(MAX_CLUSTER, -(-k_max // align),
+                     -(-weight * -(-k_max // (rpk * SKINNY_STEP))
+                       // SKINNY_WARPS)))
+    fits = [cs for cs in range(1, top + 1) if total * cs <= sms]
+    cs = max(fits) if fits else 1
+    if cs == 1:
+        deep = [c for c in range(2, top + 1) if total * c <= 2 * sms
+                and warp_steps(c) >= SKINNY_DEEP]
+        cs = max(deep, default=1)
+    blk0 = tuple(sum(tiles[:i]) for i in range(len(shapes)))
+    return [Launch(b0, min(_MM_NB, B - b0), cs, total, blk0, rows_of(cs))
+            for b0 in range(0, B, _MM_NB)]
+
+
+def block_items(launch: Launch, shapes, dtype, mode: str):
+    """The (product, first column, end column, first K row, end K row) of
+    every block of ``launch`` that sums something, as the kernel reads the
+    plan."""
+    tile = skinny_tile(shapes, dtype, mode)
+    items = []
+    for c in range(launch.clusters):
+        p = max(i for i, b in enumerate(launch.blk0) if b <= c)
+        K, N = shapes[p]
+        col0 = (c - launch.blk0[p]) * tile
+        for r in range(launch.cs):
+            k0 = r * launch.kb[p]
+            k1 = min(K, k0 + launch.kb[p])
+            if k1 > k0:
+                items.append((p, col0, min(N, col0 + tile), k0, k1))
+    return items
+
+
+def warp_rows(k0: int, k1: int, mode: str) -> list:
+    """The rows of K each warp of a block with slice [k0, k1) sums, in the
+    kernel's order: a contiguous run of steps a warp (a step of packed
+    4-bit codes is byte rows i .. i + 15 of a 64-row block: rows of K i ..
+    i + 15 and 32 + i .. 47 + i)."""
+    rpk = _rows_per_stored(mode)
+    r0, r1 = k0 // rpk, k1 // rpk
+    steps = -(-(r1 - r0) // SKINNY_STEP)
+    per = -(-steps // SKINNY_WARPS)
+    out = []
+    for w in range(SKINNY_WARPS):
+        s0, s1 = min(steps, w * per), min(steps, w * per + per)
+        rows = []
+        for st in range(s0, s1):
+            base = r0 + SKINNY_STEP * st
+            if rpk == 1:
+                rows += range(base, min(r1, base + SKINNY_STEP))
+            else:
+                blk, i = divmod(base, NF4_BLOCK // 2)
+                k = NF4_BLOCK * blk + i
+                rows += [*range(k, k + SKINNY_STEP),
+                         *range(k + 32, k + 32 + SKINNY_STEP)]
+        out.append(rows)
+    return out
+
+
+def plan_sums_plain(x, W, launch: Launch, p: int, shapes, dtype,
+                    mode: str):
+    """``x @ W`` (f32, (rows, N)) of product ``p`` added in the order the
+    kernel's plan fixes: each warp's rows of K summed, the warps of a
+    block in order, the blocks of a cluster in rank order.  (Inside a
+    warp's k-steps the tensor cores' order is the hardware's.)"""
+    N = shapes[p][1]
+    out = torch.zeros(x.shape[0], N, dtype=torch.float32)
+    for q, c0, c1, k0, k1 in block_items(launch, shapes, dtype, mode):
+        if q != p:
+            continue
+        block = torch.zeros(x.shape[0], c1 - c0, dtype=torch.float32)
+        for rows in warp_rows(k0, k1, mode):
+            if rows:
+                idx = torch.tensor(rows)
+                block = block + x[:, idx].float() @ W[idx, c0:c1].float()
+        out[:, c0:c1] = out[:, c0:c1] + block
+    return out
 
 
 def epilogue_plain(p: Product, s):
@@ -369,7 +520,7 @@ def store_adds(products, outs):
     return [p.y if p.out in _ADDS else o for p, o in zip(products, outs)]
 
 
-def _matmul_inplace_plain(products, workspace=None):
+def _matmul_inplace_plain(products):
     return store_adds(products, v7_skinny_matmul_plain(products))
 
 
@@ -449,39 +600,43 @@ def launch_table(products, modes):
     return (ctypes.c_int64 * len(desc))(*desc), outs, mode, B, dev
 
 
-def v7_skinny_matmul(products, workspace: Workspace | None = None):
-    """Up to five :class:`Product` in one launch; returns their results in
-    order (for ``out="add"`` / ``"gadd"`` the tensor that was added into).
-    Every weight byte is read once for all B rows; the sums' order is fixed,
-    so equal inputs give equal bits."""
+def v7_skinny_matmul(products):
+    """Up to five :class:`Product` in one launch per 8 rows; returns their
+    results in order (for ``out="add"`` / ``"gadd"`` the tensor that was
+    added into).  Every weight byte is read once for up to 8 rows; the
+    sums' order is fixed by :func:`plan`, so equal inputs give equal bits.
+    bf16 runs on the tensor cores where :func:`uses_tensor_cores` holds (then
+    ``W`` 16-byte and the rows of ``x`` 4-byte aligned), else on CUDA-core
+    FMAs as f32 does.  No work space: the partial sums stay in shared
+    memory."""
     if products[0].x.device.type == "cpu":
         return _matmul_inplace_plain(products)
     _require(1 <= len(products) <= _MM_MAXP,
              f"1 to {_MM_MAXP} products per launch")
     table, outs, mode, B, dev = launch_table(products, ("none", *MODES))
     quant, four = mode != "none", mode in LEVELS
-    wd = torch.int8 if quant else products[0].x.dtype
-    floats, counters = _scratch_need([p.KN for p in products], wd)
-    if workspace is None:
-        workspace = Workspace(dev, floats, counters)
-    _require(workspace.scratch.numel() >= floats
-             and workspace.counters.numel() >= counters
-             and workspace.scratch.device == dev,
-             "the workspace is too small for these products")
+    cd = products[0].x.dtype
+    shapes = [p.KN for p in products]
+    if uses_tensor_cores(shapes, cd, mode):
+        for p in products:
+            _require(p.W.data_ptr() % 16 == 0 and p.x.data_ptr() % 4 == 0
+                     and p.x.stride(0) % 2 == 0,
+                     "the tensor-core kernel needs W 16-byte and the rows "
+                     "of x 4-byte aligned")
+    launches = plan(shapes, B, mode, cd, _sms(dev.index))
+    ptab = plan_table(launches)
     levels = levels_table(mode) if four else None
     status = _build.library("v7_decode").v7_skinny_matmul_launch(
-        ctypes.addressof(table), len(products), B,
-        _DTYPE_CODE[products[0].x.dtype], 4 if four else 8 if quant else 0,
-        ctypes.addressof(levels) if four else None,
-        workspace.scratch.data_ptr(), workspace.scratch.numel(),
-        workspace.counters.data_ptr(), workspace.counters.numel(),
-        _stream(dev))
+        ctypes.addressof(table), len(products), ctypes.addressof(ptab),
+        len(launches), _DTYPE_CODE[cd], 4 if four else 8 if quant else 0,
+        ctypes.addressof(levels) if four else None, _stream(dev))
     _build.check(status, "v7_skinny_matmul")
-    v7_skinny_matmul.launches += -(-B // _MM_NB)
+    n = len(launches)
+    v7_skinny_matmul.launches += n
     if four:
-        v7_skinny_matmul.q4_launches += -(-B // _MM_NB)
+        v7_skinny_matmul.q4_launches += n
     elif quant:
-        v7_skinny_matmul.int8_launches += -(-B // _MM_NB)
+        v7_skinny_matmul.int8_launches += n
     return outs
 
 
@@ -603,24 +758,15 @@ _PLAIN_OPS = (_ln_mix_inplace_plain, _matmul_inplace_plain,
 # ---------------------------------------------------------------------------
 
 
-def _forward(ops, params, state, tokens, lengths, skinny=True):
+def _forward(ops, params, state, tokens, lengths):
     """The stack over ``ops`` = (ln_mix, matmul, wkv_gn), the kernels or
-    their plain versions; ``skinny``: ``matmul`` is ``v7_skinny_matmul``'s,
-    which takes a work space on the card (``ops/v7_phased`` runs this
-    stack with ``phased_matmul``, which takes none)."""
+    their plain versions (``ops/v7_phased`` runs it with
+    ``phased_matmul``)."""
     ln_mix, matmul, wkv_gn = ops
     f = params[FUSED_KEY]
-    L, _, C = f["ln1"].shape
-    quant = "fkey_q" in f
-    F = f["fkey_q" if quant else "fkey"][0].shape[-1]
+    L = f["ln1"].shape[0]
     cd = params["emb"].dtype
     active = lengths > 0
-    ws = None
-    if tokens.device.type == "cuda" and skinny:
-        need = [_scratch_need(s, torch.int8 if quant else cd)
-                for s in ([(C, C)] * 3, [(C, F)], [(F, C)])]
-        ws = Workspace(tokens.device, max(n[0] for n in need),
-                       max(n[1] for n in need))
     # The f32 residual, carried across the layers without rounding.
     x = params["emb"][tokens[:, 0].long()].float()
     v_first = torch.empty_like(x)
@@ -633,24 +779,24 @@ def _forward(ops, params, state, tokens, lengths, skinny=True):
         r, k, v = matmul([
             big(xr, "Wr", l, round_cd=True, out="f32"),
             big(xk, "Wk", l, round_cd=True, out="f32"),
-            big(xv, "Wv", l, round_cd=True, out="f32")], ws)
+            big(xv, "Wv", l, round_cd=True, out="f32")])
         hw, ha, hv, hg = matmul([
             P(xw, f["w1"][l], act="tanh"), P(xa, f["a1"][l]),
-            P(xv, f["v1"][l]), P(xg, f["g1"][l], act="sigmoid")], ws)
+            P(xv, f["v1"][l]), P(xg, f["g1"][l], act="sigmoid")])
         w, a, vmix, g = matmul([
             P(hw, f["w2"][l], act="wdecay", bias=vec[0], out="f32"),
             P(ha, f["a2"][l], act="sigmoid", bias=vec[1], round_cd=True,
               out="f32"),
             P(hv, f["v2"][l], act="sigmoid", bias=vec[2], round_cd=True,
               out="f32"),
-            P(hg, f["g2"][l], out="f32")], ws)
+            P(hg, f["g2"][l], out="f32")])
         yg = wkv_gn(r, k, v, w, a, g, vmix, v_first, vec, active,
                     state["wkv"][l], l == 0, cd)
-        matmul([big(yg, "Wo", l, out="add", y=x)], ws)
+        matmul([big(yg, "Wo", l, out="add", y=x)])
         (fx,) = ln_mix(x, f["ln2"][l], state["ffn_x"][l], f["fmix"][l],
                        active)
-        (hk,) = matmul([big(fx, "fkey", l, act="relu2")], ws)
-        matmul([big(hk, "fval", l, out="add", y=x)], ws)
+        (hk,) = matmul([big(fx, "fkey", l, act="relu2")])
+        matmul([big(hk, "fval", l, out="add", y=x)])
     hidden = layer_norm(x.to(cd), params["ln_out_w"], params["ln_out_b"])
     return hidden[:, None, :], state
 

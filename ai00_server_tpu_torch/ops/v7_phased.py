@@ -62,7 +62,7 @@ def can_phase(params, batch: int) -> bool:
 
 
 def _forward(ops, params, state, tokens, lengths):
-    return fd._forward(ops, params, state, tokens, lengths, skinny=False)
+    return fd._forward(ops, params, state, tokens, lengths)
 
 
 def forward_t1(params, state, tokens, lengths):

@@ -474,7 +474,6 @@ def phase_decode_kernels(dev) -> dict:
     layer_bytes = sum(K * Nout * 2 for g in shapes.values()
                       for K, Nout, *_ in g)
     n_sets = int(2 * L2_BYTES // layer_bytes) + 1
-    ws = fd.Workspace(dev, 1 << 20, 1024)
     total = {k: 0.0 for k in ("ms", "plain_ms", "library_ms", "call_ms")}
     tot_bytes = tot_flops = 0.0
     worst = 0.0
@@ -488,7 +487,7 @@ def phase_decode_kernels(dev) -> dict:
                 for K, Nout, act, bias, round_cd, out in specs])
         prods = sets[0]
         want = fd.v7_skinny_matmul_plain(prods)
-        got = fd.v7_skinny_matmul(prods, ws)
+        got = fd.v7_skinny_matmul(prods)
         torch.cuda.synchronize()
         for g, w, pr in zip(got, want, prods):
             worst = max(worst, close(g, w, pr.out == "cd" or pr.round_cd,
@@ -500,14 +499,14 @@ def phase_decode_kernels(dev) -> dict:
         tot_flops += gf
         t = {
             "ms": device_ms(rotating(
-                lambda i: fd.v7_skinny_matmul(sets[i], ws), n_sets), 40),
+                lambda i: fd.v7_skinny_matmul(sets[i]), n_sets), 40),
             "plain_ms": device_ms(rotating(
                 lambda i: fd.v7_skinny_matmul_plain(sets[i]), n_sets), 8),
             "library_ms": device_ms(rotating(
                 lambda i: [torch.matmul(pr.x, pr.W) for pr in sets[i]],
                 n_sets), 40),
             "call_ms": call_ms(rotating(
-                lambda i: fd.v7_skinny_matmul(sets[i], ws), n_sets), 100),
+                lambda i: fd.v7_skinny_matmul(sets[i]), n_sets), 100),
         }
         gb_ms, _ = bound(gb, gf, BF16_FLOPS)
         print(f"v7_skinny_matmul[{gname}] "
@@ -787,7 +786,6 @@ def phase_int8_kernels(dev, bf16_head_ms: float) -> dict:
     }
     layer_bytes = sum(K * Nout for g in shapes.values() for K, Nout, *_ in g)
     n = sets_over_l2(layer_bytes)
-    ws = fd.Workspace(dev, 1 << 20, 1024)
     total = {k: 0.0 for k in ("ms", "plain_ms", "call_ms")}
     tot_bytes = tot_flops = 0.0
     worst = 0.0
@@ -804,7 +802,7 @@ def phase_int8_kernels(dev, bf16_head_ms: float) -> dict:
             sets.append(prods)
         prods = sets[0]
         want = fd.v7_skinny_matmul_plain(prods)
-        got = fd.v7_skinny_matmul(prods, ws)
+        got = fd.v7_skinny_matmul(prods)
         torch.cuda.synchronize()
         for g, w, pr in zip(got, want, prods):
             worst = max(worst, close(g, w, pr.out == "cd" or pr.round_cd,
@@ -816,11 +814,11 @@ def phase_int8_kernels(dev, bf16_head_ms: float) -> dict:
         tot_flops += gf
         t = {
             "ms": device_ms(rotating(
-                lambda i: fd.v7_skinny_matmul(sets[i], ws), n), 40),
+                lambda i: fd.v7_skinny_matmul(sets[i]), n), 40),
             "plain_ms": device_ms(rotating(
                 lambda i: fd.v7_skinny_matmul_plain(sets[i]), n), 8),
             "call_ms": call_ms(rotating(
-                lambda i: fd.v7_skinny_matmul(sets[i], ws), n), 100),
+                lambda i: fd.v7_skinny_matmul(sets[i]), n), 100),
         }
         gb_ms, _ = bound(gb, gf, BF16_FLOPS)
         print(f"v7_skinny_matmul int8 [{gname}] "
@@ -1065,7 +1063,6 @@ def phase_4bit_kernels(dev) -> dict:
     layer_bytes = sum(K * Nout // 2 for g in shapes.values()
                       for K, Nout, *_ in g)
     n = sets_over_l2(layer_bytes)
-    ws = fd.Workspace(dev, 1 << 20, 1024)
 
     def products(mode, specs, cd, R):
         prods = []
@@ -1093,14 +1090,14 @@ def phase_4bit_kernels(dev) -> dict:
                         **pr.__dict__, "y": None if pr.y is None
                         else pr.y.clone()}) for pr in prods]
                     want = fd.v7_skinny_matmul_plain(prods)
-                    got = fd.v7_skinny_matmul(prods, ws)
+                    got = fd.v7_skinny_matmul(prods)
                     torch.cuda.synchronize()
                     for g, w, pr in zip(got, want, prods):
                         worst = max(worst, close(
                             g, w, cd == torch.bfloat16
                             and (pr.out == "cd" or pr.round_cd),
                             f"v7_skinny_matmul {mode} {cd} [{gname}]"))
-                    for g, g2 in zip(got, fd.v7_skinny_matmul(again, ws)):
+                    for g, g2 in zip(got, fd.v7_skinny_matmul(again)):
                         check(torch.equal(g, g2), "v7_skinny_matmul (4-bit) "
                               "gave different bits for equal inputs")
         sets = [products("nf4", specs, torch.bfloat16, B) for _ in range(n)]
@@ -1113,7 +1110,7 @@ def phase_4bit_kernels(dev) -> dict:
         tot_flops += gf
         t, others = times(
             lambda m, kind, i: (
-                fd.v7_skinny_matmul(by_mode[m][i], ws) if kind == "kernel"
+                fd.v7_skinny_matmul(by_mode[m][i]) if kind == "kernel"
                 else fd.v7_skinny_matmul_plain(by_mode[m][i])), n, 40, 8)
         gb_ms, _ = bound(gb, gf, BF16_FLOPS)
         print(f"v7_skinny_matmul 4-bit [{gname}] "
@@ -1201,14 +1198,12 @@ def skinny_row(fd, launch, groups, close, name, replaces, tag):
     products; the row's times, bytes and operations are the sums."""
     import torch
 
-    ws = None
     total = {k: 0.0 for k in ("ms", "plain_ms", "library_ms", "call_ms")}
     tot_bytes = tot_flops = layer_bytes = worst = 0.0
     n_products = 0
     for gname in groups:
         prods = launch(gname)
-        B, dev = prods[0].x.shape[0], prods[0].x.device
-        ws = ws or fd.Workspace(dev, 1 << 21, 1024)
+        B = prods[0].x.shape[0]
         n_products += len(prods)
         gbytes = sum(nbytes(p.W) for p in prods)
         layer_bytes += gbytes
@@ -1216,7 +1211,7 @@ def skinny_row(fd, launch, groups, close, name, replaces, tag):
         sets = [prods] + [launch(gname) for _ in range(n - 1)]
         want = fd.v7_skinny_matmul_plain(prods)
         ys = [p.y.clone() if p.y is not None else None for p in prods]
-        got = fd.v7_skinny_matmul(prods, ws)
+        got = fd.v7_skinny_matmul(prods)
         torch.cuda.synchronize()
         for g, w, p in zip(got, want, prods):
             worst = max(worst, close(g, w, p.out in ("cd", "mix")
@@ -1233,13 +1228,13 @@ def skinny_row(fd, launch, groups, close, name, replaces, tag):
         tot_flops += gf
         t = {
             "ms": device_ms(rotating(
-                lambda i: fd.v7_skinny_matmul(sets[i], ws), n), 40),
+                lambda i: fd.v7_skinny_matmul(sets[i]), n), 40),
             "plain_ms": device_ms(rotating(
                 lambda i: fd.v7_skinny_matmul_plain(sets[i]), n), 8),
             "library_ms": device_ms(rotating(
                 lambda i: [torch.matmul(p.x, p.W) for p in sets[i]], n), 40),
             "call_ms": call_ms(rotating(
-                lambda i: fd.v7_skinny_matmul(sets[i], ws), n), 100),
+                lambda i: fd.v7_skinny_matmul(sets[i]), n), 100),
         }
         gb_ms, _ = bound(gb, gf, BF16_FLOPS)
         print(f"v7_skinny_matmul[{tag} {gname}] "
@@ -1850,8 +1845,6 @@ def phase_phased_kernels(dev) -> dict:
                         return out
 
                     shapes = [(K, Nout) for K, Nout, _ in specs]
-                    wsk = fd.Workspace(dev, *fd._scratch_need(
-                        shapes, cd if pmode == "none" else torch.int8))
                     want = pm.phased_matmul_plain(prods(0))
                     got = pm.phased_matmul(
                         prods(0, [y.clone() for y in ys]))
@@ -1873,7 +1866,7 @@ def phase_phased_kernels(dev) -> dict:
                         lambda i: [torch.matmul(x, w) for x, w in
                                    zip(xs, sets[i][0])], n_sets), 20)
                     t["skinny_ms"] += device_ms(rotating(
-                        lambda i: fd.v7_skinny_matmul(prods(i), wsk),
+                        lambda i: fd.v7_skinny_matmul(prods(i)),
                         n_sets), 20)
                     code = sets[0][1]
                     t["bytes"] += sum(
@@ -2133,14 +2126,14 @@ def wrong_v6_stacks() -> dict:
 
     ln_mix, matmul, wkv_gn = fd6._PLAIN_OPS
 
-    def g_rounded_first(products, workspace=None):
+    def g_rounded_first(products):
         silu = [p.act == "silu" for p in products]
         outs = matmul([dataclasses.replace(p, act="none", round_cd=True)
                        if g else p for p, g in zip(products, silu)])
         return [torch.nn.functional.silu(o) if g else o
                 for o, g in zip(outs, silu)]
 
-    def r_k_swapped(products, workspace=None):
+    def r_k_swapped(products):
         outs = matmul(products)
         if products[-1].act == "silu":  # the r, k, v, g launch
             outs[0], outs[1] = outs[1], outs[0]
@@ -3016,6 +3009,35 @@ async def profiled(coro) -> str:
             + "; ".join(f"{n[:60]} {t / 1e3:.2f} ms" for n, t in top))
 
 
+def replay_kernels(graph, toks, ones, n: int = 5):
+    """Per replay, the sum of the device times of its kernels and the time
+    the device was busy with any of them (the union of their intervals),
+    from torch.profiler over ``n`` replays; (None, None) where the profiler
+    saw no CUDA events.  Kernels that overlap (programmatic dependent
+    launches kept by the capture) make the sum exceed the busy time; gaps
+    between launches make the replay exceed it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            graph.replay(toks, ones)
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not spans:
+        return None, None
+    total = sum(b - a for a, b in spans)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return total / n / 1e3, busy / n / 1e3
+
+
 def time_replay(fd, params, state, graph, B: int, key=None) -> dict:
     """One decode step of a loaded stack, every row active: its CUDA graph
     replayed (device time between CUDA events), the same stack launched
@@ -3052,6 +3074,7 @@ def time_replay(fd, params, state, graph, B: int, key=None) -> dict:
         torch.cuda.synchronize()
         return (time.monotonic() - t0) / reps * 1e3
 
+    launch_sum_ms, busy_ms = replay_kernels(graph, toks, ones)
     eager_ms = host_ms(fd.forward_t1, 5)
     plain_ms = host_ms(fd.forward_t1_plain, 2)
     weights = [t for v in layout.values()
@@ -3064,8 +3087,17 @@ def time_replay(fd, params, state, graph, B: int, key=None) -> dict:
     b_ms, b_by = bound(n_bytes, flops, BF16_FLOPS)
     return {"replay_ms": replay_ms, "eager_ms": eager_ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "launch_sum_ms": launch_sum_ms, "busy_ms": busy_ms,
             "bytes": n_bytes, "kernels_per_replay": sum(
                 graph.launches_per_replay)}
+
+
+def overlap_text(st) -> str:
+    if st["launch_sum_ms"] is None:
+        return "launch device times not measured (no CUDA profiler events)"
+    return (f"its launches' device times sum to {st['launch_sum_ms']:.5f} "
+            f"ms, the device busy {st['busy_ms']:.5f} ms of the replay "
+            "(torch.profiler)")
 
 
 def time_stack(engine) -> dict:
@@ -3633,7 +3665,8 @@ def main() -> None:
                   f"{st['eager_ms']:.3f} ms launched eagerly from Python, "
                   f"{st['plain_ms']:.3f} ms as plain versions; bound "
                   f"{st['bound_ms']:.5f} ms by {st['bound_by']} "
-                  f"({st['bytes'] / 1e6:.1f} MB)", flush=True)
+                  f"({st['bytes'] / 1e6:.1f} MB); {overlap_text(st)}",
+                  flush=True)
     # The phased stacks served at max_batch = WIDE_BATCH; their bf16 error
     # is the parity phase's at the same B (v7: the 2.9B int8 stack).
     for kind, version, label, replaces in (

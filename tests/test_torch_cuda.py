@@ -99,11 +99,27 @@ def _close_t(got, want, dtype, rounded=True):
         _close(got, want)
 
 
+def _graphed(fn):
+    """``fn()`` captured in a CUDA graph and replayed once: its outputs."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return outs
+
+
+# (B, C): the stacks' widths (v7 / v5 / v4 0.4B 1024, v6 1B6 2048, v7 2.9B
+# 2560) at the fused stacks' batches and the phased stacks' 64.
+LN_SHAPES = [(5, 1024), (1, 1024), (8, 1024), (11, 2048), (8, 2560),
+             (64, 2560), (64, 1024)]
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("n_mix", [6, 1])
-def test_v7_ln_mix_kernel_matches_plain(dev, dtype, n_mix):
-    gen = torch.Generator(device=dev).manual_seed(n_mix)
-    B, C = 5, 1024
+@pytest.mark.parametrize("B,C", LN_SHAPES)
+def test_v7_ln_mix_kernel_matches_plain(dev, dtype, n_mix, B, C):
+    gen = torch.Generator(device=dev).manual_seed(n_mix + B + C)
 
     def rnd(*shape, scale=1.0):
         return torch.randn(*shape, generator=gen, device=dev) * scale
@@ -111,7 +127,7 @@ def test_v7_ln_mix_kernel_matches_plain(dev, dtype, n_mix):
     x, shift = rnd(B, C, scale=2.0), rnd(B, C)
     ln = torch.stack([1 + rnd(C, scale=0.1), rnd(C, scale=0.1)]).to(dtype)
     mix = rnd(n_mix, C, scale=0.3).to(dtype)
-    active = torch.tensor([True, False, True, True, False], device=dev)
+    active = torch.arange(B, device=dev) % 3 != 1
     want, want_shift = fd.v7_ln_mix_plain(x, ln, shift, mix, active)
     kept = shift.clone()
     before = fd.v7_ln_mix.launches
@@ -119,7 +135,14 @@ def test_v7_ln_mix_kernel_matches_plain(dev, dtype, n_mix):
     assert fd.v7_ln_mix.launches == before + 1
     _close_t(got, want, dtype)
     _close(shift, want_shift)
-    assert torch.equal(shift[1], kept[1]) and torch.equal(shift[4], kept[4])
+    assert torch.equal(shift[~active], kept[~active])
+    # Equal inputs give equal bits, eagerly and replayed from a graph.
+    new_shift = shift.clone()
+    for run in (lambda: fd.v7_ln_mix(x, ln, sh, mix, active),
+                lambda: _graphed(lambda: fd.v7_ln_mix(x, ln, sh, mix,
+                                                      active))):
+        sh = kept.clone()
+        assert torch.equal(run(), got) and torch.equal(sh, new_shift)
 
 
 def _products(gen, dev, dtype, B, shapes):
@@ -150,31 +173,46 @@ GROUPS = {
     "wo": [(1024, 1024, "none", False, False, "add")],
     "fkey": [(1024, 4096, "relu2", False, False, "cd")],
     "fval": [(4096, 1024, "none", False, False, "add")],
+    # v6's narrow products: the token-shift and decay LoRA downs.
+    "narrow": [(2048, 160, "tanh", False, False, "cd"),
+               (2048, 64, "tanh", False, False, "cd"),
+               (1024, 32, "none", True, False, "f32")],
     "ragged": [(200, 70, "tanh", True, False, "f32"),
                (1500, 42, "none", False, False, "add")],
 }
+BATCHES = [*range(1, 9), 11]
+
+
+def _check_skinny(prods, dtype, B, counter="launches"):
+    """One v7_skinny_matmul call against its plain version; launches
+    counted per 8 rows; equal inputs give equal bits, eagerly and replayed
+    from a CUDA graph."""
+    want = fd.v7_skinny_matmul_plain(prods)
+    y0 = [None if p.y is None else p.y.clone() for p in prods]
+
+    def fresh():
+        return [fd.Product(**{**p.__dict__, "y": None if y is None
+                              else y.clone()}) for p, y in zip(prods, y0)]
+
+    before = getattr(fd.v7_skinny_matmul, counter)
+    got = fd.v7_skinny_matmul(prods)
+    assert getattr(fd.v7_skinny_matmul, counter) == before + -(-B // 8)
+    for g, w, p in zip(got, want, prods):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        _close_t(g, w, dtype, rounded=p.out in ("cd", "mix") or p.round_cd)
+    for g, g2 in zip(got, fd.v7_skinny_matmul(fresh())):
+        assert torch.equal(g, g2)
+    again = fresh()
+    for g, g2 in zip(got, _graphed(lambda: fd.v7_skinny_matmul(again))):
+        assert torch.equal(g, g2)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("B", [8, 3, 11])
+@pytest.mark.parametrize("B", BATCHES)
 @pytest.mark.parametrize("group", sorted(GROUPS))
 def test_v7_skinny_matmul_kernel_matches_plain(dev, dtype, B, group):
     gen = torch.Generator(device=dev).manual_seed(B)
-    prods = _products(gen, dev, dtype, B, GROUPS[group])
-    want = fd.v7_skinny_matmul_plain(prods)
-    again = [fd.Product(**{**p.__dict__, "y": None if p.y is None
-                           else p.y.clone()}) for p in prods]
-    ws = fd.Workspace(dev, 1 << 20, 256)
-    before = fd.v7_skinny_matmul.launches
-    got = fd.v7_skinny_matmul(prods, ws)
-    assert fd.v7_skinny_matmul.launches == before + -(-B // 8)
-    for g, w, p in zip(got, want, prods):
-        assert g.dtype == w.dtype and g.shape == w.shape
-        _close_t(g, w, dtype, rounded=p.out == "cd" or p.round_cd)
-    # The same inputs give the same bits, and the counters are left zeroed.
-    for g, g2 in zip(got, fd.v7_skinny_matmul(again, ws)):
-        assert torch.equal(g, g2)
-    assert int(ws.counters.abs().sum()) == 0
+    _check_skinny(_products(gen, dev, dtype, B, GROUPS[group]), dtype, B)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -272,6 +310,10 @@ def test_v7_decode_kernels_refuse_what_they_do_not_take(dev):
     with pytest.raises(ValueError, match="multiple of 2"):
         fd.v7_skinny_matmul([fd.Product(
             x, torch.zeros(16, 13, device=dev, dtype=torch.bfloat16))])
+    with pytest.raises(ValueError, match="16-byte and the rows"):
+        fd.v7_skinny_matmul([fd.Product(
+            torch.zeros(2, 17, device=dev, dtype=torch.bfloat16)[:, :16],
+            torch.zeros(16, 16, device=dev, dtype=torch.bfloat16))])
     with pytest.raises(ValueError, match="contiguous"):
         fd.v7_skinny_matmul([fd.Product(
             x, torch.zeros(16, 16, device=dev, dtype=torch.bfloat16).t())])
@@ -391,7 +433,7 @@ INT8_GROUPS = {
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("B", [8, 3, 11])
+@pytest.mark.parametrize("B", BATCHES)
 @pytest.mark.parametrize("group", sorted(INT8_GROUPS))
 def test_v7_skinny_matmul_int8_matches_plain(dev, dtype, B, group):
     gen = torch.Generator(device=dev).manual_seed(B)
@@ -399,17 +441,7 @@ def test_v7_skinny_matmul_int8_matches_plain(dev, dtype, B, group):
     for p in prods:
         ql = quant.quantize_int8(p.W.float())
         p.W, p.scale = ql.q, ql.scale
-    want = fd.v7_skinny_matmul_plain(prods)
-    again = [fd.Product(**{**p.__dict__, "y": None if p.y is None
-                           else p.y.clone()}) for p in prods]
-    ws = fd.Workspace(dev, 1 << 20, 256)
-    got = fd.v7_skinny_matmul(prods, ws)
-    for g, w, p in zip(got, want, prods):
-        assert g.dtype == w.dtype and g.shape == w.shape
-        _close_t(g, w, dtype, rounded=p.out == "cd" or p.round_cd)
-    for g, g2 in zip(got, fd.v7_skinny_matmul(again, ws)):
-        assert torch.equal(g, g2)
-    assert int(ws.counters.abs().sum()) == 0
+    _check_skinny(prods, dtype, B, "int8_launches")
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -594,7 +626,7 @@ Q4_GROUPS = {
 
 @pytest.mark.parametrize("mode", MODES4)
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("B", [8, 3, 11])
+@pytest.mark.parametrize("B", BATCHES)
 @pytest.mark.parametrize("group", sorted(Q4_GROUPS))
 def test_v7_skinny_matmul_4bit_matches_plain(dev, mode, dtype, B, group):
     gen = torch.Generator(device=dev).manual_seed(B)
@@ -602,21 +634,9 @@ def test_v7_skinny_matmul_4bit_matches_plain(dev, mode, dtype, B, group):
     for p in prods:
         ql = quant.quantize_4bit(p.W.float(), mode)
         p.W, p.scale, p.mode = ql.q, ql.scale, mode
-    want = fd.v7_skinny_matmul_plain(prods)
-    again = [fd.Product(**{**p.__dict__, "y": None if p.y is None
-                           else p.y.clone()}) for p in prods]
-    ws = fd.Workspace(dev, 1 << 20, 256)
-    before = (fd.v7_skinny_matmul.q4_launches,
-              fd.v7_skinny_matmul.int8_launches)
-    got = fd.v7_skinny_matmul(prods, ws)
-    assert fd.v7_skinny_matmul.q4_launches == before[0] + -(-B // 8)
-    assert fd.v7_skinny_matmul.int8_launches == before[1]
-    for g, w, p in zip(got, want, prods):
-        assert g.dtype == w.dtype and g.shape == w.shape
-        _close_t(g, w, dtype, rounded=p.out == "cd" or p.round_cd)
-    for g, g2 in zip(got, fd.v7_skinny_matmul(again, ws)):
-        assert torch.equal(g, g2)
-    assert int(ws.counters.abs().sum()) == 0
+    before = fd.v7_skinny_matmul.int8_launches
+    _check_skinny(prods, dtype, B, "q4_launches")
+    assert fd.v7_skinny_matmul.int8_launches == before
 
 
 @pytest.mark.parametrize("mode", MODES4)
@@ -775,9 +795,10 @@ def test_wkv56_static_decay_matches_dense(dev, T):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_v6_ln_mix_kernel_matches_plain(dev, dtype):
+@pytest.mark.parametrize("B", [5, 64])
+def test_v6_ln_mix_kernel_matches_plain(dev, dtype, B):
     gen = torch.Generator(device=dev).manual_seed(6)
-    B, C = 5, 2048
+    C = 2048
 
     def rnd(*shape, scale=1.0):
         return torch.randn(*shape, generator=gen, device=dev) * scale
@@ -785,7 +806,8 @@ def test_v6_ln_mix_kernel_matches_plain(dev, dtype):
     x, shift = rnd(B, C, scale=2.0), rnd(B, C)
     ln = torch.stack([1 + rnd(C, scale=0.1), rnd(C, scale=0.1)]).to(dtype)
     mix = rnd(1, C, scale=0.3).to(dtype)
-    active = torch.tensor([True, False, True, True, False], device=dev)
+    active = torch.arange(B, device=dev) % 3 != 1
+    active[4] = False
     want, want_shift = fd.v7_ln_mix_plain(x, ln, shift, mix, active,
                                           with_xa_dx=True)
     kept = shift.clone()
@@ -827,19 +849,12 @@ def _v6_products(gen, dev, dtype, B, kind, C=2048, D=32):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("B", [8, 3, 11])
+@pytest.mark.parametrize("B", BATCHES)
 @pytest.mark.parametrize("kind", ["shift_combine", "rkvg", "decay",
                                   "gated_residual"])
 def test_v7_skinny_matmul_v6_epilogues_match_plain(dev, dtype, B, kind):
     gen = torch.Generator(device=dev).manual_seed(B)
-    prods = _v6_products(gen, dev, dtype, B, kind)
-    want = fd.v7_skinny_matmul_plain(prods)
-    ws = fd.Workspace(dev, 1 << 20, 256)
-    got = fd.v7_skinny_matmul(prods, ws)
-    for g, w, p in zip(got, want, prods):
-        assert g.dtype == w.dtype and g.shape == w.shape
-        _close_t(g, w, dtype, rounded=p.out in ("cd", "mix") or p.round_cd)
-    assert int(ws.counters.abs().sum()) == 0
+    _check_skinny(_v6_products(gen, dev, dtype, B, kind), dtype, B)
 
 
 @pytest.mark.parametrize("mode", ["int8", "nf4"])
