@@ -34,14 +34,22 @@ SIGNATURES = {
     "wkv7": {
         # S, r, w, k, v, kk, a, mask, S_out, y, B, H, N, stream
         "wkv7_t1_launch": "ppppppppppiiip",
-        # S, r, w, k, v, kk, a, mask, S_out, y, B, T, H, N, stream
-        "wkv7_chunk_launch": "ppppppppppiiiip",
+        # S, r, w, k, v, kk, a, mask, scratch, S_out, y, B, T, H, N, slices,
+        # stream
+        "wkv7_chunk_launch": "pppppppppppiiiiip",
+        # -> floats of the chunk's scratch per (b, h, sub-chunk)
+        "wkv7_chunk_scratch_floats": "",
     },
     "wkv56": {
         # S, r, k, v, w, u, mask, S_out, y, B, H, N, w_static, stream
         "wkv56_t1_launch": "pppppppppiiiip",
+        # S, r, k, v, w, u, mask, scratch, S_out, y, B, T, H, N, w_static,
+        # slices, stream
+        "wkv56_chunk_launch": "ppppppppppiiiiiip",
+        # -> floats of the chunk's scratch per (b, h, sub-chunk)
+        "wkv56_chunk_scratch_floats": "",
         # S, r, k, v, w, u, mask, S_out, y, B, T, H, N, w_static, stream
-        "wkv56_chunk_launch": "pppppppppiiiiip",
+        "wkv56_chunk_seq_launch": "pppppppppiiiiip",
     },
     "v7_decode": {
         # x, ln, shift, mix, active, out, B, C, n_mix, base, dtype, stream

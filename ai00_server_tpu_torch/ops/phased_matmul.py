@@ -41,9 +41,9 @@ import functools
 import torch
 
 from . import _build
-from .v7_decode import (_DTYPE_CODE, H100_SMS, MAX_CLUSTER, Launch, _require,
-                        _sms, _stream, epilogue_plain, launch_table,
-                        plan_table, store_adds)
+from .device import H100_SMS, sm_count
+from .v7_decode import (_DTYPE_CODE, MAX_CLUSTER, Launch, _require, _stream,
+                        epilogue_plain, launch_table, plan_table, store_adds)
 
 ROWS = 64          # batch rows per launch
 MAXP = 5           # products per launch
@@ -216,8 +216,8 @@ def phased_matmul(products):
     wbits = {"none": 0, "int8": 8, "int4": 4}[mode]
     held = (_clusters(dev.index, wbits, padded_rows(min(B, ROWS)))
             if cd == torch.bfloat16 else None)
-    launches = plan([p.KN for p in products], B, mode, cd, _sms(dev.index),
-                    held)
+    launches = plan([p.KN for p in products], B, mode, cd,
+                    sm_count(dev.index), held)
     ptab = plan_table(launches)
     status = _build.library("phased").phased_matmul_launch(
         ctypes.addressof(table), len(products), ctypes.addressof(ptab),

@@ -43,13 +43,13 @@ takes this path.
 from __future__ import annotations
 
 import ctypes
-import functools
 from dataclasses import dataclass
 
 import torch
 
 from ..models.common import GN_EPS, LN_EPS, layer_norm
 from . import _build, fused_decode
+from .device import H100_SMS, sm_count
 from .quant import LEVELS, MODES
 from .quant_matmul import (INT8_BLOCK, NF4_BLOCK, dequant_mode_cd,
                            levels_table)
@@ -78,7 +78,6 @@ _OUT_CODE = {"cd": 0, "f32": 1, "add": 2, "mix": 3, "gadd": 4}
 _MM_MAXP = 5  # products per launch
 _MM_NB = 8  # batch rows per launch
 MAX_CLUSTER = 8  # blocks of a cluster: the portable limit
-H100_SMS = 132
 SKINNY_WARPS = 8  # a block's warps, each a run of steps of its K slice
 SKINNY_STEP = 16  # stored rows (4-bit: byte rows, two rows of K) a step
 SKINNY_DEEP = 8  # a warp's steps that justify a second block on an SM
@@ -317,11 +316,6 @@ def plan_table(launches) -> ctypes.Array:
             (ln.blk0[i], ln.kb[i]) if i < len(ln.blk0) else (0, 0))]
         rows += [ln.b0, ln.rows, ln.cs, ln.clusters, *pairs]
     return (ctypes.c_int64 * len(rows))(*rows)
-
-
-@functools.lru_cache(maxsize=None)
-def _sms(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def uses_tensor_cores(shapes, dtype, mode: str) -> bool:
@@ -623,7 +617,7 @@ def v7_skinny_matmul(products):
                      and p.x.stride(0) % 2 == 0,
                      "the tensor-core kernel needs W 16-byte and the rows "
                      "of x 4-byte aligned")
-    launches = plan(shapes, B, mode, cd, _sms(dev.index))
+    launches = plan(shapes, B, mode, cd, sm_count(dev.index))
     ptab = plan_table(launches)
     levels = levels_table(mode) if four else None
     status = _build.library("v7_decode").v7_skinny_matmul_launch(

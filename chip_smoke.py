@@ -13,10 +13,12 @@ kernel's source is built first, one ``nvcc`` each, all started together):
    shapes the serving path gives it, with times from CUDA events and the
    least time the card could take (the larger of bytes over 3.35 TB/s and
    operations over the peak for their type: 67 TFLOP/s f32, 989 TFLOP/s
-   bf16 products; from this run's inputs).  The WKV kernels, then the
-   three kernels of the fused decode step (``csrc/v7_decode.cu``) on
-   weights that rotate through more than the L2 cache holds, then three
-   ways to take the LM head's f32 logits, then the int8 kernels
+   bf16 products; from this run's inputs).  The WKV kernels (the prefill
+   chunk also with every decay at v7's floor, and timed at B = 8 and 1,
+   T = 256 and 16), then the three kernels of the fused decode step
+   (``csrc/v7_decode.cu``) on weights that rotate through more than the L2
+   cache holds, then three ways to take the LM head's f32 logits, then the
+   int8 kernels
    (``csrc/quant.cu``: ``matmul_int8`` on the LM head, ``matmul_int8_l`` and
    ``ffn7_t1_l`` on stacked codes) and the int8 mode of
    ``v7_skinny_matmul``, on codes that rotate the same way, then the 4-bit
@@ -24,9 +26,11 @@ kernel's source is built first, one ``nvcc`` each, all started together):
    4-bit mode of ``ffn7_t1_l`` on stacked codes, the 4-bit mode of
    ``v7_skinny_matmul``) in nf4, sf4 and int4, f32 and bf16.  Then
    RWKV-6 at the 1B6 width (C=2048, H=32, F=7168): ``wkv56_t1`` and
-   ``wkv56_chunk`` (``csrc/wkv56.cu``), and the kernels of the fused v6
-   step: ``v6_wkv_gn`` (``csrc/v6_decode.cu``), the two ``v7_ln_mix``
-   launches of a v6 layer (the first also writes ``xa`` and ``dx``), and
+   ``wkv56_chunk`` (``csrc/wkv56.cu``; the chunk also at T = 16, its
+   step-by-step kernel, with extreme decays, and timed as v7's), and the
+   kernels of the fused v6 step: ``v6_wkv_gn`` (``csrc/v6_decode.cu``),
+   the two ``v7_ln_mix`` launches of a v6 layer (the first also writes
+   ``xa`` and ``dx``), and
    the eight ``v7_skinny_matmul`` launches of a v6 layer with its
    epilogues.  Then RWKV-5 and RWKV-4 at the 0.4B width (C=1024, F=3584 /
    4096): ``v6_wkv_gn`` in its static-decay mode, ``wkv56_t1`` and
@@ -92,15 +96,16 @@ kernel's source is built first, one ``nvcc`` each, all started together):
    ``/chooses``, the retrieval routes (an IVF index built from texts on the
    card, searched by text and by vector, the hits held against the plain
    version on the CPU) and a RAG chat, with ``ivf_score``'s count zeroed
-   before and read after.  Then random 24-layer RWKV-5 and RWKV-4 checkpoints of the 0.4B shape, served the same way
-   (prefill through ``wkv56_chunk`` / ``wkv4_chunk``, decode one replay of
-   the fused v5 / v4 stack).  The 0.4B v7 checkpoint at ``quant = 24``
-   Int8 and the v5 one in bf16 are also served at ``max_batch = 64`` with
-   64 concurrent completions (every step one replay of the phased stack's
-   graph; ``v7_skinny_matmul`` must launch 0 times), and the phased and
-   fused stacks are timed at B = 16 and 64 on those models, on the v6
-   model and on the 32-layer RWKV-7 2.9B shape built on the card in bf16
-   and int8.  Each phase prints its seconds.
+   before and read after, and streams one 4077-token prompt alone (its
+   TTFT).  Then random 24-layer RWKV-5 and RWKV-4 checkpoints of the 0.4B
+   shape, served the same way (prefill through ``wkv56_chunk`` /
+   ``wkv4_chunk``, decode one replay of the fused v5 / v4 stack).  The 0.4B v7
+   checkpoint at ``quant = 24`` Int8 and the v5 one in bf16 are also served at
+   ``max_batch = 64`` with 64 concurrent completions (every step one replay of
+   the phased stack's graph; ``v7_skinny_matmul`` must launch 0 times), and
+   the phased and fused stacks are timed at B = 16 and 64 on those models, on
+   the v6 model and on the 32-layer RWKV-7 2.9B shape built on the card in
+   bf16 and int8.  Each phase prints its seconds.
 
 The last two lines of standard output are the card's
 ``name, power.limit`` and ``{"ok": true, "device": {...}}``.
@@ -157,6 +162,7 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores
 BF16_FLOPS = 989e12         # H100 SXM dense bf16 (the products' type)
 KERNEL_TOL = 1e-4           # max |kernel - plain| / max(1, max |plain|)
+W_FLOOR = 0.545239211892605  # v7's least decay, exp(-exp(-0.5))
 # The same for a value rounded to bf16: one bf16 ulp of the largest value.
 # The kernel sums in another order than the plain version, which can move
 # an f32 sum across a bf16 rounding boundary.
@@ -363,9 +369,119 @@ def phase_kernels(dev) -> dict:
                 "call_ms": call_ms(lambda: wkv7_chunk(*args), 50),
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             }
-    rows["wkv7_chunk"]["max_abs_err"] = worst
+    # Every decay at v7's floor exp(-exp(-0.5)): the WY form's
+    # precondition, its largest 1 / A (1.6e4 over a sub-chunk); row 3 idle.
+    S, seqs = wkv_inputs(gen, B, CHUNK, H, N, dev)
+    seqs[1].fill_(W_FLOOR)
+    mask = torch.ones(B, CHUNK, dtype=torch.bool, device=dev)
+    mask[3] = False
+    S_k, y_k = wkv7_chunk(S, *seqs, mask)
+    S_p, y_p = wkv7_chunk_plain(S, *seqs, mask)
+    torch.cuda.synchronize()
+    err_s, rel_s = rel_err(S_k, S_p)
+    err_y, rel_y = rel_err(y_k, y_p)
+    check(rel_s <= KERNEL_TOL and rel_y <= KERNEL_TOL,
+          f"wkv7_chunk at the decay floor disagrees with its plain version: "
+          f"{rel_s} {rel_y}")
+    check(torch.equal(S_k[3], S[3]), "wkv7_chunk changed an idle row")
+    worst = max(worst, err_s, err_y)
+    print(f"wkv7_chunk B={B} T={CHUNK} H={H} N={N}, every w at the floor "
+          f"{W_FLOOR:.4f}: max_abs_err state {err_s:.3e} y {err_y:.3e} "
+          f"(tolerance {KERNEL_TOL} x max(1, |plain|)); idle row "
+          "bit-identical", flush=True)
+
+    def make(b, t):
+        S, seqs = wkv_inputs(gen, b, t, H, N, dev)
+        return (S, *seqs, torch.ones(b, t, dtype=torch.bool, device=dev))
+
+    worst = max(worst, held_every_split(wkv7_chunk, wkv7_chunk_plain, make,
+                                        H))
+    rows["wkv7_chunk"]["shapes_ms"], err = chunk_shapes_ms(
+        wkv7_chunk, wkv7_chunk_plain, make)
+    rows["wkv7_chunk"]["max_abs_err"] = max(worst, err)
+    print_shapes("wkv7_chunk", H, rows["wkv7_chunk"]["shapes_ms"])
     print_rows(rows)
     return rows
+
+
+def chunk_shapes_ms(kernel, plain, make) -> tuple[dict, float]:
+    """Device ms of a chunk kernel at B = MAX_BATCH and 1, T = CHUNK and 16,
+    on ``make(B, T)``'s argument tuples rotating through more than the L2
+    holds; the first tuple of each shape held against ``plain`` at
+    KERNEL_TOL (state, and y at every step).  Also the worst max abs
+    error."""
+    out, worst = {}, 0.0
+    for B in (MAX_BATCH, 1):
+        for T in (CHUNK, 16):
+            first = make(B, T)
+            err, _ = held(kernel, plain, first,
+                          f"{kernel.__name__} B={B} T={T}")
+            worst = max(worst, err)
+            each = nbytes(*(a for a in first if hasattr(a, "numel")))
+            n = int(2 * L2_BYTES // each) + 1
+            sets = [first] + [make(B, T) for _ in range(n - 1)]
+            out[(B, T)] = device_ms(rotating(lambda i: kernel(*sets[i]), n),
+                                    max(20, n))
+    return out, worst
+
+
+def held(kernel, plain, args, what: str):
+    """``kernel(*args)`` against ``plain(*args)`` at KERNEL_TOL, the state
+    and y at every step: the max abs error and the kernel's state."""
+    import torch
+
+    (S_k, y_k), (S_p, y_p) = kernel(*args), plain(*args)
+    torch.cuda.synchronize()
+    err_s, rel_s = rel_err(S_k, S_p)
+    err_y, rel_y = rel_err(y_k, y_p)
+    check(rel_s <= KERNEL_TOL and rel_y <= KERNEL_TOL,
+          f"{what} disagrees with its plain version: {rel_s} {rel_y}")
+    return max(err_s, err_y), S_k
+
+
+def held_every_split(kernel, plain, make, H: int) -> float:
+    """A chunk kernel against its plain version (:func:`held`) at the least
+    B at which ``ops/wkv_chunk.plan`` splits each head's state over each of
+    its block counts on this card, T = CHUNK: row 0 with a masked step
+    inside, row 1 half, the last row idle where B > 1 (its state bit for
+    bit).  ``make(B, T)`` gives the arguments, the mask last (replaced
+    here).  The worst max abs error."""
+    import torch
+
+    from ai00_server_tpu_torch.ops.device import sm_count
+    from ai00_server_tpu_torch.ops.wkv_chunk import plan
+
+    least = {}
+    for B in range(1, MAX_BATCH + 1):
+        least.setdefault(plan(B, H, sm_count(0)), B)
+    worst, name = 0.0, kernel.__name__
+    for slices, B in sorted(least.items()):
+        *args, ones = make(B, CHUNK)
+        lens = [CHUNK] * B
+        if B > 1:
+            lens[-1] = 0
+        if B > 2:
+            lens[1] = CHUNK // 2
+        mask = (torch.arange(CHUNK, device=ones.device)[None, :]
+                < torch.tensor(lens, device=ones.device)[:, None])
+        mask[0, CHUNK // 3] = False
+        err, S_k = held(kernel, plain, (*args, mask),
+                        f"{name} B={B} ({slices} blocks a head)")
+        if B > 1:
+            check(torch.equal(S_k[-1], args[0][-1]),
+                  f"{name} B={B} changed an idle row")
+        worst = max(worst, err)
+        print(f"{name} B={B} T={CHUNK} H={H}, {slices} block(s) a head, "
+              f"ragged{', last row idle' if B > 1 else ''}: max_abs_err "
+              f"{err:.3e} (tolerance {KERNEL_TOL} x max(1, |plain|))"
+              f"{'; idle row bit-identical' if B > 1 else ''}", flush=True)
+    return worst
+
+
+def print_shapes(name: str, H: int, shapes: dict) -> None:
+    print(f"{name} H={H}, device ms on inputs rotating past the L2: "
+          + "; ".join(f"B={B} T={T} {ms:.5f}" for (B, T), ms in
+                      shapes.items()), flush=True)
 
 
 def print_rows(rows) -> None:
@@ -1337,10 +1453,12 @@ def phase_v6_kernels(dev) -> dict:
           f"max_abs_err {err:.3e} (tolerance {KERNEL_TOL} x max(1, |plain|)); "
           "inactive row bit-identical", flush=True)
 
-    # ---- wkv56_chunk at the prefill shape (T = token_chunk_size), ragged ----
+    # ---- wkv56_chunk at the prefill shape (T = token_chunk_size), ragged,
+    # and T = 16 (the step-by-step kernel: ops/wkv_chunk.sequential) ----
     worst = 0.0
     for T, lengths in ((CHUNK, [CHUNK] * B),
-                       (23, [23, 17, 1, 0, 23, 5, 12, 23])):
+                       (23, [23, 17, 1, 0, 23, 5, 12, 23]),
+                       (16, [16, 9, 1, 0, 16, 5, 12, 16])):
         seqs = inputs(T)
         S = states[1]
         lens = torch.tensor(lengths, device=dev)
@@ -1367,11 +1485,38 @@ def phase_v6_kernels(dev) -> dict:
                 "call_ms": call_ms(lambda: wkv56_chunk(*args), 50),
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             }
-    rows["wkv56_chunk"]["max_abs_err"] = worst
-    print(f"wkv56_chunk B={B} H={H} N={N}, T={CHUNK} and ragged T=23: "
-          f"max_abs_err {worst:.3e} (tolerance {KERNEL_TOL} x max(1, "
-          "|plain|), y at every step: the same masked semantics); idle row "
-          "bit-identical", flush=True)
+    # The extreme decays of tests/test_wkv_chunked.py (log w down to
+    # ~ -e^4 and up to ~ -e^-4): the suffix-sum form's exponents stay <= 0.
+    r_, k_, v_ = inputs(CHUNK)[:3]
+    w_ = torch.exp(-torch.exp(rnd(B, CHUNK, H, N, scale=2.0)))
+    lens = torch.tensor([CHUNK, 100, 1, 0, CHUNK, 37, 200, CHUNK],
+                        device=dev)
+    mask = torch.arange(CHUNK, device=dev)[None, :] < lens[:, None]
+    S = states[1]
+    S_k, y_k = wkv56_chunk(S, r_, k_, v_, w_, u, mask)
+    S_p, y_p = wkv56_chunk_plain(S, r_, k_, v_, w_, u, mask)
+    torch.cuda.synchronize()
+    worst = max(worst, close(S_k, S_p, False, "wkv56_chunk extreme state"),
+                close(y_k, y_p, False, "wkv56_chunk extreme y"))
+    check(torch.equal(S_k[3], S[3]), "wkv56_chunk changed an idle row")
+    print(f"wkv56_chunk B={B} H={H} N={N}, T={CHUNK}, ragged T=23 and T=16 "
+          f"(step by step), T={CHUNK} ragged with extreme decays: "
+          f"max_abs_err {worst:.3e} "
+          f"(tolerance {KERNEL_TOL} x max(1, |plain|), y at every step: the "
+          "same masked semantics); idle row bit-identical", flush=True)
+
+    def make(b, t):
+        return (rnd(b, H, N, N), *(rnd(b, t, H, N, scale=0.3)
+                                   for _ in range(3)),
+                torch.exp(-torch.exp(rnd(b, t, H, N, scale=0.5))), u,
+                torch.ones(b, t, dtype=torch.bool, device=dev))
+
+    worst = max(worst, held_every_split(wkv56_chunk, wkv56_chunk_plain,
+                                        make, H))
+    rows["wkv56_chunk"]["shapes_ms"], err = chunk_shapes_ms(
+        wkv56_chunk, wkv56_chunk_plain, make)
+    rows["wkv56_chunk"]["max_abs_err"] = max(worst, err)
+    print_shapes("wkv56_chunk", H, rows["wkv56_chunk"]["shapes_ms"])
 
     # ---- v7_ln_mix: the two launches of a v6 layer ----
     # LayerNorm 1 with xa, dx and xxx (with_xa_dx), LayerNorm 2 with the
@@ -1569,6 +1714,11 @@ def phase_v54_kernels(dev) -> dict:
                              for a, b_ in zip(got, want)))
         check(torch.equal(got[0][5], states[0][5]),
               f"wkv56 static decay T={T} changed an inactive row's state")
+    err56 = max(err56, held_every_split(
+        wkv56_chunk, wkv56_chunk_plain,
+        lambda b, t: (rnd(b, H, N, N), *(rnd(b, t, H, N, scale=0.3)
+                                         for _ in range(3)), w5, u5,
+                      torch.ones(b, t, dtype=torch.bool, device=dev)), H))
     print(f"wkv56_t1 (T=1) and wkv56_chunk (T={CHUNK}) on v5's static "
           f"(H, N) decay, B={B} H={H} N={N}: max_abs_err {err56:.3e} "
           f"(tolerance {KERNEL_TOL} x max(1, |plain|)); inactive row "
@@ -2810,6 +2960,9 @@ port = 0
 PROMPT = ("the quick brown fox jumps over the lazy dog while a model "
           "decodes tokens on the card ")
 NO_EOS = {"0": -1e4}  # random weights: keep end-of-text out of greedy picks
+# One long prompt alone on the v7 bf16 server: 4,077 tokens of text (16
+# prefill chunks), where the prefill WKV kernel's share of TTFT is largest.
+LONG_PROMPT = "a long one: " + PROMPT * 110
 
 
 RAG_WORDS = ("river stone lamp orbit cedar violet harbor quartz ember meadow "
@@ -3450,6 +3603,8 @@ async def serve(cfg: Path, kind: str, device="cuda") -> dict:
                 tokens_per_s=n_tokens / wall, ttft_s_under_load=ttft_load,
                 ttft_s_alone=ttft_solo, sample=texts[0][:60])
             if kind == "bf16":
+                result["ttft_s_long"], _ = await streamed_chat(
+                    http, LONG_PROMPT, 16)
                 replays0 = fd.DecodeGraph.total_replays
                 profile = await profiled(
                     completion(http, "and a profiled one: " + PROMPT * 8, 64))
@@ -3719,6 +3874,13 @@ def main() -> None:
               f"{run['ttft_s_alone']:.3f} s alone; "
               f"{run['memory_bytes'] / 1e6:.1f} MB allocated by the load; "
               f"sample {run['sample']!r}", flush=True)
+    from ai00_server_tpu_torch.tokenizer import Tokenizer
+
+    n_long = len(Tokenizer.from_json(json.dumps(synthetic_vocab()))
+                 .encode(LONG_PROMPT))
+    print(f"TTFT of one {n_long}-token prompt (its text) streamed alone to "
+          f"the bf16 server ({L_FULL} layers, chunk {CHUNK}): "
+          f"{served['bf16']['ttft_s_long']:.3f} s", flush=True)
     print("profile of one 64-token completion alone (bf16): "
           f"{served['bf16']['profile']}", flush=True)
     print(f"phase 4 (serving) {time.monotonic() - t0:.1f} s", flush=True)

@@ -12,7 +12,10 @@ and sums in another order than the plain version.
 import pytest
 import torch
 
-from ai00_server_tpu_torch.ops.wkv_chunk import wkv7_chunk, wkv7_chunk_plain
+from ai00_server_tpu_torch.ops import wkv_chunk
+from ai00_server_tpu_torch.ops.wkv_chunk import (wkv7_chunk, wkv7_chunk_plain,
+                                                 wkv56_chunk,
+                                                 wkv56_chunk_plain)
 from ai00_server_tpu_torch.ops.wkv_t1 import wkv7_t1, wkv7_t1_plain
 
 pytestmark = pytest.mark.cuda
@@ -38,9 +41,16 @@ def _inputs(gen, dev, B, T, H, N=64):
     return S, (r, w, k, v, kk, a)
 
 
-def _close(got, want):
+def _close(got, want, tol=1e-4):
     err = float((got - want).abs().max())
-    assert err <= 1e-4 * max(1.0, float(want.abs().max())), err
+    assert err <= tol * max(1.0, float(want.abs().max())), err
+
+
+# A chunk kernel against its arithmetic in PyTorch (``wkv7_chunk_wy``,
+# ``wkv56_chunk_ss``: the same chunked form, sub-chunk by sub-chunk): ten
+# times tighter than against the step-by-step plain versions, so a kernel
+# and its mirror that drift apart fail here first.
+MIRROR_TOL = 1e-5
 
 
 def test_wkv7_t1_kernel_matches_plain(dev):
@@ -69,6 +79,79 @@ def test_wkv7_chunk_kernel_matches_plain(dev, T):
     _close(y_k, y_p)  # masked steps read the kept state in both
     assert torch.equal(S_k[2], S[2])
 
+
+def _ragged_mask(dev, B, T):
+    """Row 0 whole but for one step inside, row 1 half, the last row idle."""
+    lens = torch.tensor([T, T // 2] + [T] * (B - 3) + [0], device=dev)
+    mask = torch.arange(T, device=dev)[None, :] < lens[:, None]
+    mask[0, min(2, T - 1)] = False
+    return mask
+
+
+# Every state split of the chunk kernels (ops/wkv_chunk.plan picks one from
+# the card's SMs), v7's decay at its floor exp(-exp(-0.5)) (the WY form's
+# precondition, its largest 1 / A), B = 1 and 4, T inside one sub-chunk and
+# over three.
+@pytest.mark.parametrize("slices", [1, 2, 4])
+@pytest.mark.parametrize("floor", [False, True])
+@pytest.mark.parametrize("B,T", [(4, 5), (4, 40), (1, 40)])
+def test_wkv7_chunk_kernel_every_split(dev, monkeypatch, slices, floor, B, T):
+    monkeypatch.setattr(wkv_chunk, "plan", lambda B, H, sms: slices)
+    gen = torch.Generator(device=dev).manual_seed(10 * T + slices)
+    S, seqs = _inputs(gen, dev, B, T, 3)
+    if floor:
+        seqs[1].fill_(float(torch.exp(torch.tensor(-0.6065306597126334))))
+    mask = (_ragged_mask(dev, B, T) if B > 2
+            else torch.ones(B, T, dtype=torch.bool, device=dev))
+    before = wkv7_chunk.launches
+    S_k, y_k = wkv7_chunk(S, *seqs, mask)
+    S_p, y_p = wkv7_chunk_plain(S, *seqs, mask)
+    assert wkv7_chunk.launches == before + 1
+    _close(S_k, S_p)
+    _close(y_k, y_p)
+    S_w, y_w = wkv_chunk.wkv7_chunk_wy(S, *seqs, mask)
+    _close(S_k, S_w, MIRROR_TOL)
+    _close(y_k, y_w, MIRROR_TOL)
+    if B > 2:
+        assert torch.equal(S_k[-1], S[-1])
+
+
+def _chunk56_inputs(gen, dev, B, T, H, decay):
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    S = rnd(B, H, 64, 64)
+    r, k, v = (rnd(B, T, H, 64, scale=0.3) for _ in range(3))
+    # v6's data-dependent decay, the extreme one of tests/test_wkv_chunked.py
+    # (log w down to ~ -e^4), v5's static (H, N) one.
+    shape = (H, 64) if decay == "static" else (B, T, H, 64)
+    w = torch.exp(-torch.exp(rnd(*shape, scale=2.0 if decay == "extreme"
+                                 else 0.5)))
+    return S, (r, k, v, w), rnd(H, 64, scale=0.5)
+
+
+@pytest.mark.parametrize("slices", [1, 2, 4])
+@pytest.mark.parametrize("decay", ["dense", "extreme", "static"])
+@pytest.mark.parametrize("B,T", [(4, 5), (4, 40), (1, 40)])
+def test_wkv56_chunk_kernel_every_split(dev, monkeypatch, slices, decay, B,
+                                        T):
+    monkeypatch.setattr(wkv_chunk, "plan", lambda B, H, sms: slices)
+    gen = torch.Generator(device=dev).manual_seed(20 * T + slices)
+    S, seqs, u = _chunk56_inputs(gen, dev, B, T, 3, decay)
+    mask = (_ragged_mask(dev, B, T) if B > 2
+            else torch.ones(B, T, dtype=torch.bool, device=dev))
+    before = wkv56_chunk.launches
+    S_k, y_k = wkv56_chunk(S, *seqs, u, mask)
+    S_p, y_p = wkv56_chunk_plain(S, *seqs, u, mask)
+    assert wkv56_chunk.launches == before + 1
+    _close(S_k, S_p)
+    _close(y_k, y_p)  # every step, masked ones included
+    if not wkv_chunk.sequential(T):  # the chunked kernel, not step by step
+        S_s, y_s = wkv_chunk.wkv56_chunk_ss(S, *seqs, u, mask)
+        _close(S_k, S_s, MIRROR_TOL)
+        _close(y_k, y_s, MIRROR_TOL)
+    if B > 2:
+        assert torch.equal(S_k[-1], S[-1])
 
 def test_kernel_refuses_other_head_sizes(dev):
     S = torch.zeros(1, 1, 32, 32, device=dev)
