@@ -1,10 +1,11 @@
-// Shared code of the decode steps' product kernels (v7_decode.cu's
-// v7_skinny_matmul, phased.cu's phased_matmul): one product of a launch as
-// the launchers describe it, the epilogue every output element goes
-// through, the host-side reading of a launch's descriptor table and plan,
-// the exact bf16 decodes of int8 and int4 codes, the sum of a tile's K
-// slices over a thread block cluster, and the launch with cluster and
-// programmatic-dependent-launch attributes.
+// Shared code of the product kernels (v7_decode.cu's v7_skinny_matmul,
+// phased.cu's phased_matmul, quant.cu's dequantizing products): one product
+// of a launch as the launchers describe it, the epilogue every output
+// element goes through, the host-side reading of a launch's descriptor
+// table and plan, the exact bf16 decodes of int8 and int4 codes, A's
+// fragment of a code tile for mma.sync and the product itself, cp.async,
+// the sum of a tile's K slices over a thread block cluster, and the launch
+// with cluster and programmatic-dependent-launch attributes.
 
 #pragma once
 
@@ -174,6 +175,97 @@ template <bool HI>
 __device__ __forceinline__ uint32_t dec4(uint32_t t) {
   return bf16x2_sub(((HI ? t >> 4 : t) & 0x000F000Fu) | 0x43004300u,
                     0x43084308u);
+}
+__device__ __forceinline__ uint32_t bf16x2_mul(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// ---------------------------------------------------------------------------
+// A's fragment of a code tile, and the bf16 product
+// ---------------------------------------------------------------------------
+//
+// The weight is mma's A with its output columns as the m side.  A thread
+// (gid = lane / 4, tq = lane % 4) holds code words w0 .. w3 of the stored
+// rows 2 tq, 2 tq + 1, 2 tq + 8, 2 tq + 9 of a step, each a few neighbouring
+// columns of its gid: the m16 tile whose row gid is the column at byte X of
+// the words and whose row gid + 8 is the column at byte X + 1 has its A
+// fragment here (so a tile's rows are a permutation of its columns, undone
+// where the sums are stored).  The weight is dequantized as the Pallas
+// kernels do, w = round_bf16(level * round_bf16(s)): s_lo / s_hi are the two
+// columns' scales, already rounded - (s, s) bf16 pairs for int8 codes, floats
+// for 4-bit ones.
+
+struct AFrag {
+  uint32_t a0, a1, a2, a3;
+};
+
+// int8 codes: decoded exactly in bf16x2 and scaled with one bf16x2 multiply.
+__device__ __forceinline__ AFrag frag_int8(uint32_t w0, uint32_t w1,
+                                           uint32_t w2, uint32_t w3, int X,
+                                           uint32_t s_lo, uint32_t s_hi) {
+  const uint32_t lo = X | X << 4 | (4 + X) << 8 | (4 + X) << 12;
+  const uint32_t hi = lo + 0x1111u;  // byte X + 1
+  return {bf16x2_mul(dec8(prmt(w0, w1, lo)), s_lo),
+          bf16x2_mul(dec8(prmt(w0, w1, hi)), s_hi),
+          bf16x2_mul(dec8(prmt(w2, w3, lo)), s_lo),
+          bf16x2_mul(dec8(prmt(w2, w3, hi)), s_hi)};
+}
+
+// Packed 4-bit codes: the nibble at bit sh of each word (the column at byte
+// X: sh = 8 X, + 4 for the high nibbles) and at sh + 8 (byte X + 1) through
+// the 16-entry table, times the scale in f32 (exact: an integer level times
+// a bf16), rounded once.
+__device__ __forceinline__ AFrag frag_4bit(uint32_t w0, uint32_t w1,
+                                           uint32_t w2, uint32_t w3, int sh,
+                                           float s_lo, float s_hi,
+                                           const float* lut) {
+  auto v = [&](uint32_t w, int e, float s) {
+    return lut[(w >> (sh + 8 * e)) & 15u] * s;
+  };
+  return {pack_bf16(v(w0, 0, s_lo), v(w1, 0, s_lo)),
+          pack_bf16(v(w0, 1, s_hi), v(w1, 1, s_hi)),
+          pack_bf16(v(w2, 0, s_lo), v(w3, 0, s_lo)),
+          pack_bf16(v(w2, 1, s_hi), v(w3, 1, s_hi))};
+}
+
+// D (16 x 8, f32) += A (16 x 16, bf16, row-major) B (16 x 8, bf16).
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const AFrag& a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a.a0), "r"(a.a1), "r"(a.a2), "r"(a.a3), "r"(b0), "r"(b1));
+}
+
+// ---------------------------------------------------------------------------
+// cp.async: 16 or 4 bytes global -> shared (zeros where !valid)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING));
 }
 
 // ---------------------------------------------------------------------------

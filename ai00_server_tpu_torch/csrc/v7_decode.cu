@@ -116,29 +116,6 @@ __device__ __forceinline__ uint32_t word(const uint4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
 
-__device__ __forceinline__ uint32_t bf16x2_mul(uint32_t a, uint32_t b) {
-  uint32_t d;
-  asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
-  return d;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// D (16 x 8, f32) += A (16 x 16, bf16, row-major) B (16 x 8, bf16).
-__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0,
-                                         uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
 // The block's cluster rank, its product and its slice [k0, k1) of K.
 struct Slice {
   MMProblem P;
@@ -323,34 +300,26 @@ skinny_tc_kernel(const __grid_constant__ SKArgs a) {
       if constexpr (!Q) {
         const uint32_t w0 = word(r[0], t), w1 = word(r[1], t);
         const uint32_t w2 = word(r[2], t), w3 = word(r[3], t);
-        mma_bf16(acc[t], prmt(w0, w1, 0x5410), prmt(w0, w1, 0x7632),
-                 prmt(w2, w3, 0x5410), prmt(w2, w3, 0x7632), xb[0], xb[1]);
+        mma_bf16(acc[t],
+                 AFrag{prmt(w0, w1, 0x5410), prmt(w0, w1, 0x7632),
+                       prmt(w2, w3, 0x5410), prmt(w2, w3, 0x7632)},
+                 xb[0], xb[1]);
       } else {
         const int wi = t >> 1, X = 2 * (t & 1);  // word, byte of column 2 t
         const uint32_t w0 = word(r[0], wi), w1 = word(r[1], wi);
         const uint32_t w2 = word(r[2], wi), w3 = word(r[3], wi);
         if constexpr (!Q4) {
-          const uint32_t sa = s2[4 * wi + X], sb2 = s2[4 * wi + X + 1];
-          const uint32_t lo = X | X << 4 | (4 + X) << 8 | (4 + X) << 12;
-          const uint32_t hi = lo + 0x1111u;  // byte X + 1
-          mma_bf16(acc[t], bf16x2_mul(dec8(prmt(w0, w1, lo)), sa),
-                   bf16x2_mul(dec8(prmt(w0, w1, hi)), sb2),
-                   bf16x2_mul(dec8(prmt(w2, w3, lo)), sa),
-                   bf16x2_mul(dec8(prmt(w2, w3, hi)), sb2), xb[0], xb[1]);
+          mma_bf16(acc[t],
+                   frag_int8(w0, w1, w2, w3, X, s2[4 * wi + X],
+                             s2[4 * wi + X + 1]),
+                   xb[0], xb[1]);
         } else {
           const float sa = sf[4 * wi + X], sb2 = sf[4 * wi + X + 1];
 #pragma unroll
-          for (int ks = 0; ks < 2; ++ks) {  // low nibbles, then high
-            const int sh = 8 * X + 4 * ks;
-            auto v = [&](uint32_t w, int e, float s) {
-              return lut[(w >> (sh + 8 * e)) & 15u] * s;
-            };
-            mma_bf16(acc[t], pack_bf16(v(w0, 0, sa), v(w1, 0, sa)),
-                     pack_bf16(v(w0, 1, sb2), v(w1, 1, sb2)),
-                     pack_bf16(v(w2, 0, sa), v(w3, 0, sa)),
-                     pack_bf16(v(w2, 1, sb2), v(w3, 1, sb2)), xb[2 * ks],
-                     xb[2 * ks + 1]);
-          }
+          for (int ks = 0; ks < 2; ++ks)  // low nibbles, then high
+            mma_bf16(acc[t],
+                     frag_4bit(w0, w1, w2, w3, 8 * X + 4 * ks, sa, sb2, lut),
+                     xb[2 * ks], xb[2 * ks + 1]);
         }
       }
     }

@@ -80,10 +80,10 @@ def head_logits(params, x):
     read once as bf16 and never converted."""
     hq = params.get("_head_q")
     if hq is not None:
-        if x.shape[0] < 512:
+        if x.shape[0] <= quant.KERNEL_ROWS:
             # Decode shapes: the dequant-in-matmul kernel streams the int8
-            # codes once; operands in x's dtype, f32 sums returned as they
-            # are.
+            # codes once per 64 rows; operands in x's dtype, f32 sums
+            # returned as they are.
             return matmul_int8(x, hq.q, hq.scale, out_dtype=torch.float32)
         # Score shapes: dequantize once, one large product.
         w = hq.dequant(torch.bfloat16)

@@ -80,25 +80,13 @@ SIGNATURES = {
         "v6_wkv_gn_launch": "pppppppppiiiiiip",
     },
     "quant": {
-        # K, N -> the work space a product needs (not a status)
-        "matmul_int8_scratch_floats": "ii",
-        "matmul_int8_counters": "ii",
-        # x, q, s, y, R, K, N, dtype, out_f32, scratch, scratch_floats,
-        # counters, n_counters, stream
-        "matmul_int8_launch": "ppppiiiiipipip",
-        # x, q, s, l, y, R, K, N, dtype, out_f32, scratch, scratch_floats,
-        # counters, n_counters, stream
-        "matmul_int8_l_launch": "pppipiiiiipipip",
-        # x, q, s, levels (host), y, R, K, N, dtype, out_f32, scratch,
-        # scratch_floats, counters, n_counters, stream
-        "matmul_4bit_launch": "pppppiiiiipipip",
-        # x, q, s, levels (host), l, y, R, K, N, dtype, out_f32, scratch,
-        # scratch_floats, counters, n_counters, stream
-        "matmul_4bit_l_launch": "ppppipiiiiipipip",
+        # x, q, s, levels (host, null for int8), l, y, R, K, N, dtype,
+        # out_f32, plan (host), n_launch, stream
+        "quant_matmul_launch": "ppppipiiiiipip",
         # xf, shift, mix_k, active, key_q, key_s, val_q, val_s, levels (host,
-        # null for int8), l, out, new_shift, hk, B, C, F, dtype, scratch,
-        # scratch_floats, counters, n_counters, stream
-        "ffn7_t1_l_launch": "pppppppppipppiiiipipip",
+        # null for int8), l, out, new_shift, hk, B, C, F, dtype, key plan
+        # (host), value plan (host), n_launch, stream
+        "ffn7_t1_l_launch": "pppppppppipppiiiippip",
     },
     "ivf": {
         # -> the largest D the kernel takes (not a status)

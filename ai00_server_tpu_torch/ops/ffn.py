@@ -4,10 +4,12 @@
 Port of ``ai00_server_tpu/ops/ffn_pallas.py:ffn7_t1_l``.  The
 Pallas grid walks hidden tiles and keeps the ``(B, C)`` sum on chip; on the
 card the value product needs every column of the key product's result, so
-the hand-written kernel is two dependent launches of the dequantizing
-product in ``csrc/quant.cu``: the key product with the token-shift mix as
-its prologue and ``relu^2`` as its epilogue, then the value product.  The
-layer is picked by offsetting base pointers into the stacked codes.
+the hand-written kernel is two launches of the dequantizing product in
+``csrc/quant.cu`` per 64 rows (``quant_matmul.plan``): the key product with
+the token-shift mix as its prologue and ``relu^2`` as its epilogue, then
+the value product, a programmatic dependent launch that streams its codes
+while the key product runs.  The layer is picked by offsetting base
+pointers into the stacked codes.
 
     fxk = round_cd(xf + (shift - xf) * mix_k)
     hk  = round_cd(relu(fxk @ K_l)^2)
@@ -26,7 +28,8 @@ import torch
 
 from . import _build
 from .quant_matmul import (_DTYPE_CODE, _require, check_codes,
-                           dequant_mode_cd, levels_table, workspace)
+                           dequant_mode_cd, launch_plan, levels_table,
+                           require_aligned)
 
 
 def ffn7_t1_l_plain(xf, shift, mix_k, active, key_q, key_s, val_q, val_s,
@@ -81,10 +84,12 @@ def ffn7_t1_l(xf, shift, mix_k, active, key_q, key_s, val_q, val_s, l: int,
                  and t.is_contiguous() and t.device == dev,
                  f"{name} must be contiguous {dtype} {shape} on {dev}, got "
                  f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    require_aligned(("xf", xf), ("shift", shift), ("mix_k", mix_k))
     out = torch.empty((B, C), dtype=torch.float32, device=dev)
     new_shift = torch.empty((B, C), dtype=torch.float32, device=dev)
     hk = torch.empty((B, F), dtype=cd, device=dev)
-    ws = workspace(dev, [(C, F), (F, C)])
+    key_plan, key_table = launch_plan(C, F, B, qmode, dev)
+    _, val_table = launch_plan(F, C, B, qmode, dev)
     # The 16 levels of a 4-bit mode; int8 codes are their own levels.
     table = None if qmode == "int8" else levels_table(qmode)
     status = _build.library("quant").ffn7_t1_l_launch(
@@ -92,11 +97,10 @@ def ffn7_t1_l(xf, shift, mix_k, active, key_q, key_s, val_q, val_s, l: int,
         key_q.data_ptr(), key_s.data_ptr(), val_q.data_ptr(),
         val_s.data_ptr(), ctypes.addressof(table) if table else None,
         int(l), out.data_ptr(), new_shift.data_ptr(),
-        hk.data_ptr(), B, C, F, _DTYPE_CODE[cd], ws.scratch.data_ptr(),
-        ws.scratch.numel(), ws.counters.data_ptr(), ws.counters.numel(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        hk.data_ptr(), B, C, F, _DTYPE_CODE[cd], key_table, val_table,
+        len(key_plan), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(status, "ffn7_t1_l")
-    ffn7_t1_l.launches += -(-B // 8)
+    ffn7_t1_l.launches += len(key_plan)
     return out, new_shift
 
 

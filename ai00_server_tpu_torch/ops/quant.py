@@ -98,6 +98,15 @@ def levels_tensor(mode: str, dtype, device) -> torch.Tensor:
     return _levels_tensor(mode, dtype, str(device))
 
 
+# The most rows of x a product sends to the dequant-in-matmul kernels
+# (ops/quant_matmul.py, one launch per 64 rows); more go through dequant()
+# and one torch.matmul.  Set where the kernels stop winning on the card at
+# the v7 0.4B layer's int8 products (PERF.md, the crossover of
+# tools/torch_quant_ab.py).  The layer path, the prefill and the int8 LM
+# head (engine.head_logits) all read it.
+KERNEL_ROWS = 128
+
+
 def _rows(x) -> int:
     rows = 1
     for d in x.shape[:-1]:
@@ -129,12 +138,12 @@ class QuantizedLinear:
         return w.reshape(tuple(self.q.shape[:-3]) + self.shape).to(dtype)
 
     def matmul(self, x):
-        """``x @ W``, result in ``x.dtype``.  Decode shapes (under 512
-        rows, unstacked codes) go through the dequant-in-matmul kernel of
-        the mode; prefill shapes dequantize once and take one large product
-        (the reference keeps 4-bit on its kernel at every row count only for
-        want of a fast table gather on its device)."""
-        if _rows(x) < 512 and self.q.ndim == 3:
+        """``x @ W``, result in ``x.dtype``.  Up to ``KERNEL_ROWS`` rows
+        (unstacked codes) the dequant-in-matmul kernel of the mode; above,
+        the weight is dequantized once for one large product (the reference
+        keeps 4-bit on its kernel at every row count only for want of a
+        fast table gather on its device)."""
+        if _rows(x) <= KERNEL_ROWS and self.q.ndim == 3:
             from .quant_matmul import matmul_4bit, matmul_int8
 
             if self.mode == "int8":
@@ -298,7 +307,7 @@ class QuantizedLayerView:
         return self.qlin.scale[self.idx]
 
     def matmul(self, x):
-        if _rows(x) < 512:
+        if _rows(x) <= KERNEL_ROWS:
             from .quant_matmul import matmul_4bit_l, matmul_int8_l
 
             if self.mode == "int8":

@@ -20,11 +20,13 @@ kernel's source is built first, one ``nvcc`` each, all started together):
    cache holds, then three ways to take the LM head's f32 logits, then the
    int8 kernels
    (``csrc/quant.cu``: ``matmul_int8`` on the LM head, ``matmul_int8_l`` and
-   ``ffn7_t1_l`` on stacked codes) and the int8 mode of
-   ``v7_skinny_matmul``, on codes that rotate the same way, then the 4-bit
-   kernels (``matmul_4bit`` on unstacked codes, ``matmul_4bit_l`` and the
-   4-bit mode of ``ffn7_t1_l`` on stacked codes, the 4-bit mode of
-   ``v7_skinny_matmul``) in nf4, sf4 and int4, f32 and bf16.  Then
+   ``ffn7_t1_l`` on stacked codes, each held at every row tile of its plan,
+   ``HELD_ROWS``; the head timed at B = 8 and 64, a 256-row product) and
+   the int8 mode of ``v7_skinny_matmul``, on codes that rotate the same
+   way, then the 4-bit kernels (``matmul_4bit`` on unstacked codes,
+   ``matmul_4bit_l`` and the 4-bit mode of ``ffn7_t1_l`` on stacked codes,
+   at ``HELD_ROWS``, the 4-bit mode of ``v7_skinny_matmul``) in nf4, sf4
+   and int4, f32 and bf16.  Then
    RWKV-6 at the 1B6 width (C=2048, H=32, F=7168): ``wkv56_t1`` and
    ``wkv56_chunk`` (``csrc/wkv56.cu``; the chunk also at T = 16, its
    step-by-step kernel, with extreme decays, and timed as v7's), and the
@@ -97,9 +99,12 @@ kernel's source is built first, one ``nvcc`` each, all started together):
    card, searched by text and by vector, the hits held against the plain
    version on the CPU) and a RAG chat, with ``ivf_score``'s count zeroed
    before and read after, and streams one 4077-token prompt alone (its
-   TTFT).  Then random 24-layer RWKV-5 and RWKV-4 checkpoints of the 0.4B
-   shape, served the same way (prefill through ``wkv56_chunk`` /
-   ``wkv4_chunk``, decode one replay of the fused v5 / v4 stack).  The 0.4B v7
+   TTFT), as the ``quant = 24`` Int8 server does too (its 256-row prefill
+   chunks above ``ops/quant.py:KERNEL_ROWS``: each int8 weight dequantized
+   for one ``torch.matmul``).  Then random 24-layer RWKV-5 and RWKV-4
+   checkpoints of the 0.4B shape, served the same way (prefill through
+   ``wkv56_chunk`` / ``wkv4_chunk``, decode one replay of the fused v5 / v4
+   stack).  The 0.4B v7
    checkpoint at ``quant = 24`` Int8 and the v5 one in bf16 are also served at
    ``max_batch = 64`` with 64 concurrent completions (every step one replay of
    the phased stack's graph; ``v7_skinny_matmul`` must launch 0 times), and
@@ -162,6 +167,9 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores
 BF16_FLOPS = 989e12         # H100 SXM dense bf16 (the products' type)
 KERNEL_TOL = 1e-4           # max |kernel - plain| / max(1, max |plain|)
+# Rows at which the dequantizing products are held: each row tile of
+# ops/quant_matmul.plan (8, 16, 32, 64) and 256 rows in four launches.
+HELD_ROWS = (1, 8, 11, 32, 64, 256)
 W_FLOOR = 0.545239211892605  # v7's least decay, exp(-exp(-0.5))
 # The same for a value rounded to bf16: one bf16 ulp of the largest value.
 # The kernel sums in another order than the plain version, which can move
@@ -788,20 +796,29 @@ def phase_int8_kernels(dev, bf16_head_ms: float) -> dict:
     # ---- matmul_int8: the LM head, f32 logits ----
     n = sets_over_l2(C * VOCAB)
     heads = [codes(C, VOCAB) for _ in range(n)]
+    err = 0.0
+    for R in HELD_ROWS:  # every row tile of the plan, and 4 launches
+        xr = rnd(R, C, scale=0.5).to(cd)
+        want = matmul_int8_plain(xr, heads[0].q, heads[0].scale,
+                                 torch.float32)
+        got = matmul_int8(xr, heads[0].q, heads[0].scale, torch.float32)
+        torch.cuda.synchronize()
+        check(got.dtype == torch.float32,
+              "matmul_int8 must return f32 logits")
+        err = max(err, close(got, want, False, f"matmul_int8 R={R}"))
+        check(torch.equal(got, matmul_int8(xr, heads[0].q, heads[0].scale,
+                                           torch.float32)),
+              "matmul_int8 gave different bits for equal inputs")
     x = rnd(B, C, scale=0.5).to(cd)
-    want = matmul_int8_plain(x, heads[0].q, heads[0].scale, torch.float32)
-    got = matmul_int8(x, heads[0].q, heads[0].scale, torch.float32)
-    torch.cuda.synchronize()
-    check(got.dtype == torch.float32, "matmul_int8 must return f32 logits")
-    err = close(got, want, False, "matmul_int8")
-    check(torch.equal(got, matmul_int8(x, heads[0].q, heads[0].scale,
-                                       torch.float32)),
-          "matmul_int8 gave different bits for equal inputs")
+    x64 = rnd(WIDE_BATCH, C, scale=0.5).to(cd)
     b_ms, b_by = bound(nbytes(x, heads[0].q, heads[0].scale) + B * VOCAB * 4,
                        2 * B * C * VOCAB, BF16_FLOPS)
+    b64_ms, _ = bound(nbytes(x64, heads[0].q, heads[0].scale)
+                      + WIDE_BATCH * VOCAB * 4, 2 * WIDE_BATCH * C * VOCAB,
+                      BF16_FLOPS)
 
-    def head(i, fn):
-        return fn(x, heads[i].q, heads[i].scale, torch.float32)
+    def head(i, fn, xs=x):
+        return fn(xs, heads[i].q, heads[i].scale, torch.float32)
 
     rows["matmul_int8"] = {
         "name": "matmul_int8", "route": "cuda", "source": SRC,
@@ -812,12 +829,17 @@ def phase_int8_kernels(dev, bf16_head_ms: float) -> dict:
             lambda i: head(i, matmul_int8_plain), n), 2),
         "call_ms": call_ms(rotating(lambda i: head(i, matmul_int8), n), 20),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "ms_b64": device_ms(rotating(
+            lambda i: head(i, matmul_int8, x64), n), 10),
     }
-    print(f"matmul_int8 B={B} C={C} V={VOCAB}, bf16 x, f32 logits ({n} "
-          f"rotating heads of {nbytes(heads[0].q, heads[0].scale) / 1e6:.1f}"
-          f" MB): max_abs_err {err:.3e} (tolerance {KERNEL_TOL} x max(1, "
-          f"|plain|)); equal inputs give equal bits; the bf16 head's "
-          f"torch.mm in this run: {bf16_head_ms:.5f} ms", flush=True)
+    print(f"matmul_int8 C={C} V={VOCAB}, bf16 x, f32 logits ({n} rotating "
+          f"heads of {nbytes(heads[0].q, heads[0].scale) / 1e6:.1f} MB), "
+          f"held at R = {HELD_ROWS}: max_abs_err {err:.3e} (tolerance "
+          f"{KERNEL_TOL} x max(1, |plain|)); equal inputs give equal bits; "
+          f"B={B} {rows['matmul_int8']['ms']:.5f} ms, B={WIDE_BATCH} "
+          f"{rows['matmul_int8']['ms_b64']:.5f} ms (one launch; bound "
+          f"{b64_ms:.5f}); the bf16 head's torch.mm in this run: "
+          f"{bf16_head_ms:.5f} ms", flush=True)
     del heads
 
     # ---- matmul_int8_l: the time mix's (C, C) products on stacked codes ----
@@ -826,10 +848,15 @@ def phase_int8_kernels(dev, bf16_head_ms: float) -> dict:
     x3 = rnd(B, 1, C, scale=0.5).to(cd)
     worst = 0.0
     for l in (0, n // 2, n - 1):
-        worst = max(worst, close(
-            matmul_int8_l(x3, stack.q, stack.scale, l),
-            matmul_int8_l_plain(x3, stack.q, stack.scale, l), True,
-            f"matmul_int8_l[{l}]"))
+        for R in HELD_ROWS:
+            xr = x3 if R == B else rnd(R, 1, C, scale=0.5).to(cd)
+            got = matmul_int8_l(xr, stack.q, stack.scale, l)
+            worst = max(worst, close(
+                got, matmul_int8_l_plain(xr, stack.q, stack.scale, l), True,
+                f"matmul_int8_l[{l}] R={R}"))
+            check(torch.equal(got, matmul_int8_l(xr, stack.q, stack.scale,
+                                                 l)),
+                  "matmul_int8_l gave different bits for equal inputs")
     torch.cuda.synchronize()
     b_ms, b_by = bound(nbytes(x3, stack.q[0], stack.scale[0]) + B * C * 2,
                        2 * B * C * C, BF16_FLOPS)
@@ -846,9 +873,19 @@ def phase_int8_kernels(dev, bf16_head_ms: float) -> dict:
             lambda l: matmul_int8_l(x3, stack.q, stack.scale, l), n), 200),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
     }
-    print(f"matmul_int8_l B={B} ({C}, {C}) on layer l of {n} stacked layers, "
-          f"bf16: max_abs_err {worst:.3e} (tolerance {BF16_TOL:.2e} x max(1, "
-          "|plain|) on the bf16 result)", flush=True)
+    del stack
+    # A prefill chunk's 256 rows in four launches (the layer path sends
+    # them to dequant() + torch.matmul: above KERNEL_ROWS).
+    n = sets_over_l2(C * FFN)
+    stack = codes(n, C, FFN)
+    x256 = rnd(CHUNK, C, scale=0.5).to(cd)
+    rows["matmul_int8_l"]["ms_r256"] = device_ms(rotating(
+        lambda l: matmul_int8_l(x256, stack.q, stack.scale, l), n), 20)
+    print(f"matmul_int8_l B={B} ({C}, {C}) on layer l of stacked layers, "
+          f"bf16, held at R = {HELD_ROWS}: max_abs_err {worst:.3e} "
+          f"(tolerance {BF16_TOL:.2e} x max(1, |plain|) on the bf16 result), "
+          f"equal bits on a repeat; {CHUNK} rows at ({C}, {FFN}): "
+          f"{rows['matmul_int8_l']['ms_r256']:.5f} ms", flush=True)
     del stack
 
     # ---- ffn7_t1_l: the channel mix on stacked codes ----
@@ -874,6 +911,17 @@ def phase_int8_kernels(dev, bf16_head_ms: float) -> dict:
         check(torch.equal(got_shift, want_shift)
               and torch.equal(got_shift[5], shift[5]),
               "ffn7_t1_l: wrong new shift state, or an inactive row moved")
+    for R in HELD_ROWS:  # every row tile of the plan
+        args = (rnd(R, C).to(cd), rnd(R, C), mix,
+                torch.rand(R, generator=gen, device=dev) < 0.8, key.q,
+                key.scale, val.q, val.scale, 1)
+        (got, got_shift), (want, want_shift) = (ffn7_t1_l(*args),
+                                                ffn7_t1_l_plain(*args))
+        worst = max(worst, close(got, want, True, f"ffn7_t1_l R={R}"))
+        check(torch.equal(got_shift, want_shift)
+              and torch.equal(got, ffn7_t1_l(*args)[0]),
+              f"ffn7_t1_l R={R}: wrong new shift state, or other bits on a "
+              "repeat")
     b_ms, b_by = bound(
         nbytes(xf, shift, mix, active, key.q[0], key.scale[0], val.q[0],
                val.scale[0]) + 2 * B * C * 4, 4 * B * C * FFN, BF16_FLOPS)
@@ -888,7 +936,8 @@ def phase_int8_kernels(dev, bf16_head_ms: float) -> dict:
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
     }
     print(f"ffn7_t1_l B={B} C={C} F={FFN} on layer l of {n} stacked layers, "
-          f"bf16 (two dependent launches): max_abs_err {worst:.3e} "
+          f"bf16 (two launches, the value product a programmatic dependent),"
+          f" held at B = {HELD_ROWS}: max_abs_err {worst:.3e} "
           f"(tolerance {BF16_TOL:.2e} x max(1, |plain|)); new shift state "
           "equal, inactive row bit-identical", flush=True)
     del key, val
@@ -1042,7 +1091,7 @@ def phase_4bit_kernels(dev) -> dict:
     for mode in MODES:
         ql = codes(mode, C, FFN)
         for cd in cds:
-            for R in (B, 11):
+            for R in HELD_ROWS:
                 x = rnd(R, C, scale=0.5).to(cd)
                 got = matmul_4bit(x, ql.q, ql.scale, mode=mode)
                 want = matmul_4bit_plain(x, ql.q, ql.scale, mode)
@@ -1067,7 +1116,7 @@ def phase_4bit_kernels(dev) -> dict:
         "max_abs_err": worst, **t, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": None,
     }
-    print(f"matmul_4bit B={B} and 11, ({C}, {FFN}) unstacked, {MODES}, f32 "
+    print(f"matmul_4bit R = {HELD_ROWS}, ({C}, {FFN}) unstacked, {MODES}, f32 "
           f"and bf16: max_abs_err {worst:.3e} (tolerance {KERNEL_TOL} x "
           f"max(1, |plain|) in f32, {BF16_TOL:.2e} on bf16 results); equal "
           f"inputs give equal bits; {n} rotating weights of "
@@ -1080,7 +1129,7 @@ def phase_4bit_kernels(dev) -> dict:
     for mode in MODES:
         stack = codes(mode, 3, C, C)
         for cd in cds:
-            for R in (B, 11):
+            for R in HELD_ROWS:
                 x3 = rnd(R, 1, C, scale=0.5).to(cd)
                 for l in (0, 2):
                     got = matmul_4bit_l(x3, stack.q, stack.scale, l,
@@ -1109,10 +1158,19 @@ def phase_4bit_kernels(dev) -> dict:
         "max_abs_err": worst, **t, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": None,
     }
-    print(f"matmul_4bit_l B={B} and 11, ({C}, {C}) on layer l of stacked "
+    del stack
+    # A prefill chunk's 256 rows in four launches.
+    n = sets_over_l2(C * FFN // 2)
+    stack = codes("nf4", n, C, FFN)
+    x256 = rnd(CHUNK, C, scale=0.5).to(torch.bfloat16)
+    rows["matmul_4bit_l"]["ms_r256"] = device_ms(rotating(
+        lambda l: matmul_4bit_l(x256, stack.q, stack.scale, l, mode="nf4"),
+        n), 20)
+    print(f"matmul_4bit_l R = {HELD_ROWS}, ({C}, {C}) on layer l of stacked "
           f"codes, {MODES}, f32 and bf16: max_abs_err {worst:.3e} (same "
-          f"tolerances); timed over {n} stacked layers; ms in the other "
-          f"modes: {others_text(others)}", flush=True)
+          f"tolerances), equal bits on a repeat; timed at B={B}; ms in the "
+          f"other modes: {others_text(others)}; nf4 {CHUNK} rows at ({C}, "
+          f"{FFN}): {rows['matmul_4bit_l']['ms_r256']:.5f} ms", flush=True)
     del stack
 
     # ---- ffn7_t1_l on stacked 4-bit codes ----
@@ -1120,11 +1178,12 @@ def phase_4bit_kernels(dev) -> dict:
     for mode in MODES:
         key, val = codes(mode, 2, C, FFN), codes(mode, 2, FFN, C)
         for cd in cds:
-            for R in (B, 11):
+            for R in HELD_ROWS:
                 xf, shift = rnd(R, C).to(cd), rnd(R, C)
                 mix = rnd(C, scale=0.3).to(cd)
                 active = torch.ones(R, dtype=torch.bool, device=dev)
-                active[5] = False
+                idle = R // 2
+                active[idle] = R == 1  # one inactive row (none when R = 1)
                 args = (xf, shift, mix, active, key.q, key.scale, val.q,
                         val.scale, 1)
                 got, got_shift = ffn7_t1_l(*args, qmode=mode)
@@ -1135,7 +1194,8 @@ def phase_4bit_kernels(dev) -> dict:
                 worst = max(worst, close(got, want, cd == torch.bfloat16,
                                          f"ffn7_t1_l {mode} {cd} R={R}"))
                 check(torch.equal(got_shift, want_shift)
-                      and torch.equal(got_shift[5], shift[5]),
+                      and (R == 1 or torch.equal(got_shift[idle],
+                                                 shift[idle])),
                       "ffn7_t1_l (4-bit): wrong new shift state, or an "
                       "inactive row moved")
                 check(torch.equal(got, ffn7_t1_l(*args, qmode=mode)[0]),
@@ -1161,8 +1221,8 @@ def phase_4bit_kernels(dev) -> dict:
         "max_abs_err": worst, **t, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": None,
     }
-    print(f"ffn7_t1_l B={B} and 11, C={C} F={FFN} on layer l of stacked "
-          f"4-bit codes, {MODES}, f32 and bf16 (two dependent launches): "
+    print(f"ffn7_t1_l B = {HELD_ROWS}, C={C} F={FFN} on layer l of stacked "
+          f"4-bit codes, {MODES}, f32 and bf16 (two launches per 64 rows): "
           f"max_abs_err {worst:.3e} (same tolerances); new shift state "
           f"equal, inactive row bit-identical, equal bits on a repeated "
           f"call; timed over {n} stacked layers; ms in the other modes: "
@@ -2456,8 +2516,11 @@ def phase_parity(dev, version: str = "v7") -> dict:
         by_layer = ("matmul_int8_l" if quant_map[0] == "int8"
                     else "matmul_4bit_l")
         if path == "fused":
-            # (its prefill chunk, 160 rows, goes layer by layer)
-            return {"matmul_int8", by_layer} | fused_names
+            # (its prefill chunk goes layer by layer: B * T = 160 rows, more
+            # than quant.KERNEL_ROWS, each weight dequantized for one
+            # torch.matmul; by_layer runs only under the threshold)
+            return {"matmul_int8"} | fused_names | (
+                {by_layer} if B * T <= quant.KERNEL_ROWS else set())
         if label.startswith("unstacked"):
             return {"wkv7_t1", "matmul_int8", "matmul_4bit"}
         # v7's quantized channel mix at T=1 is ffn7_t1_l; v6's goes through
@@ -2960,8 +3023,9 @@ port = 0
 PROMPT = ("the quick brown fox jumps over the lazy dog while a model "
           "decodes tokens on the card ")
 NO_EOS = {"0": -1e4}  # random weights: keep end-of-text out of greedy picks
-# One long prompt alone on the v7 bf16 server: 4,077 tokens of text (16
-# prefill chunks), where the prefill WKV kernel's share of TTFT is largest.
+# One long prompt alone on the v7 bf16 and quant = 24 Int8 servers: 4,077
+# tokens of text (16 prefill chunks), where the prefill kernels' share of
+# TTFT is largest.
 LONG_PROMPT = "a long one: " + PROMPT * 110
 
 
@@ -3602,9 +3666,10 @@ async def serve(cfg: Path, kind: str, device="cuda") -> dict:
                 prompt_tokens=sum(o["usage"]["prompt"] for o in outs),
                 tokens_per_s=n_tokens / wall, ttft_s_under_load=ttft_load,
                 ttft_s_alone=ttft_solo, sample=texts[0][:60])
-            if kind == "bf16":
+            if kind in ("bf16", "int8"):
                 result["ttft_s_long"], _ = await streamed_chat(
                     http, LONG_PROMPT, 16)
+            if kind == "bf16":
                 replays0 = fd.DecodeGraph.total_replays
                 profile = await profiled(
                     completion(http, "and a profiled one: " + PROMPT * 8, 64))
@@ -3880,7 +3945,8 @@ def main() -> None:
                  .encode(LONG_PROMPT))
     print(f"TTFT of one {n_long}-token prompt (its text) streamed alone to "
           f"the bf16 server ({L_FULL} layers, chunk {CHUNK}): "
-          f"{served['bf16']['ttft_s_long']:.3f} s", flush=True)
+          f"{served['bf16']['ttft_s_long']:.3f} s; to the quant = {L_FULL} "
+          f"Int8 server: {served['int8']['ttft_s_long']:.3f} s", flush=True)
     print("profile of one 64-token completion alone (bf16): "
           f"{served['bf16']['profile']}", flush=True)
     print(f"phase 4 (serving) {time.monotonic() - t0:.1f} s", flush=True)

@@ -420,6 +420,15 @@ from ai00_server_tpu_torch.ops.quant_matmul import (  # noqa: E402
     matmul_int8, matmul_int8_l, matmul_int8_l_plain, matmul_int8_plain)
 
 
+def _planned(dev, K, N, R, mode="int8"):
+    """The launches ``ops/quant_matmul.plan`` gives a (R, K) @ (K, N)
+    product on this card: the count the wrappers add to ``.launches``."""
+    from ai00_server_tpu_torch.ops.device import sm_count
+    from ai00_server_tpu_torch.ops.quant_matmul import plan
+
+    return len(plan(K, N, R, mode, sm_count(dev.index)))
+
+
 def _codes(gen, dev, *shape):
     """Random weights (..., K, N) quantized on the card."""
     K = shape[-2]
@@ -450,7 +459,7 @@ def test_matmul_int8_kernel_matches_plain(dev, dtype, out_f32, R, K, N):
     want = matmul_int8_plain(x, ql.q, ql.scale, out_dtype)
     before = matmul_int8.launches
     got = matmul_int8(x, ql.q, ql.scale, out_dtype)
-    assert matmul_int8.launches == before + -(-R // 8)
+    assert matmul_int8.launches == before + _planned(dev, K, N, R)
     assert got.dtype == want.dtype and got.shape == (R, N)
     _close_t(got, want, got.dtype)
     assert torch.equal(got, matmul_int8(x, ql.q, ql.scale, out_dtype))
@@ -467,7 +476,7 @@ def test_matmul_int8_l_kernel_matches_plain(dev, dtype, R):
         want = matmul_int8_l_plain(x, ql.q, ql.scale, l)
         before = matmul_int8_l.launches
         got = matmul_int8_l(x, ql.q, ql.scale, l)
-        assert matmul_int8_l.launches == before + -(-R // 8)
+        assert matmul_int8_l.launches == before + _planned(dev, K, N, R)
         assert got.shape == (R, 1, N) and got.dtype == dtype
         _close_t(got, want, dtype)
         view = quant.QuantizedLayerView(ql, l)
@@ -492,7 +501,7 @@ def test_ffn7_t1_l_kernel_matches_plain(dev, dtype, B, C, F):
     kept = shift.clone()
     before = ffn7_t1_l.launches
     got, got_shift = ffn7_t1_l(*args)
-    assert ffn7_t1_l.launches == before + -(-B // 8)
+    assert ffn7_t1_l.launches == before + _planned(dev, C, F, B)
     assert got.dtype == torch.float32 and got_shift.dtype == torch.float32
     # hk is rounded to the activation dtype between the two products: a
     # flipped bf16 ulp of hk moves the f32 output by that ulp times a weight.
@@ -643,7 +652,7 @@ def test_matmul_4bit_kernel_matches_plain(dev, mode, dtype, R, K, N):
     want = matmul_4bit_plain(x, ql.q, ql.scale, mode)
     before = matmul_4bit.launches
     got = matmul_4bit(x, ql.q, ql.scale, mode=mode)
-    assert matmul_4bit.launches == before + -(-R // 8)
+    assert matmul_4bit.launches == before + _planned(dev, K, N, R, mode)
     assert got.dtype == want.dtype == dtype and got.shape == (R, N)
     _close_t(got, want, dtype)
     assert torch.equal(got, matmul_4bit(x, ql.q, ql.scale, mode=mode))
@@ -662,7 +671,7 @@ def test_matmul_4bit_l_kernel_matches_plain(dev, mode, dtype, R):
         want = matmul_4bit_l_plain(x, ql.q, ql.scale, l, mode)
         before = matmul_4bit_l.launches
         got = matmul_4bit_l(x, ql.q, ql.scale, l, mode=mode)
-        assert matmul_4bit_l.launches == before + -(-R // 8)
+        assert matmul_4bit_l.launches == before + _planned(dev, K, N, R, mode)
         assert got.shape == (R, 1, N) and got.dtype == dtype
         _close_t(got, want, dtype)
         view = quant.QuantizedLayerView(ql, l)
@@ -689,7 +698,7 @@ def test_ffn7_t1_l_4bit_kernel_matches_plain(dev, mode, dtype, B, C, F):
     kept = shift.clone()
     before = ffn7_t1_l.launches
     got, got_shift = ffn7_t1_l(*args, qmode=mode)
-    assert ffn7_t1_l.launches == before + -(-B // 8)
+    assert ffn7_t1_l.launches == before + _planned(dev, C, F, B, mode)
     assert got.dtype == torch.float32 and got_shift.dtype == torch.float32
     if dtype == torch.bfloat16:  # hk is rounded between the two products
         _close_t(got, want, dtype)
@@ -698,6 +707,109 @@ def test_ffn7_t1_l_4bit_kernel_matches_plain(dev, mode, dtype, B, C, F):
     assert torch.equal(got_shift, want_shift)
     assert torch.equal(got_shift[1], kept[1]) and torch.equal(shift, kept)
     assert torch.equal(got, ffn7_t1_l(*args, qmode=mode)[0])
+
+
+# Every row tile of the plan (8, 16, 32, 64 rows; 65, 256 and 511 rows are
+# several launches, the last one ragged) on stacked codes, and the channel
+# mix at the same row counts.
+QUANT_ROWS = [*range(1, 9), 11, 64, 65, 256, 511]
+
+
+@pytest.mark.parametrize("mode", ["int8", "nf4"])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("R", QUANT_ROWS)
+def test_quant_matmul_every_row_tile(dev, mode, dtype, R):
+    gen = torch.Generator(device=dev).manual_seed(R)
+    L, K, N = 2, 1024, 384
+    ql = (_codes(gen, dev, L, K, N) if mode == "int8"
+          else _codes4(gen, dev, mode, L, K, N))
+    fn, plain = ((matmul_int8_l, matmul_int8_l_plain) if mode == "int8"
+                 else (matmul_4bit_l, matmul_4bit_l_plain))
+    extra = {} if mode == "int8" else {"mode": mode}
+    x = (torch.randn(R, K, generator=gen, device=dev) * 0.5).to(dtype)
+    want = plain(x, ql.q, ql.scale, 1, **extra)
+    before = fn.launches
+    got = fn(x, ql.q, ql.scale, 1, **extra)
+    assert fn.launches == before + _planned(dev, K, N, R, mode)
+    assert got.shape == (R, N) and got.dtype == dtype
+    _close_t(got, want, dtype)
+    assert torch.equal(got, fn(x, ql.q, ql.scale, 1, **extra))
+
+
+@pytest.mark.parametrize("mode", ["int8", "nf4"])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B", QUANT_ROWS)
+def test_ffn7_t1_l_every_row_tile(dev, mode, dtype, B):
+    gen = torch.Generator(device=dev).manual_seed(B)
+    L, l, C, F = 2, 1, 256, 1024
+    codes = ((lambda *sh: _codes(gen, dev, *sh)) if mode == "int8"
+             else (lambda *sh: _codes4(gen, dev, mode, *sh)))
+    key, val = codes(L, C, F), codes(L, F, C)
+    xf = torch.randn(B, C, generator=gen, device=dev).to(dtype)
+    shift = torch.randn(B, C, generator=gen, device=dev)
+    mix = (torch.randn(C, generator=gen, device=dev) * 0.3).to(dtype)
+    active = torch.rand(B, generator=gen, device=dev) < 0.8
+    args = (xf, shift, mix, active, key.q, key.scale, val.q, val.scale, l)
+    want, want_shift = ffn7_t1_l_plain(*args, qmode=mode)
+    before = ffn7_t1_l.launches
+    got, got_shift = ffn7_t1_l(*args, qmode=mode)
+    assert ffn7_t1_l.launches == before + _planned(dev, C, F, B, mode)
+    if dtype == torch.bfloat16:  # hk is rounded between the two products
+        _close_t(got, want, dtype)
+    else:
+        _close(got, want)
+    assert torch.equal(got_shift, want_shift)
+    assert torch.equal(got, ffn7_t1_l(*args, qmode=mode)[0])
+
+
+def test_quant_kernels_equal_bits_under_a_graph_replay(dev):
+    """The K split adds in rank order (no atomics): a CUDA-graph replay of
+    the head product (no K split) and of a layer product and the channel
+    mix (K split over a cluster) gives the eager call's bits."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    head = _codes(gen, dev, 256, 32768)
+    stack = _codes4(gen, dev, "nf4", 2, 1024, 1024)
+    key, val = _codes(gen, dev, 2, 256, 1024), _codes(gen, dev, 2, 1024, 256)
+    x = (torch.randn(64, 256, generator=gen, device=dev) * 0.5).bfloat16()
+    x3 = (torch.randn(11, 1024, generator=gen, device=dev) * 0.5).bfloat16()
+    shift = torch.randn(64, 256, generator=gen, device=dev)
+    mix = (torch.randn(256, generator=gen, device=dev) * 0.3).bfloat16()
+    active = torch.ones(64, dtype=torch.bool, device=dev)
+
+    def run():
+        return (matmul_int8(x, head.q, head.scale, torch.float32),
+                matmul_4bit_l(x3, stack.q, stack.scale, 1, mode="nf4"),
+                *ffn7_t1_l(x, shift, mix, active, key.q, key.scale, val.q,
+                           val.scale, 0))
+
+    eager = run()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = run()
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(outs, eager):
+            assert torch.equal(a, b)
+
+
+def test_quant_kernels_refuse_misaligned_codes(dev):
+    """The kernel copies codes and scales in 16-byte pieces: codes that do
+    not start on 16 bytes are refused, not read."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.zeros(2, 128, device=dev)
+    for ql in (_codes(gen, dev, 128, 64), _codes4(gen, dev, "nf4", 128, 64)):
+        buf = torch.empty(ql.q.numel() + 16, dtype=ql.q.dtype, device=dev)
+        off = buf[4:4 + ql.q.numel()].view(ql.q.shape)
+        off.copy_(ql.q)
+        fn = matmul_int8 if ql.mode == "int8" else matmul_4bit
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            fn(x, off, ql.scale)
 
 
 Q4_GROUPS = {

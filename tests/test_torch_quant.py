@@ -239,9 +239,9 @@ def test_bf16_dequant_rounds_the_scale_first():
 @pytest.mark.parametrize("name", ["float32", "bfloat16"])
 @pytest.mark.parametrize("stacked", [False, True])
 def test_prefill_form_equals_jax_matmul(name, stacked):
-    """At 512 rows and more both packages dequantize (f32 product, rounded
-    once) and take one product; on the CPU the JAX package does so at any
-    row count."""
+    """Above ``KERNEL_ROWS`` rows both packages dequantize (f32 product,
+    rounded once) and take one product; on the CPU the JAX package does so
+    at any row count."""
     K, out, R = 256, 128, 520
     w = weights(2, 2, K, out) if stacked else weights(2, K, out)
     jq = jquant.quantize_int8(w)

@@ -221,7 +221,7 @@ def test_matmul_4bit_equals_pallas(mode, name, R, out):
     assert rel(to_np(got), want.astype(jnp.float32)) <= (
         BF16_TOL if name == "bfloat16" else F32_TOL)
     assert torch.equal(got, matmul_4bit_plain(tx, q, s, mode))
-    # The unstacked weight's own matmul takes the same road under 512 rows.
+    # The unstacked weight's own matmul takes the same road at these rows.
     assert torch.equal(
         tquant.QuantizedLinear(mode, q, s, (256, out)).matmul(tx), got)
 
@@ -283,9 +283,9 @@ def test_bf16_dequant4_rounds_the_scale_first(mode):
 @pytest.mark.parametrize("name", ["float32", "bfloat16"])
 @pytest.mark.parametrize("stacked", [False, True])
 def test_prefill_form_equals_jax_matmul(mode, name, stacked, monkeypatch):
-    """At 512 rows and more the port dequantizes (f32 product, rounded once)
-    and takes one product, as the JAX package does off its own device at any
-    row count; the wrappers are not called."""
+    """Above ``KERNEL_ROWS`` rows the port dequantizes (f32 product, rounded
+    once) and takes one product, as the JAX package does off its own device
+    at any row count; the wrappers are not called."""
     from ai00_server_tpu_torch.ops import quant_matmul
 
     def refuse(*a, **k):
