@@ -1,6 +1,7 @@
 // Shared device code of the fused decode steps (v7_decode.cu, v6_decode.cu):
-// the activation types and their rounding, and the LayerNorm / token-shift
-// kernel both stacks launch.
+// the activation types and their rounding, programmatic dependent launch,
+// the GroupNorm's sums over a head, and the LayerNorm / token-shift kernel
+// every stack launches.
 //
 // ln_mix_kernel (launched as v7_ln_mix by every stack): LayerNorm of the
 // f32 residual, token shift against the f32 shift state, n_mix mixed
@@ -18,7 +19,8 @@
 // registers, one barrier each: warp shuffles and one shared-memory
 // exchange), and writes its chunk.  It fetches its LayerNorm and mix
 // parameters before it waits for the kernel before it (programmatic
-// dependent launch), and lets the next kernel start at once.
+// dependent launch), reads x, the shift state and active with coherent
+// loads after it, and lets the next kernel start at once.
 
 #pragma once
 
@@ -77,11 +79,59 @@ __device__ __forceinline__ void grid_wait() {
 }
 
 // ---------------------------------------------------------------------------
+// Sums over a head (the WKV stages' GroupNorm)
+// ---------------------------------------------------------------------------
+
+// Sum over the 32 lanes of a warp, lanes 16 apart first, then 8, ... 1:
+// every lane gets the same bits.
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// The two-pass mean and variance of a head's HEAD = 64 values, lane l of a
+// warp holding y0 = value l and y1 = value l + 32.  Halving order (value l
+// + value l + 32 first, then warp_sum) with no product fused into a sum, so
+// every warp gets the same bits, and so does the PyTorch mirror
+// (ops/v7_decode.py:halving_sum).
+struct Moments {
+  float mean, var;
+};
+__device__ __forceinline__ Moments head_moments(float y0, float y1) {
+  const float mean = warp_sum(y0 + y1) / HEAD;
+  const float d0 = y0 - mean, d1 = y1 - mean;
+  const float var =
+      warp_sum(__fadd_rn(__fmul_rn(d0, d0), __fmul_rn(d1, d1))) / HEAD;
+  return {mean, var};
+}
+
+// ---------------------------------------------------------------------------
 // ln_mix_kernel
 // ---------------------------------------------------------------------------
 
 constexpr int LN_THREADS = 256;
 constexpr int LN_MAXC = 4096;  // the row a block stages: 16 KB of f32
+
+// Four f32 at p, 16-byte aligned.
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+// Four f32 from L2 (ld.global.cg).  A programmatic dependent runs while
+// the kernel before it still does, so it must not read what an earlier
+// kernel of the stream writes with ld.global.nc (SASS LDG.E.CONSTANT:
+// __ldg, and nvcc's choice for a load through a const __restrict__
+// pointer): the non-coherent path may return lines from before the
+// writes.  The first PDL versions of the WKV stages read r, k, v and g so,
+// and a CUDA graph's replay of every stack went wrong from its first step.
+// The WKV stages read every kernel-written operand, and their state,
+// with this; ln_mix_kernel with __ldca, the products' epilogues with plain
+// loads (all coherent; tools/torch_sass_loads.py lists each kernel's
+// loads by kind).
+__device__ __forceinline__ float4 ld4_l2(const float* p) {
+  return __ldcg(reinterpret_cast<const float4*>(p));
+}
 
 // Four T of p (8-byte aligned for bf16, 16 for f32) as floats, and back.
 __device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
@@ -151,17 +201,20 @@ ln_mix_kernel(const float* __restrict__ x, const T* __restrict__ ln,
       if (i < n_mix) load4(mix + (size_t)i * C + 4 * j, m[i]);
   }
   grid_wait();
-  const float4* xr = reinterpret_cast<const float4*>(x + (size_t)b * C);
+  // x and active with coherent loads (__ldca: x is a const __restrict__
+  // pointer, which nvcc would read with ld.global.nc; see ld4_l2).
+  const float* xr = x + (size_t)b * C;
   float* sh = shift + (size_t)b * C;
   float prev[4];
   if (mine) load4(sh + 4 * j, prev);
-  const bool act = active[b] != 0;
+  const bool act = __ldca(active + b) != 0;
   float4 v[U];
   float s = 0.f;
 #pragma unroll
   for (int u = 0; u < U; ++u) {
     const int q = tid + LN_THREADS * u;
-    v[u] = q < C4 ? xr[q] : make_float4(0.f, 0.f, 0.f, 0.f);
+    v[u] = q < C4 ? __ldca(reinterpret_cast<const float4*>(xr) + q)
+                  : make_float4(0.f, 0.f, 0.f, 0.f);
     if (q < C4) xs[q] = v[u];
     s += (v[u].x + v[u].y) + (v[u].z + v[u].w);
   }
@@ -198,20 +251,6 @@ ln_mix_kernel(const float* __restrict__ x, const T* __restrict__ ln,
       store4(out + (size_t)(base + i) * B * C + row, o);
     }
   if (act) store4(sh + 4 * j, lnv);  // the f32 LayerNorm, not rounded
-}
-
-// Sum over a head's HEAD = 64 values held by threads 0..63 (the others pass
-// 0), in a fixed order; every thread gets the total.
-__device__ __forceinline__ float head_sum(float v, float* red) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  const int tid = threadIdx.x;
-  if (tid < HEAD && (tid & 31) == 0) red[tid >> 5] = v;
-  __syncthreads();
-  const float t = red[0] + red[1];
-  __syncthreads();
-  return t;
 }
 
 }  // namespace decode

@@ -65,9 +65,19 @@
 //      reads its five low-rank stages out of one (B, 5D) product).
 //    In f32 (the parity models), and for bf16 shapes the tensor-core
 //    kernel does not take, the same plan runs on CUDA-core FMAs.
-//  * v7_wkv_gn: bytes of the state (read once, written once for active
-//    rows), as wkv7_t1, with the vector prologue and the GroupNorm / bonus /
-//    gate epilogue fused around the same register layout.
+//  * v7_wkv_gn: bytes of the state (16 KB a head, read once, written once
+//    for active rows), with the vector prologue and the GroupNorm / bonus /
+//    gate epilogue fused around the state's update.  At B <= 8 the
+//    launch is a chain of latencies around 2 MB, so the design shortens
+//    the chain:
+//    - a programmatic dependent launch that asks for its state rows and
+//      weights before it waits for the kernel before it (the LoRA-up
+//      product), so the state's DRAM round trip overlaps that kernel;
+//    - one block per (b, h) and one block barrier (the y exchange): a
+//      thread holds a 4 x 4 tile of the state and computes the prologue
+//      of its four columns in registers (16-byte loads throughout), the
+//      norm and bonus over the head as its four terms and four shuffles,
+//      and the GroupNorm runs within a warp by shuffles.
 //  * v7_ln_mix: latency (decode_common.cuh).
 
 #include <cooperative_groups.h>
@@ -478,6 +488,26 @@ skinny_fma_kernel(const __grid_constant__ SKArgs a) {
 // v7_wkv_gn: vector prologue, WKV step in place, GroupNorm, bonus, gate
 // ---------------------------------------------------------------------------
 
+// One block per (b, h).  A thread holds a 4 x 4 tile of the state: four
+// value rows (row group tid / 16) by four columns (cq); the 16 threads of a
+// row group cover its rows' 64 columns, 256 contiguous bytes a row.  A
+// thread computes the vector prologue of its four columns in registers; the
+// removal key's squared norm and the bonus sum over the head are its four
+// terms in pairs, then the 16 threads' by shuffles in pairs (the norm's
+// squares and sums unfused), so every thread holds the same bits and no
+// barrier precedes the update.  The rows' y meet in shared memory (the
+// block's one barrier), and every warp takes the GroupNorm of all 64 in
+// the same order (head_moments).
+constexpr int CQ = 16;  // threads across a row group's 64 columns
+
+// Sum over the 16 threads of a row group (lanes xor 1, 2, 4, 8).
+__device__ __forceinline__ float group_sum(float x) {
+#pragma unroll
+  for (int off = 1; off < CQ; off <<= 1)
+    x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 wkv_gn_kernel(const float* __restrict__ r, const float* __restrict__ k,
@@ -487,82 +517,112 @@ wkv_gn_kernel(const float* __restrict__ r, const float* __restrict__ k,
               const float* __restrict__ vecs,
               const uint8_t* __restrict__ active, float* __restrict__ S,
               T* __restrict__ out, int H, int C, int is_first) {
-  __shared__ __align__(16) float sv[6][N];  // r, w, k2, v2, kk, a
   __shared__ float ys[N];
-  __shared__ float red[2];
   grid_launch_dependents();
   const int bh = blockIdx.x;
   const int b = bh / H, h = bh % H;
-  const int tid = threadIdx.x;
-  const int row = tid / TPR, q = tid % TPR;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int cq = tid % CQ, col = 4 * cq;
+  const int row0 = 4 * (tid / CQ);  // the first of its four rows
+  const int orow = row0 + (cq & 3);  // the row whose output lane cq < 4 has
   const size_t vo = (size_t)bh * N;  // == b * C + h * N
-  const int c = h * N + tid;         // channel, for tid < N
-  const bool act = active[b] != 0;
+  const int c0 = h * N;
+  float* st = S + (vo + row0) * N + col;
 
-  float4* state = reinterpret_cast<float4*>(S + (vo + row) * N);
-  float4 s[J];
+  // Before the wait, what no launch of the stack before this one writes:
+  // this layer's state (written only by this same launch a step earlier;
+  // the engine's copies into the state pool precede the whole step, whose
+  // first launch is an ordinary one) and the weights.  vecs rows: w0 a0 v0
+  // k_k k_a r_k lnx_w lnx_b.
+  float4 s[4];
 #pragma unroll
-  for (int j = 0; j < J; ++j) s[j] = state[4 * j + q];
+  for (int i = 0; i < 4; ++i) s[i] = ld4_l2(st + (size_t)i * N);
+  const float4 kkw = ld4(vecs + 3 * (size_t)C + c0 + col);
+  const float4 kaw = ld4(vecs + 4 * (size_t)C + c0 + col);
+  const float4 rkw = ld4(vecs + 5 * (size_t)C + c0 + col);
+  const float lnw = vecs[6 * (size_t)C + c0 + orow];
+  const float lnb = vecs[7 * (size_t)C + c0 + orow];
+  grid_wait();
 
-  // vecs rows: w0 a0 v0 k_k k_a r_k lnx_w lnx_b
-  float rv = 0.f, wv = 0.f, av = 0.f, kk = 0.f, k2 = 0.f, v2 = 0.f, rk = 0.f;
-  float gv = 0.f, lnw = 0.f, lnb = 0.f;  // for the epilogue, fetched now
-  if (tid < N) {
-    gv = g[vo + tid];
-    lnw = vecs[6 * (size_t)C + c];
-    lnb = vecs[7 * (size_t)C + c];
-    rv = r[vo + tid];
-    const float kv = k[vo + tid];
-    const float vv = v[vo + tid];
-    av = a[vo + tid];
-    wv = w[vo + tid];
-    kk = kv * vecs[3 * (size_t)C + c];
-    k2 = kv * (1.f + (av - 1.f) * vecs[4 * (size_t)C + c]);
-    if (is_first) {
-      v2 = vv;
-      v_first[vo + tid] = vv;
-    } else {
-      v2 = vv + (v_first[vo + tid] - vv) * vmix[vo + tid];
-    }
-    rk = rv * k2 * vecs[5 * (size_t)C + c];  // the bonus reads the unmasked k2
-    if (!act) {
-      wv = 1.f;
-      k2 = 0.f;
-      kk = 0.f;
-    }
+  // After it, what the launches before write: r, k, v, w, a, g, vmix and
+  // v_first (layer 0's launch writes it), and active (from the lengths),
+  // all from L2 (ld4_l2).
+  const bool act = __ldcg(active + b) != 0;
+  const float4 rv = ld4_l2(r + vo + col), kv = ld4_l2(k + vo + col);
+  const float4 av = ld4_l2(a + vo + col);
+  float4 wv = ld4_l2(w + vo + col);
+  const float4 vv = ld4_l2(v + vo + row0);
+  float4 v2 = vv;
+  if (!is_first) {
+    const float4 vf = ld4_l2(v_first + vo + row0);
+    const float4 vm = ld4_l2(vmix + vo + row0);
+    v2 = make_float4(vv.x + (vf.x - vv.x) * vm.x, vv.y + (vf.y - vv.y) * vm.y,
+                     vv.z + (vf.z - vv.z) * vm.z, vv.w + (vf.w - vv.w) * vm.w);
   }
-  const float norm2 = head_sum(kk * kk, red);
-  const float bonus = head_sum(rk, red);
-  if (tid < N) {
-    kk = rnd<T>(kk / fmaxf(sqrtf(norm2), 1e-12f));
-    sv[0][tid] = rv;
-    sv[1][tid] = wv;
-    sv[2][tid] = k2;
-    sv[3][tid] = v2;
-    sv[4][tid] = kk;
-    sv[5][tid] = av;
+  const float gv = __ldcg(g + vo + orow);
+
+  float4 kk = make_float4(kv.x * kkw.x, kv.y * kkw.y, kv.z * kkw.z,
+                          kv.w * kkw.w);
+  float4 k2 = make_float4(kv.x * (1.f + (av.x - 1.f) * kaw.x),
+                          kv.y * (1.f + (av.y - 1.f) * kaw.y),
+                          kv.z * (1.f + (av.z - 1.f) * kaw.z),
+                          kv.w * (1.f + (av.w - 1.f) * kaw.w));
+  // The bonus reads the unmasked k2.
+  const float bonus = group_sum(
+      (rv.x * k2.x * rkw.x + rv.y * k2.y * rkw.y)
+      + (rv.z * k2.z * rkw.z + rv.w * k2.w * rkw.w));
+  if (!act) {
+    wv = make_float4(1.f, 1.f, 1.f, 1.f);
+    k2 = make_float4(0.f, 0.f, 0.f, 0.f);
+    kk = make_float4(0.f, 0.f, 0.f, 0.f);
   }
-  __syncthreads();
+  // The squared norm: products unfused, the four in pairs, then the group
+  // in pairs (ops/v7_decode.py:quad_sum).
+  const float n2 = group_sum((__fmul_rn(kk.x, kk.x) + __fmul_rn(kk.y, kk.y))
+                             + (__fmul_rn(kk.z, kk.z) + __fmul_rn(kk.w, kk.w)));
+  const float inv = fmaxf(sqrtf(n2), 1e-12f);
+  kk = make_float4(rnd<T>(kk.x / inv), rnd<T>(kk.y / inv),
+                   rnd<T>(kk.z / inv), rnd<T>(kk.w / inv));
+  if (is_first && cq == 0)
+    *reinterpret_cast<float4*>(v_first + vo + row0) = vv;
 
   // An inactive row keeps its state bit for bit (and is not written).
+  const float v2r[4] = {v2.x, v2.y, v2.z, v2.w};
   if (act) {
-    update(s, sv[1], sv[2], sv[4], sv[5], sv[3][row], q);
+    const float4 kka = make_float4(kk.x * av.x, kk.y * av.y, kk.z * av.z,
+                                   kk.w * av.w);
+    float skk[4];
 #pragma unroll
-    for (int j = 0; j < J; ++j) state[4 * j + q] = s[j];
+    for (int i = 0; i < 4; ++i) skk[i] = dot4(s[i], kk);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) skk[i] = group_sum(skk[i]);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      s[i].x = s[i].x * wv.x - skk[i] * kka.x + v2r[i] * k2.x;
+      s[i].y = s[i].y * wv.y - skk[i] * kka.y + v2r[i] * k2.y;
+      s[i].z = s[i].z * wv.z - skk[i] * kka.z + v2r[i] * k2.z;
+      s[i].w = s[i].w * wv.w - skk[i] * kka.w + v2r[i] * k2.w;
+      *reinterpret_cast<float4*>(st + (size_t)i * N) = s[i];
+    }
   }
-  const float yv = readout(s, sv[0], q);
-  if (q == 0) ys[row] = yv;
+  float y[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) y[i] = dot4(s[i], rv);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) y[i] = group_sum(y[i]);
+  const int e = cq & 3;
+  const float yv = e == 0 ? y[0] : e == 1 ? y[1] : e == 2 ? y[2] : y[3];
+
+  // The head's 64 y into ys.
+  if (cq < 4) ys[orow] = yv;
   __syncthreads();
 
   // GroupNorm of the f32 y over the head, bonus, gate.
-  const float y = tid < N ? ys[tid] : 0.f;
-  const float mean = head_sum(y, red) / N;
-  const float d = tid < N ? y - mean : 0.f;
-  const float var = head_sum(d * d, red) / N;
-  if (tid < N) {
-    const float yn = d * rsqrtf(var + GN_EPS);
-    const float yf = (yn * lnw + lnb) + bonus * v2;
-    out[vo + tid] = from_f<T>(yf * gv);
+  const Moments m = head_moments(ys[lane], ys[lane + 32]);
+  if (cq < 4) {
+    const float yn = (yv - m.mean) * rsqrtf(m.var + GN_EPS);
+    const float yf = (yn * lnw + lnb) + bonus * v2r[e];
+    out[vo + orow] = from_f<T>(yf * gv);
   }
 }
 
@@ -690,25 +750,29 @@ int v7_skinny_matmul_launch(const int64_t* desc, int n_prob,
   return 0;
 }
 
+// One launch per layer, B x H blocks.  Every f32 operand 16-byte aligned.
+// A programmatic dependent launch that reads S and vecs before it waits
+// for the kernel before it: whatever writes them must have finished before
+// this kernel starts (a synchronisation, or a launch without PDL between
+// them).
 int v7_wkv_gn_launch(const float* r, const float* k, const float* v,
                      const float* w, const float* a, const float* g,
                      const float* vmix, float* v_first, const float* vecs,
                      const uint8_t* active, float* S, void* out, int B, int H,
                      int n, int is_first, int dtype, void* stream) {
-  if (n != N || B <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const int C = H * N;
-  if (dtype == 1)
-    wkv_gn_kernel<__nv_bfloat16><<<B * H, THREADS, 0, st>>>(
-        r, k, v, w, a, g, vmix, v_first, vecs, active, S,
-        (__nv_bfloat16*)out, H, C, is_first);
-  else if (dtype == 0)
-    wkv_gn_kernel<float><<<B * H, THREADS, 0, st>>>(
-        r, k, v, w, a, g, vmix, v_first, vecs, active, S, (float*)out, H, C,
-        is_first);
-  else
+  if (n != N || B <= 0 || H <= 0 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  const void* kern = dtype == 1 ? (const void*)wkv_gn_kernel<__nv_bfloat16>
+                                : (const void*)wkv_gn_kernel<float>;
+  int h = H, c = H * N, first = is_first;
+  void* params[] = {(void*)&r,    (void*)&k,      (void*)&v,
+                    (void*)&w,    (void*)&a,      (void*)&g,
+                    (void*)&vmix, (void*)&v_first, (void*)&vecs,
+                    (void*)&active, (void*)&S,    (void*)&out,
+                    &h,           &c,             &first};
+  const cudaError_t e = launch_ex(kern, dim3(B * H), THREADS, 0, 0, true,
+                                  (cudaStream_t)stream, params);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
 }  // extern "C"

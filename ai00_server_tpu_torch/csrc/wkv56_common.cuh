@@ -1,7 +1,6 @@
 // Shared device code of the RWKV-5/6 WKV kernels: the register layout of one
 // head's k-major state and the step on it.  Included by wkv56.cu (one WKV
-// step, a T-token chunk) and v6_decode.cu (the WKV stage of the fused v6
-// decode step).
+// step, a T-token chunk).
 //
 // Thread layout: N = 64 threads per (b, h) block; thread v owns column v of
 // the head's state S (N_k x N_v, f32, v contiguous) and holds it in 64

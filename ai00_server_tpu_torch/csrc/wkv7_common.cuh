@@ -1,7 +1,7 @@
 // Shared device code of the RWKV-7 WKV kernels: the register layout of one
 // head's state and the delta-rule update / readout on it.  Included by
-// wkv7.cu (one WKV step, a T-token chunk) and v7_decode.cu (the WKV stage
-// of the fused decode step).
+// wkv7.cu (one WKV step, a T-token chunk); v7_decode.cu's WKV stage takes
+// its constants and dot4.
 //
 // Thread layout: 256 threads per (b, h) block, tid = row * 4 + q; thread q
 // of a row owns columns 16*j + 4*q + e (j, e in 0..3) of its state row, so

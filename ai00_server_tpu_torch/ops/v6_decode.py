@@ -46,7 +46,8 @@ from ..models.common import GN_EPS, layer_norm
 from . import _build, fused_decode
 from . import v7_decode as v7d
 from .v7_decode import (_DTYPE_CODE, Product, _dense, _one_cuda_device,
-                        _require, _stream, v7_ln_mix, v7_skinny_matmul)
+                        _require, _stream, head_norm, pair_sum,
+                        v7_ln_mix, v7_skinny_matmul)
 
 FUSED_KEY = "_fused_t1_v6"
 
@@ -148,6 +149,38 @@ def v6_wkv_gn_plain(r, k, v, w, g, vecs, active, S, dtype, round_yf=True):
     return (yf * g).to(dtype), S_new
 
 
+def v6_wkv_gn_mirror(r, k, v, w, g, vecs, active, S, dtype, round_yf=True):
+    """The arithmetic of ``csrc/v6_decode.cu``'s kernel in PyTorch: the
+    partial y of the 16 groups of four k rows (each group's rows in order)
+    summed in pairs of neighbouring groups, then pairs of those (the
+    kernel's fixed tree), and normalised (``v7_decode.head_norm``).  The
+    kernel fuses multiply-adds, so the two differ by f32 roundings.  Same
+    contract as :func:`v6_wkv_gn_plain`; for the tests, never on a serving
+    path."""
+    B, H, N, _ = S.shape
+    C = H * N
+
+    def heads(t):
+        return t.reshape(B, H, N)
+
+    if w is None:  # RWKV-5's static decay
+        w = vecs[_VEC_IDX["decay"]].expand(B, C)
+    rr, kr, wr, vv = heads(r), heads(k), heads(w), heads(v)
+    ur = vecs[_VEC_IDX["first"]].reshape(H, N)
+    a = kr[..., :, None] * vv[..., None, :]                 # (B, H, N_k, N)
+    t = (rr[..., :, None] * (ur[:, :, None] * a + S)).reshape(
+        B, H, N // 4, 4, N)
+    part = ((t[:, :, :, 0] + t[:, :, :, 1]) + t[:, :, :, 2]) \
+        + t[:, :, :, 3]                                      # (B, H, 16, N)
+    yn = head_norm(pair_sum(part.transpose(-1, -2))).reshape(B, C)
+    S_new = torch.where(active[:, None, None, None],
+                        wr[..., :, None] * S + a, S)
+    yf = yn * vecs[_VEC_IDX["lnx_w"]] + vecs[_VEC_IDX["lnx_b"]]
+    if round_yf:
+        yf = yf.to(dtype).float()
+    return (yf * g).to(dtype), S_new
+
+
 def _wkv_gn_inplace_plain(r, k, v, w, g, vecs, active, S, dtype,
                           round_yf=True):
     out, S_new = v6_wkv_gn_plain(r, k, v, w, g, vecs, active, S, dtype,
@@ -172,7 +205,13 @@ def v6_wkv_gn(r, k, v, w, g, vecs, active, S, dtype, round_yf=True):
 
     ``w=None`` is RWKV-5's static-decay mode: every row decays by vecs row
     0, which then holds ``exp(-exp(time_decay))`` (the kernel reads it with
-    a batch stride of 0)."""
+    a batch stride of 0).
+
+    On the card one launch of ``B * H`` blocks, a programmatic dependent
+    that reads ``S``, ``vecs`` and, in the static mode, the decay before it
+    waits for the kernel launched before it on the stream: whatever writes
+    them must have finished when this kernel starts (as for
+    ``v7_wkv_gn``)."""
     if S.device.type == "cpu":
         return _wkv_gn_inplace_plain(r, k, v, w, g, vecs, active, S, dtype,
                                      round_yf)
@@ -188,6 +227,8 @@ def v6_wkv_gn(r, k, v, w, g, vecs, active, S, dtype, round_yf=True):
     for t in (r, k, v, g) if static else (r, k, v, w, g):
         _dense(t, (B, C), torch.float32, "r/k/v/w/g")
     _dense(vecs, (len(_VEC_NAMES), C), torch.float32, "vecs")
+    _require(all(t.data_ptr() % 16 == 0 for t in (S, *f32s, vecs)),
+             "S, r/k/v/w/g and vecs must be 16-byte aligned")
     _dense(active, (B,), torch.bool, "active")
     out = torch.empty((B, C), dtype=dtype, device=dev)
     status = _build.library("v6_decode").v6_wkv_gn_launch(

@@ -686,6 +686,91 @@ def v7_wkv_gn_plain(r, k, v, w, a, g, vmix, v_first, vecs, active, S,
     return (yf * g).to(dtype), S_new, v_first
 
 
+# ---------------------------------------------------------------------------
+# The kernels' order of sums, in PyTorch (v7_wkv_gn, v6_wkv_gn)
+# ---------------------------------------------------------------------------
+
+
+def halving_sum(x):
+    """Sum over the last dimension (a power of two) in the kernels' order
+    (``csrc/decode_common.cuh:head_moments``, ``warp_sum``): element i plus
+    element i + n/2 first, then the same on that half, down to one.  On
+    the same f32 inputs it gives the kernels' bits."""
+    while x.shape[-1] > 1:
+        h = x.shape[-1] // 2
+        x = x[..., :h] + x[..., h:]
+    return x[..., 0]
+
+
+def pair_sum(x):
+    """Sum over the last dimension (a power of two) by neighbours in pairs,
+    then pairs of those, down to one: the lanes xor 1, 2, 4 ... of the
+    kernels' shuffle sums (and v6's row groups)."""
+    while x.shape[-1] > 1:
+        x = x[..., 0::2] + x[..., 1::2]
+    return x[..., 0]
+
+
+def quad_sum(x):
+    """Sum over a v7 head's 64 channels (the last dimension) in
+    ``csrc/v7_decode.cu``'s order: thread cq of a row group holds channels
+    4 cq + e and adds them in pairs, ``(e0 + e1) + (e2 + e3)``; the 16
+    threads then add theirs by :func:`pair_sum`.  On the same f32 inputs it
+    gives the kernel's bits."""
+    t = x.reshape(*x.shape[:-1], 16, 4)
+    return pair_sum((t[..., 0] + t[..., 1]) + (t[..., 2] + t[..., 3]))
+
+
+def head_norm(y):
+    """GroupNorm of a head's y (..., 64) as the kernels take it: the two-pass
+    mean and variance in :func:`halving_sum` order, then ``(y - mean)
+    rsqrt(var + eps)``."""
+    n = y.shape[-1]
+    mean = halving_sum(y) / n
+    d = y - mean[..., None]
+    var = halving_sum(d * d) / n
+    return d * torch.rsqrt(var + GN_EPS)[..., None]
+
+
+def v7_wkv_gn_mirror(r, k, v, w, a, g, vmix, v_first, vecs, active, S,
+                     is_first: bool, dtype):
+    """The arithmetic of ``csrc/v7_decode.cu``'s ``wkv_gn_kernel`` in
+    PyTorch: the removal key's norm and the bonus in :func:`quad_sum` order
+    over the head, the value rows updated and read out, the head's y
+    normalised (:func:`head_norm`).  The norm's order is the kernel's, so
+    ``kk`` rounds through ``dtype`` to its bits; the rest differs from it by
+    f32 roundings (the kernel fuses multiply-adds).  Same contract as
+    :func:`v7_wkv_gn_plain`; for the tests, never on a serving path."""
+    B, H, N, _ = S.shape
+
+    def heads(t):
+        return t.reshape(B, H, N)
+
+    def vec(name):
+        return vecs[_VEC_IDX[name]].reshape(H, N)
+
+    rv, kv, av, vv = heads(r), heads(k), heads(a), heads(v)
+    kk = kv * vec("k_k")
+    k2 = kv * (1.0 + (av - 1.0) * vec("k_a"))
+    bonus = quad_sum(rv * k2 * vec("r_k"))  # the unmasked k2
+    act = active[:, None, None]
+    wv = torch.where(act, heads(w), torch.ones_like(kv))
+    k2 = torch.where(act, k2, torch.zeros_like(k2))
+    kk = torch.where(act, kk, torch.zeros_like(kk))
+    norm = torch.clamp(torch.sqrt(quad_sum(kk * kk)), min=1e-12)
+    kk = (kk / norm[..., None]).to(dtype).float()
+    v2 = vv if is_first else vv + (heads(v_first) - vv) * heads(vmix)
+    skk = torch.sum(S * kk[:, :, None, :], dim=-1)
+    S_new = (S * wv[:, :, None, :]
+             - skk[..., None] * (kk * av)[:, :, None, :]
+             + v2[..., None] * k2[:, :, None, :])
+    S_new = torch.where(active[:, None, None, None], S_new, S)
+    yn = head_norm(torch.sum(S_new * rv[:, :, None, :], dim=-1))
+    yf = (yn * vec("lnx_w") + vec("lnx_b")) + bonus[..., None] * v2
+    out = (yf * heads(g)).reshape(B, H * N).to(dtype)
+    return out, S_new, (v.clone() if is_first else v_first)
+
+
 def _wkv_gn_inplace_plain(r, k, v, w, a, g, vmix, v_first, vecs, active, S,
                           is_first, dtype):
     out, S_new, vf = v7_wkv_gn_plain(r, k, v, w, a, g, vmix, v_first, vecs,
@@ -709,6 +794,14 @@ def v7_wkv_gn(r, k, v, w, a, g, vmix, v_first, vecs, active, S,
     state bit for bit), ``y = S' r``, GroupNorm of the f32 ``y`` per head,
     the bonus ``sum(r k2 r_k) v2`` and the gate by ``g``.  Returns the
     operand of the output projection, (B, C) in ``dtype``.
+
+    On the card one launch of ``B * H`` blocks, a programmatic dependent
+    that reads ``S`` and ``vecs`` before it waits for the kernel launched
+    before it on the stream.  So whatever writes them must have finished
+    when this kernel starts: in the stacks ``S`` is written only by this
+    launch a step earlier (an earlier graph replay) and ``vecs`` never; a
+    caller that has just filled ``S`` synchronises, or lets a launch
+    without PDL (any PyTorch operation) come between.
     """
     if S.device.type == "cpu":
         return _wkv_gn_inplace_plain(r, k, v, w, a, g, vmix, v_first, vecs,
@@ -725,6 +818,8 @@ def v7_wkv_gn(r, k, v, w, a, g, vmix, v_first, vecs, active, S,
     for t in f32s:
         _dense(t, (B, C), torch.float32, "r/k/v/w/a/g/vmix/v_first")
     _dense(vecs, (8, C), torch.float32, "vecs")
+    _require(all(t.data_ptr() % 16 == 0 for t in (S, *f32s, vecs)),
+             "S, r/k/v/w/a/g/vmix/v_first and vecs must be 16-byte aligned")
     _dense(active, (B,), torch.bool, "active")
     out = torch.empty((B, C), dtype=dtype, device=dev)
     status = _build.library("v7_decode").v7_wkv_gn_launch(

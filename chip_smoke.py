@@ -1927,6 +1927,147 @@ IVF_Q, IVF_CHECK_Q, IVF_RECALL_Q = 64, 16, 256
 IVF_SMALL_N, IVF_SMALL_NLIST = 1 << 16, 64  # the bf16 and f32 indexes
 
 
+# The decode WKV stages at the widths the stacks serve them: v7 and v5 0.4B
+# (H = 16), v6 1B6 (H = 32), v7 2.9B (H = 40; the phased stacks at B = 64).
+# (row of the kernels line, kind, H)
+WKV_GN_WIDTHS = (("v7_wkv_gn", "v7", C // HEAD),
+                 ("v7_wkv_gn", "v7", C29 // HEAD),
+                 ("v6_wkv_gn", "v6", C6 // HEAD),
+                 ("v6_wkv_gn (v5)", "v5", C // HEAD))
+# The batches they are held at: the fused stacks' 1 ... 8 (5: a ragged
+# one) and the phased stacks' 16 and 64.
+WKV_GN_HELD_BS = (1, 5, MAX_BATCH, 16, WIDE_BATCH)
+
+
+def wkv_gn_case(kind: str, B: int, H: int, dev, seed: int, mode: bool):
+    """One call of a decode WKV stage in bf16 at (B, H), every row active:
+    ``mode`` is ``is_first`` for v7 and ``round_yf`` for v5 / v6.  Returns
+    (kernel(S, vf) -> out, plain(S, vf) -> (out, S_new, vf_new), mirror(S,
+    vf) -> the same in the kernel's order (``*_wkv_gn_mirror``), v_first or
+    None, active, bytes besides the state)."""
+    import torch
+
+    from ai00_server_tpu_torch.ops import v6_decode as fd6
+    from ai00_server_tpu_torch.ops import v7_decode as fd
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    Cw, cd = H * HEAD, torch.bfloat16
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    active = torch.ones(B, dtype=torch.bool, device=dev)
+    if kind == "v7":
+        r, k, v, g, vf = (rnd(B, Cw, scale=0.5) for _ in range(5))
+        w = torch.exp(-0.6065306597126334 * torch.sigmoid(rnd(B, Cw)))
+        a, vmix = torch.sigmoid(rnd(B, Cw)), torch.sigmoid(rnd(B, Cw))
+        vecs = rnd(8, Cw, scale=0.5)
+        args = (r, k, v, w, a, g, vmix)
+        return (lambda S, vf_: fd.v7_wkv_gn(*args, vf_, vecs, active, S,
+                                            mode, cd),
+                lambda S, vf_: fd.v7_wkv_gn_plain(*args, vf_, vecs, active,
+                                                  S, mode, cd),
+                lambda S, vf_: fd.v7_wkv_gn_mirror(*args, vf_, vecs, active,
+                                                   S, mode, cd),
+                vf, active, nbytes(*args, vf, active) + 5 * Cw * 4
+                + B * Cw * 2)
+    r, k, v = (rnd(B, Cw, scale=0.5) for _ in range(3))
+    g = torch.nn.functional.silu(rnd(B, Cw))
+    vecs = rnd(4, Cw, scale=0.5)
+    w = None
+    if kind == "v5":
+        vecs[0] = torch.exp(-torch.exp(vecs[0]))
+    else:
+        w = torch.exp(-torch.exp(rnd(B, Cw, scale=0.5)))
+    args = (r, k, v, w, g, vecs, active)
+    return (lambda S, vf_: fd6.v6_wkv_gn(*args, S, cd, mode),
+            lambda S, vf_: (*fd6.v6_wkv_gn_plain(*args, S, cd, mode), None),
+            lambda S, vf_: (*fd6.v6_wkv_gn_mirror(*args, S, cd, mode), None),
+            None, active, nbytes(r, k, v, w, g, active)
+            + (4 if w is None else 3) * Cw * 4 + B * Cw * 2)
+
+
+def phase_wkv_gn_batches(dev, rows: dict) -> None:
+    """``v7_wkv_gn`` (``is_first`` both ways) and ``v6_wkv_gn`` (v6's dense
+    decay and v5's static one, ``ln_x`` rounded as the fused stacks do and
+    gated in f32 as the phased ones do) at every width of
+    ``WKV_GN_WIDTHS`` and batch of ``WKV_GN_HELD_BS``, against the PyTorch
+    mirror of its order (the state at KERNEL_TOL) and its plain version
+    (the state at KERNEL_TOL; v7 above the fused stacks' 8 rows at
+    ``V7_WIDE_STATE_TOL``, where the plain version's other order of the
+    removal key's norm flips some bf16 roundings of kk), the bf16 output at
+    BF16_TOL against both, all x max(1, |reference|); row 1 idle where B >
+    1, its state bit for bit; ``v_first`` equal.  Then each width timed at
+    B = 64, every row active, on states rotating past the L2:
+    ``rows[row]["b64"]``."""
+    import torch
+
+    for row, kind, H in WKV_GN_WIDTHS:
+        worst = 0.0
+        for B in WKV_GN_HELD_BS:
+            for mode in (True, False):
+                kernel, plain, mirror, vf, active, _ = wkv_gn_case(
+                    kind, B, H, dev, SEED + 40 + B + H, mode)
+                if B > 1:
+                    active[1] = False
+                gen = torch.Generator(device=dev)
+                gen.manual_seed(SEED + 41 + B)
+                S = torch.randn(B, H, HEAD, HEAD, generator=gen, device=dev)
+                S_k = S.clone()
+                vf_k = None if vf is None else vf.clone()
+                want, S_want, vf_want = plain(S, vf)  # between: S is read
+                got_m, S_m, _ = mirror(S, vf)         # before the wait
+                got = kernel(S_k, vf_k)
+                torch.cuda.synchronize()
+                what = f"{row} H={H} B={B} (mode {mode})"
+                wide = kind == "v7" and B > MAX_BATCH
+                for a, b, tol, ref in (
+                        (got, want, BF16_TOL, "plain version"),
+                        (S_k, S_want, V7_WIDE_STATE_TOL if wide
+                         else KERNEL_TOL, "plain version"),
+                        (got, got_m, BF16_TOL, "mirror"),
+                        (S_k, S_m, KERNEL_TOL, "mirror")):
+                    err, rel = rel_err(a.float(), b.float())
+                    check(rel <= tol, f"{what} disagrees with its {ref}: "
+                          f"{err:.3e}")
+                    worst = max(worst, err)
+                if B > 1:
+                    check(torch.equal(S_k[1], S[1]),
+                          f"{what} changed an inactive row's state")
+                if vf is not None:
+                    check(torch.equal(vf_k, vf_want), f"{what} v_first")
+                del S, S_k, S_want
+        wide = ("" if kind != "v7" else f", {V7_WIDE_STATE_TOL:.1e} "
+                "against the plain version above B=8")
+        print(f"{row} H={H}, B = {', '.join(map(str, WKV_GN_HELD_BS))}, "
+              f"both modes, row 1 "
+              f"idle: max_abs_err {worst:.3e} against the plain version "
+              f"and the mirror (tolerance {BF16_TOL:.2e} x max(1, |ref|) "
+              f"on the bf16 output, {KERNEL_TOL} on the f32 state{wide}); "
+              "idle row bit-identical", flush=True)
+        rows[row]["max_abs_err"] = max(rows[row]["max_abs_err"], worst)
+
+        B = WIDE_BATCH
+        kernel, _, _, vf, _, other = wkv_gn_case(kind, B, H, dev,
+                                                 SEED + 42 + H, True)
+        state_bytes = B * H * HEAD * HEAD * 4
+        n = max(3, int(L2_BYTES // state_bytes) + 2)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED + 43)
+        states = [torch.randn(B, H, HEAD, HEAD, generator=gen, device=dev)
+                  for _ in range(n)]
+        ms = device_ms(rotating(lambda i: kernel(states[i], vf), n), 100)
+        b_ms, b_by = bound(2 * state_bytes + other, 9 * B * H * HEAD * HEAD)
+        rows[row].setdefault("b64", {})[f"H={H}"] = {
+            "ms": ms, "bound_ms": b_ms, "bound_by": b_by}
+        print(f"{row} B={B} H={H} bf16 ({n} rotating states, every row "
+              f"active): {ms:.5f} ms on the device, bound {b_ms:.5f} ms by "
+              f"{b_by}", flush=True)
+        del states
+        torch.cuda.empty_cache()
+
+
 def phase_phased_kernels(dev) -> dict:
     """``phased_matmul`` (``csrc/phased.cu``) against its plain version on
     the four big launches of a v7 layer (r/k/v, Wo, fkey, fval) at the 0.4B
@@ -2395,8 +2536,10 @@ def lockstep(kernels, plains, worst: dict,
             else:
                 k_args = [a.clone() if isinstance(a, torch.Tensor) else a
                           for a in args]
-            got = kernel(*k_args, **kw)
+            # The plain version first: its launches come between the
+            # copies and the kernel, which reads its state before it waits.
             want = plain(*args, **kw)
+            got = kernel(*k_args, **kw)
             if name == "matmul":
                 pairs = [(g, w, p.out in ("cd", "mix") or p.round_cd)
                          for g, w, p in zip(got, want, prods)]
@@ -3736,6 +3879,7 @@ def main() -> None:
     rows.update(phase_4bit_kernels(dev))
     rows.update(phase_v6_kernels(dev))
     rows.update(phase_v54_kernels(dev))
+    phase_wkv_gn_batches(dev, rows)
     rows.update(phase_phased_kernels(dev))
     rows.update(phase_ivf_kernels(dev))
     print(f"phase 2 (kernels) {time.monotonic() - t0:.1f} s", flush=True)

@@ -313,9 +313,9 @@ def test_v7_wkv_gn_kernel_matches_plain(dev, dtype, is_first):
     a, vmix = torch.sigmoid(rnd(B, C)), torch.sigmoid(rnd(B, C))
     vecs, S = rnd(8, C, scale=0.5), rnd(B, H, N, N)
     active = torch.tensor([True, False, True, True, False], device=dev)
-    want, S_want, vf_want = fd.v7_wkv_gn_plain(
+    S_k, vf_k = S.clone(), vf.clone()  # before other launches: S is read
+    want, S_want, vf_want = fd.v7_wkv_gn_plain(  # before the kernel waits
         r, k, v, w, a, g, vmix, vf, vecs, active, S, is_first, dtype)
-    S_k, vf_k = S.clone(), vf.clone()
     got = fd.v7_wkv_gn(r, k, v, w, a, g, vmix, vf_k, vecs, active, S_k,
                        is_first, dtype)
     _close_t(got, want, dtype)
@@ -1091,8 +1091,8 @@ def test_v6_wkv_gn_kernel_matches_plain(dev, dtype):
     w = torch.exp(-torch.exp(rnd(B, C, scale=0.5)))
     vecs, S = rnd(4, C, scale=0.5), rnd(B, H, N, N)
     active = torch.tensor([True, False, True, True, False], device=dev)
+    S_k = S.clone()  # before other launches: S is read before the wait
     want, S_want = fd6.v6_wkv_gn_plain(r, k, v, w, g, vecs, active, S, dtype)
-    S_k = S.clone()
     before = fd6.v6_wkv_gn.launches
     got = fd6.v6_wkv_gn(r, k, v, w, g, vecs, active, S_k, dtype)
     assert fd6.v6_wkv_gn.launches == before + 1
@@ -1212,6 +1212,7 @@ def test_v6_wkv_gn_static_decay_matches_plain(dev, dtype):
                                    vecs, active, S, dtype)
     assert torch.equal(want, dense)  # the mode is the broadcast decay
     S_k = S.clone()
+    torch.cuda.synchronize()  # S is read before the kernel waits
     before = fd6.v6_wkv_gn.launches
     got = fd6.v6_wkv_gn(r, k, v, None, g, vecs, active, S_k, dtype)
     assert fd6.v6_wkv_gn.launches == before + 1
@@ -1627,3 +1628,152 @@ def test_phased_matmul_kernel_refuses_what_it_does_not_take(dev):
                        [(1024, 40, "none", False, False, "cd")])
     with pytest.raises(ValueError, match="multiple of 16"):
         pm.phased_matmul([odd])
+
+
+# ---------------------------------------------------------------------------
+# The decode WKV stages, v7_wkv_gn and v6_wkv_gn, at the batches the stacks
+# serve
+# ---------------------------------------------------------------------------
+#
+# Against their arithmetic in PyTorch (v7_wkv_gn_mirror, v6_wkv_gn_mirror)
+# at MIRROR_TOL on f32 results and one bf16 ulp on bf16 ones, and against
+# the plain versions as above.  The kernels read S before they wait for the
+# launch before them, so each test lets launches without PDL (the plain
+# version's PyTorch ops) or a synchronisation come between filling S and
+# the kernel.
+
+WKV_GN_KINDS = ["v7", "v7 first", "v6", "v6 f32 gate", "v5"]
+WKV_GN_BS = [1, 5, 8, 16, 64]
+
+
+def _wkv_gn_io(kind, B, H, dtype, dev, seed):
+    """(S, kernel(S_, vf_) -> out, plain() -> (out, S, vf), mirror() ->
+    (out, S, vf), v_first or None, active) for one case; v_first is None
+    for v5/v6."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    C = H * 64
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    S = rnd(B, H, 64, 64)
+    active = torch.arange(B, device=dev) % 3 != 1
+    if kind.startswith("v7"):
+        r, k, v, g, vf = (rnd(B, C, scale=0.5) for _ in range(5))
+        w = torch.exp(-fd.W_SCALE * torch.sigmoid(rnd(B, C)))
+        a, vmix = torch.sigmoid(rnd(B, C)), torch.sigmoid(rnd(B, C))
+        vecs = rnd(8, C, scale=0.5)
+        first = kind == "v7 first"
+        args = (r, k, v, w, a, g, vmix)
+        return (S,
+                lambda S_, vf_: fd.v7_wkv_gn(*args, vf_, vecs, active, S_,
+                                             first, dtype),
+                lambda: fd.v7_wkv_gn_plain(*args, vf, vecs, active, S, first,
+                                           dtype),
+                lambda: fd.v7_wkv_gn_mirror(*args, vf, vecs, active, S,
+                                            first, dtype),
+                vf, active)
+    r, k, v = (rnd(B, C, scale=0.5) for _ in range(3))
+    g = torch.nn.functional.silu(rnd(B, C))
+    vecs = rnd(4, C, scale=0.5)
+    if kind == "v5":
+        vecs[0] = torch.exp(-torch.exp(vecs[0]))
+        w = None
+    else:
+        w = torch.exp(-torch.exp(rnd(B, C, scale=0.5)))
+    rnd_yf = kind != "v6 f32 gate"
+    args = (r, k, v, w, g, vecs, active)
+    return (S,
+            lambda S_, vf_: fd6.v6_wkv_gn(*args, S_, dtype, rnd_yf),
+            lambda: (*fd6.v6_wkv_gn_plain(*args, S, dtype, rnd_yf), None),
+            lambda: (*fd6.v6_wkv_gn_mirror(*args, S, dtype, rnd_yf), None),
+            None, active)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B", WKV_GN_BS)
+@pytest.mark.parametrize("kind", WKV_GN_KINDS)
+def test_wkv_gn_kernels_match_mirror_and_plain(dev, kind, B, dtype):
+    S, kernel, plain, mirror, vf, active = _wkv_gn_io(kind, B, 5, dtype,
+                                                      dev, 100 * B)
+    S_k = S.clone()
+    vf_k = None if vf is None else vf.clone()
+    want, S_want, vf_want = plain()
+    got_m, S_m, vf_m = mirror()
+    launcher = fd.v7_wkv_gn if vf is not None else fd6.v6_wkv_gn
+    before = launcher.launches
+    got = kernel(S_k, vf_k)
+    assert launcher.launches == before + 1
+    _close(S_k, S_m, MIRROR_TOL)
+    if dtype == torch.bfloat16:
+        _close_t(got, got_m, dtype)
+    else:
+        _close(got, got_m, MIRROR_TOL)
+    _close(S_k, S_want)
+    _close_t(got, want, dtype)
+    idle = ~active
+    assert torch.equal(S_k[idle], S[idle])  # an inactive row bit for bit
+    if vf is not None:
+        assert torch.equal(vf_k, vf_want) and torch.equal(vf_m, vf_want)
+
+
+@pytest.mark.parametrize("B", [5, 64])
+@pytest.mark.parametrize("kind", WKV_GN_KINDS)
+def test_wkv_gn_kernels_same_bits(dev, kind, B):
+    """A repeat and a CUDA graph's replay give equal bits: each sum has one
+    order."""
+    S, kernel, _, _, vf, _ = _wkv_gn_io(kind, B, 5, torch.bfloat16, dev, B)
+    runs = []
+    for _ in range(2):
+        S_k = S.clone()
+        vf_k = None if vf is None else vf.clone()
+        torch.cuda.synchronize()
+        runs.append((kernel(S_k, vf_k), S_k, vf_k))
+    S_g = S.clone()
+    vf_g = None if vf is None else vf.clone()
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        kernel(S.clone(), None if vf is None else vf.clone())
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out_g = kernel(S_g, vf_g)
+    S_g.copy_(S)
+    if vf is not None:
+        vf_g.copy_(vf)
+    torch.cuda.synchronize()
+    graph.replay()
+    torch.cuda.synchronize()
+    runs.append((out_g, S_g, vf_g))
+    for out, S_k, vf_k in runs[1:]:
+        assert torch.equal(out, runs[0][0])
+        assert torch.equal(S_k, runs[0][1])
+        if vf is not None:
+            assert torch.equal(vf_k, runs[0][2])
+
+
+def test_wkv_gn_kernels_refuse_what_they_do_not_take(dev):
+    """Operands the kernels read with 16-byte loads must be 16-byte
+    aligned: the state and vecs in both modes."""
+    B, H = 2, 2
+    C = H * 64
+    S, _, _, _, _, _ = _wkv_gn_io("v6", B, H, torch.float32, dev, 0)
+    z = torch.zeros(B, C, device=dev)
+    act = torch.ones(B, dtype=torch.bool, device=dev)
+    vecs4 = torch.zeros(4, C, device=dev)
+    vecs8 = torch.zeros(8, C, device=dev)
+    odd4 = torch.zeros(4 * C + 1, device=dev)[1:].view(4, C)
+    odd8 = torch.zeros(8 * C + 1, device=dev)[1:].view(8, C)
+    odd_S = torch.zeros(S.numel() + 1, device=dev)[1:].view(S.shape)
+    for w in (None, z):  # static decay, dense decay
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            fd6.v6_wkv_gn(z, z, z, w, z, odd4, act, S.clone(), torch.float32)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            fd6.v6_wkv_gn(z, z, z, w, z, vecs4, act, odd_S, torch.float32)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fd.v7_wkv_gn(z, z, z, z, z, z, z, z.clone(), odd8, act, S.clone(),
+                     False, torch.float32)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fd.v7_wkv_gn(z, z, z, z, z, z, z, z.clone(), vecs8, act, odd_S,
+                     False, torch.float32)

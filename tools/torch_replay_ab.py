@@ -3,7 +3,7 @@
 the port against this one, on one card, in turns.
 
     mkdir -p chip_smoke_tmp/parent        # any directory git ignores
-    git archive 76b1c9c ai00_server_tpu_torch chip_smoke.py \\
+    git archive 58ee12a ai00_server_tpu_torch chip_smoke.py \\
         | tar -x -C chip_smoke_tmp/parent
     python3 tools/torch_replay_ab.py --old chip_smoke_tmp/parent \\
         [--out results.json]
@@ -14,7 +14,10 @@ tree, builds its kernels, and times one step of every fused stack at B = 8
 with all rows active (``chip_smoke.time_replay``: CUDA events around 20
 replays of the stack's ``DecodeGraph``): RWKV-7 0.4B at 24 layers in bf16,
 int8 and nf4, RWKV-5 and RWKV-4 0.4B at 24 layers in bf16, RWKV-6 1B6 at
-``chip_smoke.L6`` layers in bf16, int8 and nf4.  Weights are random from a
+``chip_smoke.L6`` layers in bf16, int8 and nf4; and the phased stacks
+(``ops/v7_phased``, ``ops/v56_phased``) at B = 64: RWKV-7 0.4B in int8 and
+bf16, RWKV-5 0.4B and RWKV-6 1B6 in bf16 (``--batches`` picks 8, 64 or
+both).  Weights are random from a
 seed, one layer drawn on the host and the big projections of every layer
 drawn anew on the card (the v6 / v5 / v4 ones scaled by their fan-in);
 codes are quantized on the card.  Turns run old, new, new, old.  Prints
@@ -31,12 +34,17 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
-STACKS = [("v7", None), ("v7", "int8"), ("v7", "nf4"), ("v5", None),
-          ("v4", None), ("v6", None), ("v6", "int8"), ("v6", "nf4")]
+# (version, weight mode, B): B = 8 the fused stacks, 64 the phased ones.
+STACKS = [("v7", None, 8), ("v7", "int8", 8), ("v7", "nf4", 8),
+          ("v5", None, 8), ("v4", None, 8), ("v6", None, 8),
+          ("v6", "int8", 8), ("v6", "nf4", 8),
+          ("v7", "int8", 64), ("v7", None, 64), ("v5", None, 64),
+          ("v6", None, 64)]
 
 
-def child() -> dict:
-    """Time every stack of ``STACKS`` with the tree on sys.path[0]."""
+def child(batches) -> dict:
+    """Time every stack of ``STACKS`` at ``batches`` with the tree on
+    sys.path[0]."""
     import numpy as np
     import torch
 
@@ -49,7 +57,9 @@ def child() -> dict:
     dev = torch.device("cuda", 0)
     out = {}
     built = {}
-    for version, mode in STACKS:
+    for version, mode, B in STACKS:
+        if B not in batches:
+            continue
         L = cs.L6 if version == "v6" else 24
         info = cs.model_info(L, version)
         fd = fused_decode.module_for(info.version.value)
@@ -79,14 +89,15 @@ def child() -> dict:
         params = built[version]
         p = params if mode is None else cs.quantized_params(
             params, info.version.value, mode)
-        state = get_version_module(info.version).init_state(info, 8,
+        state = get_version_module(info.version).init_state(info, B,
                                                             device=dev)
         for t in state.values():
             t.copy_(torch.randn(t.shape, generator=torch.Generator(
                 device=dev).manual_seed(3), device=dev) * 0.3)
-        graph = fd.DecodeGraph(p, state, 8)
-        r = cs.time_replay(fd, p, state, graph, 8)
-        out[f"{version} {mode or 'bf16'} L={L}"] = {
+        stack = fused_decode.stack_for(info.version.value, p, B)
+        graph = stack.DecodeGraph(p, state, B)
+        r = cs.time_replay(stack, p, state, graph, B, fd.FUSED_KEY)
+        out[f"{version} {mode or 'bf16'} L={L} B={B}"] = {
             "replay_ms": r["replay_ms"], "bound_ms": r["bound_ms"],
             "kernels": r["kernels_per_replay"],
             "launch_sum_ms": r.get("launch_sum_ms"),
@@ -97,12 +108,14 @@ def child() -> dict:
 
 
 def main() -> None:
-    if len(sys.argv) > 2 and sys.argv[1] == "--child":
+    if len(sys.argv) > 3 and sys.argv[1] == "--child":
         sys.path.insert(0, sys.argv[2])
-        print(json.dumps(child()))
+        print(json.dumps(child([int(b) for b in sys.argv[3].split(",")])))
         return
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--old", required=True, type=Path)
+    ap.add_argument("--batches", default="8,64",
+                    help="8 (fused stacks), 64 (phased) or 8,64")
     ap.add_argument("--out", type=Path)
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
@@ -115,7 +128,8 @@ def main() -> None:
                        ("old", args.old)):
         proc = subprocess.run(
             [sys.executable, str(Path(__file__).resolve()), "--child",
-             str(Path(tree).resolve())], capture_output=True, text=True,
+             str(Path(tree).resolve()), args.batches], capture_output=True,
+            text=True,
             cwd=str(Path(tree).resolve()))
         if proc.returncode != 0:
             sys.exit(f"the {turn} turn failed:\n{proc.stderr[-4000:]}")
