@@ -71,8 +71,10 @@ SIGNATURES = {
         # r, k, v, vecs, active, aa, bb, pp, out, B, C, dtype, stream
         "v4_wkv_launch": "pppppppppiiip",
         # aa, bb, pp, k, v, w, u, mask, aa_out, bb_out, pp_out, y, B, T, C,
-        # dtype, stream
-        "wkv4_chunk_launch": "ppppppppppppiiiip",
+        # NS, dtype, stream
+        "wkv4_chunk_launch": "ppppppppppppiiiiip",
+        # the same without NS (T <= 16: one thread a channel)
+        "wkv4_chunk_seq_launch": "ppppppppppppiiiip",
     },
     "v6_decode": {
         # r, k, v, w, g, vecs, active, S, out, B, H, N, w_stride, round_yf,

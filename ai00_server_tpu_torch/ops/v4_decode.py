@@ -12,7 +12,10 @@ is seven launches of three hand-written kernels:
 * one ``v7_skinny_matmul`` (``ops/v7_decode``) for r (sigmoid, f32), k and v
   (rounded through the activation dtype, used in f32);
 * :func:`v4_wkv` (``csrc/wkv4.cu``) — the per-channel ``(aa, bb, pp)`` step
-  in f32 and ``r * wkv`` rounded through the activation dtype;
+  in f32 and ``r * wkv`` rounded through the activation dtype, a
+  programmatic dependent that reads the layer's state before it waits for
+  the product before it (whatever fills the state must have finished when
+  it starts: a synchronisation, or a launch without PDL between);
 * ``v7_skinny_matmul`` for Wo, added into the f32 residual;
 * ``v7_ln_mix``, the key (squared ReLU) and receptance (sigmoid) products,
   and the value gated by the receptance and added into the residual, as in
@@ -142,7 +145,9 @@ def v4_wkv(r, k, v, vecs, active, aa, bb, pp, dtype):
     f32.  Computes ``wkv`` from the state before the step for every row,
     advances ``(aa, bb, pp)`` IN PLACE for active rows (an inactive row
     keeps its state bit for bit) and returns ``r * wkv`` rounded through
-    ``dtype``: the operand of the output projection, (B, C)."""
+    ``dtype``: the operand of the output projection, (B, C).  On the card C
+    is a multiple of 4 and every f32 operand 16-byte aligned (four channels
+    a thread)."""
     if aa.device.type == "cpu":
         return _wkv_inplace_plain(r, k, v, vecs, active, aa, bb, pp, dtype)
     f32s = (r, k, v)
@@ -154,6 +159,9 @@ def v4_wkv(r, k, v, vecs, active, aa, bb, pp, dtype):
         _dense(t, (B, C), torch.float32, "r/k/v/aa/bb/pp")
     _dense(vecs, (2, C), torch.float32, "vecs")
     _dense(active, (B,), torch.bool, "active")
+    _require(C % 4 == 0, f"C must be a multiple of 4, got {C}")
+    _require(all(t.data_ptr() % 16 == 0 for t in (*f32s, *state, vecs)),
+             "r/k/v/aa/bb/pp and vecs must be 16-byte aligned")
     out = torch.empty((B, C), dtype=dtype, device=dev)
     status = _build.library("wkv4").v4_wkv_launch(
         *(t.data_ptr() for t in (*f32s, vecs, active, *state, out)), B, C,

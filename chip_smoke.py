@@ -8,12 +8,16 @@ the card, in four phases, and exits non-zero at the first failure (every
 kernel's source is built first, one ``nvcc`` each, all started together):
 
 1. Card and build: the card's name and power limit, then ``nvcc`` builds
-   every kernel of the port from ``ai00_server_tpu_torch/csrc/``.
+   every kernel of the port from ``ai00_server_tpu_torch/csrc/``, and
+   ``tools/torch_sass_loads.py`` reads the loads of ``v4_wkv_kernel`` (a
+   programmatic dependent) in its machine code: only its two weight rows
+   may go through ``ld.global.nc``.
 2. Each kernel against its plain PyTorch version on the card, at the
    shapes the serving path gives it, with times from CUDA events and the
    least time the card could take (the larger of bytes over 3.35 TB/s and
    operations over the peak for their type: 67 TFLOP/s f32, 989 TFLOP/s
-   bf16 products; from this run's inputs).  The WKV kernels (the prefill
+   bf16 products; from this run's inputs).  The WKV kernels (``wkv7_t1``
+   on states rotating past the L2, and on one state; the prefill
    chunk also with every decay at v7's floor, and timed at B = 8 and 1,
    T = 256 and 16), then the three kernels of the fused decode step
    (``csrc/v7_decode.cu``) on weights that rotate through more than the L2
@@ -37,7 +41,10 @@ kernel's source is built first, one ``nvcc`` each, all started together):
    epilogues.  Then RWKV-5 and RWKV-4 at the 0.4B width (C=1024, F=3584 /
    4096): ``v6_wkv_gn`` in its static-decay mode, ``wkv56_t1`` and
    ``wkv56_chunk`` on v5's static (H, N) decay, ``v4_wkv`` and
-   ``wkv4_chunk`` (``csrc/wkv4.cu``, on bf16 k and v), and each stack's two
+   ``wkv4_chunk`` (``csrc/wkv4.cu``, on bf16 k and v; timed at B = 8 and
+   1, T = 256, 23, 16 and 1, and held with large decays and holes in the
+   mask),
+   and each stack's two
    ``v7_ln_mix`` and four ``v7_skinny_matmul`` launches of a layer.  Then
    the wide-batch products, ``phased_matmul`` (``csrc/phased.cu``), on a
    v7 layer's four big launches at the 0.4B and the RWKV-7 2.9B widths in
@@ -275,6 +282,27 @@ def rel_err(got, want) -> tuple[float, float]:
     return err, err / max(1.0, float(want.abs().max()))
 
 
+def sass_loads() -> None:
+    """``tools/torch_sass_loads.py`` on the built kernels: prints its
+    ``v4_wkv_kernel`` line and fails if that programmatic dependent reads
+    anything but its two weight rows (w, u: one 16-byte load each an
+    instantiation) through the non-coherent path (``LDG.E...CONSTANT``)."""
+    out = subprocess.run(
+        [sys.executable, str(ROOT / "tools" / "torch_sass_loads.py")],
+        capture_output=True, text=True, cwd=str(ROOT), timeout=600)
+    check(out.returncode == 0, f"torch_sass_loads.py failed: "
+                               f"{out.stderr[-2000:]}")
+    loads = json.loads(out.stdout.strip().splitlines()[-1])["loads"]
+    row = loads.get("wkv4:v4_wkv_kernel")
+    check(row is not None, "no v4_wkv_kernel in the SASS")
+    print("SASS loads, wkv4:v4_wkv_kernel: " + ", ".join(
+        f"{k} {v}" for k, v in sorted(row.items())), flush=True)
+    nc = sum(v for k, v in row.items() if "CONSTANT" in k)
+    check(nc <= 2 * row["instantiations"],
+          f"v4_wkv_kernel reads {nc} values through ld.global.nc: only its "
+          "weight rows may be")
+
+
 # ---------------------------------------------------------------------------
 # Phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -324,19 +352,31 @@ def phase_kernels(dev) -> dict:
     nbytes = 2 * elems * 4 + 7 * B * H * N * 4 + B
     flops = 9 * B * H * N * N  # S.kk 2, update 5, S'.r 2 per element
     b_ms, b_by = bound(nbytes, flops)
+    # Timed on states that rotate past the L2, as a layer-path step finds
+    # them (its bound counts the state's HBM bytes); the one-state reading
+    # beside it, whose state stays in the L2.
+    n_states = int(2 * L2_BYTES // (elems * 4)) + 1
+    states = [S] + [torch.randn(S.shape, generator=gen, device=dev)
+                    for _ in range(n_states - 1)]
     rows["wkv7_t1"] = {
         "name": "wkv7_t1", "route": "cuda",
         "source": "ai00_server_tpu_torch/csrc/wkv7.cu",
         "replaces": "ai00_server_tpu/ops/wkv_t1.py:108",
         "max_abs_err": max(err_s, err_y),
-        "ms": device_ms(lambda: wkv7_t1(S, *vecs, mask), 100),
+        "ms": device_ms(rotating(lambda i: wkv7_t1(states[i], *vecs, mask),
+                                 n_states), max(100, n_states)),
+        "same_state_ms": device_ms(lambda: wkv7_t1(S, *vecs, mask), 100),
         "plain_ms": device_ms(lambda: wkv7_t1_plain(S, *vecs, mask), 20),
         "call_ms": call_ms(lambda: wkv7_t1(S, *vecs, mask), 200),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
     }
+    del states
     print(f"wkv7_t1 B={B} H={H} N={N}: max_abs_err state {err_s:.3e} "
           f"y {err_y:.3e} (tolerance {KERNEL_TOL} x max(1, |plain|)); "
-          "inactive row bit-identical", flush=True)
+          f"inactive row bit-identical; {rows['wkv7_t1']['ms']:.5f} ms on "
+          f"{n_states} states rotating past the L2, "
+          f"{rows['wkv7_t1']['same_state_ms']:.5f} ms on one state",
+          flush=True)
 
     # wkv7_chunk at the prefill shape (T = token_chunk_size), and ragged.
     worst = 0.0
@@ -1504,6 +1544,7 @@ def phase_v6_kernels(dev) -> dict:
         "name": "wkv56_t1", "route": "cuda", "source": WKV_SRC,
         "replaces": "ai00_server_tpu/ops/wkv_t1.py:123", "max_abs_err": err,
         "ms": device_ms(rotating(lambda i: t1(i, wkv56_t1), n_states), 100),
+        "same_state_ms": device_ms(lambda: t1(0, wkv56_t1), 100),
         "plain_ms": device_ms(rotating(lambda i: t1(i, wkv56_t1_plain),
                                        n_states), 20),
         "call_ms": call_ms(rotating(lambda i: t1(i, wkv56_t1), n_states), 200),
@@ -1511,7 +1552,9 @@ def phase_v6_kernels(dev) -> dict:
     }
     print(f"wkv56_t1 B={B} H={H} N={N} ({n_states} rotating states): "
           f"max_abs_err {err:.3e} (tolerance {KERNEL_TOL} x max(1, |plain|)); "
-          "inactive row bit-identical", flush=True)
+          f"inactive row bit-identical; {rows['wkv56_t1']['ms']:.5f} ms on "
+          f"the rotating states, {rows['wkv56_t1']['same_state_ms']:.5f} ms "
+          "on one state", flush=True)
 
     # ---- wkv56_chunk at the prefill shape (T = token_chunk_size), ragged,
     # and T = 16 (the step-by-step kernel: ops/wkv_chunk.sequential) ----
@@ -1668,8 +1711,8 @@ def phase_v54_kernels(dev) -> dict:
     """The RWKV-5 and RWKV-4 kernels at the 0.4B serving shape (B=8,
     C=1024, v5 H=16 N=64, bf16 activations, row 5 inactive), each against
     its plain version: ``v6_wkv_gn`` in its static-decay mode (v5),
-    ``v4_wkv`` and ``wkv4_chunk`` (T=256, and ragged; a fresh PP_INIT row
-    in each), then each stack's two ``v7_ln_mix`` launches of a layer and
+    ``v4_wkv`` and ``wkv4_chunk`` (T=256, ragged, 16 and 1; a fresh
+    PP_INIT row in each), then each stack's two ``v7_ln_mix`` launches of a layer and
     its four ``v7_skinny_matmul`` launches, timed on weights, states and
     chunk inputs that rotate through more than the L2 holds (v4's per-layer
     state is 96 KB, so ``v4_wkv`` rotates through about a thousand, one a
@@ -1681,6 +1724,7 @@ def phase_v54_kernels(dev) -> dict:
     from ai00_server_tpu_torch.ops import v4_decode as fd4
     from ai00_server_tpu_torch.ops import v6_decode as fd6
     from ai00_server_tpu_torch.ops import v7_decode as fd
+    from ai00_server_tpu_torch.ops import wkv4
     from ai00_server_tpu_torch.ops.wkv4 import wkv4_chunk, wkv4_chunk_plain
     from ai00_server_tpu_torch.ops.wkv_chunk import (wkv56_chunk,
                                                      wkv56_chunk_plain)
@@ -1825,54 +1869,94 @@ def phase_v54_kernels(dev) -> dict:
           f"max(1, |plain|) on the bf16 output, {KERNEL_TOL} on the f32 "
           "state); inactive row bit-identical", flush=True)
 
-    # ---- wkv4_chunk at the prefill shape, and ragged ----
-    # k and v in bf16, as the path's projections give them.
+    # ---- wkv4_chunk at the prefill shape, ragged, short, and at B = 1 ----
+    # k and v in bf16, as the path's projections give them.  T = CHUNK and
+    # 23 through the chunked kernel and the plan ops/wkv4.plan picks, T = 1
+    # (the layer path) and 16 through the step-by-step kernel; each held
+    # against the plain version (a fresh PP_INIT row where B > 1, an idle
+    # row at B = 8) and timed on inputs rotating past the L2; then large
+    # decays (w down to -exp(5)) with holes in the mask and an idle row.
     w4, u4 = vecs4[0].contiguous(), vecs4[1].contiguous()
-    worst = 0.0
-    for T, lengths in ((CHUNK, [CHUNK] * B),
-                       (23, [23, 17, 1, 0, 23, 5, 12, 23])):
+    worst, shapes = 0.0, {}
+    for B_, T, lengths in ((B, CHUNK, [CHUNK] * B),
+                           (B, 23, [23, 17, 1, 0, 23, 5, 12, 23]),
+                           (B, 16, [16, 9, 1, 0, 16, 5, 12, 16]),
+                           (B, 1, [1, 1, 1, 0, 1, 1, 1, 1]),
+                           (1, CHUNK, [CHUNK]), (1, 23, [23]),
+                           (1, 16, [16]), (1, 1, [1])):
         lens = torch.tensor(lengths, device=dev)
         mask = torch.arange(T, device=dev)[None, :] < lens[:, None]
-        one = 2 * 3 * B * C * 4 + 2 * B * T * C * 2 + B * T * C * 4
-        n_sets = sets_over_l2(one) if T == CHUNK else 1
-        sets = [(v4_state(3 if T == CHUNK else 2), rnd(B, T, C).to(cd),
-                 rnd(B, T, C).to(cd)) for _ in range(n_sets)]
+        one = 2 * 3 * B_ * C * 4 + 2 * B_ * T * C * 2 + B_ * T * C * 4
+        n_sets = sets_over_l2(one)
+
+        def chunk_set():
+            aa, bb, pp = v4_state(2)
+            return ((aa[:B_], bb[:B_], pp[:B_]), rnd(B_, T, C).to(cd),
+                    rnd(B_, T, C).to(cd))
+
+        sets = [chunk_set() for _ in range(n_sets)]
         st, k_, v_ = sets[0]
         got, y_k = wkv4_chunk(*st, k_, v_, w4, u4, mask)
         want, y_p = wkv4_chunk_plain(*st, k_, v_, w4, u4, mask)
         torch.cuda.synchronize()
-        worst = max(worst, close(y_k, y_p, False, f"wkv4_chunk T={T} y"),
-                    *(close(a, b_, False, f"wkv4_chunk T={T} state")
+        worst = max(worst, close(y_k, y_p, False, f"wkv4_chunk B={B_} "
+                                                  f"T={T} y"),
+                    *(close(a, b_, False, f"wkv4_chunk B={B_} T={T} state")
                       for a, b_ in zip(got, want)))
-        if lengths[3] == 0:
-            check(all(torch.equal(a[3], b_[3]) for a, b_ in zip(got, st)),
+        if 0 in lengths:
+            i = lengths.index(0)
+            check(all(torch.equal(a[i], b_[i]) for a, b_ in zip(got, st)),
                   "wkv4_chunk changed an idle row")
-        if T == CHUNK:
-            n_valid = int(mask.sum())
-            # State in and out, bf16 k and v, f32 y, w, u, mask.
-            b_ms, b_by = bound(one + 2 * C * 4 + B * T,
-                               C * (25 * n_valid + 13 * (B * T - n_valid)))
 
-            def call(i, fn=wkv4_chunk):
-                st_, k_i, v_i = sets[i]
-                return fn(*st_, k_i, v_i, w4, u4, mask)
+        def call(i, fn=wkv4_chunk):
+            st_, k_i, v_i = sets[i]
+            return fn(*st_, k_i, v_i, w4, u4, mask)
 
+        n_valid = int(mask.sum())
+        # State in and out, bf16 k and v, f32 y, w, u, mask.
+        b_ms, b_by = bound(one + 2 * C * 4 + B_ * T,
+                           C * (25 * n_valid + 13 * (B_ * T - n_valid)))
+        shapes[(B_, T)] = {
+            "ms": device_ms(rotating(call, n_sets), 4 * n_sets),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "plan": "steps" if wkv4.sequential(T) else wkv4.plan(T)}
+        if (B_, T) == (B, CHUNK):
             rows["wkv4_chunk"] = {
                 "name": "wkv4_chunk", "route": "cuda", "source": SRC4,
                 "replaces": "ai00_server_tpu/models/v4.py:49 (_wkv_scan, "
                             "a lax.scan: no Pallas kernel)",
-                "ms": device_ms(rotating(call, n_sets), 4 * n_sets),
+                "ms": shapes[(B_, T)]["ms"],
                 "plain_ms": device_ms(
                     lambda: call(0, wkv4_chunk_plain), 1, replays=3),
                 "call_ms": call_ms(rotating(call, n_sets), 50),
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             }
+        del sets
+    st = v4_state(2)
+    k_, v_ = rnd(B, CHUNK, C).to(cd), rnd(B, CHUNK, C).to(cd)
+    w_hard = -torch.exp(torch.rand(C, generator=gen, device=dev) * 10 - 5)
+    mask = torch.rand(B, CHUNK, generator=gen, device=dev) > 0.25
+    mask[3] = False
+    got, y_k = wkv4_chunk(*st, k_, v_, w_hard, u4, mask)
+    want, y_p = wkv4_chunk_plain(*st, k_, v_, w_hard, u4, mask)
+    torch.cuda.synchronize()
+    worst = max(worst, close(y_k, y_p, False, "wkv4_chunk large decays y"),
+                *(close(a, b_, False, "wkv4_chunk large decays state")
+                  for a, b_ in zip(got, want)))
+    check(all(torch.equal(a[3], b_[3]) for a, b_ in zip(got, st)),
+          "wkv4_chunk changed an idle row")
     rows["wkv4_chunk"]["max_abs_err"] = worst
-    print(f"wkv4_chunk B={B} C={C} bf16 k and v, T={CHUNK} (rotating "
-          "inputs) and ragged T=23 (a fresh PP_INIT row in each): "
-          f"max_abs_err {worst:.3e} (tolerance "
-          f"{KERNEL_TOL} x max(1, |plain|), y at every step); idle row "
-          "bit-identical", flush=True)
+    rows["wkv4_chunk"]["shapes_ms"] = shapes
+    print(f"wkv4_chunk C={C} bf16 k and v, T={CHUNK}, ragged T=23, T=16 and "
+          f"T=1 at B={B} and 1 (rotating inputs; a fresh PP_INIT row), and "
+          f"T={CHUNK} "
+          "with time_decay in [-5, 5) and holes in the mask: max_abs_err "
+          f"{worst:.3e} (tolerance {KERNEL_TOL} x max(1, |plain|), y at "
+          "every step); idle rows bit-identical", flush=True)
+    print("wkv4_chunk device ms (plan (G, NS), or steps; bound): "
+          + "; ".join(f"B={b_} T={t} {r['ms']:.5f} ({r['plan']}; "
+                      f"{r['bound_ms']:.5f} by {r['bound_by']})"
+                      for (b_, t), r in shapes.items()), flush=True)
 
     # ---- each stack's v7_ln_mix and v7_skinny_matmul launches ----
     def weight(K, Nout):
@@ -3870,6 +3954,8 @@ def main() -> None:
         for line in info.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
+
+    sass_loads()
 
     t0 = time.monotonic()
     rows = phase_kernels(dev)

@@ -1187,6 +1187,7 @@ def test_v6_kernels_refuse_what_they_do_not_take(dev):
 
 from ai00_server_tpu_torch.ops import v4_decode as fd4  # noqa: E402
 from ai00_server_tpu_torch.ops import v5_decode as fd5  # noqa: E402
+from ai00_server_tpu_torch.ops import wkv4  # noqa: E402
 from ai00_server_tpu_torch.ops.wkv4 import (  # noqa: E402
     wkv4_chunk, wkv4_chunk_plain)
 
@@ -1233,10 +1234,14 @@ def _v4_state(gen, dev, B, C, fresh_rows=()):
     return aa, bb, pp
 
 
+@pytest.mark.parametrize("C", [768, 1000, 1024, 2048])
+@pytest.mark.parametrize("B", [1, 5, 8, 64])
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_v4_wkv_kernel_matches_plain(dev, dtype):
-    gen = torch.Generator(device=dev).manual_seed(10)
-    B, C = 5, 1000  # a ragged last block
+def test_v4_wkv_kernel_matches_plain(dev, dtype, B, C):
+    """Four channels a thread (C = 1000: a ragged last block); rows 0 and 1
+    fresh at PP_INIT, rows 1 and 4 inactive (their state bit for bit): row
+    0 steps from PP_INIT, row 1 keeps it."""
+    gen = torch.Generator(device=dev).manual_seed(10 + B)
 
     def rnd(*shape, scale=1.0):
         return torch.randn(*shape, generator=gen, device=dev) * scale
@@ -1244,45 +1249,89 @@ def test_v4_wkv_kernel_matches_plain(dev, dtype):
     r = torch.sigmoid(rnd(B, C))
     k, v = rnd(B, C), rnd(B, C)
     vecs = torch.stack([-torch.exp(rnd(C, scale=0.5)), rnd(C, scale=0.5)])
-    active = torch.tensor([True, False, True, True, False], device=dev)
-    state = _v4_state(gen, dev, B, C, fresh_rows=(2,))
+    active = torch.ones(B, dtype=torch.bool, device=dev)
+    idle = [b for b in (1, 4) if b < B]
+    active[idle] = False
+    state = _v4_state(gen, dev, B, C, fresh_rows=range(min(B, 2)))
     want, *want_state = fd4.v4_wkv_plain(r, k, v, vecs, active, *state,
                                          dtype)
     got_state = [t.clone() for t in state]
+    torch.cuda.synchronize()  # the state is read before the kernel waits
     before = fd4.v4_wkv.launches
     got = fd4.v4_wkv(r, k, v, vecs, active, *got_state, dtype)
     assert fd4.v4_wkv.launches == before + 1
     assert got.dtype == dtype
     _close_t(got, want, dtype)
     for g, w, s in zip(got_state, want_state, state):
-        _close(g, w)
-        assert torch.equal(g[1], s[1]) and torch.equal(g[4], s[4])
+        fresh = w.abs() >= 1e29  # PP_INIT kept exactly
+        assert torch.equal(g[fresh], w[fresh])
+        _close(g[~fresh], w[~fresh])
+        for b in idle:
+            assert torch.equal(g[b], s[b])
+        assert bool(torch.isfinite(g).all())
+
+
+def _wkv4_chunk_inputs(gen, dev, B, T, C, kv_dtype):
+    """k, v, a decay from time_decay in [-5, 5) (w down to -148), u, a state
+    with rows 0 and B - 1 fresh, and a mask with holes inside the rows (not
+    a suffix): the last row idle where B > 1 (its PP_INIT kept exactly)."""
+    k = torch.randn(B, T, C, generator=gen, device=dev).to(kv_dtype)
+    v = torch.randn(B, T, C, generator=gen, device=dev).to(kv_dtype)
+    w = -torch.exp(torch.rand(C, generator=gen, device=dev) * 10 - 5)
+    u = torch.randn(C, generator=gen, device=dev) * 0.5
+    state = _v4_state(gen, dev, B, C, fresh_rows={0, B - 1})
+    mask = torch.rand(B, T, generator=gen, device=dev) > 0.25
+    if B > 1:
+        mask[-1] = False
+    return state, k, v, w, u, mask
+
+
+def _wkv4_chunk_held(got, want, state, idle, tol=1e-4):
+    (aa, bb, pp), y = got
+    (aa_p, bb_p, pp_p), y_p = want
+    _close(y, y_p, tol)  # masked steps read the kept state in both
+    for g, p, s in zip((aa, bb, pp), (aa_p, bb_p, pp_p), state):
+        fresh = p.abs() >= 1e29  # PP_INIT kept exactly
+        assert torch.equal(g[fresh], p[fresh])
+        _close(g[~fresh], p[~fresh], tol)
+        if idle:
+            assert torch.equal(g[-1], s[-1])  # the idle row keeps its bits
         assert bool(torch.isfinite(g).all())
 
 
 @pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("T", [1, 16, 37, 256])
-def test_wkv4_chunk_kernel_matches_plain(dev, T, kv_dtype):
+@pytest.mark.parametrize("T", [1, 16, 23, 255, 256, 257])
+@pytest.mark.parametrize("B", [1, 8])
+def test_wkv4_chunk_kernel_matches_plain(dev, B, T, kv_dtype):
     """k and v in either activation dtype: the kernel widens them in
-    registers, the plain version with ``.float()``."""
-    gen = torch.Generator(device=dev).manual_seed(T)
-    B, C = 4, 320
-    k = torch.randn(B, T, C, generator=gen, device=dev).to(kv_dtype)
-    v = torch.randn(B, T, C, generator=gen, device=dev).to(kv_dtype)
-    w = -torch.exp(torch.randn(C, generator=gen, device=dev) * 0.5)
-    u = torch.randn(C, generator=gen, device=dev) * 0.5
-    state = _v4_state(gen, dev, B, C, fresh_rows=(0, 3))
-    lens = torch.tensor([T, max(T // 2, 1), 0, T], device=dev)
-    mask = torch.arange(T, device=dev)[None, :] < lens[:, None]
+    registers, the plain version with ``.float()``.  At the 0.4B width,
+    with the plan ``wkv4.plan`` picks."""
+    gen = torch.Generator(device=dev).manual_seed(T + B)
+    state, k, v, w, u, mask = _wkv4_chunk_inputs(gen, dev, B, T, 1024,
+                                                 kv_dtype)
     before = wkv4_chunk.launches
-    got, y_k = wkv4_chunk(*state, k, v, w, u, mask)
+    got = wkv4_chunk(*state, k, v, w, u, mask)
     assert wkv4_chunk.launches == before + 1
-    want, y_p = wkv4_chunk_plain(*state, k, v, w, u, mask)
-    _close(y_k, y_p)  # masked steps read the kept state in both
-    for g, p, s in zip(got, want, state):
-        _close(g, p)
-        assert torch.equal(g[2], s[2])  # the idle row keeps its bits
-        assert bool(torch.isfinite(g).all())
+    want = wkv4_chunk_plain(*state, k, v, w, u, mask)
+    _wkv4_chunk_held(got, want, state, B > 1)
+
+
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T", [17, 23, 64, 100, 257, 600])
+def test_wkv4_chunk_kernel_every_plan(dev, T, kv_dtype):
+    """Every block shape ``wkv4.plan`` gives the chunked kernel (NS = 4, 8,
+    16 and 32 runs of 8 steps), against its arithmetic in PyTorch
+    (``wkv4_chunk_mirror``) at MIRROR_TOL and the plain version at 1e-4;
+    C = 100 leaves ragged blocks, T = 257 and 600 take two and three
+    windows."""
+    B, C = 3, 100
+    gen = torch.Generator(device=dev).manual_seed(T)
+    state, k, v, w, u, mask = _wkv4_chunk_inputs(gen, dev, B, T, C, kv_dtype)
+    got = wkv4_chunk(*state, k, v, w, u, mask)
+    mirror = wkv4.wkv4_chunk_mirror(*state, k, v, w, u, mask, wkv4.RUN_STEPS)
+    _wkv4_chunk_held(got, mirror, state, True, MIRROR_TOL)
+    _wkv4_chunk_held(got, wkv4_chunk_plain(*state, k, v, w, u, mask), state,
+                     True)
 
 
 def _fused_agree(dev, version, dtype, quant, per_layer):
@@ -1369,6 +1418,14 @@ def test_v4_kernels_refuse_what_they_do_not_take(dev):
     with pytest.raises(ValueError, match="unsupported activation dtype"):
         fd4.v4_wkv(z, z, z, torch.zeros(2, 32, device=dev), act, z.clone(),
                    z.clone(), z.clone(), torch.float16)
+    z30 = torch.zeros(2, 30, device=dev)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        fd4.v4_wkv(z30, z30, z30, torch.zeros(2, 30, device=dev), act,
+                   z30.clone(), z30.clone(), z30.clone(), torch.float32)
+    off = torch.zeros(2 * 32 + 1, device=dev)[1:].view(2, 32)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fd4.v4_wkv(z, z, z, torch.zeros(2, 32, device=dev), act, off,
+                   z.clone(), z.clone(), torch.float32)
     k = torch.zeros(2, 3, 32, device=dev)
     mask = torch.ones(2, 3, dtype=torch.bool, device=dev)
     with pytest.raises(ValueError, match="w must be contiguous"):

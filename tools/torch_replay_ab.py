@@ -3,7 +3,7 @@
 the port against this one, on one card, in turns.
 
     mkdir -p chip_smoke_tmp/parent        # any directory git ignores
-    git archive 58ee12a ai00_server_tpu_torch chip_smoke.py \\
+    git archive d64f725 ai00_server_tpu_torch chip_smoke.py \\
         | tar -x -C chip_smoke_tmp/parent
     python3 tools/torch_replay_ab.py --old chip_smoke_tmp/parent \\
         [--out results.json]
@@ -13,8 +13,9 @@ its ``chip_smoke.py``.  Each turn is a process of its own that imports one
 tree, builds its kernels, and times one step of every fused stack at B = 8
 with all rows active (``chip_smoke.time_replay``: CUDA events around 20
 replays of the stack's ``DecodeGraph``): RWKV-7 0.4B at 24 layers in bf16,
-int8 and nf4, RWKV-5 and RWKV-4 0.4B at 24 layers in bf16, RWKV-6 1B6 at
-``chip_smoke.L6`` layers in bf16, int8 and nf4; and the phased stacks
+int8 and nf4, RWKV-5 0.4B at 24 layers in bf16, RWKV-4 0.4B at 24 layers
+in bf16, int8 and nf4, RWKV-6 1B6 at ``chip_smoke.L6`` layers in bf16, int8
+and nf4; and the phased stacks
 (``ops/v7_phased``, ``ops/v56_phased``) at B = 64: RWKV-7 0.4B in int8 and
 bf16, RWKV-5 0.4B and RWKV-6 1B6 in bf16 (``--batches`` picks 8, 64 or
 both).  Weights are random from a
@@ -36,8 +37,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 # (version, weight mode, B): B = 8 the fused stacks, 64 the phased ones.
 STACKS = [("v7", None, 8), ("v7", "int8", 8), ("v7", "nf4", 8),
-          ("v5", None, 8), ("v4", None, 8), ("v6", None, 8),
-          ("v6", "int8", 8), ("v6", "nf4", 8),
+          ("v5", None, 8), ("v4", None, 8), ("v4", "int8", 8),
+          ("v4", "nf4", 8), ("v6", None, 8), ("v6", "int8", 8),
+          ("v6", "nf4", 8),
           ("v7", "int8", 64), ("v7", None, 64), ("v5", None, 64),
           ("v6", None, 64)]
 

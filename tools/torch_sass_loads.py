@@ -8,16 +8,16 @@ Builds the kernels of ``DIR/ai00_server_tpu_torch`` (this checkout by
 default) with ``ops/_build.build_all`` and disassembles each library with
 ``cuobjdump -sass``.  For every kernel of the stacks' programmatic
 dependents (``ln_mix_kernel``, ``skinny_tc_kernel``, ``skinny_fma_kernel``,
-``wkv_gn_kernel``, ``v6_wkv_gn_kernel``, ``qmm_kernel``) it counts the
-``LDG`` instructions by their modifiers: ``LDG.E.CONSTANT`` is a
-non-coherent load through L1 (``ld.global.nc``: ``__ldg``, or a load nvcc
-derives from a ``const __restrict__`` pointer), ``.STRONG.GPU`` /
-``.EF`` a load past L1 (``ld.global.cg``), a plain ``LDG.E`` one that may
-hit L1.  What an earlier kernel writes must not be read through L1 by a
-programmatic dependent (``csrc/decode_common.cuh:ld4_l2``): the printed
-table says which kernels still have loads that could.  Prints one line a
-kernel and one JSON object.  Needs ``nvcc`` and ``cuobjdump``; imports
-nothing of JAX.
+``wkv_gn_kernel``, ``v6_wkv_gn_kernel``, ``qmm_kernel``,
+``v4_wkv_kernel``) it counts the ``LDG`` instructions by their modifiers:
+``LDG.E.CONSTANT`` is a non-coherent load through L1 (``ld.global.nc``:
+``__ldg``, or a load nvcc derives from a ``const __restrict__`` pointer),
+``.STRONG.GPU`` / ``.EF`` a load past L1 (``ld.global.cg``), a plain
+``LDG.E`` one that may hit L1.  What an earlier kernel writes must not be
+read through L1 by a programmatic dependent
+(``csrc/decode_common.cuh:ld4_l2``): the printed table says which kernels
+still have loads that could.  Prints one line a kernel and one JSON object.
+Needs ``nvcc`` and ``cuobjdump``; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -33,8 +33,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 KERNELS = ("ln_mix_kernel", "skinny_tc_kernel", "skinny_fma_kernel",
-           "wkv_gn_kernel", "v6_wkv_gn_kernel", "qmm_kernel")
-LIBS = ("v7_decode", "v6_decode", "quant")
+           "wkv_gn_kernel", "v6_wkv_gn_kernel", "qmm_kernel",
+           "v4_wkv_kernel")
+LIBS = ("v7_decode", "v6_decode", "quant", "wkv4")
 
 
 def cuobjdump() -> str:

@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""A/B of the prefill WKV kernels, ``wkv7_chunk`` and ``wkv56_chunk``: an
-earlier checkout of the port against this one, on one card, in turns.
+"""A/B of the prefill WKV kernels, ``wkv7_chunk``, ``wkv56_chunk`` and
+``wkv4_chunk``: an earlier checkout of the port against this one, on one
+card, in turns.
 
     mkdir -p chip_smoke_tmp/parent        # any directory git ignores
-    git archive 33bd9f8 ai00_server_tpu_torch chip_smoke.py \\
+    git archive d64f725 ai00_server_tpu_torch chip_smoke.py \\
         | tar -x -C chip_smoke_tmp/parent
     python3 tools/torch_wkv_chunk_ab.py --old chip_smoke_tmp/parent \\
-        [--out results.json] [--slices] [--no-model]
+        [--out results.json] [--slices] [--plans] [--no-model]
 
 ``--old`` is a directory holding an earlier ``ai00_server_tpu_torch/`` and
 its ``chip_smoke.py``.  Each turn is a process of its own that imports one
@@ -16,17 +17,20 @@ past the 50 MB L2:
 
 - the kernels at B = 8 and 1, T = 16 and 256: ``wkv7_chunk`` at the RWKV-7
   0.4B width (H = 16), ``wkv56_chunk`` at the RWKV-6 1B6 width (H = 32,
-  dense decay) and at the RWKV-5 0.4B width (H = 16, static decay), each
-  also held against its plain version (max |kernel - plain| / max(1,
-  |plain|));
+  dense decay) and at the RWKV-5 0.4B width (H = 16, static decay); and
+  ``wkv4_chunk`` at the RWKV-4 0.4B width (C = 1024, bf16 k and v) at B = 8
+  and 1, T = 1, 23 and 256; each also held against its plain version (max
+  |kernel - plain| / max(1, |plain|));
 - unless ``--no-model``, one 4096-token prompt prefilled through
-  ``models/v7.forward`` at 24 layers in bf16 and through ``models/v6.forward``
-  at ``chip_smoke.L6`` layers, in chunks of ``chip_smoke.CHUNK`` tokens as
-  the server runs it (random weights from a seed; ms from the first chunk's
-  launch to the last chunk's end).
+  ``models/v7.forward`` and ``models/v4.forward`` at 24 layers in bf16 and
+  through ``models/v6.forward`` at ``chip_smoke.L6`` layers, in chunks of
+  ``chip_smoke.CHUNK`` tokens as the server runs it (random weights from a
+  seed; ms from the first chunk's launch to the last chunk's end).
 
-Turns run old, new, new, old.  With ``--slices`` the new tree's kernels are
-also timed at each state split (1, 2 and 4 blocks per head) in one more
+Turns run old, new, new, old.  With ``--slices`` the new tree's v7 / v5 /
+v6 kernels are also timed at each state split (1, 2 and 4 blocks per
+head), and with ``--plans`` its ``wkv4_chunk`` at every (G, NS) launch
+shape of ``ops/wkv4.plan`` (its choice marked), each in one more
 process.  Prints the card's line (``nvidia-smi``) and one JSON object (also
 written to ``--out``).  Imports nothing of JAX.
 """
@@ -45,6 +49,8 @@ KERNELS = [("wkv7_chunk", "v7 0.4B", 16, False),
            ("wkv56_chunk", "v5 0.4B", 16, True)]
 BATCHES = (8, 1)
 STEPS = (16, 256)
+V4_STEPS = (1, 23, 256)
+V4_C = 1024
 PROMPT = 4096
 
 
@@ -67,6 +73,53 @@ def kernel_inputs(name, B, T, H, static, gen, dev):
     w = torch.exp(-torch.exp(rnd(*((H, 64) if static else (B, T, H, 64)),
                                  scale=0.5)))
     return (S, r, k, v, w, rnd(H, 64, scale=0.5), mask)
+
+
+def v4_inputs(B, T, gen, dev):
+    """wkv4_chunk's operands: an advanced state, bf16 k and v, w from
+    ``time_decay`` ~ N(0, 0.5), every step valid."""
+    import torch
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    C = V4_C
+    bb = torch.rand(B, C, generator=gen, device=dev) + 0.5
+    return (rnd(B, C), bb, rnd(B, C), rnd(B, T, C).to(torch.bfloat16),
+            rnd(B, T, C).to(torch.bfloat16), -torch.exp(rnd(C, scale=0.5)),
+            rnd(C, scale=0.5), torch.ones(B, T, dtype=torch.bool, device=dev))
+
+
+def time_v4(cs, dev, steps=V4_STEPS) -> dict:
+    """``wkv4_chunk`` at ``steps`` x BATCHES on inputs rotating past the L2,
+    held against its plain version on the first set."""
+    import torch
+
+    from ai00_server_tpu_torch.ops.wkv4 import wkv4_chunk, wkv4_chunk_plain
+
+    out = {}
+    for B in BATCHES:
+        for T in steps:
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(cs.SEED + 24)
+            first = v4_inputs(B, T, gen, dev)
+            each = sum(t.numel() * t.element_size() for t in first)
+            each += 4 * B * (3 + T) * V4_C  # the outputs
+            n = int(2 * cs.L2_BYTES // each) + 1
+            sets = [first] + [v4_inputs(B, T, gen, dev)
+                              for _ in range(n - 1)]
+            got, want = wkv4_chunk(*first), wkv4_chunk_plain(*first)
+            torch.cuda.synchronize()
+            err = max(cs.rel_err(g, p)[1]
+                      for g, p in zip((*got[0], got[1]), (*want[0], want[1])))
+            ms = cs.device_ms(cs.rotating(lambda i: wkv4_chunk(*sets[i]), n),
+                              max(20, n))
+            out[f"wkv4_chunk v4 0.4B B={B} T={T}"] = {"ms": ms,
+                                                      "rel_err": err,
+                                                      "sets": n}
+            del sets, first
+            torch.cuda.empty_cache()
+    return out
 
 
 def time_kernels(cs, dev) -> dict:
@@ -139,7 +192,7 @@ def time_prefill(cs, dev) -> dict:
     from ai00_server_tpu_torch.models import get_version_module
 
     out = {}
-    for version, L in (("v7", cs.L_FULL), ("v6", cs.L6)):
+    for version, L in (("v7", cs.L_FULL), ("v4", cs.L_FULL), ("v6", cs.L6)):
         info, params = model_params(cs, version, L, dev)
         module = get_version_module(info.version)
         gen = torch.Generator(device=dev)
@@ -174,7 +227,7 @@ def time_prefill(cs, dev) -> dict:
     return out
 
 
-def child(slices: bool, model: bool) -> dict:
+def child(slices: bool, plans: bool, model: bool) -> dict:
     import torch
 
     import chip_smoke as cs
@@ -182,9 +235,11 @@ def child(slices: bool, model: bool) -> dict:
 
     dev = torch.device("cuda", 0)
     _build.build_all()
+    if plans:
+        return time_plans(cs, dev)
     if not slices:
-        return {**time_kernels(cs, dev), **(time_prefill(cs, dev)
-                                            if model else {})}
+        return {**time_kernels(cs, dev), **time_v4(cs, dev),
+                **(time_prefill(cs, dev) if model else {})}
     from ai00_server_tpu_torch.ops import wkv_chunk as wc
 
     out = {}
@@ -192,6 +247,26 @@ def child(slices: bool, model: bool) -> dict:
         wc.plan = lambda B, H, sms, n=n: n
         out.update({f"{k} slices={n}": v
                     for k, v in time_kernels(cs, dev).items()})
+    return out
+
+
+def time_plans(cs, dev) -> dict:
+    """``wkv4_chunk`` (this tree) at every NS the plan gives (4 to 32 runs
+    of 8 steps, 256 / NS channels a block) for each shape of
+    :func:`time_v4` but T = 1 (the step-by-step kernel), ``plan``'s own
+    choice marked."""
+    from ai00_server_tpu_torch.ops import wkv4
+
+    chosen = wkv4.plan
+    out = {}
+    for T in V4_STEPS[1:]:
+        for NS in (4, 8, 16, 32):
+            shape = (wkv4.THREADS // NS, NS)
+            wkv4.plan = lambda T, p=shape: p
+            for name, r in time_v4(cs, dev, (T,)).items():
+                mark = " (plan)" if chosen(T) == shape else ""
+                out[f"{name} G={shape[0]} NS={NS}{mark}"] = r
+    wkv4.plan = chosen
     return out
 
 
@@ -208,13 +283,14 @@ def run(tree: Path, *flags: str) -> dict:
 def main() -> None:
     if len(sys.argv) > 2 and sys.argv[1] == "--child":
         sys.path.insert(0, sys.argv[2])
-        print(json.dumps(child("--slices" in sys.argv,
+        print(json.dumps(child("--slices" in sys.argv, "--plans" in sys.argv,
                                "--no-model" not in sys.argv)))
         return
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--old", required=True, type=Path)
     ap.add_argument("--out", type=Path)
     ap.add_argument("--slices", action="store_true")
+    ap.add_argument("--plans", action="store_true")
     ap.add_argument("--no-model", action="store_true")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
@@ -239,11 +315,12 @@ def main() -> None:
               f"{old[0]:.5f} {new[0]:.5f} {new[1]:.5f} {old[1]:.5f})",
               flush=True)
     result = {"card": card, "rows": rows}
-    if args.slices:
-        result["slices"] = run(ROOT, "--slices")
-        for name, r in result["slices"].items():
-            print(f"{name}: {r['ms']:.5f} ms (rel err {r['rel_err']:.2e})",
-                  flush=True)
+    for flag in ("slices", "plans"):
+        if getattr(args, flag):
+            result[flag] = run(ROOT, f"--{flag}")
+            for name, r in result[flag].items():
+                print(f"{name}: {r['ms']:.5f} ms (rel err "
+                      f"{r['rel_err']:.2e})", flush=True)
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(result, indent=1))

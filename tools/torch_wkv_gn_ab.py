@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""A/B of the decode WKV kernels, ``v7_wkv_gn`` and ``v6_wkv_gn``: an earlier
-checkout of the port against this one, on one card, in turns.
+"""A/B of the decode WKV kernels, ``v7_wkv_gn``, ``v6_wkv_gn`` and
+``v4_wkv``: an earlier checkout of the port against this one, on one card,
+in turns.
 
     mkdir -p chip_smoke_tmp/parent        # any directory git ignores
-    git archive 58ee12a ai00_server_tpu_torch chip_smoke.py \\
+    git archive d64f725 ai00_server_tpu_torch chip_smoke.py \\
         | tar -x -C chip_smoke_tmp/parent
     python3 tools/torch_wkv_gn_ab.py --old chip_smoke_tmp/parent \\
         [--out results.json]
@@ -16,9 +17,11 @@ CUDA events around launches captured in a CUDA graph
 1, 8, 16 and 64: ``v7_wkv_gn`` at the RWKV-7 0.4B width (H = 16) and the
 2.9B one (H = 40), ``v6_wkv_gn`` at the RWKV-6 1B6 width (H = 32, dense
 decay, rounding ``ln_x`` as the fused stacks do) and at the RWKV-5 0.4B one
-(H = 16, static decay).  Each is also held against its plain version on
-the first state set, one row idle (max |kernel - plain| / max(1, |plain|)
-over the state and the output).  Turns run old, new, new, old.
+(H = 16, static decay), ``v4_wkv`` at the RWKV-4 0.4B one (C = 1024; its
+(aa, bb, pp) is small, so each call takes the next of the states and a
+graph walks them all once).  Each is also held against its plain version
+on the first state set, one row idle (max |kernel - plain| / max(1,
+|plain|) over the state and the output).  Turns run old, new, new, old.
 
 Prints the card's line (``nvidia-smi``) and one JSON object (also written
 to ``--out``).  Imports nothing of JAX.
@@ -33,16 +36,19 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
-KERNELS = [("v7", 16), ("v7", 40), ("v6", 32), ("v5", 16)]
+# (kind, H): v4 has no heads, H = 16 gives its width C = 1024.
+KERNELS = [("v7", 16), ("v7", 40), ("v6", 32), ("v5", 16), ("v4", 16)]
 BATCHES = (1, 8, 16, 64)
 
 
 def case(kind, B, H, dev, seed):
     """(kernel(S) -> out, plain(S) -> (out, S_new), bytes, the state's
-    bytes) for one shape: every row active but row 1 where B > 1 for the
-    held check (``active`` is returned for the caller to reset)."""
+    bytes, active, the state's shape) for one shape: every row active but
+    row 1 where B > 1 for the held check (``active`` is returned for the
+    caller to reset).  v4's state S is (3, B, C): aa, bb, pp."""
     import torch
 
+    from ai00_server_tpu_torch.ops import v4_decode as fd4
     from ai00_server_tpu_torch.ops import v6_decode as fd6
     from ai00_server_tpu_torch.ops import v7_decode as fd
 
@@ -54,6 +60,21 @@ def case(kind, B, H, dev, seed):
         return torch.randn(*shape, generator=gen, device=dev) * scale
 
     active = torch.ones(B, dtype=torch.bool, device=dev)
+    if kind == "v4":
+        r = torch.sigmoid(rnd(B, C))
+        k, v = rnd(B, C), rnd(B, C)
+        vecs = torch.stack([-torch.exp(rnd(C, scale=0.5)),
+                            rnd(C, scale=0.5)])
+
+        def kernel(S):
+            return fd4.v4_wkv(r, k, v, vecs, active, *S, cd)
+
+        def plain(S):
+            out, *new = fd4.v4_wkv_plain(r, k, v, vecs, active, *S, cd)
+            return out, torch.stack(new)
+        state_bytes = 3 * B * C * 4
+        return (kernel, plain, 3 * B * C * 4 + 2 * C * 4 + B * C * 2 + B,
+                state_bytes, active, (3, B, C))
     if kind == "v7":
         r, k, v, g, vf = (rnd(B, C, scale=0.5) for _ in range(5))
         w = torch.exp(-0.6065306597126334 * torch.sigmoid(rnd(B, C)))
@@ -85,38 +106,48 @@ def case(kind, B, H, dev, seed):
             return fd6.v6_wkv_gn_plain(*args, S, cd)
         vec_bytes = (5 if w is not None else 4) * B * C * 4 + 3 * C * 4
     state_bytes = B * H * 64 * 64 * 4
-    return kernel, plain, vec_bytes + B * C * 2, state_bytes, active
+    return (kernel, plain, vec_bytes + B * C * 2, state_bytes, active,
+            (B, H, 64, 64))
 
 
 def time_case(cs, kind, B, H, dev) -> dict:
     import torch
 
-    kernel, plain, other_bytes, state_bytes, active = case(
+    kernel, plain, other_bytes, state_bytes, active, shape = case(
         kind, B, H, dev, 1000 * B + H)
     n = max(3, int(cs.L2_BYTES // state_bytes) + 2)
     gen = torch.Generator(device=dev)
     gen.manual_seed(B + H)
-    states = [torch.randn(B, H, 64, 64, generator=gen, device=dev)
+    states = [torch.randn(*shape, generator=gen, device=dev)
               for _ in range(n)]
+    if kind == "v4":
+        for S in states:
+            S[1].abs_().add_(0.5)  # bb > 0
+    # The batch row of a state: v4's is its second dimension.
+    row = (lambda S, b: S[:, b]) if kind == "v4" else (lambda S, b: S[b])
     out = {}
     if B > 1:
         active[1] = False
     S = states[0].clone()
     want, S_want = plain(S)
+    torch.cuda.synchronize()  # the state is read before the kernel waits
     got = kernel(S)
     torch.cuda.synchronize()
     err = 0.0
     for a, b in ((got, want), (S, S_want)):
         e = float((a.float() - b.float()).abs().max())
         err = max(err, e / max(1.0, float(b.float().abs().max())))
-    if B > 1 and not torch.equal(S[1], states[0][1]):
+    if B > 1 and not torch.equal(row(S, 1), row(states[0], 1)):
         err = float("inf")  # an idle row's state moved
     out["rel_err"] = err
     active.fill_(True)
+    # v4's graph walks all its states once (n is ~L2 / 12 KB at B = 1).
+    iters = n if kind == "v4" else max(100, min(n, 400))
     out["ms"] = cs.device_ms(cs.rotating(lambda i: kernel(states[i]), n),
-                             max(100, min(n, 400)))
+                             iters)
+    flops = 25 * B * H * 64 if kind == "v4" else 9 * state_bytes / 4
     out["bound_ms"], out["bound_by"] = cs.bound(
-        2 * state_bytes + other_bytes, 9 * state_bytes / 4)
+        2 * state_bytes + other_bytes, flops)
     del states
     torch.cuda.empty_cache()
     return out
@@ -131,9 +162,10 @@ def child() -> dict:
 
     dev = torch.device("cuda", 0)
     _build.build_all()
-    out = {"ptxas": [line.strip() for name in ("v7_decode", "v6_decode")
+    out = {"ptxas": [line.strip() for name in ("v7_decode", "v6_decode",
+                                               "wkv4")
                      for line in _build.ptxas_info.get(name, "").splitlines()
-                     if "wkv_gn" in line or "registers" in line]}
+                     if "wkv" in line or "registers" in line]}
     for kind, H in KERNELS:
         for B in BATCHES:
             out[f"{kind} H={H} B={B}"] = time_case(cs, kind, B, H, dev)
