@@ -497,16 +497,8 @@ skinny_fma_kernel(const __grid_constant__ SKArgs a) {
 // squares and sums unfused), so every thread holds the same bits and no
 // barrier precedes the update.  The rows' y meet in shared memory (the
 // block's one barrier), and every warp takes the GroupNorm of all 64 in
-// the same order (head_moments).
-constexpr int CQ = 16;  // threads across a row group's 64 columns
-
-// Sum over the 16 threads of a row group (lanes xor 1, 2, 4, 8).
-__device__ __forceinline__ float group_sum(float x) {
-#pragma unroll
-  for (int off = 1; off < CQ; off <<= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
+// the same order (head_moments).  The layout, CQ and group_sum are
+// wkv7_common.cuh's, shared with wkv7.cu's one-step kernel.
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)

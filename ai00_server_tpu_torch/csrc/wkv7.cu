@@ -7,7 +7,31 @@
 //
 // wkv7_t1_launch replaces ai00_server_tpu/ops/wkv_t1.py:wkv7_t1 (the
 // Pallas _v7_kernel): one decode step, row-masked — an inactive row keeps
-// S bit for bit and y reads the kept S.
+// S bit for bit and y reads the kept S.  What bounds it: the state's bytes
+// (16 KB a head read, 16 KB written: 4.2 MB at B=8, H=16, 1.25 us at 3.35
+// TB/s) under a chain of latencies - the launch, the state's DRAM round
+// trip, two sums over a row, the store.  The design shortens the chain:
+//  * one launch for the whole call: the six vectors are read in the dtype
+//    the caller holds them in, each f32 or bf16 by a bit of vec_bf16 (the
+//    layer path's r, k, v, kk, a are bf16 and w f32; bf16 -> f32 is exact),
+//    so no cast kernels run before it;
+//  * a programmatic dependent launch (launch_ex, pdl): it lets the next
+//    kernel start at once and fetches this head's state rows (ld4_l2)
+//    before griddepcontrol.wait, so the state's DRAM round trip overlaps
+//    the kernel before it; the vectors and the mask, which that kernel may
+//    have written, after it, from L2 (.cg: never ld.global.nc on a
+//    kernel-written operand, see decode_common.cuh:ld4_l2);
+//  * a thread holds a 4 x 4 state tile in registers (wkv7_common.cuh, the
+//    layout of v7_decode.cu's wkv_gn_kernel): 16-byte loads and stores, the
+//    vectors of its four columns and four rows in registers, each row's
+//    S kk and S' r over its 16 threads by shuffles, no block barrier;
+//  * v7's rows are independent, so a head is split over 2 or 4 blocks of
+//    128 or 64 threads (the kernel takes 1, 2 or 4; ops/wkv_t1.py:plan
+//    picks 4 while B x H heads leave SMs idle).
+// The early state fetch is safe only while the kernel launched just
+// before this one did not write S: on the layer path (models/v7.py) that
+// launch is a PyTorch op, which starts after everything before it has
+// finished, and S is this layer's state from an earlier step.
 //
 // wkv7_chunk_launch replaces ai00_server_tpu/ops/wkv_pallas.py:wkv7_chunk
 // (the Pallas _wkv7_kernel): the same recurrence over a T-token chunk.  A
@@ -56,14 +80,15 @@
 // operand, f32 sums.  The scratch costs bytes: at B=8 pass 1 reads the
 // five inputs and writes 38 MB that pass 2 reads again.
 //
-// The thread layout and the update / readout device functions of the t1
-// kernel are in wkv7_common.cuh (shared with v7_decode.cu); the chunk
-// kernels' staging and tensor-core products in wkv_chunk_common.cuh
-// (shared with wkv56.cu).
+// The t1 kernel's thread layout and row sums are in wkv7_common.cuh
+// (shared with v7_decode.cu); the chunk kernels' staging and tensor-core
+// products in wkv_chunk_common.cuh (shared with wkv56.cu).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "decode_common.cuh"
+#include "matmul_common.cuh"
 #include "wkv7_common.cuh"
 #include "wkv_chunk_common.cuh"
 
@@ -71,37 +96,77 @@ using namespace wkv7;
 
 namespace {
 
+// Four elements of a vector from L2 (.cg) as floats: 16 bytes of f32 or
+// 8 of bf16 (widened exactly).  i counts elements.
+__device__ __forceinline__ float4 vec4_l2(const void* p, size_t i,
+                                          bool bf16) {
+  if (!bf16) return decode::ld4_l2(static_cast<const float*>(p) + i);
+  const uint2 t = __ldcg(reinterpret_cast<const uint2*>(
+      static_cast<const uint16_t*>(p) + i));
+  return make_float4(__uint_as_float(t.x << 16),
+                     __uint_as_float(t.x & 0xffff0000u),
+                     __uint_as_float(t.y << 16),
+                     __uint_as_float(t.y & 0xffff0000u));
+}
+
+// Block (bh, slice) of ns = THREADS / blockDim.x blocks a head: its
+// blockDim.x / CQ row groups, four rows each (see the note at the top).
+// vec_bf16 bit i: vector i of (r, w, k, v, kk, a) is bf16, else f32.
 __global__ void __launch_bounds__(THREADS)
-wkv7_t1_kernel(const float* __restrict__ S, const float* __restrict__ r,
-               const float* __restrict__ w, const float* __restrict__ k,
-               const float* __restrict__ v, const float* __restrict__ kk,
-               const float* __restrict__ a, const uint8_t* __restrict__ mask,
-               float* __restrict__ S_out, float* __restrict__ y, int H) {
-  __shared__ __align__(16) float sv[6][N];  // r, w, k, v, kk, a
-  const int bh = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int row = tid / TPR, q = tid % TPR;
+wkv7_t1_kernel(const float* S, const void* r, const void* w, const void* k,
+               const void* v, const void* kk, const void* a,
+               const uint8_t* mask, float* S_out, float* y, int H,
+               int vec_bf16) {
+  decode::grid_launch_dependents();
+  const int ns = THREADS / blockDim.x;
+  const int bh = blockIdx.x / ns, b = bh / H;
+  const int tid = threadIdx.x, col = 4 * (tid % CQ);
+  const int row0 = 4 * ((blockIdx.x % ns) * (blockDim.x / CQ) + tid / CQ);
   const size_t vo = (size_t)bh * N;
-  if (tid < N) {
-    sv[0][tid] = r[vo + tid];
-    sv[1][tid] = w[vo + tid];
-    sv[2][tid] = k[vo + tid];
-    sv[3][tid] = v[vo + tid];
-    sv[4][tid] = kk[vo + tid];
-    sv[5][tid] = a[vo + tid];
+  const float* src = S + (vo + row0) * N + col;
+
+  // Before the wait: this head's state rows, which the kernel before this
+  // one does not write (see the note at the top).
+  float4 s[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) s[i] = decode::ld4_l2(src + (size_t)i * N);
+  decode::grid_wait();
+
+  // After it, what the kernels before may have written, from L2; all of
+  // it at once (no load waits on the mask's).
+  const bool act = __ldcg(mask + b) != 0;
+  const float4 rv = vec4_l2(r, vo + col, vec_bf16 & 1);
+  const float4 wv = vec4_l2(w, vo + col, vec_bf16 >> 1 & 1);
+  const float4 kv = vec4_l2(k, vo + col, vec_bf16 >> 2 & 1);
+  const float4 vv = vec4_l2(v, vo + row0, vec_bf16 >> 3 & 1);
+  const float4 kkv = vec4_l2(kk, vo + col, vec_bf16 >> 4 & 1);
+  const float4 av = vec4_l2(a, vo + col, vec_bf16 >> 5 & 1);
+  if (act) {
+    const float4 kka = make_float4(kkv.x * av.x, kkv.y * av.y, kkv.z * av.z,
+                                   kkv.w * av.w);
+    const float vr[4] = {vv.x, vv.y, vv.z, vv.w};
+    float skk[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) skk[i] = group_sum(dot4(s[i], kkv));
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      s[i].x = s[i].x * wv.x - skk[i] * kka.x + vr[i] * kv.x;
+      s[i].y = s[i].y * wv.y - skk[i] * kka.y + vr[i] * kv.y;
+      s[i].z = s[i].z * wv.z - skk[i] * kka.z + vr[i] * kv.z;
+      s[i].w = s[i].w * wv.w - skk[i] * kka.w + vr[i] * kv.w;
+    }
   }
-  const bool active = mask[bh / H] != 0;
-  const float4* src = reinterpret_cast<const float4*>(S + (vo + row) * N);
-  float4 s[J];
+  // An inactive row writes its state back as it was read, bit for bit.
+  float* dst = S_out + (vo + row0) * N + col;
+  float yr[4];
 #pragma unroll
-  for (int j = 0; j < J; ++j) s[j] = src[4 * j + q];
-  __syncthreads();
-  if (active) update(s, sv[1], sv[2], sv[4], sv[5], sv[3][row], q);
-  const float yv = readout(s, sv[0], q);
-  float4* dst = reinterpret_cast<float4*>(S_out + (vo + row) * N);
-#pragma unroll
-  for (int j = 0; j < J; ++j) dst[4 * j + q] = s[j];
-  if (q == 0) y[vo + row] = yv;
+  for (int i = 0; i < 4; ++i) {
+    *reinterpret_cast<float4*>(dst + (size_t)i * N) = s[i];
+    yr[i] = group_sum(dot4(s[i], rv));
+  }
+  if (tid % CQ == 0)
+    *reinterpret_cast<float4*>(y + vo + row0) =
+        make_float4(yr[0], yr[1], yr[2], yr[3]);
 }
 
 namespace chunk {
@@ -469,14 +534,28 @@ int launch_state(const float* S, const float* v, const uint8_t* mask,
 
 extern "C" {
 
-int wkv7_t1_launch(const float* S, const float* r, const float* w,
-                   const float* k, const float* v, const float* kk,
-                   const float* a, const uint8_t* mask, float* S_out,
-                   float* y, int B, int H, int n, void* stream) {
-  if (n != N || B <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
-  wkv7_t1_kernel<<<B * H, THREADS, 0, (cudaStream_t)stream>>>(
-      S, r, w, k, v, kk, a, mask, S_out, y, H);
-  return (int)cudaGetLastError();
+// vec_bf16: bit i set where vector i of (r, w, k, v, kk, a) is bf16 (else
+// f32); f32 operands 16-byte aligned, bf16 ones 8-byte (the wrapper
+// checks).  slices: 1, 2 or 4 blocks a head.  A programmatic dependent
+// launch that reads S before it waits for the kernel before it: whatever
+// writes S must have finished before this kernel starts (a
+// synchronisation, or a launch without PDL between them).
+int wkv7_t1_launch(const float* S, const void* r, const void* w,
+                   const void* k, const void* v, const void* kk,
+                   const void* a, const uint8_t* mask, float* S_out,
+                   float* y, int B, int H, int n, int vec_bf16, int slices,
+                   void* stream) {
+  if (n != N || B <= 0 || H <= 0 || vec_bf16 < 0 || vec_bf16 > 63 ||
+      (slices != 1 && slices != 2 && slices != 4))
+    return (int)cudaErrorInvalidValue;
+  int h = H, bf = vec_bf16;
+  void* params[] = {(void*)&S,  (void*)&r,    (void*)&w,    (void*)&k,
+                    (void*)&v,  (void*)&kk,   (void*)&a,    (void*)&mask,
+                    (void*)&S_out, (void*)&y, &h,           &bf};
+  const cudaError_t e = decode::launch_ex(
+      (const void*)wkv7_t1_kernel, dim3(B * H * slices), THREADS / slices, 0,
+      0, true, (cudaStream_t)stream, params);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
 // The chunk: pass 1 (the factors of every sub-chunk into F, nsub * B * H

@@ -32,8 +32,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # C signatures: "p" = device pointer or stream (c_void_p), "i" = c_int.
 SIGNATURES = {
     "wkv7": {
-        # S, r, w, k, v, kk, a, mask, S_out, y, B, H, N, stream
-        "wkv7_t1_launch": "ppppppppppiiip",
+        # S, r, w, k, v, kk, a, mask, S_out, y, B, H, N, vec_bf16, slices,
+        # stream
+        "wkv7_t1_launch": "ppppppppppiiiiip",
         # S, r, w, k, v, kk, a, mask, scratch, S_out, y, B, T, H, N, slices,
         # stream
         "wkv7_chunk_launch": "pppppppppppiiiiip",
@@ -93,9 +94,13 @@ SIGNATURES = {
     "ivf": {
         # -> the largest D the kernel takes (not a status)
         "ivf_max_d": "",
-        # q, probe, packed, packed_ids, pscale (null: none), scores, ids, Q,
-        # nprobe, nlist, cap, D, dtype, stream
-        "ivf_score_launch": "pppppppiiiiiip",
+        # dtype -> elements of a row a stage holds (not a status)
+        "ivf_slice_elems": "i",
+        # probe, P, nlist, scratch, stream (the grouping alone)
+        "ivf_group_launch": "piipp",
+        # q, probe, packed, packed_ids, pscale (null: none), scores, ids,
+        # scratch, qs, Q, nprobe, nlist, cap, D, Dp, dtype, stream
+        "ivf_score_launch": "pppppppppiiiiiiip",
     },
 }
 

@@ -249,11 +249,13 @@ def ivf_score_plain(packed, packed_ids, pscale, q, probe):
     One probe rank at a time, so at most (Q, cap, D) candidates exist at
     once."""
     Q, nprobe = probe.shape
-    cap = packed.shape[1]
+    nlist, cap = packed.shape[:2]
     if packed.dtype == torch.int8:
         q = q.bfloat16()
     q = q.float()
     probe = probe.long()
+    valid = (probe >= 0) & (probe < nlist)  # else -inf and id -1
+    probe = torch.where(valid, probe, 0)
     scores = torch.empty((Q, nprobe, cap), dtype=torch.float32,
                          device=q.device)
     for r in range(nprobe):
@@ -261,22 +263,119 @@ def ivf_score_plain(packed, packed_ids, pscale, q, probe):
         s = torch.bmm(packed[c].float(), q[:, :, None])[..., 0]
         if pscale is not None:
             s = s * pscale[c]
-        scores[:, r] = torch.where(packed_ids[c] >= 0, s, -torch.inf)
-    return scores, packed_ids[probe]
+        scores[:, r] = torch.where((packed_ids[c] >= 0) & valid[:, r, None],
+                                   s, -torch.inf)
+    ids = torch.where(valid[..., None], packed_ids[probe], -1)
+    return scores, ids.to(torch.int32)
+
+
+# The kernel's tiling (csrc/ivf.cu): pairs a grouping block sorts, rows a
+# scoring block owns, queries of a run a pass.
+IVF_GROUP, IVF_ROWS, IVF_PASS = 1024, 128, 32
+
+
+def ivf_group_plain(probe, nlist: int, group: int = IVF_GROUP):
+    """The plain PyTorch version of ``csrc/ivf.cu:ivf_group_kernel``: the
+    Q * nprobe (query, rank) pairs of ``probe`` (row-major pair index qi *
+    nprobe + r) sorted by cluster, stably, ``group`` pairs at a time.
+    Returns (runs (P, 4) int32, order (P,) int32): ``order`` the pair
+    indices in sorted order; within each group, ``runs[k]`` = (first sorted
+    position, length, cluster, 0) of its k-th run of equal clusters, the
+    cluster -1 for probe ids outside [0, nlist) (one run of them a group),
+    and (0, 0, -1, 0) after the group's last run."""
+    flat = probe.reshape(-1).long()
+    P = flat.numel()
+    runs = torch.zeros((P, 4), dtype=torch.int32, device=probe.device)
+    runs[:, 2] = -1
+    order = torch.empty(P, dtype=torch.int32, device=probe.device)
+    for base in range(0, P, group):
+        c = flat[base:base + group]
+        n = c.numel()
+        key = torch.where((c >= 0) & (c < nlist), c, nlist)
+        pos = torch.argsort(key, stable=True)
+        order[base:base + n] = (base + pos).to(torch.int32)
+        sk = key[pos]
+        lead = torch.ones(n, dtype=torch.bool, device=probe.device)
+        lead[1:] = sk[1:] != sk[:-1]
+        starts = torch.nonzero(lead)[:, 0]
+        ends = torch.cat([starts[1:], starts.new_tensor([n])])
+        k = starts.numel()
+        runs[base:base + k, 0] = (base + starts).to(torch.int32)
+        runs[base:base + k, 1] = (ends - starts).to(torch.int32)
+        runs[base:base + k, 2] = torch.where(sk[starts] < nlist, sk[starts],
+                                             -1).to(torch.int32)
+    return runs, order
+
+
+def ivf_group(probe, nlist: int):
+    """:func:`ivf_group_plain` with ``group`` = IVF_GROUP: on a CUDA tensor
+    the grouping kernel alone (``csrc/ivf.cu:ivf_group_launch``), which
+    :func:`ivf_score` launches itself; for the tests."""
+    if probe.device.type == "cpu":
+        return ivf_group_plain(probe, nlist)
+    if probe.device.type != "cuda":
+        raise ValueError(f"unsupported device {probe.device}")
+    probe = probe.to(torch.int32).contiguous()
+    P = probe.numel()
+    scratch = torch.empty(5 * P, dtype=torch.int32, device=probe.device)
+    status = _build.library("ivf").ivf_group_launch(
+        probe.data_ptr(), P, nlist, scratch.data_ptr(),
+        torch.cuda.current_stream(probe.device).cuda_stream)
+    _build.check(status, "ivf_group")
+    ivf_group.launches += 1
+    return scratch[:4 * P].view(P, 4), scratch[4 * P:]
+
+
+ivf_group.launches = 0
+
+
+def ivf_score_clusters(packed, packed_ids, pscale, q, probe):
+    """The cluster-by-cluster scoring of ``csrc/ivf.cu`` in PyTorch, for
+    the tests: :func:`ivf_group_plain`, then for each run its cluster's
+    rows IVF_ROWS at a time against the run's queries IVF_PASS at a time
+    (f32 products of the bf16-rounded query for int8 codes, f32 else),
+    pscale and the empty-slot mask, each score scattered to its (qi, r,
+    row) place.  The same contract as :func:`ivf_score`; sums in
+    ``torch.matmul``'s order, not the kernel's."""
+    Q, nprobe = probe.shape
+    nlist, cap, _ = packed.shape
+    qf = (q.bfloat16() if packed.dtype == torch.int8 else q).float()
+    runs, order = ivf_group_plain(probe, nlist)
+    scores = torch.full((Q * nprobe, cap), -torch.inf, device=q.device)
+    ids = torch.full((Q * nprobe, cap), -1, dtype=torch.int32,
+                     device=q.device)
+    for start, length, c, _ in runs.tolist():
+        if length == 0 or c < 0:  # c < 0: not a cluster, -inf and -1 stay
+            continue
+        for r0 in range(0, cap, IVF_ROWS):
+            rows = slice(r0, min(cap, r0 + IVF_ROWS))
+            rid = packed_ids[c, rows]
+            ps = (pscale[c, rows] if pscale is not None
+                  else torch.ones_like(rid, dtype=torch.float32))
+            for g0 in range(0, length, IVF_PASS):
+                p = order[start + g0:start + min(length, g0 + IVF_PASS)].long()
+                s = packed[c, rows].float() @ qf[p // nprobe].T  # (rows, nq)
+                scores[p, rows] = torch.where(rid[None, :] >= 0, s.T * ps,
+                                              -torch.inf)
+                ids[p, rows] = rid
+    return scores.reshape(Q, nprobe, cap), ids.reshape(Q, nprobe, cap)
 
 
 def ivf_score(packed, packed_ids, pscale, q, probe):
     """Score the probed clusters: for each (query ``qi``, probe rank
     ``r``), the block ``packed[probe[qi, r]]`` (cap, D) dotted with
     ``q[qi]``, times ``pscale`` of the cluster where given, -inf where
-    ``packed_ids`` < 0.
+    ``packed_ids`` < 0; a probe id outside [0, nlist) gives -inf and id -1
+    in every slot.
 
     packed: (nlist, cap, D) int8 codes, bf16 or f32; packed_ids: (nlist,
     cap) int32; pscale: (nlist, cap) f32 or None; q: (Q, D) f32 (rounded to
     bf16 for int8 blocks, as the JAX package rounds it); probe: (Q, nprobe)
     int32.  Returns the dense (Q, nprobe, cap) f32 score and int32 id
     tables.  CPU tensors take :func:`ivf_score_plain`; CUDA tensors launch
-    ``csrc/ivf.cu:ivf_score_launch`` or raise."""
+    ``csrc/ivf.cu:ivf_score_launch`` (the grouping of the pairs by cluster,
+    then the scoring, each probed cluster read once; no synchronisation)
+    or raise."""
     if q.device.type == "cpu":
         return ivf_score_plain(packed, packed_ids, pscale, q, probe)
     if q.device.type != "cuda":
@@ -310,14 +409,22 @@ def ivf_score(packed, packed_ids, pscale, q, probe):
             raise ValueError(f"{name} must be contiguous {dtype} {shape} on "
                              f"{q.device}, got {t.dtype} {tuple(t.shape)} "
                              f"on {t.device}")
+    code = _PACKED_CODE[packed.dtype]
+    ks = lib.ivf_slice_elems(code)
+    Dp = -(-D // ks) * ks
     scores = torch.empty((Q, nprobe, cap), dtype=torch.float32,
                          device=q.device)
     ids = torch.empty((Q, nprobe, cap), dtype=torch.int32, device=q.device)
+    # The runs and the sorted pairs, and the queries padded to whole slices
+    # (bf16 for int8 codes, f32 else).
+    scratch = torch.empty(5 * Q * nprobe, dtype=torch.int32, device=q.device)
+    qs = torch.empty((Q, Dp), device=q.device, dtype=(
+        torch.bfloat16 if packed.dtype == torch.int8 else torch.float32))
     status = lib.ivf_score_launch(
         q.data_ptr(), probe.data_ptr(), packed.data_ptr(),
         packed_ids.data_ptr(), 0 if pscale is None else pscale.data_ptr(),
-        scores.data_ptr(), ids.data_ptr(), Q, nprobe, nlist, cap, D,
-        _PACKED_CODE[packed.dtype],
+        scores.data_ptr(), ids.data_ptr(), scratch.data_ptr(), qs.data_ptr(),
+        Q, nprobe, nlist, cap, D, Dp, code,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(status, "ivf_score")
     ivf_score.launches += 1

@@ -9,15 +9,16 @@ kernel's source is built first, one ``nvcc`` each, all started together):
 
 1. Card and build: the card's name and power limit, then ``nvcc`` builds
    every kernel of the port from ``ai00_server_tpu_torch/csrc/``, and
-   ``tools/torch_sass_loads.py`` reads the loads of ``v4_wkv_kernel`` (a
-   programmatic dependent) in its machine code: only its two weight rows
-   may go through ``ld.global.nc``.
+   ``tools/torch_sass_loads.py`` reads the loads of ``v4_wkv_kernel`` and
+   ``wkv7_t1_kernel`` (programmatic dependents) in their machine code:
+   only v4's two weight rows may go through ``ld.global.nc``.
 2. Each kernel against its plain PyTorch version on the card, at the
    shapes the serving path gives it, with times from CUDA events and the
    least time the card could take (the larger of bytes over 3.35 TB/s and
    operations over the peak for their type: 67 TFLOP/s f32, 989 TFLOP/s
    bf16 products; from this run's inputs).  The WKV kernels (``wkv7_t1``
-   on states rotating past the L2, and on one state; the prefill
+   on states rotating past the L2, and on one state, held and timed at
+   B = 8 and 1 on f32 vectors and on the layer path's bf16 ones; the prefill
    chunk also with every decay at v7's floor, and timed at B = 8 and 1,
    T = 256 and 16), then the three kernels of the fused decode step
    (``csrc/v7_decode.cu``) on weights that rotate through more than the L2
@@ -54,8 +55,10 @@ kernel's source is built first, one ``nvcc`` each, all started together):
    vectors of D = 1024 (a mixture of 16,384 unit modes made on the card,
    balanced k-means with nlist = 1024, the streamed builder), held against
    its plain version there and on bf16 and f32 indexes of 65,536 vectors,
-   timed at 64 queries with nprobe 8 and 16, with recall@10 against exact
-   search printed as a reading.
+   timed at 64 queries with nprobe 8 and 16 and at two skews (every query
+   on the same clusters, every pair on a cluster of its own), each time
+   beside its bound and the bytes the kernel reads, with recall@10 against
+   exact search printed as a reading.
 3. Model parity: the full-width RWKV-7 0.4B shape at 2 layers in f32 on
    the card (kernels) against the same weights on the CPU (plain
    versions), after a ragged prefill and T=1 steps — on the
@@ -284,9 +287,11 @@ def rel_err(got, want) -> tuple[float, float]:
 
 def sass_loads() -> None:
     """``tools/torch_sass_loads.py`` on the built kernels: prints its
-    ``v4_wkv_kernel`` line and fails if that programmatic dependent reads
-    anything but its two weight rows (w, u: one 16-byte load each an
-    instantiation) through the non-coherent path (``LDG.E...CONSTANT``)."""
+    ``v4_wkv_kernel`` and ``wkv7_t1_kernel`` lines and fails if the first
+    programmatic dependent reads anything but its two weight rows (w, u:
+    one 16-byte load each an instantiation), or the second anything at
+    all, through the non-coherent path (``LDG.E...CONSTANT``): every
+    operand of ``wkv7_t1`` may have been written by a kernel before it."""
     out = subprocess.run(
         [sys.executable, str(ROOT / "tools" / "torch_sass_loads.py")],
         capture_output=True, text=True, cwd=str(ROOT), timeout=600)
@@ -301,6 +306,13 @@ def sass_loads() -> None:
     check(nc <= 2 * row["instantiations"],
           f"v4_wkv_kernel reads {nc} values through ld.global.nc: only its "
           "weight rows may be")
+    row = loads.get("wkv7:wkv7_t1_kernel")
+    check(row is not None, "no wkv7_t1_kernel in the SASS")
+    print("SASS loads, wkv7:wkv7_t1_kernel: " + ", ".join(
+        f"{k} {v}" for k, v in sorted(row.items())), flush=True)
+    nc = sum(v for k, v in row.items() if "CONSTANT" in k)
+    check(nc == 0, f"wkv7_t1_kernel reads {nc} values through "
+                   "ld.global.nc: a kernel before it may have written them")
 
 
 # ---------------------------------------------------------------------------
@@ -335,48 +347,69 @@ def phase_kernels(dev) -> dict:
     B, H, N = MAX_BATCH, C // HEAD, HEAD
     rows = {}
 
-    # wkv7_t1 at the decode shape, row 5 inactive.
-    S, seqs = wkv_inputs(gen, B, 1, H, N, dev)
-    vecs = [x[:, 0].contiguous() for x in seqs]
-    mask = torch.ones(B, dtype=torch.bool, device=dev)
-    mask[5] = False
-    S_k, y_k = wkv7_t1(S, *vecs, mask)
-    S_p, y_p = wkv7_t1_plain(S, *vecs, mask)
-    torch.cuda.synchronize()
-    err_s, rel_s = rel_err(S_k, S_p)
-    err_y, rel_y = rel_err(y_k, y_p)
-    check(rel_s <= KERNEL_TOL and rel_y <= KERNEL_TOL,
-          f"wkv7_t1 disagrees with its plain version: {rel_s} {rel_y}")
-    check(torch.equal(S_k[5], S[5]), "wkv7_t1 changed an inactive row")
-    elems = B * H * N * N
-    nbytes = 2 * elems * 4 + 7 * B * H * N * 4 + B
-    flops = 9 * B * H * N * N  # S.kk 2, update 5, S'.r 2 per element
-    b_ms, b_by = bound(nbytes, flops)
-    # Timed on states that rotate past the L2, as a layer-path step finds
-    # them (its bound counts the state's HBM bytes); the one-state reading
-    # beside it, whose state stays in the L2.
-    n_states = int(2 * L2_BYTES // (elems * 4)) + 1
-    states = [S] + [torch.randn(S.shape, generator=gen, device=dev)
-                    for _ in range(n_states - 1)]
+    # wkv7_t1 at the decode shape, row 5 inactive, and at B = 1; on f32
+    # vectors and on the layer path's (w f32, the other five bf16).
+    held_t1, shapes_t1, worst_t1 = None, {}, 0.0
+    for b_t1 in (B, 1):
+        S, seqs = wkv_inputs(gen, b_t1, 1, H, N, dev)
+        mask = torch.ones(b_t1, dtype=torch.bool, device=dev)
+        mask[5:6] = False
+        elems = b_t1 * H * N * N
+        n_states = int(2 * L2_BYTES // (elems * 4)) + 1
+        states = [S] + [torch.randn(S.shape, generator=gen, device=dev)
+                        for _ in range(n_states - 1)]
+        for vec, dts in (("f32", (torch.float32,) * 6),
+                         ("layer", (torch.bfloat16, torch.float32)
+                          + (torch.bfloat16,) * 4)):
+            vecs = [x[:, 0].to(dt).contiguous() for x, dt in zip(seqs, dts)]
+            # The kernel reads S before it waits for the launch before it.
+            torch.cuda.synchronize()
+            S_k, y_k = wkv7_t1(S, *vecs, mask)
+            S_p, y_p = wkv7_t1_plain(S, *vecs, mask)
+            torch.cuda.synchronize()
+            err_s, rel_s = rel_err(S_k, S_p)
+            err_y, rel_y = rel_err(y_k, y_p)
+            check(rel_s <= KERNEL_TOL and rel_y <= KERNEL_TOL,
+                  f"wkv7_t1 B={b_t1} {vec} disagrees with its plain version: "
+                  f"{rel_s} {rel_y}")
+            if b_t1 > 5:
+                check(torch.equal(S_k[5], S[5]),
+                      "wkv7_t1 changed an inactive row")
+            worst_t1 = max(worst_t1, err_s, err_y)
+            vec_bytes = sum(v.numel() * v.element_size() for v in vecs)
+            # Timed with every row active on states that rotate past the
+            # L2, as a layer-path step finds them (its bound counts the
+            # state's HBM bytes).
+            active = torch.ones_like(mask)
+            ms = device_ms(rotating(lambda i: wkv7_t1(states[i], *vecs,
+                                                      active), n_states),
+                           max(100, n_states))
+            b_ms, b_by = bound(2 * elems * 4 + vec_bytes + b_t1 * H * N * 4
+                               + b_t1, 9 * elems)
+            shapes_t1[f"{vec} B={b_t1}"] = {"ms": ms, "bound_ms": b_ms}
+            idle = "; inactive row bit-identical" if b_t1 > 5 else ""
+            print(f"wkv7_t1 B={b_t1} H={H} N={N} {vec} vectors: max_abs_err "
+                  f"state {err_s:.3e} y {err_y:.3e} (tolerance {KERNEL_TOL} x "
+                  f"max(1, |plain|)){idle}; {ms:.5f} ms on {n_states} states "
+                  f"rotating past the L2 (bound {b_ms:.5f})", flush=True)
+            if b_t1 == B and vec == "f32":
+                held_t1 = (S, vecs, active, b_ms, b_by)
+        del states
+    S, vecs, mask, b_ms, b_by = held_t1
     rows["wkv7_t1"] = {
         "name": "wkv7_t1", "route": "cuda",
         "source": "ai00_server_tpu_torch/csrc/wkv7.cu",
         "replaces": "ai00_server_tpu/ops/wkv_t1.py:108",
-        "max_abs_err": max(err_s, err_y),
-        "ms": device_ms(rotating(lambda i: wkv7_t1(states[i], *vecs, mask),
-                                 n_states), max(100, n_states)),
+        "max_abs_err": worst_t1,
+        "ms": shapes_t1[f"f32 B={B}"]["ms"],
         "same_state_ms": device_ms(lambda: wkv7_t1(S, *vecs, mask), 100),
         "plain_ms": device_ms(lambda: wkv7_t1_plain(S, *vecs, mask), 20),
         "call_ms": call_ms(lambda: wkv7_t1(S, *vecs, mask), 200),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "shapes_ms": shapes_t1,
     }
-    del states
-    print(f"wkv7_t1 B={B} H={H} N={N}: max_abs_err state {err_s:.3e} "
-          f"y {err_y:.3e} (tolerance {KERNEL_TOL} x max(1, |plain|)); "
-          f"inactive row bit-identical; {rows['wkv7_t1']['ms']:.5f} ms on "
-          f"{n_states} states rotating past the L2, "
-          f"{rows['wkv7_t1']['same_state_ms']:.5f} ms on one state",
-          flush=True)
+    print(f"wkv7_t1 B={B}: {rows['wkv7_t1']['same_state_ms']:.5f} ms on one "
+          "state", flush=True)
 
     # wkv7_chunk at the prefill shape (T = token_chunk_size), and ragged.
     worst = 0.0
@@ -2357,25 +2390,38 @@ def ivf_bound(ivf, probe, elem: int, D: int) -> dict:
     """The least time of one ``ivf_score`` call: the filled rows of each
     DISTINCT probed cluster read once (ids and scales of all its slots),
     the queries, the probe table and the (Q, nprobe, cap) outputs, over
-    3.35 TB/s; or its multiply-adds over 67 TFLOP/s f32.  Beside it the
-    bytes the grid reads, every (query, probe) block with its ids and
-    scales: Q * nprobe * cap * (D * elem + 8)."""
+    3.35 TB/s; or its multiply-adds over the peak of their type (int8
+    codes: bf16 products on the tensor cores; floats: f32).  Beside it the
+    DRAM bytes the kernel reads (``read_bytes``: the filled rows, scales
+    and ids of the distinct clusters of each group of ``IVF_GROUP`` pairs,
+    the queries and the probe table; it writes the outputs) and those of a
+    design that reads one (query, probe) block at a time (``pair_bytes``,
+    the first kernel of ``csrc/ivf.cu``: the same for every pair)."""
     import torch
+
+    from ai00_server_tpu_torch.ops.retrieval import IVF_GROUP
 
     Q, nprobe = probe.shape
     cap = ivf.cap
     fill = (ivf.packed_ids >= 0).sum(-1)
-    distinct = torch.unique(probe.long())
+    flat = probe.reshape(-1).long()
+    distinct = torch.unique(flat)
     filled = int(fill[distinct].sum())
     out_bytes = Q * nprobe * cap * 8
-    n_bytes = (filled * D * elem + len(distinct) * cap * 8 + Q * D * 4
-               + Q * nprobe * 4 + out_bytes)
-    flops = 2 * D * int(fill[probe.long()].sum())
-    b_ms, b_by = bound(n_bytes, flops)
-    grid = Q * nprobe * cap * (D * elem + 8) + out_bytes + Q * D * 4
+    common = Q * D * 4 + Q * nprobe * 4 + out_bytes
+    n_bytes = filled * D * elem + len(distinct) * cap * 8 + common
+    flops = 2 * D * int(fill[flat].sum())
+    b_ms, b_by = bound(n_bytes, flops, BF16_FLOPS if elem == 1
+                       else F32_FLOPS)
+    # A cluster's reads: every slot's id and scale, then the filled rows;
+    # the one-block-a-pair design read the scales of filled rows only.
+    per = fill.double() * D * elem + cap * 8
+    per7 = fill.double() * (D * elem + 4) + cap * 4
+    read = sum(float(per[flat[i:i + IVF_GROUP].unique()].sum())
+               for i in range(0, flat.numel(), IVF_GROUP)) + common
     return {"bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes,
-            "distinct": len(distinct), "grid_bytes": grid,
-            "grid_ms": grid / HBM_BYTES_PER_S * 1e3}
+            "distinct": len(distinct), "read_bytes": read,
+            "pair_bytes": float(per7[flat].sum()) + common}
 
 
 def ivf_data(dev):
@@ -2406,9 +2452,11 @@ def phase_ivf_kernels(dev) -> dict:
     spill 8, the placement bias kept), the kernel against
     ``ivf_score_plain`` on IVF_CHECK_Q queries at full index size, then on
     bf16 and f32 indexes of IVF_SMALL_N vectors (``build_ivf``); timed at
-    IVF_Q queries with nprobe 8 (the row) and 16; recall@10 of
-    ``ivf_search`` against ``exact_search`` on the bf16 corpus, printed as a
-    reading."""
+    IVF_Q queries with nprobe 8 (the row) and 16, and held and timed at two
+    skews of nprobe 8 (every query on query 0's clusters; every pair on a
+    cluster of its own), each beside its bound and the bytes the kernel
+    reads (``ivf_bound``); recall@10 of ``ivf_search`` against
+    ``exact_search`` on the bf16 corpus, printed as a reading."""
     import torch
 
     from ai00_server_tpu_torch.ops import retrieval as R
@@ -2466,19 +2514,46 @@ def phase_ivf_kernels(dev) -> dict:
         del index
     del small
 
-    # Times at IVF_Q queries, nprobe 8 (the row) and 16.
-    row = None
-    for nprobe in (8, 16):
-        qf, probe = R._ivf_probe(ivf.centroids, q[:IVF_Q], nprobe, ivf.cbias)
+    # Times at IVF_Q queries: nprobe 8 (the row) and 16 on the queries' own
+    # probes, and two skews of nprobe 8 held first: every query on query
+    # 0's clusters (runs of IVF_Q), every pair on a cluster of its own.
+    qf, probe8 = R._ivf_probe(ivf.centroids, q[:IVF_Q], 8, ivf.cbias)
+    probes = {
+        "nprobe 8": probe8,
+        "nprobe 16": R._ivf_probe(ivf.centroids, q[:IVF_Q], 16,
+                                  ivf.cbias)[1],
+        "shared": probe8[:1].expand(IVF_Q, 8).contiguous(),
+        "distinct": torch.arange(IVF_Q * 8, device=dev,
+                                 dtype=torch.int32).reshape(IVF_Q, 8)
+        % IVF_NLIST,
+    }
+    row, skews = None, {}
+    for name, probe in probes.items():
         args = (ivf.packed, ivf.packed_ids, ivf.pscale, qf, probe)
+        if name in ("shared", "distinct"):
+            s_k, i_k = R.ivf_score(*args)
+            s_p, i_p = R.ivf_score_plain(*args)
+            torch.cuda.synchronize()
+            check(torch.equal(i_k, i_p), f"ivf_score {name}: ids differ")
+            fin = torch.isfinite(s_p)
+            check(torch.equal(torch.isfinite(s_k), fin),
+                  f"ivf_score {name}: empty slots differ")
+            err, rel = rel_err(s_k[fin], s_p[fin])
+            check(rel <= KERNEL_TOL, f"ivf_score {name} disagrees with its "
+                  f"plain version: {rel}")
+            worst = max(worst, err)
         ms = device_ms(lambda: R.ivf_score(*args), 10)
         b = ivf_bound(ivf, probe, 1, IVF_D)
-        print(f"ivf_score int8 Q={IVF_Q} nprobe={nprobe}: {ms:.5f} ms; bound "
-              f"{b['bound_ms']:.5f} ms by {b['bound_by']} ({b['distinct']} "
-              f"distinct clusters, {b['bytes'] / 1e6:.1f} MB); the grid "
-              f"reads {b['grid_bytes'] / 1e6:.1f} MB ({b['grid_ms']:.5f} ms "
-              "at 3.35 TB/s)", flush=True)
-        if nprobe == 8:
+        held_txt = (f" held (max_abs_err {err:.3e}, ids and empty slots "
+                    "equal);" if name in ("shared", "distinct") else "")
+        print(f"ivf_score int8 Q={IVF_Q} {name}:{held_txt} {ms:.5f} ms; "
+              f"bound {b['bound_ms']:.5f} ms by {b['bound_by']} "
+              f"({b['distinct']} distinct clusters, {b['bytes'] / 1e6:.1f} "
+              f"MB); the kernel reads {b['read_bytes'] / 1e6:.1f} MB "
+              f"({b['read_bytes'] / (ms * 1e9):.3f} TB/s), a (query, probe) "
+              f"block at a time would read {b['pair_bytes'] / 1e6:.1f} MB",
+              flush=True)
+        if name == "nprobe 8":
             row = {
                 "name": "ivf_score", "route": "cuda",
                 "source": "ai00_server_tpu_torch/csrc/ivf.cu",
@@ -2490,6 +2565,10 @@ def phase_ivf_kernels(dev) -> dict:
                 "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
                 "library_ms": None,
             }
+        else:
+            skews[name] = {"ms": ms, "bound_ms": b["bound_ms"],
+                           "read_bytes": b["read_bytes"]}
+    row["shapes_ms"] = skews
 
     # recall@10 against exact search on the bf16 corpus (a reading).
     _, gt = R.exact_search(data, q.bfloat16(), k=10)

@@ -53,18 +53,102 @@ def _close(got, want, tol=1e-4):
 MIRROR_TOL = 1e-5
 
 
-def test_wkv7_t1_kernel_matches_plain(dev):
-    gen = torch.Generator(device=dev).manual_seed(1)
-    S, seqs = _inputs(gen, dev, 5, 1, 3)
-    vecs = [x[:, 0].contiguous() for x in seqs]
-    mask = torch.tensor([True, False, True, True, False], device=dev)
+# The vectors' dtypes wkv7_t1 takes as they are: all f32, all bf16, and the
+# layer path's mix (w f32, the other five bf16).
+T1_VEC_DTYPES = {"f32": [torch.float32] * 6, "bf16": [torch.bfloat16] * 6,
+                 "layer": [torch.bfloat16, torch.float32] + [torch.bfloat16] * 4}
+
+
+def _t1_case(dev, B, H, seed, dtypes):
+    """(S, vecs in their dtypes, mask with rows 1 and 4 idle where B > 4,
+    row 1 where B > 1), the state synchronised: the kernel reads it before
+    it waits for the kernel launched before it."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    S, seqs = _inputs(gen, dev, B, 1, H)
+    vecs = [x[:, 0].to(dt).contiguous() for x, dt in zip(seqs, dtypes)]
+    mask = torch.ones(B, dtype=torch.bool, device=dev)
+    mask[1:2] = False
+    mask[4:5] = False
+    torch.cuda.synchronize()
+    return S, vecs, mask
+
+
+@pytest.mark.parametrize("slices", [1, 2, 4])
+@pytest.mark.parametrize("vec", sorted(T1_VEC_DTYPES))
+@pytest.mark.parametrize("B", [1, 3, 8])
+def test_wkv7_t1_kernel_matches_plain(dev, monkeypatch, B, vec, slices):
+    """Every split of a head (``wkv_t1.plan`` forced), B = 1 / 3 / 8 with
+    idle rows, f32, bf16 and mixed vectors: one launch, within 1e-4 of the
+    plain version and 1e-5 of the mirror, idle rows bit for bit."""
+    from ai00_server_tpu_torch.ops import wkv_t1
+
+    monkeypatch.setattr(wkv_t1, "plan", lambda B, H, sms: slices)
+    S, vecs, mask = _t1_case(dev, B, 3, 10 * B + slices, T1_VEC_DTYPES[vec])
     before = wkv7_t1.launches
     S_k, y_k = wkv7_t1(S, *vecs, mask)
-    S_p, y_p = wkv7_t1_plain(S, *vecs, mask)
     assert wkv7_t1.launches == before + 1
+    S_p, y_p = wkv7_t1_plain(S, *vecs, mask)
     _close(S_k, S_p)
     _close(y_k, y_p)
-    assert torch.equal(S_k[1], S[1]) and torch.equal(S_k[4], S[4])
+    S_m, y_m = wkv_t1.wkv7_t1_mirror(S, *vecs, mask, slices=slices)
+    _close(S_k, S_m, MIRROR_TOL)
+    _close(y_k, y_m, MIRROR_TOL)
+    for b in range(B):
+        if not mask[b]:
+            assert torch.equal(S_k[b], S[b])
+
+
+def test_wkv7_t1_kernel_bf16_vectors_equal_their_f32_widening(dev):
+    """bf16 vectors are read as the f32 they widen to: the same bits as the
+    kernel on their f32 copies."""
+    S, vecs, mask = _t1_case(dev, 8, 16, 3, T1_VEC_DTYPES["layer"])
+    wide = [v.float() for v in vecs]
+    torch.cuda.synchronize()
+    S_a, y_a = wkv7_t1(S, *vecs, mask)
+    S_b, y_b = wkv7_t1(S, *wide, mask)
+    assert torch.equal(S_a, S_b) and torch.equal(y_a, y_b)
+
+
+def test_wkv7_t1_kernel_graph_replay_equals_eager(dev):
+    """The kernel captured in a CUDA graph gives the eager call's bits, and
+    the same bits on every replay."""
+    S, vecs, mask = _t1_case(dev, 8, 16, 4, T1_VEC_DTYPES["layer"])
+    S_e, y_e = wkv7_t1(S, *vecs, mask)
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        wkv7_t1(S, *vecs, mask)  # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        S_g, y_g = wkv7_t1(S, *vecs, mask)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(S_g, S_e) and torch.equal(y_g, y_e)
+
+
+def test_wkv7_t1_refuses_what_it_does_not_take(dev):
+    S, vecs, mask = _t1_case(dev, 2, 2, 5, T1_VEC_DTYPES["f32"])
+    odd = torch.zeros(S.numel() + 1, device=dev)[1:].view(S.shape)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        wkv7_t1(odd, *vecs, mask)
+    odd_v = torch.zeros(vecs[0].numel() + 1, device=dev)[1:].view(
+        vecs[0].shape)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        wkv7_t1(S, odd_v, *vecs[1:], mask)
+    odd_b = torch.zeros(vecs[0].numel() + 2, device=dev,
+                        dtype=torch.bfloat16)[2:].view(vecs[0].shape)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        wkv7_t1(S, odd_b, *vecs[1:], mask)
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        wkv7_t1(S, vecs[0].half(), *vecs[1:], mask)
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        wkv7_t1(S, vecs[0].transpose(0, 1).contiguous().transpose(0, 1),
+                *vecs[1:], mask)
+    with pytest.raises(ValueError, match="state must be"):
+        wkv7_t1(S.bfloat16(), *vecs, mask)
 
 
 @pytest.mark.parametrize("T", [1, 16, 37])
@@ -1468,17 +1552,38 @@ def _ivf_operands(dev, dtype, nlist, cap, D, Q, nprobe, seed, pad_cluster):
     return packed, ids, pscale, q, probe
 
 
+def _skewed(probe, skew, nlist):
+    """probe rewritten to a skew: "shared" - every query probes the same
+    clusters (each run as long as Q); "distinct" - every pair its own
+    cluster (runs of one; needs nlist >= Q * nprobe); "mixed" the random
+    draw with an id off the index (-1 and nlist)."""
+    Q, nprobe = probe.shape
+    if skew == "shared":
+        return probe[:1].expand(Q, nprobe).contiguous()
+    if skew == "distinct":
+        return torch.arange(Q * nprobe, device=probe.device,
+                            dtype=torch.int32).reshape(Q, nprobe) % nlist
+    probe = probe.clone()
+    probe[1, 0], probe[-1, -1] = -1, nlist
+    return probe
+
+
+@pytest.mark.parametrize("skew", ["mixed", "shared", "distinct"])
 @pytest.mark.parametrize("D", [64, 37, 1024, 3072, 40003])
 @pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16, torch.float32])
-def test_ivf_score_kernel_matches_plain(dev, dtype, D):
+def test_ivf_score_kernel_matches_plain(dev, dtype, D, skew):
     """Aligned rows (D = 64, 1024, 3072: a pooling="state" vector at
-    C = 1024) take the 16-byte loads; D = 37 has a scalar tail and, for
-    bf16 and int8, unaligned rows; D = 40003 (a ragged tail past the vector
-    part, near the limit of the one query copy in shared memory).  Cluster
-    1 is all pads; a third of every cluster is empty slots."""
+    C = 1024) take the 16-byte copies; D = 37 (and for bf16 and int8
+    40003) unaligned rows, element by element; D = 40003 near the limit.
+    Cluster 1 is all pads; a third of every cluster is empty slots; cap 70
+    is one row tile and a ragged one.  Skews: every query on the same
+    clusters (runs of Q = 40 > a pass of 32 queries), every pair on its own
+    cluster, and a random draw with ids off the index."""
+    Q, nprobe, nlist = (40, 3, 120) if D <= 1024 else (9, 3, 30)
     packed, ids, pscale, q, probe = _ivf_operands(
-        dev, dtype, nlist=6, cap=45, D=D, Q=5, nprobe=3, seed=D,
+        dev, dtype, nlist=nlist, cap=70, D=D, Q=Q, nprobe=nprobe, seed=D,
         pad_cluster=True)
+    probe = _skewed(probe, skew, nlist)
     before = R.ivf_score.launches
     s_k, i_k = R.ivf_score(packed, ids, pscale, q, probe)
     assert R.ivf_score.launches == before + 1
@@ -1487,8 +1592,48 @@ def test_ivf_score_kernel_matches_plain(dev, dtype, D):
     assert torch.equal(i_k, i_p)
     fin = torch.isfinite(s_p)
     assert torch.equal(torch.isfinite(s_k), fin)
-    assert not fin[0, 0].any()  # the pad cluster
+    if skew == "mixed":
+        assert not fin[0, 0].any()  # the pad cluster
+        assert not fin[1, 0].any() and not fin[-1, -1].any()
     _close(s_k[fin], s_p[fin])
+
+
+@pytest.mark.parametrize("Q,nprobe,nlist", [(64, 8, 1024), (64, 16, 40),
+                                            (300, 8, 500), (1, 1, 3)])
+def test_ivf_group_kernel_equals_plain(dev, Q, nprobe, nlist):
+    """The grouping kernel's runs and sorted pairs equal
+    ``ivf_group_plain``'s, one group (1024 pairs), and more (300 x 8), ids
+    off the index among them."""
+    gen = torch.Generator(device=dev).manual_seed(Q + nprobe)
+    probe = torch.randint(-1, nlist + 1, (Q, nprobe), generator=gen,
+                          device=dev, dtype=torch.int32)
+    runs, order = R.ivf_group(probe, nlist)
+    runs_p, order_p = R.ivf_group_plain(probe.cpu(), nlist)
+    assert torch.equal(runs.cpu(), runs_p) and torch.equal(order.cpu(),
+                                                           order_p)
+
+
+def test_ivf_score_graph_replay_equals_eager(dev):
+    """ivf_score captured in a CUDA graph (a synchronisation in the wrapper
+    would fail the capture) gives the eager call's bits on every replay."""
+    packed, ids, pscale, q, probe = _ivf_operands(
+        dev, torch.int8, nlist=60, cap=130, D=256, Q=32, nprobe=4, seed=9,
+        pad_cluster=True)
+    probe[:8] = probe[8:16]  # shared clusters
+    s_e, i_e = R.ivf_score(packed, ids, pscale, q, probe)
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        R.ivf_score(packed, ids, pscale, q, probe)  # warm-up
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        s_g, i_g = R.ivf_score(packed, ids, pscale, q, probe)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(s_g, s_e) and torch.equal(i_g, i_e)
 
 
 def test_ivf_search_launches_the_kernel_for_any_shape(dev):
@@ -1521,6 +1666,13 @@ def test_ivf_score_refuses_what_it_does_not_take(dev):
     with pytest.raises(ValueError, match="q must be contiguous"):
         R.ivf_score(torch.zeros(2, 3, 8, device=dev), ids, None,
                     torch.zeros(1, 8, device=dev).bfloat16(), probe)
+    with pytest.raises(ValueError, match="pscale must be contiguous"):
+        R.ivf_score(torch.zeros(2, 3, 8, device=dev, dtype=torch.int8), ids,
+                    torch.zeros(3, 2, device=dev).t(),
+                    torch.zeros(1, 8, device=dev), probe)
+    with pytest.raises(ValueError, match="packed_ids must be contiguous"):
+        R.ivf_score(torch.zeros(2, 3, 8, device=dev), ids.long(), None,
+                    torch.zeros(1, 8, device=dev), probe)
 
 
 # ---------------------------------------------------------------------------
