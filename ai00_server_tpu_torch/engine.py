@@ -34,7 +34,16 @@ quantized (int8, nf4, sf4, int4):
   :meth:`Engine.decode_chunk` runs K decode steps with sampling on the
   device, feeding each sampled token back in, and only the ``(K, B)``
   tokens cross to the host.
-* Per-row logit bias is a device pool updated only when it changes.
+* Per-row logit bias and BNF allow-masks are device pools updated only
+  when they change.
+* The device token DFA of regular grammars (``grammar.token_dfa_table``):
+  each row owns a ``(TH, V)`` int8 table in ``dfa_pool`` (entry -1 =
+  token disallowed, ``TH - 1`` = the grammar halts, else the next state)
+  and its state in ``dfa_state`` (-1 = the row is not DFA-constrained).
+  :meth:`Engine.decode_chunk` reads each row's current table row at every
+  step (one ``(B, V)`` gather, never the whole pool), masks the sample
+  with it, advances the state by the sampled token and freezes a row
+  whose grammar halted, as it freezes a row whose budget is spent.
 * Sampling uniforms come from a ``torch.Generator`` on the device.
 * A ring of pre-chunk snapshots backs :meth:`rollback_row` and
   :meth:`restore_last_chunk`.
@@ -55,6 +64,7 @@ worker thread; the engine itself is synchronous.
 
 from __future__ import annotations
 
+import os
 import threading
 from dataclasses import dataclass
 
@@ -96,6 +106,35 @@ def head_logits(params, x):
     if x.device.type == "cuda":
         return torch.mm(x, head.to(x.dtype), out_dtype=torch.float32)
     return torch.matmul(x.float(), head.to(x.dtype).float())
+
+
+def dfa_height() -> int:
+    """Rows of each slot's token-DFA table: ``AI00_DFA_STATES`` (default
+    64), the last one the halt row.  The table is int8, so more than 128
+    rows cannot be addressed (the JAX engine takes any value and its state
+    ids wrap); fewer than 2 leave no room for a state beside the halt row."""
+    th = int(os.environ.get("AI00_DFA_STATES", "64"))
+    if not 2 <= th <= 128:
+        raise ValueError(f"AI00_DFA_STATES={th}: the int8 token DFA takes "
+                         "2..128 rows")
+    return th
+
+
+def dfa_mask(pool, rows, ds, on, mask_pool):
+    """The DFA half of a decode step's mask.  ``ds`` (B,) int64 states, -1
+    for a row off the DFA, and ``on = ds >= 0``.  Returns each row's current
+    table row ``pool[b, ds[b]]`` (one (V,) int8 row a row, never the whole
+    pool) and the (B, V) allowed mask: the table row's ``>= 0`` where the
+    row is on the DFA, else its ``mask_pool`` row."""
+    srow = pool[rows, torch.clamp(ds, min=0)]
+    return srow, torch.where(on[:, None], srow >= 0, mask_pool)
+
+
+def dfa_advance(ds, on, srow, toks, act):
+    """The DFA states after the sampled ``toks``: the table entry of each
+    active row on the DFA, the state unchanged elsewhere."""
+    nxt = torch.gather(srow, 1, toks[:, None].long())[:, 0]
+    return torch.where(act & on, nxt, ds)
 
 
 @dataclass
@@ -145,6 +184,21 @@ class Engine:
         self.bias_pool = torch.zeros((B, V), dtype=torch.float32,
                                      device=self.device)
         self.bias_active = np.zeros(B, np.bool_)
+        self.mask_pool = torch.ones((B, V), dtype=torch.bool,
+                                    device=self.device)
+        self.mask_active = np.zeros(B, np.bool_)  # rows with a BNF mask
+        # The device token DFA (regular grammars): a (TH, V) int8 table a
+        # row, its state (-1 = not DFA-constrained), and on the host which
+        # rows are on and which grammar each row's table holds (a slot
+        # reused with the same grammar skips the table upload).
+        TH = self.dfa_height = dfa_height()
+        self.dfa_pool = torch.full((B, TH, V), -1, dtype=torch.int8,
+                                   device=self.device)
+        self.dfa_state = torch.full((B,), -1, dtype=torch.int32,
+                                    device=self.device)
+        self.dfa_rows = np.zeros(B, np.bool_)
+        self._dfa_row_key: list = [None] * B
+        self._rows = torch.arange(B, device=self.device)
         # Per-row running sum of the final hidden states over every valid
         # position fed through step() since the row was loaded, for the
         # rows loaded with hidden_sums=True (hsum_rows): the mean-hidden
@@ -157,9 +211,10 @@ class Engine:
         self._gen = torch.Generator(device=self.device)
         self._gen.seed()
         self._lock = threading.Lock()
-        # Ring of (state, sampler state) pre-chunk snapshots: [-1] is the
-        # most recent chunk's pre-state (rollback_row), [-2] survives one
-        # speculative chunk (restore_last_chunk).
+        # Ring of (state, sampler state, DFA state, DFA rows) pre-chunk
+        # snapshots: [-1] is the most recent chunk's pre-state
+        # (rollback_row), [-2] survives one speculative chunk
+        # (restore_last_chunk).
         self._chunk_snaps: list = []
         self._sparams_device = None
 
@@ -352,6 +407,17 @@ class Engine:
             self.sampler_params_host["top_k"][b] = defaults["top_k"][0]
             self._sparams_device = None
 
+    def set_row_sampler_state(self, b: int, pen: np.ndarray,
+                              seen: np.ndarray) -> None:
+        """Overwrite row ``b``'s penalty and seen state, rebuilt on the host
+        after a BNF mask mis-speculation (the penalty recurrence is a pure
+        function of the accepted tokens).  ``max_surprise`` returns to its
+        initial value (mirostat rows never take the replay path)."""
+        with self._lock:
+            self._set_sampler_row(
+                b, pen, seen,
+                2.0 * float(self.sampler_params_host["miro_tau"][b]))
+
     def set_row_bias(self, b: int, bias: np.ndarray | None) -> None:
         with self._lock:
             if bias is None:
@@ -363,6 +429,57 @@ class Engine:
             self.bias_active[b] = True
             self.bias_pool[b] = torch.as_tensor(bias, dtype=torch.float32,
                                                 device=self.device)
+
+    def set_row_mask(self, b: int, allowed: np.ndarray | None) -> None:
+        """Row ``b``'s allowed-token mask (V,) bool, or None for none."""
+        with self._lock:
+            if allowed is None:
+                if not self.mask_active[b]:
+                    return  # row already all-ones: skip the (V,) upload
+                self.mask_active[b] = False
+                self.mask_pool[b] = True
+                return
+            self.mask_active[b] = True
+            self.mask_pool[b] = torch.as_tensor(
+                np.asarray(allowed, np.bool_), device=self.device)
+
+    def set_row_dfa(self, b: int, table: np.ndarray, state0: int,
+                    key=None) -> None:
+        """Install a grammar's token DFA for row ``b``, in state ``state0``.
+
+        ``table`` is ``(S, V) int8`` from ``grammar.token_dfa_table`` with
+        ``S <= dfa_height`` and the halt row LAST; a shorter table is padded
+        so that the halt row lands at ``dfa_height - 1``.  When ``key``
+        matches the grammar of the row's current table, the upload is
+        skipped and only the state is set."""
+        TH, S = self.dfa_height, table.shape[0]
+        if S > TH:
+            raise ValueError(f"DFA table height {S} > pool {TH}")
+        with self._lock:
+            if key is None or self._dfa_row_key[b] != key:
+                if S < TH:
+                    pad = np.full((TH, self.vocab), -1, np.int8)
+                    pad[:S - 1] = table[:-1]
+                    pad[TH - 1] = TH - 1  # halt row: allow-all self-loop
+                    body = pad[:S - 1]    # halt targets move to TH - 1
+                    body[body == S - 1] = TH - 1
+                    table = pad
+                self.dfa_pool[b] = torch.as_tensor(
+                    np.asarray(table, np.int8), device=self.device)
+                self._dfa_row_key[b] = key
+            self.dfa_state[b] = int(state0)
+            self.dfa_rows[b] = True
+
+    def set_row_dfa_state(self, b: int, state: int) -> None:
+        with self._lock:
+            self.dfa_state[b] = int(state)
+
+    def clear_row_dfa(self, b: int) -> None:
+        """Take row ``b`` off the DFA (state -1: its mask comes from
+        ``mask_pool``); the table stays for a reuse with the same key."""
+        with self._lock:
+            self.dfa_state[b] = -1
+            self.dfa_rows[b] = False
 
     def _sampler_key(self):
         """(kinds present, top-k width) of the whole pool."""
@@ -377,15 +494,21 @@ class Engine:
                 for k, v in self.sampler_params_host.items()}
         return self._sparams_device
 
-    def _sample(self, logits, active):
-        """Sample every row; rows outside ``active`` keep their sampler
-        state.  Returns (tokens, probs)."""
+    def _host_mask(self):
+        """``mask_pool`` where a row has a BNF mask, else None (no work)."""
+        return self.mask_pool if self.mask_active.any() else None
+
+    def _sample(self, logits, active, allowed=None):
+        """Sample every row under the ``allowed`` (B, V) mask (None: no
+        mask); rows outside ``active`` keep their sampler state.  Returns
+        (tokens, probs)."""
         kinds, k_cap = self._sampler_key()
         rand = torch.rand(logits.shape[0], generator=self._gen,
                           device=self.device)
         toks, sp, new_ss = sampling.sample_with_rand(
             rand, logits, self._sparams(), self.sampler_state,
-            bias=self.bias_pool, kinds=kinds, k_cap=k_cap)
+            bias=self.bias_pool, allowed_mask=allowed, kinds=kinds,
+            k_cap=k_cap)
         old = self.sampler_state
         self.sampler_state = {k: masked_select(active, v, old[k])
                               for k, v in new_ss.items()}
@@ -429,7 +552,8 @@ class Engine:
             logits = head_logits(self.model.params,
                                  take_last_valid(hidden, lengths_t))
             toks, _ = self._sample(
-                logits, torch.as_tensor(sample_mask, device=dev))
+                logits, torch.as_tensor(sample_mask, device=dev),
+                self._host_mask())
             return StepResult(tokens=toks.cpu().numpy(),
                               logits=logits if want_logits else None)
 
@@ -454,6 +578,14 @@ class Engine:
         is set.
         ``budget`` (B,) freezes each row after it has drawn that many
         tokens this chunk, so a LENGTH stop never over-consumes state.
+
+        A row with a token DFA (``dfa_state >= 0``) samples under its
+        current table row at every step, its state advances by the sampled
+        token, and the row freezes (model state, sampler state, DFA state)
+        once the grammar halts, so a grammar stop needs no rollback.  The
+        step reads one (V,) table row a row, ``dfa_pool[b, dfa_state[b]]``,
+        never the whole pool.  It runs only when an active row is on the
+        DFA.
         """
         with self._lock:
             dev = self.device
@@ -478,30 +610,48 @@ class Engine:
             if steps > 1:
                 self._chunk_snaps.append((
                     {k: v.clone() for k, v in self.state_pool.items()},
-                    {k: v.clone() for k, v in self.sampler_state.items()}))
+                    {k: v.clone() for k, v in self.sampler_state.items()},
+                    self.dfa_state.clone(), self.dfa_rows.copy()))
                 del self._chunk_snaps[:-2]
+            dfa = bool(self.dfa_rows[np.asarray(active, np.bool_)].any())
+            mask = self._host_mask()
+            if dfa:
+                # A chunk never takes a row on or off the DFA: ``on`` holds
+                # for every step.  Off rows' -1 never equals the halt row.
+                ds = self.dfa_state.long()
+                on, halt = ds >= 0, self.dfa_height - 1
             toks_seq, sp_seq = [], []
             for i in range(steps):
                 act = active_t & (i < budget_t)
+                if dfa:
+                    srow, mask = dfa_mask(self.dfa_pool, self._rows, ds, on,
+                                          self.mask_pool)
+                    act = act & (ds != halt)
                 hidden = self._forward(toks[:, None], act.to(torch.int32))
                 logits = head_logits(self.model.params, hidden[:, 0])
-                t2, sp = self._sample(logits, act)
+                t2, sp = self._sample(logits, act, mask)
                 toks = torch.where(act, t2, toks)
+                if dfa:
+                    ds = dfa_advance(ds, on, srow, toks, act)
                 toks_seq.append(toks)
                 sp_seq.append(sp)
+            if dfa:
+                self.dfa_state.copy_(ds)
             toks_seq = torch.stack(toks_seq)
             sp_seq = torch.stack(sp_seq)
             return (toks_seq.cpu().numpy() if sync else toks_seq), sp_seq
 
     def restore_last_chunk(self) -> None:
-        """Discard the most recent decode chunk entirely: the state pool and
-        sampler state return to their pre-chunk snapshots."""
+        """Discard the most recent decode chunk entirely: the state pool,
+        sampler state and DFA state return to their pre-chunk snapshots."""
         with self._lock:
             if not self._chunk_snaps:
                 raise RuntimeError("no chunk snapshot")
-            state, self.sampler_state = self._chunk_snaps.pop()
+            state, self.sampler_state, ds, rows = self._chunk_snaps.pop()
             for k, p in self.state_pool.items():
                 p.copy_(state[k])
+            self.dfa_state.copy_(ds)
+            self.dfa_rows[:] = rows
 
     def rollback_row(self, b: int, feed_tokens: list[int],
                      depth: int = -1) -> None:
@@ -525,7 +675,8 @@ class Engine:
 
     def sample_only(self, b: int, logits: np.ndarray) -> int:
         """Sample row ``b`` from externally-provided logits (the exact-hit
-        prefix-cache fast path).  Updates row b's sampler state only."""
+        prefix-cache fast path) under its BNF mask, if any.  Updates row b's
+        sampler state only."""
         with self._lock:
             B = self.max_batch
             full = torch.zeros((B, self.vocab), dtype=torch.float32,
@@ -534,5 +685,5 @@ class Engine:
                                       device=self.device)
             mask = torch.zeros(B, dtype=torch.bool, device=self.device)
             mask[b] = True
-            toks, _ = self._sample(full, mask)
+            toks, _ = self._sample(full, mask, self._host_mask())
             return int(toks[b].item())

@@ -5,12 +5,14 @@ checkpoints, plain or with the first ``quant`` layers quantized
 (``quant_type = "Int8"``, ``"NF4"``, ``"SF4"`` or ``"Int4"``):
 
 * ``reload(ReloadRequest)`` — read the checkpoint onto the device, load
-  the tokenizer, build the kernels, start the engine and runtime.
+  the tokenizer, build the kernels and the grammar engine, start the
+  engine and the runtime (with the ``bnf`` options: the start
+  nonterminal of BNF schemas).
 * ``unload()`` — drain the runtime and drop the environment.
 * ``info()`` — RuntimeInfo for ``/api/models/info``.
 
-Request fields for later slices (LoRA, ``.state`` files, BNF options, a
-device mesh) raise ``NotImplementedError`` naming their ROADMAP item.
+Request fields for later slices (LoRA, ``.state`` files, a device mesh)
+raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -151,15 +153,20 @@ class Middleware:
             tokenizer = await loop.run_in_executor(
                 None, Tokenizer.from_file, request.tokenizer_path)
             if self.device.type == "cuda":
+                from . import native
                 from .ops import _build
 
-                # Build the kernels now, not inside the first request.
+                # Build the kernels and the grammar engine now, not inside
+                # the first request.
                 await loop.run_in_executor(None, _build.build_all)
+                await loop.run_in_executor(None, native.get_lib)
             engine = Engine(model, max_batch=request.max_batch,
                             token_chunk_size=request.token_chunk_size,
                             device=self.device)
             runtime = Runtime(engine, tokenizer,
-                              decode_chunk_size=request.decode_chunk_size)
+                              decode_chunk_size=request.decode_chunk_size,
+                              bnf_option=request.bnf
+                              if isinstance(request.bnf, dict) else None)
             runtime.start()
             self.env = Environment(reload=request, model=model,
                                    engine=engine, runtime=runtime,

@@ -1,9 +1,9 @@
 """Batched generation runtime: slots, prefix cache, generation loop.
 
-Port of ``ai00_server_tpu/runtime.py`` for completion and chat requests,
-choose (perplexity ranking) and pooled state requests (embeddings); BNF
-grammars, the device token DFA and custom initial states are later
-ROADMAP items:
+Port of ``ai00_server_tpu/runtime.py`` for completion and chat requests
+(BNF-constrained ones included), choose (perplexity ranking) and pooled
+state requests (embeddings); custom initial states are a later ROADMAP
+item:
 
 * Continuous batching over ``max_batch`` slots: ONE async drive loop
   gathers the runnable slots each iteration, builds a merged fixed-shape
@@ -21,6 +21,15 @@ ROADMAP items:
   concurrent identical prompts await one prefill.
 * Per-token post-processing: UTF-8-safe streaming, incremental stop-word
   hold-back, max_tokens / EOS handling, token/duration accounting.
+* BNF rows (``GenerateRequest.bnf_schema``, ``bnf.BnfFormatter``).  A
+  regular grammar gets the device token DFA (``grammar.token_dfa_table``,
+  built off the loop at submit): its rows ride the K-token chunk with
+  exact per-step masks and halt on the device.  A non-regular grammar
+  takes the native Earley engine: its rows sample under the mask of their
+  current grammar state (``Engine.mask_pool``), and after each chunk the
+  host replays the tokens through the grammar and keeps the prefix sampled
+  while the true mask stayed unchanged (rolling the row back past it);
+  rows whose mask keeps shifting fall back to per-token steps.
 * CHOOSE and STATE requests exit after their prefill: a choose scores each
   choice from a copy of the row's state (``Engine.position_logps``); a
   pooled STATE request returns its embedding, the mean-hidden readout of
@@ -41,7 +50,9 @@ from typing import Any, Optional
 
 import numpy as np
 
+from .bnf import BnfFormatter
 from .engine import Engine, to_host
+from .grammar import token_dfa_table
 from .ops import sampling
 from .tokenizer import Tokenizer, Utf8Buffer
 
@@ -108,6 +119,7 @@ class GenerateRequest:
     # Pooled readout: "mean_hidden" (C dims, the masked mean of the final
     # hidden states; the default) or "state" (3C dims, the pooled state).
     pooling: Optional[str] = None
+    bnf_schema: Optional[str] = None  # KBNF grammar the output must follow
 
     def effective_pooling(self) -> str:
         return self.pooling or "mean_hidden"
@@ -303,6 +315,41 @@ class StopMatcher:
 
 
 # ---------------------------------------------------------------------------
+# BNF helpers (run on executor threads)
+# ---------------------------------------------------------------------------
+
+
+def _timed_dfa_table(schema, tokenizer, vocab, start, max_states):
+    """``(grammar.token_dfa_table(...), seconds it took)``."""
+    t0 = time.monotonic()
+    res = token_dfa_table(schema, tokenizer, vocab, start=start,
+                          max_states=max_states)
+    return res, time.monotonic() - t0
+
+
+def _replay(ctx, toks) -> tuple[int, bool, Any]:
+    """Advance a BNF row's grammar through the tokens a chunk sampled.
+    Returns ``(acc, halted, new_mask)``: the accepted count, whether the
+    grammar completed on the last accepted token, and the first mask that
+    differs from the one the chunk sampled under (None: none did).  A
+    device-DFA row sampled every token under its exact mask, so its walk
+    only advances the books and finds the halt."""
+    acc, halted, new_mask = 0, False, None
+    for t in toks:
+        halted = ctx.formatter.accept(int(t))
+        acc += 1
+        if halted:
+            break
+        if ctx.dfa_table is not None:
+            continue
+        m = ctx.formatter.allowed_mask()
+        if ctx.bnf_mask is None or not np.array_equal(m, ctx.bnf_mask):
+            new_mask = m
+            break
+    return acc, halted, new_mask
+
+
+# ---------------------------------------------------------------------------
 # Slots
 # ---------------------------------------------------------------------------
 
@@ -332,6 +379,7 @@ class _ReqCtx:
     all_tokens: list[int] = field(default_factory=list)
     utf8: Utf8Buffer = field(default_factory=Utf8Buffer)
     stop: StopMatcher | None = None
+    formatter: Any = None            # BnfFormatter or None
     counter: TokenCounter = field(default_factory=TokenCounter)
     start_time: float = field(default_factory=time.monotonic)
     cache_future: asyncio.Future | None = None
@@ -340,13 +388,40 @@ class _ReqCtx:
     # Deadline for deferring admission on an in-flight prefix-cache future
     # (0 = not deferring yet).
     defer_deadline: float = 0.0
+    # BNF replay rows: the row's uploaded allowed mask (None = not computed
+    # yet), dirtied whenever the grammar advances; bnf_misses counts
+    # consecutive chunks cut short by a mask change, and two of them park
+    # the row in per-token steps (bnf_no_chunk) until two steps under an
+    # unchanged mask (bnf_sticky) bring it back.
+    bnf_mask: Any = None
+    bnf_dirty: bool = True
+    bnf_misses: int = 0
+    bnf_no_chunk: bool = False
+    bnf_sticky: int = 0
+    # Speculation credit: True after the row's last replay accepted every
+    # token under an unchanged mask.  A row without it decodes at the base
+    # chunk size with no chained successor, so a mask change does not waste
+    # a 4x chunk in flight.
+    bnf_full_accept: bool = False
+    # Mask-ahead: the next allowed_mask() of a per-token row, started on
+    # the executor the moment the grammar advances.
+    bnf_future: Any = None
+    # Device token DFA (regular grammars): dfa_future resolves to
+    # ((table, state_map) or None, build seconds); dfa_stale marks grammar
+    # advances on the host (per-token accepts) that the device state must
+    # take before the next chunk.
+    dfa_future: Any = None
+    dfa_table: Any = None
+    dfa_map: Any = None
+    dfa_key: Any = None
+    dfa_stale: bool = False
 
 
 class Runtime:
     """The batched runtime for one loaded model."""
 
     def __init__(self, engine: Engine, tokenizer: Tokenizer,
-                 decode_chunk_size: int = 8):
+                 decode_chunk_size: int = 8, bnf_option: dict | None = None):
         self.engine = engine
         self.tokenizer = tokenizer
         self.max_batch = engine.max_batch
@@ -354,6 +429,8 @@ class Runtime:
         # Tokens decoded per device launch when every active slot is in
         # steady-state decode.  1 = per-token stepping.
         self.decode_chunk_size = max(1, int(decode_chunk_size))
+        # BnfOption (reload.rs:80-86): the start nonterminal of schemas.
+        self.bnf_option = bnf_option or {}
         self.slots = [_Slot(i) for i in range(self.max_batch)]
         self.cache = StateCache()
         self.pending: list[_ReqCtx] = []
@@ -370,6 +447,21 @@ class Runtime:
         # (hsum_serial, (B, C) numpy): the coalesced embed readout, only
         # touched from the engine's worker thread.
         self._hsum_snap = None
+        # Scheduler counters, touched on the loop only: device steps
+        # (merged steps and consumed chunks), chunk launches and chained
+        # successors, row rollbacks; the BNF rows' accepted replay tokens,
+        # short chunks (acc <= 2), per-token fallbacks and returns to
+        # chunks, the requests that took the device DFA or the Earley
+        # replay, and the token-DFA table builds and their seconds (a
+        # table is built once in flight a grammar, and cached).
+        self.metrics = {
+            "steps": 0, "chunk_launches": 0, "chunk_successors": 0,
+            "rollbacks": 0, "bnf_accepted": 0, "bnf_short_chunks": 0,
+            "bnf_fallbacks": 0, "bnf_rehabs": 0, "bnf_dfa_requests": 0,
+            "bnf_replay_requests": 0, "bnf_table_builds": 0,
+            "bnf_table_s": 0.0,
+        }
+        self._dfa_builds: dict = {}  # (schema, start) -> in-flight build
 
     # ------------------------------------------------------------------
     # Public API
@@ -417,6 +509,28 @@ class Runtime:
         except Exception:
             logger.exception("speculative-chunk rollback failed")
 
+    def _dfa_build(self, key) -> asyncio.Future:
+        """The future of ``key``'s token-DFA table: one build in flight a
+        grammar, however many requests carry it (a burst of one grammar
+        would otherwise build its table once a request, all at once)."""
+        fut = self._dfa_builds.get(key)
+        if fut is not None:
+            return fut
+        schema, start = key
+        fut = asyncio.get_event_loop().run_in_executor(
+            None, _timed_dfa_table, schema, self.tokenizer, self.engine.vocab,
+            start, self.engine.dfa_height - 1)
+        self._dfa_builds[key] = fut
+
+        def done(f):
+            del self._dfa_builds[key]
+            if not f.cancelled() and f.exception() is None:
+                self.metrics["bnf_table_builds"] += 1
+                self.metrics["bnf_table_s"] += f.result()[1]
+
+        fut.add_done_callback(done)
+        return fut
+
     async def submit(self, request: GenerateRequest) -> GenerateHandle:
         """Queue a generation; returns the per-request handle."""
         handle = GenerateHandle()
@@ -431,6 +545,18 @@ class Runtime:
         )
         ctx.counter.prompt = len(prompt_tokens)
         ctx.stop = StopMatcher(request.stop)
+        if request.bnf_schema:
+            start_nt = self.bnf_option.get("start_nonterminal", "start")
+            ctx.formatter = BnfFormatter(
+                request.bnf_schema, self.tokenizer, self.engine.vocab,
+                start_nonterminal=start_nt)
+            if self.decode_chunk_size > 1:
+                # The token-DFA table (cached per grammar) builds off the
+                # loop; _install awaits it.  Mirostat rows take it too: the
+                # DFA never mis-speculates, so their adaptive state never
+                # needs the host rebuild that bars them from the replay.
+                ctx.dfa_key = (request.bnf_schema, start_nt)
+                ctx.dfa_future = self._dfa_build(ctx.dfa_key)
         self.pending.append(ctx)
         self._wake.set()
         return handle
@@ -493,9 +619,10 @@ class Runtime:
             return
 
         # Steady-state decode rows advance K tokens per chunk launch;
-        # prefill rows take merged steps.
+        # prefill rows and BNF rows parked per-token take merged steps.
         if self.decode_chunk_size > 1:
-            chunkable = [s for s in active if s.phase == _SlotPhase.DECODE]
+            chunkable = [s for s in active if s.phase == _SlotPhase.DECODE
+                         and self._can_chunk(s.ctx)]
         else:
             chunkable = []
         rest = [s for s in active if s not in chunkable]
@@ -535,9 +662,19 @@ class Runtime:
                 lengths[s.index] = 1
                 sample_mask[s.index] = True
 
+        # BNF masks are computed on the host and uploaded before the step
+        # (recomputed only after the grammar advanced; the mask-ahead of
+        # the previous step has usually finished by now).
+        bnf_rows = [s for s in rows
+                    if s.ctx.formatter is not None and sample_mask[s.index]]
+        if bnf_rows:
+            await asyncio.gather(*[self._refresh_bnf_mask(loop, s)
+                                   for s in bnf_rows])
+
         result = await loop.run_in_executor(
             self._device_pool, self.engine.step, tokens, lengths,
             sample_mask, bool(completing))
+        self.metrics["steps"] += 1
 
         for s in completing:
             if result.logits is not None:
@@ -546,6 +683,105 @@ class Runtime:
         for s in list(rows):
             await self._advance(s, lengths, sample_mask, result)
 
+    def _can_chunk(self, ctx) -> bool:
+        """Whether a decode row joins the K-token chunk.  Device-DFA rows
+        always do (exact masks inside the chunk); replay rows unless their
+        mask keeps shifting (bnf_no_chunk) or they are mirostat rows, whose
+        adaptive state the host cannot rebuild after a mis-speculation."""
+        if ctx.formatter is None or ctx.dfa_table is not None:
+            return True
+        return (not ctx.bnf_no_chunk
+                and ctx.request.sampler.kind != sampling.KIND_MIROSTAT)
+
+    async def _refresh_bnf_mask(self, loop, slot) -> None:
+        """Bring the row's mask_pool row up to date with its grammar state
+        (the mask is computed off the loop)."""
+        ctx = slot.ctx
+        if ctx.formatter is None:
+            return
+        # Collect any mask-ahead before the dirty check: nothing may
+        # advance the grammar (the chunk replay does, on another thread)
+        # while an allowed_mask() is pending; the engines are not
+        # thread-safe.
+        mask = None
+        if ctx.bnf_future is not None:
+            mask = await ctx.bnf_future
+            ctx.bnf_future = None
+        if not ctx.bnf_dirty:
+            return
+        if mask is None:
+            mask = await loop.run_in_executor(None,
+                                              ctx.formatter.allowed_mask)
+        ctx.bnf_dirty = False
+        if ctx.bnf_mask is not None and np.array_equal(mask, ctx.bnf_mask):
+            # Unchanged mask: a sticky region.  A row parked per-token by an
+            # earlier shifting stretch returns to chunks after two sticky
+            # steps: bnf_no_chunk is a property of the region.
+            if ctx.bnf_no_chunk:
+                ctx.bnf_sticky += 1
+                if ctx.bnf_sticky >= 2:
+                    ctx.bnf_no_chunk = False
+                    ctx.bnf_misses = 0
+                    ctx.bnf_sticky = 0
+                    self.metrics["bnf_rehabs"] += 1
+            return
+        ctx.bnf_sticky = 0
+        ctx.bnf_mask = mask
+        await loop.run_in_executor(self._device_pool, self.engine.set_row_mask,
+                                   slot.index, mask)
+
+    def _rebuild_sampler_state(self, b: int, ctx) -> None:
+        """Recompute row ``b``'s penalty state on the host from the accepted
+        tokens and upload it, after a mis-speculation rolled the row back
+        (the device recurrence ``pen = pen * decay; pen[tok] = seen ?
+        pen[tok] + frequency : presence`` is a pure function of them)."""
+        sp = ctx.request.sampler
+        pen, seen = sampling.init_penalties_host(
+            list(ctx.model_tokens), self.engine.vocab,
+            sp.presence_penalty, sp.frequency_penalty, sp.penalty_decay)
+        decay = np.float32(sp.penalty_decay)
+        freq = np.float32(sp.frequency_penalty)
+        pres = np.float32(sp.presence_penalty)
+        for tok in ctx.all_tokens[len(ctx.prompt_tokens):]:
+            pen *= decay
+            pen[tok] = (pen[tok] + freq) if seen[tok] else pres
+            seen[tok] = True
+        self.engine.set_row_sampler_state(b, pen, seen)
+
+    async def _sync_bnf_rows(self, loop, active) -> None:
+        """Before a chunk launch: a device-DFA row takes the grammar state
+        the host reached outside a chunk (its first token, sampled by the
+        prefill step); a replay row gets its current mask."""
+        for s in active:
+            ctx = s.ctx
+            if ctx.formatter is None:
+                continue
+            if ctx.dfa_table is None:
+                await self._refresh_bnf_mask(loop, s)
+                continue
+            if ctx.bnf_future is not None:
+                await ctx.bnf_future
+                ctx.bnf_future = None
+            if not ctx.dfa_stale:
+                continue
+            st = ctx.dfa_map.get(int(getattr(ctx.formatter.engine, "state",
+                                             -1)))
+            if st is None:
+                # The host grammar state has no table row (every host
+                # accept walks the table's transitions from row 0, so this
+                # should not happen): take the row off the device DFA
+                # before it takes the replay path, or the chunk would
+                # still sample it under the stale table row.
+                await loop.run_in_executor(
+                    self._device_pool, self.engine.clear_row_dfa, s.index)
+                ctx.dfa_table = None
+                await self._refresh_bnf_mask(loop, s)
+                continue
+            await loop.run_in_executor(
+                self._device_pool, self.engine.set_row_dfa_state, s.index,
+                st)
+            ctx.dfa_stale = False
+
     async def _launch_chunk(self, loop, active, K, first_device=None,
                             consumed=None):
         """Launch a decode chunk WITHOUT downloading its tokens.
@@ -553,9 +789,11 @@ class Runtime:
         Returns the in-flight record.  ``first_device`` chains a
         speculative chunk from the previous chunk's device-resident last
         tokens; rows not in its covering set supply their first token from
-        the host.  Each row gets a token BUDGET = its remaining max_tokens
-        (minus what the chunk being consumed delivers, ``consumed``); rows
-        whose budget would be zero are left out."""
+        the host, as do the rows whose device tokens a BNF mis-speculation
+        made stale (``first_device["dead"]``).  Each row gets a token
+        BUDGET = its remaining max_tokens (minus what the chunk being
+        consumed delivers, ``consumed``); rows whose budget would be zero
+        are left out."""
         B = self.max_batch
         consumed = consumed or {}
         budgets = {}
@@ -567,6 +805,7 @@ class Runtime:
         active = [s for s in active if s.index in budgets]
         if not active:
             return None
+        await self._sync_bnf_rows(loop, active)
         mask = np.zeros(B, np.bool_)
         budget = np.zeros(B, np.int32)
         for s in active:
@@ -580,7 +819,8 @@ class Runtime:
         else:
             first = first_device["toks"]
             joining = [s for s in active
-                       if s.index not in first_device["rows"]]
+                       if s.index not in first_device["rows"]
+                       or s.index in first_device["dead"]]
             if joining:
                 hmask = np.zeros(B, np.bool_)
                 hvals = np.zeros(B, np.int32)
@@ -592,21 +832,32 @@ class Runtime:
             self._device_pool, lambda: self.engine.decode_chunk(
                 first, mask, K, sync=False, host_first=host_first,
                 budget=budget))
+        self.metrics["chunk_launches"] += 1
+        if first_device is not None:
+            self.metrics["chunk_successors"] += 1
         return {"toks": toks_seq,
                 "entries": [(s, s.ctx) for s in active],
                 "rows": frozenset(s.index for s in active), "K": K,
-                "budgets": budgets}
+                "budgets": budgets, "dead": set()}
 
     def _pick_k(self):
         """Chunk size for the next decode chunk: 4x the base when no
-        request is waiting to join (per-row budgets make any size safe),
-        else the base so new arrivals join quickly."""
+        request is waiting to join (per-row budgets make any size safe) and
+        every BNF replay row holds speculation credit, else the base so new
+        arrivals join quickly and a mask change wastes little."""
         base = self.decode_chunk_size
         if not self.pending and all(
-                s.phase == _SlotPhase.DECODE
+                s.phase == _SlotPhase.DECODE and self._has_credit(s.ctx)
                 for s in self.slots if s.ctx is not None):
             return base * 4
         return base
+
+    @staticmethod
+    def _has_credit(ctx) -> bool:
+        """Plain and device-DFA rows always hold speculation credit; a
+        replay row after its last replay accepted every token."""
+        return (ctx.formatter is None or ctx.dfa_table is not None
+                or ctx.bnf_full_accept)
 
     async def _consume_chunk(self, loop, chunkable) -> None:
         """Consume the in-flight decode chunk (pipelined).
@@ -618,31 +869,68 @@ class Runtime:
         the stop are recorded (unemitted) in ``all_tokens`` so cache keys
         match the device state; if the successor already advanced the row,
         the row is restored to its post-chunk state.
+
+        BNF rows are replayed through their grammars off the loop first
+        (:meth:`_consume_bnf_row` reads the verdicts).  Only rows with
+        speculation credit ride the successor, which launches before the
+        replay can rule on them.
         """
         spec = self._spec
         self._spec = None
         live = [(s, c) for (s, c) in spec["entries"] if s.ctx is c]
+        dead = spec["dead"]
         newspec = None
+        chunkable = [s for s in chunkable if self._has_credit(s.ctx)]
         if chunkable and len(live) == len(spec["entries"]) \
                 and spec["rows"].issubset(
                     frozenset(s.index for s in chunkable)):
             newspec = await self._launch_chunk(
                 loop, chunkable, self._pick_k(),
                 first_device={"toks": spec["toks"][-1],
-                              "rows": spec["rows"]},
-                consumed=spec["budgets"])
+                              "rows": spec["rows"],
+                              "dead": frozenset(dead)},
+                consumed={b: k for b, k in spec["budgets"].items()
+                          if b not in dead})
             # Record it NOW so a crash mid-processing rolls it back.
             self._spec = newspec
         toks_seq = await loop.run_in_executor(
             self._device_pool, to_host, spec["toks"])
+        self.metrics["steps"] += 1
+
+        # The BNF replay, off the loop and in parallel over rows: advance
+        # each grammar through its sampled tokens; the accepted prefix is
+        # where the true mask matched the one the chunk sampled under.
+        bnf_live = [(s, c) for s, c in live
+                    if c.formatter is not None and s.index not in dead
+                    and not c.handle.aborted]
+        replays = {}
+        if bnf_live:
+            for _, c in bnf_live:  # no replay beside a pending mask
+                if c.bnf_future is not None:
+                    await c.bnf_future
+                    c.bnf_future = None
+            rs = await asyncio.gather(*[
+                loop.run_in_executor(
+                    None, _replay, c, toks_seq[:spec["budgets"][s.index],
+                                               s.index])
+                for s, c in bnf_live])
+            replays = {s.index: r for (s, _), r in zip(bnf_live, rs)}
 
         for s, ctx in live:
             b = s.index
-            row = [int(t) for t in toks_seq[:spec["budgets"][b], b]]
+            if b in dead:
+                continue  # invalidated by a BNF mis-speculation last consume
+            kb = spec["budgets"][b]
+            row = [int(t) for t in toks_seq[:kb, b]]
             in_successor = newspec is not None and b in newspec["rows"]
+            if b in replays:
+                await self._consume_bnf_row(loop, s, ctx, row, kb,
+                                            replays[b], newspec)
+                continue
             if ctx.handle.aborted:
                 ctx.all_tokens.extend(row)
                 if in_successor:
+                    self.metrics["rollbacks"] += 1
                     await loop.run_in_executor(
                         self._device_pool, self.engine.rollback_row, b, [],
                         -1)
@@ -657,12 +945,98 @@ class Runtime:
                 # un-fed, keeping the _consumed_tokens invariant).
                 ctx.all_tokens.extend(row[j + 1:])
                 if in_successor:
+                    self.metrics["rollbacks"] += 1
                     await loop.run_in_executor(
                         self._device_pool, self.engine.rollback_row, b, [],
                         -1)
                 await self._finalize(s, reason)
                 break
         self._spec = newspec
+
+    async def _consume_bnf_row(self, loop, s, ctx, row, kb, replay,
+                               newspec) -> None:
+        """One BNF row's chunk tokens, by its replay verdict ``(acc, halted,
+        new_mask)``: the grammar accepted ``row[:acc]``, ``halted`` means it
+        completed on the acc-th token, and ``new_mask`` is the changed mask
+        (the tokens past ``acc`` were sampled under a stale one and are
+        DISCARDED).  Every emitted token was sampled under the true grammar
+        mask of its step, so the output follows the distribution of
+        per-token steps (bnf.rs:35-47)."""
+        b = s.index
+        acc, halted, new_mask = replay
+        # A device-DFA row froze on the device at its halting token: the
+        # tokens past ``acc`` were never fed, so the books end at ``acc``
+        # and the successor kept the row frozen too (no rollback).
+        dfa_halt = ctx.dfa_table is not None and halted
+        if ctx.dfa_table is not None and acc:
+            # The replay advanced the host grammar: the host mask (read
+            # only by merged per-token steps) is stale.  The device state
+            # advanced in lockstep.
+            ctx.bnf_dirty = True
+        reason = None
+        for j in range(acc):
+            reason = await self._postprocess_token(
+                s, row[j], halted=(halted and j == acc - 1))
+            if reason is not None:
+                # Honest books for the rest of what the chunk consumed.
+                ctx.all_tokens.extend(row[j + 1: acc if dfa_halt
+                                          else len(row)])
+                break
+        if reason is not None:
+            if (newspec is not None and b in newspec["rows"]
+                    and not dfa_halt):
+                newspec["dead"].add(b)
+                self.metrics["rollbacks"] += 1
+                await loop.run_in_executor(
+                    self._device_pool, self.engine.rollback_row, b, [], -1)
+            await self._finalize(s, reason)
+            return
+
+        self.metrics["bnf_accepted"] += acc
+        if new_mask is None:
+            # The whole chunk was accepted under an unchanged mask.
+            ctx.bnf_misses = 0
+            ctx.bnf_full_accept = True
+            return
+
+        # Mis-speculation: resume the row at its accepted prefix.
+        ctx.bnf_full_accept = False
+        self.metrics["rollbacks"] += 1
+        if newspec is not None and b in newspec["rows"]:
+            newspec["dead"].add(b)
+        if acc < kb:
+            # The chunk consumed past the prefix: restore this chunk's
+            # pre-state (ring depth -2 behind a successor) and re-feed the
+            # accepted tokens.
+            depth = -2 if newspec is not None else -1
+            feed = ctx.all_tokens[-(acc + 1):-1]
+            await loop.run_in_executor(
+                self._device_pool, self.engine.rollback_row, b, feed, depth)
+            await loop.run_in_executor(
+                self._device_pool, self._rebuild_sampler_state, b, ctx)
+        elif newspec is not None and b in newspec["dead"]:
+            # The state is exactly post-chunk but the successor advanced
+            # it: restore the post-chunk row and rebuild the sampler state.
+            await loop.run_in_executor(
+                self._device_pool, self.engine.rollback_row, b, [], -1)
+            await loop.run_in_executor(
+                self._device_pool, self._rebuild_sampler_state, b, ctx)
+        ctx.bnf_mask = new_mask
+        ctx.bnf_dirty = False
+        ctx.bnf_sticky = 0
+        await loop.run_in_executor(self._device_pool, self.engine.set_row_mask,
+                                   b, new_mask)
+        # Grammars whose mask shifts every token or two gain nothing from
+        # chunks (each one is cut almost at once): per-token steps.
+        if acc <= 2:
+            ctx.bnf_misses += 1
+            self.metrics["bnf_short_chunks"] += 1
+            if ctx.bnf_misses >= 2:
+                if not ctx.bnf_no_chunk:
+                    self.metrics["bnf_fallbacks"] += 1
+                ctx.bnf_no_chunk = True
+        else:
+            ctx.bnf_misses = 0
 
     async def _admit(self) -> None:
         """Assign pending requests to free slots (Continue > Empty > Back)."""
@@ -785,6 +1159,25 @@ class Runtime:
                 if 0 <= int(t) < eng.vocab:
                     bias[int(t)] = v
         await loop.run_in_executor(pool, eng.set_row_bias, b, bias)
+        await loop.run_in_executor(pool, eng.set_row_mask, b, None)
+        if ctx.dfa_future is not None:
+            res, _ = await ctx.dfa_future
+            ctx.dfa_future = None
+            if res is not None:
+                ctx.dfa_table, ctx.dfa_map = res
+        if ctx.dfa_table is not None:
+            # The grammar starts at table row 0.  The first token is sampled
+            # by the prefill step under the host mask; the device state
+            # takes the grammar's state before the first chunk (dfa_stale).
+            await loop.run_in_executor(
+                pool, lambda: eng.set_row_dfa(b, ctx.dfa_table, 0,
+                                              key=ctx.dfa_key))
+            ctx.dfa_stale = False
+            self.metrics["bnf_dfa_requests"] += 1
+        else:
+            await loop.run_in_executor(pool, eng.clear_row_dfa, b)
+            if ctx.formatter is not None:
+                self.metrics["bnf_replay_requests"] += 1
 
         # In-flight cache future for this prompt.
         if (len(ctx.prompt_tokens) >= MIN_PROMPT_CACHE_TOKENS
@@ -805,6 +1198,12 @@ class Runtime:
                 and ctx.request.kind == GenerateKind.GENERATE:
             # Exact-hit fast path: sample from the cached prompt-end logits.
             slot.phase = _SlotPhase.DECODE
+            if ctx.formatter is not None:
+                ctx.bnf_mask = await loop.run_in_executor(
+                    None, ctx.formatter.allowed_mask)
+                ctx.bnf_dirty = False
+                await loop.run_in_executor(pool, eng.set_row_mask, b,
+                                           ctx.bnf_mask)
             token = await loop.run_in_executor(
                 pool, eng.sample_only, b, exact_item.logits)
             await self._accept_token(slot, token)
@@ -896,18 +1295,41 @@ class Runtime:
 
         fut.add_done_callback(_store)
 
-    async def _postprocess_token(self, slot: _Slot,
-                                 token: int) -> FinishReason | None:
+    async def _postprocess_token(self, slot: _Slot, token: int,
+                                 halted: bool | None = None
+                                 ) -> FinishReason | None:
         """Append + stream one sampled token; detect stop conditions.
-        Returns the finish reason (without finalizing) or None."""
+        Returns the finish reason (without finalizing) or None.  ``halted``
+        is the grammar's verdict when a chunk replay already advanced the
+        formatter; None advances it here."""
         ctx = slot.ctx
         ctx.all_tokens.append(token)
         ctx.counter.completion += 1
+
+        if halted is None:
+            halted = False
+            if ctx.formatter is not None:
+                if ctx.bnf_future is not None:
+                    # Never advance the grammar beside a pending mask.
+                    await ctx.bnf_future
+                    ctx.bnf_future = None
+                halted = ctx.formatter.accept(token)
+                ctx.bnf_dirty = True
+                ctx.dfa_stale = True  # the host advanced outside a chunk
+                if not halted and ctx.dfa_table is None:
+                    # Mask-ahead: the next mask is computed while the rest
+                    # of this step's host work runs (device-DFA rows take
+                    # no more per-token masked steps after this one).
+                    ctx.bnf_future = asyncio.get_event_loop() \
+                        .run_in_executor(None, ctx.formatter.allowed_mask)
 
         if token == END_OF_TEXT:
             await self._emit_bytes(ctx, b"", final=True)
             return FinishReason.STOP
         if await self._emit_bytes(ctx, self.tokenizer.token_to_bytes(token)):
+            return FinishReason.STOP
+        if halted:
+            await self._emit_bytes(ctx, b"", final=True)
             return FinishReason.STOP
         if ctx.counter.completion >= ctx.request.max_tokens:
             await self._emit_bytes(ctx, b"", final=True)
@@ -980,12 +1402,22 @@ class Runtime:
 
             fut.add_done_callback(_store)
 
+        if ctx.bnf_future is not None:
+            await ctx.bnf_future  # read it: nothing else will
+            ctx.bnf_future = None
         await ctx.handle.queue.put(("stop", reason, ctx.counter))
         await ctx.handle.queue.put(("done",))
         # Idle rows' kind/top_k return to the defaults so a finished
-        # top_k=0 or mirostat request does not slow the rows still running.
+        # top_k=0 or mirostat request does not slow the rows still running;
+        # a finished BNF row drops its mask and leaves the DFA, so the rows
+        # still running sample without the mask's work.
         await loop.run_in_executor(self._device_pool,
                                    self.engine.reset_row_sampler_key, b)
+        if ctx.formatter is not None:
+            await loop.run_in_executor(self._device_pool,
+                                       self.engine.set_row_mask, b, None)
+            await loop.run_in_executor(self._device_pool,
+                                       self.engine.clear_row_dfa, b)
         slot.resident_tokens = consumed
         slot.idle_since = time.monotonic()
         slot.phase = _SlotPhase.IDLE

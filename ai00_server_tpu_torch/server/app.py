@@ -13,8 +13,9 @@ Port of ``ai00_server_tpu/server/app.py`` for this slice:
   GET  /api/adapters                    device list (torch.cuda)
   GET  /api/models/info                 RuntimeInfo
 
-Every other route of the JAX server, and every request field outside the
-slice (``bnf_schema``, ``state``), answers 501 with the ROADMAP item that
+Completions and chat take ``bnf_schema`` (a KBNF grammar the output
+follows).  Every other route of the JAX server, and every request field
+outside the slice (``state``), answers 501 with the ROADMAP item that
 brings it.
 """
 
@@ -68,7 +69,6 @@ LATER_ROUTES = {
 
 # Request fields that later slices bring -> ROADMAP item.
 LATER_FIELDS = {
-    "bnf_schema": "BNF and the device token DFA",
     "state": ".state files, LoRA and prefab",
 }
 
@@ -132,6 +132,7 @@ def _generate_request(body: dict, prompt: str, model_text: str = "",
             top_p=float(body.get("top_p", 0.5)),
             top_k=int(body.get("top_k", 128)),
             temperature=float(body.get("temperature", 1.0))),
+        bnf_schema=body.get("bnf_schema"),
     )
 
 

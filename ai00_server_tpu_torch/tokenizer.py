@@ -87,6 +87,30 @@ class Tokenizer:
     # Encode / decode
     # ------------------------------------------------------------------
 
+    @property
+    def vocab_len(self) -> int:
+        """Number of token slots (max defined id + 1)."""
+        return len(self._token_bytes)
+
+    @property
+    def fingerprint(self) -> str:
+        """Stable content hash of the vocabulary (computed once).
+
+        Cache keys that outlive a tokenizer instance (the grammar token-DFA
+        cache across model reloads) use this, not ``id(tokenizer)``: CPython
+        reuses addresses, so a freed tokenizer's id can alias another
+        vocabulary's."""
+        fp = getattr(self, "_fingerprint", None)
+        if fp is None:
+            import hashlib
+
+            h = hashlib.sha1()
+            for bs in self._token_bytes:
+                h.update(len(bs).to_bytes(2, "little"))
+                h.update(bs)
+            fp = self._fingerprint = h.hexdigest()
+        return fp
+
     def token_to_bytes(self, token: int) -> bytes:
         """Bytes for a token id; ids beyond the defined vocab (the model's
         padded logit rows, e.g. 65529..65535) decode to nothing."""

@@ -108,7 +108,14 @@ kernel's source is built first, one ``nvcc`` each, all started together):
    ``/chooses``, the retrieval routes (an IVF index built from texts on the
    card, searched by text and by vector, the hits held against the plain
    version on the CPU) and a RAG chat, with ``ivf_score``'s count zeroed
-   before and read after, and streams one 4077-token prompt alone (its
+   before and read after, then BNF-constrained requests (``bnf_flow``: a
+   completion under a regular grammar on the device token DFA, a chat
+   under a non-regular one on the native Earley engine and the chunk
+   replay, each text held by the port's ``GrammarEngine``; a constrained
+   burst with the fused kernels' counts zeroed before and read after; a
+   16-step chunk with every row on the DFA timed in turns beside an
+   unconstrained one, its tokens walked through the table on the host),
+   and streams one 4077-token prompt alone (its
    TTFT), as the ``quant = 24`` Int8 server does too (its 256-row prefill
    chunks above ``ops/quant.py:KERNEL_ROWS``: each int8 weight dequantized
    for one ``torch.matmul``).  Then random 24-layer RWKV-5 and RWKV-4
@@ -3532,6 +3539,171 @@ async def profiled(coro) -> str:
             + "; ".join(f"{n[:60]} {t / 1e3:.2f} ms" for n, t in top))
 
 
+# BNF-constrained generation on the bf16 server: a regular grammar (the
+# device token DFA), the same with a free-text region (the constrained
+# burst and the timed chunk: every row stays on the DFA for long walks) and
+# a non-regular one (the native Earley engine and the chunk replay).
+BNF_REGULAR = 'start ::= "answer: " ("yes" | "no") ".";'
+BNF_STICKY = 'start ::= "answer: " #"[a-z ]+" ".";'
+BNF_NESTED = 'start ::= "(" start ")" | "x";'
+BNF_TOKENS = 64  # per completion of the constrained burst
+BNF_K = 16       # steps of the timed chunk
+
+
+async def bnf_flow(http, base, server) -> dict:
+    """BNF on a served model: one completion under ``BNF_REGULAR`` (the
+    device DFA) and one chat under ``BNF_NESTED`` (Earley replay), each
+    text held by the port's Python ``GrammarEngine`` (accepted whole when
+    the grammar stopped it, else a live prefix); a burst of ``MAX_BATCH``
+    completions under ``BNF_STICKY`` with the fused stack's launch counts
+    zeroed before and read after; then, on an engine of its own over the
+    served weights, ``BNF_K``-step chunks with every row on the DFA beside
+    unconstrained ones, in turns, each DFA chunk's tokens walked through
+    the table on the host (every token allowed by its row's table row, the
+    final ``dfa_state`` the walk's), and the DFA step's ops alone."""
+    import numpy as np
+    import torch
+
+    from ai00_server_tpu_torch.engine import Engine, dfa_advance, dfa_mask
+    from ai00_server_tpu_torch.grammar import GrammarEngine, token_dfa_table
+    from ai00_server_tpu_torch.ops import v7_decode as fd
+
+    env = server.middleware.env
+    metrics = env.runtime.metrics
+    m0 = dict(metrics)
+
+    async def post(path, **body):
+        async with http.post(f"{base}{path}", json={
+                "sampler": {"type": "Nucleus", "top_k": 1},
+                "logit_bias": NO_EOS, **body}) as r:
+            check(r.status == 200, f"{path} under a grammar answered "
+                  f"{r.status}: {await r.text()}")
+            return await r.json()
+
+    def held(schema, text, reason, what):
+        g = GrammarEngine(schema)
+        check(bool(text) and g.advance(text.encode()),
+              f"{what}: {text!r} leaves the grammar {schema!r}")
+        check(reason == "length" or (reason == "stop" and g.can_finish()),
+              f"{what}: {text!r} ended ({reason}) where {schema!r} cannot")
+
+    c = (await post("/api/oai/completions", prompt=PROMPT, max_tokens=16,
+                    bnf_schema=BNF_REGULAR))["choices"][0]
+    held(BNF_REGULAR, c["text"], c["finish_reason"], "the DFA completion")
+    out = {"regular": (c["text"], c["finish_reason"])}
+    c = (await post("/api/oai/chat/completions", max_tokens=24,
+                    messages=[{"role": "user", "content": PROMPT}],
+                    bnf_schema=BNF_NESTED))["choices"][0]
+    held(BNF_NESTED, c["message"]["content"], c["finish_reason"],
+         "the Earley chat")
+    out["nested"] = (c["message"]["content"], c["finish_reason"])
+    check(metrics["bnf_dfa_requests"] - m0["bnf_dfa_requests"] == 1
+          and metrics["bnf_replay_requests"]
+          - m0["bnf_replay_requests"] == 1,
+          f"the grammars did not take the DFA and the replay: {metrics}")
+
+    for k in fd.KERNELS:
+        k.launches = 0
+    replays0 = fd.DecodeGraph.total_replays
+    t0 = time.monotonic()
+    outs = await asyncio.gather(*[post(
+        "/api/oai/completions", prompt=PROMPT * (1 + i),
+        max_tokens=BNF_TOKENS, bnf_schema=BNF_STICKY)
+        for i in range(MAX_BATCH)])
+    wall = time.monotonic() - t0
+    out["burst_launches"] = {k.__name__: k.launches for k in fd.KERNELS}
+    out["burst_replays"] = fd.DecodeGraph.total_replays - replays0
+    for name, n in out["burst_launches"].items():
+        check(n > 0, f"the constrained burst never launched {name}")
+    check(out["burst_replays"] > 0, "the constrained burst replayed no graph")
+    for o in outs:
+        c = o["choices"][0]
+        held(BNF_STICKY, c["text"], c["finish_reason"],
+             "a completion of the constrained burst")
+    n_tokens = sum(o["usage"]["completion"] for o in outs)
+    out.update(burst_wall_s=wall, burst_tokens=n_tokens,
+               burst_tokens_per_s=n_tokens / wall,
+               sample=outs[0]["choices"][0]["text"][:60])
+    out["metrics"] = {k: v - m0[k] for k, v in metrics.items()
+                      if k.startswith("bnf_")}
+
+    # The DFA chunk against an unconstrained one, on an engine of its own.
+    eng = Engine(env.model, max_batch=MAX_BATCH, token_chunk_size=CHUNK,
+                 device=env.engine.device)
+    B, H = MAX_BATCH, eng.dfa_height - 1
+    table, _ = token_dfa_table(BNF_STICKY, env.tokenizer, eng.vocab,
+                               max_states=H)
+    first = np.full(B, env.tokenizer.encode(" the")[0], np.int32)
+    active = np.ones(B, np.bool_)
+
+    def chunk(dfa: bool) -> float:
+        for b in range(B):
+            if dfa:
+                eng.set_row_dfa(b, table, 0, key=BNF_STICKY)
+            else:
+                eng.clear_row_dfa(b)
+        torch.cuda.synchronize()
+        replays = fd.DecodeGraph.total_replays
+        t = time.perf_counter()
+        toks, _ = eng.decode_chunk(first, active, BNF_K)  # ends in a sync
+        ms = (time.perf_counter() - t) * 1e3
+        check(fd.DecodeGraph.total_replays - replays == BNF_K,
+              f"a {BNF_K}-step chunk replayed "
+              f"{fd.DecodeGraph.total_replays - replays} graphs")
+        if dfa:
+            ds = eng.dfa_state.cpu().numpy()
+            for b in range(B):
+                s, prev = 0, int(first[b])
+                for i in range(BNF_K):
+                    t = int(toks[i, b])
+                    if s == H:
+                        check(t == prev, f"row {b} moved after its grammar "
+                              f"halted, step {i}")
+                    else:
+                        check(table[s, t] >= 0, f"row {b} sampled token {t} "
+                              f"at step {i}, which table row {s} disallows")
+                        s = int(table[s, t])
+                    prev = t
+                check(int(ds[b]) == s, f"row {b}: dfa_state {int(ds[b])}, "
+                      f"the table walk {s}")
+        return ms
+
+    times = {False: [], True: []}
+    for dfa in (False, True, True, False, False, True, True, False, False,
+                True):
+        times[dfa].append(chunk(dfa))
+    out["chunk_ms"] = float(np.median(times[False]))
+    out["chunk_dfa_ms"] = float(np.median(times[True]))
+    # The DFA step's ops alone (those of decode_chunk's step), every row
+    # on the DFA.
+    toks = torch.as_tensor(first, device=eng.device)
+    act = torch.ones(B, dtype=torch.bool, device=eng.device)
+
+    ds = eng.dfa_state.long()
+    on = ds >= 0
+    logits = torch.zeros(B, eng.vocab, device=eng.device)
+
+    def step():
+        srow, mask = dfa_mask(eng.dfa_pool, eng._rows, ds, on, eng.mask_pool)
+        act & (ds != H)
+        torch.where(mask, logits, float("-inf"))  # the sampler's mask op
+        dfa_advance(ds, on, srow, toks, act)
+
+    out["dfa_step_ms"] = device_ms(step, 100)
+    # The same ops back to back from Python: their host cost a step.
+    out["dfa_step_host_ms"] = call_ms(step, 200)
+    # Read: each row's table row (B x V int8), mask_pool (B x V bool), the
+    # logits (B x V f32), the states and tokens; written: the (B, V) mask,
+    # the masked logits and the states.
+    nbytes = 3 * B * eng.vocab + 8 * B * eng.vocab + 3 * 8 * B
+    out["dfa_step_bound_ms"], _ = bound(nbytes, 0)
+    out["dfa_step_bytes"] = nbytes
+    out["pool_mb"] = eng.dfa_pool.numel() / 1e6
+    out["pool_shape"] = tuple(eng.dfa_pool.shape)
+    del eng
+    return out
+
+
 def replay_kernels(graph, toks, ones, n: int = 5):
     """Per replay, the sum of the device times of its kernels and the time
     the device was busy with any of them (the union of their intervals),
@@ -3985,6 +4157,9 @@ async def serve(cfg: Path, kind: str, device="cuda") -> dict:
                 t0 = time.monotonic()
                 result["rag"] = await rag_flow(http, base, server)
                 result["rag"]["seconds"] = time.monotonic() - t0
+                t0 = time.monotonic()
+                result["bnf"] = await bnf_flow(http, base, server)
+                result["bnf"]["seconds"] = time.monotonic() - t0
             result["stack"] = time_stack(engine) if device != "cpu" else None
             if wide and device != "cpu":
                 with engine._lock:
@@ -4138,6 +4313,27 @@ def main() -> None:
           f"times; RAG chat prompt {rag['rag_prompt']} tokens against "
           f"{rag['plain_prompt']} without retrieval, text "
           f"{rag['rag_text']!r}", flush=True)
+    bnf = served["bf16"]["bnf"]
+    print(f"bnf ({card}; {bnf['seconds']:.1f} s): regular grammar "
+          f"completion {bnf['regular'][0]!r} ({bnf['regular'][1]}, device "
+          f"DFA), non-regular chat {bnf['nested'][0]!r} "
+          f"({bnf['nested'][1]}, Earley replay); constrained burst of "
+          f"{MAX_BATCH} completions of {BNF_TOKENS} tokens, every row on the "
+          f"DFA: {bnf['burst_tokens']} tokens in {bnf['burst_wall_s']:.3f} s "
+          f"-> {bnf['burst_tokens_per_s']:.1f} tokens/s, "
+          f"{bnf['burst_replays']} graph replays, launches "
+          f"{bnf['burst_launches']}, sample {bnf['sample']!r}; "
+          f"{BNF_K}-step chunk at B={MAX_BATCH} (median of 5, in turns): "
+          f"{bnf['chunk_dfa_ms']:.3f} ms every row on the DFA against "
+          f"{bnf['chunk_ms']:.3f} ms unconstrained; the DFA step's ops "
+          f"alone {bnf['dfa_step_ms']:.5f} ms a step on the device, "
+          f"{bnf['dfa_step_host_ms']:.5f} ms back to back from Python (bound "
+          f"{bnf['dfa_step_bound_ms']:.5f} ms, {bnf['dfa_step_bytes']} "
+          f"bytes); dfa_pool {bnf['pool_shape']} int8 = "
+          f"{bnf['pool_mb']:.1f} MB; {bnf['metrics']['bnf_table_builds']} "
+          f"token-DFA table builds in {bnf['metrics']['bnf_table_s']:.3f} "
+          "s; counters "
+          f"{bnf['metrics']}", flush=True)
     rows["matmul_4bit"]["launches"] = parity["matmul_4bit_launches"]
     check(parity["matmul_4bit_launches"] > 0,
           "no model path launched matmul_4bit")

@@ -1,8 +1,8 @@
 """HTTP flow of the port's server on the CPU (``device="cpu"``): the
 ``tests/test_http.py`` site flow — completions, the v1 alias, greedy
 determinism, SSE ending in ``[DONE]``, chat, models and info — plus equal
-greedy text from the JAX server on the same model, and 501 answers for
-what later slices bring."""
+greedy text from the JAX server on the same model, BNF-constrained
+completions and chat, and 501 answers for what later slices bring."""
 
 import asyncio
 import json
@@ -18,6 +18,7 @@ from ai00_server_tpu.server.app import Server as JServer
 from ai00_server_tpu.server.config import Config as JConfig
 from ai00_server_tpu.testing import make_tiny_model
 
+from ai00_server_tpu_torch.grammar import GrammarEngine
 from ai00_server_tpu_torch.server.app import Server
 from ai00_server_tpu_torch.server.config import Config
 
@@ -191,9 +192,6 @@ def test_later_slices_answer_501(site):
             r = await client.post("/api/oai/states", json={"input": "A"})
             assert r.status == 501
             assert "ROADMAP" in (await r.json())["error"]
-            r = await client.post("/api/oai/completions", json={
-                "prompt": "A", "bnf_schema": "start ::= 'A';"})
-            assert r.status == 501
             r = await client.get("/admin/models/unload")
             assert r.status == 501
         finally:
@@ -201,6 +199,59 @@ def test_later_slices_answer_501(site):
             await server.middleware.unload()
 
     asyncio.run(main())
+
+
+@pytest.mark.parametrize("schema", ["start ::= 'HI' | 'BYE';",
+                                    "start ::= 'A' start 'B' | 'HI';"],
+                         ids=["regular", "non_regular"])
+def test_bnf_over_http(site, schema):
+    """``bnf_schema`` on completions and chat (``tests/test_http.py``'s
+    case, streamed and not): 200, and text the grammar accepts whole when
+    the grammar stopped it, else a live prefix."""
+    async def main():
+        client, server = await make_client(site, device="cpu")
+        try:
+            out = []
+            r = await client.post("/api/oai/completions", json={
+                "prompt": "ABC", "max_tokens": 8, "bnf_schema": schema})
+            assert r.status == 200
+            c = (await r.json())["choices"][0]
+            out.append((c["text"], c["finish_reason"]))
+            r = await client.post("/api/oai/chat/completions", json={
+                "messages": [{"role": "user", "content": "ABC"}],
+                "max_tokens": 8, "bnf_schema": schema})
+            assert r.status == 200
+            c = (await r.json())["choices"][0]
+            out.append((c["message"]["content"], c["finish_reason"]))
+            for path, key in (("/api/oai/completions", "text"),
+                              ("/api/oai/v1/chat/completions", "content")):
+                body = {"max_tokens": 8, "bnf_schema": schema,
+                        "stream": True, "sampler": GREEDY}
+                if key == "text":
+                    body["prompt"] = "ABC"
+                else:
+                    body["messages"] = [{"role": "user", "content": "ABC"}]
+                r = await client.post(path, json=body)
+                assert r.status == 200
+                events = [json.loads(l[6:]) for l in
+                          (await r.read()).decode().splitlines()
+                          if l.startswith("data: ") and l != "data: [DONE]"]
+                text = "".join(
+                    ch.get("text", "") or ch.get("delta", {}).get(key, "")
+                    for e in events for ch in e["choices"])
+                out.append((text, events[-1]["choices"][0]["finish_reason"]))
+            return out
+        finally:
+            await client.close()
+            await server.middleware.unload()
+
+    for text, reason in asyncio.run(main()):
+        g = GrammarEngine(schema)
+        assert text and g.advance(text.encode()), text
+        if reason == "stop":
+            assert g.can_finish(), text
+        else:
+            assert reason == "length", reason
 
 
 # ---------------------------------------------------------------------------

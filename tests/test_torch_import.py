@@ -17,11 +17,14 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 MODULES = [
     "ai00_server_tpu_torch",
+    "ai00_server_tpu_torch.bnf",
     "ai00_server_tpu_torch.device",
     "ai00_server_tpu_torch.engine",
+    "ai00_server_tpu_torch.grammar",
     "ai00_server_tpu_torch.loader",
     "ai00_server_tpu_torch.main",
     "ai00_server_tpu_torch.middleware",
+    "ai00_server_tpu_torch.native",
     "ai00_server_tpu_torch.models",
     "ai00_server_tpu_torch.models.common",
     "ai00_server_tpu_torch.models.info",
@@ -92,3 +95,28 @@ def test_default_device_raises_without_cuda():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Engine(model)
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_smoke_and_tools_import_no_jax_and_no_jax_package():
+    """``chip_smoke.py`` and ``tools/torch_*.py`` run on the card without
+    JAX: no import statement of theirs names ``jax`` or the JAX package
+    (read from their source; importing them wants a card)."""
+    import ast
+    import glob
+
+    paths = [os.path.join(REPO, "chip_smoke.py")] + sorted(
+        glob.glob(os.path.join(REPO, "tools", "torch_*.py")))
+    bad = []
+    for path in paths:
+        with open(path) as f:
+            tree = ast.parse(f.read())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and not node.level:
+                names = [node.module or ""]
+            else:
+                continue
+            bad += [(path, n) for n in names
+                    if n.split(".")[0] in ("jax", "ai00_server_tpu")]
+    assert len(paths) > 1 and not bad, bad
