@@ -27,8 +27,12 @@ quantized (int8, nf4, sf4, int4):
 * A model with any quantized layer, in whatever mode, also stores the LM
   head int8
   (``_head_q``, per-128-row-block scales, quantized on the device at
-  construction; the plain head is dropped) and takes its logits through
+  construction; the plain head leaves the device and is kept on the host in
+  ``model.host_params`` for a prefab export) and takes its logits through
   ``ops/quant_matmul.matmul_int8`` with the f32 sums un-rounded.
+* A state-tuned model's embedded ``init_wkv`` is the WKV of every fresh
+  row (built once on the device); custom initial states come in through
+  :meth:`Engine.load_row_state`.
 * :meth:`Engine.step` consumes a ``(B, T)`` token block (T = 1 for
   per-token decode, T = ``token_chunk_size`` when a row prefills);
   :meth:`Engine.decode_chunk` runs K decode steps with sampling on the
@@ -170,6 +174,7 @@ class Engine:
         B, V = self.max_batch, self.vocab
         self.state_pool = self.module.init_state(self.info, B,
                                                  device=self.device)
+        self._fresh_row = self._initial_row_state()
         self._install_head_q()
         version = model.info.version.value
         fd = fused_decode.module_for(version)
@@ -221,22 +226,43 @@ class Engine:
     def _install_head_q(self) -> None:
         """Quantized models store the LM head int8 too: it is the largest
         single stream of a decode step outside the layers.  Only where the
-        head's ``in`` dim is a multiple of the block; else it stays plain."""
+        head's ``in`` dim is a multiple of the block; else it stays plain.
+        The plain head moves to ``model.host_params`` (host memory), so a
+        prefab exported from the model is as good as its source."""
         params = self.model.params
         if "_head_q" in params or "head" not in params \
                 or params["head"].shape[0] % quant.INT8_BLOCK:
             return
         if any(quant.is_quantized(leaf) for p in params["layers"]
                for part in ("att", "ffn") for leaf in p[part].values()):
-            params["_head_q"] = quant.quantize_int8(params.pop("head"))
+            head = params.pop("head")
+            params["_head_q"] = quant.quantize_int8(head)
+            if self.model.host_params is None:
+                self.model.host_params = {}
+            self.model.host_params.setdefault("head", head.cpu())
 
     # ------------------------------------------------------------------
     # State pool row management
     # ------------------------------------------------------------------
 
+    def _initial_row_state(self) -> dict:
+        """The model's own batch-1 initial state on the device: zeros, with
+        a state-tuned checkpoint's ``init_wkv`` as the WKV (``(k, v)`` on
+        disk, transposed for v7, whose state is ``(v, k)``)."""
+        s = self.module.init_state(self.info, 1, device=self.device)
+        init = self.model.init_wkv
+        if init is not None and "wkv" in s:
+            wkv = torch.as_tensor(np.asarray(init, np.float32),
+                                  device=self.device)
+            if self.info.version.value == "V7":
+                wkv = wkv.transpose(-1, -2)
+            s["wkv"].copy_(wkv[:, None])
+        return s
+
     def fresh_row_state(self) -> dict:
-        """A batch-1 initial state on the device."""
-        return self.module.init_state(self.info, 1, device=self.device)
+        """A copy of the model's batch-1 initial state on the device (a
+        copy: a forward may update the state it is given in place)."""
+        return {k: v.clone() for k, v in self._fresh_row.items()}
 
     def _forward(self, tokens, lengths):
         """Forward a (B, T) token block; the pool is updated in place.
@@ -268,7 +294,7 @@ class Engine:
         again."""
         with self._lock:
             self._write_row(row_state if row_state is not None
-                            else self.fresh_row_state(), b)
+                            else self._fresh_row, b)
             self.hsum_pool[b] = 0.0
             self.hsum_rows[b] = hidden_sums
             self.hsum_serial += 1

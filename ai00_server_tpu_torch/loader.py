@@ -1,10 +1,14 @@
-"""Checkpoint loading: converted safetensors -> math-layout weights -> params.
+"""Checkpoint loading: converted safetensors or raw ``.pth`` -> math-layout
+weights -> params.
 
 Port of ``ai00_server_tpu/loader.py`` (``load_safetensors``,
-``save_safetensors``, ``to_math_layout``, ``load_model``, ``stack_params``
-at its lines 78-193 and 264-479) for RWKV-7, -6, -5 and -4 checkpoints,
-plain bf16/f32 or with the first N layers quantized (``quant={i: "int8" | "nf4" |
-"sf4" | "int4"}``).
+``save_safetensors``, ``convert_pth``, ``read_checkpoint``,
+``to_math_layout``, ``apply_lora``, ``extract_time_state``, ``load_model``
+and ``stack_params``) for RWKV-7, -6, -5 and -4 checkpoints, plain bf16/f32
+or with the first N layers quantized (``quant={i: "int8" | "nf4" | "sf4" |
+"int4"}``), with LoRA deltas blended in before quantization and the
+embedded initial state of a state-tuned checkpoint kept as
+``LoadedModel.init_wkv``.
 
 The numpy half (reading the file, undoing the converter's orientation) is
 this package's own copy.  The params are PyTorch tensors on one device:
@@ -23,7 +27,7 @@ layer groups.  The big projections of a quantized layer are
 group (a contiguous run of layers of one mode, the reference's group
 boundaries), which stay in one stacked tensor on the device.
 :func:`params_from_numpy` carries the JAX package's loaded params (as numpy
-arrays) across into that form.
+arrays), or a prefab's tree (``prefab.py``), across into that form.
 """
 
 from __future__ import annotations
@@ -42,6 +46,13 @@ CONVERT_TRANSPOSED = (
     "time_mix_w1", "time_mix_w2", "time_decay_w1", "time_decay_w2",
     ".att.w1", ".att.w2", ".att.a1", ".att.a2", ".att.g1", ".att.g2",
     ".att.v1", ".att.v2", "time_state", "lora.0",
+)
+
+RENAME = (
+    ("time_faaaa", "time_first"),
+    ("time_maa", "time_mix"),
+    ("lora_A", "lora.0"),
+    ("lora_B", "lora.1"),
 )
 
 V7_ATT_VECTORS = ("x_r", "x_w", "x_k", "x_v", "x_a", "x_g", "w0", "w1", "w2",
@@ -78,6 +89,58 @@ def save_safetensors(tensors: dict[str, np.ndarray], path: str,
     save_file(cast, path, metadata={"format": "pt"})
 
 
+def convert_pth(path: str) -> dict[str, np.ndarray]:
+    """A raw RWKV ``.pth`` / ``.pt`` in the converted-key layout, in memory
+    (the reference converter's semantics): version sniffing, the v5.1
+    repeat of ``time_decay`` / ``time_faaaa`` over each head's channels,
+    the rename table, lowercased keys and the converter's transposes."""
+    loaded = torch.load(path, map_location="cpu", weights_only=True)
+    if "state_dict" in loaded:
+        loaded = loaded["state_dict"]
+
+    keys = list(loaded.keys())
+    version = 4.0
+    for x in keys:
+        if "ln_x" in x:
+            version = max(5.0, version)
+        if "gate.weight" in x:
+            version = max(5.1, version)
+        if int(version) == 5 and "att.time_decay" in x:
+            if loaded[x].dim() > 1 and loaded[x].shape[1] > 1:
+                version = max(5.2, version)
+        if "time_maa" in x:
+            version = max(6.0, version)
+        if ".att.w0" in x or "att.r_k" in x:
+            version = max(7.0, version)
+
+    if version == 5.1:
+        _, n_emb = loaded["emb.weight"].shape
+        for k in keys:
+            if "time_decay" in k or "time_faaaa" in k:
+                loaded[k] = loaded[k].unsqueeze(1).repeat(
+                    1, n_emb // loaded[k].shape[0])
+
+    out = {}
+    for k in keys:
+        new_k = k
+        for a, b in RENAME:
+            new_k = new_k.replace(a, b)
+        new_k = new_k.lower()
+        v = loaded[k].float()
+        if _is_convert_transposed(new_k) and v.dim() >= 2:
+            v = v.transpose(v.dim() - 2, v.dim() - 1)
+        out[new_k] = np.ascontiguousarray(v.numpy())
+    return out
+
+
+def read_checkpoint(path: str) -> dict[str, np.ndarray]:
+    """Read a converted ``.st`` (safetensors) or a raw ``.pth`` / ``.pt``
+    checkpoint as float32 arrays in the converted-key layout."""
+    if path.endswith(".pth") or path.endswith(".pt"):
+        return convert_pth(path)
+    return load_safetensors(path)
+
+
 def to_math_layout(raw: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
     """Converted-file layout -> math layout.
 
@@ -101,32 +164,84 @@ def to_math_layout(raw: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
     return out
 
 
+def apply_lora(math: dict[str, np.ndarray], lora_raw: dict[str, np.ndarray],
+               alpha: float) -> None:
+    """Blend LoRA deltas into math-layout weights in place.
+
+    A converted LoRA file carries ``<name>.weight.lora.0`` (torch
+    ``lora_A`` ``(rank, in)``, stored transposed by the converter) and
+    ``<name>.weight.lora.1`` (torch ``lora_B`` ``(out, rank)``).  The torch
+    delta ``B @ A`` is ``A^T @ B^T`` in math layout: ``W += alpha / rank *
+    A^T @ B^T``, in f32 (the reference's full blend).  It runs before
+    quantization, so a blended layer is quantized once, from its blended
+    weights."""
+    lora = to_math_layout(lora_raw)  # lora.0 back to torch (rank, in)
+    pairs = {}
+    for k in lora:
+        if k.endswith(".lora.0"):
+            base = k[: -len(".lora.0")]
+            if base + ".lora.1" in lora:
+                pairs[base] = (lora[k], lora[base + ".lora.1"])
+    for base, (a, b) in pairs.items():
+        if base not in math:
+            continue
+        rank = a.shape[0]
+        delta = (a.T @ b.T) * (alpha / rank)
+        math[base] = (math[base].astype(np.float32) + delta).astype(
+            math[base].dtype)
+
+
+def extract_time_state(raw: dict[str, np.ndarray], info: ModelInfo):
+    """The embedded initial state of a state-tuned checkpoint: per layer
+    ``blocks.N.att.time_state`` (stored transposed by the converter) as
+    ``(L, H, N, N)`` in ``(k, v)`` orientation, or None.  The engine
+    transposes it for v7, whose state is ``(v, k)``."""
+    states = []
+    for i in range(info.num_layer):
+        k = f"blocks.{i}.att.time_state"
+        if k not in raw:
+            return None
+        v = raw[k]
+        if _is_convert_transposed(k):
+            v = np.swapaxes(v, -1, -2)
+        states.append(v.reshape(info.num_head, info.head_size,
+                                info.head_size))
+    return np.stack(states).astype(np.float32)
+
+
 @dataclass
 class LoadedModel:
     info: ModelInfo
     params: dict
+    # The embedded time_state of a state-tuned checkpoint, (L, H, N, N) f32
+    # in (k, v) orientation, or None.
+    init_wkv: np.ndarray | None = None
+    # Host originals of top-level params the engine replaced by a derived
+    # ("_"-prefixed) device form: the lossless LM head of a model whose
+    # logits run through "_head_q".  A prefab export writes them back.
+    host_params: dict | None = None
 
 
 def load_model(path: str, dtype: torch.dtype = torch.bfloat16,
                device: str | torch.device = "cuda",
-               quant: dict | None = None) -> LoadedModel:
-    """Read a converted ``.st`` RWKV checkpoint onto ``device``.
+               quant: dict | None = None,
+               loras: list[tuple[str, float]] | None = None) -> LoadedModel:
+    """Read an RWKV checkpoint (converted ``.st``, or raw ``.pth`` / ``.pt``)
+    onto ``device``: read -> math layout -> LoRA -> quantize and stack.
 
     ``quant``: {layer_index: "int8" | "nf4" | "sf4" | "int4"} per-layer
-    quantization map."""
-    if not path.endswith(".st"):
-        raise NotImplementedError(
-            f"{path!r}: this port loads converted .st checkpoints only; "
-            ".pth conversion and prefabs are ROADMAP queue 1 items")
-    raw = load_safetensors(path)
+    quantization map.  ``loras``: ``(path, alpha)`` pairs blended into the
+    f32 weights before quantization.  A state-tuned checkpoint's
+    ``time_state`` becomes ``init_wkv``."""
+    raw = read_checkpoint(path)
     info = detect_info({k: v.shape for k, v in raw.items()})
-    if "blocks.0.att.time_state" in raw:
-        raise NotImplementedError(
-            "state-tuned checkpoints (embedded time_state) are the ROADMAP "
-            "'.state files, LoRA and prefab' item")
-    params = stack_params(info, to_math_layout(raw), dtype=dtype,
-                          device=device, quant=quant)
-    return LoadedModel(info=info, params=params)
+    math = to_math_layout(raw)
+    for lora_path, alpha in loras or []:
+        apply_lora(math, read_checkpoint(lora_path), alpha)
+    params = stack_params(info, math, dtype=dtype, device=device,
+                          quant=quant)
+    return LoadedModel(info=info, params=params,
+                       init_wkv=extract_time_state(raw, info))
 
 
 def _mode_runs(modes: list[str]) -> list[tuple[int, int]]:
@@ -165,8 +280,10 @@ def _v7_layer(math: dict, i: int, info: ModelInfo) -> dict:
     att = {k: math[a + k] for k in V7_ATT_VECTORS}
     if a + "v0" in math:
         att.update({k: math[a + k] for k in ("v0", "v1", "v2")})
-    else:  # layer 0 has no value residual
-        D = att["a1"].shape[-1]
+    else:  # layer 0 has no value residual: zeros of the others' rank
+        D = next((math[f"blocks.{j}.att.v1"].shape[-1]
+                  for j in range(info.num_layer)
+                  if f"blocks.{j}.att.v1" in math), att["a1"].shape[-1])
         att.update({"v0": np.zeros(C, np.float32),
                     "v1": np.zeros((C, D), np.float32),
                     "v2": np.zeros((D, C), np.float32)})
@@ -294,7 +411,9 @@ def stack_params(info: ModelInfo, math: dict[str, np.ndarray],
     }
 
 
-def _tensor(x: np.ndarray, device) -> torch.Tensor:
+def _tensor(x, device) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, copy=True)
     x = np.array(x, order="C")  # a writable copy the tensor may own
     if x.dtype.name == "bfloat16":  # ml_dtypes bf16: reinterpret the bits
         return torch.from_numpy(x.view(np.uint16)).view(
@@ -304,8 +423,8 @@ def _tensor(x: np.ndarray, device) -> torch.Tensor:
 
 def params_from_numpy(tree: dict, device: str | torch.device = "cuda") -> dict:
     """The JAX package's loaded params, as numpy arrays
-    (``jax.tree.map(np.asarray, model.params)``) -> this port's params on
-    ``device``, dtypes kept.  Layer groups are unstacked into one dict per
+    (``jax.tree.map(np.asarray, model.params)``), or a prefab's tree of CPU
+    tensors -> this port's params on ``device``, dtypes kept.  Layer groups are unstacked into one dict per
     layer, except quantized leaves — any node with ``mode``, ``q``,
     ``scale`` and ``shape`` attributes and numpy children — whose stacked
     codes are moved once per group and viewed per layer.  The engine's int8
@@ -323,7 +442,7 @@ def params_from_numpy(tree: dict, device: str | torch.device = "cuda") -> dict:
                 if id(node) not in stacked:
                     stacked[id(node)] = _quantized(node, device)
                 return quant_ops.QuantizedLayerView(stacked[id(node)], i)
-            if not isinstance(node, np.ndarray):
+            if not isinstance(node, (np.ndarray, torch.Tensor)):
                 raise TypeError(f"unsupported {type(node).__name__} leaf")
             return _tensor(node[i], device)
 
@@ -347,5 +466,5 @@ def _is_quantized_node(node) -> bool:
 
 def _quantized(node, device) -> "quant_ops.QuantizedLinear":
     return quant_ops.QuantizedLinear(
-        node.mode, _tensor(np.asarray(node.q), device),
-        _tensor(np.asarray(node.scale), device), node.shape)
+        node.mode, _tensor(node.q, device), _tensor(node.scale, device),
+        node.shape)

@@ -1,23 +1,29 @@
 """Model lifecycle: load and unload one model environment.
 
-Port of ``ai00_server_tpu/middleware.py`` for ``.st`` RWKV-7, -6, -5 and -4
-checkpoints, plain or with the first ``quant`` layers quantized
-(``quant_type = "Int8"``, ``"NF4"``, ``"SF4"`` or ``"Int4"``):
+Port of ``ai00_server_tpu/middleware.py`` for RWKV-7, -6, -5 and -4
+checkpoints (``.st``, ``.pth`` / ``.pt`` or a ``.prefab``), plain or with
+the first ``quant`` layers quantized (``quant_type = "Int8"``, ``"NF4"``,
+``"SF4"`` or ``"Int4"``):
 
-* ``reload(ReloadRequest)`` — read the checkpoint onto the device, load
+* ``reload(ReloadRequest)`` — read the checkpoint onto the device (a prefab
+  as it was saved; otherwise with the ``lora`` entries blended in before
+  quantization), read the ``state`` entries (``.state`` files: the
+  registered initial states, one of them perhaps the ``default``), load
   the tokenizer, build the kernels and the grammar engine, start the
   engine and the runtime (with the ``bnf`` options: the start
   nonterminal of BNF schemas).
 * ``unload()`` — drain the runtime and drop the environment.
-* ``info()`` — RuntimeInfo for ``/api/models/info``.
+* ``save(path)`` — export the loaded model as a prefab (``prefab.py``).
+* ``info()`` — RuntimeInfo for ``/api/models/info``, the states included.
 
-Request fields for later slices (LoRA, ``.state`` files, a device mesh)
-raise ``NotImplementedError`` naming their ROADMAP item.
+A device mesh raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
 
 import asyncio
+import os
+import uuid
 from dataclasses import dataclass, field
 from typing import Any, Optional
 
@@ -26,8 +32,9 @@ import torch
 from .device import resolve_device
 from .engine import Engine
 from .loader import LoadedModel, load_model
+from .models import packing
 from .ops.quant import MODES as QUANT_MODES
-from .runtime import Runtime
+from .runtime import NIL_STATE_ID, Runtime
 from .tokenizer import Tokenizer
 
 DEFAULT_TOKENIZER = "assets/tokenizer/rwkv_vocab_v20230424.json"
@@ -35,11 +42,18 @@ MAX_TOKENS = 2**31  # the reference's usize::MAX, i.e. unbounded
 
 
 @dataclass
+class StateEntry:
+    name: str
+    id: str
+    default: bool = False
+
+
+@dataclass
 class ReloadRequest:
-    """The JAX package's ReloadRequest, fields for this slice."""
+    """The JAX package's ReloadRequest."""
     model_path: str = ""
-    lora: list[dict] = field(default_factory=list)
-    state: list[dict] = field(default_factory=list)
+    lora: list[dict] = field(default_factory=list)      # {path, alpha}
+    state: list[dict] = field(default_factory=list)     # {path, name, id, default}
     quant: int = 0
     quant_type: str = "Int8"
     precision: str = "Fp16"                             # Fp16 | Fp32
@@ -90,12 +104,15 @@ class ReloadRequest:
         return {i: mode for i in range(self.quant)}
 
     def check_supported(self) -> None:
-        """Raise for what this slice does not serve yet."""
+        """Raise for what the port does not serve: a device mesh (not yet),
+        and a prefab with LoRA entries (a prefab loads as it was saved;
+        serving it unblended would silently drop the LoRA)."""
         self.quant_map()  # an unknown quant_type
-        if self.lora or self.state:
-            raise NotImplementedError(
-                "LoRA and .state files are the ROADMAP '.state files, LoRA "
-                "and prefab' item")
+        if self.model_path.endswith(".prefab") and self.lora:
+            raise ValueError(
+                f"{self.model_path}: a prefab loads as it was saved and "
+                "cannot blend [[lora]] entries; blend them into the "
+                "checkpoint and export a new prefab")
         if self.mesh and any(int(x) > 1 for x in self.mesh):
             raise NotImplementedError(
                 "a device mesh is the ROADMAP multi-device item")
@@ -108,6 +125,7 @@ class Environment:
     engine: Engine
     runtime: Runtime
     tokenizer: Tokenizer
+    states: list[StateEntry] = field(default_factory=list)
 
 
 class Middleware:
@@ -134,7 +152,8 @@ class Middleware:
                 "num_head": info.num_head,
                 "head_size": info.head_size,
             },
-            "states": [],
+            "states": [{"name": s.name, "id": s.id, "default": s.default}
+                       for s in self.env.states],
             "tokenizer": self.env.reload.tokenizer_path,
             "device": str(self.device),
         }
@@ -146,10 +165,10 @@ class Middleware:
             loop = asyncio.get_event_loop()
             dtype = (torch.float32 if request.precision == "Fp32"
                      else torch.bfloat16)
-            model = await loop.run_in_executor(
-                None, lambda: load_model(request.model_path, dtype=dtype,
-                                         device=self.device,
-                                         quant=request.quant_map()))
+            model = await loop.run_in_executor(None, self._load, request,
+                                               dtype)
+            entries, state_map = await loop.run_in_executor(
+                None, self._load_states, request, model)
             tokenizer = await loop.run_in_executor(
                 None, Tokenizer.from_file, request.tokenizer_path)
             if self.device.type == "cuda":
@@ -163,14 +182,58 @@ class Middleware:
             engine = Engine(model, max_batch=request.max_batch,
                             token_chunk_size=request.token_chunk_size,
                             device=self.device)
-            runtime = Runtime(engine, tokenizer,
+            runtime = Runtime(engine, tokenizer, states=state_map,
                               decode_chunk_size=request.decode_chunk_size,
                               bnf_option=request.bnf
                               if isinstance(request.bnf, dict) else None)
             runtime.start()
             self.env = Environment(reload=request, model=model,
                                    engine=engine, runtime=runtime,
-                                   tokenizer=tokenizer)
+                                   tokenizer=tokenizer, states=entries)
+
+    def _load(self, request: ReloadRequest, dtype) -> LoadedModel:
+        """A prefab as it was saved (its own dtypes and codes), else the
+        checkpoint with the LoRA entries blended in and then quantized."""
+        if request.model_path.endswith(".prefab"):
+            from . import prefab
+
+            return prefab.load_prefab(request.model_path, self.device)
+        loras = [(entry["path"], float(entry.get("alpha", 1.0)))
+                 for entry in request.lora]
+        return load_model(request.model_path, dtype=dtype,
+                          device=self.device, quant=request.quant_map(),
+                          loras=loras)
+
+    @staticmethod
+    def _load_states(request: ReloadRequest, model: LoadedModel):
+        """The ``state`` entries as StateEntry records and the runtime's
+        registry: each id (a fresh uuid4 where none is given) to its host
+        state, ``"default"`` to the entry marked default (else the model's
+        own state) and the nil UUID to the model's own state."""
+        entries, state_map = [], {}
+        for st in request.state:
+            sid = str(st.get("id") or uuid.uuid4())
+            data = packing.load_state_file(model.info, st["path"])
+            state_map[sid] = data
+            entries.append(StateEntry(
+                name=st.get("name") or os.path.basename(st["path"]),
+                id=sid, default=bool(st.get("default"))))
+            if entries[-1].default:
+                state_map["default"] = data
+        state_map[NIL_STATE_ID] = None
+        return entries, state_map
+
+    async def save(self, path: str) -> None:
+        """Export the loaded model as a prefab at ``path``: its params (codes
+        as they are, the lossless head where the engine keeps an int8 one),
+        its embedded initial state, its info and the reload request."""
+        if self.env is None:
+            raise RuntimeError("no model loaded")
+        from . import prefab
+
+        env = self.env
+        await asyncio.get_event_loop().run_in_executor(
+            None, prefab.save_prefab, path, env.model, env.reload.to_json())
 
     async def unload(self) -> None:
         async with self._lock:

@@ -1,9 +1,9 @@
 """Batched generation runtime: slots, prefix cache, generation loop.
 
 Port of ``ai00_server_tpu/runtime.py`` for completion and chat requests
-(BNF-constrained ones included), choose (perplexity ranking) and pooled
-state requests (embeddings); custom initial states are a later ROADMAP
-item:
+(BNF-constrained ones included), choose (perplexity ranking) and state
+requests (the raw state and pooled embeddings), each from the model's own
+initial state or a custom one:
 
 * Continuous batching over ``max_batch`` slots: ONE async drive loop
   gathers the runnable slots each iteration, builds a merged fixed-shape
@@ -12,13 +12,20 @@ item:
 * Steady-state decode rows advance K tokens per :meth:`Engine.decode_chunk`
   launch; the successor chunk is launched speculatively from the previous
   chunk's device-resident last tokens BEFORE the host reads its tokens.
+* Custom initial states: ``Runtime.states`` maps a state id to a host
+  batch-1 state (None = the model's own initial state; ``"default"`` is
+  the configured default state, the nil UUID always the model's own); a
+  request names one with ``GenerateRequest.state_id``, or carries an
+  inline state of its own (``GenerateRequest.state``) that is served to it
+  alone and registered nowhere.
 * Slot selection Continue > Empty > Back: prefer a slot whose resident
-  state already matches a strict prompt prefix, then an empty slot, then
-  the least-recently-used idle slot.
-* Prompt-prefix state cache: a token trie of host-RAM state snapshots
-  (plus prompt-end logits for the exact-hit fast path) with LRU eviction
-  at 256 items and a >=32-token insert threshold, and in-flight futures so
-  concurrent identical prompts await one prefill.
+  state (of the same initial state id) already matches a strict prompt
+  prefix, then an empty slot, then the least-recently-used idle slot.
+* Prompt-prefix state caches, one per state id (``cache_for``): a token
+  trie of host-RAM state snapshots (plus prompt-end logits for the
+  exact-hit fast path) with LRU eviction at 256 items and a >=32-token
+  insert threshold, and in-flight futures so concurrent identical prompts
+  await one prefill.  A request with an inline state uses no cache.
 * Per-token post-processing: UTF-8-safe streaming, incremental stop-word
   hold-back, max_tokens / EOS handling, token/duration accounting.
 * BNF rows (``GenerateRequest.bnf_schema``, ``bnf.BnfFormatter``).  A
@@ -34,8 +41,9 @@ item:
   choice from a copy of the row's state (``Engine.position_logps``); a
   pooled STATE request returns its embedding, the mean-hidden readout of
   the hidden sums its own prefill accumulated (its whole prompt runs from
-  a fresh state: no prefix-cache checkout, no resident continue) or the
-  pooled state (``pooling="state"``).
+  its initial state: no prefix-cache checkout, no resident continue) or
+  the pooled state (``pooling="state"``, the default under a custom
+  state); an unpooled one returns the row's whole state.
 """
 
 from __future__ import annotations
@@ -44,6 +52,7 @@ import asyncio
 import concurrent.futures
 import logging
 import time
+import uuid
 from dataclasses import dataclass, field
 from enum import Enum
 from typing import Any, Optional
@@ -61,6 +70,8 @@ logger = logging.getLogger("ai00_server_tpu_torch")
 MAX_CACHE_ITEMS = 256
 MIN_PROMPT_CACHE_TOKENS = 32
 END_OF_TEXT = 0
+# The state id that always addresses the model's own initial state.
+NIL_STATE_ID = str(uuid.UUID(int=0))
 
 
 # ---------------------------------------------------------------------------
@@ -120,9 +131,18 @@ class GenerateRequest:
     # hidden states; the default) or "state" (3C dims, the pooled state).
     pooling: Optional[str] = None
     bnf_schema: Optional[str] = None  # KBNF grammar the output must follow
+    # Initial state: a registered id (None = "default"), or an inline
+    # batch-1 host state served to this request alone.
+    state_id: Optional[str] = None
+    state: Any = None
 
     def effective_pooling(self) -> str:
-        return self.pooling or "mean_hidden"
+        """The explicit pooling, else ``"state"`` under a custom initial
+        state (the readout that reflects it) and ``"mean_hidden"``
+        without."""
+        return self.pooling or (
+            "state" if self.state_id or self.state is not None
+            else "mean_hidden")
 
 
 class FinishReason(str, Enum):
@@ -365,6 +385,8 @@ class _Slot:
     index: int
     phase: _SlotPhase = _SlotPhase.IDLE
     resident_tokens: tuple[int, ...] = ()
+    # The initial state the resident tokens were fed from.
+    resident_state_id: Any = "default"
     idle_since: float = field(default_factory=time.monotonic)
     ctx: Optional["_ReqCtx"] = None
 
@@ -376,6 +398,9 @@ class _ReqCtx:
     prompt_tokens: tuple[int, ...]
     model_tokens: tuple[int, ...]
     remaining: list[int]             # prompt tokens still to feed
+    # The request's initial state id; a request with an inline state gets
+    # a fresh object that equals no other id.
+    state_id: Any = "default"
     all_tokens: list[int] = field(default_factory=list)
     utf8: Utf8Buffer = field(default_factory=Utf8Buffer)
     stop: StopMatcher | None = None
@@ -421,6 +446,7 @@ class Runtime:
     """The batched runtime for one loaded model."""
 
     def __init__(self, engine: Engine, tokenizer: Tokenizer,
+                 states: dict[str, Any] | None = None,
                  decode_chunk_size: int = 8, bnf_option: dict | None = None):
         self.engine = engine
         self.tokenizer = tokenizer
@@ -432,7 +458,11 @@ class Runtime:
         # BnfOption (reload.rs:80-86): the start nonterminal of schemas.
         self.bnf_option = bnf_option or {}
         self.slots = [_Slot(i) for i in range(self.max_batch)]
-        self.cache = StateCache()
+        # State id -> host batch-1 initial state (None = the model's own).
+        self.states: dict[str, Any] = {"default": None, NIL_STATE_ID: None}
+        if states:
+            self.states.update(states)
+        self.caches: dict[str, StateCache] = {}
         self.pending: list[_ReqCtx] = []
         self._wake = asyncio.Event()
         self._stopped = False
@@ -459,7 +489,7 @@ class Runtime:
             "rollbacks": 0, "bnf_accepted": 0, "bnf_short_chunks": 0,
             "bnf_fallbacks": 0, "bnf_rehabs": 0, "bnf_dfa_requests": 0,
             "bnf_replay_requests": 0, "bnf_table_builds": 0,
-            "bnf_table_s": 0.0,
+            "bnf_table_s": 0.0, "state_installs": 0,
         }
         self._dfa_builds: dict = {}  # (schema, start) -> in-flight build
 
@@ -542,6 +572,7 @@ class Runtime:
             prompt_tokens=prompt_tokens,
             model_tokens=tuple(self.tokenizer.encode(request.model_text)),
             remaining=list(prompt_tokens),
+            state_id=self._state_id(request),
         )
         ctx.counter.prompt = len(prompt_tokens)
         ctx.stop = StopMatcher(request.stop)
@@ -560,6 +591,43 @@ class Runtime:
         self.pending.append(ctx)
         self._wake.set()
         return handle
+
+    def cache_for(self, state_id: str) -> StateCache:
+        """The prefix cache of the states fed from ``state_id``."""
+        c = self.caches.get(state_id)
+        if c is None:
+            c = self.caches[state_id] = StateCache()
+        return c
+
+    def register_state(self, state_id: str, state) -> None:
+        """Register a host batch-1 initial state under ``state_id``."""
+        self.states[state_id] = state
+
+    def _state_id(self, request: GenerateRequest):
+        """The id the request's slot and cache are keyed by: an inline
+        state gets an object of its own (no slot continue, no cache); the
+        nil UUID shares "default"'s books while no default state is
+        configured (both are then the model's own state)."""
+        if request.state is not None:
+            return object()
+        sid = request.state_id or "default"
+        if sid not in self.states:
+            raise KeyError(f"unknown state id {sid!r}")
+        if sid == NIL_STATE_ID and self.states["default"] is None:
+            return "default"
+        return sid
+
+    def _initial_state(self, ctx: _ReqCtx):
+        """The request's initial host state, None for the model's own."""
+        if ctx.request.state is not None:
+            return ctx.request.state
+        return self.states.get(ctx.state_id)
+
+    def _cache(self, ctx: _ReqCtx) -> Optional[StateCache]:
+        """The request's prefix cache; None for an inline state."""
+        if ctx.request.state is not None:
+            return None
+        return self.cache_for(ctx.state_id)
 
     # ------------------------------------------------------------------
     # Drive loop
@@ -1067,7 +1135,8 @@ class Runtime:
                 continue
             if not s.resident_tokens and empty is None:
                 empty = s
-            if (s.resident_tokens
+            if (s.resident_state_id == ctx.state_id
+                    and s.resident_tokens
                     and len(s.resident_tokens) < len(ctx.prompt_tokens)
                     and ctx.prompt_tokens[: len(s.resident_tokens)]
                     == s.resident_tokens
@@ -1092,24 +1161,31 @@ class Runtime:
 
         # Mean-hidden embeds read the hidden sums step() accumulates for
         # rows loaded with hidden_sums=True, so their whole prompt runs
-        # through step() from a fresh state: no resident continue, no
+        # through step() from its initial state: no resident continue, no
         # prefix-cache checkout.
         mean_hidden = (ctx.request.pooled
                        and ctx.request.kind == GenerateKind.STATE
                        and ctx.request.effective_pooling() == "mean_hidden")
+        init = self._initial_state(ctx)
+        cache = self._cache(ctx)
 
         reused = 0
         if mean_hidden:
-            await loop.run_in_executor(
-                pool, lambda: eng.load_row_state(b, None, hidden_sums=True))
-        elif (slot.resident_tokens
+            # A configured default state stays out of a mean-hidden embed
+            # that names no state (as in the JAX runtime).
+            named = ctx.request.state_id or ctx.request.state is not None
+            await self._load_initial(b, init if named else None,
+                                     hidden_sums=True)
+        elif (slot.resident_state_id == ctx.state_id and slot.resident_tokens
                 and len(slot.resident_tokens) < len(ctx.prompt_tokens)
                 and ctx.prompt_tokens[: len(slot.resident_tokens)]
                 == slot.resident_tokens):
             # Continue in place: resident state is a strict prompt prefix.
             reused = len(slot.resident_tokens)
+        elif cache is None:
+            await self._load_initial(b, init)
         else:
-            plen, item = self.cache.longest_prefix(ctx.prompt_tokens)
+            plen, item = cache.longest_prefix(ctx.prompt_tokens)
             if isinstance(item, asyncio.Future):
                 if item.done():
                     item = item.result()
@@ -1128,7 +1204,7 @@ class Runtime:
                 # item): generation samples from them and choose reads its
                 # head term from them, so back off to a strict prefix; the
                 # last token is re-fed and the logits regenerate.
-                plen, item = self.cache.longest_prefix(
+                plen, item = cache.longest_prefix(
                     ctx.prompt_tokens, strict=True)
                 if isinstance(item, asyncio.Future):
                     item = item.result() if item.done() else None
@@ -1142,7 +1218,7 @@ class Runtime:
                                            item.state)
                 reused = plen
             else:
-                await loop.run_in_executor(pool, eng.load_row_state, b, None)
+                await self._load_initial(b, init)
 
         ctx.remaining = list(ctx.prompt_tokens[reused:])
         ctx.all_tokens = list(ctx.prompt_tokens)
@@ -1180,14 +1256,16 @@ class Runtime:
                 self.metrics["bnf_replay_requests"] += 1
 
         # In-flight cache future for this prompt.
-        if (len(ctx.prompt_tokens) >= MIN_PROMPT_CACHE_TOKENS
+        if (cache is not None
+                and len(ctx.prompt_tokens) >= MIN_PROMPT_CACHE_TOKENS
                 and ctx.request.kind == GenerateKind.GENERATE
                 and exact_item is None and ctx.remaining):
             fut = loop.create_future()
-            self.cache.insert(ctx.prompt_tokens, fut)
+            cache.insert(ctx.prompt_tokens, fut)
             ctx.cache_future = fut
 
         slot.ctx = ctx
+        slot.resident_state_id = ctx.state_id
         await ctx.handle.queue.put(("start",))
 
         if exact_item is not None:
@@ -1217,12 +1295,20 @@ class Runtime:
                 await self._run_choose(slot)
             else:
                 ctx.remaining = list(ctx.prompt_tokens)
-                await loop.run_in_executor(pool, eng.load_row_state, b,
-                                           None)
+                await self._load_initial(b, init)
                 slot.phase = _SlotPhase.PREFILL
         else:
             slot.phase = _SlotPhase.PREFILL
         return True
+
+    async def _load_initial(self, b: int, init,
+                            hidden_sums: bool = False) -> None:
+        """Load row ``b`` with an initial state (None: the model's own)."""
+        if init is not None:
+            self.metrics["state_installs"] += 1
+        await asyncio.get_event_loop().run_in_executor(
+            self._device_pool, lambda: self.engine.load_row_state(
+                b, init, hidden_sums=hidden_sums))
 
     async def _advance(self, slot: _Slot, lengths, sample_mask,
                        result) -> None:
@@ -1277,6 +1363,7 @@ class Runtime:
         self._cache_stores.add(fut)
         cf = ctx.cache_future
         key = ctx.prompt_tokens
+        cache = self._cache(ctx)
 
         def _store(f):
             self._cache_stores.discard(f)
@@ -1284,8 +1371,8 @@ class Runtime:
                 state_np, logits_np = f.result()
                 item = CachedItem(state=state_np, logits=logits_np,
                                   tokens=key)
-                self.cache.insert(key, item)
-                self.cache.maintain()
+                cache.insert(key, item)
+                cache.maintain()
                 if not cf.done():
                     cf.set_result(item)
             except Exception:
@@ -1374,16 +1461,19 @@ class Runtime:
         b = slot.index
         ctx.counter.duration = time.monotonic() - ctx.start_time
 
+        cache = self._cache(ctx)
         if ctx.cache_future is not None and not ctx.cache_future.done():
             ctx.cache_future.set_result(None)
             if not ctx.prefill_cached:
-                self.cache.remove(ctx.prompt_tokens)
+                cache.remove(ctx.prompt_tokens)
 
         consumed = self._consumed_tokens(ctx)
         loop = asyncio.get_event_loop()
 
-        # Back: cache the final state keyed by the consumed tokens.
-        if (ctx.request.kind == GenerateKind.GENERATE
+        # Back: cache the final state keyed by the consumed tokens, in the
+        # cache of the state it was fed from.
+        if (cache is not None
+                and ctx.request.kind == GenerateKind.GENERATE
                 and reason in (FinishReason.STOP, FinishReason.LENGTH)
                 and len(consumed) >= MIN_PROMPT_CACHE_TOKENS):
             row = await loop.run_in_executor(
@@ -1394,9 +1484,9 @@ class Runtime:
             def _store(f, consumed=consumed):
                 self._cache_stores.discard(f)
                 try:
-                    self.cache.insert(consumed, CachedItem(
+                    cache.insert(consumed, CachedItem(
                         state=f.result(), logits=None, tokens=consumed))
-                    self.cache.maintain()
+                    cache.maintain()
                 except Exception:  # the cache store is best-effort
                     logger.exception("back-cache store failed")
 
@@ -1469,8 +1559,11 @@ class Runtime:
         ppl = [float("inf")] * len(choices_tokens)
 
         if ctx.request.calibrate:
-            init = await loop.run_in_executor(self._device_pool,
-                                              eng.fresh_row_state)
+            # From the request's initial state after an end-of-text token.
+            init = self._initial_state(ctx)
+            if init is None:
+                init = await loop.run_in_executor(self._device_pool,
+                                                  eng.fresh_row_state)
             for i, toks in enumerate(choices_tokens):
                 if not toks:
                     continue

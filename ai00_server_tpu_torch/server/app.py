@@ -8,15 +8,20 @@ Port of ``ai00_server_tpu/server/app.py`` for this slice:
   POST /api/oai/[v1/]chooses            perplexity ranking
   POST /api/oai/[v1/]embeddings         model-derived embeddings
   POST /api/oai/[v1/]embeds             the ``[embed]`` sidecar encoder
+  POST /api/oai/[v1/]states             the state after a prompt, packed
+                                        (``models/packing``)
   POST /api/retrieval/index|add|search|build|drop, GET /api/retrieval/list
   GET  /api/oai/[v1/]models             current model id
   GET  /api/adapters                    device list (torch.cuda)
   GET  /api/models/info                 RuntimeInfo
 
 Completions and chat take ``bnf_schema`` (a KBNF grammar the output
-follows).  Every other route of the JAX server, and every request field
-outside the slice (``state``), answers 501 with the ROADMAP item that
-brings it.
+follows).  Completions, chat, chooses, embeddings and states take
+``state``, the initial state: a key (a state id string: a ``[[state]]``
+entry's, the nil UUID for the model's own state), a value (``{id, data,
+shape}``, the packed layout) or a file (``{id, path}``, under the model
+directory).  Every other route of the JAX server answers 501 with the
+ROADMAP item that brings it.
 """
 
 from __future__ import annotations
@@ -32,11 +37,12 @@ import torch
 from aiohttp import web
 
 from ..middleware import MAX_TOKENS, Middleware
+from ..models import packing
 from ..ops import sampling
 from ..retrieval_store import RetrievalStore
 from ..runtime import (FinishReason, GenerateKind, GenerateRequest,
                        SamplerSpec)
-from .config import Config
+from .config import Config, PathNotPermitted, check_path_permitted
 
 _WS_RE = re.compile(r"\n(\s*\n)+")
 
@@ -46,11 +52,9 @@ ROLE_NAMES = {
 }
 
 # Routes of the JAX server that later slices bring: (method, path) ->
-# ROADMAP item.
+# ROADMAP item.  /admin/models/save and /admin/models/load will call
+# Middleware.save and Middleware.reload behind the admin auth.
 LATER_ROUTES = {
-    # The raw state (unpooled) is flattened by ``models/packing``.
-    ("POST", "/api/oai/states"): ".state files, LoRA and prefab",
-    ("POST", "/api/oai/v1/states"): ".state files, LoRA and prefab",
     ("GET", "/api/models/state"): "admin, profile and file routes",
     ("GET", "/api/models/list"): "admin, profile and file routes",
     ("GET", "/api/metrics"): "admin, profile and file routes",
@@ -66,12 +70,6 @@ LATER_ROUTES = {
     ("GET", "/api-docs/"): "admin, profile and file routes",
     ("GET", "/"): "admin, profile and file routes",
 }
-
-# Request fields that later slices bring -> ROADMAP item.
-LATER_FIELDS = {
-    "state": ".state files, LoRA and prefab",
-}
-
 
 def _array(value) -> list:
     """Reference Array<T>: none | item | vec."""
@@ -119,7 +117,7 @@ def _sampler_from_json(obj: dict | None, top_p=0.5, top_k=128,
 
 
 def _generate_request(body: dict, prompt: str, model_text: str = "",
-                      default_stop="\n\n") -> GenerateRequest:
+                      default_stop="\n\n", **state) -> GenerateRequest:
     return GenerateRequest(
         prompt=prompt,
         model_text=model_text,
@@ -133,6 +131,7 @@ def _generate_request(body: dict, prompt: str, model_text: str = "",
             top_k=int(body.get("top_k", 128)),
             temperature=float(body.get("temperature", 1.0))),
         bnf_schema=body.get("bnf_schema"),
+        **state,
     )
 
 
@@ -201,6 +200,8 @@ class Server:
             r.add_post(p, self.embeddings)
         for p in ("/api/oai/embeds", "/api/oai/v1/embeds"):
             r.add_post(p, self.embeds)
+        for p in ("/api/oai/states", "/api/oai/v1/states"):
+            r.add_post(p, self.states)
         r.add_post("/api/retrieval/index", self.retrieval_index)
         r.add_post("/api/retrieval/add", self.retrieval_add)
         r.add_post("/api/retrieval/search", self.retrieval_search)
@@ -220,21 +221,68 @@ class Server:
             return _not_in_slice(path, item)
         return handler
 
-    @staticmethod
-    def _later_field(body: dict) -> web.Response | None:
-        for name, item in LATER_FIELDS.items():
-            if body.get(name):
-                return _not_in_slice(f"request field {name!r}", item)
-        return None
+    async def _resolve_state(self, env, field) -> dict:
+        """The request's ``state`` field -> ``GenerateRequest`` keywords.
+
+        * a key (a string): a registered state id; the nil UUID is the
+          model's own initial state;
+        * a value ``{id, data, shape}``: the packed state; with an id it is
+          registered under it (an id already registered is served as it
+          is), without one it is served to this request alone;
+        * a file ``{id, path}``: a ``.state`` file under the model
+          directory (another path answers 403), registered as a value is.
+
+        A ``{"id": ...}`` of a registered id alone is that state.  Anything
+        else raises ``ValueError`` (answered 400)."""
+        if field is None:
+            return {}
+        rt = env.runtime
+        if isinstance(field, str):
+            if field not in rt.states:
+                raise ValueError(f"unknown state id {field!r}")
+            return {"state_id": field}
+        if not isinstance(field, dict):
+            raise ValueError("state: a state id, {data, shape} or {path}")
+        sid = str(field["id"]) if field.get("id") else None
+        if sid is not None and sid in rt.states:
+            return {"state_id": sid}
+        info = env.model.info
+        if "data" in field:
+            shape = list(packing.state_shape(info))
+            if "shape" in field and list(field["shape"]) != shape:
+                raise ValueError(f"state shape {field['shape']}: the model's "
+                                f"is {shape}")
+            data = np.asarray(field["data"], np.float32)
+            if data.size != int(np.prod(shape)):
+                raise ValueError(f"state data holds {data.size} numbers: the "
+                                f"model's state {shape} holds "
+                                f"{int(np.prod(shape))}")
+            state = packing.unpack_state(info, data)
+        elif "path" in field:
+            model_dir = self.config.model.get("path", "assets/models")
+            path = field["path"]
+            if not os.path.isabs(path):
+                path = os.path.join(model_dir, path)
+            try:
+                check_path_permitted(path, [model_dir])
+            except PathNotPermitted as e:
+                raise web.HTTPForbidden(text=str(e)) from e
+            state = await asyncio.get_event_loop().run_in_executor(
+                None, packing.load_state_file, info, path)
+        else:
+            raise ValueError(f"unknown state id {sid!r}" if sid else
+                            "state: a state id, {data, shape} or {path}")
+        if sid is None:
+            return {"state": state}
+        rt.register_state(sid, state)
+        return {"state_id": sid}
 
     # -- OpenAI endpoints ----------------------------------------------------
 
     async def chat_completions(self, request: web.Request):
         body = await request.json()
-        refused = self._later_field(body)
-        if refused is not None:
-            return refused
         env = await self._env()
+        state = await self._resolve_state(env, body.get("state"))
 
         messages = _array(body.get("messages"))
         names = body.get("names", {})
@@ -283,7 +331,7 @@ class Server:
                                  .replace("{content}", block))
 
         req = _generate_request(body, sep.join(parts) + sep + prefix,
-                                model_text=sep.join(model_parts))
+                                model_text=sep.join(model_parts), **state)
         request["parsed"] = True
         if body.get("stream", False):
             return await self._stream_response(
@@ -306,11 +354,10 @@ class Server:
 
     async def completions(self, request: web.Request):
         body = await request.json()
-        refused = self._later_field(body)
-        if refused is not None:
-            return refused
         env = await self._env()
-        req = _generate_request(body, "".join(_array(body.get("prompt"))))
+        state = await self._resolve_state(env, body.get("state"))
+        req = _generate_request(body, "".join(_array(body.get("prompt"))),
+                                **state)
         request["parsed"] = True
         if body.get("stream", False):
             return await self._stream_response(
@@ -379,10 +426,8 @@ class Server:
 
     async def chooses(self, request: web.Request):
         body = await request.json()
-        refused = self._later_field(body)
-        if refused is not None:
-            return refused
         env = await self._env()
+        state = await self._resolve_state(env, body.get("state"))
         choices = [str(c) for c in _array(body.get("choices"))]
         req = GenerateRequest(
             prompt="".join(_array(body.get("input"))),
@@ -390,6 +435,7 @@ class Server:
             kind=GenerateKind.CHOOSE,
             choices=choices,
             calibrate=bool(body.get("calibrate", False)),
+            **state,
         )
         request["parsed"] = True
         handle = await env.runtime.submit(req)
@@ -412,8 +458,41 @@ class Server:
             "object": "list", "model": self._model_name(), "data": data,
         })
 
+    async def states(self, request: web.Request):
+        """The state after the input, from the request's initial state,
+        packed (``models/packing``): ``data`` flat, ``shape`` ``[L, rows,
+        C, 1]``."""
+        body = await request.json()
+        env = await self._env()
+        state = await self._resolve_state(env, body.get("state"))
+        req = GenerateRequest(prompt="".join(_array(body.get("input"))),
+                              max_tokens=1, kind=GenerateKind.STATE, **state)
+        request["parsed"] = True
+        handle = await env.runtime.submit(req)
+        row, counter = None, None
+        async for msg in handle:
+            if msg[0] == "embed":
+                row = msg[1]
+            elif msg[0] == "stop":
+                counter = msg[2]
+        if row is None:
+            return web.json_response({"error": "state extraction aborted"},
+                                     status=500)
+        info = env.model.info
+        flat = await asyncio.get_event_loop().run_in_executor(
+            None, packing.pack_state, info, row)
+        return web.json_response({
+            "object": "list",
+            "model": self._model_name(),
+            "data": [{"object": "states", "index": 0,
+                      "data": flat.reshape(-1).tolist(),
+                      "shape": list(packing.state_shape(info))}],
+            "usage": _usage(counter),
+        })
+
     async def _embed_texts(self, env, texts: list[str],
-                           pooling: str | None = None) -> np.ndarray:
+                           pooling: str | None = None,
+                           state: dict | None = None) -> np.ndarray:
         """Model-derived sentence embeddings, L2-normalized, one pooled
         STATE request a text (batched across slots).
 
@@ -422,12 +501,14 @@ class Server:
         hidden sums the serving prefill accumulates.  ``pooling="state"``:
         the pooled state (3C dims: mean ``att_x`` | mean ``ffn_x`` | the
         ``wkv`` uniform-query readout, each part unit-normalized; 2C for
-        RWKV-4).  The two are not comparable."""
+        RWKV-4).  The two are not comparable.  ``state``: the initial state
+        keywords of :meth:`_resolve_state` (``pooling`` then defaults to
+        ``"state"``)."""
         handles = []
         for text in texts:
             req = GenerateRequest(prompt=str(text), max_tokens=1,
                                   kind=GenerateKind.STATE, pooled=True,
-                                  pooling=pooling)
+                                  pooling=pooling, **(state or {}))
             handles.append(await env.runtime.submit(req))
         vecs = []
         for handle in handles:
@@ -442,25 +523,24 @@ class Server:
 
     async def embeddings(self, request: web.Request):
         body = await request.json()
-        refused = self._later_field(body)
-        if refused is not None:
-            return refused
         env = await self._env()
         inputs = [str(t) for t in _array(body.get("input"))]
+        state = await self._resolve_state(env, body.get("state"))
         pooling = body.get("pooling")
         if pooling is not None and pooling not in ("mean_hidden", "state"):
             return web.json_response(
                 {"error": "pooling must be 'mean_hidden' (C dims) or "
                           "'state' (3C dims)"}, status=400)
         request["parsed"] = True
-        vecs = await self._embed_texts(env, inputs, pooling=pooling)
+        vecs = await self._embed_texts(env, inputs, pooling=pooling,
+                                       state=state)
         data = [{"object": "embedding", "index": i, "embedding": v.tolist()}
                 for i, v in enumerate(vecs)]
         return web.json_response({
             "object": "list", "model": self._model_name(), "data": data,
             # Vectors of the two poolings are not comparable: echo which
             # one (and its dimensionality) this response used.
-            "pooling": pooling or "mean_hidden",
+            "pooling": pooling or ("state" if state else "mean_hidden"),
             "dimensions": int(vecs.shape[-1]) if len(data) else 0,
             "usage": {"prompt_tokens": 0, "total_tokens": 0},
         })

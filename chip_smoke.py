@@ -115,10 +115,19 @@ kernel's source is built first, one ``nvcc`` each, all started together):
    burst with the fused kernels' counts zeroed before and read after; a
    16-step chunk with every row on the DFA timed in turns beside an
    unconstrained one, its tokens walked through the table on the host),
+   then reloads with a ``[[state]]``, a ``[[lora]]`` and a checkpoint on
+   which a state lasts and 24 bf16 layers do not carry a flipped rounding
+   far (``state_flow``: the blend against the host's, ``/api/oai/states``
+   and a step replayed right after a state install against the plain
+   forward at every layer, the state by id, inline and by path, default /
+   tuned / default each a fresh slot's answer, the kernels' counts zeroed
+   before its requests and read after),
    and streams one 4077-token prompt alone (its
    TTFT), as the ``quant = 24`` Int8 server does too (its 256-row prefill
    chunks above ``ops/quant.py:KERNEL_ROWS``: each int8 weight dequantized
-   for one ``torch.matmul``).  Then random 24-layer RWKV-5 and RWKV-4
+   for one ``torch.matmul``).  The Int8 and NF4 servers save a prefab and
+   reload from it (``prefab_flow``: the same greedy tokens, the same device
+   memory as a reload from the ``.st``).  Then random 24-layer RWKV-5 and RWKV-4
    checkpoints of the 0.4B shape, served the same way (prefill through
    ``wkv56_chunk`` / ``wkv4_chunk``, decode one replay of the fused v5 / v4
    stack).  The 0.4B v7
@@ -136,6 +145,7 @@ The last two lines of standard output are the card's
 from __future__ import annotations
 
 import asyncio
+import dataclasses
 import functools
 import gc
 import json
@@ -2767,6 +2777,27 @@ def unstack_codes(node):
     return node
 
 
+def params_to(node, dev, moved=None):
+    """A copy of a params tree on ``dev``; the views into one stacked
+    group's codes stay views into one copy of them."""
+    from ai00_server_tpu_torch.ops import quant
+
+    moved = {} if moved is None else moved
+    if isinstance(node, dict):
+        return {k: params_to(v, dev, moved) for k, v in node.items()}
+    if isinstance(node, list):
+        return [params_to(v, dev, moved) for v in node]
+    if isinstance(node, quant.QuantizedLayerView):
+        return quant.QuantizedLayerView(params_to(node.qlin, dev, moved),
+                                        node.idx)
+    if isinstance(node, quant.QuantizedLinear):
+        if id(node) not in moved:
+            moved[id(node)] = quant.QuantizedLinear(
+                node.mode, node.q.to(dev), node.scale.to(dev), node.shape)
+        return moved[id(node)]
+    return node.to(dev) if hasattr(node, "to") else node
+
+
 def phase_parity(dev, version: str = "v7") -> dict:
     """Returns the fused path's worst absolute bf16 error on the hidden per
     kind of weights, and the launches of ``matmul_4bit`` (v7: the unstacked
@@ -2888,8 +2919,12 @@ def phase_parity(dev, version: str = "v7") -> dict:
     shape = {"v7": "0.4B", "v6": "v6 1B6", "v5": "v5 0.4B",
              "v4": "v4 0.4B"}[version]
     for label, (quant_map, hows) in cases.items():
-        params = {d: stack_params(info, math, dtype=torch.float32, device=d,
-                                  quant=quant_map) for d in (dev, "cpu")}
+        t_case = time.monotonic()
+        # Built once on the host and copied to the card: the same values
+        # stack_params builds there (it works on the host either way).
+        cpu = stack_params(info, math, dtype=torch.float32, device="cpu",
+                           quant=quant_map)
+        params = {dev: params_to(cpu, dev), "cpu": cpu}
         if label.startswith("unstacked"):
             params = {d: unstack_codes(p) for d, p in params.items()}
         if quant_map:
@@ -2956,6 +2991,8 @@ def phase_parity(dev, version: str = "v7") -> dict:
                   f"{fmt(per)}); inactive row bit-identical", flush=True)
 
         if "fused" not in hows:
+            print(f"model parity, {shape} {label} weights: "
+                  f"{time.monotonic() - t_case:.1f} s", flush=True)
             continue
         # bf16 on the card: the fused kernels against forward_t1_plain.
         p16 = stack_params(info, math, dtype=torch.bfloat16, device=dev,
@@ -3043,6 +3080,8 @@ def phase_parity(dev, version: str = "v7") -> dict:
               + ", ".join(f"{k} {v:.3g}" for k, v in lock.items())
               + f"){wrong}; inactive row bit-identical", flush=True)
         result[f"fused_{label}_bf16_max_abs_err"] = worst_abs
+        print(f"model parity, {shape} {label} weights: "
+              f"{time.monotonic() - t_case:.1f} s", flush=True)
     return result
 
 
@@ -3704,6 +3743,458 @@ async def bnf_flow(http, base, server) -> dict:
     return out
 
 
+# Custom initial states, LoRA and prefabs on the served 0.4B shape.
+STATE_ID = "5e1f0a2b-7c3d-4e5f-8a9b-0c1d2e3f4a5b"
+STATE_SCALE = 0.3            # the tuned WKV: 0.3 x standard normal
+LORA_RANK, LORA_ALPHA = 16, 16.0
+LORA_KEYS = {"att.receptance.weight": (C, C), "att.output.weight": (C, C),
+             "ffn.value.weight": (FFN, C)}
+# /api/oai/states reads the state after ONE token: a T=1 step, the graph
+# replay right after the install, held against forward_t1_plain (the same
+# recipe); the prompts of (e) and (f) prefill from the state (wkv7_chunk).
+STATE_TOKEN = 300
+STATE_DELTA_TOL = 1e-3       # (c): f32 roundings of the state update only
+STATE_TOKENS = 32            # greedy tokens of each state / prefab answer
+INSTALL_REPS = 5
+LASTING_ST = "rwkv7-0.4b-lasting.st"
+
+
+def lasting(raw: dict) -> dict:
+    """RWKV-7 weights scaled by their fan-in (``fan_in_scaled``, IN PLACE)
+    with the decay bias ``w0`` at -6, a decay of ~0.9985 a step: a state
+    lasts through a prompt and 24 bf16 layers do not carry a flipped
+    rounding far (``tools/torch_bf16_depth.py`` reads both)."""
+    for k, v in fan_in_scaled(raw).items():
+        if k.endswith("att.w0"):
+            v[...] = -6.0
+    return raw
+
+
+def write_state_site(tmp: Path) -> tuple[Path, Path, Path]:
+    """A 0.4B-shape checkpoint on which a state lasts (``LASTING_ST``,
+    :func:`lasting` weights, f16 on disk), a
+    state-tuned ``tuned.state`` (per-layer ``time_state``, stored
+    transposed as the converter stores it) and a rank-``LORA_RANK`` LoRA
+    over every layer's ``att.receptance``, ``att.output`` and
+    ``ffn.value`` (``lora.0`` stored transposed), both f32, from seeded
+    generators."""
+    import numpy as np
+
+    from ai00_server_tpu_torch.loader import save_safetensors
+    from ai00_server_tpu_torch.testing import (make_raw_weights,
+                                               to_converted_layout)
+
+    info = model_info(L_FULL)
+    raw = lasting(make_raw_weights(info, seed=SEED + 18, dtype=np.float32,
+                                   lora_dims=LORA))
+    save_safetensors(to_converted_layout(raw), str(tmp / LASTING_ST))
+    del raw
+    H, N = info.num_head, info.head_size
+    rng = np.random.default_rng(SEED + 17)
+    state = {f"blocks.{i}.att.time_state": np.swapaxes(
+        rng.standard_normal((H, N, N), dtype=np.float32) * STATE_SCALE,
+        -1, -2) for i in range(L_FULL)}
+    save_safetensors(state, str(tmp / "tuned.state"), dtype=np.float32)
+    lora = {}
+    for i in range(L_FULL):
+        for k, (n_in, n_out) in LORA_KEYS.items():
+            a = rng.standard_normal((LORA_RANK, n_in), dtype=np.float32)
+            b = rng.standard_normal((n_out, LORA_RANK), dtype=np.float32)
+            lora[f"blocks.{i}.{k}.lora.0"] = (a * 0.05).T
+            lora[f"blocks.{i}.{k}.lora.1"] = b * 0.05
+    save_safetensors(lora, str(tmp / "lora.st"), dtype=np.float32)
+    return tmp / LASTING_ST, tmp / "tuned.state", tmp / "lora.st"
+
+
+async def greedy_text(http, base, prompt, state=None,
+                      n=STATE_TOKENS) -> str:
+    body = {"prompt": prompt, "max_tokens": n, "logit_bias": NO_EOS,
+            "sampler": {"type": "Nucleus", "top_k": 1}}
+    if state is not None:
+        body["state"] = state
+    async with http.post(f"{base}/api/oai/completions", json=body) as r:
+        check(r.status == 200, f"a completion under state {str(state)[:40]}"
+              f" answered {r.status}: {(await r.text())[:200]}")
+        out = await r.json()
+    check(out["usage"]["completion"] == n,
+          f"a greedy completion stopped after {out['usage']['completion']}"
+          " tokens")
+    return out["choices"][0]["text"]
+
+
+def plain_row(params, state, tokens, dev):
+    """``tokens`` fed one at a time through ``forward_t1_plain`` (the
+    stack's plain versions, eagerly, on the card) from the batch-1
+    ``state`` (numpy or tensors, left untouched): (the state after them,
+    the logits of the last)."""
+    import torch
+
+    from ai00_server_tpu_torch.engine import head_logits
+    from ai00_server_tpu_torch.ops import v7_decode as fd
+
+    st = {k: torch.as_tensor(v).to(dev, torch.float32).clone()
+          for k, v in state.items()}
+    one = torch.ones(1, dtype=torch.int32, device=dev)
+    for t in tokens:
+        h = fd.forward_t1_plain(params, st, torch.tensor(
+            [[int(t)]], dtype=torch.int32, device=dev), one)[0]
+    return st, head_logits(params, h[:, -1])
+
+
+def rel(got, want) -> float:
+    import torch
+
+    got, want = torch.as_tensor(got).double(), torch.as_tensor(want).double()
+    return float((got - want).abs().max()) / max(float(want.abs().max()),
+                                                 1e-6)
+
+
+def replay_turns(engines: dict, n: int = 20) -> dict:
+    """Device ms of one graph replay (every row active) of each engine,
+    in turns a, b, b, a, a, b (CUDA events around ``n`` replays); the
+    engines' rows advance."""
+    import torch
+
+    out = {k: [] for k in engines}
+    keys = list(engines)
+    order = [keys[0], keys[1], keys[1], keys[0], keys[0], keys[1]]
+    for key in order:
+        eng = engines[key]
+        B = eng.max_batch
+        toks = torch.arange(1, B + 1, dtype=torch.int32, device=eng.device)
+        ones = torch.ones(B, dtype=torch.int32, device=eng.device)
+        with eng._lock:
+            eng._graph.replay(toks, ones)
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(n):
+                eng._graph.replay(toks, ones)
+            end.record()
+            torch.cuda.synchronize()
+        out[key].append(start.elapsed_time(end) / n)
+    return {k: sorted(v)[len(v) // 2] for k, v in out.items()}
+
+
+async def state_flow(http, base, server, tmp: Path, base_engine) -> dict:
+    """Custom initial states and LoRA on the bf16 0.4B server: reload it
+    with the ``LASTING_ST`` checkpoint (weights under which 24 bf16 layers
+    do not carry one flipped rounding far, so the whole depth is held to
+    the plain forward), a ``[[state]]`` entry (``tuned.state``) and a
+    ``[[lora]]`` entry (``lora.st``), then (a) a blended weight on the card
+    equals the host blend of the same files cast to bf16; (b)
+    ``/api/models/info`` lists the state; (c) ``/api/oai/states`` under the
+    state returns the packed state after one token, held per part at every
+    layer against the plain forward from the unpacked file (and the same
+    from the model's own state); (e) a greedy completion under the state id equals the same
+    request with the state inline (``{data, shape}``) and as ``{path}``;
+    (f) default, tuned, default on one prompt, each equal to a fresh
+    slot's answer (an inline state: no cache, no continue); (g)
+    ``/embeddings`` under the state echoes ``pooling: "state"``; the
+    launch counts are zeroed before these requests and read after.  Then,
+    on an engine of its own over the served weights, (d) the first logits
+    of a step replayed right after a state is installed in row 3 while the
+    other rows decode, held against the same kernels launched eagerly from
+    that state after a synchronize, and the logits and the state of every
+    layer after it against the plain forward from that state (a row not
+    installed the same way; the other rows bit-identical to the same step
+    without the install), the install's time, and the replay beside
+    ``base_engine``'s (the write_site checkpoint: no LoRA, no custom
+    state), in turns."""
+    import numpy as np
+    import torch
+    from safetensors import safe_open
+
+    from ai00_server_tpu_torch.engine import Engine, head_logits
+    from ai00_server_tpu_torch.loader import (apply_lora, load_safetensors,
+                                              to_math_layout)
+    from ai00_server_tpu_torch.models import packing
+    from ai00_server_tpu_torch.ops import v7_decode as fd
+    from ai00_server_tpu_torch.ops.wkv_chunk import wkv7_chunk
+
+    model_path, state_path, lora_path = write_state_site(tmp)
+    env = server.middleware.env
+    req = dataclasses.replace(
+        env.reload, model_path=str(model_path),
+        lora=[{"path": str(lora_path), "alpha": LORA_ALPHA}],
+        state=[{"path": str(state_path), "name": "tuned", "id": STATE_ID}])
+    t0 = time.monotonic()
+    await server.middleware.reload(req)
+    out = {"load_s": time.monotonic() - t0}
+    env = server.middleware.env
+    info, dev, params = env.model.info, env.engine.device, env.model.params
+
+    # (a) the blend on the card against the host blend of the same files.
+    layer = L_FULL - 1
+    key = f"blocks.{layer}.att.receptance.weight"
+    with safe_open(str(model_path), framework="numpy") as f:
+        raw = {key: f.get_tensor(key).astype(np.float32)}
+    math = to_math_layout(raw)
+    unblended = torch.from_numpy(math[key].copy()).to(torch.bfloat16)
+    apply_lora(math, load_safetensors(str(lora_path)), LORA_ALPHA)
+    got = params["layers"][layer]["att"]["receptance"].cpu()
+    check(got.dtype == torch.bfloat16 and torch.equal(
+        got, torch.from_numpy(math[key]).to(torch.bfloat16)),
+        "the LoRA-blended weight on the card differs from the host blend")
+    check(not torch.equal(got, unblended), "the LoRA changed no weight")
+    out["blend_changed"] = float((got.float() - unblended.float()).abs()
+                                 .max())
+
+    # (b)
+    async with http.get(f"{base}/api/models/info") as r:
+        listed = (await r.json())["states"]
+    check(listed == [{"name": "tuned", "id": STATE_ID, "default": False}],
+          f"/api/models/info lists {listed}")
+
+    counted = {"wkv7_chunk": wkv7_chunk,
+               **{k.__name__: k for k in fd.KERNELS}}
+    for k in counted.values():
+        k.launches = 0
+    replays0 = fd.DecodeGraph.total_replays
+
+    # (c)
+    file_state = packing.load_state_file(info, str(state_path))
+    text = env.tokenizer.token_to_bytes(STATE_TOKEN).decode()
+    toks = list(env.tokenizer.encode(text))
+    check(toks == [STATE_TOKEN], f"{text!r} encodes to {toks}")
+    shape = [L_FULL, HEAD + 2, C, 1]
+    served = {}
+    for which in ("tuned", "default"):
+        body = {"input": text}
+        if which == "tuned":
+            body["state"] = STATE_ID
+        t0 = time.monotonic()
+        async with http.post(f"{base}/api/oai/states", json=body) as r:
+            check(r.status == 200, f"/api/oai/states answered {r.status}")
+            d = (await r.json())["data"][0]
+        out[f"states_s_{which}"] = time.monotonic() - t0
+        check(d["shape"] == shape, f"/api/oai/states shape {d['shape']}")
+        served[which] = np.asarray(d["data"], np.float32).reshape(shape[:3])
+    zero = env.engine.module.init_state(info, 1, device=dev)
+    parts = {"att_x": slice(0, 1), "wkv": slice(1, HEAD + 1),
+             "ffn_x": slice(HEAD + 1, HEAD + 2)}
+    # Per part, layer 0 (its inputs: the token and the state) and all 24
+    # layers, from the file and from the model's own state.
+    errs, want = {}, {}
+    for which, init in (("tuned", file_state), ("default", zero)):
+        st, _ = plain_row(params, init, toks, dev)
+        want[which] = packing.pack_state(info, st)
+        errs[which] = {f"{p}{' L0' if l0 else ''}": rel(
+            served[which][:1 if l0 else L_FULL, sl],
+            want[which][:1 if l0 else L_FULL, sl])
+            for p, sl in parts.items() for l0 in (True, False)}
+    out["states_err"] = errs
+    check(max(max(e.values()) for e in errs.values()) <= BF16_MODEL_TOL,
+          f"/api/oai/states and the plain forward disagree: {errs} "
+          f"(tolerance {BF16_MODEL_TOL})")
+    # What the installed state adds to layer 0's WKV: the update is linear
+    # in the state and layer 0's r, k, v, w, a are the token's alone, so
+    # the bf16 roundings cancel and the served and plain additions agree
+    # to f32 rounding; a state read wrong (or not at all) misses by ~1.
+    wkv = parts["wkv"]
+    out["states_delta_err"] = rel(
+        served["tuned"][0, wkv] - served["default"][0, wkv],
+        want["tuned"][0, wkv] - want["default"][0, wkv])
+    check(out["states_delta_err"] <= STATE_DELTA_TOL,
+          f"/api/oai/states: what the tuned state adds to layer 0's WKV "
+          f"misses the plain forward's by {out['states_delta_err']:.3e} "
+          f"(tolerance {STATE_DELTA_TOL})")
+
+    # (e)
+    flat = packing.pack_state(info, file_state).reshape(-1).tolist()
+    prompt = "under the tuned state: " + PROMPT
+    keyed = await greedy_text(http, base, prompt, STATE_ID)
+    inline = await greedy_text(http, base, prompt,
+                               {"data": flat, "shape": shape})
+    by_path = await greedy_text(http, base, prompt,
+                                {"path": str(state_path)})
+    check(keyed == inline == by_path,
+          f"the state by id, inline and by path answer differently: "
+          f"{keyed!r} / {inline!r} / {by_path!r}")
+    out["keyed"] = keyed
+
+    # (f)
+    zeros = {"data": [0.0] * len(flat), "shape": shape}
+    p2 = PROMPT * 2
+    seq = [await greedy_text(http, base, p2, s)
+           for s in (None, STATE_ID, None)]
+    fresh = [await greedy_text(http, base, p2, s)
+             for s in (zeros, {"data": flat, "shape": shape})]
+    check(seq[0] == seq[2] == fresh[0] and seq[1] == fresh[1],
+          f"a state crossed to another state's slot or cache: default / "
+          f"tuned / default {seq}, fresh default / tuned {fresh}")
+    # Else a crossing would go unseen: the state must steer the answer.
+    check(seq[1] != seq[0], f"the tuned state left the answer {seq[0]!r}")
+    out["installs"] = env.runtime.metrics["state_installs"]
+
+    # (g)
+    async with http.post(f"{base}/api/oai/embeddings", json={
+            "input": [text], "state": STATE_ID}) as r:
+        check(r.status == 200, f"/embeddings under a state: {r.status}")
+        emb = await r.json()
+    check(emb["pooling"] == "state" and emb["dimensions"] == 3 * C,
+          f"/embeddings under a state echoed {emb['pooling']}, "
+          f"{emb['dimensions']} dims")
+    torch.cuda.synchronize()
+    out["launches"] = {name: k.launches for name, k in counted.items()}
+    out["replays"] = fd.DecodeGraph.total_replays - replays0
+    check(all(n > 0 for n in out["launches"].values())
+          and out["replays"] > 0,
+          f"the state flow's requests launched {out['launches']}, "
+          f"{out['replays']} replays")
+
+    # (d) trouble spot 1, on an engine of its own over the served weights.
+    eng = Engine(env.model, max_batch=MAX_BATCH, token_chunk_size=CHUNK,
+                 device=dev)
+    B, row = MAX_BATCH, 3
+    p = env.tokenizer.encode(PROMPT)[:CHUNK]
+    block = np.zeros((B, CHUNK), np.int32)
+    block[:, :len(p)] = p
+    for b in range(B):
+        eng.load_row_state(b)
+    res = eng.step(block, np.full(B, len(p), np.int32), np.ones(B, np.bool_))
+    seq_t, _ = eng.decode_chunk(res.tokens, np.ones(B, np.bool_), 4)
+    last = seq_t[-1]
+    pre = {k: v.clone() for k, v in eng.state_pool.items()}
+    ones = np.ones(B, np.int32)
+    everyone = np.ones(B, np.bool_)
+    eng.load_row_state(row, file_state)
+    replays = fd.DecodeGraph.total_replays
+    with_install = eng.step(last[:, None], ones, everyone,
+                            want_logits=True).logits.cpu()
+    post = {k: v[:, row].clone() for k, v in eng.state_pool.items()}
+    post_ctrl = {k: v[:, 0].clone() for k, v in eng.state_pool.items()}
+    check(fd.DecodeGraph.total_replays == replays + 1,
+          "the step after the install was not a graph replay")
+    for k, v in eng.state_pool.items():
+        v.copy_(pre[k])
+    without = eng.step(last[:, None], ones, everyone,
+                       want_logits=True).logits.cpu()
+    others = [b for b in range(B) if b != row]
+    check(torch.equal(with_install[others], without[others]),
+          "installing a state in one row changed the other rows' logits")
+
+    def eager(installed: bool):
+        """The same step through the same kernels launched eagerly, on a
+        copy of the pre-install pool (row 3 the file's state where
+        ``installed``), after a synchronize: nothing written just before
+        the WKV kernels fetch their state."""
+        st = {k: v.clone() for k, v in pre.items()}
+        if installed:
+            for k, v in st.items():
+                v[:, row] = torch.as_tensor(file_state[k][:, 0], device=dev)
+        torch.cuda.synchronize()
+        h, _ = fd.forward_t1(params, st, torch.as_tensor(
+            last[:, None], device=dev), torch.as_tensor(ones, device=dev))
+        return head_logits(params, h[:, 0]).cpu()
+
+    ref, stale = eager(True), eager(False)
+    out["install_err"] = rel(with_install[row], ref[row])
+    out["install_ctrl"] = rel(with_install[0], ref[0])
+    out["install_stale"] = rel(with_install[row], stale[row])
+    check(max(out["install_err"], out["install_ctrl"]) <= KERNEL_TOL
+          < out["install_stale"],
+          f"the step replayed right after an install and the same kernels "
+          f"from the installed state after a synchronize disagree: "
+          f"{out['install_err']:.3e} (tolerance {KERNEL_TOL}; a row not "
+          f"installed {out['install_ctrl']:.3e}; against the state before "
+          f"the install {out['install_stale']:.3e})")
+    # The plain forward from the installed state (and, the control, from
+    # row 0's state): the state of every layer after the step, and the
+    # logits; each also against the plain forward from the row's state
+    # before the install, which a state read stale would match.
+    st_plain, lg_plain = plain_row(params, file_state, [last[row]], dev)
+    st_stale, lg_stale = plain_row(params, {k: v[:, row:row + 1]
+                                            for k, v in pre.items()},
+                                   [last[row]], dev)
+    st_ctrl, lg_ctrl = plain_row(params, {k: v[:, :1]
+                                          for k, v in pre.items()},
+                                 [last[0]], dev)
+    out["layer0_err"] = max(rel(post[k][0], st_plain[k][0, 0])
+                            for k in post)
+    for name, st_ref, got in (("state_err", st_plain, post),
+                              ("state_stale", st_stale, post),
+                              ("state_ctrl", st_ctrl, post_ctrl)):
+        out[name] = max(rel(got[k], st_ref[k][:, 0]) for k in got)
+    out["plain_logits_err"] = rel(with_install[row], lg_plain[0].cpu())
+    out["plain_logits_stale"] = rel(with_install[row], lg_stale[0].cpu())
+    out["plain_logits_ctrl"] = rel(with_install[0], lg_ctrl[0].cpu())
+    check(max(out["state_err"], out["state_ctrl"], out["plain_logits_err"],
+              out["plain_logits_ctrl"]) <= BF16_MODEL_TOL
+          < min(out["state_stale"], out["plain_logits_stale"]),
+          f"the step replayed right after the install and the plain "
+          f"forward disagree: state {out['state_err']:.3e}, logits "
+          f"{out['plain_logits_err']:.3e} (a row not installed "
+          f"{out['state_ctrl']:.3e} / {out['plain_logits_ctrl']:.3e}; "
+          f"tolerance {BF16_MODEL_TOL}; against the plain forward from the "
+          f"state before the install {out['state_stale']:.3e} / "
+          f"{out['plain_logits_stale']:.3e})")
+    times = []
+    for _ in range(INSTALL_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.load_row_state(row, file_state)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    out["install_ms"] = sorted(times)[len(times) // 2]
+    out["install_mb"] = sum(v.nbytes for v in file_state.values()) / 1e6
+    out["replay_ms"] = replay_turns({"base": base_engine, "lora": eng})
+    del eng
+    return out
+
+
+async def prefab_flow(http, base, server, tmp: Path, kind: str,
+                      st_load_s: float) -> dict:
+    """``Middleware.save`` of the served quantized model to a ``.prefab``,
+    then reloads of the server, in turns from its ``.st`` and from the
+    prefab, each from the same state (unloaded, collected): the device
+    memory the two loads allocate agrees within 1 MB, and the prefab's
+    greedy completion repeats the one taken before the save token for
+    token (launch counts zeroed before it and read after).  Returns the
+    prefab's size, the save seconds and both loads' seconds and bytes."""
+    import torch
+
+    from ai00_server_tpu_torch.ops import v7_decode as fd
+    from ai00_server_tpu_torch.ops.quant_matmul import matmul_int8
+
+    prompt = "prefab check: " + PROMPT
+    before = await greedy_text(http, base, prompt)
+    path = tmp / f"rwkv7-0.4b-{kind}.prefab"
+    t0 = time.monotonic()
+    await server.middleware.save(str(path))
+    out = {"save_s": time.monotonic() - t0, "bytes": path.stat().st_size,
+           "st_load_s": st_load_s}
+    st_req = server.middleware.env.reload
+    for which, req in (("st", st_req), ("prefab", dataclasses.replace(
+            st_req, model_path=str(path)))):
+        await server.middleware.unload()
+        gc.collect()
+        mem0 = torch.cuda.memory_allocated()
+        t0 = time.monotonic()
+        await server.middleware.reload(req)
+        out[f"{which}_reload_s"] = time.monotonic() - t0
+        out[f"{which}_memory_bytes"] = torch.cuda.memory_allocated() - mem0
+    check(abs(out["prefab_memory_bytes"] - out["st_memory_bytes"]) <= 1e6,
+          f"the {kind} prefab's load allocated {out['prefab_memory_bytes']} "
+          f"bytes, the .st load's {out['st_memory_bytes']}")
+    attr = "int8_launches" if kind == "int8" else "q4_launches"
+    counted = {"matmul_int8": (matmul_int8, "launches"),
+               f"v7_skinny_matmul ({attr})": (fd.v7_skinny_matmul, attr),
+               **{k.__name__: (k, "launches") for k in fd.KERNELS}}
+    for k, a in counted.values():
+        setattr(k, a, 0)
+    after = await greedy_text(http, base, prompt)
+    torch.cuda.synchronize()
+    out["launches"] = {n: getattr(k, a) for n, (k, a) in counted.items()}
+    check(all(n > 0 for n in out["launches"].values()),
+          f"the {kind} prefab's requests launched {out['launches']}")
+    check(after == before, f"the {kind} prefab answers {after!r}, the "
+          f"model before the save {before!r}")
+    path.unlink()
+    return out
+
+
 def replay_kernels(graph, toks, ones, n: int = 5):
     """Per replay, the sum of the device times of its kernels and the time
     the device was busy with any of them (the union of their intervals),
@@ -4160,6 +4651,17 @@ async def serve(cfg: Path, kind: str, device="cuda") -> dict:
                 t0 = time.monotonic()
                 result["bnf"] = await bnf_flow(http, base, server)
                 result["bnf"]["seconds"] = time.monotonic() - t0
+                # Reloads the server with a state and a LoRA: last.
+                t0 = time.monotonic()
+                result["state"] = await state_flow(http, base, server,
+                                                   cfg.parent, engine)
+                result["state"]["seconds"] = time.monotonic() - t0
+            if kind in ("int8", "nf4"):
+                # Reloads the server from its prefab: after its requests.
+                t0 = time.monotonic()
+                result["prefab"] = await prefab_flow(
+                    http, base, server, cfg.parent, kind, load_s)
+                result["prefab"]["seconds"] = time.monotonic() - t0
             result["stack"] = time_stack(engine) if device != "cpu" else None
             if wide and device != "cpu":
                 with engine._lock:
@@ -4334,6 +4836,63 @@ def main() -> None:
           f"token-DFA table builds in {bnf['metrics']['bnf_table_s']:.3f} "
           "s; counters "
           f"{bnf['metrics']}", flush=True)
+    st = served["bf16"]["state"]
+    print(f"state flow on the bf16 server ({card}; {st['seconds']:.1f} s): "
+          f"reload with {LASTING_ST}, a [[state]] and a rank-{LORA_RANK} "
+          f"[[lora]] over "
+          f"{len(LORA_KEYS)} matrices of each of {L_FULL} layers in "
+          f"{st['load_s']:.2f} s; (a) a blended weight on the card equals "
+          f"the host blend cast to bf16 (the blend moved it by up to "
+          f"{st['blend_changed']:.3e}); (b) /api/models/info lists the "
+          f"state; (c) /api/oai/states {[L_FULL, HEAD + 2, C, 1]} in "
+          f"{st['states_s_tuned']:.3f} s under the state, "
+          f"{st['states_s_default']:.3f} s without; max |served - plain "
+          f"forward| / max |plain| per part from the file "
+          f"{ {k: f'{v:.3e}' for k, v in st['states_err']['tuned'].items()} }"
+          f", from the model's own state (control) "
+          f"{ {k: f'{v:.3e}' for k, v in st['states_err']['default'].items()} }"
+          f" (tolerance {BF16_MODEL_TOL}); what the state adds to "
+          f"layer 0's WKV against the plain forward's "
+          f"{st['states_delta_err']:.3e} (tolerance {STATE_DELTA_TOL}); "
+          f"(d) a state of "
+          f"{st['install_mb']:.2f} MB installed from the host in "
+          f"{st['install_ms']:.3f} ms (median of {INSTALL_REPS}); the "
+          f"first logits of the step replayed right after it against the "
+          f"same kernels launched eagerly from the state after a "
+          f"synchronize {st['install_err']:.3e} (a row not installed "
+          f"{st['install_ctrl']:.3e}; from the state before the install "
+          f"{st['install_stale']:.3e}; tolerance {KERNEL_TOL}); against "
+          f"the plain forward from the installed state, the state of every "
+          f"layer after it {st['state_err']:.3e} (layer 0 "
+          f"{st['layer0_err']:.3e}) and the logits "
+          f"{st['plain_logits_err']:.3e} (a row not installed "
+          f"{st['state_ctrl']:.3e} / {st['plain_logits_ctrl']:.3e}; from "
+          f"the state before the install {st['state_stale']:.3e} / "
+          f"{st['plain_logits_stale']:.3e}; tolerance {BF16_MODEL_TOL}); "
+          f"the other rows "
+          f"bit-identical to the same step without the install; (e) the "
+          f"state by id, inline and by path: one greedy answer "
+          f"{st['keyed'][:40]!r}; (f) default / tuned / default each equal "
+          f"to a fresh slot's answer, tuned unlike default "
+          f"({st['installs']} state installs); (g) "
+          f"/embeddings echoes pooling 'state'; launches {st['launches']}, "
+          f"{st['replays']} graph replays; the decode replay "
+          f"{st['replay_ms']['lora']:.5f} ms with the LoRA and a custom "
+          f"state against {st['replay_ms']['base']:.5f} ms without (median "
+          "of 3, in turns)", flush=True)
+    for kind in ("int8", "nf4"):
+        pf = served[kind]["prefab"]
+        print(f"prefab flow on the {kind} server ({card}; "
+              f"{pf['seconds']:.1f} s): Middleware.save wrote "
+              f"{pf['bytes'] / 1e6:.1f} MB in {pf['save_s']:.2f} s; "
+              f"reloaded in turns from the .st in {pf['st_reload_s']:.2f} s "
+              f"(quantizing included; {pf['st_load_s']:.2f} s at the first "
+              f"load) and from the prefab in {pf['prefab_reload_s']:.2f} s; "
+              f"device memory {pf['st_memory_bytes'] / 1e6:.3f} / "
+              f"{pf['prefab_memory_bytes'] / 1e6:.3f} MB (the first load "
+              f"{served[kind]['memory_bytes'] / 1e6:.3f} MB); the prefab's "
+              f"{STATE_TOKENS}-token greedy answer repeats the one before "
+              f"the save; launches {pf['launches']}", flush=True)
     rows["matmul_4bit"]["launches"] = parity["matmul_4bit_launches"]
     check(parity["matmul_4bit_launches"] > 0,
           "no model path launched matmul_4bit")

@@ -23,6 +23,7 @@ from ai00_server_tpu_torch.server.app import Server
 from ai00_server_tpu_torch.server.config import Config
 
 from test_loader import to_converted_layout
+from test_torch_states_runtime import lasting
 
 GREEDY = {"type": "Nucleus", "top_k": 1}
 
@@ -189,7 +190,8 @@ def test_later_slices_answer_501(site):
     async def main():
         client, server = await make_client(site, device="cpu")
         try:
-            r = await client.post("/api/oai/states", json={"input": "A"})
+            r = await client.post("/admin/models/save",
+                                  json={"path": "x.prefab"})
             assert r.status == 501
             assert "ROADMAP" in (await r.json())["error"]
             r = await client.get("/admin/models/unload")
@@ -671,3 +673,257 @@ def test_v5_v4_quantized_completion(v54_site, quant, quant_type):
             await server.middleware.unload()
 
     asyncio.run(main())
+
+
+# ---------------------------------------------------------------------------
+# Initial states over HTTP: /states and the ``state`` field
+# ---------------------------------------------------------------------------
+
+SID = "fd7a60ed-7807-449f-8256-bccae3246222"
+NIL = "00000000-0000-0000-0000-000000000000"
+STATE_PROMPT = "ABCABCABCABCABCABCABCABCABCABCABCABCAB"  # 38 tokens
+
+
+@pytest.fixture(scope="module")
+def state_site(tmp_path_factory):
+    """A tiny f32 v7, a state-tuning ``tuned.state`` beside it, the
+    vocabulary, and two configs registering the file under ``SID``: as a
+    plain entry (``Config.toml``) and as the default (``Default.toml``)."""
+    from ai00_server_tpu.testing import make_raw_weights, tiny_info
+
+    root = tmp_path_factory.mktemp("statesite")
+    models = root / "models"
+    models.mkdir()
+    info = tiny_info(ModelVersion.V7, num_vocab=64)
+    # An initial state outlasts the 38-token prompt under these weights.
+    raw = lasting(make_raw_weights(info, seed=45, dtype=np.float32))
+    jloader.save_safetensors(to_converted_layout(raw),
+                             str(models / "tiny.st"), dtype=np.float32)
+    H, N = info.num_head, info.head_size
+    ts = np.random.default_rng(7).standard_normal(
+        (info.num_layer, H, N, N)).astype(np.float32) * 0.3
+    jloader.save_safetensors(
+        {f"blocks.{i}.att.time_state": np.swapaxes(ts[i], -1, -2)
+         for i in range(info.num_layer)}, str(models / "tuned.state"),
+        dtype=np.float32)
+    vocab = {str(i): chr(64 + i) for i in range(1, 60)}
+    (root / "vocab.json").write_text(json.dumps(vocab))
+    for name, default in (("Config.toml", "false"),
+                          ("Default.toml", "true")):
+        (root / name).write_text(f"""
+[model]
+name = "tiny.st"
+path = "{models}"
+max_batch = 2
+token_chunk_size = 8
+precision = "Fp32"
+
+[[state]]
+path = "{models / 'tuned.state'}"
+name = "tuned"
+id = "{SID}"
+default = {default}
+
+[tokenizer]
+path = "{root / 'vocab.json'}"
+""")
+    return root
+
+
+def on_state_site(root, script, jax_side=False, toml="Config.toml"):
+    async def main():
+        config_cls, server_cls = (JConfig, JServer) if jax_side else (
+            Config, Server)
+        config = config_cls.from_toml(str(root / toml))
+        server = (server_cls(config) if jax_side
+                  else server_cls(config, device="cpu"))
+        await server.middleware.reload(
+            config.to_reload_request(sandbox=False))
+        client = TestClient(TestServer(server.app))
+        await client.start_server()
+        try:
+            return await script(client, server)
+        finally:
+            await client.close()
+            await server.middleware.unload()
+
+    return asyncio.run(main())
+
+
+async def _text(client, state=None, prompt=STATE_PROMPT, status=200):
+    body = {"prompt": prompt, "max_tokens": 6, "sampler": GREEDY}
+    if state is not None:
+        body["state"] = state
+    r = await client.post("/api/oai/completions", json=body)
+    assert r.status == status, await r.text()
+    if status != 200:
+        return await r.text()
+    return (await r.json())["choices"][0]["text"]
+
+
+@pytest.mark.parametrize("path", ["/api/oai/states", "/api/oai/v1/states"])
+def test_states_route_equals_jax(state_site, path):
+    """/states returns the packed state after the input from the named
+    initial state: its shape, and data equal to the JAX server's (2e-4 of
+    scale); the info lists the registered state."""
+    async def script(client, server):
+        r = await client.get("/api/models/info")
+        listed = (await r.json())["states"]
+        out = []
+        for state in (SID, None):
+            body = {"input": "ABCAB"}
+            if state:
+                body["state"] = state
+            r = await client.post(path, json=body)
+            assert r.status == 200, await r.text()
+            d = (await r.json())["data"][0]
+            out.append((d["shape"], np.asarray(d["data"], np.float64)))
+        return listed, out
+
+    listed, port = on_state_site(state_site, script)
+    jlisted, ref = on_state_site(state_site, script, jax_side=True)
+    assert listed == jlisted == [{"name": "tuned", "id": SID,
+                                  "default": False}]
+    for (shape, data), (jshape, jdata) in zip(port, ref):
+        assert shape == jshape == [3, 18, 32, 1]
+        scale = float(np.abs(jdata).max())
+        assert float(np.abs(data - jdata).max()) <= 2e-4 * scale
+    assert not np.allclose(port[0][1], port[1][1])
+
+
+@pytest.mark.parametrize("route", ["completions", "chat", "chooses",
+                                   "embeddings"])
+def test_state_field_equals_jax(state_site, route):
+    """The ``state`` field (a registered id) on each route gives the JAX
+    server's answer, and another answer than the model's own state."""
+    async def script(client, server):
+        out = []
+        for state in (SID, None):
+            extra = {"state": state} if state else {}
+            if route == "completions":
+                out.append(await _text(client, state))
+                continue
+            if route == "chat":
+                r = await client.post("/api/oai/chat/completions", json={
+                    "messages": [{"role": "user", "content": STATE_PROMPT}],
+                    "max_tokens": 6, "sampler": GREEDY, **extra})
+                out.append((await r.json())["choices"][0]["message"][
+                    "content"])
+                continue
+            if route == "chooses":
+                r = await client.post("/api/oai/chooses", json={
+                    "input": STATE_PROMPT, "choices": ["AB", "CAB", "Q"],
+                    **extra})
+                out.append({d["choice"]: d["perplexity"]
+                            for d in (await r.json())["data"]})
+                continue
+            r = await client.post("/api/oai/embeddings", json={
+                "input": [STATE_PROMPT, "QRS"], **extra})
+            body = await r.json()
+            out.append((body["pooling"],
+                        [d["embedding"] for d in body["data"]]))
+        return out
+
+    port = on_state_site(state_site, script)
+    ref = on_state_site(state_site, script, jax_side=True)
+    if route in ("completions", "chat"):
+        assert port == ref and port[0] != port[1] and all(port)
+    elif route == "chooses":
+        for got, want in zip(port, ref):
+            for k in want:
+                assert abs(got[k] - want[k]) <= 2e-4 * abs(want[k])
+        assert port[0] != port[1]
+    else:
+        assert [p for p, _ in port] == [p for p, _ in ref] == [
+            "state", "mean_hidden"]
+        for (_, got), (_, want) in zip(port, ref):
+            np.testing.assert_allclose(got, want, atol=2e-4, rtol=0)
+
+
+def test_state_forms_agree(state_site):
+    """A key, a value ``{data, shape}`` with and without an id, and a file
+    ``{path}`` under the model directory give the same tokens; a value
+    without an id registers nothing (the JAX server registers it under a
+    fresh uuid4 on every request)."""
+    async def script(client, server):
+        r = await client.post("/api/oai/states", json={"input": ""})
+        body = (await r.json())["data"][0]
+        rt = server.middleware.env.runtime
+        keyed = await _text(client, SID)
+        value = {"data": body["data"], "shape": body["shape"]}
+        states, caches = dict(rt.states), set(rt.caches)
+        anonymous = [await _text(client, value) for _ in range(2)]
+        assert rt.states == states and set(rt.caches) == caches
+        named = await _text(client, {"id": "11111111-2222-3333-4444-"
+                                           "555555555555", **value})
+        by_path = await _text(client, {"id": "22222222-2222-3333-4444-"
+                                             "555555555555",
+                                       "path": "tuned.state"})
+        return keyed, anonymous, named, by_path
+
+    keyed, anonymous, named, by_path = on_state_site(state_site, script)
+    # The empty input's state is the initial state (an empty prompt feeds
+    # the end-of-text token, whose step leaves shifts in the packed state:
+    # the tokens after it may differ from the key's); the file is the key.
+    assert anonymous == [named] * 2
+    assert by_path == keyed
+
+
+def test_nil_uuid_means_the_models_own_state(state_site):
+    """Divergence: with a default state configured, the JAX server maps
+    the nil UUID string to that default while ``{"id": nil}`` reaches the
+    model's own state.  The port gives both forms the documented meaning,
+    the model's own initial state (the answer of a config without the
+    default), and a request without a state gets the default."""
+    async def script(client, server):
+        return [await _text(client, s) for s in (None, NIL, {"id": NIL},
+                                                 SID)]
+
+    default, nil, nil_obj, keyed = on_state_site(state_site, script,
+                                                 toml="Default.toml")
+
+    async def plain(client, server):
+        return await _text(client)
+
+    own = on_state_site(state_site, plain)
+    assert default == keyed != own
+    assert nil == nil_obj == own
+
+
+def test_state_refusals(state_site):
+    """A file outside the model directory answers 403, an unknown id and a
+    value of the wrong shape 400."""
+    async def script(client, server):
+        out = [await _text(client, {"path": str(state_site / "vocab.json")},
+                           status=403)]
+        out.append(await _text(client, "no-such-id", status=400))
+        out.append(await _text(client, {"data": [0.0] * 7, "shape":
+                                        [3, 18, 32, 1]}, status=400))
+        return out
+
+    forbidden, unknown, shape = on_state_site(state_site, script)
+    assert "not in permitted dirs" in forbidden
+    assert "unknown state id 'no-such-id'" in unknown
+    assert "holds 7 numbers" in shape
+
+
+def test_default_state_and_embeddings_equal_jax(state_site):
+    """With a default state configured: a completion without a state
+    starts from it, and a mean-hidden embedding that names no state from
+    the model's own state (as the JAX runtime's), equal to the JAX
+    server's answers."""
+    async def script(client, server):
+        text = await _text(client)
+        r = await client.post("/api/oai/embeddings", json={
+            "input": [STATE_PROMPT]})
+        body = await r.json()
+        return text, body["pooling"], body["data"][0]["embedding"]
+
+    port = on_state_site(state_site, script, toml="Default.toml")
+    ref = on_state_site(state_site, script, jax_side=True,
+                        toml="Default.toml")
+    plain = on_state_site(state_site, script)
+    assert port[:2] == ref[:2] and port[1] == "mean_hidden"
+    np.testing.assert_allclose(port[2], ref[2], atol=2e-4, rtol=0)
+    np.testing.assert_allclose(port[2], plain[2], atol=2e-4, rtol=0)
+    assert port[0] != plain[0]

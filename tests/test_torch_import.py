@@ -28,6 +28,7 @@ MODULES = [
     "ai00_server_tpu_torch.models",
     "ai00_server_tpu_torch.models.common",
     "ai00_server_tpu_torch.models.info",
+    "ai00_server_tpu_torch.models.packing",
     "ai00_server_tpu_torch.models.v4",
     "ai00_server_tpu_torch.models.v5",
     "ai00_server_tpu_torch.models.v6",
@@ -47,6 +48,7 @@ MODULES = [
     "ai00_server_tpu_torch.ops.wkv4",
     "ai00_server_tpu_torch.ops.wkv_chunk",
     "ai00_server_tpu_torch.ops.wkv_t1",
+    "ai00_server_tpu_torch.prefab",
     "ai00_server_tpu_torch.retrieval_store",
     "ai00_server_tpu_torch.runtime",
     "ai00_server_tpu_torch.server",

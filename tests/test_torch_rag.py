@@ -4,8 +4,8 @@ the same tiny f32 RWKV-7 checkpoint.
 
 Embedding vectors agree to 2e-4 (unit vectors; f32 sums in another order,
 the engines' tolerance), perplexities to 2e-4 of their scale with the same
-ranking, retrieval hits and RAG chat text (greedy) are equal.  What later
-slices bring still answers 501 naming its ROADMAP item.
+ranking, retrieval hits and RAG chat text (greedy) are equal.  /states
+and the ``state`` field, once 501s, are served.
 """
 
 import asyncio
@@ -254,28 +254,38 @@ def test_rag_chat_equal_jax_server(site):
         "message"]["content"]
 
 
-STILL_501 = {
-    "states": ("/api/oai/states", {"input": "A"}),
-    "v1-states": ("/api/oai/v1/states", {"input": "A"}),
+# The routes and fields that answered 501 before the port served initial
+# states: (path, body, status).  An unknown state id answers 400.
+STATE_CASES = {
+    "states": ("/api/oai/states", {"input": "A"}, 200),
+    "v1-states": ("/api/oai/v1/states", {"input": "A"}, 200),
     "embeddings-state": ("/api/oai/embeddings",
-                         {"input": "A", "state": "x", "pooling": "state"}),
+                         {"input": "A", "state": "x", "pooling": "state"},
+                         400),
     "chooses-state": ("/api/oai/chooses",
-                      {"input": "A", "choices": ["B"], "state": "x"}),
+                      {"input": "A", "choices": ["B"], "state": "x"}, 400),
     "chat-state": ("/api/oai/chat/completions",
                    {"messages": [{"role": "user", "content": "A"}],
-                    "state": "x"}),
+                    "state": "x"}, 400),
 }
 
 
-@pytest.mark.parametrize("case", sorted(STILL_501))
+@pytest.mark.parametrize("case", sorted(STATE_CASES))
 def test_states_and_custom_states_answer_501(site, case):
-    path, body = STILL_501[case]
+    """Once 501s; now served: /states returns the packed state after the
+    input (shape [L, N + 2, C, 1]), and a ``state`` field naming no
+    registered state answers 400 naming the id."""
+    path, body, status = STATE_CASES[case]
 
     async def script(client):
-        return await post(client, path, 501, **body)
+        return await post(client, path, status, **body)
 
     out = on_port(site, script)
-    assert ".state files, LoRA and prefab" in out["error"]
+    if status == 200:
+        assert out["data"][0]["shape"] == [3, 18, 32, 1]
+        assert len(out["data"][0]["data"]) == 3 * 18 * 32
+    else:
+        assert "unknown state id 'x'" in out["error"]
 
 
 def test_embed_sidecar_copy_equals_jax():
