@@ -477,16 +477,32 @@ class Runtime:
         # (hsum_serial, (B, C) numpy): the coalesced embed readout, only
         # touched from the engine's worker thread.
         self._hsum_snap = None
-        # Scheduler counters, touched on the loop only: device steps
-        # (merged steps and consumed chunks), chunk launches and chained
-        # successors, row rollbacks; the BNF rows' accepted replay tokens,
-        # short chunks (acc <= 2), per-token fallbacks and returns to
-        # chunks, the requests that took the device DFA or the Earley
-        # replay, and the token-DFA table builds and their seconds (a
-        # table is built once in flight a grammar, and cached).
+        # Scheduler counters, touched on the loop only (``/api/metrics``
+        # prints each as ``ai00_runtime_<name>``), under the JAX runtime's
+        # names where it counts the same event:
+        # - requests installed in a slot and finished (every stream's
+        #   stop), installs that reused a cached or resident prefix;
+        # - device steps (merged steps and consumed chunks) and their
+        #   seconds: a merged step's wall, a chunk's blocking download;
+        #   merged steps apart, the chunk downloads' wait, the seconds
+        #   spent launching chunks;
+        # - tokens fed by merged steps (prefill chunks and per-token decode
+        #   rows alike, as the JAX counter) and the tokens of consumed
+        #   chunks' live rows; chunk rows whose request was gone at the
+        #   consume;
+        # - chunk launches and chained successors, row rollbacks; the BNF
+        #   rows' accepted replay tokens, short chunks (acc <= 2),
+        #   per-token fallbacks and returns to chunks, the requests that
+        #   took the device DFA or the Earley replay, and the token-DFA
+        #   table builds and their seconds (a table is built once in
+        #   flight a grammar, and cached); rows loaded from a custom state.
         self.metrics = {
-            "steps": 0, "chunk_launches": 0, "chunk_successors": 0,
-            "rollbacks": 0, "bnf_accepted": 0, "bnf_short_chunks": 0,
+            "steps": 0, "prefill_tokens": 0, "decode_tokens": 0,
+            "requests_started": 0, "requests_finished": 0, "cache_hits": 0,
+            "step_seconds": 0.0, "chunk_launches": 0, "chunk_successors": 0,
+            "chunk_wait_s": 0.0, "launch_s": 0.0, "merged_steps": 0,
+            "merged_step_s": 0.0, "rollbacks": 0, "spec_dead_rows": 0,
+            "bnf_accepted": 0, "bnf_short_chunks": 0,
             "bnf_fallbacks": 0, "bnf_rehabs": 0, "bnf_dfa_requests": 0,
             "bnf_replay_requests": 0, "bnf_table_builds": 0,
             "bnf_table_s": 0.0, "state_installs": 0,
@@ -598,6 +614,10 @@ class Runtime:
         if c is None:
             c = self.caches[state_id] = StateCache()
         return c
+
+    def busy_count(self) -> int:
+        """Slots holding a request (prefill or decode)."""
+        return sum(1 for s in self.slots if s.phase != _SlotPhase.IDLE)
 
     def register_state(self, state_id: str, state) -> None:
         """Register a host batch-1 initial state under ``state_id``."""
@@ -739,10 +759,17 @@ class Runtime:
             await asyncio.gather(*[self._refresh_bnf_mask(loop, s)
                                    for s in bnf_rows])
 
+        t0 = time.monotonic()
         result = await loop.run_in_executor(
             self._device_pool, self.engine.step, tokens, lengths,
             sample_mask, bool(completing))
-        self.metrics["steps"] += 1
+        dt = time.monotonic() - t0
+        m = self.metrics
+        m["steps"] += 1
+        m["step_seconds"] += dt
+        m["merged_steps"] += 1
+        m["merged_step_s"] += dt
+        m["prefill_tokens"] += int(lengths.sum())
 
         for s in completing:
             if result.logits is not None:
@@ -896,10 +923,12 @@ class Runtime:
                     hmask[s.index] = True
                     hvals[s.index] = s.ctx.all_tokens[-1]
                 host_first = (hmask, hvals)
+        t0 = time.monotonic()
         toks_seq, _sp = await loop.run_in_executor(
             self._device_pool, lambda: self.engine.decode_chunk(
                 first, mask, K, sync=False, host_first=host_first,
                 budget=budget))
+        self.metrics["launch_s"] += time.monotonic() - t0
         self.metrics["chunk_launches"] += 1
         if first_device is not None:
             self.metrics["chunk_successors"] += 1
@@ -961,9 +990,17 @@ class Runtime:
                           if b not in dead})
             # Record it NOW so a crash mid-processing rolls it back.
             self._spec = newspec
+        t0 = time.monotonic()
         toks_seq = await loop.run_in_executor(
             self._device_pool, to_host, spec["toks"])
-        self.metrics["steps"] += 1
+        dt = time.monotonic() - t0  # the blocking time only
+        m = self.metrics
+        m["steps"] += 1
+        m["step_seconds"] += dt
+        m["chunk_wait_s"] += dt
+        m["decode_tokens"] += sum(k for b, k in spec["budgets"].items()
+                                  if b not in dead)
+        m["spec_dead_rows"] += len(spec["entries"]) - len(live)
 
         # The BNF replay, off the loop and in parallel over rows: advance
         # each grammar through its sampled tokens; the accepted prefix is
@@ -1266,6 +1303,9 @@ class Runtime:
 
         slot.ctx = ctx
         slot.resident_state_id = ctx.state_id
+        self.metrics["requests_started"] += 1
+        if reused:
+            self.metrics["cache_hits"] += 1
         await ctx.handle.queue.put(("start",))
 
         if exact_item is not None:
@@ -1495,6 +1535,7 @@ class Runtime:
         if ctx.bnf_future is not None:
             await ctx.bnf_future  # read it: nothing else will
             ctx.bnf_future = None
+        self.metrics["requests_finished"] += 1
         await ctx.handle.queue.put(("stop", reason, ctx.counter))
         await ctx.handle.queue.put(("done",))
         # Idle rows' kind/top_k return to the defaults so a finished

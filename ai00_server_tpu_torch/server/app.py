@@ -1,6 +1,6 @@
-"""aiohttp application: the OpenAI-compatible completion surface.
+"""aiohttp application: the whole HTTP API.
 
-Port of ``ai00_server_tpu/server/app.py`` for this slice:
+Port of ``ai00_server_tpu/server/app.py``, with the same route table:
 
   POST /api/oai/[v1/]chat/completions   chat, stream + non-stream, with
                                         retrieval-augmented context
@@ -14,14 +14,24 @@ Port of ``ai00_server_tpu/server/app.py`` for this slice:
   GET  /api/oai/[v1/]models             current model id
   GET  /api/adapters                    device list (torch.cuda)
   GET  /api/models/info                 RuntimeInfo
+  GET  /api/models/state                RuntimeInfo as an SSE stream
+  GET  /api/models/list                 model files, size and sampled sha
+  GET  /api/metrics                     the scheduler's counters
+  POST /api/auth/exchange               app key -> JWT
+  POST /admin/models/load|save, GET /admin/models/unload         (JWT)
+  POST /admin/files/unzip|dir|ls|config/load|config/save         (JWT)
+  POST /admin/profile/start|stop        torch.profiler trace     (JWT)
+  GET  /api-docs/openapi.json, /api-docs[/]                      OpenAPI
+  GET  /                                the WebUI
 
 Completions and chat take ``bnf_schema`` (a KBNF grammar the output
 follows).  Completions, chat, chooses, embeddings and states take
 ``state``, the initial state: a key (a state id string: a ``[[state]]``
 entry's, the nil UUID for the model's own state), a value (``{id, data,
 shape}``, the packed layout) or a file (``{id, path}``, under the model
-directory).  Every other route of the JAX server answers 501 with the
-ROADMAP item that brings it.
+directory).  A path a route may not touch answers 403: the model, LoRA,
+state and prefab paths of the admin routes under the model directory, the
+file routes' under ``files.PERMITTED``.
 """
 
 from __future__ import annotations
@@ -31,18 +41,24 @@ import functools
 import json
 import os
 import re
+import tempfile
 
 import numpy as np
 import torch
 from aiohttp import web
 
-from ..middleware import MAX_TOKENS, Middleware
+from ..middleware import (DEFAULT_TOKENIZER, MAX_TOKENS, Middleware,
+                          ReloadRequest)
 from ..models import packing
 from ..ops import sampling
 from ..retrieval_store import RetrievalStore
 from ..runtime import (FinishReason, GenerateKind, GenerateRequest,
                        SamplerSpec)
-from .config import Config, PathNotPermitted, check_path_permitted
+from . import auth as auth_mod
+from . import files as files_mod
+from .config import Config, PathNotPermitted, check_path_permitted, dump_toml
+from .openapi import SWAGGER_HTML, build_spec
+from .webui import WEBUI_HTML
 
 _WS_RE = re.compile(r"\n(\s*\n)+")
 
@@ -51,25 +67,11 @@ ROLE_NAMES = {
     "observation": "Observation", "tool": "Observation",
 }
 
-# Routes of the JAX server that later slices bring: (method, path) ->
-# ROADMAP item.  /admin/models/save and /admin/models/load will call
-# Middleware.save and Middleware.reload behind the admin auth.
-LATER_ROUTES = {
-    ("GET", "/api/models/state"): "admin, profile and file routes",
-    ("GET", "/api/models/list"): "admin, profile and file routes",
-    ("GET", "/api/metrics"): "admin, profile and file routes",
-    ("POST", "/api/auth/exchange"): "admin, profile and file routes",
-    ("GET", "/admin/models/unload"): "admin, profile and file routes",
-    **{("POST", p): "admin, profile and file routes" for p in (
-        "/admin/models/load", "/admin/models/save", "/admin/files/unzip",
-        "/admin/files/dir", "/admin/files/ls", "/admin/files/config/load",
-        "/admin/files/config/save", "/admin/profile/start",
-        "/admin/profile/stop")},
-    ("GET", "/api-docs/openapi.json"): "admin, profile and file routes",
-    ("GET", "/api-docs"): "admin, profile and file routes",
-    ("GET", "/api-docs/"): "admin, profile and file routes",
-    ("GET", "/"): "admin, profile and file routes",
-}
+# /admin/profile/stop writes the trace to <dir>/PROFILE_TRACE; the default
+# dir is PROFILE_DIR under the temporary directory.
+PROFILE_DIR = "ai00_profile"
+PROFILE_TRACE = "trace.json"
+
 
 def _array(value) -> list:
     """Reference Array<T>: none | item | vec."""
@@ -80,10 +82,27 @@ def _array(value) -> list:
     return [value]
 
 
-def _not_in_slice(what: str, item: str) -> web.Response:
-    return web.json_response(
-        {"error": f"{what} is not served by the PyTorch port yet "
-                  f"(ROADMAP: {item})"}, status=501)
+def _permit(path: str, roots: list[str]) -> None:
+    """``check_path_permitted``, a refusal answered 403."""
+    try:
+        check_path_permitted(path, roots)
+    except PathNotPermitted as e:
+        raise web.HTTPForbidden(text=str(e)) from e
+
+
+def _profiler(activities):
+    """A ``torch.profiler.profile`` over ``activities`` that records the
+    host ops of every thread where this PyTorch offers that
+    (``profile_all_threads``), else of the thread that starts it only."""
+    from torch.profiler import profile
+
+    try:
+        from torch._C._profiler import _ExperimentalConfig
+
+        config = _ExperimentalConfig(profile_all_threads=True)
+    except (ImportError, TypeError):
+        return profile(activities=activities)
+    return profile(activities=activities, experimental_config=config)
 
 
 def _sampler_from_json(obj: dict | None, top_p=0.5, top_k=128,
@@ -174,6 +193,9 @@ class Server:
         self.app = web.Application(client_max_size=1 << 30,
                                    middlewares=[cors_middleware,
                                                 bad_request_middleware])
+        self.web_root = None  # the extracted [web] zip (main.py)
+        self._openapi_cache = None  # built from the route table on demand
+        self._profile = None  # (profile, dir, steps at its start)
         self._routes()
 
     async def _env(self):
@@ -212,14 +234,73 @@ class Server:
             r.add_get(p, self.oai_models)
         r.add_get("/api/adapters", self.adapters)
         r.add_get("/api/models/info", self.models_info)
-        for (method, path), item in LATER_ROUTES.items():
-            r.add_route(method, path, self._later(path, item))
+        r.add_get("/api/models/state", self.models_state_sse)
+        r.add_get("/api/models/list", self.models_list)
+        r.add_post("/api/auth/exchange", self.auth_exchange)
+        r.add_post("/admin/models/load", self._admin(self.admin_load))
+        r.add_get("/admin/models/unload", self._admin(self.admin_unload))
+        r.add_post("/admin/models/save", self._admin(self.admin_save))
+        r.add_post("/admin/files/unzip", self._admin(self.admin_unzip))
+        r.add_post("/admin/files/dir", self._admin(self.admin_dir))
+        r.add_post("/admin/files/ls", self._admin(self.admin_dir))
+        r.add_post("/admin/files/config/load",
+                   self._admin(self.admin_config_load))
+        r.add_post("/admin/files/config/save",
+                   self._admin(self.admin_config_save))
+        r.add_get("/api/metrics", self.metrics)
+        r.add_post("/admin/profile/start", self._admin(self.profile_start))
+        r.add_post("/admin/profile/stop", self._admin(self.profile_stop))
+        r.add_get("/api-docs/openapi.json", self.openapi_json)
+        r.add_get("/api-docs", self.swagger)
+        r.add_get("/api-docs/", self.swagger)
+        r.add_get("/", self.webui)
 
-    @staticmethod
-    def _later(path: str, item: str):
-        async def handler(request: web.Request):
-            return _not_in_slice(path, item)
-        return handler
+    # -- auth ------------------------------------------------------------------
+
+    def _admin(self, handler):
+        """``handler`` behind the JWT (the ``Authorization: Bearer`` header
+        or ``?admin_token=``), signed with ``listen.slot``; 401 without a
+        valid one, unless ``listen.force_pass``."""
+        @functools.wraps(handler)  # the docstring feeds the OpenAPI spec
+        async def wrapped(request: web.Request):
+            listen = self.config.listen
+            if not listen.force_pass:
+                h = request.headers.get("Authorization", "")
+                token = (h[7:] if h.startswith("Bearer ") else None) \
+                    or request.query.get("admin_token")
+                if not (token and auth_mod.decode_jwt(token, listen.slot)):
+                    raise web.HTTPUnauthorized(text="invalid admin token")
+            return await handler(request)
+        return wrapped
+
+    async def auth_exchange(self, request: web.Request):
+        """Exchange an app key for a JWT."""
+        body = await request.json()
+        app_id = body.get("app_id", "")
+        app_secret = body.get("app_secret", "")
+        listen = self.config.listen
+        for key in listen.app_keys:
+            if key.app_id == app_id and key.secret_key == app_secret:
+                token = auth_mod.make_token(app_id, listen.slot,
+                                            listen.expire_sec)
+                return web.json_response(
+                    {"token": token, "code": 200, "message": "SUCCESS"})
+        return web.json_response(
+            {"token": None, "code": 403,
+             "message": "NO-Match AppId and SecretKey"}, status=403)
+
+    def _model_file(self, path: str) -> str:
+        """``path`` as given where it lies under the model directory, else
+        the name joined to it; 403 where that does not lie under it
+        either."""
+        model_dir = self.config.model.get("path", "assets/models")
+        try:
+            check_path_permitted(path, [model_dir])
+            return path
+        except PathNotPermitted:
+            candidate = os.path.join(model_dir, path)
+        _permit(candidate, [model_dir])
+        return candidate
 
     async def _resolve_state(self, env, field) -> dict:
         """The request's ``state`` field -> ``GenerateRequest`` keywords.
@@ -263,10 +344,7 @@ class Server:
             path = field["path"]
             if not os.path.isabs(path):
                 path = os.path.join(model_dir, path)
-            try:
-                check_path_permitted(path, [model_dir])
-            except PathNotPermitted as e:
-                raise web.HTTPForbidden(text=str(e)) from e
+            _permit(path, [model_dir])
             state = await asyncio.get_event_loop().run_in_executor(
                 None, packing.load_state_file, info, path)
         else:
@@ -670,6 +748,225 @@ class Server:
         if info is None:
             return web.json_response({"state": "none"})
         return web.json_response({"state": "loaded", **info})
+
+    async def models_state_sse(self, request: web.Request):
+        """RuntimeInfo as an SSE stream: the ``/api/models/info`` body once
+        a second until the client leaves."""
+        resp = web.StreamResponse(headers={
+            "Content-Type": "text/event-stream",
+            "Cache-Control": "no-cache",
+        })
+        await resp.prepare(request)
+        try:
+            while True:
+                info = self.middleware.info()
+                payload = json.dumps(
+                    {"state": "loaded", **info} if info else {"state": "none"})
+                await resp.write(f"data: {payload}\n\n".encode())
+                await asyncio.sleep(1.0)
+        except (ConnectionResetError, asyncio.CancelledError, OSError):
+            pass
+        return resp
+
+    async def metrics(self, request: web.Request):
+        """Prometheus text metrics: whether a model is loaded, the
+        scheduler's counters (``ai00_runtime_<name>``, ``Runtime.metrics``),
+        busy and total slots, and the mean seconds a device step."""
+        lines = []
+        env = self.middleware.env
+        lines.append(f"ai00_model_loaded {int(env is not None)}")
+        if env is not None:
+            m = env.runtime.metrics
+            for k, v in m.items():
+                lines.append(f"ai00_runtime_{k} {v}")
+            lines.append(f"ai00_slots_busy {env.runtime.busy_count()}")
+            lines.append(f"ai00_slots_total {env.runtime.max_batch}")
+            steps = max(m["steps"], 1)
+            lines.append(
+                f"ai00_step_seconds_avg {m['step_seconds'] / steps:.6f}")
+        return web.Response(text="\n".join(lines) + "\n",
+                            content_type="text/plain")
+
+    async def profile_start(self, request: web.Request):
+        """Start a torch.profiler trace (admin).  Body: ``{dir}``, where
+        ``/admin/profile/stop`` writes the trace (default
+        ``ai00_profile`` under the temporary directory, ``/tmp`` unless
+        ``TMPDIR`` says otherwise).
+
+        The profile records the host's PyTorch ops and, on a CUDA server,
+        the device's activity through CUPTI: every kernel of the process,
+        the kernels of CUDA graph replays included, whichever thread
+        launched them.  The engine's work runs on the runtime's worker
+        thread: its host ops are recorded where this PyTorch can profile
+        every thread (``profile_all_threads``; PyTorch 2.11 on an H100
+        put 99.8% of a traced completion's host ops there), else only the
+        event loop's thread's (which launches no device work).  A CUDA server whose
+        PyTorch cannot record CUDA activity answers 501 and starts
+        nothing; a trace already running answers 409 and is left as it
+        is."""
+        from torch.profiler import ProfilerActivity, supported_activities
+
+        body = await request.json() if request.can_read_body else {}
+        trace_dir = str(body.get("dir") or os.path.join(
+            tempfile.gettempdir(), PROFILE_DIR))
+        request["parsed"] = True
+        if self._profile is not None:
+            return web.json_response(
+                {"error": "a trace is already running", "dir":
+                 self._profile[1]}, status=409)
+        activities = [ProfilerActivity.CPU]
+        if self.middleware.device.type == "cuda":
+            if ProfilerActivity.CUDA not in supported_activities():
+                return web.json_response(
+                    {"error": "this PyTorch cannot record CUDA activity: "
+                              "no trace started"}, status=501)
+            activities.append(ProfilerActivity.CUDA)
+        prof = _profiler(activities)
+        prof.start()
+        self._profile = (prof, trace_dir, self._steps())
+        return web.json_response({"state": "tracing", "dir": trace_dir})
+
+    async def profile_stop(self, request: web.Request):
+        """Stop the trace (admin) and write it as Chrome trace JSON to
+        ``<dir>/trace.json`` (``PROFILE_TRACE``).  No trace running answers
+        409.  On a CUDA server, a trace over which the scheduler ran device
+        steps but that holds no CUDA event answers 500 (it is written all
+        the same)."""
+        if self._profile is None:
+            return web.json_response({"error": "no trace is running"},
+                                     status=409)
+        (prof, trace_dir, steps0), self._profile = self._profile, None
+        cuda = self.middleware.device.type == "cuda"
+        if cuda:
+            torch.cuda.synchronize(self.middleware.device)
+        prof.stop()
+
+        def write() -> bool:
+            os.makedirs(trace_dir, exist_ok=True)
+            prof.export_chrome_trace(os.path.join(trace_dir, PROFILE_TRACE))
+            return cuda and any(
+                e.device_type() == torch.autograd.DeviceType.CUDA
+                for e in prof.profiler.kineto_results.events())
+
+        saw_cuda = await asyncio.get_event_loop().run_in_executor(None, write)
+        if cuda and not saw_cuda and self._steps() > steps0:
+            return web.json_response(
+                {"error": "the trace recorded no CUDA activity while the "
+                          "server ran device steps"}, status=500)
+        return web.json_response({"state": "stopped"})
+
+    def _steps(self) -> int:
+        env = self.middleware.env
+        return env.runtime.metrics["steps"] if env is not None else 0
+
+    async def models_list(self, request: web.Request):
+        """The model files under the model directory."""
+        model_dir = self.config.model.get("path", "assets/models")
+        out = await asyncio.get_event_loop().run_in_executor(
+            None, files_mod.list_models, model_dir)
+        return web.json_response(out)
+
+    async def admin_load(self, request: web.Request):
+        """Load or reload a model (admin).  Body: a ReloadRequest; without
+        ``tokenizer_path`` the configured tokenizer.  The model path and
+        every ``lora`` and ``state`` path lie under the model directory
+        (given as such or as a name in it), else 403."""
+        body = await request.json()
+        if "tokenizer_path" not in body:
+            body["tokenizer_path"] = self.config.tokenizer.get(
+                "path", DEFAULT_TOKENIZER)
+        req = ReloadRequest.from_json(body)
+        req.model_path = self._model_file(req.model_path)
+        req.lora = [{**e, "path": self._model_file(e["path"])}
+                    for e in req.lora]
+        req.state = [{**e, "path": self._model_file(e["path"])}
+                     for e in req.state]
+        request["parsed"] = True
+        try:
+            await self.middleware.reload(req)
+        except Exception as e:
+            return web.json_response({"error": str(e)}, status=500)
+        return web.json_response({"state": "loaded"})
+
+    async def admin_unload(self, request: web.Request):
+        """Unload the model (admin)."""
+        await self.middleware.unload()
+        return web.json_response({"state": "unloaded"})
+
+    async def admin_save(self, request: web.Request):
+        """Save the loaded model as a prefab (admin).  Body: ``{path}``,
+        under the model directory (a name is put in it), else 403."""
+        body = await request.json()
+        path = self._model_file(body.get("path") or body.get("model_path"))
+        request["parsed"] = True
+        try:
+            await self.middleware.save(path)
+        except Exception as e:
+            return web.json_response({"error": str(e)}, status=500)
+        return web.json_response({"state": "saved", "path": path})
+
+    async def admin_unzip(self, request: web.Request):
+        """Extract a zip (admin).  Body: ``{zip_path, target_dir}``, both
+        under ``files.PERMITTED``, and every member under the target, else
+        403."""
+        body = await request.json()
+        source = body.get("zip_path") or body.get("source")
+        target = body.get("target_dir") or body.get("target")
+        for p in (source, target):
+            _permit(p, files_mod.PERMITTED)
+        request["parsed"] = True
+        try:
+            await asyncio.get_event_loop().run_in_executor(
+                None, files_mod.unzip, source, target)
+        except PermissionError as e:
+            raise web.HTTPForbidden(text=str(e)) from e
+        return web.json_response({"state": "ok"})
+
+    async def admin_dir(self, request: web.Request):
+        """List a directory under ``files.PERMITTED`` (admin)."""
+        body = await request.json()
+        path = body.get("path", ".")
+        _permit(path, files_mod.PERMITTED)
+        out = await asyncio.get_event_loop().run_in_executor(
+            None, files_mod.list_dir, path)
+        return web.json_response(out)
+
+    async def admin_config_load(self, request: web.Request):
+        """Read a config TOML under ``files.PERMITTED`` (admin)."""
+        body = await request.json()
+        path = body.get("path", "assets/configs/Config.toml")
+        _permit(path, files_mod.PERMITTED)
+        return web.json_response(Config.from_toml(path).to_dict())
+
+    async def admin_config_save(self, request: web.Request):
+        """Write a config TOML under ``files.PERMITTED`` (admin).  Body:
+        ``{path, config}``."""
+        body = await request.json()
+        path = body.get("path", "assets/configs/Config.toml")
+        _permit(path, files_mod.PERMITTED)
+        cfg = Config.from_dict(body.get("config", {}))
+        with open(path, "w") as f:
+            f.write(dump_toml(cfg.to_dict()))
+        return web.json_response({"state": "saved"})
+
+    # -- docs and the WebUI ----------------------------------------------------
+
+    async def openapi_json(self, request: web.Request):
+        if self._openapi_cache is None:
+            self._openapi_cache = build_spec(self.app)
+        return web.json_response(self._openapi_cache)
+
+    async def swagger(self, request: web.Request):
+        return web.Response(text=SWAGGER_HTML, content_type="text/html")
+
+    async def webui(self, request: web.Request):
+        """The WebUI: a configured ``[web]`` zip's ``index.html``, else the
+        built-in page."""
+        if self.web_root is not None:
+            index = os.path.join(self.web_root, "index.html")
+            if os.path.isfile(index):
+                return web.FileResponse(index)
+        return web.Response(text=WEBUI_HTML, content_type="text/html")
 
 
 def _usage(counter) -> dict:

@@ -89,11 +89,18 @@ kernel's source is built first, one ``nvcc`` each, all started together):
    synthetic 65,536-entry vocabulary, behind the port's HTTP server on
    localhost: concurrent greedy completions and a streamed chat.  The
    kernels' launch counters are zeroed just before and read just after;
-   every decode step there is one replay of the engine's CUDA graph.  Then
-   one request under the profiler, and the time of one replay of the
-   24-layer stack beside its bound.  The same checkpoint is then served
-   with ``quant = 24, quant_type = "Int8"`` (the same burst, every decode
-   step a replay of the int8 stack's graph and an int8 LM head) and with
+   every decode step there is one replay of the engine's CUDA graph.  The
+   listener wants a JWT for the admin routes (``force_pass = false``): an
+   admin request without one answers 401, ``/api/auth/exchange`` gives
+   one.  After each burst ``/api/metrics`` counts the requests sent as
+   finished, no slot busy and a positive mean step time.  Then one request
+   traced through ``/admin/profile/start`` and ``/stop`` (the Chrome trace
+   the route writes is read back: kernels a token, the device's busy share,
+   host ops by thread; it must hold each fused v7 kernel), and the time of
+   one replay of the 24-layer stack beside its bound.  The same checkpoint
+   is then served with ``quant = 24, quant_type = "Int8"`` (the same burst,
+   every decode step a replay of the int8 stack's graph and an int8 LM
+   head) and with
    ``quant = 12`` (a short greedy completion on the layer-by-layer path),
    and the same two ways with ``quant_type = "NF4"`` (packed 4-bit codes:
    the fused stack in its 4-bit mode under the graph; ``matmul_4bit_l``,
@@ -126,8 +133,9 @@ kernel's source is built first, one ``nvcc`` each, all started together):
    TTFT), as the ``quant = 24`` Int8 server does too (its 256-row prefill
    chunks above ``ops/quant.py:KERNEL_ROWS``: each int8 weight dequantized
    for one ``torch.matmul``).  The Int8 and NF4 servers save a prefab and
-   reload from it (``prefab_flow``: the same greedy tokens, the same device
-   memory as a reload from the ``.st``).  Then random 24-layer RWKV-5 and RWKV-4
+   reload from it through ``/admin/models/save``, ``/unload`` and
+   ``/load`` with the JWT (``prefab_flow``: the same greedy tokens, the
+   same device memory as a reload from the ``.st``).  Then random 24-layer RWKV-5 and RWKV-4
    checkpoints of the 0.4B shape, served the same way (prefill through
    ``wkv56_chunk`` / ``wkv4_chunk``, decode one replay of the fused v5 / v4
    stack).  The 0.4B v7
@@ -3315,6 +3323,12 @@ path = "{tmp / 'vocab.json'}"
 [listen]
 ip = "127.0.0.1"
 port = 0
+force_pass = false
+slot = "{SMOKE_SLOT}"
+
+[[listen.app_keys]]
+app_id = "{SMOKE_KEY['app_id']}"
+secret_key = "{SMOKE_KEY['app_secret']}"
 """)
     print(f"wrote the random 0.4B-shape checkpoint and vocabulary in "
           f"{time.monotonic() - t0:.1f} s", flush=True)
@@ -3544,38 +3558,114 @@ async def rag_flow(http, base, server) -> dict:
             "rag_text": rag["choices"][0]["message"]["content"][:60]}
 
 
-async def profiled(coro) -> str:
-    """Await one request under torch.profiler: the device's busy share of
-    the request's wall time and the kernels that took most of it."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+# The fused v7 step's CUDA kernels (csrc/decode_common.cuh, v7_decode.cu):
+# the trace of a bf16 decode must hold each.
+FUSED_V7_KERNELS = ("ln_mix_kernel", "skinny_tc_kernel", "wkv_gn_kernel")
 
-    acts = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(ProfilerActivity.CUDA)
+
+async def profiled(http, base, auth, trace_dir: Path, request,
+                   worker_tids) -> str:
+    """Await one request between ``/admin/profile/start`` and ``/stop`` (a
+    torch.profiler trace, written as Chrome JSON by the route) and read the
+    trace: its CUDA kernels a token (the graph replays' included), the
+    device's busy share of the request's wall time (the union of the
+    kernels' intervals: programmatic dependents overlap, so the sum of
+    their times overstates it), the kernels that took most of it, and the
+    host ops by thread (``worker_tids``: the runtime's engine thread).
+    Fails without a kernel event, or without each of the fused v7 step's
+    kernels."""
+    from ai00_server_tpu_torch.server.app import PROFILE_TRACE
+
+    async with http.post(f"{base}/admin/profile/start", headers=auth,
+                         json={"dir": str(trace_dir)}) as r:
+        check(r.status == 200, f"/admin/profile/start answered {r.status}: "
+              f"{(await r.text())[:200]}")
     t0 = time.monotonic()
-    with profile(activities=acts) as prof:
-        out = await coro
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
+    out = await request
     wall_us = (time.monotonic() - t0) * 1e6
+    t0 = time.monotonic()
+    async with http.post(f"{base}/admin/profile/stop", headers=auth) as r:
+        check(r.status == 200, f"/admin/profile/stop answered {r.status}: "
+              f"{(await r.text())[:200]}")
+    stop_s = time.monotonic() - t0
+    path = trace_dir / PROFILE_TRACE
+    size = path.stat().st_size
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
     by_name: dict[str, float] = {}
-    n_kernels = 0
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            n_kernels += 1
-            by_name[e.name] = by_name.get(e.name, 0.0) + \
-                e.time_range.elapsed_us()
-    busy = sum(by_name.values())
-    if not busy:
-        return "device time not measured (the profiler saw no CUDA events)"
+    spans = []
+    for e in events:
+        if e.get("cat") == "kernel":
+            spans.append((e["ts"], e["ts"] + e["dur"]))
+            by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
+    n_kernels = len(spans)
+    check(n_kernels > 0, "the trace of /admin/profile holds no CUDA kernel")
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    missing = [k for k in FUSED_V7_KERNELS
+               if not any(k in name for name in by_name)]
+    check(not missing, f"the trace of /admin/profile holds no {missing} of "
+          "the fused v7 step")
+    summed = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    ops: dict = {}
+    for e in events:
+        if e.get("cat") == "cpu_op":
+            ops[e["tid"]] = ops.get(e["tid"], 0) + 1
+    on_worker = sum(n for tid, n in ops.items() if tid in worker_tids)
     n = out["usage"]["completion"]
-    return (f"{n} tokens in {wall_us / 1e6:.3f} s (profiled), "
+    return (f"{n} tokens in {wall_us / 1e6:.3f} s (traced through "
+            f"/admin/profile; stop and export {stop_s:.2f} s, "
+            f"{size / 1e6:.1f} MB of JSON), "
             f"{n_kernels} device kernels ({n_kernels / n:.1f} per token); "
             f"device busy {busy / 1e6:.4f} s = "
-            f"{100 * busy / wall_us:.2f}% of wall; top kernels: "
+            f"{100 * busy / wall_us:.2f}% of wall (kernel times summed "
+            f"{summed / 1e6:.4f} s); host ops "
+            f"{sum(ops.values())} on {len(ops)} threads, {on_worker} of them "
+            "on the engine's worker thread; top kernels: "
             + "; ".join(f"{n[:60]} {t / 1e3:.2f} ms" for n, t in top))
+
+
+# The listener of every write_site config: admin routes want a JWT.
+SMOKE_SLOT = "smoke-slot"
+SMOKE_KEY = {"app_id": "smoke", "app_secret": "smoke-secret"}
+
+
+async def admin_token(http, base, server) -> dict:
+    """A JWT from ``/api/auth/exchange`` as the ``Authorization`` header;
+    an admin request without one answers 401 and leaves the model."""
+    async with http.get(f"{base}/admin/models/unload") as r:
+        check(r.status == 401, f"an admin request without a token answered "
+              f"{r.status}")
+    check(server.middleware.env is not None,
+          "an admin request without a token unloaded the model")
+    async with http.post(f"{base}/api/auth/exchange", json=SMOKE_KEY) as r:
+        check(r.status == 200, f"/api/auth/exchange answered {r.status}")
+        return {"Authorization": f"Bearer {(await r.json())['token']}"}
+
+
+async def read_metrics(http, base, sent: int) -> dict:
+    """``/api/metrics`` once every slot is free (a slot frees just after
+    its stream ends): ``requests_finished`` equals the requests ``sent``,
+    no slot busy, a positive mean step time."""
+    for _ in range(200):
+        async with http.get(f"{base}/api/metrics") as r:
+            check(r.status == 200, f"/api/metrics answered {r.status}")
+            m = dict(line.split(" ", 1)
+                     for line in (await r.text()).strip().splitlines())
+        if m.get("ai00_slots_busy") == "0":
+            break
+        await asyncio.sleep(0.01)
+    check(int(m["ai00_runtime_requests_finished"]) == sent,
+          f"/api/metrics counts {m['ai00_runtime_requests_finished']} "
+          f"finished requests, {sent} were sent")
+    check(m["ai00_slots_busy"] == "0",
+          f"/api/metrics: {m['ai00_slots_busy']} slots busy after the burst")
+    check(float(m["ai00_step_seconds_avg"]) > 0,
+          "/api/metrics: no mean step time")
+    return m
 
 
 # BNF-constrained generation on the bf16 server: a regular grammar (the
@@ -4144,15 +4234,31 @@ async def state_flow(http, base, server, tmp: Path, base_engine) -> dict:
     return out
 
 
+async def admin(http, base, auth, method: str, route: str,
+                body=None) -> dict:
+    """One admin request with the JWT; fails unless it answers 200 (a
+    ``.st`` reload quantizing on the host takes up to ~30 s)."""
+    import aiohttp
+
+    async with http.request(method, f"{base}{route}", headers=auth,
+                            json=body,
+                            timeout=aiohttp.ClientTimeout(total=600)) as r:
+        check(r.status == 200, f"{route} answered {r.status}: "
+              f"{(await r.text())[:300]}")
+        return await r.json()
+
+
 async def prefab_flow(http, base, server, tmp: Path, kind: str,
-                      st_load_s: float) -> dict:
-    """``Middleware.save`` of the served quantized model to a ``.prefab``,
-    then reloads of the server, in turns from its ``.st`` and from the
-    prefab, each from the same state (unloaded, collected): the device
-    memory the two loads allocate agrees within 1 MB, and the prefab's
-    greedy completion repeats the one taken before the save token for
-    token (launch counts zeroed before it and read after).  Returns the
-    prefab's size, the save seconds and both loads' seconds and bytes."""
+                      st_load_s: float, auth: dict) -> dict:
+    """``/admin/models/save`` of the served quantized model to a
+    ``.prefab`` (a name: the route puts it in the model directory), then
+    ``/admin/models/unload`` and ``/admin/models/load`` in turns from its
+    ``.st`` and from the prefab, each from the same state (unloaded,
+    collected), all with the JWT ``auth``: the device memory the two loads
+    allocate agrees within 1 MB, and the prefab's greedy completion
+    repeats the one taken before the save token for token (launch counts
+    zeroed before it and read after).  Returns the prefab's size, the save
+    seconds and both loads' seconds and bytes."""
     import torch
 
     from ai00_server_tpu_torch.ops import v7_decode as fd
@@ -4160,21 +4266,31 @@ async def prefab_flow(http, base, server, tmp: Path, kind: str,
 
     prompt = "prefab check: " + PROMPT
     before = await greedy_text(http, base, prompt)
-    path = tmp / f"rwkv7-0.4b-{kind}.prefab"
+    name = f"rwkv7-0.4b-{kind}.prefab"
     t0 = time.monotonic()
-    await server.middleware.save(str(path))
+    saved = await admin(http, base, auth, "POST", "/admin/models/save",
+                        {"path": name})
+    path = Path(saved["path"])
+    check(path == tmp / name, f"/admin/models/save wrote {path}, not into "
+          f"the model directory {tmp}")
     out = {"save_s": time.monotonic() - t0, "bytes": path.stat().st_size,
            "st_load_s": st_load_s}
-    st_req = server.middleware.env.reload
-    for which, req in (("st", st_req), ("prefab", dataclasses.replace(
-            st_req, model_path=str(path)))):
-        await server.middleware.unload()
+    st_body = server.middleware.env.reload.to_json()
+    for which, body in (("st", st_body),
+                        ("prefab", {**st_body, "model_path": name})):
+        await admin(http, base, auth, "GET", "/admin/models/unload")
+        check(server.middleware.env is None,
+              "/admin/models/unload left the model loaded")
         gc.collect()
         mem0 = torch.cuda.memory_allocated()
         t0 = time.monotonic()
-        await server.middleware.reload(req)
+        await admin(http, base, auth, "POST", "/admin/models/load", body)
         out[f"{which}_reload_s"] = time.monotonic() - t0
         out[f"{which}_memory_bytes"] = torch.cuda.memory_allocated() - mem0
+        check(server.middleware.env.reload.model_path.endswith(
+            name if which == "prefab" else "rwkv7-0.4b.st"),
+            f"/admin/models/load served "
+            f"{server.middleware.env.reload.model_path}")
     check(abs(out["prefab_memory_bytes"] - out["st_memory_bytes"]) <= 1e6,
           f"the {kind} prefab's load allocated {out['prefab_memory_bytes']} "
           f"bytes, the .st load's {out['st_memory_bytes']}")
@@ -4453,11 +4569,14 @@ async def serve(cfg: Path, kind: str, device="cuda") -> dict:
     """Serve one config over HTTP on localhost.  ``kind``: "bf16", "int8",
     "nf4", "v6 bf16", "v5 bf16" and "v4 bf16" get the burst (4 greedy
     completions of 128 tokens + 1 streamed chat), a lone streamed chat and
-    the time of one replay of the stack, "bf16" also one request under the
-    profiler, "v6 bf16" also the time of its stack quantized int8 and nf4
-    on the card; the mixed kinds get one short greedy completion, twice.
-    The launch counts are zeroed just before the burst (the completions)
-    and read just after."""
+    the time of one replay of the stack and ``/api/metrics`` after the
+    burst, "bf16" also one request traced through ``/admin/profile``, "v6
+    bf16" also the time of its stack quantized int8 and nf4 on the card;
+    the mixed kinds get one short greedy completion, twice.  The launch
+    counts are zeroed just before the burst (the completions) and read just
+    after.  A config whose listener wants a JWT (``write_site``'s) gets one
+    from ``/api/auth/exchange`` after an admin request without one answers
+    401."""
     import aiohttp
     import torch
     from aiohttp import web
@@ -4571,6 +4690,8 @@ async def serve(cfg: Path, kind: str, device="cuda") -> dict:
     try:
         async with aiohttp.ClientSession() as http:
             await completion(http, "warm up", 8)  # first-call set-up
+            auth = (None if config.listen.force_pass
+                    else await admin_token(http, base, server))
             engine = server.middleware.env.engine
             if mixed:
                 check(engine._graph is None,
@@ -4618,6 +4739,9 @@ async def serve(cfg: Path, kind: str, device="cuda") -> dict:
                 skinny_launches=fd.v7_skinny_matmul.launches,
                 burst=f"{len(prompts)} greedy completions of {max_tokens} "
                       "tokens + 1 streamed chat")
+            # The warm-up, the completions and the chat.
+            result["metrics"] = await read_metrics(http, base,
+                                                   len(prompts) + 2)
             if wide:
                 check(fd.v7_skinny_matmul.launches == 0,
                       f"the {kind} burst ran {fd.v7_skinny_matmul.launches} "
@@ -4640,8 +4764,13 @@ async def serve(cfg: Path, kind: str, device="cuda") -> dict:
                     http, LONG_PROMPT, 16)
             if kind == "bf16":
                 replays0 = fd.DecodeGraph.total_replays
+                t0 = time.monotonic()
                 profile = await profiled(
-                    completion(http, "and a profiled one: " + PROMPT * 8, 64))
+                    http, base, auth, cfg.parent / "profile",
+                    completion(http, "and a profiled one: " + PROMPT * 8, 64),
+                    {t.native_id for t in
+                     server.middleware.env.runtime._device_pool._threads})
+                result["profile_s"] = time.monotonic() - t0
                 result["profile"] = profile + (
                     f"; {fd.DecodeGraph.total_replays - replays0} graph "
                     "replays for its 64 tokens")
@@ -4660,7 +4789,7 @@ async def serve(cfg: Path, kind: str, device="cuda") -> dict:
                 # Reloads the server from its prefab: after its requests.
                 t0 = time.monotonic()
                 result["prefab"] = await prefab_flow(
-                    http, base, server, cfg.parent, kind, load_s)
+                    http, base, server, cfg.parent, kind, load_s, auth)
                 result["prefab"]["seconds"] = time.monotonic() - t0
             result["stack"] = time_stack(engine) if device != "cpu" else None
             if wide and device != "cpu":
@@ -4697,7 +4826,8 @@ def main() -> None:
     sys.path.insert(0, str(ROOT))
 
     card = card_line()
-    print(f"card: {card}", flush=True)
+    print(f"card: {card}; Python {sys.version.split()[0]}, PyTorch "
+          f"{torch.__version__} (CUDA {torch.version.cuda})", flush=True)
     dev = torch.device("cuda", 0)
 
     from ai00_server_tpu_torch.ops import _build
@@ -4883,7 +5013,8 @@ def main() -> None:
     for kind in ("int8", "nf4"):
         pf = served[kind]["prefab"]
         print(f"prefab flow on the {kind} server ({card}; "
-              f"{pf['seconds']:.1f} s): Middleware.save wrote "
+              f"{pf['seconds']:.1f} s; every step through the admin routes "
+              f"with a JWT): /admin/models/save wrote "
               f"{pf['bytes'] / 1e6:.1f} MB in {pf['save_s']:.2f} s; "
               f"reloaded in turns from the .st in {pf['st_reload_s']:.2f} s "
               f"(quantizing included; {pf['st_load_s']:.2f} s at the first "
@@ -5011,8 +5142,25 @@ def main() -> None:
           f"the bf16 server ({L_FULL} layers, chunk {CHUNK}): "
           f"{served['bf16']['ttft_s_long']:.3f} s; to the quant = {L_FULL} "
           f"Int8 server: {served['int8']['ttft_s_long']:.3f} s", flush=True)
-    print("profile of one 64-token completion alone (bf16): "
+    print(f"profile of one 64-token completion alone (bf16; {card}; "
+          f"{served['bf16']['profile_s']:.1f} s): "
           f"{served['bf16']['profile']}", flush=True)
+    for kind, run in served.items():
+        if "metrics" in run:
+            m = run["metrics"]
+            print(f"/api/metrics after the {kind} burst: " + ", ".join(
+                f"{k.removeprefix('ai00_runtime_')} {m[k]}" for k in (
+                    "ai00_runtime_requests_started",
+                    "ai00_runtime_requests_finished",
+                    "ai00_runtime_cache_hits", "ai00_runtime_steps",
+                    "ai00_runtime_merged_steps",
+                    "ai00_runtime_chunk_launches",
+                    "ai00_runtime_prefill_tokens",
+                    "ai00_runtime_decode_tokens",
+                    "ai00_runtime_step_seconds",
+                    "ai00_runtime_chunk_wait_s", "ai00_runtime_launch_s",
+                    "ai00_slots_busy", "ai00_step_seconds_avg")),
+                  flush=True)
     print(f"phase 4 (serving) {time.monotonic() - t0:.1f} s", flush=True)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -2,10 +2,13 @@
 ``tests/test_http.py`` site flow — completions, the v1 alias, greedy
 determinism, SSE ending in ``[DONE]``, chat, models and info — plus equal
 greedy text from the JAX server on the same model, BNF-constrained
-completions and chat, and 501 answers for what later slices bring."""
+completions and chat, and the routes that once answered 501 (an admin save
+and unload with a JWT, the API docs) served.  The admin, file and profile
+routes are held in ``test_torch_admin.py``."""
 
 import asyncio
 import json
+import os
 
 import numpy as np
 import pytest
@@ -187,15 +190,25 @@ def test_staggered_burst_all_complete(site):
 
 
 def test_later_slices_answer_501(site):
+    """Once 501s; now served: an admin save (a name lands in the model
+    directory) and unload, with a JWT for the default app key."""
     async def main():
         client, server = await make_client(site, device="cpu")
         try:
-            r = await client.post("/admin/models/save",
+            r = await client.post("/api/auth/exchange", json={
+                "app_id": "admin", "app_secret": "ai00_is_good"})
+            assert r.status == 200
+            hdrs = {"Authorization": f"Bearer {(await r.json())['token']}"}
+            r = await client.post("/admin/models/save", headers=hdrs,
                                   json={"path": "x.prefab"})
-            assert r.status == 501
-            assert "ROADMAP" in (await r.json())["error"]
-            r = await client.get("/admin/models/unload")
-            assert r.status == 501
+            assert r.status == 200, await r.text()
+            path = (await r.json())["path"]
+            assert path == str(site / "assets" / "models" / "x.prefab")
+            assert os.path.getsize(path) > 0
+            os.remove(path)
+            r = await client.get("/admin/models/unload", headers=hdrs)
+            assert r.status == 200
+            assert server.middleware.env is None
         finally:
             await client.close()
             await server.middleware.unload()
@@ -550,14 +563,17 @@ def test_v5_checkpoint_names_its_roadmap_item(tmp_path):
 
 @pytest.mark.parametrize("path", ["/api-docs", "/api-docs/"])
 def test_api_docs_answer_501(site, path):
-    """The reference routes both forms (its server/app.py:232-233)."""
+    """Once 501s; now both forms serve the Swagger page, as the JAX server
+    routes both (its server/app.py:232-233)."""
     async def main():
         client, server = await make_client(site, device="cpu")
         try:
             r = await client.get(path)
-            assert r.status == 501
-            assert "admin, profile and file routes" in (
-                await r.json())["error"]
+            assert r.status == 200
+            assert r.headers["Content-Type"].startswith("text/html")
+            text = await r.text()
+            assert "swagger" in text.lower()
+            assert "/api-docs/openapi.json" in text
         finally:
             await client.close()
             await server.middleware.unload()

@@ -52,9 +52,14 @@ MODULES = [
     "ai00_server_tpu_torch.retrieval_store",
     "ai00_server_tpu_torch.runtime",
     "ai00_server_tpu_torch.server",
+    "ai00_server_tpu_torch.server.acme",
     "ai00_server_tpu_torch.server.app",
+    "ai00_server_tpu_torch.server.auth",
     "ai00_server_tpu_torch.server.config",
     "ai00_server_tpu_torch.server.embed",
+    "ai00_server_tpu_torch.server.files",
+    "ai00_server_tpu_torch.server.openapi",
+    "ai00_server_tpu_torch.server.webui",
     "ai00_server_tpu_torch.testing",
     "ai00_server_tpu_torch.tokenizer",
 ]
@@ -77,6 +82,29 @@ def test_port_imports_no_jax_and_no_jax_package():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
+
+
+def test_entry_points_import_without_cryptography():
+    """``cryptography`` is imported only inside the ACME functions that
+    sign: ``main`` and ``server.app`` (and ``server.acme`` itself) import
+    with it blocked, as on a machine that lacks it."""
+    code = textwrap.dedent("""
+        import importlib, sys
+        sys.modules["cryptography"] = None
+        for m in ("ai00_server_tpu_torch.main",
+                  "ai00_server_tpu_torch.server.app",
+                  "ai00_server_tpu_torch.server.acme"):
+            importlib.import_module(m)
+        try:
+            import cryptography  # noqa: F401
+        except ImportError:
+            print("ok blocked")
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok blocked"
 
 
 def test_default_device_raises_without_cuda():
