@@ -61,6 +61,11 @@ quantized (int8, nf4, sf4, int4):
   :meth:`position_logps` scores tokens from a copy of a row's state
   (``/chooses``) without advancing the pool.
 
+``Engine(..., mesh=make_mesh(dp=, tp=))`` serves on a (dp, tp) mesh of
+places (``parallel/``): it returns a ``parallel/mesh_engine.MeshEngine``,
+which has this class's methods over ``max_batch`` rows and owns one engine
+per dp rank.
+
 Every method that reads or writes a pool holds the engine's lock (row
 reads included).  The scheduler (runtime.py) calls the engine from one
 worker thread; the engine itself is synchronous.
@@ -112,6 +117,25 @@ def head_logits(params, x):
     return torch.matmul(x.float(), head.to(x.dtype).float())
 
 
+def install_head_q(model: LoadedModel) -> None:
+    """Quantized models store the LM head int8 too: it is the largest single
+    stream of a decode step outside the layers.  Only where the head's
+    ``in`` dim is a multiple of the block; else it stays plain.  The plain
+    head moves to ``model.host_params`` (host memory), so a prefab exported
+    from the model is as good as its source."""
+    params = model.params
+    if "_head_q" in params or "head" not in params \
+            or params["head"].shape[0] % quant.INT8_BLOCK:
+        return
+    if any(quant.is_quantized(leaf) for p in params["layers"]
+           for part in ("att", "ffn") for leaf in p[part].values()):
+        head = params.pop("head")
+        params["_head_q"] = quant.quantize_int8(head)
+        if model.host_params is None:
+            model.host_params = {}
+        model.host_params.setdefault("head", head.cpu())
+
+
 def dfa_height() -> int:
     """Rows of each slot's token-DFA table: ``AI00_DFA_STATES`` (default
     64), the last one the halt row.  The table is int8, so more than 128
@@ -157,9 +181,17 @@ def to_host(tree):
 class Engine:
     """Owner of the device-resident pools for one loaded model."""
 
+    def __new__(cls, *args, mesh=None, **kwargs):
+        if mesh is None:
+            return super().__new__(cls)
+        from .parallel.mesh_engine import MeshEngine
+
+        return MeshEngine(*args, mesh=mesh, **kwargs)
+
     def __init__(self, model: LoadedModel, max_batch: int = 8,
-                 token_chunk_size: int = 128, device="cuda"):
+                 token_chunk_size: int = 128, device="cuda", *, mesh=None):
         self.device = resolve_device(device)
+        self.mesh = None
         self.model = model
         self.info = model.info
         self.module = get_version_module(model.info.version)
@@ -172,18 +204,16 @@ class Engine:
                              f"{self.device}")
 
         B, V = self.max_batch, self.vocab
-        self.state_pool = self.module.init_state(self.info, B,
-                                                 device=self.device)
+        self.state_pool = self._new_pool(B)
         self._fresh_row = self._initial_row_state()
-        self._install_head_q()
-        version = model.info.version.value
-        fd = fused_decode.module_for(version)
-        stack = fused_decode.stack_for(version, model.params, B)
-        if stack is not None and not fd.supports(model.params):
-            model.params[fd.FUSED_KEY] = fd.make_fused_layout(model.params)
+        install_head_q(model)
+        # The T=1 stack a decode step of B rows takes (None: the layer
+        # path), its layout installed on the params once.
+        self.stack = self._decode_stack(B)
         self._graph = None
-        if self.device.type == "cuda" and stack is not None:
-            self._graph = stack.DecodeGraph(model.params, self.state_pool, B)
+        if self.device.type == "cuda" and self.stack is not None:
+            self._graph = self.stack.DecodeGraph(model.params,
+                                                 self.state_pool, B)
         self.sampler_state = sampling.init_sampler_state(B, V, self.device)
         self.sampler_params_host = sampling.make_params(B)
         self.bias_pool = torch.zeros((B, V), dtype=torch.float32,
@@ -223,23 +253,36 @@ class Engine:
         self._chunk_snaps: list = []
         self._sparams_device = None
 
-    def _install_head_q(self) -> None:
-        """Quantized models store the LM head int8 too: it is the largest
-        single stream of a decode step outside the layers.  Only where the
-        head's ``in`` dim is a multiple of the block; else it stays plain.
-        The plain head moves to ``model.host_params`` (host memory), so a
-        prefab exported from the model is as good as its source."""
+    def _new_pool(self, B: int) -> dict:
+        """The state pool: zeros of B rows on the engine's device."""
+        return self.module.init_state(self.info, B, device=self.device)
+
+    def _decode_stack(self, B: int):
+        """``ops/fused_decode.stack_for``'s stack at B rows, its fused
+        layout installed on the params where it is not yet."""
         params = self.model.params
-        if "_head_q" in params or "head" not in params \
-                or params["head"].shape[0] % quant.INT8_BLOCK:
-            return
-        if any(quant.is_quantized(leaf) for p in params["layers"]
-               for part in ("att", "ffn") for leaf in p[part].values()):
-            head = params.pop("head")
-            params["_head_q"] = quant.quantize_int8(head)
-            if self.model.host_params is None:
-                self.model.host_params = {}
-            self.model.host_params.setdefault("head", head.cpu())
+        version = self.info.version.value
+        fd = fused_decode.module_for(version)
+        stack = fused_decode.stack_for(version, params, B)
+        if stack is not None and not fd.supports(params):
+            params[fd.FUSED_KEY] = fd.make_fused_layout(params)
+        return stack
+
+    def _logits(self, x):
+        """(B, C) final hidden states -> (B, V) f32 logits."""
+        return head_logits(self.model.params, x)
+
+    def _forward_state(self, state: dict, tokens, lengths):
+        """Forward a token block from ``state`` (a dict off the pool, e.g. a
+        row copy): (hidden, new state)."""
+        return self.module.forward(self.model.params, state, tokens, lengths)
+
+    def _snap_pool(self):
+        return {k: v.clone() for k, v in self.state_pool.items()}
+
+    def _restore_pool(self, snap) -> None:
+        for k, p in self.state_pool.items():
+            p.copy_(snap[k])
 
     # ------------------------------------------------------------------
     # State pool row management
@@ -334,11 +377,11 @@ class Engine:
         ``wkv``, its uniform-query readout ``sum_k S[.., v, k]`` meaned over
         layers; each part unit-normalized, the concatenation again."""
         with self._lock:
-            pool = self.state_pool
-            parts = [pool["att_x"][:, b].float().mean(0),
-                     pool["ffn_x"][:, b].float().mean(0)]
-            if "wkv" in pool:
-                parts.append(pool["wkv"][:, b].float().sum(-1).mean(0)
+            row = self._read_row(self.state_pool, b)
+            parts = [row["att_x"][:, 0].float().mean(0),
+                     row["ffn_x"][:, 0].float().mean(0)]
+            if "wkv" in row:
+                parts.append(row["wkv"][:, 0].float().sum(-1).mean(0)
                              .reshape(-1))
             vec = torch.cat([p / torch.clamp(torch.linalg.vector_norm(p),
                                               min=1e-12) for p in parts])
@@ -362,9 +405,8 @@ class Engine:
                 part = list(token_ids[off:off + chunk])
                 toks = np.zeros((1, chunk), np.int32)
                 toks[0, :len(part)] = part
-                h, state = self.module.forward(
-                    self.model.params, state,
-                    torch.as_tensor(toks, device=dev),
+                h, state = self._forward_state(
+                    state, torch.as_tensor(toks, device=dev),
                     torch.tensor([len(part)], dtype=torch.int32, device=dev))
                 mask = (torch.arange(chunk, device=dev) < len(part))[None, :,
                                                                      None]
@@ -388,14 +430,13 @@ class Engine:
                 state = {k: torch.as_tensor(
                     state[k] if isinstance(state[k], torch.Tensor)
                     else np.array(state[k]), device=dev).to(p.dtype).clone()
-                    for k, p in self.state_pool.items()}
+                    for k, p in self._fresh_row.items()}
             t = torch.as_tensor(np.asarray(tokens, np.int32)[None],
                                 device=dev)
-            hidden, _ = self.module.forward(
-                self.model.params, state, t,
+            hidden, _ = self._forward_state(
+                state, t,
                 torch.tensor([len(tokens)], dtype=torch.int32, device=dev))
-            logp = torch.log_softmax(
-                head_logits(self.model.params, hidden[0]), dim=-1)
+            logp = torch.log_softmax(self._logits(hidden[0]), dim=-1)
             lp = torch.gather(logp[:-1], 1, t[0, 1:, None].long())[:, 0]
             return to_host(lp)
 
@@ -524,13 +565,17 @@ class Engine:
         """``mask_pool`` where a row has a BNF mask, else None (no work)."""
         return self.mask_pool if self.mask_active.any() else None
 
+    def _uniforms(self, n: int):
+        """The (n,) uniforms of one sampling draw, from the engine's
+        generator."""
+        return torch.rand(n, generator=self._gen, device=self.device)
+
     def _sample(self, logits, active, allowed=None):
         """Sample every row under the ``allowed`` (B, V) mask (None: no
         mask); rows outside ``active`` keep their sampler state.  Returns
         (tokens, probs)."""
         kinds, k_cap = self._sampler_key()
-        rand = torch.rand(logits.shape[0], generator=self._gen,
-                          device=self.device)
+        rand = self._uniforms(logits.shape[0])
         toks, sp, new_ss = sampling.sample_with_rand(
             rand, logits, self._sparams(), self.sampler_state,
             bias=self.bias_pool, allowed_mask=allowed, kinds=kinds,
@@ -553,6 +598,14 @@ class Engine:
         step (decode rows + prefill rows on their final chunk).
         ``want_logits`` also returns the (B, V) raw logits on the device.
         """
+        toks, logits = self.step_device(tokens, lengths, sample_mask)
+        return StepResult(tokens=toks.cpu().numpy(),
+                          logits=logits if want_logits else None)
+
+    def step_device(self, tokens: np.ndarray, lengths: np.ndarray,
+                    sample_mask: np.ndarray):
+        """:meth:`step` with its (B,) tokens left on the device: returns
+        (tokens, logits)."""
         with self._lock:
             B, T = tokens.shape
             if B != self.max_batch:
@@ -575,13 +628,11 @@ class Engine:
                 self.hsum_pool += (hidden.float()
                                    * (pos < n[:, None, None])).sum(1)
                 self.hsum_serial += 1
-            logits = head_logits(self.model.params,
-                                 take_last_valid(hidden, lengths_t))
+            logits = self._logits(take_last_valid(hidden, lengths_t))
             toks, _ = self._sample(
                 logits, torch.as_tensor(sample_mask, device=dev),
                 self._host_mask())
-            return StepResult(tokens=toks.cpu().numpy(),
-                              logits=logits if want_logits else None)
+            return toks, logits
 
     # ------------------------------------------------------------------
     # Multi-token decode: K tokens per host round-trip
@@ -635,7 +686,7 @@ class Engine:
                                        device=dev)
             if steps > 1:
                 self._chunk_snaps.append((
-                    {k: v.clone() for k, v in self.state_pool.items()},
+                    self._snap_pool(),
                     {k: v.clone() for k, v in self.sampler_state.items()},
                     self.dfa_state.clone(), self.dfa_rows.copy()))
                 del self._chunk_snaps[:-2]
@@ -654,7 +705,7 @@ class Engine:
                                           self.mask_pool)
                     act = act & (ds != halt)
                 hidden = self._forward(toks[:, None], act.to(torch.int32))
-                logits = head_logits(self.model.params, hidden[:, 0])
+                logits = self._logits(hidden[:, 0])
                 t2, sp = self._sample(logits, act, mask)
                 toks = torch.where(act, t2, toks)
                 if dfa:
@@ -674,8 +725,7 @@ class Engine:
             if not self._chunk_snaps:
                 raise RuntimeError("no chunk snapshot")
             state, self.sampler_state, ds, rows = self._chunk_snaps.pop()
-            for k, p in self.state_pool.items():
-                p.copy_(state[k])
+            self._restore_pool(state)
             self.dfa_state.copy_(ds)
             self.dfa_rows[:] = rows
 

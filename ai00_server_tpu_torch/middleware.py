@@ -14,9 +14,13 @@ the first ``quant`` layers quantized (``quant_type = "Int8"``, ``"NF4"``,
   nonterminal of BNF schemas).
 * ``unload()`` — drain the runtime and drop the environment.
 * ``save(path)`` — export the loaded model as a prefab (``prefab.py``).
-* ``info()`` — RuntimeInfo for ``/api/models/info``, the states included.
+* ``info()`` — RuntimeInfo for ``/api/models/info``, the states and the
+  serving mesh included.
 
-A device mesh raises ``NotImplementedError`` naming its ROADMAP item.
+``mesh = [dp, tp]`` serves on a (dp, tp) mesh (``parallel/``): on a card
+the distinct cards ``cuda:0 .. cuda:{dp * tp - 1}``, on the CPU the CPU
+standing for every place.  tp > 1 serves RWKV-7 only; RWKV-6, -5 and -4
+raise ``NotImplementedError`` naming the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -104,18 +108,28 @@ class ReloadRequest:
         return {i: mode for i in range(self.quant)}
 
     def check_supported(self) -> None:
-        """Raise for what the port does not serve: a device mesh (not yet),
-        and a prefab with LoRA entries (a prefab loads as it was saved;
-        serving it unblended would silently drop the LoRA)."""
+        """Raise for what the port does not serve: a prefab with LoRA
+        entries (a prefab loads as it was saved; serving it unblended would
+        silently drop the LoRA), and a mesh that is not ``[dp, tp]`` of
+        positive sizes.  (tp > 1 on RWKV-6, -5 or -4 raises when the engine
+        sees the model.)"""
         self.quant_map()  # an unknown quant_type
         if self.model_path.endswith(".prefab") and self.lora:
             raise ValueError(
                 f"{self.model_path}: a prefab loads as it was saved and "
                 "cannot blend [[lora]] entries; blend them into the "
                 "checkpoint and export a new prefab")
-        if self.mesh and any(int(x) > 1 for x in self.mesh):
-            raise NotImplementedError(
-                "a device mesh is the ROADMAP multi-device item")
+        if self.mesh and (len(self.mesh) > 2
+                          or any(int(x) < 1 for x in self.mesh)):
+            raise ValueError(f"mesh {self.mesh}: one [dp, tp] of positive "
+                             "sizes")
+
+    def mesh_shape(self) -> tuple[int, int] | None:
+        """(dp, tp), or None for one device."""
+        if not self.mesh:
+            return None
+        dp, tp = (list(self.mesh) + [1, 1])[:2]
+        return (int(dp), int(tp)) if int(dp) * int(tp) > 1 else None
 
 
 @dataclass
@@ -156,10 +170,39 @@ class Middleware:
                        for s in self.env.states],
             "tokenizer": self.env.reload.tokenizer_path,
             "device": str(self.device),
+            # The serving mesh, None on one device (the JAX package's key).
+            "mesh": (
+                {"dp": mesh.shape["dp"], "tp": mesh.shape["tp"],
+                 "devices": mesh.size}
+                if (mesh := self.env.engine.mesh) is not None else None),
         }
+
+    def _mesh(self, request: ReloadRequest):
+        """The request's serving mesh, or None.  On a card its places are
+        the distinct cards; on the CPU the CPU stands for every place (the
+        "needs N devices" check then holds only in ``make_mesh``)."""
+        shape = request.mesh_shape()
+        if shape is None:
+            return None
+        from .parallel import make_mesh
+
+        dp, tp = shape
+        if self.device.type == "cuda":
+            devices = [torch.device("cuda", i)
+                       for i in range(torch.cuda.device_count())]
+        else:
+            devices = [self.device] * (dp * tp)
+        if dp * tp > len(devices):
+            raise ValueError(f"mesh [{dp}, {tp}] needs {dp * tp} devices, "
+                             f"have {len(devices)}")
+        if request.max_batch % dp:
+            raise ValueError(f"max_batch {request.max_batch} not divisible "
+                             f"by dp={dp}")
+        return make_mesh(dp=dp, tp=tp, devices=devices[:dp * tp])
 
     async def reload(self, request: ReloadRequest) -> None:
         request.check_supported()
+        mesh = self._mesh(request)
         async with self._lock:
             await self._unload_locked()
             loop = asyncio.get_event_loop()
@@ -181,7 +224,7 @@ class Middleware:
                 await loop.run_in_executor(None, native.get_lib)
             engine = Engine(model, max_batch=request.max_batch,
                             token_chunk_size=request.token_chunk_size,
-                            device=self.device)
+                            device=self.device, mesh=mesh)
             runtime = Runtime(engine, tokenizer, states=state_map,
                               decode_chunk_size=request.decode_chunk_size,
                               bnf_option=request.bnf
@@ -232,8 +275,17 @@ class Middleware:
         from . import prefab
 
         env = self.env
-        await asyncio.get_event_loop().run_in_executor(
-            None, prefab.save_prefab, path, env.model, env.reload.to_json())
+
+        def save():
+            model = env.model
+            if env.engine.mesh is not None:  # gather the shards first
+                model = LoadedModel(
+                    info=model.info,
+                    params=env.engine.unsharded_params("cpu"),
+                    init_wkv=model.init_wkv, host_params=model.host_params)
+            prefab.save_prefab(path, model, env.reload.to_json())
+
+        await asyncio.get_event_loop().run_in_executor(None, save)
 
     async def unload(self) -> None:
         async with self._lock:

@@ -11,6 +11,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..ops.quant import product
+
 LN_EPS = 1e-5
 # v5/v6/v7 use GroupNorm with eps scaled by head_size_divisor**2 = 64.
 GN_EPS = 64e-5
@@ -37,13 +39,15 @@ def group_norm(x, num_groups, w, b, eps=GN_EPS):
     return y.reshape(shape).to(x.dtype)
 
 
-def linear(x, w):
+def linear(x, w, out_dtype=None):
     """``x @ w`` (``w`` is ``(in, out)``): f32 accumulation, activation-dtype
-    result.  ``w`` is a plain tensor or a quantized weight from
-    ``ops/quant`` (which exposes ``matmul(x)``)."""
+    result, or the f32 sums un-rounded with ``out_dtype=torch.float32`` (a
+    tensor-parallel shard's partial sum, rounded once after the shards'
+    sums are added).  ``w`` is a plain tensor or a quantized weight from
+    ``ops/quant`` (which exposes ``matmul(x, out_dtype)``)."""
     if not isinstance(w, torch.Tensor):
-        return w.matmul(x)
-    return torch.matmul(x, w.to(x.dtype))
+        return w.matmul(x, out_dtype)
+    return product(x, w.to(x.dtype), out_dtype)
 
 
 def token_shift(shift_state, x):
@@ -129,10 +133,12 @@ def channel_mix_v4(p, shift, x, lengths):
                              1.0 - p["time_mix_r"])
 
 
-def channel_mix_v7(p, shift, x, lengths):
+def channel_mix_v7(p, shift, x, lengths, out_dtype=None):
     """v7 channel mix: squared-ReLU FFN with no receptance gate.
-    Returns (out, new_shift).  At T = 1 on a quantized layer the whole mix is
-    one op on the stacked codes (``ops/ffn.ffn7_t1_l``)."""
+    Returns (out, new_shift); ``out_dtype=torch.float32`` leaves the value
+    product's sums un-rounded (a tensor-parallel shard's partial sum).  At
+    T = 1 on a quantized layer the whole mix is one op on the stacked codes
+    (``ops/ffn.ffn7_t1_l``)."""
     key, val = p["key"], p["value"]
     if x.shape[1] == 1 and hasattr(key, "qlin") and hasattr(val, "qlin"):
         from ..ops.ffn import ffn7_t1_l
@@ -141,9 +147,9 @@ def channel_mix_v7(p, shift, x, lengths):
             x[:, 0].contiguous(), shift, p["x_k"], lengths > 0, key.qlin.q,
             key.qlin.scale, val.qlin.q, val.qlin.scale, key.idx,
             qmode=key.mode)
-        return out[:, None].to(x.dtype), new_shift
+        return out[:, None].to(out_dtype or x.dtype), new_shift
     xp = token_shift(shift, x)
     xk = x + (xp - x) * p["x_k"]
     k = torch.square(torch.relu(linear(xk, p["key"])))
-    out = linear(k, p["value"])
+    out = linear(k, p["value"], out_dtype)
     return out, update_shift_state(shift, x, lengths)

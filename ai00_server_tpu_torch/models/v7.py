@@ -9,7 +9,9 @@ phased one (``ops/v7_phased.forward_t1``) where its ``can_phase`` holds
 layer-by-layer path: a plain Python loop over layers, with the WKV
 recurrence in the hand-written CUDA kernels — ``ops/wkv_t1`` for T=1 decode
 and ``ops/wkv_chunk`` for T>1 prefill chunks (their plain versions on CPU
-tensors) — and returns a new state.
+tensors) — and returns a new state.  ``forward_tp`` is that layer path
+with the heads, channels and vocabulary split over the tensor-parallel
+places of a mesh (``parallel/``).
 
 time-mix (per head, state ``S`` of shape ``(N_v, N_k)``):
 
@@ -47,15 +49,28 @@ def init_state(info, batch: int, dtype=torch.float32, device="cpu"):
     }
 
 
-def _att(p, att_x, wkv, x, v_first, layer_idx: int, lengths):
+def _att(p, att_x, wkv, x, v_first, layer_idx: int, lengths, shard=None):
     """v7 time mix over one chunk.
 
     x: (B, T, C).  Returns (out, new_att_x, new_wkv, v_first).
+
+    ``shard=(j, tp)``: tp place ``j`` of ``tp`` (``parallel/sharding``):
+    the projections ``p`` holds are its slices, ``wkv`` its heads; the
+    per-channel vectors and ``r_k`` are sliced here to its channels and
+    heads, ``v_first`` is its own, and ``out`` is its f32 partial sum of
+    the output projection, to be summed over the tp places.
     """
-    B, T, C = x.shape
-    H = p["r_k"].shape[0]
-    N = C // H
+    B, T, _ = x.shape
+    H, N = p["r_k"].shape
     acc = acc_dtype(x.dtype)
+    if shard is not None:
+        j, tp = shard
+        H //= tp
+        p = dict(p)
+        for k in ("w0", "a0", "v0", "k_k", "k_a", "ln_x_w", "ln_x_b"):
+            p[k] = p[k][j * H * N:(j + 1) * H * N]
+        p["r_k"] = p["r_k"][j * H:(j + 1) * H]
+    C = H * N
 
     xp = token_shift(att_x, x)
     dx = xp - x
@@ -113,7 +128,8 @@ def _att(p, att_x, wkv, x, v_first, layer_idx: int, lengths):
     bonus = torch.sum(rh * kh * p["r_k"], dim=-1, keepdim=True) * vh
     y = y + bonus.reshape(B, T, C).to(x.dtype)
 
-    out = linear(y * g.to(x.dtype), p["output"])
+    out = linear(y * g.to(x.dtype), p["output"],
+                 None if shard is None else torch.float32)
     new_att_x = update_shift_state(att_x, x, lengths)
     return out, new_att_x, new_wkv.to(wkv.dtype), v_first
 
@@ -155,3 +171,49 @@ def forward(params, state, tokens, lengths):
     new_state = {k: torch.stack(v) for k, v in new.items()}
     hidden = layer_norm(x, params["ln_out_w"], params["ln_out_b"])
     return hidden, new_state
+
+
+def forward_tp(params, states, tokens, lengths):
+    """The layer path with the heads, channels and vocabulary split over
+    the tp places of one dp rank (``parallel/sharding``), for one
+    controller: ``params`` and ``states`` hold one tree per place.  Each
+    place runs its slice of every layer (:func:`_att` with ``shard``, the
+    FFN on its slice of the hidden width); the partial sums of the output
+    projection and the FFN's value are added in f32 over the places
+    (``parallel/collectives.all_reduce_sum``) and rounded once before the
+    residual adds, so the activations stay whole and equal on every place.
+
+    tokens: (B, T) int, lengths: (B,), on the first place.  Returns (hidden
+    (B, T, C) post-ln_out on the first place, the new state of every place).
+    """
+    from ..parallel.collectives import all_reduce_sum, broadcast
+
+    tp = len(params)
+    places = [p["emb"].device for p in params]
+    toks, lens = broadcast(tokens, places), broadcast(lengths, places)
+    x = [p["emb"][t.long()] for p, t in zip(params, toks)]
+    v_first = [None] * tp
+    new = [{"att_x": [], "wkv": [], "ffn_x": []} for _ in range(tp)]
+    for i in range(len(params[0]["layers"])):
+        parts = []
+        for j in range(tp):
+            p, s = params[j]["layers"][i], states[j]
+            xa = layer_norm(x[j], p["ln1_w"], p["ln1_b"])
+            out, att_x, wkv, v_first[j] = _att(
+                p["att"], s["att_x"][i], s["wkv"][i], xa, v_first[j], i,
+                lens[j], shard=(j, tp))
+            parts.append(out)
+            new[j]["att_x"].append(att_x)
+            new[j]["wkv"].append(wkv)
+        x = [xj + o.to(xj.dtype) for xj, o in zip(x, all_reduce_sum(parts))]
+        parts = []
+        for j in range(tp):
+            p = params[j]["layers"][i]
+            xf = layer_norm(x[j], p["ln2_w"], p["ln2_b"])
+            out, ffn_x = channel_mix_v7(p["ffn"], states[j]["ffn_x"][i], xf,
+                                        lens[j], torch.float32)
+            parts.append(out)
+            new[j]["ffn_x"].append(ffn_x)
+        x = [xj + o.to(xj.dtype) for xj, o in zip(x, all_reduce_sum(parts))]
+    hidden = layer_norm(x[0], params[0]["ln_out_w"], params[0]["ln_out_b"])
+    return hidden, [{k: torch.stack(v) for k, v in n.items()} for n in new]

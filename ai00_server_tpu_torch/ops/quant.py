@@ -23,6 +23,11 @@ The codes of a layer group stay in ONE stacked tensor on the device; a
 layer's weight is a :class:`QuantizedLayerView` — the stacked tensors plus
 an index — and nothing copies codes per step.
 
+On a tensor-parallel mesh (``parallel/sharding.py``) a weight splits with
+:meth:`QuantizedLinear.sliced` (an ``out`` slice in every mode, an ``in``
+slice of whole scale blocks), and an ``in`` slice that does not fall on
+whole blocks is kept whole as :class:`QuantizedRows`.
+
 The 4-bit modes are served packed, at their own bytes.  The reference's int8
 surrogate of 4-bit codes (``to_int8_surrogate``, ``repack_surrogate``,
 ``surrogate_group``) belongs to its prefab export and comes with the
@@ -137,19 +142,62 @@ class QuantizedLinear:
             w = table[unpack_codes(self.q).long()] * self.scale
         return w.reshape(tuple(self.q.shape[:-3]) + self.shape).to(dtype)
 
-    def matmul(self, x):
-        """``x @ W``, result in ``x.dtype``.  Up to ``KERNEL_ROWS`` rows
-        (unstacked codes) the dequant-in-matmul kernel of the mode; above,
-        the weight is dequantized once for one large product (the reference
-        keeps 4-bit on its kernel at every row count only for want of a
-        fast table gather on its device)."""
+    def matmul(self, x, out_dtype=None):
+        """``x @ W``, result in ``x.dtype``, or the f32 sums un-rounded with
+        ``out_dtype=torch.float32``.  Up to ``KERNEL_ROWS`` rows (unstacked
+        codes) the dequant-in-matmul kernel of the mode; above, the weight
+        is dequantized once for one large product (the reference keeps
+        4-bit on its kernel at every row count only for want of a fast
+        table gather on its device)."""
         if _rows(x) <= KERNEL_ROWS and self.q.ndim == 3:
             from .quant_matmul import matmul_4bit, matmul_int8
 
+            kw = {} if out_dtype is None else {"out_dtype": out_dtype}
             if self.mode == "int8":
-                return matmul_int8(x, self.q, self.scale)
-            return matmul_4bit(x, self.q, self.scale, mode=self.mode)
-        return torch.matmul(x, self.dequant(x.dtype))
+                return matmul_int8(x, self.q, self.scale, **kw)
+            return matmul_4bit(x, self.q, self.scale, mode=self.mode, **kw)
+        return product(x, self.dequant(x.dtype), out_dtype)
+
+    def sliced(self, dim: int, part: int, parts: int):
+        """Part ``part`` of ``parts`` equal slices of the logical weight
+        along ``dim`` (-1 = out, -2 = in), as a new QuantizedLinear, or None
+        where the slice does not fall on whole scale blocks.  An ``out``
+        slice is the codes' and the scales' last dim in every mode; an
+        ``in`` slice takes whole blocks (128 rows int8, 64 rows 4-bit)."""
+        n = self.shape[dim]
+        if n % parts:
+            raise ValueError(f"{'out' if dim == -1 else 'in'} dim {n} does "
+                             f"not split into {parts}")
+        if dim == -1:
+            axis, size = -1, n // parts
+        else:
+            block = INT8_BLOCK if self.mode == "int8" else NF4_BLOCK
+            if (n // parts) % block:
+                return None
+            axis, size = -3, n // parts // block
+        cut = [slice(None)] * self.q.ndim
+        cut[axis] = slice(part * size, (part + 1) * size)
+        shape = list(self.shape)
+        shape[dim] = n // parts
+        return QuantizedLinear(self.mode, self.q[tuple(cut)].contiguous(),
+                               self.scale[tuple(cut)].contiguous(), shape)
+
+    def to(self, device) -> "QuantizedLinear":
+        return QuantizedLinear(self.mode, self.q.to(device),
+                               self.scale.to(device), self.shape)
+
+
+def product(x, w, out_dtype=None):
+    """``x @ w`` with ``w`` in x's dtype: the sums in f32 (a bf16 x bf16
+    product is exact in f32), rounded to x's dtype, or returned un-rounded
+    with ``out_dtype=torch.float32``.  On the card a bf16 product takes an
+    f32 output type, as ``engine.head_logits`` does."""
+    if out_dtype is None or out_dtype == x.dtype:
+        return torch.matmul(x, w)
+    if x.device.type == "cuda":
+        y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=out_dtype)
+        return y.reshape(tuple(x.shape[:-1]) + (w.shape[-1],))
+    return torch.matmul(x.float(), w.float()).to(out_dtype)
 
 
 def _blocked(shape, block: int = INT8_BLOCK) -> tuple:
@@ -306,18 +354,50 @@ class QuantizedLayerView:
     def scale(self):
         return self.qlin.scale[self.idx]
 
-    def matmul(self, x):
+    def matmul(self, x, out_dtype=None):
         if _rows(x) <= KERNEL_ROWS:
             from .quant_matmul import matmul_4bit_l, matmul_int8_l
 
+            kw = {} if out_dtype is None else {"out_dtype": out_dtype}
             if self.mode == "int8":
                 return matmul_int8_l(x, self.qlin.q, self.qlin.scale,
-                                     self.idx)
+                                     self.idx, **kw)
             return matmul_4bit_l(x, self.qlin.q, self.qlin.scale, self.idx,
-                                 mode=self.mode)
-        return QuantizedLinear(self.mode, self.q, self.scale,
-                               self.shape).matmul(x)
+                                 mode=self.mode, **kw)
+        return self.layer().matmul(x, out_dtype)
+
+    def layer(self) -> QuantizedLinear:
+        """This layer's codes as an unstacked QuantizedLinear (views)."""
+        return QuantizedLinear(self.mode, self.q, self.scale, self.shape)
+
+
+class QuantizedRows:
+    """Rows ``r0 .. r1`` of a quantized ``(in, out)`` weight (a
+    :class:`QuantizedLinear` or :class:`QuantizedLayerView`) kept whole: a
+    tensor-parallel shard's ``in`` slice that does not fall on whole scale
+    blocks.  The shard multiplies its input slice by those rows of the
+    dequantized weight."""
+
+    def __init__(self, whole, r0: int, r1: int):
+        self.whole = whole
+        self.r0, self.r1 = int(r0), int(r1)
+
+    @property
+    def mode(self) -> str:
+        return self.whole.mode
+
+    @property
+    def shape(self):
+        return (self.r1 - self.r0, self.whole.shape[-1])
+
+    def matmul(self, x, out_dtype=None):
+        w = self.whole
+        if isinstance(w, QuantizedLayerView):
+            w = w.layer()
+        return product(x, w.dequant(x.dtype)[..., self.r0:self.r1, :],
+                       out_dtype)
 
 
 def is_quantized(leaf) -> bool:
-    return isinstance(leaf, (QuantizedLinear, QuantizedLayerView))
+    return isinstance(leaf, (QuantizedLinear, QuantizedLayerView,
+                             QuantizedRows))

@@ -85,20 +85,21 @@ def matmul_int8_plain(x, q, scale, out_dtype=None):
     return y.to(out_dtype or x.dtype)
 
 
-def matmul_int8_l_plain(x, q, scale, l: int):
+def matmul_int8_l_plain(x, q, scale, l: int, out_dtype=None):
     """The plain PyTorch version of :func:`matmul_int8_l`."""
-    return matmul_int8_plain(x, q[l], scale[l])
+    return matmul_int8_plain(x, q[l], scale[l], out_dtype)
 
 
-def matmul_4bit_plain(x, q, scale, mode: str = "nf4"):
+def matmul_4bit_plain(x, q, scale, mode: str = "nf4", out_dtype=None):
     """The plain PyTorch version of :func:`matmul_4bit`."""
     w = dequant4_cd(q, scale, mode, x.dtype)
-    return torch.matmul(x.float(), w.float()).to(x.dtype)
+    return torch.matmul(x.float(), w.float()).to(out_dtype or x.dtype)
 
 
-def matmul_4bit_l_plain(x, q, scale, l: int, mode: str = "nf4"):
+def matmul_4bit_l_plain(x, q, scale, l: int, mode: str = "nf4",
+                        out_dtype=None):
     """The plain PyTorch version of :func:`matmul_4bit_l`."""
-    return matmul_4bit_plain(x, q[l], scale[l], mode)
+    return matmul_4bit_plain(x, q[l], scale[l], mode, out_dtype)
 
 
 def _require(cond: bool, what: str) -> None:
@@ -298,14 +299,16 @@ def matmul_int8(x, q, scale, out_dtype=None):
 matmul_int8.launches = 0
 
 
-def matmul_int8_l(x, q, scale, l: int):
+def matmul_int8_l(x, q, scale, l: int, out_dtype=None):
     """``y = x @ (q[l] * scale[l])`` with STACKED codes: q ``(L, nb, 128,
     out)``, scale ``(L, nb, 1, out)``, ``l`` a host int.  The kernel
     offsets its base pointers to layer ``l``; nothing is sliced or copied.
-    Returns ``(..., out)`` in ``x.dtype``."""
+    Returns ``(..., out)`` in ``x.dtype``, or the f32 sums un-rounded with
+    ``out_dtype=torch.float32`` (a tensor-parallel shard's partial sum)."""
     if x.device.type == "cpu":
-        return matmul_int8_l_plain(x, q, scale, l)
-    y, n = _launch(x, q, scale, int(l), True, None)
+        kw = {} if out_dtype is None else {"out_dtype": out_dtype}
+        return matmul_int8_l_plain(x, q, scale, l, **kw)
+    y, n = _launch(x, q, scale, int(l), True, out_dtype)
     matmul_int8_l.launches += n
     return y
 
@@ -313,17 +316,18 @@ def matmul_int8_l(x, q, scale, l: int):
 matmul_int8_l.launches = 0
 
 
-def matmul_4bit(x, q, scale, mode: str = "nf4"):
+def matmul_4bit(x, q, scale, mode: str = "nf4", out_dtype=None):
     """``y = x @ dequant4(q, scale)``: x ``(..., in)`` f32 / bf16; q ``(nb,
     32, out)`` uint8, two codes a byte, split-half (``ops.quant``); scale
     ``(nb, 1, out)`` f32; ``mode`` nf4 / sf4 / int4.  Returns ``(..., out)``
-    in ``x.dtype``.  Right for any row count; the codes are read once per
-    64 rows (:func:`plan`).  The sums' order is fixed, so equal inputs give
-    equal bits."""
+    in ``x.dtype`` (or f32 with ``out_dtype``).  Right for any row count;
+    the codes are read once per 64 rows (:func:`plan`).  The sums' order is
+    fixed, so equal inputs give equal bits."""
     _require_4bit(mode)
     if x.device.type == "cpu":
-        return matmul_4bit_plain(x, q, scale, mode)
-    y, n = _launch(x, q, scale, 0, False, None, mode)
+        kw = {} if out_dtype is None else {"out_dtype": out_dtype}
+        return matmul_4bit_plain(x, q, scale, mode, **kw)
+    y, n = _launch(x, q, scale, 0, False, out_dtype, mode)
     matmul_4bit.launches += n
     return y
 
@@ -331,15 +335,17 @@ def matmul_4bit(x, q, scale, mode: str = "nf4"):
 matmul_4bit.launches = 0
 
 
-def matmul_4bit_l(x, q, scale, l: int, mode: str = "nf4"):
+def matmul_4bit_l(x, q, scale, l: int, mode: str = "nf4", out_dtype=None):
     """``y = x @ dequant4(q[l], scale[l])`` with STACKED packed codes: q
     ``(L, nb, 32, out)``, scale ``(L, nb, 1, out)``, ``l`` a host int.  The
     kernel offsets its base pointers to layer ``l``; nothing is sliced or
-    copied.  Returns ``(..., out)`` in ``x.dtype``."""
+    copied.  Returns ``(..., out)`` in ``x.dtype`` (or f32 with
+    ``out_dtype``)."""
     _require_4bit(mode)
     if x.device.type == "cpu":
-        return matmul_4bit_l_plain(x, q, scale, l, mode)
-    y, n = _launch(x, q, scale, int(l), True, None, mode)
+        kw = {} if out_dtype is None else {"out_dtype": out_dtype}
+        return matmul_4bit_l_plain(x, q, scale, l, mode, **kw)
+    y, n = _launch(x, q, scale, int(l), True, out_dtype, mode)
     matmul_4bit_l.launches += n
     return y
 

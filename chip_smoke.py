@@ -144,7 +144,17 @@ kernel's source is built first, one ``nvcc`` each, all started together):
    the phased stack's graph; ``v7_skinny_matmul`` must launch 0 times), and
    the phased and fused stacks are timed at B = 16 and 64 on those models, on
    the v6 model and on the 32-layer RWKV-7 2.9B shape built on the card in
-   bf16 and int8.  Each phase prints its seconds.
+   bf16 and int8.  After the v7 serves, ``mesh_flow`` runs logical
+   (dp, tp) meshes whose places are all the one card: the 2-layer 0.4B
+   width in bf16, int8 and nf4 on ``[2, 1]`` (each dp rank's own decode
+   graph at 4 rows, held within ``BF16_MODEL_TOL`` to the unsharded
+   engine), ``[1, 2]`` and ``[2, 2]`` (``wkv7_t1`` /
+   ``wkv7_chunk`` on 8 heads, the quantized products on sliced codes, held
+   to the unsharded engine's layer path), the 24-layer bf16 checkpoint
+   served through ``Runtime`` and ``Server`` on a ``[2, 2]`` engine, and the
+   middleware's refusal of ``mesh = [2, 1]`` on one card; on a machine of
+   two or more cards the parity again on distinct cards.  Each phase
+   prints its seconds.
 
 The last two lines of standard output are the card's
 ``name, power.limit`` and ``{"ok": true, "device": {...}}``.
@@ -4565,6 +4575,413 @@ def print_wide(label: str, stacks: dict) -> None:
               f"({st['bytes'] / 1e6:.1f} MB)", flush=True)
 
 
+# The mesh phase (mesh_flow): logical (dp, tp) meshes whose places are all
+# the one card, so every sharded code path runs on it: per-rank decode
+# graphs at max_batch / dp rows, the tp layer path on H / tp heads with its
+# partial sums added, the vocab slices of the head gathered.
+MESHES = ((2, 1), (1, 2), (2, 2))
+MESH_TOKENS = 16   # greedy tokens of the parity chunk and each completion
+MESH_CHUNK = 64    # the parity prefill's token_chunk_size
+MESH_LENGTHS = (64, 40, 17, 1, 64, 33, 8, 50)  # the parity prompts' tokens
+
+
+def mesh_prefill_and_chunk(engine, prompts):
+    """Every row fresh and greedy, one prefill step, a MESH_TOKENS-token
+    decode_chunk, then restore_last_chunk (back to the state after the
+    prefill).  Returns (prefill tokens, prefill logits, chunk tokens)."""
+    import numpy as np
+    import torch
+
+    from ai00_server_tpu_torch.ops import sampling
+
+    B = engine.max_batch
+    toks = np.zeros((B, MESH_CHUNK), np.int32)
+    lens = np.zeros(B, np.int32)
+    for b, p in enumerate(prompts):
+        engine.load_row_state(b, None)
+        # No penalties: each pick is the argmax of the raw logits.
+        engine.set_row_sampler(b, {"kind": sampling.KIND_GREEDY,
+                                   "presence": 0.0, "frequency": 0.0})
+        toks[b, :len(p)], lens[b] = p, len(p)
+    res = engine.step(toks, lens, np.ones(B, np.bool_), want_logits=True)
+    seq, _ = engine.decode_chunk(res.tokens, np.ones(B, np.bool_),
+                                 MESH_TOKENS)
+    engine.restore_last_chunk()
+    torch.cuda.synchronize()
+    return res.tokens, res.logits.float().cpu(), seq
+
+
+def mesh_forced(engine, first, seq):
+    """``first`` then ``seq[:-1]`` fed one T=1 step at a time from the state
+    after the prefill: each step's (B, V) logits, stacked."""
+    import numpy as np
+    import torch
+
+    B = engine.max_batch
+    out = []
+    for t in [first, *seq[:-1]]:
+        r = engine.step(np.asarray(t, np.int32)[:, None],
+                        np.ones(B, np.int32), np.ones(B, np.bool_),
+                        want_logits=True)
+        out.append(r.logits.float().cpu())
+    return torch.stack(out)
+
+
+def phase_mesh_parity(dev, places=None, meshes=MESHES) -> dict:
+    """The 0.4B width at 2 layers, bf16, all-int8 and all-nf4, on each of
+    MESHES at max_batch = MAX_BATCH against the unsharded engine on the
+    same card: the prefill step's logits, and each step of the reference's greedy
+    chunk fed to both (teacher-forced logits), held to BF16_MODEL_TOL; each
+    engine's own chunk tokens are its own greedy picks on those logits, so
+    two chunks part only at a near tie.  ``places``: the devices of the
+    places (default: the one card, repeated).  Checks each dp rank's own
+    decode graph at B / dp rows and the tp layer path's WKV kernels on
+    H / tp heads, and the kernels each run launched."""
+    import numpy as np
+    import torch
+
+    from ai00_server_tpu_torch.engine import Engine
+    from ai00_server_tpu_torch.loader import LoadedModel, stack_params
+    from ai00_server_tpu_torch.models import v7
+    from ai00_server_tpu_torch.ops import v7_decode as fd
+    from ai00_server_tpu_torch.ops.ffn import ffn7_t1_l
+    from ai00_server_tpu_torch.ops.quant_matmul import (matmul_4bit_l,
+                                                        matmul_int8,
+                                                        matmul_int8_l)
+    from ai00_server_tpu_torch.ops.wkv_chunk import wkv7_chunk
+    from ai00_server_tpu_torch.ops.wkv_t1 import wkv7_t1
+    from ai00_server_tpu_torch.parallel import make_mesh
+    from ai00_server_tpu_torch.testing import make_raw_weights
+
+    info = model_info(2)
+    math = make_raw_weights(info, seed=SEED, dtype=np.float32,
+                            lora_dims=LORA)
+    rng = np.random.default_rng(SEED + 19)
+    prompts = [rng.integers(1, VOCAB, n).tolist() for n in MESH_LENGTHS]
+    counted = {"wkv7_t1": (wkv7_t1, "launches"),
+               "wkv7_chunk": (wkv7_chunk, "launches"),
+               "matmul_int8": (matmul_int8, "launches"),
+               "matmul_int8_l": (matmul_int8_l, "launches"),
+               "matmul_4bit_l": (matmul_4bit_l, "launches"),
+               "ffn7_t1_l": (ffn7_t1_l, "launches"),
+               "v7_skinny_matmul (int8)": (fd.v7_skinny_matmul,
+                                           "int8_launches"),
+               "v7_skinny_matmul (4-bit)": (fd.v7_skinny_matmul,
+                                            "q4_launches"),
+               **{k.__name__: (k, "launches") for k in fd.KERNELS}}
+    heads = {"wkv7_t1": set(), "wkv7_chunk": set()}
+    real = {"wkv7_t1": v7.wkv7_t1, "wkv7_chunk": v7.wkv7_chunk}
+
+    def heads_of(name):
+        def call(S, r, *rest):
+            heads[name].add(int(r.shape[-2]))
+            return real[name](S, r, *rest)
+        return call
+
+    result = {}
+    v7.wkv7_t1, v7.wkv7_chunk = heads_of("wkv7_t1"), heads_of("wkv7_chunk")
+    try:
+        for mode, quant_map in (("bf16", None),
+                                ("int8", {0: "int8", 1: "int8"}),
+                                ("nf4", {0: "nf4", 1: "nf4"})):
+            t0 = time.monotonic()
+            params = params_to(stack_params(info, math, torch.bfloat16, "cpu",
+                                            quant=quant_map), dev)
+            four = mode == "nf4"
+            by_layer = "matmul_4bit_l" if four else "matmul_int8_l"
+            stack = f"v7_skinny_matmul ({'4-bit' if four else 'int8'})"
+
+            def engine(mesh):
+                return Engine(LoadedModel(info=info, params=params),
+                              max_batch=MAX_BATCH,
+                              token_chunk_size=MESH_CHUNK, device=dev,
+                              mesh=mesh)
+
+            # The references: the unsharded engine as it serves (T = 1
+            # through the fused stack's graph), held to the dp meshes, and
+            # the same engine with its fused layout taken out, on the layer
+            # path at T = 1 like the tp shards (the fused stack keeps the
+            # residual in f32, the layer path rounds it to bf16 each layer).
+            ref = engine(None)
+            layer = Engine(LoadedModel(info=info, params={
+                k: v for k, v in params.items() if k != fd.FUSED_KEY}),
+                max_batch=MAX_BATCH, token_chunk_size=MESH_CHUNK,
+                device=dev)
+            layer.model.params.pop(fd.FUSED_KEY)
+            layer._graph = layer.stack = None
+            refs = {}
+            for path, eng in (("fused", ref), ("layer", layer)):
+                r_first, r_logits, r_seq = mesh_prefill_and_chunk(eng,
+                                                                  prompts)
+                r_forced = mesh_forced(eng, r_first, r_seq)
+                check(torch.equal(r_forced.argmax(-1), torch.as_tensor(
+                    r_seq).long()), f"{mode}: the unsharded {path} path's "
+                    "chunk tokens are not its own greedy picks")
+                refs[path] = (r_first, r_logits, r_seq, r_forced)
+            # A reading: the layer path on the fused path's tokens.
+            f_first, _, f_seq, f_forced = refs["fused"]
+            mesh_prefill_and_chunk(layer, prompts)
+            paths_err = float((mesh_forced(layer, f_first, f_seq) - f_forced)
+                              .abs().max()) / float(f_forced.abs().max())
+            result[f"{mode} layer vs fused"] = paths_err
+            print(f"mesh parity {mode}: the unsharded engine's layer path "
+                  f"against its fused path on the same tokens, "
+                  f"{MESH_TOKENS} steps: {paths_err:.3e} of max |fused| (a "
+                  "reading)", flush=True)
+            del layer
+            for dp, tp in meshes:
+                r_first, r_logits, r_seq, r_forced = refs[
+                    "fused" if tp == 1 else "layer"]
+                scale = float(r_forced.abs().max())
+                label = f"{mode} [{dp}, {tp}]"
+                n = dp * tp
+                mesh = make_mesh(dp=dp, tp=tp, devices=(
+                    [dev] * n if places is None else places[:n]))
+                for k, attr in counted.values():
+                    setattr(k, attr, 0)
+                heads["wkv7_t1"].clear()
+                heads["wkv7_chunk"].clear()
+                replays0 = fd.DecodeGraph.total_replays
+                eng = engine(mesh)
+                first, logits, seq = mesh_prefill_and_chunk(eng, prompts)
+                forced = mesh_forced(eng, r_first, r_seq)
+                launches = {k: getattr(f, a) for k, (f, a) in counted.items()}
+                replays = fd.DecodeGraph.total_replays - replays0
+                for what, a in (("prefill", logits), ("forced", forced)):
+                    check(bool(torch.isfinite(a).all()),
+                          f"{label}: non-finite {what} logits")
+                err_pre = float((logits - r_logits).abs().max()) / float(
+                    r_logits.abs().max())
+                err = float((forced - r_forced).abs().max()) / scale
+                check(max(err_pre, err) <= BF16_MODEL_TOL,
+                      f"{label}: logits {err_pre:.3e} / {err:.3e} from the "
+                      f"unsharded engine's {'fused' if tp == 1 else 'layer'}"
+                      f" path (limit {BF16_MODEL_TOL})")
+                check(np.array_equal(first, logits.argmax(-1).numpy()),
+                      f"{label}: the prefill's tokens are not its greedy "
+                      "picks")
+                seq_t = torch.as_tensor(seq).long()
+                own = forced.argmax(-1)
+                same = torch.as_tensor(seq == r_seq)
+                for b in range(MAX_BATCH):
+                    # Up to the first token where the chunks part, the
+                    # inputs are the reference's: the picks must be its own.
+                    k = int(same[:, b].long().cumprod(0).sum())
+                    upto = min(k + 1, MESH_TOKENS)
+                    check(torch.equal(seq_t[:upto, b], own[:upto, b]),
+                          f"{label}: row {b}'s chunk is not its greedy "
+                          "walk")
+                if tp == 1:
+                    graphs = [s._graph for s in eng.shards]
+                    check(all(g is not None
+                              and g.tokens.shape[0] == MAX_BATCH // dp
+                              for g in graphs)
+                          and len({id(g) for g in graphs}) == dp,
+                          f"{label}: not one decode graph a rank at "
+                          f"{MAX_BATCH // dp} rows")
+                    check(replays == dp * 2 * MESH_TOKENS,
+                          f"{label}: {replays} graph replays, want "
+                          f"{dp * 2 * MESH_TOKENS}")
+                    want = [k.__name__ for k in fd.KERNELS]
+                else:
+                    H = info.num_head // tp
+                    check(heads == {"wkv7_t1": {H}, "wkv7_chunk": {H}},
+                          f"{label}: the WKV kernels ran at heads {heads}, "
+                          f"want {H}")
+                    want = ["wkv7_t1", "wkv7_chunk"]
+                    if quant_map:
+                        want += [by_layer, "ffn7_t1_l"]
+                if quant_map:  # the int8 head; the stack in its mode
+                    want += ["matmul_int8"] + ([stack] if tp == 1 else [])
+                for k in want:
+                    check(launches[k] > 0, f"{label}: {k} never launched")
+                bit_equal = (torch.equal(logits, r_logits)
+                             and torch.equal(forced, r_forced)
+                             and bool(same.all()))
+                result[label] = {
+                    "prefill_err": err_pre, "forced_err": err,
+                    "tokens_equal": int(same.sum()),
+                    "bit_equal": bit_equal, "replays": replays,
+                    "launches": {k: launches[k] for k in want},
+                    "heads": sorted(heads["wkv7_t1"])}
+                print(f"mesh parity {label} (places {mesh}): against the "
+                      f"unsharded {'fused' if tp == 1 else 'layer'} path, "
+                      f"prefill logits {err_pre:.3e}, teacher-forced logits "
+                      f"over {MESH_TOKENS} steps {err:.3e} of max "
+                      f"|unsharded| (limit {BF16_MODEL_TOL}); chunk tokens "
+                      "equal "
+                      f"{int(same.sum())} / {same.numel()}; bit-equal "
+                      f"{bit_equal}; {replays} graph replays; WKV at heads "
+                      f"{sorted(heads['wkv7_t1']) or '-'}; launches "
+                      f"{result[label]['launches']}", flush=True)
+                del eng
+            print(f"mesh parity {mode}: {time.monotonic() - t0:.1f} s",
+                  flush=True)
+            del ref, params
+    finally:
+        v7.wkv7_t1, v7.wkv7_chunk = real["wkv7_t1"], real["wkv7_chunk"]
+    return result
+
+
+async def mesh_serve(cfg: Path, dev) -> dict:
+    """The 24-layer bf16 checkpoint of ``write_site`` served through the
+    port's Runtime and Server on an Engine built with a [2, 2] mesh of
+    places on the one card: four concurrent greedy completions of
+    MESH_TOKENS tokens (the WKV kernels' counts zeroed before and read
+    after), one ``/api/oai/states`` read and ``/api/models/info``'s mesh.
+    First the middleware itself must refuse ``mesh = [2, 1]`` on a machine
+    of one card."""
+    import aiohttp
+    import torch
+    from aiohttp import web
+
+    from ai00_server_tpu_torch.engine import Engine
+    from ai00_server_tpu_torch.loader import load_model
+    from ai00_server_tpu_torch.middleware import Environment, Middleware
+    from ai00_server_tpu_torch.ops.wkv_chunk import wkv7_chunk
+    from ai00_server_tpu_torch.ops.wkv_t1 import wkv7_t1
+    from ai00_server_tpu_torch.parallel import make_mesh
+    from ai00_server_tpu_torch.runtime import Runtime
+    from ai00_server_tpu_torch.server.app import Server
+    from ai00_server_tpu_torch.server.config import Config
+    from ai00_server_tpu_torch.tokenizer import Tokenizer
+
+    config = Config.from_toml(str(cfg))
+    req = config.to_reload_request()
+    server = Server(config, device=dev)
+    n_cards = torch.cuda.device_count()
+    try:
+        await server.middleware.reload(dataclasses.replace(req, mesh=[2, 1]))
+        refusal = None
+    except ValueError as e:
+        refusal = str(e)
+    check(n_cards >= 2 or refusal == "mesh [2, 1] needs 2 devices, have 1",
+          f"the middleware's answer to mesh = [2, 1] on {n_cards} card(s): "
+          f"{refusal!r}")
+    check(server.middleware.env is None, "a refused mesh left a model")
+
+    gc.collect()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.monotonic()
+    model = load_model(req.model_path, dtype=torch.bfloat16, device=dev)
+    mesh = make_mesh(dp=2, tp=2, devices=[dev] * 4)
+    engine = Engine(model, max_batch=MAX_BATCH, token_chunk_size=CHUNK,
+                    device=dev, mesh=mesh)
+    tokenizer = Tokenizer.from_file(req.tokenizer_path)
+    request = dataclasses.replace(req, mesh=[2, 2])
+    entries, states = Middleware._load_states(request, model)
+    # Chunks of 4 steps (16 with no request waiting, the runtime's 4x):
+    # the completions' 16 tokens, where the default 16 (64) would run
+    # three idle quarters of each chunk on the host-bound layer path.
+    runtime = Runtime(engine, tokenizer, states=states, decode_chunk_size=4)
+    runtime.start()
+    server.middleware.env = Environment(
+        reload=request, model=model, engine=engine, runtime=runtime,
+        tokenizer=tokenizer, states=entries)
+    torch.cuda.synchronize()
+    load_s = time.monotonic() - t0
+    mem = torch.cuda.memory_allocated() - mem0
+    runner = web.AppRunner(server.app)
+    await runner.setup()
+    await web.TCPSite(runner, "127.0.0.1", 0).start()
+    base = f"http://127.0.0.1:{runner.addresses[0][1]}"
+
+    async def completion(http, prompt):
+        async with http.post(f"{base}/api/oai/completions", json={
+                "prompt": prompt, "max_tokens": MESH_TOKENS,
+                "sampler": {"type": "Nucleus", "top_k": 1},
+                "logit_bias": NO_EOS}) as r:
+            check(r.status == 200, f"completions answered {r.status}")
+            return await r.json()
+
+    result = {"load_s": load_s, "memory_bytes": mem}
+    try:
+        async with aiohttp.ClientSession() as http:
+            async with http.get(f"{base}/api/models/info") as r:
+                info = await r.json()
+            check(info["mesh"] == {"dp": 2, "tp": 2, "devices": 4},
+                  f"/api/models/info's mesh: {info['mesh']}")
+            await completion(http, "warm up")
+            wkv7_t1.launches = wkv7_chunk.launches = 0
+            prompts = [PROMPT * 3, PROMPT * 3, PROMPT + "beta",
+                       PROMPT + "beta"]
+            t0 = time.monotonic()
+            outs = await asyncio.gather(*[completion(http, p)
+                                          for p in prompts])
+            wall = time.monotonic() - t0
+            result["launches"] = {"wkv7_t1": wkv7_t1.launches,
+                                  "wkv7_chunk": wkv7_chunk.launches}
+            for name, n in result["launches"].items():
+                check(n > 0, f"the [2, 2] server's requests never launched "
+                      f"{name}")
+            texts = [o["choices"][0]["text"] for o in outs]
+            check(all(texts), "a completion on the mesh returned no text")
+            check(texts[0] == texts[1] and texts[2] == texts[3],
+                  "identical greedy requests on the mesh returned "
+                  "different text")
+            n_tokens = sum(o["usage"]["completion"] for o in outs)
+            check(n_tokens == 4 * MESH_TOKENS,
+                  f"{n_tokens} completion tokens on the mesh")
+            t0 = time.monotonic()
+            async with http.post(f"{base}/api/oai/states",
+                                 json={"input": PROMPT}) as r:
+                check(r.status == 200, f"/api/oai/states answered "
+                      f"{r.status}")
+                st = (await r.json())["data"][0]
+            values = st["data"]
+            check(len(values) > 0 and all(
+                v == v and abs(v) != float("inf") for v in values),
+                "/api/oai/states on the mesh returned no finite state")
+            result.update(
+                wall_s=wall, completion_tokens=n_tokens,
+                tokens_per_s=n_tokens / wall, sample=texts[0][:60],
+                states_s=time.monotonic() - t0, states_shape=st["shape"],
+                rows=[s.local_batch if hasattr(s, "local_batch")
+                      else s.max_batch for s in engine.shards])
+    finally:
+        await server.middleware.unload()
+        await runner.cleanup()
+    return result
+
+
+def mesh_flow(dev, cfg: Path) -> dict:
+    """Parity on logical meshes, the [2, 2] server, and distinct cards
+    where the machine has them."""
+    import torch
+
+    t0 = time.monotonic()
+    parity = phase_mesh_parity(dev)
+    print(f"mesh parity: {time.monotonic() - t0:.1f} s", flush=True)
+    t1 = time.monotonic()
+    served = asyncio.run(mesh_serve(cfg, dev))
+    print(f"mesh serving ([2, 2] over {dev} four times, {L_FULL} layers "
+          f"bf16, max_batch {MAX_BATCH}, chunk {CHUNK}) on {card_line()}: "
+          f"loaded in {served['load_s']:.1f} s, "
+          f"{served['memory_bytes'] / 1e6:.1f} MB of device memory "
+          f"allocated by the load; 4 concurrent greedy completions of "
+          f"{MESH_TOKENS} tokens in {served['wall_s']:.2f} s, "
+          f"{served['completion_tokens']} completion tokens -> "
+          f"{served['tokens_per_s']:.1f} tokens/s; /api/oai/states "
+          f"{served['states_shape']} in {served['states_s']:.3f} s; "
+          f"launches {served['launches']}; sample {served['sample']!r}; "
+          f"{time.monotonic() - t1:.1f} s", flush=True)
+    n = torch.cuda.device_count()
+    if n >= 2:
+        cards = [torch.device("cuda", i) for i in range(n)]
+        t1 = time.monotonic()
+        distinct = phase_mesh_parity(dev, places=cards, meshes=[
+            m for m in MESHES if m[0] * m[1] <= n])
+        print(f"mesh parity on {n} distinct cards: "
+              f"{time.monotonic() - t1:.1f} s", flush=True)
+    else:
+        distinct = None
+        print(f"mesh on distinct cards: not run: this machine has {n} card "
+              "(torch.cuda.device_count()); peer copies between cards need "
+              "2 or more", flush=True)
+    print(f"mesh_flow {time.monotonic() - t0:.1f} s", flush=True)
+    return {"parity": parity, "served": served, "distinct": distinct}
+
+
 async def serve(cfg: Path, kind: str, device="cuda") -> dict:
     """Serve one config over HTTP on localhost.  ``kind``: "bf16", "int8",
     "nf4", "v6 bf16", "v5 bf16" and "v4 bf16" get the burst (4 greedy
@@ -4871,6 +5288,7 @@ def main() -> None:
             cfgs = write_site(Path(tmp))
             served = {kind: asyncio.run(serve(cfgs[kind], kind))
                       for kind in cfgs}
+            mesh_flow(dev, cfgs["bf16"])
             (Path(tmp) / "rwkv7-0.4b.st").unlink()
             for version in ("v6", "v5", "v4"):
                 cfgs, path = write_site_family(Path(tmp), version)

@@ -102,6 +102,7 @@ def test_site_flow(site):
             info = await r.json()
             assert info["state"] == "loaded"
             assert info["model"]["version"] == "V7"
+            assert info["mesh"] is None  # one device
             r = await client.get("/api/adapters")
             assert "CPU (cpu)" in await r.json()
         finally:

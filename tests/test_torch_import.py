@@ -48,6 +48,10 @@ MODULES = [
     "ai00_server_tpu_torch.ops.wkv4",
     "ai00_server_tpu_torch.ops.wkv_chunk",
     "ai00_server_tpu_torch.ops.wkv_t1",
+    "ai00_server_tpu_torch.parallel",
+    "ai00_server_tpu_torch.parallel.collectives",
+    "ai00_server_tpu_torch.parallel.mesh_engine",
+    "ai00_server_tpu_torch.parallel.sharding",
     "ai00_server_tpu_torch.prefab",
     "ai00_server_tpu_torch.retrieval_store",
     "ai00_server_tpu_torch.runtime",
