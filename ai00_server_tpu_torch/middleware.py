@@ -19,8 +19,9 @@ the first ``quant`` layers quantized (``quant_type = "Int8"``, ``"NF4"``,
 
 ``mesh = [dp, tp]`` serves on a (dp, tp) mesh (``parallel/``): on a card
 the distinct cards ``cuda:0 .. cuda:{dp * tp - 1}``, on the CPU the CPU
-standing for every place.  tp > 1 serves RWKV-7 only; RWKV-6, -5 and -4
-raise ``NotImplementedError`` naming the ROADMAP item.
+standing for every place.  tp > 1 serves every version (each tp place
+holds H / tp heads, RWKV-4 C / tp channels, and the slices of the
+projections).
 """
 
 from __future__ import annotations
@@ -111,8 +112,7 @@ class ReloadRequest:
         """Raise for what the port does not serve: a prefab with LoRA
         entries (a prefab loads as it was saved; serving it unblended would
         silently drop the LoRA), and a mesh that is not ``[dp, tp]`` of
-        positive sizes.  (tp > 1 on RWKV-6, -5 or -4 raises when the engine
-        sees the model.)"""
+        positive sizes."""
         self.quant_map()  # an unknown quant_type
         if self.model_path.endswith(".prefab") and self.lora:
             raise ValueError(

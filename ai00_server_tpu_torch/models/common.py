@@ -110,27 +110,36 @@ def lora_mix(x, w1, w2, activation=torch.tanh):
     return torch.matmul(up(h), up(w2))
 
 
-def gated_channel_mix(p, shift, x, lengths, mix_k, mix_r):
+def gated_channel_mix(p, shift, x, lengths, mix_k, mix_r, partial=False):
     """The receptance-gated squared-ReLU channel mix of v4, v5 and v6:
     ``xk = x + dx * mix_k``, ``xr = x + dx * mix_r`` (``dx = x_prev - x``),
     ``sigmoid(xr @ receptance) * (relu(xk @ key)^2 @ value)``.  Returns
-    (out, new_shift)."""
+    (out, new_shift).
+
+    ``partial=True`` (a tensor-parallel place, :func:`forward_tp`): ``p``
+    holds the place's slices, so returns (the value product's f32 partial
+    sum, new_shift, the place's slice of the gate ``r``): the partial sums
+    are added over the places and rounded to the activation dtype before
+    the gate, gathered whole, multiplies them, as ``r * round(k @ value)``
+    does on one device."""
     xp = token_shift(shift, x)
     dx = xp - x
     xk = x + dx * mix_k
     xr = x + dx * mix_r
     k = torch.square(torch.relu(linear(xk, p["key"])))
     r = torch.sigmoid(linear(xr, p["receptance"]))
-    out = r * linear(k, p["value"])
-    return out, update_shift_state(shift, x, lengths)
+    new_shift = update_shift_state(shift, x, lengths)
+    if partial:
+        return linear(k, p["value"], torch.float32), new_shift, r
+    return r * linear(k, p["value"]), new_shift
 
 
-def channel_mix_v4(p, shift, x, lengths):
+def channel_mix_v4(p, shift, x, lengths, partial=False):
     """v4/v5 channel mix: the official ``x * mix + x_prev * (1 - mix)``,
     i.e. :func:`gated_channel_mix` with ``1 - time_mix_{k,r}`` (v6 stores
     its mixes in the other convention and passes them as they are)."""
     return gated_channel_mix(p, shift, x, lengths, 1.0 - p["time_mix_k"],
-                             1.0 - p["time_mix_r"])
+                             1.0 - p["time_mix_r"], partial)
 
 
 def channel_mix_v7(p, shift, x, lengths, out_dtype=None):
@@ -153,3 +162,63 @@ def channel_mix_v7(p, shift, x, lengths, out_dtype=None):
     k = torch.square(torch.relu(linear(xk, p["key"])))
     out = linear(k, p["value"], out_dtype)
     return out, update_shift_state(shift, x, lengths)
+
+
+def forward_tp(params, states, tokens, lengths, att, ffn):
+    """The layer path with the heads (v4: the channels), the hidden width
+    and the vocabulary split over the tp places of one dp rank
+    (``parallel/sharding``), for one controller: ``params`` and ``states``
+    hold one tree per place.  Each place runs its slice of every layer;
+    the partial sums of the output projection and the FFN's value are
+    added in f32 over the places (``parallel/collectives.all_reduce_sum``)
+    and rounded once before the residual adds (v4-v6: before the
+    receptance gate, gathered whole, multiplies them), so the activations
+    stay whole and equal on every place.
+
+    ``att(p, s, x, lengths, i, carry, shard)``: layer ``i``'s time mix on
+    place ``shard = (j, tp)``, ``s`` the place's state of the layer;
+    returns (the output projection's f32 partial sum, {key: new state},
+    carry) - ``carry`` is what a place hands its next layer (v7's
+    ``v_first``).  ``ffn(p, shift, x, lengths)``: the place's channel mix;
+    returns (the value product's f32 partial sum, new shift, the place's
+    slice of the gate or None).
+
+    tokens: (B, T) int, lengths: (B,), on the first place.  Returns (hidden
+    (B, T, C) post-ln_out on the first place, the new state of every
+    place)."""
+    from ..parallel.collectives import all_gather, all_reduce_sum, broadcast
+
+    tp = len(params)
+    places = [p["emb"].device for p in params]
+    toks, lens = broadcast(tokens, places), broadcast(lengths, places)
+    x = [p["emb"][t.long()] for p, t in zip(params, toks)]
+    carry = [None] * tp
+    new = [{k: [] for k in s} for s in states]
+    for i in range(len(params[0]["layers"])):
+        parts = []
+        for j in range(tp):
+            p = params[j]["layers"][i]
+            xa = layer_norm(x[j], p["ln1_w"], p["ln1_b"])
+            out, layer, carry[j] = att(
+                p["att"], {k: v[i] for k, v in states[j].items()}, xa,
+                lens[j], i, carry[j], (j, tp))
+            parts.append(out)
+            for k, v in layer.items():
+                new[j][k].append(v)
+        x = [xj + o.to(xj.dtype) for xj, o in zip(x, all_reduce_sum(parts))]
+        parts, gates = [], []
+        for j in range(tp):
+            p = params[j]["layers"][i]
+            xf = layer_norm(x[j], p["ln2_w"], p["ln2_b"])
+            out, ffn_x, gate = ffn(p["ffn"], states[j]["ffn_x"][i], xf,
+                                   lens[j])
+            parts.append(out)
+            gates.append(gate)
+            new[j]["ffn_x"].append(ffn_x)
+        outs = [o.to(xj.dtype) for xj, o in zip(x, all_reduce_sum(parts))]
+        if gates[0] is not None:
+            outs = [all_gather(gates, -1, place) * o
+                    for place, o in zip(places, outs)]
+        x = [xj + o for xj, o in zip(x, outs)]
+    hidden = layer_norm(x[0], params[0]["ln_out_w"], params[0]["ln_out_b"])
+    return hidden, [{k: torch.stack(v) for k, v in n.items()} for n in new]

@@ -20,6 +20,7 @@ import torch
 
 from ..ops import v4_decode as fd
 from ..ops.wkv4 import wkv4_chunk
+from . import common
 from .common import (acc_dtype, channel_mix_v4, layer_norm, length_mask,
                      linear, token_shift, update_shift_state)
 
@@ -42,11 +43,24 @@ def init_state(info, batch: int, dtype=torch.float32, device="cpu"):
     }
 
 
-def _att(p, att_x, aa, bb, pp, x, lengths):
+def _att(p, att_x, aa, bb, pp, x, lengths, shard=None):
     """v4 time mix over one chunk.  x: (B, T, C).  Returns (out, new_att_x,
-    aa, bb, pp)."""
+    aa, bb, pp).
+
+    ``shard=(j, tp)``: tp place ``j`` of ``tp`` (``parallel/sharding``):
+    the projections ``p`` holds are its slices, ``aa`` / ``bb`` / ``pp``
+    its C / tp channels; ``time_decay`` and ``time_first`` are sliced here
+    to them and ``out`` is its f32 partial sum of the output projection,
+    to be summed over the tp places.
+    """
     T = x.shape[1]
     acc = acc_dtype(x.dtype)
+    if shard is not None:
+        j, tp = shard
+        c = aa.shape[-1]
+        p = dict(p)
+        for k in ("time_decay", "time_first"):
+            p[k] = p[k][j * c:(j + 1) * c]
 
     xp = token_shift(att_x, x)
     dx = xp - x
@@ -64,7 +78,8 @@ def _att(p, att_x, aa, bb, pp, x, lengths):
     mask = length_mask(lengths, T)
     (aa, bb, pp), wkv = wkv4_chunk(aa, bb, pp, k, v, w, u, mask)
 
-    out = linear(r * wkv.to(x.dtype), p["output"])
+    out = linear(r * wkv.to(x.dtype), p["output"],
+                 None if shard is None else torch.float32)
     return out, update_shift_state(att_x, x, lengths), aa, bb, pp
 
 
@@ -96,3 +111,19 @@ def forward(params, state, tokens, lengths):
     new_state = {k: torch.stack(v) for k, v in new.items()}
     hidden = layer_norm(x, params["ln_out_w"], params["ln_out_b"])
     return hidden, new_state
+
+
+def forward_tp(params, states, tokens, lengths):
+    """The layer path on the tp places of one dp rank
+    (:func:`common.forward_tp`): :func:`_att` with ``shard`` on C / tp
+    channels, the gated channel mix on the place's slice of the hidden
+    width."""
+    def att(p, s, x, lengths, i, carry, shard):
+        out, att_x, aa, bb, pp = _att(p, s["att_x"], s["aa"], s["bb"],
+                                      s["pp"], x, lengths, shard)
+        return out, {"att_x": att_x, "aa": aa, "bb": bb, "pp": pp}, None
+
+    def ffn(p, shift, x, lengths):
+        return channel_mix_v4(p, shift, x, lengths, partial=True)
+
+    return common.forward_tp(params, states, tokens, lengths, att, ffn)

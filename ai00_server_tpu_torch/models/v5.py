@@ -31,18 +31,35 @@ from ..ops import v5_decode as fd
 from ..ops import v56_phased as pd
 from ..ops.wkv_chunk import wkv56_chunk
 from ..ops.wkv_t1 import wkv56_t1
+from . import common
 from .common import (GN_EPS, acc_dtype, channel_mix_v4, group_norm,
                      layer_norm, length_mask, linear, token_shift,
                      update_shift_state)
 from .v6 import init_state  # noqa: F401  (the same state: att_x, wkv, ffn_x)
 
 
-def _att(p, att_x, wkv, x, lengths):
+def _att(p, att_x, wkv, x, lengths, shard=None):
     """v5.2 time mix over one chunk.  x: (B, T, C).  Returns (out,
-    new_att_x, new_wkv)."""
-    B, T, C = x.shape
+    new_att_x, new_wkv).
+
+    ``shard=(j, tp)``: tp place ``j`` of ``tp`` (``parallel/sharding``):
+    the projections ``p`` holds are its slices, ``wkv`` its H / tp heads;
+    the (H, N) decay and bonus and ``ln_x_*`` are sliced here to its heads
+    and ``out`` is its f32 partial sum of the output projection, to be
+    summed over the tp places.
+    """
+    B, T, _ = x.shape
     H, N = p["time_first"].shape
     acc = acc_dtype(x.dtype)
+    if shard is not None:
+        j, tp = shard
+        H //= tp
+        p = dict(p)
+        for k in ("time_decay", "time_first"):
+            p[k] = p[k][j * H:(j + 1) * H]
+        for k in ("ln_x_w", "ln_x_b"):
+            p[k] = p[k][j * H * N:(j + 1) * H * N]
+    C = H * N
 
     xp = token_shift(att_x, x)
     dx = xp - x
@@ -70,7 +87,8 @@ def _att(p, att_x, wkv, x, lengths):
 
     y = y.reshape(B, T, C).to(x.dtype)
     y = group_norm(y, H, p["ln_x_w"], p["ln_x_b"], GN_EPS)
-    out = linear(y * g, p["output"])
+    out = linear(y * g, p["output"],
+                 None if shard is None else torch.float32)
     return (out, update_shift_state(att_x, x, lengths),
             new_wkv.to(wkv.dtype))
 
@@ -110,3 +128,17 @@ def forward(params, state, tokens, lengths):
     new_state = {k: torch.stack(v) for k, v in new.items()}
     hidden = layer_norm(x, params["ln_out_w"], params["ln_out_b"])
     return hidden, new_state
+
+
+def forward_tp(params, states, tokens, lengths):
+    """The layer path on the tp places of one dp rank
+    (:func:`common.forward_tp`): :func:`_att` with ``shard`` on H / tp
+    heads, v4's channel mix on the place's slice of the hidden width."""
+    def att(p, s, x, lengths, i, carry, shard):
+        out, att_x, wkv = _att(p, s["att_x"], s["wkv"], x, lengths, shard)
+        return out, {"att_x": att_x, "wkv": wkv}, None
+
+    def ffn(p, shift, x, lengths):
+        return channel_mix_v4(p, shift, x, lengths, partial=True)
+
+    return common.forward_tp(params, states, tokens, lengths, att, ffn)

@@ -34,6 +34,7 @@ from ..ops import v6_decode as fd
 from ..ops import v56_phased as pd
 from ..ops.wkv_chunk import wkv56_chunk
 from ..ops.wkv_t1 import wkv56_t1
+from . import common
 from .common import (GN_EPS, acc_dtype, gated_channel_mix, group_norm,
                      layer_norm, length_mask, linear, token_shift,
                      update_shift_state)
@@ -50,12 +51,31 @@ def init_state(info, batch: int, dtype=torch.float32, device="cpu"):
     }
 
 
-def _att(p, att_x, wkv, x, lengths):
+def _att(p, att_x, wkv, x, lengths, shard=None):
     """v6 time mix over one chunk.  x: (B, T, C).  Returns (out,
-    new_att_x, new_wkv)."""
-    B, T, C = x.shape
+    new_att_x, new_wkv).
+
+    ``shard=(j, tp)``: tp place ``j`` of ``tp`` (``parallel/sharding``):
+    the projections ``p`` holds are its slices, ``wkv`` its H / tp heads.
+    The shift LoRA (``mix_w1`` / ``mix_w2``) and ``decay_w1`` stay whole -
+    their outputs feed the whole-width inputs of the split products - and
+    ``decay_w2``'s columns, ``decay``, ``first`` and ``ln_x_*`` are sliced
+    here to the place's channels and heads; ``out`` is its f32 partial sum
+    of the output projection, to be summed over the tp places.
+    """
+    B, T, _ = x.shape
     H, N = p["first"].shape
     acc = acc_dtype(x.dtype)
+    if shard is not None:
+        j, tp = shard
+        H //= tp
+        lo, hi = j * H * N, (j + 1) * H * N
+        p = dict(p)
+        for k in ("decay", "ln_x_w", "ln_x_b"):
+            p[k] = p[k][lo:hi]
+        p["decay_w2"] = p["decay_w2"][:, lo:hi]
+        p["first"] = p["first"][j * H:(j + 1) * H]
+    C = H * N
 
     xp = token_shift(att_x, x)
     dx = xp - x
@@ -99,7 +119,8 @@ def _att(p, att_x, wkv, x, lengths):
 
     y = y.reshape(B, T, C).to(x.dtype)
     y = group_norm(y, H, p["ln_x_w"], p["ln_x_b"], GN_EPS)
-    out = linear(y * g, p["output"])
+    out = linear(y * g, p["output"],
+                 None if shard is None else torch.float32)
     return (out, update_shift_state(att_x, x, lengths),
             new_wkv.to(wkv.dtype))
 
@@ -141,3 +162,19 @@ def forward(params, state, tokens, lengths):
     new_state = {k: torch.stack(v) for k, v in new.items()}
     hidden = layer_norm(x, params["ln_out_w"], params["ln_out_b"])
     return hidden, new_state
+
+
+def forward_tp(params, states, tokens, lengths):
+    """The layer path on the tp places of one dp rank
+    (:func:`common.forward_tp`): :func:`_att` with ``shard`` on H / tp
+    heads, the gated channel mix on the place's slice of the hidden
+    width."""
+    def att(p, s, x, lengths, i, carry, shard):
+        out, att_x, wkv = _att(p, s["att_x"], s["wkv"], x, lengths, shard)
+        return out, {"att_x": att_x, "wkv": wkv}, None
+
+    def ffn(p, shift, x, lengths):
+        return gated_channel_mix(p, shift, x, lengths, p["mix_k"],
+                                 p["mix_r"], partial=True)
+
+    return common.forward_tp(params, states, tokens, lengths, att, ffn)

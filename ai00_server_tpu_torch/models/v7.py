@@ -32,6 +32,7 @@ from ..ops import v7_decode as fd
 from ..ops import v7_phased as pd
 from ..ops.wkv_chunk import wkv7_chunk
 from ..ops.wkv_t1 import wkv7_t1
+from . import common
 from .common import (GN_EPS, acc_dtype, channel_mix_v7, group_norm,
                      layer_norm, length_mask, linear, lora_mix, token_shift,
                      update_shift_state)
@@ -174,46 +175,16 @@ def forward(params, state, tokens, lengths):
 
 
 def forward_tp(params, states, tokens, lengths):
-    """The layer path with the heads, channels and vocabulary split over
-    the tp places of one dp rank (``parallel/sharding``), for one
-    controller: ``params`` and ``states`` hold one tree per place.  Each
-    place runs its slice of every layer (:func:`_att` with ``shard``, the
-    FFN on its slice of the hidden width); the partial sums of the output
-    projection and the FFN's value are added in f32 over the places
-    (``parallel/collectives.all_reduce_sum``) and rounded once before the
-    residual adds, so the activations stay whole and equal on every place.
+    """The layer path on the tp places of one dp rank
+    (:func:`common.forward_tp`): :func:`_att` with ``shard`` on H / tp
+    heads, ``v_first`` each place's own, the FFN on the place's slice of
+    the hidden width."""
+    def att(p, s, x, lengths, i, v_first, shard):
+        out, att_x, wkv, v_first = _att(p, s["att_x"], s["wkv"], x, v_first,
+                                        i, lengths, shard)
+        return out, {"att_x": att_x, "wkv": wkv}, v_first
 
-    tokens: (B, T) int, lengths: (B,), on the first place.  Returns (hidden
-    (B, T, C) post-ln_out on the first place, the new state of every place).
-    """
-    from ..parallel.collectives import all_reduce_sum, broadcast
+    def ffn(p, shift, x, lengths):
+        return (*channel_mix_v7(p, shift, x, lengths, torch.float32), None)
 
-    tp = len(params)
-    places = [p["emb"].device for p in params]
-    toks, lens = broadcast(tokens, places), broadcast(lengths, places)
-    x = [p["emb"][t.long()] for p, t in zip(params, toks)]
-    v_first = [None] * tp
-    new = [{"att_x": [], "wkv": [], "ffn_x": []} for _ in range(tp)]
-    for i in range(len(params[0]["layers"])):
-        parts = []
-        for j in range(tp):
-            p, s = params[j]["layers"][i], states[j]
-            xa = layer_norm(x[j], p["ln1_w"], p["ln1_b"])
-            out, att_x, wkv, v_first[j] = _att(
-                p["att"], s["att_x"][i], s["wkv"][i], xa, v_first[j], i,
-                lens[j], shard=(j, tp))
-            parts.append(out)
-            new[j]["att_x"].append(att_x)
-            new[j]["wkv"].append(wkv)
-        x = [xj + o.to(xj.dtype) for xj, o in zip(x, all_reduce_sum(parts))]
-        parts = []
-        for j in range(tp):
-            p = params[j]["layers"][i]
-            xf = layer_norm(x[j], p["ln2_w"], p["ln2_b"])
-            out, ffn_x = channel_mix_v7(p["ffn"], states[j]["ffn_x"][i], xf,
-                                        lens[j], torch.float32)
-            parts.append(out)
-            new[j]["ffn_x"].append(ffn_x)
-        x = [xj + o.to(xj.dtype) for xj, o in zip(x, all_reduce_sum(parts))]
-    hidden = layer_norm(x[0], params[0]["ln_out_w"], params[0]["ln_out_b"])
-    return hidden, [{k: torch.stack(v) for k, v in n.items()} for n in new]
+    return common.forward_tp(params, states, tokens, lengths, att, ffn)

@@ -1,9 +1,10 @@
 """Serving on more than one device: a (dp, tp) mesh of places.
 
 Port of ``ai00_server_tpu/parallel``: dp over the continuous-batching slot
-axis, tp over RWKV-7's heads, channels and vocabulary.  One controller owns
-every shard (``mesh_engine.MeshEngine``, built by ``Engine(..., mesh=)``);
-the collectives are peer copies (``collectives.py``).
+axis, tp over the heads (RWKV-4: the channels), the hidden width and the
+vocabulary.  One controller owns every shard (``mesh_engine.MeshEngine``,
+built by ``Engine(..., mesh=)``); the collectives are peer copies
+(``collectives.py``).
 """
 
 from .sharding import (  # noqa: F401

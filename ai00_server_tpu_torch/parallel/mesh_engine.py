@@ -16,13 +16,15 @@ it owns one engine per dp rank.
   params, max_batch / dp)``'s stack (the fused one at 8 rows a rank, where
   the whole batch would take the phased one).  Ranks on one device share
   one params tree, so the fused layout is installed once per weight.
-* At tp > 1 (RWKV-7 only, as the JAX package's tp path is the generic
+* At tp > 1 (every version: the JAX package's tp path is the generic
   layer path) a rank's engine is a :class:`TPShard`: the weights split over
   its tp places (``parallel/sharding.shard_params``), the WKV state on its
-  heads, and the layer path ``models/v7.forward_tp`` (``wkv7_chunk`` and
-  ``wkv7_t1`` on H / tp heads, the quantized products on sliced codes);
-  the LM head runs on each place's vocabulary slice and is gathered on the
-  rank's first place.  No fused or phased stack, no graph.
+  heads (RWKV-4's on its channels), and the version's layer path
+  ``models/v*.forward_tp`` (``wkv7_chunk`` / ``wkv7_t1``, ``wkv56_chunk``
+  / ``wkv56_t1`` on H / tp heads, ``wkv4_chunk`` on C / tp channels, the
+  quantized products on sliced codes); the LM head runs on each place's
+  vocabulary slice and is gathered on the rank's first place.  No fused or
+  phased stack, no graph.
 * A quantized model gets the int8 LM head here as on one device (split on
   the vocabulary at tp > 1); the JAX engine skips it on a mesh.
 * Each dp rank samples from its own generator: a sharded run equals the
@@ -37,7 +39,7 @@ import torch
 
 from ..engine import Engine, StepResult, head_logits, install_head_q
 from ..loader import LoadedModel
-from ..models import get_version_module, v7
+from ..models import get_version_module
 from . import sharding
 from .collectives import all_gather, broadcast
 
@@ -45,10 +47,11 @@ from .collectives import all_gather, broadcast
 class TPShard(Engine):
     """One dp rank's engine at tp > 1: the :class:`Engine` with its state
     pool split over the rank's tp places (one dict each, the WKV on its
-    heads, ``att_x`` / ``ffn_x`` whole on every place) and the forward of
-    ``models/v7.forward_tp``.  Its sampler, bias, mask, DFA and hidden-sum
-    pools live on the first place.  Row reads gather the heads into one
-    row on the first place; row writes split them."""
+    heads or channels, ``att_x`` / ``ffn_x`` whole on every place) and the
+    forward of the version's ``forward_tp``.  Its sampler, bias, mask,
+    DFA and hidden-sum pools live on the first place.  Row reads gather
+    the heads (channels) into one row on the first place; row writes split
+    them."""
 
     def __init__(self, model: LoadedModel, params: list, max_batch: int,
                  token_chunk_size: int, places):
@@ -69,8 +72,8 @@ class TPShard(Engine):
         return None
 
     def _forward(self, tokens, lengths):
-        hidden, new = v7.forward_tp(self.part_params, self.state_pool,
-                                    tokens, lengths)
+        hidden, new = self.module.forward_tp(self.part_params,
+                                             self.state_pool, tokens, lengths)
         for pool, part in zip(self.state_pool, new):
             for k, p in pool.items():
                 p.copy_(part[k])
@@ -78,7 +81,8 @@ class TPShard(Engine):
 
     def _forward_state(self, state: dict, tokens, lengths):
         parts = sharding.shard_state(state, self._tp_mesh)[0]
-        hidden, new = v7.forward_tp(self.part_params, parts, tokens, lengths)
+        hidden, new = self.module.forward_tp(self.part_params, parts, tokens,
+                                             lengths)
         return hidden, sharding.unshard_state([new], self.device)
 
     def _logits(self, x):
@@ -117,11 +121,6 @@ class MeshEngine:
                  token_chunk_size: int = 128, device=None, *, mesh):
         """``device`` is not read: the mesh's places are the devices."""
         dp, tp = mesh.shape["dp"], mesh.shape["tp"]
-        version = model.info.version.value
-        if tp > 1 and version != "V7":
-            raise NotImplementedError(
-                f"RWKV-{version[1:]} at tp = {tp}: tensor parallel serves "
-                "RWKV-7 only (the ROADMAP multi-device item)")
         if max_batch % dp:
             raise ValueError(f"max_batch {max_batch} not divisible by "
                              f"dp={dp}")

@@ -8,7 +8,8 @@ Port of ``ai00_server_tpu/parallel/sharding.py``.  Mesh axes:
 * ``tp`` — tensor parallel over heads, channels and the vocabulary:
   projections split on their ``out`` dim, the output projection and the
   FFN's value on their ``in`` dim (their partial sums are added across the
-  tp places), the LM head on the vocabulary, the WKV state on its heads.
+  tp places), the LM head on the vocabulary, the WKV state on its heads
+  (RWKV-4's on its channels).
 
 A *place* is a ``torch.device``.  The JAX mesh is one controller over its
 local devices with XLA placing the collectives; the port keeps the one
@@ -127,10 +128,18 @@ def param_specs(params) -> dict:
     return specs
 
 
+# RWKV-4's per-channel WKV ``(L, B, C)``: split on its channels under tp,
+# where the JAX ``state_specs`` keeps it whole (each place updates only its
+# channels, so whole copies would part).
+_TP_CHANNEL_STATE = {"aa", "bb", "pp"}
+
+
 def state_specs(state) -> dict:
     """``{key: (dp dim, tp dim or None)}``: every leaf ``(L, B, ...)`` splits
-    its batch on dp; the 5-D WKV ``(L, B, H, N, N)`` also its heads on tp."""
-    return {k: (1, 2 if v.ndim == 5 else None) for k, v in state.items()}
+    its batch on dp; the 5-D WKV ``(L, B, H, N, N)`` also its heads on tp,
+    RWKV-4's ``aa`` / ``bb`` / ``pp`` their channels."""
+    return {k: (1, 2 if v.ndim == 5 or k in _TP_CHANNEL_STATE else None)
+            for k, v in state.items()}
 
 
 def sampler_state_specs(ss) -> dict:
@@ -287,8 +296,8 @@ def unshard_params(grid: list, device) -> dict:
 
 def shard_state(state, mesh: Mesh) -> list:
     """A state tree ``(L, B, ...)`` on every place: ``grid[d][j]`` holds
-    dp rank ``d``'s rows and, for the WKV, tp place ``j``'s heads (each a
-    contiguous tensor of its own)."""
+    dp rank ``d``'s rows and, for the WKV, tp place ``j``'s heads or
+    channels (each a contiguous tensor of its own)."""
     dp, tp = mesh.shape["dp"], mesh.shape["tp"]
     specs = state_specs(state)
     grid = []
@@ -309,8 +318,8 @@ def shard_state(state, mesh: Mesh) -> list:
 
 def unshard_state(grid: list, device) -> dict:
     """The inverse of :func:`shard_state`: the whole state on ``device``
-    (the batch from every dp rank, the WKV heads from every tp place, the
-    other leaves from each rank's first place)."""
+    (the batch from every dp rank, the WKV heads or channels from every tp
+    place, the other leaves from each rank's first place)."""
     specs = state_specs(grid[0][0])
     out = {}
     for k, (bd, hd) in specs.items():

@@ -2220,6 +2220,126 @@ def phase_wkv_gn_batches(dev, rows: dict) -> None:
         torch.cuda.empty_cache()
 
 
+# The layer path's WKV kernels at the shapes a tp place gives them
+# (mesh_flow's RWKV-6 / -5 / -4 at tp = 2): v6 1B6 on H / 2 = 16 heads
+# (dense decay), v5 0.4B on 8 (static decay), v4 0.4B on C / 2 = 512
+# channels; B = 8 rows (a [1, 2] mesh) and 4 (a dp rank of [2, 2]).
+TP_BS = (MAX_BATCH, MAX_BATCH // 2)
+
+
+def phase_tp_kernels(dev, rows: dict) -> None:
+    """Rows 10 (``wkv56_t1``), 11 (``wkv56_chunk``) and 15d
+    (``wkv4_chunk``) at their tp shapes: each held against its plain
+    version at KERNEL_TOL (the chunks at T = CHUNK with a ragged row, v4
+    at T = 1 too) and timed on inputs rotating past the L2, beside its
+    bound; kept as ``rows[name]["tp"]``."""
+    import torch
+
+    from ai00_server_tpu_torch.ops.wkv4 import wkv4_chunk, wkv4_chunk_plain
+    from ai00_server_tpu_torch.ops.wkv_chunk import (wkv56_chunk,
+                                                     wkv56_chunk_plain)
+    from ai00_server_tpu_torch.ops.wkv_t1 import wkv56_t1, wkv56_t1_plain
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 20)
+    N, card = HEAD, card_line()
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    def flat(outs):
+        return [t for o in outs for t in (o if isinstance(o, tuple) else (o,))]
+
+    def case(kernel, plain, make, nbytes_, flops, what):
+        first = make()
+        got, want = flat(kernel(*first)), flat(plain(*first))
+        torch.cuda.synchronize()
+        err = 0.0
+        for a, b in zip(got, want):
+            e, rel = rel_err(a, b)
+            check(rel <= KERNEL_TOL, f"{what} disagrees with its plain "
+                  f"version: {rel:.3e} of max(1, |plain|)")
+            err = max(err, e)
+        n = int(2 * L2_BYTES // nbytes_) + 1
+        sets = [first] + [make() for _ in range(n - 1)]
+        ms = device_ms(rotating(lambda i: kernel(*sets[i]), n), max(20, n))
+        b_ms, b_by = bound(nbytes_, flops)
+        print(f"{what}: max_abs_err {err:.3e} (tolerance {KERNEL_TOL} x "
+              f"max(1, |plain|)); {ms:.5f} ms on the device over {n} "
+              f"rotating input sets, bound {b_ms:.5f} ms by {b_by}; {card}",
+              flush=True)
+        return {"ms": ms, "bound_ms": b_ms, "bound_by": b_by,
+                "max_abs_err": err}
+
+    def mask(B, T):
+        lens = torch.full((B,), T, device=dev)
+        lens[1] = T // 2  # a ragged row
+        return torch.arange(T, device=dev)[None, :] < lens[:, None]
+
+    tp = {"wkv56_t1": {}, "wkv56_chunk": {}, "wkv4_chunk": {}}
+    for version, H, static in (("v6", C6 // HEAD // 2, False),
+                               ("v5", C // HEAD // 2, True)):
+        u = rnd(H, N, scale=0.5)
+        w_static = torch.exp(-torch.exp(rnd(H, N, scale=0.5)))
+        for B in TP_BS:
+            elems = B * H * N * N
+            ones = torch.ones(B, dtype=torch.bool, device=dev)
+
+            def make_t1():
+                w = w_static if static else torch.exp(
+                    -torch.exp(rnd(B, H, N, scale=0.5)))
+                return (rnd(B, H, N, N), *(rnd(B, H, N, scale=0.3)
+                                           for _ in range(3)), w, u, ones)
+
+            vec = B * H * N * 4
+            tp["wkv56_t1"][f"{version} B={B} H={H}"] = case(
+                wkv56_t1, wkv56_t1_plain, make_t1,
+                2 * elems * 4 + (4 if static else 5) * vec
+                + (2 if static else 1) * H * N * 4 + B, 7 * elems,
+                f"wkv56_t1 at a tp place ({version}, B={B}, H={H}, "
+                f"{'static' if static else 'dense'} decay)")
+            m, T = mask(B, CHUNK), CHUNK
+
+            def make_chunk():
+                w = w_static if static else torch.exp(
+                    -torch.exp(rnd(B, T, H, N, scale=0.5)))
+                return (rnd(B, H, N, N), *(rnd(B, T, H, N, scale=0.3)
+                                           for _ in range(3)), w, u, m)
+
+            n_valid = int(m.sum())
+            tp["wkv56_chunk"][f"{version} B={B} H={H} T={T}"] = case(
+                wkv56_chunk, wkv56_chunk_plain, make_chunk,
+                2 * elems * 4 + (4 if static else 5) * vec * T
+                + (2 if static else 1) * H * N * 4 + B * T,
+                H * N * N * (7 * n_valid + 5 * (B * T - n_valid)),
+                f"wkv56_chunk at a tp place ({version}, B={B}, H={H}, "
+                f"T={T}, {'static' if static else 'dense'} decay)")
+    C4 = C // 2
+    w4 = -torch.exp(rnd(C4, scale=0.5))
+    u4 = rnd(C4, scale=0.5)
+    for B in TP_BS:
+        for T in (CHUNK, 1):
+            m = mask(B, T) if T > 1 else torch.ones(B, 1, dtype=torch.bool,
+                                                    device=dev)
+
+            def make4():
+                bb = torch.rand(B, C4, generator=gen, device=dev) + 0.5
+                return (rnd(B, C4), bb, rnd(B, C4),
+                        rnd(B, T, C4).to(torch.bfloat16),
+                        rnd(B, T, C4).to(torch.bfloat16), w4, u4, m)
+
+            n_valid = int(m.sum())
+            tp["wkv4_chunk"][f"v4 B={B} C={C4} T={T}"] = case(
+                wkv4_chunk, wkv4_chunk_plain, make4,
+                2 * 3 * B * C4 * 4 + 2 * B * T * C4 * 2 + B * T * C4 * 4
+                + 2 * C4 * 4 + B * T,
+                C4 * (25 * n_valid + 13 * (B * T - n_valid)),
+                f"wkv4_chunk at a tp place (v4, B={B}, C={C4}, T={T}, bf16 "
+                "k and v)")
+    for name, shapes in tp.items():
+        rows[name]["tp"] = shapes
+
+
 def phase_phased_kernels(dev) -> dict:
     """``phased_matmul`` (``csrc/phased.cu``) against its plain version on
     the four big launches of a v7 layer (r/k/v, Wo, fkey, fval) at the 0.4B
@@ -4581,6 +4701,10 @@ def print_wide(label: str, stacks: dict) -> None:
 # partial sums added, the vocab slices of the head gathered.
 MESHES = ((2, 1), (1, 2), (2, 2))
 MESH_TOKENS = 16   # greedy tokens of the parity chunk and each completion
+# The v7 [2, 2] server's depth: the first 12 of the 24-layer checkpoint's
+# layers, which leaves the time limit room for the RWKV-6 / -5 / -4 tp
+# cases and the v6 [2, 2] server.
+MESH_SERVE_LAYERS = L_FULL // 2
 MESH_CHUNK = 64    # the parity prefill's token_chunk_size
 MESH_LENGTHS = (64, 40, 17, 1, 64, 33, 8, 50)  # the parity prompts' tokens
 
@@ -4627,63 +4751,99 @@ def mesh_forced(engine, first, seq):
     return torch.stack(out)
 
 
-def phase_mesh_parity(dev, places=None, meshes=MESHES) -> dict:
-    """The 0.4B width at 2 layers, bf16, all-int8 and all-nf4, on each of
-    MESHES at max_batch = MAX_BATCH against the unsharded engine on the
-    same card: the prefill step's logits, and each step of the reference's greedy
-    chunk fed to both (teacher-forced logits), held to BF16_MODEL_TOL; each
-    engine's own chunk tokens are its own greedy picks on those logits, so
-    two chunks part only at a near tie.  ``places``: the devices of the
-    places (default: the one card, repeated).  Checks each dp rank's own
-    decode graph at B / dp rows and the tp layer path's WKV kernels on
-    H / tp heads, and the kernels each run launched."""
+# RWKV-6 / -5 / -4 at tp > 1 (their parity models: v6 at the 1B6 width, v5
+# and v4 at the 0.4B width, 2 layers): every weight mode on [2, 2], bf16
+# and int8 on [1, 2] as well.
+FAMILY_MESHES = {"bf16": ((1, 2), (2, 2)), "int8": ((1, 2), (2, 2)),
+                 "nf4": ((2, 2),)}
+# The layer path's WKV kernels of each version.
+TP_WKV = {"v7": ("wkv7_t1", "wkv7_chunk"), "v6": ("wkv56_t1", "wkv56_chunk"),
+          "v5": ("wkv56_t1", "wkv56_chunk"), "v4": ("wkv4_chunk",)}
+
+
+def mesh_cases(version: str, max_places: int = 4) -> dict:
+    """{weight mode: the meshes of ``phase_mesh_parity``} for a version,
+    those of at most ``max_places`` places."""
+    cases = ({mode: MESHES for mode in ("bf16", "int8", "nf4")}
+             if version == "v7" else FAMILY_MESHES)
+    return {mode: [m for m in ms if m[0] * m[1] <= max_places]
+            for mode, ms in cases.items()}
+
+
+def phase_mesh_parity(dev, places=None, version: str = "v7",
+                      max_places: int = 4) -> dict:
+    """The 2-layer parity model of ``version`` (v7 and v5 / v4 at the 0.4B
+    width, v6 at the 1B6 width; bf16, all-int8 and all-nf4) on each mesh of
+    ``mesh_cases`` at max_batch = MAX_BATCH against the unsharded engine on
+    the same card: the prefill step's logits, and each step of the
+    reference's greedy chunk fed to both (teacher-forced logits), held to
+    BF16_MODEL_TOL; each engine's own chunk tokens are its own greedy picks
+    on those logits, so two chunks part only at a near tie.  ``places``:
+    the devices of the places (default: the one card, repeated).  Checks
+    each dp rank's own decode graph at B / dp rows (v7), the tp layer
+    path's WKV kernels on H / tp heads (v4: C / tp channels), and the
+    kernels each run launched."""
     import numpy as np
     import torch
 
     from ai00_server_tpu_torch.engine import Engine
     from ai00_server_tpu_torch.loader import LoadedModel, stack_params
-    from ai00_server_tpu_torch.models import v7
-    from ai00_server_tpu_torch.ops import v7_decode as fd
+    from ai00_server_tpu_torch.models import get_version_module
+    from ai00_server_tpu_torch.ops import fused_decode
+    from ai00_server_tpu_torch.ops import v7_decode as v7d
     from ai00_server_tpu_torch.ops.ffn import ffn7_t1_l
+    from ai00_server_tpu_torch.ops.quant import QuantizedRows
     from ai00_server_tpu_torch.ops.quant_matmul import (matmul_4bit_l,
                                                         matmul_int8,
                                                         matmul_int8_l)
-    from ai00_server_tpu_torch.ops.wkv_chunk import wkv7_chunk
-    from ai00_server_tpu_torch.ops.wkv_t1 import wkv7_t1
+    from ai00_server_tpu_torch.ops.wkv4 import wkv4_chunk
+    from ai00_server_tpu_torch.ops.wkv_chunk import wkv7_chunk, wkv56_chunk
+    from ai00_server_tpu_torch.ops.wkv_t1 import wkv7_t1, wkv56_t1
     from ai00_server_tpu_torch.parallel import make_mesh
     from ai00_server_tpu_torch.testing import make_raw_weights
 
-    info = model_info(2)
+    info = model_info(2, version)
+    module = get_version_module(info.version)
+    fd = fused_decode.module_for(info.version.value)
     math = make_raw_weights(info, seed=SEED, dtype=np.float32,
-                            lora_dims=LORA)
+                            lora_dims=lora_dims(version))
+    if version != "v7":
+        math = fan_in_scaled(math)
     rng = np.random.default_rng(SEED + 19)
     prompts = [rng.integers(1, VOCAB, n).tolist() for n in MESH_LENGTHS]
-    counted = {"wkv7_t1": (wkv7_t1, "launches"),
-               "wkv7_chunk": (wkv7_chunk, "launches"),
-               "matmul_int8": (matmul_int8, "launches"),
+    wkv_names = TP_WKV[version]
+    kernels = {"wkv7_t1": wkv7_t1, "wkv7_chunk": wkv7_chunk,
+               "wkv56_t1": wkv56_t1, "wkv56_chunk": wkv56_chunk,
+               "wkv4_chunk": wkv4_chunk}
+    counted = {"matmul_int8": (matmul_int8, "launches"),
                "matmul_int8_l": (matmul_int8_l, "launches"),
                "matmul_4bit_l": (matmul_4bit_l, "launches"),
-               "ffn7_t1_l": (ffn7_t1_l, "launches"),
-               "v7_skinny_matmul (int8)": (fd.v7_skinny_matmul,
-                                           "int8_launches"),
-               "v7_skinny_matmul (4-bit)": (fd.v7_skinny_matmul,
-                                            "q4_launches"),
+               **{name: (kernels[name], "launches") for name in wkv_names},
                **{k.__name__: (k, "launches") for k in fd.KERNELS}}
-    heads = {"wkv7_t1": set(), "wkv7_chunk": set()}
-    real = {"wkv7_t1": v7.wkv7_t1, "wkv7_chunk": v7.wkv7_chunk}
+    if version == "v7":
+        counted.update({
+            "ffn7_t1_l": (ffn7_t1_l, "launches"),
+            "v7_skinny_matmul (int8)": (v7d.v7_skinny_matmul,
+                                        "int8_launches"),
+            "v7_skinny_matmul (4-bit)": (v7d.v7_skinny_matmul,
+                                         "q4_launches")})
+    heads = {name: set() for name in wkv_names}
 
     def heads_of(name):
-        def call(S, r, *rest):
-            heads[name].add(int(r.shape[-2]))
-            return real[name](S, r, *rest)
+        def call(*args):
+            # v4: aa (B, C / tp); v5-v7: r (B, [T,] H / tp, N).
+            heads[name].add(int(args[0].shape[-1] if name == "wkv4_chunk"
+                                else args[1].shape[-2]))
+            return kernels[name](*args)
         return call
 
+    tag = "" if version == "v7" else f"{version} "
     result = {}
-    v7.wkv7_t1, v7.wkv7_chunk = heads_of("wkv7_t1"), heads_of("wkv7_chunk")
+    for name in wkv_names:
+        setattr(module, name, heads_of(name))
     try:
-        for mode, quant_map in (("bf16", None),
-                                ("int8", {0: "int8", 1: "int8"}),
-                                ("nf4", {0: "nf4", 1: "nf4"})):
+        for mode, meshes in mesh_cases(version, max_places).items():
+            quant_map = None if mode == "bf16" else {0: mode, 1: mode}
             t0 = time.monotonic()
             params = params_to(stack_params(info, math, torch.bfloat16, "cpu",
                                             quant=quant_map), dev)
@@ -4710,37 +4870,40 @@ def phase_mesh_parity(dev, places=None, meshes=MESHES) -> dict:
             layer.model.params.pop(fd.FUSED_KEY)
             layer._graph = layer.stack = None
             refs = {}
-            for path, eng in (("fused", ref), ("layer", layer)):
+            paths = ({"fused": ref} if any(tp == 1 for _, tp in meshes)
+                     else {}) | {"layer": layer}
+            for path, eng in paths.items():
                 r_first, r_logits, r_seq = mesh_prefill_and_chunk(eng,
                                                                   prompts)
                 r_forced = mesh_forced(eng, r_first, r_seq)
                 check(torch.equal(r_forced.argmax(-1), torch.as_tensor(
-                    r_seq).long()), f"{mode}: the unsharded {path} path's "
-                    "chunk tokens are not its own greedy picks")
+                    r_seq).long()), f"{tag}{mode}: the unsharded {path} "
+                    "path's chunk tokens are not its own greedy picks")
                 refs[path] = (r_first, r_logits, r_seq, r_forced)
-            # A reading: the layer path on the fused path's tokens.
-            f_first, _, f_seq, f_forced = refs["fused"]
-            mesh_prefill_and_chunk(layer, prompts)
-            paths_err = float((mesh_forced(layer, f_first, f_seq) - f_forced)
-                              .abs().max()) / float(f_forced.abs().max())
-            result[f"{mode} layer vs fused"] = paths_err
-            print(f"mesh parity {mode}: the unsharded engine's layer path "
-                  f"against its fused path on the same tokens, "
-                  f"{MESH_TOKENS} steps: {paths_err:.3e} of max |fused| (a "
-                  "reading)", flush=True)
+            if version == "v7":  # a reading: the layer path, fused tokens
+                f_first, _, f_seq, f_forced = refs["fused"]
+                mesh_prefill_and_chunk(layer, prompts)
+                paths_err = float((mesh_forced(layer, f_first, f_seq)
+                                   - f_forced).abs().max()) / float(
+                    f_forced.abs().max())
+                result[f"{mode} layer vs fused"] = paths_err
+                print(f"mesh parity {mode}: the unsharded engine's layer path "
+                      f"against its fused path on the same tokens, "
+                      f"{MESH_TOKENS} steps: {paths_err:.3e} of max |fused| "
+                      "(a reading)", flush=True)
             del layer
             for dp, tp in meshes:
                 r_first, r_logits, r_seq, r_forced = refs[
                     "fused" if tp == 1 else "layer"]
                 scale = float(r_forced.abs().max())
-                label = f"{mode} [{dp}, {tp}]"
+                label = f"{tag}{mode} [{dp}, {tp}]"
                 n = dp * tp
                 mesh = make_mesh(dp=dp, tp=tp, devices=(
                     [dev] * n if places is None else places[:n]))
                 for k, attr in counted.values():
                     setattr(k, attr, 0)
-                heads["wkv7_t1"].clear()
-                heads["wkv7_chunk"].clear()
+                for seen in heads.values():
+                    seen.clear()
                 replays0 = fd.DecodeGraph.total_replays
                 eng = engine(mesh)
                 first, logits, seq = mesh_prefill_and_chunk(eng, prompts)
@@ -4784,13 +4947,28 @@ def phase_mesh_parity(dev, places=None, meshes=MESHES) -> dict:
                           f"{dp * 2 * MESH_TOKENS}")
                     want = [k.__name__ for k in fd.KERNELS]
                 else:
-                    H = info.num_head // tp
-                    check(heads == {"wkv7_t1": {H}, "wkv7_chunk": {H}},
+                    H = info.num_head // tp  # v4: num_head = C
+                    check(heads == {name: {H} for name in wkv_names},
                           f"{label}: the WKV kernels ran at heads {heads}, "
                           f"want {H}")
-                    want = ["wkv7_t1", "wkv7_chunk"]
+                    check(replays == 0, f"{label}: {replays} graph replays")
+                    want = list(wkv_names)
                     if quant_map:
-                        want += [by_layer, "ffn7_t1_l"]
+                        want += [by_layer] + (["ffn7_t1_l"]
+                                              if version == "v7" else [])
+                        # The in-split products: codes sliced on whole
+                        # scale blocks, or kept whole as QuantizedRows.
+                        part = eng.shards[0].part_params[-1]["layers"][0]
+                        in_split = {
+                            f"{p_}.{k_}": ("rows of the whole codes"
+                                           if isinstance(part[p_][k_],
+                                                         QuantizedRows)
+                                           else "sliced codes "
+                                           f"{tuple(part[p_][k_].shape)}")
+                            for p_, k_ in (("att", "output"),
+                                           ("ffn", "value"))}
+                        print(f"{label}: the in-split products of a place: "
+                              f"{in_split}", flush=True)
                 if quant_map:  # the int8 head; the stack in its mode
                     want += ["matmul_int8"] + ([stack] if tp == 1 else [])
                 for k in want:
@@ -4803,7 +4981,7 @@ def phase_mesh_parity(dev, places=None, meshes=MESHES) -> dict:
                     "tokens_equal": int(same.sum()),
                     "bit_equal": bit_equal, "replays": replays,
                     "launches": {k: launches[k] for k in want},
-                    "heads": sorted(heads["wkv7_t1"])}
+                    "heads": sorted(heads[wkv_names[0]])}
                 print(f"mesh parity {label} (places {mesh}): against the "
                       f"unsharded {'fused' if tp == 1 else 'layer'} path, "
                       f"prefill logits {err_pre:.3e}, teacher-forced logits "
@@ -4811,26 +4989,31 @@ def phase_mesh_parity(dev, places=None, meshes=MESHES) -> dict:
                       f"|unsharded| (limit {BF16_MODEL_TOL}); chunk tokens "
                       "equal "
                       f"{int(same.sum())} / {same.numel()}; bit-equal "
-                      f"{bit_equal}; {replays} graph replays; WKV at heads "
-                      f"{sorted(heads['wkv7_t1']) or '-'}; launches "
+                      f"{bit_equal}; {replays} graph replays; WKV at "
+                      f"{'channels' if version == 'v4' else 'heads'} "
+                      f"{sorted(heads[wkv_names[0]]) or '-'}; launches "
                       f"{result[label]['launches']}", flush=True)
                 del eng
-            print(f"mesh parity {mode}: {time.monotonic() - t0:.1f} s",
+            print(f"mesh parity {tag}{mode}: {time.monotonic() - t0:.1f} s",
                   flush=True)
             del ref, params
     finally:
-        v7.wkv7_t1, v7.wkv7_chunk = real["wkv7_t1"], real["wkv7_chunk"]
+        for name in wkv_names:
+            setattr(module, name, kernels[name])
     return result
 
 
-async def mesh_serve(cfg: Path, dev) -> dict:
-    """The 24-layer bf16 checkpoint of ``write_site`` served through the
+async def mesh_serve(cfg: Path, dev, version: str = "v7",
+                     layers: int | None = None) -> dict:
+    """The checkpoint of ``cfg`` (v7: ``write_site``'s 24-layer bf16 one,
+    v6: ``write_site_family``'s 1B6 one at L6 layers), its first ``layers``
+    layers (default: all), served through the
     port's Runtime and Server on an Engine built with a [2, 2] mesh of
     places on the one card: four concurrent greedy completions of
     MESH_TOKENS tokens (the WKV kernels' counts zeroed before and read
     after), one ``/api/oai/states`` read and ``/api/models/info``'s mesh.
-    First the middleware itself must refuse ``mesh = [2, 1]`` on a machine
-    of one card."""
+    First (v7) the middleware itself must refuse ``mesh = [2, 1]`` on a
+    machine of one card."""
     import aiohttp
     import torch
     from aiohttp import web
@@ -4838,32 +5021,42 @@ async def mesh_serve(cfg: Path, dev) -> dict:
     from ai00_server_tpu_torch.engine import Engine
     from ai00_server_tpu_torch.loader import load_model
     from ai00_server_tpu_torch.middleware import Environment, Middleware
-    from ai00_server_tpu_torch.ops.wkv_chunk import wkv7_chunk
-    from ai00_server_tpu_torch.ops.wkv_t1 import wkv7_t1
+    from ai00_server_tpu_torch.ops.wkv_chunk import wkv7_chunk, wkv56_chunk
+    from ai00_server_tpu_torch.ops.wkv_t1 import wkv7_t1, wkv56_t1
     from ai00_server_tpu_torch.parallel import make_mesh
     from ai00_server_tpu_torch.runtime import Runtime
     from ai00_server_tpu_torch.server.app import Server
     from ai00_server_tpu_torch.server.config import Config
     from ai00_server_tpu_torch.tokenizer import Tokenizer
 
+    counted = ((wkv7_t1, wkv7_chunk) if version == "v7"
+               else (wkv56_t1, wkv56_chunk))
     config = Config.from_toml(str(cfg))
     req = config.to_reload_request()
     server = Server(config, device=dev)
     n_cards = torch.cuda.device_count()
-    try:
-        await server.middleware.reload(dataclasses.replace(req, mesh=[2, 1]))
-        refusal = None
-    except ValueError as e:
-        refusal = str(e)
-    check(n_cards >= 2 or refusal == "mesh [2, 1] needs 2 devices, have 1",
-          f"the middleware's answer to mesh = [2, 1] on {n_cards} card(s): "
-          f"{refusal!r}")
-    check(server.middleware.env is None, "a refused mesh left a model")
+    if version == "v7":
+        try:
+            await server.middleware.reload(dataclasses.replace(req,
+                                                               mesh=[2, 1]))
+            refusal = None
+        except ValueError as e:
+            refusal = str(e)
+        check(n_cards >= 2
+              or refusal == "mesh [2, 1] needs 2 devices, have 1",
+              f"the middleware's answer to mesh = [2, 1] on {n_cards} "
+              f"card(s): {refusal!r}")
+        check(server.middleware.env is None, "a refused mesh left a model")
 
     gc.collect()
     mem0 = torch.cuda.memory_allocated()
     t0 = time.monotonic()
     model = load_model(req.model_path, dtype=torch.bfloat16, device=dev)
+    if layers is not None and layers < model.info.num_layer:
+        model = dataclasses.replace(
+            model, info=dataclasses.replace(model.info, num_layer=layers),
+            params={**model.params,
+                    "layers": model.params["layers"][:layers]})
     mesh = make_mesh(dp=2, tp=2, devices=[dev] * 4)
     engine = Engine(model, max_batch=MAX_BATCH, token_chunk_size=CHUNK,
                     device=dev, mesh=mesh)
@@ -4902,18 +5095,18 @@ async def mesh_serve(cfg: Path, dev) -> dict:
             check(info["mesh"] == {"dp": 2, "tp": 2, "devices": 4},
                   f"/api/models/info's mesh: {info['mesh']}")
             await completion(http, "warm up")
-            wkv7_t1.launches = wkv7_chunk.launches = 0
+            for k in counted:
+                k.launches = 0
             prompts = [PROMPT * 3, PROMPT * 3, PROMPT + "beta",
                        PROMPT + "beta"]
             t0 = time.monotonic()
             outs = await asyncio.gather(*[completion(http, p)
                                           for p in prompts])
             wall = time.monotonic() - t0
-            result["launches"] = {"wkv7_t1": wkv7_t1.launches,
-                                  "wkv7_chunk": wkv7_chunk.launches}
+            result["launches"] = {k.__name__: k.launches for k in counted}
             for name, n in result["launches"].items():
-                check(n > 0, f"the [2, 2] server's requests never launched "
-                      f"{name}")
+                check(n > 0, f"the {version} [2, 2] server's requests never "
+                      f"launched {name}")
             texts = [o["choices"][0]["text"] for o in outs]
             check(all(texts), "a completion on the mesh returned no text")
             check(texts[0] == texts[1] and texts[2] == texts[3],
@@ -4944,19 +5137,11 @@ async def mesh_serve(cfg: Path, dev) -> dict:
     return result
 
 
-def mesh_flow(dev, cfg: Path) -> dict:
-    """Parity on logical meshes, the [2, 2] server, and distinct cards
-    where the machine has them."""
-    import torch
-
-    t0 = time.monotonic()
-    parity = phase_mesh_parity(dev)
-    print(f"mesh parity: {time.monotonic() - t0:.1f} s", flush=True)
-    t1 = time.monotonic()
-    served = asyncio.run(mesh_serve(cfg, dev))
-    print(f"mesh serving ([2, 2] over {dev} four times, {L_FULL} layers "
-          f"bf16, max_batch {MAX_BATCH}, chunk {CHUNK}) on {card_line()}: "
-          f"loaded in {served['load_s']:.1f} s, "
+def print_mesh_served(version: str, served: dict, layers: int,
+                      seconds: float) -> None:
+    print(f"mesh serving ({version}, [2, 2] over the card four times, "
+          f"{layers} layers bf16, max_batch {MAX_BATCH}, chunk {CHUNK}) on "
+          f"{card_line()}: loaded in {served['load_s']:.1f} s, "
           f"{served['memory_bytes'] / 1e6:.1f} MB of device memory "
           f"allocated by the load; 4 concurrent greedy completions of "
           f"{MESH_TOKENS} tokens in {served['wall_s']:.2f} s, "
@@ -4964,13 +5149,32 @@ def mesh_flow(dev, cfg: Path) -> dict:
           f"{served['tokens_per_s']:.1f} tokens/s; /api/oai/states "
           f"{served['states_shape']} in {served['states_s']:.3f} s; "
           f"launches {served['launches']}; sample {served['sample']!r}; "
-          f"{time.monotonic() - t1:.1f} s", flush=True)
+          f"{seconds:.1f} s", flush=True)
+
+
+def mesh_flow(dev, cfg: Path) -> dict:
+    """Parity on logical meshes (v7, then RWKV-6, -5 and -4 at tp > 1), the
+    v7 [2, 2] server, and distinct cards where the machine has them."""
+    import torch
+
+    t0 = time.monotonic()
+    parity = {}
+    for version in ("v7", "v6", "v5", "v4"):
+        t1 = time.monotonic()
+        parity[version] = phase_mesh_parity(dev, version=version)
+        print(f"mesh parity {version}: {time.monotonic() - t1:.1f} s",
+              flush=True)
+    print(f"mesh parity: {time.monotonic() - t0:.1f} s", flush=True)
+    t1 = time.monotonic()
+    served = asyncio.run(mesh_serve(cfg, dev, layers=MESH_SERVE_LAYERS))
+    print_mesh_served("v7", served, MESH_SERVE_LAYERS, time.monotonic() - t1)
     n = torch.cuda.device_count()
     if n >= 2:
         cards = [torch.device("cuda", i) for i in range(n)]
         t1 = time.monotonic()
-        distinct = phase_mesh_parity(dev, places=cards, meshes=[
-            m for m in MESHES if m[0] * m[1] <= n])
+        distinct = {version: phase_mesh_parity(dev, places=cards,
+                                               version=version, max_places=n)
+                    for version in ("v7", "v6", "v5", "v4")}
         print(f"mesh parity on {n} distinct cards: "
               f"{time.monotonic() - t1:.1f} s", flush=True)
     else:
@@ -5230,6 +5434,13 @@ async def serve(cfg: Path, kind: str, device="cuda") -> dict:
     return result
 
 
+def timed_serve(cfg: Path, kind: str) -> dict:
+    t0 = time.monotonic()
+    run = asyncio.run(serve(cfg, kind))
+    print(f"serve {kind}: {time.monotonic() - t0:.1f} s", flush=True)
+    return run
+
+
 def main() -> None:
     try:
         import torch
@@ -5242,6 +5453,7 @@ def main() -> None:
         fail(f"the port's package is not beside {Path(__file__).name}")
     sys.path.insert(0, str(ROOT))
 
+    started = time.monotonic()
     card = card_line()
     print(f"card: {card}; Python {sys.version.split()[0]}, PyTorch "
           f"{torch.__version__} (CUDA {torch.version.cuda})", flush=True)
@@ -5269,6 +5481,7 @@ def main() -> None:
     rows.update(phase_v6_kernels(dev))
     rows.update(phase_v54_kernels(dev))
     phase_wkv_gn_batches(dev, rows)
+    phase_tp_kernels(dev, rows)
     rows.update(phase_phased_kernels(dev))
     rows.update(phase_ivf_kernels(dev))
     print(f"phase 2 (kernels) {time.monotonic() - t0:.1f} s", flush=True)
@@ -5286,14 +5499,19 @@ def main() -> None:
     try:
         with tempfile.TemporaryDirectory(dir=tmp_root) as tmp:
             cfgs = write_site(Path(tmp))
-            served = {kind: asyncio.run(serve(cfgs[kind], kind))
-                      for kind in cfgs}
+            served = {kind: timed_serve(cfgs[kind], kind) for kind in cfgs}
             mesh_flow(dev, cfgs["bf16"])
             (Path(tmp) / "rwkv7-0.4b.st").unlink()
             for version in ("v6", "v5", "v4"):
                 cfgs, path = write_site_family(Path(tmp), version)
-                served.update({kind: asyncio.run(serve(cfgs[kind], kind))
+                served.update({kind: timed_serve(cfgs[kind], kind)
                                for kind in cfgs})
+                if version == "v6":  # RWKV-6 tensor parallel over HTTP
+                    t1 = time.monotonic()
+                    mesh_v6 = asyncio.run(mesh_serve(cfgs["v6 bf16"], dev,
+                                                     "v6"))
+                    print_mesh_served("v6", mesh_v6, L6,
+                                      time.monotonic() - t1)
                 path.unlink()
     finally:
         shutil.rmtree(tmp_root, ignore_errors=True)
@@ -5581,6 +5799,8 @@ def main() -> None:
                   flush=True)
     print(f"phase 4 (serving) {time.monotonic() - t0:.1f} s", flush=True)
 
+    print(f"chip_smoke.py: {time.monotonic() - started:.1f} s, the kernels' "
+          "build included", flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys}

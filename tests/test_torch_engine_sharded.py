@@ -210,13 +210,6 @@ def test_dp_mesh_takes_the_stack_of_the_local_batch():
     assert [s.stack for s in eng.shards] == [v7_decode, v7_decode]
 
 
-@pytest.mark.parametrize("version", ["V6", "V5", "V4"])
-def test_tp_refused_for_v6_v5_v4(version):
-    info, jparams = model_inputs("plain", ModelVersion(version))
-    with pytest.raises(NotImplementedError, match="ROADMAP multi-device item"):
-        port_engine(info, jparams, cpu_mesh(2, 2))
-
-
 def test_nucleus_with_given_uniforms_equals_unsharded():
     """Each dp rank draws from its own generator, so a sharded run equals
     the unsharded one under given uniforms: every draw of the unsharded

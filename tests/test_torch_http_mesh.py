@@ -34,15 +34,13 @@ from test_loader import to_converted_layout
 GREEDY = {"type": "Nucleus", "top_k": 1}
 
 
-@pytest.fixture(scope="module")
-def site(tmp_path_factory):
-    root = tmp_path_factory.mktemp("mesh_site")
+def write_site(root, version=ModelVersion.V7, mesh=(4, 2)):
     models = root / "assets" / "models"
     tok_dir = root / "assets" / "tokenizer"
     cfg_dir = root / "assets" / "configs"
     for d in (models, tok_dir, cfg_dir):
         d.mkdir(parents=True)
-    _, raw, _ = make_tiny_model(ModelVersion.V7, seed=21, dtype=np.float32,
+    _, raw, _ = make_tiny_model(version, seed=21, dtype=np.float32,
                                 num_vocab=64)
     jloader.save_safetensors(to_converted_layout(raw),
                              str(models / "tiny.st"), dtype=np.float32)
@@ -55,7 +53,7 @@ path = "{models}"
 max_batch = 4
 token_chunk_size = 16
 precision = "Fp32"
-mesh = [4, 2]
+mesh = [{mesh[0]}, {mesh[1]}]
 
 [tokenizer]
 path = "{tok_dir / 'vocab.json'}"
@@ -64,6 +62,19 @@ path = "{tok_dir / 'vocab.json'}"
 port = 0
 """)
     return root
+
+
+@pytest.fixture(scope="module")
+def site(tmp_path_factory):
+    return write_site(tmp_path_factory.mktemp("mesh_site"))
+
+
+@pytest.fixture(scope="module", params=["V6", "V4"])
+def family_site(request, tmp_path_factory):
+    """A tiny RWKV-6 (2 heads of 16) or RWKV-4 (32 channels) site served on
+    ``mesh = [2, 2]``: a tp place holds one head or 16 channels."""
+    root = tmp_path_factory.mktemp(f"mesh_site_{request.param.lower()}")
+    return write_site(root, ModelVersion(request.param), (2, 2))
 
 
 async def make_client(site, mesh=True, **override):
@@ -227,3 +238,67 @@ def test_mesh_prefab_save_reloads_to_the_same_tokens(site):
 
     before, after = asyncio.run(main())
     assert after == [before, before]
+
+
+def test_family_mesh_reported_and_generation_matches_single_device(
+        family_site):
+    """RWKV-6 / RWKV-4 at tp = 2: ``/api/models/info`` reports the mesh,
+    greedy completions (concurrent ones landing in both dp ranks) equal
+    the single-device server's, and ``/api/oai/states`` reads a row whose
+    heads (RWKV-4: ``aa`` / ``bb`` / ``pp`` channels) are gathered from
+    both places, equal to the single-device one to 1e-5 of its scale (f32,
+    another order of the split products' sums)."""
+    prompts = ("ABCAB", "BCABC", "CABCA")
+
+    async def run(mesh):
+        client, server = await make_client(family_site, mesh=mesh)
+        try:
+            r = await client.get("/api/models/info")
+            info = (await r.json())["mesh"]
+            texts = await asyncio.gather(*[_greedy_completion(client, p)
+                                           for p in prompts])
+            r = await client.post("/api/oai/states", json={"input": "AB"})
+            assert r.status == 200
+            return info, texts, (await r.json())["data"][0]
+        finally:
+            await client.close()
+            await server.middleware.unload()
+
+    sharded = asyncio.run(run(True))
+    single = asyncio.run(run(False))
+    assert sharded[0] == {"dp": 2, "tp": 2, "devices": 4}
+    assert single[0] is None
+    assert sharded[1] == single[1] and all(sharded[1])
+    assert sharded[2]["shape"] == single[2]["shape"]
+    got = np.asarray(sharded[2]["data"])
+    want = np.asarray(single[2]["data"])
+    assert float(np.abs(got - want).max()) <= 1e-5 * float(
+        np.abs(want).max())
+
+
+def test_family_mesh_prefab_save_reloads_to_the_same_tokens(family_site):
+    """A prefab saved from the RWKV-6 / RWKV-4 mesh (the shards gathered)
+    reloads, on the mesh and on one device, to the same greedy tokens."""
+    async def main():
+        client, server = await make_client(family_site)
+        try:
+            before = await _greedy_completion(client, "BCABCA", n=8)
+            path = str(family_site / "assets" / "models" / "mesh.prefab")
+            await server.middleware.save(path)
+        finally:
+            await client.close()
+            await server.middleware.unload()
+        after = []
+        for mesh in (True, False):
+            client, server = await make_client(family_site, mesh=mesh,
+                                               model_path=path)
+            try:
+                after.append(await _greedy_completion(client, "BCABCA", n=8))
+            finally:
+                await client.close()
+                await server.middleware.unload()
+        os.remove(path)
+        return before, after
+
+    before, after = asyncio.run(main())
+    assert before and after == [before, before]

@@ -9,7 +9,10 @@
   weight; the test holds the port's dim to the JAX spec of the plain
   weight and records that the JAX quantized spec is whole.
 * The state's dp and tp dims equal the JAX ``state_specs``, the sampler
-  state's and the data's dp dims equal theirs.
+  state's and the data's dp dims equal theirs - but RWKV-4's per-channel
+  WKV ``aa`` / ``bb`` / ``pp``, a recorded divergence: JAX keeps it whole
+  on every tp place, the port splits its channels (each place updates
+  only its own, so whole copies would part).
 * Shard then unshard gives the tree back bit for bit; places on one
   device share one tree and the whole leaves share the source's tensors.
 * ``make_mesh`` refuses a device count that is not dp x tp.
@@ -120,6 +123,10 @@ def test_state_and_data_specs_equal_jax(version):
     for k, (dp, tp) in specs.items():
         spec = tuple(jspecs[k])
         assert spec.index("dp") == dp
+        if version == "v4" and k in ("aa", "bb", "pp"):
+            # The recorded divergence: whole in JAX, on channels here.
+            assert "tp" not in spec and tp == 2
+            continue
         assert (spec.index("tp") if "tp" in spec else None) == tp
     # The sampler state and the data: the batch rows on dp.
     jss = jsampling.init_sampler_state(4, info.num_vocab)
@@ -159,7 +166,19 @@ def _assert_same(got, want):
 @pytest.mark.parametrize("mode", [None, "int8", "nf4"],
                          ids=["plain", "int8", "nf4"])
 def test_shard_unshard_round_trip(mode, dp, tp):
-    _, jparams = _jax_params("v7", mode)
+    _round_trip("v7", mode, dp, tp)
+
+
+@pytest.mark.parametrize("dp,tp", [(1, 2), (2, 2)])
+@pytest.mark.parametrize("mode", [None, "int8", "nf4"],
+                         ids=["plain", "int8", "nf4"])
+def test_shard_unshard_round_trip_v4(mode, dp, tp):
+    """RWKV-4: its ``aa`` / ``bb`` / ``pp`` split on their channels."""
+    _round_trip("v4", mode, dp, tp)
+
+
+def _round_trip(version, mode, dp, tp):
+    _, jparams = _jax_params(version, mode)
     params = _port_params(jparams)
     if mode:  # the engine's int8 head splits on the vocabulary too
         params["_head_q"] = quant.quantize_int8(params.pop("head"))
@@ -171,7 +190,8 @@ def test_shard_unshard_round_trip(mode, dp, tp):
             assert grid[d][j] is grid[0][j]
     att = grid[0][tp - 1]["layers"][1]["att"]
     src = params["layers"][1]["att"]
-    assert att["x_r"] is src["x_r"]  # a whole leaf is the source's tensor
+    mix = "x_r" if version == "v7" else "time_mix_r"
+    assert att[mix] is src[mix]  # a whole leaf is the source's tensor
     head = grid[0][tp - 1]["_head_q" if mode else "head"]
     assert head.shape[-1] == 512 // tp
     if tp > 1:
@@ -179,14 +199,20 @@ def test_shard_unshard_round_trip(mode, dp, tp):
         assert k.shape[-1] == 256 // tp
         assert not quant.is_quantized(k) or k.q.is_contiguous()
 
-    info = _info("v7")
+    info = _info(version)
     state = get_version_module(info.version).init_state(info, 8)
     for k, v in state.items():
         v.copy_(torch.randn(v.shape, generator=torch.Generator().manual_seed(
             len(k))))
     sgrid = sh.shard_state(state, mesh)
-    assert sgrid[dp - 1][tp - 1]["wkv"].shape == (2, 8 // dp, 4 // tp, 64,
-                                                   64)
+    last = sgrid[dp - 1][tp - 1]
+    if version == "v4":
+        for k in ("aa", "bb", "pp"):
+            assert last[k].shape == (2, 8 // dp, 256 // tp)
+            assert last[k].is_contiguous()
+        assert last["att_x"].shape == (2, 8 // dp, 256)
+    else:
+        assert last["wkv"].shape == (2, 8 // dp, 4 // tp, 64, 64)
     for k, v in sh.unshard_state(sgrid, CPU).items():
         assert torch.equal(v, state[k])
     ss = sampling.init_sampler_state(8, 512, CPU)
