@@ -60,6 +60,13 @@ quantized (int8, nf4, sf4, int4):
   row's state, :meth:`mean_hidden_embed` is the offline recipe, and
   :meth:`position_logps` scores tokens from a copy of a row's state
   (``/chooses``) without advancing the pool.
+* :meth:`Engine.prewarm` runs the serving buckets once with all-idle
+  inputs (every length 0, nothing sampled) through the live :meth:`step`
+  and :meth:`decode_chunk` (``snapshot=False``), so the first request
+  finds cuBLAS, the lazily loaded kernel modules and the caching
+  allocator warm; it leaves every pool and the snapshot ring as they were
+  and may run beside live traffic.  :meth:`cancel_prewarm` stops it
+  between buckets.
 
 ``Engine(..., mesh=make_mesh(dp=, tp=))`` serves on a (dp, tp) mesh of
 places (``parallel/``): it returns a ``parallel/mesh_engine.MeshEngine``,
@@ -176,6 +183,34 @@ def to_host(tree):
     if isinstance(tree, dict):
         return {k: to_host(v) for k, v in tree.items()}
     return tree.detach().cpu().numpy()
+
+
+def run_prewarm(engine, decode_chunk_size: int = 8) -> None:
+    """Run ``engine``'s serving buckets once with all-idle inputs, through
+    its public ``step`` and ``decode_chunk``: the steps ``(T, True)``,
+    ``(T, False)``, ``(1, False)``, ``(1, True)`` (T = its
+    ``token_chunk_size``; ``(T, want_logits)``) with every token, length
+    and sample flag zero, then, where ``decode_chunk_size > 1``, the
+    ``decode_chunk_size`` and ``4 * decode_chunk_size`` chunks (the
+    runtime's two chunk sizes) with no active row and ``snapshot=False``.
+    Returns early, between buckets, once ``engine.cancel_prewarm()`` was
+    called.  The one bucket loop of :class:`Engine` and
+    ``parallel/mesh_engine.MeshEngine``."""
+    engine._prewarm_cancelled = False
+    B, T = engine.max_batch, engine.token_chunk_size
+    idle = np.zeros(B, np.int32)
+    no_rows = np.zeros(B, np.bool_)
+    for t, want_logits in ((T, True), (T, False), (1, False), (1, True)):
+        if engine._prewarm_cancelled:
+            return
+        engine.step(np.zeros((B, t), np.int32), idle, no_rows, want_logits)
+    chunks = ((decode_chunk_size, 4 * decode_chunk_size)
+              if decode_chunk_size > 1 else ())
+    for k in chunks:
+        if engine._prewarm_cancelled:
+            return
+        engine.decode_chunk(np.zeros(B, np.int32), no_rows, k,
+                            snapshot=False)
 
 
 class Engine:
@@ -639,7 +674,8 @@ class Engine:
     # ------------------------------------------------------------------
 
     def decode_chunk(self, first_tokens, active: np.ndarray, steps: int,
-                     sync: bool = True, host_first: tuple | None = None,
+                     sync: bool = True, snapshot: bool = True,
+                     host_first: tuple | None = None,
                      budget: np.ndarray | None = None):
         """Decode ``steps`` tokens for all ``active`` rows, feeding each
         sampled token back in, with no host round-trip inside the chunk.
@@ -650,7 +686,10 @@ class Engine:
 
         ``sync=False`` returns the tokens as a DEVICE tensor: a caller that
         feeds ``tokens[-1]`` into the next chunk keeps the device busy
-        across chunks.  ``host_first=(mask, values)`` merges host-provided
+        across chunks.  ``snapshot=False`` skips the push onto the
+        snapshot ring: a warm-up chunk with no active row (:meth:`prewarm`)
+        must never evict the runtime's pre-chunk snapshots.
+        ``host_first=(mask, values)`` merges host-provided
         first tokens into a device-resident ``first_tokens`` where ``mask``
         is set.
         ``budget`` (B,) freezes each row after it has drawn that many
@@ -684,7 +723,7 @@ class Engine:
                                        device=dev)
             budget_t = torch.as_tensor(np.asarray(budget, np.int32),
                                        device=dev)
-            if steps > 1:
+            if steps > 1 and snapshot:
                 self._chunk_snaps.append((
                     self._snap_pool(),
                     {k: v.clone() for k, v in self.sampler_state.items()},
@@ -748,6 +787,25 @@ class Engine:
             lengths = np.zeros(B, np.int32)
             lengths[b] = len(part)
             self.step(toks, lengths, no_sample, False)
+
+    def cancel_prewarm(self) -> None:
+        """Ask an in-flight :meth:`prewarm` to stop between buckets (an
+        unload must not leave it holding the old model's params)."""
+        self._prewarm_cancelled = True
+
+    def prewarm(self, decode_chunk_size: int = 8) -> None:
+        """Run the serving buckets once with all-idle inputs
+        (:func:`run_prewarm`), so the first request pays no first-call
+        set-up: cuBLAS handles and heuristics, the lazily loaded kernel
+        modules of the head, the sampler and the prefill layer path, the
+        caching allocator's growth to a full prefill chunk.  An idle step
+        changes no row's state, sampler state, bias, mask, DFA state or
+        hidden sum, and the chunks push no snapshot, so it may run beside
+        live traffic: each call takes the engine's lock.  On a card it
+        launches the live path's kernels (the graph replay at T=1, the
+        layer path at T=``token_chunk_size``); the DFA step runs only for
+        an active row on the DFA, so an idle chunk does not warm it."""
+        run_prewarm(self, decode_chunk_size)
 
     def sample_only(self, b: int, logits: np.ndarray) -> int:
         """Sample row ``b`` from externally-provided logits (the exact-hit

@@ -12,7 +12,13 @@ the first ``quant`` layers quantized (``quant_type = "Int8"``, ``"NF4"``,
   the tokenizer, build the kernels and the grammar engine, start the
   engine and the runtime (with the ``bnf`` options: the start
   nonterminal of BNF schemas).
-* ``unload()`` — drain the runtime and drop the environment.
+  With ``prewarm`` (the default) the engine then runs its serving buckets
+  once in the background (``Engine.prewarm`` on the default executor;
+  ``Environment.prewarm_future``), so the first request pays no first-call
+  set-up; a prewarm that raises is logged with its traceback.
+* ``unload()`` — cancel a prewarm in flight and wait for it at most
+  ``AI00_PREWARM_DRAIN_S`` seconds (default 120; past that, warn and go
+  on), then drain the runtime and drop the environment.
 * ``save(path)`` — export the loaded model as a prefab (``prefab.py``).
 * ``info()`` — RuntimeInfo for ``/api/models/info``, the states and the
   serving mesh included.
@@ -27,7 +33,9 @@ projections).
 from __future__ import annotations
 
 import asyncio
+import logging
 import os
+import time
 import uuid
 from dataclasses import dataclass, field
 from typing import Any, Optional
@@ -44,6 +52,8 @@ from .tokenizer import Tokenizer
 
 DEFAULT_TOKENIZER = "assets/tokenizer/rwkv_vocab_v20230424.json"
 MAX_TOKENS = 2**31  # the reference's usize::MAX, i.e. unbounded
+
+logger = logging.getLogger(__name__)
 
 
 @dataclass
@@ -69,6 +79,7 @@ class ReloadRequest:
     adapter: Any = "Auto"
     decode_chunk_size: int = 16
     mesh: Optional[list] = None
+    prewarm: bool = True                                # Engine.prewarm at load
 
     @classmethod
     def from_json(cls, obj: dict) -> "ReloadRequest":
@@ -93,6 +104,7 @@ class ReloadRequest:
             "adapter": self.adapter,
             "decode_chunk_size": self.decode_chunk_size,
             "mesh": self.mesh,
+            "prewarm": self.prewarm,
         }
 
     def quant_map(self) -> dict | None:
@@ -140,6 +152,13 @@ class Environment:
     runtime: Runtime
     tokenizer: Tokenizer
     states: list[StateEntry] = field(default_factory=list)
+    prewarm_future: Any = None  # the background Engine.prewarm, None if off
+
+
+def _log_prewarm_failure(future) -> None:
+    """Done-callback of a prewarm future: log its exception, if any."""
+    if not future.cancelled() and future.exception() is not None:
+        logger.error("prewarm failed", exc_info=future.exception())
 
 
 class Middleware:
@@ -149,6 +168,10 @@ class Middleware:
         self.device = resolve_device(device)
         self.env: Optional[Environment] = None
         self._lock = asyncio.Lock()
+
+    @property
+    def loaded(self) -> bool:
+        return self.env is not None
 
     def info(self) -> Optional[dict]:
         """RuntimeInfo equivalent."""
@@ -219,7 +242,9 @@ class Middleware:
                 from .ops import _build
 
                 # Build the kernels and the grammar engine now, not inside
-                # the first request.
+                # the first request, whatever ``prewarm`` says: the decode
+                # graph captured in Engine() needs the kernels, and a build
+                # that fails must fail the load.
                 await loop.run_in_executor(None, _build.build_all)
                 await loop.run_in_executor(None, native.get_lib)
             engine = Engine(model, max_batch=request.max_batch,
@@ -233,6 +258,11 @@ class Middleware:
             self.env = Environment(reload=request, model=model,
                                    engine=engine, runtime=runtime,
                                    tokenizer=tokenizer, states=entries)
+            if request.prewarm:
+                future = loop.run_in_executor(None, engine.prewarm,
+                                              request.decode_chunk_size)
+                future.add_done_callback(_log_prewarm_failure)
+                self.env.prewarm_future = future
 
     def _load(self, request: ReloadRequest, dtype) -> LoadedModel:
         """A prefab as it was saved (its own dtypes and codes), else the
@@ -294,4 +324,22 @@ class Middleware:
     async def _unload_locked(self) -> None:
         if self.env is not None:
             env, self.env = self.env, None
+            if env.prewarm_future is not None:
+                # The prewarm stops between buckets; a bucket in flight
+                # runs to its end.  Wait for it, boundedly: past the bound
+                # the reload goes on and the old params stay on the device
+                # until the bucket ends.
+                env.engine.cancel_prewarm()
+                drain_s = float(os.environ.get("AI00_PREWARM_DRAIN_S", "120"))
+                t0 = time.monotonic()
+                try:
+                    await asyncio.wait_for(asyncio.shield(env.prewarm_future),
+                                           timeout=drain_s)
+                except asyncio.TimeoutError:
+                    logger.warning(
+                        "unload: prewarm still running after %.1f s of "
+                        "drain; proceeding (the old model stays resident "
+                        "until it ends)", time.monotonic() - t0)
+                except Exception:
+                    pass  # logged by _log_prewarm_failure
             await env.runtime.stop()

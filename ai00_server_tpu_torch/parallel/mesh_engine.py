@@ -37,7 +37,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..engine import Engine, StepResult, head_logits, install_head_q
+from ..engine import (Engine, StepResult, head_logits, install_head_q,
+                      run_prewarm)
 from ..loader import LoadedModel
 from ..models import get_version_module
 from . import sharding
@@ -265,12 +266,14 @@ class MeshEngine:
         return StepResult(tokens=toks.cpu().numpy(), logits=logits)
 
     def decode_chunk(self, first_tokens, active: np.ndarray, steps: int,
-                     sync: bool = True, host_first: tuple | None = None,
+                     sync: bool = True, snapshot: bool = True,
+                     host_first: tuple | None = None,
                      budget: np.ndarray | None = None):
         """:meth:`Engine.decode_chunk` over every rank's rows.  Device
         ``first_tokens`` (the previous chunk's, on the first place) are
         split over the ranks; the (steps, B) tokens and probabilities come
-        back gathered on the first place."""
+        back gathered on the first place.  ``snapshot`` goes to every
+        rank."""
         if budget is None:
             budget = np.full(self.max_batch, steps, np.int32)
         if not isinstance(first_tokens, torch.Tensor):
@@ -281,7 +284,8 @@ class MeshEngine:
             hf = None if host_first is None else (
                 np.asarray(host_first[0])[r], np.asarray(host_first[1])[r])
             outs.append(s.decode_chunk(first_tokens[r], active[r], steps,
-                                       sync=False, host_first=hf,
+                                       sync=False, snapshot=snapshot,
+                                       host_first=hf,
                                        budget=np.asarray(budget)[r]))
         toks = all_gather([t for t, _ in outs], 1, self.device)
         sp = all_gather([p for _, p in outs], 1, self.device)
@@ -290,3 +294,12 @@ class MeshEngine:
     def restore_last_chunk(self) -> None:
         for s in self.shards:
             s.restore_last_chunk()
+
+    def cancel_prewarm(self) -> None:
+        """:meth:`Engine.cancel_prewarm`."""
+        self._prewarm_cancelled = True
+
+    def prewarm(self, decode_chunk_size: int = 8) -> None:
+        """:meth:`Engine.prewarm` over the mesh: the same buckets through
+        :meth:`step` and :meth:`decode_chunk`, so every rank runs them."""
+        run_prewarm(self, decode_chunk_size)

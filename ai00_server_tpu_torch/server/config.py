@@ -124,7 +124,10 @@ class Config:
         return out
 
     def to_reload_request(self, sandbox: bool = True) -> ReloadRequest:
-        """Config -> ReloadRequest with path sandboxing."""
+        """Config -> ReloadRequest with its paths checked.  A relative
+        ``[[lora]]`` / ``[[state]]`` path that does not exist as given is
+        taken in the model directory (the path that is checked); each
+        LoRA entry becomes ``{path, alpha}``, ``alpha`` 1.0 by default."""
         m = self.model
         model_dir = m.get("path", "assets/models")
         model_path = os.path.join(model_dir, m.get("name", ""))
@@ -135,10 +138,16 @@ class Config:
                 check_path_permitted(
                     p if os.path.isabs(p) else os.path.join(model_dir, p),
                     [model_dir])
+
+        def in_dir(p: str) -> str:
+            return (p if os.path.isabs(p) or os.path.exists(p)
+                    else os.path.join(model_dir, p))
+
         return ReloadRequest(
             model_path=model_path,
-            lora=list(self.lora),
-            state=list(self.state),
+            lora=[{"path": in_dir(e["path"]), "alpha": e.get("alpha", 1.0)}
+                  for e in self.lora],
+            state=[{**e, "path": in_dir(e["path"])} for e in self.state],
             quant=int(m.get("quant", 0)),
             quant_type=m.get("quant_type", "Int8"),
             precision=m.get("precision", "Fp16"),
@@ -149,6 +158,7 @@ class Config:
             adapter=self.adapter,
             decode_chunk_size=int(m.get("decode_chunk_size", 16)),
             mesh=[int(x) for x in m["mesh"]] if m.get("mesh") else None,
+            prewarm=bool(m.get("prewarm", True)),
         )
 
 

@@ -162,3 +162,14 @@ def to_converted_layout(math: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
             v = v.T
         out[k] = np.ascontiguousarray(v)
     return out
+
+
+def cpu_test_threads() -> None:
+    """Give torch one intra-op thread in a CPU test process.  The tier-1
+    run has six xdist workers on one host, each beside XLA's host threads;
+    with torch's default pool (a thread per core) in every worker the cores
+    are oversubscribed, and a small op waits on the others' spinning
+    threads.  Call it at the top of a port test module."""
+    import torch
+
+    torch.set_num_threads(1)

@@ -122,7 +122,17 @@ kernel's source is built first, one ``nvcc`` each, all started together):
    burst with the fused kernels' counts zeroed before and read after; a
    16-step chunk with every row on the DFA timed in turns beside an
    unconstrained one, its tokens walked through the table on the host),
-   then reloads with a ``[[state]]``, a ``[[lora]]`` and a checkpoint on
+   then ``prewarm_flow``: ``Engine.prewarm`` on a fresh engine over the
+   served model must leave every pool, host flag and the snapshot ring
+   bit-equal (so must ``decode_chunk(snapshot=False)``), and
+   ``restore_last_chunk`` after it must bring back the pre-chunk pools;
+   the model's prefab is then loaded by two fresh server processes, one
+   with ``[model] prewarm = false`` and one with ``prewarm = true``, each
+   timing its first (cold) and second (warm) streamed request, the
+   prewarm's seconds, and their greedy answers must agree.  Every served
+   model but the two mixed ones (a host-bound layer path) prewarms at
+   load, awaited before its first request.  Then the bf16 server
+   reloads with a ``[[state]]``, a ``[[lora]]`` and a checkpoint on
    which a state lasts and 24 bf16 layers do not carry a flipped rounding
    far (``state_flow``: the blend against the host's, ``/api/oai/states``
    and a step replayed right after a state install against the plain
@@ -135,7 +145,7 @@ kernel's source is built first, one ``nvcc`` each, all started together):
    for one ``torch.matmul``).  The Int8 and NF4 servers save a prefab and
    reload from it through ``/admin/models/save``, ``/unload`` and
    ``/load`` with the JWT (``prefab_flow``: the same greedy tokens, the
-   same device memory as a reload from the ``.st``).  Then random 24-layer RWKV-5 and RWKV-4
+   same device memory as a reload from the ``.st``).  Then random 12-layer RWKV-5 and RWKV-4
    checkpoints of the 0.4B shape, served the same way (prefill through
    ``wkv56_chunk`` / ``wkv4_chunk``, decode one replay of the fused v5 / v4
    stack).  The 0.4B v7
@@ -143,7 +153,7 @@ kernel's source is built first, one ``nvcc`` each, all started together):
    ``max_batch = 64`` with 64 concurrent completions (every step one replay of
    the phased stack's graph; ``v7_skinny_matmul`` must launch 0 times), and
    the phased and fused stacks are timed at B = 16 and 64 on those models, on
-   the v6 model and on the 32-layer RWKV-7 2.9B shape built on the card in
+   the v6 model and on 16 layers of the RWKV-7 2.9B shape built on the card in
    bf16 and int8.  After the v7 serves, ``mesh_flow`` runs logical
    (dp, tp) meshes whose places are all the one card: the 2-layer 0.4B
    width in bf16, int8 and nf4 on ``[2, 1]`` (each dp rank's own decode
@@ -194,12 +204,18 @@ LORA6 = {"tm": 32, "td": 64}
 # int(3.5 C) // 32 * 32) and RWKV-4 World 0.4B (RWKV-4-World-0.4B-v1: dim_ffn
 # = 4 C): L=24, C=1024, vocab 65536; v5 head 64 (H=16), v4 one WKV per
 # channel.  The v7 smoke model's width, so their rows compare with its rows.
-L54, F5, F4 = 24, 3584, 4096
+# Served at 12 of the 24 layers, as v6 is: the cut that made room for the
+# prewarm flow's two fresh server processes (their writes and loads were
+# ~20 s each of the script's host-bound setup).
+L54, F5, F4 = 12, 3584, 4096
 # RWKV-7 World 2.9B (BlinkDL's RWKV-x070-World-2.9B): L=32, C=2560, head 64
 # (H=40), FFN 4 C = 10240, vocab 65536; LoRA ranks w 96, a 96, v 64, g 320,
 # as RWKV-LM's v7 model.py sizes them for C=2560.  The wide-batch phases'
-# large shape (the LoRA ranks are under 1% of its bytes).
-L29, C29, F29 = 32, 2560, 10240
+# large shape (the LoRA ranks are under 1% of its bytes).  Its stacks are
+# built and timed at 16 of the 32 layers (the prewarm flow's cut, with
+# L54's): a replay is the layers' launches in turn, each layer the same
+# shapes.
+L29, C29, F29 = 16, 2560, 10240
 LORA29 = {"w": 96, "a": 96, "v": 64, "g": 320}
 # Wide batches: the phased stacks (ops/v7_phased, ops/v56_phased) serve
 # max_batch above the 8 rows of the fused products; 64 is the third
@@ -3406,7 +3422,7 @@ SERVED = {"bf16": (0, "Int8"), "int8": (L_FULL, "Int8"),
           "mixed": (L_FULL // 2, "Int8"), "nf4": (L_FULL, "NF4"),
           "mixed nf4": (L_FULL // 2, "NF4")}
 # RWKV-6 (the 1B6 shape, L6 layers), RWKV-5 and RWKV-4 (the 0.4B shapes,
-# full depth): bf16, with the burst.
+# L54 layers): bf16, with the burst.
 SERVED_FAMILIES = {"v6 bf16": (0, "Int8"), "v5 bf16": (0, "Int8"),
                    "v4 bf16": (0, "Int8")}
 # max_batch = WIDE_BATCH: the phased stacks under their graphs, with a burst
@@ -3415,6 +3431,12 @@ SERVED_WIDE = {"int8 wide": (L_FULL, "Int8"), "v5 bf16 wide": (0, "Int8")}
 ALL_SERVED = {**SERVED, **SERVED_FAMILIES, **SERVED_WIDE}
 WIDE_TOKENS = 48  # per completion of the wide burst
 MIXED_TOKENS = 16  # per completion on the (eager, host-bound) layer path
+
+
+def served_layers(kind: str) -> int:
+    """The depth of a served kind's checkpoint."""
+    family = kind[:2]
+    return {"v6": L6, "v5": L54, "v4": L54}.get(family, L_FULL)
 
 
 def write_site(tmp: Path) -> dict:
@@ -3437,6 +3459,8 @@ def write_site(tmp: Path) -> dict:
     for kind in (*SERVED, "int8 wide"):
         quant, quant_type = ALL_SERVED[kind]
         cfgs[kind] = tmp / f"Config-{kind.replace(' ', '-')}.toml"
+        # The mixed models' layer path is host-bound (~0.28 s a step): a
+        # prewarm's 82 steps there would take ~20 s, so they load without.
         cfgs[kind].write_text(f"""
 [model]
 name = "rwkv7-0.4b.st"
@@ -3446,6 +3470,7 @@ token_chunk_size = {CHUNK}
 precision = "Fp16"
 quant = {quant}
 quant_type = "{quant_type}"
+prewarm = {'false' if kind.startswith('mixed') else 'true'}
 
 [tokenizer]
 path = "{tmp / 'vocab.json'}"
@@ -4143,6 +4168,8 @@ async def state_flow(http, base, server, tmp: Path, base_engine) -> dict:
     await server.middleware.reload(req)
     out = {"load_s": time.monotonic() - t0}
     env = server.middleware.env
+    if env.prewarm_future is not None:  # none of its work in the readings
+        await env.prewarm_future
     info, dev, params = env.model.info, env.engine.device, env.model.params
 
     # (a) the blend on the card against the host blend of the same files.
@@ -4405,7 +4432,8 @@ async def prefab_flow(http, base, server, tmp: Path, kind: str,
           f"the model directory {tmp}")
     out = {"save_s": time.monotonic() - t0, "bytes": path.stat().st_size,
            "st_load_s": st_load_s}
-    st_body = server.middleware.env.reload.to_json()
+    # No prewarm in the reloads: its work would land in the memory reading.
+    st_body = {**server.middleware.env.reload.to_json(), "prewarm": False}
     for which, body in (("st", st_body),
                         ("prefab", {**st_body, "model_path": name})):
         await admin(http, base, auth, "GET", "/admin/models/unload")
@@ -4421,6 +4449,8 @@ async def prefab_flow(http, base, server, tmp: Path, kind: str,
             name if which == "prefab" else "rwkv7-0.4b.st"),
             f"/admin/models/load served "
             f"{server.middleware.env.reload.model_path}")
+        check(server.middleware.env.prewarm_future is None,
+              "a reload body with prewarm = false started a prewarm")
     check(abs(out["prefab_memory_bytes"] - out["st_memory_bytes"]) <= 1e6,
           f"the {kind} prefab's load allocated {out['prefab_memory_bytes']} "
           f"bytes, the .st load's {out['st_memory_bytes']}")
@@ -4628,7 +4658,7 @@ def time_wide_stacks(params, version: str, pool) -> dict:
 
 
 def wide_v7_params(dev):
-    """The RWKV-7 2.9B shape at full depth (``L29`` layers) in bf16 on the
+    """The RWKV-7 2.9B shape at ``L29`` layers in bf16 on the
     card, with its fused layout: one layer of random fan-in-scaled weights
     from the seed (vocabulary ``PHASED_VOCAB``: no T=1 stack reads it) whose
     six big projections are drawn anew on the card for every layer.
@@ -4662,7 +4692,7 @@ def wide_v7_params(dev):
 
 
 def phase_wide_stacks(dev) -> dict:
-    """The full-depth 2.9B v7 stacks on the card, bf16 and int8 (codes
+    """The 2.9B v7 stacks (``L29`` layers) on the card, bf16 and int8 (codes
     quantized on the card), phased beside fused at B = 16 and 64
     (:func:`time_wide_stacks` over a fresh state pool of 64 rows)."""
     import torch
@@ -5186,6 +5216,321 @@ def mesh_flow(dev, cfg: Path) -> dict:
     return {"parity": parity, "served": served, "distinct": distinct}
 
 
+# Prewarm (prewarm_flow, in the bf16 serve): the first request of a fresh
+# server process with and without Engine.prewarm, and the pools a prewarm
+# must leave as they were.
+PREWARM_K = 16           # prewarm's decode_chunk_size: the served configs'
+PREWARM_TOKENS = 16      # greedy tokens of each timed request
+PREWARM_PREFAB = "rwkv7-0.4b-bf16.prefab"
+PREWARM_CHILD_TIMEOUT = 300
+# Two ~100-token prompts that part at their first token, so the second
+# request prefills anew (no prefix-cache hit) and reads as the warm
+# reference.
+PREWARM_PROMPTS = ("first request: " + PROMPT * 3, "warm request: " + PROMPT * 3)
+
+
+def engine_pools(eng) -> dict:
+    """Every pool, host flag and the snapshot ring of ``eng``, cloned."""
+    import numpy as np
+    import torch
+
+    def clone(tree):
+        if isinstance(tree, torch.Tensor):
+            return tree.clone()
+        if isinstance(tree, np.ndarray):
+            return tree.copy()
+        if isinstance(tree, dict):
+            return {k: clone(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return [clone(v) for v in tree]
+        return tree
+
+    return clone({
+        "state": eng.state_pool, "sampler": eng.sampler_state,
+        "bias": eng.bias_pool, "mask": eng.mask_pool,
+        "dfa_pool": eng.dfa_pool, "dfa_state": eng.dfa_state,
+        "hsum": eng.hsum_pool, "bias_active": eng.bias_active,
+        "mask_active": eng.mask_active, "dfa_rows": eng.dfa_rows,
+        "hsum_rows": eng.hsum_rows, "ring": eng._chunk_snaps})
+
+
+def moved(got, want, where: str = "") -> list[str]:
+    """The leaves of two :func:`engine_pools` trees that are not
+    bit-equal."""
+    import numpy as np
+    import torch
+
+    if isinstance(want, torch.Tensor):
+        same = got.dtype == want.dtype and torch.equal(got, want)
+        return [] if same else [where]
+    if isinstance(want, np.ndarray):
+        return [] if np.array_equal(got, want) else [where]
+    if isinstance(want, dict):
+        return [m for k in want for m in moved(got[k], want[k],
+                                               f"{where}.{k}")]
+    if isinstance(want, list):
+        if len(got) != len(want):
+            return [f"{where} (length {len(got)}, was {len(want)})"]
+        return [m for i, (g, w) in enumerate(zip(got, want))
+                for m in moved(g, w, f"{where}[{i}]")]
+    return [] if got == want else [where]
+
+
+def prewarm_pools(model, dev) -> dict:
+    """A fresh engine (``max_batch`` 8, its own decode graph) on the served
+    bf16 model: random states in every row (row 1 with its hidden sums
+    tracked), nucleus samplers with penalties, a bias, a mask and a token
+    DFA, a ragged prefill and one 4-token decode chunk.  Then
+    ``decode_chunk(snapshot=False)`` with no active row and
+    ``Engine.prewarm(PREWARM_K)``: each must leave every pool, host flag
+    and the snapshot ring bit-equal, while the prewarm launches the live
+    path (two prefill chunks through ``wkv7_chunk``, 2 + 5 x PREWARM_K
+    graph replays); then ``restore_last_chunk`` must bring back the
+    pre-chunk state, sampler state and DFA state.  Returns the prewarm's
+    seconds on this warm process and its launches."""
+    import numpy as np
+    import torch
+
+    from ai00_server_tpu_torch.engine import Engine
+    from ai00_server_tpu_torch.ops import sampling
+    from ai00_server_tpu_torch.ops import v7_decode as fd
+    from ai00_server_tpu_torch.ops.wkv_chunk import wkv7_chunk
+
+    eng = Engine(model, max_batch=MAX_BATCH, token_chunk_size=CHUNK,
+                 device=dev)
+    check(eng._graph is not None, "the prewarm check's engine has no graph")
+    rng = np.random.default_rng(SEED + 21)
+    B, V = MAX_BATCH, eng.vocab
+    for b in range(B):
+        row = {k: (rng.standard_normal(tuple(v.shape)) * 0.5).astype(
+                   np.float32) for k, v in eng.fresh_row_state().items()}
+        eng.load_row_state(b, row, hidden_sums=(b == 1))
+        eng.set_row_sampler(b, {"kind": sampling.KIND_NUCLEUS, "top_p": 0.8,
+                                "temperature": 0.9, "presence": 0.5,
+                                "frequency": 0.2},
+                            prompt_tokens=[1 + b, 5, 7])
+    eng.set_row_bias(2, rng.standard_normal(V).astype(np.float32))
+    allowed = rng.random(V) < 0.5
+    allowed[1:64] = True
+    eng.set_row_mask(3, allowed)
+    table = np.full((3, V), -1, np.int8)
+    table[0, 1:64], table[1, 64:128] = 1, 0
+    eng.set_row_dfa(0, table, 0)
+    toks = rng.integers(1, V, (B, CHUNK)).astype(np.int32)
+    lens = np.array([CHUNK, CHUNK // 6, 0, CHUNK // 15, CHUNK, 3,
+                     CHUNK * 2 // 5, 1], np.int32)
+    res = eng.step(toks, lens, lens > 0)
+    pre = engine_pools(eng)
+    eng.decode_chunk(res.tokens, lens > 0, 4)
+    after = engine_pools(eng)
+    check(len(after["ring"]) == 1, "the decode chunk pushed no snapshot")
+    eng.decode_chunk(np.zeros(B, np.int32), np.zeros(B, np.bool_), PREWARM_K,
+                     snapshot=False)
+    bad = moved(engine_pools(eng), after)
+    check(not bad, f"decode_chunk(snapshot=False) moved {bad}")
+    wkv7_chunk.launches = 0
+    replays0 = fd.DecodeGraph.total_replays
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    eng.prewarm(PREWARM_K)
+    torch.cuda.synchronize()
+    out = {"warm_prewarm_s": time.monotonic() - t0,
+           "replays": fd.DecodeGraph.total_replays - replays0,
+           "wkv7_chunk": wkv7_chunk.launches}
+    bad = moved(engine_pools(eng), after)
+    check(not bad, f"Engine.prewarm moved {bad}")
+    check(out["replays"] == 2 + 5 * PREWARM_K
+          and out["wkv7_chunk"] == 2 * L_FULL,
+          f"the prewarm ran {out['replays']} graph replays and "
+          f"{out['wkv7_chunk']} wkv7_chunk launches, not {2 + 5 * PREWARM_K}"
+          f" and {2 * L_FULL}")
+    eng.restore_last_chunk()
+    now = engine_pools(eng)
+    for key in ("state", "sampler", "dfa_state", "dfa_rows"):
+        bad = moved(now[key], pre[key], key)
+        check(not bad, f"restore_last_chunk after the prewarm left {bad} "
+              "unlike the pre-chunk pools")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+async def stream_chat(http, base: str, content: str, max_tokens: int):
+    """One streamed greedy chat: (seconds to the first content event,
+    seconds to ``[DONE]``, text)."""
+    t0 = time.monotonic()
+    ttft, events = None, []
+    async with http.post(f"{base}/api/oai/chat/completions", json={
+            "messages": [{"role": "user", "content": content}],
+            "max_tokens": max_tokens, "stream": True,
+            "sampler": {"type": "Nucleus", "top_k": 1},
+            "logit_bias": NO_EOS}) as r:
+        check(r.status == 200, f"chat answered {r.status}")
+        async for line in r.content:
+            line = line.decode().strip()
+            if not line.startswith("data: "):
+                continue
+            events.append(line[6:])
+            if ttft is None and '"content"' in line:
+                ttft = time.monotonic() - t0
+    check(events and events[-1] == "[DONE]",
+          "the SSE stream did not end in data: [DONE]")
+    text = "".join(json.loads(e)["choices"][0].get("delta", {})
+                   .get("content", "") for e in events[:-1])
+    check(bool(text), "the streamed chat returned no text")
+    return ttft, time.monotonic() - t0, text
+
+
+async def prewarm_child(cfg: Path, device: str = "cuda") -> dict:
+    """One fresh server process: load ``cfg``'s model through
+    ``Middleware.reload`` (its seconds), await the prewarm where the config
+    asks for one (its seconds: the future is created as the reload
+    returns), then serve on localhost and stream the two
+    ``PREWARM_PROMPTS`` one after the other, each for its TTFT, total
+    seconds and greedy text."""
+    import aiohttp
+    from aiohttp import web
+
+    from ai00_server_tpu_torch.server.app import Server
+    from ai00_server_tpu_torch.server.config import Config
+
+    config = Config.from_toml(str(cfg))
+    server = Server(config, device=device)
+    t0 = time.monotonic()
+    await server.middleware.reload(config.to_reload_request())
+    out = {"prewarm": config.to_reload_request().prewarm,
+           "load_s": time.monotonic() - t0, "prewarm_s": None}
+    future = server.middleware.env.prewarm_future
+    check((future is not None) == out["prewarm"],
+          f"prewarm = {out['prewarm']} gave the future {future}")
+    if future is not None:
+        t0 = time.monotonic()
+        await future
+        out["prewarm_s"] = time.monotonic() - t0
+    runner = web.AppRunner(server.app)
+    await runner.setup()
+    await web.TCPSite(runner, "127.0.0.1", 0).start()
+    base = f"http://127.0.0.1:{runner.addresses[0][1]}"
+    try:
+        async with aiohttp.ClientSession() as http:
+            for name, prompt in zip(("first", "second"), PREWARM_PROMPTS):
+                ttft, total, text = await stream_chat(http, base, prompt,
+                                                      PREWARM_TOKENS)
+                out[name] = {"ttft_s": ttft, "total_s": total, "text": text}
+    finally:
+        await server.middleware.unload()
+        await runner.cleanup()
+    return out
+
+
+def prewarm_child_main(cfg: str, device: str = "cuda") -> None:
+    """``chip_smoke.py --prewarm-child CONFIG``: :func:`prewarm_child` in
+    this fresh process; its result is the last line, as JSON."""
+    sys.path.insert(0, str(ROOT))
+    print(json.dumps(asyncio.run(prewarm_child(Path(cfg), device))),
+          flush=True)
+
+
+async def prewarm_flow(server, tmp: Path, device: str = "cuda") -> dict:
+    """On the bf16 server: :func:`prewarm_pools` on its model, then its
+    prefab saved with ``Middleware.save`` and loaded by two fresh server
+    processes (``chip_smoke.py --prewarm-child``), one with ``[model]
+    prewarm = false``, then one with ``prewarm = true``, one after the
+    other: each process's cold first request, its warm second one and the
+    prewarm's seconds.  Fails if a child fails (a prewarm that raised
+    included) or the two children's greedy texts differ."""
+    import torch
+
+    env = server.middleware.env
+    out = prewarm_pools(env.model, env.engine.device)
+    path = tmp / PREWARM_PREFAB
+    t0 = time.monotonic()
+    await server.middleware.save(str(path))
+    out["save_s"] = time.monotonic() - t0
+    out["prefab_bytes"] = path.stat().st_size
+    for prewarm in (False, True):
+        cfg = tmp / f"Config-prewarm-{str(prewarm).lower()}.toml"
+        cfg.write_text(f"""
+[model]
+name = "{PREWARM_PREFAB}"
+path = "{tmp}"
+max_batch = {MAX_BATCH}
+token_chunk_size = {CHUNK}
+decode_chunk_size = {PREWARM_K}
+prewarm = {str(prewarm).lower()}
+
+[tokenizer]
+path = "{tmp / 'vocab.json'}"
+
+[listen]
+ip = "127.0.0.1"
+port = 0
+""")
+        t0 = time.monotonic()
+        proc = await asyncio.create_subprocess_exec(
+            sys.executable, str(ROOT / "chip_smoke.py"), "--prewarm-child",
+            str(cfg), device, stdout=asyncio.subprocess.PIPE,
+            stderr=asyncio.subprocess.STDOUT)
+        try:
+            stdout, _ = await asyncio.wait_for(proc.communicate(),
+                                               PREWARM_CHILD_TIMEOUT)
+        except asyncio.TimeoutError:
+            proc.kill()
+            await proc.wait()
+            fail(f"the prewarm = {prewarm} server process ran past "
+                 f"{PREWARM_CHILD_TIMEOUT} s")
+        lines = stdout.decode(errors="replace").strip().splitlines()
+        found = [ln for ln in lines if ln.startswith("{")]
+        check(proc.returncode == 0 and found,
+              f"the prewarm = {prewarm} server process exited "
+              f"{proc.returncode}: {' | '.join(lines[-15:])}")
+        child = json.loads(found[-1])
+        child["process_s"] = time.monotonic() - t0
+        out["on" if prewarm else "off"] = child
+    path.unlink()
+    for name in ("first", "second"):
+        check(out["on"][name]["text"] == out["off"][name]["text"],
+              f"the {name} greedy answer with prewarm "
+              f"{out['on'][name]['text']!r} is not the one without "
+              f"{out['off'][name]['text']!r}")
+    if device != "cpu":
+        torch.cuda.synchronize()
+    return out
+
+
+def print_prewarm(pw: dict, card: str) -> None:
+    from ai00_server_tpu_torch.tokenizer import Tokenizer
+
+    on, off = pw["on"], pw["off"]
+    n_prompt = len(Tokenizer.from_json(json.dumps(synthetic_vocab()))
+                   .encode(PREWARM_PROMPTS[0]))
+    print(f"prewarm flow on the bf16 server ({card}; {pw['seconds']:.1f} s): "
+          f"Engine.prewarm({PREWARM_K}) on a fresh 8-row engine over the "
+          f"served model left every pool, host flag and the snapshot ring "
+          f"bit-equal ({pw['replays']} graph replays, {pw['wkv7_chunk']} "
+          f"wkv7_chunk launches, {pw['warm_prewarm_s']:.3f} s in this warm "
+          "process), so did decode_chunk(snapshot=False), and "
+          "restore_last_chunk brought back the pre-chunk pools; prefab "
+          f"{pw['prefab_bytes'] / 1e6:.1f} MB saved in {pw['save_s']:.2f} s",
+          flush=True)
+    for label, run in (("prewarm = false", off), ("prewarm = true", on)):
+        pre = ("" if run["prewarm_s"] is None else
+               f", prewarm {run['prewarm_s']:.3f} s after it")
+        print(f"fresh server process, {label} ({card}): load "
+              f"{run['load_s']:.3f} s{pre}; first request (a chat of a "
+              f"{n_prompt}-token text, "
+              f"{PREWARM_TOKENS} greedy tokens, streamed) TTFT "
+              f"{run['first']['ttft_s']:.4f} s, total "
+              f"{run['first']['total_s']:.4f} s; second request TTFT "
+              f"{run['second']['ttft_s']:.4f} s, total "
+              f"{run['second']['total_s']:.4f} s; the process "
+              f"{run['process_s']:.1f} s from its start to its exit",
+              flush=True)
+    print(f"prewarm: the greedy answers of the two processes agree, first "
+          f"{on['first']['text'][:40]!r}", flush=True)
+
+
 async def serve(cfg: Path, kind: str, device="cuda") -> dict:
     """Serve one config over HTTP on localhost.  ``kind``: "bf16", "int8",
     "nf4", "v6 bf16", "v5 bf16" and "v4 bf16" get the burst (4 greedy
@@ -5223,6 +5568,13 @@ async def serve(cfg: Path, kind: str, device="cuda") -> dict:
     await server.middleware.reload(config.to_reload_request())
     load_s = time.monotonic() - t0
     mem = torch.cuda.memory_allocated() - mem0 if device != "cpu" else 0
+    # The load's background prewarm, awaited: none of its launches or
+    # device time lands in the readings below.
+    prewarm_s = None
+    if server.middleware.env.prewarm_future is not None:
+        t0 = time.monotonic()
+        await server.middleware.env.prewarm_future
+        prewarm_s = time.monotonic() - t0
     runner = web.AppRunner(server.app)
     await runner.setup()
     await web.TCPSite(runner, "127.0.0.1", 0).start()
@@ -5231,7 +5583,8 @@ async def serve(cfg: Path, kind: str, device="cuda") -> dict:
     print(f"{kind} model (quant = {ALL_SERVED[kind][0]}, quant_type = "
           f"{ALL_SERVED[kind][1]}) loaded in {load_s:.1f} s, "
           f"{mem / 1e6:.1f} MB of device memory allocated by the load "
-          f"(weights, state pool, sampler pools, graph); "
+          f"(weights, state pool, sampler pools, graph); prewarm "
+          f"{'off' if prewarm_s is None else f'{prewarm_s:.3f} s'}; "
           f"serving on {base}", flush=True)
 
     async def completion(http, prompt, max_tokens):
@@ -5241,29 +5594,6 @@ async def serve(cfg: Path, kind: str, device="cuda") -> dict:
                 "logit_bias": NO_EOS}) as r:
             check(r.status == 200, f"completions answered {r.status}")
             return await r.json()
-
-    async def streamed_chat(http, content, max_tokens):
-        t0 = time.monotonic()
-        ttft, events = None, []
-        async with http.post(f"{base}/api/oai/chat/completions", json={
-                "messages": [{"role": "user", "content": content}],
-                "max_tokens": max_tokens, "stream": True,
-                "sampler": {"type": "Nucleus", "top_k": 1},
-                "logit_bias": NO_EOS}) as r:
-            check(r.status == 200, f"chat answered {r.status}")
-            async for line in r.content:
-                line = line.decode().strip()
-                if not line.startswith("data: "):
-                    continue
-                events.append(line[6:])
-                if ttft is None and '"content"' in line:
-                    ttft = time.monotonic() - t0
-        check(events and events[-1] == "[DONE]",
-              "the SSE stream did not end in data: [DONE]")
-        text = "".join(json.loads(e)["choices"][0].get("delta", {})
-                       .get("content", "") for e in events[:-1])
-        check(bool(text), "the streamed chat returned no text")
-        return ttft, text
 
     mixed = kind.startswith("mixed")
     wide = kind.endswith("wide")
@@ -5307,7 +5637,8 @@ async def serve(cfg: Path, kind: str, device="cuda") -> dict:
     def read_counts():
         return {name: getattr(k, attr) for name, (k, attr) in counted.items()}
 
-    result = {"kind": kind, "load_s": load_s, "memory_bytes": mem}
+    result = {"kind": kind, "load_s": load_s, "memory_bytes": mem,
+              "prewarm_s": prewarm_s}
     try:
         async with aiohttp.ClientSession() as http:
             await completion(http, "warm up", 8)  # first-call set-up
@@ -5350,9 +5681,9 @@ async def serve(cfg: Path, kind: str, device="cuda") -> dict:
                 max_tokens = 128
             replays0 = zero_counts()
             t0 = time.monotonic()
-            *outs, (ttft_load, _chat) = await asyncio.gather(
+            *outs, (ttft_load, _, _chat) = await asyncio.gather(
                 *[completion(http, p, max_tokens) for p in prompts],
-                streamed_chat(http, PROMPT * 8, 64))
+                stream_chat(http, base, PROMPT * 8, 64))
             wall = time.monotonic() - t0
             result.update(
                 launches=read_counts(),
@@ -5373,16 +5704,16 @@ async def serve(cfg: Path, kind: str, device="cuda") -> dict:
                       for i in range(0, len(texts), 2)),
                   "identical greedy requests returned different text")
             n_tokens = sum(o["usage"]["completion"] for o in outs)
-            ttft_solo, _ = await streamed_chat(
-                http, "once more, " + PROMPT * 8, 16)
+            ttft_solo, _, _ = await stream_chat(
+                http, base, "once more, " + PROMPT * 8, 16)
             result.update(
                 wall_s=wall, completion_tokens=n_tokens,
                 prompt_tokens=sum(o["usage"]["prompt"] for o in outs),
                 tokens_per_s=n_tokens / wall, ttft_s_under_load=ttft_load,
                 ttft_s_alone=ttft_solo, sample=texts[0][:60])
             if kind in ("bf16", "int8"):
-                result["ttft_s_long"], _ = await streamed_chat(
-                    http, LONG_PROMPT, 16)
+                result["ttft_s_long"], _, _ = await stream_chat(
+                    http, base, LONG_PROMPT, 16)
             if kind == "bf16":
                 replays0 = fd.DecodeGraph.total_replays
                 t0 = time.monotonic()
@@ -5401,6 +5732,10 @@ async def serve(cfg: Path, kind: str, device="cuda") -> dict:
                 t0 = time.monotonic()
                 result["bnf"] = await bnf_flow(http, base, server)
                 result["bnf"]["seconds"] = time.monotonic() - t0
+                t0 = time.monotonic()
+                result["prewarm"] = await prewarm_flow(server, cfg.parent,
+                                                       device)
+                result["prewarm"]["seconds"] = time.monotonic() - t0
                 # Reloads the server with a state and a LoRA: last.
                 t0 = time.monotonic()
                 result["state"] = await state_flow(http, base, server,
@@ -5515,7 +5850,9 @@ def main() -> None:
                 path.unlink()
     finally:
         shutil.rmtree(tmp_root, ignore_errors=True)
+    t1 = time.monotonic()
     wide_29 = phase_wide_stacks(dev)
+    print(f"2.9B wide stacks {time.monotonic() - t1:.1f} s", flush=True)
 
     # Every kernel's launches on its main path: the bf16 burst for the WKV
     # chunk and the fused decode kernels, the int8 / nf4 burst for the int8
@@ -5602,6 +5939,7 @@ def main() -> None:
           f"token-DFA table builds in {bnf['metrics']['bnf_table_s']:.3f} "
           "s; counters "
           f"{bnf['metrics']}", flush=True)
+    print_prewarm(served["bf16"]["prewarm"], card)
     st = served["bf16"]["state"]
     print(f"state flow on the bf16 server ({card}; {st['seconds']:.1f} s): "
           f"reload with {LASTING_ST}, a [[state]] and a rank-{LORA_RANK} "
@@ -5693,7 +6031,7 @@ def main() -> None:
         source, replaces = stack_src[version]
         rows[f"forward_t1 {kind}"] = {
             "name": f"forward_t1 ({'' if kind == 'bf16' else kind + ', '}"
-                    f"{L6 if version == 'v6' else L_FULL} layers, "
+                    f"{served_layers(kind)} layers, "
                     f"{stack['kernels_per_replay']} kernels "
                     "in one CUDA graph)",
             "route": "cuda", "source": source, "replaces": replaces,
@@ -5708,7 +6046,7 @@ def main() -> None:
             (f"v6 {mode} (codes built on the card, not served)", st)
             for mode, st in served[kind].get("quant_stacks", {}).items()]
         for what, st in stacks:
-            print(f"forward_t1, {L6 if version == 'v6' else L_FULL} layers "
+            print(f"forward_t1, {served_layers(kind)} layers "
                   f"{what} B={MAX_BATCH}, all "
                   f"rows active: {st['replay_ms']:.5f} ms per graph replay "
                   f"({st['kernels_per_replay']} kernels; "
@@ -5727,7 +6065,8 @@ def main() -> None:
              "ai00_server_tpu/ops/v56_phased_pallas.py:439")):
         stack = served[kind]["stack"]
         rows[f"forward_t1 {kind}"] = {
-            "name": f"forward_t1 (phased, {kind[:-5]}, {L_FULL} layers, "
+            "name": f"forward_t1 (phased, {kind[:-5]}, "
+                    f"{served_layers(kind)} layers, "
                     f"B={WIDE_BATCH}, {stack['kernels_per_replay']} kernels "
                     "in one CUDA graph)",
             "route": "cuda", "source": "ai00_server_tpu_torch/csrc/phased.cu",
@@ -5737,7 +6076,7 @@ def main() -> None:
             "bound_ms": stack["bound_ms"], "bound_by": stack["bound_by"],
             "library_ms": None,
         }
-        print_wide(f"{L_FULL} layers, {kind} model served",
+        print_wide(f"{served_layers(kind)} layers, {kind} model served",
                    served[kind]["wide_stacks"])
     print_wide(f"{L6} layers, v6 bf16 model served at max_batch {MAX_BATCH}",
                served["v6 bf16"]["wide_stacks"])
@@ -5759,7 +6098,7 @@ def main() -> None:
                   f"{run['memory_bytes'] / 1e6:.1f} MB allocated by the "
                   f"load; sample {run['sample']!r}", flush=True)
             continue
-        print(f"serving ({L6 if kind.startswith('v6') else L_FULL} layers, "
+        print(f"serving ({served_layers(kind)} layers, "
               f"{kind}, max_batch "
               f"{WIDE_BATCH if kind.endswith('wide') else MAX_BATCH}, chunk "
               f"{CHUNK}) on {card}: {run['burst']} in {run['wall_s']:.2f} s, "
@@ -5812,4 +6151,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--prewarm-child"]:
+        prewarm_child_main(*sys.argv[2:4])
+    else:
+        main()

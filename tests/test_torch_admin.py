@@ -58,9 +58,12 @@ from ai00_server_tpu_torch.server import auth, config as tconfig, files
 from ai00_server_tpu_torch.server.app import PROFILE_TRACE, Server
 from ai00_server_tpu_torch.server.config import Config
 from ai00_server_tpu_torch.server.webui import WEBUI_HTML
+from ai00_server_tpu_torch.testing import cpu_test_threads
 
 from test_loader import to_converted_layout
 from test_torch_states_runtime import tuned_file
+
+cpu_test_threads()
 
 GREEDY = {"type": "Nucleus", "top_k": 1}
 SLOT = "testsecret"

@@ -45,6 +45,9 @@ from ai00_server_tpu_torch.ops import sampling
 from ai00_server_tpu_torch.runtime import (GenerateRequest, Runtime,
                                            SamplerSpec)
 from ai00_server_tpu_torch.tokenizer import Tokenizer
+from ai00_server_tpu_torch.testing import cpu_test_threads
+
+cpu_test_threads()
 
 VOCAB = {i: bytes([64 + i]) for i in range(1, 60)}  # '@'... one char each
 # Regular: halts after 6-7 tokens, inside one 8-token chunk.

@@ -27,6 +27,9 @@ from ai00_server_tpu.testing import make_params, make_raw_weights, tiny_info
 from ai00_server_tpu_torch.engine import Engine as TEngine
 from ai00_server_tpu_torch.loader import LoadedModel as TLoaded
 from ai00_server_tpu_torch.loader import params_from_numpy
+from ai00_server_tpu_torch.testing import cpu_test_threads
+
+cpu_test_threads()
 
 B, CHUNK = 4, 8
 F32_TOL, BF16_TOL = 2e-4, 2.0 ** -4

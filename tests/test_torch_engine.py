@@ -24,6 +24,9 @@ from ai00_server_tpu.testing import make_tiny_model
 from ai00_server_tpu_torch.engine import Engine as TEngine
 from ai00_server_tpu_torch.loader import LoadedModel as TLoaded
 from ai00_server_tpu_torch.loader import params_from_numpy
+from ai00_server_tpu_torch.testing import cpu_test_threads
+
+cpu_test_threads()
 
 B, CHUNK = 4, 8
 GREEDY = {"kind": jsampling.KIND_GREEDY, "presence": 0.3, "frequency": 0.3}

@@ -38,6 +38,9 @@ from ai00_server_tpu_torch.loader import LoadedModel, params_from_numpy
 from ai00_server_tpu_torch.ops import fused_decode, sampling
 from ai00_server_tpu_torch.parallel import make_mesh
 from ai00_server_tpu_torch.parallel.mesh_engine import MeshEngine, TPShard
+from ai00_server_tpu_torch.testing import cpu_test_threads
+
+cpu_test_threads()
 
 B, CHUNK, K = 8, 8, 4
 CPU = torch.device("cpu")

@@ -40,11 +40,15 @@ from ai00_server_tpu_torch.ops import sampling
 from ai00_server_tpu_torch.parallel import (make_mesh, shard_params,
                                             shard_state, unshard_state)
 from ai00_server_tpu_torch.parallel.mesh_engine import MeshEngine, TPShard
-from ai00_server_tpu_torch.testing import make_raw_weights, tiny_info
+from ai00_server_tpu_torch.testing import (cpu_test_threads,
+                                           make_raw_weights,
+                                           tiny_info)
 
 from test_torch_engine_sharded import (B, JAX_CASES, QUANT, assert_runs_equal,
                                        close, cpu_mesh, drive, model_inputs,
                                        port_engine)
+
+cpu_test_threads()
 
 VERSIONS = ("V6", "V5", "V4")
 MESHES = [(4, 2), (2, 2), (1, 2)]

@@ -17,6 +17,9 @@ from ai00_server_tpu_torch import grammar as tgrammar
 from ai00_server_tpu_torch.bnf import BnfFormatter
 from ai00_server_tpu_torch.grammar import GrammarEngine, GrammarError
 from ai00_server_tpu_torch.tokenizer import Tokenizer
+from ai00_server_tpu_torch.testing import cpu_test_threads
+
+cpu_test_threads()
 
 
 def accepts(g: str, s: str, start="start") -> bool:

@@ -24,9 +24,12 @@ from ai00_server_tpu.testing import make_tiny_model
 from ai00_server_tpu_torch.grammar import GrammarEngine
 from ai00_server_tpu_torch.server.app import Server
 from ai00_server_tpu_torch.server.config import Config
+from ai00_server_tpu_torch.testing import cpu_test_threads
 
 from test_loader import to_converted_layout
 from test_torch_states_runtime import lasting
+
+cpu_test_threads()
 
 GREEDY = {"type": "Nucleus", "top_k": 1}
 

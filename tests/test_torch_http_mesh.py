@@ -28,8 +28,11 @@ from ai00_server_tpu_torch.middleware import ReloadRequest
 from ai00_server_tpu_torch.parallel import make_mesh
 from ai00_server_tpu_torch.server.app import Server
 from ai00_server_tpu_torch.server.config import Config
+from ai00_server_tpu_torch.testing import cpu_test_threads
 
 from test_loader import to_converted_layout
+
+cpu_test_threads()
 
 GREEDY = {"type": "Nucleus", "top_k": 1}
 

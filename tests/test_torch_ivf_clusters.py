@@ -27,8 +27,11 @@ import torch
 
 from ai00_server_tpu.ops import retrieval as JR
 from ai00_server_tpu_torch.ops import retrieval as TR
+from ai00_server_tpu_torch.testing import cpu_test_threads
 
 from test_torch_retrieval import T, clustered, close, same_hits
+
+cpu_test_threads()
 
 
 # ---------------------------------------------------------------------------

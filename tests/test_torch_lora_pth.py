@@ -31,8 +31,11 @@ from ai00_server_tpu.testing import make_raw_weights, tiny_info
 from ai00_server_tpu_torch import loader as tloader
 from ai00_server_tpu_torch.engine import Engine as TEngine
 from ai00_server_tpu_torch.models import get_version_module as tmodule
+from ai00_server_tpu_torch.testing import cpu_test_threads
 
 from test_loader import to_converted_layout
+
+cpu_test_threads()
 
 RTOL = 2e-4
 QUANT_INFO = dict(num_layer=2, num_emb=128, head_size=64, num_vocab=64)

@@ -26,12 +26,15 @@ from ai00_server_tpu.models import v4 as jv4
 from ai00_server_tpu_torch.models import get_version_module
 from ai00_server_tpu_torch.models import v4 as tv4
 from ai00_server_tpu_torch.ops.wkv4 import wkv4_chunk, wkv4_chunk_plain
+from ai00_server_tpu_torch.testing import cpu_test_threads
 
 from test_torch_models_v5 import (bf16_equals_jax, chunked_equals_full,
                                   make_models, mixed_quantized_layer_path,
                                   params_equal_loader, prefill_then_decode,
                                   raw_weights_equal_jax, shape_of,
                                   suffix_mask_freezes_state)
+
+cpu_test_threads()
 
 V4 = ModelVersion.V4
 

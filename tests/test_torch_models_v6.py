@@ -36,6 +36,9 @@ from ai00_server_tpu_torch import testing as ttesting
 from ai00_server_tpu_torch.models import get_version_module
 from ai00_server_tpu_torch.models import v6 as tv6
 from ai00_server_tpu_torch.ops import quant as tquant
+from ai00_server_tpu_torch.testing import cpu_test_threads
+
+cpu_test_threads()
 
 HIDDEN = dict(rtol=2e-4, atol=2e-4)
 STATE = dict(rtol=3e-3, atol=2e-4)

@@ -24,8 +24,11 @@ from ai00_server_tpu.testing import make_tiny_model
 from ai00_server_tpu_torch import loader as tloader
 from ai00_server_tpu_torch import testing as ttesting
 from ai00_server_tpu_torch.models import v7 as tv7
+from ai00_server_tpu_torch.testing import cpu_test_threads
 
 from test_loader import to_converted_layout
+
+cpu_test_threads()
 
 RTOL = 2e-4
 

@@ -17,6 +17,9 @@ import pytest
 from ai00_server_tpu_torch import native
 from ai00_server_tpu_torch.grammar import GrammarEngine
 from ai00_server_tpu_torch.tokenizer import Tokenizer
+from ai00_server_tpu_torch.testing import cpu_test_threads
+
+cpu_test_threads()
 
 REPO = Path(__file__).resolve().parent.parent
 

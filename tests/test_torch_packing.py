@@ -21,7 +21,9 @@ from ai00_server_tpu.testing import tiny_info as jtiny_info
 
 from ai00_server_tpu_torch.models import ModelVersion, get_version_module
 from ai00_server_tpu_torch.models import packing
-from ai00_server_tpu_torch.testing import tiny_info
+from ai00_server_tpu_torch.testing import cpu_test_threads, tiny_info
+
+cpu_test_threads()
 
 VERSIONS = ("V4", "V5", "V6", "V7")
 SHAPE = dict(num_layer=2, num_emb=32, head_size=16, num_vocab=64)

@@ -59,6 +59,9 @@ from ai00_server_tpu_torch.ops import quant as tquant
 from ai00_server_tpu_torch.ops import v7_decode as tfd
 from ai00_server_tpu_torch.ops import v7_phased as tpd
 from ai00_server_tpu_torch.ops.v7_decode import Product
+from ai00_server_tpu_torch.testing import cpu_test_threads
+
+cpu_test_threads()
 
 L, C, N, V, B = 2, 512, 64, 64, 12
 TOL = {"float32": 2e-5, "bfloat16": 2.0 ** -6}

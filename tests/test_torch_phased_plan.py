@@ -30,6 +30,9 @@ from ai00_server_tpu.ops.v7_phased_pallas import _mono_dot
 
 from ai00_server_tpu_torch.ops import phased_matmul as pm
 from ai00_server_tpu_torch.ops import quant as tquant
+from ai00_server_tpu_torch.testing import cpu_test_threads
+
+cpu_test_threads()
 
 
 def v7_layer(C, F, lora):

@@ -55,6 +55,9 @@ from ai00_server_tpu_torch.ops import v4_decode as tfd4
 from ai00_server_tpu_torch.ops import v5_decode as tfd5
 from ai00_server_tpu_torch.ops import v6_decode as tfd6
 from ai00_server_tpu_torch.ops import v56_phased as tpd
+from ai00_server_tpu_torch.testing import cpu_test_threads
+
+cpu_test_threads()
 
 L, C, N, V, B = 2, 512, 64, 64, 12
 TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -6}

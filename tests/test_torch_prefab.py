@@ -46,7 +46,10 @@ from ai00_server_tpu_torch.loader import stack_params
 from ai00_server_tpu_torch.models import ModelVersion
 from ai00_server_tpu_torch.models import get_version_module as tmodule
 from ai00_server_tpu_torch.ops import quant as tquant
-from ai00_server_tpu_torch.testing import tiny_info as ttiny_info
+from ai00_server_tpu_torch.testing import (cpu_test_threads,
+                                           tiny_info as ttiny_info)
+
+cpu_test_threads()
 
 RTOL = 2e-4
 SHAPE = dict(num_layer=2, num_emb=128, head_size=64, num_vocab=64)

@@ -34,6 +34,9 @@ from ai00_server_tpu_torch.ops.ffn import ffn7_t1_l, ffn7_t1_l_plain
 from ai00_server_tpu_torch.ops.quant_matmul import (matmul_int8,
                                                     matmul_int8_l,
                                                     matmul_int8_plain)
+from ai00_server_tpu_torch.testing import cpu_test_threads
+
+cpu_test_threads()
 
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}

@@ -35,6 +35,9 @@ from ai00_server_tpu_torch.ops.quant_matmul import (dequant4_cd, matmul_4bit,
                                                     matmul_4bit_l,
                                                     matmul_4bit_l_plain,
                                                     matmul_4bit_plain)
+from ai00_server_tpu_torch.testing import cpu_test_threads
+
+cpu_test_threads()
 
 MODES = ["nf4", "sf4", "int4"]
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}

@@ -36,6 +36,9 @@ from ai00_server_tpu.ops import quant_pallas
 
 from ai00_server_tpu_torch.ops import quant_matmul as qm
 from ai00_server_tpu_torch.ops.device import H100_SMS
+from ai00_server_tpu_torch.testing import cpu_test_threads
+
+cpu_test_threads()
 
 MODES = ("int8", "nf4", "sf4", "int4")
 ROWS = (*range(1, 9), 11, 16, 64, 65, 256, 511)

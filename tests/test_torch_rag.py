@@ -26,8 +26,11 @@ from ai00_server_tpu.testing import make_tiny_model
 from ai00_server_tpu_torch.ops import retrieval as TR
 from ai00_server_tpu_torch.server.app import Server
 from ai00_server_tpu_torch.server.config import Config
+from ai00_server_tpu_torch.testing import cpu_test_threads
 
 from test_loader import to_converted_layout
+
+cpu_test_threads()
 
 TOL = 2e-4
 GREEDY = {"type": "Nucleus", "top_k": 1}

@@ -24,6 +24,9 @@ from ai00_server_tpu.retrieval_store import RetrievalStore as JStore
 
 from ai00_server_tpu_torch.ops import retrieval as TR
 from ai00_server_tpu_torch.retrieval_store import RetrievalStore as TStore
+from ai00_server_tpu_torch.testing import cpu_test_threads
+
+cpu_test_threads()
 
 TOL = 1e-5
 

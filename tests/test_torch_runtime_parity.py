@@ -59,8 +59,11 @@ from ai00_server_tpu_torch.runtime import SamplerSpec as TSampler
 from ai00_server_tpu_torch.server.app import Server as TServer
 from ai00_server_tpu_torch.server.config import Config as TConfig
 from ai00_server_tpu_torch.tokenizer import Tokenizer as TTokenizer
+from ai00_server_tpu_torch.testing import cpu_test_threads
 
 from test_loader import to_converted_layout
+
+cpu_test_threads()
 
 # The two packages' runtime pieces, by name.
 JAX = {"engine": lambda m, b: JEngine(JLoaded(info=m[0], params=m[1],

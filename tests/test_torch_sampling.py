@@ -16,6 +16,9 @@ import torch
 from ai00_server_tpu.ops import sampling as js
 
 from ai00_server_tpu_torch.ops import sampling as ts
+from ai00_server_tpu_torch.testing import cpu_test_threads
+
+cpu_test_threads()
 
 B, V = 8, 300
 

@@ -38,6 +38,9 @@ from ai00_server_tpu_torch.loader import params_from_numpy
 from ai00_server_tpu_torch.models import get_version_module
 from ai00_server_tpu_torch.ops import quant, sampling
 from ai00_server_tpu_torch.parallel import sharding as sh
+from ai00_server_tpu_torch.testing import cpu_test_threads
+
+cpu_test_threads()
 
 VERSIONS = {"v7": ModelVersion.V7, "v6": ModelVersion.V6,
             "v5": ModelVersion.V5, "v4": ModelVersion.V4}

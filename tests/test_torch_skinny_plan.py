@@ -27,6 +27,9 @@ import pytest
 import torch
 
 from ai00_server_tpu_torch.ops import v7_decode as fd
+from ai00_server_tpu_torch.testing import cpu_test_threads
+
+cpu_test_threads()
 
 MODES = ("none", "int8", "nf4", "sf4", "int4")
 BATCHES = (*range(1, 9), 11)

@@ -55,6 +55,9 @@ from ai00_server_tpu_torch.runtime import GenerateRequest as TRequest
 from ai00_server_tpu_torch.runtime import Runtime as TRuntime
 from ai00_server_tpu_torch.runtime import SamplerSpec as TSampler
 from ai00_server_tpu_torch.tokenizer import Tokenizer as TTokenizer
+from ai00_server_tpu_torch.testing import cpu_test_threads
+
+cpu_test_threads()
 
 RTOL = 2e-4
 SID = "fd7a60ed-7807-449f-8256-bccae3246222"

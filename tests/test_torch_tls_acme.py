@@ -30,8 +30,11 @@ from ai00_server_tpu_torch.server.acme import (AcmeClient, ChallengeStore,
                                                challenge_routes)
 from ai00_server_tpu_torch.server.app import Server
 from ai00_server_tpu_torch.server.config import Config
+from ai00_server_tpu_torch.testing import cpu_test_threads
 
 from test_acme import MockCA
+
+cpu_test_threads()
 
 DOMAIN = "example.test"
 

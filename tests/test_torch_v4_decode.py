@@ -24,11 +24,14 @@ from ai00_server_tpu.testing import make_params, make_raw_weights, tiny_info
 from ai00_server_tpu_torch.loader import params_from_numpy
 from ai00_server_tpu_torch.ops import fused_decode as tfused
 from ai00_server_tpu_torch.ops import v4_decode as tfd4
+from ai00_server_tpu_torch.testing import cpu_test_threads
 
 from test_torch_v5_decode import (CASES, JDT, TDT, as_torch, big_equal_jax,
                                   fused_equals_layer_path, make_pair, rel,
                                   step_with_inactive_row, three_step_chain,
                                   to_np)
+
+cpu_test_threads()
 
 V4 = ModelVersion.V4
 C, V = 128, 64

@@ -51,6 +51,9 @@ from ai00_server_tpu_torch.ops import fused_decode as tfused
 from ai00_server_tpu_torch.ops import v4_decode as tfd4
 from ai00_server_tpu_torch.ops import v5_decode as tfd5
 from ai00_server_tpu_torch.ops import v6_decode as tfd6
+from ai00_server_tpu_torch.testing import cpu_test_threads
+
+cpu_test_threads()
 
 L, C, N, V = 3, 128, 64, 64
 TOL = {"float32": {"hidden": 2e-5, "state": 2e-5},

@@ -49,6 +49,9 @@ from ai00_server_tpu_torch.models import v6 as tv6
 from ai00_server_tpu_torch.ops import fused_decode as tfused
 from ai00_server_tpu_torch.ops import v6_decode as tfd
 from ai00_server_tpu_torch.ops import v7_decode as tv7d
+from ai00_server_tpu_torch.testing import cpu_test_threads
+
+cpu_test_threads()
 
 L, C, N, V = 3, 128, 64, 64
 TOL = {"float32": {"hidden": 2e-5, "state": 2e-5},

@@ -30,6 +30,9 @@ import torch
 from ai00_server_tpu.models import v4 as jv4
 from ai00_server_tpu_torch.ops import v4_decode as tfd4
 from ai00_server_tpu_torch.ops import wkv4
+from ai00_server_tpu_torch.testing import cpu_test_threads
+
+cpu_test_threads()
 
 C = 40
 Y_TOL, STATE_TOL = 2e-5, 2e-6

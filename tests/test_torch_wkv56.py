@@ -26,6 +26,9 @@ from ai00_server_tpu.ops.wkv_t1 import wkv56_t1 as j_t1
 
 from ai00_server_tpu_torch.ops.wkv_chunk import wkv56_chunk
 from ai00_server_tpu_torch.ops.wkv_t1 import wkv56_t1
+from ai00_server_tpu_torch.testing import cpu_test_threads
+
+cpu_test_threads()
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

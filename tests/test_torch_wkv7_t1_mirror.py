@@ -23,6 +23,9 @@ import torch
 
 from ai00_server_tpu.ops.wkv_t1 import wkv7_t1 as j_t1
 from ai00_server_tpu_torch.ops import wkv_t1 as tw
+from ai00_server_tpu_torch.testing import cpu_test_threads
+
+cpu_test_threads()
 
 N = 64
 TOL = dict(rtol=1e-5, atol=1e-5)

@@ -39,6 +39,9 @@ from ai00_server_tpu.ops import wkv_pallas as jp
 from ai00_server_tpu.ops.wkv_chunked import wkv56_chunk_mm, wkv7_chunk_mm
 
 from ai00_server_tpu_torch.ops import wkv_chunk as wc
+from ai00_server_tpu_torch.testing import cpu_test_threads
+
+cpu_test_threads()
 
 TOL7 = dict(rtol=1e-4, atol=1e-5)
 TOL56 = dict(rtol=1e-4, atol=5e-5)

@@ -24,6 +24,9 @@ from ai00_server_tpu.models.common import GN_EPS
 from ai00_server_tpu.ops import v7_decode_pallas as jfd
 from ai00_server_tpu_torch.ops import v6_decode as tfd6
 from ai00_server_tpu_torch.ops import v7_decode as tfd
+from ai00_server_tpu_torch.testing import cpu_test_threads
+
+cpu_test_threads()
 
 N = 64
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
