@@ -133,6 +133,21 @@ __device__ __forceinline__ float4 ld4_l2(const float* p) {
   return __ldcg(reinterpret_cast<const float4*>(p));
 }
 
+// Four elements of a vector from L2 (.cg) as floats: 16 bytes of f32 or
+// 8 of bf16 (widened exactly).  i counts elements.  The one-step WKV
+// kernels (wkv7.cu, wkv56.cu) read their vectors in the dtype the caller
+// holds them in with this.
+__device__ __forceinline__ float4 vec4_l2(const void* p, size_t i,
+                                          bool bf16) {
+  if (!bf16) return ld4_l2(static_cast<const float*>(p) + i);
+  const uint2 t = __ldcg(reinterpret_cast<const uint2*>(
+      static_cast<const uint16_t*>(p) + i));
+  return make_float4(__uint_as_float(t.x << 16),
+                     __uint_as_float(t.x & 0xffff0000u),
+                     __uint_as_float(t.y << 16),
+                     __uint_as_float(t.y & 0xffff0000u));
+}
+
 // Four T of p (8-byte aligned for bf16, 16 for f32) as floats, and back.
 __device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
   const float4 t = *reinterpret_cast<const float4*>(p);

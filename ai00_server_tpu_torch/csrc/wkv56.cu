@@ -8,6 +8,37 @@
 // wkv56_t1_launch replaces ai00_server_tpu/ops/wkv_t1.py:wkv56_t1 (the
 // Pallas _v56_kernel): one decode step, row-masked - every row gets its y
 // from the state before the step; an inactive row keeps S bit for bit.
+// What bounds it: the state's bytes (16 KB a head read, 16 KB written: 8.4
+// MB at B=8, H=32, 2.5 us at 3.35 TB/s; 1-4 MB at a tp place's H / tp
+// heads) under a chain of latencies - the launch, the state's DRAM round
+// trip, the readout's sum over k, the store.  The design, as wkv7.cu's
+// wkv7_t1, shortens the chain:
+//  * one launch for the whole call: r, k, v, w and u are read in the dtype
+//    the caller holds them in, each f32 or bf16 by a bit of vec_bf16 (the
+//    layer path's r, k, v are bf16, w f32, u the parameter's dtype; bf16
+//    -> f32 is exact), so no cast kernels run before it;
+//  * a programmatic dependent launch (launch_ex, pdl): it lets the next
+//    kernel start at once and fetches this block's state tile (ld4_l2)
+//    before griddepcontrol.wait, so the state's DRAM round trip overlaps
+//    the kernel before it; everything else after it, from L2 (.cg: never
+//    ld.global.nc on a kernel-written operand, decode_common.cuh:ld4_l2):
+//    r, k, v, the mask, the dense decay, RWKV-5's static decay (models/v5.py
+//    computes it with torch.exp on every call) and u (a tp place's slice of
+//    it is a view today, but a copy or cast on the stream could make it);
+//  * a thread holds a 4 x 4 state tile in registers (wkv56_common.cuh, the
+//    layout of v6_decode.cu's v6_wkv_gn): 16-byte loads and stores, the
+//    readout's sum over k by the thread's four rows in order, then the 16
+//    row groups in a fixed tree, lanes by shuffles, then warps;
+//  * a head's value columns are independent (y_v and S'[:, v] need column
+//    v alone), so a head is split over 1, 2 or 4 blocks of 64, 32 or 16
+//    columns (256, 128 or 64 threads) with no sum across blocks;
+//    ops/wkv_t1.py:plan56 picks the split from B x H and the card's SMs.
+//    The tree is the same in every split, so the split moves no bit.
+// The early state fetch is safe only while the kernel launched just
+// before this one did not write S: on the layer path (models/v6.py,
+// models/v5.py, models/common.forward_tp) that launch is a PyTorch op,
+// which starts after everything before it has finished, and S is this
+// layer's state from an earlier step.
 //
 // Both take the decay w dense, one vector per (b, [t,] h) as RWKV-6 makes it,
 // or, with w_static, as one (H, N) array for every row and step: RWKV-5's
@@ -53,13 +84,15 @@
 // kernel, instead: there the second launch and the scratch cost more than
 // the chunked form saves.
 //
-// The t1 kernel's column layout and step are in wkv56_common.cuh (shared
-// with v6_decode.cu); the chunk kernels' staging and tensor-core products in
-// wkv_chunk_common.cuh (shared with wkv7.cu).
+// The t1 kernel's tile step and the step-by-step chunk's column step are
+// in wkv56_common.cuh; the chunk kernels' staging and tensor-core products
+// in wkv_chunk_common.cuh (shared with wkv7.cu).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "decode_common.cuh"
+#include "matmul_common.cuh"
 #include "wkv56_common.cuh"
 #include "wkv_chunk_common.cuh"
 
@@ -67,27 +100,74 @@ using namespace wkv56;
 
 namespace {
 
-__global__ void __launch_bounds__(N)
-wkv56_t1_kernel(const float* __restrict__ S, const float* __restrict__ r,
-                const float* __restrict__ k, const float* __restrict__ v,
-                const float* __restrict__ w, const float* __restrict__ u,
-                const uint8_t* __restrict__ mask, float* __restrict__ S_out,
-                float* __restrict__ y, int H, int w_static) {
-  __shared__ __align__(16) float sv[4][N];  // r, k, w, u
-  const int bh = blockIdx.x;
-  const int tid = threadIdx.x;
-  const size_t vo = (size_t)bh * N;
-  float s[N];
-  load_col(s, S + vo * N, tid);
-  sv[0][tid] = r[vo + tid];
-  sv[1][tid] = k[vo + tid];
-  sv[2][tid] = w[(w_static ? (size_t)(bh % H) * N : vo) + tid];
-  sv[3][tid] = u[(size_t)(bh % H) * N + tid];
-  const float vv = v[vo + tid];
-  const bool active = mask[bh / H] != 0;
+constexpr int T1_THREADS = 256;  // a whole head's 16 x 16 tiles
+
+// Block (bh, slice) of NS blocks a head: the head's 16 row groups by the
+// slice's VB = 64 / NS value columns, CG = VB / 4 column groups, a 4 x 4
+// state tile a thread (tid = row group * CG + column group; see the note at
+// the top).  vec_bf16 bit i: vector i of (r, k, v, w, u) is bf16, else f32.
+template <int NS>
+__global__ void __launch_bounds__(T1_THREADS / NS)
+wkv56_t1_kernel(const float* S, const void* r, const void* k, const void* v,
+                const void* w, const void* u, const uint8_t* mask,
+                float* S_out, float* y, int H, int w_static, int vec_bf16) {
+  constexpr int VB = N / NS, CG = VB / 4, WARPS = T1_THREADS / NS / 32;
+  __shared__ __align__(16) float part[WARPS][VB];
+  decode::grid_launch_dependents();
+  const int bh = blockIdx.x / NS, b = bh / H, h = bh % H;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int cg = tid % CG, k0 = 4 * (tid / CG);
+  const int v0 = (blockIdx.x % NS) * VB, col = v0 + 4 * cg;
+  const size_t vo = (size_t)bh * N, ho = (size_t)h * N;
+
+  // Before the wait: this block's state tile, which the kernel before this
+  // one does not write (see the note at the top).
+  const float* src = S + (vo + k0) * N + col;
+  float4 s[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) s[i] = decode::ld4_l2(src + (size_t)i * N);
+  decode::grid_wait();
+
+  // After it, every other operand, from L2; all of it at once (no load
+  // waits on the mask's).
+  const bool act = __ldcg(mask + b) != 0;
+  const float4 rv = decode::vec4_l2(r, vo + k0, vec_bf16 & 1);
+  const float4 kv = decode::vec4_l2(k, vo + k0, vec_bf16 >> 1 & 1);
+  const float4 vv = decode::vec4_l2(v, vo + col, vec_bf16 >> 2 & 1);
+  const float4 wv = decode::vec4_l2(w, (w_static ? ho : vo) + k0,
+                                    vec_bf16 >> 3 & 1);
+  const float4 uv = decode::vec4_l2(u, ho + k0, vec_bf16 >> 4 & 1);
+  float yp[4] = {0.f, 0.f, 0.f, 0.f};
+  step_tile(s, rv, kv, vv, wv, uv, act, yp);
+
+  // An inactive row writes its state back as it was read, bit for bit.
+  float* dst = S_out + (vo + k0) * N + col;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    *reinterpret_cast<float4*>(dst + (size_t)i * N) = s[i];
+
+  // The 16 row groups' partial readouts in a fixed tree, the same in every
+  // split: a warp's row groups by shuffles (lanes CG apart hold neighbouring
+  // groups), then the warps in pairs.
+#pragma unroll
+  for (int off = CG; off < 32; off <<= 1)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      yp[e] += __shfl_xor_sync(0xffffffffu, yp[e], off);
+  if (lane < CG)
+    *reinterpret_cast<float4*>(&part[warp][4 * cg]) =
+        make_float4(yp[0], yp[1], yp[2], yp[3]);
   __syncthreads();
-  y[vo + tid] = step(s, sv[0], sv[1], sv[2], sv[3], vv, active);
-  store_col(s, S_out + vo * N, tid);
+  if (tid < VB) {
+    float t[WARPS];
+#pragma unroll
+    for (int i = 0; i < WARPS; ++i) t[i] = part[i][tid];
+#pragma unroll
+    for (int n = WARPS; n > 1; n >>= 1)
+#pragma unroll
+      for (int i = 0; i < n / 2; ++i) t[i] = t[2 * i] + t[2 * i + 1];
+    y[vo + v0 + tid] = t[0];
+  }
 }
 
 // The step-by-step chunk for T <= 16 (ops/wkv_chunk.py:sequential), where a
@@ -476,14 +556,35 @@ int launch_state(const float* S, const float* v, const uint8_t* mask,
 
 extern "C" {
 
-int wkv56_t1_launch(const float* S, const float* r, const float* k,
-                    const float* v, const float* w, const float* u,
+// One step: slices = 1, 2 or 4 blocks per (b, h) (64, 32 or 16 value
+// columns, 256 / slices threads a block); vec_bf16 bit i: vector i of (r,
+// k, v, w, u) is bf16, else f32; w_static: w is one (H, N) array for every
+// row.  Vectors 16-byte aligned (bf16: 8-byte), S and S_out 16-byte.  A
+// programmatic dependent launch that reads S before it waits for the
+// kernel before it: whatever writes S must have finished when it starts (a
+// synchronisation, or a launch without PDL between them).
+int wkv56_t1_launch(const float* S, const void* r, const void* k,
+                    const void* v, const void* w, const void* u,
                     const uint8_t* mask, float* S_out, float* y, int B, int H,
-                    int n, int w_static, void* stream) {
-  if (n != N || B <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
-  wkv56_t1_kernel<<<B * H, N, 0, (cudaStream_t)stream>>>(
-      S, r, k, v, w, u, mask, S_out, y, H, w_static);
-  return (int)cudaGetLastError();
+                    int n, int w_static, int vec_bf16, int slices,
+                    void* stream) {
+  if (n != N || B <= 0 || H <= 0 || (w_static != 0 && w_static != 1) ||
+      vec_bf16 < 0 || vec_bf16 > 31)
+    return (int)cudaErrorInvalidValue;
+  const void* kern = slices == 1   ? (const void*)wkv56_t1_kernel<1>
+                     : slices == 2 ? (const void*)wkv56_t1_kernel<2>
+                     : slices == 4 ? (const void*)wkv56_t1_kernel<4>
+                                   : nullptr;
+  if (kern == nullptr) return (int)cudaErrorInvalidValue;
+  int h = H, ws = w_static, bf = vec_bf16;
+  void* params[] = {(void*)&S, (void*)&r,     (void*)&k, (void*)&v,
+                    (void*)&w, (void*)&u,     (void*)&mask,
+                    (void*)&S_out, (void*)&y, &h,        &ws,
+                    &bf};
+  const cudaError_t e = decode::launch_ex(
+      kern, dim3(B * H * slices), T1_THREADS / slices, 0, 0, true,
+      (cudaStream_t)stream, params);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
 // The step-by-step chunk (T <= 16 in ops/wkv_chunk.py).

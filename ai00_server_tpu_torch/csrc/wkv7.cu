@@ -96,19 +96,6 @@ using namespace wkv7;
 
 namespace {
 
-// Four elements of a vector from L2 (.cg) as floats: 16 bytes of f32 or
-// 8 of bf16 (widened exactly).  i counts elements.
-__device__ __forceinline__ float4 vec4_l2(const void* p, size_t i,
-                                          bool bf16) {
-  if (!bf16) return decode::ld4_l2(static_cast<const float*>(p) + i);
-  const uint2 t = __ldcg(reinterpret_cast<const uint2*>(
-      static_cast<const uint16_t*>(p) + i));
-  return make_float4(__uint_as_float(t.x << 16),
-                     __uint_as_float(t.x & 0xffff0000u),
-                     __uint_as_float(t.y << 16),
-                     __uint_as_float(t.y & 0xffff0000u));
-}
-
 // Block (bh, slice) of ns = THREADS / blockDim.x blocks a head: its
 // blockDim.x / CQ row groups, four rows each (see the note at the top).
 // vec_bf16 bit i: vector i of (r, w, k, v, kk, a) is bf16, else f32.
@@ -135,12 +122,12 @@ wkv7_t1_kernel(const float* S, const void* r, const void* w, const void* k,
   // After it, what the kernels before may have written, from L2; all of
   // it at once (no load waits on the mask's).
   const bool act = __ldcg(mask + b) != 0;
-  const float4 rv = vec4_l2(r, vo + col, vec_bf16 & 1);
-  const float4 wv = vec4_l2(w, vo + col, vec_bf16 >> 1 & 1);
-  const float4 kv = vec4_l2(k, vo + col, vec_bf16 >> 2 & 1);
-  const float4 vv = vec4_l2(v, vo + row0, vec_bf16 >> 3 & 1);
-  const float4 kkv = vec4_l2(kk, vo + col, vec_bf16 >> 4 & 1);
-  const float4 av = vec4_l2(a, vo + col, vec_bf16 >> 5 & 1);
+  const float4 rv = decode::vec4_l2(r, vo + col, vec_bf16 & 1);
+  const float4 wv = decode::vec4_l2(w, vo + col, vec_bf16 >> 1 & 1);
+  const float4 kv = decode::vec4_l2(k, vo + col, vec_bf16 >> 2 & 1);
+  const float4 vv = decode::vec4_l2(v, vo + row0, vec_bf16 >> 3 & 1);
+  const float4 kkv = decode::vec4_l2(kk, vo + col, vec_bf16 >> 4 & 1);
+  const float4 av = decode::vec4_l2(a, vo + col, vec_bf16 >> 5 & 1);
   if (act) {
     const float4 kka = make_float4(kkv.x * av.x, kkv.y * av.y, kkv.z * av.z,
                                    kkv.w * av.w);

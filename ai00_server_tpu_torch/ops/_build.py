@@ -42,8 +42,9 @@ SIGNATURES = {
         "wkv7_chunk_scratch_floats": "",
     },
     "wkv56": {
-        # S, r, k, v, w, u, mask, S_out, y, B, H, N, w_static, stream
-        "wkv56_t1_launch": "pppppppppiiiip",
+        # S, r, k, v, w, u, mask, S_out, y, B, H, N, w_static, vec_bf16,
+        # slices, stream
+        "wkv56_t1_launch": "pppppppppiiiiiip",
         # S, r, k, v, w, u, mask, scratch, S_out, y, B, T, H, N, w_static,
         # slices, stream
         "wkv56_chunk_launch": "ppppppppppiiiiiip",

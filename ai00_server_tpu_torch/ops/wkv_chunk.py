@@ -29,9 +29,19 @@ import torch
 from ..models.common import masked_select
 from . import _build
 from .device import sm_count
-from .wkv_t1 import head_vector
 
 SUB = 16  # steps per sub-chunk (csrc/wkv_chunk_common.cuh: R)
+
+
+def head_vector(t, S, name):
+    """``t`` as the contiguous f32 (H, N) array the RWKV-5/6 chunk kernels
+    read for every row (``u``, or RWKV-5's static decay)."""
+    H, N = S.shape[1:3]
+    t = t.float().contiguous()
+    if tuple(t.shape) != (H, N) or t.device != S.device:
+        raise ValueError(f"{name} must be {(H, N)} on {S.device}, got "
+                         f"{tuple(t.shape)} on {t.device}")
+    return t
 
 
 def plan(B: int, H: int, sms: int) -> int:

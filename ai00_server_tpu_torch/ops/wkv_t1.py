@@ -8,8 +8,8 @@ and ``csrc/wkv56.cu:wkv56_t1_launch``; the notes there say what bounds
 them on the card and how their designs answer that.
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain version
-only for CPU tensors.  ``wkv7_t1_mirror`` repeats ``wkv7_t1``'s kernel
-arithmetic in PyTorch for the tests.
+only for CPU tensors.  ``wkv7_t1_mirror`` and ``wkv56_t1_mirror`` repeat
+their kernels' arithmetic in PyTorch for the tests.
 """
 
 from __future__ import annotations
@@ -21,7 +21,8 @@ from . import _build
 from .device import sm_count
 from .v7_decode import pair_sum
 
-SPLITS = (1, 2, 4)  # blocks a head: 64, 32 or 16 state rows each
+SPLITS = (1, 2, 4)  # blocks a head: 64, 32 or 16 state rows (v7) or
+                    # value columns (v5/v6) each
 
 
 def wkv7_t1_plain(S, r, w, k, v, kk, a, mask):
@@ -82,26 +83,29 @@ def plan(B: int, H: int, sms: int) -> int:
 VEC_DTYPES = (torch.float32, torch.bfloat16)
 
 
-def _check(S, vecs, mask):
+def _check(S, vecs, mask, heads=()):
+    """Raise unless the kernels take these operands as they are: ``vecs``
+    (B, H, N) and ``heads`` (H, N), each contiguous f32 or bf16."""
     B, H, N, N2 = S.shape
     if N != N2 or S.dtype != torch.float32 or not S.is_contiguous():
         raise ValueError(f"state must be contiguous f32 (B, H, N, N), got "
                          f"{S.dtype} {tuple(S.shape)}")
     if N != 64:
         raise ValueError(f"the CUDA kernel takes head size 64, got {N}")
-    for t in vecs:
-        if t.shape != (B, H, N) or t.dtype not in VEC_DTYPES \
+    shapes = [(B, H, N)] * len(vecs) + [(H, N)] * len(heads)
+    for t, shape in zip((*vecs, *heads), shapes):
+        if t.shape != shape or t.dtype not in VEC_DTYPES \
                 or not t.is_contiguous():
             raise ValueError(f"vectors must be contiguous f32 or bf16 "
-                             f"{(B, H, N)}, got {t.dtype} {tuple(t.shape)}")
+                             f"{shape}, got {t.dtype} {tuple(t.shape)}")
     if mask.shape != (B,) or mask.dtype != torch.bool \
             or not mask.is_contiguous():
         raise ValueError(f"mask must be contiguous bool {(B,)}, got "
                          f"{mask.dtype} {tuple(mask.shape)}")
-    for t in (S, *vecs, mask):
+    for t in (S, *vecs, *heads, mask):
         if t.device != S.device:
             raise ValueError("all operands must be on one device")
-    for t in (S, *vecs):  # 16-byte loads of f32, 8-byte of bf16
+    for t in (S, *vecs, *heads):  # 16-byte loads of f32, 8-byte of bf16
         if t.data_ptr() % (4 * t.element_size()):
             raise ValueError("operands must be 16-byte aligned (bf16 "
                              "vectors: 8-byte)")
@@ -157,42 +161,82 @@ def wkv56_t1_plain(S, r, k, v, w, u, mask):
     return S_new, y
 
 
-def head_vector(t, S, name):
-    """``t`` as the contiguous f32 (H, N) array the RWKV-5/6 kernels read
-    for every row (``u``, or RWKV-5's static decay)."""
-    H, N = S.shape[1:3]
-    t = t.float().contiguous()
-    if tuple(t.shape) != (H, N) or t.device != S.device:
-        raise ValueError(f"{name} must be {(H, N)} on {S.device}, got "
-                         f"{tuple(t.shape)} on {t.device}")
-    return t
+def wkv56_t1_mirror(S, r, k, v, w, u, mask, slices: int = 1):
+    """The arithmetic of ``csrc/wkv56.cu:wkv56_t1_kernel`` in PyTorch, f32:
+    a thread's part of each column's readout over its four k rows 4 rg ..
+    4 rg + 3 in order, then the 16 row groups' parts by :func:`pair_sum`
+    (lanes xor, then warps in pairs: one tree in every split).  ``slices``
+    blocks a head each take 64 / slices value columns; columns are
+    independent, so the split moves no bit.  The kernel fuses multiply-adds,
+    so the two differ by f32 roundings.  Same contract as
+    :func:`wkv56_t1`; for the tests, never on a serving path."""
+    if slices not in SPLITS:
+        raise ValueError(f"slices must be one of {SPLITS}, got {slices}")
+    S = S.float()
+    r, k, v, w, u = (t.float() for t in (r, k, v, w, u))
+    B, H, N, _ = S.shape
+    w = w.expand(B, H, N)  # RWKV-5's static (H, N) decay, every row
+    cols = N // slices
+    S_new, y = torch.empty_like(S), torch.empty_like(r)
+    for sl in range(slices):  # the blocks of a head, in any order
+        c = slice(sl * cols, (sl + 1) * cols)
+        Ss = S[..., c]                                 # (B, H, N_k, cols)
+        a = k[..., :, None] * v[:, :, None, c]
+        t = ((Ss + u[None, :, :, None] * a) * r[..., None]).reshape(
+            B, H, N // 4, 4, cols)
+        part = ((t[:, :, :, 0] + t[:, :, :, 1]) + t[:, :, :, 2]) \
+            + t[:, :, :, 3]                            # (B, H, 16, cols)
+        y[..., c] = pair_sum(part.transpose(-1, -2))
+        S_new[..., c] = masked_select(mask, w[..., None] * Ss + a, Ss)
+    return S_new, y
+
+
+def plan56(B: int, H: int, sms: int) -> int:
+    """Blocks per (b, h) of ``wkv56_t1``'s kernel, from B x H heads on the
+    card's ``sms`` SMs: 4 up to a head for every two SMs, else 1
+    (``tools/torch_wkv_gn_ab.py --splits`` on an H100, every row active: 4
+    fastest at 32 and 64 heads, 1 at 128, 256 and 2048 heads, 2 within 1%
+    of 1 at 256)."""
+    return 4 if 2 * B * H <= sms else 1
 
 
 def wkv56_t1(S, r, k, v, w, u, mask):
     """One v5/v6 step.  S: (B, H, N, N) f32 (k-dim, v-dim); r/k/v: (B, H,
-    N) (cast to f32); w: (B, H, N), or (H, N) for RWKV-5's static decay
-    (the kernel reads it for every row); u: (H, N); mask: (B,) bool.
-    Returns (S_new, y (B, H, N) f32): ``y`` reads the OLD state plus the
-    ``u`` bonus for every row, ``S_new = w S + k v^T`` where ``mask``; an
-    inactive row keeps S bit for bit."""
+    N); w: (B, H, N), or (H, N) for RWKV-5's static decay (the kernel reads
+    it for every row); u: (H, N); each vector f32 or bf16 (read as f32:
+    bf16 widens exactly); mask: (B,) bool.  Returns (S_new, y (B, H, N)
+    f32): ``y`` reads the OLD state plus the ``u`` bonus for every row,
+    ``S_new = w S + k v^T`` where ``mask``; an inactive row keeps S bit for
+    bit.
+
+    On the card one launch (``plan56(B, H, sms)`` blocks a head) that takes
+    the vectors as they are: contiguous, f32 or bf16, 16-byte aligned
+    (bf16: 8-byte); anything else raises.  It is a programmatic dependent
+    that reads ``S`` before it waits for the kernel launched before it on
+    the stream, so whatever writes ``S`` must have finished when it starts:
+    a synchronisation, or a launch without PDL (any PyTorch op) between
+    them.  On the layer path (``models/v6.py``, ``models/v5.py``, at tp
+    ``models/common.forward_tp``) the launch before it is a PyTorch op and
+    ``S`` is this layer's state from an earlier step.
+    """
     if S.device.type == "cpu":
         return wkv56_t1_plain(S, r, k, v, w, u, mask)
     if S.device.type != "cuda":
         raise ValueError(f"unsupported device {S.device}")
     static = w.dim() == 2
-    vecs = [t.float().contiguous() for t in (r, k, v)]
-    w = head_vector(w, S, "w") if static else w.float().contiguous()
-    mask = mask.contiguous()
-    _check(S, vecs if static else [*vecs, w], mask)
+    vecs = (r, k, v, w, u)
+    _check(S, vecs[:3] if static else vecs[:4], mask,
+           (w, u) if static else (u,))
     B, H, N, _ = S.shape
-    u = head_vector(u, S, "u")
     S_out = torch.empty_like(S)
     y = torch.empty((B, H, N), device=S.device, dtype=torch.float32)
     lib = _build.library("wkv56")
     status = lib.wkv56_t1_launch(
-        S.data_ptr(), *(t.data_ptr() for t in (*vecs, w, u)),
-        mask.data_ptr(), S_out.data_ptr(), y.data_ptr(), B, H, N,
-        int(static), torch.cuda.current_stream(S.device).cuda_stream)
+        S.data_ptr(), *(t.data_ptr() for t in vecs), mask.data_ptr(),
+        S_out.data_ptr(), y.data_ptr(), B, H, N, int(static),
+        sum(1 << i for i, t in enumerate(vecs) if t.dtype == torch.bfloat16),
+        plan56(B, H, sm_count(S.device.index or 0)),
+        torch.cuda.current_stream(S.device).cuda_stream)
     _build.check(status, "wkv56_t1")
     wkv56_t1.launches += 1
     return S_out, y

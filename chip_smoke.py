@@ -9,9 +9,10 @@ kernel's source is built first, one ``nvcc`` each, all started together):
 
 1. Card and build: the card's name and power limit, then ``nvcc`` builds
    every kernel of the port from ``ai00_server_tpu_torch/csrc/``, and
-   ``tools/torch_sass_loads.py`` reads the loads of ``v4_wkv_kernel`` and
-   ``wkv7_t1_kernel`` (programmatic dependents) in their machine code:
-   only v4's two weight rows may go through ``ld.global.nc``.
+   ``tools/torch_sass_loads.py`` reads the loads of ``v4_wkv_kernel``,
+   ``wkv7_t1_kernel`` and ``wkv56_t1_kernel`` (programmatic dependents) in
+   their machine code: only v4's two weight rows may go through
+   ``ld.global.nc``.
 2. Each kernel against its plain PyTorch version on the card, at the
    shapes the serving path gives it, with times from CUDA events and the
    least time the card could take (the larger of bytes over 3.35 TB/s and
@@ -32,7 +33,9 @@ kernel's source is built first, one ``nvcc`` each, all started together):
    ``matmul_4bit_l`` and the 4-bit mode of ``ffn7_t1_l`` on stacked codes,
    at ``HELD_ROWS``, the 4-bit mode of ``v7_skinny_matmul``) in nf4, sf4
    and int4, f32 and bf16.  Then
-   RWKV-6 at the 1B6 width (C=2048, H=32, F=7168): ``wkv56_t1`` and
+   RWKV-6 at the 1B6 width (C=2048, H=32, F=7168): ``wkv56_t1`` (held at
+   every split of a head on f32 vectors and on the layer path's bf16 ones,
+   timed alone and as the whole call on the latter) and
    ``wkv56_chunk`` (``csrc/wkv56.cu``; the chunk also at T = 16, its
    step-by-step kernel, with extreme decays, and timed as v7's), and the
    kernels of the fused v6 step: ``v6_wkv_gn`` (``csrc/v6_decode.cu``),
@@ -338,11 +341,13 @@ def rel_err(got, want) -> tuple[float, float]:
 
 def sass_loads() -> None:
     """``tools/torch_sass_loads.py`` on the built kernels: prints its
-    ``v4_wkv_kernel`` and ``wkv7_t1_kernel`` lines and fails if the first
-    programmatic dependent reads anything but its two weight rows (w, u:
-    one 16-byte load each an instantiation), or the second anything at
-    all, through the non-coherent path (``LDG.E...CONSTANT``): every
-    operand of ``wkv7_t1`` may have been written by a kernel before it."""
+    ``v4_wkv_kernel``, ``wkv7_t1_kernel`` and ``wkv56_t1_kernel`` lines and
+    fails if the first programmatic dependent reads anything but its two
+    weight rows (w, u: one 16-byte load each an instantiation), or the
+    others anything at all, through the non-coherent path
+    (``LDG.E...CONSTANT``): every operand of ``wkv7_t1`` and ``wkv56_t1``
+    (r, k, v, w - RWKV-5's static decay too - u and the mask) may have
+    been written by a kernel before it."""
     out = subprocess.run(
         [sys.executable, str(ROOT / "tools" / "torch_sass_loads.py")],
         capture_output=True, text=True, cwd=str(ROOT), timeout=600)
@@ -357,13 +362,14 @@ def sass_loads() -> None:
     check(nc <= 2 * row["instantiations"],
           f"v4_wkv_kernel reads {nc} values through ld.global.nc: only its "
           "weight rows may be")
-    row = loads.get("wkv7:wkv7_t1_kernel")
-    check(row is not None, "no wkv7_t1_kernel in the SASS")
-    print("SASS loads, wkv7:wkv7_t1_kernel: " + ", ".join(
-        f"{k} {v}" for k, v in sorted(row.items())), flush=True)
-    nc = sum(v for k, v in row.items() if "CONSTANT" in k)
-    check(nc == 0, f"wkv7_t1_kernel reads {nc} values through "
-                   "ld.global.nc: a kernel before it may have written them")
+    for name in ("wkv7:wkv7_t1_kernel", "wkv56:wkv56_t1_kernel"):
+        row = loads.get(name)
+        check(row is not None, f"no {name} in the SASS")
+        print(f"SASS loads, {name}: " + ", ".join(
+            f"{k} {v}" for k, v in sorted(row.items())), flush=True)
+        nc = sum(v for k, v in row.items() if "CONSTANT" in k)
+        check(nc == 0, f"{name} reads {nc} values through ld.global.nc: a "
+                       "kernel before it may have written them")
 
 
 # ---------------------------------------------------------------------------
@@ -607,6 +613,52 @@ def held_every_split(kernel, plain, make, H: int) -> float:
               f"ragged{', last row idle' if B > 1 else ''}: max_abs_err "
               f"{err:.3e} (tolerance {KERNEL_TOL} x max(1, |plain|))"
               f"{'; idle row bit-identical' if B > 1 else ''}", flush=True)
+    return worst
+
+
+# The vectors ``models/v6.py`` / ``v5.py`` hand ``wkv56_t1`` on a bf16
+# model, r k v w u: the products' r, k, v and the parameter u bf16, the
+# decay f32.
+T56_LAYER = ("bf16", "bf16", "bf16", "f32", "bf16")
+
+
+def t56_layer(args):
+    """``wkv56_t1``'s vectors (r, k, v, w, u) in the layer path's dtypes."""
+    import torch
+
+    dts = {"bf16": torch.bfloat16, "f32": torch.float32}
+    return [t.to(dts[d]) for t, d in zip(args, T56_LAYER)]
+
+
+def held_t56(S, args, mask, what: str) -> float:
+    """``wkv56_t1(S, *args, mask)`` against ``wkv56_t1_plain`` at KERNEL_TOL
+    (:func:`rel_err` over the state and y) at ``plan56``'s split and at each
+    split of a head forced (1, 2, 4 blocks), every idle row's state bit for
+    bit.  The worst max abs error."""
+    import torch
+
+    from ai00_server_tpu_torch.ops import wkv_t1
+
+    S_p, y_p = wkv_t1.wkv56_t1_plain(S, *args, mask)
+    plan, worst = wkv_t1.plan56, 0.0
+    try:
+        for slices in (None, *wkv_t1.SPLITS):
+            if slices is not None:
+                wkv_t1.plan56 = lambda B, H, sms, s=slices: s
+            torch.cuda.synchronize()  # the kernel reads S before it waits
+            S_k, y_k = wkv_t1.wkv56_t1(S, *args, mask)
+            torch.cuda.synchronize()
+            split = f"{slices} block(s) a head" if slices else "planned split"
+            for got, want, part in ((S_k, S_p, "state"), (y_k, y_p, "y")):
+                err, rel = rel_err(got, want)
+                check(rel <= KERNEL_TOL, f"{what} ({split}) {part} disagrees "
+                      f"with its plain version: {rel:.3e} of max(1, |plain|)")
+                worst = max(worst, err)
+            for b in torch.nonzero(~mask).flatten().tolist():
+                check(torch.equal(S_k[b], S[b]),
+                      f"{what} ({split}) changed idle row {b}")
+    finally:
+        wkv_t1.plan56 = plan
     return worst
 
 
@@ -1610,35 +1662,44 @@ def phase_v6_kernels(dev) -> dict:
     states = [rnd(B, H, N, N) for _ in range(n_states)]
     rows = {}
 
-    # ---- wkv56_t1 at the decode shape, row 5 inactive ----
-    vecs = [t[:, 0].contiguous() for t in inputs(1)]
-    S_k, y_k = wkv56_t1(states[0], *vecs, u, active)
-    S_p, y_p = wkv56_t1_plain(states[0], *vecs, u, active)
-    torch.cuda.synchronize()
-    err = max(close(S_k, S_p, False, "wkv56_t1 state"),
-              close(y_k, y_p, False, "wkv56_t1 y"))
-    check(torch.equal(S_k[5], states[0][5]), "wkv56_t1 changed an inactive row")
-    b_ms, b_by = bound(2 * B * elems * 4 + 5 * B * H * N * 4 + H * N * 4 + B,
-                       elems * (7 * n_act + 5 * (B - n_act)))
+    # ---- wkv56_t1 at the decode shape, row 5 inactive, at every split of
+    # a head, on f32 vectors and on the layer path's (r, k, v, u bf16, w
+    # f32: one launch, no casts) ----
+    vecs = [*(t[:, 0].contiguous() for t in inputs(1)), u]
+    layer = t56_layer(vecs)
+    err = max(held_t56(states[0], vecs, active, f"wkv56_t1 B={B} H={H} f32"),
+              held_t56(states[0], layer, active,
+                       f"wkv56_t1 B={B} H={H} layer-path vectors"))
+    flops = elems * (7 * n_act + 5 * (B - n_act))
+    b_ms, b_by = bound(2 * B * elems * 4 + 5 * B * H * N * 4 + H * N * 4
+                       + B, flops)
+    lb_ms, _ = bound(2 * B * elems * 4 + nbytes(*layer) + B * H * N * 4 + B,
+                     flops)
 
-    def t1(i, fn):
-        return fn(states[i], *vecs, u, active)
+    def t1(i, fn, args=vecs):
+        return fn(states[i], *args, active)
 
     rows["wkv56_t1"] = {
         "name": "wkv56_t1", "route": "cuda", "source": WKV_SRC,
         "replaces": "ai00_server_tpu/ops/wkv_t1.py:123", "max_abs_err": err,
         "ms": device_ms(rotating(lambda i: t1(i, wkv56_t1), n_states), 100),
         "same_state_ms": device_ms(lambda: t1(0, wkv56_t1), 100),
+        "layer_ms": device_ms(rotating(lambda i: t1(i, wkv56_t1, layer),
+                                       n_states), 100),
+        "layer_bound_ms": lb_ms,
         "plain_ms": device_ms(rotating(lambda i: t1(i, wkv56_t1_plain),
                                        n_states), 20),
         "call_ms": call_ms(rotating(lambda i: t1(i, wkv56_t1), n_states), 200),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
     }
     print(f"wkv56_t1 B={B} H={H} N={N} ({n_states} rotating states): "
-          f"max_abs_err {err:.3e} (tolerance {KERNEL_TOL} x max(1, |plain|)); "
-          f"inactive row bit-identical; {rows['wkv56_t1']['ms']:.5f} ms on "
-          f"the rotating states, {rows['wkv56_t1']['same_state_ms']:.5f} ms "
-          "on one state", flush=True)
+          f"max_abs_err {err:.3e} (tolerance {KERNEL_TOL} x max(1, |plain|)) "
+          f"at each split, f32 and layer-path vectors; inactive row "
+          f"bit-identical; {rows['wkv56_t1']['ms']:.5f} ms on the rotating "
+          f"states, {rows['wkv56_t1']['same_state_ms']:.5f} ms on one state, "
+          f"the whole call on the layer path's vectors "
+          f"{rows['wkv56_t1']['layer_ms']:.5f} ms (bound {lb_ms:.5f}); "
+          f"{card_line()}", flush=True)
 
     # ---- wkv56_chunk at the prefill shape (T = token_chunk_size), ragged,
     # and T = 16 (the step-by-step kernel: ops/wkv_chunk.sequential) ----
@@ -1812,7 +1873,6 @@ def phase_v54_kernels(dev) -> dict:
     from ai00_server_tpu_torch.ops.wkv4 import wkv4_chunk, wkv4_chunk_plain
     from ai00_server_tpu_torch.ops.wkv_chunk import (wkv56_chunk,
                                                      wkv56_chunk_plain)
-    from ai00_server_tpu_torch.ops.wkv_t1 import wkv56_t1, wkv56_t1_plain
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 6)
@@ -1886,31 +1946,32 @@ def phase_v54_kernels(dev) -> dict:
     # The v5 layer path's WKV (prefill, and T=1 for a partly quantized
     # model); the kernels' rows are timed on the v6 shape above.
     w5, u5 = vecs5[0].reshape(H, N), vecs5[1].reshape(H, N)
-    err56 = 0.0
-    for T in (1, CHUNK):
-        r_, k_, v_ = (rnd(B, T, H, N, scale=0.3) for _ in range(3))
-        mask = active[:, None].expand(B, T).contiguous()
-        if T == 1:
-            args = (states[0], r_[:, 0], k_[:, 0], v_[:, 0], w5, u5,
-                    mask[:, 0])
-            got, want = wkv56_t1(*args), wkv56_t1_plain(*args)
-        else:
-            args = (states[0], r_, k_, v_, w5, u5, mask)
-            got, want = wkv56_chunk(*args), wkv56_chunk_plain(*args)
-        torch.cuda.synchronize()
-        err56 = max(err56, *(close(a, b_, False, f"wkv56 static decay T={T}")
-                             for a, b_ in zip(got, want)))
-        check(torch.equal(got[0][5], states[0][5]),
-              f"wkv56 static decay T={T} changed an inactive row's state")
+    # T = 1 at every split of a head, f32 and the layer path's vectors.
+    t1v = [*(rnd(B, H, N, scale=0.3) for _ in range(3)), w5, u5]
+    err56 = max(held_t56(states[0], t1v, active,
+                         f"wkv56_t1 static decay B={B} H={H} f32"),
+                held_t56(states[0], t56_layer(t1v), active,
+                         f"wkv56_t1 static decay B={B} H={H} layer-path "
+                         "vectors"))
+    r_, k_, v_ = (rnd(B, CHUNK, H, N, scale=0.3) for _ in range(3))
+    mask = active[:, None].expand(B, CHUNK).contiguous()
+    args = (states[0], r_, k_, v_, w5, u5, mask)
+    got, want = wkv56_chunk(*args), wkv56_chunk_plain(*args)
+    torch.cuda.synchronize()
+    err56 = max(err56, *(close(a, b_, False,
+                               f"wkv56 static decay T={CHUNK}")
+                         for a, b_ in zip(got, want)))
+    check(torch.equal(got[0][5], states[0][5]),
+          f"wkv56 static decay T={CHUNK} changed an inactive row's state")
     err56 = max(err56, held_every_split(
         wkv56_chunk, wkv56_chunk_plain,
         lambda b, t: (rnd(b, H, N, N), *(rnd(b, t, H, N, scale=0.3)
                                          for _ in range(3)), w5, u5,
                       torch.ones(b, t, dtype=torch.bool, device=dev)), H))
-    print(f"wkv56_t1 (T=1) and wkv56_chunk (T={CHUNK}) on v5's static "
-          f"(H, N) decay, B={B} H={H} N={N}: max_abs_err {err56:.3e} "
-          f"(tolerance {KERNEL_TOL} x max(1, |plain|)); inactive row "
-          "bit-identical", flush=True)
+    print(f"wkv56_t1 (T=1, each split, f32 and layer-path vectors) and "
+          f"wkv56_chunk (T={CHUNK}) on v5's static (H, N) decay, B={B} "
+          f"H={H} N={N}: max_abs_err {err56:.3e} (tolerance {KERNEL_TOL} x "
+          "max(1, |plain|)); inactive row bit-identical", flush=True)
 
     # ---- v4_wkv ----
     def v4_state(fresh_row):
@@ -2247,8 +2308,10 @@ def phase_tp_kernels(dev, rows: dict) -> None:
     """Rows 10 (``wkv56_t1``), 11 (``wkv56_chunk``) and 15d
     (``wkv4_chunk``) at their tp shapes: each held against its plain
     version at KERNEL_TOL (the chunks at T = CHUNK with a ragged row, v4
-    at T = 1 too) and timed on inputs rotating past the L2, beside its
-    bound; kept as ``rows[name]["tp"]``."""
+    at T = 1 too; ``wkv56_t1`` at every split with an idle row, on f32
+    and on the layer path's vectors) and timed on inputs rotating past the
+    L2, beside its bound (``wkv56_t1`` also as the whole call on the layer
+    path's vectors); kept as ``rows[name]["tp"]``."""
     import torch
 
     from ai00_server_tpu_torch.ops.wkv4 import wkv4_chunk, wkv4_chunk_plain
@@ -2266,26 +2329,45 @@ def phase_tp_kernels(dev, rows: dict) -> None:
     def flat(outs):
         return [t for o in outs for t in (o if isinstance(o, tuple) else (o,))]
 
-    def case(kernel, plain, make, nbytes_, flops, what):
+    def case(kernel, plain, make, nbytes_, flops, what, t56=False):
+        """``t56``: ``wkv56_t1``, held at every split on f32 and on the
+        layer path's vectors (:func:`held_t56`, an idle row) and also timed
+        on the latter as ``layer_ms``."""
         first = make()
-        got, want = flat(kernel(*first)), flat(plain(*first))
-        torch.cuda.synchronize()
-        err = 0.0
-        for a, b in zip(got, want):
-            e, rel = rel_err(a, b)
-            check(rel <= KERNEL_TOL, f"{what} disagrees with its plain "
-                  f"version: {rel:.3e} of max(1, |plain|)")
-            err = max(err, e)
+        if t56:
+            S, *vecs, ones = first
+            idle = ones.clone()
+            idle[1] = False
+            err = max(held_t56(S, vecs, idle, f"{what} f32"),
+                      held_t56(S, t56_layer(vecs), idle,
+                               f"{what} layer-path vectors"))
+        else:
+            got, want = flat(kernel(*first)), flat(plain(*first))
+            torch.cuda.synchronize()
+            err = 0.0
+            for a, b in zip(got, want):
+                e, rel = rel_err(a, b)
+                check(rel <= KERNEL_TOL, f"{what} disagrees with its plain "
+                      f"version: {rel:.3e} of max(1, |plain|)")
+                err = max(err, e)
         n = int(2 * L2_BYTES // nbytes_) + 1
         sets = [first] + [make() for _ in range(n - 1)]
         ms = device_ms(rotating(lambda i: kernel(*sets[i]), n), max(20, n))
         b_ms, b_by = bound(nbytes_, flops)
+        out = {"ms": ms, "bound_ms": b_ms, "bound_by": b_by,
+               "max_abs_err": err}
+        extra = ""
+        if t56:
+            lsets = [(S_, *t56_layer(v_), m_) for S_, *v_, m_ in sets]
+            out["layer_ms"] = device_ms(
+                rotating(lambda i: kernel(*lsets[i]), n), max(20, n))
+            extra = (f"; the whole call on the layer path's vectors "
+                     f"{out['layer_ms']:.5f} ms")
         print(f"{what}: max_abs_err {err:.3e} (tolerance {KERNEL_TOL} x "
               f"max(1, |plain|)); {ms:.5f} ms on the device over {n} "
-              f"rotating input sets, bound {b_ms:.5f} ms by {b_by}; {card}",
-              flush=True)
-        return {"ms": ms, "bound_ms": b_ms, "bound_by": b_by,
-                "max_abs_err": err}
+              f"rotating input sets, bound {b_ms:.5f} ms by {b_by}{extra}; "
+              f"{card}", flush=True)
+        return out
 
     def mask(B, T):
         lens = torch.full((B,), T, device=dev)
@@ -2313,7 +2395,7 @@ def phase_tp_kernels(dev, rows: dict) -> None:
                 2 * elems * 4 + (4 if static else 5) * vec
                 + (2 if static else 1) * H * N * 4 + B, 7 * elems,
                 f"wkv56_t1 at a tp place ({version}, B={B}, H={H}, "
-                f"{'static' if static else 'dense'} decay)")
+                f"{'static' if static else 'dense'} decay)", t56=True)
             m, T = mask(B, CHUNK), CHUNK
 
             def make_chunk():

@@ -1033,6 +1033,105 @@ def test_wkv56_t1_kernel_matches_plain(dev):
     assert torch.equal(S_k[1], S[1]) and torch.equal(S_k[4], S[4])
 
 
+# The vectors' dtypes wkv56_t1 takes as they are (r, k, v, w, u): all f32,
+# all bf16, and the layer path's mix (w f32, u the bf16 parameter).
+T1_56_DTYPES = {"f32": [torch.float32] * 5, "bf16": [torch.bfloat16] * 5,
+                "layer": [torch.bfloat16] * 3 + [torch.float32,
+                                                 torch.bfloat16]}
+
+
+def _t1_56_case(dev, B, H, seed, dtypes, static):
+    """(S, [r, k, v, w, u] in their dtypes, mask with rows 1 and 4 idle
+    where they exist), w (H, N) when ``static``; the state synchronised: the
+    kernel reads it before it waits for the kernel launched before it."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    S, (r, k, v, w), u = _inputs56(gen, dev, B, 1, H)
+    w = w[0, 0] if static else w[:, 0]
+    vecs = [x.to(dt).contiguous()
+            for x, dt in zip((r[:, 0], k[:, 0], v[:, 0], w, u), dtypes)]
+    mask = torch.ones(B, dtype=torch.bool, device=dev)
+    mask[1:2] = False
+    mask[4:5] = False
+    torch.cuda.synchronize()
+    return S, vecs, mask
+
+
+@pytest.mark.parametrize("static", [False, True], ids=["dense", "static"])
+@pytest.mark.parametrize("slices", [1, 2, 4])
+@pytest.mark.parametrize("vec", sorted(T1_56_DTYPES))
+@pytest.mark.parametrize("B", [1, 3, 8])
+def test_wkv56_t1_kernel_every_split(dev, monkeypatch, B, vec, slices,
+                                     static):
+    """Every split of a head (``wkv_t1.plan56`` forced), B = 1 / 3 / 8 with
+    idle rows, f32, bf16 and the layer path's vectors, dense and static
+    decay: one launch, within 1e-4 of the plain version and 1e-5 of the
+    mirror, idle rows bit for bit."""
+    from ai00_server_tpu_torch.ops import wkv_t1
+
+    monkeypatch.setattr(wkv_t1, "plan56", lambda B, H, sms: slices)
+    S, vecs, mask = _t1_56_case(dev, B, 3, 10 * B + slices,
+                                T1_56_DTYPES[vec], static)
+    before = wkv56_t1.launches
+    S_k, y_k = wkv56_t1(S, *vecs, mask)
+    assert wkv56_t1.launches == before + 1
+    S_p, y_p = wkv56_t1_plain(S, *vecs, mask)
+    _close(S_k, S_p)
+    _close(y_k, y_p)
+    S_m, y_m = wkv_t1.wkv56_t1_mirror(S, *vecs, mask, slices=slices)
+    _close(S_k, S_m, MIRROR_TOL)
+    _close(y_k, y_m, MIRROR_TOL)
+    for b in range(B):
+        if not mask[b]:
+            assert torch.equal(S_k[b], S[b])
+
+
+def test_wkv56_t1_kernel_layer_vectors_equal_their_f32_widening(dev):
+    """bf16 vectors are read as the f32 they widen to: the same bits as the
+    kernel on their f32 copies."""
+    S, vecs, mask = _t1_56_case(dev, 8, 32, 3, T1_56_DTYPES["layer"], False)
+    wide = [v.float() for v in vecs]
+    torch.cuda.synchronize()
+    S_a, y_a = wkv56_t1(S, *vecs, mask)
+    S_b, y_b = wkv56_t1(S, *wide, mask)
+    assert torch.equal(S_a, S_b) and torch.equal(y_a, y_b)
+
+
+def test_wkv56_t1_kernel_graph_replay_equals_eager(dev):
+    """The kernel captured in a CUDA graph gives the eager call's bits, and
+    the same bits on every replay."""
+    S, vecs, mask = _t1_56_case(dev, 8, 32, 4, T1_56_DTYPES["layer"], False)
+    S_e, y_e = wkv56_t1(S, *vecs, mask)
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        wkv56_t1(S, *vecs, mask)  # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        S_g, y_g = wkv56_t1(S, *vecs, mask)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(S_g, S_e) and torch.equal(y_g, y_e)
+
+
+def test_wkv56_t1_refuses_what_it_does_not_take(dev):
+    """Another dtype, a strided vector or a misaligned one raises: nothing
+    is copied or cast."""
+    S, vecs, mask = _t1_56_case(dev, 4, 2, 5, T1_56_DTYPES["f32"], False)
+    r, k, v, w, u = vecs
+    with pytest.raises(ValueError, match="contiguous f32 or bf16"):
+        wkv56_t1(S, r.half(), k, v, w, u, mask)
+    with pytest.raises(ValueError, match="contiguous f32 or bf16"):
+        wkv56_t1(S, r, k, v, w, u.t().contiguous().t(), mask)
+    with pytest.raises(ValueError, match="contiguous bool"):
+        wkv56_t1(S, r, k, v, w, u, mask.int())
+    off = torch.empty(r.numel() + 1, device=dev)[1:].view_as(r)
+    with pytest.raises(ValueError, match="aligned"):
+        wkv56_t1(S, off, k, v, w, u, mask)
+
+
 @pytest.mark.parametrize("T", [1, 16, 37])
 def test_wkv56_chunk_kernel_matches_plain(dev, T):
     gen = torch.Generator(device=dev).manual_seed(100 + T)

@@ -9,7 +9,8 @@ default) with ``ops/_build.build_all`` and disassembles each library with
 ``cuobjdump -sass``.  For every kernel of the stacks' programmatic
 dependents (``ln_mix_kernel``, ``skinny_tc_kernel``, ``skinny_fma_kernel``,
 ``wkv_gn_kernel``, ``v6_wkv_gn_kernel``, ``qmm_kernel``,
-``v4_wkv_kernel``, ``wkv7_t1_kernel``) it counts the ``LDG`` instructions by their modifiers:
+``v4_wkv_kernel``, ``wkv7_t1_kernel``, ``wkv56_t1_kernel``) it counts the
+``LDG`` instructions by their modifiers:
 ``LDG.E.CONSTANT`` is a non-coherent load through L1 (``ld.global.nc``:
 ``__ldg``, or a load nvcc derives from a ``const __restrict__`` pointer),
 ``.STRONG.GPU`` / ``.EF`` a load past L1 (``ld.global.cg``), a plain
@@ -34,8 +35,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 KERNELS = ("ln_mix_kernel", "skinny_tc_kernel", "skinny_fma_kernel",
            "wkv_gn_kernel", "v6_wkv_gn_kernel", "qmm_kernel",
-           "v4_wkv_kernel", "wkv7_t1_kernel")
-LIBS = ("v7_decode", "v6_decode", "quant", "wkv4", "wkv7")
+           "v4_wkv_kernel", "wkv7_t1_kernel", "wkv56_t1_kernel")
+LIBS = ("v7_decode", "v6_decode", "quant", "wkv4", "wkv7", "wkv56")
 
 
 def cuobjdump() -> str:

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """A/B of the decode WKV kernels, ``v7_wkv_gn``, ``v6_wkv_gn``, ``v4_wkv``
-and the layer path's ``wkv7_t1``: an earlier checkout of the port against
-this one, on one card, in turns.
+and the layer path's ``wkv7_t1`` and ``wkv56_t1``: an earlier checkout of
+the port against this one, on one card, in turns.
 
     mkdir -p chip_smoke_tmp/parent        # any directory git ignores
     git archive 8526b30 ai00_server_tpu_torch chip_smoke.py \\
@@ -24,15 +24,20 @@ twice: ``t1 f32`` the kernel alone on f32 vectors, ``t1 call`` the whole
 call on the vectors the layer path holds (r, k, v, kk, a bf16, w f32;
 an earlier wrapper casts them first), timed in the graph on states that
 rotate through twice the L2 (``chip_smoke.py``'s rotation) and on one
-state and, as ``call_ms``, back to back from Python.  Each is also held against its
-plain version on the first state set, one row idle (max |kernel - plain| /
-max(1, |plain|) over the state and the output).  Turns run old, new, new,
-old.  ``--only t1`` (or ``gn``) narrows the kernels; ``--layer`` adds the
-v7 layer path's decode step (``models/v7.forward`` at B = 1, T = 1, the
-0.4B shape at 24 layers, the first 12 int8 as ``quant = 12`` serves it;
-host clock, a reading: the path is host-bound); ``--splits`` times this
-tree's ``wkv7_t1`` at each split of a head (``ops/wkv_t1.plan`` forced)
-after the turns.
+state and, as ``call_ms``, back to back from Python.  ``wkv56_t1`` the same
+way: ``t56 f32`` the kernel alone on f32 vectors at the RWKV-6 1B6 width (H
+= 32, dense decay) at B = 1, 8 and 64 and at the four tp places (``t56 tp``:
+v6 H = 16 dense, v5 H = 8 on its static (H, N) decay, B = 8 and 4), ``t56
+call`` the whole call on the vectors ``models/v6.py`` holds (r, k, v and u
+bf16, w f32; an earlier wrapper casts them first) at H = 32.  Each is also
+held against its plain version on the first state set, one row idle (max
+|kernel - plain| / max(1, |plain|) over the state and the output).  Turns
+run old, new, new, old.  ``--only t1`` (or ``gn``) narrows the kernels;
+``--layer`` adds the v7 layer path's decode step (``models/v7.forward`` at
+B = 1, T = 1, the 0.4B shape at 24 layers, the first 12 int8 as ``quant =
+12`` serves it; host clock, a reading: the path is host-bound);
+``--splits`` times this tree's ``wkv7_t1`` and ``wkv56_t1`` at each split
+of a head (``ops/wkv_t1.plan`` / ``plan56`` forced) after the turns.
 
 Prints the card's line (``nvidia-smi``) and one JSON object (also written
 to ``--out``).  Imports nothing of JAX.
@@ -53,6 +58,11 @@ BATCHES = (1, 8, 16, 64)
 T1_BATCHES = (1, 8, 64)
 # The layer path's vector dtypes, r w k v kk a: w stays f32 (models/v7.py).
 T1_LAYER = ("bf16", "f32", "bf16", "bf16", "bf16", "bf16")
+# wkv56_t1's shapes (H, B, static decay): the 1B6 width, then its tp places
+# and RWKV-5 0.4B's (H / 2); and the v6 layer path's dtypes, r k v w u.
+T56_SHAPES = [(32, B, False) for B in T1_BATCHES] + [
+    (16, 8, False), (16, 4, False), (8, 8, True), (8, 4, True)]
+T56_LAYER = ("bf16", "bf16", "bf16", "f32", "bf16")
 
 
 def case(kind, B, H, dev, seed):
@@ -218,6 +228,67 @@ def time_t1(cs, B, vec_dtypes, dev, call: bool) -> dict:
     return out
 
 
+def time_t56(cs, B, H, static, vec_dtypes, dev, call: bool) -> dict:
+    """``wkv56_t1`` on ``vec_dtypes`` (r, k, v, w, u), every row active, as
+    :func:`time_t1`; ``static`` takes RWKV-5's (H, N) decay."""
+    import torch
+
+    from ai00_server_tpu_torch.ops.wkv_t1 import wkv56_t1, wkv56_t1_plain
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11 * B + H + static)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    dts = {"bf16": torch.bfloat16, "f32": torch.float32}
+    S = rnd(B, H, 64, 64)
+    r, k, v = (rnd(B, H, 64, scale=0.3) for _ in range(3))
+    w = torch.exp(-torch.exp(rnd(*((H, 64) if static else (B, H, 64)),
+                                 scale=0.5)))
+    u = rnd(H, 64, scale=0.5)
+    vecs = [x.to(dts[d]).contiguous()
+            for x, d in zip((r, k, v, w, u), vec_dtypes)]
+    mask = torch.ones(B, dtype=torch.bool, device=dev)
+    if B > 1:
+        mask[1] = False
+    state_bytes = B * H * 64 * 64 * 4
+    n = int(2 * cs.L2_BYTES // state_bytes) + 1  # chip_smoke.py's rotation
+    states = [S] + [torch.randn(S.shape, generator=gen, device=dev)
+                    for _ in range(n - 1)]
+    torch.cuda.synchronize()
+    S_k, y_k = wkv56_t1(S, *vecs, mask)
+    S_p, y_p = wkv56_t1_plain(S, *vecs, mask)
+    torch.cuda.synchronize()
+    err = 0.0
+    for a, b in ((S_k, S_p), (y_k, y_p)):
+        e = float((a - b).abs().max())
+        err = max(err, e / max(1.0, float(b.abs().max())))
+    if B > 1 and not torch.equal(S_k[1], S[1]):
+        err = float("inf")  # an idle row's state moved
+    mask.fill_(True)  # timed with every row active
+    out = {"rel_err": err,
+           "ms": cs.device_ms(cs.rotating(
+               lambda i: wkv56_t1(states[i], *vecs, mask), n),
+               max(100, min(n, 400))),
+           "same_state_ms": cs.device_ms(lambda: wkv56_t1(S, *vecs, mask),
+                                         100)}
+    if call:
+        out["call_ms"] = cs.call_ms(lambda: wkv56_t1(S, *vecs, mask), 400)
+    vec_bytes = sum(v.numel() * v.element_size() for v in vecs)
+    out["bound_ms"], out["bound_by"] = cs.bound(
+        2 * state_bytes + vec_bytes + B + B * H * 64 * 4,
+        7 * state_bytes / 4)
+    del states
+    torch.cuda.empty_cache()
+    return out
+
+
+def t56_name(kind, B, H, static) -> str:
+    return (f"t56 {kind} B={B} H={H}" if H == 32 else
+            f"t56 {kind} tp {'v5 static' if static else 'v6'} B={B} H={H}")
+
+
 def time_layer_path(cs, dev) -> dict:
     """ms per decode step of ``models/v7.forward`` on the layer path: the
     0.4B shape at 24 layers, layers 0-11 int8, B = 1, T = 1, 40 steps after
@@ -263,7 +334,7 @@ def child(only: str, layer: bool) -> dict:
     dev = torch.device("cuda", 0)
     _build.build_all()
     out = {"ptxas": [line.strip() for name in ("v7_decode", "v6_decode",
-                                               "wkv4", "wkv7")
+                                               "wkv4", "wkv7", "wkv56")
                      for line in _build.ptxas_info.get(name, "").splitlines()
                      if "wkv" in line or "registers" in line]}
     if only != "t1":
@@ -274,13 +345,20 @@ def child(only: str, layer: bool) -> dict:
         for B in T1_BATCHES:
             out[f"t1 f32 B={B}"] = time_t1(cs, B, ("f32",) * 6, dev, False)
             out[f"t1 call B={B}"] = time_t1(cs, B, T1_LAYER, dev, True)
+        for H, B, static in T56_SHAPES:
+            out[t56_name("f32", B, H, static)] = time_t56(
+                cs, B, H, static, ("f32",) * 5, dev, False)
+            if H == 32:
+                out[t56_name("call", B, H, static)] = time_t56(
+                    cs, B, H, static, T56_LAYER, dev, True)
     if layer:
         out["layer path"] = time_layer_path(cs, dev)
     return out
 
 
 def splits() -> dict:
-    """This tree's ``wkv7_t1`` at each split of a head, f32 vectors."""
+    """This tree's ``wkv7_t1`` and ``wkv56_t1`` at each split of a head, f32
+    vectors."""
     import torch
 
     import chip_smoke as cs
@@ -291,9 +369,13 @@ def splits() -> dict:
     out = {}
     for slices in wkv_t1.SPLITS:
         wkv_t1.plan = lambda B, H, sms, s=slices: s
+        wkv_t1.plan56 = lambda B, H, sms, s=slices: s
         for B in T1_BATCHES:
             out[f"t1 f32 B={B} slices={slices}"] = time_t1(
                 cs, B, ("f32",) * 6, dev, False)
+        for H, B, static in T56_SHAPES:
+            out[f"{t56_name('f32', B, H, static)} slices={slices}"] = \
+                time_t56(cs, B, H, static, ("f32",) * 5, dev, False)
     return out
 
 
