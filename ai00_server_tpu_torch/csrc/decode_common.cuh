@@ -32,7 +32,30 @@ namespace decode {
 
 constexpr float LN_EPS = 1e-5f;
 constexpr float GN_EPS = 64e-5f;
-constexpr int HEAD = 64;  // head size of the WKV stages
+
+#ifdef HEAD_N
+// The head size of the WKV stages, HEAD = HEAD_N (ops/_build.py compiles
+// each WKV source once per head size: N % 8 == 0, 8 <= N <= 128), and the
+// size of their tiles, HEAD_P: the next power of two, at least 32.  A
+// kernel lays a head out at HEAD_P and masks the rest: rows and columns
+// at HEAD or above hold zeros, are never read from or written to device
+// memory, and add zero to every sum.  At HEAD = 32, 64 and 128 nothing is
+// masked.
+__host__ __device__ constexpr int pad_head(int n) {
+  int p = 32;
+  while (p < n) p <<= 1;
+  return p;
+}
+constexpr int HEAD = HEAD_N;
+constexpr int HEAD_P = pad_head(HEAD_N);
+static_assert(HEAD % 8 == 0 && HEAD >= 8 && HEAD <= 128,
+              "head size: N % 8 == 0, 8 <= N <= 128");
+// Whether row or column i (< HEAD_P) of a head's tile lies in the head:
+// constant true where nothing is masked (HEAD == HEAD_P).
+__device__ __forceinline__ bool in_head(int i) {
+  return HEAD == HEAD_P || i < HEAD;
+}
+#endif
 
 // ---------------------------------------------------------------------------
 // Element types
@@ -91,21 +114,42 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// The two-pass mean and variance of a head's HEAD = 64 values, lane l of a
-// warp holding y0 = value l and y1 = value l + 32.  Halving order (value l
-// + value l + 32 first, then warp_sum) with no product fused into a sum, so
-// every warp gets the same bits, and so does the PyTorch mirror
-// (ops/v7_decode.py:halving_sum).
+#ifdef HEAD_N
+// The two-pass mean and variance of a head's HEAD values, lane l of a warp
+// holding y[o] = value l + 32 o (HEAD_P / 32 of them; 0 at HEAD and
+// above).  Halving order (ops/v7_decode.py:halving_sum over the HEAD_P
+// values: value l + value l + HEAD_P / 2 first, down to a lane's one sum,
+// then warp_sum) with no product fused into a sum, so every warp gets the
+// same bits, and so does the PyTorch mirror.  At HEAD = 64: (y0 + y1),
+// then warp_sum.
 struct Moments {
   float mean, var;
 };
-__device__ __forceinline__ Moments head_moments(float y0, float y1) {
-  const float mean = warp_sum(y0 + y1) / HEAD;
-  const float d0 = y0 - mean, d1 = y1 - mean;
-  const float var =
-      warp_sum(__fadd_rn(__fmul_rn(d0, d0), __fmul_rn(d1, d1))) / HEAD;
+constexpr int HEAD_LANE = HEAD_P / 32;  // values of a head a lane holds
+__device__ __forceinline__ Moments head_moments(
+    const float (&y)[HEAD_LANE]) {
+  const int lane = threadIdx.x & 31;
+  float t[HEAD_LANE];
+#pragma unroll
+  for (int o = 0; o < HEAD_LANE; ++o) t[o] = y[o];
+#pragma unroll
+  for (int h = HEAD_LANE / 2; h > 0; h >>= 1)
+#pragma unroll
+    for (int o = 0; o < h; ++o) t[o] = t[o] + t[o + h];
+  const float mean = warp_sum(t[0]) / HEAD;
+#pragma unroll
+  for (int o = 0; o < HEAD_LANE; ++o) {
+    const float d = in_head(lane + 32 * o) ? y[o] - mean : 0.f;
+    t[o] = __fmul_rn(d, d);
+  }
+#pragma unroll
+  for (int h = HEAD_LANE / 2; h > 0; h >>= 1)
+#pragma unroll
+    for (int o = 0; o < h; ++o) t[o] = __fadd_rn(t[o], t[o + h]);
+  const float var = warp_sum(t[0]) / HEAD;
   return {mean, var};
 }
+#endif
 
 // ---------------------------------------------------------------------------
 // ln_mix_kernel

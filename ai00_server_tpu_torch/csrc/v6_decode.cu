@@ -32,15 +32,16 @@
 // v5 stack (ops/v5_decode.py) passes as its vecs row 0 (exp(-exp(time_decay)),
 // the row the Pallas v5 kernel reads, ops/v5_decode_pallas.py:163).
 //
-// Bounded by the bytes of the state (16 KB a head, read once, written once
-// for active rows); at B <= 8 a launch is a chain of latencies around 2-4
-// MB, and the design shortens it:
+// Compiled once per head size (-DHEAD_N, ops/_build.py).  Bounded by the
+// bytes of the state (4 HN^2 bytes a head, 16 KB at HN = 64, read once,
+// written once for active rows); at B <= 8 a launch is a chain of
+// latencies around 2-4 MB, and the design shortens it:
 //  - a programmatic dependent launch that asks for its state, the bonus u,
 //    ln_x's weights and (RWKV-5) the static decay before it waits for the
 //    kernel before it, so the state's DRAM round trip overlaps that kernel;
-//  - one block per (b, h) that spreads the 64 k rows over 16 row groups of
-//    four, a thread holding 4 x 4 state elements with 16-byte loads and
-//    stores;
+//  - one block per (b, h) that spreads the k rows over N / 4 row groups of
+//    four (N = HEAD_P: 16 at HN = 64, 32 at 128, 8 at 32), a thread holding
+//    4 x 4 state elements with 16-byte loads and stores;
 //  - the row groups' partial y meet in a fixed tree (lanes by shuffles,
 //    then the warps through shared memory: one block barrier), and the
 //    GroupNorm runs in one warp by shuffles.
@@ -56,8 +57,9 @@ using namespace decode;
 
 namespace {
 
-constexpr int N = HEAD;  // head size
-constexpr int KR = 4;    // k rows a thread
+constexpr int HN = HEAD;    // head size in device memory
+constexpr int N = HEAD_P;   // head size of the tiles (decode_common.cuh)
+constexpr int KR = 4;       // k rows a thread
 constexpr int RG = N / KR;  // row groups a block
 
 // vecs rows: decay (v6: the LoRA's bias, not read here; v5: the static
@@ -69,9 +71,11 @@ __device__ __forceinline__ float at(const float4& v, int i) {
 }
 
 // One block per (b, h): a thread holds four value columns (column group
-// cg) over four k rows (row group rg).
+// cg) over four k rows (row group rg).  Rows and columns past the head
+// (HN = 40 is laid out at N = 64) are masked: they read and write nothing
+// and add zero.
 constexpr int CG = N / 4;             // column groups
-constexpr int WARPS = RG * CG / 32;   // 8
+constexpr int WARPS = RG * CG / 32;   // 8 at N = 64
 constexpr int THREADS6 = 32 * WARPS;
 
 template <typename T>
@@ -90,11 +94,13 @@ v6_wkv_gn_kernel(const float* __restrict__ r, const float* __restrict__ k,
   const int cg = tid % CG, rg = tid / CG;
   const int col = 4 * cg;                // the thread's first column
   const int k0 = KR * rg;                // and first k row
-  const size_t vo = (size_t)bh * N;      // == b * C + h * N
-  const int c0 = h * N;
-  float* state = S + vo * N;
-  // The epilogue runs in warp 0: lane l has columns l and l + 32.
+  const bool rows = in_head(k0), cols = rows && in_head(col);
+  const size_t vo = (size_t)bh * HN;     // == b * C + h * HN
+  const int c0 = h * HN;
+  float* state = S + vo * HN;
+  // The epilogue runs in warp 0: lane l has columns l + 32 o.
   const bool epi = warp == 0;
+  const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
 
   // Before the wait, what no launch of the stack before this one writes:
   // this layer's state (written only by this same launch a step earlier;
@@ -103,28 +109,31 @@ v6_wkv_gn_kernel(const float* __restrict__ r, const float* __restrict__ k,
   float4 s[KR];
 #pragma unroll
   for (int i = 0; i < KR; ++i)
-    s[i] = ld4_l2(state + (size_t)(k0 + i) * N + col);
-  const float4 u = ld4(vecs + VEC_FIRST * (size_t)C + c0 + k0);
-  float lnw[2], lnb[2];
+    s[i] = cols ? ld4_l2(state + (size_t)(k0 + i) * HN + col) : z;
+  const float4 u = rows ? ld4(vecs + VEC_FIRST * (size_t)C + c0 + k0) : z;
+  float lnw[HEAD_LANE], lnb[HEAD_LANE];
 #pragma unroll
-  for (int o = 0; o < 2; ++o) {
+  for (int o = 0; o < HEAD_LANE; ++o) {
     const int c = c0 + lane + 32 * o;
-    lnw[o] = epi ? vecs[VEC_LNX_W * (size_t)C + c] : 0.f;
-    lnb[o] = epi ? vecs[VEC_LNX_B * (size_t)C + c] : 0.f;
+    const bool mine = epi && in_head(lane + 32 * o);
+    lnw[o] = mine ? vecs[VEC_LNX_W * (size_t)C + c] : 0.f;
+    lnb[o] = mine ? vecs[VEC_LNX_B * (size_t)C + c] : 0.f;
   }
   const bool static_w = w_stride == 0;
-  float4 wv = static_w ? ld4(w + c0 + k0) : make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 wv = static_w && rows ? ld4(w + c0 + k0) : z;
   grid_wait();
 
   // After it, what the launches before write: r, k, v, g, the decay (v6)
   // and active (from the lengths), all from L2 (ld4_l2).
-  if (!static_w) wv = ld4_l2(w + (size_t)b * w_stride + c0 + k0);
-  const float4 rv = ld4_l2(r + vo + k0), kv = ld4_l2(k + vo + k0);
-  const float4 vv = ld4_l2(v + vo + col);
-  float gv[2];
+  if (!static_w && rows) wv = ld4_l2(w + (size_t)b * w_stride + c0 + k0);
+  const float4 rv = rows ? ld4_l2(r + vo + k0) : z;
+  const float4 kv = rows ? ld4_l2(k + vo + k0) : z;
+  const float4 vv = cols ? ld4_l2(v + vo + col) : z;
+  float gv[HEAD_LANE];
 #pragma unroll
-  for (int o = 0; o < 2; ++o)
-    gv[o] = epi ? __ldcg(g + vo + lane + 32 * o) : 0.f;
+  for (int o = 0; o < HEAD_LANE; ++o)
+    gv[o] = epi && in_head(lane + 32 * o) ? __ldcg(g + vo + lane + 32 * o)
+                                          : 0.f;
   const bool act = __ldcg(active + b) != 0;
 
   // The step on the thread's 4 x 4 elements, y partial over its rows.
@@ -144,14 +153,14 @@ v6_wkv_gn_kernel(const float* __restrict__ r, const float* __restrict__ k,
     }
   }
   // An inactive row keeps its state bit for bit (and is not written).
-  if (act) {
+  if (act && cols) {
 #pragma unroll
     for (int i = 0; i < KR; ++i)
-      *reinterpret_cast<float4*>(state + (size_t)(k0 + i) * N + col) =
+      *reinterpret_cast<float4*>(state + (size_t)(k0 + i) * HN + col) =
           make_float4(sr[i][0], sr[i][1], sr[i][2], sr[i][3]);
   }
 
-  // The 16 row groups' partial y in a fixed tree: neighbouring groups
+  // The N / 4 row groups' partial y in a fixed tree: neighbouring groups
   // first (the lanes CG apart), then the warps in pairs.
 #pragma unroll
   for (int off = CG; off < 32; off <<= 1)
@@ -164,9 +173,9 @@ v6_wkv_gn_kernel(const float* __restrict__ r, const float* __restrict__ k,
   __syncthreads();
   if (!epi) return;
 
-  float yo[2];
+  float yo[HEAD_LANE];
 #pragma unroll
-  for (int o = 0; o < 2; ++o) {
+  for (int o = 0; o < HEAD_LANE; ++o) {
     float t[WARPS];
 #pragma unroll
     for (int i = 0; i < WARPS; ++i) t[i] = part[i][lane + 32 * o];
@@ -178,9 +187,10 @@ v6_wkv_gn_kernel(const float* __restrict__ r, const float* __restrict__ k,
   }
 
   // GroupNorm of the f32 y over the head, ln_x, gate.
-  const Moments m = head_moments(yo[0], yo[1]);
+  const Moments m = head_moments(yo);
 #pragma unroll
-  for (int o = 0; o < 2; ++o) {
+  for (int o = 0; o < HEAD_LANE; ++o) {
+    if (!in_head(lane + 32 * o)) continue;
     const float d = yo[o] - m.mean;
     const float yf = d * rsqrtf(m.var + GN_EPS) * lnw[o] + lnb[o];
     out[vo + lane + 32 * o] =
@@ -205,13 +215,13 @@ int v6_wkv_gn_launch(const float* r, const float* k, const float* v,
                      const uint8_t* active, float* S, void* out, int B, int H,
                      int n, int w_stride, int round_yf, int dtype,
                      void* stream) {
-  if (n != N || B <= 0 || H <= 0 || (w_stride != 0 && w_stride != H * N) ||
+  if (n != HN || B <= 0 || H <= 0 || (w_stride != 0 && w_stride != H * HN) ||
       (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   const void* kern = dtype == 1
                          ? (const void*)v6_wkv_gn_kernel<__nv_bfloat16>
                          : (const void*)v6_wkv_gn_kernel<float>;
-  int h = H, c = H * N, ws = w_stride, ry = round_yf;
+  int h = H, c = H * HN, ws = w_stride, ry = round_yf;
   void* params[] = {(void*)&r, (void*)&k,      (void*)&v, (void*)&w,
                     (void*)&g, (void*)&vecs,   (void*)&active,
                     (void*)&S, (void*)&out,    &h,        &c,

@@ -10,46 +10,52 @@
 // over its four rows (step_tile), then the row groups by shuffles and
 // through shared memory in the kernel.
 //
-// The column (wkv56_seq_kernel, the step-by-step chunk): N = 64 threads per
-// (b, h) block; thread v owns column v of S and holds it in 64 registers,
-// s[k] = S[k][v].  For each k the block's loads of S[k][.] are 256
+// The column (wkv56_seq_kernel, the step-by-step chunk): HN threads per
+// (b, h) block; thread v owns column v of S and holds it in HN registers,
+// s[k] = S[k][v].  For each k the block's loads of S[k][.] are 4 HN
 // contiguous bytes (coalesced), and both the readout and the update reduce
 // over k inside one thread: no shuffles, no shared-memory reduction.  The
 // step's vectors r, k, w, u are read by every thread at the same address
 // (shared-memory broadcasts).
+//
+// Head size: HN = HEAD_N in device memory; the tile kernels lay a head out
+// at N = HEAD_P (decode_common.cuh), the column kernel at HN.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "decode_common.cuh"
+
 namespace wkv56 {
 
-constexpr int N = 64;  // head size (RWKV-5/6 use 64 throughout)
+constexpr int HN = decode::HEAD;   // head size in device memory
+constexpr int N = decode::HEAD_P;  // head size of the tiles
 
-__device__ __forceinline__ void load_col(float (&s)[N], const float* S,
+__device__ __forceinline__ void load_col(float (&s)[HN], const float* S,
                                          int v) {
 #pragma unroll
-  for (int k = 0; k < N; ++k) s[k] = S[(size_t)k * N + v];
+  for (int k = 0; k < HN; ++k) s[k] = S[(size_t)k * HN + v];
 }
 
-__device__ __forceinline__ void store_col(const float (&s)[N], float* S,
+__device__ __forceinline__ void store_col(const float (&s)[HN], float* S,
                                           int v) {
 #pragma unroll
-  for (int k = 0; k < N; ++k) S[(size_t)k * N + v] = s[k];
+  for (int k = 0; k < HN; ++k) S[(size_t)k * HN + v] = s[k];
 }
 
 // One v5/v6 step on column v:  y_v = sum_k r_k (S[k][v] + u_k k_k v_v) from
 // the state before the step; then, if update, S[k][v] = w_k S[k][v] + k_k v_v.
-// r_, k_, w_, u_ are the step's vectors in shared memory (N floats each,
+// r_, k_, w_, u_ are the step's vectors in shared memory (HN floats each,
 // 16-byte aligned).  The readout keeps four partial sums (k mod 4), so its
-// chain of dependent multiply-adds is N / 4 long, not N.
-__device__ __forceinline__ float step(float (&s)[N], const float* r_,
+// chain of dependent multiply-adds is HN / 4 long, not HN.
+__device__ __forceinline__ float step(float (&s)[HN], const float* r_,
                                       const float* k_, const float* w_,
                                       const float* u_, float v, bool update) {
   float y[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-  for (int j = 0; j < N / 4; ++j) {
+  for (int j = 0; j < HN / 4; ++j) {
     const float4 r = reinterpret_cast<const float4*>(r_)[j];
     const float4 k = reinterpret_cast<const float4*>(k_)[j];
     const float4 w = reinterpret_cast<const float4*>(w_)[j];

@@ -22,7 +22,7 @@
 //    have written, after it, from L2 (.cg: never ld.global.nc on a
 //    kernel-written operand, see decode_common.cuh:ld4_l2);
 //  * a thread holds a 4 x 4 state tile in registers (wkv7_common.cuh, the
-//    layout of v7_decode.cu's wkv_gn_kernel): 16-byte loads and stores, the
+//    layout of v7_wkv_gn.cu's wkv_gn_kernel): 16-byte loads and stores, the
 //    vectors of its four columns and four rows in registers, each row's
 //    S kk and S' r over its 16 threads by shuffles, no block barrier;
 //  * v7's rows are independent, so a head is split over 2 or 4 blocks of
@@ -80,8 +80,21 @@
 // operand, f32 sums.  The scratch costs bytes: at B=8 pass 1 reads the
 // five inputs and writes 38 MB that pass 2 reads again.
 //
+// Head size: the library is compiled once per HN = HEAD_N (ops/_build.py;
+// N % 8 == 0, 8 <= N <= 128), and both kernels lay a head out at N =
+// HEAD_P, the next power of two, at least 32 (decode_common.cuh), the rows
+// and columns past HN masked: they read and write nothing of device memory
+// and add exact zeros.  At HN = 32, 64 and 128 nothing is masked, and at
+// 64 the masks fold away.  The one-step kernel's head is N^2 / 16 threads
+// (1024 at 128, 64 at 32: there 1 or 2 blocks a head, a block at least a
+// warp); the chunk passes stage, factor and carry at N, pass 1 going over
+// a sub-chunk's rows in whole passes of its 256 threads, and a state-pass
+// block holds N / slices >= 16 rows (ops/wkv_chunk.py:plan takes 2 or 4
+// at 128, where a block of the whole state needs 172 KB of shared memory
+// and spills).
+//
 // The t1 kernel's thread layout and row sums are in wkv7_common.cuh
-// (shared with v7_decode.cu); the chunk kernels' staging and tensor-core
+// (shared with v7_wkv_gn.cu); the chunk kernels' staging and tensor-core
 // products in wkv_chunk_common.cuh (shared with wkv56.cu).
 
 #include <cuda_runtime.h>
@@ -107,27 +120,37 @@ wkv7_t1_kernel(const float* S, const void* r, const void* w, const void* k,
   decode::grid_launch_dependents();
   const int ns = THREADS / blockDim.x;
   const int bh = blockIdx.x / ns, b = bh / H;
-  const int tid = threadIdx.x, col = 4 * (tid % CQ);
+  const int tid = threadIdx.x, cq = tid % CQ, col = 4 * cq;
   const int row0 = 4 * ((blockIdx.x % ns) * (blockDim.x / CQ) + tid / CQ);
-  const size_t vo = (size_t)bh * N;
-  const float* src = S + (vo + row0) * N + col;
+  // Masked: rows or columns past the head.
+  const bool live = decode::in_head(row0), cols = live && decode::in_head(col);
+  const size_t vo = (size_t)bh * HN;
+  const float* src = S + (vo + row0) * HN + col;
 
   // Before the wait: this head's state rows, which the kernel before this
   // one does not write (see the note at the top).
   float4 s[4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) s[i] = decode::ld4_l2(src + (size_t)i * N);
+  for (int i = 0; i < 4; ++i)
+    s[i] = cols ? decode::ld4_l2(src + (size_t)i * HN)
+                : make_float4(0.f, 0.f, 0.f, 0.f);
   decode::grid_wait();
 
   // After it, what the kernels before may have written, from L2; all of
   // it at once (no load waits on the mask's).
-  const bool act = __ldcg(mask + b) != 0;
-  const float4 rv = decode::vec4_l2(r, vo + col, vec_bf16 & 1);
-  const float4 wv = decode::vec4_l2(w, vo + col, vec_bf16 >> 1 & 1);
-  const float4 kv = decode::vec4_l2(k, vo + col, vec_bf16 >> 2 & 1);
-  const float4 vv = decode::vec4_l2(v, vo + row0, vec_bf16 >> 3 & 1);
-  const float4 kkv = decode::vec4_l2(kk, vo + col, vec_bf16 >> 4 & 1);
-  const float4 av = decode::vec4_l2(a, vo + col, vec_bf16 >> 5 & 1);
+  const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+  const bool act = live && __ldcg(mask + b) != 0;
+  const float4 rv = cols ? decode::vec4_l2(r, vo + col, vec_bf16 & 1) : z;
+  const float4 wv = cols ? decode::vec4_l2(w, vo + col, vec_bf16 >> 1 & 1)
+                         : z;
+  const float4 kv = cols ? decode::vec4_l2(k, vo + col, vec_bf16 >> 2 & 1)
+                         : z;
+  const float4 vv = live ? decode::vec4_l2(v, vo + row0, vec_bf16 >> 3 & 1)
+                         : z;
+  const float4 kkv =
+      cols ? decode::vec4_l2(kk, vo + col, vec_bf16 >> 4 & 1) : z;
+  const float4 av = cols ? decode::vec4_l2(a, vo + col, vec_bf16 >> 5 & 1)
+                         : z;
   if (act) {
     const float4 kka = make_float4(kkv.x * av.x, kkv.y * av.y, kkv.z * av.z,
                                    kkv.w * av.w);
@@ -144,14 +167,14 @@ wkv7_t1_kernel(const float* S, const void* r, const void* w, const void* k,
     }
   }
   // An inactive row writes its state back as it was read, bit for bit.
-  float* dst = S_out + (vo + row0) * N + col;
+  float* dst = S_out + (vo + row0) * HN + col;
   float yr[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    *reinterpret_cast<float4*>(dst + (size_t)i * N) = s[i];
+    if (cols) *reinterpret_cast<float4*>(dst + (size_t)i * HN) = s[i];
     yr[i] = group_sum(dot4(s[i], rv));
   }
-  if (tid % CQ == 0)
+  if (cq == 0 && live)
     *reinterpret_cast<float4*>(y + vo + row0) =
         make_float4(yr[0], yr[1], yr[2], yr[3]);
 }
@@ -162,7 +185,10 @@ using wkvc::LD;
 using wkvc::NT;
 using wkvc::R;
 constexpr int LDR = R + 4;   // R x R matrices: conflict-free A fragments
-constexpr int LDD = 72;      // [D; V] columns: conflict-free A fragments
+constexpr int WARPS = NT / 32;
+// Step 3's first thread of the scaling warps: after the N + R columns of
+// the forward substitution (96 at N = 64).
+constexpr int SCALE0 = (N + R + 31) / 32 * 32;
 
 // A sub-chunk's factors in the scratch, unpadded: L = [P; Rq], BK = [bbar
 // A_R; kdec A_R], QG = [Q; G], A_R.  A masked sub-chunk has Rq = r only.
@@ -195,23 +221,28 @@ wkv7_factors_kernel(const float* __restrict__ r, const float* __restrict__ w,
   const int bh = blockIdx.x / nsub, t0 = (blockIdx.x % nsub) * R;
   const int b = bh / H, h = bh % H;
   const float* const ins[5] = {r, w, k, kk, a};
-  const int t4 = tid / (N / 4), n4 = 4 * (tid % (N / 4));  // a float4 of a row
 
-  // One sub-chunk's factors from its staged inputs into out.
+  // One sub-chunk's factors from its staged inputs into out.  Float4 q of a
+  // sub-chunk's rows is row q / (N / 4), columns 4 (q % (N / 4)) .. + 3.
   auto factors = [&](const float(*in)[R][N], const int* msk, float* out) {
     bool live = false;
 #pragma unroll
     for (int t = 0; t < R; ++t) live |= msk[t] != 0;
     if (!live) {  // every step masked: the state pass reads y = S r only
-      wkvc::st4(out + F_L + (R + t4) * N + n4, wkvc::ld4(&in[0][t4][n4]));
+      wkvc::strided<wkvc::NQ>([&](int q) {
+        const int t4 = q / (N / 4), n4 = 4 * (q % (N / 4));
+        wkvc::st4(out + F_L + (R + t4) * N + n4, wkvc::ld4(&in[0][t4][n4]));
+      });
       return;
     }
 
-    // 1a. The cumulative decay, a column a thread (masked steps decay by 1).
+    // 1a. The cumulative decay, a column a thread (masked steps, and the
+    // columns past the head, decay by 1).
     if (tid < N) {
       float wv[R];
 #pragma unroll
-      for (int t = 0; t < R; ++t) wv[t] = msk[t] ? in[1][t][tid] : 1.f;
+      for (int t = 0; t < R; ++t)
+        wv[t] = msk[t] && decode::in_head(tid) ? in[1][t][tid] : 1.f;
       float Ap = 1.f;
 #pragma unroll
       for (int t = 0; t < R; ++t) {
@@ -223,7 +254,8 @@ wkv7_factors_kernel(const float* __restrict__ r, const float* __restrict__ w,
     __syncthreads();
 
     // 1b. The normalised factors, four columns of a step a thread.
-    {
+    wkvc::strided<wkvc::NQ>([&](int q) {
+      const int t4 = q / (N / 4), n4 = 4 * (q % (N / 4));
       const bool on = msk[t4] != 0;
       const float4 At = wkvc::ld4(&sm.A[t4][n4]);
       const float4 Ap = t4 ? wkvc::ld4(&sm.A[t4 - 1][n4])
@@ -243,7 +275,7 @@ wkv7_factors_kernel(const float* __restrict__ r, const float* __restrict__ w,
           kkv.w * av.w * ia.w));
       wkvc::st4(&sm.BK[R + t4][n4], make_float4(kv.x * ia.x, kv.y * ia.y,
                                                 kv.z * ia.z, kv.w * ia.w));
-    }
+    });
     __syncthreads();
 
     // 2. The four R x R products, [kbar; rbar] [bbar; kdec]^T, a 16 x 8 tile
@@ -287,23 +319,28 @@ wkv7_factors_kernel(const float* __restrict__ r, const float* __restrict__ w,
       }
 #pragma unroll
       for (int t = 0; t < R; ++t) col[t * ld] = x[t];
-    } else if (tid >= 96) {
-      for (int i = tid - 96; i < 2 * R * N; i += NT - 96)
+    } else if (tid >= SCALE0) {
+      for (int i = tid - SCALE0; i < 2 * R * N; i += NT - SCALE0)
         sm.BK[i / N][i % N] *= sm.AR[i % N];
     }
     __syncthreads();
 
-    // 4. [Rq | G] = [rbar | Mk] - Mb [P | Q]: an 8-column tile of Rq a warp,
-    // the two of G on warps 0 and 1.
-    {
-      float acc[4];
-      wkvc::frag_c_set(acc, [&](int t, int n) { return sm.L[R + t][n]; }, 0,
-                       8 * warp);
-      wkvc::tile_product<R / 8>(
-          acc, [&](int t, int j) { return -sm.Mb[t][j]; },
-          [&](int j, int n) { return sm.L[j][n]; }, 8 * warp);
-      wkvc::frag_c(acc, [&](int t, int n, float x) { sm.L[R + t][n] = x; }, 0,
-                   8 * warp);
+    // 4. [Rq | G] = [rbar | Mk] - Mb [P | Q]: the N / 8 8-column tiles of
+    // Rq over the warps (one a warp at N = 64), the two of G on warps 0 and
+    // 1.
+#pragma unroll
+    for (int i = 0; i < (N / 8 + WARPS - 1) / WARPS; ++i) {
+      const int n0 = 8 * (warp + WARPS * i);
+      if (N / 8 % WARPS == 0 || n0 < N) {
+        float acc[4];
+        wkvc::frag_c_set(acc, [&](int t, int n) { return sm.L[R + t][n]; },
+                         0, n0);
+        wkvc::tile_product<R / 8>(
+            acc, [&](int t, int j) { return -sm.Mb[t][j]; },
+            [&](int j, int n) { return sm.L[j][n]; }, n0);
+        wkvc::frag_c(acc, [&](int t, int n, float x) { sm.L[R + t][n] = x; },
+                     0, n0);
+      }
     }
     if (warp < 2) {
       float acc[4];
@@ -340,18 +377,26 @@ wkv7_factors_kernel(const float* __restrict__ r, const float* __restrict__ w,
 
 // ---- pass 2: the state, in order over the sub-chunks ----
 
+// [D; V]'s row stride for VB block rows: conflict-free fragments (72 up to
+// VB = 64, as at N = 64).
+__host__ __device__ constexpr int ldd(int vb) {
+  return vb + 8 > 72 ? vb + 8 : 72;
+}
+
 template <int VB>
 struct StateSmem {
   float L[2][2 * R][LD];   // the factors of a sub-chunk, double-buffered
   float BK[2][2 * R][LD];
   float QG[2][2 * R][LDR];
   float AR[2][N];
-  float DV[2][2 * R][LDD];  // D (rows 0..R-1) and V (R..2R-1), block's columns
+  float DV[2][2 * R][ldd(VB)];  // D (rows 0..R-1) and V (R..2R-1), block's
+                                // columns
   float S[VB][LD];          // the block's state rows (v, k), for S^T products
   int msk[2][R];
 };
 
-// Stage sub-chunk c's factors and V into buffer buf (cp.async).
+// Stage sub-chunk c's factors and V into buffer buf (cp.async); V's
+// columns past the head are zeros.
 template <int VB>
 __device__ __forceinline__ void stage_state(StateSmem<VB>& sm, int buf,
                                             const float* Fc, const float* v,
@@ -369,17 +414,24 @@ __device__ __forceinline__ void stage_state(StateSmem<VB>& sm, int buf,
   if (threadIdx.x < N / 4)
     wkvc::cp_async16(&sm.AR[buf][4 * threadIdx.x], Fc + F_AR + 4 * threadIdx.x,
                      true);
-  if (threadIdx.x < R * (VB / 4)) {
-    const int t = threadIdx.x / (VB / 4), n = 4 * (threadIdx.x % (VB / 4));
-    const bool ok = t0 + t < T;
+  auto stage_v = [&](int q) {
+    const int t = q / (VB / 4), n = 4 * (q % (VB / 4));
+    const bool ok = t0 + t < T && decode::in_head(v0 + n);
     wkvc::cp_async16(&sm.DV[buf][R + t][n],
-                     v + (ok ? (((size_t)b * T + t0 + t) * H + h) * N + v0 + n
+                     v + (ok ? (((size_t)b * T + t0 + t) * H + h) * HN + v0 + n
                              : 0),
                      ok);
+  };
+  if constexpr (R * (VB / 4) <= NT) {
+    if (threadIdx.x < R * (VB / 4)) stage_v(threadIdx.x);
+  } else {
+    wkvc::strided<R * (VB / 4)>(stage_v);
   }
   wkvc::cp_async_commit();
 }
 
+// Block (bh, slice) of NS: state rows v0 .. v0 + VB - 1 of head bh (rows
+// past the head are zeros, never read or written in device memory).
 template <int NS>
 __global__ void __launch_bounds__(NT, 2)
 wkv7_state_kernel(const float* __restrict__ S0, const float* __restrict__ v,
@@ -387,10 +439,15 @@ wkv7_state_kernel(const float* __restrict__ S0, const float* __restrict__ v,
                   const float* __restrict__ F, float* __restrict__ S_out,
                   float* __restrict__ y, int T, int H, int nsub) {
   constexpr int VB = N / NS;      // state rows of a block
-  constexpr int NPW = VB / 16;    // 8-column tiles of S per warp
-  constexpr int WPM = 8 / NPW;    // warps per 16-row tile of S
+  static_assert(VB >= 16, "a block holds whole 16-row tiles of the state");
+  constexpr int MT = VB / 16;     // 16-row tiles of the block's state
+  constexpr int TILES = MT * (N / 8);             // 16 x 8 tiles of S
+  constexpr int NPW = TILES >= 8 ? TILES / 8 : 1;  // of them per warp
+  constexpr int WPM = N / 8 / NPW;  // warps per 16-row tile of S
   constexpr int NTV = VB / 8;     // 8-column tiles of O (the block's rows)
-  constexpr int MPW = NTV == 8 ? 2 : 1;  // 16-row halves of O per warp
+  constexpr int MPW = NTV >= 8 ? 2 : 1;  // 16-row halves of O per warp
+  constexpr int NVW = NTV >= 8 ? NTV / 8 : 1;  // and its 8-column tiles
+  constexpr int LDV = ldd(VB);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   StateSmem<VB>& sm = *reinterpret_cast<StateSmem<VB>*>(smem_raw);
   const int tid = threadIdx.x, warp = tid >> 5;
@@ -399,15 +456,20 @@ wkv7_state_kernel(const float* __restrict__ S0, const float* __restrict__ v,
   const float* Fbh = F + (size_t)bh * nsub * F_SIZE;
 
   // This warp's part of the state, S[m0 .. m0 + 15][n0 .. n0 + 8 NPW - 1]
-  // of the block's rows, as mma accumulator fragments for the whole chunk.
+  // of the block's rows, as mma accumulator fragments for the whole chunk
+  // (every warp has a part where the block has 8 tiles or more).
+  const bool owns = MT * WPM == NT / 32 || warp < MT * WPM;
   const int m0 = (warp / WPM) * 16, n0 = (warp % WPM) * NPW * 8;
-  float s[NPW][4];
-  {
-    const float* src = S0 + ((size_t)bh * N + v0) * N;
+  float s[NPW][4] = {};
+  if (owns) {
+    const float* src = S0 + ((size_t)bh * HN + v0) * HN;
+    auto at = [&](int m, int n) {
+      return decode::in_head(v0 + m) && decode::in_head(n) ? src[m * HN + n]
+                                                           : 0.f;
+    };
 #pragma unroll
     for (int i = 0; i < NPW; ++i) {
-      wkvc::frag_c_set(s[i], [&](int m, int n) { return src[m * N + n]; },
-                       m0, n0 + 8 * i);
+      wkvc::frag_c_set(s[i], at, m0, n0 + 8 * i);
       wkvc::frag_c(s[i], [&](int m, int n, float x) { sm.S[m][n] = x; }, m0,
                    n0 + 8 * i);
     }
@@ -435,39 +497,45 @@ wkv7_state_kernel(const float* __restrict__ S0, const float* __restrict__ v,
     for (int t = 0; t < R; ++t) live |= sm.msk[buf][t] != 0;
     const float(*L)[LD] = sm.L[buf];
     const float(*QG)[LDR] = sm.QG[buf];
-    float(*DV)[LDD] = sm.DV[buf];
+    float(*DV)[LDV] = sm.DV[buf];
 
     // O = [P; Rq] S^T + [Q; G] V over the block's rows: D = -O[0 .. R) into
-    // DV, Y = O[R .. 2R) to y; a warp takes an 8-column tile and one or both
-    // 16-row halves, sharing the S^T fragments.
+    // DV, Y = O[R .. 2R) to y; a warp takes NVW 8-column tiles and one or
+    // both 16-row halves, sharing the S^T fragments.
     {
-      const int nv = 8 * (warp % NTV), mt0 = MPW == 2 ? 0 : warp / NTV;
-      auto store = [&](const float (&o)[4], int mt) {
+      const int mt0 = MPW == 2 ? 0 : warp / NTV;
+      auto store = [&](const float (&o)[4], int mt, int nv) {
         if (mt == 0)
           wkvc::frag_c(o, [&](int t, int vv, float x) { DV[t][vv] = -x; }, 0,
                        nv);
         else
           wkvc::frag_c(o, [&](int t, int vv, float x) {
-            if (t0 + t < T)
-              y[(((size_t)b * T + t0 + t) * H + h) * N + v0 + vv] = x;
+            if (t0 + t < T && decode::in_head(v0 + vv))
+              y[(((size_t)b * T + t0 + t) * H + h) * HN + v0 + vv] = x;
           }, 0, nv);
       };
-      if (live && mt0 < 2) {
-        float acc[MPW][4] = {};
-        wkvc::rows_product<N / 8, MPW>(
-            acc, [&](int i, int t, int n) { return L[R * (mt0 + i) + t][n]; },
-            [&](int n, int vv) { return sm.S[vv][n]; }, nv);
-        wkvc::rows_product<R / 8, MPW>(
-            acc, [&](int i, int t, int j) { return QG[R * (mt0 + i) + t][j]; },
-            [&](int j, int vv) { return DV[R + j][vv]; }, nv);
 #pragma unroll
-        for (int i = 0; i < MPW; ++i) store(acc[i], mt0 + i);
-      } else if (!live && mt0 + MPW - 1 == 1) {
-        float acc[4] = {0.f, 0.f, 0.f, 0.f};
-        wkvc::tile_product<N / 8>(
-            acc, [&](int t, int n) { return L[R + t][n]; },
-            [&](int n, int vv) { return sm.S[vv][n]; }, nv);
-        store(acc, 1);
+      for (int jv = 0; jv < NVW; ++jv) {
+        const int nv = 8 * (NVW == 1 ? warp % NTV : warp + 8 * jv);
+        if (live && mt0 < 2) {
+          float acc[MPW][4] = {};
+          wkvc::rows_product<N / 8, MPW>(
+              acc,
+              [&](int i, int t, int n) { return L[R * (mt0 + i) + t][n]; },
+              [&](int n, int vv) { return sm.S[vv][n]; }, nv);
+          wkvc::rows_product<R / 8, MPW>(
+              acc,
+              [&](int i, int t, int j) { return QG[R * (mt0 + i) + t][j]; },
+              [&](int j, int vv) { return DV[R + j][vv]; }, nv);
+#pragma unroll
+          for (int i = 0; i < MPW; ++i) store(acc[i], mt0 + i, nv);
+        } else if (!live && mt0 + MPW - 1 == 1) {
+          float acc[4] = {0.f, 0.f, 0.f, 0.f};
+          wkvc::tile_product<N / 8>(
+              acc, [&](int t, int n) { return L[R + t][n]; },
+              [&](int n, int vv) { return sm.S[vv][n]; }, nv);
+          store(acc, 1, nv);
+        }
       }
     }
 
@@ -475,36 +543,44 @@ wkv7_state_kernel(const float* __restrict__ S0, const float* __restrict__ v,
       __syncthreads();  // D complete; every warp is done reading S
       // The update S = S diag(A_R) + D^T (bbar A_R) + V^T (kdec A_R) on this
       // warp's accumulator fragments, then S back to shared memory.
+      if (owns) {
 #pragma unroll
-      for (int i = 0; i < NPW; ++i) {
-        const int n = n0 + 8 * i + 2 * (tid & 3);
-        s[i][0] *= sm.AR[buf][n];
-        s[i][1] *= sm.AR[buf][n + 1];
-        s[i][2] *= sm.AR[buf][n];
-        s[i][3] *= sm.AR[buf][n + 1];
+        for (int i = 0; i < NPW; ++i) {
+          const int n = n0 + 8 * i + 2 * (tid & 3);
+          s[i][0] *= sm.AR[buf][n];
+          s[i][1] *= sm.AR[buf][n + 1];
+          s[i][2] *= sm.AR[buf][n];
+          s[i][3] *= sm.AR[buf][n + 1];
+        }
+        wkvc::cols_product<2 * R / 8, NPW>(
+            s, [&](int vv, int t) { return DV[t][vv]; },
+            [&](int t, int n) { return sm.BK[buf][t][n]; }, m0, n0);
+#pragma unroll
+        for (int i = 0; i < NPW; ++i)
+          wkvc::frag_c(s[i], [&](int m, int n, float x) { sm.S[m][n] = x; },
+                       m0, n0 + 8 * i);
       }
-      wkvc::cols_product<2 * R / 8, NPW>(
-          s, [&](int vv, int t) { return DV[t][vv]; },
-          [&](int t, int n) { return sm.BK[buf][t][n]; }, m0, n0);
-#pragma unroll
-      for (int i = 0; i < NPW; ++i)
-        wkvc::frag_c(s[i], [&](int m, int n, float x) { sm.S[m][n] = x; },
-                     m0, n0 + 8 * i);
     }
     if (c + 1 < nsub && tid < R) sm.msk[buf ^ 1][tid] = mnext;
     __syncthreads();  // this buffer and S are ready again
   }
-  float* dst = S_out + ((size_t)bh * N + v0) * N;
+  if (!owns) return;
+  float* dst = S_out + ((size_t)bh * HN + v0) * HN;
 #pragma unroll
   for (int i = 0; i < NPW; ++i)
-    wkvc::frag_c(s[i], [&](int m, int n, float x) { dst[m * N + n] = x; }, m0,
-                 n0 + 8 * i);
+    wkvc::frag_c(s[i], [&](int m, int n, float x) {
+      if (decode::in_head(v0 + m) && decode::in_head(n)) dst[m * HN + n] = x;
+    }, m0, n0 + 8 * i);
 }
 
+// NS blocks a head, each of N / NS >= 16 state rows (else refused).
 template <int NS>
 int launch_state(const float* S, const float* v, const uint8_t* mask,
                  const float* F, float* S_out, float* y, int B, int T, int H,
                  int nsub, cudaStream_t st) {
+  if constexpr (N / NS < 16) {
+    return (int)cudaErrorInvalidValue;
+  } else {
   const int bytes = (int)sizeof(StateSmem<N / NS>);
   const cudaError_t e = cudaFuncSetAttribute(
       wkv7_state_kernel<NS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -513,6 +589,7 @@ int launch_state(const float* S, const float* v, const uint8_t* mask,
   wkv7_state_kernel<NS><<<B * H * NS, NT, bytes, st>>>(S, v, mask, F, S_out,
                                                        y, T, H, nsub);
   return (int)cudaGetLastError();
+  }
 }
 
 }  // namespace chunk
@@ -521,9 +598,11 @@ int launch_state(const float* S, const float* v, const uint8_t* mask,
 
 extern "C" {
 
-// vec_bf16: bit i set where vector i of (r, w, k, v, kk, a) is bf16 (else
-// f32); f32 operands 16-byte aligned, bf16 ones 8-byte (the wrapper
-// checks).  slices: 1, 2 or 4 blocks a head.  A programmatic dependent
+// n: the head size the library was built for (HEAD_N).  vec_bf16: bit i
+// set where vector i of (r, w, k, v, kk, a) is bf16 (else f32); f32
+// operands 16-byte aligned, bf16 ones 8-byte (the wrapper checks).
+// slices: 1, 2 or 4 blocks a head (a block at least a warp: at N <= 32,
+// whose head is 64 threads, 1 or 2).  A programmatic dependent
 // launch that reads S before it waits for the kernel before it: whatever
 // writes S must have finished before this kernel starts (a
 // synchronisation, or a launch without PDL between them).
@@ -532,9 +611,11 @@ int wkv7_t1_launch(const float* S, const void* r, const void* w,
                    const void* a, const uint8_t* mask, float* S_out,
                    float* y, int B, int H, int n, int vec_bf16, int slices,
                    void* stream) {
-  if (n != N || B <= 0 || H <= 0 || vec_bf16 < 0 || vec_bf16 > 63 ||
+  if (n != HN || B <= 0 || H <= 0 || vec_bf16 < 0 || vec_bf16 > 63 ||
       (slices != 1 && slices != 2 && slices != 4))
     return (int)cudaErrorInvalidValue;
+  // A block of at least a warp (at N = 32 a head is 64 threads).
+  if (THREADS / slices < 32) return (int)cudaErrorInvalidValue;
   int h = H, bf = vec_bf16;
   void* params[] = {(void*)&S,  (void*)&r,    (void*)&w,    (void*)&k,
                     (void*)&v,  (void*)&kk,   (void*)&a,    (void*)&mask,
@@ -547,13 +628,14 @@ int wkv7_t1_launch(const float* S, const void* r, const void* w,
 
 // The chunk: pass 1 (the factors of every sub-chunk into F, nsub * B * H
 // blocks of wkv7_chunk_scratch_floats each) and pass 2 (the state, slices =
-// 1, 2 or 4 blocks per (b, h): 64, 32 or 16 state rows a block).
+// 1, 2 or 4 blocks per (b, h): N / slices state rows a block, at least 16;
+// N = HEAD_P, the head size padded to a power of two).
 int wkv7_chunk_launch(const float* S, const float* r, const float* w,
                       const float* k, const float* v, const float* kk,
                       const float* a, const uint8_t* mask, float* F,
                       float* S_out, float* y, int B, int T, int H, int n,
                       int slices, void* stream) {
-  if (n != N || B <= 0 || H <= 0 || T <= 0) return (int)cudaErrorInvalidValue;
+  if (n != HN || B <= 0 || H <= 0 || T <= 0) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   const int nsub = (T + chunk::R - 1) / chunk::R;
   const int fbytes = (int)sizeof(chunk::FactorSmem);

@@ -3,19 +3,27 @@
 // stride of the per-sub-chunk factor arrays, cp.async staging of a
 // sub-chunk's inputs, and f32 matrix products on the tensor cores (3xTF32
 // mma.sync) with their fragment layouts.
+//
+// Head size: the kernels lay a head out at N = HEAD_P (decode_common.cuh:
+// the next power of two of HN = HEAD_N, at least 32), in shared memory and
+// in the scratch; staging reads the HN real columns from device memory and
+// fills the rest with zeros, which every product carries as exact zeros.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "decode_common.cuh"
+
 namespace wkvc {
 
-constexpr int N = 64;        // head size
+constexpr int HN = decode::HEAD;    // head size in device memory
+constexpr int N = decode::HEAD_P;   // head size of the tiles
 constexpr int R = 16;        // steps per sub-chunk
 constexpr int NT = 256;      // threads per block
 constexpr int LD = N + 4;    // padded row stride of the factor arrays
-static_assert(R * (N / 4) == NT, "one float4 of each input row per thread");
+constexpr int NQ = R * (N / 4);  // float4s of a sub-chunk's input rows
 
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -42,18 +50,37 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING));
 }
 
-// Stage steps t0 .. t0 + R - 1 of NIN (B, T, H, N) inputs into dst[i][t][n]
-// (zeros past T); thread tid copies float4 tid % 16 of row tid / 16 of each.
+// Calls f(q) for q = threadIdx.x, threadIdx.x + NT, ... below COUNT (a
+// block of NT threads): once a thread where COUNT == NT, as at N = 64.
+template <int COUNT, class F>
+__device__ __forceinline__ void strided(F f) {
+  if constexpr (COUNT == NT) {
+    f((int)threadIdx.x);
+  } else if constexpr (COUNT < NT) {
+    if (threadIdx.x < COUNT) f((int)threadIdx.x);
+  } else {
+    static_assert(COUNT % NT == 0, "whole passes of the block");
+#pragma unroll
+    for (int i = 0; i < COUNT / NT; ++i) f((int)threadIdx.x + i * NT);
+  }
+}
+
+// Stage steps t0 .. t0 + R - 1 of NIN (B, T, H, HN) inputs into
+// dst[i][t][n] (zeros past T and at columns HN and above); float4 q of the
+// sub-chunk is row q / (N / 4), columns 4 (q % (N / 4)) .. + 3, thread tid
+// copying q = tid, tid + NT, ...
 template <int NIN>
 __device__ __forceinline__ void stage(float (*dst)[R][N],
                                       const float* const (&src)[NIN], int b,
                                       int h, int H, int T, int t0, int nin) {
-  const int t = threadIdx.x / (N / 4), c = threadIdx.x % (N / 4);
-  const bool ok = t0 + t < T;
-  const size_t off = ok ? (((size_t)b * T + t0 + t) * H + h) * N + 4 * c : 0;
+  strided<NQ>([&](int q) {
+    const int t = q / (N / 4), c = 4 * (q % (N / 4));
+    const bool ok = t0 + t < T && decode::in_head(c);
+    const size_t off = ok ? (((size_t)b * T + t0 + t) * H + h) * HN + c : 0;
 #pragma unroll
-  for (int i = 0; i < NIN; ++i)
-    if (i < nin) cp_async16(&dst[i][t][4 * c], src[i] + off, ok);
+    for (int i = 0; i < NIN; ++i)
+      if (i < nin) cp_async16(&dst[i][t][c], src[i] + off, ok);
+  });
   cp_async_commit();
 }
 

@@ -89,18 +89,10 @@ def save_safetensors(tensors: dict[str, np.ndarray], path: str,
     save_file(cast, path, metadata={"format": "pt"})
 
 
-def convert_pth(path: str) -> dict[str, np.ndarray]:
-    """A raw RWKV ``.pth`` / ``.pt`` in the converted-key layout, in memory
-    (the reference converter's semantics): version sniffing, the v5.1
-    repeat of ``time_decay`` / ``time_faaaa`` over each head's channels,
-    the rename table, lowercased keys and the converter's transposes."""
-    loaded = torch.load(path, map_location="cpu", weights_only=True)
-    if "state_dict" in loaded:
-        loaded = loaded["state_dict"]
-
-    keys = list(loaded.keys())
+def _pth_version(loaded) -> float:
+    """The reference converter's version sniffing of a raw state dict."""
     version = 4.0
-    for x in keys:
+    for x in loaded:
         if "ln_x" in x:
             version = max(5.0, version)
         if "gate.weight" in x:
@@ -112,6 +104,29 @@ def convert_pth(path: str) -> dict[str, np.ndarray]:
             version = max(6.0, version)
         if ".att.w0" in x or "att.r_k" in x:
             version = max(7.0, version)
+    return version
+
+
+def _converted_key(k: str) -> str:
+    for a, b in RENAME:
+        k = k.replace(a, b)
+    return k.lower()
+
+
+def _load_pth(path: str, mmap: bool = False) -> dict:
+    loaded = torch.load(path, map_location="cpu", weights_only=True,
+                        mmap=mmap)
+    return loaded["state_dict"] if "state_dict" in loaded else loaded
+
+
+def convert_pth(path: str) -> dict[str, np.ndarray]:
+    """A raw RWKV ``.pth`` / ``.pt`` in the converted-key layout, in memory
+    (the reference converter's semantics): version sniffing, the v5.1
+    repeat of ``time_decay`` / ``time_faaaa`` over each head's channels,
+    the rename table, lowercased keys and the converter's transposes."""
+    loaded = _load_pth(path)
+    keys = list(loaded.keys())
+    version = _pth_version(loaded)
 
     if version == 5.1:
         _, n_emb = loaded["emb.weight"].shape
@@ -122,15 +137,42 @@ def convert_pth(path: str) -> dict[str, np.ndarray]:
 
     out = {}
     for k in keys:
-        new_k = k
-        for a, b in RENAME:
-            new_k = new_k.replace(a, b)
-        new_k = new_k.lower()
+        new_k = _converted_key(k)
         v = loaded[k].float()
         if _is_convert_transposed(new_k) and v.dim() >= 2:
             v = v.transpose(v.dim() - 2, v.dim() - 1)
         out[new_k] = np.ascontiguousarray(v.numpy())
     return out
+
+
+def read_info(path: str) -> ModelInfo:
+    """The ModelInfo of a converted ``.st``, a raw ``.pth`` / ``.pt`` or a
+    prefab from its header and shapes alone, without reading the weights
+    (``Middleware.reload`` checks a model's head size on a card before it
+    unloads the model in service)."""
+    if path.endswith(".prefab"):
+        from .prefab import read_prefab_info
+
+        return read_prefab_info(path)
+    if path.endswith(".pth") or path.endswith(".pt"):
+        loaded = _load_pth(path, mmap=True)
+        version = _pth_version(loaded)
+        n_emb = loaded["emb.weight"].shape[1]
+        shapes = {}
+        for k, v in loaded.items():
+            shape = tuple(v.shape)
+            if version == 5.1 and ("time_decay" in k or "time_faaaa" in k):
+                shape = (shape[0], n_emb // shape[0])
+            new_k = _converted_key(k)
+            if _is_convert_transposed(new_k) and len(shape) >= 2:
+                shape = (*shape[:-2], shape[-1], shape[-2])
+            shapes[new_k] = shape
+        return detect_info(shapes)
+    from safetensors import safe_open
+
+    with safe_open(path, framework="numpy") as f:
+        return detect_info({k: tuple(f.get_slice(k).get_shape())
+                            for k in f.keys()})
 
 
 def read_checkpoint(path: str) -> dict[str, np.ndarray]:

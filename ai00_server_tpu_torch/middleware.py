@@ -33,6 +33,7 @@ projections).
 from __future__ import annotations
 
 import asyncio
+import functools
 import logging
 import os
 import time
@@ -44,8 +45,9 @@ import torch
 
 from .device import resolve_device
 from .engine import Engine
-from .loader import LoadedModel, load_model
+from .loader import LoadedModel, load_model, read_info
 from .models import packing
+from .models.info import ModelVersion
 from .ops.quant import MODES as QUANT_MODES
 from .runtime import NIL_STATE_ID, Runtime
 from .tokenizer import Tokenizer
@@ -223,9 +225,26 @@ class Middleware:
                              f"by dp={dp}")
         return make_mesh(dp=dp, tp=tp, devices=devices[:dp * tp])
 
+    def _head_size(self, request: ReloadRequest) -> int | None:
+        """On a card, the head size whose WKV kernels the model needs (the
+        default set for RWKV-4, whose WKV is per channel); None elsewhere.
+        A v5 / v6 / v7 model of a head size the kernels are not built for
+        (``N % 8 == 0``, ``8 <= N <= 128``) is refused here, from the
+        checkpoint's header, before the model in service is unloaded."""
+        if self.device.type != "cuda":
+            return None
+        from .ops import _build
+
+        info = read_info(request.model_path)
+        if info.version == ModelVersion.V4:
+            return _build.DEFAULT_HEAD
+        _build.check_head_size(info.head_size)
+        return info.head_size
+
     async def reload(self, request: ReloadRequest) -> None:
         request.check_supported()
         mesh = self._mesh(request)
+        head = self._head_size(request)
         async with self._lock:
             await self._unload_locked()
             loop = asyncio.get_event_loop()
@@ -245,7 +264,8 @@ class Middleware:
                 # the first request, whatever ``prewarm`` says: the decode
                 # graph captured in Engine() needs the kernels, and a build
                 # that fails must fail the load.
-                await loop.run_in_executor(None, _build.build_all)
+                await loop.run_in_executor(
+                    None, functools.partial(_build.build_all, heads=(head,)))
                 await loop.run_in_executor(None, native.get_lib)
             engine = Engine(model, max_batch=request.max_batch,
                             token_chunk_size=request.token_chunk_size,

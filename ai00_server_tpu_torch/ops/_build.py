@@ -8,6 +8,12 @@ the shared headers (``csrc/*.cuh``) and the flags, and loaded with
 CUDA stream as ``void*`` and ints as ``int``, and return
 ``cudaGetLastError()`` after their launch.
 
+The WKV sources (``HEAD_SOURCES``) are compiled once per head size N, with
+``-DHEAD_N=<N>``, into a library of their own (``lib<name>_n<N>_<hash>.so``,
+keyed by ``(name, N)``): their state tiles, sums and shared-memory layouts
+are sized at compile time.  They take every ``N % 8 == 0`` with ``8 <= N <=
+128`` (``head_size_ok``); the other sources do not depend on N.
+
 Nothing here runs at import: the CPU tests import every module of the
 package on a machine without ``nvcc``.
 """
@@ -59,6 +65,8 @@ SIGNATURES = {
         # desc (host), n_prob, plan (host), n_launch, dtype, wbits, levels
         # (host), stream
         "v7_skinny_matmul_launch": "pipiiipp",
+    },
+    "v7_wkv_gn": {
         # r, k, v, w, a, g, vmix, v_first, vecs, active, S, out, B, H, N,
         # is_first, dtype, stream
         "v7_wkv_gn_launch": "ppppppppppppiiiiip",
@@ -105,9 +113,68 @@ SIGNATURES = {
     },
 }
 
-_libs: dict[str, ctypes.CDLL] = {}
+# The sources compiled once per head size (-DHEAD_N), and the sizes they take.
+HEAD_SOURCES = ("wkv7", "wkv56", "v7_wkv_gn", "v6_decode")
+HEAD_MIN, HEAD_MAX, HEAD_STEP = 8, 128, 8
+DEFAULT_HEAD = 64
+
+_libs: dict[tuple[str, int | None], ctypes.CDLL] = {}
 _lock = threading.Lock()
 ptxas_info: dict[str, str] = {}
+
+
+def head_size_ok(n: int) -> bool:
+    """Whether the WKV kernels take head size ``n``: ``n % 8 == 0`` and ``8
+    <= n <= 128``."""
+    return n % HEAD_STEP == 0 and HEAD_MIN <= n <= HEAD_MAX
+
+
+def head_tile(n: int) -> int:
+    """The size a WKV kernel lays a head of size ``n`` out at (``HEAD_P`` in
+    ``csrc/decode_common.cuh``): the next power of two, at least 32.  Rows
+    and columns past ``n`` are masked zeros."""
+    p = 32
+    while p < n:
+        p *= 2
+    return p
+
+
+def check_head_size(n: int) -> None:
+    """Raise ValueError naming ``n`` unless the WKV kernels take it."""
+    if not head_size_ok(n):
+        raise ValueError(
+            f"head size {n}: the CUDA kernels take N % {HEAD_STEP} == 0 with "
+            f"{HEAD_MIN} <= N <= {HEAD_MAX}")
+
+
+def key(name: str, head: int = DEFAULT_HEAD) -> tuple[str, int | None]:
+    """The library of ``name`` for head size ``head``: ``(name, head)`` for
+    a source of ``HEAD_SOURCES``, ``(name, None)`` for the others."""
+    if name not in SIGNATURES:
+        raise KeyError(f"no kernel source {name!r}")
+    if name not in HEAD_SOURCES:
+        return name, None
+    check_head_size(head)
+    return name, head
+
+
+def flags(name: str, head: int = DEFAULT_HEAD) -> list[str]:
+    """``nvcc``'s flags for the library ``key(name, head)``."""
+    n = key(name, head)[1]
+    return NVCC_FLAGS + ([] if n is None else [f"-DHEAD_N={n}"])
+
+
+def library_path(name: str, head: int = DEFAULT_HEAD) -> Path:
+    """Where the library ``key(name, head)`` is cached: its name carries the
+    head size and a hash of the source, the headers and the flags."""
+    n = key(name, head)[1]
+    src = CSRC / f"{name}.cu"
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(
+        src.read_bytes() + headers
+        + " ".join(flags(name, head)).encode()).hexdigest()[:16]
+    return BUILD / (f"lib{name}_{digest}.so" if n is None
+                    else f"lib{name}_n{n}_{digest}.so")
 
 
 def _nvcc() -> str:
@@ -118,23 +185,23 @@ def _nvcc() -> str:
                        "CUDA kernels build on a machine with the CUDA toolkit")
 
 
-def _compile(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
-    digest = hashlib.sha256(
-        src.read_bytes() + headers
-        + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD / f"lib{name}_{digest}.so"
+def _compile(k: tuple[str, int | None]) -> Path:
+    name, n = k
+    head = DEFAULT_HEAD if n is None else n
+    out = library_path(name, head)
     if out.exists():
         return out
     BUILD.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                          capture_output=True, text=True)
+    src = CSRC / f"{name}.cu"
+    proc = subprocess.run([_nvcc(), *flags(name, head), "-o", str(tmp),
+                           str(src)], capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {src}:\n{proc.stderr}")
+        at = "" if n is None else f" (head size {n})"
+        raise RuntimeError(f"nvcc failed for {src}{at}:\n{proc.stderr}")
     os.replace(tmp, out)  # atomic: concurrent builds race harmlessly
-    ptxas_info[name] = proc.stdout + proc.stderr
+    label = name if n is None or n == DEFAULT_HEAD else f"{name} (N={n})"
+    ptxas_info[label] = proc.stdout + proc.stderr
     return out
 
 
@@ -148,20 +215,36 @@ def _load(name: str, path: Path) -> ctypes.CDLL:
     return lib
 
 
-def build_all() -> dict[str, ctypes.CDLL]:
-    """Compile every source in parallel (one ``nvcc`` each) and load them."""
+def _build_keys(keys) -> None:
+    """Compile the libraries ``keys`` not loaded yet in parallel (one
+    ``nvcc`` each) and load them."""
     with _lock:
-        todo = [n for n in SIGNATURES if n not in _libs]
-        with ThreadPoolExecutor(max_workers=max(1, len(todo))) as ex:
+        todo = [k for k in dict.fromkeys(keys) if k not in _libs]
+        if not todo:
+            return
+        with ThreadPoolExecutor(max_workers=len(todo)) as ex:
             paths = dict(zip(todo, ex.map(_compile, todo)))
-        for n, p in paths.items():
-            _libs[n] = _load(n, p)
-        return dict(_libs)
+        for k, p in paths.items():
+            _libs[k] = _load(k[0], p)
 
 
-def library(name: str) -> ctypes.CDLL:
-    lib = _libs.get(name)
-    return lib if lib is not None else build_all()[name]
+def build_all(heads=(DEFAULT_HEAD,)) -> dict[str, ctypes.CDLL]:
+    """Compile every source in parallel (one ``nvcc`` each; the WKV sources
+    once for each of ``heads``) and load them.  Returns the libraries of the
+    first head size by source name."""
+    _build_keys([key(name, h) for h in heads for name in SIGNATURES])
+    return {name: _libs[key(name, heads[0])] for name in SIGNATURES}
+
+
+def library(name: str, head: int = DEFAULT_HEAD) -> ctypes.CDLL:
+    """The loaded library of ``name`` for head size ``head``, built at first
+    use.  ``head`` outside ``head_size_ok`` raises ValueError."""
+    k = key(name, head)
+    lib = _libs.get(k)
+    if lib is None:
+        _build_keys([k])
+        lib = _libs[k]
+    return lib
 
 
 def check(status: int, what: str) -> None:

@@ -54,7 +54,8 @@ def can_phase(params, batch: int, version: str) -> bool:
     """Whether the phased stack takes a step of ``batch`` rows of a
     ``version`` ("V6" or "V5") model: a batch wider than the fused products
     hold (8), a model the version's fused layout fits (its ``can_fuse``:
-    ``C == H * N``, head size 64, one activation dtype), and big projections
+    ``C == H * N``, a head size the WKV kernels take - ``N % 8 == 0`` and
+    ``8 <= N <= 128`` - and one activation dtype), and big projections
     uniformly plain or uniformly int8 or int4."""
     fd = _FUSED.get(version)
     return (fd is not None and batch > v7d._MM_NB and fd.can_fuse(params)

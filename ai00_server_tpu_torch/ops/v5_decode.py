@@ -30,7 +30,8 @@ layers and the shift states keep the f32 LayerNorm.  :func:`forward_t1_plain`
 is the stack composed of the kernels' plain versions.  Like
 ``ops/v7_decode`` this module updates the state IN PLACE and returns the
 dict it was passed, so :class:`DecodeGraph` can capture the stack once.  No
-VMEM budget applies on the card: every v5 model with head size 64 whose big
+VMEM budget applies on the card: every v5 model with a head size the WKV
+kernel takes (``N % 8 == 0``, ``8 <= N <= 128``) whose big
 projections are uniformly plain or uniformly quantized in one mode takes
 this path.
 """
@@ -40,7 +41,7 @@ from __future__ import annotations
 import torch
 
 from ..models.common import layer_norm
-from . import fused_decode
+from . import _build, fused_decode
 from . import v7_decode as v7d
 from .v6_decode import _wkv_gn_inplace_plain, v6_wkv_gn
 from .v7_decode import _DTYPE_CODE, v7_ln_mix, v7_skinny_matmul
@@ -80,7 +81,8 @@ def can_fuse(params) -> bool:
     shape (H, N) and a gate), activations of one dtype (bf16 or f32), the
     big projections of ALL layers uniformly plain in that dtype or uniformly
     quantized in ONE mode (a mixed model keeps to the layer path), ``C ==
-    H * N`` and head size 64 (the WKV kernel's register layout)."""
+    H * N`` and a head size the WKV kernel is built for
+    (``_build.head_size_ok``: ``N % 8 == 0``, ``8 <= N <= 128``)."""
     layers = params.get("layers")
     if not layers:
         return False
@@ -90,7 +92,7 @@ def can_fuse(params) -> bool:
     H, N = att["time_first"].shape
     C = att["time_mix_k"].shape[0]
     dtype = att["time_mix_k"].dtype
-    return (C == H * N and N == 64 and dtype in _DTYPE_CODE
+    return (C == H * N and _build.head_size_ok(N) and dtype in _DTYPE_CODE
             and fused_decode.uniform_mode(layers, _BIG_SRC, dtype))
 
 

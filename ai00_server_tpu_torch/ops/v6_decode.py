@@ -33,7 +33,8 @@ so that it never slices lanes at non-tile offsets; here it is one (C, 5D)
 product whose output the five (D, C) products read as strided views.  Like
 ``ops/v7_decode`` this module updates the state IN PLACE and returns the
 dict it was passed, so :class:`DecodeGraph` can capture the stack once.  No
-VMEM budget applies on the card: every v6 model with head size 64 whose big
+VMEM budget applies on the card: every v6 model with a head size the WKV
+kernel takes (``N % 8 == 0``, ``8 <= N <= 128``) whose big
 projections are uniformly plain or uniformly quantized in one mode takes
 this path.
 """
@@ -46,7 +47,7 @@ from ..models.common import GN_EPS, layer_norm
 from . import _build, fused_decode
 from . import v7_decode as v7d
 from .v7_decode import (_DTYPE_CODE, Product, _dense, _one_cuda_device,
-                        _require, _stream, head_norm, pair_sum,
+                        _require, _stream, head_norm, pad_to, pair_sum,
                         v7_ln_mix, v7_skinny_matmul)
 
 FUSED_KEY = "_fused_t1_v6"
@@ -80,7 +81,8 @@ def can_fuse(params) -> bool:
     or f32), the big projections of ALL layers uniformly plain in that dtype
     or uniformly quantized in ONE mode (a mixed model keeps to the layer
     path, as a model of several layer groups does in the reference),
-    ``C == H * N`` and head size 64 (the WKV kernel's register layout)."""
+    ``C == H * N`` and a head size the WKV kernel is built for
+    (``_build.head_size_ok``: ``N % 8 == 0``, ``8 <= N <= 128``)."""
     layers = params.get("layers")
     if not layers or "first" not in layers[0]["att"]:
         return False
@@ -88,7 +90,7 @@ def can_fuse(params) -> bool:
     H, N = att["first"].shape[-2:]
     C = att["mix_w1"].shape[0]
     dtype = att["mix_w1"].dtype
-    if C != H * N or N != 64 or dtype not in _DTYPE_CODE:
+    if C != H * N or not _build.head_size_ok(N) or dtype not in _DTYPE_CODE:
         return False
     return fused_decode.uniform_mode(layers, _BIG_SRC, dtype)
 
@@ -151,9 +153,10 @@ def v6_wkv_gn_plain(r, k, v, w, g, vecs, active, S, dtype, round_yf=True):
 
 def v6_wkv_gn_mirror(r, k, v, w, g, vecs, active, S, dtype, round_yf=True):
     """The arithmetic of ``csrc/v6_decode.cu``'s kernel in PyTorch: the
-    partial y of the 16 groups of four k rows (each group's rows in order)
-    summed in pairs of neighbouring groups, then pairs of those (the
-    kernel's fixed tree), and normalised (``v7_decode.head_norm``).  The
+    partial y of the N / 4 groups of four k rows (each group's rows in
+    order) summed in pairs of neighbouring groups, then pairs of those (the
+    kernel's fixed tree over ``head_tile(N) / 4`` groups, those past the
+    head zero), and normalised (``v7_decode.head_norm``).  The
     kernel fuses multiply-adds, so the two differ by f32 roundings.  Same
     contract as :func:`v6_wkv_gn_plain`; for the tests, never on a serving
     path."""
@@ -171,8 +174,9 @@ def v6_wkv_gn_mirror(r, k, v, w, g, vecs, active, S, dtype, round_yf=True):
     t = (rr[..., :, None] * (ur[:, :, None] * a + S)).reshape(
         B, H, N // 4, 4, N)
     part = ((t[:, :, :, 0] + t[:, :, :, 1]) + t[:, :, :, 2]) \
-        + t[:, :, :, 3]                                      # (B, H, 16, N)
-    yn = head_norm(pair_sum(part.transpose(-1, -2))).reshape(B, C)
+        + t[:, :, :, 3]                                  # (B, H, N / 4, N)
+    yn = head_norm(pair_sum(pad_to(part.transpose(-1, -2),
+                                   _build.head_tile(N) // 4))).reshape(B, C)
     S_new = torch.where(active[:, None, None, None],
                         wr[..., :, None] * S + a, S)
     yf = yn * vecs[_VEC_IDX["lnx_w"]] + vecs[_VEC_IDX["lnx_b"]]
@@ -194,8 +198,8 @@ def v6_wkv_gn(r, k, v, w, g, vecs, active, S, dtype, round_yf=True):
 
     r, k, v, w, g: (B, C) f32 (``w`` the decay ``exp(-exp(.))``, ``g`` the
     SiLU gate); vecs: (4, C) f32 (decay, first, lnx_w, lnx_b; ``first`` is
-    the bonus ``u``); active: (B,) bool; S: (B, H, 64, 64) f32 (k-dim,
-    v-dim).  Computes ``y = r (S + u k v^T)`` from the state before the step
+    the bonus ``u``); active: (B,) bool; S: (B, H, N, N) f32 (k-dim,
+    v-dim), N a head size the kernel takes (``_build.check_head_size``).  Computes ``y = r (S + u k v^T)`` from the state before the step
     for every row, ``S = w S + k v^T`` IN PLACE for active rows (an
     inactive row keeps its state bit for bit), GroupNorm of the f32 ``y``
     per head, ``ln_x``, rounding through ``dtype`` (the fused stacks' point;
@@ -219,8 +223,8 @@ def v6_wkv_gn(r, k, v, w, g, vecs, active, S, dtype, round_yf=True):
     f32s = (r, k, v, vecs if static else w, g)
     dev = _one_cuda_device(S, *f32s, vecs, active)
     B, H, N, N2 = S.shape
-    _require(N == 64 and N2 == 64,
-             f"the CUDA kernel takes head size 64, got {N}x{N2}")
+    _require(N == N2, f"the state must be square, got {N}x{N2}")
+    _build.check_head_size(N)
     _require(dtype in _DTYPE_CODE, f"unsupported activation dtype {dtype}")
     C = H * N
     _dense(S, (B, H, N, N), torch.float32, "S")
@@ -231,7 +235,7 @@ def v6_wkv_gn(r, k, v, w, g, vecs, active, S, dtype, round_yf=True):
              "S, r/k/v/w/g and vecs must be 16-byte aligned")
     _dense(active, (B,), torch.bool, "active")
     out = torch.empty((B, C), dtype=dtype, device=dev)
-    status = _build.library("v6_decode").v6_wkv_gn_launch(
+    status = _build.library("v6_decode", N).v6_wkv_gn_launch(
         *(t.data_ptr() for t in f32s), vecs.data_ptr(), active.data_ptr(),
         S.data_ptr(), out.data_ptr(), B, H, N, 0 if static else C,
         int(round_yf), _DTYPE_CODE[dtype], _stream(dev))

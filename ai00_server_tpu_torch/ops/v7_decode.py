@@ -8,8 +8,8 @@ codes with per-128-row-block scales, or as packed nf4 / sf4 / int4 codes
 with per-64-row-block scales, dequantized inside the product.  The Pallas
 kernel is one sequential grid over the layers; on the card a layer
 is nine launches of three hand-written kernels
-(``csrc/v7_decode.cu``; the note there says what bounds each and what its
-design does about it):
+(``csrc/v7_decode.cu`` and, built once per head size, ``csrc/v7_wkv_gn.cu``;
+the notes there say what bounds each and what its design does about it):
 
 * :func:`v7_ln_mix` — LayerNorm, token shift, the mixed inputs, the new
   shift state;
@@ -35,9 +35,10 @@ dict it was passed.  Fixed addresses are what lets :class:`DecodeGraph`
 capture the whole stack once in a ``torch.cuda.CUDAGraph`` and replay it
 for every decode step.
 
-No VMEM budget applies on the card, so every v7 model with head size 64
-whose big projections are uniformly plain or uniformly quantized in one mode
-takes this path.
+No VMEM budget applies on the card, so every v7 model whose head size the
+WKV kernels take (``N % 8 == 0``, ``8 <= N <= 128``: ``_build.head_size_ok``,
+as the JAX package's ``N % 8 == 0``) and whose big projections are
+uniformly plain or uniformly quantized in one mode takes this path.
 """
 
 from __future__ import annotations
@@ -94,8 +95,9 @@ def can_fuse(params) -> bool:
     """Whether a fused layout can be built: activations of one dtype (bf16
     or f32), the big projections of ALL layers uniformly plain in that dtype
     or uniformly quantized in ONE mode — int8, nf4, sf4 or int4 — (a mixed
-    model keeps to the layer path), ``C == H * N`` and head size 64 (the WKV
-    kernels' register layout)."""
+    model keeps to the layer path), ``C == H * N`` and a head size the WKV
+    kernel is built for (``_build.head_size_ok``: ``N % 8 == 0``, ``8 <= N
+    <= 128``)."""
     layers = params.get("layers")
     if not layers:
         return False
@@ -103,7 +105,7 @@ def can_fuse(params) -> bool:
     H, N = att["r_k"].shape[-2:]
     C = att["receptance"].shape[0]
     dtype = att["w1"].dtype
-    if C != H * N or N != 64 or dtype not in _DTYPE_CODE:
+    if C != H * N or not _build.head_size_ok(N) or dtype not in _DTYPE_CODE:
         return False
     return fused_decode.uniform_mode(layers, _BIG_SRC, dtype)
 
@@ -691,6 +693,12 @@ def v7_wkv_gn_plain(r, k, v, w, a, g, vmix, v_first, vecs, active, S,
 # ---------------------------------------------------------------------------
 
 
+def pad_to(x, n: int):
+    """``x`` with its last dimension zero-padded to ``n``: the lanes or row
+    groups of a kernel's tile past the head, which add zero to its sums."""
+    return torch.nn.functional.pad(x, (0, n - x.shape[-1]))
+
+
 def halving_sum(x):
     """Sum over the last dimension (a power of two) in the kernels' order
     (``csrc/decode_common.cuh:head_moments``, ``warp_sum``): element i plus
@@ -712,29 +720,34 @@ def pair_sum(x):
 
 
 def quad_sum(x):
-    """Sum over a v7 head's 64 channels (the last dimension) in
-    ``csrc/v7_decode.cu``'s order: thread cq of a row group holds channels
-    4 cq + e and adds them in pairs, ``(e0 + e1) + (e2 + e3)``; the 16
-    threads then add theirs by :func:`pair_sum`.  On the same f32 inputs it
-    gives the kernel's bits."""
-    t = x.reshape(*x.shape[:-1], 16, 4)
-    return pair_sum((t[..., 0] + t[..., 1]) + (t[..., 2] + t[..., 3]))
+    """Sum over a v7 head's N channels (the last dimension) in
+    ``csrc/v7_wkv_gn.cu``'s order: thread cq of a row group holds channels
+    4 cq + e and adds them in pairs, ``(e0 + e1) + (e2 + e3)``; the row
+    group's ``head_tile(N) / 4`` threads then add theirs by :func:`pair_sum`
+    (those past the head add zero).  On the same f32 inputs it gives the
+    kernel's bits."""
+    n = x.shape[-1]
+    t = x.reshape(*x.shape[:-1], n // 4, 4)
+    return pair_sum(pad_to((t[..., 0] + t[..., 1]) + (t[..., 2] + t[..., 3]),
+                           _build.head_tile(n) // 4))
 
 
 def head_norm(y):
-    """GroupNorm of a head's y (..., 64) as the kernels take it: the two-pass
-    mean and variance in :func:`halving_sum` order, then ``(y - mean)
-    rsqrt(var + eps)``."""
+    """GroupNorm of a head's y (..., N) as the kernels take it: the two-pass
+    mean and variance in :func:`halving_sum` order over the head's tile
+    (``head_tile(N)`` values, zero past N), each divided by N, then ``(y -
+    mean) rsqrt(var + eps)``."""
     n = y.shape[-1]
-    mean = halving_sum(y) / n
+    p = _build.head_tile(n)
+    mean = halving_sum(pad_to(y, p)) / n
     d = y - mean[..., None]
-    var = halving_sum(d * d) / n
+    var = halving_sum(pad_to(d * d, p)) / n
     return d * torch.rsqrt(var + GN_EPS)[..., None]
 
 
 def v7_wkv_gn_mirror(r, k, v, w, a, g, vmix, v_first, vecs, active, S,
                      is_first: bool, dtype):
-    """The arithmetic of ``csrc/v7_decode.cu``'s ``wkv_gn_kernel`` in
+    """The arithmetic of ``csrc/v7_wkv_gn.cu``'s ``wkv_gn_kernel`` in
     PyTorch: the removal key's norm and the bonus in :func:`quad_sum` order
     over the head, the value rows updated and read out, the head's y
     normalised (:func:`head_norm`).  The norm's order is the kernel's, so
@@ -786,8 +799,8 @@ def v7_wkv_gn(r, k, v, w, a, g, vmix, v_first, vecs, active, S,
     """The WKV stage of one layer's decode step, per (b, h).
 
     r, k, v, w, a, g, vmix, v_first: (B, C) f32; vecs: (8, C) f32 (w0, a0,
-    v0, k_k, k_a, r_k, lnx_w, lnx_b); active: (B,) bool; S: (B, H, 64, 64)
-    f32.  Computes the removal key (L2-normalised ``k * k_k``, rounded
+    v0, k_k, k_a, r_k, lnx_w, lnx_b); active: (B,) bool; S: (B, H, N, N)
+    f32, N a head size the kernel takes (``_build.check_head_size``).  Computes the removal key (L2-normalised ``k * k_k``, rounded
     through ``dtype``), ``k2 = k (1 + (a - 1) k_a)``, the value residual
     (layer 0 — ``is_first`` — writes ``v_first``, later layers read it),
     the delta-rule update of ``S`` IN PLACE (an inactive row keeps its
@@ -809,8 +822,8 @@ def v7_wkv_gn(r, k, v, w, a, g, vmix, v_first, vecs, active, S,
     f32s = (r, k, v, w, a, g, vmix, v_first)
     dev = _one_cuda_device(S, *f32s, vecs, active)
     B, H, N, N2 = S.shape
-    _require(N == 64 and N2 == 64,
-             f"the CUDA kernel takes head size 64, got {N}x{N2}")
+    _require(N == N2, f"the state must be square, got {N}x{N2}")
+    _build.check_head_size(N)
     _require(dtype in _DTYPE_CODE, f"unsupported activation dtype {dtype}")
     C = H * N
     _dense(S, (B, H, N, N), torch.float32, "S")
@@ -822,7 +835,7 @@ def v7_wkv_gn(r, k, v, w, a, g, vmix, v_first, vecs, active, S,
              "S, r/k/v/w/a/g/vmix/v_first and vecs must be 16-byte aligned")
     _dense(active, (B,), torch.bool, "active")
     out = torch.empty((B, C), dtype=dtype, device=dev)
-    status = _build.library("v7_decode").v7_wkv_gn_launch(
+    status = _build.library("v7_wkv_gn", N).v7_wkv_gn_launch(
         *(t.data_ptr() for t in f32s), vecs.data_ptr(), active.data_ptr(),
         S.data_ptr(), out.data_ptr(), B, H, N, int(is_first),
         _DTYPE_CODE[dtype], _stream(dev))

@@ -53,9 +53,10 @@ _PLAIN_OPS = (fd._ln_mix_inplace_plain, _matmul_inplace_plain,
 def can_phase(params, batch: int) -> bool:
     """Whether the phased stack takes a step of ``batch`` rows: a batch
     wider than the fused products hold (8), a model the fused layout fits
-    (``v7_decode.can_fuse``: ``C == H * N``, head size 64, one activation
-    dtype), and big projections uniformly plain or uniformly int8 or int4
-    (the TPU kernel's modes)."""
+    (``v7_decode.can_fuse``: ``C == H * N``, a head size the WKV kernels
+    take, ``N % 8 == 0`` and ``8 <= N <= 128``, one activation dtype), and
+    big projections uniformly plain or uniformly int8 or int4 (the TPU
+    kernel's modes)."""
     return (batch > fd._MM_NB and fd.can_fuse(params)
             and fused_decode.group_mode(params["layers"][0],
                                         fd._BIG_SRC) in MODES)

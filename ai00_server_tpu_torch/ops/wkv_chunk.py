@@ -13,7 +13,10 @@ sub-chunk into a scratch buffer allocated here, then the state pass, each
 head's state split over ``plan(B, H, sms)`` blocks.  A v5/v6 chunk of one
 sub-chunk takes the step-by-step kernel (``sequential``).  The kernels read
 the inputs straight from the ``(B, T, H, N)`` layout, so the wrappers need
-no transpose, no mask folding and no padding of T.
+no transpose, no mask folding and no padding of T or N.  They take every
+head size N with ``N % 8 == 0``, ``8 <= N <= 128`` (one library per N,
+``_build``), laying a head out in shared memory at ``_build.head_tile(N)``
+(the next power of two, at least 32) with the rest zeros.
 ``wkv7_chunk_wy`` and ``wkv56_chunk_ss`` repeat the kernels' arithmetic in
 PyTorch, sub-chunk by sub-chunk, for the tests: on the CPU against the JAX
 package, on the card against the kernels.
@@ -44,16 +47,26 @@ def head_vector(t, S, name):
     return t
 
 
-def plan(B: int, H: int, sms: int) -> int:
-    """Blocks per (b, h) of a chunk kernel's state pass, each holding 64 /
-    slices rows (v7) or columns (v5/v6) of the head's state: the fewest of
-    1 and 2 that give the card's ``sms`` SMs a block for every two, else 4
-    (``tools/torch_wkv_chunk_ab.py --slices`` on an H100: at 128 heads one
-    block a head beats two, at 16 and 32 heads four beat two)."""
-    for slices in (1, 2):
+def splits(N: int = 64) -> tuple[int, ...]:
+    """The blocks a head the state passes take at head size ``N``: each
+    holds ``head_tile(N) / slices`` rows (v7) or columns (v5/v6), at least
+    16 (one or two at N <= 32)."""
+    return tuple(s for s in (1, 2, 4) if _build.head_tile(N) // s >= 16)
+
+
+def plan(B: int, H: int, sms: int, N: int = 64) -> int:
+    """Blocks per (b, h) of a chunk kernel's state pass, each holding
+    ``head_tile(N) / slices`` rows (v7) or columns (v5/v6) of the head's
+    state: the fewest of ``splits(N)`` that give the card's ``sms`` SMs a
+    block for every two, else the most (``tools/torch_wkv_chunk_ab.py
+    --slices`` on an H100 at N = 64: at 128 heads one block a head beats
+    two, at 16 and 32 heads four beat two).  At N = 128 two at least: a
+    block of the whole 128 x 128 state needs 172 KB of shared memory."""
+    ok = [s for s in splits(N) if N <= 64 or s >= 2]
+    for slices in ok[:-1]:
         if 2 * B * H * slices >= sms:
             return slices
-    return 4
+    return ok[-1]
 
 
 def sequential(T: int) -> bool:
@@ -172,8 +185,7 @@ def _check(S, seqs, mask):
     if N != N2 or S.dtype != torch.float32 or not S.is_contiguous():
         raise ValueError(f"state must be contiguous f32 (B, H, N, N), got "
                          f"{S.dtype} {tuple(S.shape)}")
-    if N != 64:
-        raise ValueError(f"the CUDA kernel takes head size 64, got {N}")
+    _build.check_head_size(N)
     T = seqs[0].shape[1]
     for t in seqs:
         if t.shape != (B, T, H, N) or t.dtype != torch.float32 \
@@ -219,12 +231,12 @@ def wkv7_chunk(S, r, w, k, v, kk, a, mask):
     T = seqs[0].shape[1]
     S_out = torch.empty_like(S)
     y = torch.empty((B, T, H, N), device=S.device, dtype=torch.float32)
-    lib = _build.library("wkv7")
+    lib = _build.library("wkv7", N)
     scratch = _scratch(lib.wkv7_chunk_scratch_floats(), B, T, H, S.device)
     status = lib.wkv7_chunk_launch(
         S.data_ptr(), *(t.data_ptr() for t in seqs), mask.data_ptr(),
         scratch.data_ptr(), S_out.data_ptr(), y.data_ptr(), B, T, H, N,
-        plan(B, H, sm_count(S.device.index)),
+        plan(B, H, sm_count(S.device.index), N),
         torch.cuda.current_stream(S.device).cuda_stream)
     _build.check(status, "wkv7_chunk")
     wkv7_chunk.launches += 1
@@ -272,7 +284,7 @@ def wkv56_chunk(S, r, k, v, w, u, mask):
     u = head_vector(u, S, "u")
     S_out = torch.empty_like(S)
     y = torch.empty((B, T, H, N), device=S.device, dtype=torch.float32)
-    lib = _build.library("wkv56")
+    lib = _build.library("wkv56", N)
     ptrs = [t.data_ptr() for t in (S, *seqs, w, u, mask)]
     stream = torch.cuda.current_stream(S.device).cuda_stream
     if sequential(T):
@@ -284,7 +296,8 @@ def wkv56_chunk(S, r, k, v, w, u, mask):
                            S.device)
         status = lib.wkv56_chunk_launch(
             *ptrs, scratch.data_ptr(), S_out.data_ptr(), y.data_ptr(), B, T,
-            H, N, int(static), plan(B, H, sm_count(S.device.index)), stream)
+            H, N, int(static), plan(B, H, sm_count(S.device.index), N),
+            stream)
     _build.check(status, "wkv56_chunk")
     wkv56_chunk.launches += 1
     return S_out, y

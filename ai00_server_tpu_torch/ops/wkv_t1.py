@@ -8,8 +8,11 @@ and ``csrc/wkv56.cu:wkv56_t1_launch``; the notes there say what bounds
 them on the card and how their designs answer that.
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain version
-only for CPU tensors.  ``wkv7_t1_mirror`` and ``wkv56_t1_mirror`` repeat
-their kernels' arithmetic in PyTorch for the tests.
+only for CPU tensors.  The kernels take every head size N with ``N % 8 ==
+0``, ``8 <= N <= 128`` (``_build.check_head_size``; one library per N),
+laying a head out at ``_build.head_tile(N)`` with the rest masked.
+``wkv7_t1_mirror`` and ``wkv56_t1_mirror`` repeat their kernels'
+arithmetic in PyTorch for the tests.
 """
 
 from __future__ import annotations
@@ -19,10 +22,18 @@ import torch
 from ..models.common import masked_select
 from . import _build
 from .device import sm_count
-from .v7_decode import pair_sum
+from .v7_decode import pad_to, pair_sum
 
-SPLITS = (1, 2, 4)  # blocks a head: 64, 32 or 16 state rows (v7) or
-                    # value columns (v5/v6) each
+SPLITS = (1, 2, 4)  # blocks a head: N / 1, 2 or 4 state rows (v7) or value
+                    # columns (v5/v6) each, N the head's tile
+
+
+def splits(N: int = 64) -> tuple[int, ...]:
+    """The blocks a head the one-step kernels take at head size ``N``: a
+    block holds at least a warp (a head's tile is ``head_tile(N)^2 / 16``
+    threads: 64 at N <= 32, so one or two)."""
+    threads = _build.head_tile(N) ** 2 // 16
+    return tuple(s for s in SPLITS if threads // s >= 32)
 
 
 def wkv7_t1_plain(S, r, w, k, v, kk, a, mask):
@@ -41,23 +52,26 @@ def wkv7_t1_plain(S, r, w, k, v, kk, a, mask):
 def wkv7_t1_mirror(S, r, w, k, v, kk, a, mask, slices: int = 1):
     """The arithmetic of ``csrc/wkv7.cu:wkv7_t1_kernel`` in PyTorch, f32:
     each of a row's sums (``S kk``, ``S' r``) as the kernel takes it, a
-    thread's four columns 4 cq .. 4 cq + 3 in order, then the 16 threads'
-    partial sums by :func:`pair_sum` (lanes xor 1, 2, 4, 8).  ``slices``
-    blocks a head each take 64 / slices rows; rows are independent, so the
-    split moves no bit.  The kernel fuses multiply-adds, so the two differ
-    by f32 roundings.  Same contract as :func:`wkv7_t1`; for the tests,
-    never on a serving path."""
-    if slices not in SPLITS:
-        raise ValueError(f"slices must be one of {SPLITS}, got {slices}")
+    thread's four columns 4 cq .. 4 cq + 3 in order, then the row group's
+    ``head_tile(N) / 4`` threads' partial sums by :func:`pair_sum` (lanes
+    xor 1, 2, 4 ...; the threads past the head add zero).  ``slices``
+    blocks a head each take a part of its rows; rows are independent, so
+    the split moves no bit.  The kernel fuses multiply-adds, so the two
+    differ by f32 roundings.  Same contract as :func:`wkv7_t1`; for the
+    tests, never on a serving path."""
     S = S.float()
     r, w, k, v, kk, a = (t.float() for t in (r, w, k, v, kk, a))
     B, H, N, _ = S.shape
+    if slices not in splits(N):
+        raise ValueError(f"slices must be one of {splits(N)}, got {slices}")
+    lanes = _build.head_tile(N) // 4
 
     def row_sums(M, x):  # (B, H, rows, N) . (B, H, N) over the tiles
         t = (M * x[:, :, None, :]).reshape(*M.shape[:3], N // 4, 4)
-        return pair_sum(((t[..., 0] + t[..., 1]) + t[..., 2]) + t[..., 3])
+        return pair_sum(pad_to(((t[..., 0] + t[..., 1]) + t[..., 2])
+                               + t[..., 3], lanes))
 
-    rows = N // slices
+    rows = -(-N // slices)
     S_new, y = torch.empty_like(S), torch.empty_like(r)
     for sl in range(slices):  # the blocks of a head, in any order
         Ss = S[:, :, sl * rows:(sl + 1) * rows]
@@ -71,13 +85,17 @@ def wkv7_t1_mirror(S, r, w, k, v, kk, a, mask, slices: int = 1):
     return S_new, y
 
 
-def plan(B: int, H: int, sms: int) -> int:
+def plan(B: int, H: int, sms: int, N: int = 64) -> int:
     """Blocks per (b, h) of ``wkv7_t1``'s kernel, from B x H heads on the
-    card's ``sms`` SMs: 4 up to a head for every two SMs, else 2
+    card's ``sms`` SMs: at N = 64, 4 up to a head for every two SMs, else 2
     (``tools/torch_wkv_gn_ab.py --splits`` on an H100 at H = 16, every row
     active: 4 fastest at B = 1, 2 at B = 8, 2 and 4 within 0.3% and 3%
-    under one block a head at B = 64)."""
-    return 4 if 2 * B * H <= sms else 2
+    under one block a head at B = 64).  At another head size the same
+    blocks of 64 or 128 threads where the head's tile allows (N = 128: 4,
+    blocks of 256; N <= 32: the head's 64 threads, 1)."""
+    threads = _build.head_tile(N) ** 2 // 16
+    want = threads // (64 if 2 * B * H <= sms else 128)
+    return max(s for s in splits(N) if s <= max(want, 1))
 
 
 VEC_DTYPES = (torch.float32, torch.bfloat16)
@@ -90,8 +108,7 @@ def _check(S, vecs, mask, heads=()):
     if N != N2 or S.dtype != torch.float32 or not S.is_contiguous():
         raise ValueError(f"state must be contiguous f32 (B, H, N, N), got "
                          f"{S.dtype} {tuple(S.shape)}")
-    if N != 64:
-        raise ValueError(f"the CUDA kernel takes head size 64, got {N}")
+    _build.check_head_size(N)
     shapes = [(B, H, N)] * len(vecs) + [(H, N)] * len(heads)
     for t, shape in zip((*vecs, *heads), shapes):
         if t.shape != shape or t.dtype not in VEC_DTYPES \
@@ -135,12 +152,12 @@ def wkv7_t1(S, r, w, k, v, kk, a, mask):
     B, H, N, _ = S.shape
     S_out = torch.empty_like(S)
     y = torch.empty((B, H, N), device=S.device, dtype=torch.float32)
-    lib = _build.library("wkv7")
+    lib = _build.library("wkv7", N)
     status = lib.wkv7_t1_launch(
         S.data_ptr(), *(t.data_ptr() for t in vecs), mask.data_ptr(),
         S_out.data_ptr(), y.data_ptr(), B, H, N,
         sum(1 << i for i, t in enumerate(vecs) if t.dtype == torch.bfloat16),
-        plan(B, H, sm_count(S.device.index or 0)),
+        plan(B, H, sm_count(S.device.index or 0), N),
         torch.cuda.current_stream(S.device).cuda_stream)
     _build.check(status, "wkv7_t1")
     wkv7_t1.launches += 1
@@ -164,19 +181,21 @@ def wkv56_t1_plain(S, r, k, v, w, u, mask):
 def wkv56_t1_mirror(S, r, k, v, w, u, mask, slices: int = 1):
     """The arithmetic of ``csrc/wkv56.cu:wkv56_t1_kernel`` in PyTorch, f32:
     a thread's part of each column's readout over its four k rows 4 rg ..
-    4 rg + 3 in order, then the 16 row groups' parts by :func:`pair_sum`
-    (lanes xor, then warps in pairs: one tree in every split).  ``slices``
-    blocks a head each take 64 / slices value columns; columns are
-    independent, so the split moves no bit.  The kernel fuses multiply-adds,
-    so the two differ by f32 roundings.  Same contract as
-    :func:`wkv56_t1`; for the tests, never on a serving path."""
-    if slices not in SPLITS:
-        raise ValueError(f"slices must be one of {SPLITS}, got {slices}")
+    4 rg + 3 in order, then the ``head_tile(N) / 4`` row groups' parts by
+    :func:`pair_sum` (lanes xor, then warps in pairs: one tree in every
+    split; the groups past the head add zero).  ``slices`` blocks a head
+    each take a part of its value columns; columns are independent, so the
+    split moves no bit.  The kernel fuses multiply-adds, so the two differ
+    by f32 roundings.  Same contract as :func:`wkv56_t1`; for the tests,
+    never on a serving path."""
     S = S.float()
     r, k, v, w, u = (t.float() for t in (r, k, v, w, u))
     B, H, N, _ = S.shape
+    if slices not in splits(N):
+        raise ValueError(f"slices must be one of {splits(N)}, got {slices}")
+    groups = _build.head_tile(N) // 4
     w = w.expand(B, H, N)  # RWKV-5's static (H, N) decay, every row
-    cols = N // slices
+    cols = -(-N // slices)
     S_new, y = torch.empty_like(S), torch.empty_like(r)
     for sl in range(slices):  # the blocks of a head, in any order
         c = slice(sl * cols, (sl + 1) * cols)
@@ -185,19 +204,19 @@ def wkv56_t1_mirror(S, r, k, v, w, u, mask, slices: int = 1):
         t = ((Ss + u[None, :, :, None] * a) * r[..., None]).reshape(
             B, H, N // 4, 4, cols)
         part = ((t[:, :, :, 0] + t[:, :, :, 1]) + t[:, :, :, 2]) \
-            + t[:, :, :, 3]                            # (B, H, 16, cols)
-        y[..., c] = pair_sum(part.transpose(-1, -2))
+            + t[:, :, :, 3]                            # (B, H, N / 4, cols)
+        y[..., c] = pair_sum(pad_to(part.transpose(-1, -2), groups))
         S_new[..., c] = masked_select(mask, w[..., None] * Ss + a, Ss)
     return S_new, y
 
 
-def plan56(B: int, H: int, sms: int) -> int:
+def plan56(B: int, H: int, sms: int, N: int = 64) -> int:
     """Blocks per (b, h) of ``wkv56_t1``'s kernel, from B x H heads on the
     card's ``sms`` SMs: 4 up to a head for every two SMs, else 1
-    (``tools/torch_wkv_gn_ab.py --splits`` on an H100, every row active: 4
-    fastest at 32 and 64 heads, 1 at 128, 256 and 2048 heads, 2 within 1%
-    of 1 at 256)."""
-    return 4 if 2 * B * H <= sms else 1
+    (``tools/torch_wkv_gn_ab.py --splits`` on an H100 at N = 64, every row
+    active: 4 fastest at 32 and 64 heads, 1 at 128, 256 and 2048 heads, 2
+    within 1% of 1 at 256); at N <= 32 at most 2 (a block of a warp)."""
+    return min(4 if 2 * B * H <= sms else 1, max(splits(N)))
 
 
 def wkv56_t1(S, r, k, v, w, u, mask):
@@ -230,12 +249,12 @@ def wkv56_t1(S, r, k, v, w, u, mask):
     B, H, N, _ = S.shape
     S_out = torch.empty_like(S)
     y = torch.empty((B, H, N), device=S.device, dtype=torch.float32)
-    lib = _build.library("wkv56")
+    lib = _build.library("wkv56", N)
     status = lib.wkv56_t1_launch(
         S.data_ptr(), *(t.data_ptr() for t in vecs), mask.data_ptr(),
         S_out.data_ptr(), y.data_ptr(), B, H, N, int(static),
         sum(1 << i for i, t in enumerate(vecs) if t.dtype == torch.bfloat16),
-        plan56(B, H, sm_count(S.device.index or 0)),
+        plan56(B, H, sm_count(S.device.index or 0), N),
         torch.cuda.current_stream(S.device).cuda_stream)
     _build.check(status, "wkv56_t1")
     wkv56_t1.launches += 1

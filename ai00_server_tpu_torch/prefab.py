@@ -175,10 +175,10 @@ def _from_skeleton(sk, tensors: dict):
     return {k: _from_skeleton(v, tensors) for k, v in sk.items()}
 
 
-def load_prefab(path: str, device: str | torch.device = "cuda"
-                ) -> LoadedModel:
-    """Read a prefab onto ``device``.  A reference (web-rwkv CBOR) prefab or
-    a file without the magic raises ``ValueError`` naming the file."""
+def _meta(path: str, read):
+    """``read(f, meta)`` of the prefab at ``path`` opened with safetensors
+    and its prefab metadata.  A reference (web-rwkv CBOR) prefab or a file
+    without the magic raises ValueError naming the file."""
     from safetensors import safe_open
 
     with open(path, "rb") as fh:
@@ -193,8 +193,27 @@ def load_prefab(path: str, device: str | torch.device = "cuda"
         if meta.get("magic") != PREFAB_MAGIC:
             raise ValueError(f"{path}: not an ai00-tpu prefab (magic "
                              f"{meta.get('magic')!r}, want {PREFAB_MAGIC!r})")
-        dtypes = meta["dtypes"]
-        tensors = {k: (f.get_tensor(k), dtypes[k]) for k in f.keys()}
+        return read(f, meta)
+
+
+def _info(mi: dict) -> ModelInfo:
+    return ModelInfo(version=ModelVersion(mi["version"]),
+                     num_layer=mi["num_layer"], num_emb=mi["num_emb"],
+                     num_hidden=mi["num_hidden"], num_vocab=mi["num_vocab"],
+                     num_head=mi["num_head"], head_size=mi["head_size"])
+
+
+def read_prefab_info(path: str) -> ModelInfo:
+    """A prefab's ModelInfo from its metadata alone."""
+    return _meta(path, lambda f, meta: _info(meta["info"]))
+
+
+def load_prefab(path: str, device: str | torch.device = "cuda"
+                ) -> LoadedModel:
+    """Read a prefab onto ``device``.  A reference (web-rwkv CBOR) prefab or
+    a file without the magic raises ``ValueError`` naming the file."""
+    meta, tensors = _meta(path, lambda f, meta: (meta, {
+        k: (f.get_tensor(k), meta["dtypes"][k]) for k in f.keys()}))
     tree = _from_skeleton(meta["skeleton"], tensors)
     if "head_q" in tree:
         tree["_head_q"] = tree.pop("head_q")
@@ -202,9 +221,5 @@ def load_prefab(path: str, device: str | torch.device = "cuda"
     init_wkv = None
     if meta.get("init_wkv") is not None:
         init_wkv = _from_skeleton(meta["init_wkv"], tensors).float().numpy()
-    mi = meta["info"]
-    info = ModelInfo(version=ModelVersion(mi["version"]),
-                     num_layer=mi["num_layer"], num_emb=mi["num_emb"],
-                     num_hidden=mi["num_hidden"], num_vocab=mi["num_vocab"],
-                     num_head=mi["num_head"], head_size=mi["head_size"])
-    return LoadedModel(info=info, params=params, init_wkv=init_wkv)
+    return LoadedModel(info=_info(meta["info"]), params=params,
+                       init_wkv=init_wkv)

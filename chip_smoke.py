@@ -88,6 +88,16 @@ kernel's source is built first, one ``nvcc`` each, all started together):
    v7 at the 2.9B widths (bf16, int8, int4), v6 at 1B6 (bf16, int8), v5 at
    0.4B, each against ``forward_t1_plain``, in lockstep and under its CUDA
    graph, launching ``phased_matmul`` and no ``v7_skinny_matmul``.
+   Then head sizes other than 64 (``HEAD_SIZES``: N = 32, 40 and 128 at
+   the 0.4B width; their WKV libraries, one per head size, built in a
+   thread beside phases 2 and 3): each of the seven N-dependent kernels
+   (``wkv7_t1``, ``wkv7_chunk``, ``v7_wkv_gn``, ``wkv56_t1``,
+   ``wkv56_chunk``, ``v6_wkv_gn`` with v6's dense and v5's static decay)
+   held against its plain version at every split of a head, B = 8 and 64,
+   and timed beside its bound and its N = 64 row; then v7, v6 and v5 of
+   each N at 2 layers in f32 on the layer path and the fused stack against
+   the CPU, and at N = 128 the phased stack at B = 16 in bf16 against
+   ``forward_t1_plain`` and in lockstep.
 4. Serving: the 0.4B shape at all 24 layers in bf16 from a seed, with a
    synthetic 65,536-entry vocabulary, behind the port's HTTP server on
    localhost: concurrent greedy completions and a streamed chat.  The
@@ -151,7 +161,9 @@ kernel's source is built first, one ``nvcc`` each, all started together):
    same device memory as a reload from the ``.st``).  Then random 12-layer RWKV-5 and RWKV-4
    checkpoints of the 0.4B shape, served the same way (prefill through
    ``wkv56_chunk`` / ``wkv4_chunk``, decode one replay of the fused v5 / v4
-   stack).  The 0.4B v7
+   stack), and a random 12-layer RWKV-7 of head size 128 (H = 8) at the
+   0.4B width in bf16 (prefill through ``wkv7_chunk`` and every decode
+   step one replay of the fused stack's graph, at N = 128).  The 0.4B v7
    checkpoint at ``quant = 24`` Int8 and the v5 one in bf16 are also served at
    ``max_batch = 64`` with 64 concurrent completions (every step one replay of
    the phased stack's graph; ``v7_skinny_matmul`` must launch 0 times), and
@@ -185,6 +197,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -226,6 +239,15 @@ LORA29 = {"w": 96, "a": 96, "v": 64, "g": 320}
 WIDE_BATCH = 64
 PHASED_BS = (16, WIDE_BATCH)
 PHASED_VOCAB = 4096  # the parity models' vocabulary: no T=1 stack reads it
+
+# Head sizes other than 64 (RWKV-LM's --head_size_a): the WKV
+# kernels are built once per head size N.  At the 0.4B width C = H N: 1024
+# for N = 32 (H = 32) and N = 128 (H = 8), 640 for N = 40 (H = 16).  A
+# random RWKV-7 of H = 8, N = 128 at the 0.4B width is served at L128 of
+# its 24 layers, as v5 and v4 are (L54).
+HEAD_SIZES = {32: 1024, 40: 640, 128: 1024}
+HEAD_BS = (MAX_BATCH, WIDE_BATCH)
+L128 = 12
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores
@@ -644,7 +666,7 @@ def held_t56(S, args, mask, what: str) -> float:
     try:
         for slices in (None, *wkv_t1.SPLITS):
             if slices is not None:
-                wkv_t1.plan56 = lambda B, H, sms, s=slices: s
+                wkv_t1.plan56 = lambda *a, s=slices: s
             torch.cuda.synchronize()  # the kernel reads S before it waits
             S_k, y_k = wkv_t1.wkv56_t1(S, *args, mask)
             torch.cuda.synchronize()
@@ -2168,8 +2190,9 @@ WKV_GN_WIDTHS = (("v7_wkv_gn", "v7", C // HEAD),
 WKV_GN_HELD_BS = (1, 5, MAX_BATCH, 16, WIDE_BATCH)
 
 
-def wkv_gn_case(kind: str, B: int, H: int, dev, seed: int, mode: bool):
-    """One call of a decode WKV stage in bf16 at (B, H), every row active:
+def wkv_gn_case(kind: str, B: int, H: int, dev, seed: int, mode: bool,
+                N: int = HEAD):
+    """One call of a decode WKV stage in bf16 at (B, H, N), every row active:
     ``mode`` is ``is_first`` for v7 and ``round_yf`` for v5 / v6.  Returns
     (kernel(S, vf) -> out, plain(S, vf) -> (out, S_new, vf_new), mirror(S,
     vf) -> the same in the kernel's order (``*_wkv_gn_mirror``), v_first or
@@ -2181,7 +2204,7 @@ def wkv_gn_case(kind: str, B: int, H: int, dev, seed: int, mode: bool):
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    Cw, cd = H * HEAD, torch.bfloat16
+    Cw, cd = H * N, torch.bfloat16
 
     def rnd(*shape, scale=1.0):
         return torch.randn(*shape, generator=gen, device=dev) * scale
@@ -2295,6 +2318,528 @@ def phase_wkv_gn_batches(dev, rows: dict) -> None:
               f"{b_by}", flush=True)
         del states
         torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# Head sizes other than 64: the WKV kernels built once per head size
+# ---------------------------------------------------------------------------
+
+HEAD_ROWS = (
+    # (row, kernel source, the TPU kernel it replaces)
+    ("wkv7_t1", "ai00_server_tpu_torch/csrc/wkv7.cu",
+     "ai00_server_tpu/ops/wkv_t1.py:108"),
+    ("wkv7_chunk", "ai00_server_tpu_torch/csrc/wkv7.cu",
+     "ai00_server_tpu/ops/wkv_pallas.py:174"),
+    ("v7_wkv_gn", "ai00_server_tpu_torch/csrc/v7_wkv_gn.cu",
+     "ai00_server_tpu/ops/v7_decode_pallas.py:274"),
+    ("wkv56_t1", "ai00_server_tpu_torch/csrc/wkv56.cu",
+     "ai00_server_tpu/ops/wkv_t1.py:123"),
+    ("wkv56_chunk", "ai00_server_tpu_torch/csrc/wkv56.cu",
+     "ai00_server_tpu/ops/wkv_pallas.py:209"),
+    ("v6_wkv_gn", "ai00_server_tpu_torch/csrc/v6_decode.cu",
+     "ai00_server_tpu/ops/v6_decode_pallas.py:236"),
+    ("v6_wkv_gn (v5)", "ai00_server_tpu_torch/csrc/v6_decode.cu",
+     "ai00_server_tpu/ops/v5_decode_pallas.py:213"),
+)
+
+
+def head_row(row: str, N: int) -> str:
+    """The kernels line's name of ``row`` at head size N."""
+    return (f"{row[:-1]}, N={N})" if row.endswith(")")
+            else f"{row} (N={N})")
+
+
+def start_head_build() -> dict:
+    """The WKV sources for every N of HEAD_SIZES, built in a thread (one
+    ``nvcc`` each, all started together) while phases 2 and 3 run;
+    :func:`join_head_build` waits for them."""
+    import threading
+
+    from ai00_server_tpu_torch.ops import _build
+
+    box = {"started": time.monotonic()}
+
+    def run():
+        try:
+            _build.build_all(heads=tuple(HEAD_SIZES))
+        except Exception as e:  # noqa: BLE001 - reported by the join
+            box["error"] = e
+        box["seconds"] = time.monotonic() - box["started"]
+
+    box["thread"] = threading.Thread(target=run, daemon=True)
+    box["thread"].start()
+    return box
+
+
+def join_head_build(box: dict) -> None:
+    """Waits for :func:`start_head_build`'s thread; fails on its error and
+    prints its time and each kernel's registers and spills."""
+    from ai00_server_tpu_torch.ops import _build
+
+    t0 = time.monotonic()
+    box["thread"].join()
+    if "error" in box:
+        fail(f"the head-size build failed: {box['error']}")
+    print(f"built the WKV sources {list(_build.HEAD_SOURCES)} for head "
+          f"sizes {list(HEAD_SIZES)} in {box['seconds']:.1f} s beside phases "
+          f"2-3 (waited {time.monotonic() - t0:.1f} s for them)", flush=True)
+    for name, info in sorted(_build.ptxas_info.items()):
+        if "(N=" not in name:
+            continue
+        fn = None
+        for line in info.splitlines():
+            if "Compiling entry function" in line:
+                fn = line.split("'")[1][:48]
+            if "registers" in line or ("spill" in line and
+                                       " 0 bytes spill stores" not in line):
+                print(f"  {name} {fn}: {line.strip()}", flush=True)
+
+
+def head_wkv_case(kind: str, B: int, H: int, N: int, dev, seed: int,
+                  T: int = 1):
+    """(kernel, plain, args without the state and mask, bytes besides the
+    state, operations per state element and step) of a WKV kernel at head
+    size N: "wkv7_t1", "wkv56_t1", "wkv56_t1 static", "wkv7_chunk",
+    "wkv56_chunk"; f32 vectors, T steps for the chunks."""
+    import torch
+
+    from ai00_server_tpu_torch.ops import wkv_chunk, wkv_t1
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    shape = (B, H, N) if T == 1 and "chunk" not in kind else (B, T, H, N)
+    if kind.startswith("wkv7"):
+        _, seqs = wkv_inputs(gen, B, T, H, N, dev)
+        seqs = [x[:, 0].contiguous() for x in seqs] if "t1" in kind else seqs
+        kernel, plain = ((wkv_t1.wkv7_t1, wkv_t1.wkv7_t1_plain)
+                         if "t1" in kind else
+                         (wkv_chunk.wkv7_chunk, wkv_chunk.wkv7_chunk_plain))
+        return kernel, plain, list(seqs), nbytes(*seqs), 9
+
+    def rnd(*s, scale=1.0):
+        return torch.randn(*s, generator=gen, device=dev) * scale
+
+    r, k, v = (rnd(*shape, scale=0.3) for _ in range(3))
+    w = torch.exp(-torch.exp(rnd(*((H, N) if "static" in kind else shape),
+                                 scale=0.5)))
+    u = rnd(H, N, scale=0.5)
+    kernel, plain = ((wkv_t1.wkv56_t1, wkv_t1.wkv56_t1_plain)
+                     if "t1" in kind else
+                     (wkv_chunk.wkv56_chunk, wkv_chunk.wkv56_chunk_plain))
+    return kernel, plain, [r, k, v, w, u], nbytes(r, k, v, w, u), 7
+
+
+def head_splits(kind: str, N: int):
+    """The splits of a head the kernel takes at N, and the module attribute
+    (the plan) that picks one."""
+    from ai00_server_tpu_torch.ops import wkv_chunk, wkv_t1
+
+    if "chunk" in kind:
+        return wkv_chunk.splits(N), (wkv_chunk, "plan")
+    return wkv_t1.splits(N), (wkv_t1, "plan56" if "56" in kind else "plan")
+
+
+def head_held(kind: str, B: int, H: int, N: int, dev, T: int) -> float:
+    """The kernel against its plain version at every split of a head
+    (the plan forced), row 1 idle (its state bit for bit), T steps for the
+    chunks with a masked step inside row 0: the worst max abs error."""
+    import torch
+
+    kernel, plain, args, _, _ = head_wkv_case(kind, B, H, N, dev,
+                                              SEED + 60 + N + B, T)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 61 + N)
+    S = torch.randn(B, H, N, N, generator=gen, device=dev)
+    if "chunk" in kind:
+        mask = torch.ones(B, T, dtype=torch.bool, device=dev)
+        mask[0, T // 3] = False
+    else:
+        mask = torch.ones(B, dtype=torch.bool, device=dev)
+    mask[1] = False
+    S_p, y_p = plain(S, *args, mask)
+    splits, (mod, attr) = head_splits(kind, N)
+    planned, worst = getattr(mod, attr), 0.0
+    try:
+        for s in splits:
+            setattr(mod, attr, lambda *a, s=s: s)
+            torch.cuda.synchronize()  # the one-step kernels read S first
+            S_k, y_k = kernel(S, *args, mask)
+            torch.cuda.synchronize()
+            what = f"{kind} N={N} B={B} H={H} ({s} block(s) a head)"
+            for got, want, part in ((S_k, S_p, "state"), (y_k, y_p, "y")):
+                err, rel = rel_err(got, want)
+                check(rel <= KERNEL_TOL, f"{what} {part} disagrees with its "
+                      f"plain version: {rel:.3e} of max(1, |plain|)")
+                worst = max(worst, err)
+            check(torch.equal(S_k[1], S[1]), f"{what} changed an idle row")
+    finally:
+        setattr(mod, attr, planned)
+    return worst
+
+
+def phase_head_kernels(dev, rows64: dict) -> dict:
+    """Every WKV kernel of HEAD_ROWS at each N of HEAD_SIZES (C = H N),
+    B = 8 and 64: held against its plain version at every split of a head
+    (the chunks at T = 64, a masked step inside), then timed with every row
+    active on states rotating past the L2 at the planned split (the chunks
+    at T = CHUNK, B = 8, and T = 64, B = 64), beside its bound and the
+    N = 64 row of phase 2.  Returns the kernels line's rows."""
+    import torch
+
+    rows = {}
+    for N, Cn in HEAD_SIZES.items():
+        H = Cn // N
+        for row, source, replaces in HEAD_ROWS:
+            t0 = time.monotonic()
+            name, worst, shapes = head_row(row, N), 0.0, {}
+            gn = "wkv_gn" in row
+            for B in HEAD_BS:
+                T = CHUNK if B == HEAD_BS[0] else 64
+                if gn:
+                    kind = "v7" if row == "v7_wkv_gn" else (
+                        "v5" if "(v5)" in row else "v6")
+                    for mode in (True, False):
+                        worst = max(worst, head_gn_held(kind, B, H, N, dev,
+                                                        mode))
+                    kernel, plain, _, vf, _, other = wkv_gn_case(
+                        kind, B, H, dev, SEED + 62 + N, True, N)
+                    flops, step = 9 * B * H * N * N, (vf,)
+                else:
+                    kind, tt = row, (T if "chunk" in row else 1)
+                    worst = max(worst, head_held(kind, B, H, N, dev,
+                                                 64 if tt > 1 else 1))
+                    if row == "wkv56_t1":
+                        worst = max(worst, head_held("wkv56_t1 static", B,
+                                                     H, N, dev, 1))
+                    kernel, plain, args, other, ops = head_wkv_case(
+                        kind, B, H, N, dev, SEED + 63 + N, tt)
+                    mask = torch.ones((B, tt) if tt > 1 else (B,),
+                                      dtype=torch.bool, device=dev)
+                    step = (*args, mask)
+                    other += mask.numel() + B * tt * H * N * 4  # + y
+                    flops = ops * B * tt * H * N * N
+                state_bytes = B * H * N * N * 4
+                n = max(3, int(2 * L2_BYTES // state_bytes) + 1)
+                gen = torch.Generator(device=dev)
+                gen.manual_seed(SEED + 64 + N)
+                states = [torch.randn(B, H, N, N, generator=gen, device=dev)
+                          for _ in range(n)]
+                iters = 20 if "chunk" in row else 100
+                ms = device_ms(rotating(lambda i: kernel(states[i], *step),
+                                        n), max(iters, n))
+                b_ms, b_by = bound(2 * state_bytes + other, flops)
+                shapes[B] = {"ms": ms, "bound_ms": b_ms, "bound_by": b_by}
+                if B == HEAD_BS[0]:
+                    plain_ms = device_ms(
+                        lambda: plain(states[0], *step), 1 if "chunk" in row
+                        else 20, replays=3)
+                del states
+            r64 = rows64.get(row, {})
+            b8, b64 = shapes[HEAD_BS[0]], shapes[HEAD_BS[-1]]
+            rows[name] = {
+                "name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": 0, "max_abs_err": worst,
+                "ms": b8["ms"], "plain_ms": plain_ms,
+                "bound_ms": b8["bound_ms"], "bound_by": b8["bound_by"],
+                "library_ms": None, "b64": b64, "H": H,
+            }
+            t_desc = ("T=256 at B=8, T=64 at B=64" if "chunk" in row
+                      else "T=1")
+            held_at = "in both modes" if gn else "at every split"
+            print(f"{name} H={H} C={Cn} ({t_desc}): held {held_at}, "
+                  f"B={HEAD_BS[0]} and {HEAD_BS[-1]}, row 1 idle: max_abs_err "
+                  f"{worst:.3e} (tolerance {KERNEL_TOL} x max(1, |plain|) on "
+                  f"f32, {BF16_TOL:.2e} on bf16 outputs); idle row "
+                  f"bit-identical; B={HEAD_BS[0]} {b8['ms']:.5f} ms (bound "
+                  f"{b8['bound_ms']:.5f} by {b8['bound_by']}; plain "
+                  f"{plain_ms:.5f}), B={HEAD_BS[-1]} {b64['ms']:.5f} ms "
+                  f"(bound {b64['bound_ms']:.5f}); N=64 row "
+                  + (f"{r64['ms']:.5f} ms (bound {r64['bound_ms']:.5f})"
+                     if r64 else "-")
+                  + f"; {time.monotonic() - t0:.1f} s", flush=True)
+            torch.cuda.empty_cache()
+    return rows
+
+
+def head_gn_held(kind: str, B: int, H: int, N: int, dev,
+                 mode: bool) -> float:
+    """A decode WKV stage (``wkv_gn_case``) at head size N against its plain
+    version and its mirror, row 1 idle: the worst max abs error."""
+    import torch
+
+    kernel, plain, mirror, vf, active, _ = wkv_gn_case(
+        kind, B, H, dev, SEED + 65 + N + B, mode, N)
+    active[1] = False
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 66 + B)
+    S = torch.randn(B, H, N, N, generator=gen, device=dev)
+    S_k = S.clone()
+    vf_k = None if vf is None else vf.clone()
+    want, S_want, vf_want = plain(S, vf)  # between: S is read
+    got_m, S_m, _ = mirror(S, vf)         # before the wait
+    got = kernel(S_k, vf_k)
+    torch.cuda.synchronize()
+    what, worst = f"{kind}_wkv_gn N={N} H={H} B={B} (mode {mode})", 0.0
+    wide = kind == "v7" and B > MAX_BATCH
+    for a, b, tol, ref in (
+            (got, want, BF16_TOL, "plain version"),
+            (S_k, S_want, V7_WIDE_STATE_TOL if wide else KERNEL_TOL,
+             "plain version"),
+            (got, got_m, BF16_TOL, "mirror"),
+            (S_k, S_m, KERNEL_TOL, "mirror")):
+        err, rel = rel_err(a.float(), b.float())
+        check(rel <= tol, f"{what} disagrees with its {ref}: {err:.3e}")
+        worst = max(worst, err)
+    check(torch.equal(S_k[1], S[1]), f"{what} changed an idle row's state")
+    if vf is not None:
+        check(torch.equal(vf_k, vf_want), f"{what} v_first")
+    return worst
+
+
+def head_info(version: str, N: int, num_layer: int = 2,
+              vocab: int = PHASED_VOCAB):
+    """A model of head size N at HEAD_SIZES[N]'s width: FFN 4 C (v7) or
+    int(3.5 C) // 32 * 32 (v6, v5: RWKV-LM's x052 / x060)."""
+    from ai00_server_tpu_torch.models.info import ModelInfo, ModelVersion
+
+    Cn = HEAD_SIZES[N]
+    F = 4 * Cn if version == "v7" else int(3.5 * Cn) // 32 * 32
+    return ModelInfo(version=ModelVersion(version.upper()),
+                     num_layer=num_layer, num_emb=Cn, num_hidden=F,
+                     num_vocab=vocab, num_head=Cn // N, head_size=N)
+
+
+def phase_head_parity(dev) -> dict:
+    """v7, v6 and v5 at every N of HEAD_SIZES, 2 layers, f32: a ragged
+    prefill (T = 40) and three decode steps (row 2 idle) on the layer path
+    and on the fused stack (eager ``forward_t1``), each on the card against
+    the same path on the CPU (MODEL_TOL), the idle row's state bit for bit;
+    at N = 128 also the phased stack at B = 16 in bf16 (``forward_t1``
+    against ``forward_t1_plain`` on the card at BF16_MODEL_TOL, every launch
+    in lockstep with its plain version).  The WKV kernels' launches on
+    these paths, by the kernels line's row names."""
+    import numpy as np
+    import torch
+
+    from ai00_server_tpu_torch.loader import stack_params
+    from ai00_server_tpu_torch.models import get_version_module
+    from ai00_server_tpu_torch.ops import fused_decode, wkv_chunk, wkv_t1
+    from ai00_server_tpu_torch.ops import v6_decode as fd6
+    from ai00_server_tpu_torch.ops import v7_decode as fd7
+    from ai00_server_tpu_torch.testing import make_raw_weights
+
+    counted = {"wkv7_t1": wkv_t1.wkv7_t1, "wkv7_chunk": wkv_chunk.wkv7_chunk,
+               "wkv56_t1": wkv_t1.wkv56_t1,
+               "wkv56_chunk": wkv_chunk.wkv56_chunk,
+               "v7_wkv_gn": fd7.v7_wkv_gn, "v6_wkv_gn": fd6.v6_wkv_gn}
+    launches = {}
+    rng = np.random.default_rng(SEED + 70)
+    B, T = 4, 40
+    lengths = np.array([40, 33, 1, 0], np.int32)
+    steps = [(rng.integers(1, PHASED_VOCAB, (B, T)), lengths)] + [
+        (rng.integers(1, PHASED_VOCAB, (B, 1)),
+         np.array([1, 1, 0, 1], np.int32)) for _ in range(3)]
+
+    def counts(version):
+        got = {}
+        for name, k in counted.items():
+            row = "v6_wkv_gn (v5)" if (name == "v6_wkv_gn"
+                                       and version == "v5") else name
+            got[row] = k.launches
+        return got
+
+    for N in HEAD_SIZES:
+        for version in ("v7", "v6", "v5"):
+            t0 = time.monotonic()
+            info = head_info(version, N)
+            module = get_version_module(info.version)
+            fd = fused_decode.module_for(info.version.value)
+            math = make_raw_weights(info, seed=SEED + N, dtype=np.float32,
+                                    lora_dims=lora_dims(version))
+            if version != "v7":
+                math = fan_in_scaled(math)
+            cpu = stack_params(info, math, dtype=torch.float32, device="cpu")
+            check(fd.can_fuse(cpu), f"the {version} N={N} model does not "
+                  "fuse")
+            params = {"cpu": cpu, dev: params_to(cpu, dev)}
+
+            def run(p, d):
+                state = module.init_state(info, B, device=d)
+                outs = []
+                for toks, lens in steps:
+                    lt = torch.as_tensor(lens, device=d)
+                    h, new = module.forward(p, state,
+                                            torch.as_tensor(toks, device=d),
+                                            lt)
+                    if new is not state:
+                        for k, t in state.items():
+                            t.copy_(new[k])
+                    outs.append((h.float().cpu(),
+                                 {k: t.cpu().clone()
+                                  for k, t in state.items()}))
+                return outs
+
+            line = []
+            for how in ("layer", "fused"):
+                p = {d: (q if how == "layer" else
+                         {**q, fd.FUSED_KEY: fd.make_fused_layout(q)})
+                     for d, q in params.items()}
+                ref = run(p["cpu"], "cpu")
+                for k in counted.values():
+                    k.launches = 0
+                got = run(p[dev], dev)
+                torch.cuda.synchronize()
+                for row, n in counts(version).items():
+                    key = head_row(row, N)
+                    launches[key] = launches.get(key, 0) + n
+                worst = 0.0
+                for (toks, lens), (h, st), (h_r, st_r) in zip(steps, got,
+                                                              ref):
+                    m = (torch.arange(toks.shape[1])[None, :]
+                         < torch.as_tensor(lens)[:, None])
+                    for a, b in [(h[m], h_r[m])] + [(st[k], st_r[k])
+                                                    for k in st_r]:
+                        check(bool(torch.isfinite(a).all()),
+                              f"{version} N={N} {how}: non-finite output")
+                        worst = max(worst, float((a.double() - b.double())
+                                                 .abs().max())
+                                    / max(float(b.abs().max()), 1e-6))
+                check(worst <= MODEL_TOL, f"{version} N={N} {how} path: card "
+                      f"and CPU disagree, {worst:.3e} > {MODEL_TOL}")
+                for k, t in got[0][1].items():
+                    check(torch.equal(got[-1][1][k][:, 2], t[:, 2]),
+                          f"{version} N={N} {how} path changed an idle row")
+                line.append(f"{how} {worst:.3e}")
+            phased = ""
+            if N == max(HEAD_SIZES):
+                phased = head_phased(dev, info, math, version, launches)
+            print(f"head-size parity {version} N={N} (C={info.num_emb}, "
+                  f"H={info.num_head}, 2 layers, f32, ragged prefill T={T} + "
+                  f"3 decode steps, row 2 idle): max |card - cpu| / max "
+                  f"|cpu| {', '.join(line)} (tolerance {MODEL_TOL}); idle "
+                  f"row bit-identical{phased}; {time.monotonic() - t0:.1f} s",
+                  flush=True)
+            del params, math
+            gc.collect()
+            torch.cuda.empty_cache()
+    return launches
+
+
+def head_phased(dev, info, math, version: str, launches: dict) -> str:
+    """The phased stack of a bf16 model at B = 16 on the card: three decode
+    steps from a ragged prefill, ``forward_t1`` against
+    ``forward_t1_plain`` (BF16_MODEL_TOL) and in lockstep; adds its WKV
+    launches to ``launches``.  A line for the printout."""
+    import numpy as np
+    import torch
+
+    from ai00_server_tpu_torch.loader import stack_params
+    from ai00_server_tpu_torch.models import get_version_module
+    from ai00_server_tpu_torch.ops import fused_decode
+    from ai00_server_tpu_torch.ops import v6_decode as fd6
+    from ai00_server_tpu_torch.ops import v7_decode as fd7
+
+    B, N = PHASED_BS[0], info.head_size
+    module = get_version_module(info.version)
+    p16 = stack_params(info, math, dtype=torch.bfloat16, device=dev)
+    fd = fused_decode.module_for(info.version.value)
+    p16[fd.FUSED_KEY] = fd.make_fused_layout(p16)
+    pd = fused_decode.stack_for(info.version.value, p16, B)
+    check(pd is not None and pd is not fd,
+          f"the {version} N={N} model does not take a phased stack at B={B}")
+    rng = np.random.default_rng(SEED + 71)
+    lens = rng.integers(1, 9, B).astype(np.int32)
+    lens[2] = 0
+    _, s0 = module.forward(
+        p16, module.init_state(info, B, device=dev),
+        torch.as_tensor(rng.integers(1, info.num_vocab, (B, 8)), device=dev),
+        torch.as_tensor(lens, device=dev))
+    l1 = np.ones(B, np.int32)
+    l1[2] = 0
+    steps = [rng.integers(1, info.num_vocab, (B, 1)) for _ in range(3)]
+
+    def decode(fwd) -> list:
+        state = {k: t.clone() for k, t in s0.items()}
+        outs = []
+        for t1 in steps:
+            h = fwd(p16, state, torch.as_tensor(t1, device=dev),
+                    torch.as_tensor(l1, device=dev))[0]
+            outs.append([h[l1 > 0].float().clone()]
+                        + [state[k].clone() for k in s0])
+        return outs
+
+    gn = fd7.v7_wkv_gn if version == "v7" else fd6.v6_wkv_gn
+    gn.launches = 0
+    got = decode(pd.forward_t1)
+    torch.cuda.synchronize()
+    row = head_row({"v7": "v7_wkv_gn", "v6": "v6_wkv_gn",
+                    "v5": "v6_wkv_gn (v5)"}[version], N)
+    launches[row] = launches.get(row, 0) + gn.launches
+    plain = decode(pd.forward_t1_plain)
+    per_step = [max(float((a.double() - b.double()).abs().max())
+                    / max(float(b.abs().max()), 1e-6) for a, b in zip(o, r))
+                for o, r in zip(got, plain)]
+    check(max(per_step) <= BF16_MODEL_TOL,
+          f"the phased {version} N={N} stack at B={B} and forward_t1_plain "
+          f"disagree: {per_step}")
+    for i, k in enumerate(s0):
+        check(torch.equal(got[-1][1 + i][:, 2], s0[k][:, 2]),
+              f"the phased {version} N={N} stack changed an idle row")
+    lock = {}
+    decode(functools.partial(pd._forward, lockstep(
+        pd._OPS, pd._PLAIN_OPS, lock,
+        {"wkv_gn": V7_WIDE_STATE_TOL} if version == "v7" else {})))
+    check(max(lock.values()) <= 1.0,
+          f"a launch of the phased {version} N={N} stack at B={B} "
+          f"disagrees with its plain version: {lock}")
+    return (f"; phased stack bf16 B={B}: max |kernels - plain| / max "
+            f"|plain| per step " + " / ".join(f"{x:.3e}" for x in per_step)
+            + f" (tolerance {BF16_MODEL_TOL}), in lockstep worst error / "
+            "tolerance " + ", ".join(f"{k} {v:.3g}" for k, v in lock.items()))
+
+
+def write_site_head(tmp: Path):
+    """The random RWKV-7 of head size 128 (H = 8) at the 0.4B width, L128
+    layers (f16 on disk), and its bf16 config, beside the vocabulary
+    ``write_site`` left in ``tmp``."""
+    import numpy as np
+
+    from ai00_server_tpu_torch.loader import save_safetensors
+    from ai00_server_tpu_torch.testing import (make_raw_weights,
+                                               to_converted_layout)
+
+    t0 = time.monotonic()
+    N = max(HEAD_SIZES)
+    raw = make_raw_weights(head_info("v7", N, L128, VOCAB), seed=SEED,
+                           dtype=np.float32, lora_dims=LORA)
+    conv = to_converted_layout(raw)
+    del raw
+    path = tmp / f"rwkv7-0.4b-n{N}.st"
+    save_safetensors(conv, str(path))
+    del conv
+    cfg = tmp / "Config-v7-n128.toml"
+    cfg.write_text(f"""
+[model]
+name = "{path.name}"
+path = "{tmp}"
+max_batch = {MAX_BATCH}
+token_chunk_size = {CHUNK}
+precision = "Fp16"
+quant = 0
+prewarm = false
+
+[tokenizer]
+path = "{tmp / 'vocab.json'}"
+
+[listen]
+ip = "127.0.0.1"
+port = 0
+""")
+    print(f"wrote the random {L128}-layer v7 0.4B-width checkpoint of head "
+          f"size {N} (H={HEAD_SIZES[N] // N}; "
+          f"{path.stat().st_size / 1e9:.2f} GB) in "
+          f"{time.monotonic() - t0:.1f} s", flush=True)
+    return cfg, path
 
 
 # The layer path's WKV kernels at the shapes a tp place gives them
@@ -3510,13 +4055,18 @@ SERVED_FAMILIES = {"v6 bf16": (0, "Int8"), "v5 bf16": (0, "Int8"),
 # max_batch = WIDE_BATCH: the phased stacks under their graphs, with a burst
 # of WIDE_BATCH concurrent completions.  v7 with every layer int8, v5 bf16.
 SERVED_WIDE = {"int8 wide": (L_FULL, "Int8"), "v5 bf16 wide": (0, "Int8")}
-ALL_SERVED = {**SERVED, **SERVED_FAMILIES, **SERVED_WIDE}
+# RWKV-7 of head size 128 (H = 8) at the 0.4B width, L128 layers, bf16.
+HEAD_SERVED = "v7 N=128 bf16"
+ALL_SERVED = {**SERVED, **SERVED_FAMILIES, **SERVED_WIDE,
+              HEAD_SERVED: (0, "Int8")}
 WIDE_TOKENS = 48  # per completion of the wide burst
-MIXED_TOKENS = 16  # per completion on the (eager, host-bound) layer path
+MIXED_TOKENS = 8  # per completion on the (eager, host-bound) layer path
 
 
 def served_layers(kind: str) -> int:
     """The depth of a served kind's checkpoint."""
+    if kind == HEAD_SERVED:
+        return L128
     family = kind[:2]
     return {"v6": L6, "v5": L54, "v4": L54}.get(family, L_FULL)
 
@@ -4813,10 +5363,11 @@ def print_wide(label: str, stacks: dict) -> None:
 # partial sums added, the vocab slices of the head gathered.
 MESHES = ((2, 1), (1, 2), (2, 2))
 MESH_TOKENS = 16   # greedy tokens of the parity chunk and each completion
-# The v7 [2, 2] server's depth: the first 12 of the 24-layer checkpoint's
-# layers, which leaves the time limit room for the RWKV-6 / -5 / -4 tp
-# cases and the v6 [2, 2] server.
-MESH_SERVE_LAYERS = L_FULL // 2
+# The v7 [2, 2] server's depth: the first 6 of the 24-layer checkpoint's
+# layers (12 until the head-size phase came), which leaves the time limit
+# room for the RWKV-6 / -5 / -4 tp cases, the v6 [2, 2] server and the
+# head-size phase.
+MESH_SERVE_LAYERS = L_FULL // 4
 MESH_CHUNK = 64    # the parity prefill's token_chunk_size
 MESH_LENGTHS = (64, 40, 17, 1, 64, 33, 8, 50)  # the parity prompts' tokens
 
@@ -5886,6 +6437,7 @@ def main() -> None:
         for line in info.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
+    head_build = start_head_build()
 
     sass_loads()
 
@@ -5911,16 +6463,32 @@ def main() -> None:
     print(f"phase 3 (parity) {time.monotonic() - t0:.1f} s", flush=True)
 
     t0 = time.monotonic()
+    join_head_build(head_build)
+    head_rows = phase_head_kernels(dev, rows)
+    head_launches = phase_head_parity(dev)
+    print(f"phase 3b (head sizes {list(HEAD_SIZES)}) "
+          f"{time.monotonic() - t0:.1f} s", flush=True)
+
+    t0 = time.monotonic()
     tmp_root = ROOT / "chip_smoke_tmp"
     tmp_root.mkdir(exist_ok=True)
+    # The RWKV-6 / -5 / -4 and head-size checkpoints are written one after
+    # the other on a thread of their own (host work: numpy and the disk),
+    # each while the models before it are served; at most two on disk.
+    writer = ThreadPoolExecutor(max_workers=1)
     try:
         with tempfile.TemporaryDirectory(dir=tmp_root) as tmp:
+            writes = [functools.partial(write_site_family, Path(tmp), v)
+                      for v in ("v6", "v5", "v4")]
+            writes.append(functools.partial(write_site_head, Path(tmp)))
             cfgs = write_site(Path(tmp))
+            pending = writer.submit(writes[0])
             served = {kind: timed_serve(cfgs[kind], kind) for kind in cfgs}
             mesh_flow(dev, cfgs["bf16"])
             (Path(tmp) / "rwkv7-0.4b.st").unlink()
-            for version in ("v6", "v5", "v4"):
-                cfgs, path = write_site_family(Path(tmp), version)
+            for i, version in enumerate(("v6", "v5", "v4")):
+                cfgs, path = pending.result()
+                pending = writer.submit(writes[i + 1])
                 served.update({kind: timed_serve(cfgs[kind], kind)
                                for kind in cfgs})
                 if version == "v6":  # RWKV-6 tensor parallel over HTTP
@@ -5930,7 +6498,11 @@ def main() -> None:
                     print_mesh_served("v6", mesh_v6, L6,
                                       time.monotonic() - t1)
                 path.unlink()
+            cfg, path = pending.result()
+            served[HEAD_SERVED] = timed_serve(cfg, HEAD_SERVED)
+            path.unlink()
     finally:
+        writer.shutdown(wait=True)
         shutil.rmtree(tmp_root, ignore_errors=True)
     t1 = time.monotonic()
     wide_29 = phase_wide_stacks(dev)
@@ -5976,6 +6548,17 @@ def main() -> None:
                                        "phased_matmul (int8)"})):
         for row, counter in names.items():
             rows[row]["launches"] = served[kind]["launches"][counter]
+    # The WKV kernels at the other head sizes: the launches of the head-size
+    # parity's layer, fused and phased paths, and at N = 128 the served
+    # model's prefill chunks and fused decode steps.
+    n_top = max(HEAD_SIZES)
+    for row in ("wkv7_chunk", "v7_wkv_gn"):
+        head_launches[head_row(row, n_top)] = \
+            served[HEAD_SERVED]["launches"][row]
+    for name, row in head_rows.items():
+        row["launches"] = head_launches.get(name, 0)
+        check(row["launches"] > 0, f"no model path launched {name}")
+    rows.update(head_rows)
     # phased_matmul on bf16 weights at v7's widths: the int8 burst's LoRA
     # launches.  On int4 codes: no served model holds them; its model path
     # is the parity phase's int4 2.9B phased stacks.
@@ -6138,6 +6721,15 @@ def main() -> None:
                   f"{st['bound_ms']:.5f} ms by {st['bound_by']} "
                   f"({st['bytes'] / 1e6:.1f} MB); {overlap_text(st)}",
                   flush=True)
+    st = served[HEAD_SERVED]["stack"]
+    print(f"forward_t1, {L128} layers {HEAD_SERVED} B={MAX_BATCH}, all rows "
+          f"active: {st['replay_ms']:.5f} ms per graph replay "
+          f"({st['kernels_per_replay']} kernels; "
+          f"{st['bytes'] / st['replay_ms'] / 1e6:.0f} GB/s), "
+          f"{st['eager_ms']:.3f} ms launched eagerly from Python, "
+          f"{st['plain_ms']:.3f} ms as plain versions; bound "
+          f"{st['bound_ms']:.5f} ms by {st['bound_by']} "
+          f"({st['bytes'] / 1e6:.1f} MB); {overlap_text(st)}", flush=True)
     # The phased stacks served at max_batch = WIDE_BATCH; their bf16 error
     # is the parity phase's at the same B (v7: the 2.9B int8 stack).
     for kind, version, label, replaces in (

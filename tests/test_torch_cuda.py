@@ -82,7 +82,7 @@ def test_wkv7_t1_kernel_matches_plain(dev, monkeypatch, B, vec, slices):
     plain version and 1e-5 of the mirror, idle rows bit for bit."""
     from ai00_server_tpu_torch.ops import wkv_t1
 
-    monkeypatch.setattr(wkv_t1, "plan", lambda B, H, sms: slices)
+    monkeypatch.setattr(wkv_t1, "plan", lambda *a: slices)
     S, vecs, mask = _t1_case(dev, B, 3, 10 * B + slices, T1_VEC_DTYPES[vec])
     before = wkv7_t1.launches
     S_k, y_k = wkv7_t1(S, *vecs, mask)
@@ -180,7 +180,7 @@ def _ragged_mask(dev, B, T):
 @pytest.mark.parametrize("floor", [False, True])
 @pytest.mark.parametrize("B,T", [(4, 5), (4, 40), (1, 40)])
 def test_wkv7_chunk_kernel_every_split(dev, monkeypatch, slices, floor, B, T):
-    monkeypatch.setattr(wkv_chunk, "plan", lambda B, H, sms: slices)
+    monkeypatch.setattr(wkv_chunk, "plan", lambda *a: slices)
     gen = torch.Generator(device=dev).manual_seed(10 * T + slices)
     S, seqs = _inputs(gen, dev, B, T, 3)
     if floor:
@@ -219,7 +219,7 @@ def _chunk56_inputs(gen, dev, B, T, H, decay):
 @pytest.mark.parametrize("B,T", [(4, 5), (4, 40), (1, 40)])
 def test_wkv56_chunk_kernel_every_split(dev, monkeypatch, slices, decay, B,
                                         T):
-    monkeypatch.setattr(wkv_chunk, "plan", lambda B, H, sms: slices)
+    monkeypatch.setattr(wkv_chunk, "plan", lambda *a: slices)
     gen = torch.Generator(device=dev).manual_seed(20 * T + slices)
     S, seqs, u = _chunk56_inputs(gen, dev, B, T, 3, decay)
     mask = (_ragged_mask(dev, B, T) if B > 2
@@ -238,9 +238,11 @@ def test_wkv56_chunk_kernel_every_split(dev, monkeypatch, slices, decay, B,
         assert torch.equal(S_k[-1], S[-1])
 
 def test_kernel_refuses_other_head_sizes(dev):
-    S = torch.zeros(1, 1, 32, 32, device=dev)
-    v = torch.zeros(1, 1, 32, device=dev)
-    with pytest.raises(ValueError, match="head size 64"):
+    """A head size outside N % 8 == 0, 8 <= N <= 128 (the sizes the kernels
+    are built for; ``tests/test_torch_cuda_heads.py`` holds the others)."""
+    S = torch.zeros(1, 1, 36, 36, device=dev)
+    v = torch.zeros(1, 1, 36, device=dev)
+    with pytest.raises(ValueError, match="head size 36"):
         wkv7_t1(S, v, v, v, v, v, v, torch.ones(1, dtype=torch.bool,
                                                 device=dev))
 
@@ -467,11 +469,11 @@ def test_forward_t1_kernels_graph_and_plain_agree(dev, dtype):
 
 
 def test_v7_decode_kernels_refuse_what_they_do_not_take(dev):
-    z = torch.zeros(2, 32, device=dev)
-    with pytest.raises(ValueError, match="head size 64"):
-        fd.v7_wkv_gn(z, z, z, z, z, z, z, z, torch.zeros(8, 32, device=dev),
+    z = torch.zeros(2, 36, device=dev)
+    with pytest.raises(ValueError, match="head size 36"):
+        fd.v7_wkv_gn(z, z, z, z, z, z, z, z, torch.zeros(8, 36, device=dev),
                      torch.ones(2, dtype=torch.bool, device=dev),
-                     torch.zeros(2, 1, 32, 32, device=dev), True,
+                     torch.zeros(2, 1, 36, 36, device=dev), True,
                      torch.float32)
     x = torch.zeros(2, 16, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="multiple of 2"):
@@ -1068,7 +1070,7 @@ def test_wkv56_t1_kernel_every_split(dev, monkeypatch, B, vec, slices,
     mirror, idle rows bit for bit."""
     from ai00_server_tpu_torch.ops import wkv_t1
 
-    monkeypatch.setattr(wkv_t1, "plan56", lambda B, H, sms: slices)
+    monkeypatch.setattr(wkv_t1, "plan56", lambda *a: slices)
     S, vecs, mask = _t1_56_case(dev, B, 3, 10 * B + slices,
                                 T1_56_DTYPES[vec], static)
     before = wkv56_t1.launches
@@ -1343,15 +1345,15 @@ def test_v6_forward_t1_kernels_graph_and_plain_agree(dev, dtype, quant):
 
 
 def test_v6_kernels_refuse_what_they_do_not_take(dev):
-    z = torch.zeros(2, 32, device=dev)
+    z = torch.zeros(2, 36, device=dev)
     act = torch.ones(2, dtype=torch.bool, device=dev)
-    with pytest.raises(ValueError, match="head size 64"):
-        fd6.v6_wkv_gn(z, z, z, z, z, torch.zeros(6, 32, device=dev), act,
-                      torch.zeros(2, 1, 32, 32, device=dev), torch.float32)
-    S = torch.zeros(1, 1, 32, 32, device=dev)
-    v = torch.zeros(1, 1, 32, device=dev)
-    with pytest.raises(ValueError, match="head size 64"):
-        wkv56_t1(S, v, v, v, v, torch.zeros(1, 32, device=dev), act[:1])
+    with pytest.raises(ValueError, match="head size 36"):
+        fd6.v6_wkv_gn(z, z, z, z, z, torch.zeros(4, 36, device=dev), act,
+                      torch.zeros(2, 1, 36, 36, device=dev), torch.float32)
+    S = torch.zeros(1, 1, 36, 36, device=dev)
+    v = torch.zeros(1, 1, 36, device=dev)
+    with pytest.raises(ValueError, match="head size 36"):
+        wkv56_t1(S, v, v, v, v, torch.zeros(1, 36, device=dev), act[:1])
     x = torch.zeros(2, 64, device=dev, dtype=torch.bfloat16)
     W = torch.zeros(64, 64, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="needs xa, dx and mix"):

@@ -332,8 +332,9 @@ def test_stack_for_mixed_and_small_heads_take_the_layer_path():
     mixed = params_from_numpy(jax.tree.map(np.asarray, make_params(
         info, raw, dtype=np.float32, quant={0: "int8"})), "cpu")
     assert tfused.stack_for("V7", mixed, 12) is None
+    # a head size the kernels do not take (N % 8 == 0, 8 <= N <= 128)
     _, _, small = make_tiny_model(ModelVersion.V7, seed=1, dtype=np.float32,
-                                  num_layer=2, num_emb=64, head_size=16,
+                                  num_layer=2, num_emb=48, head_size=12,
                                   num_vocab=V)
     small = params_from_numpy(jax.tree.map(np.asarray, small), "cpu")
     assert not tpd.can_phase(small, 12)

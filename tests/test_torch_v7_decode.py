@@ -480,13 +480,14 @@ def test_forward_dispatches_on_the_layout(monkeypatch):
 
 
 def test_can_fuse_is_about_the_model():
-    info = tiny_info(ModelVersion.V7, num_layer=2, num_emb=64, head_size=16,
+    info = tiny_info(ModelVersion.V7, num_layer=2, num_emb=48, head_size=12,
                      num_vocab=V)
     raw = make_raw_weights(info, seed=1, dtype=np.float32)
     small_heads = params_from_numpy(
         jax.tree.map(np.asarray, make_params(info, raw, dtype=np.float32)),
         "cpu")
-    assert not tfd.can_fuse(small_heads)  # the kernels take head size 64
+    # the kernels take N % 8 == 0, 8 <= N <= 128
+    assert not tfd.can_fuse(small_heads)
     assert not tfd.can_fuse({"layers": []})
     assert tfused.module_for("V7") is tfd
     keys = {tfused.module_for(v).FUSED_KEY for v in ("V7", "V6", "V5",

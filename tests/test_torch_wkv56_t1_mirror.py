@@ -25,6 +25,7 @@ import jax.numpy as jnp
 import torch
 
 from ai00_server_tpu.ops.wkv_t1 import wkv56_t1 as j_t1
+from ai00_server_tpu_torch.ops import _build
 from ai00_server_tpu_torch.ops import wkv_t1 as tw
 from ai00_server_tpu_torch.testing import cpu_test_threads
 
@@ -36,7 +37,7 @@ JDT = {"f32": jnp.float32, "bf16": jnp.bfloat16}
 TDT = {"f32": torch.float32, "bf16": torch.bfloat16}
 
 
-def inputs(seed, B, H, vec, static):
+def inputs(seed, B, H, vec, static, N=N):
     """(S, [r, k, v, w, u] as f32 numpy rounded through ``vec``, mask with
     every third row idle from row 1).  ``w`` is (H, N) when ``static``."""
     rng = np.random.default_rng(seed)
@@ -104,20 +105,26 @@ def lane_replay(S, r):
     """The kernel's readout sum_k r_k S[k][v] in numpy f32, lane by lane:
     a thread of row group rg adds its rows 4 rg .. 4 rg + 3 in order, then
     every row group adds rg ^ 1, ^ 2, ^ 4, ^ 8 (lanes CG apart by shuffles,
-    then the warps in pairs: the same tree); every row group must end with
-    the same bits."""
-    p = (S * r[:, None]).astype(np.float32).reshape(16, 4, N)
+    then the warps in pairs: the same tree; 16 groups at N = 64,
+    head_tile(N) / 4 at another N, those past the head holding 0); every
+    row group must end with the same bits."""
+    n = S.shape[0]
+    rg = _build.head_tile(n) // 4
+    p = (S * r[:, None]).astype(np.float32).reshape(n // 4, 4, n)
     own = (((p[:, 0] + p[:, 1]).astype(np.float32) + p[:, 2])
            .astype(np.float32) + p[:, 3]).astype(np.float32)
-    groups = np.arange(16)
-    for off in (1, 2, 4, 8):
+    own = np.concatenate([own, np.zeros((rg - n // 4, n), np.float32)])
+    groups = np.arange(rg)
+    off = 1
+    while off < rg:
         own = (own + own[groups ^ off]).astype(np.float32)
+        off *= 2
     assert (own == own[:1]).all()
     return own[0]
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
-def test_mirror_readout_is_the_kernels_order(seed):
+def test_mirror_readout_is_the_kernels_order(seed, N=N):
     """With k = 0 the bonus drops out and y is the readout's sums r S
     alone: bit for bit the lane replay's."""
     rng = np.random.default_rng(seed)
@@ -126,7 +133,7 @@ def test_mirror_readout_is_the_kernels_order(seed):
     r = (rng.standard_normal((1, 1, N))
          * 2.0 ** rng.integers(-8, 8, (1, 1, N))).astype(np.float32)
     zeros, ones = np.zeros_like(r), np.ones_like(r)
-    for slices in (1, 2, 4):
+    for slices in tw.splits(N):
         _, y = tw.wkv56_t1_mirror(
             torch.from_numpy(S), *(torch.from_numpy(x) for x in
                                    (r, zeros, ones, ones, ones[0])),
@@ -173,3 +180,42 @@ def test_mirror_refuses_other_splits():
     with pytest.raises(ValueError, match="slices"):
         tw.wkv56_t1_mirror(S, v, v, v, v, v[0], torch.ones(1, dtype=bool),
                            slices=3)
+
+
+# Head sizes other than 64 (the kernel built with -DHEAD_N): 32, 40 (laid
+# out at 64: six of 16 row groups past the head) and 128.
+HEADS = (32, 40, 128)
+
+
+@pytest.mark.parametrize("static", [False, True], ids=["dense", "static"])
+@pytest.mark.parametrize("vec", ["f32", "bf16"])
+@pytest.mark.parametrize("N_,slices", [(n, s) for n in HEADS
+                                       for s in tw.splits(n)])
+def test_mirror_matches_jax_kernel_and_plain_at_other_head_sizes(
+        N_, slices, vec, static):
+    S, vecs, mask = inputs(N_ + slices, 3, 2, vec, static, N=N_)
+    S_j, y_j = jax_t1(S, vecs, mask, vec)
+    args = (torch.from_numpy(S), *(as_vec(x, vec) for x in vecs),
+            torch.from_numpy(mask))
+    S_m, y_m = tw.wkv56_t1_mirror(*args, slices=slices)
+    S_p, y_p = tw.wkv56_t1_plain(*args)
+    for S_ref, y_ref in ((np.asarray(S_j), np.asarray(y_j)),
+                         (S_p.numpy(), y_p.numpy())):
+        np.testing.assert_allclose(S_m.numpy(), S_ref, **TOL)
+        np.testing.assert_allclose(y_m.numpy(), y_ref, **TOL)
+    for b in np.flatnonzero(~mask):
+        np.testing.assert_array_equal(S_m[b].numpy(), S[b])
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("N_", HEADS)
+def test_mirror_readout_is_the_kernels_order_at_other_head_sizes(N_, seed):
+    test_mirror_readout_is_the_kernels_order(seed, N=N_)
+
+
+@pytest.mark.parametrize("N_,want", [(8, 2), (32, 2), (40, 4), (128, 4)])
+def test_plan56_at_other_head_sizes(N_, want):
+    """Four blocks a head where two SMs have a head, but at N <= 32, whose
+    head is 64 threads, two (a block at least a warp)."""
+    assert tw.plan56(1, 16, 132, N_) == want
+    assert tw.plan56(64, 16, 132, N_) == 1

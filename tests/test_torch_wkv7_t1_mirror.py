@@ -22,6 +22,7 @@ import jax.numpy as jnp
 import torch
 
 from ai00_server_tpu.ops.wkv_t1 import wkv7_t1 as j_t1
+from ai00_server_tpu_torch.ops import _build
 from ai00_server_tpu_torch.ops import wkv_t1 as tw
 from ai00_server_tpu_torch.testing import cpu_test_threads
 
@@ -33,7 +34,7 @@ JDT = {"f32": jnp.float32, "bf16": jnp.bfloat16}
 TDT = {"f32": torch.float32, "bf16": torch.bfloat16}
 
 
-def inputs(seed, B, H, vec):
+def inputs(seed, B, H, vec, N=N):
     """(S, vecs as f32 numpy rounded through ``vec``, mask with every
     third row idle from row 1)."""
     rng = np.random.default_rng(seed)
@@ -85,20 +86,27 @@ def test_mirror_splits_agree_bit_for_bit(B):
 def lane_replay(M, x):
     """The kernel's row sums of M . x in numpy f32, lane by lane: thread cq
     of a row group adds its columns 4 cq .. 4 cq + 3 in order, then every
-    lane adds lane ^ 1, ^ 2, ^ 4, ^ 8; every lane must end with the same
-    bits."""
-    p = (M * x[None, :]).astype(np.float32).reshape(M.shape[0], 16, 4)
+    lane adds lane ^ 1, ^ 2, ^ 4, ... (16 lanes at N = 64; head_tile(N) / 4
+    at another N, the lanes past the head holding 0); every lane must end
+    with the same bits."""
+    n = M.shape[1]
+    cq = _build.head_tile(n) // 4
+    p = (M * x[None, :]).astype(np.float32).reshape(M.shape[0], n // 4, 4)
     own = (((p[..., 0] + p[..., 1]).astype(np.float32) + p[..., 2])
            .astype(np.float32) + p[..., 3]).astype(np.float32)
-    lanes = np.arange(16)
-    for off in (1, 2, 4, 8):
+    own = np.concatenate(
+        [own, np.zeros((M.shape[0], cq - n // 4), np.float32)], axis=1)
+    lanes = np.arange(cq)
+    off = 1
+    while off < cq:
         own = (own + own[:, lanes ^ off]).astype(np.float32)
+        off *= 2
     assert (own == own[:, :1]).all()
     return own[:, 0]
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
-def test_mirror_row_sums_are_the_kernels_order(seed):
+def test_mirror_row_sums_are_the_kernels_order(seed, N=N):
     """With w = 1, k = 0 and a = 0 the step leaves S as it is, so y is the
     readout's row sums S r alone: bit for bit the lane replay's."""
     rng = np.random.default_rng(seed)
@@ -148,3 +156,46 @@ def test_mirror_refuses_other_splits():
     with pytest.raises(ValueError, match="slices"):
         tw.wkv7_t1_mirror(S, v, v, v, v, v, v, torch.ones(1, dtype=bool),
                           slices=3)
+
+
+# Head sizes other than 64 (the kernel built with -DHEAD_N): 32 (a head's
+# 64 threads), 40 (laid out at 64: six of a row group's 16 lanes past the
+# head) and 128 (32 lanes a row group).
+HEADS = (32, 40, 128)
+
+
+@pytest.mark.parametrize("vec", ["f32", "bf16"])
+@pytest.mark.parametrize("N_,slices", [(n, s) for n in HEADS
+                                       for s in tw.splits(n)])
+def test_mirror_matches_jax_kernel_at_other_head_sizes(N_, slices, vec):
+    S, vecs, mask = inputs(N_ + slices, 3, 2, vec, N=N_)
+    S_j, y_j = j_t1(jnp.asarray(S),
+                    *(jnp.asarray(x).astype(JDT[vec]) for x in vecs),
+                    jnp.asarray(mask), interpret=True)
+    S_m, y_m = tw.wkv7_t1_mirror(torch.from_numpy(S),
+                                 *(as_vec(x, vec) for x in vecs),
+                                 torch.from_numpy(mask), slices=slices)
+    np.testing.assert_allclose(S_m.numpy(), np.asarray(S_j), **TOL)
+    np.testing.assert_allclose(y_m.numpy(), np.asarray(y_j), **TOL)
+    S_p, y_p = tw.wkv7_t1_plain(torch.from_numpy(S),
+                                *(as_vec(x, vec) for x in vecs),
+                                torch.from_numpy(mask))
+    np.testing.assert_allclose(S_m.numpy(), S_p.numpy(), **TOL)
+    np.testing.assert_allclose(y_m.numpy(), y_p.numpy(), **TOL)
+    for b in np.flatnonzero(~mask):
+        np.testing.assert_array_equal(S_m[b].numpy(), S[b])
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("N_", HEADS)
+def test_mirror_row_sums_are_the_kernels_order_at_other_head_sizes(N_, seed):
+    test_mirror_row_sums_are_the_kernels_order(seed, N=N_)
+
+
+@pytest.mark.parametrize("N_,want", [(8, 1), (32, 1), (40, 4), (128, 4)])
+def test_plan_at_other_head_sizes(N_, want):
+    """Blocks of 64 threads where two SMs have a head (B = 1, H = 16; a
+    head of N <= 32 is 64 threads, of 128 is 1024), the splits the kernel
+    takes: a block at least a warp."""
+    assert tw.plan(1, 16, 132, N_) == want
+    assert tw.splits(N_) == ((1, 2) if N_ <= 32 else (1, 2, 4))

@@ -22,6 +22,7 @@ import torch
 
 from ai00_server_tpu.models.common import GN_EPS
 from ai00_server_tpu.ops import v7_decode_pallas as jfd
+from ai00_server_tpu_torch.ops import _build
 from ai00_server_tpu_torch.ops import v6_decode as tfd6
 from ai00_server_tpu_torch.ops import v7_decode as tfd
 from ai00_server_tpu_torch.testing import cpu_test_threads
@@ -146,7 +147,7 @@ def test_halving_sum_is_the_kernels_tree():
 # ---------------------------------------------------------------------------
 
 
-def _draw(seed, B, H, n_vecs):
+def _draw(seed, B, H, n_vecs, N=N):
     rng = np.random.default_rng(seed)
 
     def rnd(*shape, scale=1.0):
@@ -157,7 +158,7 @@ def _draw(seed, B, H, n_vecs):
 
 def jax_v7_lines(r, k, v, w, a, g, vmix, vf, vecs, S, active, is_first, cd):
     """ai00_server_tpu/ops/v7_decode_pallas.py:204-248, head by head."""
-    H = S.shape[1]
+    H, N = S.shape[1], S.shape[-1]
     act = jnp.asarray(active)[:, None]
 
     def vec(nm):
@@ -198,11 +199,12 @@ def jax_v7_lines(r, k, v, w, a, g, vmix, vf, vecs, S, active, is_first, cd):
 @pytest.mark.parametrize("name", ["float32", "bfloat16"])
 @pytest.mark.parametrize("is_first", [True, False])
 @pytest.mark.parametrize("shape", SHAPES, ids=SHAPE_IDS)
-def test_v7_mirror_equals_kernel_lines_and_plain(shape, is_first, name):
+def test_v7_mirror_equals_kernel_lines_and_plain(shape, is_first, name,
+                                                 N=N):
     B, H, active = shape
     C = H * N
     active = np.array(active)
-    rnd, S, vecs = _draw(7 + int(is_first) + 10 * B, B, H, 8)
+    rnd, S, vecs = _draw(7 + int(is_first) + 10 * B, B, H, 8, N)
     r, k, v, g, vf = (rnd(B, C, scale=0.5) for _ in range(5))
     w = np.exp(-jfd.W_SCALE / (1 + np.exp(-rnd(B, C)))).astype(np.float32)
     a, vmix = (1 / (1 + np.exp(-rnd(B, C))) for _ in range(2))
@@ -230,7 +232,7 @@ def jax_v56_lines(r, k, v, w, g, vecs, S, active, cd, round_yf):
     static decay row), with ``round_yf``; without it the phased kernel's
     f32 gate, v56_phased_pallas.py:337-369 (``ln_x`` times ``g`` in f32,
     rounded only as Wo's input)."""
-    B, H = S.shape[:2]
+    B, H, N = S.shape[:3]
     act3 = jnp.asarray(active)[:, None, None]
     u_full = jnp.asarray(vecs[1])[None]
     wdec = jnp.broadcast_to(w, (B, H * N))
@@ -256,11 +258,11 @@ def jax_v56_lines(r, k, v, w, g, vecs, S, active, cd, round_yf):
 @pytest.mark.parametrize("name", ["float32", "bfloat16"])
 @pytest.mark.parametrize("mode", ["dense", "dense f32 gate", "static"])
 @pytest.mark.parametrize("shape", SHAPES, ids=SHAPE_IDS)
-def test_v56_mirror_equals_kernel_lines_and_plain(shape, mode, name):
+def test_v56_mirror_equals_kernel_lines_and_plain(shape, mode, name, N=N):
     B, H, active = shape
     C = H * N
     active = np.array(active)
-    rnd, S, vecs = _draw(9 + 10 * B, B, H, 4)
+    rnd, S, vecs = _draw(9 + 10 * B, B, H, 4, N)
     r, k, v = (rnd(B, C, scale=0.5) for _ in range(3))
     g = rnd(B, C)
     g = (g / (1 + np.exp(-g))).astype(np.float32)
@@ -286,3 +288,90 @@ def test_v56_mirror_equals_kernel_lines_and_plain(shape, mode, name):
     p_out, p_S = tfd6.v6_wkv_gn_plain(*targs, TDT[name], round_yf)
     assert rel(to_np(got), to_np(p_out)) <= out_tol(name)
     assert rel(S_got.numpy(), p_S.numpy()) <= 2e-6
+
+
+# ---------------------------------------------------------------------------
+# Head sizes other than 64 (the kernels built with -DHEAD_N): the tile is
+# head_tile(N) wide (32 at N <= 32, 64 at 40, 128 at 128), the lanes and row
+# groups past the head hold 0.
+# ---------------------------------------------------------------------------
+
+HEADS = (32, 40, 128)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("N_", HEADS)
+def test_halving_sum_is_the_head_moments_order_at_other_head_sizes(N_,
+                                                                   seed):
+    """head_moments at HEAD_P = head_tile(N): lane l holds values l + 32 o
+    (zero past N), halves them (o with o + HEAD_P / 64 first), then
+    warp_sum: head_norm's sums, halving_sum of the zero-padded head."""
+    p = _build.head_tile(N_)
+    x = np.zeros((5, p), np.float32)
+    x[:, :N_] = _adversarial(seed, (5, N_))
+    t = [x[:, 32 * o:32 * (o + 1)] for o in range(p // 32)]
+    while len(t) > 1:
+        h = len(t) // 2
+        t = [(t[o] + t[o + h]).astype(np.float32) for o in range(h)]
+    lanes = shuffle_tree(t[0], (16, 8, 4, 2, 1))
+    assert (lanes == lanes[:, :1]).all()
+    got = tfd.halving_sum(tfd.pad_to(torch.from_numpy(x[:, :N_]), p))
+    np.testing.assert_array_equal(got.numpy(), lanes[:, 0])
+
+
+@pytest.mark.parametrize("N_", HEADS)
+def test_quad_sum_is_the_v7_kernels_order_at_other_head_sizes(N_):
+    """Thread cq of the head_tile(N) / 4 of a row group adds its channels
+    in pairs (zero past N), then the threads xor 1, 2, ..."""
+    cq = _build.head_tile(N_) // 4
+    x = _adversarial(N_, (4, N_))
+    t = x.reshape(4, N_ // 4, 4)
+    own = np.zeros((4, cq), np.float32)
+    own[:, :N_ // 4] = ((t[..., 0] + t[..., 1]).astype(np.float32)
+                        + (t[..., 2] + t[..., 3]).astype(np.float32))
+    out = shuffle_tree(own, [1 << i for i in range(cq.bit_length() - 1)])
+    assert (out == out[:, :1]).all()
+    np.testing.assert_array_equal(
+        tfd.quad_sum(torch.from_numpy(x)).numpy(), out[:, 0])
+
+
+@pytest.mark.parametrize("N_", HEADS)
+def test_v6_y_tree_is_the_kernels_order_at_other_head_sizes(N_):
+    """v6's partial y at head_tile(N): head_tile(N) / 4 row groups of CG =
+    head_tile(N) / 4 threads, 32 / CG groups a warp; the groups of a warp
+    xor CG, 2 CG, ... 16 (lanes), then the warps in pairs - pair_sum over
+    the zero-padded groups."""
+    p = _build.head_tile(N_)
+    rg = cg = p // 4
+    x = _adversarial(N_ + 1, (3, N_))
+    t = x.reshape(3, N_ // 4, 4)
+    own = np.zeros((3, rg), np.float32)
+    own[:, :N_ // 4] = (((t[..., 0] + t[..., 1]).astype(np.float32)
+                         + t[..., 2]).astype(np.float32) + t[..., 3])
+    per_warp = max(1, 32 // cg)
+    warps = shuffle_tree(own.reshape(3, -1, per_warp),
+                         [1 << i for i in range(per_warp.bit_length() - 1)]
+                         )[..., 0].astype(np.float32)
+    while warps.shape[-1] > 1:
+        warps = (warps[:, 0::2] + warps[:, 1::2]).astype(np.float32)
+    got = tfd.pair_sum(tfd.pad_to(torch.from_numpy(
+        own[:, :N_ // 4].copy()), rg))
+    np.testing.assert_array_equal(got.numpy(), warps[:, 0])
+
+
+@pytest.mark.parametrize("name", ["float32", "bfloat16"])
+@pytest.mark.parametrize("is_first", [True, False])
+@pytest.mark.parametrize("N_", HEADS)
+def test_v7_mirror_equals_kernel_lines_and_plain_at_other_head_sizes(
+        N_, is_first, name):
+    test_v7_mirror_equals_kernel_lines_and_plain(SHAPES[0], is_first, name,
+                                                 N=N_)
+
+
+@pytest.mark.parametrize("name", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", ["dense", "dense f32 gate", "static"])
+@pytest.mark.parametrize("N_", HEADS)
+def test_v56_mirror_equals_kernel_lines_and_plain_at_other_head_sizes(
+        N_, mode, name):
+    test_v56_mirror_equals_kernel_lines_and_plain(SHAPES[0], mode, name,
+                                                  N=N_)

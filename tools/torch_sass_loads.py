@@ -36,7 +36,8 @@ ROOT = Path(__file__).resolve().parent.parent
 KERNELS = ("ln_mix_kernel", "skinny_tc_kernel", "skinny_fma_kernel",
            "wkv_gn_kernel", "v6_wkv_gn_kernel", "qmm_kernel",
            "v4_wkv_kernel", "wkv7_t1_kernel", "wkv56_t1_kernel")
-LIBS = ("v7_decode", "v6_decode", "quant", "wkv4", "wkv7", "wkv56")
+LIBS = ("v7_decode", "v7_wkv_gn", "v6_decode", "quant", "wkv4", "wkv7",
+        "wkv56")
 
 
 def cuobjdump() -> str:
