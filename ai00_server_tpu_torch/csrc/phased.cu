@@ -16,9 +16,14 @@
 // holds up to 64 rows and reads each weight byte once for all of them.
 // Its products, epilogues and descriptor table are v7_skinny_matmul's
 // (matmul_common.cuh); the weights are T (bf16 or f32), int8 codes
-// (K / 128, 128, N) or packed int4 codes (K / 64, 32, N: byte row i holds
-// block row i in its low nibble and row 32 + i in its high one, the value
-// code - 8), each code block with its (1, N) f32 scales.
+// (K / 128, 128, N) or packed 4-bit codes (K / 64, 32, N: byte row i holds
+// block row i in its low nibble and row 32 + i in its high one), each code
+// block with its (1, N) f32 scales.  A 4-bit code is int4's code - 8, or
+// (nf4, sf4) the code's entry of the mode's 16 integer levels in [-127,
+// 127] (ops/quant.py LEVELS): the TPU's phased kernel reads those models as
+// int8 surrogate codes of the same levels and scales (its quant.py
+// to_int8_surrogate), so the sums are the same; here they stay packed, at
+// half the bytes.
 //
 // What bounds it on an H100 at the shapes of the wide-batch step (B = 16 to
 // 64 rows, K and N 1024 to 10240): the bytes of the weight (2 B flops per
@@ -42,7 +47,9 @@
 //    share one wgmma form); codes as 32-bit words - four columns of one row
 //    of K - decoded in registers (int8 as 128 + low 7 bits minus 128 or 256
 //    by its sign bit, int4 as 128 + nibble minus 136, both exact in bf16x2
-//    arithmetic), so a decoded tile never goes back to shared memory.  A
+//    arithmetic; nf4 / sf4, four codes at a time, as the bf16 bytes of
+//    their levels that prmt picks from a table in the kernel's parameters,
+//    dec_lut), so a decoded tile never goes back to shared memory.  A
 //    code word's four columns are rows of two m64 tiles, so the tiles' rows
 //    are a permutation of the columns, undone when the sums are stored;
 //  * the fragments are double-buffered: a k-step's decode overlaps the
@@ -79,6 +86,7 @@
 #include <cuda_runtime.h>
 #include <dlfcn.h>
 #include <stdint.h>
+#include <string.h>
 
 #include "decode_common.cuh"
 #include "matmul_common.cuh"
@@ -91,7 +99,13 @@ namespace {
 constexpr int PM_ROWS = 64;      // batch rows per launch
 constexpr int PM_MAXP = MM_MAXP; // products per launch
 constexpr int QB8 = 128;         // rows of K per scale block: int8 codes
-constexpr int QB4 = 64;          //                            packed int4
+constexpr int QB4 = 64;          //                            packed 4-bit
+// The kernels' weight kinds (WQ): plain T, int8 codes, packed int4 codes
+// (code - 8), packed 4-bit codes through a level table (nf4, sf4).
+constexpr int WQ_INT8 = 8, WQ_INT4 = 4, WQ_LUT = 16;
+__host__ __device__ constexpr bool packed4(int wq) {
+  return wq == WQ_INT4 || wq == WQ_LUT;
+}
 
 // ---------------------------------------------------------------------------
 // bf16: wgmma on TMA-fed stages
@@ -105,8 +119,8 @@ constexpr int TC_TP = TC_BN + 4;               // f32 pitch of the partial tile
 constexpr int RING_BUDGET = 200 * 1024;
 constexpr int ABUF = 2;  // A fragment buffers: k-steps a decode runs ahead
 
-// Shared memory of a block for weight kind WQ (0 bf16, 8 int8, 4 packed
-// int4) and NR padded rows: STAGES stages, each the weight boxes (128-byte
+// Shared memory of a block for weight kind WQ (0 bf16, else codes) and NR
+// padded rows: STAGES stages, each the weight boxes (128-byte
 // rows, 128-byte swizzle: bf16 64 columns x 64 rows, codes 128 columns x 64
 // rows or 32 byte rows) and the x box (NR rows x 64 of K), then the
 // stages' full / empty barriers.  The partial tile takes the ring's place
@@ -114,7 +128,7 @@ constexpr int ABUF = 2;  // A fragment buffers: k-steps a decode runs ahead
 template <int WQ, int NR>
 struct TC {
   static constexpr int WBOX_COLS = WQ == 0 ? 64 : 128;
-  static constexpr int WBOX_ROWS = WQ == 4 ? KC / 2 : KC;
+  static constexpr int WBOX_ROWS = packed4(WQ) ? KC / 2 : KC;
   static constexpr int WBOXES = TC_BN / WBOX_COLS;
   static constexpr int WBOX = WBOX_ROWS * 128;
   static constexpr int XBOX = NR * 128;
@@ -131,6 +145,9 @@ struct TCArgs {
   CUtensorMap wmap[PM_MAXP];  // the weights (codes) as stored, 2-D
   CUtensorMap xmap[PM_MAXP];  // x: (rows, K) with row stride ldx
   MMProblem p[PM_MAXP];
+  // WQ_LUT: the bf16 bits of the 16 levels, their low bytes in lut[0 .. 3]
+  // and high bytes in lut[4 .. 7], four entries a word.
+  uint32_t lut[8];
   int n, rows;
 };
 
@@ -266,11 +283,40 @@ __device__ __forceinline__ uint32_t lds32(uint32_t a) {
   return v;
 }
 
+// Bytes X and X + 1 (X even) of code words a (row k) and b (row k + 1) as
+// [a.X, b.X, a.X+1, b.X+1]: four codes, two A fragment words once decoded.
+template <int X>
+__device__ __forceinline__ uint32_t quad(uint32_t a, uint32_t b) {
+  return prmt(a, b, X | (4 + X) << 4 | (X + 1) << 8 | (5 + X) << 12);
+}
+// The low (or, HI, high) nibbles c0 .. c3 of q's bytes through the level
+// table -> w0 = bf16x2 (level c0, level c1), w1 = (level c2, level c3),
+// exact.  The low 3 bits of the four codes are gathered into prmt's four
+// selectors (in the order c0, c2, c1, c3), four prmt take the bf16 low and
+// high bytes of entries 0-7 and of entries 8-15, a fifth spreads each
+// code's bit 3 over its byte (prmt's sign-replicate mode, the nibble's top
+// bit at its byte's top), two lop3 pick, and two prmt interleave the
+// bytes into the words.  lut: lut[0 .. 3] the low bytes, lut[4 .. 7] the
+// high bytes, entries 4 i .. 4 i + 3 in word i.
+template <bool HI>
+__device__ __forceinline__ void dec_lut(uint32_t q, const uint32_t (&lut)[8],
+                                        uint32_t& w0, uint32_t& w1) {
+  const uint32_t x = (HI ? q >> 4 : q) & 0x07070707u;
+  const uint32_t sel = x | (x >> 12);
+  const uint32_t m = prmt(HI ? q : q << 4, 0u, 0xB9A8u);
+  const uint32_t lo =
+      (prmt(lut[0], lut[1], sel) & ~m) | (prmt(lut[2], lut[3], sel) & m);
+  const uint32_t hi =
+      (prmt(lut[4], lut[5], sel) & ~m) | (prmt(lut[6], lut[7], sel) & m);
+  w0 = prmt(lo, hi, 0x6240u);
+  w1 = prmt(lo, hi, 0x7351u);
+}
+
 template <typename T, int WQ, int NR>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 phased_tc_kernel(const __grid_constant__ TCArgs args) {
   using G = TC<WQ, NR>;
-  constexpr bool Q = WQ != 0, Q4 = WQ == 4;
+  constexpr bool Q = WQ != 0, Q4 = packed4(WQ);
   constexpr int ND = NR / 2;  // accumulator floats per m64 tile
   extern __shared__ unsigned char tc_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
@@ -340,6 +386,9 @@ phased_tc_kernel(const __grid_constant__ TCArgs args) {
     // for the wgmma ABUF k-steps back.
     uint32_t afr[ABUF][2][4];
     int first = 1;          // the next wgmma starts a new sum
+    // WQ_LUT: the level table, read where the decode needs it (kernel
+    // parameters: operands of the prmt, no registers held).
+    const uint32_t (&lut)[8] = args.lut;
 
     // One k-step: the fragments in buffer `buf`, x rows kx .. kx + 15 of
     // the stage.  Before the k-step at position `pos` of a pass writes its
@@ -439,6 +488,43 @@ phased_tc_kernel(const __grid_constant__ TCArgs args) {
             a[1][3] = dec8(pair<3>(wd[2], wd[3]));
             mma(j % ABUF, xd, 16 * j);
           }
+        } else if constexpr (WQ == WQ_LUT) {
+          // nf4 / sf4: the byte rows of int4's layout, four codes of two
+          // rows a quad (q[i][j]: words 2 i, 2 i + 1, bytes 2 j, 2 j + 1:
+          // fragment words (j, 2 i) and (j, 2 i + 1)).
+          const int ch = 2 * w + (gq >> 2), off = 4 * (gq & 3);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            uint32_t wd[4], q[2][2];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int k = 16 * h + 2 * tq + (e & 1) + 8 * (e >> 1);
+              wd[e] = lds32(wb + k * 128 + ((ch ^ (k & 7)) << 4) + off);
+            }
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              q[i][0] = quad<0>(wd[2 * i], wd[2 * i + 1]);
+              q[i][1] = quad<2>(wd[2 * i], wd[2 * i + 1]);
+            }
+            // Issued in the order k-step 0, 2, 1, 3: positions 2 h, 2 h + 1.
+            step_wait(pass, 2 * h);
+#pragma unroll
+            for (int i = 0; i < 2; ++i)
+#pragma unroll
+              for (int j = 0; j < 2; ++j)
+                dec_lut<false>(q[i][j], lut, afr[(2 * h) % ABUF][j][2 * i],
+                               afr[(2 * h) % ABUF][j][2 * i + 1]);
+            mma((2 * h) % ABUF, xd, 16 * h);
+            step_wait(pass, 2 * h + 1);
+#pragma unroll
+            for (int i = 0; i < 2; ++i)
+#pragma unroll
+              for (int j = 0; j < 2; ++j)
+                dec_lut<true>(q[i][j], lut,
+                              afr[(2 * h + 1) % ABUF][j][2 * i],
+                              afr[(2 * h + 1) % ABUF][j][2 * i + 1]);
+            mma((2 * h + 1) % ABUF, xd, 32 + 16 * h);
+          }
         } else {
           // int4: byte rows 16 h + 2 tq, + 1, + 8, + 9 hold K rows 16 h ..
           // (low nibbles: k-step h) and 32 + 16 h .. (high: k-step h + 2).
@@ -530,17 +616,20 @@ constexpr int FMA_SMEM = KC32 * LD32 * 4 + KC32 * PM_BN * 4 > TILE_BYTES
 struct PMGroup {
   MMProblem p[PM_MAXP];  // blk0: first cluster (tile) of the product;
   int n;                 // kb: rows of K a cluster rank sums
+  float levels[16];      // WQ_LUT: what a nibble decodes to
 };
 
 // One slice [k0, k1) of K for the PM_BN columns from col0: thread t sums
 // column t % 128 of the tile for rows 32 (t / 128) .. + 31, 32 rows of K a
 // pass, the next pass's weight words in registers while this one is
 // summed; the slice's sums go to `tile` ([row][TLD] f32, in `smem`).
+// WQ_LUT codes decode through `lut` (16 floats in shared memory).
 template <int WQ>
 __device__ __forceinline__ void fma_slice(const MMProblem& P, int k0, int k1,
                                           int col0, int rows,
-                                          unsigned char* smem, float* tile) {
-  constexpr bool Q = WQ != 0, Q4 = WQ == 4;
+                                          unsigned char* smem, float* tile,
+                                          const float* lut) {
+  constexpr bool Q = WQ != 0, Q4 = packed4(WQ);
   constexpr int QB = Q4 ? QB4 : QB8;
   float (*xs)[LD32] = reinterpret_cast<float (*)[LD32]>(smem);  // [k][row]
   float (*ws)[PM_BN] =
@@ -548,7 +637,7 @@ __device__ __forceinline__ void fma_slice(const MMProblem& P, int k0, int k1,
   const int tid = threadIdx.x;
   const int cl = tid % PM_BN, r0 = 32 * (tid / PM_BN);
 
-  // A pass is 32 stored rows: rows of K, or the 32 byte rows of an int4
+  // A pass is 32 stored rows: rows of K, or the 32 byte rows of a 4-bit
   // block whose low (first pass of the block) or high nibbles it takes.
   constexpr int WPR = Q ? PM_BN / 4 : PM_BN;  // words per stored row
   constexpr int UNITS = KC32 * WPR / PM_THREADS;
@@ -570,7 +659,7 @@ __device__ __forceinline__ void fma_slice(const MMProblem& P, int k0, int k1,
     }
   };
   auto store = [&](int kc0) {
-    const int shift = 4 * ((kc0 / KC32) & 1);  // int4: low or high nibbles
+    const int shift = 4 * ((kc0 / KC32) & 1);  // 4-bit: low or high nibbles
 #pragma unroll
     for (int u = 0; u < UNITS; ++u) {
       const int unit = tid + u * PM_THREADS;
@@ -585,10 +674,11 @@ __device__ __forceinline__ void fma_slice(const MMProblem& P, int k0, int k1,
       } else {
         const bool ok = col0 + 4 * w < P.N;
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
+        for (int e = 0; e < 4; ++e) {
+          const int c = (int)((raw[u] >> (8 * e + shift)) & 15u);
           ws[r][4 * w + e] =
-              ok ? (float)((int)((raw[u] >> (8 * e + shift)) & 15u) - 8)
-                 : 0.f;
+              !ok ? 0.f : WQ == WQ_LUT ? lut[c] : (float)(c - 8);
+        }
       }
     }
   };
@@ -659,6 +749,9 @@ template <int WQ>
 __global__ void __launch_bounds__(PM_THREADS, 2)
 phased_fma_kernel(const PMGroup g, int rows) {
   extern __shared__ __align__(16) unsigned char pm_smem[];
+  __shared__ float lut[16];  // WQ_LUT; read after fma_slice's first barrier
+  if (WQ == WQ_LUT && threadIdx.x < 16)
+    lut[threadIdx.x] = g.levels[threadIdx.x];
   cg::cluster_group cluster = cg::this_cluster();
   const int cs = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
@@ -670,7 +763,7 @@ phased_fma_kernel(const PMGroup g, int rows) {
   const int k0 = rank * P.kb, k1 = min(P.K, k0 + P.kb);
   float* tile = reinterpret_cast<float*>(pm_smem);  // [row][TLD]
 
-  fma_slice<WQ>(P, k0, k1, col0, rows, pm_smem, tile);
+  fma_slice<WQ>(P, k0, k1, col0, rows, pm_smem, tile, lut);
 
   reduce_tile<float, PM_BN, TLD, PM_THREADS>(P, tile, col0, rows);
 }
@@ -719,9 +812,10 @@ cudaError_t tc_kernel_rows(int rows, const void** k, int* smem) {
   return tc_kernel<WQ, 64>(k, smem);
 }
 
-cudaError_t tc_kernel_for(int wbits, int rows, const void** k, int* smem) {
-  if (wbits == 4) return tc_kernel_rows<4>(rows, k, smem);
-  if (wbits == 8) return tc_kernel_rows<8>(rows, k, smem);
+cudaError_t tc_kernel_for(int wq, int rows, const void** k, int* smem) {
+  if (wq == WQ_LUT) return tc_kernel_rows<WQ_LUT>(rows, k, smem);
+  if (wq == WQ_INT4) return tc_kernel_rows<WQ_INT4>(rows, k, smem);
+  if (wq == WQ_INT8) return tc_kernel_rows<WQ_INT8>(rows, k, smem);
   return tc_kernel_rows<0>(rows, k, smem);
 }
 
@@ -773,15 +867,34 @@ extern "C" {
 // clusters (the launch's tiles: 256 columns in bf16, 128 in f32), then per
 // product blk0 (its first tile) and kb (the rows of K a cluster rank sums,
 // whole scale blocks).  dtype: 0 = f32, 1 = bf16.  wbits: 0 plain weights
-// of type T, 8 int8 codes (K / 128, 128, N), 4 packed int4 codes (K / 64,
-// 32, N), every product with its scales.  W and x 16-byte aligned; N a
-// multiple of 16; K and ldx multiples of 8.  No work space: the partial
-// sums stay in the clusters' shared memory.
+// of type T, 8 int8 codes (K / 128, 128, N), 4 packed 4-bit codes (K / 64,
+// 32, N), every product with its scales.  levels: null for plain weights,
+// int8 codes and int4 codes (code - 8); for nf4 / sf4 codes (wbits 4) the
+// mode's 16 levels as int32 on the HOST, each in [-128, 127] (what a
+// nibble decodes to).  W and x 16-byte aligned; N a multiple of 16; K and
+// ldx multiples of 8.  No work space: the partial sums stay in the
+// clusters' shared memory.
 int phased_matmul_launch(const int64_t* desc, int n_prob, const int64_t* plan,
-                         int n_launch, int dtype, int wbits, void* stream) {
+                         int n_launch, int dtype, int wbits,
+                         const int32_t* levels, void* stream) {
   if (n_prob <= 0 || n_prob > PM_MAXP || n_launch <= 0 ||
-      (dtype != 0 && dtype != 1) || (wbits != 0 && wbits != 8 && wbits != 4))
+      (dtype != 0 && dtype != 1) ||
+      (wbits != 0 && wbits != 8 && wbits != 4) ||
+      (levels != nullptr && wbits != 4))
     return (int)cudaErrorInvalidValue;
+  const int wq = levels != nullptr ? WQ_LUT : wbits;
+  // The bf16 bits of each level (exact: at most 8 significant bits), low
+  // bytes in lut[0 .. 3], high bytes in lut[4 .. 7].
+  uint32_t lut[8] = {};
+  float lutf[16] = {};
+  for (int i = 0; levels != nullptr && i < 16; ++i) {
+    if (levels[i] < -128 || levels[i] > 127) return (int)cudaErrorInvalidValue;
+    lutf[i] = (float)levels[i];
+    uint32_t bits;
+    memcpy(&bits, &lutf[i], 4);
+    lut[i / 4] |= ((bits >> 16) & 0xffu) << (8 * (i % 4));
+    lut[4 + i / 4] |= (bits >> 24) << (8 * (i % 4));
+  }
   const bool tc = dtype == 1;
   const size_t tsize = tc ? 2 : 4;
   const bool quant = wbits != 0;
@@ -801,6 +914,8 @@ int phased_matmul_launch(const int64_t* desc, int n_prob, const int64_t* plan,
     PMGroup g;
     a.n = g.n = n_prob;
     a.rows = rows;
+    for (int i = 0; i < 8; ++i) a.lut[i] = lut[i];
+    for (int i = 0; i < 16; ++i) g.levels[i] = lutf[i];
     int tiles = 0;
     for (int i = 0; i < n_prob; ++i) {
       MMProblem& P = g.p[i];
@@ -837,15 +952,17 @@ int phased_matmul_launch(const int64_t* desc, int n_prob, const int64_t* plan,
     if (tc) {
       const void* k;
       int smem;
-      err = tc_kernel_for(wbits, rows, &k, &smem);
+      err = tc_kernel_for(wq, rows, &k, &smem);
       void* params[] = {&a};
       if (err == cudaSuccess)
         err = launch_ex(k, dim3(blocks), TC_THREADS, smem, cs, false, st,
                         params);
-    } else if (wbits == 4)
-      err = launch_fma<4>(g, rows, blocks, cs, st);
-    else if (wbits == 8)
-      err = launch_fma<8>(g, rows, blocks, cs, st);
+    } else if (wq == WQ_LUT)
+      err = launch_fma<WQ_LUT>(g, rows, blocks, cs, st);
+    else if (wq == WQ_INT4)
+      err = launch_fma<WQ_INT4>(g, rows, blocks, cs, st);
+    else if (wq == WQ_INT8)
+      err = launch_fma<WQ_INT8>(g, rows, blocks, cs, st);
     else
       err = launch_fma<0>(g, rows, blocks, cs, st);
     if (err == cudaSuccess) err = cudaGetLastError();
@@ -854,16 +971,17 @@ int phased_matmul_launch(const int64_t* desc, int n_prob, const int64_t* plan,
   return 0;
 }
 
-// How many clusters of cs blocks of the bf16 kernel for wbits codes and
+// How many clusters of cs blocks of the bf16 kernel for `wq` codes and
 // `rows` rows the card holds at once (ops/phased_matmul.py plans with it);
-// a negative cudaError_t on failure.
-int phased_max_clusters(int wbits, int rows, int cs) {
-  if ((wbits != 0 && wbits != 8 && wbits != 4) || rows <= 0 || cs < 1 ||
-      cs > MAX_CLUSTER)
+// a negative cudaError_t on failure.  wq: 0 plain, 8 int8, 4 int4, 16 the
+// level-table kernel (nf4 / sf4), so each kind is asked of its own kernel.
+int phased_max_clusters(int wq, int rows, int cs) {
+  if ((wq != 0 && wq != WQ_INT8 && wq != WQ_INT4 && wq != WQ_LUT) ||
+      rows <= 0 || cs < 1 || cs > MAX_CLUSTER)
     return -(int)cudaErrorInvalidValue;
   const void* k;
   int smem;
-  cudaError_t e = tc_kernel_for(wbits, rows, &k, &smem);
+  cudaError_t e = tc_kernel_for(wq, rows, &k, &smem);
   if (e != cudaSuccess) return -(int)e;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(cs * MAX_CLUSTER, 1, 1);

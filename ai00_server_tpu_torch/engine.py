@@ -18,10 +18,10 @@ quantized (int8, nf4, sf4, int4):
   that every decode step replays; the LM head and sampling run eagerly
   after it.  The stack is ``ops/fused_decode.stack_for(version, params,
   max_batch)``'s: above 8 rows the phased one (``ops/v7_phased``,
-  ``ops/v56_phased``: every weight read once for up to 64 rows) where the
-  weights are plain, int8 or int4, else the fused one.  A model whose
-  layers are only partly quantized keeps to the layer-by-layer path and
-  gets no graph.
+  ``ops/v56_phased``: every weight read once for up to 64 rows) in every
+  weight mode, else (and for RWKV-4 at any batch) the fused one.  A model
+  whose layers are only partly quantized keeps to the layer-by-layer path
+  and gets no graph.
   4-bit models decode from their packed codes (the reference's int8
   surrogate of them is not carried over).
 * A model with any quantized layer, in whatever mode, also stores the LM

@@ -72,9 +72,11 @@ SIGNATURES = {
         "v7_wkv_gn_launch": "ppppppppppppiiiiip",
     },
     "phased": {
-        # desc (host), n_prob, plan (host), n_launch, dtype, wbits, stream
-        "phased_matmul_launch": "pipiiip",
-        # wbits, rows, cluster size -> clusters the card holds at once
+        # desc (host), n_prob, plan (host), n_launch, dtype, wbits, levels
+        # (host, null but for nf4 / sf4), stream
+        "phased_matmul_launch": "pipiiipp",
+        # kernel kind (0, 8, 4 or 16 for nf4 / sf4), rows, cluster size ->
+        # clusters the card holds at once
         "phased_max_clusters": "iii",
     },
     "wkv4": {

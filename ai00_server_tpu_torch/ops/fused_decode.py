@@ -41,11 +41,11 @@ def stack_for(version: str, params, batch: int):
     ``batch`` rows takes, mirroring the JAX engine's "phased where fused
     does not apply": the phased stack (``ops/v7_phased``,
     ``ops/v56_phased``) when its ``can_phase`` holds (a batch above the 8
-    rows of the fused products, plain / int8 / int4 weights), else the
-    fused one (:func:`module_for`) when its ``can_fuse`` holds, else None
-    (the layer-by-layer path).  Either stack reads the fused module's
-    layout.  RWKV-4 has no phased stack and keeps its fused one at any
-    batch."""
+    rows of the fused products, weights in any one mode: plain, int8,
+    int4, nf4 or sf4), else the fused one (:func:`module_for`) when its
+    ``can_fuse`` holds, else None (the layer-by-layer path).  Either stack
+    reads the fused module's layout.  RWKV-4 has no phased stack (nor has
+    the JAX package) and keeps its fused one at any batch."""
     from . import v56_phased, v7_phased
 
     fd = module_for(version)

@@ -18,15 +18,18 @@ its descriptor table.
 
 The arithmetic is the TPU kernel's, which differs from the fused stacks'
 for codes: the x tile and the weight are cast to the activation dtype, the
-sub-dot of each scale block (128 rows of int8 codes, 64 of packed int4) is
-summed in f32, the block's scale multiplies that f32 sub-sum, and the
+sub-dot of each scale block (128 rows of int8 codes, 64 of packed 4-bit)
+is summed in f32, the block's scale multiplies that f32 sub-sum, and the
 blocks are added in order.  The fused products instead scale the weight in
 the activation dtype before one sum (``v7_decode.v7_skinny_matmul_plain``).
 Weights are plain (in the activation dtype), int8 codes ``(K/128, 128, N)``
-or packed int4 codes ``(K/64, 32, N)`` (split-half nibbles, ``code - 8``),
-each with ``(K/blk, 1, N)`` f32 scales; nf4 / sf4 are not taken (the TPU's
-phased kernel reads them only as int8 surrogate codes, which the port does
-not carry).
+or packed 4-bit codes ``(K/64, 32, N)`` (split-half nibbles: int4 decodes
+``code - 8``, nf4 / sf4 the code's entry of ``quant.LEVELS[mode]``), each
+with ``(K/blk, 1, N)`` f32 scales.  The TPU's phased kernel reads nf4 / sf4
+models as int8 surrogate codes (``ai00_server_tpu/ops/quant.py:
+to_int8_surrogate``: the same levels and 64-row scale blocks, so the same
+sums); the port keeps them packed, at half the bytes, and the kernel
+decodes the levels from a 16-entry table.
 
 :func:`phased_matmul_plain` is the same function in PyTorch ops; the
 wrapper runs it only for CPU tensors and on a CUDA tensor launches the
@@ -40,14 +43,16 @@ import functools
 
 import torch
 
-from . import _build
+from . import _build, quant
 from .device import H100_SMS, sm_count
+from .quant_matmul import levels_table
 from .v7_decode import (_DTYPE_CODE, MAX_CLUSTER, Launch, _require, _stream,
                         epilogue_plain, launch_table, plan_table, store_adds)
 
 ROWS = 64          # batch rows per launch
 MAXP = 5           # products per launch
-MODES = ("none", "int8", "int4")
+MODES = ("none", "int8", "int4", "nf4", "sf4")
+TABLE_MODES = ("nf4", "sf4")  # 4-bit codes through a level table
 TILE = {torch.bfloat16: 256, torch.float32: 128}  # output columns a block
 KC = 64            # rows of K a bf16 stage holds (four wgmma k-steps)
 # Clusters of 1..8 bf16 blocks (one an SM) an H100 SXM holds at once, from
@@ -60,7 +65,7 @@ FIXED_PASSES = 4   # a launch's fixed cost, counted in stages a block sums
 
 def step_rows(mode: str) -> int:
     """The rows of K a slice holds a multiple of: whole scale blocks (128
-    rows of int8 codes, 64 of packed int4) and whole bf16 stages (64)."""
+    rows of int8 codes, 64 of packed 4-bit) and whole bf16 stages (64)."""
     return 128 if mode == "int8" else KC
 
 
@@ -133,8 +138,9 @@ def staged_bytes(launch: Launch, shapes, mode: str) -> tuple:
     padded to 16, 32 or 64) beside each stage of weight boxes of its 256
     columns."""
     nr = padded_rows(launch.rows)
-    per_row = {"none": 2 * TILE[torch.bfloat16], "int8": TILE[torch.bfloat16],
-               "int4": TILE[torch.bfloat16] // 2}[mode]
+    per_row = (2 * TILE[torch.bfloat16] if mode == "none" else
+               TILE[torch.bfloat16] if mode == "int8" else
+               TILE[torch.bfloat16] // 2)
     x = w = 0
     for _, _, _, k0, k1 in work_items(launch, shapes):
         passes = -(-(k1 - k0) // KC)
@@ -143,13 +149,19 @@ def staged_bytes(launch: Launch, shapes, mode: str) -> tuple:
     return x, w
 
 
+def kernel_kind(mode: str) -> int:
+    """The bf16 kernel a mode launches, as ``phased_max_clusters`` names
+    it: 0 plain, 8 int8, 4 int4, 16 the level-table one (nf4 / sf4)."""
+    return {"none": 0, "int8": 8, "int4": 4}.get(mode, 16)
+
+
 @functools.lru_cache(maxsize=None)
-def _clusters(index: int, wbits: int, rows: int) -> dict:
-    """{cs: clusters of the bf16 kernel for ``rows`` padded rows the card
-    ``index`` holds at once}."""
+def _clusters(index: int, kind: int, rows: int) -> dict:
+    """{cs: clusters of the bf16 kernel of ``kind`` (:func:`kernel_kind`)
+    for ``rows`` padded rows the card ``index`` holds at once}."""
     lib = _build.library("phased")
     with torch.cuda.device(index):
-        held = {cs: lib.phased_max_clusters(wbits, rows, cs)
+        held = {cs: lib.phased_max_clusters(kind, rows, cs)
                 for cs in range(1, MAX_CLUSTER + 1)}
     for cs, n in held.items():
         _build.check(min(n, 0), f"phased_max_clusters({cs})")
@@ -166,9 +178,9 @@ def block_sums_plain(x, W, scale, mode: str):
         return torch.matmul(xf, W.to(cd).float())
     if mode == "int8":
         codes = W.float()
-    elif mode == "int4":
-        q = W.to(torch.int16)
-        codes = torch.cat([(q & 15) - 8, (q >> 4) - 8], dim=-2).float()
+    elif mode in MODES:
+        nib = quant.unpack_codes(W).long()
+        codes = quant.levels_tensor(mode, torch.float32, W.device)[nib]
     else:
         raise ValueError(f"phased_matmul takes {MODES}, not {mode!r}")
     nb, blk, _ = codes.shape
@@ -213,15 +225,18 @@ def phased_matmul(products):
                  "x needs 16-byte aligned rows: K and its row stride "
                  "multiples of 8")
     cd = products[0].x.dtype
-    wbits = {"none": 0, "int8": 8, "int4": 4}[mode]
-    held = (_clusters(dev.index, wbits, padded_rows(min(B, ROWS)))
+    wbits = {"none": 0, "int8": 8}.get(mode, 4)
+    levels = levels_table(mode) if mode in TABLE_MODES else None
+    held = (_clusters(dev.index, kernel_kind(mode),
+                      padded_rows(min(B, ROWS)))
             if cd == torch.bfloat16 else None)
     launches = plan([p.KN for p in products], B, mode, cd,
                     sm_count(dev.index), held)
     ptab = plan_table(launches)
     status = _build.library("phased").phased_matmul_launch(
         ctypes.addressof(table), len(products), ctypes.addressof(ptab),
-        len(launches), _DTYPE_CODE[cd], wbits, _stream(dev))
+        len(launches), _DTYPE_CODE[cd], wbits,
+        ctypes.addressof(levels) if levels else None, _stream(dev))
     _build.check(status, "phased_matmul")
     n = len(launches)
     phased_matmul.launches += n
@@ -229,9 +244,12 @@ def phased_matmul(products):
         phased_matmul.int8_launches += n
     elif mode == "int4":
         phased_matmul.int4_launches += n
+    elif mode in TABLE_MODES:
+        phased_matmul.lut4_launches += n
     return outs
 
 
 phased_matmul.launches = 0
 phased_matmul.int8_launches = 0  # those of them on int8 codes
 phased_matmul.int4_launches = 0  # those of them on packed int4 codes
+phased_matmul.lut4_launches = 0  # those of them on packed nf4 / sf4 codes

@@ -9,7 +9,7 @@ version — ``ops/v6_decode._forward`` (the five token-shift LoRA stages and
 the decay LoRA, the TPU entry's lines 244-262) or ``ops/v5_decode._forward``
 (the static ``1 - mix`` shift and decay, :231-242) — over the same
 ``FUSED_KEY`` layout, with every product through ``ops/phased_matmul``
-(int8 / int4 scales on the f32 sub-sums) and ``v6_wkv_gn`` (dense decay for
+(the scales of codes on the f32 sub-sums) and ``v6_wkv_gn`` (dense decay for
 v6, the stride-0 static decay for v5).  One rounding of the TPU's phased
 kernel differs from its fused one and is followed: the epilogue gates the
 f32 ``ln_x`` output, ``(yn lnx_w + lnx_b) * silu(g)``, and rounds only the
@@ -21,7 +21,7 @@ receptance's sigmoid and the value's gate f32, the key's squared ReLU
 rounded).
 
 Intended divergences as in ``ops/v7_phased``: no VMEM budget or tile count
-``na``; nf4 / sf4 keep the fused stack at any batch.  The version is read
+``na``; nf4 / sf4 as packed codes, not int8 surrogates.  The version is read
 off the layout the params carry (``v6_decode.FUSED_KEY`` or
 ``v5_decode.FUSED_KEY``), so one :class:`DecodeGraph` serves both.
 """
@@ -45,7 +45,8 @@ _OPS = (v7_ln_mix, phased_matmul,
 # Every launch count a replayed graph has to keep up to date.
 _COUNTS = (*((k, "launches") for k in KERNELS),
            (phased_matmul, "int8_launches"),
-           (phased_matmul, "int4_launches"))
+           (phased_matmul, "int4_launches"),
+           (phased_matmul, "lut4_launches"))
 _PLAIN_OPS = (v7d._ln_mix_inplace_plain, _matmul_inplace_plain,
               functools.partial(_wkv_gn_inplace_plain, round_yf=False))
 
@@ -56,7 +57,8 @@ def can_phase(params, batch: int, version: str) -> bool:
     hold (8), a model the version's fused layout fits (its ``can_fuse``:
     ``C == H * N``, a head size the WKV kernels take - ``N % 8 == 0`` and
     ``8 <= N <= 128`` - and one activation dtype), and big projections
-    uniformly plain or uniformly int8 or int4."""
+    uniformly plain or uniformly quantized in one mode (int8, int4, nf4,
+    sf4)."""
     fd = _FUSED.get(version)
     return (fd is not None and batch > v7d._MM_NB and fd.can_fuse(params)
             and fused_decode.group_mode(params["layers"][0],

@@ -11,7 +11,7 @@ every weight again for each 8 rows, so the phased stack is the step of a
 batch wider than that: the same launch sequence, the same
 ``FUSED_KEY`` layout and the same ``v7_ln_mix`` / ``v7_wkv_gn`` kernels,
 with every product through ``ops/phased_matmul`` (up to 64 rows a launch,
-int8 / int4 scales on the f32 sub-sums as the TPU kernel applies them).
+the scales of codes on the f32 sub-sums as the TPU kernel applies them).
 
 The other roundings of the TPU kernel's phases are the fused step's: the
 entry's LayerNorm, shifts and LoRA stages (its lines 400-465: ``hw``,
@@ -25,8 +25,8 @@ and rounded only as Wo's input (:699-722), and the channel mix (:723-768).
 Intended divergences: no VMEM budget, tile count ``na`` or head group
 applies on the card (they are the TPU's tiling), so ``can_phase`` asks
 only for the layout, the weight mode and a batch above 8; nf4 / sf4 reach
-the TPU's phased kernel only as int8 surrogate codes, which the port does
-not carry, so they keep the fused stack at any batch.
+the TPU's phased kernel as int8 surrogate codes of their levels, and the
+port's as the packed codes (``ops/phased_matmul``: the same sums).
 """
 
 from __future__ import annotations
@@ -45,7 +45,8 @@ _OPS = KERNELS
 # Every launch count a replayed graph has to keep up to date.
 _COUNTS = (*((k, "launches") for k in KERNELS),
            (phased_matmul, "int8_launches"),
-           (phased_matmul, "int4_launches"))
+           (phased_matmul, "int4_launches"),
+           (phased_matmul, "lut4_launches"))
 _PLAIN_OPS = (fd._ln_mix_inplace_plain, _matmul_inplace_plain,
               fd._wkv_gn_inplace_plain)
 
@@ -55,8 +56,8 @@ def can_phase(params, batch: int) -> bool:
     wider than the fused products hold (8), a model the fused layout fits
     (``v7_decode.can_fuse``: ``C == H * N``, a head size the WKV kernels
     take, ``N % 8 == 0`` and ``8 <= N <= 128``, one activation dtype), and
-    big projections uniformly plain or uniformly int8 or int4 (the TPU
-    kernel's modes)."""
+    big projections uniformly plain or uniformly quantized in one mode
+    (int8, int4, nf4, sf4: ``phased_matmul.MODES``)."""
     return (batch > fd._MM_NB and fd.can_fuse(params)
             and fused_decode.group_mode(params["layers"][0],
                                         fd._BIG_SRC) in MODES)

@@ -135,14 +135,11 @@ kernel's source is built first, one ``nvcc`` each, all started together):
    burst with the fused kernels' counts zeroed before and read after; a
    16-step chunk with every row on the DFA timed in turns beside an
    unconstrained one, its tokens walked through the table on the host),
-   then ``prewarm_flow``: ``Engine.prewarm`` on a fresh engine over the
+   then ``prewarm_pools``: ``Engine.prewarm`` on a fresh engine over the
    served model must leave every pool, host flag and the snapshot ring
    bit-equal (so must ``decode_chunk(snapshot=False)``), and
-   ``restore_last_chunk`` after it must bring back the pre-chunk pools;
-   the model's prefab is then loaded by two fresh server processes, one
-   with ``[model] prewarm = false`` and one with ``prewarm = true``, each
-   timing its first (cold) and second (warm) streamed request, the
-   prewarm's seconds, and their greedy answers must agree.  Every served
+   ``restore_last_chunk`` after it must bring back the pre-chunk pools.
+   Every served
    model but the two mixed ones (a host-bound layer path) prewarms at
    load, awaited before its first request.  Then the bf16 server
    reloads with a ``[[state]]``, a ``[[lora]]`` and a checkpoint on
@@ -2986,16 +2983,16 @@ def phase_tp_kernels(dev, rows: dict) -> None:
 def phase_phased_kernels(dev) -> dict:
     """``phased_matmul`` (``csrc/phased.cu``) against its plain version on
     the four big launches of a v7 layer (r/k/v, Wo, fkey, fval) at the 0.4B
-    and the 2.9B widths, B = 16 and 64, on bf16 weights and on int8 and
-    int4 codes, on a v5 0.4B layer's four in the same modes, and on all
-    eight launches of a v6 1B6 layer (its four LoRA launches - the five
+    and the 2.9B widths, B = 16 and 64, on bf16 weights and on int8, int4,
+    nf4 and sf4 codes, on a v5 0.4B layer's four in the same modes, and on
+    all eight launches of a v6 1B6 layer (its four LoRA launches - the five
     strided token-shift offsets among them - on bf16 weights, the four big
     ones in every mode), each launch timed on weights that rotate through
     more than the L2 holds; beside it ``torch.matmul`` on the same bf16
     products, ``v7_skinny_matmul`` (8 rows a launch) on the same weights,
     and the x and weight bytes the kernel's TMA boxes stage.  Returns the
-    kernels line's rows: the served shapes (v7 0.4B per mode, v5 0.4B
-    bf16) at B = 64."""
+    kernels line's rows: the shapes the model paths launch (v7 0.4B per
+    mode, v5 0.4B bf16 and sf4) at B = 64."""
     import torch
 
     from ai00_server_tpu_torch.ops import phased_matmul as pm
@@ -3038,19 +3035,20 @@ def phase_phased_kernels(dev) -> dict:
     # (width, the launches of a layer, weight modes, the kernels line's
     # row per mode at B = WIDE_BATCH): the served shapes give the rows.
     # `lora` launches hold bf16 weights in every mode: timed in bf16 only.
+    every = ("bf16", "int8", "int4", "nf4", "sf4")
     cases = [
-        ("0.4B", v7_layer(C, FFN), ("bf16", "int8", "int4"),
+        ("0.4B", v7_layer(C, FFN), every,
          {"bf16": "phased_matmul", "int8": "phased_matmul (int8)",
-          "int4": "phased_matmul (int4)"}),
-        ("2.9B", v7_layer(C29, F29), ("bf16", "int8", "int4"), {}),
-        ("v5 0.4B", v56_layer(C, F5, "add"), ("bf16", "int8", "int4"),
-         {"bf16": "phased_matmul (v5)"}),
+          "int4": "phased_matmul (int4)", "nf4": "phased_matmul (nf4)"}),
+        ("2.9B", v7_layer(C29, F29), every, {}),
+        ("v5 0.4B", v56_layer(C, F5, "add"), every,
+         {"bf16": "phased_matmul (v5)", "sf4": "phased_matmul (v5, sf4)"}),
         ("v6 1B6", {"lora_mw1": [(C6, 5 * tm, "tanh")],
                     "lora_mw2": [(tm, C6, "mix")] * 5,
                     "lora_dw1": [(C6, td, "tanh")],
                     "lora_dw2": [(td, C6, "expexp")],
                     **v56_layer(C6, F6, "gadd")},
-         ("bf16", "int8", "int4"), {}),
+         every, {}),
     ]
     rows = {}
     for width, groups, modes, row_names in cases:
@@ -3409,6 +3407,21 @@ def lora_dims(version: str) -> dict:
     return LORA if version == "v7" else LORA6
 
 
+@functools.lru_cache(maxsize=None)
+def parity_math(version: str) -> dict:
+    """The 2-layer parity model of ``version`` (math layout, f32; v6 / v5 /
+    v4 scaled by their fan-in), drawn once for the parity phase and the
+    mesh phase, which hold the same model (the draw is seconds of host
+    time a version).  Callers read it and never write to it."""
+    import numpy as np
+
+    from ai00_server_tpu_torch.testing import make_raw_weights
+
+    math = make_raw_weights(model_info(2, version), seed=SEED,
+                            dtype=np.float32, lora_dims=lora_dims(version))
+    return math if version == "v7" else fan_in_scaled(math)
+
+
 def fan_in_scaled(raw: dict) -> dict:
     """RWKV-6 / -5 / -4 weights with every matrix but the embedding (and
     the per-head bonus ``time_first`` and v5's per-head ``time_decay``)
@@ -3603,7 +3616,6 @@ def phase_parity(dev, version: str = "v7") -> dict:
     from ai00_server_tpu_torch.ops.wkv4 import wkv4_chunk
     from ai00_server_tpu_torch.ops.wkv_chunk import wkv56_chunk_plain
     from ai00_server_tpu_torch.ops.wkv_t1 import wkv7_t1, wkv56_t1
-    from ai00_server_tpu_torch.testing import make_raw_weights
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3613,10 +3625,7 @@ def phase_parity(dev, version: str = "v7") -> dict:
     # The WKV kernel of the layer path at T=1: v4's serves every T.
     C_, t1 = info.num_emb, {"v7": wkv7_t1, "v4": wkv4_chunk}.get(version,
                                                                  wkv56_t1)
-    math = make_raw_weights(info, seed=SEED, dtype=np.float32,
-                            lora_dims=lora_dims(version))
-    if version != "v7":
-        math = fan_in_scaled(math)
+    math = parity_math(version)
     rng = np.random.default_rng(SEED)
     B, T = 4, 40
     lengths = np.array([40, 33, 1, 0], np.int32)
@@ -3868,8 +3877,10 @@ def phase_parity(dev, version: str = "v7") -> dict:
 
 # The phased stacks' parity cases: (version, width, weight mode).
 PHASED_CASES = [("v7", "2.9B", None), ("v7", "2.9B", "int8"),
-                ("v7", "2.9B", "int4"), ("v6", "1B6", None),
-                ("v6", "1B6", "int8"), ("v5", "0.4B", None)]
+                ("v7", "2.9B", "int4"), ("v7", "2.9B", "nf4"),
+                ("v6", "1B6", None), ("v6", "1B6", "int8"),
+                ("v6", "1B6", "nf4"), ("v5", "0.4B", None),
+                ("v5", "0.4B", "sf4")]
 
 
 def phased_info(version: str, width: str, num_layer: int,
@@ -3882,19 +3893,79 @@ def phased_info(version: str, width: str, num_layer: int,
                      num_vocab=vocab, num_head=Cw // HEAD, head_size=HEAD)
 
 
+def phased_engine_run(info, params, mode: str, dev) -> dict:
+    """An ``Engine`` over a 2-layer nf4 / sf4 parity model at ``max_batch =
+    WIDE_BATCH``, as a server's reload builds one: its decode stack must be
+    the phased one under its graph (``stack_for`` at WIDE_BATCH rows).
+    Then ``Engine.prewarm(PREWARM_K)`` (the serving buckets), a ragged
+    greedy prefill of every row and a PREWARM_K-step decode chunk, with
+    the launch counts zeroed before the prewarm and read after the chunk:
+    ``phased_matmul`` must launch on the model's codes, ``v7_skinny_matmul``
+    never.  Returns the counts and the graph replays."""
+    import numpy as np
+    import torch
+
+    from ai00_server_tpu_torch.engine import Engine
+    from ai00_server_tpu_torch.loader import LoadedModel
+    from ai00_server_tpu_torch.ops import fused_decode, sampling
+    from ai00_server_tpu_torch.ops import phased_matmul as pm
+    from ai00_server_tpu_torch.ops import v7_decode as fd7
+
+    B, T = WIDE_BATCH, 16
+    tag = f"the {info.version.value} {mode}"
+    eng = Engine(LoadedModel(info=info, params=params), max_batch=B,
+                 token_chunk_size=T, device=dev)
+    pd = fused_decode.stack_for(info.version.value, params, B)
+    check(eng.stack is pd and isinstance(eng._graph, pd.DecodeGraph)
+          and pd is not fused_decode.module_for(info.version.value),
+          f"{tag} engine at max_batch {B} did not take the phased stack")
+    for k in (pm.phased_matmul, fd7.v7_skinny_matmul):
+        k.launches = 0
+    pm.phased_matmul.lut4_launches = 0
+    replays0 = fused_decode.DecodeGraph.total_replays
+    eng.prewarm(PREWARM_K)
+    rng = np.random.default_rng(SEED + 23)
+    for b in range(B):
+        eng.load_row_state(b, None)
+        eng.set_row_sampler(b, {"kind": sampling.KIND_GREEDY,
+                                "presence": 0.0, "frequency": 0.0})
+    lens = rng.integers(1, T + 1, B).astype(np.int32)
+    toks = rng.integers(1, info.num_vocab, (B, T)).astype(np.int32)
+    res = eng.step(toks, lens, np.ones(B, np.bool_))
+    seq, _ = eng.decode_chunk(res.tokens, np.ones(B, np.bool_), PREWARM_K)
+    torch.cuda.synchronize()
+    out = {"lut4_launches": pm.phased_matmul.lut4_launches,
+           "launches": pm.phased_matmul.launches,
+           "skinny": fd7.v7_skinny_matmul.launches,
+           "replays": fused_decode.DecodeGraph.total_replays - replays0}
+    seq = np.asarray(seq)
+    check(out["lut4_launches"] > 0 and out["skinny"] == 0
+          and out["replays"] > 0,
+          f"{tag} engine at max_batch {B} launched phased_matmul on codes "
+          f"{out['lut4_launches']} times and v7_skinny_matmul "
+          f"{out['skinny']} times in {out['replays']} graph replays")
+    check(seq.size == B * PREWARM_K
+          and bool(((seq >= 0) & (seq < info.num_vocab)).all()),
+          f"{tag} engine's decode chunk gave tokens {seq.shape}")
+    del eng
+    return out
+
+
 def phase_phased_parity(dev) -> dict:
     """The phased stacks on the card at 2 layers, bf16, B = 16 and 64: v7 at
-    the 2.9B widths (plain, int8, int4), v6 at the 1B6 widths (plain,
-    int8), v5 at the 0.4B widths (plain), the matrices scaled by their
-    fan-in.  From a ragged 8-token prefill (one row idle), three decode
+    the 2.9B widths (plain, int8, int4, nf4), v6 at the 1B6 widths (plain,
+    int8, nf4), v5 at the 0.4B widths (plain, sf4), the matrices scaled by
+    their fan-in.  From a ragged 8-token prefill (one row idle), three decode
     steps through ``forward_t1`` against ``forward_t1_plain`` on the card
     (``BF16_MODEL_TOL``), every launch in lockstep with its plain version,
     and the same steps replayed from the stack's CUDA graph (equal to the
     eager kernels bit for bit); ``stack_for`` must pick the phased stack at
     B and the fused one at 8, and the eager steps must launch
-    ``phased_matmul`` and no ``v7_skinny_matmul``.  Returns per case the
-    worst absolute error on the hidden and the launches per replay, and
-    the int4 launches of ``phased_matmul``."""
+    ``phased_matmul`` (on codes: the launches of their mode) and no
+    ``v7_skinny_matmul``; an nf4 / sf4 stack's replay is timed
+    (:func:`time_replay`).  Returns per case the worst absolute error on
+    the hidden, the launches per replay and those timings, and the int4
+    launches of ``phased_matmul`` and its nf4 / sf4 ones by mode."""
     import numpy as np
     import torch
 
@@ -3905,7 +3976,8 @@ def phase_phased_parity(dev) -> dict:
     from ai00_server_tpu_torch.ops import v7_decode as fd7
     from ai00_server_tpu_torch.testing import make_raw_weights
 
-    result = {"int4_launches": 0}
+    result = {"int4_launches": 0, "lut4_launches": {"nf4": 0, "sf4": 0},
+              "engine": {}}
     lora = {"v7": LORA29, "v6": LORA6, "v5": LORA6}
     for version, width, mode in PHASED_CASES:
         info = phased_info(version, width, 2)
@@ -3954,6 +4026,7 @@ def phase_phased_parity(dev) -> dict:
             for k in (pm.phased_matmul, fd7.v7_skinny_matmul):
                 k.launches = 0
             pm.phased_matmul.int4_launches = 0
+            pm.phased_matmul.lut4_launches = 0
             got = decode(pd.forward_t1)
             torch.cuda.synchronize()
             check(pm.phased_matmul.launches > 0
@@ -3962,7 +4035,16 @@ def phase_phased_parity(dev) -> dict:
                   f"launched phased_matmul {pm.phased_matmul.launches} "
                   f"and v7_skinny_matmul {fd7.v7_skinny_matmul.launches} "
                   "times")
+            coded = {"int4": pm.phased_matmul.int4_launches,
+                     **dict.fromkeys(pm.TABLE_MODES,
+                                     pm.phased_matmul.lut4_launches)}
+            check(mode not in coded or coded[mode] > 0,
+                  f"the {tag} phased stack at B={B} launched phased_matmul "
+                  f"on {mode} codes {coded.get(mode)} times")
             result["int4_launches"] += pm.phased_matmul.int4_launches
+            if mode in pm.TABLE_MODES:
+                result["lut4_launches"][mode] += (
+                    pm.phased_matmul.lut4_launches)
             plain = decode(pd.forward_t1_plain)
             for o in got:
                 check(all(bool(torch.isfinite(a).all()) for a in o),
@@ -4001,6 +4083,15 @@ def phase_phased_parity(dev) -> dict:
             label = f"{tag} B={B}"
             result[label] = {"max_abs_err": worst_abs,
                              "per_replay": graph.launches_per_replay}
+            if mode in pm.TABLE_MODES:
+                # The nf4 / sf4 stacks' replay beside its plain version and
+                # bound (2 layers): no served model holds the v6 / v5 ones.
+                st = time_replay(pd, p16, {k: t.clone()
+                                           for k, t in s0.items()},
+                                 graph, B, fd.FUSED_KEY)
+                result[label]["stack"] = st
+                print_wide(f"2 layers {tag} (parity model)",
+                           {f"phased B={B}": st})
             print(f"phased decode in bf16 on the card, {label} (2 layers, "
                   f"3 steps, row 2 idle): max |kernels - plain| / max "
                   f"|plain| over hidden and state per step "
@@ -4014,6 +4105,18 @@ def phase_phased_parity(dev) -> dict:
                   "(v7_ln_mix, phased_matmul, WKV), no v7_skinny_matmul; "
                   "inactive row bit-identical", flush=True)
             del graph, gstate, s0
+        if mode in pm.TABLE_MODES and version != "v7":
+            # The v6 / v5 4-bit models through an Engine (v7's: the nf4
+            # wide server).
+            run = phased_engine_run(info, p16, mode, dev)
+            result["engine"][tag] = run
+            print(f"Engine over the 2-layer {tag} parity model at max_batch "
+                  f"{WIDE_BATCH}: phased stack; prewarm, a ragged prefill "
+                  f"and a {PREWARM_K}-step greedy chunk launched "
+                  f"phased_matmul {run['launches']} times "
+                  f"({run['lut4_launches']} on {mode} codes) in "
+                  f"{run['replays']} graph replays, v7_skinny_matmul "
+                  f"{run['skinny']}", flush=True)
         del p16
         gc.collect()
         torch.cuda.empty_cache()
@@ -4053,13 +4156,18 @@ SERVED = {"bf16": (0, "Int8"), "int8": (L_FULL, "Int8"),
 SERVED_FAMILIES = {"v6 bf16": (0, "Int8"), "v5 bf16": (0, "Int8"),
                    "v4 bf16": (0, "Int8")}
 # max_batch = WIDE_BATCH: the phased stacks under their graphs, with a burst
-# of WIDE_BATCH concurrent completions.  v7 with every layer int8, v5 bf16.
-SERVED_WIDE = {"int8 wide": (L_FULL, "Int8"), "v5 bf16 wide": (0, "Int8")}
+# of WIDE_BATCH concurrent completions.  v7 with every layer int8 or nf4,
+# v5 bf16.
+SERVED_WIDE = {"int8 wide": (L_FULL, "Int8"), "nf4 wide": (L_FULL, "NF4"),
+               "v5 bf16 wide": (0, "Int8")}
 # RWKV-7 of head size 128 (H = 8) at the 0.4B width, L128 layers, bf16.
 HEAD_SERVED = "v7 N=128 bf16"
 ALL_SERVED = {**SERVED, **SERVED_FAMILIES, **SERVED_WIDE,
               HEAD_SERVED: (0, "Int8")}
 WIDE_TOKENS = 48  # per completion of the wide burst
+# The nf4 server's prefab (prefab_flow): the nf4 wide model loads it, the
+# same codes without quantizing the checkpoint on the host again.
+NF4_PREFAB = "rwkv7-0.4b-nf4.prefab"
 MIXED_TOKENS = 8  # per completion on the (eager, host-bound) layer path
 
 
@@ -4074,7 +4182,8 @@ def served_layers(kind: str) -> int:
 def write_site(tmp: Path) -> dict:
     """The checkpoint, the vocabulary and one config per served model:
     plain bf16, then ``quant = L`` and ``quant = L / 2`` (mixed) in int8 and
-    in nf4."""
+    in nf4, and ``quant = L`` int8 and nf4 at ``max_batch = WIDE_BATCH``
+    (nf4 from ``NF4_PREFAB``, which the nf4 server's prefab flow writes)."""
     import numpy as np
 
     from ai00_server_tpu_torch.loader import save_safetensors
@@ -4088,14 +4197,14 @@ def write_site(tmp: Path) -> dict:
     del raw
     (tmp / "vocab.json").write_text(json.dumps(synthetic_vocab()))
     cfgs = {}
-    for kind in (*SERVED, "int8 wide"):
+    for kind in (*SERVED, "int8 wide", "nf4 wide"):
         quant, quant_type = ALL_SERVED[kind]
         cfgs[kind] = tmp / f"Config-{kind.replace(' ', '-')}.toml"
         # The mixed models' layer path is host-bound (~0.28 s a step): a
         # prewarm's 82 steps there would take ~20 s, so they load without.
         cfgs[kind].write_text(f"""
 [model]
-name = "rwkv7-0.4b.st"
+name = "{NF4_PREFAB if kind == 'nf4 wide' else 'rwkv7-0.4b.st'}"
 path = "{tmp}"
 max_batch = {WIDE_BATCH if kind.endswith('wide') else MAX_BATCH}
 token_chunk_size = {CHUNK}
@@ -4634,6 +4743,7 @@ STATE_DELTA_TOL = 1e-3       # (c): f32 roundings of the state update only
 STATE_TOKENS = 32            # greedy tokens of each state / prefab answer
 INSTALL_REPS = 5
 LASTING_ST = "rwkv7-0.4b-lasting.st"
+L_STATE = 6                  # its layers (a quarter of the 0.4B's, for time)
 
 
 def lasting(raw: dict) -> dict:
@@ -4661,7 +4771,7 @@ def write_state_site(tmp: Path) -> tuple[Path, Path, Path]:
     from ai00_server_tpu_torch.testing import (make_raw_weights,
                                                to_converted_layout)
 
-    info = model_info(L_FULL)
+    info = model_info(L_STATE)
     raw = lasting(make_raw_weights(info, seed=SEED + 18, dtype=np.float32,
                                    lora_dims=LORA))
     save_safetensors(to_converted_layout(raw), str(tmp / LASTING_ST))
@@ -4670,10 +4780,10 @@ def write_state_site(tmp: Path) -> tuple[Path, Path, Path]:
     rng = np.random.default_rng(SEED + 17)
     state = {f"blocks.{i}.att.time_state": np.swapaxes(
         rng.standard_normal((H, N, N), dtype=np.float32) * STATE_SCALE,
-        -1, -2) for i in range(L_FULL)}
+        -1, -2) for i in range(L_STATE)}
     save_safetensors(state, str(tmp / "tuned.state"), dtype=np.float32)
     lora = {}
-    for i in range(L_FULL):
+    for i in range(L_STATE):
         for k, (n_in, n_out) in LORA_KEYS.items():
             a = rng.standard_normal((LORA_RANK, n_in), dtype=np.float32)
             b = rng.standard_normal((n_out, LORA_RANK), dtype=np.float32)
@@ -4756,11 +4866,12 @@ def replay_turns(engines: dict, n: int = 20) -> dict:
 
 async def state_flow(http, base, server, tmp: Path, base_engine) -> dict:
     """Custom initial states and LoRA on the bf16 0.4B server: reload it
-    with the ``LASTING_ST`` checkpoint (weights under which 24 bf16 layers
-    do not carry one flipped rounding far, so the whole depth is held to
-    the plain forward), a ``[[state]]`` entry (``tuned.state``) and a
-    ``[[lora]]`` entry (``lora.st``), then (a) a blended weight on the card
-    equals the host blend of the same files cast to bf16; (b)
+    with the ``LASTING_ST`` checkpoint (``L_STATE`` layers, weights under
+    which bf16 layers do not carry one flipped rounding far, so the whole
+    depth is held to the plain forward), a ``[[state]]`` entry
+    (``tuned.state``) and a ``[[lora]]`` entry (``lora.st``), then (a) a
+    blended weight on the card equals the host blend of the same files
+    cast to bf16; (b)
     ``/api/models/info`` lists the state; (c) ``/api/oai/states`` under the
     state returns the packed state after one token, held per part at every
     layer against the plain forward from the unpacked file (and the same
@@ -4805,7 +4916,7 @@ async def state_flow(http, base, server, tmp: Path, base_engine) -> dict:
     info, dev, params = env.model.info, env.engine.device, env.model.params
 
     # (a) the blend on the card against the host blend of the same files.
-    layer = L_FULL - 1
+    layer = L_STATE - 1
     key = f"blocks.{layer}.att.receptance.weight"
     with safe_open(str(model_path), framework="numpy") as f:
         raw = {key: f.get_tensor(key).astype(np.float32)}
@@ -4837,7 +4948,7 @@ async def state_flow(http, base, server, tmp: Path, base_engine) -> dict:
     text = env.tokenizer.token_to_bytes(STATE_TOKEN).decode()
     toks = list(env.tokenizer.encode(text))
     check(toks == [STATE_TOKEN], f"{text!r} encodes to {toks}")
-    shape = [L_FULL, HEAD + 2, C, 1]
+    shape = [L_STATE, HEAD + 2, C, 1]
     served = {}
     for which in ("tuned", "default"):
         body = {"input": text}
@@ -4853,15 +4964,15 @@ async def state_flow(http, base, server, tmp: Path, base_engine) -> dict:
     zero = env.engine.module.init_state(info, 1, device=dev)
     parts = {"att_x": slice(0, 1), "wkv": slice(1, HEAD + 1),
              "ffn_x": slice(HEAD + 1, HEAD + 2)}
-    # Per part, layer 0 (its inputs: the token and the state) and all 24
-    # layers, from the file and from the model's own state.
+    # Per part, layer 0 (its inputs: the token and the state) and every
+    # layer, from the file and from the model's own state.
     errs, want = {}, {}
     for which, init in (("tuned", file_state), ("default", zero)):
         st, _ = plain_row(params, init, toks, dev)
         want[which] = packing.pack_state(info, st)
         errs[which] = {f"{p}{' L0' if l0 else ''}": rel(
-            served[which][:1 if l0 else L_FULL, sl],
-            want[which][:1 if l0 else L_FULL, sl])
+            served[which][:1 if l0 else L_STATE, sl],
+            want[which][:1 if l0 else L_STATE, sl])
             for p, sl in parts.items() for l0 in (True, False)}
     out["states_err"] = errs
     check(max(max(e.values()) for e in errs.values()) <= BF16_MODEL_TOL,
@@ -5099,7 +5210,8 @@ async def prefab_flow(http, base, server, tmp: Path, kind: str,
           f"the {kind} prefab's requests launched {out['launches']}")
     check(after == before, f"the {kind} prefab answers {after!r}, the "
           f"model before the save {before!r}")
-    path.unlink()
+    if name != NF4_PREFAB:  # the nf4 wide model loads that one
+        path.unlink()
     return out
 
 
@@ -5324,8 +5436,8 @@ def wide_v7_params(dev):
 
 
 def phase_wide_stacks(dev) -> dict:
-    """The 2.9B v7 stacks (``L29`` layers) on the card, bf16 and int8 (codes
-    quantized on the card), phased beside fused at B = 16 and 64
+    """The 2.9B v7 stacks (``L29`` layers) on the card, bf16, int8 and nf4
+    (codes quantized on the card), phased beside fused at B = 16 and 64
     (:func:`time_wide_stacks` over a fresh state pool of 64 rows)."""
     import torch
 
@@ -5334,12 +5446,13 @@ def phase_wide_stacks(dev) -> dict:
     info, params = wide_v7_params(dev)
     pool = v7.init_state(info, WIDE_BATCH, device=dev)
     out = {"bf16": time_wide_stacks(params, "V7", pool)}
-    qparams = quantized_params(params, "V7", "int8")
-    del params
-    gc.collect()
-    torch.cuda.empty_cache()
-    out["int8"] = time_wide_stacks(qparams, "V7", pool)
-    del qparams, pool
+    for mode in ("int8", "nf4"):
+        qparams = quantized_params(params, "V7", mode)
+        out[mode] = time_wide_stacks(qparams, "V7", pool)
+        del qparams
+        gc.collect()
+        torch.cuda.empty_cache()
+    del params, pool
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -5463,15 +5576,11 @@ def phase_mesh_parity(dev, places=None, version: str = "v7",
     from ai00_server_tpu_torch.ops.wkv_chunk import wkv7_chunk, wkv56_chunk
     from ai00_server_tpu_torch.ops.wkv_t1 import wkv7_t1, wkv56_t1
     from ai00_server_tpu_torch.parallel import make_mesh
-    from ai00_server_tpu_torch.testing import make_raw_weights
 
     info = model_info(2, version)
     module = get_version_module(info.version)
     fd = fused_decode.module_for(info.version.value)
-    math = make_raw_weights(info, seed=SEED, dtype=np.float32,
-                            lora_dims=lora_dims(version))
-    if version != "v7":
-        math = fan_in_scaled(math)
+    math = parity_math(version)
     rng = np.random.default_rng(SEED + 19)
     prompts = [rng.integers(1, VOCAB, n).tolist() for n in MESH_LENGTHS]
     wkv_names = TP_WKV[version]
@@ -5849,17 +5958,9 @@ def mesh_flow(dev, cfg: Path) -> dict:
     return {"parity": parity, "served": served, "distinct": distinct}
 
 
-# Prewarm (prewarm_flow, in the bf16 serve): the first request of a fresh
-# server process with and without Engine.prewarm, and the pools a prewarm
-# must leave as they were.
+# Prewarm (prewarm_pools, in the bf16 serve): the pools a prewarm must leave
+# as they were.  Every served model but the mixed ones prewarms at load.
 PREWARM_K = 16           # prewarm's decode_chunk_size: the served configs'
-PREWARM_TOKENS = 16      # greedy tokens of each timed request
-PREWARM_PREFAB = "rwkv7-0.4b-bf16.prefab"
-PREWARM_CHILD_TIMEOUT = 300
-# Two ~100-token prompts that part at their first token, so the second
-# request prefills anew (no prefix-cache hit) and reads as the warm
-# reference.
-PREWARM_PROMPTS = ("first request: " + PROMPT * 3, "warm request: " + PROMPT * 3)
 
 
 def engine_pools(eng) -> dict:
@@ -6015,153 +6116,14 @@ async def stream_chat(http, base: str, content: str, max_tokens: int):
     return ttft, time.monotonic() - t0, text
 
 
-async def prewarm_child(cfg: Path, device: str = "cuda") -> dict:
-    """One fresh server process: load ``cfg``'s model through
-    ``Middleware.reload`` (its seconds), await the prewarm where the config
-    asks for one (its seconds: the future is created as the reload
-    returns), then serve on localhost and stream the two
-    ``PREWARM_PROMPTS`` one after the other, each for its TTFT, total
-    seconds and greedy text."""
-    import aiohttp
-    from aiohttp import web
-
-    from ai00_server_tpu_torch.server.app import Server
-    from ai00_server_tpu_torch.server.config import Config
-
-    config = Config.from_toml(str(cfg))
-    server = Server(config, device=device)
-    t0 = time.monotonic()
-    await server.middleware.reload(config.to_reload_request())
-    out = {"prewarm": config.to_reload_request().prewarm,
-           "load_s": time.monotonic() - t0, "prewarm_s": None}
-    future = server.middleware.env.prewarm_future
-    check((future is not None) == out["prewarm"],
-          f"prewarm = {out['prewarm']} gave the future {future}")
-    if future is not None:
-        t0 = time.monotonic()
-        await future
-        out["prewarm_s"] = time.monotonic() - t0
-    runner = web.AppRunner(server.app)
-    await runner.setup()
-    await web.TCPSite(runner, "127.0.0.1", 0).start()
-    base = f"http://127.0.0.1:{runner.addresses[0][1]}"
-    try:
-        async with aiohttp.ClientSession() as http:
-            for name, prompt in zip(("first", "second"), PREWARM_PROMPTS):
-                ttft, total, text = await stream_chat(http, base, prompt,
-                                                      PREWARM_TOKENS)
-                out[name] = {"ttft_s": ttft, "total_s": total, "text": text}
-    finally:
-        await server.middleware.unload()
-        await runner.cleanup()
-    return out
-
-
-def prewarm_child_main(cfg: str, device: str = "cuda") -> None:
-    """``chip_smoke.py --prewarm-child CONFIG``: :func:`prewarm_child` in
-    this fresh process; its result is the last line, as JSON."""
-    sys.path.insert(0, str(ROOT))
-    print(json.dumps(asyncio.run(prewarm_child(Path(cfg), device))),
-          flush=True)
-
-
-async def prewarm_flow(server, tmp: Path, device: str = "cuda") -> dict:
-    """On the bf16 server: :func:`prewarm_pools` on its model, then its
-    prefab saved with ``Middleware.save`` and loaded by two fresh server
-    processes (``chip_smoke.py --prewarm-child``), one with ``[model]
-    prewarm = false``, then one with ``prewarm = true``, one after the
-    other: each process's cold first request, its warm second one and the
-    prewarm's seconds.  Fails if a child fails (a prewarm that raised
-    included) or the two children's greedy texts differ."""
-    import torch
-
-    env = server.middleware.env
-    out = prewarm_pools(env.model, env.engine.device)
-    path = tmp / PREWARM_PREFAB
-    t0 = time.monotonic()
-    await server.middleware.save(str(path))
-    out["save_s"] = time.monotonic() - t0
-    out["prefab_bytes"] = path.stat().st_size
-    for prewarm in (False, True):
-        cfg = tmp / f"Config-prewarm-{str(prewarm).lower()}.toml"
-        cfg.write_text(f"""
-[model]
-name = "{PREWARM_PREFAB}"
-path = "{tmp}"
-max_batch = {MAX_BATCH}
-token_chunk_size = {CHUNK}
-decode_chunk_size = {PREWARM_K}
-prewarm = {str(prewarm).lower()}
-
-[tokenizer]
-path = "{tmp / 'vocab.json'}"
-
-[listen]
-ip = "127.0.0.1"
-port = 0
-""")
-        t0 = time.monotonic()
-        proc = await asyncio.create_subprocess_exec(
-            sys.executable, str(ROOT / "chip_smoke.py"), "--prewarm-child",
-            str(cfg), device, stdout=asyncio.subprocess.PIPE,
-            stderr=asyncio.subprocess.STDOUT)
-        try:
-            stdout, _ = await asyncio.wait_for(proc.communicate(),
-                                               PREWARM_CHILD_TIMEOUT)
-        except asyncio.TimeoutError:
-            proc.kill()
-            await proc.wait()
-            fail(f"the prewarm = {prewarm} server process ran past "
-                 f"{PREWARM_CHILD_TIMEOUT} s")
-        lines = stdout.decode(errors="replace").strip().splitlines()
-        found = [ln for ln in lines if ln.startswith("{")]
-        check(proc.returncode == 0 and found,
-              f"the prewarm = {prewarm} server process exited "
-              f"{proc.returncode}: {' | '.join(lines[-15:])}")
-        child = json.loads(found[-1])
-        child["process_s"] = time.monotonic() - t0
-        out["on" if prewarm else "off"] = child
-    path.unlink()
-    for name in ("first", "second"):
-        check(out["on"][name]["text"] == out["off"][name]["text"],
-              f"the {name} greedy answer with prewarm "
-              f"{out['on'][name]['text']!r} is not the one without "
-              f"{out['off'][name]['text']!r}")
-    if device != "cpu":
-        torch.cuda.synchronize()
-    return out
-
-
 def print_prewarm(pw: dict, card: str) -> None:
-    from ai00_server_tpu_torch.tokenizer import Tokenizer
-
-    on, off = pw["on"], pw["off"]
-    n_prompt = len(Tokenizer.from_json(json.dumps(synthetic_vocab()))
-                   .encode(PREWARM_PROMPTS[0]))
-    print(f"prewarm flow on the bf16 server ({card}; {pw['seconds']:.1f} s): "
-          f"Engine.prewarm({PREWARM_K}) on a fresh 8-row engine over the "
+    print(f"prewarm check on the bf16 server ({card}; {pw['seconds']:.1f} "
+          f"s): Engine.prewarm({PREWARM_K}) on a fresh 8-row engine over the "
           f"served model left every pool, host flag and the snapshot ring "
           f"bit-equal ({pw['replays']} graph replays, {pw['wkv7_chunk']} "
           f"wkv7_chunk launches, {pw['warm_prewarm_s']:.3f} s in this warm "
           "process), so did decode_chunk(snapshot=False), and "
-          "restore_last_chunk brought back the pre-chunk pools; prefab "
-          f"{pw['prefab_bytes'] / 1e6:.1f} MB saved in {pw['save_s']:.2f} s",
-          flush=True)
-    for label, run in (("prewarm = false", off), ("prewarm = true", on)):
-        pre = ("" if run["prewarm_s"] is None else
-               f", prewarm {run['prewarm_s']:.3f} s after it")
-        print(f"fresh server process, {label} ({card}): load "
-              f"{run['load_s']:.3f} s{pre}; first request (a chat of a "
-              f"{n_prompt}-token text, "
-              f"{PREWARM_TOKENS} greedy tokens, streamed) TTFT "
-              f"{run['first']['ttft_s']:.4f} s, total "
-              f"{run['first']['total_s']:.4f} s; second request TTFT "
-              f"{run['second']['ttft_s']:.4f} s, total "
-              f"{run['second']['total_s']:.4f} s; the process "
-              f"{run['process_s']:.1f} s from its start to its exit",
-              flush=True)
-    print(f"prewarm: the greedy answers of the two processes agree, first "
-          f"{on['first']['text'][:40]!r}", flush=True)
+          "restore_last_chunk brought back the pre-chunk pools", flush=True)
 
 
 async def serve(cfg: Path, kind: str, device="cuda") -> dict:
@@ -6250,10 +6212,12 @@ async def serve(cfg: Path, kind: str, device="cuda") -> dict:
             wkv7_t1, by_layer, ffn7_t1_l, matmul_int8)})
     else:
         counted.update({k.__name__: (k, "launches") for k in fd.KERNELS})
-    if kind in ("int8", "nf4", "int8 wide"):
+    if kind in ("int8", "nf4", "int8 wide", "nf4 wide"):
         counted["matmul_int8"] = (matmul_int8, "launches")
     if kind == "int8 wide":
         counted["phased_matmul (int8)"] = (phased_matmul, "int8_launches")
+    if kind == "nf4 wide":
+        counted["phased_matmul (nf4)"] = (phased_matmul, "lut4_launches")
     if kind == "int8":
         counted["v7_skinny_matmul (int8)"] = (fd.v7_skinny_matmul,
                                               "int8_launches")
@@ -6366,8 +6330,8 @@ async def serve(cfg: Path, kind: str, device="cuda") -> dict:
                 result["bnf"] = await bnf_flow(http, base, server)
                 result["bnf"]["seconds"] = time.monotonic() - t0
                 t0 = time.monotonic()
-                result["prewarm"] = await prewarm_flow(server, cfg.parent,
-                                                       device)
+                env = server.middleware.env
+                result["prewarm"] = prewarm_pools(env.model, env.engine.device)
                 result["prewarm"]["seconds"] = time.monotonic() - t0
                 # Reloads the server with a state and a LoRA: last.
                 t0 = time.monotonic()
@@ -6455,54 +6419,56 @@ def main() -> None:
     rows.update(phase_ivf_kernels(dev))
     print(f"phase 2 (kernels) {time.monotonic() - t0:.1f} s", flush=True)
 
-    t0 = time.monotonic()
-    parities = {version: phase_parity(dev, version)
-                for version in ("v7", "v6", "v5", "v4")}
-    parity, parity_v6 = parities["v7"], parities["v6"]
-    phased = phase_phased_parity(dev)
-    print(f"phase 3 (parity) {time.monotonic() - t0:.1f} s", flush=True)
-
-    t0 = time.monotonic()
-    join_head_build(head_build)
-    head_rows = phase_head_kernels(dev, rows)
-    head_launches = phase_head_parity(dev)
-    print(f"phase 3b (head sizes {list(HEAD_SIZES)}) "
-          f"{time.monotonic() - t0:.1f} s", flush=True)
-
-    t0 = time.monotonic()
+    # The v7 0.4B and RWKV-6 checkpoints are written on a thread of their
+    # own (host work: numpy and the disk) while phases 3 and 3b run, the
+    # RWKV-5 / -4 and head-size ones each while the models before it are
+    # served; at most two on disk.
     tmp_root = ROOT / "chip_smoke_tmp"
     tmp_root.mkdir(exist_ok=True)
-    # The RWKV-6 / -5 / -4 and head-size checkpoints are written one after
-    # the other on a thread of their own (host work: numpy and the disk),
-    # each while the models before it are served; at most two on disk.
+    tmp = Path(tempfile.mkdtemp(dir=tmp_root))
     writer = ThreadPoolExecutor(max_workers=1)
     try:
-        with tempfile.TemporaryDirectory(dir=tmp_root) as tmp:
-            writes = [functools.partial(write_site_family, Path(tmp), v)
-                      for v in ("v6", "v5", "v4")]
-            writes.append(functools.partial(write_site_head, Path(tmp)))
-            cfgs = write_site(Path(tmp))
-            pending = writer.submit(writes[0])
-            served = {kind: timed_serve(cfgs[kind], kind) for kind in cfgs}
-            mesh_flow(dev, cfgs["bf16"])
-            (Path(tmp) / "rwkv7-0.4b.st").unlink()
-            for i, version in enumerate(("v6", "v5", "v4")):
-                cfgs, path = pending.result()
-                pending = writer.submit(writes[i + 1])
-                served.update({kind: timed_serve(cfgs[kind], kind)
-                               for kind in cfgs})
-                if version == "v6":  # RWKV-6 tensor parallel over HTTP
-                    t1 = time.monotonic()
-                    mesh_v6 = asyncio.run(mesh_serve(cfgs["v6 bf16"], dev,
-                                                     "v6"))
-                    print_mesh_served("v6", mesh_v6, L6,
-                                      time.monotonic() - t1)
-                path.unlink()
-            cfg, path = pending.result()
-            served[HEAD_SERVED] = timed_serve(cfg, HEAD_SERVED)
+        site = writer.submit(write_site, tmp)
+        writes = [functools.partial(write_site_family, tmp, v)
+                  for v in ("v6", "v5", "v4")]
+        writes.append(functools.partial(write_site_head, tmp))
+        pending = writer.submit(writes[0])
+
+        t0 = time.monotonic()
+        parities = {version: phase_parity(dev, version)
+                    for version in ("v7", "v6", "v5", "v4")}
+        parity, parity_v6 = parities["v7"], parities["v6"]
+        phased = phase_phased_parity(dev)
+        print(f"phase 3 (parity) {time.monotonic() - t0:.1f} s", flush=True)
+
+        t0 = time.monotonic()
+        join_head_build(head_build)
+        head_rows = phase_head_kernels(dev, rows)
+        head_launches = phase_head_parity(dev)
+        print(f"phase 3b (head sizes {list(HEAD_SIZES)}) "
+              f"{time.monotonic() - t0:.1f} s", flush=True)
+
+        t0 = time.monotonic()
+        cfgs = site.result()
+        served = {kind: timed_serve(cfgs[kind], kind) for kind in cfgs}
+        (tmp / NF4_PREFAB).unlink()
+        mesh_flow(dev, cfgs["bf16"])
+        (tmp / "rwkv7-0.4b.st").unlink()
+        for i, version in enumerate(("v6", "v5", "v4")):
+            cfgs, path = pending.result()
+            pending = writer.submit(writes[i + 1])
+            served.update({kind: timed_serve(cfgs[kind], kind)
+                           for kind in cfgs})
+            if version == "v6":  # RWKV-6 tensor parallel over HTTP
+                t1 = time.monotonic()
+                mesh_v6 = asyncio.run(mesh_serve(cfgs["v6 bf16"], dev, "v6"))
+                print_mesh_served("v6", mesh_v6, L6, time.monotonic() - t1)
             path.unlink()
+        cfg, path = pending.result()
+        served[HEAD_SERVED] = timed_serve(cfg, HEAD_SERVED)
+        path.unlink()
     finally:
-        writer.shutdown(wait=True)
+        writer.shutdown(wait=True, cancel_futures=True)
         shutil.rmtree(tmp_root, ignore_errors=True)
     t1 = time.monotonic()
     wide_29 = phase_wide_stacks(dev)
@@ -6545,7 +6511,9 @@ def main() -> None:
                         ("v5 bf16 wide", {"phased_matmul (v5)":
                                           "phased_matmul"}),
                         ("int8 wide", {"phased_matmul (int8)":
-                                       "phased_matmul (int8)"})):
+                                       "phased_matmul (int8)"}),
+                        ("nf4 wide", {"phased_matmul (nf4)":
+                                      "phased_matmul (nf4)"})):
         for row, counter in names.items():
             rows[row]["launches"] = served[kind]["launches"][counter]
     # The WKV kernels at the other head sizes: the launches of the head-size
@@ -6560,14 +6528,19 @@ def main() -> None:
         check(row["launches"] > 0, f"no model path launched {name}")
     rows.update(head_rows)
     # phased_matmul on bf16 weights at v7's widths: the int8 burst's LoRA
-    # launches.  On int4 codes: no served model holds them; its model path
-    # is the parity phase's int4 2.9B phased stacks.
+    # launches.  On int4 codes: no served model holds them; their model
+    # path is the parity phase's int4 2.9B phased stack.  On sf4 codes at
+    # v5's widths: the Engine over the sf4 v5 parity model.
     wide_int8 = served["int8 wide"]["launches"]
     rows["phased_matmul"]["launches"] = (wide_int8["phased_matmul"]
                                          - wide_int8["phased_matmul (int8)"])
     rows["phased_matmul (int4)"]["launches"] = phased["int4_launches"]
-    check(phased["int4_launches"] > 0,
-          "no model path launched phased_matmul on int4 codes")
+    rows["phased_matmul (v5, sf4)"]["launches"] = \
+        phased["engine"]["v5 0.4B sf4"]["lut4_launches"]
+    for mode, n in (("int4", phased["int4_launches"]),
+                    *phased["lut4_launches"].items()):
+        check(n > 0, f"no model path launched phased_matmul on {mode} "
+              "codes")
     # ivf_score's main path: the retrieval requests of the bf16 server.
     rag = served["bf16"]["rag"]
     rows["ivf_score"]["launches"] = rag["ivf_launches"]
@@ -6609,11 +6582,11 @@ def main() -> None:
     print(f"state flow on the bf16 server ({card}; {st['seconds']:.1f} s): "
           f"reload with {LASTING_ST}, a [[state]] and a rank-{LORA_RANK} "
           f"[[lora]] over "
-          f"{len(LORA_KEYS)} matrices of each of {L_FULL} layers in "
+          f"{len(LORA_KEYS)} matrices of each of {L_STATE} layers in "
           f"{st['load_s']:.2f} s; (a) a blended weight on the card equals "
           f"the host blend cast to bf16 (the blend moved it by up to "
           f"{st['blend_changed']:.3e}); (b) /api/models/info lists the "
-          f"state; (c) /api/oai/states {[L_FULL, HEAD + 2, C, 1]} in "
+          f"state; (c) /api/oai/states {[L_STATE, HEAD + 2, C, 1]} in "
           f"{st['states_s_tuned']:.3f} s under the state, "
           f"{st['states_s_default']:.3f} s without; max |served - plain "
           f"forward| / max |plain| per part from the file "
@@ -6647,7 +6620,8 @@ def main() -> None:
           f"/embeddings echoes pooling 'state'; launches {st['launches']}, "
           f"{st['replays']} graph replays; the decode replay "
           f"{st['replay_ms']['lora']:.5f} ms with the LoRA and a custom "
-          f"state against {st['replay_ms']['base']:.5f} ms without (median "
+          f"state ({L_STATE} layers) against "
+          f"{st['replay_ms']['base']:.5f} ms without ({L_FULL}; median "
           "of 3, in turns)", flush=True)
     for kind in ("int8", "nf4"):
         pf = served[kind]["prefab"]
@@ -6734,6 +6708,8 @@ def main() -> None:
     # is the parity phase's at the same B (v7: the 2.9B int8 stack).
     for kind, version, label, replaces in (
             ("int8 wide", "v7", "v7 2.9B int8 B=64",
+             "ai00_server_tpu/ops/v7_phased_pallas.py:780"),
+            ("nf4 wide", "v7", "v7 2.9B nf4 B=64",
              "ai00_server_tpu/ops/v7_phased_pallas.py:780"),
             ("v5 bf16 wide", "v5", "v5 0.4B bf16 B=64",
              "ai00_server_tpu/ops/v56_phased_pallas.py:439")):
@@ -6825,7 +6801,4 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--prewarm-child"]:
-        prewarm_child_main(*sys.argv[2:4])
-    else:
-        main()
+    main()

@@ -9,6 +9,8 @@ machine need not have).  Tolerance
 and sums in another order than the plain version.
 """
 
+import ctypes
+
 import pytest
 import torch
 
@@ -1880,7 +1882,7 @@ def _coded(prods, mode):
 
 @pytest.mark.parametrize("mode,group", [
     (mode, group) for group in sorted(PHASED_GROUPS)
-    for mode in ("none", "int8", "int4")
+    for mode in ("none", "int8", "int4", "nf4", "sf4")
     # codes take K in whole scale blocks
     if mode == "none" or all(K % 128 == 0 for K, *_ in PHASED_GROUPS[group])])
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -1903,7 +1905,7 @@ def test_phased_matmul_kernel_matches_plain(dev, mode, group, dtype, B):
         assert torch.equal(g, g2)
 
 
-@pytest.mark.parametrize("mode", ["none", "int8", "int4"])
+@pytest.mark.parametrize("mode", ["none", "int8", "int4", "nf4", "sf4"])
 @pytest.mark.parametrize("B", [9, 64, 128])
 def test_phased_matmul_graph_replay_equals_eager(dev, mode, B):
     """Two eager launches and a CUDA graph's replay give equal bits."""
@@ -1932,8 +1934,29 @@ def test_phased_matmul_kernel_refuses_what_it_does_not_take(dev):
     (p,) = _products(gen, dev, torch.bfloat16, 16,
                      [(1024, 1024, "none", False, False, "cd")])
     q = quant.QUANTIZERS["nf4"](p.W.float())
-    with pytest.raises(ValueError, match="weight mode"):
-        pm.phased_matmul([fd.Product(p.x, q.q, scale=q.scale, mode="nf4")])
+    q8 = quant.QUANTIZERS["int8"](p.W.float())
+    # one launch, one weight mode
+    with pytest.raises(ValueError, match="all plain or all int8"):
+        pm.phased_matmul([fd.Product(p.x, q.q, scale=q.scale, mode="nf4"),
+                          fd.Product(p.x, q8.q, scale=q8.scale)])
+    # the C interface: an unknown weight kind, a level table beside int8
+    # codes, a level outside a signed byte
+    table, _, _, _, _ = fd.launch_table(
+        [fd.Product(p.x, q.q, scale=q.scale, mode="nf4")], pm.MODES)
+    ptab = fd.plan_table(pm.plan([(1024, 1024)], 16, "nf4"))
+    lib = _build.library("phased")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    good = pm.levels_table("nf4")
+    wide = (ctypes.c_int32 * 16)(*range(120, 136))
+    for wbits, levels in ((5, None), (8, good), (4, wide)):
+        assert lib.phased_matmul_launch(
+            ctypes.addressof(table), 1, ctypes.addressof(ptab), 1, 1, wbits,
+            ctypes.addressof(levels) if levels else None, stream) == 1
+    torch.cuda.synchronize()
+    # the occupancy query: each kernel kind of kernel_kind, and no other
+    for mode in pm.MODES:
+        assert lib.phased_max_clusters(pm.kernel_kind(mode), 64, 2) > 0
+    assert lib.phased_max_clusters(5, 64, 2) == -1
     (odd,) = _products(gen, dev, torch.bfloat16, 16,
                        [(1024, 40, "none", False, False, "cd")])
     with pytest.raises(ValueError, match="multiple of 16"):

@@ -6,7 +6,11 @@ from numpy seeds) goes through ``ai00_server_tpu.ops.v7_phased_pallas`` —
 the Pallas kernel itself, in interpret mode, ``na=1`` and ``na=2`` — and
 through the port's ``ops/v7_phased`` on CPU tensors, where every wrapper
 runs its kernel's plain version, at B=12 (above the 8 rows of the fused
-products) with one inactive row, whose state must keep its bits.
+products) with one inactive row, whose state must keep its bits.  An nf4 /
+sf4 model reaches the Pallas kernel as the JAX engine gives it one on its
+TPU, every 4-bit leaf turned into its int8 surrogate
+(``quant.surrogate_group``: the same levels and 64-row scale blocks), and
+the port's stack as the packed codes.
 
 Tolerances, relative to each tensor's largest magnitude:
 
@@ -30,6 +34,7 @@ blocks added in order) to 1e-6 of scale, and shown to differ from the
 weight-side scaling of the fused products.
 """
 
+import copy
 import functools
 
 import numpy as np
@@ -43,6 +48,7 @@ from ai00_server_tpu.engine import Engine as JEngine
 from ai00_server_tpu.loader import LoadedModel as JLoaded
 from ai00_server_tpu.models import ModelVersion
 from ai00_server_tpu.models import v7 as jv7
+from ai00_server_tpu.ops import quant as jquant
 from ai00_server_tpu.ops import sampling as jsampling
 from ai00_server_tpu.ops import v7_decode_pallas as jfd
 from ai00_server_tpu.ops import v7_phased_pallas as jpd
@@ -141,16 +147,36 @@ def check_step(name, state, t1, l1, jh, js, th, ts):
         assert not np.array_equal(ts[k].numpy()[:, 0], state[k][:, 0])
 
 
+@functools.lru_cache(maxsize=None)
+def jax_surrogate(case):
+    """The JAX params of an nf4 / sf4 ``case`` as the JAX engine serves them
+    on its TPU: a deep copy with every 4-bit leaf turned into its int8
+    surrogate (``surrogate_group`` converts in place), and the fused layout
+    made anew from it."""
+    _, _, jparams, _ = make_pair(case)
+    params = copy.deepcopy({k: v for k, v in jparams.items()
+                            if k != jfd.FUSED_KEY})
+    assert set(jquant.surrogate_group(params).values()) == {
+        case.split("-")[-1]}
+    params[jfd.FUSED_KEY] = jfd.make_fused_layout(params)
+    return params
+
+
 @pytest.mark.parametrize("case", ["float32", "bfloat16", "float32-int8",
                                   "bfloat16-int8", "float32-int4",
-                                  "bfloat16-int4"])
+                                  "bfloat16-int4", "float32-nf4",
+                                  "bfloat16-nf4", "float32-sf4",
+                                  "bfloat16-sf4"])
 def test_step_with_inactive_row_equals_jax_phased(case):
     name, info, jparams, tparams = make_pair(case)
-    assert jpd.can_phase(jparams, batch=B, na=1)
+    # nf4 / sf4: the TPU kernel reads the int8 surrogate codes.
+    jstep = (jax_surrogate(case) if case.endswith(("nf4", "sf4"))
+             else jparams)
+    assert jpd.can_phase(jstep, batch=B, na=1)
     assert tpd.can_phase(tparams, B)
     state = advanced_state(info, jparams)
     t1, l1 = step_inputs()
-    jh, js = jax_phased(jparams, state, t1, l1)
+    jh, js = jax_phased(jstep, state, t1, l1)
     ts = torch_state(state)
     th, ts_out = tpd.forward_t1(tparams, ts, torch.from_numpy(t1),
                                 torch.from_numpy(l1))
@@ -220,7 +246,10 @@ def mono_dot_np(x, codes, scale, cd):
 
 def mm_case(mode, cd, K=512, Nout=256, Bx=12, seed=3):
     """A product of ``mode`` weights in ``cd``: (x tensor, W, scale, codes
-    (nb, blk, N) as values, scales) from a numpy seed."""
+    (nb, blk, N) as values, scales) from a numpy seed.  nf4 / sf4: the
+    port's packed codes and scales, equal to the JAX quantizer's bit for
+    bit, and as values the JAX package's int8 surrogate of its codes (what
+    its phased kernel reads)."""
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((Bx, K)).astype(np.float32)
     w = rng.standard_normal((K, Nout)).astype(np.float32) / np.sqrt(K)
@@ -233,14 +262,23 @@ def mm_case(mode, cd, K=512, Nout=256, Bx=12, seed=3):
     q = tquant.QUANTIZERS[mode](w)
     if mode == "int8":
         codes = q.q.numpy().astype(np.float32)
-    else:
+    elif mode == "int4":
         packed = q.q.numpy().astype(np.int16)
         codes = np.concatenate([(packed & 15) - 8, (packed >> 4) - 8],
                                axis=-2).astype(np.float32)
+    else:
+        jq = jquant.QUANTIZERS[mode](w)
+        np.testing.assert_array_equal(q.q.numpy(), np.asarray(jq.q))
+        np.testing.assert_array_equal(q.scale.numpy(), np.asarray(jq.scale))
+        sur = jquant.to_int8_surrogate(jq)
+        assert sur.mode == "int8" and np.asarray(sur.q).shape == (
+            K // 64, 64, Nout)
+        return (xt, q.q, q.scale, np.asarray(sur.q).astype(np.float32),
+                np.asarray(sur.scale))
     return xt, q.q, q.scale, codes, q.scale.numpy()
 
 
-@pytest.mark.parametrize("mode", ["none", "int8", "int4"])
+@pytest.mark.parametrize("mode", ["none", "int8", "int4", "nf4", "sf4"])
 @pytest.mark.parametrize("cd", ["float32", "bfloat16"])
 def test_phased_matmul_plain_equals_mono_dot(mode, cd):
     xt, W, scale, codes, s = mm_case(mode, cd)
@@ -312,13 +350,12 @@ def test_phased_matmul_plain_epilogues_equal_skinny(cd):
 @pytest.mark.parametrize("case,batch,stack", [
     ("float32", 8, "fused"), ("float32", 9, "phased"),
     ("bfloat16-int8", 1, "fused"), ("bfloat16-int8", 64, "phased"),
-    ("float32-int4", 12, "phased"), ("float32-nf4", 12, "fused"),
-    ("float32-sf4", 64, "fused")])
+    ("float32-int4", 12, "phased"), ("float32-nf4", 12, "phased"),
+    ("float32-sf4", 64, "phased"), ("bfloat16-nf4", 8, "fused")])
 def test_stack_for_picks_phased_above_eight_rows(case, batch, stack):
-    """Phased above the fused products' 8 rows, for plain, int8 and int4
-    weights; nf4 / sf4 keep the fused stack at any batch (the TPU's phased
-    kernel reads them only as int8 surrogate codes, which the port does not
-    carry)."""
+    """Phased above the fused products' 8 rows in every weight mode (nf4 /
+    sf4 as packed codes, where the TPU's phased kernel reads their int8
+    surrogate); the fused stack at 8 rows or fewer."""
     _, _, _, tparams = make_pair(case)
     want = tpd if stack == "phased" else tfd
     assert tfused.stack_for("V7", tparams, batch) is want
@@ -378,6 +415,35 @@ def test_engine_max_batch_12_decodes_as_jax(monkeypatch):
     j = JEngine(JLoaded(info=info, params=params, init_wkv=None),
                 max_batch=ENGINE_ROWS, token_chunk_size=CHUNK)
     tparams = params_from_numpy(jax.tree.map(np.asarray, params), "cpu")
+    decodes_as_jax(j, info, tparams, monkeypatch)
+
+
+@pytest.mark.parametrize("mode", ["nf4", "sf4"])
+def test_engine_max_batch_12_4bit_decodes_as_jax(mode, monkeypatch):
+    """The same with every layer in ``mode``: the port's 12-row engine takes
+    the phased stack on the packed codes; the JAX engine, off its TPU,
+    keeps them packed too (no int8 surrogate) and decodes on its own path.
+    Both hold the int8 LM head made from the same codes
+    (``AI00_QUANT_HEAD=on`` for the JAX engine, its ``_head_q`` carried
+    across).  Tokens equal, row states within 2e-4 of their scale."""
+    monkeypatch.setenv("AI00_QUANT_HEAD", "on")
+    info = tiny_info(ModelVersion.V7, num_layer=L, num_emb=128, head_size=N,
+                     num_vocab=V)
+    raw = make_raw_weights(info, seed=71, dtype=np.float32)
+    params = make_params(info, raw, dtype=np.float32,
+                         quant={i: mode for i in range(L)})
+    j = JEngine(JLoaded(info=info, params=params, init_wkv=None),
+                max_batch=ENGINE_ROWS, token_chunk_size=CHUNK)
+    assert "_head_q" in j.model.params
+    tparams = params_from_numpy(jax.tree.map(np.asarray, j.model.params),
+                                "cpu")
+    assert tparams["layers"][0]["ffn"]["key"].mode == mode
+    decodes_as_jax(j, info, tparams, monkeypatch)
+
+
+def decodes_as_jax(j, info, tparams, monkeypatch):
+    """A port engine of ``ENGINE_ROWS`` on ``tparams`` beside the JAX engine
+    ``j``: the ragged prefill and the decode chunk, compared."""
     t = TEngine(TLoaded(info=info, params=tparams), max_batch=ENGINE_ROWS,
                 token_chunk_size=CHUNK, device="cpu")
     calls = []

@@ -5,7 +5,10 @@ tokens from numpy seeds) go through
 ``ai00_server_tpu.ops.v56_phased_pallas.forward_t1`` — the Pallas kernel,
 in interpret mode, ``na=1`` — and through the port's ``ops/v56_phased`` on
 CPU tensors (every wrapper runs its kernel's plain version), at B=12 with
-one inactive row, whose state must keep its bits.
+one inactive row, whose state must keep its bits.  nf4 / sf4 models reach
+the Pallas kernel as int8 surrogate codes (``quant.surrogate_group``, as
+the JAX engine converts them on its TPU) and the port's stack as the
+packed codes.
 
 Tolerances, relative to each tensor's largest magnitude:
 
@@ -24,6 +27,7 @@ Tolerances, relative to each tensor's largest magnitude:
   (``test_fused_stack_is_not_the_phased_arithmetic``).
 """
 
+import copy
 import functools
 
 import numpy as np
@@ -38,6 +42,7 @@ from ai00_server_tpu.loader import LoadedModel as JLoaded
 from ai00_server_tpu.models import ModelVersion
 from ai00_server_tpu.models import v5 as jv5
 from ai00_server_tpu.models import v6 as jv6
+from ai00_server_tpu.ops import quant as jquant
 from ai00_server_tpu.ops import sampling as jsampling
 from ai00_server_tpu.ops import v5_decode_pallas as jfd5
 from ai00_server_tpu.ops import v6_decode_pallas as jfd6
@@ -127,17 +132,37 @@ def jax_phased(version, jparams, state, t1, l1):
     return np.asarray(jh.astype(jnp.float32)), jax.tree.map(np.asarray, js)
 
 
+@functools.lru_cache(maxsize=None)
+def jax_surrogate(case):
+    """The JAX params of an nf4 / sf4 ``case`` as the JAX engine serves them
+    on its TPU: a deep copy with every 4-bit leaf turned into its int8
+    surrogate (``surrogate_group`` converts in place), and the fused layout
+    made anew from it."""
+    version, _, _, jparams, _ = make_pair(case)
+    jfd = VER[version][1]
+    params = copy.deepcopy({k: v for k, v in jparams.items()
+                            if k != jfd.FUSED_KEY})
+    assert set(jquant.surrogate_group(params).values()) == {
+        case.split("-")[-1]}
+    params[jfd.FUSED_KEY] = jfd.make_fused_layout(params)
+    return params
+
+
 @pytest.mark.parametrize("case", [
     f"{v}-{c}" for v in ("V6", "V5")
     for c in ("float32", "bfloat16", "float32-int8", "bfloat16-int8",
-              "float32-int4", "bfloat16-int4")])
+              "float32-int4", "bfloat16-int4", "float32-nf4",
+              "bfloat16-nf4", "float32-sf4", "bfloat16-sf4")])
 def test_step_with_inactive_row_equals_jax_phased(case):
     version, name, info, jparams, tparams = make_pair(case)
-    assert jpd.can_phase(jparams, B, version, na=1)
+    # nf4 / sf4: the TPU kernel reads the int8 surrogate codes.
+    jstep = (jax_surrogate(case) if case.endswith(("nf4", "sf4"))
+             else jparams)
+    assert jpd.can_phase(jstep, B, version, na=1)
     assert tpd.can_phase(tparams, B, version)
     state = advanced_state(version, info, jparams)
     t1, l1 = step_inputs()
-    jh, js = jax_phased(version, jparams, state, t1, l1)
+    jh, js = jax_phased(version, jstep, state, t1, l1)
     ts = torch_state(state)
     th, ts_out = tpd.forward_t1(tparams, ts, torch.from_numpy(t1),
                                 torch.from_numpy(l1))
@@ -202,10 +227,12 @@ def test_wkv_gn_round_yf(dtype):
 
 @pytest.mark.parametrize("case,batch,stack", [
     ("V6-bfloat16", 8, "fused"), ("V6-bfloat16", 12, "phased"),
-    ("V6-float32-int8", 64, "phased"), ("V6-float32-nf4", 12, "fused"),
+    ("V6-float32-int8", 64, "phased"), ("V6-float32-nf4", 12, "phased"),
     ("V5-bfloat16", 64, "phased"), ("V5-float32-int4", 9, "phased"),
-    ("V5-float32-sf4", 64, "fused")])
+    ("V5-float32-sf4", 64, "phased"), ("V6-bfloat16-nf4", 8, "fused")])
 def test_stack_for_picks_phased_above_eight_rows(case, batch, stack):
+    """Phased above the fused products' 8 rows in every weight mode, the
+    fused stack at 8 rows or fewer."""
     version, _, _, _, tparams = make_pair(case)
     want = tpd if stack == "phased" else VER[version][3]
     assert tfused.stack_for(version, tparams, batch) is want

@@ -2,27 +2,35 @@
 """A/B of ``phased_matmul`` (``csrc/phased.cu``) against an earlier version
 of its kernel, on one card, in turns.
 
-    git show 1bdc8c9:ai00_server_tpu_torch/csrc/phased.cu \\
+    git show 6b1449e:ai00_server_tpu_torch/csrc/phased.cu \\
         > chip_smoke_tmp/old/phased.cu        # any directory git ignores
     python3 tools/torch_phased_ab.py --old chip_smoke_tmp/old/phased.cu \\
         [--out results.json]
 
-``--old`` is a ``phased.cu`` with the earlier C interface
-(``phased_matmul_launch(desc, n_prob, B, dtype, wbits, stream)``, the
-launch planned in C); it is built with ``nvcc`` beside the current one
-(the same flags and shared headers) into ``--build``.  Every launch of a
-layer - the big projections in bf16, int8 and int4, the LoRA products
-(always bf16) - at the RWKV-7 0.4B (C=1024, F=4096) and 2.9B (C=2560,
-F=10240) widths, RWKV-5 0.4B (C=1024, F=3584) and the RWKV-6 1B6 layer
-(C=2048, F=7168, token-shift LoRA 32 with its five strided offsets, decay
-LoRA 64), at B = 16 and 64, is timed in the order old, new, new, old
-(CUDA events around a CUDA graph of launches whose weights rotate through
-more than the 50 MB L2), beside ``torch.matmul`` on the bf16 products, the
-bytes bound (each input read once, each output written once, over 3.35
-TB/s) and the x and weight bytes the current kernel's TMA boxes stage.
-Both kernels are first held to the plain version.  Prints the card's line
-and one JSON object, and writes it to ``--out`` when given.  Imports
-nothing of JAX.
+``--old`` is an earlier ``phased.cu`` (launches planned by
+``ops/phased_matmul.py:plan``), built with ``nvcc`` beside the current one
+(the same flags and shared headers) into ``--build``.  Its C interface is
+read from its source: where ``phased_matmul_launch`` takes the nf4 / sf4
+level table (``levels``), nf4 and sf4 run in turns as well; where it does
+not (``(desc, n_prob, plan, n_launch, dtype, wbits, stream)``), they run
+on the new kernel alone.
+Every launch of a layer - the big projections in bf16,
+int8, int4, nf4 and sf4, the LoRA products (always bf16) - at the RWKV-7
+0.4B (C=1024, F=4096) and 2.9B (C=2560, F=10240) widths, RWKV-5 0.4B
+(C=1024, F=3584) and the RWKV-6 1B6 layer (C=2048, F=7168, token-shift
+LoRA 32 with its five strided offsets, decay LoRA 64), at B = 16 and 64,
+is timed in the order old, new, new, old (CUDA events around a CUDA graph
+of launches whose weights rotate through more than the 50 MB L2; nf4 and
+sf4, where the old interface lacks them, new twice), beside ``torch.matmul`` on
+the bf16 products, the bytes bound (each input read once, each output
+written once, over 3.35 TB/s) and the x and weight bytes the current
+kernel's TMA boxes stage.  Both kernels are first held to the plain
+version.  Then the check: a layer's launches in bf16, int8 and int4,
+summed per width and B, must stay within ``HELD`` (3%) of the old
+kernel's (exit status 1 where one moved); nf4 / sf4 sums, where the old
+kernel takes them, are printed beside them, unchecked.  Prints
+the card's line and one JSON object, and writes it to ``--out`` when
+given.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -41,6 +50,7 @@ import chip_smoke as cs  # noqa: E402
 
 L2_BYTES = 50e6
 MAX_SETS = 400
+HELD = 0.03  # how far a layer's bf16 / int8 / int4 launches may move
 
 
 def layers():
@@ -72,7 +82,16 @@ def layers():
     }
 
 
-def build_old(src: Path, out_dir: Path) -> ctypes.CDLL:
+def takes_levels(src: Path) -> bool:
+    """Whether the source's ``phased_matmul_launch`` takes a level table."""
+    sig = re.search(r"int\s+phased_matmul_launch\s*\(([^)]*)\)",
+                    src.read_text())
+    if sig is None:
+        sys.exit(f"{src} defines no phased_matmul_launch")
+    return re.search(r"\blevels\b", sig.group(1)) is not None
+
+
+def build_old(src: Path, out_dir: Path, levels: bool) -> ctypes.CDLL:
     from ai00_server_tpu_torch.ops import _build
 
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -84,8 +103,9 @@ def build_old(src: Path, out_dir: Path) -> ctypes.CDLL:
         sys.exit(f"nvcc failed for {src}:\n{proc.stderr}")
     dll = ctypes.CDLL(str(lib))
     dll.phased_matmul_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int,
+        *([ctypes.c_void_p] if levels else []), ctypes.c_void_p]
     dll.phased_matmul_launch.restype = ctypes.c_int
     return dll
 
@@ -97,6 +117,7 @@ def main() -> None:
                     default=ROOT / "chip_smoke_tmp" / "ab_build")
     ap.add_argument("--out", type=Path)
     args = ap.parse_args()
+    old_levels = takes_levels(args.old)
 
     import torch
 
@@ -110,7 +131,7 @@ def main() -> None:
     card = cs.card_line()
     print(card, flush=True)
     dev = torch.device("cuda", 0)
-    old_lib = build_old(args.old, args.build)
+    old_lib = build_old(args.old, args.build, old_levels)
     _build.build_all()
     cd = torch.bfloat16
     gen = torch.Generator(device=dev)
@@ -119,11 +140,23 @@ def main() -> None:
     def rnd(*shape, scale=1.0):
         return torch.randn(*shape, generator=gen, device=dev) * scale
 
+    old_modes = pm.MODES if old_levels else ("none", "int8", "int4")
+
     def old_matmul(products):
-        table, outs, mode, B, dev_ = fd.launch_table(products, pm.MODES)
+        table, outs, mode, B, dev_ = fd.launch_table(products, old_modes)
+        wbits = {"none": 0, "int8": 8}.get(mode, 4)
+        launches = pm.plan([p.KN for p in products], B, mode, cd,
+                           pm.sm_count(dev_.index),
+                           pm._clusters(dev_.index, pm.kernel_kind(mode),
+                                        pm.padded_rows(min(B, pm.ROWS))))
+        ptab = fd.plan_table(launches)
+        levels = ([ctypes.addressof(pm.levels_table(mode))
+                   if mode in pm.TABLE_MODES else None]
+                  if old_levels else [])
         status = old_lib.phased_matmul_launch(
-            ctypes.addressof(table), len(products), B, fd._DTYPE_CODE[cd],
-            {"none": 0, "int8": 8, "int4": 4}[mode], fd._stream(dev_))
+            ctypes.addressof(table), len(products), ctypes.addressof(ptab),
+            len(launches), fd._DTYPE_CODE[cd], wbits, *levels,
+            fd._stream(dev_))
         _build.check(status, "phased_matmul (old)")
         return outs
 
@@ -140,7 +173,8 @@ def main() -> None:
     for model, groups in layers().items():
         for gname, specs in groups.items():
             lora = gname.startswith("lora")
-            for mode in ("bf16",) if lora else ("bf16", "int8", "int4"):
+            for mode in (("bf16",) if lora else
+                         ("bf16", "int8", "int4", "nf4", "sf4")):
                 pmode = "none" if mode == "bf16" else mode
                 wbytes = sum(K * N * 2 for K, N, _ in specs)
                 n_sets = min(MAX_SETS, int(2 * L2_BYTES // wbytes) + 1)
@@ -189,16 +223,20 @@ def main() -> None:
                         return out
 
                     what = f"{model} {gname} {mode} B={B}"
+                    has_old = pmode in old_modes
                     want = pm.phased_matmul_plain(prods(0, True))
                     close(pm.phased_matmul(prods(0, True)), want, specs, what)
-                    close(old_matmul(prods(0, True)), want, specs,
-                          what + " (old)")
+                    if has_old:
+                        close(old_matmul(prods(0, True)), want, specs,
+                              what + " (old)")
                     torch.cuda.synchronize()
                     new = lambda i: pm.phased_matmul(prods(i))  # noqa: E731
                     old = lambda i: old_matmul(prods(i))  # noqa: E731
-                    t = {}
-                    for turn, fn in (("old", old), ("new", new),
-                                     ("new", new), ("old", old)):
+                    t = {"old": []}
+                    turns = ((("old", old), ("new", new), ("new", new),
+                              ("old", old)) if has_old
+                             else (("new", new), ("new", new)))
+                    for turn, fn in turns:
                         t.setdefault(turn, []).append(cs.device_ms(
                             cs.rotating(fn, n_sets), iters))
                     lib_ms = cs.device_ms(cs.rotating(
@@ -224,22 +262,46 @@ def main() -> None:
                            "w_staged_bytes": w_st, "cs": plan[0].cs,
                            "clusters": plan[0].clusters}
                     rows.append(row)
-                    mo = sum(t["old"]) / 2
                     mn = sum(t["new"]) / 2
-                    print(f"{what}: old {mo:.5f} new {mn:.5f} ms "
-                          f"({mo / mn:.2f}x; turns {t['old'][0]:.5f} "
-                          f"{t['new'][0]:.5f} {t['new'][1]:.5f} "
-                          f"{t['old'][1]:.5f}), torch.matmul {lib_ms:.5f}, "
+                    vs = (f"old {sum(t['old']) / 2:.5f} new {mn:.5f} ms "
+                          f"({sum(t['old']) / 2 / mn:.2f}x; turns "
+                          f"{t['old'][0]:.5f} {t['new'][0]:.5f} "
+                          f"{t['new'][1]:.5f} {t['old'][1]:.5f})"
+                          if has_old else
+                          f"new {mn:.5f} ms (turns {t['new'][0]:.5f} "
+                          f"{t['new'][1]:.5f}; not in the old kernel)")
+                    print(f"{what}: {vs}, torch.matmul {lib_ms:.5f}, "
                           f"bound {b_ms:.5f} by {b_by}; cs {plan[0].cs} x "
                           f"{plan[0].clusters} clusters, x staged "
                           f"{x_st / w_st:.3f} of the weight boxes",
                           flush=True)
                 del sets
-    result = {"card": card, "rows": rows}
+    # The check: each layer's launches of a mode the old kernel takes, in
+    # turns, summed per width, mode and B.
+    layer = {}
+    for r in rows:
+        if r["old_ms"]:
+            k = (r["model"], r["mode"], r["B"])
+            o, n = layer.get(k, (0.0, 0.0))
+            layer[k] = (o + sum(r["old_ms"]) / 2, n + sum(r["new_ms"]) / 2)
+    moved = []
+    for (model, mode, B), (o, n) in layer.items():
+        verdict = "held" if abs(n / o - 1) <= HELD else "MOVED"
+        if mode not in ("bf16", "int8", "int4"):
+            verdict = "not checked"
+        elif verdict == "MOVED":
+            moved.append(f"{model} {mode} B={B}")
+        print(f"{model} {mode} B={B}, a layer's launches: old {o:.5f} new "
+              f"{n:.5f} ms ({n / o - 1:+.2%}; {verdict} at "
+              f"{HELD:.0%})", flush=True)
+    result = {"card": card, "rows": rows, "held": HELD,
+              "moved": moved}
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(result, indent=1))
     print(json.dumps(result))
+    if moved:
+        sys.exit(f"moved by more than {HELD:.0%}: {moved}")
 
 
 if __name__ == "__main__":
